@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--json PATH] [--profile DIR]
 
-Stages; any failure exits non-zero:
+Stages, run in the order 1-9; any failure exits non-zero:
 
 1. environment: torch/CUDA/nvcc versions, the card's name and power limit;
 2. build: every ``deepspeed_tpu_torch/csrc/*.cu`` with nvcc for sm_90a
@@ -23,7 +23,29 @@ Stages; any failure exits non-zero:
 5. one prefill ragged step at full width and depth 2, kernel against the
    plain gather path, then teacher-forced decode steps;
 6. a small HF directory (config.json + pytorch_model.bin, fp32, Dh 64,
-   GQA) served through ``build_hf_engine`` on the card and on the CPU.
+   GQA) served through ``build_hf_engine`` on the card and on the CPU;
+7. the training kernels against their plain versions: flash attention's
+   forward, dq and dk/dv kernels (each on the same inputs as its plain
+   version) in bf16 at the training shapes [4, 2048, 32, 128] causal, with
+   GQA 32/8 and a 1024 window, with sq < sk, and in fp32 at a smaller
+   size; the fused Adam step over the flat buffer of the 8-layer
+   Llama-2-7B-width model's leaves; times of each kernel, its plain
+   version, a library call (``scaled_dot_product_attention``,
+   ``torch.optim.AdamW(fused=True)``) and the bound;
+8. training at full width: Llama-2-7B width, 8 layers, bf16, random
+   weights from ``initialize_parameters(seed)``, through
+   ``deepspeed_tpu_torch.initialize`` with bench.py's config (micro batch
+   4, fusedadam lr 1e-4, ZeRO 0); one batch [4, 2048] from the seed, 2
+   warm-up and 6 timed steps: losses, step time, tokens/s, MFU, peak
+   memory and each kernel's launches in the timed steps (8/8/8 flash and 1
+   Adam per step, exactly);
+9. one training step at full width and depth 2 (B=2, S=2048), kernels
+   against their plain versions from the same weights: loss, gradients,
+   grad norm and the master after the step.
+
+``--profile DIR`` adds ``torch.profiler`` windows over serving (stage 4)
+and over two training steps (stage 8): device time by kind and the idle
+share.
 
 Prints a ``{"kernels": [...]}`` line, then, last, the device line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
@@ -46,6 +68,13 @@ BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor rate
 # 2^-7·|ref|) plus the fp32 differences of another summation order
 BF16_RTOL, BF16_ATOL = 2.0**-7, 1e-4
 FP32_ATOL = 1e-4
+# fp32 outputs of the flash kernels (lse, delta, the fp32 case): the same
+# fp32 arithmetic in another summation order
+FP32_RTOL = 1e-5
+# the fused Adam kernel and its plain version do the same fp32 operations
+# in the same order (none contracted into an FMA): equal up to one fp32 ulp
+# for master/m/v, one bf16 ulp for the bf16 copy
+ADAM_RTOL, ADAM_BF16_RTOL = 2.0**-23, 2.0**-8
 
 
 def log(msg):
@@ -108,6 +137,12 @@ def stage_build():
                     f"{lib.ds_paged_attention_smem_bytes(code, dh, rm)}"
                     for code, dt in ((0, "fp32"), (1, "bf16"))
                     for dh in (64, 128) for rm in (1, 4, 16)))
+    from deepspeed_tpu_torch.ops.op_builder import FlashAttentionBuilder
+    flib = FlashAttentionBuilder().load()
+    log("[build]   flash_attention dynamic shared memory per block (bytes): "
+        + ", ".join(f"{name}/D{d} {flib.ds_flash_smem_bytes(i, d)}"
+                    for i, name in enumerate(("fwd", "dq", "dkv"))
+                    for d in (64, 128)))
     log(f"[build] all kernels: {time.perf_counter() - t0:.1f} s")
 
 
@@ -418,60 +453,65 @@ def stage_serve(seed, smi, profile_dir=None):
     return result
 
 
-def profile_serve(eng, prompts, out_dir, smi):
-    """Where the serving time goes: ``torch.profiler`` over a prefill window
-    (``schedule_step`` until every prompt has its first token) and a decode
-    window (two 16-token ``burst_decode`` calls).  Sums device time by
-    kernel and takes the device's idle share as 1 - busy / wall of the
-    window (profiling slows the host, so the share is an upper bound)."""
+def _profile_window(stem, body, kind, out_dir, smi):
+    """``torch.profiler`` over ``body()``: device time by kernel, summed by
+    ``kind(kernel name)``, and the device's idle share as 1 - busy / wall
+    of the window (profiling slows the host, so the share is an upper
+    bound).  Writes the top kernels to ``out_dir/<stem>.txt``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        body()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        k = kernels.setdefault(e.key, [0.0, 0])
+        k[0] += us
+        k[1] += e.count
+    busy = sum(v[0] for v in kernels.values())
+    by_kind = {}
+    for key, (us, _) in kernels.items():
+        by_kind[kind(key)] = by_kind.get(kind(key), 0.0) + us
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, f"{stem}.txt"), "w") as f:
+        f.write(f"{smi}\nwindow {stem}: wall {wall_us / 1e3:.3f} ms, "
+                f"device busy {busy / 1e3:.3f} ms\n")
+        for key, (us, n) in top:
+            f.write(f"{us / 1e3:12.3f} ms {n:8d}  {key[:150]}\n")
+    out = dict(wall_ms=wall_us / 1e3, busy_ms=busy / 1e3,
+               idle_share=1 - busy / wall_us,
+               by_kind_ms={k: v / 1e3 for k, v in by_kind.items()})
+    log(f"[profile] {stem}: wall {out['wall_ms']:.1f} ms, device busy "
+        f"{out['busy_ms']:.1f} ms (idle share {out['idle_share']:.3f}),"
+        f" by kind (ms) " + ", ".join(
+            f"{k} {v:.1f}" for k, v in sorted(out["by_kind_ms"].items())))
+    return out
+
+
+def _is_matmul(name):
+    return any(k in name.lower() for k in ("gemm", "cutlass", "xmma",
+                                           "sm90_", "nvjet"))
+
+
+def profile_serve(eng, prompts, out_dir, smi):
+    """Where the serving time goes: a prefill window (``schedule_step``
+    until every prompt has its first token) and a decode window (two
+    16-token ``burst_decode`` calls)."""
 
     def kind(name):
         if "paged_attention" in name:
             return "paged_attention"
-        if any(k in name.lower() for k in ("gemm", "cutlass", "xmma",
-                                           "sm90_", "nvjet")):
-            return "matmul"
-        return "other"
-
-    def window(name, body):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            body()
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        kernels = {}
-        for e in prof.key_averages():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = e.self_cuda_time_total
-            k = kernels.setdefault(e.key, [0.0, 0])
-            k[0] += us
-            k[1] += e.count
-        busy = sum(v[0] for v in kernels.values())
-        by_kind = {}
-        for key, (us, _) in kernels.items():
-            by_kind[kind(key)] = by_kind.get(kind(key), 0.0) + us
-        top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
-        with open(os.path.join(out_dir, f"serve_profile_{name}.txt"),
-                  "w") as f:
-            f.write(f"{smi}\nwindow {name}: wall {wall_us / 1e3:.3f} ms, "
-                    f"device busy {busy / 1e3:.3f} ms\n")
-            for key, (us, n) in top:
-                f.write(f"{us / 1e3:12.3f} ms {n:8d}  {key[:150]}\n")
-        out = dict(wall_ms=wall_us / 1e3, busy_ms=busy / 1e3,
-                   idle_share=1 - busy / wall_us,
-                   by_kind_ms={k: v / 1e3 for k, v in by_kind.items()})
-        log(f"[profile] {name}: wall {out['wall_ms']:.1f} ms, device busy "
-            f"{out['busy_ms']:.1f} ms (idle share {out['idle_share']:.3f}),"
-            f" by kind (ms) " + ", ".join(
-                f"{k} {v:.1f}" for k, v in sorted(out["by_kind_ms"].items())))
-        return out
+        return "matmul" if _is_matmul(name) else "other"
 
     uids = list(range(100, 100 + len(prompts)))
     eng.put(uids, prompts)
@@ -487,9 +527,11 @@ def profile_serve(eng, prompts, out_dir, smi):
         for _ in range(2):
             eng.burst_decode(uids, max_tokens=16)
 
-    os.makedirs(out_dir, exist_ok=True)
-    result = dict(prefill=window("prefill", prefill),
-                  decode=window("decode", decode))
+    result = dict(
+        prefill=_profile_window("serve_profile_prefill", prefill, kind,
+                                out_dir, smi),
+        decode=_profile_window("serve_profile_decode", decode, kind, out_dir,
+                               smi))
     eng.flush(uids)
     return result
 
@@ -592,6 +634,389 @@ def stage_hf_dir(seed):
         raise AssertionError("the card's greedy tokens differ from the CPU's")
 
 
+# ---------------------------------------------------------------- stage 7
+FP32_FLOPS = 67e12               # H100 SXM fp32 outside the tensor cores
+
+
+def _live_pairs(sq, sk, causal, window):
+    """(query, key) pairs the attention mask keeps."""
+    import numpy as np
+    if not causal:
+        return sq * sk
+    r = np.arange(sq) + (sk - sq)
+    hi = np.minimum(r, sk - 1)
+    lo = np.maximum(r - window + 1, 0) if window else np.zeros_like(r)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def _roofline(nbytes, flops, peak):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _compare(torch, got, ref, bf16):
+    """(max |err|, worst |err| / tol): bf16 outputs within one bf16 ulp of
+    |ref| plus BF16_ATOL, fp32 outputs within FP32_ATOL + FP32_RTOL·|ref|."""
+    diff = (got.float() - ref.float()).abs()
+    if bf16:
+        tol = BF16_RTOL * ref.float().abs() + BF16_ATOL
+    else:
+        tol = FP32_ATOL + FP32_RTOL * ref.float().abs()
+    return diff.max().item(), (diff / tol).max().item()
+
+
+def _flash_case(torch, gen, name, B, sq, sk, Hq, Hkv, D, window, dtype,
+                timed=False):
+    """The three flash kernels, each against its plain version on the same
+    inputs (the backward ones on the forward kernel's o and lse)."""
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    dt = getattr(torch, dtype)
+    q, k, v, do = (torch.randn(B, s, h, D, device="cuda", generator=gen)
+                   .to(dt) for s, h in ((sq, Hq), (sk, Hkv), (sk, Hkv),
+                                        (sq, Hq)))
+    scale, kw = D**-0.5, dict(causal=True, window=window)
+    fwd = lambda: fa.flash_attention_fwd(q, k, v, scale, **kw)  # noqa: E731
+    o, lse = fwd()
+    dq_fn = lambda: fa.flash_attention_bwd_dq(  # noqa: E731
+        q, k, v, o, do, lse, scale, **kw)
+    dq, delta = dq_fn()
+    dkv_fn = lambda: fa.flash_attention_bwd_dkv(  # noqa: E731
+        q, k, v, do, lse, delta, scale, **kw)
+    dk, dv = dkv_fn()
+    torch.cuda.synchronize()
+    bf16 = dt == torch.bfloat16
+    errs = {}
+    o_ref, lse_ref = fa._plain_fwd(q, k, v, scale, **kw)
+    errs["o"] = _compare(torch, o, o_ref, bf16)
+    errs["lse"] = _compare(torch, lse, lse_ref, False)
+    del o_ref, lse_ref
+    dq_ref, delta_ref = fa._plain_bwd_dq(q, k, v, o, do, lse, scale, **kw)
+    errs["dq"] = _compare(torch, dq, dq_ref, bf16)
+    errs["delta"] = _compare(torch, delta, delta_ref, False)
+    del dq_ref, delta_ref
+    dk_ref, dv_ref = fa._plain_bwd_dkv(q, k, v, do, lse, delta, scale, **kw)
+    errs["dk"] = _compare(torch, dk, dk_ref, bf16)
+    errs["dv"] = _compare(torch, dv, dv_ref, bf16)
+    del dk_ref, dv_ref
+    torch.cuda.empty_cache()
+    tol_text = (f"2^-7·|ref| + {BF16_ATOL:g}" if bf16 else
+                f"{FP32_ATOL:g} + {FP32_RTOL:g}·|ref|")
+    log(f"[train-kernel] {name}: q [{B},{sq},{Hq},{D}] k/v [{B},{sk},{Hkv},"
+        f"{D}] causal window={window} {dtype}: " + ", ".join(
+            f"{w} {e:.2e} ({r:.3f})" for w, (e, r) in errs.items())
+        + f" — max_abs_err (worst |err| / tol), tol {tol_text} for "
+        f"{dtype} outputs, {FP32_ATOL:g} + {FP32_RTOL:g}·|ref| for lse and "
+        f"delta")
+    bad = {w: r for w, (e, r) in errs.items() if not r <= 1.0}
+    if bad:
+        raise AssertionError(f"{name}: flash kernels differ from their plain "
+                             f"versions beyond tolerance: {bad}")
+    row = dict(case=name, err_fwd=errs["o"][0],
+               err_bwd=max(errs[w][0] for w in ("dq", "dk", "dv")),
+               worst=max(r for _, r in errs.values()))
+    if not timed:
+        return row
+    row["ms_fwd"] = cuda_ms(fwd, 10)
+    row["ms_dq"] = cuda_ms(dq_fn, 10)
+    row["ms_dkv"] = cuda_ms(dkv_fn, 10)
+    row["plain_ms_fwd"] = cuda_ms(lambda: fa._plain_fwd(q, k, v, scale, **kw),
+                                  3, warmup=1)
+
+    def plain_bwd():
+        fa._plain_bwd_dq(q, k, v, o, do, lse, scale, **kw)
+        fa._plain_bwd_dkv(q, k, v, do, lse, delta, scale, **kw)
+
+    row["plain_ms_bwd"] = cuda_ms(plain_bwd, 3, warmup=1)
+    torch.cuda.empty_cache()
+    # library yardstick: SDPA on [B, H, S, D] (same shapes, sq == sk here)
+    qh, kh, vh, doh = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qh, kh, vh, is_causal=True)
+    row["library_ms_fwd"] = cuda_ms(sdpa, 10)
+    for t in (qh, kh, vh):
+        t.requires_grad_(True)
+
+    def sdpa_fwd_bwd():
+        sdpa().backward(doh)
+
+    row["library_ms_fwd_bwd"] = cuda_ms(sdpa_fwd_bwd, 10)
+    row["library_ms_bwd"] = row["library_ms_fwd_bwd"] - row["library_ms_fwd"]
+    pairs = _live_pairs(sq, sk, True, window)
+    flop = 2 * B * Hq * D * pairs            # one product over live pairs
+    nb = lambda *ts: sum(t.numel() * t.element_size() for t in ts)  # noqa
+    row["bound_fwd"] = _roofline(nb(q, k, v, o, lse), 2 * flop, BF16_FLOPS)
+    row["bound_bwd"] = _roofline(nb(q, k, v, o, do, lse, dq, dk, dv), 5 * flop,
+                              BF16_FLOPS)
+    row["gflop_fwd"], row["gflop_bwd"] = 2 * flop / 1e9, 5 * flop / 1e9
+    log(f"[train-kernel] {name} times (ms): fwd {row['ms_fwd']:.4f}, dq "
+        f"{row['ms_dq']:.4f}, dk/dv {row['ms_dkv']:.4f} | plain fwd "
+        f"{row['plain_ms_fwd']:.3f}, plain bwd {row['plain_ms_bwd']:.3f} | "
+        f"sdpa fwd {row['library_ms_fwd']:.4f}, fwd+bwd "
+        f"{row['library_ms_fwd_bwd']:.4f} | bound fwd "
+        f"{row['bound_fwd'][0]:.4f} ({row['gflop_fwd']:.1f} GFLOP), bwd "
+        f"{row['bound_bwd'][0]:.4f} ({row['gflop_bwd']:.1f} GFLOP) by "
+        f"{row['bound_bwd'][1]}")
+    return row
+
+
+def _adam_case(torch, gen, seed):
+    """Fused Adam over the flat buffer of the 8-layer Llama-2-7B-width
+    model's leaves (the engine's layout), against its plain version leaf by
+    leaf on the same state."""
+    from deepspeed_tpu_torch.models.llama import LlamaModel, llama_7b
+    from deepspeed_tpu_torch.ops.kernels import optimizers as opt
+    from deepspeed_tpu_torch.runtime.engine import flat_layout
+    model = LlamaModel(llama_7b(num_hidden_layers=8), device="meta")
+    layout, n = flat_layout((name, p.shape)
+                            for name, p in model.named_parameters())
+    leaves = [(o, k) for _, o, k, _ in layout]
+    dev = "cuda"
+    grad = torch.empty(n, device=dev).normal_(0.0, 1e-3, generator=gen)
+    master = torch.empty(n, device=dev).normal_(0.0, 0.02, generator=gen)
+    m = torch.empty(n, device=dev).normal_(0.0, 1e-4, generator=gen)
+    v = torch.empty(n, device=dev).uniform_(0.0, 1e-6, generator=gen)
+    out = torch.empty(n, dtype=torch.bfloat16, device=dev)
+    hyper = dict(lr=1e-4, beta1=0.9, beta2=0.999, eps=1e-8,
+                 weight_decay=0.0, count=3, adam_w_mode=True)
+    refs = [t.clone() for t in (master, m, v)]
+    out_ref = torch.empty_like(out)
+    opt.fused_adam_step(grad, master, m, v, out, **hyper)
+    views = lambda t: [t[o:o + k] for o, k in leaves]  # noqa: E731
+    opt.fused_adam_step_plain(views(grad), *map(views, refs), views(out_ref),
+                              **hyper)
+    torch.cuda.synchronize()
+    err, worst = 0.0, 0.0
+    for got_buf, ref_buf, rtol in ((master, refs[0], ADAM_RTOL),
+                                   (m, refs[1], ADAM_RTOL),
+                                   (v, refs[2], ADAM_RTOL),
+                                   (out, out_ref, ADAM_BF16_RTOL)):
+        for got, ref in zip(views(got_buf), views(ref_buf)):
+            d = (got.float() - ref.float()).abs()
+            tol = rtol * ref.float().abs()
+            err = max(err, d.max().item())
+            worst = max(worst, torch.where(d == 0, 0.0, d / tol).max().item())
+    del refs, out_ref
+    torch.cuda.empty_cache()
+    log(f"[train-kernel] fused_adam_step: {len(leaves)} leaves, {n:,} "
+        f"elements (flat, 16-element aligned): max_abs_err {err:.3e}, worst "
+        f"|err| / tol {worst:.3f} (tol 2^-23·|ref| for master/m/v, 2^-8·|ref|"
+        f" for the bf16 copy: the same fp32 operations in the same order)")
+    if not worst <= 1.0:
+        raise AssertionError(f"fused Adam differs from its plain version by "
+                             f"{worst} × tol")
+    row = dict(case="adam_8L_7b", err=err, worst=worst, elements=n,
+               leaves=len(leaves))
+    row["ms"] = cuda_ms(lambda: opt.fused_adam_step(grad, master, m, v, out,
+                                                    **hyper), 5)
+    row["plain_ms"] = cuda_ms(
+        lambda: opt.fused_adam_step_plain(views(grad), views(master),
+                                          views(m), views(v), views(out),
+                                          **hyper), 2, warmup=1)
+    p = torch.nn.Parameter(master)
+    p.grad = grad
+    lib = torch.optim.AdamW([p], lr=1e-4, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=0.0, fused=True)
+
+    def library():
+        lib.step()
+        out.copy_(p.detach())
+
+    row["library_ms"] = cuda_ms(library, 5)
+    row["bound"] = _roofline(n * (4 + 12 + 12 + 2), n * 20, FP32_FLOPS)
+    log(f"[train-kernel] fused_adam_step times (ms): kernel {row['ms']:.3f} "
+        f"| plain {row['plain_ms']:.3f} | AdamW(fused=True) + bf16 copy "
+        f"{row['library_ms']:.3f} | bound {row['bound'][0]:.3f} by "
+        f"{row['bound'][1]} (30 B per element)")
+    del p, lib, grad, master, m, v, out
+    torch.cuda.empty_cache()
+    return row
+
+
+def stage_train_kernels(seed):
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    cases = [
+        # (name, B, sq, sk, Hq, Hkv, D, window, dtype, timed): "train" has
+        # the training path's shapes (8 layers of these per step)
+        ("train", 4, 2048, 2048, 32, 32, 128, 0, "bfloat16", True),
+        ("gqa_window", 2, 2048, 2048, 32, 8, 128, 1024, "bfloat16", False),
+        ("sq_lt_sk", 2, 512, 2048, 32, 32, 128, 0, "bfloat16", False),
+        ("fp32", 1, 512, 512, 8, 8, 128, 0, "float32", False),
+    ]
+    rows = []
+    for *args, timed in cases:
+        rows.append(_flash_case(torch, gen, *args, timed=timed))
+        torch.cuda.empty_cache()
+    rows.append(_adam_case(torch, gen, seed))
+    return rows
+
+
+# ---------------------------------------------------------------- stage 8
+# bench.py:160-166 (its B, optimizer, precision and ZeRO stage)
+TRAIN_CONFIG = {"train_micro_batch_size_per_gpu": 4,
+                "gradient_accumulation_steps": 1,
+                "optimizer": {"type": "fusedadam", "params": {"lr": 1e-4}},
+                "bf16": {"enabled": True},
+                "zero_optimization": {"stage": 0}}
+
+
+def _train_launches():
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    from deepspeed_tpu_torch.ops.kernels import optimizers as opt
+    return {"flash_attention": fa.flash_attention_fwd,
+            "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
+            "fused_adam_step": opt.fused_adam_step}
+
+
+def stage_train(seed, smi, profile_dir=None):
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import (LlamaModel, llama_7b,
+                                                  param_count)
+    B, S, L, warmup, timed = 4, 2048, 8, 2, 6
+    cfg = llama_7b(num_hidden_layers=L, remat=False, head_dtype="bfloat16")
+    t0 = time.perf_counter()
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=LlamaModel(cfg, device="meta"), config=dict(TRAIN_CONFIG))
+    engine.initialize_parameters(seed)
+    torch.cuda.synchronize()
+    log(f"[train] Llama-2-7B width, {L} layers, {param_count(cfg):,} params,"
+        f" bf16 + fp32 master/moments/grad accumulator: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB of state, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    ids = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, size=(B, S))).cuda()
+
+    def one_step():
+        loss = engine(ids, ids)
+        engine.backward(loss)
+        engine.step()
+        return loss
+
+    losses = [one_step().item() for _ in range(warmup)]
+    counters = _train_launches()
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(timed):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = one_step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        losses.append(loss.item())
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    step_s = float(np.mean(times))
+    tok_s = B * S / step_s
+    flops_tok = 6 * param_count(cfg) + 12 * L * S * cfg.hidden_size
+    mfu = tok_s * flops_tok / BF16_FLOPS
+    log(f"[train] losses (2 warm-up, then 6 timed): "
+        + ", ".join(f"{x:.4f}" for x in losses))
+    log(f"[train] step ms " + ", ".join(f"{t * 1e3:.1f}" for t in times)
+        + f" | mean {step_s * 1e3:.1f} ms, {tok_s:.1f} tokens/s, MFU "
+        f"{mfu:.4f} ({flops_tok / 1e9:.2f} GFLOP/token = 6N + 12·L·S·D, "
+        f"989 TFLOP/s) | peak memory {peak / 2**30:.2f} GiB | {smi}")
+    log(f"[train] kernel launches in the {timed} timed steps: {launches}")
+    want = {"flash_attention": L * timed, "flash_attention_bwd_dq": L * timed,
+            "flash_attention_bwd_dkv": L * timed, "fused_adam_step": timed}
+    if launches != want:
+        raise AssertionError(f"kernel launches {launches}, want {want}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"losses not finite and falling: {losses}")
+    result = dict(losses=losses, step_ms=[t * 1e3 for t in times],
+                  step_ms_mean=step_s * 1e3, tokens_per_s=tok_s, mfu=mfu,
+                  peak_bytes=peak, launches=launches,
+                  flops_per_token=flops_tok)
+    if profile_dir:
+        def kind(name):
+            if "flash_fwd" in name:
+                return "flash_fwd"
+            if "flash_bwd" in name:
+                return "flash_bwd"
+            if "adam_kernel" in name:
+                return "adam"
+            return "matmul" if _is_matmul(name) else "other"
+
+        result["profile"] = _profile_window(
+            "train_profile", lambda: [one_step() for _ in range(2)], kind,
+            profile_dir, smi)
+    del engine
+    torch.cuda.empty_cache()
+    return result
+
+
+# ---------------------------------------------------------------- stage 9
+def stage_train_step_vs_plain(seed):
+    """One training step at full width and depth 2 from the same weights,
+    with the kernels and with their plain versions."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import LlamaModel, llama_7b
+    cfg = llama_7b(num_hidden_layers=2, remat=False, head_dtype="bfloat16")
+    config = dict(TRAIN_CONFIG, train_micro_batch_size_per_gpu=2)
+    lr = config["optimizer"]["params"]["lr"]
+    ids = torch.from_numpy(np.random.default_rng(seed + 2).integers(
+        0, cfg.vocab_size, size=(2, 2048))).cuda()
+    res = {}
+    for use_kernel in (True, False):
+        eng, _, _, _ = deepspeed_tpu_torch.initialize(
+            model=LlamaModel(cfg, device="meta"), config=dict(config))
+        eng.initialize_parameters(seed + 3)
+        loss = eng(ids, ids, use_kernel=use_kernel)
+        eng.backward(loss)
+        grad = eng.grad_acc.clone()
+        layout = eng._layout
+        eng.step(use_kernel=use_kernel)
+        res[use_kernel] = (loss.item(), float(eng._last_gnorm), grad,
+                           eng.master.clone())
+        del eng, loss
+        torch.cuda.empty_cache()
+    (lk, nk, gk, mk), (lp, npl, gp, mp) = res[True], res[False]
+    loss_rel = abs(lk - lp) / abs(lp)
+    norm_rel = abs(nk - npl) / npl
+    grad_rel = ((gk - gp).abs().max() / gp.abs().max()).item()
+    leaf_rel, leaf_name = max(
+        (((gk[o:o + n] - gp[o:o + n]).abs().max() /
+          gp[o:o + n].abs().max()).item(), name)
+        for name, o, n, _ in layout)
+    apart = (mk - mp).abs() > lr / 2
+    flipped = apart.float().mean().item()
+    leaf_flipped, flipped_name = max(
+        (apart[o:o + n].float().mean().item(), name)
+        for name, o, n, _ in layout)
+    log(f"[train-step] depth 2, B=2, S=2048, kernels vs plain: loss {lk:.6f}"
+        f" vs {lp:.6f} (rel {loss_rel:.2e}, tol 2^-7), grad norm {nk:.6f} vs "
+        f"{npl:.6f} (rel {norm_rel:.2e}, tol 2^-7), max|Δgrad| / max|grad| "
+        f"{grad_rel:.2e} (tol 2^-5), worst leaf {leaf_rel:.2e} ({leaf_name}, "
+        f"tol 2^-4), master after the step: share moved apart by more than "
+        f"lr/2 {flipped:.2e} overall, worst leaf {leaf_flipped:.2e} "
+        f"({flipped_name}, tol 1e-2)")
+    # bf16 activations: a flash output that rounds the other way is one
+    # bf16 ulp (2^-8..2^-7 relative) apart, and the mean loss, the norm and
+    # the largest gradient move by less than that; after one Adam step each
+    # master element moves by lr·g/(|g|+eps), about lr, so only elements
+    # whose gradient sign differs between the paths (those near 0) end up
+    # more than lr/2 apart, while a leaf whose update went wrong is apart
+    # on most of its elements: the share is held per leaf
+    if not (loss_rel <= 2.0**-7 and norm_rel <= 2.0**-7 and
+            grad_rel <= 2.0**-5 and leaf_rel <= 2.0**-4 and
+            leaf_flipped <= 1e-2):
+        raise AssertionError("training step: kernels differ from the plain "
+                             "path beyond tolerance")
+    return dict(loss=(lk, lp), grad_norm=(nk, npl), loss_rel=loss_rel,
+                norm_rel=norm_rel, grad_rel=grad_rel, leaf_rel=leaf_rel,
+                leaf=leaf_name, flipped_share=flipped,
+                leaf_flipped_share=leaf_flipped, leaf_flipped=flipped_name)
+
+
 # ------------------------------------------------------------------ main
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -599,7 +1024,8 @@ def main():
     ap.add_argument("--json", help="also write every number to this file")
     ap.add_argument("--profile", metavar="DIR",
                     help="also profile a prefill and a decode window of the "
-                         "serving engine; write kernel tables to DIR")
+                         "serving engine and two training steps; write "
+                         "kernel tables to DIR")
     args = ap.parse_args()
 
     if not os.path.isdir(os.path.join(REPO, "deepspeed_tpu_torch")):
@@ -619,6 +1045,9 @@ def main():
     serve = stage_serve(args.seed, smi, args.profile)
     step = stage_step_vs_plain(args.seed)
     stage_hf_dir(args.seed)
+    train_kernels = stage_train_kernels(args.seed)
+    train = stage_train(args.seed, smi, args.profile)
+    train_step = stage_train_step_vs_plain(args.seed)
 
     entries = []
     for wrapper, case in (("paged_attention", "serve_decode"),
@@ -633,10 +1062,48 @@ def main():
             ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"]))
+    flash = next(r for r in train_kernels if r["case"] == "train")
+    adam = next(r for r in train_kernels if r["case"] == "adam_8L_7b")
+    src = "deepspeed_tpu/ops/pallas/"
+    launches = train["launches"]
+    entries += [
+        dict(name="flash_attention", route="cuda",
+             source="deepspeed_tpu_torch/csrc/flash_attention.cu",
+             replaces=src + "flash_attention.py:185",
+             launches=launches["flash_attention"],
+             max_abs_err=flash["err_fwd"], ms=flash["ms_fwd"],
+             plain_ms=flash["plain_ms_fwd"], bound_ms=flash["bound_fwd"][0],
+             bound_by=flash["bound_fwd"][1],
+             library_ms=flash["library_ms_fwd"]),
+        # dq (:321) and dk/dv (:348): two launches per backward; ms is
+        # their sum, library_ms SDPA's forward+backward less its forward
+        dict(name="flash_attention_bwd", route="cuda",
+             source="deepspeed_tpu_torch/csrc/flash_attention.cu",
+             replaces=src + "flash_attention.py:321",
+             replaces_dkv=src + "flash_attention.py:348",
+             launches=(launches["flash_attention_bwd_dq"] +
+                       launches["flash_attention_bwd_dkv"]),
+             launches_dq=launches["flash_attention_bwd_dq"],
+             launches_dkv=launches["flash_attention_bwd_dkv"],
+             max_abs_err=flash["err_bwd"],
+             ms=flash["ms_dq"] + flash["ms_dkv"], ms_dq=flash["ms_dq"],
+             ms_dkv=flash["ms_dkv"], plain_ms=flash["plain_ms_bwd"],
+             bound_ms=flash["bound_bwd"][0], bound_by=flash["bound_bwd"][1],
+             library_ms=flash["library_ms_bwd"]),
+        dict(name="fused_adam_step", route="cuda",
+             source="deepspeed_tpu_torch/csrc/optimizers.cu",
+             replaces=src + "optimizers.py:100",
+             launches=launches["fused_adam_step"], max_abs_err=adam["err"],
+             ms=adam["ms"], plain_ms=adam["plain_ms"],
+             bound_ms=adam["bound"][0], bound_by=adam["bound"][1],
+             library_ms=adam["library_ms"]),
+    ]
     if args.json:
         with open(args.json, "w") as f:
             json.dump(dict(card=smi, kernels=kernels, serve=serve,
-                           step=step, seconds=time.perf_counter() - t_start),
+                           step=step, train_kernels=train_kernels,
+                           train=train, train_step=train_step,
+                           seconds=time.perf_counter() - t_start),
                       f, indent=1, default=str)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -8,7 +8,50 @@ kernel on a ported path is a kernel written by hand for ``sm_90a`` under
 unless the caller passes ``device="cpu"``.
 
 Ported so far: FastGen-v2 serving of the Llama family
-(``inference.v2.build_hf_engine``), with the paged-attention kernel.
+(``inference.v2.build_hf_engine``, with the paged-attention kernel) and
+training through :func:`initialize` at ZeRO stage 0 (with the
+flash-attention and fused-Adam kernels).
 """
 
 __version__ = "0.1.0"
+
+
+def initialize(args=None, model=None, optimizer=None, model_parameters=None,
+               training_data=None, lr_scheduler=None, distributed_port=29500,
+               mesh_param=None, dist_init_required=None, collate_fn=None,
+               config=None, mpu=None, config_params=None, device=None):
+    """Build the training engine (reference ``deepspeed/__init__.py:69``;
+    the JAX package's ``initialize``).  Returns ``(engine, optimizer,
+    training_dataloader, lr_scheduler)``; the dataloader is None.
+
+    ``model``: a ``torch.nn.Module`` whose ``forward`` returns the loss when
+    given labels (``models.llama.LlamaModel``).  ``model_parameters``: an
+    optional ``{name: tensor}`` of initial (fp32) weights; without it the
+    module's own values are used, or, for a module built on the meta
+    device, ``engine.initialize_parameters(seed)`` draws them.
+    ``device``: None means the CUDA card (raises without one); the CPU runs
+    only when named.  ``mesh_param``, ``dist_init_required=True`` and a
+    ``distributed_port`` other than the default concern the distributed
+    layer, and ``collate_fn`` the dataloader, which this port does not
+    have yet: they raise."""
+    from .runtime.config import DeepSpeedConfig
+    from .runtime.engine import DeepSpeedEngine
+    from .utils.not_ported import not_ported
+
+    if mesh_param is not None or dist_init_required or \
+            distributed_port != 29500:
+        raise not_ported("initialize(mesh_param=..., dist_init_required="
+                         "True, distributed_port=...)", 2)
+    if config is None:
+        config = config_params
+    if config is None and args is not None:
+        config = getattr(args, "deepspeed_config", None)
+    engine = DeepSpeedEngine(args=args, model=model, optimizer=optimizer,
+                             model_parameters=model_parameters,
+                             training_data=training_data,
+                             lr_scheduler=lr_scheduler,
+                             collate_fn=collate_fn,
+                             config=DeepSpeedConfig(config), mpu=mpu,
+                             device=device)
+    return (engine, engine.optimizer, engine.training_dataloader,
+            engine.lr_scheduler)

@@ -14,12 +14,12 @@ large products (QKV, O, MLP, LM head) are ``F.linear``/``matmul``, as the
 JAX package left them to XLA; attention is the paged kernel.
 """
 
-import functools
-
 import torch
 import torch.nn.functional as F
 
-from ...models.llama import _rope_freqs, torch_dtype
+from ...models.llama import rms_norm as _rmsnorm
+from ...models.llama import rope_tables as _rope_tables
+from ...models.llama import torch_dtype
 from ...ops.kernels.paged_attention import (paged_attention,
                                             paged_attention_atoms,
                                             paged_attention_plain)
@@ -32,19 +32,6 @@ def _rotary(x, cos, sin, positions):
     x1, x2 = x.chunk(2, dim=-1)
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s],
                      dim=-1).to(x.dtype)
-
-
-def _rmsnorm(x, w, eps):
-    x32 = x.float()
-    var = x32.square().mean(dim=-1, keepdim=True)
-    return (x32 * torch.rsqrt(var + eps) * w).to(x.dtype)
-
-
-@functools.lru_cache(maxsize=8)
-def _rope_tables(head_dim, max_len, theta, scaling, device):
-    cos, sin = _rope_freqs(head_dim, max_len, theta, scaling)
-    return (torch.as_tensor(cos, dtype=torch.float32, device=device),
-            torch.as_tensor(sin, dtype=torch.float32, device=device))
 
 
 def _paged_attention(q, k_cache, v_cache, tables_t, positions, block_size,

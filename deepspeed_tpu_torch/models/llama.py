@@ -1,21 +1,40 @@
-"""Llama-family model for serving (the port of ``deepspeed_tpu/models/llama.py``).
+"""Llama-family model (the port of ``deepspeed_tpu/models/llama.py``).
 
 The module holds the weights under their HuggingFace names and in torch's
 ``[out, in]`` layouts (``model.layers.{i}.self_attn.q_proj.weight``, ...,
-``lm_head.weight``), so a HuggingFace checkpoint loads by name.  The
-forward that serves it is the ragged step in
-``inference/v2/ragged_forward.py``; this module only owns the weights.
+``lm_head.weight``), so a HuggingFace checkpoint loads by name.
 
-Weight types follow what the JAX ragged step computes with: projections and
-the embedding in the serving dtype, the norm weights and the LM head in
-fp32 (the JAX head runs ``x.astype(f32) @ kernel.astype(f32)``).
+Two paths use it:
+
+* serving: the ragged step in ``inference/v2/ragged_forward.py`` reads the
+  weights as they are built here — projections and the embedding in the
+  serving dtype, the norm weights and the LM head in fp32 (the JAX ragged
+  head runs ``x.astype(f32) @ kernel.astype(f32)``);
+* training: :meth:`LlamaModel.forward` (``llama.py:217-367``), driven by
+  ``runtime/engine.py``, which first installs every leaf in the compute
+  dtype (norm weights and head included, as ``engine.py:511`` does) and
+  keeps the fp32 master itself.  Norms take fp32 statistics and multiply by
+  the weight promoted to fp32; rotary runs in fp32; the head computes in
+  ``head_dtype`` (or, tied, in the model dtype, as flax ``Embed.attend``
+  does); attention is ``ops/attention.py:attention_core``.
 """
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from ..ops.attention import attention_core
+from ..sequence.cross_entropy import softmax_cross_entropy_with_logits
+from ..utils.not_ported import not_ported
+
+# jax.checkpoint_policies that save nothing: the JAX model reads the policy
+# with getattr(..., None), and a None policy saves nothing too
+_FULL_REMAT_POLICIES = ("nothing_saveable", "none")
 
 
 @dataclass(frozen=True)
@@ -39,6 +58,14 @@ class LlamaConfig:
     rope_high_freq_factor: float = 4.0
     rope_original_max_position: int = 8192
     dtype: str = "bfloat16"
+    # training: the LM head's matmul dtype ("bfloat16" runs it on the fast
+    # path; cross entropy is fp32 either way)
+    head_dtype: str = "float32"
+    # > 0 → fused chunked head + loss (not ported: ROADMAP queue A item 3)
+    loss_chunk_vocab: int = 0
+    # training: recompute each block in the backward (torch.utils.checkpoint)
+    remat: bool = True
+    remat_policy: str = "nothing_saveable"
 
     @property
     def head_dim(self):
@@ -126,6 +153,61 @@ def _rope_freqs(head_dim, max_len, theta, scaling=None):
     return np.cos(freqs), np.sin(freqs)
 
 
+@functools.lru_cache(maxsize=8)
+def rope_tables(head_dim, max_len, theta, scaling, device):
+    """fp32 cos/sin tables ``[max_len, head_dim/2]`` on ``device``."""
+    cos, sin = _rope_freqs(head_dim, max_len, theta, scaling)
+    return (torch.as_tensor(cos, dtype=torch.float32, device=device),
+            torch.as_tensor(sin, dtype=torch.float32, device=device))
+
+
+def rms_norm(x, w, eps, dtype=None):
+    """fp32 statistics, times the weight promoted to fp32, cast to ``dtype``
+    (default x's)."""
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * w).to(dtype or x.dtype)
+
+
+def apply_rotary(x, cos, sin):
+    """x: [B, S, H, Dh]; cos/sin: fp32 [Smax, Dh/2].  The products run in
+    fp32 and the result is cast back to x's dtype (``llama.py:164``)."""
+    S = x.shape[1]
+    c = cos[:S][None, :, None, :]
+    s = sin[:S][None, :, None, :]
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+def lm_loss(logits, labels, attention_mask=None):
+    """Shifted next-token cross entropy (``llama.py:178 _lm_loss``): mean
+    over positions, or over the positions the mask keeps."""
+    loss = softmax_cross_entropy_with_logits(logits[:, :-1], labels[:, 1:])
+    if attention_mask is not None:
+        m = attention_mask[:, 1:].float()
+        return (loss * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return loss.mean()
+
+
+def _dense(x, lin, dtype):
+    """flax ``Dense(dtype=...)``: input and weights cast to ``dtype``."""
+    bias = None if lin.bias is None else lin.bias.to(dtype)
+    return F.linear(x.to(dtype), lin.weight.to(dtype), bias)
+
+
+def _head_product(x, w):
+    """The LM head; an fp32 product runs in full fp32 on the card (TF32 off
+    for this product only, the caller's setting restored)."""
+    if x.dtype != torch.float32:
+        return F.linear(x, w)
+    allow_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return F.linear(x, w)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow_tf32
+
+
 def param_count(config: LlamaConfig):
     D, I, V, L = (config.hidden_size, config.intermediate_size,
                   config.vocab_size, config.num_hidden_layers)
@@ -149,14 +231,18 @@ def torch_dtype(name):
 
 
 class RMSNorm(nn.Module):
-    """Holds the fp32 weight; the ragged step applies it with
+    """Holds the weight (fp32 as built); the ragged step applies it with
     ``config.rms_norm_eps`` (fp32 statistics)."""
 
-    def __init__(self, dim, device=None):
+    def __init__(self, dim, device=None, eps=1e-5):
         super().__init__()
+        self.eps = eps
         self.weight = nn.Parameter(
             torch.ones(dim, dtype=torch.float32, device=device),
             requires_grad=False)
+
+    def forward(self, x, dtype=None):
+        return rms_norm(x, self.weight, self.eps, dtype)
 
 
 def _linear(n_in, n_out, bias, dtype, device):
@@ -172,10 +258,31 @@ class LlamaAttention(nn.Module):
         D, H, Hkv, Dh = (cfg.hidden_size, cfg.num_attention_heads,
                          cfg.num_key_value_heads, cfg.head_dim)
         b = cfg.attention_bias
+        self.config = cfg
         self.q_proj = _linear(D, H * Dh, b, dtype, device)
         self.k_proj = _linear(D, Hkv * Dh, b, dtype, device)
         self.v_proj = _linear(D, Hkv * Dh, b, dtype, device)
         self.o_proj = _linear(H * Dh, D, False, dtype, device)
+
+    def forward(self, x, cos, sin, use_kernel=True):
+        """x: [B, S, D] → [B, S, D]; causal (and windowed) self-attention.
+        GQA repeats the kv heads up to H first (``llama.py:279-282``)."""
+        cfg = self.config
+        dt = torch_dtype(cfg.dtype)
+        B, S, _ = x.shape
+        H, Hkv, Dh = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                      cfg.head_dim)
+        q = apply_rotary(_dense(x, self.q_proj, dt).view(B, S, H, Dh), cos,
+                         sin)
+        k = apply_rotary(_dense(x, self.k_proj, dt).view(B, S, Hkv, Dh), cos,
+                         sin)
+        v = _dense(x, self.v_proj, dt).view(B, S, Hkv, Dh)
+        if Hkv != H:
+            k = k.repeat_interleave(H // Hkv, dim=2)
+            v = v.repeat_interleave(H // Hkv, dim=2)
+        out = attention_core(q, k, v, causal=True, window=cfg.sliding_window,
+                             use_kernel=use_kernel)
+        return _dense(out.reshape(B, S, H * Dh), self.o_proj, dt)
 
 
 class LlamaMLP(nn.Module):
@@ -183,19 +290,32 @@ class LlamaMLP(nn.Module):
     def __init__(self, cfg, dtype, device):
         super().__init__()
         D, I = cfg.hidden_size, cfg.intermediate_size
+        self.dtype = torch_dtype(cfg.dtype)
         self.gate_proj = _linear(D, I, False, dtype, device)
         self.up_proj = _linear(D, I, False, dtype, device)
         self.down_proj = _linear(I, D, False, dtype, device)
+
+    def forward(self, x):
+        dt = self.dtype
+        return _dense(F.silu(_dense(x, self.gate_proj, dt)) *
+                      _dense(x, self.up_proj, dt), self.down_proj, dt)
 
 
 class LlamaDecoderLayer(nn.Module):
 
     def __init__(self, cfg, dtype, device):
         super().__init__()
+        self.dtype = torch_dtype(cfg.dtype)
+        eps = cfg.rms_norm_eps
         self.self_attn = LlamaAttention(cfg, dtype, device)
         self.mlp = LlamaMLP(cfg, dtype, device)
-        self.input_layernorm = RMSNorm(cfg.hidden_size, device)
-        self.post_attention_layernorm = RMSNorm(cfg.hidden_size, device)
+        self.input_layernorm = RMSNorm(cfg.hidden_size, device, eps)
+        self.post_attention_layernorm = RMSNorm(cfg.hidden_size, device, eps)
+
+    def forward(self, x, cos, sin, use_kernel=True):
+        h = x + self.self_attn(self.input_layernorm(x, self.dtype), cos, sin,
+                               use_kernel)
+        return h + self.mlp(self.post_attention_layernorm(h, self.dtype))
 
 
 class LlamaBackbone(nn.Module):
@@ -208,7 +328,7 @@ class LlamaBackbone(nn.Module):
         self.layers = nn.ModuleList(
             LlamaDecoderLayer(cfg, dtype, device)
             for _ in range(cfg.num_hidden_layers))
-        self.norm = RMSNorm(cfg.hidden_size, device)
+        self.norm = RMSNorm(cfg.hidden_size, device, cfg.rms_norm_eps)
 
 
 class LlamaModel(nn.Module):
@@ -229,6 +349,50 @@ class LlamaModel(nn.Module):
     @property
     def device(self):
         return self.lm_head.weight.device
+
+    def forward(self, input_ids, labels=None, attention_mask=None,
+                use_kernel=True):
+        """Training forward (``llama.py:325``): logits [B, S, V] in the head
+        dtype, or, with ``labels``, the shifted cross-entropy loss (fp32
+        scalar; ``attention_mask`` weights it and does not enter attention,
+        as in the JAX model).  ``use_kernel=False`` runs attention's plain
+        version on any device."""
+        cfg = self.config
+        dt = torch_dtype(cfg.dtype)
+        if cfg.loss_chunk_vocab and labels is not None:
+            raise not_ported("LlamaConfig.loss_chunk_vocab > 0 "
+                             "(fused_linear_cross_entropy)", 3)
+        remat = cfg.remat and torch.is_grad_enabled()
+        if remat and cfg.remat_policy not in _FULL_REMAT_POLICIES:
+            raise not_ported(f"remat_policy {cfg.remat_policy!r}", 3)
+        body = self.model
+        x = F.embedding(input_ids.long(), body.embed_tokens.weight.to(dt))
+        cos, sin = rope_tables(cfg.head_dim, cfg.max_position_embeddings,
+                               cfg.rope_theta, cfg.rope_scaling, x.device)
+        for layer in body.layers:
+            if remat:
+                x = checkpoint(layer, x, cos, sin, use_kernel,
+                               use_reentrant=False)
+            else:
+                x = layer(x, cos, sin, use_kernel)
+        x = body.norm(x, dt)
+        hd = torch_dtype(cfg.head_dtype)
+        if cfg.tie_word_embeddings:
+            # flax Embed.attend promotes both sides to the model dtype
+            logits = _head_product(x.to(hd).to(dt),
+                                   body.embed_tokens.weight.to(dt))
+        else:
+            logits = _head_product(x.to(hd), self.lm_head.weight.to(hd))
+        if labels is None:
+            return logits
+        return lm_loss(logits, labels.to(logits.device), attention_mask)
+
+    def tie_weights(self):
+        """Training with ``tie_word_embeddings``: the head IS the embedding
+        (one parameter), as in the JAX model, which has no head leaf then.
+        Serving keeps its separate fp32 copy instead (:meth:`load_weights`)."""
+        if self.config.tie_word_embeddings:
+            self.lm_head.weight = self.model.embed_tokens.weight
 
     @torch.no_grad()
     def init_weights(self, generator, std=0.02):
@@ -293,7 +457,9 @@ class LlamaModel(nn.Module):
 
 def params_from_flax(tree, cfg: LlamaConfig, dtype=None, device="cpu"):
     """The JAX package's flax param tree (numpy leaves) → an HF-named state
-    dict of torch tensors for :class:`LlamaModel`.
+    dict of torch tensors for :class:`LlamaModel`.  ``dtype="float32"``
+    gives the fp32 master weights the training engine takes as
+    ``model_parameters`` (without ``lm_head.weight`` when tied).
 
     Layouts: ``{q,k,v}_proj/kernel`` ``[D, H, Dh]`` → ``[H·Dh, D]`` (bias
     ``[H, Dh]`` → ``[H·Dh]``); ``o_proj/kernel`` ``[H·Dh, D]`` → ``[D, H·Dh]``;

@@ -126,7 +126,47 @@ class PagedAttentionBuilder(CUDAOpBuilder):
         lib.ds_cuda_error_string.restype = ctypes.c_char_p
 
 
-ALL_OPS = {b.NAME: b for b in (PagedAttentionBuilder, )}
+class FlashAttentionBuilder(CUDAOpBuilder):
+    NAME = "flash_attention"
+    SOURCE = os.path.join("csrc", "flash_attention.cu")
+
+    def bind(self, lib):
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        # B, Hq, Hkv, sq, sk, D, scale, causal, window, dtype code, stream
+        dims = [i, i, i, i, i, i, f, i, i, i, p]
+        # tensors: q k v slopes o lse | q k v o do lse slopes dq delta |
+        # q k v do lse delta slopes dk dv
+        lib.ds_flash_fwd.argtypes = [p] * 6 + dims
+        lib.ds_flash_bwd_dq.argtypes = [p] * 9 + dims
+        lib.ds_flash_bwd_dkv.argtypes = [p] * 9 + dims
+        for fn in (lib.ds_flash_fwd, lib.ds_flash_bwd_dq,
+                   lib.ds_flash_bwd_dkv):
+            fn.restype = i
+        lib.ds_flash_smem_bytes.argtypes = [i, i]
+        lib.ds_flash_smem_bytes.restype = i
+        lib.ds_cuda_error_string.argtypes = [i]
+        lib.ds_cuda_error_string.restype = ctypes.c_char_p
+
+
+class OptimizersBuilder(CUDAOpBuilder):
+    NAME = "optimizers"
+    SOURCE = os.path.join("csrc", "optimizers.cu")
+
+    def bind(self, lib):
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.ds_fused_adam.argtypes = [
+            p, i, p, p, p, p, p,        # grad, grad dtype, master, m, v,
+            #                             bf16 out, gscale
+            ctypes.c_longlong,          # n
+            f, f, f, f, f, f, f,        # lr, b1, b2, eps, wd, c1, c2
+            i, p]                       # adam_w_mode, stream
+        lib.ds_fused_adam.restype = i
+        lib.ds_cuda_error_string.argtypes = [i]
+        lib.ds_cuda_error_string.restype = ctypes.c_char_p
+
+
+ALL_OPS = {b.NAME: b for b in (PagedAttentionBuilder, FlashAttentionBuilder,
+                               OptimizersBuilder)}
 
 
 def build_all():

@@ -1,0 +1,258 @@
+"""DeepSpeed JSON config, the training subset (the port of
+``deepspeed_tpu/runtime/config.py``: ``DeepSpeedConfig``).
+
+Same key names as the JAX package: the batch trinity
+(``train_batch_size``, ``train_micro_batch_size_per_gpu``,
+``gradient_accumulation_steps``), ``bf16``/``bfloat16``, ``fp16``,
+``optimizer``, ``scheduler``, ``gradient_clipping``,
+``zero_optimization.stage``, ``steps_per_print``,
+``data_types.grad_accum_dtype``, ``sequence_length`` and ``seed``.
+
+A key that turns on a feature this port does not have yet raises
+``NotImplementedError`` naming its ROADMAP queue-A item
+(:data:`_UNPORTED`); none is silently ignored.  Keys that configure a
+feature without turning it on (bucket sizes, checkpoint options) parse.
+"""
+
+import json
+import os
+
+from ..utils.not_ported import not_ported
+from .config_utils import DeepSpeedConfigModel
+
+ADAM_OPTIMIZER = "adam"
+ADAMW_OPTIMIZER = "adamw"
+FUSED_ADAM_OPTIMIZER = "fusedadam"
+ADAM_OPTIMIZERS = (ADAM_OPTIMIZER, ADAMW_OPTIMIZER, FUSED_ADAM_OPTIMIZER)
+# the JAX package's other optimizers → the queue-A item that brings each
+_UNPORTED_OPTIMIZERS = {"lamb": 6, "fusedlamb": 6, "lion": 11, "sgd": 11,
+                        "muon": 11, "adagrad": 11, "onebitadam": 7,
+                        "zerooneadam": 7, "onebitlamb": 7}
+GRAD_ACCUM_DTYPES = (None, "fp32", "bf16")
+
+
+class DeepSpeedConfigError(Exception):
+    pass
+
+
+class BF16Config(DeepSpeedConfigModel):
+    enabled: bool = False
+
+
+class DataTypesConfig(DeepSpeedConfigModel):
+    grad_accum_dtype: str = None
+
+
+def _on(section, *keys):
+    """True when ``section`` (a dict or None) has any of ``keys`` set to a
+    true value other than "none"."""
+    section = section or {}
+    return any(section.get(k) not in (None, False, 0, "none", {}, [])
+               for k in keys)
+
+
+def _offload_on(section):
+    dev = (section or {}).get("device", "none")
+    return section is not None and str(dev) != "none"
+
+
+def _mesh_dims(pd):
+    mesh = dict(pd.get("mesh") or {})
+    dims = {k: v for k, v in mesh.items() if k != "dp" and v not in (None, 1)}
+    if mesh.get("dp") not in (None, -1, 1):
+        dims["dp"] = mesh["dp"]
+    tp = (pd.get("tensor_parallel") or {}).get("tp_size", 1)
+    if tp not in (None, 1):
+        dims["tp"] = tp
+    if pd.get("sequence_parallel_size", 1) not in (None, 1):
+        dims["sp"] = pd["sequence_parallel_size"]
+    return dims
+
+
+# (what, queue-A item, predicate on the raw config dict)
+_UNPORTED = (
+    ("fp16 training (dynamic loss scaling)", 6,
+     lambda pd: _on(pd.get("fp16"), "enabled")),
+    ("zero_optimization.stage >= 1", 6,
+     lambda pd: (pd.get("zero_optimization") or {}).get("stage", 0) > 0),
+    ("ZeRO optimizer/parameter offload", 10,
+     lambda pd: _offload_on((pd.get("zero_optimization") or {}).get(
+         "offload_optimizer")) or _offload_on(
+             (pd.get("zero_optimization") or {}).get("offload_param"))),
+    ("ZeRO++ (zero_quantized_weights/gradients, hpZ, MiCS)", 7,
+     lambda pd: _on(pd.get("zero_optimization"), "zero_quantized_weights",
+                    "zero_quantized_gradients") or
+     (pd.get("zero_optimization") or {}).get("zero_hpz_partition_size", 1)
+     > 1 or (pd.get("zero_optimization") or {}).get("mics_shard_size", -1)
+     > 1),
+    ("zero_optimization.overlap_comm", 6,
+     lambda pd: _on(pd.get("zero_optimization"), "overlap_comm")),
+    ("comm_optimizations", 7,
+     lambda pd: _on(pd.get("comm_optimizations"), "enabled",
+                    "quantized_weights", "quantized_gradients") or
+     _on((pd.get("comm_optimizations") or {}).get("overlap"), "enabled")),
+    ("a device mesh beyond one data-parallel rank (mesh, tensor_parallel, "
+     "sequence_parallel_size)", 9, lambda pd: bool(_mesh_dims(pd))),
+    ("pipeline parallelism", 9,
+     lambda pd: (pd.get("pipeline") or {}).get("stages", "auto") not in (
+         "auto", 1)),
+    ("moe", 8, lambda pd: _on(pd.get("moe"), "enabled")),
+    ("domino", 9, lambda pd: _on(pd.get("domino"), "enabled")),
+    ("activation_checkpointing (partitioned/CPU/contiguous)", 9,
+     lambda pd: _on(pd.get("activation_checkpointing"),
+                    "partition_activations", "cpu_checkpointing",
+                    "contiguous_memory_optimization", "number_checkpoints")),
+    ("resilience.check_finite_grads (the finite-grad guard)", 4,
+     lambda pd: _on((pd.get("resilience") or {}).get("check_finite_grads"),
+                    "enabled")),
+    ("resilience.watchdog", 12,
+     lambda pd: _on((pd.get("resilience") or {}).get("watchdog"),
+                    "enabled")),
+    ("telemetry", 12, lambda pd: _on(pd.get("telemetry"), "enabled")),
+    ("progressive_layer_drop", 12,
+     lambda pd: _on(pd.get("progressive_layer_drop"), "enabled")),
+    ("curriculum_learning / data_efficiency", 12,
+     lambda pd: _on(pd.get("curriculum_learning"), "enabled") or
+     _on(pd.get("data_efficiency"), "enabled")),
+    ("hybrid_engine", 12, lambda pd: _on(pd.get("hybrid_engine"), "enabled")),
+    ("eigenvalue", 11, lambda pd: _on(pd.get("eigenvalue"), "enabled")),
+    ("compression_training", 11, lambda pd: bool(
+        pd.get("compression_training"))),
+    ("flops_profiler", 12, lambda pd: _on(pd.get("flops_profiler"),
+                                          "enabled")),
+    ("monitors (tensorboard, wandb, csv_monitor, comet)", 12,
+     lambda pd: any(_on(pd.get(k), "enabled") for k in
+                    ("tensorboard", "wandb", "csv_monitor", "comet"))),
+    ("comms_logger", 2, lambda pd: _on(pd.get("comms_logger"), "enabled")),
+    ("wall_clock_breakdown (utils/timer.py)", 2,
+     lambda pd: bool(pd.get("wall_clock_breakdown"))),
+    ("autotuning", 12, lambda pd: _on(pd.get("autotuning"), "enabled")),
+    ("elasticity", 12, lambda pd: _on(pd.get("elasticity"), "enabled")),
+)
+
+
+class DeepSpeedConfig:
+    """Parsed training config (reference ``runtime/config.py:706``)."""
+
+    def __init__(self, config):
+        if config is None:
+            config = {}
+        if isinstance(config, str):
+            if not os.path.exists(config):
+                raise DeepSpeedConfigError(
+                    f"DeepSpeed config path does not exist: {config}")
+            with open(config) as f:
+                config = json.load(f)
+        elif isinstance(config, DeepSpeedConfig):
+            config = config._param_dict
+        elif not isinstance(config, dict):
+            raise DeepSpeedConfigError(
+                f"Expected a string path or dict, got {type(config)}")
+        self._param_dict = dict(config)
+        self._initialize_params(self._param_dict)
+
+    def _initialize_params(self, pd):
+        for what, item, turned_on in _UNPORTED:
+            if turned_on(pd):
+                raise not_ported(f"config: {what}", item)
+        if pd.get("sparse_gradients", False):
+            raise ValueError(
+                "sparse_gradients is a torch sparse-embedding optimization "
+                "the JAX package rejects too (embedding grads are dense); "
+                "remove the key")
+        self._raw_batch = (pd.get("train_batch_size"),
+                           pd.get("train_micro_batch_size_per_gpu"),
+                           pd.get("gradient_accumulation_steps"))
+        (self.train_batch_size, self.train_micro_batch_size_per_gpu,
+         self.gradient_accumulation_steps) = self._raw_batch
+        self.steps_per_print = pd.get("steps_per_print", 10)
+        self.sequence_length = pd.get("sequence_length")
+        if self.sequence_length is not None and (
+                not isinstance(self.sequence_length, int)
+                or self.sequence_length <= 0):
+            raise DeepSpeedConfigError(
+                f"sequence_length must be a positive int, got "
+                f"{self.sequence_length!r}")
+        self.seed = pd.get("seed", 1234)
+
+        self.zero_optimization_stage = (pd.get("zero_optimization")
+                                        or {}).get("stage", 0)
+        self.fp16_enabled = False
+        self.bf16_config = BF16Config(
+            **pd.get("bfloat16", pd.get("bf16", {})) or {})
+        self.bfloat16_enabled = self.bf16_config.enabled
+
+        grad_clip = pd.get("gradient_clipping", 0.0)
+        self.gradient_clipping = float(grad_clip) if grad_clip else 0.0
+
+        self.optimizer_name = None
+        self.optimizer_params = None
+        opt = pd.get("optimizer")
+        if opt:
+            self.optimizer_name = str(opt.get("type", "")).lower()
+            self.optimizer_params = opt.get("params", {})
+            if self.optimizer_name in _UNPORTED_OPTIMIZERS:
+                raise not_ported(f"optimizer {self.optimizer_name!r}",
+                                 _UNPORTED_OPTIMIZERS[self.optimizer_name])
+            if self.optimizer_name not in ADAM_OPTIMIZERS:
+                raise ValueError(f"unsupported optimizer "
+                                 f"{self.optimizer_name!r} (have: "
+                                 f"{', '.join(ADAM_OPTIMIZERS)})")
+
+        self.scheduler_name = None
+        self.scheduler_params = None
+        sched = pd.get("scheduler")
+        if sched:
+            self.scheduler_name = sched.get("type")
+            self.scheduler_params = sched.get("params", {})
+
+        self.data_types_config = DataTypesConfig(
+            **pd.get("data_types", {}) or {})
+        self.gradient_accumulation_dtype = \
+            self.data_types_config.grad_accum_dtype
+        if self.gradient_accumulation_dtype == "fp16":
+            raise not_ported("data_types.grad_accum_dtype 'fp16'", 6)
+        if self.gradient_accumulation_dtype not in GRAD_ACCUM_DTYPES:
+            raise DeepSpeedConfigError(
+                f"data_types.grad_accum_dtype "
+                f"{self.gradient_accumulation_dtype!r} unknown (have fp32, "
+                f"bf16, fp16)")
+
+    def resolve_batch_sizes(self, dp_world_size):
+        """Complete the trinity given the data-parallel degree
+        (``config.py:705``, with its errors)."""
+        tb, mb, gas = self._raw_batch
+        if tb is not None and mb is not None and gas is not None:
+            if tb != mb * gas * dp_world_size:
+                raise DeepSpeedConfigError(
+                    f"train_batch_size ({tb}) != micro_batch ({mb}) * "
+                    f"grad_accum ({gas}) * dp_world ({dp_world_size})")
+        elif tb is not None and mb is not None:
+            gas = tb // (mb * dp_world_size)
+            if gas == 0 or tb % (mb * dp_world_size) != 0:
+                raise DeepSpeedConfigError(
+                    f"train_batch_size ({tb}) not divisible by micro_batch*dp "
+                    f"({mb}*{dp_world_size})")
+        elif tb is not None and gas is not None:
+            if tb % (gas * dp_world_size) != 0:
+                raise DeepSpeedConfigError(
+                    f"train_batch_size ({tb}) not divisible by gas*dp")
+            mb = tb // (gas * dp_world_size)
+        elif tb is not None:
+            gas = 1
+            if tb % dp_world_size != 0:
+                raise DeepSpeedConfigError(
+                    f"train_batch_size ({tb}) not divisible by dp "
+                    f"({dp_world_size})")
+            mb = tb // dp_world_size
+        elif mb is not None:
+            gas = gas or 1
+            tb = mb * gas * dp_world_size
+        else:
+            raise DeepSpeedConfigError(
+                "At least train_batch_size or train_micro_batch_size_per_gpu "
+                "must be set in the config")
+        self.train_batch_size = tb
+        self.train_micro_batch_size_per_gpu = mb
+        self.gradient_accumulation_steps = gas
+        return tb, mb, gas

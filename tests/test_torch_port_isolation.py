@@ -34,7 +34,12 @@ def _all_modules():
 
 def test_import_loads_no_jax():
     mods = _all_modules()
-    assert "deepspeed_tpu_torch.ops.kernels.paged_attention" in mods
+    for name in ("ops.kernels.paged_attention", "ops.kernels.flash_attention",
+                 "ops.kernels.optimizers", "ops.attention", "ops.adam",
+                 "runtime.config", "runtime.engine", "runtime.lr_schedules",
+                 "runtime.utils", "runtime.loss_scaler",
+                 "sequence.cross_entropy", "models.llama"):
+        assert f"deepspeed_tpu_torch.{name}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m in ('jax', 'flax', "
@@ -79,6 +84,10 @@ def test_default_device_without_card_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        deepspeed_tpu_torch.initialize(
+            model=llama.LlamaModel(llama.llama_tiny(dtype="float32")),
+            config={"train_batch_size": 1})
 
 
 def test_config_nested_dicts_auto_and_extra_keys():
