@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--json PATH] [--profile DIR]
 
-Stages, run in the order 1-9; any failure exits non-zero:
+Stages, run in the order 1-12; any failure exits non-zero:
 
 1. environment: torch/CUDA/nvcc versions, the card's name and power limit;
 2. build: every ``deepspeed_tpu_torch/csrc/*.cu`` with nvcc for sm_90a
@@ -41,11 +41,32 @@ Stages, run in the order 1-9; any failure exits non-zero:
    Adam per step, exactly);
 9. one training step at full width and depth 2 (B=2, S=2048), kernels
    against their plain versions from the same weights: loss, gradients,
-   grad norm and the master after the step.
+   grad norm and the master after the step;
+10. the kernels of the GPT-2 slice against their plain versions: both LAMB
+    phases and the Lion step over GPT-2 350M's flat layout (354,823,168
+    elements, 388 leaves) with fp32 and fp16 gradients (m, v, u and Lion's
+    outputs bit for bit, LAMB's per-leaf sums and ratios within 1e-5, two
+    runs of phase 1 bit-identical), flash attention in fp16 at GPT-2's
+    [8, 1024, 16, 64] causal and at a GQA/window case, the Adam step with
+    an fp16 gradient and copy; times of each kernel, its plain version, a
+    library call where there is one, and the bound;
+11. GPT-2 350M training at full width and depth through ``initialize()``:
+    fp16 with dynamic loss scaling (``initial_scale_power`` 16), remat,
+    B=8, S=1024, ZeRO 0 (bench.py's stage 1 needs the comm layer, not
+    ported yet), ``fusedlamb`` lr 1e-3, one fixed batch, 2 warm-up and 8
+    timed steps: every step's loss, scale and skip, step time, tokens/s,
+    MFU, peak memory and exact launch counts; then 3 steps each with
+    ``fusedadam`` and ``lion``;
+12. overflow and guard semantics on the card: a depth-2 GPT-2 from
+    ``initial_scale_power`` 32 (every overflowed step leaves master,
+    moments and fp16 parameters bit-unchanged, counts in ``skipped_steps``,
+    does not advance the optimizer's count or lr, and halves the scale only
+    when the hysteresis of 2 runs out), and a bf16 run with
+    ``check_finite_grads`` whose poisoned step is skipped.
 
-``--profile DIR`` adds ``torch.profiler`` windows over serving (stage 4)
-and over two training steps (stage 8): device time by kind and the idle
-share.
+``--profile DIR`` adds ``torch.profiler`` windows over serving (stage 4),
+over two training steps of stage 8 and two of stage 11: device time by
+kind and the idle share.
 
 Prints a ``{"kernels": [...]}`` line, then, last, the device line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
@@ -53,6 +74,7 @@ torch sees no CUDA device or the package is not beside this script.
 """
 
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -67,6 +89,7 @@ BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor rate
 # output once, so in bf16 they may differ by one ulp of |ref| (at most
 # 2^-7·|ref|) plus the fp32 differences of another summation order
 BF16_RTOL, BF16_ATOL = 2.0**-7, 1e-4
+FP16_RTOL = 2.0**-10             # the same, for fp16's 11 significant bits
 FP32_ATOL = 1e-4
 # fp32 outputs of the flash kernels (lse, delta, the fp32 case): the same
 # fp32 arithmetic in another summation order
@@ -95,6 +118,15 @@ def cuda_ms(fn, iters, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _free(torch):
+    """Return the card memory of what was just deleted: an engine holds
+    reference cycles (its optimizer facade points back at it), so ``del``
+    alone leaves it to a later garbage collection, which would then land
+    inside another stage's timed steps and memory figures."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------- stage 1
@@ -308,7 +340,7 @@ def stage_kernels(seed):
                          ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=bound_ms, bound_by=bound_by))
         del q, kc, vc, tables, pos, got, ref, lib_out, diff, tol
-        torch.cuda.empty_cache()
+        _free(torch)
     return rows
 
 
@@ -449,7 +481,7 @@ def stage_serve(seed, smi, profile_dir=None):
         prompts = [rng.integers(0, 32000, size=n).tolist() for n in lengths]
         result["profile"] = profile_serve(eng, prompts, profile_dir, smi)
     del eng
-    torch.cuda.empty_cache()
+    _free(torch)
     return result
 
 
@@ -590,7 +622,7 @@ def stage_step_vs_plain(seed):
             raise AssertionError("greedy tokens differ at a clear margin")
         seq.tokens.append(tok)          # teacher-force the kernel's token
     del eng, model, caches
-    torch.cuda.empty_cache()
+    _free(torch)
     return report
 
 
@@ -655,12 +687,15 @@ def _roofline(nbytes, flops, peak):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def _compare(torch, got, ref, bf16):
-    """(max |err|, worst |err| / tol): bf16 outputs within one bf16 ulp of
-    |ref| plus BF16_ATOL, fp32 outputs within FP32_ATOL + FP32_RTOL·|ref|."""
+def _compare(torch, got, ref, low):
+    """(max |err|, worst |err| / tol): bf16 outputs (``low`` True or
+    "bf16") within one bf16 ulp of |ref| plus BF16_ATOL, fp16 outputs
+    (``low`` "fp16") within one fp16 ulp plus BF16_ATOL, fp32 outputs
+    within FP32_ATOL + FP32_RTOL·|ref|."""
     diff = (got.float() - ref.float()).abs()
-    if bf16:
-        tol = BF16_RTOL * ref.float().abs() + BF16_ATOL
+    if low:
+        rtol = FP16_RTOL if low == "fp16" else BF16_RTOL
+        tol = rtol * ref.float().abs() + BF16_ATOL
     else:
         tol = FP32_ATOL + FP32_RTOL * ref.float().abs()
     return diff.max().item(), (diff / tol).max().item()
@@ -686,7 +721,7 @@ def _flash_case(torch, gen, name, B, sq, sk, Hq, Hkv, D, window, dtype,
         q, k, v, do, lse, delta, scale, **kw)
     dk, dv = dkv_fn()
     torch.cuda.synchronize()
-    bf16 = dt == torch.bfloat16
+    bf16 = {torch.bfloat16: "bf16", torch.float16: "fp16"}.get(dt, False)
     errs = {}
     o_ref, lse_ref = fa._plain_fwd(q, k, v, scale, **kw)
     errs["o"] = _compare(torch, o, o_ref, bf16)
@@ -700,9 +735,9 @@ def _flash_case(torch, gen, name, B, sq, sk, Hq, Hkv, D, window, dtype,
     errs["dk"] = _compare(torch, dk, dk_ref, bf16)
     errs["dv"] = _compare(torch, dv, dv_ref, bf16)
     del dk_ref, dv_ref
-    torch.cuda.empty_cache()
-    tol_text = (f"2^-7·|ref| + {BF16_ATOL:g}" if bf16 else
-                f"{FP32_ATOL:g} + {FP32_RTOL:g}·|ref|")
+    _free(torch)
+    tol_text = (f"2^-{7 if bf16 == 'bf16' else 10}·|ref| + {BF16_ATOL:g}"
+                if bf16 else f"{FP32_ATOL:g} + {FP32_RTOL:g}·|ref|")
     log(f"[train-kernel] {name}: q [{B},{sq},{Hq},{D}] k/v [{B},{sk},{Hkv},"
         f"{D}] causal window={window} {dtype}: " + ", ".join(
             f"{w} {e:.2e} ({r:.3f})" for w, (e, r) in errs.items())
@@ -729,7 +764,7 @@ def _flash_case(torch, gen, name, B, sq, sk, Hq, Hkv, D, window, dtype,
         fa._plain_bwd_dkv(q, k, v, do, lse, delta, scale, **kw)
 
     row["plain_ms_bwd"] = cuda_ms(plain_bwd, 3, warmup=1)
-    torch.cuda.empty_cache()
+    _free(torch)
     # library yardstick: SDPA on [B, H, S, D] (same shapes, sq == sk here)
     qh, kh, vh, doh = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
     sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
@@ -798,7 +833,7 @@ def _adam_case(torch, gen, seed):
             err = max(err, d.max().item())
             worst = max(worst, torch.where(d == 0, 0.0, d / tol).max().item())
     del refs, out_ref
-    torch.cuda.empty_cache()
+    _free(torch)
     log(f"[train-kernel] fused_adam_step: {len(leaves)} leaves, {n:,} "
         f"elements (flat, 16-element aligned): max_abs_err {err:.3e}, worst "
         f"|err| / tol {worst:.3f} (tol 2^-23·|ref| for master/m/v, 2^-8·|ref|"
@@ -830,7 +865,7 @@ def _adam_case(torch, gen, seed):
         f"{row['library_ms']:.3f} | bound {row['bound'][0]:.3f} by "
         f"{row['bound'][1]} (30 B per element)")
     del p, lib, grad, master, m, v, out
-    torch.cuda.empty_cache()
+    _free(torch)
     return row
 
 
@@ -848,7 +883,7 @@ def stage_train_kernels(seed):
     rows = []
     for *args, timed in cases:
         rows.append(_flash_case(torch, gen, *args, timed=timed))
-        torch.cuda.empty_cache()
+        _free(torch)
     rows.append(_adam_case(torch, gen, seed))
     return rows
 
@@ -948,7 +983,7 @@ def stage_train(seed, smi, profile_dir=None):
             "train_profile", lambda: [one_step() for _ in range(2)], kind,
             profile_dir, smi)
     del engine
-    torch.cuda.empty_cache()
+    _free(torch)
     return result
 
 
@@ -978,7 +1013,7 @@ def stage_train_step_vs_plain(seed):
         res[use_kernel] = (loss.item(), float(eng._last_gnorm), grad,
                            eng.master.clone())
         del eng, loss
-        torch.cuda.empty_cache()
+        _free(torch)
     (lk, nk, gk, mk), (lp, npl, gp, mp) = res[True], res[False]
     loss_rel = abs(lk - lp) / abs(lp)
     norm_rel = abs(nk - npl) / npl
@@ -1017,6 +1052,442 @@ def stage_train_step_vs_plain(seed):
                 leaf_flipped_share=leaf_flipped, leaf_flipped=flipped_name)
 
 
+# --------------------------------------------------------------- stage 10
+GPT2_LAYOUT_ELEMENTS = 354_823_168
+
+
+def _gpt2_layout():
+    """The flat layout of GPT-2 350M's 388 leaves, as the engine builds it."""
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Model, gpt2_350m
+    from deepspeed_tpu_torch.runtime.engine import flat_layout
+    model = GPT2Model(gpt2_350m(dtype="float16"), device="meta")
+    layout, n = flat_layout((name, p.shape)
+                            for name, p in model.named_parameters())
+    return [(o, k) for _, o, k, _ in layout], n
+
+
+def _opt_buffers(torch, gen, n, leaves, grad_dtype):
+    """Gradient, master, m and v over the flat buffer, zero in the gaps
+    between leaves (as the engine keeps them)."""
+    dev = "cuda"
+    live = torch.zeros(n, dtype=torch.bool, device=dev)
+    for o, k in leaves:
+        live[o:o + k] = True
+    grad = torch.empty(n, device=dev).normal_(0.0, 1e-3, generator=gen)
+    master = torch.empty(n, device=dev).normal_(0.0, 0.02, generator=gen)
+    m = torch.empty(n, device=dev).normal_(0.0, 1e-4, generator=gen)
+    v = torch.empty(n, device=dev).uniform_(0.0, 1e-6, generator=gen)
+    for t in (grad, master, m, v):
+        t.mul_(live)
+    return grad.to(grad_dtype), master, m, v, live
+
+
+def _lamb_case(torch, gen, leaves, n, grad_dtype, timed):
+    """Both LAMB phases over the flat layout against their plain versions
+    leaf by leaf, on the same inputs; two runs of phase 1."""
+    from deepspeed_tpu_torch.ops.kernels import optimizers as opt
+    grad, master, m, v, live = _opt_buffers(torch, gen, n, leaves,
+                                            grad_dtype)
+    table = opt.LambTable(leaves, device="cuda")
+    out = torch.empty(n, dtype=torch.float16, device="cuda")
+    hyper = dict(beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.01,
+                 count=3, grad_scale=torch.tensor(2.0**-16, device="cuda"))
+    lr = 1e-3
+    ref = [t.clone() for t in (master, m, v)]
+    u, u_ref = torch.zeros_like(master), torch.zeros_like(master)
+    m2, v2, u2 = m.clone(), v.clone(), torch.zeros_like(master)
+    partials = opt.fused_lamb_phase1(grad, master, m, v, u, table, **hyper)
+    again = opt.fused_lamb_phase1(grad, master, m2, v2, u2, table, **hyper)
+    stats = opt.fused_lamb_phase2(master, u, out, table, partials, lr=lr)
+    torch.cuda.synchronize()
+    stable = bool(torch.equal(partials, again) and torch.equal(u, u2) and
+                  torch.equal(m, m2))
+    del m2, v2, u2, again
+    views = table.views
+    sums = opt.fused_lamb_phase1_plain(views(grad), views(ref[0]),
+                                       views(ref[1]), views(ref[2]),
+                                       views(u_ref), **hyper)
+    exact = {name: (a - b).abs().max().item() for name, a, b in
+             (("m", m, ref[1]), ("v", v, ref[2]), ("u", u, u_ref))}
+    # per-leaf sums against a float64 reduction of the plain u and old p
+    sums64 = torch.stack([torch.stack([(p.double() ** 2).sum(),
+                                       (w.double() ** 2).sum()])
+                          for p, w in zip(views(ref[0]), views(u_ref))])
+    sum_rel = ((stats[:, :2].double() - sums64).abs() /
+               sums64.clamp_min(1e-300)).max().item()
+    ratios = opt.fused_lamb_phase2_plain(views(ref[0]), views(u_ref), None,
+                                         sums, lr=lr)
+    ratio_rel = ((stats[:, 2] - ratios).abs() / ratios).max().item()
+    worst_master = 0.0
+    for i, (o, k) in enumerate(leaves):
+        d = (master[o:o + k] - ref[0][o:o + k]).abs()
+        slack = (lr * ((stats[i, 2] - ratios[i]).abs() + 2.0**-22 *
+                       ratios[i]) * u_ref[o:o + k].abs() +
+                 2.0**-23 * ref[0][o:o + k].abs())
+        worst_master = max(worst_master, torch.where(
+            d == 0, 0.0, d / slack).max().item())
+    master_err = (master - ref[0]).abs().max().item()
+    gaps_zero = not bool(master[~live].any() or u[~live].any() or
+                         m[~live].any())
+    gname = str(grad_dtype).replace("torch.", "")
+    log(f"[gpt2-kernel] fused_lamb {gname} grad over {len(leaves)} leaves, "
+        f"{n:,} elements: m/v/u max |kernel - plain| {exact['m']:.1e} / "
+        f"{exact['v']:.1e} / {exact['u']:.1e} (bit for bit wanted), "
+        f"per-leaf sums vs float64 worst rel {sum_rel:.2e} (tol 1e-5), "
+        f"ratios worst rel {ratio_rel:.2e} (tol 1e-5), master max |err| "
+        f"{master_err:.2e}, worst |err| / (lr·|Δratio|·|u| + ulps) "
+        f"{worst_master:.3f}, phase 1 twice bit-identical {stable}, gaps "
+        f"zero {gaps_zero}")
+    if not (max(exact.values()) == 0 and sum_rel <= 1e-5 and
+            ratio_rel <= 1e-5 and worst_master <= 1.0 and stable and
+            gaps_zero):
+        raise AssertionError("LAMB kernels differ from their plain versions")
+    row = dict(case=f"lamb_{gname}", err_phase1=max(exact.values()),
+               err_phase2=master_err, sum_rel=sum_rel, ratio_rel=ratio_rel,
+               worst_master=worst_master, stable=stable)
+    if timed:
+        row["ms_phase1"] = cuda_ms(lambda: opt.fused_lamb_phase1(
+            grad, master, m, v, u, table, **hyper), 10)
+        row["ms_phase2"] = cuda_ms(lambda: opt.fused_lamb_phase2(
+            master, u, out, table, partials, lr=lr), 10)
+        row["plain_ms_phase1"] = cuda_ms(lambda: opt.fused_lamb_phase1_plain(
+            views(grad), views(master), views(m), views(v), views(u),
+            **hyper), 2, warmup=1)
+        row["plain_ms_phase2"] = cuda_ms(lambda: opt.fused_lamb_phase2_plain(
+            views(master), views(u), views(out), sums, lr=lr), 2, warmup=1)
+        g = grad.element_size()
+        row["bound_phase1"] = _roofline(n * (g + 12 + 12), n * 24,
+                                        FP32_FLOPS)
+        row["bound_phase2"] = _roofline(n * (8 + 4 + 2), n * 2, FP32_FLOPS)
+        log(f"[gpt2-kernel] fused_lamb times (ms): phase 1 "
+            f"{row['ms_phase1']:.3f} (plain {row['plain_ms_phase1']:.2f}, "
+            f"bound {row['bound_phase1'][0]:.3f} by "
+            f"{row['bound_phase1'][1]}, {g + 24} B per element), phase 2 "
+            f"{row['ms_phase2']:.3f} (plain {row['plain_ms_phase2']:.2f}, "
+            f"bound {row['bound_phase2'][0]:.3f} by "
+            f"{row['bound_phase2'][1]}, 14 B per element); no PyTorch call "
+            f"computes LAMB")
+    del grad, master, m, v, u, u_ref, ref, out, live
+    _free(torch)
+    return row
+
+
+def _lion_case(torch, gen, leaves, n, grad_dtype, timed):
+    from deepspeed_tpu_torch.ops.kernels import optimizers as opt
+    grad, master, m, _, live = _opt_buffers(torch, gen, n, leaves,
+                                            grad_dtype)
+    out = torch.empty(n, dtype=torch.float16, device="cuda")
+    hyper = dict(lr=1e-4, beta1=0.9, beta2=0.99, weight_decay=0.1,
+                 grad_scale=torch.tensor(2.0**-16, device="cuda"))
+    ref = [master.clone(), m.clone(), out.clone()]
+    opt.fused_lion_step(grad, master, m, out, **hyper)
+    views = lambda t: [t[o:o + k] for o, k in leaves]  # noqa: E731
+    opt.fused_lion_step_plain(views(grad), views(ref[0]), views(ref[1]),
+                              views(ref[2]), **hyper)
+    torch.cuda.synchronize()
+    err = max((a[live].float() - b[live].float()).abs().max().item()
+              for a, b in ((master, ref[0]), (m, ref[1]), (out, ref[2])))
+    gname = str(grad_dtype).replace("torch.", "")
+    log(f"[gpt2-kernel] fused_lion {gname} grad over {len(leaves)} leaves: "
+        f"master/m/fp16 copy max |kernel - plain| {err:.1e} (bit for bit "
+        f"wanted)")
+    if err != 0:
+        raise AssertionError("Lion kernel differs from its plain version")
+    row = dict(case=f"lion_{gname}", err=err)
+    if timed:
+        row["ms"] = cuda_ms(lambda: opt.fused_lion_step(grad, master, m, out,
+                                                        **hyper), 10)
+        row["plain_ms"] = cuda_ms(lambda: opt.fused_lion_step_plain(
+            views(grad), views(master), views(m), views(out), **hyper), 2,
+            warmup=1)
+        row["bound"] = _roofline(n * (grad.element_size() + 8 + 8 + 2),
+                                 n * 10, FP32_FLOPS)
+        log(f"[gpt2-kernel] fused_lion times (ms): kernel {row['ms']:.3f} | "
+            f"plain {row['plain_ms']:.2f} | bound {row['bound'][0]:.3f} by "
+            f"{row['bound'][1]} (22 B per element); no PyTorch call "
+            f"computes Lion")
+    del grad, master, m, out, ref, live
+    _free(torch)
+    return row
+
+
+def _adam_fp16_case(torch, gen, leaves, n):
+    """Adam with an fp16 gradient and an fp16 copy, over the GPT-2 layout:
+    bit for bit against its plain version."""
+    from deepspeed_tpu_torch.ops.kernels import optimizers as opt
+    grad, master, m, v, live = _opt_buffers(torch, gen, n, leaves,
+                                            torch.float16)
+    out = torch.empty(n, dtype=torch.float16, device="cuda")
+    hyper = dict(lr=1e-4, beta1=0.9, beta2=0.999, eps=1e-8,
+                 weight_decay=0.01, count=3,
+                 grad_scale=torch.tensor(2.0**-16, device="cuda"))
+    ref = [t.clone() for t in (master, m, v, out)]
+    opt.fused_adam_step(grad, master, m, v, out, **hyper)
+    views = lambda t: [t[o:o + k] for o, k in leaves]  # noqa: E731
+    opt.fused_adam_step_plain(views(grad), *map(views, ref), **hyper)
+    torch.cuda.synchronize()
+    err = max((a[live].float() - b[live].float()).abs().max().item()
+              for a, b in zip((master, m, v, out), ref))
+    ms = cuda_ms(lambda: opt.fused_adam_step(grad, master, m, v, out,
+                                             **hyper), 10)
+    log(f"[gpt2-kernel] fused_adam fp16 grad + fp16 copy over "
+        f"{len(leaves)} leaves: max |kernel - plain| {err:.1e} (bit for bit "
+        f"wanted), kernel {ms:.3f} ms")
+    if err != 0:
+        raise AssertionError("Adam kernel (fp16) differs from its plain "
+                             "version")
+    del grad, master, m, v, out, ref, live
+    _free(torch)
+    return dict(case="adam_fp16", err=err, ms=ms)
+
+
+def stage_gpt2_kernels(seed):
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed + 10)
+    leaves, n = _gpt2_layout()
+    assert sum(k for _, k in leaves) == GPT2_LAYOUT_ELEMENTS
+    rows = [_lamb_case(torch, gen, leaves, n, torch.float32, True),
+            _lamb_case(torch, gen, leaves, n, torch.float16, False),
+            _lion_case(torch, gen, leaves, n, torch.float32, True),
+            _lion_case(torch, gen, leaves, n, torch.float16, False),
+            _adam_fp16_case(torch, gen, leaves, n)]
+    for args in (("gpt2_fp16", 8, 1024, 1024, 16, 16, 64, 0, "float16",
+                  True),
+                 ("gqa_window_fp16", 2, 1024, 1024, 16, 4, 64, 256,
+                  "float16", False)):
+        rows.append(_flash_case(torch, gen, *args[:-1], timed=args[-1]))
+        _free(torch)
+    return rows
+
+
+# --------------------------------------------------------------- stage 11
+# bench.py:302-319's GPT-2 workload (B, S, precision, remat), with
+# FusedLamb (BASELINE config 4's optimizer) and ZeRO stage 0
+GPT2_CONFIG = {"train_micro_batch_size_per_gpu": 8,
+               "gradient_accumulation_steps": 1,
+               "optimizer": {"type": "fusedlamb", "params": {"lr": 1e-3}},
+               "fp16": {"enabled": True, "initial_scale_power": 16},
+               "zero_optimization": {"stage": 0}}
+
+
+def _gpt2_launches():
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    from deepspeed_tpu_torch.ops.kernels import optimizers as opt
+    return {"flash_attention": fa.flash_attention_fwd,
+            "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
+            "fused_lamb_phase1": opt.fused_lamb_phase1,
+            "fused_lamb_phase2": opt.fused_lamb_phase2,
+            "fused_adam_step": opt.fused_adam_step,
+            "fused_lion_step": opt.fused_lion_step}
+
+
+def _gpt2_engine(torch, seed, config_over=None, **over):
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Model, gpt2_350m
+    cfg = gpt2_350m(dtype="float16", **over)
+    config = dict(GPT2_CONFIG, **(config_over or {}))
+    engine = deepspeed_tpu_torch.initialize(
+        model=GPT2Model(cfg, device="meta"), config=config)[0]
+    engine.initialize_parameters(seed)
+    return engine, cfg
+
+
+def _run_steps(torch, engine, ids, n, timed=False):
+    """n steps on one batch: (losses, scales after each step, skipped
+    flags, host seconds of each step)."""
+    losses, scales, skips, times = [], [], [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = engine(ids, ids)
+        engine.backward(loss)
+        engine.step()
+        if timed:
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        losses.append(loss.item())
+        scales.append(engine.cur_scale)
+        skips.append(engine._last_skipped)
+    return losses, scales, skips, times
+
+
+def stage_gpt2_train(seed, smi, profile_dir=None):
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.models.gpt2 import param_count
+    B, S, warmup, timed = 8, 1024, 2, 8
+    t0 = time.perf_counter()
+    engine, cfg = _gpt2_engine(torch, seed)
+    torch.cuda.synchronize()
+    N, L, D = param_count(cfg), cfg.num_hidden_layers, cfg.hidden_size
+    log(f"[gpt2] GPT-2 350M ({L} layers, hidden {D}, {N:,} params in "
+        f"{len(engine._layout)} leaves), fp16 + fp32 master/m/v/u/grad "
+        f"accumulator: {torch.cuda.memory_allocated() / 2**30:.2f} GiB of "
+        f"state, built in {time.perf_counter() - t0:.1f} s; ZeRO stage 0 "
+        f"(bench.py runs stage 1, which needs the comm layer, ROADMAP queue "
+        f"A item 2)")
+    ids = torch.from_numpy(np.random.default_rng(seed + 11).integers(
+        0, cfg.vocab_size, size=(B, S))).cuda()
+    counters = _gpt2_launches()
+    w_loss, w_scale, w_skip, _ = _run_steps(torch, engine, ids, warmup)
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    losses, scales, skips, times = _run_steps(torch, engine, ids, timed,
+                                              timed=True)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    step_s = float(np.mean(times))
+    tok_s = B * S / step_s
+    flops_tok = 6 * N + 12 * L * S * D
+    mfu = tok_s * flops_tok / BF16_FLOPS
+    stepped = timed - sum(skips)
+    log("[gpt2] steps (loss, scale after, skipped): " + ", ".join(
+        f"{x:.4f}/{s:g}/{int(k)}" for x, s, k in
+        zip(w_loss + losses, w_scale + scales, w_skip + skips)))
+    log(f"[gpt2] step ms " + ", ".join(f"{t * 1e3:.1f}" for t in times)
+        + f" | mean {step_s * 1e3:.1f} ms, {tok_s:.1f} tokens/s, MFU "
+        f"{mfu:.4f} ({flops_tok / 1e9:.3f} GFLOP/token = 6N + 12·L·S·D, "
+        f"989 TFLOP/s fp16) | peak memory {peak / 2**30:.2f} GiB | "
+        f"{stepped} of {timed} timed steps not skipped | {smi}")
+    log(f"[gpt2] kernel launches in the {timed} timed steps: {launches}")
+    want = dict(flash_attention=2 * L * timed,        # remat: twice a layer
+                flash_attention_bwd_dq=L * timed,
+                flash_attention_bwd_dkv=L * timed,
+                fused_lamb_phase1=stepped, fused_lamb_phase2=stepped,
+                fused_adam_step=0, fused_lion_step=0)
+    if launches != want:
+        raise AssertionError(f"kernel launches {launches}, want {want}")
+    if not all(np.isfinite(w_loss + losses)) or stepped < 4 or \
+            not losses[-1] < w_loss[0]:
+        raise AssertionError(f"losses not finite and falling, or fewer than "
+                             f"4 steps taken: {w_loss + losses}, {skips}")
+    result = dict(losses=w_loss + losses, scales=w_scale + scales,
+                  skipped=w_skip + skips, step_ms=[t * 1e3 for t in times],
+                  step_ms_mean=step_s * 1e3, tokens_per_s=tok_s, mfu=mfu,
+                  peak_bytes=peak, launches=launches,
+                  flops_per_token=flops_tok, params=N,
+                  leaves=len(engine._layout))
+    if profile_dir:
+        def kind(name):
+            if "flash_fwd" in name:
+                return "flash_fwd"
+            if "flash_bwd" in name:
+                return "flash_bwd"
+            if "lamb_phase" in name:
+                return "lamb"
+            return "matmul" if _is_matmul(name) else "other"
+
+        result["profile"] = _profile_window(
+            "gpt2_profile", lambda: _run_steps(torch, engine, ids, 2), kind,
+            profile_dir, smi)
+    del engine
+    _free(torch)
+    # bench.py's own optimizer, and Lion, on the same path
+    for name, optimizer, key in (
+            ("fusedadam", {"type": "fusedadam", "params": {"lr": 1e-4}},
+             "fused_adam_step"),
+            ("lion", {"type": "lion", "params": {"lr": 1e-4}},
+             "fused_lion_step")):
+        engine, _ = _gpt2_engine(torch, seed, {"optimizer": optimizer})
+        for fn in counters.values():
+            fn.launches = 0
+        o_loss, o_scale, o_skip, _ = _run_steps(torch, engine, ids, 3)
+        n_launch = {k: fn.launches for k, fn in counters.items()
+                    if fn.launches}
+        log(f"[gpt2] {name}: 3 steps (loss, scale, skipped) " + ", ".join(
+            f"{x:.4f}/{s:g}/{int(k)}" for x, s, k in
+            zip(o_loss, o_scale, o_skip)) + f" | launches {n_launch}")
+        if n_launch.get(key, 0) != 3 - sum(o_skip) or \
+                n_launch.get(key, 0) < 1 or not all(np.isfinite(o_loss)):
+            raise AssertionError(f"{name}: {key} launched "
+                                 f"{n_launch.get(key, 0)} times for "
+                                 f"{3 - sum(o_skip)} steps taken")
+        result[name] = dict(losses=o_loss, skipped=o_skip,
+                            launches=n_launch)
+        del engine
+        _free(torch)
+    return result
+
+
+# --------------------------------------------------------------- stage 12
+def stage_overflow_and_guard(seed):
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Model, gpt2_350m
+    ids = torch.from_numpy(np.random.default_rng(seed + 12).integers(
+        0, 50257, size=(2, 512))).cuda()
+    engine, _ = _gpt2_engine(
+        torch, seed, {"train_micro_batch_size_per_gpu": 2,
+                      "fp16": {"enabled": True, "initial_scale_power": 32}},
+        num_hidden_layers=2)
+    scales = []
+    for step in range(4):
+        snap = [t.clone() for t in (engine.master, engine.params,
+                                    engine.opt_state.exp_avg,
+                                    engine.opt_state.exp_avg_sq)]
+        count = engine.opt_state.count
+        lr = engine._transform.current_lr(count + 1, engine.opt_state)
+        loss = engine(ids, ids)
+        engine.backward(loss)
+        engine.step()
+        now = (engine.master, engine.params, engine.opt_state.exp_avg,
+               engine.opt_state.exp_avg_sq)
+        unchanged = all(torch.equal(a, b) for a, b in zip(snap, now))
+        scales.append(engine.cur_scale)
+        if not (engine._last_skipped and unchanged and
+                engine.skipped_steps == step + 1 and
+                engine.opt_state.count == count and
+                engine._transform.current_lr(count + 1, engine.opt_state)
+                == lr):
+            raise AssertionError(f"overflowed step {step + 1}: skipped "
+                                 f"{engine._last_skipped}, state unchanged "
+                                 f"{unchanged}, skipped_steps "
+                                 f"{engine.skipped_steps}")
+        del snap
+    want = [2.0**32, 2.0**31, 2.0**31, 2.0**30]
+    log(f"[overflow] depth-2 GPT-2, fp16 from 2^32, hysteresis 2: 4 steps "
+        f"all skipped with master, m, v and fp16 params bit-unchanged, "
+        f"optimizer count {engine.opt_state.count}, skipped_steps "
+        f"{engine.skipped_steps}, scale after each step "
+        f"{[f'2^{int(np.log2(s))}' for s in scales]}")
+    if scales != want:
+        raise AssertionError(f"scales {scales}, want {want}")
+    del engine
+    _free(torch)
+
+    cfg = gpt2_350m(dtype="bfloat16", num_hidden_layers=2)
+    engine = deepspeed_tpu_torch.initialize(
+        model=GPT2Model(cfg, device="meta"),
+        config={"train_micro_batch_size_per_gpu": 2,
+                "optimizer": {"type": "fusedlamb", "params": {"lr": 1e-3}},
+                "bf16": {"enabled": True},
+                "resilience": {"check_finite_grads": {
+                    "enabled": True, "max_consecutive_skips": 3}}})[0]
+    engine.initialize_parameters(seed)
+    report = []
+    for step, poison in enumerate((False, True, False)):
+        snap = engine.master.clone()
+        loss = engine(ids, ids)
+        engine.backward(loss)
+        if poison:
+            engine.grad_acc[12345] = float("nan")
+        engine.step()
+        unchanged = bool(torch.equal(snap, engine.master))
+        report.append((poison, engine._last_skipped, unchanged,
+                       engine._consecutive_skips))
+        if engine._last_skipped != poison or unchanged != poison:
+            raise AssertionError(f"guard step {step + 1}: {report[-1]}")
+    log(f"[guard] bf16 depth-2 GPT-2 with check_finite_grads: (poisoned, "
+        f"skipped, master unchanged, consecutive skips) per step {report}")
+    del engine
+    _free(torch)
+    return dict(scales=scales, guard=report)
+
+
 # ------------------------------------------------------------------ main
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1024,8 +1495,8 @@ def main():
     ap.add_argument("--json", help="also write every number to this file")
     ap.add_argument("--profile", metavar="DIR",
                     help="also profile a prefill and a decode window of the "
-                         "serving engine and two training steps; write "
-                         "kernel tables to DIR")
+                         "serving engine and two steps of each training "
+                         "path; write kernel tables to DIR")
     args = ap.parse_args()
 
     if not os.path.isdir(os.path.join(REPO, "deepspeed_tpu_torch")):
@@ -1048,6 +1519,9 @@ def main():
     train_kernels = stage_train_kernels(args.seed)
     train = stage_train(args.seed, smi, args.profile)
     train_step = stage_train_step_vs_plain(args.seed)
+    gpt2_kernels = stage_gpt2_kernels(args.seed)
+    gpt2 = stage_gpt2_train(args.seed, smi, args.profile)
+    overflow = stage_overflow_and_guard(args.seed)
 
     entries = []
     for wrapper, case in (("paged_attention", "serve_decode"),
@@ -1098,11 +1572,39 @@ def main():
              bound_ms=adam["bound"][0], bound_by=adam["bound"][1],
              library_ms=adam["library_ms"]),
     ]
+    lamb = next(r for r in gpt2_kernels if r["case"] == "lamb_float32")
+    lion = next(r for r in gpt2_kernels if r["case"] == "lion_float32")
+    opt_src = "deepspeed_tpu_torch/csrc/optimizers.cu"
+    # no PyTorch call computes LAMB or Lion: library_ms is null
+    entries += [
+        dict(name="fused_lamb_phase1", route="cuda", source=opt_src,
+             replaces=src + "optimizers.py:224",
+             launches=gpt2["launches"]["fused_lamb_phase1"],
+             max_abs_err=lamb["err_phase1"], ms=lamb["ms_phase1"],
+             plain_ms=lamb["plain_ms_phase1"],
+             bound_ms=lamb["bound_phase1"][0],
+             bound_by=lamb["bound_phase1"][1], library_ms=None),
+        dict(name="fused_lamb_phase2", route="cuda", source=opt_src,
+             replaces=src + "optimizers.py:250",
+             launches=gpt2["launches"]["fused_lamb_phase2"],
+             max_abs_err=lamb["err_phase2"], ms=lamb["ms_phase2"],
+             plain_ms=lamb["plain_ms_phase2"],
+             bound_ms=lamb["bound_phase2"][0],
+             bound_by=lamb["bound_phase2"][1], library_ms=None),
+        dict(name="fused_lion_step", route="cuda", source=opt_src,
+             replaces=src + "optimizers.py:150",
+             launches=gpt2["lion"]["launches"]["fused_lion_step"],
+             max_abs_err=lion["err"], ms=lion["ms"],
+             plain_ms=lion["plain_ms"], bound_ms=lion["bound"][0],
+             bound_by=lion["bound"][1], library_ms=None),
+    ]
     if args.json:
         with open(args.json, "w") as f:
             json.dump(dict(card=smi, kernels=kernels, serve=serve,
                            step=step, train_kernels=train_kernels,
                            train=train, train_step=train_step,
+                           gpt2_kernels=gpt2_kernels, gpt2=gpt2,
+                           overflow=overflow,
                            seconds=time.perf_counter() - t_start),
                       f, indent=1, default=str)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

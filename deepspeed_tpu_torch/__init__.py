@@ -9,8 +9,9 @@ unless the caller passes ``device="cpu"``.
 
 Ported so far: FastGen-v2 serving of the Llama family
 (``inference.v2.build_hf_engine``, with the paged-attention kernel) and
-training through :func:`initialize` at ZeRO stage 0 (with the
-flash-attention and fused-Adam kernels).
+training of Llama and GPT-2 through :func:`initialize` at ZeRO stage 0, in
+bf16, fp16 (dynamic loss scaling) or fp32 (with the flash-attention,
+fused-Adam, LAMB and Lion kernels).
 """
 
 __version__ = "0.1.0"
@@ -25,7 +26,9 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     training_dataloader, lr_scheduler)``; the dataloader is None.
 
     ``model``: a ``torch.nn.Module`` whose ``forward`` returns the loss when
-    given labels (``models.llama.LlamaModel``).  ``model_parameters``: an
+    given labels (``models.llama.LlamaModel``, ``models.gpt2.GPT2Model``).
+    ``optimizer``: None (the config's), or the port's ``FusedAdam``,
+    ``FusedLamb``, ``FusedLion`` or ``sgd`` transform.  ``model_parameters``: an
     optional ``{name: tensor}`` of initial (fp32) weights; without it the
     module's own values are used, or, for a module built on the meta
     device, ``engine.initialize_parameters(seed)`` draws them.

@@ -10,7 +10,8 @@
 // head h to kv head h * Hkv / Hq; ALiBi adds slope_h * key position; a row
 // that sees no key outputs 0 and gets the finite lse sentinel -1e30.
 // Scores, probabilities, the running max/sum and every accumulator are fp32;
-// o, dq, dk and dv are rounded once to the input type.
+// o, dq, dk and dv are rounded once to the input type (fp32, bf16 or fp16:
+// the type changes only the loads and that final rounding).
 //
 // Design.  Every block has 256 threads as a 16 x 16 grid (ty, tx) over a
 // 64 x 64 score tile: thread (ty, tx) owns rows ty + 16i and columns
@@ -42,6 +43,7 @@
 // with fp32 accumulation is the lever for later work.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -69,6 +71,12 @@ struct Cvt<__nv_bfloat16> {
   __device__ static __nv_bfloat16 from_f(float x) {
     return __float2bfloat16_rn(x);
   }
+};
+
+template <>
+struct Cvt<__half> {
+  __device__ static float to_f(__half x) { return __half2float(x); }
+  __device__ static __half from_f(float x) { return __float2half_rn(x); }
 };
 
 // Shared-memory byte sizes, per kernel and padded head dim DP.
@@ -591,13 +599,17 @@ int dispatch(int pass, const Args& a, int dtype, void* stream) {
   if (dtype == 1)
     return (int)(wide ? run<__nv_bfloat16, 128>(pass, a, st)
                       : run<__nv_bfloat16, 64>(pass, a, st));
+  if (dtype == 2)
+    return (int)(wide ? run<__half, 128>(pass, a, st)
+                      : run<__half, 64>(pass, a, st));
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // All tensors contiguous on the card.  q, o, dout, dq: [B, sq, Hq, D];
-// k, v, dk, dv: [B, sk, Hkv, D] (dtype 0 = float32, 1 = bfloat16); lse and
+// k, v, dk, dv: [B, sk, Hkv, D] (dtype 0 = float32, 1 = bfloat16,
+// 2 = float16); lse and
 // delta: [B, Hq, sq] float32; slopes: [Hq] float32 or NULL (no ALiBi).
 // causal: 0/1; window: 0 = none (needs causal).  Each returns a cudaError_t
 // (0 = launched).

@@ -1,0 +1,246 @@
+"""GPT-2 family (the port of ``deepspeed_tpu/models/gpt2.py``): learned
+positions, pre-LN blocks, GELU MLP, tied LM head; ``forward`` returns the
+loss when given labels, like ``models/llama.py``.
+
+The module's parameters are the flax model's leaves under the same names
+and shapes (``h.{i}.q_proj.kernel`` [D, H, Dh], ``h.{i}.q_proj.bias``
+[H, Dh], ``h.{i}.c_proj.kernel`` [H, Dh, D], ``c_fc``/``mlp_proj`` kernels
+[in, out], ``ln_*.scale``/``bias``, ``wte.embedding``, ``wpe.embedding``):
+q, k and v stay three leaves and kernels and biases stay apart, so LAMB's
+per-leaf trust ratio sees the partition the JAX engine sees (16 leaves a
+block, 388 for GPT-2 350M).
+
+Numerics follow flax at ``dtype`` with fp32 parameters: every product runs
+in ``dtype`` (inputs, kernels and biases cast to it, as ``DenseGeneral``
+promotes them); LayerNorm takes fp32 statistics (E[x²] − E[x]², clipped at
+0), normalises and scales in fp32 and returns ``dtype``; GELU is the tanh
+approximation (``nn.gelu``'s default); the tied head runs in ``dtype``
+although the JAX code casts x to fp32 first (``Embed.attend`` promotes both
+operands to the Embed's dtype), and the cross entropy is fp32.  Attention is
+``ops/attention.py:attention_core`` (kernel B1 on the card).
+"""
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from ..ops.attention import attention_core
+from ..utils.not_ported import not_ported
+from .llama import lm_loss, torch_dtype
+
+
+@dataclass(frozen=True)
+class GPT2Config:
+    vocab_size: int = 50257
+    hidden_size: int = 1024
+    num_hidden_layers: int = 24
+    num_attention_heads: int = 16
+    max_position_embeddings: int = 1024
+    layer_norm_epsilon: float = 1e-5
+    dtype: str = "bfloat16"
+    # > 0 → fused chunked head + loss (not ported: ROADMAP queue A item 3)
+    loss_chunk_vocab: int = 0
+    # training: recompute each block in the backward (torch.utils.checkpoint)
+    remat: bool = True
+    # Ulysses sequence parallelism (not ported: ROADMAP queue A item 9)
+    use_ulysses: bool = False
+
+    @property
+    def head_dim(self):
+        return self.hidden_size // self.num_attention_heads
+
+
+def gpt2_350m(**overrides):
+    return GPT2Config(**{**dict(hidden_size=1024, num_hidden_layers=24,
+                                num_attention_heads=16), **overrides})
+
+
+def gpt2_tiny(**overrides):
+    return GPT2Config(**{**dict(vocab_size=256, hidden_size=64,
+                                num_hidden_layers=2, num_attention_heads=4,
+                                max_position_embeddings=128), **overrides})
+
+
+def param_count(cfg: GPT2Config):
+    D, L, V, P = (cfg.hidden_size, cfg.num_hidden_layers, cfg.vocab_size,
+                  cfg.max_position_embeddings)
+    per_block = 4 * (D * D + D) + (D * 4 * D + 4 * D) + (4 * D * D + D) + 4 * D
+    return V * D + P * D + L * per_block + 2 * D
+
+
+def _param(*shape, device=None):
+    return nn.Parameter(torch.zeros(shape, dtype=torch.float32,
+                                    device=device), requires_grad=False)
+
+
+class Dense(nn.Module):
+    """flax ``DenseGeneral``: ``kernel`` of shape ``in_shape + out_shape``,
+    ``bias`` of ``out_shape``, contracted over the input's trailing
+    ``len(in_shape)`` dims."""
+
+    def __init__(self, in_shape, out_shape, device=None):
+        super().__init__()
+        self.n_in = len(in_shape)
+        self.kernel = _param(*in_shape, *out_shape, device=device)
+        self.bias = _param(*out_shape, device=device)
+
+    def forward(self, x, dtype):
+        k = self.kernel.to(dtype)
+        lead = x.shape[:x.dim() - self.n_in]
+        n_in = x.shape[x.dim() - self.n_in:].numel()
+        y = x.to(dtype).reshape(-1, n_in) @ k.reshape(n_in, -1)
+        y = y + self.bias.to(dtype).reshape(-1)
+        return y.view(*lead, *self.bias.shape)
+
+
+class LayerNorm(nn.Module):
+    """flax ``LayerNorm`` (``use_fast_variance``): fp32 mean and
+    E[x²] − E[x]² (clipped at 0), (x − mean) · (rsqrt(var + eps) · scale)
+    + bias in fp32, returned in ``dtype``."""
+
+    def __init__(self, dim, eps, device=None):
+        super().__init__()
+        self.eps = eps
+        self.scale = _param(dim, device=device)
+        self.bias = _param(dim, device=device)
+
+    def forward(self, x, dtype):
+        x32 = x.float()
+        mean = x32.mean(dim=-1, keepdim=True)
+        var = torch.clamp((x32 * x32).mean(dim=-1, keepdim=True)
+                          - mean * mean, min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.scale.float()
+        return ((x32 - mean) * mul + self.bias.float()).to(dtype)
+
+
+class Embed(nn.Module):
+
+    def __init__(self, num, dim, device=None):
+        super().__init__()
+        self.embedding = _param(num, dim, device=device)
+
+
+class GPT2Block(nn.Module):
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        D, H, Dh = cfg.hidden_size, cfg.num_attention_heads, cfg.head_dim
+        eps = cfg.layer_norm_epsilon
+        self.config = cfg
+        self.ln_1 = LayerNorm(D, eps, device)
+        self.q_proj = Dense((D, ), (H, Dh), device)
+        self.k_proj = Dense((D, ), (H, Dh), device)
+        self.v_proj = Dense((D, ), (H, Dh), device)
+        self.c_proj = Dense((H, Dh), (D, ), device)
+        self.ln_2 = LayerNorm(D, eps, device)
+        self.c_fc = Dense((D, ), (4 * D, ), device)
+        self.mlp_proj = Dense((4 * D, ), (D, ), device)
+
+    def forward(self, x, use_kernel=True):
+        dt = torch_dtype(self.config.dtype)
+        h = self.ln_1(x, dt)
+        attn = attention_core(self.q_proj(h, dt), self.k_proj(h, dt),
+                              self.v_proj(h, dt), causal=True,
+                              use_kernel=use_kernel)
+        x = x + self.c_proj(attn, dt)
+        h = F.gelu(self.c_fc(self.ln_2(x, dt), dt), approximate="tanh")
+        return x + self.mlp_proj(h, dt)
+
+
+class GPT2Model(nn.Module):
+    """GPT-2 causal LM with flax-named parameters, built in fp32 (the
+    training engine installs them in its compute dtype and keeps the fp32
+    master).  ``device="meta"`` builds it without storage."""
+
+    def __init__(self, config: GPT2Config, device=None):
+        super().__init__()
+        cfg = config
+        self.config = cfg
+        self.wte = Embed(cfg.vocab_size, cfg.hidden_size, device)
+        self.wpe = Embed(cfg.max_position_embeddings, cfg.hidden_size, device)
+        self.h = nn.ModuleList(GPT2Block(cfg, device)
+                               for _ in range(cfg.num_hidden_layers))
+        self.ln_f = LayerNorm(cfg.hidden_size, cfg.layer_norm_epsilon, device)
+
+    def forward(self, input_ids, labels=None, attention_mask=None,
+                decode=False, positions=None, use_kernel=True):
+        """Training forward (``gpt2.py:95``): logits [B, S, V] in the model
+        dtype, or, with ``labels``, the shifted cross-entropy loss (fp32;
+        ``attention_mask`` weights it and does not enter attention, as in
+        the JAX model).  ``use_kernel=False`` runs attention's plain version
+        on any device."""
+        cfg = self.config
+        if decode:
+            raise not_ported("GPT2Model(decode=True) (the KV-cache decode "
+                             "path, models/cache.py)", 11)
+        if cfg.use_ulysses:
+            raise not_ported("GPT2Config.use_ulysses (DistributedAttention)",
+                             9)
+        if cfg.loss_chunk_vocab and labels is not None:
+            raise not_ported("GPT2Config.loss_chunk_vocab > 0 "
+                             "(fused_linear_cross_entropy)", 3)
+        dt = torch_dtype(cfg.dtype)
+        ids = input_ids.long()
+        if positions is None:
+            positions = torch.arange(ids.shape[1], device=ids.device)[None]
+        wte = self.wte.embedding.to(dt)
+        x = (F.embedding(ids, wte) +
+             F.embedding(positions.long(), self.wpe.embedding.to(dt)))
+        remat = cfg.remat and torch.is_grad_enabled()
+        for block in self.h:
+            if remat:
+                x = checkpoint(block, x, use_kernel, use_reentrant=False)
+            else:
+                x = block(x, use_kernel)
+        x = self.ln_f(x, dt)
+        logits = F.linear(x, wte)                 # tied head, in dtype
+        if labels is None:
+            return logits
+        return lm_loss(logits, labels.to(logits.device), attention_mask)
+
+    @torch.no_grad()
+    def init_weights(self, generator, std=0.02):
+        """Random weights from ``generator`` (a seeded ``torch.Generator``
+        on the module's device): normal(0, std) kernels and embeddings,
+        zero biases, unit LayerNorm scales."""
+        for name, p in self.named_parameters():
+            if name.endswith(".scale"):
+                p.fill_(1.0)
+            elif name.endswith(".bias"):
+                p.zero_()
+            else:
+                p.normal_(0.0, std, generator=generator)
+        return self
+
+
+def params_from_flax(tree, cfg: GPT2Config, dtype="float32", device="cpu"):
+    """The JAX package's flax param tree (numpy leaves) → ``{name: tensor}``
+    for :class:`GPT2Model`, every leaf in ``dtype`` and in the flax shape
+    (``dtype="float32"`` gives the training engine's master weights).
+    ``h_{i}`` becomes ``h.{i}``; the rest keeps its path."""
+    dt = torch_dtype(dtype)
+    out = {}
+
+    def walk(node, prefix):
+        for key, value in node.items():
+            name = key.replace("h_", "h.", 1) if key.startswith("h_") \
+                else key
+            path = f"{prefix}.{name}" if prefix else name
+            if isinstance(value, dict):
+                walk(value, path)
+            else:
+                out[path] = torch.from_numpy(
+                    np.array(value, dtype=np.float32)).to(
+                        device=device, dtype=dt).contiguous()
+
+    walk(tree, "")
+    expected = {n for n, _ in GPT2Model(cfg, device="meta").named_parameters()}
+    if set(out) != expected:
+        raise KeyError(f"flax tree does not fit {cfg}: missing "
+                       f"{sorted(expected - set(out))[:4]}, unknown "
+                       f"{sorted(set(out) - expected)[:4]}")
+    return out

@@ -26,7 +26,7 @@ import torch
 from ..op_builder import FlashAttentionBuilder
 
 DEAD_ROW_LSE = -1e30     # lse of a row that sees no key (finite sentinel)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def _mask(sq, sk, causal, window, device):
@@ -156,8 +156,8 @@ def _check(q, k, v, causal, window, alibi_slopes):
 def _kernel_checks(*named):
     dtype = named[0][1].dtype
     if dtype not in _DTYPE_CODES:
-        raise TypeError(f"flash attention kernels take bf16 or fp32, got "
-                        f"{dtype}")
+        raise TypeError(f"flash attention kernels take bf16, fp16 or fp32, "
+                        f"got {dtype}")
     for name, t in named:
         if t.dtype != dtype:
             raise TypeError(f"{name} is {t.dtype}, q is {dtype}")
@@ -283,7 +283,7 @@ def flash_attention(q, k, v, causal=True, softmax_scale=None, window=0,
     """[B, S, H, D] flash attention with GQA (Hkv | Hq), differentiable in
     q, k and v.  ``window`` > 0 keeps each query's last ``window`` keys
     (needs ``causal``).  CPU tensors: the plain version; CUDA tensors: the
-    kernels (bf16 or fp32, head_dim <= 128, contiguous)."""
+    kernels (bf16, fp16 or fp32, head_dim <= 128, contiguous)."""
     device = _check(q, k, v, causal, window, alibi_slopes)
     if device == "cpu":
         return flash_attention_plain(q, k, v, causal, softmax_scale, window,

@@ -153,14 +153,30 @@ class OptimizersBuilder(CUDAOpBuilder):
     SOURCE = os.path.join("csrc", "optimizers.cu")
 
     def bind(self, lib):
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        p, i, f, n = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+            ctypes.c_longlong
         lib.ds_fused_adam.argtypes = [
-            p, i, p, p, p, p, p,        # grad, grad dtype, master, m, v,
-            #                             bf16 out, gscale
-            ctypes.c_longlong,          # n
+            p, i, p, p, p,              # grad, grad dtype, master, m, v,
+            p, i, p, n,                 # out, out dtype, gscale, n
             f, f, f, f, f, f, f,        # lr, b1, b2, eps, wd, c1, c2
             i, p]                       # adam_w_mode, stream
-        lib.ds_fused_adam.restype = i
+        lib.ds_fused_lion.argtypes = [
+            p, i, p, p,                 # grad, grad dtype, master, m,
+            p, i, p, n,                 # out, out dtype, gscale, n
+            f, f, f, f, p]              # lr, b1, b2, wd, stream
+        lib.ds_lamb_phase1.argtypes = [
+            p, i, p, p, p, p, p,        # grad, grad dtype, master, m, v, u,
+            #                             gscale
+            p, i, p,                    # chunk table, chunks, partials
+            f, f, f, f, f, f, p]        # b1, b2, eps, wd, c1, c2, stream
+        lib.ds_lamb_phase2.argtypes = [
+            p, p, p, i,                 # master, u, out, out dtype
+            p, i, p, p, p,              # chunk table, chunks, leaf chunks,
+            #                             partials, leaf stats
+            f, f, f, p]                 # lr, max/min coeff, stream
+        for fn in (lib.ds_fused_adam, lib.ds_fused_lion, lib.ds_lamb_phase1,
+                   lib.ds_lamb_phase2):
+            fn.restype = i
         lib.ds_cuda_error_string.argtypes = [i]
         lib.ds_cuda_error_string.restype = ctypes.c_char_p
 

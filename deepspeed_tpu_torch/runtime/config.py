@@ -3,10 +3,11 @@
 
 Same key names as the JAX package: the batch trinity
 (``train_batch_size``, ``train_micro_batch_size_per_gpu``,
-``gradient_accumulation_steps``), ``bf16``/``bfloat16``, ``fp16``,
-``optimizer``, ``scheduler``, ``gradient_clipping``,
-``zero_optimization.stage``, ``steps_per_print``,
-``data_types.grad_accum_dtype``, ``sequence_length`` and ``seed``.
+``gradient_accumulation_steps``), ``bf16``/``bfloat16``, ``fp16`` (with
+dynamic loss scaling), ``optimizer``, ``scheduler``,
+``gradient_clipping``, ``zero_optimization.stage``, ``steps_per_print``,
+``data_types.grad_accum_dtype``, ``resilience.check_finite_grads``,
+``sequence_length`` and ``seed``.
 
 A key that turns on a feature this port does not have yet raises
 ``NotImplementedError`` naming its ROADMAP queue-A item
@@ -23,20 +24,52 @@ from .config_utils import DeepSpeedConfigModel
 ADAM_OPTIMIZER = "adam"
 ADAMW_OPTIMIZER = "adamw"
 FUSED_ADAM_OPTIMIZER = "fusedadam"
+LAMB_OPTIMIZER = "lamb"
+FUSED_LAMB_OPTIMIZER = "fusedlamb"
+LION_OPTIMIZER = "lion"
+SGD_OPTIMIZER = "sgd"
 ADAM_OPTIMIZERS = (ADAM_OPTIMIZER, ADAMW_OPTIMIZER, FUSED_ADAM_OPTIMIZER)
+PORTED_OPTIMIZERS = ADAM_OPTIMIZERS + (LAMB_OPTIMIZER, FUSED_LAMB_OPTIMIZER,
+                                       LION_OPTIMIZER, SGD_OPTIMIZER)
 # the JAX package's other optimizers → the queue-A item that brings each
-_UNPORTED_OPTIMIZERS = {"lamb": 6, "fusedlamb": 6, "lion": 11, "sgd": 11,
-                        "muon": 11, "adagrad": 11, "onebitadam": 7,
+_UNPORTED_OPTIMIZERS = {"muon": 11, "adagrad": 11, "onebitadam": 7,
                         "zerooneadam": 7, "onebitlamb": 7}
-GRAD_ACCUM_DTYPES = (None, "fp32", "bf16")
+GRAD_ACCUM_DTYPES = (None, "fp32", "bf16", "fp16")
 
 
 class DeepSpeedConfigError(Exception):
     pass
 
 
+class FP16Config(DeepSpeedConfigModel):
+    """Reference fp16 section (``config.py:45-55``; ``loss_scale`` 0 means
+    dynamic scaling)."""
+    enabled: bool = False
+    auto_cast: bool = False
+    loss_scale: float = 0.0
+    initial_scale_power: int = 16
+    loss_scale_window: int = 1000
+    hysteresis: int = 2
+    consecutive_hysteresis: bool = False
+    min_loss_scale: float = 1.0
+    fp16_master_weights_and_grads: bool = False
+
+
 class BF16Config(DeepSpeedConfigModel):
     enabled: bool = False
+
+
+class FiniteGradsConfig(DeepSpeedConfigModel):
+    """The finite-grad step guard (``config.py:369``): a step whose
+    gradients are non-finite, or whose norm exceeds
+    ``grad_norm_spike_factor`` times the running mean of recent healthy
+    norms (after ``spike_warmup_steps``), is skipped through the fp16 skip
+    path in every precision; ``max_consecutive_skips`` skips in a row
+    abort.  Enabling it syncs the skip flag to the host each boundary."""
+    enabled: bool = False
+    max_consecutive_skips: int = 5
+    grad_norm_spike_factor: float = 0.0
+    spike_warmup_steps: int = 10
 
 
 class DataTypesConfig(DeepSpeedConfigModel):
@@ -49,6 +82,26 @@ def _on(section, *keys):
     section = section or {}
     return any(section.get(k) not in (None, False, 0, "none", {}, [])
                for k in keys)
+
+
+def _check_fp16(cfg):
+    """The bounds the JAX package's pydantic model puts on the fp16
+    section (``config.py:45-55``)."""
+    for key, low in (("loss_scale", 0.0), ("initial_scale_power", 0),
+                     ("loss_scale_window", 1), ("hysteresis", 1),
+                     ("min_loss_scale", 0.0)):
+        value = getattr(cfg, key)
+        if not isinstance(value, (int, float)) or value < low:
+            raise DeepSpeedConfigError(f"fp16.{key} must be >= {low}, got "
+                                       f"{value!r}")
+
+
+def _check_finite_grads(cfg):
+    if cfg.max_consecutive_skips < 1 or cfg.grad_norm_spike_factor < 0 or \
+            cfg.spike_warmup_steps < 0:
+        raise DeepSpeedConfigError(
+            "resilience.check_finite_grads: max_consecutive_skips >= 1, "
+            "grad_norm_spike_factor >= 0 and spike_warmup_steps >= 0")
 
 
 def _offload_on(section):
@@ -71,8 +124,6 @@ def _mesh_dims(pd):
 
 # (what, queue-A item, predicate on the raw config dict)
 _UNPORTED = (
-    ("fp16 training (dynamic loss scaling)", 6,
-     lambda pd: _on(pd.get("fp16"), "enabled")),
     ("zero_optimization.stage >= 1", 6,
      lambda pd: (pd.get("zero_optimization") or {}).get("stage", 0) > 0),
     ("ZeRO optimizer/parameter offload", 10,
@@ -102,9 +153,6 @@ _UNPORTED = (
      lambda pd: _on(pd.get("activation_checkpointing"),
                     "partition_activations", "cpu_checkpointing",
                     "contiguous_memory_optimization", "number_checkpoints")),
-    ("resilience.check_finite_grads (the finite-grad guard)", 4,
-     lambda pd: _on((pd.get("resilience") or {}).get("check_finite_grads"),
-                    "enabled")),
     ("resilience.watchdog", 12,
      lambda pd: _on((pd.get("resilience") or {}).get("watchdog"),
                     "enabled")),
@@ -177,10 +225,27 @@ class DeepSpeedConfig:
 
         self.zero_optimization_stage = (pd.get("zero_optimization")
                                         or {}).get("stage", 0)
-        self.fp16_enabled = False
+        self.fp16_config = FP16Config(**pd.get("fp16", {}) or {})
         self.bf16_config = BF16Config(
             **pd.get("bfloat16", pd.get("bf16", {})) or {})
+        self.fp16_enabled = self.fp16_config.enabled
         self.bfloat16_enabled = self.bf16_config.enabled
+        if self.fp16_enabled and self.bfloat16_enabled:
+            raise DeepSpeedConfigError("fp16 and bf16 cannot both be enabled")
+        _check_fp16(self.fp16_config)
+        self.fp16_auto_cast = self.fp16_config.auto_cast
+        self.loss_scale = self.fp16_config.loss_scale
+        self.initial_dynamic_scale = 2**self.fp16_config.initial_scale_power
+        self.dynamic_loss_scale_args = {
+            "init_scale": 2**self.fp16_config.initial_scale_power,
+            "scale_window": self.fp16_config.loss_scale_window,
+            "min_scale": self.fp16_config.min_loss_scale,
+            "delayed_shift": self.fp16_config.hysteresis,
+        }
+        resilience = pd.get("resilience") or {}
+        self.finite_grads_config = FiniteGradsConfig(
+            **resilience.get("check_finite_grads", {}) or {})
+        _check_finite_grads(self.finite_grads_config)
 
         grad_clip = pd.get("gradient_clipping", 0.0)
         self.gradient_clipping = float(grad_clip) if grad_clip else 0.0
@@ -194,10 +259,10 @@ class DeepSpeedConfig:
             if self.optimizer_name in _UNPORTED_OPTIMIZERS:
                 raise not_ported(f"optimizer {self.optimizer_name!r}",
                                  _UNPORTED_OPTIMIZERS[self.optimizer_name])
-            if self.optimizer_name not in ADAM_OPTIMIZERS:
+            if self.optimizer_name not in PORTED_OPTIMIZERS:
                 raise ValueError(f"unsupported optimizer "
                                  f"{self.optimizer_name!r} (have: "
-                                 f"{', '.join(ADAM_OPTIMIZERS)})")
+                                 f"{', '.join(PORTED_OPTIMIZERS)})")
 
         self.scheduler_name = None
         self.scheduler_params = None
@@ -210,8 +275,6 @@ class DeepSpeedConfig:
             **pd.get("data_types", {}) or {})
         self.gradient_accumulation_dtype = \
             self.data_types_config.grad_accum_dtype
-        if self.gradient_accumulation_dtype == "fp16":
-            raise not_ported("data_types.grad_accum_dtype 'fp16'", 6)
         if self.gradient_accumulation_dtype not in GRAD_ACCUM_DTYPES:
             raise DeepSpeedConfigError(
                 f"data_types.grad_accum_dtype "

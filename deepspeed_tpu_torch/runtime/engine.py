@@ -5,40 +5,51 @@ The JAX engine owns a jitted train step over a mesh; this one owns a torch
 module on one CUDA card (or, asked by name, the CPU):
 
 * parameters (``_install_parameters``, ``engine.py:494-528``): every leaf
-  in the compute dtype (bf16 or fp32; norm weights and the LM head too),
-  laid out in ONE flat buffer whose slices become the module's parameters;
-  with bf16 an fp32 master of the same layout is kept.  The gradient
-  accumulator and Adam's moments share that layout, so the boundary update
-  is one launch of kernel B2 over all leaves.
+  in the compute dtype (bf16, fp16 or fp32; norm weights and the LM head
+  too), laid out in ONE flat buffer whose slices become the module's
+  parameters; with bf16 or fp16 an fp32 master of the same layout is kept.
+  The gradient accumulator and the optimizer's state share that layout, so
+  the boundary update is one launch of an optimizer kernel over all leaves
+  (B2 Adam, B8 Lion) or one per phase (B3 LAMB).
 * ``forward`` runs the model and keeps the graph; ``backward`` runs
-  autograd and folds the micro-step's gradients, cast to
-  ``grad_accum_dtype``, into the accumulator (``engine.py:1302-1305``,
-  ``:1444-1448``).  The JAX engine computes the gradients inside
-  ``forward`` (one ``value_and_grad`` program) and only folds them in
-  ``backward``; here the backward pass itself runs in ``backward``.
+  autograd on the loss times the loss scale and folds the micro-step's
+  gradients, cast to ``grad_accum_dtype``, into the accumulator
+  (``engine.py:1302-1305``, ``:1444-1448``).  The JAX engine computes the
+  gradients inside ``forward`` (one ``value_and_grad`` program) and only
+  folds them in ``backward``; here the backward pass itself runs in
+  ``backward``.
 * ``step`` at the accumulation boundary, in ``engine.py:1469-1535``'s
-  order: unscale (the static scale is 1 for bf16/fp32), global norm,
-  clip (the coefficient rides into the Adam kernel as a device scalar, so
-  no host sync and no extra pass), Adam on the master, the bf16 copy
-  written by the same kernel.
+  order: unscale by 1/scale, the overflow check on the unscaled gradient
+  (fp16 or the finite-grad guard), global norm, the guard's spike test,
+  clip, optimizer, skip, scaler update.  The unscale and the clip
+  coefficient ride into the optimizer kernel as one device scalar, so they
+  cost no pass of their own.  On a skipped step the JAX engine computes the
+  update and selects the old state (``:1496-1501``); here the flag is read
+  on the host once per boundary (only when fp16 or the guard is on, as the
+  JAX guard syncs at ``:1584``) and nothing is launched: the master, the
+  moments, the optimizer's count and so its lr stay as they were.
 """
 
 import numpy as np
 import torch
 
 from ..accelerator import resolve_device
-from ..ops.adam import FusedAdamTransform, fused_adam
-from ..utils.logging import log_dist
+from ..ops.adam import FlatTransform, fused_adam
+from ..ops.lamb import fused_lamb
+from ..ops.lion import fused_lion, sgd
+from ..utils.logging import log_dist, logger
 from ..utils.not_ported import not_ported
-from .config import ADAMW_OPTIMIZER, FUSED_ADAM_OPTIMIZER, DeepSpeedConfig
-from .loss_scaler import create_loss_scaler
+from .config import (ADAM_OPTIMIZERS, ADAMW_OPTIMIZER, FUSED_ADAM_OPTIMIZER,
+                     FUSED_LAMB_OPTIMIZER, LAMB_OPTIMIZER, LION_OPTIMIZER,
+                     SGD_OPTIMIZER, DeepSpeedConfig)
+from .loss_scaler import create_loss_scaler, has_overflow
 from .lr_schedules import get_lr_scheduler
 from .utils import (clip_coefficient, count_parameters, global_grad_norm,
                     make_scaled_loss_fn)
 
 _ALIGN = 16   # elements: every leaf starts 64-byte aligned in fp32 buffers
 _ACCUM_DTYPES = {None: torch.float32, "fp32": torch.float32,
-                 "bf16": torch.bfloat16}
+                 "bf16": torch.bfloat16, "fp16": torch.float16}
 
 
 def flat_layout(named_shapes):
@@ -51,6 +62,34 @@ def flat_layout(named_shapes):
         layout.append((name, off, n, tuple(shape)))
         off += -(-n // _ALIGN) * _ALIGN
     return layout, off
+
+
+def _optimizer_from_config(name, p, lr_fn):
+    """The JAX engine's config → optimizer dispatch (``engine.py:598-634``),
+    with its defaults; keys it does not read are not read here either."""
+    lr = p.pop("lr", 1e-3)
+    if name in ADAM_OPTIMIZERS:
+        adam_w = p.pop("adam_w_mode", name in (ADAMW_OPTIMIZER,
+                                               FUSED_ADAM_OPTIMIZER))
+        return fused_adam(
+            lr=lr, betas=tuple(p.pop("betas", (0.9, 0.999))),
+            eps=p.pop("eps", 1e-8), weight_decay=p.pop("weight_decay", 0.0),
+            adam_w_mode=adam_w, bias_correction=p.pop("bias_correction", True),
+            lr_fn=lr_fn)
+    if name in (LAMB_OPTIMIZER, FUSED_LAMB_OPTIMIZER):
+        return fused_lamb(
+            lr=lr, betas=tuple(p.pop("betas", (0.9, 0.999))),
+            eps=p.pop("eps", 1e-8), weight_decay=p.pop("weight_decay", 0.0),
+            max_coeff=p.pop("max_coeff", 10.0),
+            min_coeff=p.pop("min_coeff", 0.01), lr_fn=lr_fn)
+    if name == LION_OPTIMIZER:
+        return fused_lion(lr=lr, betas=tuple(p.pop("betas", (0.9, 0.99))),
+                          weight_decay=p.pop("weight_decay", 0.0),
+                          lr_fn=lr_fn)
+    if name == SGD_OPTIMIZER:
+        return sgd(lr=lr, momentum=p.pop("momentum", 0.0),
+                   weight_decay=p.pop("weight_decay", 0.0), lr_fn=lr_fn)
+    raise ValueError(f"unsupported optimizer {name!r}")
 
 
 class _ParamGroup(dict):
@@ -127,8 +166,16 @@ class DeepSpeedEngine:
         config.resolve_batch_sizes(1)   # one data-parallel rank
 
         self.compute_dtype = (torch.bfloat16 if config.bfloat16_enabled
+                              else torch.float16 if config.fp16_enabled
                               else torch.float32)
-        self.loss_scaler = create_loss_scaler(config.fp16_enabled)
+        self.loss_scaler = create_loss_scaler(config.fp16_enabled,
+                                              config.loss_scale,
+                                              config.dynamic_loss_scale_args)
+        self.scale_state = self.loss_scaler.init()
+        self.skipped_steps = 0
+        self._finite_guard = config.finite_grads_config
+        self._consecutive_skips = 0
+        self._gnorm_ema = None   # host-side running mean for spike detection
         self.grad_accum_dtype = _ACCUM_DTYPES[
             config.gradient_accumulation_dtype]
         self.zero_stage = config.zero_optimization_stage
@@ -144,6 +191,7 @@ class DeepSpeedEngine:
         self._acc_fresh = True
         self._pending_client_lr = None
         self._last_gnorm = None
+        self._last_skipped = False
         if model_parameters is not None or not any(
                 p.is_meta for p in model.parameters()):
             self._install_parameters(model_parameters)
@@ -226,12 +274,14 @@ class DeepSpeedEngine:
                 self.params.copy_(self.master)
             self._bind(self.params)
         if self.opt_state is None:
-            self._configure_optimizer(None)
+            self._init_opt_state()
         return self.module
 
     def _configure_optimizer(self, client_optimizer):
-        """Reference ``_configure_optimizer`` (``engine.py:559``): the
-        config's adam/adamw/fusedadam, or a client ``fused_adam``."""
+        """Reference ``_configure_optimizer`` (``engine.py:559``; the JAX
+        dispatch ``:595-634``): the config's adam/adamw/fusedadam,
+        lamb/fusedlamb, lion or sgd, or a client transform of
+        ``ops.adam``/``ops.lamb``/``ops.lion``."""
         cfg = self._config
         lr_fn = None
         if cfg.scheduler_name is not None:
@@ -239,31 +289,30 @@ class DeepSpeedEngine:
                                                   cfg.scheduler_params)
             lr_fn = self._sched_for_lr.get_lr
         if client_optimizer is not None:
-            if not isinstance(client_optimizer, FusedAdamTransform):
-                raise not_ported("a client optimizer other than "
-                                 "ops.adam.FusedAdam", 11)
+            if not isinstance(client_optimizer, FlatTransform):
+                raise not_ported("a client optimizer other than the port's "
+                                 "FusedAdam, FusedLamb, FusedLion or sgd", 11)
             self._transform = client_optimizer
         elif cfg.optimizer_name is not None:
-            p = dict(cfg.optimizer_params or {})
-            name = cfg.optimizer_name
-            lr = p.pop("lr", 1e-3)
-            adam_w = p.pop("adam_w_mode", name in (ADAMW_OPTIMIZER,
-                                                   FUSED_ADAM_OPTIMIZER))
-            self._transform = fused_adam(
-                lr=lr, betas=tuple(p.pop("betas", (0.9, 0.999))),
-                eps=p.pop("eps", 1e-8),
-                weight_decay=p.pop("weight_decay", 0.0), adam_w_mode=adam_w,
-                bias_correction=p.pop("bias_correction", True), lr_fn=lr_fn)
+            self._transform = _optimizer_from_config(
+                cfg.optimizer_name, dict(cfg.optimizer_params or {}), lr_fn)
         else:
             self._transform = fused_adam(lr=1e-3, lr_fn=lr_fn)
         if self._transform.lr_fn is None and lr_fn is not None:
             self._transform.lr_fn = lr_fn
         self.optimizer = _OptimizerFacade(self)
         if self.params is not None:
-            target = self.master if self.master is not None else self.params
-            self.opt_state = self._transform.init(target)
-            if self._pending_client_lr is not None:
-                self._set_client_lr(self._pending_client_lr)
+            self._init_opt_state()
+
+    def _init_opt_state(self):
+        self.opt_state = self._transform.init(
+            self._target(), [(o, n) for _, o, n, _ in self._layout])
+        if self._pending_client_lr is not None:
+            self._set_client_lr(self._pending_client_lr)
+
+    def _target(self):
+        """The fp32 buffer the optimizer updates: the master when mixed."""
+        return self.master if self.master is not None else self.params
 
     def _configure_lr_scheduler(self, client_scheduler):
         if client_scheduler is not None:
@@ -297,7 +346,8 @@ class DeepSpeedEngine:
 
     @property
     def cur_scale(self):
-        return self.loss_scaler.cur_scale
+        """The loss scale of the next micro-step (``engine.py:973``)."""
+        return self.scale_state.scale
 
     def get_lr(self):
         if self._pending_client_lr is not None:
@@ -409,26 +459,16 @@ class DeepSpeedEngine:
 
     def step(self, use_kernel=True):
         """Reference ``engine.py:2204``: the update at the accumulation
-        boundary.  ``use_kernel=False`` runs kernel B2's plain version leaf
-        by leaf (``chip_smoke.py`` compares the two on the card)."""
+        boundary, in ``engine.py:1469-1535``'s order.  ``use_kernel=False``
+        runs the optimizer kernel's plain version leaf by leaf
+        (``chip_smoke.py`` compares the two on the card)."""
         self._check_params()
         if self.is_gradient_accumulation_boundary():
             if self._acc_fresh:
                 raise RuntimeError("step() at a grad-accum boundary without "
                                    "any backward() since the last boundary")
-            grads = self.grad_acc
-            gnorm = global_grad_norm([grads])
-            clip = self._config.gradient_clipping
-            coef = clip_coefficient(gnorm, clip) if clip and clip > 0 \
-                else None
-            mixed = self.master is not None
-            self._transform.step(
-                grads, self.opt_state, self.master if mixed else self.params,
-                param_out=self.params if mixed else None, grad_scale=coef,
-                leaves=None if use_kernel else
-                [(off, n) for _, off, n, _ in self._layout])
+            self._apply_update(use_kernel)
             self._acc_fresh = True
-            self._last_gnorm = gnorm
             self.global_steps += 1
             self.global_samples += self.train_batch_size()
             if self.lr_scheduler is not None and hasattr(self.lr_scheduler,
@@ -436,6 +476,87 @@ class DeepSpeedEngine:
                 self.lr_scheduler.step()
                 self._scheduler_reclaims_lr()
         self.micro_steps += 1
+
+    def _apply_update(self, use_kernel):
+        """Unscale, overflow check, global norm, spike test, clip,
+        optimizer, skip, scaler update (``engine.py:1469-1535``)."""
+        fp16, guard = self._config.fp16_enabled, self._finite_guard.enabled
+        grads = self.grad_acc
+        inv = np.float32(1.0) / np.float32(self.scale_state.scale)
+        # the norm of the unscaled gradient: 1/scale is a power of two for
+        # the dynamic scaler, so the product is exact
+        gnorm = global_grad_norm([grads])
+        if inv != 1:
+            gnorm = gnorm * torch.tensor(inv, device=gnorm.device)
+        overflow = skip = False
+        if fp16 or guard:
+            # one host sync per boundary, only when a step can be skipped
+            flags = has_overflow([grads])
+            if guard:
+                flags = torch.stack([flags, gnorm > self._spike_limit()])
+            flags = flags.cpu()
+            overflow = bool(flags.reshape(-1)[0])
+            skip = bool(flags.any())
+        if not skip:
+            clip = self._config.gradient_clipping
+            scale = (clip_coefficient(gnorm, clip) if clip and clip > 0
+                     else None)
+            if inv != 1:
+                inv_t = torch.tensor(inv, device=gnorm.device)
+                scale = inv_t if scale is None else scale * inv_t
+            mixed = self.master is not None
+            self._transform.step(grads, self.opt_state, self._target(),
+                                 param_out=self.params if mixed else None,
+                                 grad_scale=scale, use_kernel=use_kernel)
+        # loss-scale dynamics key off true fp16 overflow only — a grad-norm
+        # spike must not shrink the scale
+        self.scale_state = self.loss_scaler.update(self.scale_state,
+                                                   overflow)
+        if fp16 and skip:
+            self.skipped_steps += 1
+        if guard:
+            self._account_guarded_step(skip, gnorm)
+        self._last_gnorm = gnorm
+        self._last_skipped = skip
+
+    def _spike_limit(self):
+        """Grad-norm ceiling for the current step (``engine.py:1565``):
+        ``spike_factor ×`` the running mean of recent healthy grad norms,
+        +inf while disabled or warming up."""
+        g = self._finite_guard
+        if (not g.enabled or g.grad_norm_spike_factor <= 0
+                or self._gnorm_ema is None
+                or self.global_steps < g.spike_warmup_steps):
+            return float("inf")
+        return float(np.float32(g.grad_norm_spike_factor * self._gnorm_ema))
+
+    def _account_guarded_step(self, skipped, gnorm):
+        """Host-side consecutive-skip bookkeeping of the finite-grad guard
+        (``engine.py:1577``): aborts when skips persist, since skipping
+        forever turns a poisoned input pipeline into a run that 'finishes'
+        without having trained."""
+        g = self._finite_guard
+        gn = float(gnorm)
+        if not skipped:
+            self._consecutive_skips = 0
+            if np.isfinite(gn):
+                self._gnorm_ema = (gn if self._gnorm_ema is None
+                                   else 0.9 * self._gnorm_ema + 0.1 * gn)
+            return
+        self._consecutive_skips += 1
+        logger.warning(
+            "finite-grad guard: skipped poisoned step %d (grad norm %s, "
+            "%d consecutive skip(s), abort at %d)", self.global_steps + 1,
+            gn, self._consecutive_skips, g.max_consecutive_skips)
+        if self._consecutive_skips >= g.max_consecutive_skips:
+            raise RuntimeError(
+                f"finite-grad guard: {self._consecutive_skips} consecutive "
+                f"steps produced non-finite or spiking gradients (last "
+                f"grad norm {gn}, step {self.global_steps + 1}) — the "
+                "input pipeline or numerics are poisoned, not transient; "
+                "aborting so the supervisor can restart from the last "
+                "valid checkpoint. Raise resilience.check_finite_grads."
+                "max_consecutive_skips if this is expected.")
 
     def train_batch(self, data_iter=None):
         """Forward, backward and step over one accumulation window; returns

@@ -1,6 +1,8 @@
 """Runtime utilities (the port of ``deepspeed_tpu/runtime/utils.py``):
-``global_grad_norm`` (:11), ``clip_grads_by_global_norm`` (:21),
-``make_scaled_loss_fn`` (:153) and ``count_parameters``."""
+``global_grad_norm`` (:11), the coefficient of
+``clip_grads_by_global_norm`` (:21), ``make_scaled_loss_fn`` (:153) and
+``count_parameters``.  The engine clips by handing the coefficient to the
+optimizer kernel, so no pass scales the gradients themselves."""
 
 import torch
 
@@ -21,21 +23,6 @@ def clip_coefficient(norm, max_norm):
     those steps)."""
     coef = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
     return torch.where(torch.isfinite(coef), coef, torch.ones_like(coef))
-
-
-def clip_grads_by_global_norm(grads, max_norm, norm=None):
-    """Scale gradient tensors in place so that their global norm is at most
-    ``max_norm``; returns the norm before clipping.  The ZeRO-0 engine does
-    not call it: it hands ``clip_coefficient`` to the Adam step instead.  It
-    is for an optimizer step that takes no clip coefficient, the first being
-    LAMB (ROADMAP queue A item 6)."""
-    if norm is None:
-        norm = global_grad_norm(grads)
-    coef = clip_coefficient(norm, max_norm)
-    for g in grads:
-        if g is not None:
-            g.copy_((g.float() * coef).to(g.dtype))
-    return norm
 
 
 def make_scaled_loss_fn(apply_fn, gas):

@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain versions, on the card: paged
-attention (B4), flash attention forward and backward (B1) and the fused
-Adam step (B2).
+attention (B4), flash attention forward and backward (B1, fp32, bf16 and
+fp16), the fused Adam step (B2), the two LAMB phases (B3) and the Lion step
+(B8).
 
 Marked ``cuda``: each test asks for the ``card`` fixture, which skips when
 torch sees no CUDA device.  The file imports neither JAX nor the JAX
@@ -9,11 +10,17 @@ package, so it also runs on a machine that has only PyTorch:
 tests/test_torch_cuda_kernels.py``.
 
 Tolerances, elementwise: attention fp32 1e-4 (same fp32 arithmetic,
-another summation order); attention bf16 2^-7·|ref| + 1e-4 (both sides
-accumulate in fp32 and round each output once to bf16, 8 significant bits,
-so they may differ by one ulp of |ref|).  Adam: one fp32 ulp, 2^-23·|ref|
-(the kernel and its plain version do the same fp32 operations in the same
-order, none contracted into an FMA), and one bf16 ulp for the bf16 copy.
+another summation order); attention bf16 2^-7·|ref| + 1e-4 and fp16
+2^-10·|ref| + 1e-4 (both sides accumulate in fp32 and round each output
+once, to 8 or 11 significant bits, so they may differ by one ulp of |ref|).
+Adam: one fp32 ulp, 2^-23·|ref| (the kernel and its plain version do the
+same fp32 operations in the same order, none contracted into an FMA), and
+one ulp of the copy's type.  LAMB and Lion: m, v, u and Lion's master bit
+for bit (the same fp32 operations in the same order); LAMB's per-leaf sums
+within 1e-5 relative of float64 sums (fp32 partials in another order), its
+ratios within 1e-5, its master within lr·|Δratio|·|u| plus one fp32 ulp
+of each rounded product (lr·ratio, and its product with u) and of the
+result.
 """
 
 import pytest
@@ -57,6 +64,8 @@ def _batch(device, dtype, H, Hkv, Dh, atom, n_tiles, seed, bs=16, maxb=8):
 def _tol(dtype, ref):
     if dtype == torch.float32:
         return 1e-4
+    if dtype == torch.float16:
+        return 2.0**-10 * ref.abs() + 1e-4
     return 2.0**-7 * ref.abs() + 1e-4
 
 
@@ -125,8 +134,9 @@ def _flash_inputs(card, case, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16],
+                         ids=["fp32", "bf16", "fp16"])
 @pytest.mark.parametrize("case", sorted(FLASH_CASES))
 def test_flash_kernels_match_plain(card, case, dtype):
     """Each of the three kernels against its plain version on the same
@@ -172,8 +182,8 @@ def test_flash_autograd_launches_each_kernel_once(card, dtype):
 @pytest.mark.cuda
 def test_flash_wrapper_rejects_what_the_kernels_do_not_take(card):
     q = torch.randn(1, 8, 2, 64, device=card)
-    with pytest.raises(TypeError, match="bf16 or fp32"):
-        fa.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(TypeError, match="bf16, fp16 or fp32"):
+        fa.flash_attention(q.double(), q.double(), q.double())
     wide = torch.randn(1, 8, 2, 160, device=card)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention(wide, wide, wide)
@@ -186,13 +196,16 @@ def test_flash_wrapper_rejects_what_the_kernels_do_not_take(card):
 
 # ------------------------------------------------------------ B2 adam
 @pytest.mark.cuda
-@pytest.mark.parametrize("grad_dtype", [torch.float32, torch.bfloat16],
-                         ids=["grad_fp32", "grad_bf16"])
+@pytest.mark.parametrize("grad_dtype", [torch.float32, torch.bfloat16,
+                                        torch.float16],
+                         ids=["grad_fp32", "grad_bf16", "grad_fp16"])
 @pytest.mark.parametrize("adam_w_mode", [True, False], ids=["adamw", "l2"])
-@pytest.mark.parametrize("clip,bf16_out", [(False, True), (True, False)],
-                         ids=["copy", "clip"])
+@pytest.mark.parametrize("clip,out_dtype", [(False, torch.bfloat16),
+                                            (False, torch.float16),
+                                            (True, None)],
+                         ids=["copy", "fp16_copy", "clip"])
 def test_fused_adam_kernel_matches_plain(card, grad_dtype, adam_w_mode, clip,
-                                         bf16_out):
+                                         out_dtype):
     n = 1_000_003                               # not a multiple of 4
     g = torch.Generator().manual_seed(n + adam_w_mode)
     grad = torch.randn(n, generator=g).to(card, grad_dtype)
@@ -200,7 +213,7 @@ def test_fused_adam_kernel_matches_plain(card, grad_dtype, adam_w_mode, clip,
     m = (0.1 * torch.randn(n, generator=g)).to(card)
     v = (0.01 * torch.rand(n, generator=g)).to(card)
     ref = [t.clone() for t in (master, m, v)]
-    out = (torch.empty(n, dtype=torch.bfloat16, device=card) if bf16_out
+    out = (torch.empty(n, dtype=out_dtype, device=card) if out_dtype
            else None)
     out_ref = None if out is None else out.clone()
     hyper = dict(lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-8,
@@ -215,8 +228,7 @@ def test_fused_adam_kernel_matches_plain(card, grad_dtype, adam_w_mode, clip,
     for got, want in zip((master, m, v), ref):
         assert ((got - want).abs() <= 2.0**-23 * want.abs()).all()
     if out is not None:
-        assert ((out.float() - out_ref.float()).abs() <=
-                2.0**-8 * out_ref.float().abs()).all()
+        assert torch.equal(out, out_ref)
 
 
 @pytest.mark.cuda
@@ -225,8 +237,116 @@ def test_fused_adam_wrapper_rejects(card):
     hyper = dict(lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-8,
                  weight_decay=0.0, count=1)
     with pytest.raises(TypeError, match="gradient"):
-        opt.fused_adam_step(x.half(), x, x.clone(), x.clone(), **hyper)
+        opt.fused_adam_step(x.double(), x, x.clone(), x.clone(), **hyper)
     with pytest.raises(ValueError, match="aligned"):
         opt.fused_adam_step(x[1:33], x[1:33], x[1:33], x[1:33], **hyper)
     with pytest.raises(TypeError, match="bf16"):
         opt.fused_adam_step(x, x, x.clone(), x.clone(), x.clone(), **hyper)
+
+
+# --------------------------------------------------------- B3 LAMB, B8 Lion
+def _opt_state(card, n, grad_dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    grad = torch.randn(n, generator=g).to(card, grad_dtype)
+    master = torch.randn(n, generator=g).to(card)
+    m = (0.1 * torch.randn(n, generator=g)).to(card)
+    v = (0.01 * torch.rand(n, generator=g)).to(card)
+    return grad, master, m, v
+
+
+def _leaves(sizes, align=16):
+    out, off = [], 0
+    for n in sizes:
+        out.append((off, n))
+        off += -(-n // align) * align
+    return out, off
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grad_dtype", [torch.float32, torch.float16,
+                                        torch.bfloat16],
+                         ids=["grad_fp32", "grad_fp16", "grad_bf16"])
+@pytest.mark.parametrize("out_dtype", [torch.float16, torch.bfloat16, None],
+                         ids=["fp16_copy", "bf16_copy", "no_copy"])
+def test_fused_lamb_kernels_match_plain(card, grad_dtype, out_dtype):
+    """Leaves of many sizes (one of several chunks, one of a few elements,
+    one of zeros whose ratio is 1), small chunks so that leaves span many
+    blocks; two runs of phase 1 give the same bits."""
+    sizes = [70_001, 1024, 4096, 3, 33_333, 100]
+    leaves, n = _leaves(sizes)
+    grad, master, m, v = _opt_state(card, n, grad_dtype, 11)
+    master[leaves[-1][0]:leaves[-1][0] + leaves[-1][1]] = 0
+    pad = torch.ones(n, dtype=torch.bool, device=card)  # gaps between leaves
+    for o, k in leaves:
+        pad[o:o + k] = False
+    for t in (grad, master, m, v):
+        t[pad] = 0
+    table = opt.LambTable(leaves, device=card, chunk=4096)
+    hyper = dict(beta1=0.9, beta2=0.999, eps=1e-6, weight_decay=0.01,
+                 count=3, grad_scale=torch.tensor(0.37, device=card))
+    ref = [t.clone() for t in (master, m, v)]
+    u = torch.zeros_like(master)
+    u_ref = torch.zeros_like(master)
+    out = (torch.zeros(n, dtype=out_dtype, device=card) if out_dtype
+           else None)
+    before = (opt.fused_lamb_phase1.launches, opt.fused_lamb_phase2.launches)
+    partials = opt.fused_lamb_phase1(grad, master, m, v, u, table, **hyper)
+    m2, v2, u2 = (t.clone() for t in (ref[1], ref[2], u_ref))
+    again = opt.fused_lamb_phase1(grad, master, m2, v2, u2, table, **hyper)
+    stats = opt.fused_lamb_phase2(master, u, out, table, partials, lr=1e-2)
+    torch.cuda.synchronize()
+    assert torch.equal(partials, again)
+    assert (opt.fused_lamb_phase1.launches, opt.fused_lamb_phase2.launches) \
+        == (before[0] + 2, before[1] + 1)
+    views = table.views
+    sums = opt.fused_lamb_phase1_plain(views(grad), views(ref[0]),
+                                       views(ref[1]), views(ref[2]),
+                                       views(u_ref), **hyper)
+    assert torch.equal(m, ref[1]) and torch.equal(v, ref[2])
+    assert torch.equal(u, u_ref)
+    for i, (o, k) in enumerate(leaves):
+        p0 = ref[0][o:o + k].double()
+        uu = u_ref[o:o + k].double()
+        want = torch.stack([(p0 * p0).sum(), (uu * uu).sum()])
+        assert ((stats[i, :2].double() - want).abs() <=
+                1e-5 * want.abs()).all(), i
+    ratios = opt.fused_lamb_phase2_plain(views(ref[0]), views(u_ref), None,
+                                         sums, lr=1e-2)
+    assert stats[-1, 2].item() == 1.0
+    assert ((stats[:, 2] - ratios).abs() <= 1e-5 * ratios.abs()).all()
+    for i, (o, k) in enumerate(leaves):
+        # lr·|Δratio|·|u|, the rounding of lr·ratio and of its product with
+        # u (an fp32 ulp each), and one ulp of the new master
+        slack = (1e-2 * ((stats[i, 2] - ratios[i]).abs() +
+                         2.0**-22 * ratios[i]) * u_ref[o:o + k].abs() +
+                 2.0**-23 * ref[0][o:o + k].abs())
+        assert ((master[o:o + k] - ref[0][o:o + k]).abs() <=
+                slack + 1e-30).all(), i
+    if out is not None:
+        assert torch.equal(out[~pad], master[~pad].to(out_dtype))
+    assert not master[pad].any() and not m[pad].any() and not u[pad].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grad_dtype", [torch.float32, torch.float16],
+                         ids=["grad_fp32", "grad_fp16"])
+@pytest.mark.parametrize("out_dtype", [torch.float16, torch.bfloat16, None],
+                         ids=["fp16_copy", "bf16_copy", "no_copy"])
+def test_fused_lion_kernel_matches_plain(card, grad_dtype, out_dtype):
+    n = 1_000_003
+    grad, master, m, _ = _opt_state(card, n, grad_dtype, 5)
+    ref = [master.clone(), m.clone()]
+    out = (torch.empty(n, dtype=out_dtype, device=card) if out_dtype
+           else None)
+    out_ref = None if out is None else out.clone()
+    hyper = dict(lr=1e-3, beta1=0.9, beta2=0.99, weight_decay=0.1,
+                 grad_scale=torch.tensor(0.5, device=card))
+    before = opt.fused_lion_step.launches
+    opt.fused_lion_step(grad, master, m, out, **hyper)
+    opt.fused_lion_step_plain([grad], [ref[0]], [ref[1]],
+                              None if out is None else [out_ref], **hyper)
+    torch.cuda.synchronize()
+    assert opt.fused_lion_step.launches == before + 1
+    assert torch.equal(master, ref[0]) and torch.equal(m, ref[1])
+    if out is not None:
+        assert torch.equal(out, out_ref)

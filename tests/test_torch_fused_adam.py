@@ -53,34 +53,38 @@ def _state(seed):
 
 @pytest.mark.parametrize("adam_w_mode,count,bias_correction,grad_bf16", [
     (True, 1, True, False), (True, 3, True, False), (False, 3, True, False),
-    (True, 3, False, False), (False, 1, True, True)],
-    ids=["adamw-1", "adamw-3", "l2-3", "no-bias-correction", "l2-bf16-grad"])
+    (True, 3, False, False), (False, 1, True, True), (True, 2, True, "fp16")],
+    ids=["adamw-1", "adamw-3", "l2-3", "no-bias-correction", "l2-bf16-grad",
+         "adamw-fp16-grad-and-copy"])
 def test_flat_step_matches_pallas_per_leaf(adam_w_mode, count,
                                            bias_correction, grad_bf16):
+    """``grad_bf16="fp16"``: an fp16 gradient and an fp16 parameter copy."""
     g, p, m, v = _state(count + 10 * adam_w_mode)
     hyper = dict(lr=1e-2, beta1=0.9, beta2=0.999, eps=1e-8,
                  weight_decay=0.01, count=count, adam_w_mode=adam_w_mode,
                  bias_correction=bias_correction)
     bufs = [_flat(x)[0] for x in (g, p, m, v)]
     offs = _flat(g)[1]
+    low = (torch.float16, jnp.float16, 2**-11) if grad_bf16 == "fp16" else \
+        (torch.bfloat16, jnp.bfloat16, 2**-8)
     gt, pt, mt, vt = (torch.from_numpy(b.copy()) for b in bufs)
     if grad_bf16:
-        gt = gt.bfloat16()
-    out = torch.zeros(pt.numel(), dtype=torch.bfloat16)
+        gt = gt.to(low[0])
+    out = torch.zeros(pt.numel(), dtype=low[0])
     fused_adam_step(gt, pt, mt, vt, out, **hyper)
     for i, (o, n) in enumerate(offs):
         gj = jnp.asarray(g[i])
         if grad_bf16:
-            gj = gj.astype(jnp.bfloat16)
+            gj = gj.astype(low[1])
         bf, pw, mw, vw = pallas_adam_step(
             gj, jnp.asarray(p[i]), jnp.asarray(m[i]), jnp.asarray(v[i]),
-            **hyper)
+            out_dtype=low[1], **hyper)
         shape = SHAPES[i]
         np.testing.assert_allclose(pt[o:o + n].view(shape), pw, **FP32)
         np.testing.assert_allclose(mt[o:o + n].view(shape), mw, **FP32)
         np.testing.assert_allclose(vt[o:o + n].view(shape), vw, **FP32)
         np.testing.assert_allclose(out[o:o + n].view(shape).float(),
-                                   np.asarray(bf, np.float32), rtol=2**-8,
+                                   np.asarray(bf, np.float32), rtol=low[2],
                                    atol=0)
     # the padding between leaves stays zero (a fixed point of the update)
     pad = np.ones(pt.numel(), bool)

@@ -381,7 +381,7 @@ def test_batch_trinity_matches_jax(i):
 
 
 REFUSED = [
-    ({"fp16": {"enabled": True}}, 6),
+    ({"optimizer": {"type": "muon"}}, 11),
     ({"zero_optimization": {"stage": 1}}, 6),
     ({"zero_optimization": {"stage": 0, "offload_optimizer":
                             {"device": "cpu"}}}, 10),
@@ -394,7 +394,7 @@ REFUSED = [
     ({"moe": {"enabled": True}}, 8),
     ({"domino": {"enabled": True}}, 9),
     ({"activation_checkpointing": {"partition_activations": True}}, 9),
-    ({"resilience": {"check_finite_grads": {"enabled": True}}}, 4),
+    ({"optimizer": {"type": "adagrad"}}, 11),
     ({"resilience": {"watchdog": {"enabled": True}}}, 12),
     ({"telemetry": {"enabled": True}}, 12),
     ({"progressive_layer_drop": {"enabled": True}}, 12),
@@ -407,10 +407,10 @@ REFUSED = [
     ({"wall_clock_breakdown": True}, 2),
     ({"autotuning": {"enabled": True}}, 12),
     ({"elasticity": {"enabled": True}}, 12),
-    ({"optimizer": {"type": "lamb"}}, 6),
-    ({"optimizer": {"type": "lion"}}, 11),
+    ({"optimizer": {"type": "onebitlamb"}}, 7),
+    ({"optimizer": {"type": "zerooneadam"}}, 7),
     ({"optimizer": {"type": "onebitadam"}}, 7),
-    ({"data_types": {"grad_accum_dtype": "fp16"}}, 6),
+    ({"zero_optimization": {"stage": 2}}, 6),
 ]
 
 
@@ -492,7 +492,8 @@ def test_grad_norm_clip_and_overflow_match_jax():
     want = float(jax_utils.global_grad_norm(jg))
     assert abs(float(port_utils.global_grad_norm(pg)) - want) <= 1e-6 * want
     jclipped, _ = jax_utils.clip_grads_by_global_norm(jg, 1.0)
-    port_utils.clip_grads_by_global_norm(pg, 1.0)
+    coef = port_utils.clip_coefficient(port_utils.global_grad_norm(pg), 1.0)
+    pg = [g * coef for g in pg]
     for a, b in zip(pg, jclipped):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6)
     assert float(port_utils.global_grad_norm(pg)) == pytest.approx(1.0,
@@ -503,7 +504,7 @@ def test_grad_norm_clip_and_overflow_match_jax():
     assert bool(port_scaler.has_overflow(pg)) == bool(
         jax_scaler.has_overflow(jg)) is True
     assert not bool(port_scaler.has_overflow(pg[:1]))
-    assert port_scaler.create_loss_scaler(False).cur_scale == 1.0
+    assert port_scaler.create_loss_scaler(False).init().scale == 1.0
 
 
 def test_train_batch_and_eval_match_the_step_api():

@@ -38,7 +38,8 @@ def test_import_loads_no_jax():
                  "ops.kernels.optimizers", "ops.attention", "ops.adam",
                  "runtime.config", "runtime.engine", "runtime.lr_schedules",
                  "runtime.utils", "runtime.loss_scaler",
-                 "sequence.cross_entropy", "models.llama"):
+                 "runtime.fp16.loss_scaler", "ops.lamb", "ops.lion",
+                 "sequence.cross_entropy", "models.llama", "models.gpt2"):
         assert f"deepspeed_tpu_torch.{name}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
