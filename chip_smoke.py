@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--json PATH] [--profile DIR]
 
-Stages, run in the order 1-12; any failure exits non-zero:
+Stages, run in the order 1-16; any failure exits non-zero:
 
 1. environment: torch/CUDA/nvcc versions, the card's name and power limit;
 2. build: every ``deepspeed_tpu_torch/csrc/*.cu`` with nvcc for sm_90a
@@ -62,11 +62,37 @@ Stages, run in the order 1-12; any failure exits non-zero:
     moments and fp16 parameters bit-unchanged, counts in ``skipped_steps``,
     does not advance the optimizer's count or lr, and halves the scale only
     when the hysteresis of 2 runs out), and a bf16 run with
-    ``check_finite_grads`` whose poisoned step is skipped.
+    ``check_finite_grads`` whose poisoned step is skipped;
+13. the kernels of the MoE and quantized-serving slice against their plain
+    versions: the grouped matmul in bf16 at Mixtral-8x7B's expert shapes
+    (K=4096, N=14336 and K=14336, N=4096, E=8) for decode (16 rows, 2 per
+    expert) and prefill (1,536 rows, uneven, one expert empty), and in
+    fp32 at K=1000, N=1003 (within 2^-7·|ref| + 1e-4 in bf16); blockwise
+    quantize and dequantize over one layer's w1 stack (469,762,048
+    elements), int8 and int4, groups of 128 and 2048, bf16 and fp32 input
+    (bit for bit); times of each kernel, its plain version, a library call
+    for the grouped matmul (``torch._grouped_mm`` where this torch has it,
+    else a per-expert ``torch.matmul`` loop) and the bound;
+14. Mixtral serving at full width: Mixtral-8x7B's published config cut
+    from 32 to 16 layers (32 do not fit in 80 GB in bf16), random bf16
+    weights made on the card one tensor at a time as the checkpoint
+    streams them into the expert stacks (``build_engine_from_checkpoint``);
+    stage 4's engine config and requests: rates, TTFT, peak memory, the
+    grouped matmul's launches (exactly 3 × 16 × ragged steps) and paged
+    attention's, finite logits;
+15. Llama-2-7B at full width and depth with ``quantization_mode="int8"``:
+    quantize launches at build (one per weight), dequantize launches
+    (weights × ragged steps, exactly), resident weight bytes, rates, and a
+    serving peak below stage 4's bf16 peak in the same run; then an int4
+    engine for one short request;
+16. one ragged step (a prefill, then two teacher-forced decode steps) at
+    full width and depth 2, kernels against their plain versions: Mixtral
+    (a flipped top-2 routing choice reruns the plain step with the kernel
+    run's router logits, and says so), then Llama-2-7B in int8.
 
-``--profile DIR`` adds ``torch.profiler`` windows over serving (stage 4),
-over two training steps of stage 8 and two of stage 11: device time by
-kind and the idle share.
+``--profile DIR`` adds ``torch.profiler`` windows over serving (stages 4,
+14 and 15), over two training steps of stage 8 and two of stage 11: device
+time by kind and the idle share.
 
 Prints a ``{"kernels": [...]}`` line, then, last, the device line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
@@ -535,14 +561,15 @@ def _is_matmul(name):
                                            "sm90_", "nvjet"))
 
 
-def profile_serve(eng, prompts, out_dir, smi):
+def profile_serve(eng, prompts, out_dir, smi, stem="serve"):
     """Where the serving time goes: a prefill window (``schedule_step``
     until every prompt has its first token) and a decode window (two
     16-token ``burst_decode`` calls)."""
 
     def kind(name):
-        if "paged_attention" in name:
-            return "paged_attention"
+        for k in ("paged_attention", "gmm", "dequantize"):
+            if k in name:
+                return k
         return "matmul" if _is_matmul(name) else "other"
 
     uids = list(range(100, 100 + len(prompts)))
@@ -560,10 +587,10 @@ def profile_serve(eng, prompts, out_dir, smi):
             eng.burst_decode(uids, max_tokens=16)
 
     result = dict(
-        prefill=_profile_window("serve_profile_prefill", prefill, kind,
+        prefill=_profile_window(f"{stem}_profile_prefill", prefill, kind,
                                 out_dir, smi),
-        decode=_profile_window("serve_profile_decode", decode, kind, out_dir,
-                               smi))
+        decode=_profile_window(f"{stem}_profile_decode", decode, kind,
+                               out_dir, smi))
     eng.flush(uids)
     return result
 
@@ -1488,14 +1515,542 @@ def stage_overflow_and_guard(seed):
     return dict(scales=scales, guard=report)
 
 
+# --------------------------------------------------------------- stage 13
+def _gmm_case(torch, gen, name, sizes, K, N, dtype):
+    """The grouped matmul on the shapes of one Mixtral expert product:
+    kernel against its plain version on the same inputs, with the times of
+    both, of a library call and the bound."""
+    from deepspeed_tpu_torch.ops.kernels import grouped_matmul as gm
+    dt = getattr(torch, dtype)
+    T, E = sum(sizes), len(sizes)
+    x = torch.randn(T, K, device="cuda", generator=gen).to(dt)
+    w = (torch.randn(E, K, N, device="cuda", generator=gen)
+         / K**0.5).to(dt)
+    gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    got = gm.gmm(x, w, gs)
+    torch.cuda.synchronize()
+    ref = gm.gmm_plain(x, w, gs)
+    err, worst = _compare(torch, got, ref, dt != torch.float32)
+    ms = cuda_ms(lambda: gm.gmm(x, w, gs), 10)
+    plain_ms = cuda_ms(lambda: gm.gmm_plain(x, w, gs), 3, warmup=1)
+    lib_kind = None
+    offs = torch.cumsum(gs, 0, dtype=torch.int32)
+    grouped = getattr(torch, "_grouped_mm", None)
+    if grouped is not None and dt == torch.bfloat16:
+        # [E, K, N] as it lies, then the column-major copy some builds ask
+        # for (outside the timing)
+        for b in (w, w.transpose(1, 2).contiguous().transpose(1, 2)):
+            try:
+                lib_out = grouped(x, b, offs=offs)
+            except RuntimeError as e:
+                log(f"[moe-kernel] torch._grouped_mm refused {name} "
+                    f"(w strides {b.stride()}): "
+                    f"{str(e).splitlines()[0][:120]}")
+                continue
+            lib_kind = f"torch._grouped_mm (w strides {b.stride()})"
+            lib = lambda b=b: grouped(x, b, offs=offs)  # noqa: E731
+            break
+    if lib_kind is None:
+        def lib():
+            out, s = [], 0
+            for e, n in enumerate(sizes):
+                out.append(torch.matmul(x[s:s + n], w[e]))
+                s += n
+            return torch.cat(out)
+
+        lib_out, lib_kind = lib(), "per-expert torch.matmul loop"
+    lib_ms = cuda_ms(lib, 10)
+    lib_err = (lib_out.float() - ref.float()).abs().max().item()
+    active = sum(1 for n in sizes if n > 0)
+    esz = x.element_size()
+    nbytes = (active * K * N + T * K + T * N) * esz
+    flops = 2 * T * K * N
+    bound = _roofline(nbytes, flops,
+                      BF16_FLOPS if dt != torch.float32 else FP32_FLOPS)
+    tol_text = ("2^-7·|ref| + 1e-4" if dt != torch.float32
+                else f"{FP32_ATOL:g} + {FP32_RTOL:g}·|ref|")
+    log(f"[moe-kernel] gmm {name}: x [{T},{K}] w [{E},{K},{N}] {dtype} "
+        f"groups {sizes if len(set(sizes)) > 1 else f'{E}×{sizes[0]}'}: "
+        f"max_abs_err {err:.3e}, worst |err| / ({tol_text}) {worst:.3f} | "
+        f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+        f"{plain_ms:.4f} ms, {lib_kind} {lib_ms:.4f} ms (err {lib_err:.2e})"
+        f" | bound {bound[0]:.4f} ms by {bound[1]}")
+    if not worst <= 1.0:
+        raise AssertionError(f"gmm {name}: kernel differs from its plain "
+                             f"version by {worst} × ({tol_text})")
+    return dict(case=name, err=err, err_over_tol=worst, ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, library=lib_kind,
+                bound_ms=bound[0], bound_by=bound[1], rows=T, K=K, N=N)
+
+
+def _quant_case(torch, gen, dtype, bits, group_size):
+    """Both quantizer kernels over one Mixtral layer's w1 stack, each bit
+    for bit against its plain version, with times and bounds."""
+    from deepspeed_tpu_torch.ops.kernels import quantizer as qz
+    dt = getattr(torch, dtype)
+    x = (torch.randn(8, 4096, 14336, device="cuda", generator=gen)
+         * 0.02).to(dt)
+    q, s, meta = qz.quantize_blockwise(x, bits, group_size)
+    torch.cuda.synchronize()
+    q_ref, s_ref, meta_ref = qz.quantize_blockwise_plain(x, bits, group_size)
+    q_ok = (meta == meta_ref and torch.equal(q, q_ref)
+            and torch.equal(s, s_ref))
+    q_err = (q.int() - q_ref.int()).abs().max().item()
+    del q_ref, s_ref
+    _free(torch)
+    out = qz.dequantize_blockwise(q, s, meta)
+    ref = qz.dequantize_blockwise_plain(q, s, meta)
+    d_ok = torch.equal(out, ref)
+    d_err = (out.float() - ref.float()).abs().max().item()
+    del out, ref
+    _free(torch)
+    row = dict(case=f"{dtype}_int{bits}_g{group_size}", elements=x.numel())
+    row["ms_q"] = cuda_ms(lambda: qz.quantize_blockwise(x, bits, group_size),
+                          10)
+    row["plain_ms_q"] = cuda_ms(
+        lambda: qz.quantize_blockwise_plain(x, bits, group_size), 2,
+        warmup=1)
+    _free(torch)
+    row["ms_d"] = cuda_ms(lambda: qz.dequantize_blockwise(q, s, meta), 10)
+    row["plain_ms_d"] = cuda_ms(
+        lambda: qz.dequantize_blockwise_plain(q, s, meta), 2, warmup=1)
+    n, groups, esz = x.numel(), meta[2], x.element_size()
+    row["bound_q"] = _roofline(n * esz + n + 4 * groups, 0, BF16_FLOPS)
+    row["bound_d"] = _roofline(n + 4 * groups + n * esz, 0, BF16_FLOPS)
+    row.update(err_q=q_err, err_d=d_err, bit_equal=q_ok and d_ok)
+    log(f"[quant-kernel] {row['case']} over {n:,} elements ({groups:,} "
+        f"groups): q, scales {'bit-equal' if q_ok else 'DIFFER'} (max |Δq| "
+        f"{q_err}), dequantized {'bit-equal' if d_ok else 'DIFFER'} | "
+        f"quantize {row['ms_q']:.4f} ms (plain {row['plain_ms_q']:.3f}, "
+        f"bound {row['bound_q'][0]:.4f}), dequantize {row['ms_d']:.4f} ms "
+        f"(plain {row['plain_ms_d']:.3f}, bound {row['bound_d'][0]:.4f}), "
+        f"bounds by bytes")
+    if not (q_ok and d_ok):
+        raise AssertionError(f"quantizer {row['case']}: kernels differ from "
+                             f"their plain versions")
+    del x, q, s
+    _free(torch)
+    return row
+
+
+def stage_moe_quant_kernels(seed):
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed + 13)
+    D, I, E = 4096, 14336, 8
+    prefill = [96, 0, 412, 230, 318, 57, 269, 154]      # 1,536 rows
+    gmm_rows = []
+    for name, sizes in (("decode", [2] * E), ("prefill", prefill)):
+        for proj, K, N in (("w1", D, I), ("w2", I, D)):
+            gmm_rows.append(_gmm_case(torch, gen, f"{name}_{proj}", sizes,
+                                      K, N, "bfloat16"))
+            _free(torch)
+    gmm_rows.append(_gmm_case(torch, gen, "fp32_ragged", [37, 0, 91, 5],
+                              1000, 1003, "float32"))
+    _free(torch)
+    quant_rows = [_quant_case(torch, gen, dtype, bits, gs)
+                  for dtype in ("bfloat16", "float32") for bits in (8, 4)
+                  for gs in (128, 2048)]
+    return dict(gmm=gmm_rows, quant=quant_rows)
+
+
+# --------------------------------------------------------------- stage 14
+MIXTRAL_8X7B_HF = dict(model_type="mixtral", vocab_size=32000,
+                       hidden_size=4096, intermediate_size=14336,
+                       num_hidden_layers=32, num_attention_heads=32,
+                       num_key_value_heads=8, max_position_embeddings=32768,
+                       rms_norm_eps=1e-5, rope_theta=1e6,
+                       num_local_experts=8, num_experts_per_tok=2,
+                       router_aux_loss_coef=0.02, sliding_window=None,
+                       tie_word_embeddings=False)
+SERVE_ENGINE = dict(
+    dtype="bfloat16", decode_burst=16,
+    state_manager=dict(block_size=128, num_blocks=160, max_context=4096,
+                       max_ragged_sequence_count=16, max_tracked_sequences=16,
+                       max_ragged_batch_size=768, prefill_atom_size=16))
+
+
+def _hf_shapes(hf):
+    """(name, shape) of every HF tensor of a llama or mixtral config, in
+    checkpoint order (one tensor per expert for mixtral)."""
+    D, V, L = hf["hidden_size"], hf["vocab_size"], hf["num_hidden_layers"]
+    I = hf["intermediate_size"]
+    H, Hkv = hf["num_attention_heads"], hf["num_key_value_heads"]
+    Dh = D // H
+    yield "model.embed_tokens.weight", (V, D)
+    for i in range(L):
+        p = f"model.layers.{i}."
+        yield p + "self_attn.q_proj.weight", (H * Dh, D)
+        yield p + "self_attn.k_proj.weight", (Hkv * Dh, D)
+        yield p + "self_attn.v_proj.weight", (Hkv * Dh, D)
+        yield p + "self_attn.o_proj.weight", (D, H * Dh)
+        if hf["model_type"] == "mixtral":
+            E = hf["num_local_experts"]
+            yield p + "block_sparse_moe.gate.weight", (E, D)
+            for e in range(E):
+                q = p + f"block_sparse_moe.experts.{e}."
+                yield q + "w1.weight", (I, D)
+                yield q + "w3.weight", (I, D)
+                yield q + "w2.weight", (D, I)
+        else:
+            yield p + "mlp.gate_proj.weight", (I, D)
+            yield p + "mlp.up_proj.weight", (I, D)
+            yield p + "mlp.down_proj.weight", (D, I)
+        yield p + "input_layernorm.weight", (D, )
+        yield p + "post_attention_layernorm.weight", (D, )
+    yield "model.norm.weight", (D, )
+    yield "lm_head.weight", (V, D)
+
+
+class _RandomCheckpoint:
+    """A checkpoint engine whose ``parameters()`` makes each bf16 HF tensor
+    on the card from the generator as it is asked for (norms 1, the rest
+    normal(0, std)), so that no complete state exists beside the model."""
+
+    def __init__(self, torch, hf, gen, std=0.02):
+        self.torch, self.hf, self.gen, self.std = torch, hf, gen, std
+
+    def parameters(self):
+        for name, shape in _hf_shapes(self.hf):
+            t = self.torch.empty(shape, dtype=self.torch.bfloat16,
+                                 device="cuda")
+            if name.endswith("norm.weight"):
+                t.fill_(1.0)
+            else:
+                t.normal_(0.0, self.std, generator=self.gen)
+            yield name, t
+
+
+def _serve_run(eng, prompts, new_tokens, counters):
+    """``generate`` timed as stage 4 times it, with each counter in
+    ``counters`` (name → wrapper) set to 0 just before and read just
+    after; then the same requests again, untimed, with every step's logits
+    checked finite."""
+    import numpy as np
+    import torch
+    steps = [0]
+    step_fn = eng._step_fn
+
+    def counted_step(*args, **kwargs):
+        steps[0] += 1
+        return step_fn(*args, **kwargs)
+
+    eng._step_fn = counted_step
+    first_token = {}
+    schedule = eng.schedule_step
+
+    def timed_schedule(*args, **kwargs):
+        out = schedule(*args, **kwargs)
+        now = time.perf_counter()
+        for uid in out:
+            first_token.setdefault(uid, now)
+        return out
+
+    eng.schedule_step = timed_schedule
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    start = time.perf_counter()
+    outs = eng.generate(prompts, max_new_tokens=new_tokens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    bursts = getattr(eng, "burst_steps", 0)
+    del eng.schedule_step
+    finite = torch.ones((), dtype=torch.bool, device="cuda")
+
+    def probed_step(*args, **kwargs):
+        logits, kv = step_fn(*args, **kwargs)
+        finite.logical_and_(torch.isfinite(logits).all())
+        return logits, kv
+
+    eng._step_fn = probed_step
+    again = eng.generate(prompts, max_new_tokens=new_tokens)
+    eng._step_fn = step_fn
+    lengths = [len(p) for p in prompts]
+    ttft = [first_token[u] - start for u in range(len(prompts))]
+    prefill_end = max(ttft)
+    n_gen = sum(len(o) for o in outs)
+    vocab = eng.model_config.vocab_size
+    bad = [t for o in outs for t in o if not 0 <= t < vocab]
+    if any(len(o) != new_tokens for o in outs) or bad:
+        raise AssertionError(f"generate gave wrong lengths or tokens {bad}")
+    if not bool(finite):
+        raise AssertionError("non-finite logits in the serving run")
+    if eng.state_manager.free_blocks != eng.kv_cache.num_blocks - 1:
+        raise AssertionError("blocks leaked after generate")
+    return dict(wall_s=wall, prefill_tok_s=sum(lengths) / prefill_end,
+                decode_tok_s=(n_gen - len(prompts)) / (wall - prefill_end),
+                ttft_mean_s=float(np.mean(ttft)), ttft_max_s=prefill_end,
+                peak_bytes=peak, steps=steps[0], bursts=bursts,
+                launches=launches,
+                prompt_lengths=lengths, same_tokens_rerun=again == outs)
+
+
+def _serve_line(tag, r, smi):
+    log(f"[{tag}] prompts {r['prompt_lengths']} (sum "
+        f"{sum(r['prompt_lengths'])}), {r['steps']} ragged steps, "
+        f"{r['bursts']} bursts | wall {r['wall_s']:.3f} s | prefill "
+        f"{r['prefill_tok_s']:.1f} tok/s | decode {r['decode_tok_s']:.1f} "
+        f"tok/s | TTFT mean {r['ttft_mean_s']:.3f} s max "
+        f"{r['ttft_max_s']:.3f} s | peak memory {r['peak_bytes'] / 2**30:.2f}"
+        f" GiB | {smi}")
+    log(f"[{tag}] kernel launches in this run: {r['launches']}; untimed "
+        f"rerun: logits finite, same tokens {r['same_tokens_rerun']}")
+
+
+def _serve_prompts(seed):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(128, 2049, size=8).tolist()
+    return [rng.integers(0, 32000, size=n).tolist() for n in lengths]
+
+
+def stage_mixtral_serve(seed, smi, profile_dir=None):
+    import torch
+    from deepspeed_tpu_torch.inference.v2 import build_engine_from_checkpoint
+    from deepspeed_tpu_torch.models.mixtral import param_count
+    from deepspeed_tpu_torch.ops.kernels import grouped_matmul as gm
+    from deepspeed_tpu_torch.ops.kernels import paged_attention as pa
+
+    hf = dict(MIXTRAL_8X7B_HF, num_hidden_layers=16)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 14)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = build_engine_from_checkpoint(_RandomCheckpoint(torch, hf, gen), hf,
+                                       dict(SERVE_ENGINE))
+    torch.cuda.synchronize()
+    cfg = eng.model_config
+    log(f"[mixtral] Mixtral-8x7B width, {cfg.num_hidden_layers} of 32 "
+        f"layers ({param_count(cfg) / 1e9:.2f} B params), streamed through "
+        f"build_engine_from_checkpoint in {time.perf_counter() - t0:.1f} s;"
+        f" build peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+        f"resident {torch.cuda.memory_allocated() / 2**30:.2f} GiB incl. KV")
+    counters = {"gmm": gm.gmm, "paged_attention": pa.paged_attention,
+                "paged_attention_atoms": pa.paged_attention_atoms}
+    r = _serve_run(eng, _serve_prompts(seed), 64, counters)
+    _serve_line("mixtral", r, smi)
+    want = 3 * cfg.num_hidden_layers * r["steps"]
+    if r["launches"]["gmm"] != want:
+        raise AssertionError(f"gmm launched {r['launches']['gmm']} times, "
+                             f"want 3 × {cfg.num_hidden_layers} × "
+                             f"{r['steps']} = {want}")
+    if min(r["launches"].values()) <= 0:
+        raise AssertionError(f"a kernel of the path never launched: "
+                             f"{r['launches']}")
+    log(f"[mixtral] gmm launches {r['launches']['gmm']} = 3 × "
+        f"{cfg.num_hidden_layers} layers × {r['steps']} ragged steps "
+        f"(decode-burst steps counted each)")
+    if profile_dir:
+        r["profile"] = profile_serve(eng, _serve_prompts(seed + 1),
+                                     profile_dir, smi, stem="mixtral")
+    del eng
+    _free(torch)
+    return r
+
+
+# --------------------------------------------------------------- stage 15
+def stage_quant_serve(seed, smi, bf16_peak, profile_dir=None):
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.inference import quant_serving
+    from deepspeed_tpu_torch.inference.v2 import build_engine_from_checkpoint
+    from deepspeed_tpu_torch.ops.kernels import paged_attention as pa
+    from deepspeed_tpu_torch.ops.kernels import quantizer as qz
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 15)
+    qz.quantize_blockwise.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = build_engine_from_checkpoint(
+        _RandomCheckpoint(torch, LLAMA2_7B_HF, gen), LLAMA2_7B_HF,
+        dict(SERVE_ENGINE, quantization_mode="int8"))
+    torch.cuda.synchronize()
+    n_leaves = len(eng._quant_meta)
+    built = qz.quantize_blockwise.launches
+    resident = quant_serving.resident_bytes(eng.module)
+    log(f"[quant] Llama-2-7B int8 engine built in "
+        f"{time.perf_counter() - t0:.1f} s: {n_leaves} weights quantized "
+        f"(quantize launches {built}), resident weights "
+        f"{resident / 2**30:.3f} GiB (int8 + fp32 scales + norms), build "
+        f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if built != n_leaves:
+        raise AssertionError(f"quantize launched {built} times for "
+                             f"{n_leaves} weights")
+    counters = {"dequantize_blockwise": qz.dequantize_blockwise,
+                "paged_attention": pa.paged_attention,
+                "paged_attention_atoms": pa.paged_attention_atoms}
+    r = _serve_run(eng, _serve_prompts(seed), 64, counters)
+    _serve_line("quant", r, smi)
+    want = n_leaves * r["steps"]
+    if r["launches"]["dequantize_blockwise"] != want:
+        raise AssertionError(f"dequantize launched "
+                             f"{r['launches']['dequantize_blockwise']} "
+                             f"times, want {n_leaves} × {r['steps']}")
+    if min(r["launches"].values()) <= 0:
+        raise AssertionError(f"a kernel of the path never launched: "
+                             f"{r['launches']}")
+    log(f"[quant] dequantize launches {want} = {n_leaves} weights × "
+        f"{r['steps']} ragged steps; peak {r['peak_bytes'] / 2**30:.2f} GiB "
+        f"against stage 4's bf16 peak {bf16_peak / 2**30:.2f} GiB in this "
+        f"run")
+    if not r["peak_bytes"] < bf16_peak:
+        raise AssertionError("the int8 engine's serving peak is not below "
+                             "the bf16 engine's")
+    r.update(quantize_launches=built, quantized_weights=n_leaves,
+             resident_bytes=resident)
+    if profile_dir:
+        r["profile"] = profile_serve(eng, _serve_prompts(seed + 1),
+                                     profile_dir, smi, stem="quant")
+    del eng
+    _free(torch)
+
+    # int4, one short request: finite logits, valid tokens
+    eng = build_engine_from_checkpoint(
+        _RandomCheckpoint(torch, LLAMA2_7B_HF, gen), LLAMA2_7B_HF,
+        dict(SERVE_ENGINE, quantization_mode="int4"))
+    finite = torch.ones((), dtype=torch.bool, device="cuda")
+    step_fn = eng._step_fn
+
+    def probed_step(*args, **kwargs):
+        logits, kv = step_fn(*args, **kwargs)
+        finite.logical_and_(torch.isfinite(logits).all())
+        return logits, kv
+
+    eng._step_fn = probed_step
+    prompt = np.random.default_rng(seed + 4).integers(0, 32000, 200).tolist()
+    out = eng.generate([prompt], max_new_tokens=16)[0]
+    ok = bool(finite) and len(out) == 16 and all(0 <= t < 32000 for t in out)
+    log(f"[quant] int4 engine, one 200-token request: 16 tokens {out}, "
+        f"logits finite {bool(finite)}")
+    if not ok:
+        raise AssertionError("int4 serving gave non-finite logits or bad "
+                             "tokens")
+    r["int4_tokens"] = out
+    del eng
+    _free(torch)
+    return r
+
+
+# --------------------------------------------------------------- stage 16
+def _step_pair(torch, eng, step_fn, prompt, n_decode, tag):
+    """One prefill and ``n_decode`` teacher-forced decode steps of ``eng``,
+    each run with the kernels and with their plain versions on copies of
+    the same cache; logits compared.  Mixtral: where a top-2 choice flips
+    between the runs, the plain run is redone with the kernel run's router
+    logits and that comparison is the one held to the tolerance."""
+    from deepspeed_tpu_torch.inference.v2 import ragged_forward as rf
+    eng.put([0], [prompt])
+    caches = {True: eng._kv.clone(), False: eng._kv.clone()}
+    seq = eng.state_manager.get_sequence(0)
+    real_moe = rf.moe_apply
+    report = []
+    for step in range(1 + n_decode):
+        toks, pos, slots, last_idx, finishing, layout = eng._build_batch()
+        args = [eng._to_device(a) for a in
+                (toks, pos, slots, eng.state_manager.block_table, last_idx)]
+        cfg = eng.model_config
+        routed = {True: [], False: []}
+
+        def run(use_kernel, kv, feed=None):
+            def moe(x, logits, *a, **kw):
+                routed[use_kernel].append(logits)
+                return real_moe(x, feed.pop(0) if feed else logits, *a, **kw)
+
+            rf.moe_apply = moe
+            try:
+                out, _ = step_fn(eng.module, kv, *args, cfg=cfg,
+                                 block_size=128, layout=layout,
+                                 use_kernel=use_kernel)
+            finally:
+                rf.moe_apply = real_moe
+            return out[seq.slot]
+
+        kv_plain = caches[False].clone()
+        k = run(True, caches[True])
+        p = run(False, caches[False])
+        flips = 0
+        for a, b in zip(routed[True], routed[False]):
+            n = getattr(cfg, "num_experts_per_tok", 0)
+            ta = torch.topk(a, n, dim=-1).indices.sort(dim=-1).values
+            tb = torch.topk(b, n, dim=-1).indices.sort(dim=-1).values
+            flips += int((ta != tb).any(dim=-1).sum())
+        if flips:
+            routed[False].clear()
+            p = run(False, kv_plain, feed=list(routed[True]))
+        caches[False] = kv_plain if flips else caches[False]
+        err = (k - p).abs().max().item()
+        tol = 0.02 * max(1.0, p.abs().max().item())
+        top = torch.topk(k, 2).values
+        margin = (top[0] - top[1]).item()
+        tok = int(torch.argmax(k))
+        agree = tok == int(torch.argmax(p))
+        report.append(dict(layout=layout, err=err, tol=tol, margin=margin,
+                           agree=agree, routing_flips=flips))
+        log(f"[step16] {tag} {'prefill' if step == 0 else 'decode'} layout "
+            f"{layout}: logits max|kernel - plain| {err:.4e} (tol "
+            f"{tol:.3e}), top-2 margin {margin:.4f}, greedy tokens agree: "
+            f"{agree}"
+            + (f"; {flips} token routing choice(s) flipped between the runs,"
+               f" so the plain run was redone with the kernel run's router "
+               f"logits" if flips else ""))
+        if not err <= tol:
+            raise AssertionError(f"{tag}: ragged step logits differ by {err}")
+        if not agree and margin > 2 * tol:
+            raise AssertionError(f"{tag}: greedy tokens differ at a clear "
+                                 f"margin")
+        seq.tokens.append(tok)
+    eng.flush([0])
+    return report
+
+
+def stage_moe_quant_step_vs_plain(seed):
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.inference.v2.ragged_forward import (
+        llama_ragged_step, mixtral_ragged_step)
+    from deepspeed_tpu_torch.inference.v2.model_implementations.hf_builders \
+        import _mixtral_config_from_hf
+    from deepspeed_tpu_torch.models.llama import LlamaModel, llama_7b
+    from deepspeed_tpu_torch.models.mixtral import MixtralModel
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 16)
+    engine_config = dict(
+        dtype="bfloat16", decode_burst=0,
+        state_manager=dict(block_size=128, num_blocks=8, max_context=512,
+                           max_ragged_sequence_count=4,
+                           max_tracked_sequences=4,
+                           max_ragged_batch_size=288, prefill_atom_size=16))
+    prompt = np.random.default_rng(seed).integers(0, 32000, 256).tolist()
+    cfg = _mixtral_config_from_hf(dict(MIXTRAL_8X7B_HF, num_hidden_layers=2),
+                                  "bfloat16")
+    model = MixtralModel(cfg, device="cuda").init_weights(gen)
+    eng = InferenceEngineV2(model, config=dict(engine_config))
+    mixtral = _step_pair(torch, eng, mixtral_ragged_step, prompt, 2,
+                         "mixtral")
+    del eng, model
+    _free(torch)
+    model = LlamaModel(llama_7b(num_hidden_layers=2, dtype="bfloat16"),
+                       device="cuda").init_weights(gen)
+    eng = InferenceEngineV2(model, config=dict(engine_config,
+                                               quantization_mode="int8"))
+    llama = _step_pair(torch, eng, llama_ragged_step, prompt, 2,
+                       "llama_int8")
+    del eng, model
+    _free(torch)
+    return dict(mixtral=mixtral, llama_int8=llama)
+
+
 # ------------------------------------------------------------------ main
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--json", help="also write every number to this file")
     ap.add_argument("--profile", metavar="DIR",
-                    help="also profile a prefill and a decode window of the "
-                         "serving engine and two steps of each training "
+                    help="also profile a prefill and a decode window of "
+                         "each serving engine and two steps of each training "
                          "path; write kernel tables to DIR")
     args = ap.parse_args()
 
@@ -1522,6 +2077,11 @@ def main():
     gpt2_kernels = stage_gpt2_kernels(args.seed)
     gpt2 = stage_gpt2_train(args.seed, smi, args.profile)
     overflow = stage_overflow_and_guard(args.seed)
+    moe_quant_kernels = stage_moe_quant_kernels(args.seed)
+    mixtral = stage_mixtral_serve(args.seed, smi, args.profile)
+    quant = stage_quant_serve(args.seed, smi, serve["peak_bytes"],
+                              args.profile)
+    moe_quant_step = stage_moe_quant_step_vs_plain(args.seed)
 
     entries = []
     for wrapper, case in (("paged_attention", "serve_decode"),
@@ -1598,6 +2158,41 @@ def main():
              plain_ms=lion["plain_ms"], bound_ms=lion["bound"][0],
              bound_by=lion["bound"][1], library_ms=None),
     ]
+    dec = next(r for r in moe_quant_kernels["gmm"]
+               if r["case"] == "decode_w1")
+    pre = next(r for r in moe_quant_kernels["gmm"]
+               if r["case"] == "prefill_w1")
+    qrow = next(r for r in moe_quant_kernels["quant"]
+                if r["case"] == "bfloat16_int8_g128")
+    qsrc = "deepspeed_tpu_torch/csrc/quantizer.cu"
+    # gmm: the decode case (16 rows, w1's shape: most of the serving run's
+    # launches); the prefill case's numbers ride along under *_prefill.
+    # No PyTorch call quantizes blockwise: library_ms is null for B5.
+    entries += [
+        dict(name="gmm", route="cuda",
+             source="deepspeed_tpu_torch/csrc/grouped_matmul.cu",
+             replaces=src + "grouped_matmul.py:100",
+             launches=mixtral["launches"]["gmm"], max_abs_err=dec["err"],
+             ms=dec["ms"], plain_ms=dec["plain_ms"],
+             bound_ms=dec["bound_ms"], bound_by=dec["bound_by"],
+             library_ms=dec["library_ms"], library=dec["library"],
+             ms_prefill=pre["ms"], plain_ms_prefill=pre["plain_ms"],
+             bound_ms_prefill=pre["bound_ms"],
+             bound_by_prefill=pre["bound_by"],
+             library_ms_prefill=pre["library_ms"]),
+        dict(name="quantize_blockwise", route="cuda", source=qsrc,
+             replaces=src + "quantizer.py:91",
+             launches=quant["quantize_launches"], max_abs_err=qrow["err_q"],
+             ms=qrow["ms_q"], plain_ms=qrow["plain_ms_q"],
+             bound_ms=qrow["bound_q"][0], bound_by=qrow["bound_q"][1],
+             library_ms=None),
+        dict(name="dequantize_blockwise", route="cuda", source=qsrc,
+             replaces=src + "quantizer.py:121",
+             launches=quant["launches"]["dequantize_blockwise"],
+             max_abs_err=qrow["err_d"], ms=qrow["ms_d"],
+             plain_ms=qrow["plain_ms_d"], bound_ms=qrow["bound_d"][0],
+             bound_by=qrow["bound_d"][1], library_ms=None),
+    ]
     if args.json:
         with open(args.json, "w") as f:
             json.dump(dict(card=smi, kernels=kernels, serve=serve,
@@ -1605,6 +2200,9 @@ def main():
                            train=train, train_step=train_step,
                            gpt2_kernels=gpt2_kernels, gpt2=gpt2,
                            overflow=overflow,
+                           moe_quant_kernels=moe_quant_kernels,
+                           mixtral=mixtral, quant=quant,
+                           moe_quant_step=moe_quant_step,
                            seconds=time.perf_counter() - t_start),
                       f, indent=1, default=str)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

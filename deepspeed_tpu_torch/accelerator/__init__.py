@@ -1,3 +1,3 @@
-from .real_accelerator import resolve_device
+from .real_accelerator import full_fp32_matmul, resolve_device
 
-__all__ = ["resolve_device"]
+__all__ = ["full_fp32_matmul", "resolve_device"]

@@ -5,6 +5,8 @@ The CUDA card is the default.  The CPU runs only when a caller names it
 instead of falling back.
 """
 
+import contextlib
+
 import torch
 
 
@@ -25,3 +27,16 @@ def resolve_device(device=None):
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
     return device
+
+
+@contextlib.contextmanager
+def full_fp32_matmul():
+    """fp32 products inside the block run in full fp32 on the card, as the
+    JAX package's fp32 products do: TF32 is off for the block only and the
+    caller's setting comes back after it."""
+    allow_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow_tf32

@@ -2,7 +2,8 @@
 ``inference/v2/engine_v2.py``: ``put``/``query``/``flush`` over a ragged
 batch + blocked KV cache); the port of
 ``deepspeed_tpu/inference/v2/engine_v2.py`` for ``tp_size == 1`` and a
-full-precision KV cache.
+full-precision KV cache, with full-precision or weight-only int8/int4
+(``quantization_mode``) weights.
 
 Each engine iteration packs a **fixed token budget** with a mix of decode
 tokens (one per running sequence) and prefill chunks, runs ONE ragged step
@@ -20,6 +21,7 @@ from ...accelerator import resolve_device
 from ...models.llama import torch_dtype
 from ...utils.logging import logger
 from ...utils.not_ported import not_ported
+from ..quant_serving import quantize_tree, resolve_mode
 from .config_v2 import RaggedInferenceEngineConfig
 from .ragged import BlockedKVCache, DSStateManager, KVCacheExhausted
 from .ragged_forward import RAGGED_FORWARDS, decode_burst
@@ -28,10 +30,13 @@ from .ragged_forward import RAGGED_FORWARDS, decode_burst
 class InferenceEngineV2:
 
     def __init__(self, model, params=None, config=None, device=None):
-        """``model``: a ``models.llama.LlamaModel`` (its weights, or
-        ``params`` — ``(hf_name, tensor)`` pairs or a dict — to install).
-        ``device``: None means the CUDA card and raises without one; the
-        CPU runs only when asked for (``device="cpu"``)."""
+        """``model``: a ``models.llama.LlamaModel`` or
+        ``models.mixtral.MixtralModel`` (its weights, or ``params`` —
+        ``(name, tensor)`` pairs or a dict — to install).  ``device``: None
+        means the CUDA card and raises without one; the CPU runs only when
+        asked for (``device="cpu"``).  With ``quantization_mode`` the
+        model's weights are quantized in place on the device (the model is
+        then for serving only)."""
         if isinstance(model, tuple):
             model, params = model
         if config is None:
@@ -43,10 +48,17 @@ class InferenceEngineV2:
         name = type(model).__name__
         if name not in RAGGED_FORWARDS:
             raise not_ported(f"the ragged step for {name}", "S5")
-        if int(config.tensor_parallel.tp_size or 1) > 1:
+        tp = int(config.tensor_parallel.tp_size or 1)
+        # weight-only quantized serving (reference quantization_mode):
+        # resident weights in int8/int4 wire format, each dequantized inside
+        # the ragged step just before its product (quant_serving.weight)
+        self._quant_bits = resolve_mode(config.quantization_mode)
+        if self._quant_bits is not None and tp > 1:
+            raise NotImplementedError(
+                "quantization_mode does not compose with tensor "
+                "parallelism yet (quant grouping is laid out pre-shard)")
+        if tp > 1:
             raise not_ported("tensor_parallel.tp_size > 1", "S1")
-        if config.quantization_mode is not None:
-            raise not_ported("quantization_mode", "S2")
         if config.kv_cache_dtype is not None:
             raise not_ported("kv_cache_dtype", "S3")
         if config.decode_burst_sampling:
@@ -57,6 +69,10 @@ class InferenceEngineV2:
             model.load_weights(items, device=self.device)
         elif model.device != self.device:
             model.to(self.device)
+        self._quant_meta = {}
+        if self._quant_bits is not None:
+            self._quant_meta = quantize_tree(model, self._quant_bits,
+                                             torch_dtype(config.dtype))
         self.module = model
         cfg = model.config
         self.model_config = cfg

@@ -1,22 +1,26 @@
 """HF checkpoint → model builders (reference
 ``inference/v2/model_implementations/*/`` policy+container classes); the
 port of ``deepspeed_tpu/inference/v2/model_implementations/hf_builders.py``
-for the Llama architecture.
+for the Llama and Mixtral architectures.
 
-Supported ``model_type``s: llama, mistral, qwen2.  The port's
-:class:`LlamaModel` keeps HF names and torch layouts, so ingestion is a
-name filter: no transposes or reshapes.
+Supported ``model_type``s: llama, mistral, qwen2, mixtral.  The port's
+:class:`LlamaModel` keeps HF names and torch layouts, so Llama ingestion is
+a name filter: no transposes or reshapes.  Mixtral's per-expert HF tensors
+go into the stacked experts of :class:`MixtralModel` one expert at a time.
 """
 
+import re
+from dataclasses import asdict
 from typing import Iterable, Tuple
 
 import torch
 
 from ....models.llama import LlamaConfig, LlamaModel
+from ....models.mixtral import MixtralConfig, MixtralModel
 from ....utils.logging import logger
 from ....utils.not_ported import not_ported
 
-SUPPORTED_MODEL_TYPES = ("llama", "mistral", "qwen2")
+SUPPORTED_MODEL_TYPES = ("llama", "mistral", "qwen2", "mixtral")
 
 _SKIP_SUFFIXES = (".rotary_emb.inv_freq", ".masked_bias", ".attn.bias")
 
@@ -92,19 +96,53 @@ def _ingest_llama(model_cfg: LlamaConfig,
         yield name, arr
 
 
+def _mixtral_config_from_hf(cfg: dict, dtype: str) -> MixtralConfig:
+    return MixtralConfig(
+        **asdict(_llama_config_from_hf(cfg, dtype)),
+        num_local_experts=cfg.get("num_local_experts", 8),
+        num_experts_per_tok=cfg.get("num_experts_per_tok", 2),
+        router_aux_loss_coef=cfg.get("router_aux_loss_coef", 0.02))
+
+
+_HF_EXPERT = re.compile(
+    r"(.*)\.block_sparse_moe\.experts\.(\d+)\.(w[123])\.weight$")
+
+
+def _ingest_mixtral(model_cfg: MixtralConfig,
+                    params_iter: Iterable[Tuple[str, torch.Tensor]]):
+    """The Llama mapping, plus ``block_sparse_moe``: the router
+    ``gate.weight`` ``[E, D]`` becomes the ``[D, E]`` gate, and each
+    ``experts.{e}.w{1,2,3}.weight`` (``[I, D]``, or ``[D, I]`` for w2)
+    becomes slice ``e`` of its stack, transposed (``hf_builders.py:139``) —
+    yielded one expert at a time, as the checkpoint streams them."""
+    for name, arr in _ingest_llama(model_cfg, params_iter):
+        m = _HF_EXPERT.match(name)
+        if m is not None:
+            layer, e, w = m.groups()
+            yield f"{layer}.block_sparse_moe.{w}.{e}", arr.t()
+        elif name.endswith(".block_sparse_moe.gate.weight"):
+            yield name[:-len(".weight")], arr.t()
+        else:
+            yield name, arr
+
+
 def build_model_and_params(checkpoint_engine, dtype: str = "bfloat16",
                            device=None):
-    """The loaded :class:`LlamaModel` from a checkpoint engine with a
-    ``model_config`` dict (HF ``config.json``), on ``device`` (a resolved
-    ``torch.device``).  Returns ``(model, None)``: the model holds its
-    weights."""
+    """The loaded model (:class:`LlamaModel` or :class:`MixtralModel`) from
+    a checkpoint engine with a ``model_config`` dict (HF ``config.json``),
+    on ``device`` (a resolved ``torch.device``).  Returns ``(model, None)``:
+    the model holds its weights."""
     hf_cfg = checkpoint_engine.model_config
     model_type = hf_cfg.get("model_type", "llama")
     if model_type not in SUPPORTED_MODEL_TYPES:
         raise not_ported(f"serving model_type {model_type!r}", "S5")
-    cfg = _llama_config_from_hf(hf_cfg, dtype)
-    model = LlamaModel(cfg, device="meta")
-    model.load_weights(_ingest_llama(cfg, checkpoint_engine.parameters()),
+    if model_type == "mixtral":
+        cfg = _mixtral_config_from_hf(hf_cfg, dtype)
+        model, ingest = MixtralModel(cfg, device="meta"), _ingest_mixtral
+    else:
+        cfg = _llama_config_from_hf(hf_cfg, dtype)
+        model, ingest = LlamaModel(cfg, device="meta"), _ingest_llama
+    model.load_weights(ingest(cfg, checkpoint_engine.parameters()),
                        device=device)
     if cfg.sliding_window:
         logger.info(f"{model_type}: sliding_window={cfg.sliding_window} "

@@ -1,6 +1,7 @@
 """Ragged (paged-KV) model forward — the port of
 ``deepspeed_tpu/inference/v2/ragged_forward.py`` (reference
-``inference/v2/model_implementations/llama_v2`` + ``kernels/ragged_ops``).
+``inference/v2/model_implementations/{llama_v2,mixtral}`` +
+``kernels/ragged_ops``).
 
 One step processes a *flat token buffer* ``[T]`` — the union of prefill
 chunks and single decode tokens from many sequences — against the paged KV
@@ -10,19 +11,25 @@ causal within itself and sees all earlier chunks.
 
 Where the JAX step donated the cache and rebuilt it with ``.at[].set``, the
 port writes the cache tensor in place and returns the same tensor.  The
-large products (QKV, O, MLP, LM head) are ``F.linear``/``matmul``, as the
-JAX package left them to XLA; attention is the paged kernel.
+large dense products (QKV, O, MLP, LM head) are ``F.linear``/``matmul``, as
+the JAX package left them to XLA; attention is the paged kernel, a MoE
+layer's experts the grouped-matmul kernel.  Every weight is read through
+``quant_serving.weight``: under ``quantization_mode`` it is dequantized
+there, just before its product.
 """
 
 import torch
 import torch.nn.functional as F
 
+from ...accelerator import full_fp32_matmul
 from ...models.llama import rms_norm as _rmsnorm
 from ...models.llama import rope_tables as _rope_tables
 from ...models.llama import torch_dtype
+from ...models.mixtral import moe_apply
 from ...ops.kernels.paged_attention import (paged_attention,
                                             paged_attention_atoms,
                                             paged_attention_plain)
+from ..quant_serving import weight
 
 
 def _rotary(x, cos, sin, positions):
@@ -65,6 +72,10 @@ def _paged_attention(q, k_cache, v_cache, tables_t, positions, block_size,
                            window=window)
 
 
+def _linear(x, lin, use_kernel):
+    return F.linear(x, weight(lin.weight, use_kernel), lin.bias)
+
+
 def _ragged_attention_block(attn, h, kv_layer, blk, off, tables_t, positions,
                             cos, sin, *, cfg, block_size, layout=(0, 0),
                             use_kernel=True):
@@ -73,16 +84,72 @@ def _ragged_attention_block(attn, h, kv_layer, blk, off, tables_t, positions,
     T = h.shape[0]
     H, Hkv, Dh = (cfg.num_attention_heads, cfg.num_key_value_heads,
                   cfg.head_dim)
-    q = _rotary(attn.q_proj(h).view(T, H, Dh), cos, sin, positions)
-    k = _rotary(attn.k_proj(h).view(T, Hkv, Dh), cos, sin, positions)
-    v = attn.v_proj(h).view(T, Hkv, Dh)
+    q = _rotary(_linear(h, attn.q_proj, use_kernel).view(T, H, Dh), cos, sin,
+                positions)
+    k = _rotary(_linear(h, attn.k_proj, use_kernel).view(T, Hkv, Dh), cos,
+                sin, positions)
+    v = _linear(h, attn.v_proj, use_kernel).view(T, Hkv, Dh)
     # in place, where the JAX step rebuilt the donated cache (.at[].set)
     kv_layer[0, blk, off] = k.to(kv_layer.dtype)
     kv_layer[1, blk, off] = v.to(kv_layer.dtype)
     out = _paged_attention(q, kv_layer[0], kv_layer[1], tables_t, positions,
                            block_size, window=cfg.sliding_window,
                            layout=layout, use_kernel=use_kernel)
-    return attn.o_proj(out.reshape(T, H * Dh))
+    return _linear(out.reshape(T, H * Dh), attn.o_proj, use_kernel)
+
+
+def _dense_mlp(layer, h2, cfg, use_kernel):
+    """The Llama SwiGLU MLP."""
+    mlp = layer.mlp
+    return _linear(F.silu(_linear(h2, mlp.gate_proj, use_kernel))
+                   * _linear(h2, mlp.up_proj, use_kernel), mlp.down_proj,
+                   use_kernel)
+
+
+def _sparse_moe(layer, h2, cfg, use_kernel):
+    """The Mixtral MoE (``ragged_forward.py:320-328``): the router in full
+    fp32 (TF32 off for its product), then :func:`moe_apply` over the
+    stacked experts in the model dtype."""
+    moe = layer.block_sparse_moe
+    dtype = torch_dtype(cfg.dtype)
+    with full_fp32_matmul():
+        router_logits = h2.float() @ weight(moe.gate, use_kernel).float()
+    return moe_apply(h2, router_logits,
+                     weight(moe.w1, use_kernel).to(dtype),
+                     weight(moe.w2, use_kernel).to(dtype),
+                     weight(moe.w3, use_kernel).to(dtype),
+                     cfg.num_experts_per_tok, norm_topk=cfg.norm_topk_prob,
+                     use_kernel=use_kernel)
+
+
+def _ragged_step(mlp, model, kv_data, token_ids, positions, seq_slots,
+                 block_tables, last_token_idx, *, cfg, block_size, layout,
+                 use_kernel):
+    """The Llama skeleton of every ragged step; ``mlp(layer, h2, cfg,
+    use_kernel)`` is the layer's feed-forward part."""
+    dtype = torch_dtype(cfg.dtype)
+    eps = cfg.rms_norm_eps
+    cos, sin = _rope_tables(cfg.head_dim, cfg.max_position_embeddings,
+                            cfg.rope_theta, cfg.rope_scaling, kv_data.device)
+    body = model.model
+    pos_l = positions.long()
+    x = weight(body.embed_tokens.weight, use_kernel)[
+        token_ids.long()].to(dtype)                           # [T, D]
+    tables_t = block_tables[seq_slots.long()]                 # [T, maxb]
+    blk = tables_t[torch.arange(token_ids.shape[0], device=pos_l.device),
+                   pos_l // block_size].long()                # [T]
+    off = pos_l % block_size
+
+    for l, layer in enumerate(body.layers):
+        h = _rmsnorm(x, layer.input_layernorm.weight, eps)
+        x = x + _ragged_attention_block(
+            layer.self_attn, h, kv_data[l], blk, off, tables_t, positions,
+            cos, sin, cfg=cfg, block_size=block_size, layout=layout,
+            use_kernel=use_kernel)
+        h2 = _rmsnorm(x, layer.post_attention_layernorm.weight, eps)
+        x = x + mlp(layer, h2, cfg, use_kernel)
+
+    return _lm_head(model, x, last_token_idx, cfg, use_kernel), kv_data
 
 
 @torch.no_grad()
@@ -99,49 +166,46 @@ def llama_ragged_step(model, kv_data, token_ids, positions, seq_slots,
       block_tables: [max_seqs, maxb] int32.
       last_token_idx: [max_seqs] int32 — buffer index of each slot's last
         scheduled token (logits gather; 0 for idle slots).
+      use_kernel: False runs the plain versions of the kernels (paged
+        attention's gather path, dequantization's plain version).
 
     Returns (logits [max_seqs, V] fp32, kv_data).
     """
-    dtype = torch_dtype(cfg.dtype)
-    eps = cfg.rms_norm_eps
-    cos, sin = _rope_tables(cfg.head_dim, cfg.max_position_embeddings,
-                            cfg.rope_theta, cfg.rope_scaling, kv_data.device)
-    body = model.model
-    pos_l = positions.long()
-    x = body.embed_tokens.weight[token_ids.long()].to(dtype)  # [T, D]
-    tables_t = block_tables[seq_slots.long()]                 # [T, maxb]
-    blk = tables_t[torch.arange(token_ids.shape[0], device=pos_l.device),
-                   pos_l // block_size].long()                # [T]
-    off = pos_l % block_size
-
-    for l, layer in enumerate(body.layers):
-        h = _rmsnorm(x, layer.input_layernorm.weight, eps)
-        x = x + _ragged_attention_block(
-            layer.self_attn, h, kv_data[l], blk, off, tables_t, positions,
-            cos, sin, cfg=cfg, block_size=block_size, layout=layout,
-            use_kernel=use_kernel)
-        h2 = _rmsnorm(x, layer.post_attention_layernorm.weight, eps)
-        mlp = layer.mlp
-        x = x + mlp.down_proj(F.silu(mlp.gate_proj(h2)) * mlp.up_proj(h2))
-
-    return _lm_head(model, x, last_token_idx, cfg), kv_data
+    return _ragged_step(_dense_mlp, model, kv_data, token_ids, positions,
+                        seq_slots, block_tables, last_token_idx, cfg=cfg,
+                        block_size=block_size, layout=layout,
+                        use_kernel=use_kernel)
 
 
-def _lm_head(model, x, last_token_idx, cfg):
+@torch.no_grad()
+def mixtral_ragged_step(model, kv_data, token_ids, positions, seq_slots,
+                        block_tables, last_token_idx, *, cfg, block_size,
+                        layout=(0, 0), use_kernel=True):
+    """One ragged engine iteration for Mixtral (``ragged_forward.py:290``;
+    reference ``inference/v2/model_implementations/mixtral/``): the Llama
+    step with each MLP replaced by the exact top-k sparse MoE.  Arguments
+    as :func:`llama_ragged_step`, with ``model`` a
+    ``models.mixtral.MixtralModel``; ``use_kernel=False`` also runs the
+    grouped matmul's plain version."""
+    return _ragged_step(_sparse_moe, model, kv_data, token_ids, positions,
+                        seq_slots, block_tables, last_token_idx, cfg=cfg,
+                        block_size=block_size, layout=layout,
+                        use_kernel=use_kernel)
+
+
+def _lm_head(model, x, last_token_idx, cfg, use_kernel=True):
     """logits_gather analog: only each slot's last token reaches the head,
     which runs in full fp32, as the JAX head does: TF32 is off for this
     product only, and the caller's setting is restored after it."""
     xl = _rmsnorm(x[last_token_idx.long()], model.model.norm.weight,
                   cfg.rms_norm_eps)
-    allow_tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        return xl.float() @ model.lm_head.weight.t()
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = allow_tf32
+    w = weight(model.lm_head.weight, use_kernel)
+    with full_fp32_matmul():
+        return xl.float() @ w.float().t()
 
 
-RAGGED_FORWARDS = {"LlamaModel": llama_ragged_step}
+RAGGED_FORWARDS = {"LlamaModel": llama_ragged_step,
+                   "MixtralModel": mixtral_ragged_step}
 
 
 @torch.no_grad()

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..accelerator import full_fp32_matmul
 from ..ops.attention import attention_core
 from ..sequence.cross_entropy import softmax_cross_entropy_with_logits
 from ..utils.not_ported import not_ported
@@ -200,12 +201,8 @@ def _head_product(x, w):
     for this product only, the caller's setting restored)."""
     if x.dtype != torch.float32:
         return F.linear(x, w)
-    allow_tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with full_fp32_matmul():
         return F.linear(x, w)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = allow_tf32
 
 
 def param_count(config: LlamaConfig):
@@ -320,14 +317,13 @@ class LlamaDecoderLayer(nn.Module):
 
 class LlamaBackbone(nn.Module):
 
-    def __init__(self, cfg, dtype, device):
+    def __init__(self, cfg, dtype, device, layer=LlamaDecoderLayer):
         super().__init__()
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
                                          dtype=dtype, device=device)
         self.embed_tokens.requires_grad_(False)
         self.layers = nn.ModuleList(
-            LlamaDecoderLayer(cfg, dtype, device)
-            for _ in range(cfg.num_hidden_layers))
+            layer(cfg, dtype, device) for _ in range(cfg.num_hidden_layers))
         self.norm = RMSNorm(cfg.hidden_size, device, cfg.rms_norm_eps)
 
 
@@ -338,17 +334,20 @@ class LlamaModel(nn.Module):
 
     ``device="meta"`` builds the module without storage, for loading."""
 
+    LAYER = LlamaDecoderLayer
+
     def __init__(self, config: LlamaConfig, device=None):
         super().__init__()
         self.config = config
         dtype = torch_dtype(config.dtype)
-        self.model = LlamaBackbone(config, dtype, device)
+        self.model = LlamaBackbone(config, dtype, device, self.LAYER)
         self.lm_head = _linear(config.hidden_size, config.vocab_size, False,
                                torch.float32, device)
 
     @property
     def device(self):
-        return self.lm_head.weight.device
+        # the final norm's weight: never quantized (quant_serving)
+        return self.model.norm.weight.device
 
     def forward(self, input_ids, labels=None, attention_mask=None,
                 use_kernel=True):
@@ -423,25 +422,29 @@ class LlamaModel(nn.Module):
             if device.type == "meta":
                 raise ValueError("load_weights on a meta module needs device=")
         device = torch.device(device)
-        tied = self.config.tie_word_embeddings
         seen = set()
         for name, t in named_tensors:
-            if tied and name == "lm_head.weight":
-                continue
-            if name not in params:
-                raise KeyError(f"unexpected weight {name!r}")
-            self._install(name, t, params[name].dtype, params[name].shape,
-                          device)
-            seen.add(name)
-            if tied and name == "model.embed_tokens.weight":
-                self._install("lm_head.weight", t, torch.float32,
-                              params["lm_head.weight"].shape, device)
-                seen.add("lm_head.weight")
+            self._load(name, t, params, device, seen)
         missing = sorted(set(params) - seen)
         if missing:
             raise KeyError(f"checkpoint lacks {len(missing)} weight(s), "
                            f"first {missing[:4]}")
         return self
+
+    def _load(self, name, t, params, device, seen):
+        """Install one named tensor; ``params``: the module's parameters
+        before loading, by name; ``seen``: the names installed so far."""
+        tied = self.config.tie_word_embeddings
+        if tied and name == "lm_head.weight":
+            return
+        if name not in params:
+            raise KeyError(f"unexpected weight {name!r}")
+        self._install(name, t, params[name].dtype, params[name].shape, device)
+        seen.add(name)
+        if tied and name == "model.embed_tokens.weight":
+            self._install("lm_head.weight", t, torch.float32,
+                          params["lm_head.weight"].shape, device)
+            seen.add("lm_head.weight")
 
     def _install(self, name, t, dtype, shape, device):
         if tuple(t.shape) != tuple(shape):
@@ -467,12 +470,32 @@ def params_from_flax(tree, cfg: LlamaConfig, dtype=None, device="cpu"):
     → ``[V, D]``; the embedding and norms keep their shapes.  ``dtype`` is
     the projection and embedding dtype (default ``cfg.dtype``); norms and
     the head stay fp32."""
-    dt = torch_dtype(dtype or cfg.dtype)
+    t = _flax_converter(dtype or cfg.dtype, device)
+    out = _flax_attention_and_norms(tree, cfg, t)
+    for i in range(cfg.num_hidden_layers):
+        mlp = tree[f"layers_{i}"]["mlp"]
+        for proj in ("gate_proj", "up_proj", "down_proj"):
+            out[f"model.layers.{i}.mlp.{proj}.weight"] = t(
+                np.asarray(mlp[proj]["kernel"]).T)
+    return out
+
+
+def _flax_converter(dtype, device):
+    """numpy leaf → contiguous torch tensor on ``device``, by default in
+    ``dtype``."""
+    dt = torch_dtype(dtype)
 
     def t(a, to=dt):
         return torch.as_tensor(np.asarray(a, dtype=np.float32)).to(
             device=device, dtype=to).contiguous()
 
+    return t
+
+
+def _flax_attention_and_norms(tree, cfg, t):
+    """The leaves every Llama-skeleton model shares: embedding, final norm,
+    head, and each layer's attention and norms (see
+    :func:`params_from_flax`)."""
     out = {"model.embed_tokens.weight": t(tree["embed_tokens"]["embedding"]),
            "model.norm.weight": t(tree["norm"]["weight"], torch.float32)}
     if not cfg.tie_word_embeddings:
@@ -491,9 +514,6 @@ def params_from_flax(tree, cfg: LlamaConfig, dtype=None, device="cpu"):
                     np.asarray(attn[proj]["bias"]).reshape(-1))
         out[pre + "self_attn.o_proj.weight"] = t(
             np.asarray(attn["o_proj"]["kernel"]).T)
-        for proj in ("gate_proj", "up_proj", "down_proj"):
-            out[pre + f"mlp.{proj}.weight"] = t(
-                np.asarray(lp["mlp"][proj]["kernel"]).T)
         for norm in ("input_layernorm", "post_attention_layernorm"):
             out[pre + f"{norm}.weight"] = t(lp[norm]["weight"], torch.float32)
     return out

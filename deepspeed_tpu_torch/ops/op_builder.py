@@ -181,8 +181,42 @@ class OptimizersBuilder(CUDAOpBuilder):
         lib.ds_cuda_error_string.restype = ctypes.c_char_p
 
 
+class GroupedMatmulBuilder(CUDAOpBuilder):
+    NAME = "grouped_matmul"
+    SOURCE = os.path.join("csrc", "grouped_matmul.cu")
+
+    def bind(self, lib):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.ds_gmm.argtypes = [
+            p, p, p, p,                 # x, w, group_sizes, y
+            i, i, i, i, i, p]           # T, K, N, E, dtype code, stream
+        lib.ds_gmm.restype = i
+        lib.ds_cuda_error_string.argtypes = [i]
+        lib.ds_cuda_error_string.restype = ctypes.c_char_p
+
+
+class QuantizerBuilder(CUDAOpBuilder):
+    NAME = "quantizer"
+    SOURCE = os.path.join("csrc", "quantizer.cu")
+
+    def bind(self, lib):
+        p, i, f, n = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+            ctypes.c_longlong
+        lib.ds_quantize_blockwise.argtypes = [
+            p, i, p, p,                 # x, dtype code, q, scales
+            n, n, i, f, p]              # n, groups, group size, qmax, stream
+        lib.ds_dequantize_blockwise.argtypes = [
+            p, p, p, i,                 # q, scales, out, dtype code
+            n, i, p]                    # n, group size, stream
+        for fn in (lib.ds_quantize_blockwise, lib.ds_dequantize_blockwise):
+            fn.restype = i
+        lib.ds_cuda_error_string.argtypes = [i]
+        lib.ds_cuda_error_string.restype = ctypes.c_char_p
+
+
 ALL_OPS = {b.NAME: b for b in (PagedAttentionBuilder, FlashAttentionBuilder,
-                               OptimizersBuilder)}
+                               OptimizersBuilder, GroupedMatmulBuilder,
+                               QuantizerBuilder)}
 
 
 def build_all():

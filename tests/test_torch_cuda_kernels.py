@@ -1,7 +1,7 @@
 """The CUDA kernels against their plain versions, on the card: paged
 attention (B4), flash attention forward and backward (B1, fp32, bf16 and
-fp16), the fused Adam step (B2), the two LAMB phases (B3) and the Lion step
-(B8).
+fp16), the fused Adam step (B2), the two LAMB phases (B3), the Lion step
+(B8), the grouped matmul (B7) and blockwise quantize/dequantize (B5).
 
 Marked ``cuda``: each test asks for the ``card`` fixture, which skips when
 torch sees no CUDA device.  The file imports neither JAX nor the JAX
@@ -20,13 +20,18 @@ for bit (the same fp32 operations in the same order); LAMB's per-leaf sums
 within 1e-5 relative of float64 sums (fp32 partials in another order), its
 ratios within 1e-5, its master within lr·|Δratio|·|u| plus one fp32 ulp
 of each rounded product (lr·ratio, and its product with u) and of the
-result.
+result.  Grouped matmul: fp32 1e-4 + 1e-5·|ref| (fp32 FMA in another
+order); bf16 2^-7·|ref| and fp16 2^-10·|ref|, each plus 1e-4 (both sides
+sum in fp32 and round once).  Quantize and dequantize: bit for bit (the
+same fp32 operations, a true division and round half to even).
 """
 
 import pytest
 import torch
 
 from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+from deepspeed_tpu_torch.ops.kernels import grouped_matmul as gm
+from deepspeed_tpu_torch.ops.kernels import quantizer as qz
 from deepspeed_tpu_torch.ops.kernels import optimizers as opt
 from deepspeed_tpu_torch.ops.kernels import paged_attention as pa
 
@@ -350,3 +355,87 @@ def test_fused_lion_kernel_matches_plain(card, grad_dtype, out_dtype):
     assert torch.equal(master, ref[0]) and torch.equal(m, ref[1])
     if out is not None:
         assert torch.equal(out, out_ref)
+
+
+# ------------------------------------------------------------ B7 gmm
+GMM_CASES = {
+    # (group sizes, K, N): uneven groups with empty ones, a tile boundary
+    # inside a group, K/N edges (multiples of 8, and not)
+    "moe_uneven": ([70, 0, 130, 1, 64, 0, 3, 12], 256, 384),
+    "decode_2_per_expert": ([2] * 8, 512, 640),
+    "one_group": ([200, 0, 0, 0], 128, 128),
+    "ragged_kn": ([33, 0, 17, 50], 100, 77),
+    "small_k": ([5, 9], 8, 24),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16],
+                         ids=["fp32", "bf16", "fp16"])
+@pytest.mark.parametrize("case", sorted(GMM_CASES))
+def test_gmm_kernel_matches_plain(card, dtype, case):
+    sizes, K, N = GMM_CASES[case]
+    g = torch.Generator().manual_seed(K + N)
+    T, E = sum(sizes), len(sizes)
+    x = torch.randn(T, K, generator=g).to(card, dtype)
+    w = (torch.randn(E, K, N, generator=g) / K**0.5).to(card, dtype)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=card)
+    before = gm.gmm.launches
+    got = gm.gmm(x, w, gs)
+    torch.cuda.synchronize()
+    assert gm.gmm.launches == before + 1
+    ref = gm.gmm_plain(x, w, gs)
+    assert got.dtype == dtype and got.shape == (T, N)
+    if dtype == torch.float32:
+        tol = 1e-4 + 1e-5 * ref.abs()
+    else:
+        tol = _tol(dtype, ref.float())
+    over = (got.float() - ref.float()).abs() / tol
+    assert over.max().item() <= 1.0, over.max().item()
+
+
+@pytest.mark.cuda
+def test_gmm_rows_past_the_groups_are_zero(card):
+    x = torch.randn(10, 16, device=card, dtype=torch.bfloat16)
+    w = torch.randn(2, 16, 8, device=card, dtype=torch.bfloat16)
+    y = gm.gmm(x, w, torch.tensor([3, 4], dtype=torch.int32, device=card))
+    assert torch.equal(y[7:], torch.zeros_like(y[7:]))
+    with pytest.raises(TypeError, match="int32"):
+        gm.gmm(x, w, torch.tensor([3, 4], device=card))
+
+
+# ------------------------------------------------------------ B5 quantizer
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16],
+                         ids=["fp32", "bf16", "fp16"])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("group_size", [128, 2048, 300])
+@pytest.mark.parametrize("shape,offset", [((37, 300), 0), ((4096, 512), 0),
+                                          ((1001, ), 1)],
+                         ids=["partial_group", "aligned", "misaligned"])
+def test_quantizer_kernels_match_plain(card, dtype, bits, group_size, shape,
+                                       offset):
+    """``offset`` 1 starts the input one element into its storage, so the
+    kernel takes its unvectorised path; group 300 is clamped to 256."""
+    g = torch.Generator().manual_seed(bits + group_size)
+    n = 1
+    for d in shape:
+        n *= d
+    base = (torch.randn(n + offset, generator=g) * 3).to(card, dtype)
+    x = base[offset:].view(shape)
+    x.view(-1)[:256] = 0                          # an all-zero group
+    before = (qz.quantize_blockwise.launches,
+              qz.dequantize_blockwise.launches)
+    q, s, meta = qz.quantize_blockwise(x, bits, group_size)
+    q_ref, s_ref, meta_ref = qz.quantize_blockwise_plain(x, bits, group_size)
+    torch.cuda.synchronize()
+    assert meta == meta_ref
+    assert torch.equal(q, q_ref) and torch.equal(s, s_ref)
+    got = qz.dequantize_blockwise(q, s, meta)
+    want = qz.dequantize_blockwise_plain(q, s, meta)
+    assert got.dtype == dtype and torch.equal(got, want)
+    assert (qz.quantize_blockwise.launches,
+            qz.dequantize_blockwise.launches) == (before[0] + 1,
+                                                  before[1] + 1)

@@ -118,7 +118,7 @@ def test_safetensors_reader_matches_library(tmp_path):
 
 
 def test_unported_model_type_raises(tmp_path):
-    cfg = dict(_HF_CONFIG, model_type="mixtral")
+    cfg = dict(_HF_CONFIG, model_type="falcon")
     (tmp_path / "config.json").write_text(json.dumps(cfg))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_hf_engine(str(tmp_path), device="cpu")

@@ -282,13 +282,17 @@ def test_lm_head_turns_tf32_off_for_itself_only():
 
 def test_not_ported_options_raise():
     for over in (dict(tensor_parallel={"tp_size": 2}),
-                 dict(quantization_mode="wf8af8"),
                  dict(kv_cache_dtype="int8"),
                  dict(decode_burst_sampling=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             InferenceEngineV2(
                 port_llama.LlamaModel(port_llama.llama_tiny(
                     dtype="float32")), config=over, device="cpu")
+    # a mode the JAX engine refuses too, with its wording
+    with pytest.raises(NotImplementedError, match="quantization_mode"):
+        InferenceEngineV2(
+            port_llama.LlamaModel(port_llama.llama_tiny(dtype="float32")),
+            config=dict(quantization_mode="wf6af16"), device="cpu")
     from deepspeed_tpu_torch.profiling import cost_model
     from deepspeed_tpu_torch import serving
     for call in (cost_model.enable_capture, serving.build_serving_engine,

@@ -39,7 +39,10 @@ def test_import_loads_no_jax():
                  "runtime.config", "runtime.engine", "runtime.lr_schedules",
                  "runtime.utils", "runtime.loss_scaler",
                  "runtime.fp16.loss_scaler", "ops.lamb", "ops.lion",
-                 "sequence.cross_entropy", "models.llama", "models.gpt2"):
+                 "sequence.cross_entropy", "models.llama", "models.gpt2",
+                 "models.mixtral", "ops.kernels.grouped_matmul",
+                 "ops.kernels.quantizer", "ops.quantizer",
+                 "inference.config", "inference.quant_serving"):
         assert f"deepspeed_tpu_torch.{name}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
