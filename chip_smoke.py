@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--json PATH] [--profile DIR]
 
-Stages, run in the order 1-16; any failure exits non-zero:
+Stages, run in the order 1-18; any failure exits non-zero:
 
 1. environment: torch/CUDA/nvcc versions, the card's name and power limit;
 2. build: every ``deepspeed_tpu_torch/csrc/*.cu`` with nvcc for sm_90a
@@ -88,11 +88,30 @@ Stages, run in the order 1-16; any failure exits non-zero:
 16. one ragged step (a prefill, then two teacher-forced decode steps) at
     full width and depth 2, kernels against their plain versions: Mixtral
     (a flipped top-2 routing choice reruns the plain step with the kernel
-    run's router logits, and says so), then Llama-2-7B in int8.
+    run's router logits, and says so), then Llama-2-7B in int8;
+17. the bias-operand flash kernels (forward, dq, dk/dv, dbias) against
+    their plain versions at AlphaFold2's Evoformer widths: MSA row
+    attention of the fine-tuning crop in bf16 (Q/K/V [512, 384, 8, 32],
+    pair bias [1, 8, 384, 384] over 512 MSA rows, a 0 / -1e9 key mask with
+    one row masked whole), triangle attention in bf16 ([384, 384, 4, 32],
+    pair bias over 384 rows), the training crop in fp16 ([128, 256, 8,
+    32]) and a small causal fp32 case with Bb > 1 and Hb < H; dbias twice,
+    bit for bit; times of each kernel, its plain version,
+    ``scaled_dot_product_attention`` with the biases as a float
+    ``attn_mask`` (forward, and forward+backward where it gives the mask a
+    gradient) and the bound;
+18. the Evoformer path at full width: ``DS4Sci_EvoformerAttention`` forward
+    and backward in bf16 (Q, K, V and the pair bias require grad) at the
+    MSA-row and triangle shapes, 2 warm-up and 8 timed calls each: ms per
+    forward and per forward+backward, exact launches (one of each kernel
+    per call), peak memory against the plain route's, the kernel route
+    against the plain route, finite values, no mask gradient; then one
+    MSA-column call (no pair bias: the chunked path, no launch).
 
 ``--profile DIR`` adds ``torch.profiler`` windows over serving (stages 4,
-14 and 15), over two training steps of stage 8 and two of stage 11: device
-time by kind and the idle share.
+14 and 15), over two training steps of stage 8 and two of stage 11, and
+over three Evoformer calls of stage 18: device time by kind and the idle
+share.
 
 Prints a ``{"kernels": [...]}`` line, then, last, the device line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
@@ -201,6 +220,12 @@ def stage_build():
         + ", ".join(f"{name}/D{d} {flib.ds_flash_smem_bytes(i, d)}"
                     for i, name in enumerate(("fwd", "dq", "dkv"))
                     for d in (64, 128)))
+    from deepspeed_tpu_torch.ops.op_builder import FlashBiasBuilder
+    blib = FlashBiasBuilder().load()
+    log("[build]   flash_bias dynamic shared memory per block (bytes): "
+        + ", ".join(f"{name}/D{d} {blib.ds_flash_bias_smem_bytes(i, d)}"
+                    for i, name in enumerate(("fwd", "dq", "dkv", "dbias"))
+                    for d in (32, 128)))
     log(f"[build] all kernels: {time.perf_counter() - t0:.1f} s")
 
 
@@ -536,6 +561,9 @@ def _profile_window(stem, body, kind, out_dir, smi):
         k[0] += us
         k[1] += e.count
     busy = sum(v[0] for v in kernels.values())
+    if not busy:
+        log(f"[profile] {stem}: the profiler recorded no device time: busy "
+            f"time and idle share not measured")
     by_kind = {}
     for key, (us, _) in kernels.items():
         by_kind[kind(key)] = by_kind.get(kind(key), 0.0) + us
@@ -547,10 +575,12 @@ def _profile_window(stem, body, kind, out_dir, smi):
         for key, (us, n) in top:
             f.write(f"{us / 1e3:12.3f} ms {n:8d}  {key[:150]}\n")
     out = dict(wall_ms=wall_us / 1e3, busy_ms=busy / 1e3,
-               idle_share=1 - busy / wall_us,
+               idle_share=1 - busy / wall_us if busy else None,
                by_kind_ms={k: v / 1e3 for k, v in by_kind.items()})
+    idle = ("not measured" if out["idle_share"] is None
+            else f"{out['idle_share']:.3f}")
     log(f"[profile] {stem}: wall {out['wall_ms']:.1f} ms, device busy "
-        f"{out['busy_ms']:.1f} ms (idle share {out['idle_share']:.3f}),"
+        f"{out['busy_ms']:.1f} ms (idle share {idle}),"
         f" by kind (ms) " + ", ".join(
             f"{k} {v:.1f}" for k, v in sorted(out["by_kind_ms"].items())))
     return out
@@ -2043,6 +2073,377 @@ def stage_moe_quant_step_vs_plain(seed):
     return dict(mixtral=mixtral, llama_int8=llama)
 
 
+# --------------------------------------------------------------- stage 17
+# AlphaFold2's Evoformer widths (Jumper et al., Nature 2021, Suppl.
+# Algorithms 7 and 13-14; OpenFold's config.py has the same): MSA row
+# attention with pair bias 8 heads × 32, triangle attention 4 heads × 32;
+# fine-tuning crop N_res 384, N_seq 512; training crop N_res 256, N_seq 128
+EVO_CASES = [
+    # (name, B·N folded batch, Gb = rows one bias row serves, L, H, Hb, D,
+    #  mask, causal, dtype, timed)
+    ("msa_row_finetune", 512, 512, 384, 8, 8, 32, True, False, "bfloat16",
+     True),
+    ("triangle_finetune", 384, 384, 384, 4, 4, 32, False, False, "bfloat16",
+     True),
+    ("msa_row_train_fp16", 128, 128, 256, 8, 8, 32, True, False, "float16",
+     True),
+    ("causal_grouped_fp32", 4, 2, 100, 4, 2, 32, True, True, "float32",
+     False),
+]
+
+
+def _evo_mask(torch, gen, rows, L):
+    """OpenFold's mask bias -1e9·(1 - mask), fp32 [rows, 1, 1, L]: about
+    one key in ten masked, and row 1 (an MSA row of padding) masked
+    whole."""
+    keep = (torch.rand(rows, 1, 1, L, device="cuda", generator=gen)
+            > 0.1).float()
+    keep[1] = 0
+    return -1e9 * (1 - keep)
+
+
+def _evo_bound(flops, peak, *tensors):
+    """(ms, what binds): each tensor read or written once (None skipped)
+    at 3.35 TB/s against ``flops`` at ``peak``."""
+    nb = sum(t.numel() * t.element_size() for t in tensors if t is not None)
+    return _roofline(nb, flops, peak)
+
+
+def _evo_case(torch, gen, name, BN, Gb, L, H, Hb, D, mask, causal, dtype,
+              timed):
+    """B10's four kernels, each against its plain version on the same
+    inputs (the backward ones on the forward kernel's o and lse and the dq
+    kernel's delta); dbias twice, bit for bit; times, SDPA with the biases
+    as a float ``attn_mask``, and bounds."""
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.kernels import flash_bias as fb
+    dt = getattr(torch, dtype)
+    q, k, v, do = (torch.randn(BN, L, H, D, device="cuda", generator=gen)
+                   .to(dt) for _ in range(4))
+    bias = (torch.randn(BN // Gb, Hb, L, L, device="cuda", generator=gen)
+            * 0.5).to(dt)
+    m = _evo_mask(torch, gen, BN, L) if mask else None
+    args = (bias, m, D**-0.5, causal)
+    fwd = lambda: fb.flash_bias_fwd(q, k, v, *args)  # noqa: E731
+    o, lse = fwd()
+    dq_fn = lambda: fb.flash_bias_bwd_dq(q, k, v, o, do, lse, *args)  # noqa
+    dq, delta = dq_fn()
+    dkv_fn = lambda: fb.flash_bias_bwd_dkv(  # noqa: E731
+        q, k, v, do, lse, delta, *args)
+    dk, dv = dkv_fn()
+    dbias_fn = lambda: fb.flash_bias_bwd_dbias(  # noqa: E731
+        q, k, v, do, lse, delta, *args)
+    dbias, again = dbias_fn(), dbias_fn()
+    torch.cuda.synchronize()
+    identical = torch.equal(dbias, again)
+    del again
+    low = {torch.bfloat16: "bf16", torch.float16: "fp16"}.get(dt, False)
+    errs = {}
+    o_ref, lse_ref = fb._plain_fwd(q, k, v, *args)
+    errs["o"] = _compare(torch, o, o_ref, low)
+    errs["lse"] = _compare(torch, lse, lse_ref, False)
+    del o_ref, lse_ref
+    _free(torch)
+    dq_ref, delta_ref = fb._plain_bwd_dq(q, k, v, o, do, lse, *args)
+    errs["dq"] = _compare(torch, dq, dq_ref, low)
+    errs["delta"] = _compare(torch, delta, delta_ref, False)
+    del dq_ref, delta_ref
+    _free(torch)
+    dk_ref, dv_ref = fb._plain_bwd_dkv(q, k, v, do, lse, delta, *args)
+    errs["dk"] = _compare(torch, dk, dk_ref, low)
+    errs["dv"] = _compare(torch, dv, dv_ref, low)
+    del dk_ref, dv_ref
+    _free(torch)
+    dbias_ref = fb._plain_bwd_dbias(q, k, v, do, lse, delta, *args)
+    errs["dbias"] = _compare(torch, dbias, dbias_ref, False)
+    del dbias_ref
+    _free(torch)
+    tol_text = (f"2^-{7 if low == 'bf16' else 10}·|ref| + {BF16_ATOL:g}"
+                if low else f"{FP32_ATOL:g} + {FP32_RTOL:g}·|ref|")
+    log(f"[evo-kernel] {name}: q/k/v [{BN},{L},{H},{D}] bias "
+        f"{list(bias.shape)} mask {None if m is None else list(m.shape)} "
+        f"causal={causal} {dtype}: " + ", ".join(
+            f"{w} {e:.2e} ({r:.3f})" for w, (e, r) in errs.items())
+        + f" — max_abs_err (worst |err| / tol), tol {tol_text} for "
+        f"{dtype} outputs, {FP32_ATOL:g} + {FP32_RTOL:g}·|ref| for lse, "
+        f"delta and the fp32 dbias; dbias bit-identical across two runs: "
+        f"{identical}")
+    bad = {w: r for w, (e, r) in errs.items() if not r <= 1.0}
+    if bad or not identical:
+        raise AssertionError(f"{name}: flash bias kernels differ from their "
+                             f"plain versions beyond tolerance {bad}, or "
+                             f"dbias differs between runs ({identical})")
+    row = dict(case=name, shape=[BN, L, H, D], bias=list(bias.shape),
+               dtype=dtype, causal=causal, errs=errs,
+               dbias_bit_identical=identical,
+               worst=max(r for _, r in errs.values()))
+    if not timed:
+        del q, k, v, do, o, dq, dk, dv, dbias
+        _free(torch)
+        return row
+    for w, fn in (("fwd", fwd), ("dq", dq_fn), ("dkv", dkv_fn),
+                  ("dbias", dbias_fn)):
+        row[f"ms_{w}"] = cuda_ms(fn, 10)
+    row["plain_ms_fwd"] = cuda_ms(lambda: fb._plain_fwd(q, k, v, *args), 3,
+                                  warmup=1)
+    _free(torch)
+    row["plain_ms_dq"] = cuda_ms(
+        lambda: fb._plain_bwd_dq(q, k, v, o, do, lse, *args), 3, warmup=1)
+    _free(torch)
+    row["plain_ms_dkv"] = cuda_ms(
+        lambda: fb._plain_bwd_dkv(q, k, v, do, lse, delta, *args), 3,
+        warmup=1)
+    _free(torch)
+    row["plain_ms_dbias"] = cuda_ms(
+        lambda: fb._plain_bwd_dbias(q, k, v, do, lse, delta, *args), 3,
+        warmup=1)
+    _free(torch)
+    # library yardstick: SDPA on [B·N, H, L, D] with the pair bias and the
+    # mask added into one float attn_mask [B·N, H, L, L] outside the timing
+    qh, kh, vh, doh = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    # (fp16 cannot hold -1e9: its mask is clamped to -3e4)
+    am = bias.repeat_interleave(Gb, dim=0).repeat_interleave(H // Hb, dim=1)
+    if m is not None:
+        am = am + m.clamp(min=-3e4 if dt == torch.float16 else -1e9).to(dt)
+    am = am.contiguous()
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qh, kh, vh, attn_mask=am)
+    row["library_ms_fwd"] = cuda_ms(sdpa, 10)
+    for t in (qh, kh, vh, am):
+        t.requires_grad_(True)
+    try:
+        sdpa().backward(doh)
+        row["library_bias_grad"] = am.grad is not None
+    except RuntimeError as e:      # the yardstick only: the port never runs it
+        log(f"[evo-kernel] {name}: SDPA backward with a float attn_mask "
+            f"raised: {e}")
+        row["library_bias_grad"] = False
+    if row["library_bias_grad"]:
+        def sdpa_fwd_bwd():
+            for t in (qh, kh, vh, am):
+                t.grad = None
+            sdpa().backward(doh)
+
+        row["library_ms_fwd_bwd"] = cuda_ms(sdpa_fwd_bwd, 10)
+        row["library_ms_bwd"] = (row["library_ms_fwd_bwd"]
+                                 - row["library_ms_fwd"])
+    else:
+        row["library_ms_fwd_bwd"] = row["library_ms_bwd"] = None
+    del qh, kh, vh, doh, am
+    _free(torch)
+    pairs = _live_pairs(L, L, causal, 0)
+    flop = 2 * BN * H * D * pairs            # one product over live pairs
+    peak = FP32_FLOPS if dt == torch.float32 else BF16_FLOPS
+    row["bound_fwd"] = _evo_bound(2 * flop, peak, q, k, v, bias, m, o, lse)
+    row["bound_dq"] = _evo_bound(3 * flop, peak, q, k, v, o, do, lse, bias,
+                                 m, dq, delta)
+    row["bound_dkv"] = _evo_bound(4 * flop, peak, q, k, v, do, lse, delta,
+                                  bias, m, dk, dv)
+    row["bound_dbias"] = _evo_bound(2 * flop, peak, q, k, v, do, lse, delta,
+                                    bias, m, dbias)
+    # the three backward kernels as one function: 5 products for dq and
+    # dk/dv, 2 for dbias
+    row["bound_bwd"] = _evo_bound(7 * flop, peak, q, k, v, o, do, lse, bias,
+                                  m, dq, dk, dv, dbias)
+    row["gflop_product"] = flop / 1e9
+    log(f"[evo-kernel] {name} times (ms): fwd {row['ms_fwd']:.4f}, dq "
+        f"{row['ms_dq']:.4f}, dk/dv {row['ms_dkv']:.4f}, dbias "
+        f"{row['ms_dbias']:.4f} | plain fwd {row['plain_ms_fwd']:.3f}, dq "
+        f"{row['plain_ms_dq']:.3f}, dk/dv {row['plain_ms_dkv']:.3f}, dbias "
+        f"{row['plain_ms_dbias']:.3f} | sdpa+attn_mask fwd "
+        f"{row['library_ms_fwd']:.4f}, fwd+bwd "
+        + (f"{row['library_ms_fwd_bwd']:.4f}" if row["library_bias_grad"]
+           else "none (this torch's SDPA gives attn_mask no gradient)")
+        + " | bound fwd {:.4f} ({}), dq {:.4f}, dk/dv {:.4f}, dbias {:.4f}, "
+        "whole backward {:.4f} ({}); {:.2f} GFLOP per product".format(
+            row["bound_fwd"][0], row["bound_fwd"][1], row["bound_dq"][0],
+            row["bound_dkv"][0], row["bound_dbias"][0], row["bound_bwd"][0],
+            row["bound_bwd"][1], row["gflop_product"]))
+    del q, k, v, do, o, dq, dk, dv, dbias, lse, delta
+    _free(torch)
+    return row
+
+
+def stage_evoformer_kernels(seed):
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed + 17)
+    rows = []
+    for case in EVO_CASES:
+        rows.append(_evo_case(torch, gen, *case))
+        _free(torch)
+    return rows
+
+
+# --------------------------------------------------------------- stage 18
+EVO_PATH_SHAPES = [
+    # (name, [B, N, L, H, D] of Q/K/V, mask, pair bias)
+    ("msa_row_finetune", (1, 512, 384, 8, 32), True, True),
+    ("triangle_finetune", (1, 384, 384, 4, 32), True, True),
+    # MSA column attention: N_res rows of N_seq keys, mask only
+    ("msa_column_finetune", (1, 384, 512, 8, 32), True, False),
+]
+
+
+def _flash_bias_counts():
+    from deepspeed_tpu_torch.ops.kernels import flash_bias as fb
+    return {f.__name__: f for f in (fb.flash_bias_fwd, fb.flash_bias_bwd_dq,
+                                    fb.flash_bias_bwd_dkv,
+                                    fb.flash_bias_bwd_dbias)}
+
+
+def _evo_inputs(torch, gen, shape, mask, pair):
+    """bf16 Q, K, V, dO [B, N, L, H, D] and the biases, Q/K/V and the pair
+    bias requiring grad (OpenFold's pair bias is a projection of z); the
+    mask bias requires grad too, to show the route gives it none."""
+    B, N, L, H, D = shape
+    q, k, v, do = (torch.randn(*shape, device="cuda", generator=gen)
+                   .to(torch.bfloat16) for _ in range(4))
+    biases = []
+    if mask:
+        biases.append(_evo_mask(torch, gen, B * N, L).view(B, N, 1, 1, L)
+                      .to(torch.bfloat16))
+    if pair:
+        biases.append((torch.randn(B, 1, H, L, L, device="cuda",
+                                   generator=gen) * 0.5).to(torch.bfloat16))
+    leaves = [t.requires_grad_(True) for t in (q, k, v, *biases)]
+    return leaves, do
+
+
+def _evo_step(attn, leaves, do):
+    for t in leaves:
+        t.grad = None
+    out = attn(*leaves[:3], leaves[3:])
+    out.backward(do)
+    return out
+
+
+def _plain_route(Q, K, V, biases):
+    """The routed call with each kernel replaced by its plain version:
+    the peak-memory yardstick on the card."""
+    from deepspeed_tpu_torch.ops.kernels import flash_bias as fb
+    mask, pair = biases
+    B, N, L, H, D = Q.shape
+    out = fb.flash_attention_bias_plain(
+        Q.reshape(B * N, L, H, D), K.reshape(B * N, L, H, D),
+        V.reshape(B * N, L, H, D), pair.reshape(B, H, L, L),
+        mask.reshape(B * N, 1, 1, L))
+    return out.reshape(B, N, L, H, D)
+
+
+def _peak(torch, fn):
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def stage_evoformer(seed, smi, profile_dir=None):
+    import torch
+    from deepspeed_tpu_torch.ops.deepspeed4science import \
+        DS4Sci_EvoformerAttention
+    gen = torch.Generator(device="cuda").manual_seed(seed + 18)
+    counters = _flash_bias_counts()
+    results, launches = {}, {n: 0 for n in counters}
+    for name, shape, mask, pair in EVO_PATH_SHAPES:
+        leaves, do = _evo_inputs(torch, gen, shape, mask, pair)
+        routed = pair
+        for _ in range(2):
+            _evo_step(DS4Sci_EvoformerAttention, leaves, do)
+        torch.cuda.synchronize()
+        iters = 8 if routed else 2
+        for c in counters.values():
+            c.launches = 0
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            out = _evo_step(DS4Sci_EvoformerAttention, leaves, do)
+        end.record()
+        torch.cuda.synchronize()
+        got = {n: c.launches for n, c in counters.items()}
+        r = dict(shape=list(shape), routed=routed, iters=iters,
+                 ms_fwd_bwd=start.elapsed_time(end) / iters, launches=got)
+        for n in launches:
+            launches[n] += got[n]
+        with torch.no_grad():
+            r["ms_fwd"] = cuda_ms(lambda: DS4Sci_EvoformerAttention(
+                *leaves[:3], leaves[3:]), iters)
+        finite = bool(torch.isfinite(out).all()) and all(
+            bool(torch.isfinite(t.grad).all()) for t in leaves
+            if t.grad is not None)
+        r["finite"] = finite
+        r["mask_grad"] = (None if leaves[3].grad is None
+                          else float(leaves[3].grad.abs().max()))
+        want = iters if routed else 0
+        r["peak_bytes"] = _peak(torch, lambda: _evo_step(
+            DS4Sci_EvoformerAttention, leaves, do))
+        if routed:
+            kernel_grads = [out.detach()] + [
+                None if t.grad is None else t.grad.detach().clone()
+                for t in leaves]
+            r["plain_peak_bytes"] = _peak(torch, lambda: _evo_step(
+                _plain_route, leaves, do))
+            with torch.no_grad():
+                plain_out = _plain_route(*leaves[:3], leaves[3:])
+            # the plain route's own forward, so its o (and delta) differ
+            # from the kernels' by a bf16 ulp: held to 2 % of max |ref|
+            refs = [plain_out.detach()] + [
+                None if t.grad is None else t.grad for t in leaves]
+            r["vs_plain"] = {}
+            for w, a, b in zip(("out", "dQ", "dK", "dV", "dMask", "dPair"),
+                               kernel_grads, refs):
+                if a is None or b is None:
+                    continue
+                err = (a.float() - b.float()).abs().max().item()
+                tol = 0.02 * b.float().abs().max().item()
+                r["vs_plain"][w] = (err, tol)
+            del plain_out, refs, kernel_grads
+        log(f"[evoformer] {name}: Q/K/V {list(shape)} bf16, "
+            f"{'routed (mask + pair bias)' if routed else 'chunked (mask only)'}: "
+            f"fwd {r['ms_fwd']:.3f} ms, fwd+bwd {r['ms_fwd_bwd']:.3f} ms "
+            f"({iters} timed after 2 warm-up), launches {got}, peak "
+            f"{r['peak_bytes'] / 2**30:.3f} GiB"
+            + (f" (plain route {r['plain_peak_bytes'] / 2**30:.3f} GiB)"
+               if routed else "")
+            + f", finite {finite}, mask grad {r['mask_grad']}"
+            + ("" if not routed else ", vs plain route (max|err|, tol): "
+               + ", ".join(f"{w} {e:.3e}/{t:.3e}"
+                           for w, (e, t) in r["vs_plain"].items())))
+        if any(v != want for v in got.values()):
+            raise AssertionError(f"{name}: flash bias launches {got}, want "
+                                 f"{want} each")
+        if not finite:
+            raise AssertionError(f"{name}: non-finite output or gradient")
+        if routed and r["mask_grad"] not in (None, 0.0):
+            raise AssertionError(f"{name}: the routed mask bias got a "
+                                 f"gradient")
+        bad = {w: e for w, (e, t) in r.get("vs_plain", {}).items()
+               if not e <= t}
+        if bad:
+            raise AssertionError(f"{name}: kernel route differs from the "
+                                 f"plain route: {bad}")
+        if profile_dir and routed and name == "msa_row_finetune":
+            def kind(key):
+                for k_ in ("fb_fwd", "fb_dq", "fb_dkv", "fb_dbias"):
+                    if k_ in key:
+                        return k_
+                return "matmul" if _is_matmul(key) else "other"
+
+            def three_calls():
+                for _ in range(3):
+                    _evo_step(DS4Sci_EvoformerAttention, leaves, do)
+
+            r["profile"] = _profile_window("evoformer_msa_row_profile",
+                                           three_calls, kind, profile_dir,
+                                           smi)
+        results[name] = r
+        del leaves, do, out
+        _free(torch)
+    return dict(shapes=results, launches=launches)
+
+
 # ------------------------------------------------------------------ main
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2082,6 +2483,8 @@ def main():
     quant = stage_quant_serve(args.seed, smi, serve["peak_bytes"],
                               args.profile)
     moe_quant_step = stage_moe_quant_step_vs_plain(args.seed)
+    evo_kernels = stage_evoformer_kernels(args.seed)
+    evo = stage_evoformer(args.seed, smi, args.profile)
 
     entries = []
     for wrapper, case in (("paged_attention", "serve_decode"),
@@ -2193,6 +2596,33 @@ def main():
              plain_ms=qrow["plain_ms_d"], bound_ms=qrow["bound_d"][0],
              bound_by=qrow["bound_d"][1], library_ms=None),
     ]
+    erow = next(r for r in evo_kernels if r["case"] == "msa_row_finetune")
+    fsrc = "deepspeed_tpu_torch/csrc/flash_bias.cu"
+    # launches: stage 18's timed calls; library_ms of the backward kernels
+    # is SDPA's backward with the attn_mask gradient (fwd+bwd less fwd),
+    # which computes dq, dk, dv and the bias gradient together
+    entries.append(dict(
+        name="flash_bias_fwd", route="cuda", source=fsrc,
+        replaces=src + "flash_bias.py:261",
+        launches=evo["launches"]["flash_bias_fwd"],
+        max_abs_err=erow["errs"]["o"][0], ms=erow["ms_fwd"],
+        plain_ms=erow["plain_ms_fwd"], bound_ms=erow["bound_fwd"][0],
+        bound_by=erow["bound_fwd"][1], library_ms=erow["library_ms_fwd"]))
+    for wrapper, line, key, errs in (
+            ("flash_bias_bwd_dq", 302, "dq", ("dq", )),
+            ("flash_bias_bwd_dkv", 315, "dkv", ("dk", "dv")),
+            ("flash_bias_bwd_dbias", 337, "dbias", ("dbias", ))):
+        entries.append(dict(
+            name=wrapper, route="cuda", source=fsrc,
+            replaces=src + f"flash_bias.py:{line}",
+            launches=evo["launches"][wrapper],
+            max_abs_err=max(erow["errs"][e][0] for e in errs),
+            ms=erow[f"ms_{key}"], plain_ms=erow[f"plain_ms_{key}"],
+            bound_ms=erow[f"bound_{key}"][0],
+            bound_by=erow[f"bound_{key}"][1],
+            library_ms=erow["library_ms_bwd"],
+            library="SDPA backward with attn_mask grad (dq, dk, dv, dbias "
+                    "together)"))
     if args.json:
         with open(args.json, "w") as f:
             json.dump(dict(card=smi, kernels=kernels, serve=serve,
@@ -2203,6 +2633,7 @@ def main():
                            moe_quant_kernels=moe_quant_kernels,
                            mixtral=mixtral, quant=quant,
                            moe_quant_step=moe_quant_step,
+                           evo_kernels=evo_kernels, evoformer=evo,
                            seconds=time.perf_counter() - t_start),
                       f, indent=1, default=str)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -214,9 +214,33 @@ class QuantizerBuilder(CUDAOpBuilder):
         lib.ds_cuda_error_string.restype = ctypes.c_char_p
 
 
+class FlashBiasBuilder(CUDAOpBuilder):
+    NAME = "flash_bias"
+    SOURCE = os.path.join("csrc", "flash_bias.cu")
+
+    def bind(self, lib):
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        # B, H, sq, sk, D, Bb, Hb, Bm, scale, causal, dtype code, bias
+        # dtype code, stream
+        dims = [i] * 8 + [f, i, i, i, p]
+        # tensors: q k v bias mask o lse | q k v o do lse bias mask dq delta
+        # | q k v do lse delta bias mask dk dv | ... bias mask dbias
+        lib.ds_flash_bias_fwd.argtypes = [p] * 7 + dims
+        lib.ds_flash_bias_bwd_dq.argtypes = [p] * 10 + dims
+        lib.ds_flash_bias_bwd_dkv.argtypes = [p] * 10 + dims
+        lib.ds_flash_bias_bwd_dbias.argtypes = [p] * 9 + dims
+        for fn in (lib.ds_flash_bias_fwd, lib.ds_flash_bias_bwd_dq,
+                   lib.ds_flash_bias_bwd_dkv, lib.ds_flash_bias_bwd_dbias):
+            fn.restype = i
+        lib.ds_flash_bias_smem_bytes.argtypes = [i, i]
+        lib.ds_flash_bias_smem_bytes.restype = i
+        lib.ds_cuda_error_string.argtypes = [i]
+        lib.ds_cuda_error_string.restype = ctypes.c_char_p
+
+
 ALL_OPS = {b.NAME: b for b in (PagedAttentionBuilder, FlashAttentionBuilder,
                                OptimizersBuilder, GroupedMatmulBuilder,
-                               QuantizerBuilder)}
+                               QuantizerBuilder, FlashBiasBuilder)}
 
 
 def build_all():

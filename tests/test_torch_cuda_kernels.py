@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain versions, on the card: paged
 attention (B4), flash attention forward and backward (B1, fp32, bf16 and
 fp16), the fused Adam step (B2), the two LAMB phases (B3), the Lion step
-(B8), the grouped matmul (B7) and blockwise quantize/dequantize (B5).
+(B8), the grouped matmul (B7), blockwise quantize/dequantize (B5) and
+the bias-operand flash attention's forward, dq, dk/dv and dbias (B10).
 
 Marked ``cuda``: each test asks for the ``card`` fixture, which skips when
 torch sees no CUDA device.  The file imports neither JAX nor the JAX
@@ -23,13 +24,17 @@ of each rounded product (lr·ratio, and its product with u) and of the
 result.  Grouped matmul: fp32 1e-4 + 1e-5·|ref| (fp32 FMA in another
 order); bf16 2^-7·|ref| and fp16 2^-10·|ref|, each plus 1e-4 (both sides
 sum in fp32 and round once).  Quantize and dequantize: bit for bit (the
-same fp32 operations, a true division and round half to even).
+same fp32 operations, a true division and round half to even).  Flash
+bias: o, dq, dk, dv as flash attention's; lse, delta and the fp32 dbias
+1e-4 + 1e-5·|ref| (fp32 sums in another order); dbias bit for bit across
+two runs (a fixed summation order).
 """
 
 import pytest
 import torch
 
 from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+from deepspeed_tpu_torch.ops.kernels import flash_bias as fb
 from deepspeed_tpu_torch.ops.kernels import grouped_matmul as gm
 from deepspeed_tpu_torch.ops.kernels import quantizer as qz
 from deepspeed_tpu_torch.ops.kernels import optimizers as opt
@@ -439,3 +444,141 @@ def test_quantizer_kernels_match_plain(card, dtype, bits, group_size, shape,
     assert (qz.quantize_blockwise.launches,
             qz.dequantize_blockwise.launches) == (before[0] + 1,
                                                   before[1] + 1)
+
+
+# ------------------------------------------------------------ B10 flash bias
+FLASH_BIAS_CASES = {
+    # (B, sq, sk, H, D, bias [Bb, Hb], mask rows, causal, fp32 bias)
+    "msa_d32_mask": (6, 100, 100, 4, 32, (2, 4), 6, False, False),
+    "grouped_heads": (3, 70, 70, 4, 32, (1, 2), 3, False, False),
+    "causal_dead_rows_d16": (2, 90, 60, 2, 16, (2, 2), 0, True, False),
+    "causal_sq_lt_sk_d128": (1, 80, 150, 2, 128, (1, 1), 1, True, False),
+    "d64_fp32_bias": (2, 130, 130, 2, 64, (1, 1), 2, False, True),
+    "unaligned_d12": (2, 37, 29, 3, 12, (2, 3), 0, False, False),
+}
+
+
+def _flash_bias_inputs(card, case, dtype):
+    """q, k, v, do, bias and a 0 / -1e9 key mask: the last 7 keys masked
+    in every row, batch row 1 masked whole."""
+    B, sq, sk, H, D, (Bb, Hb), mrows, causal, f32 = FLASH_BIAS_CASES[case]
+    g = torch.Generator().manual_seed(len(case))
+    q, do = (torch.randn(B, sq, H, D, generator=g).to(card, dtype)
+             for _ in range(2))
+    k, v = (torch.randn(B, sk, H, D, generator=g).to(card, dtype)
+            for _ in range(2))
+    bias = (torch.randn(Bb, Hb, sq, sk, generator=g) * 0.5).to(
+        card, torch.float32 if f32 else dtype)
+    mask = None
+    if mrows:
+        keep = torch.ones(mrows, 1, 1, sk)
+        keep[..., sk - 7:] = 0
+        keep[min(1, mrows - 1)] = 0
+        mask = (-1e9 * (1 - keep)).to(card)
+    return q, k, v, do, bias, mask, causal
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16],
+                         ids=["fp32", "bf16", "fp16"])
+@pytest.mark.parametrize("case", sorted(FLASH_BIAS_CASES))
+def test_flash_bias_kernels_match_plain(card, case, dtype):
+    """Each of the four kernels against its plain version on the same
+    inputs (the backward ones on the forward kernel's o and lse, and the
+    dq kernel's delta); dbias bit-identical across two runs.  Tolerances:
+    o, dq, dk, dv as the flash kernels'; lse, delta and the fp32 dbias
+    1e-4 + 1e-5·|ref| (fp32 sums in another order)."""
+    q, k, v, do, bias, mask, causal = _flash_bias_inputs(card, case, dtype)
+    args = (bias, mask, q.shape[-1]**-0.5, causal)
+    o, lse = fb.flash_bias_fwd(q, k, v, *args)
+    dq, delta = fb.flash_bias_bwd_dq(q, k, v, o, do, lse, *args)
+    dk, dv = fb.flash_bias_bwd_dkv(q, k, v, do, lse, delta, *args)
+    dbias = fb.flash_bias_bwd_dbias(q, k, v, do, lse, delta, *args)
+    again = fb.flash_bias_bwd_dbias(q, k, v, do, lse, delta, *args)
+    o_ref, lse_ref = fb._plain_fwd(q, k, v, *args)
+    dq_ref, delta_ref = fb._plain_bwd_dq(q, k, v, o, do, lse, *args)
+    dk_ref, dv_ref = fb._plain_bwd_dkv(q, k, v, do, lse, delta, *args)
+    dbias_ref = fb._plain_bwd_dbias(q, k, v, do, lse, delta, *args)
+    torch.cuda.synchronize()
+    for what, got, ref in (("o", o, o_ref), ("dq", dq, dq_ref),
+                           ("dk", dk, dk_ref), ("dv", dv, dv_ref)):
+        assert got.dtype == dtype and torch.isfinite(got).all(), what
+        over = (got.float() - ref.float()).abs() / _tol(dtype, ref.float())
+        assert over.max().item() <= 1.0, (what, over.max().item())
+    for what, got, ref in (("lse", lse, lse_ref), ("delta", delta,
+                                                   delta_ref),
+                           ("dbias", dbias, dbias_ref)):
+        assert got.dtype == torch.float32 and got.shape == ref.shape, what
+        assert ((got - ref).abs() <= 1e-4 + 1e-5 * ref.abs()).all(), what
+    assert torch.equal(dbias, again)
+    if causal and q.shape[1] > k.shape[1]:
+        dead = q.shape[1] - k.shape[1]
+        assert (lse[:, :, :dead] == fb.DEAD_ROW_LSE).all()
+        assert not o[:, :dead].any() and not dq[:, :dead].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_flash_bias_autograd_launches_each_kernel_once(card, dtype,
+                                                       monkeypatch):
+    """A CUDA tensor never reaches a plain version: with every plain
+    version made to raise, one forward and backward still runs, on one
+    launch of each kernel; the bias's gradient keeps its dtype and the
+    mask gets none."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    for name in ("_plain_fwd", "_plain_bwd_dq", "_plain_bwd_dkv",
+                 "_plain_bwd_dbias"):
+        monkeypatch.setattr(fb, name, refuse)
+    q, k, v, do, bias, mask, _ = _flash_bias_inputs(card, "msa_d32_mask",
+                                                    dtype)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v, bias)]
+    mask.requires_grad_(True)
+    counters = (fb.flash_bias_fwd, fb.flash_bias_bwd_dq,
+                fb.flash_bias_bwd_dkv, fb.flash_bias_bwd_dbias)
+    before = [c.launches for c in counters]
+    fb.flash_attention_bias(*leaves, mask_bias=mask).backward(do)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [1] * 4
+    assert all(torch.isfinite(t.grad).all() for t in leaves)
+    assert leaves[3].grad.dtype == dtype and mask.grad is None
+
+
+@pytest.mark.cuda
+def test_flash_bias_build_failure_raises(card, monkeypatch, tmp_path):
+    """A source that does not compile raises on the first call; nothing
+    falls back to the plain version."""
+    from deepspeed_tpu_torch.ops import op_builder
+    broken = tmp_path / "flash_bias.cu"
+    broken.write_text("this is not CUDA\n")
+    monkeypatch.setenv("DS_TORCH_BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(op_builder.FlashBiasBuilder, "SOURCE", str(broken))
+    monkeypatch.delitem(op_builder.CUDAOpBuilder._libs, "flash_bias",
+                        raising=False)
+    q = torch.randn(1, 16, 2, 32, device=card)
+    bias = torch.randn(1, 2, 16, 16, device=card)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        fb.flash_attention_bias(q, q, q, bias)
+
+
+@pytest.mark.cuda
+def test_flash_bias_wrapper_rejects_what_the_kernels_do_not_take(card):
+    q = torch.randn(2, 8, 2, 32, device=card)
+    bias = torch.randn(1, 2, 8, 8, device=card)
+    with pytest.raises(TypeError, match="bf16, fp16 or fp32"):
+        fb.flash_attention_bias(q.double(), q.double(), q.double(), bias)
+    wide = torch.randn(1, 8, 2, 160, device=card)
+    with pytest.raises(ValueError, match="head_dim"):
+        fb.flash_attention_bias(wide, wide, wide, bias[:1])
+    strided = torch.randn(2, 2, 8, 32, device=card).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fb.flash_attention_bias(strided, q, q, bias)
+    with pytest.raises(TypeError, match="mask_bias must be fp32"):
+        fb.flash_bias_fwd(q, q, q, bias, torch.zeros(2, 1, 1, 8,
+                                                     device=card).half(),
+                          0.1)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fb.flash_bias_fwd(q.cpu(), q.cpu(), q.cpu(), bias.cpu(), None, 0.1)

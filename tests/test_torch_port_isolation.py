@@ -42,7 +42,9 @@ def test_import_loads_no_jax():
                  "sequence.cross_entropy", "models.llama", "models.gpt2",
                  "models.mixtral", "ops.kernels.grouped_matmul",
                  "ops.kernels.quantizer", "ops.quantizer",
-                 "inference.config", "inference.quant_serving"):
+                 "inference.config", "inference.quant_serving",
+                 "ops.kernels.flash_bias",
+                 "ops.deepspeed4science.evoformer_attn"):
         assert f"deepspeed_tpu_torch.{name}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
