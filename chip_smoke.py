@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--json PATH] [--profile DIR]
 
-Stages, run in the order 1-18; any failure exits non-zero:
+Stages, run in the order 1-21; any failure exits non-zero:
 
 1. environment: torch/CUDA/nvcc versions, the card's name and power limit;
 2. build: every ``deepspeed_tpu_torch/csrc/*.cu`` with nvcc for sm_90a
@@ -106,7 +106,26 @@ Stages, run in the order 1-18; any failure exits non-zero:
     forward and per forward+backward, exact launches (one of each kernel
     per call), peak memory against the plain route's, the kernel route
     against the plain route, finite values, no mask gradient; then one
-    MSA-column call (no pair bias: the chunked path, no launch).
+    MSA-column call (no pair bias: the chunked path, no launch);
+19. the block-sparse attention kernel against its plain version: (a)
+    BigBird-base (google/bigbird-roberta-base: 12 heads × 64, block 64, 3
+    random blocks, 4096 positions) with B=4 in bf16; (b) DeepSpeed's
+    "fixed" sparsity defaults (block 16, 4 local blocks, 1 global, 4
+    global patterns over the heads) at BERT-large width (16 heads × 64),
+    B=2, S=4096, bf16; (c) (b) unidirectional in fp16; times of the
+    kernel, the plain version and ``scaled_dot_product_attention`` with
+    the dense boolean mask the layout expands to, and the bound;
+20. ``SparseSelfAttention`` forward and backward at (a) and (c) through its
+    [B, H, S, D] entry: ms per forward and per forward+backward, exactly
+    one kernel launch per forward, peak memory above the inputs, the
+    output and gradients against the gather formulation;
+21. the FP6/FP12 quantize kernel against its plain version, codes and
+    scales bit for bit, at Llama-2-7B's MLP leaf [4096, 11008] and
+    embedding [32000, 4096] in bf16 and fp32 (groups of 512); then
+    ``linear.quantize_param_tree`` over Llama-2-7B's whole bf16 tree in
+    the JAX layout (random from the seed) in FP6, FP12 and fp8: launches
+    (one per leaf of two or more dims; none for fp8), wall time, resident
+    bytes and the worst relative error of ``dequantized()``.
 
 ``--profile DIR`` adds ``torch.profiler`` windows over serving (stages 4,
 14 and 15), over two training steps of stage 8 and two of stage 11, and
@@ -115,7 +134,9 @@ share.
 
 Prints a ``{"kernels": [...]}`` line, then, last, the device line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
-torch sees no CUDA device or the package is not beside this script.
+torch sees no CUDA device, the package is not beside this script, or
+``DS_TPU_DISABLE_PALLAS_ATTN`` (which turns the attention kernels off) is
+set.
 """
 
 import argparse
@@ -226,6 +247,13 @@ def stage_build():
         + ", ".join(f"{name}/D{d} {blib.ds_flash_bias_smem_bytes(i, d)}"
                     for i, name in enumerate(("fwd", "dq", "dkv", "dbias"))
                     for d in (32, 128)))
+    from deepspeed_tpu_torch.ops.op_builder import \
+        BlockSparseAttentionBuilder
+    slib = BlockSparseAttentionBuilder().load()
+    log("[build]   block_sparse_attention dynamic shared memory per block "
+        "(bytes): " + ", ".join(
+            f"block{b}/D{d} {slib.ds_block_sparse_attention_smem_bytes(b, d)}"
+            for b in (16, 64) for d in (64, 128)))
     log(f"[build] all kernels: {time.perf_counter() - t0:.1f} s")
 
 
@@ -2444,6 +2472,356 @@ def stage_evoformer(seed, smi, profile_dir=None):
     return dict(shapes=results, launches=launches)
 
 
+# --------------------------------------------------------------- stage 19
+# (a) google/bigbird-roberta-base's published config.json: 12 heads × 64,
+# block_size 64, num_random_blocks 3, max_position_embeddings 4096 (the
+# package's BigBird layout: a 3-block window, 2 global blocks first);
+# (b) DeepSpeed's documented sparse_attention "fixed" defaults at BERT-large
+# widths (16 heads × 64); (c) (b) unidirectional, in fp16
+SPARSE_CASES = [
+    # (name, config class, config kwargs, B, S, dtype)
+    ("bigbird_base", "BigBirdSparsityConfig",
+     dict(num_heads=12, block=64, num_random_blocks=3,
+          num_sliding_window_blocks=3, num_global_blocks=2), 4, 4096,
+     "bfloat16"),
+    ("fixed_bert_large", "FixedSparsityConfig",
+     dict(num_heads=16, block=16, num_local_blocks=4, num_global_blocks=1,
+          different_layout_per_head=True, num_different_global_patterns=4),
+     2, 4096, "bfloat16"),
+    ("fixed_bert_large_causal", "FixedSparsityConfig",
+     dict(num_heads=16, block=16, num_local_blocks=4, num_global_blocks=1,
+          different_layout_per_head=True, num_different_global_patterns=4,
+          attention="unidirectional"), 2, 4096, "float16"),
+]
+
+
+def _sparse_config(name):
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+    _, cls, kw, B, S, dtype = next(c for c in SPARSE_CASES if c[0] == name)
+    return getattr(sa, cls)(**kw), B, S, dtype
+
+
+def _sparse_work(layout, block, causal, B, D, itemsize):
+    """(live blocks per head, bytes, flops): q and o, the k/v blocks some
+    row uses, each once; two products over the live (row, key) pairs."""
+    import numpy as np
+    H, nb, _ = layout.shape
+    pairs_per_block = block * (block + 1) // 2 if causal else block * block
+    diag = np.trace(layout, axis1=1, axis2=2).sum() if causal else 0
+    live = int(layout.sum())
+    pairs = ((live - diag) * block * block + diag * pairs_per_block)
+    used_kv = int(layout.any(axis=1).sum())          # k blocks any row uses
+    nbytes = itemsize * D * B * (2 * H * nb * block + 2 * used_kv * block)
+    return live / H, nbytes, 2 * 2 * B * D * int(pairs)
+
+
+def _sparse_case(torch, gen, name):
+    """B9 against its plain version at one of SPARSE_CASES; times of the
+    kernel, the plain version and SDPA with the dense boolean mask the
+    layout expands to; the bound."""
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.kernels import block_sparse_attention as bs
+    cfg, B, S, dtype = _sparse_config(name)
+    dt = getattr(torch, dtype)
+    H, D, block = cfg.num_heads, 64, cfg.block
+    causal = getattr(cfg, "attention", "") == "unidirectional"
+    layout = cfg.make_layout(S)
+    q, k, v = (torch.randn(B, S, H, D, device="cuda", generator=gen).to(dt)
+               for _ in range(3))
+    fwd = lambda: bs.block_sparse_attention_fwd(  # noqa: E731
+        q, k, v, layout, block, causal=causal)
+    o = fwd()
+    ref = bs.block_sparse_attention_plain(q, k, v, layout, block,
+                                          causal=causal)
+    low = "fp16" if dt == torch.float16 else "bf16"
+    err, worst = _compare(torch, o, ref, low)
+    del ref
+    _free(torch)
+    row = dict(case=name, shape=[B, S, H, D], block=block, causal=causal,
+               dtype=dtype, err=err, worst=worst)
+    row["ms"] = cuda_ms(fwd, 10)
+    row["plain_ms"] = cuda_ms(lambda: bs.block_sparse_attention_plain(
+        q, k, v, layout, block, causal=causal), 3, warmup=1)
+    _free(torch)
+    # yardstick: SDPA with the layout expanded to a dense [H, S, S] mask
+    full = torch.from_numpy(layout).to("cuda").repeat_interleave(
+        block, dim=1).repeat_interleave(block, dim=2)
+    if causal:
+        full &= torch.ones(S, S, dtype=torch.bool, device="cuda").tril()
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qh, kh, vh, attn_mask=full[None])
+    row["library_ms"] = cuda_ms(sdpa, 10)
+    row["sdpa_vs_kernel"] = (sdpa().transpose(1, 2).float()
+                             - o.float()).abs().max().item()
+    del full, qh, kh, vh
+    _free(torch)
+    live, nbytes, flops = _sparse_work(layout, block, causal, B, D,
+                                       q.element_size())
+    row["live_blocks_per_head"] = live
+    row["density"] = live / (S // block) ** 2
+    row["gflop"] = flops / 1e9
+    row["bound_ms"], row["bound_by"] = _roofline(nbytes, flops, BF16_FLOPS)
+    tol_text = f"2^-{7 if low == 'bf16' else 10}·|ref| + {BF16_ATOL:g}"
+    log(f"[sparse-kernel] {name}: q/k/v [{B},{S},{H},{D}] {dtype} block "
+        f"{block} causal={causal}: {live:.1f} live blocks per head of "
+        f"{(S // block) ** 2} (density {row['density']:.4f}), "
+        f"{row['gflop']:.2f} GFLOP | max_abs_err {err:.3e} (worst "
+        f"{worst:.3f} of tol {tol_text}) | kernel {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.3f}, sdpa+bool mask {row['library_ms']:.4f} "
+        f"(max |sdpa - kernel| {row['sdpa_vs_kernel']:.3e}), bound "
+        f"{row['bound_ms']:.4f} ({row['bound_by']})")
+    if not worst <= 1.0 or not torch.isfinite(o).all():
+        raise AssertionError(f"{name}: block-sparse kernel differs from its "
+                             f"plain version beyond tolerance ({worst})")
+    del q, k, v, o
+    _free(torch)
+    return row
+
+
+def stage_sparse_kernels(seed):
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed + 19)
+    return [_sparse_case(torch, gen, c[0]) for c in SPARSE_CASES]
+
+
+# --------------------------------------------------------------- stage 20
+def stage_sparse_attention(seed, smi):
+    """``SparseSelfAttention`` forward and backward through its [B, H, S, D]
+    entry at cases (a) and (c): ms per forward and per forward+backward,
+    exactly one B9 launch per forward, peak memory above the inputs, the
+    output and gradients against the gather formulation's."""
+    import torch
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+    from deepspeed_tpu_torch.ops.kernels import block_sparse_attention as bs
+    gen = torch.Generator(device="cuda").manual_seed(seed + 20)
+    results, launches = {}, 0
+    for name in ("bigbird_base", "fixed_bert_large_causal"):
+        cfg, B, S, dtype = _sparse_config(name)
+        dt = getattr(torch, dtype)
+        H, D = cfg.num_heads, 64
+        attn = sa.SparseSelfAttention(cfg)
+        leaves = [torch.randn(B, H, S, D, device="cuda", generator=gen)
+                  .to(dt).requires_grad_(True) for _ in range(3)]
+        do = torch.randn(B, H, S, D, device="cuda", generator=gen).to(dt)
+
+        def step():
+            for t in leaves:
+                t.grad = None
+            out = attn(*leaves)
+            out.backward(do)
+            return out
+
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        iters = 5
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        bs.block_sparse_attention_fwd.launches = 0
+        start.record()
+        for _ in range(iters):
+            out = step()
+        end.record()
+        torch.cuda.synchronize()
+        ms_fwd_bwd = start.elapsed_time(end) / iters
+        with torch.no_grad():
+            start.record()
+            for _ in range(iters):
+                attn(*leaves)
+            end.record()
+            torch.cuda.synchronize()
+        ms_fwd = start.elapsed_time(end) / iters
+        got = bs.block_sparse_attention_fwd.launches
+        launches += got
+        grads = [t.grad.detach().clone() for t in leaves]
+        peak = _peak(torch, step)
+        # the gather formulation on the same inputs (what the backward runs)
+        ref_leaves = [t.detach().clone().requires_grad_(True)
+                      for t in leaves]
+        ref = sa.sparse_attention(
+            *(t.transpose(1, 2) for t in ref_leaves), attn.layout(S),
+            cfg.block, causal=getattr(cfg, "attention", "") ==
+            "unidirectional").transpose(1, 2)
+        ref.backward(do)
+        low = "fp16" if dt == torch.float16 else "bf16"
+        vs = {"out": _compare(torch, out.detach(), ref.detach(), low)}
+        # the same autograd graph; its index backward sums with atomics
+        for w, a, b in zip(("dq", "dk", "dv"), grads, ref_leaves):
+            vs[w] = _compare(torch, a, b.grad, low)
+        finite = bool(torch.isfinite(out).all()) and all(
+            bool(torch.isfinite(g).all()) for g in grads)
+        r = dict(shape=[B, H, S, D], dtype=dtype, iters=iters,
+                 ms_fwd=ms_fwd, ms_fwd_bwd=ms_fwd_bwd, launches=got,
+                 peak_bytes=peak, finite=finite, vs_gather=vs)
+        log(f"[sparse] {name}: SparseSelfAttention [{B},{H},{S},{D}] {dtype}"
+            f": fwd {ms_fwd:.3f} ms, fwd+bwd {ms_fwd_bwd:.3f} ms ({iters} "
+            f"timed of each after 2 warm-up), B9 launches {got} for "
+            f"{2 * iters} forwards, peak {peak / 2**30:.3f} GiB above the "
+            f"inputs, finite {finite}, vs the gather formulation "
+            f"(max|err|, worst/tol): "
+            + ", ".join(f"{w} {e:.2e}/{t:.3f}" for w, (e, t) in vs.items()))
+        if got != 2 * iters:
+            raise AssertionError(f"{name}: {got} B9 launches for "
+                                 f"{2 * iters} forwards")
+        bad = {w: t for w, (_, t) in vs.items() if not t <= 1.0}
+        if bad or not finite:
+            raise AssertionError(f"{name}: sparse attention differs from the "
+                                 f"gather formulation {bad} or is not "
+                                 f"finite")
+        results[name] = r
+        del leaves, do, out, grads, ref_leaves, ref
+        _free(torch)
+    return dict(cases=results, launches=launches)
+
+
+# --------------------------------------------------------------- stage 21
+FPQ_SHAPES = [("mlp_4096x11008", (4096, 11008)),
+              ("embed_32000x4096", (32000, 4096))]
+FPQ_FORMATS = {"fp6": (6, 2), "fp12": (12, 7)}
+
+
+def _fpq_case(torch, gen, shape_name, shape, fmt, dtype):
+    """B6 against its plain version, bit for bit, with times and bound."""
+    from deepspeed_tpu_torch.ops.kernels import fp_quantizer as kfq
+    q_bits, man = FPQ_FORMATS[fmt]
+    x = (torch.randn(*shape, device="cuda", generator=gen) * 0.02).to(
+        getattr(torch, dtype))
+    run = lambda: kfq.quantize_fp_codes(x, q_bits, man, 512)  # noqa: E731
+    codes, scales = run()
+    ref_codes, ref_scales = kfq.quantize_fp_codes_plain(x, q_bits, man, 512)
+    equal = torch.equal(codes, ref_codes) and torch.equal(scales,
+                                                          ref_scales)
+    err = (codes.int() - ref_codes.int()).abs().max().item()
+    del ref_codes, ref_scales
+    _free(torch)
+    row = dict(case=f"{shape_name}_{fmt}_{dtype}", shape=list(shape),
+               fmt=fmt, dtype=dtype, bit_equal=equal, err=err)
+    row["ms"] = cuda_ms(run, 10)
+    row["plain_ms"] = cuda_ms(lambda: kfq.quantize_fp_codes_plain(
+        x, q_bits, man, 512), 3, warmup=1)
+    _free(torch)
+    nbytes = (x.numel() * x.element_size()
+              + codes.numel() * codes.element_size() + 4 * scales.numel())
+    row["bound_ms"], row["bound_by"] = _roofline(nbytes, 0, BF16_FLOPS)
+    log(f"[fp-quant-kernel] {row['case']}: {x.numel():,} elements, "
+        f"{scales.numel():,} groups of 512: codes and scales "
+        f"{'bit-equal' if equal else 'DIFFER'} (max |Δcode| {err}) | kernel "
+        f"{row['ms']:.4f} ms, plain {row['plain_ms']:.3f}, bound "
+        f"{row['bound_ms']:.4f} ({row['bound_by']}: input, "
+        f"{codes.element_size()}-byte codes, scales)")
+    if not equal:
+        raise AssertionError(f"{row['case']}: FP quantize kernel differs "
+                             f"from its plain version")
+    del x, codes, scales
+    _free(torch)
+    return row
+
+
+def _llama_jax_tree(torch, gen, L=32, D=4096, H=32, Dh=128, I=11008,
+                    V=32000):
+    """Llama-2-7B's parameter tree in the JAX package's flax layout, bf16,
+    random from ``gen`` (norms 1): 2 + 7 × L leaves of two or more dims."""
+    def w(*shape):
+        return (torch.randn(*shape, device="cuda", generator=gen)
+                * 0.02).to(torch.bfloat16)
+
+    ones = lambda: torch.ones(D, device="cuda", dtype=torch.bfloat16)  # noqa
+    tree = {"embed_tokens": {"embedding": w(V, D)},
+            "norm": {"weight": ones()}, "lm_head": {"kernel": w(D, V)}}
+    for i in range(L):
+        tree[f"layers_{i}"] = {
+            "self_attn": {"q_proj": {"kernel": w(D, H, Dh)},
+                          "k_proj": {"kernel": w(D, H, Dh)},
+                          "v_proj": {"kernel": w(D, H, Dh)},
+                          "o_proj": {"kernel": w(H * Dh, D)}},
+            "mlp": {"gate_proj": {"kernel": w(D, I)},
+                    "up_proj": {"kernel": w(D, I)},
+                    "down_proj": {"kernel": w(I, D)}},
+            "input_layernorm": {"weight": ones()},
+            "post_attention_layernorm": {"weight": ones()}}
+    return tree
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tree_leaves(v)
+    else:
+        yield tree
+
+
+def stage_fp_quant(seed, smi):
+    """B6 against its plain version at Llama-2-7B's largest leaves, then
+    ``quantize_param_tree`` over the whole bf16 tree in FP6, FP12 and fp8:
+    launches (one per leaf of two or more dims, none for fp8), wall time,
+    resident bytes, and the worst relative error of ``dequantized()``."""
+    import torch
+    from deepspeed_tpu_torch.linear import (QuantizationConfig,
+                                            QuantizedParameter,
+                                            quantize_param_tree)
+    from deepspeed_tpu_torch.ops.fp_quantizer import _fmt
+    from deepspeed_tpu_torch.ops.kernels import fp_quantizer as kfq
+    gen = torch.Generator(device="cuda").manual_seed(seed + 21)
+    rows = [_fpq_case(torch, gen, sn, shape, fmt, dtype)
+            for sn, shape in FPQ_SHAPES for fmt in FPQ_FORMATS
+            for dtype in ("bfloat16", "float32")]
+    tree = _llama_jax_tree(torch, gen)
+    leaves = list(_tree_leaves(tree))
+    n_values = sum(t.numel() for t in leaves)
+    want = sum(t.dim() >= 2 for t in leaves)
+    trees = {}
+    for fmt, q_bits in (("fp6", 6), ("fp12", 12), ("fp8", 8)):
+        torch.cuda.synchronize()
+        kfq.quantize_fp_codes.launches = 0
+        t0 = time.perf_counter()
+        qt = quantize_param_tree(tree, QuantizationConfig(q_dtype="fp",
+                                                          q_bits=q_bits))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = kfq.quantize_fp_codes.launches
+        qleaves = list(_tree_leaves(qt))
+        resident = sum(
+            t.numel() * t.element_size() for leaf in qleaves
+            for t in ((leaf.q, leaf.scales)
+                      if isinstance(leaf, QuantizedParameter) else (leaf, )))
+        worst = 0.0
+        for x, qp in zip(leaves, qleaves):
+            if isinstance(qp, QuantizedParameter):
+                d = qp.dequantized()
+                worst = max(worst, ((d.float() - x.float()).abs().max()
+                                    / x.float().abs().max()).item())
+                del d
+        man = {6: 2, 12: 7, 8: 3}[q_bits]
+        _, _, max_unb, maxv = _fmt(q_bits, man)
+        top = 448.0 if q_bits == 8 else maxv     # e4m3fn stops at 448
+        # half the top binade's step over the grid max, plus the bf16
+        # rounding of the dequantized value
+        bound = 2.0 ** (max_unb - man - 1) / top + 2.0 ** -9
+        r = dict(launches=got, want=want if q_bits != 8 else 0, wall_s=wall,
+                 resident_bytes=resident,
+                 bytes_per_value=resident / n_values, worst_rel_err=worst,
+                 err_bound=bound)
+        log(f"[fp-quant] quantize_param_tree over Llama-2-7B's {len(leaves)}"
+            f"-leaf bf16 tree ({n_values:,} values) in {fmt}: {got} kernel "
+            f"launches for {want} leaves of 2+ dims, {wall:.3f} s, resident "
+            f"{resident / 2**30:.3f} GiB ({r['bytes_per_value']:.4f} B a "
+            f"value; bf16 2), worst max|dequantized - x| / max|x| over the "
+            f"leaves {worst:.4e} (bound {bound:.4e})")
+        if got != r["want"]:
+            raise AssertionError(f"{fmt}: {got} FP quantize launches, want "
+                                 f"{r['want']}")
+        if not worst <= bound:
+            raise AssertionError(f"{fmt}: dequantized error {worst} above "
+                                 f"{bound}")
+        trees[fmt] = r
+        del qt, qleaves
+        _free(torch)
+    del tree, leaves
+    _free(torch)
+    return dict(kernels=rows, trees=trees)
+
+
 # ------------------------------------------------------------------ main
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2462,6 +2840,12 @@ def main():
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
+        return 2
+    if os.environ.get("DS_TPU_DISABLE_PALLAS_ATTN"):
+        # the user's switch that turns the attention kernels off: the
+        # launch counts below would fail for a reason not the code's
+        print("chip_smoke: unset DS_TPU_DISABLE_PALLAS_ATTN, which turns "
+              "the attention kernels off", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
     t_start = time.perf_counter()
@@ -2485,6 +2869,9 @@ def main():
     moe_quant_step = stage_moe_quant_step_vs_plain(args.seed)
     evo_kernels = stage_evoformer_kernels(args.seed)
     evo = stage_evoformer(args.seed, smi, args.profile)
+    sparse_kernels = stage_sparse_kernels(args.seed)
+    sparse = stage_sparse_attention(args.seed, smi)
+    fpq = stage_fp_quant(args.seed, smi)
 
     entries = []
     for wrapper, case in (("paged_attention", "serve_decode"),
@@ -2623,6 +3010,38 @@ def main():
             library_ms=erow["library_ms_bwd"],
             library="SDPA backward with attn_mask grad (dq, dk, dv, dbias "
                     "together)"))
+    bsa = {r["case"]: r for r in sparse_kernels}
+    entry = dict(name="block_sparse_attention", route="cuda",
+                 source="deepspeed_tpu_torch/csrc/block_sparse_attention.cu",
+                 replaces=src + "block_sparse_attention.py:102",
+                 launches=sparse["launches"])
+    # case (a)'s numbers; (b)'s and (c)'s under suffixed keys; library_ms
+    # is SDPA with the dense boolean mask the layout expands to
+    for case, sfx in (("bigbird_base", ""), ("fixed_bert_large", "_fixed"),
+                      ("fixed_bert_large_causal", "_fixed_causal")):
+        r = bsa[case]
+        entry.update({f"max_abs_err{sfx}": r["err"], f"ms{sfx}": r["ms"],
+                      f"plain_ms{sfx}": r["plain_ms"],
+                      f"bound_ms{sfx}": r["bound_ms"],
+                      f"bound_by{sfx}": r["bound_by"],
+                      f"library_ms{sfx}": r["library_ms"]})
+    entries.append(entry)
+    fq = {r["case"]: r for r in fpq["kernels"]}
+    entry = dict(name="quantize_fp", route="cuda",
+                 source="deepspeed_tpu_torch/csrc/fp_quantizer.cu",
+                 replaces="deepspeed_tpu/ops/fp_quantizer.py:188",
+                 launches=fpq["trees"]["fp6"]["launches"],
+                 launches_fp12=fpq["trees"]["fp12"]["launches"])
+    # the MLP leaf [4096, 11008] in bf16: fp6, fp12 suffixed.  No PyTorch
+    # call computes this function: library_ms is null
+    for fmt, sfx in (("fp6", ""), ("fp12", "_fp12")):
+        r = fq[f"mlp_4096x11008_{fmt}_bfloat16"]
+        entry.update({f"max_abs_err{sfx}": float(r["err"]),
+                      f"ms{sfx}": r["ms"], f"plain_ms{sfx}": r["plain_ms"],
+                      f"bound_ms{sfx}": r["bound_ms"],
+                      f"bound_by{sfx}": r["bound_by"],
+                      f"library_ms{sfx}": None})
+    entries.append(entry)
     if args.json:
         with open(args.json, "w") as f:
             json.dump(dict(card=smi, kernels=kernels, serve=serve,
@@ -2634,6 +3053,8 @@ def main():
                            mixtral=mixtral, quant=quant,
                            moe_quant_step=moe_quant_step,
                            evo_kernels=evo_kernels, evoformer=evo,
+                           sparse_kernels=sparse_kernels, sparse=sparse,
+                           fp_quant=fpq,
                            seconds=time.perf_counter() - t_start),
                       f, indent=1, default=str)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

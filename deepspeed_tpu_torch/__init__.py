@@ -7,11 +7,16 @@ kernel on a ported path is a kernel written by hand for ``sm_90a`` under
 ``csrc/``, built with nvcc at first use.  Entry points run on the CUDA card
 unless the caller passes ``device="cpu"``.
 
-Ported so far: FastGen-v2 serving of the Llama family
-(``inference.v2.build_hf_engine``, with the paged-attention kernel) and
+Ported so far: FastGen-v2 serving of the Llama family and Mixtral
+(``inference.v2.build_hf_engine``, with the paged-attention and
+grouped-matmul kernels; int8/int4 weights with the blockwise quantizer);
 training of Llama and GPT-2 through :func:`initialize` at ZeRO stage 0, in
 bf16, fp16 (dynamic loss scaling) or fp32 (with the flash-attention,
-fused-Adam, LAMB and Lion kernels).
+fused-Adam, LAMB and Lion kernels); Evoformer attention (the bias flash
+kernels); block-sparse attention (``ops.sparse_attention``, the
+block-sparse kernel); FP6/FP12 weight quantization (``ops.fp_quantizer``,
+``linear``, the FP grid quantize kernel).  Every Pallas kernel of the JAX
+package has its counterpart here.
 """
 
 __version__ = "0.1.0"

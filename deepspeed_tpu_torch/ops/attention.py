@@ -2,14 +2,17 @@
 entry point the models call.
 
 On CUDA tensors it is the flash-attention kernels (B1,
-``ops/kernels/flash_attention.py``); on CPU tensors it is
-:func:`_xla_attention`, as the JAX package runs its XLA path off the TPU.
-The JAX dispatcher's ``try/except`` fallback to XLA attention is not
-carried over: a kernel that fails to build or launch raises.
+``ops/kernels/flash_attention.py``); on CPU tensors, or on any device with
+``DS_TPU_DISABLE_PALLAS_ATTN`` set (``ops/_use_kernels.py``), it is
+:func:`_xla_attention`, as the JAX package runs its XLA path off the TPU
+or under that switch.  The JAX dispatcher's ``try/except`` fallback to XLA
+attention is not carried over: a kernel that fails to build or launch
+raises.
 """
 
 import torch
 
+from ._use_kernels import use_kernels
 from .kernels.flash_attention import flash_attention, flash_attention_plain
 
 
@@ -52,6 +55,6 @@ def attention_core(q, k, v, causal=True, softmax_scale=None, window=0,
               alibi_slopes=alibi_slopes)
     if not use_kernel:
         return flash_attention_plain(q, k, v, **kw)
-    if q.device.type == "cuda":
+    if use_kernels(q):
         return flash_attention(q, k, v, **kw)
     return _xla_attention(q, k, v, **kw)

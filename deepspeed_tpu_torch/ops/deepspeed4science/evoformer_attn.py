@@ -17,8 +17,10 @@ Two paths, chosen by shape as in the JAX package:
   bias's gradient reduced over the N rows inside the kernel), on the CPU
   their plain versions, so the CPU computes what the card computes.  The
   MASK bias gets no gradient on this route.  ``DS_TPU_EVOFORMER_FLASH=0``
-  sends such a call to the chunked path instead (to train a mask bias);
-  a kernel that fails raises, it never falls back;
+  or ``DS_TPU_DISABLE_PALLAS_ATTN`` (the switch of every attention site,
+  ``ops/_use_kernels.py``) sends such a call to the chunked path instead
+  (to train a mask bias); a kernel that fails raises, it never falls
+  back;
 * every other call (no pair bias, e.g. MSA column attention) takes
   :func:`evoformer_attention`: plain PyTorch in query blocks of 256, each
   under ``torch.utils.checkpoint`` (the JAX path's ``jax.checkpoint``), so
@@ -32,6 +34,7 @@ import os
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from .._use_kernels import kernels_disabled
 from ..kernels.flash_bias import flash_attention_bias
 
 
@@ -84,10 +87,11 @@ def _flash_bias_route(Q, K, V, bs):
     ``[B·N, 1, 1, L]``.
 
     Returns None when the route does not apply: no pair bias, a bias of
-    another shape, or ``DS_TPU_EVOFORMER_FLASH=0``.  On this route the
-    MASK bias gets no gradient.
+    another shape, ``DS_TPU_EVOFORMER_FLASH=0`` or
+    ``DS_TPU_DISABLE_PALLAS_ATTN`` set.  On this route the MASK bias gets
+    no gradient.
     """
-    if os.environ.get("DS_TPU_EVOFORMER_FLASH") == "0":
+    if os.environ.get("DS_TPU_EVOFORMER_FLASH") == "0" or kernels_disabled():
         return None
     B, N, L, H, D = Q.shape
     mask_bias = pair_bias = None

@@ -26,6 +26,9 @@ import torch
 from ..op_builder import FlashAttentionBuilder
 
 DEAD_ROW_LSE = -1e30     # lse of a row that sees no key (finite sentinel)
+# JAX's tile defaults (flash_attention.py:32-33), kept for its signature
+DEFAULT_BLOCK_Q = 512
+DEFAULT_BLOCK_K = 512
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
@@ -116,9 +119,11 @@ def _slopes_f32(alibi_slopes, Hq, device):
         device=device, dtype=torch.float32).reshape(Hq).contiguous()
 
 
-def flash_attention_plain(q, k, v, causal=True, softmax_scale=None, window=0,
-                          alibi_slopes=None):
-    """The kernels' function in plain PyTorch, differentiable in q, k, v.
+def flash_attention_plain(q, k, v, causal=True, softmax_scale=None,
+                          block_q=DEFAULT_BLOCK_Q, block_k=DEFAULT_BLOCK_K,
+                          window=0, alibi_slopes=None):
+    """The kernels' function in plain PyTorch, differentiable in q, k, v,
+    with :func:`flash_attention`'s signature.
     q: [B, sq, Hq, D]; k, v: [B, sk, Hkv, D] → [B, sq, Hq, D] in q's dtype.
 
     Forward and backward follow the three kernels step by step: fp32
@@ -126,11 +131,23 @@ def flash_attention_plain(q, k, v, causal=True, softmax_scale=None, window=0,
     recomputes P from the saved lse and takes delta from o as stored.  A row
     that sees no key is 0 (``_xla_attention`` gives it a uniform softmax)
     and gets no gradient.  ALiBi slopes get no gradient."""
+    check_tiles(block_q, block_k)
     scale = (float(softmax_scale) if softmax_scale is not None
              else q.shape[-1]**-0.5)
     return FlashAttentionFunction.apply(
         q, k, v, _slopes_f32(alibi_slopes, q.shape[2], q.device),
         bool(causal), scale, int(window), False)
+
+
+def check_tiles(block_q, block_k):
+    """JAX's ``block_q``/``block_k`` tile sizes: positive ints or None.  The
+    card's kernels use tiles of their own, so the values do not change the
+    result."""
+    for name, b in (("block_q", block_q), ("block_k", block_k)):
+        if b is not None and (isinstance(b, bool) or not isinstance(b, int)
+                              or b <= 0):
+            raise ValueError(f"{name} must be a positive int or None, got "
+                             f"{b!r}")
 
 
 def _check(q, k, v, causal, window, alibi_slopes):
@@ -278,16 +295,24 @@ class FlashAttentionFunction(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None
 
 
-def flash_attention(q, k, v, causal=True, softmax_scale=None, window=0,
-                    alibi_slopes=None):
+def flash_attention(q, k, v, causal=True, softmax_scale=None,
+                    block_q=DEFAULT_BLOCK_Q, block_k=DEFAULT_BLOCK_K,
+                    window=0, alibi_slopes=None):
     """[B, S, H, D] flash attention with GQA (Hkv | Hq), differentiable in
-    q, k and v.  ``window`` > 0 keeps each query's last ``window`` keys
-    (needs ``causal``).  CPU tensors: the plain version; CUDA tensors: the
-    kernels (bf16, fp16 or fp32, head_dim <= 128, contiguous)."""
+    q, k and v, with the JAX function's signature.  ``window`` > 0 keeps
+    each query's last ``window`` keys (needs ``causal``).  ``block_q`` and
+    ``block_k`` are the TPU kernel's tile sizes: they are checked (positive
+    ints or None), but the card's kernels use tiles of their own, so they
+    do not change the result.  CPU tensors: the plain version; CUDA
+    tensors: the kernels (bf16, fp16 or fp32, head_dim <= 128,
+    contiguous)."""
+    check_tiles(block_q, block_k)
     device = _check(q, k, v, causal, window, alibi_slopes)
     if device == "cpu":
-        return flash_attention_plain(q, k, v, causal, softmax_scale, window,
-                                     alibi_slopes)
+        return flash_attention_plain(q, k, v, causal=causal,
+                                     softmax_scale=softmax_scale,
+                                     window=window,
+                                     alibi_slopes=alibi_slopes)
     if device != "cuda":
         raise ValueError(f"flash attention runs on cpu or cuda, not {device}")
     scale = (float(softmax_scale) if softmax_scale is not None

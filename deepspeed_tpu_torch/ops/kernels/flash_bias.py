@@ -35,8 +35,12 @@ kernel launches.
 import torch
 
 from ..op_builder import FlashBiasBuilder
+from .flash_attention import check_tiles
 
 DEAD_ROW_LSE = -1e30     # lse of a row that sees no key (finite sentinel)
+# JAX's tile defaults (flash_bias.py:43-44), kept for its signature
+DEFAULT_BLOCK_Q = 256
+DEFAULT_BLOCK_K = 256
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
@@ -325,24 +329,32 @@ def _args(q, k, v, bias, mask_bias, causal, softmax_scale):
 
 
 def flash_attention_bias_plain(q, k, v, bias, mask_bias=None, causal=False,
-                               softmax_scale=None):
+                               softmax_scale=None, block_q=DEFAULT_BLOCK_Q,
+                               block_k=DEFAULT_BLOCK_K):
     """The kernels' function in plain PyTorch, differentiable in q, k, v
-    and bias: materialized fp32 scores, each kernel's plain version step
-    by step (the backward recomputes P from the saved lse and takes delta
-    from o as stored).  The mask is detached."""
+    and bias, with :func:`flash_attention_bias`'s signature: materialized
+    fp32 scores, each kernel's plain version step by step (the backward
+    recomputes P from the saved lse and takes delta from o as stored).
+    The mask is detached."""
+    check_tiles(block_q, block_k)
     _check(q, k, v, bias, mask_bias)
     return FlashBiasFunction.apply(
         *_args(q, k, v, bias, mask_bias, causal, softmax_scale), False)
 
 
 def flash_attention_bias(q, k, v, bias, mask_bias=None, causal=False,
-                         softmax_scale=None):
+                         softmax_scale=None, block_q=DEFAULT_BLOCK_Q,
+                         block_k=DEFAULT_BLOCK_K):
     """[B, S, H, D] flash attention with a trainable additive bias
     [Bb, Hb, Sq, Sk] (Bb | B, Hb | H, contiguous broadcast groups) and an
-    optional additive mask [Bm, 1, 1, Sk] without gradient.
-    Differentiable in q, k, v and bias; dbias comes back at the bias's own
-    shape and dtype.  CPU tensors: the plain version; CUDA tensors: the
+    optional additive mask [Bm, 1, 1, Sk] without gradient, with the JAX
+    function's signature.  Differentiable in q, k, v and bias; dbias comes
+    back at the bias's own shape and dtype.  ``block_q`` and ``block_k``
+    are the TPU kernel's tile sizes: they are checked (positive ints or
+    None), but the card's kernels use tiles of their own, so they do not
+    change the result.  CPU tensors: the plain version; CUDA tensors: the
     kernels (bf16, fp16 or fp32, head_dim <= 128, contiguous)."""
+    check_tiles(block_q, block_k)
     device = _check(q, k, v, bias, mask_bias)
     if device not in ("cpu", "cuda"):
         raise ValueError(f"flash bias attention runs on cpu or cuda, not "

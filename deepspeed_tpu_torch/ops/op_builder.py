@@ -238,9 +238,46 @@ class FlashBiasBuilder(CUDAOpBuilder):
         lib.ds_cuda_error_string.restype = ctypes.c_char_p
 
 
+class BlockSparseAttentionBuilder(CUDAOpBuilder):
+    NAME = "block_sparse_attention"
+    SOURCE = os.path.join("csrc", "block_sparse_attention.cu")
+
+    def bind(self, lib):
+        p, i, f, n = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+            ctypes.c_longlong
+        lib.ds_block_sparse_attention_fwd.argtypes = [
+            p, p, p, p, p, p,           # q, k, v, o, idx, cnt
+            i, i, i, i, i, i, i,        # B, S, H, D, block, nq, maxk
+            n, n, n, n, n, n, n, n, n,  # q, k, v strides of b, s, h
+            f, i, i, p]                 # scale, causal, dtype code, stream
+        lib.ds_block_sparse_attention_fwd.restype = i
+        lib.ds_block_sparse_attention_smem_bytes.argtypes = [i, i]
+        lib.ds_block_sparse_attention_smem_bytes.restype = i
+        lib.ds_cuda_error_string.argtypes = [i]
+        lib.ds_cuda_error_string.restype = ctypes.c_char_p
+
+
+class FPQuantizerBuilder(CUDAOpBuilder):
+    NAME = "fp_quantizer"
+    SOURCE = os.path.join("csrc", "fp_quantizer.cu")
+
+    def bind(self, lib):
+        p, i, f, n = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+            ctypes.c_longlong
+        lib.ds_quantize_fp.argtypes = [
+            p, i, p, p,                 # x, dtype code, codes, scales
+            n, n, i,                    # n, groups, group size
+            i, i, f, p]                 # q_bits, mantissa bits, maxv, stream
+        lib.ds_quantize_fp.restype = i
+        lib.ds_cuda_error_string.argtypes = [i]
+        lib.ds_cuda_error_string.restype = ctypes.c_char_p
+
+
 ALL_OPS = {b.NAME: b for b in (PagedAttentionBuilder, FlashAttentionBuilder,
                                OptimizersBuilder, GroupedMatmulBuilder,
-                               QuantizerBuilder, FlashBiasBuilder)}
+                               QuantizerBuilder, FlashBiasBuilder,
+                               BlockSparseAttentionBuilder,
+                               FPQuantizerBuilder)}
 
 
 def build_all():

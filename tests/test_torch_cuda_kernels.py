@@ -2,7 +2,9 @@
 attention (B4), flash attention forward and backward (B1, fp32, bf16 and
 fp16), the fused Adam step (B2), the two LAMB phases (B3), the Lion step
 (B8), the grouped matmul (B7), blockwise quantize/dequantize (B5) and
-the bias-operand flash attention's forward, dq, dk/dv and dbias (B10).
+the bias-operand flash attention's forward, dq, dk/dv and dbias (B10),
+the block-sparse attention forward (B9) and the FP6/FP12 grid quantizer
+(B6).
 
 Marked ``cuda``: each test asks for the ``card`` fixture, which skips when
 torch sees no CUDA device.  The file imports neither JAX nor the JAX
@@ -27,7 +29,10 @@ sum in fp32 and round once).  Quantize and dequantize: bit for bit (the
 same fp32 operations, a true division and round half to even).  Flash
 bias: o, dq, dk, dv as flash attention's; lse, delta and the fp32 dbias
 1e-4 + 1e-5·|ref| (fp32 sums in another order); dbias bit for bit across
-two runs (a fixed summation order).
+two runs (a fixed summation order).  Block-sparse attention: as flash
+attention's (fp32 sums in another order: 64 keys a pass where the plain
+version takes one layout block a step).  FP quantizer: codes and scales
+bit for bit.
 """
 
 import pytest
@@ -582,3 +587,174 @@ def test_flash_bias_wrapper_rejects_what_the_kernels_do_not_take(card):
                           0.1)
     with pytest.raises(ValueError, match="CUDA tensors"):
         fb.flash_bias_fwd(q.cpu(), q.cpu(), q.cpu(), bias.cpu(), None, 0.1)
+
+
+# ------------------------------------------------- B9 block-sparse attention
+def _bsa_layout(H, nb, causal, seed):
+    """Per-head random layouts, about half the blocks live, with key block
+    0 live in every row but row 1 of head 0, which has no live block."""
+    g = torch.Generator().manual_seed(seed)
+    layout = torch.rand(H, nb, nb, generator=g) < 0.5
+    layout[:, :, 0] = True
+    if causal:
+        layout &= torch.tril(torch.ones(nb, nb, dtype=torch.bool))
+    layout[0, 1, :] = False
+    return layout.numpy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16],
+                         ids=["fp32", "bf16", "fp16"])
+@pytest.mark.parametrize("causal", [False, True], ids=["bidir", "causal"])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("block", [16, 32, 64, 128])
+def test_block_sparse_kernel_matches_plain(card, block, D, causal, dtype):
+    """One launch against the plain version on the same inputs, per-head
+    layouts with an empty row (which must give 0); the [B, H, S, D]
+    entry's transposed views without a copy give the same bits as
+    contiguous inputs."""
+    from deepspeed_tpu_torch.ops.kernels import block_sparse_attention as bs
+    B, H, nb = 2, 3, 5
+    S = nb * block
+    layout = _bsa_layout(H, nb, causal, block + D)
+    g = torch.Generator().manual_seed(D)
+    q, k, v = (torch.randn(B, H, S, D, generator=g).to(card, dtype)
+               .transpose(1, 2) for _ in range(3))         # strided views
+    before = bs.block_sparse_attention_fwd.launches
+    o = bs.block_sparse_attention_fwd(q, k, v, layout, block, causal=causal)
+    again = bs.block_sparse_attention_fwd(
+        *(t.contiguous() for t in (q, k, v)), layout, block, causal=causal)
+    ref = bs.block_sparse_attention_plain(q, k, v, layout, block,
+                                          causal=causal)
+    torch.cuda.synchronize()
+    assert bs.block_sparse_attention_fwd.launches == before + 2
+    assert o.dtype == dtype and o.shape == (B, S, H, D) and o.is_contiguous()
+    assert torch.isfinite(o).all() and torch.equal(o, again)
+    over = (o.float() - ref.float()).abs() / _tol(dtype, ref.float())
+    assert over.max().item() <= 1.0, over.max().item()
+    assert not o[:, block:2 * block, 0].any()             # the empty row
+
+
+@pytest.mark.cuda
+def test_block_sparse_autograd_and_dispatch(card, monkeypatch):
+    """A CUDA tensor never reaches the plain version: one kernel launch per
+    forward; the backward is the gather formulation's autograd (no kernel
+    launch), equal to its gradients; ``SparseSelfAttention`` takes the
+    kernel on CUDA tensors, and the gather formulation under
+    ``DS_TPU_DISABLE_PALLAS_ATTN``."""
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+    from deepspeed_tpu_torch.ops.kernels import block_sparse_attention as bs
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(bs, "block_sparse_attention_plain", refuse)
+    cfg = sa.BigBirdSparsityConfig(num_heads=4, block=64,
+                                   num_random_blocks=2)
+    layout = cfg.make_layout(512)
+    g = torch.Generator().manual_seed(3)
+    q, k, v, do = (torch.randn(2, 512, 4, 64, generator=g).to(card)
+                   for _ in range(4))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = bs.block_sparse_attention_fwd.launches
+    out = bs.block_sparse_flash_attention(*leaves, layout, 64)
+    out.backward(do)
+    assert bs.block_sparse_attention_fwd.launches == before + 1
+    ref = sa.sparse_attention(*ref_leaves, layout, 64)
+    ref.backward(do)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() <= 1e-4
+    # the same autograd graph; the gather's backward sums with atomics,
+    # in an order that may change between runs
+    for a, b in zip(leaves, ref_leaves):
+        assert ((a.grad - b.grad).abs() <= 1e-5 + 1e-5 * b.grad.abs()).all()
+    attn = sa.SparseSelfAttention(cfg)
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))    # [B, H, S, D]
+    before = bs.block_sparse_attention_fwd.launches
+    o = attn(qh, kh, vh)
+    assert bs.block_sparse_attention_fwd.launches == before + 1
+    monkeypatch.setenv("DS_TPU_DISABLE_PALLAS_ATTN", "1")
+    o_gather = attn(qh, kh, vh)
+    assert bs.block_sparse_attention_fwd.launches == before + 1
+    torch.cuda.synchronize()
+    assert (o - o_gather).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_block_sparse_wrapper_rejects_what_the_kernel_does_not_take(card):
+    from deepspeed_tpu_torch.ops.kernels import block_sparse_attention as bs
+    layout = _bsa_layout(2, 4, False, 0)
+    q = torch.randn(1, 32, 2, 16, device=card)
+    with pytest.raises(ValueError, match="layout blocks"):
+        bs.block_sparse_flash_attention(q, q, q, layout, 8)
+    wide = torch.randn(1, 64, 2, 160, device=card)
+    with pytest.raises(ValueError, match="head_dim"):
+        bs.block_sparse_flash_attention(wide, wide, wide, layout, 16)
+    x = torch.randn(1, 64, 2, 16, device=card)
+    with pytest.raises(TypeError, match="bf16, fp16 or fp32"):
+        bs.block_sparse_flash_attention(x.double(), x.double(), x.double(),
+                                        layout, 16)
+    with pytest.raises(ValueError, match="layout must be"):
+        bs.block_sparse_flash_attention(x, x, x, layout[:, :2], 16)
+
+
+# ------------------------------------------------------ B6 FP quantization
+def _fpq_input(card, dtype, offset):
+    """[37, 300] (a partial last group, padded groups) with groups of each
+    kind at group size 128: random; all zero; a subnormal-range group (one
+    large value, the rest 1e-4 of it, down in the format's subnormals);
+    and exact grid ties and values that round past the grid's max."""
+    g = torch.Generator().manual_seed(offset)
+    x = torch.randn(37 * 300 + offset, generator=g) * 3
+    v = x[offset:]
+    v[128:256] = 0
+    v[256:384] *= 1e-4
+    v[256] = 50.0
+    v[384:512] = torch.linspace(-28.0, 28.0, 128)
+    v[384:392] = torch.tensor([28.0, 27.99, -27.99, 0.5, 1.5, 2.5, -0.5,
+                               13.0])
+    return x.to(card, dtype)[offset:].view(37, 300)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16],
+                         ids=["fp32", "bf16", "fp16"])
+@pytest.mark.parametrize("q_bits,man", [(6, 2), (12, 7)])
+@pytest.mark.parametrize("group_size", [128, 512])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "misaligned"])
+def test_fp_quantizer_kernel_matches_plain(card, dtype, q_bits, man,
+                                           group_size, offset):
+    """Codes and scales bit for bit (the same fp32 operations: true
+    divisions, exact powers of two, round half to even); the packed bytes
+    of ``quantize_fp`` too; one launch."""
+    from deepspeed_tpu_torch.ops import fp_quantizer as fq
+    from deepspeed_tpu_torch.ops.kernels import fp_quantizer as kfq
+    x = _fpq_input(card, dtype, offset)
+    before = kfq.quantize_fp_codes.launches
+    codes, scales = kfq.quantize_fp_codes(x, q_bits, man, group_size)
+    ref_codes, ref_scales = kfq.quantize_fp_codes_plain(x, q_bits, man,
+                                                        group_size)
+    torch.cuda.synchronize()
+    assert kfq.quantize_fp_codes.launches == before + 1
+    assert codes.dtype == ref_codes.dtype == kfq.code_dtype(q_bits)
+    assert torch.equal(codes, ref_codes) and torch.equal(scales, ref_scales)
+    packed, s, meta = fq.quantize_fp(x, q_bits, man, group_size)
+    assert torch.equal(packed, fq.pack_codes(ref_codes.reshape(-1), q_bits))
+    back = fq.dequantize_fp(packed, s, meta)
+    assert back.dtype == dtype and back.shape == x.shape
+    assert torch.isfinite(back).all()
+
+
+@pytest.mark.cuda
+def test_fp_quantizer_fp8_launches_nothing(card):
+    from deepspeed_tpu_torch.ops import fp_quantizer as fq
+    from deepspeed_tpu_torch.ops.kernels import fp_quantizer as kfq
+    x = torch.randn(1000, device=card)
+    before = kfq.quantize_fp_codes.launches
+    packed, s, meta = fq.quantize_fp(x, 8, 3, 128)
+    assert kfq.quantize_fp_codes.launches == before
+    cpu = fq.quantize_fp(x.cpu(), 8, 3, 128)
+    assert torch.equal(packed.cpu(), cpu[0]) and torch.equal(s.cpu(), cpu[1])

@@ -7,8 +7,9 @@ inputs: outputs and the gradients to Q, K, V and both biases.
   takes the same route on its own (the kernels' plain versions on the
   CPU).  On this route the mask bias gets no gradient: zeros from JAX,
   none from the port.
-- Without a pair bias, or with ``DS_TPU_EVOFORMER_FLASH=0``, both take the
-  chunked path, which differentiates the mask bias too.
+- Without a pair bias, with ``DS_TPU_EVOFORMER_FLASH=0``, or with
+  ``DS_TPU_DISABLE_PALLAS_ATTN`` set, both take the chunked path, which
+  differentiates the mask bias too.
 
 Tolerances: fp32 outputs 2e-5 and gradients 5e-5 absolute, 5e-4 relative
 (the same fp32 arithmetic in another order; the route's gradients are held
@@ -127,6 +128,27 @@ def test_switch_off_takes_chunked_path_with_mask_gradient(monkeypatch):
     q, k, v, do, biases = _make(1, 2, 40, 2, 8, seed=3)
     want = _jax(lambda q, k, v, bs: jax_evoformer(q, k, v, bs, block_q=16),
                 q, k, v, do, biases)
+    got = _port(DS4Sci_EvoformerAttention, q, k, v, do, biases)
+    _assert_close(got, want, ("dQ", "dK", "dV", "dMask", "dPair"), OUT_TOL,
+                  GRAD_TOL)
+    assert np.abs(got[4]).max() > 0       # the mask bias is trained
+
+
+def test_kernel_switch_takes_chunked_path_as_jax(monkeypatch):
+    """``DS_TPU_DISABLE_PALLAS_ATTN``, the switch of every attention site,
+    sends a pair-biased call to the chunked path in both packages, even
+    with JAX's route forced (``DS_TPU_EVOFORMER_FLASH=1``): outputs and
+    gradients against JAX's chunked path, the mask bias's included, which
+    the kernel route leaves at zero."""
+    monkeypatch.setenv("DS_TPU_DISABLE_PALLAS_ATTN", "1")
+    monkeypatch.setenv("DS_TPU_EVOFORMER_FLASH", "1")
+
+    def refuse(*args):
+        raise AssertionError("the bias kernels' route was taken")
+
+    monkeypatch.setattr(port_fb.FlashBiasFunction, "apply", refuse)
+    q, k, v, do, biases = _make(1, 2, 40, 2, 8, seed=4)
+    want = _jax(jax_ds4sci, q, k, v, do, biases)
     got = _port(DS4Sci_EvoformerAttention, q, k, v, do, biases)
     _assert_close(got, want, ("dQ", "dK", "dV", "dMask", "dPair"), OUT_TOL,
                   GRAD_TOL)

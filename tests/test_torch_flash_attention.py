@@ -15,8 +15,10 @@ import pytest
 import torch
 
 from deepspeed_tpu.ops.attention import _xla_attention as jax_xla_attention
+from deepspeed_tpu.ops.attention import attention_core as jax_attention_core
 from deepspeed_tpu.ops.pallas.flash_attention import \
     flash_attention as pallas_flash
+from deepspeed_tpu_torch.ops import _use_kernels
 from deepspeed_tpu_torch.ops import attention as port_attention
 from deepspeed_tpu_torch.ops.kernels import flash_attention as port_fa
 
@@ -126,3 +128,37 @@ def test_attention_core_dispatch_on_cpu():
     torch.testing.assert_close(plain, xla, **TOL)
     with pytest.raises(ValueError, match="causal"):
         port_attention.attention_core(qt, kt, vt, causal=False, window=4)
+
+
+@pytest.mark.parametrize("kw", [dict(causal=True),
+                                dict(causal=True, window=24),
+                                dict(causal=True, alibi_slopes=[0.5, 0.25])],
+                         ids=["causal", "window", "alibi"])
+def test_attention_core_under_the_kernel_switch_matches_jax(monkeypatch, kw):
+    """``DS_TPU_DISABLE_PALLAS_ATTN`` shuts the gate for CUDA tensors too,
+    and ``attention_core`` then computes JAX's XLA path (which JAX takes
+    under the same switch even with ``DS_TPU_FORCE_PALLAS=1``): outputs
+    and gradients.  The XLA path rounds the probabilities to q's dtype
+    before P·V; the kernels do not, so the two are different functions in
+    bf16."""
+    class CudaLike:
+        device = torch.device("cuda")
+
+    assert _use_kernels.use_kernels(CudaLike())
+    monkeypatch.setenv("DS_TPU_DISABLE_PALLAS_ATTN", "1")
+    monkeypatch.setenv("DS_TPU_FORCE_PALLAS", "1")
+    assert not _use_kernels.use_kernels(CudaLike())
+    q, k, v, do = _inputs(13, 2, 48, 48, 2, 2, 16)
+    jkw = dict(kw)
+    if "alibi_slopes" in kw:
+        jkw["alibi_slopes"] = jnp.asarray(kw["alibi_slopes"], jnp.float32)
+        kw = dict(kw, alibi_slopes=torch.tensor(kw["alibi_slopes"]))
+    o, vjp = jax.vjp(lambda q, k, v: jax_attention_core(q, k, v, **jkw),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = [np.asarray(x) for x in (o, *vjp(jnp.asarray(do)))]
+    qt, kt, vt = (torch.tensor(x, requires_grad=True) for x in (q, k, v))
+    out = port_attention.attention_core(qt, kt, vt, **kw)
+    out.backward(torch.from_numpy(do))
+    got = [x.detach().numpy() for x in (out, qt.grad, kt.grad, vt.grad)]
+    for name, g, w in zip(("o", "dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g, w, err_msg=name, **TOL)

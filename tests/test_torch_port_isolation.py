@@ -44,7 +44,13 @@ def test_import_loads_no_jax():
                  "ops.kernels.quantizer", "ops.quantizer",
                  "inference.config", "inference.quant_serving",
                  "ops.kernels.flash_bias",
-                 "ops.deepspeed4science.evoformer_attn"):
+                 "ops.deepspeed4science.evoformer_attn", "ops._use_kernels",
+                 "ops.sparse_attention.sparsity_config",
+                 "ops.sparse_attention.sparse_self_attention",
+                 "ops.kernels.block_sparse_attention", "ops.fp_quantizer",
+                 "ops.kernels.fp_quantizer", "compression.quantizers",
+                 "linear.config", "linear.quantization",
+                 "linear.optimized_linear"):
         assert f"deepspeed_tpu_torch.{name}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
