@@ -7,7 +7,10 @@ Stages, run in the order 1-21; any failure exits non-zero:
 
 1. environment: torch/CUDA/nvcc versions, the card's name and power limit;
 2. build: every ``deepspeed_tpu_torch/csrc/*.cu`` with nvcc for sm_90a
-   (one nvcc per source, started together), with ``ptxas -v``;
+   (one nvcc per source, started together), with ``ptxas -v``; for each
+   of the twelve tensor-core flash kernels (forward, dq, dk/dv × bf16,
+   fp16 × head dim 64, 128) its registers, spill bytes, stack and
+   dynamic shared memory on a line of its own;
 3. each kernel against its plain PyTorch version in bf16 at the shapes
    stage 4 gives it (16 decode rows; 47 atom-16 tiles), and at Llama-2-7B
    (H=Hkv=32, Dh=128, block 128) and Mistral-7B GQA (H=32, Hkv=8, window
@@ -28,10 +31,15 @@ Stages, run in the order 1-21; any failure exits non-zero:
    forward, dq and dk/dv kernels (each on the same inputs as its plain
    version) in bf16 at the training shapes [4, 2048, 32, 128] causal, with
    GQA 32/8 and a 1024 window, with sq < sk, and in fp32 at a smaller
-   size; the fused Adam step over the flat buffer of the 8-layer
-   Llama-2-7B-width model's leaves; times of each kernel, its plain
-   version, a library call (``scaled_dot_product_attention``,
-   ``torch.optim.AdamW(fused=True)``) and the bound;
+   size; each flash kernel run twice on the same inputs, every output
+   (o, lse, dq, delta, dk, dv) bit-equal; the fused Adam step over the
+   flat buffer of the 8-layer Llama-2-7B-width model's leaves; times of
+   each kernel, its plain version, a library call
+   (``scaled_dot_product_attention``, ``torch.optim.AdamW(fused=True)``)
+   and the bound; each flash kernel's achieved TFLOP/s (useful products
+   over the live pairs) and share of the bound, and its count of HMMA
+   (tensor-core) and FFMA instructions in ``cuobjdump -sass`` of the built
+   library (no HMMA, or no cuobjdump beside nvcc, fails the stage);
 8. training at full width: Llama-2-7B width, 8 layers, bf16, random
    weights from ``initialize_parameters(seed)``, through
    ``deepspeed_tpu_torch.initialize`` with bench.py's config (micro batch
@@ -47,9 +55,10 @@ Stages, run in the order 1-21; any failure exits non-zero:
     elements, 388 leaves) with fp32 and fp16 gradients (m, v, u and Lion's
     outputs bit for bit, LAMB's per-leaf sums and ratios within 1e-5, two
     runs of phase 1 bit-identical), flash attention in fp16 at GPT-2's
-    [8, 1024, 16, 64] causal and at a GQA/window case, the Adam step with
-    an fp16 gradient and copy; times of each kernel, its plain version, a
-    library call where there is one, and the bound;
+    [8, 1024, 16, 64] causal and at a GQA/window case (bit-equal over two
+    runs, TFLOP/s, share of the bound and SASS as in stage 7), the Adam
+    step with an fp16 gradient and copy; times of each kernel, its plain
+    version, a library call where there is one, and the bound;
 11. GPT-2 350M training at full width and depth through ``initialize()``:
     fp16 with dynamic loss scaling (``initial_scale_power`` 16), remat,
     B=8, S=1024, ZeRO 0 (bench.py's stage 1 needs the comm layer, not
@@ -143,6 +152,7 @@ import argparse
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -236,11 +246,26 @@ def stage_build():
                     for code, dt in ((0, "fp32"), (1, "bf16"))
                     for dh in (64, 128) for rm in (1, 4, 16)))
     from deepspeed_tpu_torch.ops.op_builder import FlashAttentionBuilder
+    from deepspeed_tpu_torch.ops.kernels.flash_attention import (
+        FP32_ROUTE_PASS)
     flib = FlashAttentionBuilder().load()
-    log("[build]   flash_attention dynamic shared memory per block (bytes): "
-        + ", ".join(f"{name}/D{d} {flib.ds_flash_smem_bytes(i, d)}"
-                    for i, name in enumerate(("fwd", "dq", "dkv"))
-                    for d in (64, 128)))
+    log("[build]   flash_attention fp32 route, dynamic shared memory per "
+        "block (bytes): " + ", ".join(
+            f"{name}/D{d} {flib.ds_flash_smem_bytes(FP32_ROUTE_PASS + i, d)}"
+            for i, name in enumerate(("fwd", "dq", "dkv"))
+            for d in (64, 128)))
+    usage = _ptxas_usage(results["flash_attention"][1])
+    for (kernel, dtype, dp), u in sorted(usage.items()):
+        smem = flib.ds_flash_smem_bytes(("fwd", "dq", "dkv").index(kernel),
+                                        dp)
+        log(f"[build]   flash_attention tensor-core {kernel} {dtype} D{dp}: "
+            f"{u.get('registers', '?')} registers, "
+            f"{u.get('spill_stores', '?')} B spill stores, "
+            f"{u.get('spill_loads', '?')} B spill loads, "
+            f"{u.get('stack', '?')} B stack, {smem} B dynamic shared memory")
+    if len(usage) != 12:
+        raise AssertionError(f"ptxas -v reported {len(usage)} of the 12 "
+                             f"tensor-core flash kernels")
     from deepspeed_tpu_torch.ops.op_builder import FlashBiasBuilder
     blib = FlashBiasBuilder().load()
     log("[build]   flash_bias dynamic shared memory per block (bytes): "
@@ -752,6 +777,69 @@ def stage_hf_dir(seed):
 
 
 # ---------------------------------------------------------------- stage 7
+_FLASH_MMA = re.compile(r"flash_(fwd|bwd_dq|bwd_dkv)_mma_kernelI"
+                        r"(13__nv_bfloat16|6__half)Li(64|128)E")
+
+
+def _flash_mma_key(symbol):
+    """(kernel, dtype, padded D) of a tensor-core flash kernel's mangled
+    name, else None."""
+    m = _FLASH_MMA.search(symbol)
+    if not m:
+        return None
+    kernel = {"fwd": "fwd", "bwd_dq": "dq", "bwd_dkv": "dkv"}[m.group(1)]
+    return (kernel, "bf16" if "bfloat16" in m.group(2) else "fp16",
+            int(m.group(3)))
+
+
+def _ptxas_usage(out):
+    """{(kernel, dtype, D): {registers, spill_stores, spill_loads, stack}}
+    of the tensor-core flash kernels, from nvcc's ``-Xptxas -v`` output."""
+    usage, key = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            key = _flash_mma_key(m.group(1))
+            if key:
+                usage[key] = {}
+            continue
+        if key is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            usage[key].update(stack=int(m.group(1)),
+                              spill_stores=int(m.group(2)),
+                              spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            usage[key]["registers"] = int(m.group(1))
+    return usage
+
+
+def _flash_sass():
+    """{(kernel, dtype, D): (HMMA count, FFMA count)} in the built flash
+    library's SASS (``cuobjdump -sass``, which ships beside nvcc)."""
+    from deepspeed_tpu_torch.ops.op_builder import (FlashAttentionBuilder,
+                                                    find_nvcc)
+    tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        raise FileNotFoundError(f"no cuobjdump beside nvcc ({tool})")
+    out = subprocess.run([tool, "-sass", FlashAttentionBuilder().lib_path()],
+                         capture_output=True, text=True, timeout=300).stdout
+    counts, key = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            key = _flash_mma_key(m.group(1))
+            if key:
+                counts[key] = [0, 0]
+        elif key is not None:
+            counts[key][0] += " HMMA." in line
+            counts[key][1] += " FFMA" in line
+    return counts
+
+
 FP32_FLOPS = 67e12               # H100 SXM fp32 outside the tensor cores
 
 
@@ -805,7 +893,18 @@ def _flash_case(torch, gen, name, B, sq, sk, Hq, Hkv, D, window, dtype,
     dkv_fn = lambda: fa.flash_attention_bwd_dkv(  # noqa: E731
         q, k, v, do, lse, delta, scale, **kw)
     dk, dv = dkv_fn()
+    # a second run of each kernel on the same inputs: no atomics and a
+    # fixed summation order, so every output is bit-equal
+    again = dict(zip(("o", "lse"), fwd()))
+    again.update(zip(("dq", "delta"), dq_fn()))
+    again.update(zip(("dk", "dv"), dkv_fn()))
     torch.cuda.synchronize()
+    first = dict(o=o, lse=lse, dq=dq, delta=delta, dk=dk, dv=dv)
+    differ = [w for w, t in again.items() if not torch.equal(t, first[w])]
+    del again
+    if differ:
+        raise AssertionError(f"{name}: a second run of the flash kernels "
+                             f"differs in {differ}")
     bf16 = {torch.bfloat16: "bf16", torch.float16: "fp16"}.get(dt, False)
     errs = {}
     o_ref, lse_ref = fa._plain_fwd(q, k, v, scale, **kw)
@@ -828,7 +927,7 @@ def _flash_case(torch, gen, name, B, sq, sk, Hq, Hkv, D, window, dtype,
             f"{w} {e:.2e} ({r:.3f})" for w, (e, r) in errs.items())
         + f" — max_abs_err (worst |err| / tol), tol {tol_text} for "
         f"{dtype} outputs, {FP32_ATOL:g} + {FP32_RTOL:g}·|ref| for lse and "
-        f"delta")
+        f"delta; a second run bit-equal in all six")
     bad = {w: r for w, (e, r) in errs.items() if not r <= 1.0}
     if bad:
         raise AssertionError(f"{name}: flash kernels differ from their plain "
@@ -870,6 +969,17 @@ def _flash_case(torch, gen, name, B, sq, sk, Hq, Hkv, D, window, dtype,
     row["bound_bwd"] = _roofline(nb(q, k, v, o, do, lse, dq, dk, dv), 5 * flop,
                               BF16_FLOPS)
     row["gflop_fwd"], row["gflop_bwd"] = 2 * flop / 1e9, 5 * flop / 1e9
+    # achieved rate of the useful products (2 forward, 5 backward; the
+    # split's extra products and the recomputed S, dP are not counted)
+    row["tflops_fwd"] = 2 * flop / row["ms_fwd"] / 1e9
+    row["tflops_bwd"] = 5 * flop / (row["ms_dq"] + row["ms_dkv"]) / 1e9
+    log(f"[train-kernel] {name} achieved: fwd {row['tflops_fwd']:.1f} "
+        f"TFLOP/s ({row['bound_fwd'][0] / row['ms_fwd']:.3f} of the bound), "
+        f"dq + dk/dv {row['tflops_bwd']:.1f} TFLOP/s ("
+        f"{row['bound_bwd'][0] / (row['ms_dq'] + row['ms_dkv']):.3f} of the "
+        f"bound); dense bf16/fp16 peak {BF16_FLOPS / 1e12:.0f} TFLOP/s")
+    if bf16:
+        _log_sass(name, bf16, D)
     log(f"[train-kernel] {name} times (ms): fwd {row['ms_fwd']:.4f}, dq "
         f"{row['ms_dq']:.4f}, dk/dv {row['ms_dkv']:.4f} | plain fwd "
         f"{row['plain_ms_fwd']:.3f}, plain bwd {row['plain_ms_bwd']:.3f} | "
@@ -879,6 +989,21 @@ def _flash_case(torch, gen, name, B, sq, sk, Hq, Hkv, D, window, dtype,
         f"{row['bound_bwd'][0]:.4f} ({row['gflop_bwd']:.1f} GFLOP) by "
         f"{row['bound_bwd'][1]}")
     return row
+
+
+def _log_sass(name, dtype, D):
+    """Print, and require, the HMMA instructions of the three tensor-core
+    flash kernels this case ran."""
+    counts = _flash_sass()
+    dp = 64 if D <= 64 else 128
+    got = {kern: counts.get((kern, dtype, dp), (0, 0))
+           for kern in ("fwd", "dq", "dkv")}
+    log(f"[train-kernel] {name} SASS ({dtype}, D{dp}, cuobjdump -sass): " +
+        ", ".join(f"{kern} {h} HMMA / {f} FFMA"
+                  for kern, (h, f) in got.items()))
+    missing = [kern for kern, (h, _) in got.items() if not h]
+    if missing:
+        raise AssertionError(f"{name}: no HMMA in the SASS of {missing}")
 
 
 def _adam_case(torch, gen, seed):
@@ -2898,7 +3023,7 @@ def main():
              max_abs_err=flash["err_fwd"], ms=flash["ms_fwd"],
              plain_ms=flash["plain_ms_fwd"], bound_ms=flash["bound_fwd"][0],
              bound_by=flash["bound_fwd"][1],
-             library_ms=flash["library_ms_fwd"]),
+             library_ms=flash["library_ms_fwd"], tflops=flash["tflops_fwd"]),
         # dq (:321) and dk/dv (:348): two launches per backward; ms is
         # their sum, library_ms SDPA's forward+backward less its forward
         dict(name="flash_attention_bwd", route="cuda",
@@ -2913,7 +3038,7 @@ def main():
              ms=flash["ms_dq"] + flash["ms_dkv"], ms_dq=flash["ms_dq"],
              ms_dkv=flash["ms_dkv"], plain_ms=flash["plain_ms_bwd"],
              bound_ms=flash["bound_bwd"][0], bound_by=flash["bound_bwd"][1],
-             library_ms=flash["library_ms_bwd"]),
+             library_ms=flash["library_ms_bwd"], tflops=flash["tflops_bwd"]),
         dict(name="fused_adam_step", route="cuda",
              source="deepspeed_tpu_torch/csrc/optimizers.cu",
              replaces=src + "optimizers.py:100",

@@ -10,37 +10,87 @@
 // head h to kv head h * Hkv / Hq; ALiBi adds slope_h * key position; a row
 // that sees no key outputs 0 and gets the finite lse sentinel -1e30.
 // Scores, probabilities, the running max/sum and every accumulator are fp32;
-// o, dq, dk and dv are rounded once to the input type (fp32, bf16 or fp16:
-// the type changes only the loads and that final rounding).
+// o, dq, dk and dv are rounded once to the input type.
 //
-// Design.  Every block has 256 threads as a 16 x 16 grid (ty, tx) over a
-// 64 x 64 score tile: thread (ty, tx) owns rows ty + 16i and columns
-// tx + 16j (i, j < 4), so the 16 threads of one row are one half-warp and
-// row reductions are four xor-shuffles.  Tiles live in shared memory as
-// fp32 (converted once on load), rows padded by 4 floats so that float4
-// reads of 16 different rows hit distinct banks.  Products are fp32 FMA on
-// the CUDA cores: scores as float4 dot products along D, P*V with each
-// thread holding a 4 x (D/16) slice of the output.
-// - Forward: one block per (q tile of 64 rows, q head, batch), looping over
-//   the live k tiles only (causal and window bounds), online softmax.
-// - dq: one block per (q tile, q head, batch).  It first forms
-//   delta = rowsum(dO * O) for its rows (written out for the dk/dv kernel),
-//   then loops over the live k tiles: P from the saved lse, dP = dO V^T,
-//   dS = P (dP - delta) scale, dq += dS K.
-// - dk/dv: one block per (k tile, kv head, batch).  The TPU kernel carries
-//   its accumulators across a sequential grid axis; here the block loops
-//   over the g = Hq / Hkv query heads of its kv head and over the live q
-//   tiles, so dk and dv are summed over the GQA group in fp32 and written
-//   once (the Pallas path writes per-q-head results and sums them after).
-// Blocks are ordered heaviest first (the last q tiles see the most keys,
-// the first k tiles the most queries).
+// Two routes, chosen by the input type in dispatch(); no fallback between
+// them (a launch that fails returns its error).
+//
+// bf16 and fp16 (both training paths): the tensor cores.  Products are
+// mma.sync.m16n8k16 (bf16 or f16 in, fp32 accumulate).  Tiles stay in the
+// input type in shared memory, filled by 16-byte cp.async copies (zero-fill
+// past the sequence and past D, as `src-size` 0) into a double-buffered
+// ring whose next tile is in flight while the current one is multiplied;
+// rows are padded by 16 bytes, so the 8 row addresses of an ldmatrix fall
+// in 8 distinct bank groups.  Operands reach the registers by ldmatrix
+// (.trans for the [k][n] operands: V in P*V, K in dS*K, dO in Pt*dO, Q in
+// dSt*Q).  S = Q K^T and dP = dO V^T have exact bf16/fp16 inputs, so one
+// mma each is exact up to the fp32 summation order.  P and dS are fp32
+// values (the reference's arithmetic): each is split into hi = round(x)
+// and lo = round(x - hi) in the input type, and two mmas (lo, then hi) add
+// hi*B and lo*B into the same fp32 accumulator, which keeps P and dS to
+// about 16 significant bits (bf16) or 22 (fp16) instead of 8 or 11.  In
+// fp16 that needs scaling by powers of two, since fp16's lo is subnormal
+// (fewer bits, down to none) for |x| below 2^-3 and its hi overflows above
+// 65504: P enters its split as P * 2^15 (22 bits for P >= 2^-18), each
+// row's dS as dS * 2^e with e from the row's largest |dS| so far (22 bits
+// down to 2^-17 of that value; see ds_exp), and the accumulators are
+// unscaled exactly.  bf16 has fp32's exponent range and is not scaled.
+// That costs 3 product-units in the forward (S, 2 x PV) and 10 in the
+// backward (S, dP, 2 x dQ; S, dP, 2 x dV, 2 x dK) where the bound counts
+// 2 and 5.
+// Exponentials are one ex2.approx each (scores kept in log2 units; lse is
+// written in natural log).  Blocks are 4 warps of 16 rows (or keys) each,
+// and an SM holds 2-4 of them (Cfg: registers and shared memory decide),
+// so that one block's softmax and barrier overlap another's products; one
+// barrier a tile, after which the next tile's copies are issued into the
+// slot the previous tile freed.
+// - Forward: a block per (64 query rows, q head, batch); a warp keeps its
+//   Q fragments in registers.  The fp32 C fragment of a 16 x 8 score tile
+//   is laid out as the A fragment of m16n8k16 for two neighbouring 8-key
+//   tiles, so P's hi and lo halves are packed in registers and fed
+//   straight to P*V; the online softmax (row max and sum over the 4
+//   threads of a quad) works on the fragments.  64-key tiles, live ones
+//   only (causal and window bounds).
+// - dq: the same grid.  The block first forms delta = rowsum(dO * O) for
+//   its rows from o as stored (written out for the dk/dv kernel: the one
+//   fp32 FMA loop over D left, S * D work); per key tile (32 keys at D =
+//   128, 64 at 64) a warp forms S and dP for its 16 rows, P from the saved
+//   lse, dS = P (dP - delta) scale in registers, and dq += dS K.
+// - dk/dv: a block per (64 keys, kv head, batch).  It loops over the g =
+//   Hq / Hkv q heads of its kv head and the live 64-row q tiles (Q, dO,
+//   lse and delta in the ring), 32 queries at a time, forming S^T = K Q^T
+//   and dP^T = V dO^T directly, so that P^T and dS^T are A fragments for
+//   dv += P^T dO and dk += dS^T Q; dk and dv are summed over the GQA group
+//   in fp32 and written once (the Pallas path writes per-q-head results
+//   and sums them after).
+// A warp whose rows (or keys) see nothing of a tile skips it: the masked
+// products would add exact zeros.  Blocks are ordered heaviest first (the
+// last q tiles see the most keys, the first k tiles the most queries).  No
+// atomics: every output has one writer and a fixed summation order, so two
+// runs are bit-equal.
+//
+// fp32 (no training path runs it on the card): the CUDA cores, as before.
+// Every block has 256 threads as a 16 x 16 grid (ty, tx) over a 64 x 64
+// score tile: thread (ty, tx) owns rows ty + 16i and columns tx + 16j (i, j
+// < 4), so row reductions are four xor-shuffles over a half-warp.  Tiles
+// live in shared memory as fp32, rows padded by 4 floats; products are fp32
+// FMA: scores as float4 dot products along D, P*V with each thread holding
+// a 4 x (D/16) slice of the output.  Same grid and loops as above, with
+// 64-row tiles.
 //
 // What bounds it on an H100: operations.  At D = 128 a 64 x 64 tile pair
-// does 64*64*128*2 FMAs per product for 2 x 32 KB of fp32 tiles, far above
-// the ~300 flops per byte where bytes would bind; the work runs on the
-// fp32 FMA units (67 TFLOP/s), not the bf16 tensor cores (989), so it is
-// well above the bound computed at the tensor-core rate.  mma.sync/wgmma
-// with fp32 accumulation is the lever for later work.
+// does 2 * 64 * 64 * 128 flops per product for 32 KB of bf16 tiles, far
+// above the ~300 flops per byte where bytes would bind.  mma.sync reaches
+// part of the 989 TFLOP/s that wgmma can; the split products add 50 %
+// (forward) and 100 % (backward) to the tensor-core work, and every warp
+// reads its B operands from shared memory for 16 rows only, so ldmatrix
+// traffic is as large as the products'.  What a later wgmma/TMA PR would
+// add: 64-row warpgroup products with B read straight from shared memory
+// (no ldmatrix, no per-warp copies of K and V in registers), TMA tile
+// loads signalled through mbarriers instead of cp.async issued by every
+// thread, and producer/consumer warp specialisation so that one
+// warpgroup's softmax overlaps another's products (FlashAttention-3's
+// ping-pong).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -48,6 +98,7 @@
 #include <stdint.h>
 
 #include <cmath>
+#include <cstring>
 
 namespace {
 
@@ -58,12 +109,6 @@ constexpr float kDeadRowLse = -1e30f;
 
 template <typename T>
 struct Cvt;
-
-template <>
-struct Cvt<float> {
-  __device__ static float to_f(float x) { return x; }
-  __device__ static float from_f(float x) { return x; }
-};
 
 template <>
 struct Cvt<__nv_bfloat16> {
@@ -112,14 +157,14 @@ __device__ inline float warp_sum(float v) {
 // Rows [row0, row0 + 64) of a [S, heads, D] slice (row stride `rstride`
 // elements, `src` at head h, d 0) → fp32 tile [64][DP + 4]; rows >= nrows
 // and columns >= D are zero.
-template <typename T, int DP>
-__device__ void load_tile(float* dst, const T* __restrict__ src, int row0,
+template <int DP>
+__device__ void load_tile(float* dst, const float* __restrict__ src, int row0,
                           int nrows, int64_t rstride, int D) {
   constexpr int ST = DP + 4;
   for (int idx = threadIdx.x; idx < kTile * DP; idx += kThreads) {
     const int r = idx / DP, d = idx % DP, s = row0 + r;
     float x = 0.f;
-    if (s < nrows && d < D) x = Cvt<T>::to_f(src[(int64_t)s * rstride + d]);
+    if (s < nrows && d < D) x = src[(int64_t)s * rstride + d];
     dst[r * ST + d] = x;
   }
 }
@@ -199,34 +244,36 @@ __device__ inline bool visible(int row, int col, int sq, int sk, int causal,
   return r >= col && (window <= 0 || col > r - window);
 }
 
-// Rows of a [64][*] accumulator tile → out[row, head, d] in the output type.
-template <typename T, int DP>
-__device__ void store_rows(T* __restrict__ out, const float4 acc[4][DP / 64],
+// Rows of a [64][*] accumulator tile → out[row, head, d].
+template <int DP>
+__device__ void store_rows(float* __restrict__ out,
+                           const float4 acc[4][DP / 64],
                            const float den[4], bool divide, int row0,
                            int nrows, int64_t rstride, int D, int ty, int tx) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int s = row0 + ty + 16 * i;
     if (s >= nrows) continue;
-    T* o = out + (int64_t)s * rstride;
+    float* o = out + (int64_t)s * rstride;
 #pragma unroll
     for (int j = 0; j < DP / 64; ++j) {
       const int d = 4 * tx + 64 * j;
       const float a[4] = {acc[i][j].x, acc[i][j].y, acc[i][j].z, acc[i][j].w};
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        if (d + e < D) o[d + e] = Cvt<T>::from_f(divide ? a[e] / den[i] : a[e]);
+        if (d + e < D) o[d + e] = divide ? a[e] / den[i] : a[e];
     }
   }
 }
 
 // ------------------------------------------------------------------ forward
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const float* __restrict__ slopes,
-                 T* __restrict__ o, float* __restrict__ lse, int Hq, int Hkv,
-                 int sq, int sk, int D, float scale, int causal, int window) {
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v,
+                 const float* __restrict__ slopes, float* __restrict__ o,
+                 float* __restrict__ lse, int Hq, int Hkv, int sq, int sk,
+                 int D, float scale, int causal, int window) {
   constexpr int ST = DP + 4, NJ = DP / 64;
   extern __shared__ __align__(16) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem);
@@ -240,12 +287,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const int q0 = qt * kTile, off = sk - sq;
   const int64_t qrs = (int64_t)Hq * D, kvrs = (int64_t)Hkv * D;
-  const T* qb = q + (int64_t)b * sq * qrs + (int64_t)h * D;
-  const T* kb = k + (int64_t)b * sk * kvrs + (int64_t)kvh * D;
-  const T* vb = v + (int64_t)b * sk * kvrs + (int64_t)kvh * D;
+  const float* qb = q + (int64_t)b * sq * qrs + (int64_t)h * D;
+  const float* kb = k + (int64_t)b * sk * kvrs + (int64_t)kvh * D;
+  const float* vb = v + (int64_t)b * sk * kvrs + (int64_t)kvh * D;
   const float slope = slopes ? slopes[h] : 0.f;
 
-  load_tile<T, DP>(qs, qb, q0, sq, qrs, D);
+  load_tile<DP>(qs, qb, q0, sq, qrs, D);
 
   int k_lo = 0, k_hi = sk - 1;
   if (causal) {
@@ -265,8 +312,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int k0 = (k_lo / kTile) * kTile; k0 <= k_hi; k0 += kTile) {
     __syncthreads();  // the previous tile's readers are done
-    load_tile<T, DP>(ks, kb, k0, sk, kvrs, D);
-    load_tile<T, DP>(vs, vb, k0, sk, kvrs, D);
+    load_tile<DP>(ks, kb, k0, sk, kvrs, D);
+    load_tile<DP>(vs, vb, k0, sk, kvrs, D);
     __syncthreads();
     float s[4][4];
     dot_nt<DP>(qs, ks, s, ty, tx);
@@ -314,18 +361,18 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       lse[((int64_t)b * Hq + h) * sq + row] =
           m[i] == -INFINITY ? kDeadRowLse : m[i] + logf(lsafe[i]);
   }
-  store_rows<T, DP>(o + (int64_t)b * sq * qrs + (int64_t)h * D, acc, lsafe,
+  store_rows<DP>(o + (int64_t)b * sq * qrs + (int64_t)h * D, acc, lsafe,
                     true, q0, sq, qrs, D, ty, tx);
 }
 
 // ----------------------------------------------------------------- dq pass
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ o,
-                    const T* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ o,
+                    const float* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ slopes, T* __restrict__ dq,
+                    const float* __restrict__ slopes, float* __restrict__ dq,
                     float* __restrict__ delta, int Hq, int Hkv, int sq,
                     int sk, int D, float scale, int causal, int window) {
   constexpr int ST = DP + 4, NJ = DP / 64;
@@ -346,22 +393,22 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = qt * kTile, off = sk - sq;
   const int64_t qrs = (int64_t)Hq * D, kvrs = (int64_t)Hkv * D;
   const int64_t qoff = (int64_t)b * sq * qrs + (int64_t)h * D;
-  const T* kb = k + (int64_t)b * sk * kvrs + (int64_t)kvh * D;
-  const T* vb = v + (int64_t)b * sk * kvrs + (int64_t)kvh * D;
+  const float* kb = k + (int64_t)b * sk * kvrs + (int64_t)kvh * D;
+  const float* vb = v + (int64_t)b * sk * kvrs + (int64_t)kvh * D;
   const float slope = slopes ? slopes[h] : 0.f;
   const int64_t rowvec = ((int64_t)b * Hq + h) * sq;
 
-  load_tile<T, DP>(qs, q + qoff, q0, sq, qrs, D);
-  load_tile<T, DP>(dos, dout + qoff, q0, sq, qrs, D);
+  load_tile<DP>(qs, q + qoff, q0, sq, qrs, D);
+  load_tile<DP>(dos, dout + qoff, q0, sq, qrs, D);
   __syncthreads();
   // delta = rowsum(dO * O) over this tile's rows; one warp per 8 rows
   for (int r = warp; r < kTile; r += kThreads / 32) {
     const int s = q0 + r;
     float acc = 0.f;
     if (s < sq) {
-      const T* orow = o + qoff + (int64_t)s * qrs;
+      const float* orow = o + qoff + (int64_t)s * qrs;
       for (int d = lane; d < D; d += 32)
-        acc += dos[r * ST + d] * Cvt<T>::to_f(orow[d]);
+        acc += dos[r * ST + d] * orow[d];
     }
     acc = warp_sum(acc);
     if (lane == 0) {
@@ -391,8 +438,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int k0 = (k_lo / kTile) * kTile; k0 <= k_hi; k0 += kTile) {
     __syncthreads();
-    load_tile<T, DP>(ks, kb, k0, sk, kvrs, D);
-    load_tile<T, DP>(vs, vb, k0, sk, kvrs, D);
+    load_tile<DP>(ks, kb, k0, sk, kvrs, D);
+    load_tile<DP>(vs, vb, k0, sk, kvrs, D);
     __syncthreads();
     float s[4][4], dp[4][4];
     dot_nt<DP>(qs, ks, s, ty, tx);
@@ -414,18 +461,19 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     dot_nn<DP>(dss, ks, acc, ty, tx);
   }
   const float one[4] = {1.f, 1.f, 1.f, 1.f};
-  store_rows<T, DP>(dq + qoff, acc, one, false, q0, sq, qrs, D, ty, tx);
+  store_rows<DP>(dq + qoff, acc, one, false, q0, sq, qrs, D, ty, tx);
 }
 
 // -------------------------------------------------------------- dk/dv pass
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta,
-                     const float* __restrict__ slopes, T* __restrict__ dk,
-                     T* __restrict__ dv, int Hq, int Hkv, int sq, int sk,
+                     const float* __restrict__ slopes, float* __restrict__ dk,
+                     float* __restrict__ dv, int Hq, int Hkv, int sq, int sk,
                      int D, float scale, int causal, int window) {
   constexpr int ST = DP + 4, NJ = DP / 64;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -446,8 +494,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t qrs = (int64_t)Hq * D, kvrs = (int64_t)Hkv * D;
   const int64_t kvoff = (int64_t)b * sk * kvrs + (int64_t)kvh * D;
 
-  load_tile<T, DP>(ks, k + kvoff, k0, sk, kvrs, D);
-  load_tile<T, DP>(vs, v + kvoff, k0, sk, kvrs, D);
+  load_tile<DP>(ks, k + kvoff, k0, sk, kvrs, D);
+  load_tile<DP>(vs, v + kvoff, k0, sk, kvrs, D);
 
   int q_lo = 0, q_hi = sq - 1;
   if (causal) {
@@ -470,8 +518,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int64_t rowvec = ((int64_t)b * Hq + h) * sq;
     for (int q0 = (q_lo / kTile) * kTile; q0 <= q_hi; q0 += kTile) {
       __syncthreads();
-      load_tile<T, DP>(qs, q + qoff, q0, sq, qrs, D);
-      load_tile<T, DP>(dos, dout + qoff, q0, sq, qrs, D);
+      load_tile<DP>(qs, q + qoff, q0, sq, qrs, D);
+      load_tile<DP>(dos, dout + qoff, q0, sq, qrs, D);
       if (threadIdx.x < kTile) {
         const int s = q0 + threadIdx.x;
         r_lse[threadIdx.x] = s < sq ? lse[rowvec + s] : 0.f;
@@ -503,8 +551,850 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
   const float one[4] = {1.f, 1.f, 1.f, 1.f};
-  store_rows<T, DP>(dk + kvoff, dk_acc, one, false, k0, sk, kvrs, D, ty, tx);
-  store_rows<T, DP>(dv + kvoff, dv_acc, one, false, k0, sk, kvrs, D, ty, tx);
+  store_rows<DP>(dk + kvoff, dk_acc, one, false, k0, sk, kvrs, D, ty, tx);
+  store_rows<DP>(dv + kvoff, dv_acc, one, false, k0, sk, kvrs, D, ty, tx);
+}
+
+// ===================================== tensor-core route (bf16 and fp16)
+
+constexpr int kMmaThreads = 128;  // 4 warps
+constexpr int kBQ = 64;           // fwd, dq: query rows a block, 16 a warp
+constexpr int kBN = 64;           // fwd: keys a tile
+constexpr int kBKV = 64;          // dk/dv: keys a block, 16 a warp
+constexpr int kBM = 64;           // dk/dv: query rows a ring slot
+constexpr int kQC = 32;           // dk/dv: queries a warp takes at once
+constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
+
+// What depends on the padded head dim DP: dq's keys a tile, and the blocks
+// an SM holds at once (the register cap follows: 65536 / (128 x blocks)),
+// as registers and shared memory allow at each width.  Shared-memory
+// tiles are in the input type with row stride DP + 8 elements.
+template <int DP>
+struct Cfg {
+  static constexpr int kS = DP + 8;
+  static constexpr int fwd_blocks = DP == 64 ? 3 : 2;
+  static constexpr int dq_kn = DP == 64 ? 64 : 32;
+  static constexpr int dq_blocks = DP == 64 ? 4 : 3;
+  static constexpr int dkv_blocks = DP == 64 ? 3 : 2;
+  // bytes: q | k, v ring; q, dO | k, v ring | lse, delta;
+  // k, v | q, dO ring | lse, delta ring
+  static constexpr int fwd_smem = (kBQ + 4 * kBN) * kS * 2;
+  static constexpr int dq_smem = (2 * kBQ + 4 * dq_kn) * kS * 2 + 2 * kBQ * 4;
+  static constexpr int dkv_smem = (2 * kBKV + 4 * kBM) * kS * 2 + 4 * kBM * 4;
+};
+
+template <typename V>
+__device__ __forceinline__ uint32_t bits(V v) {
+  static_assert(sizeof(V) == 4, "two 16-bit values");
+  uint32_t u;
+  memcpy(&u, &v, 4);
+  return u;
+}
+
+// The mma and the packing of two fp32 values into one register of two
+// 16-bit values (the first in the low half), per input type.
+template <typename T>
+struct Tc;
+
+// kPScale: the power of two P is scaled by before its split (and the
+// product unscaled by after); kScaleDs: dS rows are scaled before theirs.
+// Only fp16 needs either: its hi and lo have 5 exponent bits, so lo
+// would be subnormal, keeping fewer bits, for |x| below 2^-3, and hi
+// would overflow above 65504.  bf16 has fp32's exponent range.
+template <>
+struct Tc<__nv_bfloat16> {
+  static constexpr float kPScale = 1.f;
+  static constexpr bool kScaleDs = false;
+  __device__ static void mma(float* c, const uint32_t* a, const uint32_t* b) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  }
+  __device__ static uint32_t pack(float x, float y) {
+    return bits(__floats2bfloat162_rn(x, y));
+  }
+  // hi = round(x), lo = round(x - hi), for x and y at once
+  __device__ static void split(float x, float y, uint32_t& hi, uint32_t& lo) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+    const float2 f = __bfloat1622float2(h);
+    hi = bits(h);
+    lo = bits(__floats2bfloat162_rn(x - f.x, y - f.y));
+  }
+};
+
+template <>
+struct Tc<__half> {
+  static constexpr float kPScale = 32768.f;  // P <= 1 -> hi <= 2^15
+  static constexpr bool kScaleDs = true;
+  __device__ static void mma(float* c, const uint32_t* a, const uint32_t* b) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  }
+  __device__ static uint32_t pack(float x, float y) {
+    return bits(__floats2half2_rn(x, y));
+  }
+  __device__ static void split(float x, float y, uint32_t& hi, uint32_t& lo) {
+    const __half2 h = __floats2half2_rn(x, y);
+    const float2 f = __half22float2(h);
+    hi = bits(h);
+    lo = bits(__floats2half2_rn(x - f.x, y - f.y));
+  }
+};
+
+// 2^x in one MUFU instruction (relative error about 2^-22; results below
+// 2^-126 flush to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// 2^e as a float, -126 <= e <= 127
+__device__ __forceinline__ float pow2(int e) {
+  return __int_as_float((e + 127) << 23);
+}
+
+// The fp16 dS scale.  A row's dS enters its split as dS * 2^e, where e is
+// the least of ds_exp(m) over the row's tiles so far (m the tile's largest
+// |dS| in the row): m * 2^e lies in [2^14, 2^15), so hi stays finite and lo
+// a normal number down to 2^-17 of the row's largest |dS| (below that the
+// error is at most 2^-25 * 2^-e, 2^-39 of that largest value).  When e
+// falls, the row's accumulator is multiplied by the power of two between
+// the two scales; it is unscaled once at the end.  All exact: powers of two.
+constexpr int kDsExpMax = 60;  // |e| <= 60 keeps every factor a normal float
+
+__device__ __forceinline__ int ds_exp(float m) {
+  const int bexp = (__float_as_int(m) >> 23) & 0xff;  // m >= 0
+  if (bexp == 0) return kDsExpMax;                    // 0 or subnormal
+  return max(-kDsExpMax, min(kDsExpMax, 141 - bexp));  // 14 - (bexp - 127)
+}
+
+// Row max of |x| over a warp's [16][8 * NJ] fragments (rows g and g + 8 of
+// the thread, over the quad), folded into the rows' exponents de; returns
+// the factors the accumulator rows are multiplied by, and sc the rows'
+// scales.
+template <int NJ>
+__device__ __forceinline__ void ds_rescale(const float (*x)[4], int* de,
+                                           float* factor, float* sc) {
+  float mx[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mx[e / 2] = fmaxf(mx[e / 2], fabsf(x[j][e]));
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    const int e = min(de[i], ds_exp(mx[i]));
+    factor[i] = pow2(e - de[i]);
+    sc[i] = pow2(e);
+    de[i] = e;
+  }
+}
+
+// acc rows (g, g + 8) *= f[0], f[1]
+template <int NT>
+__device__ __forceinline__ void scale_rows(float (*acc)[4], const float* f) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    acc[nt][0] *= f[0];
+    acc[nt][1] *= f[0];
+    acc[nt][2] *= f[1];
+    acc[nt][3] *= f[1];
+  }
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// global -> shared; a `valid` false copy reads nothing and writes zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// A fragment (16 x 16, row-major) at rows r0.., columns c0.. of a tile
+// with row stride S: the four 8 x 8 matrices are (rows 0-7 | 8-15) x
+// (columns 0-7 | 8-15), column half outer.
+template <int S, typename T>
+__device__ __forceinline__ void load_a(uint32_t* a, const T* tile, int r0,
+                                       int c0, int lane) {
+  ldmatrix_x4(a, tile + (r0 + lane % 8 + ((lane / 8) % 2) * 8) * S + c0 +
+                     (lane / 16) * 8);
+}
+
+// B fragments of the two 8-wide n tiles n0.. and n0 + 8.. at depth c0..
+// (16) from a tile stored [n][k] (rows are n): b[0..1] and b[2..3].
+template <int S, typename T>
+__device__ __forceinline__ void load_b(uint32_t* b, const T* tile, int n0,
+                                       int c0, int lane) {
+  ldmatrix_x4(b, tile + (n0 + (lane / 16) * 8 + lane % 8) * S + c0 +
+                     ((lane / 8) % 2) * 8);
+}
+
+// The same fragments from a tile stored [k][n] (rows are k, depth k0..):
+// ldmatrix.trans turns its rows into the column-major B fragment.
+template <int S, typename T>
+__device__ __forceinline__ void load_bt(uint32_t* b, const T* tile, int k0,
+                                        int n0, int lane) {
+  ldmatrix_x4_trans(b, tile + (k0 + lane % 8 + ((lane / 8) % 2) * 8) * S +
+                           n0 + (lane / 16) * 8);
+}
+
+// Rows [row0, row0 + R) of a [S, heads, D] slice (`src` at head h, d 0,
+// row stride `rs` elements) → dst [R][DP + 8] in T; rows >= nrows and
+// columns >= D become zeros.  vec: 16-byte cp.async copies (D % 8 == 0 and
+// 16-byte aligned rows), else element copies (synchronous).
+template <typename T, int R, int DP>
+__device__ __forceinline__ void stage_rows(T* dst, const T* __restrict__ src,
+                                           int row0, int nrows, int64_t rs,
+                                           int D, bool vec) {
+  constexpr int S = DP + 8, CH = DP / 8;
+  static_assert(R * CH % kMmaThreads == 0, "whole copies a thread");
+  if (vec) {
+#pragma unroll
+    for (int i = 0; i < R * CH / kMmaThreads; ++i) {
+      const int idx = threadIdx.x + i * kMmaThreads;
+      const int r = idx / CH, c = (idx % CH) * 8, s = row0 + r;
+      const bool ok = s < nrows && c < D;
+      cp_async16(dst + r * S + c, ok ? src + (int64_t)s * rs + c : src, ok);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < R * DP; idx += kMmaThreads) {
+      const int r = idx / DP, d = idx % DP, s = row0 + r;
+      dst[r * S + d] = (s < nrows && d < D) ? src[(int64_t)s * rs + d]
+                                            : Cvt<T>::from_f(0.f);
+    }
+  }
+}
+
+// out[d], out[d + 1] = x, y rounded to T (d even; d + 1 may be past D).
+template <typename T>
+__device__ __forceinline__ void store_pair(T* out, int d, int D, float x,
+                                           float y, bool vec) {
+  if (vec && d < D) {
+    *reinterpret_cast<uint32_t*>(out + d) = Tc<T>::pack(x, y);
+  } else {
+    if (d < D) out[d] = Cvt<T>::from_f(x);
+    if (d + 1 < D) out[d + 1] = Cvt<T>::from_f(y);
+  }
+}
+
+// Rows r0 and r0 + 8 of a warp's [16][DP] fp32 fragments → out (row stride
+// rs), rounded once; rows >= nrows are not written.
+template <typename T, int DP>
+__device__ __forceinline__ void store_frag(T* __restrict__ out,
+                                           const float (*acc)[4], int r0,
+                                           int nrows, int64_t rs, int D,
+                                           int t, bool vec) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + 8 * i;
+    if (row >= nrows) continue;
+    T* orow = out + (int64_t)row * rs;
+#pragma unroll
+    for (int nt = 0; nt < DP / 8; ++nt)
+      store_pair<T>(orow, 8 * nt + 2 * t, D, acc[nt][2 * i],
+                    acc[nt][2 * i + 1], vec);
+  }
+}
+
+// ------------------------------------------------------------ forward
+template <typename T, int DP>
+__global__ void __launch_bounds__(kMmaThreads, Cfg<DP>::fwd_blocks)
+flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v,
+                     const float* __restrict__ slopes, T* __restrict__ o,
+                     float* __restrict__ lse, int Hq, int Hkv, int sq,
+                     int sk, int D, float scale, int causal, int window,
+                     int vec) {
+  constexpr int S = DP + 8, KD = DP / 16, NT = DP / 8;
+  constexpr float kP = Tc<T>::kPScale;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* qs = reinterpret_cast<T*>(smem);
+  T* ks = qs + kBQ * S;  // [2][kBN][S]
+  T* vs = ks + 2 * kBN * S;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest tiles first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = (int)((int64_t)h * Hkv / Hq);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int q0 = qt * kBQ, off = sk - sq;
+  const int w0 = q0 + warp * 16;  // the warp's first row
+  const int r0 = w0 + g;          // the thread's rows: r0 and r0 + 8
+  const int64_t qrs = (int64_t)Hq * D, kvrs = (int64_t)Hkv * D;
+  const T* qb = q + (int64_t)b * sq * qrs + (int64_t)h * D;
+  const T* kb = k + (int64_t)b * sk * kvrs + (int64_t)kvh * D;
+  const T* vb = v + (int64_t)b * sk * kvrs + (int64_t)kvh * D;
+  // scores in log2 units, so that every exponential is one ex2
+  const float sl2 = scale * kLog2e;
+  const float al2 = (slopes ? slopes[h] : 0.f) * kLog2e;
+
+  int k_lo = 0, k_hi = sk - 1;
+  if (causal) {
+    k_hi = min(k_hi, q0 + kBQ - 1 + off);
+    if (window > 0) k_lo = max(0, q0 + off - window + 1);
+  }
+  const int kt0 = k_lo / kBN;
+  const int n = k_hi < k_lo ? 0 : k_hi / kBN - kt0 + 1;
+
+  stage_rows<T, kBQ, DP>(qs, qb, q0, sq, qrs, D, vec);
+  cp_async_commit();
+  if (n > 0) {
+    stage_rows<T, kBN, DP>(ks, kb, kt0 * kBN, sk, kvrs, D, vec);
+    stage_rows<T, kBN, DP>(vs, vb, kt0 * kBN, sk, kvrs, D, vec);
+  }
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+  uint32_t qa[KD][4];
+#pragma unroll
+  for (int kd = 0; kd < KD; ++kd)
+    load_a<S>(qa[kd], qs, warp * 16, kd * 16, lane);
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+
+  for (int it = 0; it < n; ++it) {
+    const int k0 = (kt0 + it) * kBN;
+    const T* kt = ks + (it & 1) * kBN * S;
+    const T* vt = vs + (it & 1) * kBN * S;
+    cp_async_wait<0>();  // tile it has landed (this thread's copies)
+    // every thread's copies have landed, and every warp is done with tile
+    // it - 1, whose slot the next copies refill while tile it is used
+    __syncthreads();
+    if (it + 1 < n) {
+      stage_rows<T, kBN, DP>(ks + ((it + 1) & 1) * kBN * S, kb, k0 + kBN, sk,
+                             kvrs, D, vec);
+      stage_rows<T, kBN, DP>(vs + ((it + 1) & 1) * kBN * S, vb, k0 + kBN, sk,
+                             kvrs, D, vec);
+    }
+    cp_async_commit();
+    bool live = w0 < sq;  // some row of the warp sees some key of the tile
+    if (causal)
+      live = live && k0 <= w0 + 15 + off &&
+             (window <= 0 || k0 + kBN - 1 > w0 + off - window);
+    if (live) {
+      float s[kBN / 8][4];
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd)
+#pragma unroll
+        for (int nj = 0; nj < kBN / 16; ++nj) {
+          uint32_t bf[4];
+          load_b<S>(bf, kt, nj * 16, kd * 16, lane);
+          Tc<T>::mma(s[2 * nj], qa[kd], bf);
+          Tc<T>::mma(s[2 * nj + 1], qa[kd], bf + 2);
+        }
+      // every (row, key) pair of the warp and the tile is visible
+      const bool full =
+          k0 + kBN <= sk && w0 + 15 < sq &&
+          (!causal || (k0 + kBN - 1 <= w0 + off &&
+                       (window <= 0 || k0 > w0 + 15 + off - window)));
+      float mx[2] = {-INFINITY, -INFINITY};
+      const float c0 = (float)(k0 + 2 * t);  // + 8j + e%2: exact in fp32
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = r0 + (e / 2) * 8, col = k0 + 8 * j + 2 * t + e % 2;
+          const float x =
+              s[j][e] * sl2 + al2 * (c0 + (float)(8 * j + e % 2));
+          s[j][e] = (full || visible(row, col, sq, sk, causal, window))
+                        ? x : -INFINITY;
+          mx[e / 2] = fmaxf(mx[e / 2], s[j][e]);
+        }
+      float alpha[2], msafe[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m[i], mx[i]);
+        msafe[i] = m_new == -INFINITY ? 0.f : m_new;
+        alpha[i] = m[i] == -INFINITY ? 0.f : ex2(m[i] - msafe[i]);
+        m[i] = m_new;
+      }
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = ex2(s[j][e] - msafe[e / 2]);  // masked: 2^-inf = 0
+          rs[e / 2] += s[j][e];
+        }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 1);
+        rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 2);
+        l[i] = alpha[i] * l[i] + rs[i];
+      }
+      scale_rows<NT>(acc, alpha);
+      // o += P V, P = hi + lo (of P * kP): the score fragments of keys
+      // 16kk.. are the A fragment of that depth step
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk) {
+        uint32_t ph[4], pl[4];
+        Tc<T>::split(kP * s[2 * kk][0], kP * s[2 * kk][1], ph[0], pl[0]);
+        Tc<T>::split(kP * s[2 * kk][2], kP * s[2 * kk][3], ph[1], pl[1]);
+        Tc<T>::split(kP * s[2 * kk + 1][0], kP * s[2 * kk + 1][1], ph[2],
+                     pl[2]);
+        Tc<T>::split(kP * s[2 * kk + 1][2], kP * s[2 * kk + 1][3], ph[3],
+                     pl[3]);
+#pragma unroll
+        for (int nd = 0; nd < NT / 2; ++nd) {
+          uint32_t bf[4];
+          load_bt<S>(bf, vt, kk * 16, nd * 16, lane);
+          Tc<T>::mma(acc[2 * nd], pl, bf);
+          Tc<T>::mma(acc[2 * nd], ph, bf);
+          Tc<T>::mma(acc[2 * nd + 1], pl, bf + 2);
+          Tc<T>::mma(acc[2 * nd + 1], ph, bf + 2);
+        }
+      }
+    }
+  }
+
+  float den[2];  // l * kP: acc holds kP * sum P V (exact scalings)
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float lsafe = l[i] == 0.f ? 1.f : l[i];
+    den[i] = lsafe * kP;
+    const int row = r0 + 8 * i;
+    if (t == 0 && row < sq)
+      lse[((int64_t)b * Hq + h) * sq + row] =
+          m[i] == -INFINITY ? kDeadRowLse : m[i] * kLn2 + logf(lsafe);
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    acc[nt][0] /= den[0];
+    acc[nt][1] /= den[0];
+    acc[nt][2] /= den[1];
+    acc[nt][3] /= den[1];
+  }
+  store_frag<T, DP>(o + (int64_t)b * sq * qrs + (int64_t)h * D, acc, r0, sq,
+                    qrs, D, t, vec);
+}
+
+// ------------------------------------------------------------- dq pass
+template <typename T, int DP>
+__global__ void __launch_bounds__(kMmaThreads, Cfg<DP>::dq_blocks)
+flash_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ o,
+                        const T* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ slopes, T* __restrict__ dq,
+                        float* __restrict__ delta, int Hq, int Hkv, int sq,
+                        int sk, int D, float scale, int causal, int window,
+                        int vec) {
+  constexpr int S = DP + 8, KD = DP / 16, NT = DP / 8;
+  constexpr int KN = Cfg<DP>::dq_kn;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* qs = reinterpret_cast<T*>(smem);
+  T* dos = qs + kBQ * S;
+  T* ks = dos + kBQ * S;  // [2][KN][S]
+  T* vs = ks + 2 * KN * S;
+  float* r_lse = reinterpret_cast<float*>(vs + 2 * KN * S);
+  float* r_delta = r_lse + kBQ;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = (int)((int64_t)h * Hkv / Hq);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int q0 = qt * kBQ, off = sk - sq;
+  const int w0 = q0 + warp * 16, r0 = w0 + g;
+  const int64_t qrs = (int64_t)Hq * D, kvrs = (int64_t)Hkv * D;
+  const int64_t qoff = (int64_t)b * sq * qrs + (int64_t)h * D;
+  const T* kb = k + (int64_t)b * sk * kvrs + (int64_t)kvh * D;
+  const T* vb = v + (int64_t)b * sk * kvrs + (int64_t)kvh * D;
+  const float sl2 = scale * kLog2e;  // log2 units, as in the forward
+  const float al2 = (slopes ? slopes[h] : 0.f) * kLog2e;
+  const int64_t rowvec = ((int64_t)b * Hq + h) * sq;
+
+  int k_lo = 0, k_hi = sk - 1;
+  if (causal) {
+    k_hi = min(k_hi, q0 + kBQ - 1 + off);
+    if (window > 0) k_lo = max(0, q0 + off - window + 1);
+  }
+  const int kt0 = k_lo / KN;
+  const int n = k_hi < k_lo ? 0 : k_hi / KN - kt0 + 1;
+
+  stage_rows<T, kBQ, DP>(qs, q + qoff, q0, sq, qrs, D, vec);
+  stage_rows<T, kBQ, DP>(dos, dout + qoff, q0, sq, qrs, D, vec);
+  cp_async_commit();
+  if (n > 0) {
+    stage_rows<T, KN, DP>(ks, kb, kt0 * KN, sk, kvrs, D, vec);
+    stage_rows<T, KN, DP>(vs, vb, kt0 * KN, sk, kvrs, D, vec);
+  }
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+  // delta = rowsum(dO * O) over the warp's own 16 rows
+  for (int rr = 0; rr < 16; ++rr) {
+    const int r = warp * 16 + rr, s = q0 + r;
+    float a = 0.f;
+    if (s < sq) {
+      const T* orow = o + qoff + (int64_t)s * qrs;
+      for (int d = lane; d < D; d += 32)
+        a += Cvt<T>::to_f(dos[r * S + d]) * Cvt<T>::to_f(orow[d]);
+    }
+    a = warp_sum(a);
+    if (lane == 0) {
+      r_delta[r] = a;
+      r_lse[r] = s < sq ? lse[rowvec + s] : 0.f;
+      if (s < sq) delta[rowvec + s] = a;
+    }
+  }
+  __syncwarp();
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    lse_r[i] = r_lse[warp * 16 + g + 8 * i] * kLog2e;
+    delta_r[i] = r_delta[warp * 16 + g + 8 * i];
+  }
+
+  float acc[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+  int de[2] = {kDsExpMax, kDsExpMax};  // fp16: the rows' dS exponents
+
+  for (int it = 0; it < n; ++it) {
+    const int k0 = (kt0 + it) * KN;
+    const T* kt = ks + (it & 1) * KN * S;
+    const T* vt = vs + (it & 1) * KN * S;
+    cp_async_wait<0>();  // as in the forward: one barrier a tile
+    __syncthreads();
+    if (it + 1 < n) {
+      stage_rows<T, KN, DP>(ks + ((it + 1) & 1) * KN * S, kb, k0 + KN, sk,
+                             kvrs, D, vec);
+      stage_rows<T, KN, DP>(vs + ((it + 1) & 1) * KN * S, vb, k0 + KN, sk,
+                             kvrs, D, vec);
+    }
+    cp_async_commit();
+    bool live = w0 < sq;
+    if (causal)
+      live = live && k0 <= w0 + 15 + off &&
+             (window <= 0 || k0 + KN - 1 > w0 + off - window);
+    if (live) {
+      float s[KN / 8][4], dp[KN / 8][4];
+#pragma unroll
+      for (int j = 0; j < KN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd) {
+        uint32_t aq[4], ado[4];
+        load_a<S>(aq, qs, warp * 16, kd * 16, lane);
+        load_a<S>(ado, dos, warp * 16, kd * 16, lane);
+#pragma unroll
+        for (int nj = 0; nj < KN / 16; ++nj) {
+          uint32_t bk[4], bv[4];
+          load_b<S>(bk, kt, nj * 16, kd * 16, lane);
+          load_b<S>(bv, vt, nj * 16, kd * 16, lane);
+          Tc<T>::mma(s[2 * nj], aq, bk);
+          Tc<T>::mma(s[2 * nj + 1], aq, bk + 2);
+          Tc<T>::mma(dp[2 * nj], ado, bv);
+          Tc<T>::mma(dp[2 * nj + 1], ado, bv + 2);
+        }
+      }
+      const bool full =
+          k0 + KN <= sk && w0 + 15 < sq &&
+          (!causal || (k0 + KN - 1 <= w0 + off &&
+                       (window <= 0 || k0 > w0 + 15 + off - window)));
+      // dS = P (dP - delta) scale, in place of s
+      const float c0 = (float)(k0 + 2 * t);
+#pragma unroll
+      for (int j = 0; j < KN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = r0 + (e / 2) * 8, col = k0 + 8 * j + 2 * t + e % 2;
+          const float x =
+              s[j][e] * sl2 + al2 * (c0 + (float)(8 * j + e % 2));
+          const float p = (full || visible(row, col, sq, sk, causal, window))
+                              ? ex2(x - lse_r[e / 2]) : 0.f;
+          s[j][e] = p * (dp[j][e] - delta_r[e / 2]) * scale;
+        }
+      if constexpr (Tc<T>::kScaleDs) {
+        float factor[2], sc[2];
+        ds_rescale<KN / 8>(s, de, factor, sc);
+        scale_rows<NT>(acc, factor);
+#pragma unroll
+        for (int j = 0; j < KN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] *= sc[e / 2];
+      }
+      // dq += dS K, dS = hi + lo
+#pragma unroll
+      for (int kk = 0; kk < KN / 16; ++kk) {
+        uint32_t dh[4], dl[4];
+        Tc<T>::split(s[2 * kk][0], s[2 * kk][1], dh[0], dl[0]);
+        Tc<T>::split(s[2 * kk][2], s[2 * kk][3], dh[1], dl[1]);
+        Tc<T>::split(s[2 * kk + 1][0], s[2 * kk + 1][1], dh[2], dl[2]);
+        Tc<T>::split(s[2 * kk + 1][2], s[2 * kk + 1][3], dh[3], dl[3]);
+#pragma unroll
+        for (int nd = 0; nd < NT / 2; ++nd) {
+          uint32_t bf[4];
+          load_bt<S>(bf, kt, kk * 16, nd * 16, lane);
+          Tc<T>::mma(acc[2 * nd], dl, bf);
+          Tc<T>::mma(acc[2 * nd], dh, bf);
+          Tc<T>::mma(acc[2 * nd + 1], dl, bf + 2);
+          Tc<T>::mma(acc[2 * nd + 1], dh, bf + 2);
+        }
+      }
+    }
+  }
+  if constexpr (Tc<T>::kScaleDs) {
+    const float f[2] = {pow2(-de[0]), pow2(-de[1])};
+    scale_rows<NT>(acc, f);
+  }
+  store_frag<T, DP>(dq + qoff, acc, r0, sq, qrs, D, t, vec);
+}
+
+// ---------------------------------------------------------- dk/dv pass
+// Q, dO rows [q0, q0 + kBM) of q head h, and their lse and delta, into one
+// slot of the ring.
+template <typename T, int DP>
+__device__ __forceinline__ void stage_q_tile(
+    T* qs, T* dos, float* rl, float* rd, const T* __restrict__ q,
+    const T* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, int64_t qoff, int64_t rowvec, int q0,
+    int sq, int64_t qrs, int D, bool vec) {
+  stage_rows<T, kBM, DP>(qs, q + qoff, q0, sq, qrs, D, vec);
+  stage_rows<T, kBM, DP>(dos, dout + qoff, q0, sq, qrs, D, vec);
+  const int i = threadIdx.x;
+  if (i < 2 * kBM) {
+    const int r = i % kBM, s = q0 + r;
+    const bool ok = s < sq;
+    const float* src = i < kBM ? lse : delta;
+    cp_async4((i < kBM ? rl : rd) + r, ok ? src + rowvec + s : src, ok);
+  }
+}
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(kMmaThreads, Cfg<DP>::dkv_blocks)
+flash_bwd_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         const float* __restrict__ slopes,
+                         T* __restrict__ dk, T* __restrict__ dv, int Hq,
+                         int Hkv, int sq, int sk, int D, float scale,
+                         int causal, int window, int vec) {
+  constexpr int S = DP + 8, KD = DP / 16, NT = DP / 8;
+  constexpr float kP = Tc<T>::kPScale;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ks = reinterpret_cast<T*>(smem);
+  T* vs = ks + kBKV * S;
+  T* qs = vs + kBKV * S;   // [2][kBM][S]
+  T* dos = qs + 2 * kBM * S;
+  float* r_lse = reinterpret_cast<float*>(dos + 2 * kBM * S);  // [2][kBM]
+  float* r_delta = r_lse + 2 * kBM;
+
+  const int kt = blockIdx.x;  // the first k tiles see the most queries
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int grp = Hq / Hkv;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int k0 = kt * kBKV, off = sk - sq;
+  const int kw0 = k0 + warp * 16;  // the warp's first key
+  const float kf = (float)(kw0 + g);  // the thread's key, + 8 (e / 2)
+  const int64_t qrs = (int64_t)Hq * D, kvrs = (int64_t)Hkv * D;
+  const int64_t kvoff = (int64_t)b * sk * kvrs + (int64_t)kvh * D;
+  const float sl2 = scale * kLog2e;  // log2 units, as in the forward
+
+  int q_lo = 0, q_hi = sq - 1;
+  if (causal) {
+    q_lo = max(0, k0 - off);
+    if (window > 0) q_hi = min(q_hi, k0 + kBKV - 2 - off + window);
+  }
+  const int qt0 = q_lo / kBM;
+  const int nqt = q_hi < q_lo ? 0 : q_hi / kBM - qt0 + 1;
+  const int n = grp * nqt;  // (q head, q tile) steps, head outer
+
+  stage_rows<T, kBKV, DP>(ks, k + kvoff, k0, sk, kvrs, D, vec);
+  stage_rows<T, kBKV, DP>(vs, v + kvoff, k0, sk, kvrs, D, vec);
+  cp_async_commit();
+  if (n > 0) {
+    const int h = kvh * grp;
+    stage_q_tile<T, DP>(qs, dos, r_lse, r_delta, q, dout, lse, delta,
+                        (int64_t)b * sq * qrs + (int64_t)h * D,
+                        ((int64_t)b * Hq + h) * sq, qt0 * kBM, sq, qrs, D,
+                        vec);
+  }
+  cp_async_commit();
+
+  float dk_acc[NT][4], dv_acc[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[nt][e] = dv_acc[nt][e] = 0.f;
+  int de[2] = {kDsExpMax, kDsExpMax};  // fp16: the keys' dS exponents
+
+  for (int it = 0; it < n; ++it) {
+    const int h = kvh * grp + it / nqt, q0 = (qt0 + it % nqt) * kBM;
+    const int buf = it & 1;
+    cp_async_wait<0>();  // as in the forward: one barrier a tile
+    __syncthreads();
+    if (it + 1 < n) {
+      const int h1 = kvh * grp + (it + 1) / nqt;
+      const int nb = buf ^ 1;
+      stage_q_tile<T, DP>(qs + nb * kBM * S, dos + nb * kBM * S,
+                              r_lse + nb * kBM, r_delta + nb * kBM, q, dout,
+                              lse, delta,
+                              (int64_t)b * sq * qrs + (int64_t)h1 * D,
+                              ((int64_t)b * Hq + h1) * sq,
+                              (qt0 + (it + 1) % nqt) * kBM, sq, qrs, D, vec);
+    }
+    cp_async_commit();
+    const float al2 = (slopes ? slopes[h] : 0.f) * kLog2e;
+    const T* qt_ = qs + buf * kBM * S;
+    const T* dot_ = dos + buf * kBM * S;
+    const float* lt = r_lse + buf * kBM;
+    const float* dt = r_delta + buf * kBM;
+#pragma unroll 1
+    for (int c = 0; c < kBM; c += kQC) {
+      const int c0 = q0 + c;  // the chunk's first query
+      bool live = kw0 < sk && c0 < sq;
+      if (causal)
+        live = live && c0 + kQC - 1 + off >= kw0 &&
+               (window <= 0 || kw0 + 15 > c0 + off - window);
+      if (!live) continue;
+      float st[kQC / 8][4], dpt[kQC / 8][4];  // [key][query]
+#pragma unroll
+      for (int j = 0; j < kQC / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd) {
+        uint32_t ak[4], av[4];
+        load_a<S>(ak, ks, warp * 16, kd * 16, lane);
+        load_a<S>(av, vs, warp * 16, kd * 16, lane);
+#pragma unroll
+        for (int nj = 0; nj < kQC / 16; ++nj) {
+          uint32_t bq[4], bo[4];
+          load_b<S>(bq, qt_, c + nj * 16, kd * 16, lane);
+          load_b<S>(bo, dot_, c + nj * 16, kd * 16, lane);
+          Tc<T>::mma(st[2 * nj], ak, bq);
+          Tc<T>::mma(st[2 * nj + 1], ak, bq + 2);
+          Tc<T>::mma(dpt[2 * nj], av, bo);
+          Tc<T>::mma(dpt[2 * nj + 1], av, bo + 2);
+        }
+      }
+      const bool full =
+          kw0 + 16 <= sk && c0 + kQC <= sq &&
+          (!causal || (kw0 + 15 <= c0 + off &&
+                       (window <= 0 || kw0 > c0 + kQC - 1 + off - window)));
+      // P^T into st, dS^T = P^T (dP^T - delta) scale into dpt
+#pragma unroll
+      for (int j = 0; j < kQC / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = c + 8 * j + 2 * t + e % 2;
+          const int row = q0 + qi, col = kw0 + g + (e / 2) * 8;
+          const float x =
+              st[j][e] * sl2 + al2 * (kf + (float)((e / 2) * 8));
+          const float p = (full || visible(row, col, sq, sk, causal, window))
+                              ? ex2(x - lt[qi] * kLog2e) : 0.f;
+          st[j][e] = kP * p;
+          dpt[j][e] = p * (dpt[j][e] - dt[qi]) * scale;
+        }
+      if constexpr (Tc<T>::kScaleDs) {
+        float factor[2], sc[2];
+        ds_rescale<kQC / 8>(dpt, de, factor, sc);
+        scale_rows<NT>(dk_acc, factor);
+#pragma unroll
+        for (int j = 0; j < kQC / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dpt[j][e] *= sc[e / 2];
+      }
+      // dv += P^T dO and dk += dS^T Q over the chunk's queries
+#pragma unroll
+      for (int kk = 0; kk < kQC / 16; ++kk) {
+        uint32_t ph[4], pl[4], dh[4], dl[4];
+        Tc<T>::split(st[2 * kk][0], st[2 * kk][1], ph[0], pl[0]);
+        Tc<T>::split(st[2 * kk][2], st[2 * kk][3], ph[1], pl[1]);
+        Tc<T>::split(st[2 * kk + 1][0], st[2 * kk + 1][1], ph[2], pl[2]);
+        Tc<T>::split(st[2 * kk + 1][2], st[2 * kk + 1][3], ph[3], pl[3]);
+        Tc<T>::split(dpt[2 * kk][0], dpt[2 * kk][1], dh[0], dl[0]);
+        Tc<T>::split(dpt[2 * kk][2], dpt[2 * kk][3], dh[1], dl[1]);
+        Tc<T>::split(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1], dh[2], dl[2]);
+        Tc<T>::split(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3], dh[3], dl[3]);
+#pragma unroll
+        for (int nd = 0; nd < NT / 2; ++nd) {
+          uint32_t bo[4], bq[4];
+          load_bt<S>(bo, dot_, c + kk * 16, nd * 16, lane);
+          Tc<T>::mma(dv_acc[2 * nd], pl, bo);
+          Tc<T>::mma(dv_acc[2 * nd], ph, bo);
+          Tc<T>::mma(dv_acc[2 * nd + 1], pl, bo + 2);
+          Tc<T>::mma(dv_acc[2 * nd + 1], ph, bo + 2);
+          load_bt<S>(bq, qt_, c + kk * 16, nd * 16, lane);
+          Tc<T>::mma(dk_acc[2 * nd], dl, bq);
+          Tc<T>::mma(dk_acc[2 * nd], dh, bq);
+          Tc<T>::mma(dk_acc[2 * nd + 1], dl, bq + 2);
+          Tc<T>::mma(dk_acc[2 * nd + 1], dh, bq + 2);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();  // with no live q tile the K/V copies are in flight
+  if constexpr (Tc<T>::kScaleDs) {
+    const float f[2] = {pow2(-de[0]), pow2(-de[1])};
+    scale_rows<NT>(dk_acc, f);
+  }
+  if constexpr (kP != 1.f) {
+    const float f[2] = {1.f / kP, 1.f / kP};
+    scale_rows<NT>(dv_acc, f);
+  }
+  store_frag<T, DP>(dk + kvoff, dk_acc, kw0 + g, sk, kvrs, D, t, vec);
+  store_frag<T, DP>(dv + kvoff, dv_acc, kw0 + g, sk, kvrs, D, t, vec);
 }
 
 template <typename K>
@@ -521,10 +1411,10 @@ struct Args {
   int causal, window;
 };
 
-template <typename T, int DP>
+template <int DP>
 cudaError_t run_fwd(const Args& a, cudaStream_t st) {
   static bool configured = false;
-  auto kern = flash_fwd_kernel<T, DP>;
+  auto kern = flash_fwd_kernel<DP>;
   if (!configured) {
     cudaError_t e = allow_smem(kern, Smem<DP>::fwd);
     if (e != cudaSuccess) return e;
@@ -532,17 +1422,17 @@ cudaError_t run_fwd(const Args& a, cudaStream_t st) {
   }
   dim3 grid((a.sq + kTile - 1) / kTile, a.Hq, a.B);
   kern<<<grid, kThreads, Smem<DP>::fwd, st>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const float*>(a.slopes),
-      static_cast<T*>(a.out), static_cast<float*>(a.lse), a.Hq, a.Hkv, a.sq,
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.slopes),
+      static_cast<float*>(a.out), static_cast<float*>(a.lse), a.Hq, a.Hkv, a.sq,
       a.sk, a.D, a.scale, a.causal, a.window);
   return cudaGetLastError();
 }
 
-template <typename T, int DP>
+template <int DP>
 cudaError_t run_dq(const Args& a, cudaStream_t st) {
   static bool configured = false;
-  auto kern = flash_bwd_dq_kernel<T, DP>;
+  auto kern = flash_bwd_dq_kernel<DP>;
   if (!configured) {
     cudaError_t e = allow_smem(kern, Smem<DP>::dq);
     if (e != cudaSuccess) return e;
@@ -550,19 +1440,19 @@ cudaError_t run_dq(const Args& a, cudaStream_t st) {
   }
   dim3 grid((a.sq + kTile - 1) / kTile, a.Hq, a.B);
   kern<<<grid, kThreads, Smem<DP>::dq, st>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.o),
-      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
-      static_cast<const float*>(a.slopes), static_cast<T*>(a.dq),
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.o),
+      static_cast<const float*>(a.dout), static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.slopes), static_cast<float*>(a.dq),
       static_cast<float*>(a.delta), a.Hq, a.Hkv, a.sq, a.sk, a.D, a.scale,
       a.causal, a.window);
   return cudaGetLastError();
 }
 
-template <typename T, int DP>
+template <int DP>
 cudaError_t run_dkv(const Args& a, cudaStream_t st) {
   static bool configured = false;
-  auto kern = flash_bwd_dkv_kernel<T, DP>;
+  auto kern = flash_bwd_dkv_kernel<DP>;
   if (!configured) {
     cudaError_t e = allow_smem(kern, Smem<DP>::dkv);
     if (e != cudaSuccess) return e;
@@ -570,22 +1460,82 @@ cudaError_t run_dkv(const Args& a, cudaStream_t st) {
   }
   dim3 grid((a.sk + kTile - 1) / kTile, a.Hkv, a.B);
   kern<<<grid, kThreads, Smem<DP>::dkv, st>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<const float*>(a.slopes), static_cast<T*>(a.dk),
-      static_cast<T*>(a.dv), a.Hq, a.Hkv, a.sq, a.sk, a.D, a.scale,
+      static_cast<const float*>(a.slopes), static_cast<float*>(a.dk),
+      static_cast<float*>(a.dv), a.Hq, a.Hkv, a.sq, a.sk, a.D, a.scale,
       a.causal, a.window);
   return cudaGetLastError();
 }
 
 enum Pass { kFwd = 0, kDq = 1, kDkv = 2 };
 
-template <typename T, int DP>
+template <int DP>
 cudaError_t run(int pass, const Args& a, cudaStream_t st) {
-  if (pass == kFwd) return run_fwd<T, DP>(a, st);
-  if (pass == kDq) return run_dq<T, DP>(a, st);
-  return run_dkv<T, DP>(a, st);
+  if (pass == kFwd) return run_fwd<DP>(a, st);
+  if (pass == kDq) return run_dq<DP>(a, st);
+  return run_dkv<DP>(a, st);
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// The tensor-core route of one pass for input type T at padded head dim DP.
+template <typename T, int DP>
+cudaError_t run_mma(int pass, const Args& a, cudaStream_t st) {
+  // 16-byte copies need rows of whole 16-byte chunks at 16-byte addresses
+  int vec = a.D % 8 == 0;
+  const void* ptrs[] = {a.q, a.k, a.v, a.o, a.dout, a.out, a.dq, a.dk, a.dv};
+  for (const void* p : ptrs)
+    if (p && !aligned16(p)) vec = 0;
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  const float* slopes = static_cast<const float*>(a.slopes);
+  if (pass == kFwd) {
+    static bool configured = false;
+    auto kern = flash_fwd_mma_kernel<T, DP>;
+    if (!configured) {
+      cudaError_t e = allow_smem(kern, Cfg<DP>::fwd_smem);
+      if (e != cudaSuccess) return e;
+      configured = true;
+    }
+    dim3 grid((a.sq + kBQ - 1) / kBQ, a.Hq, a.B);
+    kern<<<grid, kMmaThreads, Cfg<DP>::fwd_smem, st>>>(
+        q, k, v, slopes, static_cast<T*>(a.out), static_cast<float*>(a.lse),
+        a.Hq, a.Hkv, a.sq, a.sk, a.D, a.scale, a.causal, a.window, vec);
+  } else if (pass == kDq) {
+    static bool configured = false;
+    auto kern = flash_bwd_dq_mma_kernel<T, DP>;
+    if (!configured) {
+      cudaError_t e = allow_smem(kern, Cfg<DP>::dq_smem);
+      if (e != cudaSuccess) return e;
+      configured = true;
+    }
+    dim3 grid((a.sq + kBQ - 1) / kBQ, a.Hq, a.B);
+    kern<<<grid, kMmaThreads, Cfg<DP>::dq_smem, st>>>(
+        q, k, v, static_cast<const T*>(a.o), static_cast<const T*>(a.dout),
+        static_cast<const float*>(a.lse), slopes, static_cast<T*>(a.dq),
+        static_cast<float*>(a.delta), a.Hq, a.Hkv, a.sq, a.sk, a.D, a.scale,
+        a.causal, a.window, vec);
+  } else {
+    static bool configured = false;
+    auto kern = flash_bwd_dkv_mma_kernel<T, DP>;
+    if (!configured) {
+      cudaError_t e = allow_smem(kern, Cfg<DP>::dkv_smem);
+      if (e != cudaSuccess) return e;
+      configured = true;
+    }
+    dim3 grid((a.sk + kBKV - 1) / kBKV, a.Hkv, a.B);
+    kern<<<grid, kMmaThreads, Cfg<DP>::dkv_smem, st>>>(
+        q, k, v, static_cast<const T*>(a.dout),
+        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+        slopes, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.Hq, a.Hkv,
+        a.sq, a.sk, a.D, a.scale, a.causal, a.window, vec);
+  }
+  return cudaGetLastError();
 }
 
 int dispatch(int pass, const Args& a, int dtype, void* stream) {
@@ -595,13 +1545,13 @@ int dispatch(int pass, const Args& a, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool wide = a.D > 64;
   if (dtype == 0)
-    return (int)(wide ? run<float, 128>(pass, a, st) : run<float, 64>(pass, a, st));
+    return (int)(wide ? run<128>(pass, a, st) : run<64>(pass, a, st));
   if (dtype == 1)
-    return (int)(wide ? run<__nv_bfloat16, 128>(pass, a, st)
-                      : run<__nv_bfloat16, 64>(pass, a, st));
+    return (int)(wide ? run_mma<__nv_bfloat16, 128>(pass, a, st)
+                      : run_mma<__nv_bfloat16, 64>(pass, a, st));
   if (dtype == 2)
-    return (int)(wide ? run<__half, 128>(pass, a, st)
-                      : run<__half, 64>(pass, a, st));
+    return (int)(wide ? run_mma<__half, 128>(pass, a, st)
+                      : run_mma<__half, 64>(pass, a, st));
   return (int)cudaErrorInvalidValue;
 }
 
@@ -661,14 +1611,26 @@ extern "C" int ds_flash_bwd_dkv(const void* q, const void* k, const void* v,
   return dispatch(kDkv, a, dtype, stream);
 }
 
-// Dynamic shared memory of one block of a pass (0 fwd, 1 dq, 2 dk/dv) at
-// head dim D; ptxas -v does not see dynamic shared memory.
+// Dynamic shared memory of one block of a pass at head dim D: pass 0 fwd,
+// 1 dq, 2 dk/dv on the tensor-core route (bf16, fp16); kFp32Route + the
+// same passes on the fp32 route (FP32_ROUTE_PASS in the Python wrapper).
+// ptxas -v does not see dynamic shared memory.
+constexpr int kFp32Route = 3;
+
 extern "C" int ds_flash_smem_bytes(int pass, int D) {
+  if (pass >= kFp32Route) {
+    pass -= kFp32Route;
+    if (D > 64)
+      return pass == kFwd ? Smem<128>::fwd : pass == kDq ? Smem<128>::dq
+                                                         : Smem<128>::dkv;
+    return pass == kFwd ? Smem<64>::fwd : pass == kDq ? Smem<64>::dq
+                                                      : Smem<64>::dkv;
+  }
   if (D > 64)
-    return pass == kFwd ? Smem<128>::fwd : pass == kDq ? Smem<128>::dq
-                                                       : Smem<128>::dkv;
-  return pass == kFwd ? Smem<64>::fwd : pass == kDq ? Smem<64>::dq
-                                                    : Smem<64>::dkv;
+    return pass == kFwd ? Cfg<128>::fwd_smem
+                        : pass == kDq ? Cfg<128>::dq_smem : Cfg<128>::dkv_smem;
+  return pass == kFwd ? Cfg<64>::fwd_smem
+                      : pass == kDq ? Cfg<64>::dq_smem : Cfg<64>::dkv_smem;
 }
 
 extern "C" const char* ds_cuda_error_string(int err) {

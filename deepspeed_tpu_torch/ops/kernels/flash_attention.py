@@ -12,8 +12,12 @@ saves the fp32 ``lse``; its backward launches the dq kernel (which also
 forms ``delta = rowsum(dO·O)``) and then the dk/dv kernel.
 
 What bounds them on an H100: operations (2 products forward, 5 backward,
-over the live causal keys); the kernels run them in fp32 FMA on the CUDA
-cores, as the Pallas kernel computes in fp32 (see the source's note).
+over the live causal keys).  In bf16 and fp16 the kernels run them on the
+tensor cores (``mma.sync``, fp32 accumulation), feeding the fp32 P and dS
+of the Pallas kernel's arithmetic as hi + lo in the input type, in fp16
+scaled by powers of two (:func:`_emulate_split_products` is that design in
+plain PyTorch, for the tests); in fp32 they run fp32 FMA on the CUDA cores
+(see the source's note).
 
 On CPU tensors :func:`flash_attention` computes :func:`flash_attention_plain`
 (autograd gives its gradients); on CUDA tensors it launches the kernels or
@@ -30,6 +34,9 @@ DEAD_ROW_LSE = -1e30     # lse of a row that sees no key (finite sentinel)
 DEFAULT_BLOCK_Q = 512
 DEFAULT_BLOCK_K = 512
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# ds_flash_smem_bytes(pass, D) reports the fp32 route's pass p (0 fwd, 1 dq,
+# 2 dk/dv) as FP32_ROUTE_PASS + p (kFp32Route in the source)
+FP32_ROUTE_PASS = 3
 
 
 def _mask(sq, sk, causal, window, device):
@@ -110,6 +117,85 @@ def _plain_bwd_dkv(q, k, v, do, lse, delta, scale, causal=True, window=0,
     dk = ds.transpose(-1, -2) @ _heads(q, 1)
     group = lambda x: x.view(B, Hkv, g, sk, D).sum(dim=2).transpose(1, 2)  # noqa: E731
     return group(dk).to(k.dtype), group(dv).to(v.dtype)
+
+
+# fp16's P enters its split scaled by 2^15 (bf16 needs no scale: its lo is a
+# normal number wherever P is), so that lo stays a normal fp16 number for
+# P >= 2^-18; the product is unscaled by the same power of two.
+P_SCALE = {torch.bfloat16: 1.0, torch.float16: 2.0**15}
+DS_EXP_LIMIT = 60   # the dS scale 2^e keeps -60 <= e <= 60
+
+
+def _split(x, dtype):
+    """fp32 x → (hi, lo) in ``dtype``, as fp32: hi = round(x), lo =
+    round(x - hi)."""
+    hi = x.to(dtype).float()
+    return hi, (x - hi).to(dtype).float()
+
+
+def _ds_scale(amax, dtype):
+    """The power of two by which the kernels scale the dS rows whose largest
+    |dS| is ``amax`` before the split: in fp16 it takes amax into
+    [2^14, 2^15), so that hi stays finite and lo a normal number down to
+    2^-17·amax (2^60 where amax is 0 or below 2^-46); 1 in bf16."""
+    if dtype != torch.float16:
+        return torch.ones_like(amax)
+    _, ex = torch.frexp(amax)            # amax = m·2^ex, 0.5 <= m < 1
+    e = torch.where(amax > 0, 15 - ex, DS_EXP_LIMIT)
+    return torch.exp2(e.clamp(-DS_EXP_LIMIT, DS_EXP_LIMIT).float())
+
+
+def _split_matmul(a, b, dtype, scale=1.0, keep_lo=True):
+    """a @ b with a·scale split into hi + lo in ``dtype`` and b exact in it:
+    two products summed into one fp32 result and unscaled (``scale`` a power
+    of two, per row of a), as the tensor-core kernels feed P and dS to their
+    mma.  ``keep_lo=False`` rounds a·scale once (hi alone)."""
+    hi, lo = _split(a * scale, dtype)
+    out = lo @ b + hi @ b if keep_lo else hi @ b
+    return out / scale
+
+
+def _emulate_split_products(q, k, v, do, scale, causal=True, window=0,
+                            slopes=None, keep_lo=True, out_dtype=None):
+    """The tensor-core kernels' numerical design in plain PyTorch, for the
+    tests: S and dP from the exact low-precision inputs in fp32, P and dS
+    fp32, each product that takes P or dS (P·V, dS·K, Pᵀ·dO, dSᵀ·Q) fed
+    P or dS as hi + lo in q's dtype, scaled first by :data:`P_SCALE` or
+    :func:`_ds_scale` (the largest |dS| of each row of the product's first
+    operand, over the whole row and GQA group: the kernels' final scale,
+    the coarsest they use).  → (o, dq, dk, dv) in ``out_dtype`` (q's dtype
+    by default; fp32 shows the products before that rounding); the fp32
+    lse and delta are :func:`_plain_fwd`'s and :func:`_plain_bwd_dq`'s.
+    ``keep_lo=False`` rounds P and dS once instead."""
+    dtype = q.dtype
+    out_dtype = out_dtype or dtype
+    B, sk, Hkv, D = k.shape
+    g = q.shape[2] // Hkv
+    qf, kf, vf, dof = _heads(q, 1), _heads(k, g), _heads(v, g), _heads(do, 1)
+    s, mask = _scores(qf, kf, scale, causal, window, slopes)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - torch.where(m == float("-inf"), 0.0, m))
+    l = p.sum(dim=-1, keepdim=True)
+    pv = _split_matmul(p, vf, dtype, P_SCALE[dtype], keep_lo)
+    o = (pv / torch.where(l == 0, 1.0, l)).transpose(1, 2)
+    lse = torch.where(m == float("-inf"), DEAD_ROW_LSE,
+                      m + torch.log(torch.where(l == 0, 1.0, l)))
+    p = torch.where(mask, torch.exp(s - lse), 0.0)
+    delta = (dof * _heads(o.to(dtype), 1)).sum(dim=-1, keepdim=True)
+    ds = p * (dof @ vf.transpose(-1, -2) - delta) * scale
+    dq = _split_matmul(ds, kf, dtype,
+                       _ds_scale(ds.abs().amax(-1, keepdim=True), dtype),
+                       keep_lo)
+    dv = _split_matmul(p.transpose(-1, -2), dof, dtype, P_SCALE[dtype],
+                       keep_lo)
+    # dk's rows are keys: one scale per key over the kv head's q heads
+    key_max = ds.abs().amax(dim=2).view(B, Hkv, g, sk).amax(dim=2)
+    key_max = key_max.repeat_interleave(g, dim=1)[..., None]
+    dk = _split_matmul(ds.transpose(-1, -2), qf, dtype,
+                       _ds_scale(key_max, dtype), keep_lo)
+    group = lambda x: x.view(B, Hkv, g, sk, D).sum(dim=2).transpose(1, 2)  # noqa: E731
+    return (o.to(out_dtype), dq.transpose(1, 2).to(out_dtype),
+            group(dk).to(out_dtype), group(dv).to(out_dtype))
 
 
 def _slopes_f32(alibi_slopes, Hq, device):

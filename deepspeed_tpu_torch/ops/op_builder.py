@@ -81,14 +81,22 @@ class CUDAOpBuilder:
 
     def finish_build(self, proc):
         """Wait for :meth:`start_build`'s process; returns (seconds, the
-        compiler's output including ``ptxas -v``).  Raises on failure."""
+        compiler's output including ``ptxas -v``; for a library built
+        earlier, 0 and the output its build kept beside it).  Raises on
+        failure."""
         if proc is None:
-            return 0.0, "(cached)"
+            try:
+                with open(self.lib_path() + ".log") as f:
+                    return 0.0, f.read()
+            except OSError:
+                return 0.0, "(cached)"
         log, _ = proc.communicate()
         secs = time.perf_counter() - proc.ds_t0
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {self.NAME} "
                                f"(rc={proc.returncode}):\n{log}")
+        with open(self.lib_path() + ".log", "w") as f:
+            f.write(log)
         os.replace(proc.ds_tmp, self.lib_path())   # atomic publish
         return secs, log
 

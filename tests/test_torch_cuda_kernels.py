@@ -15,7 +15,14 @@ tests/test_torch_cuda_kernels.py``.
 Tolerances, elementwise: attention fp32 1e-4 (same fp32 arithmetic,
 another summation order); attention bf16 2^-7·|ref| + 1e-4 and fp16
 2^-10·|ref| + 1e-4 (both sides accumulate in fp32 and round each output
-once, to 8 or 11 significant bits, so they may differ by one ulp of |ref|).
+once, to 8 or 11 significant bits, so they may differ by one ulp of |ref|;
+the bf16/fp16 flash kernels feed P and dS to the tensor cores as hi + lo
+in the input type, about 16 or 22 significant bits — in fp16 scaled by
+powers of two —, and hold the same tolerances, also over 4096 keys; with
+gradients 2^-12 and 2^10 in size, where an absolute 1e-4 would hide their
+error, the backward is held to the same relative tolerance plus 2^-12 of
+the output's largest value).  The flash kernels are bit-equal across two
+runs (no atomics, a fixed summation order).
 Adam: one fp32 ulp, 2^-23·|ref| (the kernel and its plain version do the
 same fp32 operations in the same order, none contracted into an FMA), and
 one ulp of the copy's type.  LAMB and Lion: m, v, u and Lion's master bit
@@ -135,6 +142,14 @@ FLASH_CASES = {
     "dead_rows": (1, 150, 60, 4, 2, 96, True, 0, False),
     "window_gqa": (1, 300, 300, 8, 2, 128, True, 100, False),
     "alibi": (1, 128, 128, 4, 4, 64, True, 0, True),
+    # head dims that are not multiples of 16: zero-padded columns of the
+    # tensor-core tiles (72: 16-byte copies; 36: element copies)
+    "d72": (2, 150, 150, 4, 2, 72, True, 0, False),
+    "d36_noncausal": (1, 90, 70, 4, 4, 36, False, 0, False),
+    # sq, sk off the 64-row and 64-key tiles, GQA 4:1 and ALiBi together
+    "ragged_gqa_alibi": (2, 200, 333, 8, 2, 128, True, 0, True),
+    # 4096-key sums against the unchanged tolerance
+    "long": (1, 4096, 4096, 4, 4, 128, True, 0, False),
 }
 
 
@@ -173,6 +188,59 @@ def test_flash_kernels_match_plain(card, case, dtype):
     for what, got, ref in (("lse", lse, lse_ref), ("delta", delta,
                                                    delta_ref)):
         assert ((got - ref).abs() <= 1e-4 + 1e-5 * ref.abs()).all(), what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16],
+                         ids=["fp32", "bf16", "fp16"])
+@pytest.mark.parametrize("case", ["window_gqa", "ragged_gqa_alibi", "d72"])
+def test_flash_kernels_are_deterministic(card, case, dtype):
+    """No atomics and a fixed summation order: each kernel run twice on
+    the same inputs gives bit-equal o, lse, dq, delta, dk and dv."""
+    q, k, v, do, kw = _flash_inputs(card, case, dtype)
+    scale = q.shape[-1]**-0.5
+
+    def run():
+        o, lse = fa.flash_attention_fwd(q, k, v, scale, **kw)
+        dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, do, lse, scale,
+                                              **kw)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale,
+                                            **kw)
+        return dict(o=o, lse=lse, dq=dq, delta=delta, dk=dk, dv=dv)
+
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    for what in first:
+        assert torch.equal(first[what], second[what]), what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "fp16"])
+@pytest.mark.parametrize("do_scale", [2.0**-12, 2.0**10])
+def test_flash_backward_holds_gradients_of_any_size(card, dtype, do_scale):
+    """dS is as large as dO, and fp16 keeps dS's bits only through its
+    power-of-two scales.  Held to 2^-10·|ref| (bf16 2^-7·|ref|) plus 2^-12
+    of the output's largest |value| in place of the absolute 1e-4, which
+    gradients 2^-12 in size would meet whatever they held."""
+    q, k, v, do, kw = _flash_inputs(card, "window_gqa", dtype)
+    do = (do.float() * do_scale).to(dtype)
+    scale = q.shape[-1]**-0.5
+    o, lse = fa.flash_attention_fwd(q, k, v, scale, **kw)
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, do, lse, scale, **kw)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale, **kw)
+    dq_ref, _ = fa._plain_bwd_dq(q, k, v, o, do, lse, scale, **kw)
+    dk_ref, dv_ref = fa._plain_bwd_dkv(q, k, v, do, lse, delta, scale, **kw)
+    torch.cuda.synchronize()
+    rtol = 2.0**-10 if dtype == torch.float16 else 2.0**-7
+    for what, got, ref in (("dq", dq, dq_ref), ("dk", dk, dk_ref),
+                           ("dv", dv, dv_ref)):
+        ref = ref.float()
+        tol = rtol * ref.abs() + 2.0**-12 * ref.abs().max()
+        over = (got.float() - ref).abs() / tol
+        assert torch.isfinite(got).all(), what
+        assert over.max().item() <= 1.0, (what, over.max().item())
 
 
 @pytest.mark.cuda

@@ -162,3 +162,164 @@ def test_attention_core_under_the_kernel_switch_matches_jax(monkeypatch, kw):
     got = [x.detach().numpy() for x in (out, qt.grad, kt.grad, vt.grad)]
     for name, g, w in zip(("o", "dq", "dk", "dv"), got, want):
         np.testing.assert_allclose(g, w, err_msg=name, **TOL)
+
+
+# The card's bf16/fp16 kernels feed the fp32 P and dS to their tensor-core
+# products as hi + lo in the input type (scaled by powers of two in fp16);
+# ``_emulate_split_products`` does the same in plain PyTorch.  Held here to
+# the card tests' tolerances (bf16 2^-7·|ref| + 1e-4, fp16 2^-10·|ref| +
+# 1e-4: one ulp of the output plus fp32 differences) against the plain
+# version, which the JAX kernel matches in fp32 on the same (rounded)
+# inputs.  Before the outputs' rounding the products are held to the fp32
+# plain version within SPLIT_BITS of the output's largest value; rounding
+# P and dS once instead (hi alone, as FlashAttention-2 does) breaks both.
+SPLIT_CASES = {
+    "bf16_causal": dict(shape=(1, 256, 256, 4, 4, 64), dtype="bfloat16",
+                        kw=dict(causal=True)),
+    "bf16_gqa_alibi_sq_lt_sk": dict(
+        shape=(1, 200, 256, 4, 1, 40), dtype="bfloat16",
+        kw=dict(causal=True, alibi_slopes=[0.5, 0.25, 0.125, 0.0625])),
+    "fp16_gqa_window": dict(shape=(1, 256, 256, 4, 2, 64), dtype="float16",
+                            kw=dict(causal=True, window=100)),
+    "fp16_noncausal": dict(shape=(2, 256, 192, 2, 2, 32), dtype="float16",
+                           kw=dict(causal=False)),
+}
+# the products' error bound, as a share of the output's largest |value|:
+# P and dS keep about 16 (bf16) or 22 (fp16) bits, less what fp32 sums of
+# a few hundred terms lose
+SPLIT_BITS = {torch.bfloat16: 16, torch.float16: 19}
+
+
+def _split_tol(dtype, ref):
+    rtol = 2.0**-7 if dtype == torch.bfloat16 else 2.0**-10
+    return rtol * ref.abs() + 1e-4
+
+
+def _split_inputs(seed, shape, dtype, do_scale=1.0):
+    q, k, v, do = _inputs(seed, *shape)
+    return [torch.from_numpy(x).to(dtype)
+            for x in (q, k, v, do * np.float32(do_scale))]
+
+
+def _over_card_tolerance(q, k, v, do, scale, causal, window, slopes,
+                         keep_lo):
+    """Worst |emulated - plain| / card tolerance over o, dq, dk, dv."""
+    dtype = q.dtype
+    o, dq, dk, dv = port_fa._emulate_split_products(
+        q, k, v, do, scale, causal, window, slopes, keep_lo=keep_lo)
+    # the plain versions on the same o, as the card tests hold the kernels
+    o_ref, lse = port_fa._plain_fwd(q, k, v, scale, causal, window, slopes)
+    dq_ref, delta = port_fa._plain_bwd_dq(q, k, v, o, do, lse, scale, causal,
+                                          window, slopes)
+    dk_ref, dv_ref = port_fa._plain_bwd_dkv(q, k, v, do, lse, delta, scale,
+                                            causal, window, slopes)
+    worst = {}
+    for name, got, ref in (("o", o, o_ref), ("dq", dq, dq_ref),
+                           ("dk", dk, dk_ref), ("dv", dv, dv_ref)):
+        assert got.dtype == dtype and torch.isfinite(got).all(), name
+        worst[name] = ((got.float() - ref.float()).abs()
+                       / _split_tol(dtype, ref.float())).max().item()
+    return worst
+
+
+def _product_bits(q, k, v, do, scale, causal, window, slopes, keep_lo):
+    """-log2 of max |emulated - plain| / max |plain| for o, dq, dk, dv in
+    fp32 (before the outputs' rounding), the plain version on fp32 copies
+    of the same inputs; the backward reads o rounded, as the kernels do."""
+    f = [t.float() for t in (q, k, v, do)]
+    o_low = port_fa._emulate_split_products(q, k, v, do, scale, causal,
+                                            window, slopes)[0]
+    got = port_fa._emulate_split_products(q, k, v, do, scale, causal, window,
+                                          slopes, keep_lo=keep_lo,
+                                          out_dtype=torch.float32)
+    o_ref, lse = port_fa._plain_fwd(*f[:3], scale, causal, window, slopes)
+    dq_ref, delta = port_fa._plain_bwd_dq(*f[:3], o_low.float(), f[3], lse,
+                                          scale, causal, window, slopes)
+    dk_ref, dv_ref = port_fa._plain_bwd_dkv(*f, lse, delta, scale, causal,
+                                            window, slopes)
+    return {name: -np.log2(((g - r).abs().max() / r.abs().max()).item())
+            for name, g, r in zip(("o", "dq", "dk", "dv"), got,
+                                  (o_ref, dq_ref, dk_ref, dv_ref))}
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_split_products_hold_the_card_tolerance(case):
+    spec = SPLIT_CASES[case]
+    dtype = getattr(torch, spec["dtype"])
+    # inputs exact in the low-precision type, for both packages
+    arrays = _split_inputs(sum(map(ord, case)), spec["shape"], dtype)
+    kw = dict(spec["kw"])
+    causal, window = kw.get("causal", True), kw.get("window", 0)
+    slopes = kw.get("alibi_slopes")
+    slopes = None if slopes is None else torch.tensor(slopes)
+    args = (*arrays, arrays[0].shape[-1]**-0.5, causal, window, slopes)
+    worst = _over_card_tolerance(*args, keep_lo=True)
+    assert max(worst.values()) <= 1.0, worst
+    bits = _product_bits(*args, keep_lo=True)
+    assert min(bits.values()) >= SPLIT_BITS[dtype], bits
+    # a single rounding of P and dS is a different function: the card
+    # tolerance and the products' bound both reject it
+    worst = _over_card_tolerance(*args, keep_lo=False)
+    assert max(worst.values()) > 1.0, worst
+    bits = _product_bits(*args, keep_lo=False)
+    assert max(bits.values()) < SPLIT_BITS[dtype], bits
+    # JAX's kernel agrees with the plain version on these inputs in fp32
+    f32 = [t.float().numpy() for t in arrays]
+    jkw = dict(kw)
+    if slopes is not None:
+        jkw["alibi_slopes"] = jnp.asarray(slopes.numpy())
+    want = _jax(*f32, **jkw)
+    pkw = dict(kw)
+    if slopes is not None:
+        pkw["alibi_slopes"] = slopes
+    got = _port(*f32, **pkw)
+    for name, g, w in zip(("o", "dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g, w, err_msg=name, **TOL)
+
+
+def _split_error(x, dtype, scale):
+    """|hi + lo - x·scale| / scale in float64, hi and lo from the split of
+    x·scale (x fp32, scale a power of two)."""
+    hi, lo = port_fa._split(x * scale, dtype)
+    return (hi.double() + lo.double() - (x * scale).double()).abs() / scale
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "fp16"])
+def test_split_keeps_the_bits_of_p_and_ds(dtype):
+    """hi + lo keeps 16 (bf16) or 21 (fp16) significant bits of P over
+    [2^-18, 1] and of each dS row down to 2^-17 of its largest |dS|, and
+    within 2^-38 of that largest value below; values off the 2^-24 grid,
+    as exponentials and differences are."""
+    bits = 16 if dtype == torch.bfloat16 else 21
+    rng = np.random.default_rng(7)
+    p = torch.from_numpy(np.exp2(-18 * rng.random(4096)).astype(np.float32))
+    err = _split_error(p, dtype, port_fa.P_SCALE[dtype])
+    assert (err <= 2.0**-bits * p.double()).all()
+    # rows of dS from 2^-30 to 2^20 in size, each spanning 2^-40 of its max
+    mag = np.exp2(-40 * rng.random((64, 256)) + rng.uniform(-30, 20, (64, 1)))
+    ds = torch.from_numpy((mag * rng.choice([-1, 1], mag.shape))
+                          .astype(np.float32))
+    amax = ds.abs().amax(-1, keepdim=True)
+    err = _split_error(ds, dtype, port_fa._ds_scale(amax, dtype))
+    big = ds.abs() >= 2.0**-17 * amax
+    assert (err[big] <= 2.0**-bits * ds.abs().double()[big]).all()
+    assert (err <= 2.0**-bits * ds.abs().double()
+            + 2.0**-38 * amax.double()).all()
+    if dtype == torch.float16:
+        # unscaled, fp16's lo is subnormal below 2^-3: bits are lost
+        assert (_split_error(p, dtype, 1.0)
+                > 2.0**-bits * p.double()).any()
+        assert (_split_error(ds, dtype, 1.0)
+                > 2.0**-bits * ds.abs().double()).any()
+
+
+@pytest.mark.parametrize("do_scale", [2.0**-14, 2.0**-8, 2.0**10])
+def test_fp16_split_products_hold_gradients_of_any_size(do_scale):
+    """dS is as large as dO: the fp16 scales keep the products' bound for
+    gradients far from 1, where hi + lo unscaled would lose it."""
+    spec = SPLIT_CASES["fp16_gqa_window"]
+    arrays = _split_inputs(3, spec["shape"], torch.float16, do_scale)
+    bits = _product_bits(*arrays, arrays[0].shape[-1]**-0.5, True, 100,
+                         None, keep_lo=True)
+    assert min(bits.values()) >= SPLIT_BITS[torch.float16], bits
