@@ -12,7 +12,10 @@ PyTorch's current stream) and the custom VJP is :class:`FlashBiasFunction`:
 its forward launches the forward kernel and saves the fp32 ``lse``; its
 backward launches the dq kernel (which also forms ``delta = rowsum(dO·O)``),
 then the dk/dv kernel, then the dbias kernel, whose fp32 sum over each bias
-element's (batch, head) group comes back at the bias's own shape.
+element's (batch, head) group comes back at the bias's own shape.  In bf16
+and fp16 that sum is split into :func:`dbias_splits` chunks of consecutive
+group members, summed into a scratch buffer this module allocates, then
+summed in chunk order (a second kernel in the same call).
 
 Semantics (the TPU kernel's): q, k, v [B, S, H, D] with no GQA; ``bias``
 [Bb, Hb, Sq, Sk] read by batch b at row b // (B // Bb) and by head h at
@@ -22,8 +25,14 @@ without gradient; fp32 scores ``(q·kᵀ)·scale``, then ``+ bias``, then
 outputs 0 with lse -1e30.
 
 What bounds them on an H100: at the Evoformer's head dim of 32, bytes
-(q, k, v, o and their gradients at 3.35 TB/s); the kernels run their
-products in fp32 FMA on the CUDA cores (see the source's note).
+(q, k, v, o, the bias and their gradients at 3.35 TB/s), and below that
+the exponentials (one a score in each kernel).  In bf16 and fp16 the
+kernels run their products on the tensor cores (``mma.sync``, fp32
+accumulation), feeding the fp32 P and dS of the Pallas kernels'
+arithmetic as hi + lo in the input type, in fp16 scaled by powers of two,
+as flash attention's kernels do (:func:`_emulate_tensor_cores` is that
+design in plain PyTorch, for the tests); in fp32 they run fp32 FMA on the
+CUDA cores (see the source's note).
 
 On CPU tensors :func:`flash_attention_bias` computes
 :func:`flash_attention_bias_plain`; on CUDA tensors it launches the kernels
@@ -35,13 +44,35 @@ kernel launches.
 import torch
 
 from ..op_builder import FlashBiasBuilder
-from .flash_attention import check_tiles
+from .flash_attention import (P_SCALE, _ds_scale, _split_matmul,
+                              check_tiles)
 
 DEAD_ROW_LSE = -1e30     # lse of a row that sees no key (finite sentinel)
 # JAX's tile defaults (flash_bias.py:43-44), kept for its signature
 DEFAULT_BLOCK_Q = 256
 DEFAULT_BLOCK_K = 256
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# ds_flash_bias_smem_bytes(pass, D): pass p (0 fwd, 1 dq, 2 dk/dv, 3 dbias)
+# of the tensor-core route with a bf16/fp16 bias is p, with an fp32 bias
+# MMA_FP32_BIAS_PASS + p, of the fp32 route FP32_ROUTE_PASS + p
+MMA_FP32_BIAS_PASS, FP32_ROUTE_PASS = 4, 8
+# the dbias split (bf16/fp16): enough chunks of at least DBIAS_MIN_MEMBERS
+# group members each that the grid reaches DBIAS_TARGET_BLOCKS blocks of
+# 64 x 64 bias elements (several waves on 132 SMs, where one block a bias
+# tile gives 288 at AlphaFold2's MSA-row shape)
+DBIAS_TILE = 64
+DBIAS_MIN_MEMBERS = 16
+DBIAS_TARGET_BLOCKS = 2048
+
+
+def dbias_splits(B, H, sq, sk, Bb, Hb):
+    """Chunks the dbias kernel splits each bias element's Gb·Gh group
+    members into, from the shapes alone (so two runs, and two cards, sum
+    in the same order): 1 for groups under 2·DBIAS_MIN_MEMBERS."""
+    members = (B // Bb) * (H // Hb)
+    tiles = (-(-sq // DBIAS_TILE)) * (-(-sk // DBIAS_TILE)) * Bb * Hb
+    return max(1, min(members // DBIAS_MIN_MEMBERS,
+                      -(-DBIAS_TARGET_BLOCKS // tiles)))
 
 
 def _visible(sq, sk, causal, device):
@@ -132,6 +163,62 @@ def _plain_bwd_dbias(q, k, v, do, lse, delta, bias, mask, scale,
     return ds.view(Bb, B // Bb, Hb, H // Hb, sq, sk).sum(dim=(1, 3))
 
 
+def _emulate_tensor_cores(q, k, v, do, bias, mask, scale, causal=False,
+                          keep_lo=True, o=None):
+    """The bf16/fp16 kernels' numerical design in plain PyTorch, for the
+    tests: S and dP from the exact low-precision inputs in fp32; fp32
+    scores with the bias and the mask added in the kernels' order; P and
+    dS fp32, each product that takes them (P·V, dS·K, Pᵀ·dO, dSᵀ·Q) fed
+    P or dS as hi + lo in q's dtype, scaled first by ``P_SCALE`` or by
+    ``_ds_scale`` of the row's largest |dS| (flash attention's
+    ``_split_matmul``); dbias from the fp32 dS, summed member by member
+    within each of :func:`dbias_splits` chunks and then chunk by chunk.
+    The backward reads ``o`` (the emulated forward's, rounded, by
+    default), as the kernels read o as stored.  → (o, dq, dk, dv) in q's
+    dtype and dbias in fp32.  ``keep_lo=False`` rounds P and dS once
+    instead."""
+    dtype = q.dtype
+    B, sq, H, _ = q.shape
+    sk = k.shape[1]
+    Bb, Hb = bias.shape[:2]
+    qf, kf, vf, dof = _heads(q), _heads(k), _heads(v), _heads(do)
+    s, vis = _scores(q, k, bias, mask, scale, causal)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - torch.where(m == float("-inf"), 0.0, m))
+    l = p.sum(dim=-1, keepdim=True)
+    l_safe = torch.where(l == 0, 1.0, l)
+    o_emu = (_split_matmul(p, vf, dtype, P_SCALE[dtype], keep_lo)
+             / l_safe).transpose(1, 2)
+    lse = torch.where(m == float("-inf"), DEAD_ROW_LSE, m + torch.log(l_safe))
+    o_read = o_emu.to(dtype) if o is None else o
+    delta = (dof * _heads(o_read)).sum(dim=-1, keepdim=True)
+    p = torch.where(vis, torch.exp(s - lse), 0.0)
+    del s
+    ds = p * (dof @ vf.transpose(-1, -2) - delta)
+    dss = ds * scale
+    dq = _split_matmul(dss, kf, dtype,
+                       _ds_scale(dss.abs().amax(-1, keepdim=True), dtype),
+                       keep_lo)
+    dv = _split_matmul(p.transpose(-1, -2), dof, dtype, P_SCALE[dtype],
+                       keep_lo)
+    dk = _split_matmul(dss.transpose(-1, -2), qf, dtype,
+                       _ds_scale(dss.abs().amax(dim=2)[..., None], dtype),
+                       keep_lo)
+    # dbias: member m = (batch member m // Gh, head member m % Gh)
+    groups = ds.view(Bb, B // Bb, Hb, H // Hb, sq, sk).permute(
+        1, 3, 0, 2, 4, 5).reshape(-1, Bb, Hb, sq, sk)
+    G = groups.shape[0]
+    splits = dbias_splits(B, H, sq, sk, Bb, Hb)
+    dbias = None
+    for c in range(splits):
+        part = groups[c * G // splits].clone()
+        for member in range(c * G // splits + 1, (c + 1) * G // splits):
+            part += groups[member]
+        dbias = part if dbias is None else dbias + part
+    return (o_emu.to(dtype), dq.transpose(1, 2).to(dtype),
+            dk.transpose(1, 2).to(dtype), dv.transpose(1, 2).to(dtype), dbias)
+
+
 def _kernel_checks(tensors, bias, mask):
     dtype = tensors[0][1].dtype
     if dtype not in _DTYPE_CODES:
@@ -163,6 +250,16 @@ def _raise_on(lib, err, what):
                            f"{lib.ds_cuda_error_string(err).decode()} ({err})")
 
 
+def _kernel_bias(q, bias):
+    """The bias as the kernels take it: bf16/fp16 inputs read a bias in
+    their own type or in fp32, so a bias of the other 16-bit type goes in
+    as fp32 (exact: the kernels add it in fp32)."""
+    if q.dtype != torch.float32 and bias.dtype not in (q.dtype,
+                                                       torch.float32):
+        return bias.float()
+    return bias
+
+
 def _dims(q, k, bias, mask, scale, causal):
     B, sq, H, D = q.shape
     return (B, H, sq, k.shape[1], D, bias.shape[0], bias.shape[1],
@@ -179,6 +276,7 @@ def flash_bias_fwd(q, k, v, bias, mask, scale, causal=False):
     """Forward kernel: (o [B, sq, H, D] in q's dtype, lse [B, H, sq] fp32).
     CUDA tensors only."""
     _kernel_checks([("q", q), ("k", k), ("v", v)], bias, mask)
+    bias = _kernel_bias(q, bias)
     lib = FlashBiasBuilder().load()
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[0], q.shape[2], q.shape[1],
@@ -201,6 +299,7 @@ def flash_bias_bwd_dq(q, k, v, o, do, lse, bias, mask, scale, causal=False):
     CUDA tensors only."""
     _kernel_checks([("q", q), ("k", k), ("v", v), ("o", o), ("do", do)],
                    bias, mask)
+    bias = _kernel_bias(q, bias)
     lib = FlashBiasBuilder().load()
     dq = torch.empty_like(q)
     delta = torch.empty_like(lse)
@@ -222,6 +321,7 @@ def flash_bias_bwd_dkv(q, k, v, do, lse, delta, bias, mask, scale,
                        causal=False):
     """dk/dv kernel: (dk, dv) in k's dtype.  CUDA tensors only."""
     _kernel_checks([("q", q), ("k", k), ("v", v), ("do", do)], bias, mask)
+    bias = _kernel_bias(q, bias)
     lib = FlashBiasBuilder().load()
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -242,16 +342,28 @@ flash_bias_bwd_dkv.launches = 0
 def flash_bias_bwd_dbias(q, k, v, do, lse, delta, bias, mask, scale,
                          causal=False):
     """dbias kernel: fp32 [Bb, Hb, sq, sk], summed over each element's
-    group members in a fixed order (bit-identical across runs).  CUDA
+    group members in a fixed order (bit-identical across runs); in
+    bf16/fp16 through a scratch of :func:`dbias_splits` partial planes,
+    freed on return.  One launch of the wrapper, two kernels.  CUDA
     tensors only."""
     _kernel_checks([("q", q), ("k", k), ("v", v), ("do", do)], bias, mask)
+    bias = _kernel_bias(q, bias)
     lib = FlashBiasBuilder().load()
     dbias = torch.empty(bias.shape, dtype=torch.float32, device=q.device)
+    splits = 1
+    if q.dtype != torch.float32:
+        B, sq, H, _ = q.shape
+        splits = dbias_splits(B, H, sq, k.shape[1], *bias.shape[:2])
+    # the chunks' partial sums, summed in order by the second kernel
+    scratch = (torch.empty((splits, ) + tuple(bias.shape),
+                           dtype=torch.float32, device=q.device)
+               if splits > 1 else None)
     with torch.cuda.device(q.device):
         err = lib.ds_flash_bias_bwd_dbias(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), bias.data_ptr(), _ptr(mask),
-            dbias.data_ptr(), *_dims(q, k, bias, mask, scale, causal))
+            dbias.data_ptr(), _ptr(scratch), splits,
+            *_dims(q, k, bias, mask, scale, causal))
     _raise_on(lib, err, "dbias")
     flash_bias_bwd_dbias.launches += 1
     return dbias

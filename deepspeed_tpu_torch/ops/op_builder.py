@@ -4,9 +4,10 @@
 A CUDA kernel of this package is a ``csrc/*.cu`` file with a plain C
 interface.  ``nvcc`` compiles it for Hopper (``sm_90a``) into a shared
 library under a build directory that git ignores, named by a hash of the
-source and the flags, and ``ctypes`` loads it.  No PyTorch headers are
-included, so a build takes seconds.  The build happens at first use, never
-at import; ``build_all`` starts one ``nvcc`` per source at once.
+source, the headers it includes from ``csrc/`` and the flags, and
+``ctypes`` loads it.  No PyTorch headers are included, so a build takes
+seconds.  The build happens at first use, never at import; ``build_all``
+starts one ``nvcc`` per source at once.
 
 The build directory is ``$DS_TORCH_BUILD_DIR`` if set, else
 ``build/deepspeed_tpu_torch/`` beside the package.
@@ -15,6 +16,7 @@ The build directory is ``$DS_TORCH_BUILD_DIR`` if set, else
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -22,6 +24,8 @@ import time
 from ..utils.logging import logger
 
 _PKG_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -56,10 +60,27 @@ class CUDAOpBuilder:
     def source(self):
         return os.path.join(_PKG_ROOT, self.SOURCE)
 
+    def sources(self):
+        """The ``.cu`` source and every header it includes by a quoted
+        ``#include`` beside it (headers' own includes followed)."""
+        found, todo = [], [self.source()]
+        while todo:
+            path = todo.pop()
+            if path in found or not os.path.exists(path):
+                continue
+            found.append(path)
+            with open(path, errors="replace") as f:
+                for name in _INCLUDE.findall(f.read()):
+                    todo.append(os.path.join(os.path.dirname(path), name))
+        return found
+
     def lib_path(self):
+        """Named by a hash of the flags, the source and its headers: an
+        edited header builds a new library."""
         h = hashlib.sha256()
-        with open(self.source(), "rb") as f:
-            h.update(f.read())
+        for path in self.sources():
+            with open(path, "rb") as f:
+                h.update(f.read())
         h.update(" ".join(NVCC_FLAGS).encode())
         return os.path.join(build_dir(),
                             f"lib{self.NAME}-{h.hexdigest()[:16]}.so")
@@ -233,10 +254,11 @@ class FlashBiasBuilder(CUDAOpBuilder):
         dims = [i] * 8 + [f, i, i, i, p]
         # tensors: q k v bias mask o lse | q k v o do lse bias mask dq delta
         # | q k v do lse delta bias mask dk dv | ... bias mask dbias
+        # scratch, then the dbias split count
         lib.ds_flash_bias_fwd.argtypes = [p] * 7 + dims
         lib.ds_flash_bias_bwd_dq.argtypes = [p] * 10 + dims
         lib.ds_flash_bias_bwd_dkv.argtypes = [p] * 10 + dims
-        lib.ds_flash_bias_bwd_dbias.argtypes = [p] * 9 + dims
+        lib.ds_flash_bias_bwd_dbias.argtypes = [p] * 10 + [i] + dims
         for fn in (lib.ds_flash_bias_fwd, lib.ds_flash_bias_bwd_dq,
                    lib.ds_flash_bias_bwd_dkv, lib.ds_flash_bias_bwd_dbias):
             fn.restype = i

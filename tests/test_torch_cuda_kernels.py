@@ -34,9 +34,12 @@ result.  Grouped matmul: fp32 1e-4 + 1e-5·|ref| (fp32 FMA in another
 order); bf16 2^-7·|ref| and fp16 2^-10·|ref|, each plus 1e-4 (both sides
 sum in fp32 and round once).  Quantize and dequantize: bit for bit (the
 same fp32 operations, a true division and round half to even).  Flash
-bias: o, dq, dk, dv as flash attention's; lse, delta and the fp32 dbias
-1e-4 + 1e-5·|ref| (fp32 sums in another order); dbias bit for bit across
-two runs (a fixed summation order).  Block-sparse attention: as flash
+bias: o, dq, dk, dv as flash attention's (its bf16/fp16 kernels are on
+the tensor cores with the same hi + lo design, held also with dO × 2^-12
+and × 2^10); lse, delta and the fp32 dbias 1e-4 + 1e-5·|ref| (fp32 sums
+in another order; the absolute term scaled with dO); dbias bit for bit
+across two runs (a fixed summation order, also where it is split into
+chunks summed by a second kernel).  Block-sparse attention: as flash
 attention's (fp32 sums in another order: 64 keys a pass where the plain
 version takes one layout block a step).  FP quantizer: codes and scales
 bit for bit.
@@ -528,6 +531,8 @@ FLASH_BIAS_CASES = {
     "causal_sq_lt_sk_d128": (1, 80, 150, 2, 128, (1, 1), 1, True, False),
     "d64_fp32_bias": (2, 130, 130, 2, 64, (1, 1), 2, False, True),
     "unaligned_d12": (2, 37, 29, 3, 12, (2, 3), 0, False, False),
+    # a group of 64 members: the bf16/fp16 dbias splits it into 4 chunks
+    "msa_group64_split": (64, 100, 100, 4, 32, (1, 4), 64, False, False),
 }
 
 
@@ -589,6 +594,66 @@ def test_flash_bias_kernels_match_plain(card, case, dtype):
         dead = q.shape[1] - k.shape[1]
         assert (lse[:, :, :dead] == fb.DEAD_ROW_LSE).all()
         assert not o[:, :dead].any() and not dq[:, :dead].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "fp16"])
+@pytest.mark.parametrize("do_scale", [2.0**-12, 2.0**10])
+def test_flash_bias_backward_holds_gradients_of_any_size(card, dtype,
+                                                         do_scale):
+    """B10's twin of the flash test above: dS is as large as dO, and fp16
+    keeps dS's bits only through its power-of-two scales.  dq, dk, dv
+    held to 2^-10·|ref| (bf16 2^-7·|ref|) plus 2^-12 of the output's
+    largest |value|; dbias, linear in dO, to the usual 1e-5·|ref| with
+    its absolute 1e-4 scaled by dO's factor."""
+    q, k, v, do, bias, mask, causal = _flash_bias_inputs(
+        card, "msa_group64_split", dtype)
+    do = (do.float() * do_scale).to(dtype)
+    args = (bias, mask, q.shape[-1]**-0.5, causal)
+    o, lse = fb.flash_bias_fwd(q, k, v, *args)
+    dq, delta = fb.flash_bias_bwd_dq(q, k, v, o, do, lse, *args)
+    dk, dv = fb.flash_bias_bwd_dkv(q, k, v, do, lse, delta, *args)
+    dbias = fb.flash_bias_bwd_dbias(q, k, v, do, lse, delta, *args)
+    dq_ref, _ = fb._plain_bwd_dq(q, k, v, o, do, lse, *args)
+    dk_ref, dv_ref = fb._plain_bwd_dkv(q, k, v, do, lse, delta, *args)
+    dbias_ref = fb._plain_bwd_dbias(q, k, v, do, lse, delta, *args)
+    torch.cuda.synchronize()
+    rtol = 2.0**-10 if dtype == torch.float16 else 2.0**-7
+    for what, got, ref in (("dq", dq, dq_ref), ("dk", dk, dk_ref),
+                           ("dv", dv, dv_ref)):
+        ref = ref.float()
+        tol = rtol * ref.abs() + 2.0**-12 * ref.abs().max()
+        over = (got.float() - ref).abs() / tol
+        assert torch.isfinite(got).all(), what
+        assert over.max().item() <= 1.0, (what, over.max().item())
+    tol = 1e-4 * do_scale + 1e-5 * dbias_ref.abs()
+    assert ((dbias - dbias_ref).abs() <= tol).all()
+
+
+@pytest.mark.cuda
+def test_flash_bias_takes_a_bias_of_the_other_16_bit_type(card):
+    """fp16 inputs with a bf16 bias: the tensor-core kernels read a bias in
+    the input type or fp32, so the wrapper hands them this one in fp32
+    (exact); every output equals the run given that fp32 bias, bit for
+    bit."""
+    q, k, v, do, bias, mask, causal = _flash_bias_inputs(
+        card, "msa_d32_mask", torch.float16)
+    b16 = bias.to(torch.bfloat16)
+
+    def run(b):
+        args = (b, mask, q.shape[-1]**-0.5, causal)
+        o, lse = fb.flash_bias_fwd(q, k, v, *args)
+        dq, delta = fb.flash_bias_bwd_dq(q, k, v, o, do, lse, *args)
+        dk, dv = fb.flash_bias_bwd_dkv(q, k, v, do, lse, delta, *args)
+        dbias = fb.flash_bias_bwd_dbias(q, k, v, do, lse, delta, *args)
+        return o, lse, dq, delta, dk, dv, dbias
+
+    got, want = run(b16), run(b16.float())
+    torch.cuda.synchronize()
+    for what, a, b in zip(("o", "lse", "dq", "delta", "dk", "dv", "dbias"),
+                          got, want):
+        assert torch.equal(a, b), what
 
 
 @pytest.mark.cuda
