@@ -9,10 +9,12 @@ Stages, run in the order 1-21; any failure exits non-zero:
 2. build: every ``deepspeed_tpu_torch/csrc/*.cu`` with nvcc for sm_90a
    (one nvcc per source, started together), with ``ptxas -v``; for each
    of the twelve tensor-core flash kernels (forward, dq, dk/dv × bf16,
-   fp16 × head dim 64, 128) and the 48 tensor-core flash-bias kernels
+   fp16 × head dim 64, 128), the 48 tensor-core flash-bias kernels
    (forward, dq, dk/dv, dbias × bf16, fp16 × a bias in the input type or
-   fp32 × head dim 32, 64, 128) its registers, spill bytes, stack and
-   dynamic shared memory on a line of its own;
+   fp32 × head dim 32, 64, 128), the 8 tensor-core block-sparse kernels
+   (bf16, fp16 × head dim 16-128) and the 4 wgmma/TMA grouped-matmul
+   kernels (bf16, fp16 × 64 or 128 rows a tile) its registers, spill
+   bytes, stack and (flash) dynamic shared memory on a line of its own;
 3. each kernel against its plain PyTorch version in bf16 at the shapes
    stage 4 gives it (16 decode rows; 47 atom-16 tiles), and at Llama-2-7B
    (H=Hkv=32, Dh=128, block 128) and Mistral-7B GQA (H=32, Hkv=8, window
@@ -77,20 +79,28 @@ Stages, run in the order 1-21; any failure exits non-zero:
 13. the kernels of the MoE and quantized-serving slice against their plain
     versions: the grouped matmul in bf16 at Mixtral-8x7B's expert shapes
     (K=4096, N=14336 and K=14336, N=4096, E=8) for decode (16 rows, 2 per
-    expert) and prefill (1,536 rows, uneven, one expert empty), and in
-    fp32 at K=1000, N=1003 (within 2^-7·|ref| + 1e-4 in bf16); blockwise
+    expert) and prefill (1,536 rows, uneven, one expert empty), on the
+    mma.sync kernel at prefill's rows with K=4064 and with x 8 bytes off,
+    and in fp32 at K=1000, N=1003 (within 2^-7·|ref| + 1e-4 in bf16);
+    blockwise
     quantize and dequantize over one layer's w1 stack (469,762,048
     elements), int8 and int4, groups of 128 and 2048, bf16 and fp32 input
     (bit for bit); times of each kernel, its plain version, a library call
     for the grouped matmul (``torch._grouped_mm`` where this torch has it,
-    else a per-expert ``torch.matmul`` loop) and the bound;
+    else a per-expert ``torch.matmul`` loop) and the bound; each grouped
+    matmul case's route (Mixtral's shapes must take wgmma + TMA: 64-row
+    tiles for decode, 128 for prefill; shapes TMA cannot take mma.sync;
+    fp32 the CUDA cores), TFLOP/s and share of the bound, and for the
+    tensor-core kernels their registers, spills and SASS counts (HGMMA and
+    UTMALDG of wgmma/TMA, HMMA of mma.sync; a count of 0 fails);
 14. Mixtral serving at full width: Mixtral-8x7B's published config cut
     from 32 to 16 layers (32 do not fit in 80 GB in bf16), random bf16
     weights made on the card one tensor at a time as the checkpoint
     streams them into the expert stacks (``build_engine_from_checkpoint``);
     stage 4's engine config and requests: rates, TTFT, peak memory, the
-    grouped matmul's launches (exactly 3 × 16 × ragged steps) and paged
-    attention's, finite logits;
+    grouped matmul's launches (exactly 3 × 16 × ragged steps, all on the
+    wgmma/TMA routes, counted by route) and paged attention's, finite
+    logits;
 15. Llama-2-7B at full width and depth with ``quantization_mode="int8"``:
     quantize launches at build (one per weight), dequantize launches
     (weights × ragged steps, exactly), resident weight bytes, rates, and a
@@ -130,7 +140,9 @@ Stages, run in the order 1-21; any failure exits non-zero:
     global patterns over the heads) at BERT-large width (16 heads × 64),
     B=2, S=4096, bf16; (c) (b) unidirectional in fp16; times of the
     kernel, the plain version and ``scaled_dot_product_attention`` with
-    the dense boolean mask the layout expands to, and the bound;
+    the dense boolean mask the layout expands to, and the bound; the
+    kernel's TFLOP/s and share of the bound, its registers, spills and
+    HMMA count (none fails) and its row groups;
 20. ``SparseSelfAttention`` forward and backward at (a) and (c) through its
     [B, H, S, D] entry: ms per forward and per forward+backward, exactly
     one kernel launch per forward, peak memory above the inputs, the
@@ -304,9 +316,23 @@ def stage_build():
         BlockSparseAttentionBuilder
     slib = BlockSparseAttentionBuilder().load()
     log("[build]   block_sparse_attention dynamic shared memory per block "
-        "(bytes): " + ", ".join(
-            f"block{b}/D{d} {slib.ds_block_sparse_attention_smem_bytes(b, d)}"
-            for b in (16, 64) for d in (64, 128)))
+        "(bytes), fp32 route: " + ", ".join(
+            f"block{b}/D{d} "
+            f"{slib.ds_block_sparse_attention_smem_bytes(b, d, 0)}"
+            for b in (16, 64) for d in (64, 128)) + "; tensor cores: " +
+        ", ".join(f"D{d} {slib.ds_block_sparse_attention_smem_bytes(16, d, 1)}"
+                  for d in (16, 32, 64, 128)))
+    for name, key_fn, want in (("block_sparse_attention", _bsa_mma_key, 8),
+                               ("grouped_matmul", _gmm_tma_key, 4)):
+        usage = _ptxas_usage(results[name][1], key_fn)
+        for key, u in sorted(usage.items()):
+            log(f"[build]   {name} {key}: {u.get('registers', '?')} "
+                f"registers, {u.get('spill_stores', '?')} B spill stores, "
+                f"{u.get('spill_loads', '?')} B spill loads, "
+                f"{u.get('stack', '?')} B stack")
+        if len(usage) != want:
+            raise AssertionError(f"ptxas -v reported {len(usage)} of the "
+                                 f"{want} new {name} kernels")
     log(f"[build] all kernels: {time.perf_counter() - t0:.1f} s")
 
 
@@ -879,10 +905,12 @@ def _ptxas_usage(out, key_fn=_flash_mma_key):
     return usage
 
 
-def _flash_sass(builder=None, key_fn=_flash_mma_key):
-    """{key: (HMMA count, FFMA count)} of the kernels ``key_fn`` names in
+def _flash_sass(builder=None, key_fn=_flash_mma_key,
+                ops=(" HMMA.", " FFMA")):
+    """{key: [count of each of ``ops``]} of the kernels ``key_fn`` names in
     a built library's SASS (``cuobjdump -sass``, which ships beside nvcc);
-    by default B1's tensor-core kernels in the flash library."""
+    by default B1's tensor-core kernels in the flash library, their HMMA
+    and FFMA counts."""
     from deepspeed_tpu_torch.ops.op_builder import (FlashAttentionBuilder,
                                                     find_nvcc)
     tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
@@ -897,11 +925,48 @@ def _flash_sass(builder=None, key_fn=_flash_mma_key):
         if m:
             key = key_fn(m.group(1))
             if key:
-                counts[key] = [0, 0]
+                counts[key] = [0] * len(ops)
         elif key is not None:
-            counts[key][0] += " HMMA." in line
-            counts[key][1] += " FFMA" in line
+            for i, op in enumerate(ops):
+                counts[key][i] += op in line
     return counts
+
+
+_BSA_MMA = re.compile(r"bsa_fwd_mma_kernelI(13__nv_bfloat16|6__half)Li(\d+)E")
+_GMM_TMA = re.compile(r"gmm_tma_kernelI(13__nv_bfloat16|6__half)Li(\d)E")
+_GMM_MMA = re.compile(r"gmm_mma_kernelI(13__nv_bfloat16|6__half)Lb([01])E")
+
+
+def _bsa_mma_key(symbol):
+    """(dtype, padded D) of a tensor-core B9 kernel's mangled name."""
+    m = _BSA_MMA.search(symbol)
+    return m and ("bf16" if "bfloat16" in m.group(1) else "fp16",
+                  int(m.group(2)))
+
+
+def _gmm_tma_key(symbol):
+    """(dtype, consumer warpgroups) of a wgmma/TMA B7 kernel's name."""
+    m = _GMM_TMA.search(symbol)
+    return m and ("bf16" if "bfloat16" in m.group(1) else "fp16",
+                  int(m.group(2)))
+
+
+def _gmm_mma_key(symbol):
+    """(dtype, 16-byte copies) of an mma.sync B7 kernel's mangled name."""
+    m = _GMM_MMA.search(symbol)
+    return m and ("bf16" if "bfloat16" in m.group(1) else "fp16",
+                  m.group(2) == "1")
+
+
+def _kernel_report(builder, key_fn, key, ops):
+    """Registers and spills (``ptxas -v``, kept beside the library) and the
+    SASS counts of ``ops`` of one kernel; (dict, counts)."""
+    usage = _ptxas_usage(builder.finish_build(None)[1], key_fn).get(key, {})
+    counts = _flash_sass(builder, key_fn, ops).get(key, [0] * len(ops))
+    return dict(registers=usage.get("registers"),
+                spill_stores=usage.get("spill_stores"),
+                spill_loads=usage.get("spill_loads"),
+                **{op.strip(" ."): n for op, n in zip(ops, counts)}), counts
 
 
 FP32_FLOPS = 67e12               # H100 SXM fp32 outside the tensor cores
@@ -1763,19 +1828,29 @@ def stage_overflow_and_guard(seed):
 
 
 # --------------------------------------------------------------- stage 13
-def _gmm_case(torch, gen, name, sizes, K, N, dtype):
+def _gmm_case(torch, gen, name, sizes, K, N, dtype, route, x_offset=0):
     """The grouped matmul on the shapes of one Mixtral expert product:
     kernel against its plain version on the same inputs, with the times of
-    both, of a library call and the bound."""
+    both, of a library call and the bound; the launch must take ``route``
+    (its kernel's registers, spills and SASS counts: HGMMA and UTMALDG on
+    a wgmma/TMA route, HMMA on mma.sync, none of either failing).  x
+    starts ``x_offset`` elements into its buffer."""
     from deepspeed_tpu_torch.ops.kernels import grouped_matmul as gm
+    from deepspeed_tpu_torch.ops.op_builder import GroupedMatmulBuilder
     dt = getattr(torch, dtype)
     T, E = sum(sizes), len(sizes)
-    x = torch.randn(T, K, device="cuda", generator=gen).to(dt)
+    x = torch.randn(T * K + x_offset, device="cuda", generator=gen).to(dt)
+    x = x[x_offset:].view(T, K)
     w = (torch.randn(E, K, N, device="cuda", generator=gen)
          / K**0.5).to(dt)
     gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    gm.gmm.route_launches = dict.fromkeys(gm.ROUTES, 0)
     got = gm.gmm(x, w, gs)
     torch.cuda.synchronize()
+    routes = {r: n for r, n in gm.gmm.route_launches.items() if n}
+    if routes != {route: 1}:
+        raise AssertionError(f"gmm {name}: launches by route {routes}, want "
+                             f"one on {route}")
     ref = gm.gmm_plain(x, w, gs)
     err, worst = _compare(torch, got, ref, dt != torch.float32)
     ms = cuda_ms(lambda: gm.gmm(x, w, gs), 10)
@@ -1816,18 +1891,44 @@ def _gmm_case(torch, gen, name, sizes, K, N, dtype):
                       BF16_FLOPS if dt != torch.float32 else FP32_FLOPS)
     tol_text = ("2^-7·|ref| + 1e-4" if dt != torch.float32
                 else f"{FP32_ATOL:g} + {FP32_RTOL:g}·|ref|")
+    row = dict(case=name, err=err, err_over_tol=worst, ms=ms,
+               plain_ms=plain_ms, library_ms=lib_ms, library=lib_kind,
+               bound_ms=bound[0], bound_by=bound[1], rows=T, K=K, N=N,
+               route=route, tflops=flops / ms / 1e9,
+               share_of_bound=bound[0] / ms,
+               library_tflops=flops / lib_ms / 1e9)
     log(f"[moe-kernel] gmm {name}: x [{T},{K}] w [{E},{K},{N}] {dtype} "
-        f"groups {sizes if len(set(sizes)) > 1 else f'{E}×{sizes[0]}'}: "
-        f"max_abs_err {err:.3e}, worst |err| / ({tol_text}) {worst:.3f} | "
-        f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
-        f"{plain_ms:.4f} ms, {lib_kind} {lib_ms:.4f} ms (err {lib_err:.2e})"
-        f" | bound {bound[0]:.4f} ms by {bound[1]}")
+        f"groups {sizes if len(set(sizes)) > 1 else f'{E}×{sizes[0]}'}, "
+        f"route {route}: max_abs_err {err:.3e}, worst |err| / ({tol_text}) "
+        f"{worst:.3f} | kernel {ms:.4f} ms ({row['tflops']:.1f} TFLOP/s, "
+        f"{row['share_of_bound']:.3f} of the bound), plain {plain_ms:.4f} "
+        f"ms, {lib_kind} {lib_ms:.4f} ms ({row['library_tflops']:.1f} "
+        f"TFLOP/s, err {lib_err:.2e}) | bound {bound[0]:.4f} ms by "
+        f"{bound[1]}")
     if not worst <= 1.0:
         raise AssertionError(f"gmm {name}: kernel differs from its plain "
                              f"version by {worst} × ({tol_text})")
-    return dict(case=name, err=err, err_over_tol=worst, ms=ms,
-                plain_ms=plain_ms, library_ms=lib_ms, library=lib_kind,
-                bound_ms=bound[0], bound_by=bound[1], rows=T, K=K, N=N)
+    tag = "bf16" if dt == torch.bfloat16 else "fp16"
+    if route.startswith("wgmma_tma"):
+        kernel, key_fn, ops = "gmm_tma_kernel", _gmm_tma_key, (" HGMMA.",
+                                                                " UTMALDG")
+        key = (tag, 1 if route == "wgmma_tma_64" else 2)
+    elif route == "mma_sync":
+        kernel, key_fn, ops = "gmm_mma_kernel", _gmm_mma_key, (" HMMA.", )
+        key = (tag, K % 8 == 0 and N % 8 == 0 and x.data_ptr() % 16 == 0
+               and w.data_ptr() % 16 == 0)      # launch_mma's 16-byte rule
+    else:
+        return row
+    report, counts = _kernel_report(GroupedMatmulBuilder(), key_fn, key, ops)
+    row["kernel"] = report
+    log(f"[moe-kernel] gmm {name}: {kernel} {key}: {report['registers']} "
+        f"registers, {report['spill_stores']} / {report['spill_loads']} B "
+        f"spill stores / loads, SASS " + " / ".join(
+            f"{n} {op.strip(' .')}" for op, n in zip(ops, counts)))
+    if not all(counts):
+        raise AssertionError(f"gmm {name}: no {' or no '.join(ops)} in the "
+                             f"SASS of {kernel} {key}")
+    return row
 
 
 def _quant_case(torch, gen, dtype, bits, group_size):
@@ -1886,13 +1987,22 @@ def stage_moe_quant_kernels(seed):
     D, I, E = 4096, 14336, 8
     prefill = [96, 0, 412, 230, 318, 57, 269, 154]      # 1,536 rows
     gmm_rows = []
-    for name, sizes in (("decode", [2] * E), ("prefill", prefill)):
+    for name, sizes, route in (("decode", [2] * E, "wgmma_tma_64"),
+                               ("prefill", prefill, "wgmma_tma")):
         for proj, K, N in (("w1", D, I), ("w2", I, D)):
             gmm_rows.append(_gmm_case(torch, gen, f"{name}_{proj}", sizes,
-                                      K, N, "bfloat16"))
+                                      K, N, "bfloat16", route))
             _free(torch)
+    # shapes TMA cannot take keep the mma.sync kernel: a K that is not a
+    # multiple of 64 (16-byte copies), and w1 with x 8 bytes off (element
+    # copies)
+    for name, K, off in (("mma_k4064_w1", D - 32, 0),
+                         ("mma_unaligned_w1", D, 4)):
+        gmm_rows.append(_gmm_case(torch, gen, name, prefill, K, I,
+                                  "bfloat16", "mma_sync", x_offset=off))
+        _free(torch)
     gmm_rows.append(_gmm_case(torch, gen, "fp32_ragged", [37, 0, 91, 5],
-                              1000, 1003, "float32"))
+                              1000, 1003, "float32", "fp32"))
     _free(torch)
     quant_rows = [_quant_case(torch, gen, dtype, bits, gs)
                   for dtype in ("bfloat16", "float32") for bits in (8, 4)
@@ -1997,11 +2107,15 @@ def _serve_run(eng, prompts, new_tokens, counters):
     torch.cuda.synchronize()
     for fn in counters.values():
         fn.launches = 0
+        if hasattr(fn, "route_launches"):
+            fn.route_launches = dict.fromkeys(fn.route_launches, 0)
     start = time.perf_counter()
     outs = eng.generate(prompts, max_new_tokens=new_tokens)
     torch.cuda.synchronize()
     wall = time.perf_counter() - start
     launches = {name: fn.launches for name, fn in counters.items()}
+    routes = {name: dict(fn.route_launches) for name, fn in counters.items()
+              if hasattr(fn, "route_launches")}
     peak = torch.cuda.max_memory_allocated()
     bursts = getattr(eng, "burst_steps", 0)
     del eng.schedule_step
@@ -2031,7 +2145,7 @@ def _serve_run(eng, prompts, new_tokens, counters):
                 decode_tok_s=(n_gen - len(prompts)) / (wall - prefill_end),
                 ttft_mean_s=float(np.mean(ttft)), ttft_max_s=prefill_end,
                 peak_bytes=peak, steps=steps[0], bursts=bursts,
-                launches=launches,
+                launches=launches, route_launches=routes,
                 prompt_lengths=lengths, same_tokens_rerun=again == outs)
 
 
@@ -2088,7 +2202,13 @@ def stage_mixtral_serve(seed, smi, profile_dir=None):
                              f"{r['launches']}")
     log(f"[mixtral] gmm launches {r['launches']['gmm']} = 3 × "
         f"{cfg.num_hidden_layers} layers × {r['steps']} ragged steps "
-        f"(decode-burst steps counted each)")
+        f"(decode-burst steps counted each); by route "
+        f"{r['route_launches']['gmm']}")
+    tma = sum(n for route, n in r["route_launches"]["gmm"].items()
+              if route.startswith("wgmma_tma"))
+    if tma != r["launches"]["gmm"]:
+        raise AssertionError(f"Mixtral's gmm launches did not all take the "
+                             f"wgmma/TMA routes: {r['route_launches']}")
     if profile_dir:
         r["profile"] = profile_serve(eng, _serve_prompts(seed + 1),
                                      profile_dir, smi, stem="mixtral")
@@ -2825,12 +2945,19 @@ def _sparse_case(torch, gen, name):
     kernel, the plain version and SDPA with the dense boolean mask the
     layout expands to; the bound."""
     import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
     from deepspeed_tpu_torch.ops.kernels import block_sparse_attention as bs
+    from deepspeed_tpu_torch.ops.op_builder import \
+        BlockSparseAttentionBuilder
     cfg, B, S, dtype = _sparse_config(name)
     dt = getattr(torch, dtype)
     H, D, block = cfg.num_heads, 64, cfg.block
     causal = getattr(cfg, "attention", "") == "unidirectional"
-    layout = cfg.make_layout(S)
+    # immutable (on a bytes buffer), as SparseSelfAttention hands its
+    # layouts over: the kernel's tables are then found by identity, not by
+    # hashing the layout's contents (1 MB at block 16, about 1 ms of host
+    # time a call)
+    layout = sa.SparseSelfAttention(cfg).layout(S)
     q, k, v = (torch.randn(B, S, H, D, device="cuda", generator=gen).to(dt)
                for _ in range(3))
     fwd = lambda: bs.block_sparse_attention_fwd(  # noqa: E731
@@ -2849,7 +2976,7 @@ def _sparse_case(torch, gen, name):
         q, k, v, layout, block, causal=causal), 3, warmup=1)
     _free(torch)
     # yardstick: SDPA with the layout expanded to a dense [H, S, S] mask
-    full = torch.from_numpy(layout).to("cuda").repeat_interleave(
+    full = torch.from_numpy(layout.copy()).to("cuda").repeat_interleave(
         block, dim=1).repeat_interleave(block, dim=2)
     if causal:
         full &= torch.ones(S, S, dtype=torch.bool, device="cuda").tril()
@@ -2867,6 +2994,8 @@ def _sparse_case(torch, gen, name):
     row["density"] = live / (S // block) ** 2
     row["gflop"] = flops / 1e9
     row["bound_ms"], row["bound_by"] = _roofline(nbytes, flops, BF16_FLOPS)
+    row["tflops"] = flops / row["ms"] / 1e9
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
     tol_text = f"2^-{7 if low == 'bf16' else 10}·|ref| + {BF16_ATOL:g}"
     log(f"[sparse-kernel] {name}: q/k/v [{B},{S},{H},{D}] {dtype} block "
         f"{block} causal={causal}: {live:.1f} live blocks per head of "
@@ -2876,9 +3005,24 @@ def _sparse_case(torch, gen, name):
         f"{row['plain_ms']:.3f}, sdpa+bool mask {row['library_ms']:.4f} "
         f"(max |sdpa - kernel| {row['sdpa_vs_kernel']:.3e}), bound "
         f"{row['bound_ms']:.4f} ({row['bound_by']})")
+    groups = bs.row_group_tables(layout, H, block)[0]
+    row["row_groups"] = len(groups)
+    row["split_groups"] = int((groups[:, 3:7] < 0).any(axis=1).sum())
+    report, counts = _kernel_report(BlockSparseAttentionBuilder(),
+                                    _bsa_mma_key, (low, 64), (" HMMA.",))
+    row["kernel"] = report
+    log(f"[sparse-kernel] {name}: {row['tflops']:.1f} TFLOP/s of useful "
+        f"work, {row['share_of_bound']:.3f} of the bound | "
+        f"bsa_fwd_mma_kernel ({low}, D64): {report['registers']} registers, "
+        f"{report['spill_stores']} / {report['spill_loads']} B spill stores "
+        f"/ loads, SASS {counts[0]} HMMA | {len(groups)} row groups of 64 "
+        f"rows ({row['split_groups']} with idle warps)")
     if not worst <= 1.0 or not torch.isfinite(o).all():
         raise AssertionError(f"{name}: block-sparse kernel differs from its "
                              f"plain version beyond tolerance ({worst})")
+    if not counts[0]:
+        raise AssertionError(f"{name}: no HMMA in the SASS of "
+                             f"bsa_fwd_mma_kernel ({low}, D64)")
     del q, k, v, o
     _free(torch)
     return row
@@ -3259,10 +3403,8 @@ def main():
              plain_ms=lion["plain_ms"], bound_ms=lion["bound"][0],
              bound_by=lion["bound"][1], library_ms=None),
     ]
-    dec = next(r for r in moe_quant_kernels["gmm"]
-               if r["case"] == "decode_w1")
-    pre = next(r for r in moe_quant_kernels["gmm"]
-               if r["case"] == "prefill_w1")
+    gmm_rows = {r["case"]: r for r in moe_quant_kernels["gmm"]}
+    dec, pre = gmm_rows["decode_w1"], gmm_rows["prefill_w1"]
     qrow = next(r for r in moe_quant_kernels["quant"]
                 if r["case"] == "bfloat16_int8_g128")
     qsrc = "deepspeed_tpu_torch/csrc/quantizer.cu"
@@ -3277,10 +3419,15 @@ def main():
              ms=dec["ms"], plain_ms=dec["plain_ms"],
              bound_ms=dec["bound_ms"], bound_by=dec["bound_by"],
              library_ms=dec["library_ms"], library=dec["library"],
+             launches_by_route=mixtral["route_launches"]["gmm"],
              ms_prefill=pre["ms"], plain_ms_prefill=pre["plain_ms"],
              bound_ms_prefill=pre["bound_ms"],
              bound_by_prefill=pre["bound_by"],
-             library_ms_prefill=pre["library_ms"]),
+             library_ms_prefill=pre["library_ms"],
+             **{f"{k}_{case}": gmm_rows[case][k]
+                for case in ("decode_w2", "prefill_w2", "mma_k4064_w1",
+                             "mma_unaligned_w1")
+                for k in ("ms", "bound_ms", "library_ms")}),
         dict(name="quantize_blockwise", route="cuda", source=qsrc,
              replaces=src + "quantizer.py:91",
              launches=quant["quantize_launches"], max_abs_err=qrow["err_q"],

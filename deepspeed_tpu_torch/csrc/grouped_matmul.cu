@@ -7,35 +7,62 @@
 // once to x's dtype (lax.ragged_dot's semantics).  Rows past the sum of the
 // group sizes are left to the caller (the wrapper hands in a zeroed y).
 //
-// Design.  The Pallas kernel pads every group to a multiple of block_m by
-// scattering x into a padded copy, so that each row tile belongs to one
+// Tile map.  The Pallas kernel pads every group to a multiple of block_m
+// by scattering x into a padded copy, so that each row tile belongs to one
 // expert.  Here no copy is made: a block of the grid is one (row tile,
-// column tile) of the static bound ceil(T/64) + E row tiles, and finds its
-// expert and row range itself from group_sizes (a serial scan over E by one
-// thread; the sizes never reach the host, so a caller pays no sync).  Tiles
-// past the live ones exit at once.  Rows, K and N are masked at the edges,
-// so any K and N work.
+// column tile) of the static bound ceil(T / BM) + E row tiles, and finds
+// its expert and row range itself from group_sizes (a serial scan over E
+// by one thread; the sizes never reach the host, so a caller pays no
+// sync).  Tiles past the live ones exit at once.  The row tile is the
+// grid's fastest dimension, so the row tiles of one expert that share a
+// weight slab run together and the slab comes from HBM about once.
 //
-// bf16/fp16: tensor cores through mma.sync m16n8k16 (fp32 accumulate).  A
-// block of 4 warps computes a 64x128 tile in steps of k = 32; the x tile
-// (64x32) and the weight tile (32x128, row-major [k][n] as w lies) are
-// staged in shared memory, double-buffered with cp.async (16-byte copies
-// when K and N are multiples of 8, element copies otherwise), rows padded
-// by 16 bytes so that ldmatrix (.trans for the weight) reads without bank
-// conflicts.  Each warp holds a 32x64 fp32 accumulator.
-// fp32: CUDA-core FMA over 64x64 tiles (16x16 threads, 4x4 outputs each).
+// Routes.  The caller names the route (ops/kernels/grouped_matmul.py:
+// gmm_route, the one statement of the rule, fixes it on the host from
+// shapes, dtype and alignment; never a retry after a failure); a launch
+// refuses a route whose kernel cannot take the arguments:
+// - kRouteTma, kRouteTma64 (bf16/fp16, K % 64 == 0, N % 8 == 0, x and w at
+//   16-byte aligned addresses): warp-specialised wgmma fed by TMA.  A block
+//   is NC consumer warpgroups and one producer warp of one more, over a
+//   BM x BN = 64 NC x 128 NC tile: 128 x 256 (kRouteTma), or 64 x 128
+//   (kRouteTma64, two blocks an SM) for the decode shapes, T <= 64,
+//   whose few rows an expert would leave a 128-row box mostly zeros.  The
+//   producer keeps a ring of 4 stages in flight with cp.async.bulk.tensor
+//   on mbarriers: an x box [BM x 64] from the map of x as [T, K] and BN /
+//   64 w boxes [64 x 64] from the map of w viewed as [E K, N] (a box never
+//   straddles two experts because K % 64 == 0), all with the 128-byte
+//   swizzle; rows past T arrive as zeros.  Each consumer warpgroup runs
+//   wgmma.m64nBNk16 on its 64 rows, A K-major and B MN-major (w lies
+//   [k][n]: the transpose flag, no copy of w), one wgmma group in flight,
+//   and hands a stage back on its empty barrier when the group that read
+//   it has completed; setmaxnreg moves registers from the producer to the
+//   consumers (128 x 256: 128 fp32 accumulators a thread; a 128 x 128
+//   tile would move 1.5 x the L2 -> SM bytes a flop).
+//   An x box may run past its group into the next expert's rows: those
+//   rows are computed and not stored; the epilogue rounds and stores only
+//   the tile's own rows.
+// - kRouteMma (bf16/fp16 shapes TMA cannot take: K not a multiple of 64,
+//   N not of 8, an unaligned base): mma.sync m16n8k16 over 64x128 tiles
+//   in k steps of 32, a 2-deep cp.async ring (16-byte copies when K and N
+//   are multiples of 8, element copies otherwise), ldmatrix(.trans) from
+//   rows padded by 16 bytes; each of 4 warps holds a 32x64 accumulator.
+// - kRouteFp32: CUDA-core FMA over 64x64 tiles (16x16 threads, 4x4 each).
 //
 // What bounds it on an H100: decode (a few rows per expert) reads every
 // active expert's K x N weights once for a handful of rows, so it is bound
 // by those bytes at 3.35 TB/s; prefill (hundreds of rows per expert) does
-// 2*rows flops per weight element and is bound by the bf16 tensor rate.
-// This first version uses neither wgmma nor TMA, nor split-K for the
-// few-tile decode case: those are later work.
+// 2 * rows flops per weight element, at Mixtral's prefill shapes close to
+// both the byte and the bf16 tensor-rate bound.  The TMA route moves the
+// weights with no thread spending an instruction on them and keeps the
+// tensor cores on wgmma (the only path to their full rate); the epilogue
+// stores straight from registers, 4 bytes a thread.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sm90_common.cuh"
 
 namespace {
 
@@ -50,16 +77,17 @@ struct Tile {
   int expert, row0, rows;
 };
 
-// Row tile t of the static bound: its expert, first row and row count
-// (rows <= 0: a dead tile).
-__device__ Tile find_tile(const int* group_sizes, int E, int T, int t) {
+// Row tile t of the static bound of bm-row tiles: its expert, first row
+// and row count (rows <= 0: a dead tile).
+__device__ Tile find_tile(const int* group_sizes, int E, int T, int t,
+                          int bm) {
   int start = 0;
   for (int e = 0; e < E; ++e) {
     const int sz = max(group_sizes[e], 0);
-    const int nt = (sz + kBM - 1) / kBM;
+    const int nt = (sz + bm - 1) / bm;
     if (t < nt) {
-      const int row0 = start + t * kBM;
-      return {e, row0, min(min(kBM, sz - t * kBM), T - row0)};
+      const int row0 = start + t * bm;
+      return {e, row0, min(min(bm, sz - t * bm), T - row0)};
     }
     t -= nt;
     start += sz;
@@ -69,7 +97,8 @@ __device__ Tile find_tile(const int* group_sizes, int E, int T, int t) {
 
 __device__ void load_tile_info(const int* group_sizes, int E, int T,
                                Tile* s_tile) {
-  if (threadIdx.x == 0) *s_tile = find_tile(group_sizes, E, T, blockIdx.x);
+  if (threadIdx.x == 0)
+    *s_tile = find_tile(group_sizes, E, T, blockIdx.x, kBM);
   __syncthreads();
 }
 
@@ -89,6 +118,10 @@ struct Mma<__nv_bfloat16> {
     return __float2bfloat16_rn(x);
   }
   __device__ static __nv_bfloat16 zero() { return __float2bfloat16_rn(0.f); }
+  __device__ static uint32_t pack2(float a, float b) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
 };
 
 template <>
@@ -102,6 +135,10 @@ struct Mma<__half> {
   }
   __device__ static __half from_f(float x) { return __float2half_rn(x); }
   __device__ static __half zero() { return __float2half_rn(0.f); }
+  __device__ static uint32_t pack2(float a, float b) {
+    const __half2 v = __floats2half2_rn(a, b);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -350,28 +387,185 @@ cudaError_t launch_mma(const void* x, const void* w, const int* gs, void* y,
   return cudaGetLastError();
 }
 
+
+// ===================================== wgmma + TMA route (bf16 and fp16)
+
+constexpr int kRouteFp32 = 0, kRouteMma = 1, kRouteTma = 2, kRouteTma64 = 3;
+
+// NC consumer warpgroups: a BM x BN = 64 NC x 128 NC tile (128 x 256, one
+// block an SM; 64 x 128, two), and a ring of 4 stages of 48 or 24 KB.
+template <int NC>
+struct TmaCfg {
+  static constexpr int BM = 64 * NC, BN = 128 * NC, BK = 64;
+  static constexpr int kThreads = 128 * (NC + 1);
+  static constexpr int kBlocks = 3 - NC;
+  static constexpr int kStages = 4;
+  static constexpr int XB = BM * BK * 2;  // bytes of an x box
+  static constexpr int WB = BK * 64 * 2;  // bytes of one 64-column w box
+  static constexpr int kStageBytes = XB + (BN / 64) * WB;
+  // the ring (1024-byte aligned: the swizzle's period) and 2 barriers a
+  // stage
+  static constexpr int smem = 1024 + kStages * kStageBytes + 16 * kStages;
+};
+
+template <typename T, int NC>
+__global__ void __launch_bounds__(TmaCfg<NC>::kThreads, TmaCfg<NC>::kBlocks)
+    gmm_tma_kernel(const __grid_constant__ CUtensorMap xmap,
+                   const __grid_constant__ CUtensorMap wmap,
+                   const int* __restrict__ group_sizes, T* __restrict__ y,
+                   int T_, int K, int N, int E) {
+  using C = TmaCfg<NC>;
+  constexpr int kAcc = C::BN / 2;  // accumulators a thread
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + C::kStages *
+                                               C::kStageBytes);
+  uint64_t* empty = full + C::kStages;
+  __shared__ Tile s_tile;
+  if (threadIdx.x == 0) {
+    s_tile = find_tile(group_sizes, E, T_, blockIdx.x, C::BM);
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * NC);  // one arrival a consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const Tile tile = s_tile;
+  if (tile.rows <= 0) return;
+  const int n0 = blockIdx.y * C::BN, nk = K / C::BK;
+  const int wg = threadIdx.x / 128;
+
+  if (wg == NC) {
+    // ---- producer: one thread keeps the ring full
+    if constexpr (NC == 2) setmaxnreg_dec<40>();
+    if (threadIdx.x % 128 == 0) {
+      const int wrow = tile.expert * K;
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % C::kStages, round = kt / C::kStages;
+        if (round > 0) mbar_wait(&empty[s], (round - 1) & 1);
+        unsigned char* st = ring + s * C::kStageBytes;
+        mbar_expect_tx(&full[s], C::kStageBytes);
+        tma_load_2d(st, &xmap, &full[s], kt * C::BK, tile.row0);
+#pragma unroll
+        for (int c = 0; c < C::BN / 64; ++c)
+          tma_load_2d(st + C::XB + c * C::WB, &wmap, &full[s], n0 + 64 * c,
+                      wrow + kt * C::BK);
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns rows 64 wg.. of the tile
+    if constexpr (NC == 2) setmaxnreg_inc<232>();
+    float d[kAcc];
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) d[i] = 0.f;
+    const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
+    for (int kt = 0; kt < nk; ++kt) {
+      const int s = kt % C::kStages;
+      mbar_wait(&full[s], (kt / C::kStages) & 1);
+      const unsigned char* st = ring + s * C::kStageBytes;
+      // A: this warpgroup's 64 rows of 128 bytes (8-row groups 1024 B
+      // apart), 32 bytes a k step; B: 64-column chunks 8 KB apart, 16 k
+      // rows (2 KB) a k step
+      const unsigned char* a0 = st + wg * 64 * 128;
+      const unsigned char* b0 = st + C::XB;
+      fence_regs<kAcc>(d);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < C::BK / 16; ++kk)
+        Wgmma<T, C::BN, 1>::run(d, wgmma_desc(a0 + kk * 32, 16, 1024),
+                             wgmma_desc(b0 + kk * 2048, C::WB, 1024), 1);
+      wgmma_commit();
+      fence_regs<kAcc>(d);
+      // the previous step's products are done: hand its stage back
+      wgmma_wait<1>();
+      fence_regs<kAcc>(d);
+      if (kt > 0 && lane == 0) mbar_arrive(&empty[(kt - 1) % C::kStages]);
+    }
+    wgmma_wait<0>();
+    fence_regs<kAcc>(d);
+    const int g = lane / 4, t = lane % 4;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = wg * 64 + warp * 16 + g + 8 * i;
+      if (r >= tile.rows) continue;
+      T* yr = y + (size_t)(tile.row0 + r) * N;
+#pragma unroll
+      for (int j = 0; j < C::BN / 8; ++j) {
+        const int col = n0 + 8 * j + 2 * t;  // N % 8 == 0: col + 1 < N too
+        if (col < N)
+          *reinterpret_cast<uint32_t*>(yr + col) =
+              Mma<T>::pack2(d[4 * j + 2 * i], d[4 * j + 2 * i + 1]);
+      }
+    }
+  }
+}
+
+template <typename T, int NC>
+cudaError_t launch_tma(const void* x, const void* w, const int* gs, void* y,
+                       int T_, int K, int N, int E, cudaStream_t st) {
+  using C = TmaCfg<NC>;
+  CUtensorMap xmap, wmap;
+  // a box of w must not straddle two experts; the encoder refuses an
+  // unaligned base or a row that is not whole 16 bytes
+  if (K % C::BK != 0 ||
+      !make_tensor_map_2d(&xmap, x, TmaType<T>::value, T_, K, K, C::BM,
+                          C::BK) ||
+      !make_tensor_map_2d(&wmap, w, TmaType<T>::value, (uint64_t)E * K, N,
+                          N, C::BK, 64))
+    return cudaErrorInvalidValue;
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        gmm_tma_kernel<T, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        C::smem);
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  dim3 grid((T_ + C::BM - 1) / C::BM + E, (N + C::BN - 1) / C::BN);
+  gmm_tma_kernel<T, NC><<<grid, C::kThreads, C::smem, st>>>(
+      xmap, wmap, gs, static_cast<T*>(y), T_, K, N, E);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_16bit(int route, const void* x, const void* w,
+                         const int* gs, void* y, int T_, int K, int N, int E,
+                         cudaStream_t st) {
+  if (route == kRouteTma) return launch_tma<T, 2>(x, w, gs, y, T_, K, N, E, st);
+  if (route == kRouteTma64)
+    return launch_tma<T, 1>(x, w, gs, y, T_, K, N, E, st);
+  return launch_mma<T>(x, w, gs, y, T_, K, N, E, st);
+}
+
 }  // namespace
 
 // x [T, K], w [E, K, N], group_sizes [E] int32, y [T, N]; dtype 0 fp32,
-// 1 bf16, 2 fp16.  Returns a cudaError_t code (0: launched).
+// 1 bf16, 2 fp16; route 0 fp32 (CUDA cores, fp32 only), 1 mma.sync, 2
+// wgmma + TMA (128-row tiles), 3 wgmma + TMA (64-row tiles), the last three
+// bf16/fp16 only.  Returns a cudaError_t code (0: launched).
 extern "C" int ds_gmm(const void* x, const void* w, const void* group_sizes,
                       void* y, int T_, int K, int N, int E, int dtype,
-                      void* stream) {
-  if (T_ < 0 || K <= 0 || N <= 0 || E <= 0) return (int)cudaErrorInvalidValue;
+                      int route, void* stream) {
+  const bool fp32 = dtype == 0 && route == kRouteFp32;
+  const bool half = (dtype == 1 || dtype == 2) && route >= kRouteMma &&
+                    route <= kRouteTma64;
+  if (T_ < 0 || K <= 0 || N <= 0 || E <= 0 || !(fp32 || half))
+    return (int)cudaErrorInvalidValue;
   if (T_ == 0) return 0;
   const int* gs = static_cast<const int*>(group_sizes);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return (int)launch_mma<__nv_bfloat16>(x, w, gs, y, T_, K, N, E, st);
-  if (dtype == 2) return (int)launch_mma<__half>(x, w, gs, y, T_, K, N, E, st);
-  if (dtype == 0) {
-    dim3 grid((T_ + kBM - 1) / kBM + E, (N + kFBN - 1) / kFBN);
-    gmm_fp32_kernel<<<grid, kFThreads, 0, st>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w), gs,
-        static_cast<float*>(y), T_, K, N, E);
-    return (int)cudaGetLastError();
-  }
-  return (int)cudaErrorInvalidValue;
+    return (int)launch_16bit<__nv_bfloat16>(route, x, w, gs, y, T_, K, N, E,
+                                            st);
+  if (dtype == 2)
+    return (int)launch_16bit<__half>(route, x, w, gs, y, T_, K, N, E, st);
+  dim3 grid((T_ + kBM - 1) / kBM + E, (N + kFBN - 1) / kFBN);
+  gmm_fp32_kernel<<<grid, kFThreads, 0, st>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w), gs,
+      static_cast<float*>(y), T_, K, N, E);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* ds_cuda_error_string(int err) {

@@ -1,5 +1,6 @@
 // Tensor-core building blocks shared by the bf16/fp16 attention kernels
-// of csrc/flash_attention.cu (B1) and csrc/flash_bias.cu (B10), sm_90a.
+// of csrc/flash_attention.cu (B1), csrc/flash_bias.cu (B10) and
+// csrc/block_sparse_attention.cu (B9), sm_90a.
 //
 // - Tc<T>: mma.sync.m16n8k16 (bf16 or f16 in, fp32 accumulate) and the
 //   packing of fp32 values into two 16-bit halves, plain or split into
@@ -10,7 +11,8 @@
 // - ldmatrix fragments (load_a, load_b, load_bt) from tiles kept in the
 //   input type in shared memory with rows padded by 16 bytes;
 // - cp.async copies (16 and 4 bytes, zero-filling what lies past the
-//   sequence or the head dim) and stage_rows, which fills a ring slot;
+//   sequence or the head dim) and stage_rows, which fills a ring slot
+//   (stage_rows_at: the same from a table of gathered rows);
 // - store_frag: an fp32 fragment rounded once into the output rows.
 // Everything here is inline device code in an anonymous namespace: each
 // source that includes it compiles its own copy.
@@ -304,6 +306,44 @@ __device__ __forceinline__ void stage_rows(T* dst, const T* __restrict__ src,
     for (int idx = threadIdx.x; idx < R * DP; idx += kMmaThreads) {
       const int r = idx / DP, d = idx % DP;
       dst[r * S + d] = r < live && d < D ? base[r * stride + d]
+                                         : Cvt<T>::from_f(0.f);
+    }
+  }
+}
+
+// stage_rows for gathered rows: tile row r is source row rows[r] of the
+// slice (`src` at head h, d 0, row stride `rs` elements), or zeros where
+// rows[r] < 0; rows[] lies in shared memory.  Same copy modes, same
+// zero-fill past D.  Offsets are 64-bit: a gathered row may lie anywhere.
+template <typename T, int R, int DP>
+__device__ __forceinline__ void stage_rows_at(T* dst,
+                                              const T* __restrict__ src,
+                                              const int* rows, int64_t rs,
+                                              int D, int copy) {
+  constexpr int S = DP + 8;
+  if (copy == kCopy16) {
+    constexpr int CH = DP / 8;
+    static_assert(R * CH % kMmaThreads == 0, "whole copies a thread");
+#pragma unroll
+    for (int i = 0; i < R * CH / kMmaThreads; ++i) {
+      const int idx = threadIdx.x + i * kMmaThreads;
+      const int r = idx / CH, c = (idx % CH) * 8, row = rows[r];
+      const bool ok = row >= 0 && c < D;
+      cp_async16(dst + r * S + c, src + (ok ? row * rs + c : 0), ok);
+    }
+  } else if (copy == kCopy4) {
+    constexpr int CH = DP / 2;
+#pragma unroll 4
+    for (int i = 0; i < R * CH / kMmaThreads; ++i) {
+      const int idx = threadIdx.x + i * kMmaThreads;
+      const int r = idx / CH, c = (idx % CH) * 2, row = rows[r];
+      const bool ok = row >= 0 && c < D;
+      cp_async4(dst + r * S + c, src + (ok ? row * rs + c : 0), ok);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < R * DP; idx += kMmaThreads) {
+      const int r = idx / DP, d = idx % DP, row = rows[r];
+      dst[r * S + d] = row >= 0 && d < D ? src[row * rs + d]
                                          : Cvt<T>::from_f(0.f);
     }
   }

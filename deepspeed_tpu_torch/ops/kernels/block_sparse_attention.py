@@ -16,13 +16,16 @@ Semantics (the TPU kernel's): q, k, v [B, S, H, D] with S a multiple of
 the layout block; a layout [H or 1, nq, nk] bool; for each q block only
 its live k/v blocks, fp32 scores × scale, the causal mask row >= col, an
 online softmax from -inf, a row with no live key giving 0, the output in
-q's dtype.  The layout's idx/valid tables are built on the host once per
-layout (``layout_gather_tables``) and moved to the card once per layout
-and device (:func:`device_tables`).
+q's dtype.  The layout's tables are built on the host once per layout
+and moved to the card once per layout and device (:func:`device_tables`):
+idx/valid (``layout_gather_tables``) for the fp32 route, and for the
+bf16/fp16 route the row groups of :func:`row_group_tables` (64 query rows
+a block, one key list per group: the union of its q blocks' live k
+blocks, each with a mask of the warps that see it).
 
 What bounds it on an H100: bytes and operations about equally at
-BigBird's width; the kernel runs its products in fp32 FMA on the CUDA
-cores (see the source's note).
+BigBird's width, operations at block 16; bf16/fp16 run on the tensor
+cores (``mma.sync``), fp32 on the CUDA cores (see the source's note).
 
 On CPU tensors :func:`block_sparse_flash_attention` computes
 :func:`block_sparse_attention_plain`; on CUDA tensors it launches the
@@ -41,15 +44,115 @@ from ..sparse_attention.sparse_self_attention import (layout_gather_tables,
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 BLOCKS = (16, 32, 64, 128)       # the layout blocks the kernel takes
 
+GROUP_ROWS = 64      # query rows a block of the tensor-core kernel
+WARP_ROWS = 16       # query rows a warp
+SPLIT_FACTOR = 2     # a group whose union exceeds this × its longest
+#                      member list is split into one group per member
+
+_ROW_GROUP_CACHE = {}
 _DEVICE_TABLE_CACHE = {}
+_DEVICE_TABLE_BY_ID = {}
 
 
-def device_tables(layout, num_heads, device):
-    """(idx int32 [H, nq, maxk], cnt int32 [H, nq]) of a layout on
-    ``device``, cached by layout contents and device (keyed like
-    ``_GATHER_TABLE_CACHE``), so a forward copies nothing to the card."""
+def _warp_rows(first):
+    """The first row of each of the 4 warps' 16 rows of a group whose rows
+    start at ``first``."""
+    return [first + w * WARP_ROWS for w in range(4)]
+
+
+def row_group_tables(layout, num_heads, block):
+    """The tensor-core kernel's row groups of a layout: (groups int32
+    [G, 8], keys int32 [L]).  A group row holds (head, offset of its key
+    list in ``keys``, its length, the first query row of each of the 4
+    warps or -1, 0); a key entry is ``k_block | warp_mask << 24``, bit w
+    set where warp w sees that block.  A group is 64 // block consecutive q
+    blocks (half a q block at block 128) with the union of their lists in
+    ascending order; where the union is longer than SPLIT_FACTOR × its
+    longest member list, each member q block becomes a group of its own
+    (its warps' rows only).  Groups are ordered longest list first.
+    Cached by layout contents and block."""
     layout, idx, valid = layout_gather_tables(layout, num_heads)
-    key = layout_key(layout) + (str(device), )
+    key = layout_key(layout) + (block, )
+    hit = _ROW_GROUP_CACHE.get(key)
+    if hit is not None:
+        return hit
+    H, nq = idx.shape[:2]
+    cnt = valid.sum(axis=-1)
+    lists = [[idx[h, i, :cnt[h, i]] for i in range(nq)] for h in range(H)]
+    members = max(1, GROUP_ROWS // block)   # q blocks a group
+    per = 4 // members                      # warps a member q block
+    full = (1 << per) - 1
+    groups = []                             # (head, rows, [(kb, mask)])
+
+    def add(h, rows, entries):
+        groups.append((h, rows, sorted(entries.items())))
+
+    for h in range(H):
+        if block > GROUP_ROWS:              # two groups a q block
+            for i in range(nq):
+                for half in range(block // GROUP_ROWS):
+                    add(h, _warp_rows(i * block + half * GROUP_ROWS),
+                        {int(kb): 0xF for kb in lists[h][i]})
+            continue
+        for i0 in range(0, nq, members):
+            mine = list(range(i0, min(i0 + members, nq)))
+            union = {}
+            for j, i in enumerate(mine):
+                for kb in lists[h][i]:
+                    union[int(kb)] = union.get(int(kb), 0) | (full << per * j)
+            longest = max(len(lists[h][i]) for i in mine)
+            rows = _warp_rows(i0 * block)
+            rows[len(mine) * per:] = [-1] * (4 - len(mine) * per)
+            if len(mine) == 1 or len(union) <= SPLIT_FACTOR * longest:
+                add(h, rows, union)
+                continue
+            for j, i in enumerate(mine):        # one group a member
+                own = [-1] * 4
+                own[:per] = rows[j * per:(j + 1) * per]
+                add(h, own, {int(kb): full for kb in lists[h][i]})
+    groups.sort(key=lambda grp: -len(grp[2]))   # stable: longest first
+    table = np.zeros((len(groups), 8), dtype=np.int32)
+    keys, off = [], 0
+    for n, (h, rows, entries) in enumerate(groups):
+        table[n, :3] = (h, off, len(entries))
+        table[n, 3:7] = rows
+        keys += [kb | mask << 24 for kb, mask in entries]
+        off += len(entries)
+    hit = (table, np.asarray(keys or [0], dtype=np.int32))
+    if len(_ROW_GROUP_CACHE) > 64:          # layouts are few; bound anyway
+        _ROW_GROUP_CACHE.clear()
+    _ROW_GROUP_CACHE[key] = hit
+    return hit
+
+
+def _immutable(layout):
+    """A numpy layout nothing can change in place: its data lies in a
+    ``bytes`` object, so numpy refuses to make it (or any view of it)
+    writeable (``SparseSelfAttention``'s layouts are such).  A read-only
+    array that owns its data is not: its owner may unfreeze it."""
+    root = layout
+    while isinstance(root, np.ndarray):
+        root = root.base
+    return isinstance(layout, np.ndarray) and isinstance(root, bytes)
+
+
+def device_tables(layout, num_heads, device, block=None):
+    """The kernel's tables of a layout on ``device``: (idx int32 [H, nq,
+    maxk], cnt int32 [H, nq]) and, given ``block``, the row groups and key
+    list of :func:`row_group_tables` after them.  Cached by layout
+    contents, block and device (keyed like ``_GATHER_TABLE_CACHE``), so a
+    forward copies nothing to the card.  An immutable layout (see
+    :func:`_immutable`) is looked up by identity first: hashing the
+    contents of a layout at block 16 and S = 4096 (1 MB) takes about a
+    millisecond of host time a call, more than the kernel."""
+    frozen, given = _immutable(layout), layout
+    ident = (id(layout), num_heads, block, str(device))
+    if frozen:
+        hit = _DEVICE_TABLE_BY_ID.get(ident)
+        if hit is not None and hit[0] is layout:
+            return hit[1]
+    layout, idx, valid = layout_gather_tables(layout, num_heads)
+    key = layout_key(layout) + (block, str(device))
     hit = _DEVICE_TABLE_CACHE.get(key)
     if hit is None:
         if len(_DEVICE_TABLE_CACHE) > 64:  # layouts are few; bound anyway
@@ -57,7 +160,15 @@ def device_tables(layout, num_heads, device):
         hit = (torch.as_tensor(idx, device=device).contiguous(),
                torch.as_tensor(valid.sum(axis=-1), dtype=torch.int32,
                                device=device).contiguous())
+        if block is not None:
+            hit += tuple(torch.as_tensor(t, device=device).contiguous()
+                         for t in row_group_tables(layout, num_heads, block))
         _DEVICE_TABLE_CACHE[key] = hit
+    if frozen:
+        if len(_DEVICE_TABLE_BY_ID) > 64:
+            _DEVICE_TABLE_BY_ID.clear()
+        # the entry holds the layout: its id is not reused while cached
+        _DEVICE_TABLE_BY_ID[ident] = (given, hit)
     return hit
 
 
@@ -139,15 +250,16 @@ def block_sparse_attention_fwd(q, k, v, layout, block, causal=False,
         raise ValueError(f"the kernel takes CUDA tensors on one device, got "
                          f"{devices}")
     scale = float(scale) if scale is not None else D ** -0.5
-    idx, cnt = device_tables(layout, H, q.device)
+    idx, cnt, groups, keys = device_tables(layout, H, q.device, block)
     o = torch.empty(B, S, H, D, dtype=q.dtype, device=q.device)
     lib = BlockSparseAttentionBuilder().load()
     strides = [st for t in (q, k, v) for st in t.stride()[:3]]
     with torch.cuda.device(q.device):
         err = lib.ds_block_sparse_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            idx.data_ptr(), cnt.data_ptr(), B, S, H, D, block, idx.shape[1],
-            idx.shape[2], *strides, scale, int(bool(causal)),
+            idx.data_ptr(), cnt.data_ptr(), groups.data_ptr(),
+            keys.data_ptr(), groups.shape[0], B, S, H, D, block,
+            idx.shape[1], idx.shape[2], *strides, scale, int(bool(causal)),
             _DTYPE_CODES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(lib, err)

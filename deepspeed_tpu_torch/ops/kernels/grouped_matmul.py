@@ -11,13 +11,19 @@ PyTorch's current stream.
 
 What bounds it on an H100: the bytes of the active experts' weights when a
 few rows meet each expert (decode), the bf16 tensor rate when hundreds do
-(prefill).  The kernel runs bf16/fp16 on tensor cores (``mma.sync``) and
-fp32 on CUDA-core FMA.  ``group_sizes`` stays on the device: every block of
-the kernel's static grid (``ceil(T/64) + E`` row tiles) finds its expert
+(prefill).  ``group_sizes`` stays on the device: every block of the
+kernel's static grid (``ceil(T/BM) + E`` row tiles) finds its expert
 itself, so the caller never waits for the routing.
 
+Routes (:func:`gmm_route`, a function of shapes, dtype and alignment fixed
+on the host and handed to the kernel's C entry, which launches that route
+or refuses it): bf16/fp16 with K a multiple of 64, N of 8 and 16-byte aligned x and w take
+``wgmma`` fed by TMA (128-row tiles, or 64-row ones for T <= 64, the
+decode shapes); other bf16/fp16 shapes ``mma.sync``; fp32 the CUDA cores.
+
 On a CPU tensor ``gmm`` returns the plain version; on a CUDA tensor it
-launches the kernel or raises.  ``gmm.launches`` counts kernel launches.
+launches the kernel or raises.  ``gmm.launches`` counts kernel launches,
+``gmm.route_launches`` the same by route.
 """
 
 import torch
@@ -26,6 +32,8 @@ from ...accelerator import full_fp32_matmul
 from ..op_builder import GroupedMatmulBuilder
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+ROUTES = ("fp32", "mma_sync", "wgmma_tma", "wgmma_tma_64")  # C route codes
+SMALL_T = 64          # T at or below: the 64-row TMA tiles
 
 
 def gmm_plain(x, w, group_sizes):
@@ -59,7 +67,22 @@ def _check(x, w, group_sizes):
     return x.device.type
 
 
-def _launch(x, w, group_sizes):
+def gmm_route(T, K, N, dtype, x_addr, w_addr):
+    """The kernel route of a call: "fp32" for fp32; for bf16/fp16
+    "wgmma_tma" (or "wgmma_tma_64" when T <= SMALL_T) where TMA can take
+    the shapes (K % 64 == 0, so that a 64-deep box never straddles two
+    experts of w viewed as [E·K, N]; N % 8 == 0, rows of whole 16 bytes;
+    x and w at 16-byte aligned addresses), else "mma_sync"."""
+    if dtype == torch.float32:
+        return "fp32"
+    if K % 64 == 0 and N % 8 == 0 and x_addr % 16 == 0 and w_addr % 16 == 0:
+        return "wgmma_tma_64" if T <= SMALL_T else "wgmma_tma"
+    return "mma_sync"
+
+
+def _launch(x, w, group_sizes, route=None):
+    """One launch on ``route`` (default: :func:`gmm_route`'s); returns
+    (y, the route taken, or None where T = 0 launched nothing)."""
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"gmm kernel takes fp32, bf16 or fp16, got {x.dtype}")
     if group_sizes.dtype != torch.int32:
@@ -71,17 +94,19 @@ def _launch(x, w, group_sizes):
     E, _, N = w.shape
     y = torch.zeros(T, N, dtype=x.dtype, device=x.device)
     if T == 0:
-        return y, False
+        return y, None
+    route = route or gmm_route(T, K, N, x.dtype, x.data_ptr(), w.data_ptr())
     lib = GroupedMatmulBuilder().load()
     with torch.cuda.device(x.device):
-        err = lib.ds_gmm(x.data_ptr(), w.data_ptr(), group_sizes.data_ptr(),
-                         y.data_ptr(), T, K, N, E, _DTYPE_CODES[x.dtype],
-                         torch.cuda.current_stream(x.device).cuda_stream)
+        err = lib.ds_gmm(
+            x.data_ptr(), w.data_ptr(), group_sizes.data_ptr(), y.data_ptr(),
+            T, K, N, E, _DTYPE_CODES[x.dtype], ROUTES.index(route),
+            torch.cuda.current_stream(x.device).cuda_stream)
     if err:
-        raise RuntimeError(f"gmm kernel launch failed: "
+        raise RuntimeError(f"gmm kernel launch failed ({route}): "
                            f"{lib.ds_cuda_error_string(err).decode()} "
                            f"({err})")
-    return y, True
+    return y, route
 
 
 def gmm(x, w, group_sizes):
@@ -93,9 +118,12 @@ def gmm(x, w, group_sizes):
         return gmm_plain(x, w, group_sizes)
     if device != "cuda":
         raise ValueError(f"gmm runs on cpu or cuda, not {device}")
-    y, launched = _launch(x, w, group_sizes)
-    gmm.launches += launched
+    y, route = _launch(x, w, group_sizes)
+    if route is not None:
+        gmm.launches += 1
+        gmm.route_launches[route] += 1
     return y
 
 
 gmm.launches = 0
+gmm.route_launches = dict.fromkeys(ROUTES, 0)

@@ -218,7 +218,7 @@ class GroupedMatmulBuilder(CUDAOpBuilder):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.ds_gmm.argtypes = [
             p, p, p, p,                 # x, w, group_sizes, y
-            i, i, i, i, i, p]           # T, K, N, E, dtype code, stream
+            i, i, i, i, i, i, p]        # T, K, N, E, dtype, route, stream
         lib.ds_gmm.restype = i
         lib.ds_cuda_error_string.argtypes = [i]
         lib.ds_cuda_error_string.restype = ctypes.c_char_p
@@ -277,11 +277,13 @@ class BlockSparseAttentionBuilder(CUDAOpBuilder):
             ctypes.c_longlong
         lib.ds_block_sparse_attention_fwd.argtypes = [
             p, p, p, p, p, p,           # q, k, v, o, idx, cnt
+            p, p, i,                    # row groups, keys, groups
             i, i, i, i, i, i, i,        # B, S, H, D, block, nq, maxk
             n, n, n, n, n, n, n, n, n,  # q, k, v strides of b, s, h
             f, i, i, p]                 # scale, causal, dtype code, stream
         lib.ds_block_sparse_attention_fwd.restype = i
-        lib.ds_block_sparse_attention_smem_bytes.argtypes = [i, i]
+        # block, D, route (0 fp32, 1 tensor cores)
+        lib.ds_block_sparse_attention_smem_bytes.argtypes = [i, i, i]
         lib.ds_block_sparse_attention_smem_bytes.restype = i
         lib.ds_cuda_error_string.argtypes = [i]
         lib.ds_cuda_error_string.restype = ctypes.c_char_p

@@ -135,8 +135,13 @@ class SparseSelfAttention(nn.Module):
         self._layouts = {}
 
     def layout(self, seq_len):
+        """The layout for ``seq_len``, made once on a ``bytes`` buffer, so
+        that nothing can change it in place and the kernel's table cache
+        can look it up by identity."""
         if seq_len not in self._layouts:
-            self._layouts[seq_len] = self.sparsity_config.make_layout(seq_len)
+            layout = np.asarray(self.sparsity_config.make_layout(seq_len))
+            self._layouts[seq_len] = np.frombuffer(
+                layout.tobytes(), dtype=layout.dtype).reshape(layout.shape)
         return self._layouts[seq_len]
 
     def forward(self, query, key, value, bshd=False, causal=None):

@@ -1,0 +1,165 @@
+#!/usr/bin/env python3
+"""Compare the CUDA kernels of two checkouts of this repo on one card.
+
+    python3 kernel_ab.py --tree parent=DIR \\
+        --tree change=. --order parent,change,change,parent --out OUT
+
+It sits beside ``chip_smoke.py``, whose stages it drives.  Each run of
+the order is a process of its own that imports the named tree's
+``deepspeed_tpu_torch`` and ``chip_smoke.py``, builds that tree's
+kernels (into the tree's own build directory, all sources at once), then:
+
+- hashes (sha256 of the bytes) the outputs of the flash-attention kernels
+  (B1: forward, dq, dk/dv) at chip_smoke stage 7's training shape
+  ([4, 2048, 32, 128] bf16, causal) and stage 10's GPT-2 shape ([8, 1024,
+  16, 64] fp16), and of the bias flash kernels (B10: forward, dq, dk/dv,
+  dbias) at stage 17's MSA-row shape ([512, 384, 8, 32] bf16, pair bias
+  over 512 rows, key mask), inputs from a fixed seed;
+- runs chip_smoke's stages 7, 13, 17 and 19 (``--stages``) and keeps the
+  times of each kernel case.
+
+It writes one JSON file a run and prints, per kernel case, each run's ms
+and whether every run's output hashes agree.  Runs alternate (parent,
+change, change, parent) so that a drift of the card's clock shows as a
+difference between the two runs of one tree.
+"""
+
+import argparse
+import hashlib
+import json
+import os
+import subprocess
+import sys
+
+STAGES = {"7": "stage_train_kernels", "13": "stage_moe_quant_kernels",
+          "17": "stage_evoformer_kernels", "19": "stage_sparse_kernels"}
+
+
+def _digest(t):
+    return hashlib.sha256(t.contiguous().cpu().view(-1).view(
+        __import__("torch").uint8).numpy().tobytes()).hexdigest()[:16]
+
+
+def _hashes(torch):
+    """sha256 prefixes of B1's and B10's outputs on seeded inputs."""
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    from deepspeed_tpu_torch.ops.kernels import flash_bias as fb
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    for name, (B, S, H, D, dtype) in {
+            "b1_train_bf16": (4, 2048, 32, 128, torch.bfloat16),
+            "b1_gpt2_fp16": (8, 1024, 16, 64, torch.float16)}.items():
+        q, k, v, do = (torch.randn(B, S, H, D, device="cuda", generator=gen)
+                       .to(dtype) for _ in range(4))
+        scale = D ** -0.5
+        o, lse = fa.flash_attention_fwd(q, k, v, scale, causal=True)
+        dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, do, lse, scale,
+                                              causal=True)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale,
+                                            causal=True)
+        for key, t in dict(o=o, lse=lse, dq=dq, delta=delta, dk=dk,
+                           dv=dv).items():
+            out[f"{name}.{key}"] = _digest(t)
+    BN, L, H, D = 512, 384, 8, 32
+    q, k, v, do = (torch.randn(BN, L, H, D, device="cuda", generator=gen)
+                   .to(torch.bfloat16) for _ in range(4))
+    bias = torch.randn(1, H, L, L, device="cuda",
+                       generator=gen).to(torch.bfloat16)
+    mask = torch.where(torch.rand(BN, 1, 1, L, device="cuda",
+                                  generator=gen) < 0.1, -1e9, 0.0)
+    scale = D ** -0.5
+    o, lse = fb.flash_bias_fwd(q, k, v, bias, mask, scale)
+    dq, delta = fb.flash_bias_bwd_dq(q, k, v, o, do, lse, bias, mask, scale)
+    dk, dv = fb.flash_bias_bwd_dkv(q, k, v, do, lse, delta, bias, mask,
+                                   scale)
+    dbias = fb.flash_bias_bwd_dbias(q, k, v, do, lse, delta, bias, mask,
+                                    scale)
+    for key, t in dict(o=o, lse=lse, dq=dq, delta=delta, dk=dk, dv=dv,
+                       dbias=dbias).items():
+        out[f"b10_msa_row_bf16.{key}"] = _digest(t)
+    return out
+
+
+def _times(result):
+    """{case: ms} of the kernel cases a stage returned."""
+    rows = []
+    for v in (result if isinstance(result, list) else result.values()):
+        rows += v if isinstance(v, list) else [v]
+    times = {}
+    for r in rows:
+        if not isinstance(r, dict) or "case" not in r:
+            continue
+        for k, v in r.items():
+            if (k == "ms" or k.startswith("ms_")) and isinstance(v, float):
+                times[f"{r['case']}.{k}"] = v
+    return times
+
+
+def run_one(tree, stages, out_path):
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+    import chip_smoke as c
+    from deepspeed_tpu_torch.ops.op_builder import build_all
+    build_all()
+    res = dict(tree=os.path.abspath(tree), card=c.stage_environment(),
+               hashes=_hashes(torch), times={})
+    for st in stages:
+        result = getattr(c, STAGES[st])(0)
+        res["times"].update({f"{st}:{k}": v
+                             for k, v in _times(result).items()})
+        c._free(torch)
+    with open(out_path, "w") as f:
+        json.dump(res, f, indent=1)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tree", action="append", required=True,
+                    help="NAME=DIR, once per tree")
+    ap.add_argument("--order", required=True,
+                    help="comma-separated tree names, run in this order")
+    ap.add_argument("--stages", default="7,13,17,19")
+    ap.add_argument("--out", required=True, help="directory for the JSON")
+    ap.add_argument("--one", nargs=2, metavar=("TREE", "OUT"),
+                    help=argparse.SUPPRESS)   # a child process's run
+    args = ap.parse_args()
+    stages = [s for s in args.stages.split(",") if s]
+    if args.one:
+        run_one(args.one[0], stages, args.one[1])
+        return 0
+    trees = {name: os.path.abspath(d)
+             for name, d in (t.split("=", 1) for t in args.tree)}
+    out = os.path.abspath(args.out)     # the runs' cwd is their tree
+    os.makedirs(out, exist_ok=True)
+    runs = []
+    for i, name in enumerate(args.order.split(",")):
+        path = os.path.join(out, f"{i}_{name}.json")
+        log = os.path.join(out, f"{i}_{name}.log")
+        with open(log, "w") as f:
+            rc = subprocess.call(
+                [sys.executable, os.path.abspath(__file__), "--tree",
+                 f"{name}={trees[name]}", "--order", name, "--stages",
+                 args.stages, "--out", out, "--one", trees[name],
+                 path], stdout=f, stderr=subprocess.STDOUT,
+                cwd=trees[name])
+        if rc:
+            print(f"run {i} ({name}) failed with rc {rc}; see {log}")
+            return rc
+        with open(path) as f:
+            runs.append((name, json.load(f)))
+    print(f"card: {runs[0][1]['card']}")
+    names = [f"{i}_{n}" for i, (n, _) in enumerate(runs)]
+    print("case | " + " | ".join(names))
+    for key in sorted(set().union(*(r["times"] for _, r in runs))):
+        print(f"{key} | " + " | ".join(
+            f"{r['times'][key]:.4f}" if key in r["times"] else "-"
+            for _, r in runs))
+    bad = [k for k in runs[0][1]["hashes"]
+           if len({r["hashes"].get(k) for _, r in runs}) != 1]
+    print(f"output hashes ({len(runs[0][1]['hashes'])} tensors of B1 and "
+          f"B10): {'all equal' if not bad else f'DIFFER: {bad}'}")
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -32,7 +32,8 @@ ratios within 1e-5, its master within lr·|Δratio|·|u| plus one fp32 ulp
 of each rounded product (lr·ratio, and its product with u) and of the
 result.  Grouped matmul: fp32 1e-4 + 1e-5·|ref| (fp32 FMA in another
 order); bf16 2^-7·|ref| and fp16 2^-10·|ref|, each plus 1e-4 (both sides
-sum in fp32 and round once).  Quantize and dequantize: bit for bit (the
+sum in fp32 and round once), on every route (wgmma + TMA at 128 and 64
+rows a tile, mma.sync), bit-equal over two runs.  Quantize and dequantize: bit for bit (the
 same fp32 operations, a true division and round half to even).  Flash
 bias: o, dq, dk, dv as flash attention's (its bf16/fp16 kernels are on
 the tensor cores with the same hi + lo design, held also with dO × 2^-12
@@ -41,7 +42,8 @@ in another order; the absolute term scaled with dO); dbias bit for bit
 across two runs (a fixed summation order, also where it is split into
 chunks summed by a second kernel).  Block-sparse attention: as flash
 attention's (fp32 sums in another order: 64 keys a pass where the plain
-version takes one layout block a step).  FP quantizer: codes and scales
+version takes one layout block a step; bf16/fp16 on the tensor cores
+with P as hi + lo, as flash attention's), bit-equal over two runs.  FP quantizer: codes and scales
 bit for bit.
 """
 
@@ -476,6 +478,72 @@ def test_gmm_kernel_matches_plain(card, dtype, case):
     assert over.max().item() <= 1.0, over.max().item()
 
 
+# (group sizes, K, N, rows past the groups) for the TMA routes: groups
+# straddling 128-row tiles, empty first and last experts, a one-row group
+TMA_CASES = {
+    "straddle": ([0, 130, 1, 257, 0, 64, 3, 0], 128, 256, 0),
+    "rows_past": ([70, 0, 190], 192, 136, 37),
+    "decode": ([2] * 8, 256, 384, 0),
+    "one_row": ([1], 64, 8, 5),
+}
+
+
+def _gmm_inputs(card, dtype, sizes, K, N, extra):
+    g = torch.Generator().manual_seed(K + N + extra)
+    T, E = sum(sizes) + extra, len(sizes)
+    x = torch.randn(T, K, generator=g).to(card, dtype)
+    w = (torch.randn(E, K, N, generator=g) / K**0.5).to(card, dtype)
+    return x, w, torch.tensor(sizes, dtype=torch.int32, device=card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "fp16"])
+@pytest.mark.parametrize("route", ["wgmma_tma", "wgmma_tma_64", "mma_sync"])
+@pytest.mark.parametrize("case", sorted(TMA_CASES))
+def test_gmm_every_route_matches_plain(card, case, route, dtype):
+    """Each bf16/fp16 route on the same inputs against the plain version;
+    rows past the sum of the sizes are zero; a rerun gives the same
+    bits."""
+    sizes, K, N, extra = TMA_CASES[case]
+    x, w, gs = _gmm_inputs(card, dtype, sizes, K, N, extra)
+    got, taken = gm._launch(x, w, gs, route)
+    again, _ = gm._launch(x, w, gs, route)
+    torch.cuda.synchronize()
+    assert taken == route
+    ref = gm.gmm_plain(x, w, gs)
+    over = (got.float() - ref.float()).abs() / _tol(dtype, ref.float())
+    assert over.max().item() <= 1.0, over.max().item()
+    assert torch.equal(got, again)
+    assert not got[sum(sizes):].any()
+
+
+@pytest.mark.cuda
+def test_gmm_counts_its_launch_by_route_and_refuses_a_wrong_one(card):
+    """gmm launches on :func:`gmm_route`'s route and counts it there; the
+    C entry refuses a route whose kernel cannot take the arguments (K not
+    a multiple of 64, N not of 8, an unaligned x, fp32 on a 16-bit route
+    or the other way round) rather than compute a wrong result."""
+    x, w, gs = _gmm_inputs(card, torch.bfloat16, [40, 24], 128, 64, 0)
+    before = dict(gm.gmm.route_launches)
+    gm.gmm(x, w, gs)
+    assert gm.gmm.route_launches["wgmma_tma_64"] == \
+        before["wgmma_tma_64"] + 1
+    base = torch.zeros(64 * 128 + 4, dtype=torch.bfloat16, device=card)
+    shifted = base[4:].view(64, 128)                   # 8 bytes off
+    for args, route in (
+            (_gmm_inputs(card, torch.bfloat16, [40, 24], 96, 64, 0),
+             "wgmma_tma"),
+            (_gmm_inputs(card, torch.float16, [40, 24], 128, 12, 0),
+             "wgmma_tma_64"),
+            ((shifted, w, gs), "wgmma_tma_64"),
+            ((x, w, gs), "fp32"),
+            (_gmm_inputs(card, torch.float32, [40, 24], 128, 64, 0),
+             "mma_sync")):
+        with pytest.raises(RuntimeError, match=route):
+            gm._launch(*args, route)
+
+
 @pytest.mark.cuda
 def test_gmm_rows_past_the_groups_are_zero(card):
     x = torch.randn(10, 16, device=card, dtype=torch.bfloat16)
@@ -740,7 +808,7 @@ def _bsa_layout(H, nb, causal, seed):
                                    torch.float16],
                          ids=["fp32", "bf16", "fp16"])
 @pytest.mark.parametrize("causal", [False, True], ids=["bidir", "causal"])
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
 @pytest.mark.parametrize("block", [16, 32, 64, 128])
 def test_block_sparse_kernel_matches_plain(card, block, D, causal, dtype):
     """One launch against the plain version on the same inputs, per-head
@@ -767,6 +835,47 @@ def test_block_sparse_kernel_matches_plain(card, block, D, causal, dtype):
     over = (o.float() - ref.float()).abs() / _tol(dtype, ref.float())
     assert over.max().item() <= 1.0, over.max().item()
     assert not o[:, block:2 * block, 0].any()             # the empty row
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "fp16"])
+@pytest.mark.parametrize("name,block,causal,D", [
+    ("fixed", 16, False, 64), ("fixed", 16, True, 64),
+    ("bigbird", 16, False, 64), ("bigbird", 32, True, 40),
+    ("fixed", 32, False, 24), ("bigbird", 64, False, 15),
+    ("fixed", 128, True, 128)])
+def test_block_sparse_tensor_core_row_groups(card, name, block, causal, D,
+                                             dtype):
+    """The tensor-core route on the package's layouts: "fixed" windows
+    sharing one key list (block 16), BigBird groups split into one q block
+    each, row groups of half a q block (block 128); head dims that take
+    16-byte (64, 128), 4-byte (24, 40) and element (15) copies; against
+    the plain version, bit-equal over two runs."""
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+    from deepspeed_tpu_torch.ops.kernels import block_sparse_attention as bs
+    H, nb, B = 4, 16, 2
+    kw = dict(num_heads=H, block=block, different_layout_per_head=True)
+    if causal:
+        kw["attention"] = "unidirectional"
+    cfg = (sa.FixedSparsityConfig(num_local_blocks=4, num_global_blocks=1,
+                                  num_different_global_patterns=4, **kw)
+           if name == "fixed" else
+           sa.BigBirdSparsityConfig(num_random_blocks=3, seed=5, **kw))
+    S = nb * block
+    layout = cfg.make_layout(S)
+    g = torch.Generator().manual_seed(block + D)
+    q, k, v = (torch.randn(B, S, H, D, generator=g).to(card, dtype)
+               for _ in range(3))
+    o = bs.block_sparse_attention_fwd(q, k, v, layout, block, causal=causal)
+    again = bs.block_sparse_attention_fwd(q, k, v, layout, block,
+                                          causal=causal)
+    ref = bs.block_sparse_attention_plain(q, k, v, layout, block,
+                                          causal=causal)
+    torch.cuda.synchronize()
+    assert torch.equal(o, again) and torch.isfinite(o).all()
+    over = (o.float() - ref.float()).abs() / _tol(dtype, ref.float())
+    assert over.max().item() <= 1.0, over.max().item()
 
 
 @pytest.mark.cuda

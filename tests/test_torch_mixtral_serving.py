@@ -1,7 +1,8 @@
 """The port's Mixtral serving path against the JAX package's, on the CPU at
 ``mixtral_tiny`` size: the grouped matmul's plain version (what the CUDA
 kernel B7 is held to on the card), ``moe_expert_ffn``/``moe_apply``, one
-ragged step, ``generate`` and an HF ``mixtral`` directory.
+ragged step, ``generate`` and an HF ``mixtral`` directory; and the
+kernel's route rule (a pure function of shapes, dtype and alignment).
 
 Both packages get the same weights: numpy arrays in the flax layout, handed
 to JAX as they are and to the port through ``params_from_flax``.
@@ -94,6 +95,60 @@ def test_gmm_checks_shapes_and_zeroes_uncovered_rows():
         gmm(x, torch.ones(2, 5, 3), torch.tensor([3, 3], dtype=torch.int32))
     with pytest.raises(TypeError, match="dtype"):
         gmm(x, w.double(), torch.tensor([3, 3], dtype=torch.int32))
+
+
+# Mixtral-8x7B's expert products: (name, K, N) of w1/w3 [E, D, I] and w2
+# [E, I, D] at its published widths
+_MIXTRAL_PRODUCTS = [("w1", 4096, 14336), ("w3", 4096, 14336),
+                     ("w2", 14336, 4096)]
+
+
+@pytest.mark.parametrize("T,want", [(16, "wgmma_tma_64"),
+                                    (64, "wgmma_tma_64"), (65, "wgmma_tma"),
+                                    (1536, "wgmma_tma")],
+                         ids=["decode16", "T64", "T65", "prefill1536"])
+@pytest.mark.parametrize("name,K,N", _MIXTRAL_PRODUCTS,
+                         ids=[p[0] for p in _MIXTRAL_PRODUCTS])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "fp16"])
+def test_gmm_route_takes_tma_at_mixtral_shapes(name, K, N, T, want, dtype):
+    """The kernel route is a pure function of shapes, dtype and alignment:
+    Mixtral's w1/w2/w3 products take wgmma + TMA (64-row tiles at decode
+    sizes), in bf16 and fp16."""
+    from deepspeed_tpu_torch.ops.kernels.grouped_matmul import gmm_route
+    assert gmm_route(T, K, N, dtype, 4096, 1 << 20) == want
+
+
+@pytest.mark.parametrize("K,N,x_addr,w_addr,want", [
+    (4096, 14336, 4096, 8, "mma_sync"),        # w only 8-byte aligned
+    (4096, 14336, 4104, 4096, "mma_sync"),     # x only 8-byte aligned
+    (4000, 14336, 0, 0, "mma_sync"),           # K not a multiple of 64
+    (4096 + 32, 4096, 0, 0, "mma_sync"),
+    (4096, 14340, 0, 0, "mma_sync"),           # N not a multiple of 8
+    (4096, 1003, 0, 0, "mma_sync"),
+    (64, 8, 0, 0, "wgmma_tma"),                # the smallest TMA shape
+])
+def test_gmm_route_takes_mma_where_tma_cannot(K, N, x_addr, w_addr, want):
+    from deepspeed_tpu_torch.ops.kernels.grouped_matmul import gmm_route
+    assert gmm_route(512, K, N, torch.bfloat16, x_addr, w_addr) == want
+
+
+@pytest.mark.parametrize("K,N", [(4096, 14336), (1000, 1003)])
+def test_gmm_route_fp32_takes_the_cuda_cores(K, N):
+    from deepspeed_tpu_torch.ops.kernels.grouped_matmul import gmm_route
+    for T in (1, 16, 1536):
+        assert gmm_route(T, K, N, torch.float32, 0, 0) == "fp32"
+
+
+def test_gmm_on_cpu_counts_no_launch():
+    """CPU tensors take the plain version: no launch, no route counted."""
+    from deepspeed_tpu_torch.ops.kernels import grouped_matmul as gm
+    before = gm.gmm.launches, dict(gm.gmm.route_launches)
+    x = torch.ones(6, 64, dtype=torch.bfloat16)
+    w = torch.ones(2, 64, 8, dtype=torch.bfloat16)
+    gm.gmm(x, w, torch.tensor([3, 3], dtype=torch.int32))
+    assert (gm.gmm.launches, gm.gmm.route_launches) == before
+    assert set(gm.gmm.route_launches) == set(gm.ROUTES)
 
 
 # ------------------------------------------------------------------- MoE

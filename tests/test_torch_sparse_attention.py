@@ -13,6 +13,12 @@ numpy inputs.
   bidirectional, with a row that has no live block; the port's wrapper
   (plain forward, the gather formulation's backward) against the JAX
   kernel's custom VJP.
+- The tensor-core kernel's host-built row groups (``row_group_tables``)
+  cover each live (q block, k block) pair once and no dead one, for the
+  five layout classes at blocks 16-128, causal and not; its arithmetic
+  (passes over the group key lists, P fed as hi + lo), emulated on the
+  CPU, holds the card's bf16/fp16 tolerances against JAX's interpreted
+  kernel, where P rounded once does not in bf16.
 
 Tolerances: outputs 2e-5 absolute and relative, gradients 5e-5 absolute
 and 5e-4 relative, the ones JAX's own kernel-against-gather tests use (the
@@ -286,3 +292,225 @@ def test_device_tables_cached_per_layout():
     np.testing.assert_array_equal(a[0].numpy(), idx)
     np.testing.assert_array_equal(a[1].numpy(), valid.sum(-1))
     assert a[0].dtype == a[1].dtype == torch.int32
+
+
+def test_device_tables_frozen_layout_by_identity(monkeypatch):
+    """A layout nothing can change in place (``SparseSelfAttention``'s,
+    on a ``bytes`` buffer) is looked up by identity, without hashing its
+    contents again; any other by contents, so changing it in place gives
+    new tables, also a read-only one whose owner unfreezes, edits and
+    freezes it again."""
+    attn = port_sa.SparseSelfAttention(port_sa.FixedSparsityConfig(
+        num_heads=2, block=16))
+    frozen = attn.layout(128)
+    assert attn.layout(128) is frozen
+    with pytest.raises(ValueError):
+        frozen.setflags(write=True)
+    cpu = torch.device("cpu")
+    first = port_bs.device_tables(frozen, 2, cpu, 16)
+    calls = []
+    real = port_bs.layout_gather_tables
+    monkeypatch.setattr(port_bs, "layout_gather_tables",
+                        lambda *a: calls.append(1) or real(*a))
+    assert port_bs.device_tables(frozen, 2, cpu, 16) is first
+    assert not calls
+    owned = frozen.copy()
+    owned.setflags(write=False)
+    assert port_bs.device_tables(owned, 2, cpu, 16)[0] is first[0]
+    assert calls
+    owned.setflags(write=True)
+    owned[:, :, 0] = ~owned[:, :, 0]
+    owned.setflags(write=False)
+    changed = port_bs.device_tables(owned, 2, cpu, 16)
+    assert not torch.equal(changed[1], first[1])
+
+
+# ----------------------------------- the tensor-core kernel's row groups
+TABLE_CONFIGS = {
+    "dense": ("DenseSparsityConfig", {}),
+    "fixed": ("FixedSparsityConfig",
+              dict(num_local_blocks=4, num_global_blocks=1,
+                   different_layout_per_head=True,
+                   num_different_global_patterns=2)),
+    "variable": ("VariableSparsityConfig",
+                 dict(num_random_blocks=2, local_window_blocks=(1, 2, 4),
+                      global_block_indices=(0, 5),
+                      different_layout_per_head=True, seed=3)),
+    "bigbird": ("BigBirdSparsityConfig",
+                dict(num_random_blocks=3, num_sliding_window_blocks=3,
+                     num_global_blocks=2, different_layout_per_head=True,
+                     seed=7)),
+    "longformer": ("BSLongformerSparsityConfig",
+                   dict(num_sliding_window_blocks=3,
+                        global_block_indices=(0, 3))),
+}
+
+
+def _table_layout(name, block, causal, nb=16, heads=2):
+    cls, kw = TABLE_CONFIGS[name]
+    kw = dict(kw, num_heads=heads, block=block)
+    if causal and name != "dense":
+        kw["attention"] = "unidirectional"
+    layout = getattr(port_sa, cls)(**kw).make_layout(nb * block)
+    if causal and name == "dense":
+        layout = layout & np.tril(np.ones((nb, nb), bool))[None]
+    return layout
+
+
+def _covered(groups, keys, block):
+    """Count of each (head, 16-row unit, k block) the tables make a warp
+    compute: [H, S / 16, nk] ints."""
+    H = groups[:, 0].max() + 1
+    count = {}
+    for h, off, n, *rows in groups[:, :7].tolist():
+        for e in keys[off:off + n].tolist():
+            kb, mask = e & 0xFFFFFF, e >> 24
+            for w, r0 in enumerate(rows):
+                if mask >> w & 1:
+                    assert r0 >= 0 and r0 % 16 == 0
+                    unit = (h, r0 // 16, kb)
+                    count[unit] = count.get(unit, 0) + 1
+    return H, count
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["bidir", "causal"])
+@pytest.mark.parametrize("block", [16, 32, 64, 128])
+@pytest.mark.parametrize("name", sorted(TABLE_CONFIGS))
+def test_row_groups_cover_the_live_pairs_once(name, block, causal):
+    """The host-built row groups of the tensor-core kernel: every live
+    (q block, k block) pair is computed for each 16-row unit of the q
+    block exactly once, no dead pair is, every query row belongs to one
+    warp of one group, and each key list ascends."""
+    layout = _table_layout(name, block, causal)
+    H, nb = layout.shape[0], layout.shape[1]
+    groups, keys = port_bs.row_group_tables(layout, H, block)
+    assert groups.dtype == keys.dtype == np.int32 and groups.shape[1] == 8
+    _, count = _covered(groups, keys, block)
+    units = block // 16
+    want = {(h, qb * units + u, kb): 1
+            for h, qb, kb in zip(*np.nonzero(layout)) for u in range(units)}
+    assert count == want
+    rows = groups[:, 3:7][groups[:, 3:7] >= 0]
+    np.testing.assert_array_equal(np.sort(rows // 16 % (nb * units)),
+                                  np.repeat(np.arange(nb * units), H))
+    for h, off, n in groups[:, :3].tolist():
+        kbs = keys[off:off + n] & 0xFFFFFF
+        assert (np.diff(kbs) > 0).all()
+    lengths = groups[:, 2]
+    assert (np.diff(lengths) <= 0).all()            # longest list first
+    assert port_bs.row_group_tables(layout.copy(), H, block)[0] is groups
+
+
+def test_row_groups_share_keys_and_split_where_they_do_not():
+    """At block 16 the "fixed" layout's local windows are one group of 4
+    q blocks each (one list serves 64 rows), causal too; BigBird's random
+    blocks make the union more than twice a member's list, so its groups
+    are split into one q block each."""
+    for causal in (False, True):
+        layout = _table_layout("fixed", 16, causal, nb=32, heads=1)
+        groups, _ = port_bs.row_group_tables(layout, 1, 16)
+        assert len(groups) == 32 // 4 and (groups[:, 3:7] >= 0).all()
+    layout = _table_layout("bigbird", 16, False, nb=32, heads=1)
+    groups, _ = port_bs.row_group_tables(layout, 1, 16)
+    assert len(groups) > 32 // 4
+    assert ((groups[:, 4:7] < 0).all(axis=1)).any()
+
+
+# ------------------------- the tensor-core kernel's arithmetic, emulated
+LOG2E = 1.4426950408889634
+
+
+def _round(x, dtype):
+    return x.to(dtype).float()
+
+
+def _emulate_tc_kernel(q, k, v, layout, block, causal, dtype, split):
+    """The bf16/fp16 kernel step by step on fp32 tensors [B, S, H, D]
+    holding ``dtype`` values: its row groups and 64-key passes, fp32
+    scores, exponentials of (s - m) * log2 e, and P fed to P V as hi + lo
+    of P * kP (``split``) or rounded once, each rounded to ``dtype``; the
+    output rounded once to ``dtype``."""
+    B, S, H, D = q.shape
+    scale = D ** -0.5
+    kp = 2.0 ** 15 if dtype == torch.float16 else 1.0
+    groups, keys = port_bs.row_group_tables(layout, H, block)
+    out = torch.zeros(B, S, H, D)
+    for h, off, n, *rows in groups[:, :7].tolist():
+        entries = keys[off:off + n].tolist()
+        krow = [(e & 0xFFFFFF) * block + t for e in entries
+                for t in range(block)]
+        kbit = [e >> 24 for e in entries for _ in range(block)]
+        for w, r0 in enumerate(rows):
+            if r0 < 0:
+                continue
+            qw = q[:, r0:r0 + 16, h]                        # [B, 16, D]
+            m = torch.full((B, 16), float("-inf"))
+            l = torch.zeros(B, 16)
+            acc = torch.zeros(B, 16, D)
+            for p0 in range(0, len(krow), 64):
+                cols = krow[p0:p0 + 64]
+                see = torch.tensor([b >> w & 1 for b in kbit[p0:p0 + 64]],
+                                   dtype=torch.bool)
+                if not see.any():
+                    continue
+                kw, vw = k[:, cols, h], v[:, cols, h]
+                s = (qw @ kw.transpose(1, 2)) * scale
+                mask = see[None, None, :].expand_as(s)
+                if causal:
+                    qpos = torch.arange(r0, r0 + 16)[:, None]
+                    mask = mask & (qpos >= torch.tensor(cols)[None, :])
+                s = torch.where(mask, s, float("-inf"))
+                m_new = torch.maximum(m, s.amax(-1))
+                msafe = torch.where(m_new == float("-inf"), 0.0, m_new)
+                alpha = torch.where(m == float("-inf"), 0.0,
+                                    torch.exp2((m - msafe) * LOG2E))
+                pr = torch.exp2((s - msafe[..., None]) * LOG2E) * kp
+                l = alpha * l + pr.sum(-1) / kp
+                hi = _round(pr, dtype)
+                pv = hi @ vw
+                if split:
+                    pv = (_round(pr - hi, dtype) @ vw) + pv
+                acc = acc * alpha[..., None] + pv
+                m = m_new
+            den = torch.where(l == 0.0, 1.0, l) * kp
+            out[:, r0:r0 + 16, h] = acc / den[..., None]
+    return out.to(dtype)
+
+
+def _worst_over_tol(got, ref, dtype):
+    rtol = 2.0 ** -10 if dtype == torch.float16 else 2.0 ** -7
+    diff = (got.float() - ref.float()).abs()
+    return (diff / (rtol * ref.float().abs() + 1e-4)).max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "fp16"])
+@pytest.mark.parametrize("name,block,causal", [
+    ("fixed", 16, False), ("fixed", 16, True), ("bigbird", 16, False),
+    ("bigbird", 64, False), ("fixed", 32, True)])
+def test_tc_kernel_p_rounding_holds_the_card_tolerance(name, block, causal,
+                                                       dtype):
+    """The kernel's arithmetic, emulated on the CPU with P fed as hi + lo,
+    holds the card's tolerance (2^-7·|ref| + 1e-4 in bf16, 2^-10·|ref| +
+    1e-4 in fp16) against JAX's Pallas kernel in interpret mode on the same
+    inputs; in bf16, P rounded once does not (fp16's 11 bits pass in some
+    cases, fail in others: the ratio is printed)."""
+    nb = 8 if block == 64 else 16
+    layout = _table_layout(name, block, causal, nb=nb, heads=2)
+    B, S, H, D = 1, nb * block, 2, 64
+    rng = np.random.default_rng(block + 2 * causal + len(name))
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, S, H, D))
+                                .astype(np.float32)).to(dtype).float()
+               for _ in range(3))
+    want = jax_bs_flash(*(jnp.asarray(t.numpy()) for t in (q, k, v)),
+                        layout, block, causal=causal)
+    ref = torch.from_numpy(np.array(want)).to(dtype)
+    split = _emulate_tc_kernel(q, k, v, layout, block, causal, dtype, True)
+    once = _emulate_tc_kernel(q, k, v, layout, block, causal, dtype, False)
+    worst_split = _worst_over_tol(split, ref, dtype)
+    worst_once = _worst_over_tol(once, ref, dtype)
+    print(f"{name} block {block} causal={causal} {dtype}: worst |err|/tol "
+          f"hi + lo {worst_split:.3f}, once {worst_once:.3f}")
+    assert worst_split <= 1.0, worst_split
+    if dtype == torch.bfloat16:
+        assert worst_once > 1.0, worst_once
