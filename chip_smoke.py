@@ -7,7 +7,10 @@ Stages, run in the order 1-21; any failure exits non-zero:
 
 1. environment: torch/CUDA/nvcc versions, the card's name and power limit;
 2. build: every ``deepspeed_tpu_torch/csrc/*.cu`` with nvcc for sm_90a
-   (one nvcc per source, started together), with ``ptxas -v``; for each
+   (one nvcc per source, started together), with ``ptxas -v``; for the
+   16 tensor-core paged attention kernels (bf16, fp16 × head dim 64, 128 ×
+   1, 2, 4, 8 row tiles) and their two split merges: registers, spills
+   (any fails), stack, dynamic shared memory and blocks an SM; for each
    of the twelve tensor-core flash kernels (forward, dq, dk/dv × bf16,
    fp16 × head dim 64, 128), the 48 tensor-core flash-bias kernels
    (forward, dq, dk/dv, dbias × bf16, fp16 × a bias in the input type or
@@ -15,20 +18,27 @@ Stages, run in the order 1-21; any failure exits non-zero:
    (bf16, fp16 × head dim 16-128) and the 4 wgmma/TMA grouped-matmul
    kernels (bf16, fp16 × 64 or 128 rows a tile) its registers, spill
    bytes, stack and (flash) dynamic shared memory on a line of its own;
-3. each kernel against its plain PyTorch version in bf16 at the shapes
-   stage 4 gives it (16 decode rows; 47 atom-16 tiles), and at Llama-2-7B
-   (H=Hkv=32, Dh=128, block 128) and Mistral-7B GQA (H=32, Hkv=8, window
-   4096) shapes: decode (atom 1, 64 tokens, contexts 1-4096) and prefill
-   (atom 16, 8 tiles), plus two fp32 cases; times of the kernel, the plain
-   version and ``scaled_dot_product_attention`` on already-gathered K/V,
-   and the bound;
+3. paged attention (B4) against its plain PyTorch version in bf16 at the
+   shapes stage 4 gives it (16 decode rows; 47 atom-16 tiles, also in
+   fp16), and at Llama-2-7B (H=Hkv=32, Dh=128, block 128) and Mistral-7B
+   GQA (H=32, Hkv=8, window 4096) shapes: decode (atom 1, 64 tokens,
+   contexts 1-4096) and prefill (atom 16, 8 tiles), plus two fp32 cases;
+   each case on its route (``launch_plan``: ``decode_split``,
+   ``atom_mma`` or ``fp32``), run twice, bit for bit; times of the kernel,
+   the plain version and ``scaled_dot_product_attention`` on
+   already-gathered K/V, the bound, the share of it and TFLOP/s; the
+   tensor-core kernels' registers, spills and HMMA count in ``cuobjdump
+   -sass`` (none fails);
 4. serving at full width: Llama-2-7B, random bf16 weights made on the card
    from the seed, built through ``build_engine_from_checkpoint``; 8 requests
    of 128-2048 prompt tokens, 64 greedy tokens each, through ``generate``;
-   the kernel's launch counts are read around this run, and the same
-   requests run again, untimed, to check every step's logits are finite;
+   the kernel's launch counts are read around this run (every decode call
+   on ``decode_split``, every prefill atom call on ``atom_mma``), and the
+   same requests run again, untimed, to check every step's logits are
+   finite;
 5. one prefill ragged step at full width and depth 2, kernel against the
-   plain gather path, then teacher-forced decode steps;
+   plain gather path, then teacher-forced decode steps, in bf16 and in
+   fp16; then one request through ``generate`` on each engine;
 6. a small HF directory (config.json + pytorch_model.bin, fp32, Dh 64,
    GQA) served through ``build_hf_engine`` on the card and on the CPU;
 7. the training kernels against their plain versions: flash attention's
@@ -264,11 +274,33 @@ def stage_build():
                 log(f"[build]   {line.strip()}")
     from deepspeed_tpu_torch.ops.op_builder import PagedAttentionBuilder
     lib = PagedAttentionBuilder().load()
-    log("[build]   paged_attention dynamic shared memory per block (bytes): "
-        + ", ".join(f"{dt}/Dh{dh}/rows{rm} "
-                    f"{lib.ds_paged_attention_smem_bytes(code, dh, rm)}"
-                    for code, dt in ((0, "fp32"), (1, "bf16"))
-                    for dh in (64, 128) for rm in (1, 4, 16)))
+    log("[build]   paged_attention fp32 route, dynamic shared memory per "
+        "block (bytes): " + ", ".join(
+            f"Dh{dh}/rows{rm} {lib.ds_paged_attention_smem_bytes(0, dh, rm)}"
+            for dh in (64, 128) for rm in (1, 4, 16)))
+    usage = _ptxas_usage(results["paged_attention"][1], _pa_key)
+    for key, u in sorted(usage.items()):
+        kind, dtype, dh, rt = key
+        extra = ""
+        if kind == "mma":
+            code = 1 if dtype == "bf16" else 2
+            extra = (f", {lib.ds_paged_attention_smem_bytes(1, dh, rt)} B "
+                     f"dynamic shared memory, "
+                     f"{lib.ds_paged_attention_blocks_per_sm(code, dh, rt)}"
+                     f" blocks an SM")
+        log(f"[build]   paged_attention {kind} {dtype}"
+            + (f" Dh{dh} row tiles {rt}" if kind == "mma" else "")
+            + f": {u.get('registers', '?')} registers, "
+            f"{u.get('spill_stores', '?')} B spill stores, "
+            f"{u.get('spill_loads', '?')} B spill loads, "
+            f"{u.get('stack', '?')} B stack{extra}")
+    if len(usage) != 18:
+        raise AssertionError(f"ptxas -v reported {len(usage)} of the 18 new "
+                             f"paged_attention kernels")
+    spilled = [k for k, u in usage.items()
+               if u.get("spill_stores") or u.get("spill_loads")]
+    if spilled:
+        raise AssertionError(f"paged_attention kernels spill: {spilled}")
     from deepspeed_tpu_torch.ops.op_builder import FlashAttentionBuilder
     from deepspeed_tpu_torch.ops.kernels.flash_attention import (
         FP32_ROUTE_PASS)
@@ -428,9 +460,19 @@ def _sdpa_ms(torch, q, kc, vc, tables, pos, atom, window):
     return ms, out
 
 
+def _pa_flops(q, pos, window):
+    """Useful flops of a paged attention call: 4·Dh per (query row, key it
+    attends to), over every head."""
+    T, H, Dh = q.shape
+    keys = sum(min(p + 1, window) if window else p + 1
+               for p in pos.cpu().tolist())
+    return 4 * Dh * H * keys
+
+
 def stage_kernels(seed):
     import torch
     from deepspeed_tpu_torch.ops.kernels import paged_attention as pa
+    from deepspeed_tpu_torch.ops.op_builder import PagedAttentionBuilder
     gen = torch.Generator(device="cuda").manual_seed(seed)
     cases = [
         # (name, wrapper, replaces line, shape args); the serve_* cases
@@ -457,6 +499,10 @@ def stage_kernels(seed):
         ("mistral7b_prefill_fp32", "paged_attention_atoms", 120,
          dict(H=32, Hkv=8, atom=16, n_tiles=4, max_ctx=6144, window=4096,
               dtype="float32")),
+        # last, so that the cases above draw the inputs they drew before
+        ("serve_prefill_fp16", "paged_attention_atoms", 120,
+         dict(H=32, Hkv=32, atom=16, n_tiles=47, max_ctx=2048,
+              table_ctx=4096, window=0, dtype="float16")),
     ]
     rows = []
     for name, wrapper, line, shape in cases:
@@ -464,16 +510,30 @@ def stage_kernels(seed):
         atom, window = shape["atom"], shape["window"]
         fn = getattr(pa, wrapper)
         args = (q, kc, vc, tables, pos) + ((atom, ) if atom > 1 else ())
+        route, splits, span, row_tiles = pa.launch_plan(
+            q.dtype, q.shape[0], shape["H"], shape["Hkv"], tables.shape[1],
+            atom)
+        before = dict(fn.route_launches)
         got = fn(*args, window=window)
+        again = fn(*args, window=window)
         torch.cuda.synchronize()
+        taken = {r: n - before[r] for r, n in fn.route_launches.items()
+                 if n != before[r]}
+        if taken != {route: 2}:
+            raise AssertionError(f"{name}: launches by route {taken}, want "
+                                 f"two on {route}")
+        bit_equal = torch.equal(got, again)
         first = pa._first_row_tables(tables, atom)
         ref = _plain(pa, q, kc, vc, first, pos, window)
+        low = {torch.bfloat16: "bf16", torch.float16: "fp16"}.get(q.dtype)
         diff = (got.float() - ref.float()).abs()
-        if q.dtype == torch.float32:
+        if low is None:
             tol, tol_text = FP32_ATOL, f"{FP32_ATOL:g}"
         else:
-            tol = BF16_RTOL * ref.float().abs() + BF16_ATOL
-            tol_text = f"2^-7·|ref| + {BF16_ATOL:g}"
+            rtol = FP16_RTOL if low == "fp16" else BF16_RTOL
+            tol = rtol * ref.float().abs() + BF16_ATOL
+            tol_text = (f"2^-{10 if low == 'fp16' else 7}·|ref| + "
+                        f"{BF16_ATOL:g}")
         err = diff.max().item()
         worst = (diff / tol).max().item()
         ms = cuda_ms(lambda: fn(*args, window=window), 20)
@@ -483,22 +543,49 @@ def stage_kernels(seed):
                                    window)
         lib_err = (lib_out.float() - ref.float()).abs().max().item()
         bound_ms, bound_by = _bound(q, kc, tables, pos, atom, window)
+        tflops = _pa_flops(q, pos, window) / ms / 1e9
+        plan = (f"route {route}" + (f", {splits} splits of {span} pages"
+                                    if route == "decode_split" else "")
+                + (f", {row_tiles} row tiles" if route != "fp32" else ""))
         log(f"[kernel] {name}: T={q.shape[0]} H={shape['H']} "
             f"Hkv={shape['Hkv']} atom={atom} window={window} "
             f"ctx<={shape['max_ctx']} table={tables.shape[1] * kc.shape[1]}: "
-            f"{shape.get('dtype', 'bfloat16')}: max_abs_err {err:.3e}, "
-            f"worst |err| / ({tol_text}) {worst:.3f} | kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-            f"ms, sdpa {lib_ms:.4f} ms (err {lib_err:.2e}), bound "
-            f"{bound_ms:.4f} ms by {bound_by}")
+            f"{shape.get('dtype', 'bfloat16')}, {plan}: max_abs_err "
+            f"{err:.3e}, worst |err| / ({tol_text}) {worst:.3f}, rerun "
+            f"bit-equal {bit_equal} | kernel {ms:.4f} ms ({tflops:.1f} "
+            f"TFLOP/s, {bound_ms / ms:.3f} of the bound), plain "
+            f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (err {lib_err:.2e}), "
+            f"bound {bound_ms:.4f} ms by {bound_by}")
         if not worst <= 1.0:
             raise AssertionError(f"{name}: kernel differs from its plain "
                                  f"version by {worst} × ({tol_text})")
-        rows.append(dict(case=name, wrapper=wrapper, line=line, err=err,
-                         err_over_tol=worst,
+        if not bit_equal:
+            raise AssertionError(f"{name}: two runs on the same inputs "
+                                 f"differ")
+        key = ("mma", low, q.shape[2], row_tiles) if low else None
+        rows.append(dict(key=key, case=name, wrapper=wrapper, line=line,
+                         err=err, err_over_tol=worst, route=route,
+                         splits=splits,
+                         span=span, row_tiles=row_tiles,
                          ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=bound_ms, bound_by=bound_by))
-        del q, kc, vc, tables, pos, got, ref, lib_out, diff, tol
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         share_of_bound=bound_ms / ms, tflops=tflops))
+        del q, kc, vc, tables, pos, got, again, ref, lib_out, diff, tol
         _free(torch)
+    reports = {}
+    for key in sorted({r["key"] for r in rows if r["key"]}):
+        report, counts = _kernel_report(PagedAttentionBuilder(), _pa_key,
+                                        key, (" HMMA.", ))
+        log(f"[kernel] paged_attention_mma_kernel {key[1:]}: "
+            f"{report['registers']} registers, {report['spill_stores']} / "
+            f"{report['spill_loads']} B spill stores / loads, SASS "
+            f"{counts[0]} HMMA")
+        if not counts[0]:
+            raise AssertionError(f"no HMMA in the SASS of "
+                                 f"paged_attention_mma_kernel {key}")
+        reports[key] = report
+    for r in rows:
+        r["kernel"] = reports.get(r.pop("key"))
     return rows
 
 
@@ -508,6 +595,20 @@ LLAMA2_7B_HF = dict(model_type="llama", vocab_size=32000, hidden_size=4096,
                     num_attention_heads=32, num_key_value_heads=32,
                     max_position_embeddings=4096, rms_norm_eps=1e-5,
                     rope_theta=10000.0)
+
+
+def _check_paged_routes(tag, launches, routes):
+    """Every bf16 paged attention launch of a serving run on the tensor-core
+    routes: decode calls on decode_split, prefill atoms on atom_mma."""
+    want = {"paged_attention": "decode_split",
+            "paged_attention_atoms": "atom_mma"}
+    by_route = {w: {r: n for r, n in routes[w].items() if n} for w in want}
+    log(f"[{tag}] paged attention launches by route: {by_route}")
+    for wrapper, route in want.items():
+        if routes[wrapper][route] != launches[wrapper]:
+            raise AssertionError(f"{tag}: {wrapper} launched "
+                                 f"{launches[wrapper]} times, "
+                                 f"{routes[wrapper][route]} on {route}")
 
 
 def _random_hf_state(torch, hf_cfg, gen, std=0.02):
@@ -581,14 +682,18 @@ def stage_serve(seed, smi, profile_dir=None):
     eng.schedule_step = timed_schedule
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    pa.paged_attention.launches = 0
-    pa.paged_attention_atoms.launches = 0
+    for fn in (pa.paged_attention, pa.paged_attention_atoms):
+        fn.launches = 0
+        fn.route_launches = dict.fromkeys(pa.ROUTES, 0)
     start = time.perf_counter()
     outs = eng.generate(prompts, max_new_tokens=new_tokens)
     torch.cuda.synchronize()
     wall = time.perf_counter() - start
     launches = {"paged_attention": pa.paged_attention.launches,
                 "paged_attention_atoms": pa.paged_attention_atoms.launches}
+    routes = {"paged_attention": dict(pa.paged_attention.route_launches),
+              "paged_attention_atoms":
+                  dict(pa.paged_attention_atoms.route_launches)}
     peak = torch.cuda.max_memory_allocated()
     bursts = getattr(eng, "burst_steps", 0)
     del eng.schedule_step               # the class's method again
@@ -617,6 +722,7 @@ def stage_serve(seed, smi, profile_dir=None):
         f"tokens / the rest) | TTFT mean {np.mean(ttft):.3f} s max "
         f"{prefill_end:.3f} s | peak memory {peak / 2**30:.2f} GiB | {smi}")
     log(f"[serve] kernel launches in this run: {launches}")
+    _check_paged_routes("serve", launches, routes)
     log(f"[serve] untimed rerun with a finiteness probe: logits finite "
         f"{bool(finite)}, same tokens as the timed run {again == outs}")
     bad = [t for o in outs for t in o if not 0 <= t < 32000]
@@ -633,7 +739,7 @@ def stage_serve(seed, smi, profile_dir=None):
                   decode_tok_s=(n_gen - len(prompts)) / (wall - prefill_end),
                   ttft_mean_s=float(np.mean(ttft)), ttft_max_s=prefill_end,
                   peak_bytes=peak, steps=steps[0], bursts=bursts,
-                  launches=launches,
+                  launches=launches, route_launches=routes,
                   prompt_lengths=lengths)
     if profile_dir:
         prompts = [rng.integers(0, 32000, size=n).tolist() for n in lengths]
@@ -752,23 +858,32 @@ def profile_serve(eng, prompts, out_dir, smi, stem="serve"):
 
 # ---------------------------------------------------------------- stage 5
 def stage_step_vs_plain(seed):
+    """Stage 5 in bf16, then in fp16: the fp16 engine runs its kernels on
+    the card (bf16 and fp16 take the same routes) and serves a request."""
+    return {dtype: _step_vs_plain(seed, dtype)
+            for dtype in ("bfloat16", "float16")}
+
+
+def _step_vs_plain(seed, dtype):
     import numpy as np
     import torch
     from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
     from deepspeed_tpu_torch.inference.v2.ragged_forward import \
         llama_ragged_step
     from deepspeed_tpu_torch.models.llama import LlamaModel, llama_7b
+    from deepspeed_tpu_torch.ops.kernels import paged_attention as pa
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
-    cfg = llama_7b(num_hidden_layers=2, dtype="bfloat16")
+    cfg = llama_7b(num_hidden_layers=2, dtype=dtype)
     model = LlamaModel(cfg, device="cuda").init_weights(gen)
-    eng = InferenceEngineV2(model, config=dict(
-        dtype="bfloat16", decode_burst=0,
+    engine_config = dict(
+        dtype=dtype, decode_burst=0,
         state_manager=dict(block_size=128, num_blocks=8, max_context=512,
                            max_ragged_sequence_count=4,
                            max_tracked_sequences=4,
                            max_ragged_batch_size=288,
-                           prefill_atom_size=16)))
+                           prefill_atom_size=16))
+    eng = InferenceEngineV2(model, config=engine_config)
     prompt = np.random.default_rng(seed).integers(0, 32000, 256).tolist()
     eng.put([0], [prompt])
     caches = {True: eng._kv.clone(), False: eng._kv.clone()}
@@ -787,7 +902,7 @@ def stage_step_vs_plain(seed):
         k, p = logits[True], logits[False]
         err = (k - p).abs().max().item()
         # the paths differ only in the order of fp32 sums inside attention,
-        # whose bf16 outputs then differ by about an ulp; two bf16 layers
+        # whose bf16 (fp16) outputs then differ by about an ulp; two layers
         # carry that to the fp32 logits
         tol = 0.02 * max(1.0, p.abs().max().item())
         top = torch.topk(k, 2).values
@@ -795,17 +910,39 @@ def stage_step_vs_plain(seed):
         tok = int(torch.argmax(k))
         agree = tok == int(torch.argmax(p))
         report.append((layout, err, tol, margin, agree))
-        log(f"[step] {'prefill' if step == 0 else 'decode'} layout {layout}:"
-            f" logits max|kernel - plain| {err:.4e} (tol {tol:.3e}), top-2 "
-            f"margin {margin:.4f}, greedy tokens agree: {agree}")
+        log(f"[step] {dtype} {'prefill' if step == 0 else 'decode'} layout "
+            f"{layout}: logits max|kernel - plain| {err:.4e} (tol "
+            f"{tol:.3e}), top-2 margin {margin:.4f}, greedy tokens agree: "
+            f"{agree}")
         if not err <= tol:
             raise AssertionError(f"ragged step logits differ by {err}")
         if not agree and margin > 2 * tol:
             raise AssertionError("greedy tokens differ at a clear margin")
         seq.tokens.append(tok)          # teacher-force the kernel's token
-    del eng, model, caches
+    del eng, caches
+    # one request through generate on a fresh engine of the same model
+    eng = InferenceEngineV2(model, config=engine_config)
+    for fn in (pa.paged_attention, pa.paged_attention_atoms):
+        fn.launches = 0
+        fn.route_launches = dict.fromkeys(pa.ROUTES, 0)
+    out = eng.generate([prompt[:200]], max_new_tokens=8)[0]
+    torch.cuda.synchronize()
+    launches = {"paged_attention": pa.paged_attention.launches,
+                "paged_attention_atoms": pa.paged_attention_atoms.launches}
+    routes = {"paged_attention": dict(pa.paged_attention.route_launches),
+              "paged_attention_atoms":
+                  dict(pa.paged_attention_atoms.route_launches)}
+    log(f"[step] {dtype} engine, one 200-token request through generate: "
+        f"8 tokens {out}; paged attention launches {launches}")
+    if len(out) != 8 or not all(0 <= t < 32000 for t in out) or \
+            min(launches.values()) <= 0:
+        raise AssertionError(f"the {dtype} engine did not serve: {out}, "
+                             f"{launches}")
+    _check_paged_routes("step", launches, routes)
+    del eng, model
     _free(torch)
-    return report
+    return dict(steps=report, tokens=out, launches=launches,
+                route_launches=routes)
 
 
 # ---------------------------------------------------------------- stage 6
@@ -930,6 +1067,24 @@ def _flash_sass(builder=None, key_fn=_flash_mma_key,
             for i, op in enumerate(ops):
                 counts[key][i] += op in line
     return counts
+
+
+_PA_MMA = re.compile(r"paged_attention_mma_kernelI(13__nv_bfloat16|6__half)"
+                     r"Li(\d+)ELi(\d)E")
+_PA_MERGE = re.compile(r"paged_attention_merge_kernelI"
+                       r"(13__nv_bfloat16|6__half)E")
+
+
+def _pa_key(symbol):
+    """("mma", dtype, Dh, row tiles) of a tensor-core B4 kernel's mangled
+    name, ("merge", dtype, 0, 0) of its split merge, else None."""
+    m = _PA_MMA.search(symbol)
+    if m:
+        return ("mma", "bf16" if "bfloat16" in m.group(1) else "fp16",
+                int(m.group(2)), int(m.group(3)))
+    m = _PA_MERGE.search(symbol)
+    return m and ("merge", "bf16" if "bfloat16" in m.group(1) else "fp16",
+                  0, 0)
 
 
 _BSA_MMA = re.compile(r"bsa_fwd_mma_kernelI(13__nv_bfloat16|6__half)Li(\d+)E")
@@ -2200,6 +2355,7 @@ def stage_mixtral_serve(seed, smi, profile_dir=None):
     if min(r["launches"].values()) <= 0:
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{r['launches']}")
+    _check_paged_routes("mixtral", r["launches"], r["route_launches"])
     log(f"[mixtral] gmm launches {r['launches']['gmm']} = 3 × "
         f"{cfg.num_hidden_layers} layers × {r['steps']} ragged steps "
         f"(decode-burst steps counted each); by route "
@@ -2258,6 +2414,7 @@ def stage_quant_serve(seed, smi, bf16_peak, profile_dir=None):
     if min(r["launches"].values()) <= 0:
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{r['launches']}")
+    _check_paged_routes("quant", r["launches"], r["route_launches"])
     log(f"[quant] dequantize launches {want} = {n_leaves} weights × "
         f"{r['steps']} ragged steps; peak {r['peak_bytes'] / 2**30:.2f} GiB "
         f"against stage 4's bf16 peak {bf16_peak / 2**30:.2f} GiB in this "
@@ -3332,6 +3489,7 @@ def main():
     for wrapper, case in (("paged_attention", "serve_decode"),
                           ("paged_attention_atoms", "serve_prefill")):
         row = next(r for r in kernels if r["case"] == case)
+        # launches_by_route: stage 4's run; kernel_route: this case's
         entries.append(dict(
             name=wrapper, route="cuda",
             source="deepspeed_tpu_torch/csrc/paged_attention.cu",
@@ -3340,7 +3498,9 @@ def main():
             launches=serve["launches"][wrapper], max_abs_err=row["err"],
             ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-            library_ms=row["library_ms"]))
+            library_ms=row["library_ms"], kernel_route=row["route"],
+            launches_by_route=serve["route_launches"][wrapper],
+            tflops=row["tflops"]))
     flash = next(r for r in train_kernels if r["case"] == "train")
     adam = next(r for r in train_kernels if r["case"] == "adam_8L_7b")
     src = "deepspeed_tpu/ops/pallas/"

@@ -145,12 +145,16 @@ class PagedAttentionBuilder(CUDAOpBuilder):
     def bind(self, lib):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.ds_paged_attention.argtypes = [
-            p, p, p, p, p, p,          # q, k_cache, v_cache, tables, pos, out
+            p, p, p, p, p, p, p,       # q, k_cache, v_cache, tables, pos,
+            #                            out, scratch
             i, i, i, i, i, i, i, i,    # T, H, Hkv, Dh, bs, maxb, atom, window
-            ctypes.c_float, i, p]      # scale, dtype code, stream
+            ctypes.c_float, i,         # scale, dtype code
+            i, i, i, i, p]             # route, splits, span, row tiles, stream
         lib.ds_paged_attention.restype = i
         lib.ds_paged_attention_smem_bytes.argtypes = [i, i, i]
         lib.ds_paged_attention_smem_bytes.restype = i
+        lib.ds_paged_attention_blocks_per_sm.argtypes = [i, i, i]
+        lib.ds_paged_attention_blocks_per_sm.restype = i
         lib.ds_cuda_error_string.argtypes = [i]
         lib.ds_cuda_error_string.restype = ctypes.c_char_p
 

@@ -15,8 +15,8 @@ kernels (into the tree's own build directory, all sources at once), then:
   16, 64] fp16), and of the bias flash kernels (B10: forward, dq, dk/dv,
   dbias) at stage 17's MSA-row shape ([512, 384, 8, 32] bf16, pair bias
   over 512 rows, key mask), inputs from a fixed seed;
-- runs chip_smoke's stages 7, 13, 17 and 19 (``--stages``) and keeps the
-  times of each kernel case.
+- runs chip_smoke's stages 3 (paged attention), 7, 13, 17 and 19
+  (``--stages``) and keeps the times of each kernel case.
 
 It writes one JSON file a run and prints, per kernel case, each run's ms
 and whether every run's output hashes agree.  Runs alternate (parent,
@@ -31,7 +31,8 @@ import os
 import subprocess
 import sys
 
-STAGES = {"7": "stage_train_kernels", "13": "stage_moe_quant_kernels",
+STAGES = {"3": "stage_kernels", "7": "stage_train_kernels",
+          "13": "stage_moe_quant_kernels",
           "17": "stage_evoformer_kernels", "19": "stage_sparse_kernels"}
 
 
@@ -118,7 +119,7 @@ def main():
                     help="NAME=DIR, once per tree")
     ap.add_argument("--order", required=True,
                     help="comma-separated tree names, run in this order")
-    ap.add_argument("--stages", default="7,13,17,19")
+    ap.add_argument("--stages", default="3,7,13,17,19")
     ap.add_argument("--out", required=True, help="directory for the JSON")
     ap.add_argument("--one", nargs=2, metavar=("TREE", "OUT"),
                     help=argparse.SUPPRESS)   # a child process's run

@@ -22,7 +22,10 @@ powers of two —, and hold the same tolerances, also over 4096 keys; with
 gradients 2^-12 and 2^10 in size, where an absolute 1e-4 would hide their
 error, the backward is held to the same relative tolerance plus 2^-12 of
 the output's largest value).  The flash kernels are bit-equal across two
-runs (no atomics, a fixed summation order).
+runs (no atomics, a fixed summation order).  Paged attention takes the
+same tolerances on every route (bf16/fp16: the tensor cores with P as
+hi + lo, decode's split states merged in split order) and is bit-equal
+across two runs.
 Adam: one fp32 ulp, 2^-23·|ref| (the kernel and its plain version do the
 same fp32 operations in the same order, none contracted into an FMA), and
 one ulp of the copy's type.  LAMB and Lion: m, v, u and Lion's master bit
@@ -96,30 +99,70 @@ def _tol(dtype, ref):
     return 2.0**-7 * ref.abs() + 1e-4
 
 
+def _paged_call(batch, atom, window):
+    """One wrapper call; (output, {route: launches} of this call)."""
+    fn = pa.paged_attention if atom == 1 else pa.paged_attention_atoms
+    before = dict(fn.route_launches), fn.launches
+    if atom == 1:
+        got = fn(*batch, window=window)
+    else:
+        got = fn(*batch, atom, window=window)
+    torch.cuda.synchronize()
+    routes = {r: n - before[0][r] for r, n in fn.route_launches.items()
+              if n != before[0][r]}
+    assert fn.launches == before[1] + 1
+    return got, routes
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16],
+                         ids=["fp32", "bf16", "fp16"])
 @pytest.mark.parametrize("Dh", [64, 128])
-@pytest.mark.parametrize("H,Hkv", [(8, 8), (8, 2)], ids=["mha", "gqa"])
+@pytest.mark.parametrize("H,Hkv", [(8, 8), (8, 2), (8, 4), (16, 2)],
+                         ids=["mha", "gqa", "gqa2", "gqa8"])
 @pytest.mark.parametrize("window", [0, 40])
 @pytest.mark.parametrize("atom", [1, 4, 16])
 def test_kernel_matches_plain(card, dtype, Dh, H, Hkv, window, atom):
+    """Every route against the plain version: fp32 on the CUDA cores,
+    bf16/fp16 decode and atoms on the tensor cores with 1, 2, 4 or 8 row
+    tiles a block (M = atom·H/Hkv up to 128), six tiles split across
+    spans; one launch a call, on the route launch_plan names; a second run
+    bit for bit the first."""
     batch = _batch(card, dtype, H, Hkv, Dh, atom, 6,
                    seed=atom * 100 + window + Dh + Hkv)
-    before = (pa.paged_attention.launches, pa.paged_attention_atoms.launches)
-    if atom == 1:
-        got = pa.paged_attention(*batch, window=window)
-    else:
-        got = pa.paged_attention_atoms(*batch, atom, window=window)
-    torch.cuda.synchronize()
+    got, routes = _paged_call(batch, atom, window)
     q, kc, vc, tables, pos = batch
+    want = pa.launch_plan(dtype, q.shape[0], H, Hkv, tables.shape[1], atom)
+    assert routes == {want[0]: 1}
     ref = pa.paged_attention_plain(q, kc, vc,
                                    pa._first_row_tables(tables, atom), pos,
                                    window)
     over = (got.float() - ref.float()).abs() / _tol(dtype, ref.float())
     assert over.max().item() <= 1.0, over.max().item()
-    after = (pa.paged_attention.launches, pa.paged_attention_atoms.launches)
-    assert sum(after) == sum(before) + 1
+    again, _ = _paged_call(batch, atom, window)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "fp16"])
+@pytest.mark.parametrize("atom,n_tiles", [(1, 512), (16, 40)])
+def test_one_span_writes_the_output(card, dtype, atom, n_tiles):
+    """Grids of a full wave or more take one span (no scratch, no merge
+    kernel): decode at T·Hkv = 4096 blocks, atoms at 40 tiles × 8 kv heads
+    of 64 rows; the block writes the output itself."""
+    batch = _batch(card, dtype, 32, 8, 128, atom, n_tiles, seed=7)
+    q, _, _, tables, _ = batch
+    assert pa.launch_plan(dtype, q.shape[0], 32, 8, tables.shape[1],
+                          atom)[1] == 1
+    got, routes = _paged_call(batch, atom, 0)
+    assert routes == {"decode_split" if atom == 1 else "atom_mma": 1}
+    q, kc, vc, tables, pos = batch
+    ref = pa.paged_attention_plain(q, kc, vc,
+                                   pa._first_row_tables(tables, atom), pos)
+    over = (got.float() - ref.float()).abs() / _tol(dtype, ref.float())
+    assert over.max().item() <= 1.0, over.max().item()
 
 
 @pytest.mark.cuda
@@ -127,8 +170,9 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(card):
     q, kc, vc, tables, pos = _batch(card, torch.float32, 4, 2, 64, 1, 3, 0)
     with pytest.raises(TypeError, match="int32"):
         pa.paged_attention(q, kc, vc, tables.long(), pos)
-    with pytest.raises(TypeError, match="bf16 or fp32"):
-        pa.paged_attention(q.half(), kc.half(), vc.half(), tables, pos)
+    with pytest.raises(TypeError, match="caches of q's dtype"):
+        pa.paged_attention(q.half(), kc.bfloat16(), vc.bfloat16(), tables,
+                           pos)
     with pytest.raises(ValueError, match="head_dim"):
         pa.paged_attention(q[..., :32].contiguous(),
                            kc[..., :32].contiguous(),
