@@ -8,8 +8,9 @@ Stages, run in the order 1-21; any failure exits non-zero:
 1. environment: torch/CUDA/nvcc versions, the card's name and power limit;
 2. build: every ``deepspeed_tpu_torch/csrc/*.cu`` with nvcc for sm_90a
    (one nvcc per source, started together), with ``ptxas -v``; for the
-   16 tensor-core paged attention kernels (bf16, fp16 × head dim 64, 128 ×
-   1, 2, 4, 8 row tiles) and their two split merges: registers, spills
+   32 tensor-core paged attention kernels (bf16, fp16 × tiles of head dim
+   64, 128, each filled or padded × 1, 2, 4, 8 row tiles) and their two
+   split merges: registers, spills
    (any fails), stack, dynamic shared memory and blocks an SM; for each
    of the twelve tensor-core flash kernels (forward, dq, dk/dv × bf16,
    fp16 × head dim 64, 128), the 48 tensor-core flash-bias kernels
@@ -18,13 +19,17 @@ Stages, run in the order 1-21; any failure exits non-zero:
    (bf16, fp16 × head dim 16-128) and the 4 wgmma/TMA grouped-matmul
    kernels (bf16, fp16 × 64 or 128 rows a tile) its registers, spill
    bytes, stack and (flash) dynamic shared memory on a line of its own;
+   the registers of the one-pass group kernels of B5's quantize (27) and
+   B6 (81), a line per input type and encoder (spills fail);
 3. paged attention (B4) against its plain PyTorch version in bf16 at the
    shapes stage 4 gives it (16 decode rows; 47 atom-16 tiles, also in
    fp16), and at Llama-2-7B (H=Hkv=32, Dh=128, block 128) and Mistral-7B
    GQA (H=32, Hkv=8, window 4096) shapes: decode (atom 1, 64 tokens,
-   contexts 1-4096) and prefill (atom 16, 8 tiles), plus two fp32 cases;
-   each case on its route (``launch_plan``: ``decode_split``,
-   ``atom_mma`` or ``fp32``), run twice, bit for bit; times of the kernel,
+   contexts 1-4096) and prefill (atom 16, 8 tiles), plus two fp32 cases,
+   and decode and prefill at head widths the 128-wide tile pads (Phi-2's
+   80, OpenLLaMA-3B's 100); each case on its route (``launch_plan``:
+   ``decode_split``, ``atom_mma`` or ``fp32``), run twice, bit for bit;
+   times of the kernel,
    the plain version and ``scaled_dot_product_attention`` on
    already-gathered K/V, the bound, the share of it and TFLOP/s; the
    tensor-core kernels' registers, spills and HMMA count in ``cuobjdump
@@ -94,10 +99,15 @@ Stages, run in the order 1-21; any failure exits non-zero:
     and in fp32 at K=1000, N=1003 (within 2^-7·|ref| + 1e-4 in bf16);
     blockwise
     quantize and dequantize over one layer's w1 stack (469,762,048
-    elements), int8 and int4, groups of 128 and 2048, bf16 and fp32 input
-    (bit for bit); times of each kernel, its plain version, a library call
-    for the grouped matmul (``torch._grouped_mm`` where this torch has it,
-    else a per-expert ``torch.matmul`` loop) and the bound; each grouped
+    elements), int8 and int4, groups of 128 and 2048, bf16 and fp32 input,
+    on the contiguous route, and quantize of ``p.t()`` of Llama-2-7B's
+    bf16 gate projection [11008, 4096] as the int8 build passes it, on the
+    transposed route (beside it a contiguous copy and the kernel), then
+    every bf16 and fp16 value at random scales and exact ties on both
+    routes (all bit for bit); times of each kernel, its plain version, a
+    library call for the grouped matmul (``torch._grouped_mm`` where this
+    torch has it, else a per-expert ``torch.matmul`` loop) and the bound;
+    each grouped
     matmul case's route (Mixtral's shapes must take wgmma + TMA: 64-row
     tiles for decode, 128 for prefill; shapes TMA cannot take mma.sync;
     fp32 the CUDA cores), TFLOP/s and share of the bound, and for the
@@ -112,7 +122,10 @@ Stages, run in the order 1-21; any failure exits non-zero:
     wgmma/TMA routes, counted by route) and paged attention's, finite
     logits;
 15. Llama-2-7B at full width and depth with ``quantization_mode="int8"``:
-    quantize launches at build (one per weight), dequantize launches
+    quantize launches at build (one per weight; every ``nn.Linear`` weight
+    on the transposed route, none copied), ``quantize_tree``'s wall time
+    and the device time of its kernels (``torch.profiler``), dequantize
+    launches
     (weights × ragged steps, exactly), resident weight bytes, rates, and a
     serving peak below stage 4's bf16 peak in the same run; then an int4
     engine for one short request;
@@ -157,12 +170,16 @@ Stages, run in the order 1-21; any failure exits non-zero:
     [B, H, S, D] entry: ms per forward and per forward+backward, exactly
     one kernel launch per forward, peak memory above the inputs, the
     output and gradients against the gather formulation;
-21. the FP6/FP12 quantize kernel against its plain version, codes and
-    scales bit for bit, at Llama-2-7B's MLP leaf [4096, 11008] and
-    embedding [32000, 4096] in bf16 and fp32 (groups of 512); then
-    ``linear.quantize_param_tree`` over Llama-2-7B's whole bf16 tree in
-    the JAX layout (random from the seed) in FP6, FP12 and fp8: launches
-    (one per leaf of two or more dims; none for fp8), wall time, resident
+21. the FP6/FP12 quantize kernel (it packs its codes) against its plain
+    version, packed bytes and scales bit for bit, at Llama-2-7B's MLP leaf
+    [4096, 11008] and embedding [32000, 4096] in bf16 and fp32 (groups of
+    512), with the byte bound of the packed output and the issue time of
+    the SASS instructions the kernel runs for a whole group (above the
+    kernel's time fails); every bf16 and fp16
+    value at random scales; then ``linear.quantize_param_tree`` over
+    Llama-2-7B's whole bf16 tree in the JAX layout (random from the seed)
+    in FP6, FP12 and fp8: launches (one per leaf of two or more dims; none
+    for fp8), ``pack_codes`` never called, wall and device time, resident
     bytes and the worst relative error of ``dequantized()``.
 
 ``--profile DIR`` adds ``torch.profiler`` windows over serving (stages 4,
@@ -175,8 +192,8 @@ its wrappers launched reports its breakdown as not measured.
 Prints a ``{"kernels": [...]}`` line, then, last, the device line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
 torch sees no CUDA device, the package is not beside this script, or
-``DS_TPU_DISABLE_PALLAS_ATTN`` (which turns the attention kernels off) is
-set.
+``DS_TPU_DISABLE_PALLAS_ATTN`` or ``DS_TPU_DISABLE_PALLAS_PAGED`` (which
+turn the attention kernels and the paged one off) is set.
 """
 
 import argparse
@@ -280,23 +297,27 @@ def stage_build():
             for dh in (64, 128) for rm in (1, 4, 16)))
     usage = _ptxas_usage(results["paged_attention"][1], _pa_key)
     for key, u in sorted(usage.items()):
-        kind, dtype, dh, rt = key
+        kind, dtype, dh, rt, pad = key
         extra = ""
         if kind == "mma":
             code = 1 if dtype == "bf16" else 2
+            # a padded kernel's occupancy, asked for a head it pads
+            head = dh - 2 * pad
             extra = (f", {lib.ds_paged_attention_smem_bytes(1, dh, rt)} B "
                      f"dynamic shared memory, "
-                     f"{lib.ds_paged_attention_blocks_per_sm(code, dh, rt)}"
+                     f"{lib.ds_paged_attention_blocks_per_sm(code, head, rt)}"
                      f" blocks an SM")
         log(f"[build]   paged_attention {kind} {dtype}"
-            + (f" Dh{dh} row tiles {rt}" if kind == "mma" else "")
+            + (f" Dh{dh}{' padded' if pad else ''} row tiles {rt}"
+               if kind == "mma" else "")
             + f": {u.get('registers', '?')} registers, "
             f"{u.get('spill_stores', '?')} B spill stores, "
             f"{u.get('spill_loads', '?')} B spill loads, "
             f"{u.get('stack', '?')} B stack{extra}")
-    if len(usage) != 18:
-        raise AssertionError(f"ptxas -v reported {len(usage)} of the 18 new "
-                             f"paged_attention kernels")
+    if len(usage) != 34:
+        raise AssertionError(f"ptxas -v reported {len(usage)} of the 34 "
+                             f"tensor-core and merge paged_attention "
+                             f"kernels")
     spilled = [k for k, u in usage.items()
                if u.get("spill_stores") or u.get("spill_loads")]
     if spilled:
@@ -365,6 +386,30 @@ def stage_build():
         if len(usage) != want:
             raise AssertionError(f"ptxas -v reported {len(usage)} of the "
                                  f"{want} new {name} kernels")
+    # the one-pass group kernels of B5's quantize and B6: one line per
+    # input type and encoder, a kernel per units a lane holds (0: read
+    # twice), "w" for whole, aligned groups
+    for name, want in (("quantizer", 27), ("fp_quantizer", 81)):
+        usage = _ptxas_usage(results[name][1], _gq_key)
+        lines = {}
+        for (dtype, units, whole, enc), u in sorted(
+                usage.items(), key=lambda kv: str(kv[0])):
+            lines.setdefault((dtype, enc), []).append(
+                f"{units}{'w' if whole else ''} "
+                f"{u.get('registers', '?')}"
+                + (f" (spills {u.get('spill_stores')}/"
+                   f"{u.get('spill_loads')} B)"
+                   if u.get("spill_stores") or u.get("spill_loads") else ""))
+        for (dtype, enc), parts in sorted(lines.items(), key=str):
+            log(f"[build]   {name} group_kernel {dtype} {enc}: registers "
+                f"by units a lane: " + ", ".join(parts))
+        if len(usage) != want:
+            raise AssertionError(f"ptxas -v reported {len(usage)} of the "
+                                 f"{want} {name} group kernels")
+        spilled = [k for k, u in usage.items()
+                   if u.get("spill_stores") or u.get("spill_loads")]
+        if spilled:
+            raise AssertionError(f"{name} group kernels spill: {spilled}")
     log(f"[build] all kernels: {time.perf_counter() - t0:.1f} s")
 
 
@@ -503,6 +548,21 @@ def stage_kernels(seed):
         ("serve_prefill_fp16", "paged_attention_atoms", 120,
          dict(H=32, Hkv=32, atom=16, n_tiles=47, max_ctx=2048,
               table_ctx=4096, window=0, dtype="float16")),
+        # head widths the 128-column tile pads (after the cases above, for
+        # the same reason): Phi-2's 80 (32 heads of 2560) and OpenLLaMA-
+        # 3B's 100 (32 heads of 3200)
+        ("phi2_decode_dh80", "paged_attention", 29,
+         dict(H=32, Hkv=32, atom=1, n_tiles=16, min_ctx=128, max_ctx=2048,
+              window=0, Dh=80)),
+        ("phi2_prefill_dh80", "paged_attention_atoms", 120,
+         dict(H=32, Hkv=32, atom=16, n_tiles=16, max_ctx=2048, window=0,
+              Dh=80)),
+        ("openllama3b_decode_dh100", "paged_attention", 29,
+         dict(H=32, Hkv=32, atom=1, n_tiles=16, min_ctx=128, max_ctx=2048,
+              window=0, Dh=100)),
+        ("openllama3b_prefill_dh100", "paged_attention_atoms", 120,
+         dict(H=32, Hkv=32, atom=16, n_tiles=16, max_ctx=2048, window=0,
+              Dh=100)),
     ]
     rows = []
     for name, wrapper, line, shape in cases:
@@ -562,7 +622,9 @@ def stage_kernels(seed):
         if not bit_equal:
             raise AssertionError(f"{name}: two runs on the same inputs "
                                  f"differ")
-        key = ("mma", low, q.shape[2], row_tiles) if low else None
+        dh = q.shape[2]
+        tile = 64 if dh <= 64 else 128
+        key = ("mma", low, tile, row_tiles, dh != tile) if low else None
         rows.append(dict(key=key, case=name, wrapper=wrapper, line=line,
                          err=err, err_over_tol=worst, route=route,
                          splits=splits,
@@ -1070,21 +1132,22 @@ def _flash_sass(builder=None, key_fn=_flash_mma_key,
 
 
 _PA_MMA = re.compile(r"paged_attention_mma_kernelI(13__nv_bfloat16|6__half)"
-                     r"Li(\d+)ELi(\d)E")
+                     r"Li(\d+)ELi(\d)ELb([01])E")
 _PA_MERGE = re.compile(r"paged_attention_merge_kernelI"
                        r"(13__nv_bfloat16|6__half)E")
 
 
 def _pa_key(symbol):
-    """("mma", dtype, Dh, row tiles) of a tensor-core B4 kernel's mangled
-    name, ("merge", dtype, 0, 0) of its split merge, else None."""
+    """("mma", dtype, tile Dh, row tiles, padded) of a tensor-core B4
+    kernel's mangled name, ("merge", dtype, 0, 0, False) of its split
+    merge, else None."""
     m = _PA_MMA.search(symbol)
     if m:
         return ("mma", "bf16" if "bfloat16" in m.group(1) else "fp16",
-                int(m.group(2)), int(m.group(3)))
+                int(m.group(2)), int(m.group(3)), m.group(4) == "1")
     m = _PA_MERGE.search(symbol)
     return m and ("merge", "bf16" if "bfloat16" in m.group(1) else "fp16",
-                  0, 0)
+                  0, 0, False)
 
 
 _BSA_MMA = re.compile(r"bsa_fwd_mma_kernelI(13__nv_bfloat16|6__half)Li(\d+)E")
@@ -2086,6 +2149,15 @@ def _gmm_case(torch, gen, name, sizes, K, N, dtype, route, x_offset=0):
     return row
 
 
+def _quant_route_of(qz, fn):
+    """fn() and the quantize routes it counted."""
+    before = dict(qz.quantize_blockwise.route_launches)
+    out = fn()
+    return out, {r: n - before[r] for r, n in
+                 qz.quantize_blockwise.route_launches.items()
+                 if n != before[r]}
+
+
 def _quant_case(torch, gen, dtype, bits, group_size):
     """Both quantizer kernels over one Mixtral layer's w1 stack, each bit
     for bit against its plain version, with times and bounds."""
@@ -2093,8 +2165,12 @@ def _quant_case(torch, gen, dtype, bits, group_size):
     dt = getattr(torch, dtype)
     x = (torch.randn(8, 4096, 14336, device="cuda", generator=gen)
          * 0.02).to(dt)
-    q, s, meta = qz.quantize_blockwise(x, bits, group_size)
+    (q, s, meta), taken = _quant_route_of(
+        qz, lambda: qz.quantize_blockwise(x, bits, group_size))
     torch.cuda.synchronize()
+    if taken != {"contiguous": 1}:
+        raise AssertionError(f"quantize took {taken}, want one launch on "
+                             f"the contiguous route")
     q_ref, s_ref, meta_ref = qz.quantize_blockwise_plain(x, bits, group_size)
     q_ok = (meta == meta_ref and torch.equal(q, q_ref)
             and torch.equal(s, s_ref))
@@ -2107,7 +2183,8 @@ def _quant_case(torch, gen, dtype, bits, group_size):
     d_err = (out.float() - ref.float()).abs().max().item()
     del out, ref
     _free(torch)
-    row = dict(case=f"{dtype}_int{bits}_g{group_size}", elements=x.numel())
+    row = dict(case=f"{dtype}_int{bits}_g{group_size}", elements=x.numel(),
+               route="contiguous")
     row["ms_q"] = cuda_ms(lambda: qz.quantize_blockwise(x, bits, group_size),
                           10)
     row["plain_ms_q"] = cuda_ms(
@@ -2132,6 +2209,100 @@ def _quant_case(torch, gen, dtype, bits, group_size):
         raise AssertionError(f"quantizer {row['case']}: kernels differ from "
                              f"their plain versions")
     del x, q, s
+    _free(torch)
+    return row
+
+
+def _crafted_quant_input(torch, dtype, rounds=64, seed=0):
+    """Groups of exact rounding ties of int8 (absmax 127 · 2^e, the other
+    values (k + 0.5) · 2^e for k in [-127, 126], e in [-12, 8]: normal in
+    bf16 and fp16), then every finite value of ``dtype`` (bf16 or fp16),
+    each ``rounds`` times in a random order (groups take random scales)."""
+    bits = torch.arange(65536, dtype=torch.int32).to(torch.int16)
+    vals = bits.view(dtype)
+    vals = vals[torch.isfinite(vals.float())]
+    g = torch.Generator().manual_seed(seed)
+    mixed = torch.cat([vals[torch.randperm(vals.numel(), generator=g)]
+                       for _ in range(rounds)])
+    k = torch.arange(-127, 127, dtype=torch.float32) + 0.5
+    ties = [torch.cat([torch.tensor([127.0]), k, torch.zeros(1)])
+            * 2.0 ** e for e in range(-12, 9)]         # 256 a group
+    x = torch.cat([torch.cat(ties), mixed.float()])
+    return x.to(dtype).to("cuda")
+
+
+def _quant_crafted_case(torch):
+    """B5's quantize bit for bit over every bf16 and fp16 value at random
+    scales and over exact ties, int8 and int4, groups of 128 and 256,
+    contiguous and transposed."""
+    from deepspeed_tpu_torch.ops.kernels import quantizer as qz
+    checked = 0
+    for dtype in (torch.bfloat16, torch.float16):
+        x = _crafted_quant_input(torch, dtype)
+        x = x[:x.numel() // 16384 * 16384]       # [8k, 2048] views
+        for bits in (8, 4):
+            for gs in (128, 256):
+                for view in (x, x.view(-1, 2048).t().contiguous().t()):
+                    q, s, meta = qz.quantize_blockwise(view, bits, gs)
+                    ref = qz.quantize_blockwise_plain(view, bits, gs)
+                    if not (torch.equal(q, ref[0])
+                            and torch.equal(s, ref[1])):
+                        raise AssertionError(
+                            f"quantize {dtype} int{bits} g{gs} "
+                            f"{tuple(view.stride())}: differs from its "
+                            f"plain version on crafted values")
+                    checked += view.numel()
+    log(f"[quant-kernel] crafted: every finite bf16 and fp16 value 64 "
+        f"times at random scales and exact ties, int8/int4, groups of "
+        f"128/256, contiguous and transposed: {checked:,} values bit-equal")
+    return checked
+
+
+def _quant_t_case(torch, gen, bits=8, group_size=128):
+    """B5's quantize as the int8 serving build calls it on Llama-2-7B's
+    gate projection: ``p.t()`` of the bf16 [11008, 4096] nn.Linear weight,
+    on the transposed route, bit for bit against the plain version of the
+    same view; beside it the contiguous copy the route no longer makes."""
+    from deepspeed_tpu_torch.ops.kernels import quantizer as qz
+    p = (torch.randn(11008, 4096, device="cuda", generator=gen)
+         * 0.02).to(torch.bfloat16)
+    x = p.t()
+    (q, s, meta), taken = _quant_route_of(
+        qz, lambda: qz.quantize_blockwise(x, bits, group_size))
+    torch.cuda.synchronize()
+    if taken != {"transposed": 1}:
+        raise AssertionError(f"quantize of p.t() took {taken}, want one "
+                             f"launch on the transposed route")
+    q_ref, s_ref, meta_ref = qz.quantize_blockwise_plain(x, bits, group_size)
+    ok = (meta == meta_ref and torch.equal(q, q_ref)
+          and torch.equal(s, s_ref))
+    err = (q.int() - q_ref.int()).abs().max().item()
+    del q_ref, s_ref
+    _free(torch)
+    n, groups = x.numel(), meta[2]
+    row = dict(case=f"gate_proj_t_int{bits}_g{group_size}", elements=n,
+               route="transposed", err_q=err, bit_equal=ok)
+    row["ms_q"] = cuda_ms(lambda: qz.quantize_blockwise(x, bits, group_size),
+                          10)
+    row["plain_ms_q"] = cuda_ms(
+        lambda: qz.quantize_blockwise_plain(x, bits, group_size), 2,
+        warmup=1)
+    # what the serving build paid before the transposed route: a
+    # contiguous copy of p.t(), then the contiguous kernel on the copy
+    row["ms_copy_then_q"] = cuda_ms(
+        lambda: qz.quantize_blockwise(x.contiguous(), bits, group_size), 10)
+    row["bound_q"] = _roofline(n * 2 + n + 4 * groups, 0, BF16_FLOPS)
+    log(f"[quant-kernel] {row['case']} (p.t() of bf16 [11008, 4096], "
+        f"{groups:,} groups): q, scales "
+        f"{'bit-equal' if ok else 'DIFFER'} (max |Δq| {err}), route "
+        f"transposed | quantize {row['ms_q']:.4f} ms (plain "
+        f"{row['plain_ms_q']:.3f}, bound {row['bound_q'][0]:.4f}, "
+        f"{row['bound_q'][0] / row['ms_q']:.2f} of it); a contiguous copy "
+        f"then the contiguous kernel {row['ms_copy_then_q']:.4f} ms")
+    if not ok:
+        raise AssertionError(f"quantizer {row['case']}: the transposed "
+                             f"route differs from the plain version")
+    del p, x, q, s
     _free(torch)
     return row
 
@@ -2162,7 +2333,10 @@ def stage_moe_quant_kernels(seed):
     quant_rows = [_quant_case(torch, gen, dtype, bits, gs)
                   for dtype in ("bfloat16", "float32") for bits in (8, 4)
                   for gs in (128, 2048)]
-    return dict(gmm=gmm_rows, quant=quant_rows)
+    quant_rows.append(_quant_t_case(torch, gen))
+    crafted = _quant_crafted_case(torch)
+    _free(torch)
+    return dict(gmm=gmm_rows, quant=quant_rows, quant_crafted=crafted)
 
 
 # --------------------------------------------------------------- stage 14
@@ -2374,33 +2548,85 @@ def stage_mixtral_serve(seed, smi, profile_dir=None):
 
 
 # --------------------------------------------------------------- stage 15
+def device_time(torch, body):
+    """``body()`` under ``torch.profiler`` (CUDA activity only): (its
+    result, wall ms between synchronizes, the summed time of the device
+    kernels it ran in ms, or None where the profiler kept no device record,
+    and the number of kernel records)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = body()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    us, records = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            t = getattr(e, "self_device_time_total", None)
+            us += e.self_cuda_time_total if t is None else t
+            records += e.count
+    return out, wall, (us / 1e3 if records else None), records
+
+
 def stage_quant_serve(seed, smi, bf16_peak, profile_dir=None):
     import numpy as np
     import torch
     from deepspeed_tpu_torch.inference import quant_serving
     from deepspeed_tpu_torch.inference.v2 import build_engine_from_checkpoint
+    from deepspeed_tpu_torch.inference.v2 import engine_v2
     from deepspeed_tpu_torch.ops.kernels import paged_attention as pa
     from deepspeed_tpu_torch.ops.kernels import quantizer as qz
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 15)
     qz.quantize_blockwise.launches = 0
+    qz.quantize_blockwise.route_launches = dict.fromkeys(qz.ROUTES, 0)
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    eng = build_engine_from_checkpoint(
-        _RandomCheckpoint(torch, LLAMA2_7B_HF, gen), LLAMA2_7B_HF,
-        dict(SERVE_ENGINE, quantization_mode="int8"))
-    torch.cuda.synchronize()
+    tree_times = {}
+
+    def quantize_tree(*args):
+        out, wall, dev, records = device_time(
+            torch, lambda: quant_serving.quantize_tree(*args))
+        # every launch must have its record, or the sum is not the device
+        # time
+        launched = qz.quantize_blockwise.launches
+        tree_times.update(wall_ms=wall, device_ms=(
+            dev if records >= launched else None), records=records)
+        return out
+
+    engine_v2.quantize_tree = quantize_tree
+    try:
+        t0 = time.perf_counter()
+        eng = build_engine_from_checkpoint(
+            _RandomCheckpoint(torch, LLAMA2_7B_HF, gen), LLAMA2_7B_HF,
+            dict(SERVE_ENGINE, quantization_mode="int8"))
+        torch.cuda.synchronize()
+    finally:
+        engine_v2.quantize_tree = quant_serving.quantize_tree
     n_leaves = len(eng._quant_meta)
     built = qz.quantize_blockwise.launches
+    routes = dict(qz.quantize_blockwise.route_launches)
+    linears = sum(isinstance(m, torch.nn.Linear)
+                  for m in eng.module.modules())
     resident = quant_serving.resident_bytes(eng.module)
     log(f"[quant] Llama-2-7B int8 engine built in "
         f"{time.perf_counter() - t0:.1f} s: {n_leaves} weights quantized "
-        f"(quantize launches {built}), resident weights "
+        f"(quantize launches {built}, by route {routes}; {linears} "
+        f"nn.Linear), quantize_tree {tree_times['wall_ms']:.1f} ms wall "
+        f"under the profiler, "
+        f"device (kernels, {tree_times['records']} profiler records) "
+        + (f"{tree_times['device_ms']:.2f} ms"
+           if tree_times["device_ms"] is not None else "not measured")
+        + f", resident weights "
         f"{resident / 2**30:.3f} GiB (int8 + fp32 scales + norms), build "
         f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if built != n_leaves:
         raise AssertionError(f"quantize launched {built} times for "
                              f"{n_leaves} weights")
+    if routes["transposed"] != linears or routes["copy"]:
+        raise AssertionError(f"quantize routes {routes}: want every one of "
+                             f"the {linears} nn.Linear weights on the "
+                             f"transposed route and none copied")
     counters = {"dequantize_blockwise": qz.dequantize_blockwise,
                 "paged_attention": pa.paged_attention,
                 "paged_attention_atoms": pa.paged_attention_atoms}
@@ -2423,6 +2649,7 @@ def stage_quant_serve(seed, smi, bf16_peak, profile_dir=None):
         raise AssertionError("the int8 engine's serving peak is not below "
                              "the bf16 engine's")
     r.update(quantize_launches=built, quantized_weights=n_leaves,
+             quantize_routes=routes, quantize_tree_ms=tree_times,
              resident_bytes=resident)
     if profile_dir:
         r["profile"] = profile_serve(eng, _serve_prompts(seed + 1),
@@ -3287,41 +3514,212 @@ FPQ_SHAPES = [("mlp_4096x11008", (4096, 11008)),
 FPQ_FORMATS = {"fp6": (6, 2), "fp12": (12, 7)}
 
 
-def _fpq_case(torch, gen, shape_name, shape, fmt, dtype):
-    """B6 against its plain version, bit for bit, with times and bound."""
+_GQ_KERNEL = re.compile(r"group_kernelI(13__nv_bfloat16|6__half|f)"
+                        r"Li(\d)ELb([01])EN\w*?(FpEncILi(\d+)E|Int8Enc)")
+
+
+def _gq_key(symbol):
+    """(dtype, units a lane holds (0: read twice), whole groups, encoder:
+    B6's bits or "int8", B5's) of a one-pass group kernel's mangled name
+    (``csrc/group_quant.cuh``)."""
+    m = _GQ_KERNEL.search(symbol)
+    return m and ({"f": "fp32", "6__half": "fp16"}.get(m.group(1), "bf16"),
+                  int(m.group(2)), m.group(3) == "1",
+                  int(m.group(5)) if m.group(5) else "int8")
+
+
+_SLOW_CALL_SPAN = 8   # a division's slow-path call: a branch over this many
+
+
+def _sass_loop_instructions(builder, key_fn):
+    """{key: dict(path, span, total, skipped, ops)} of the kernels
+    ``key_fn`` names in a built library's SASS (``cuobjdump -sass``).  The
+    loop is the span of the backward branch that reaches furthest back
+    (the warps' stride over the groups).  ``path`` counts its instructions
+    less those a forward branch skips to leave out a CALL (the IEEE
+    division's slow path, which nvcc calls out of line and quotients of
+    finite, normal operands never take): in a kernel built for whole,
+    aligned groups that is the code one trip runs, its inner loops
+    (the team's shuffle reduction) counted once, so at least what it
+    issues.  ``ops`` counts ``path``'s instructions by opcode."""
+    from deepspeed_tpu_torch.ops.op_builder import find_nvcc
+    tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        raise FileNotFoundError(f"no cuobjdump beside nvcc ({tool})")
+    out = subprocess.run([tool, "-sass", builder.lib_path()],
+                         capture_output=True, text=True, timeout=300).stdout
+    return _loop_paths(out, key_fn)
+
+
+def _loop_paths(out, key_fn):
+    """``_sass_loop_instructions`` of ``cuobjdump -sass`` output."""
+    funcs, key = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            key = key_fn(m.group(1))
+            if key:
+                funcs[key] = dict(ins=[], labels={})
+            continue
+        if key is None:
+            continue
+        f = funcs[key]
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            f["labels"][m.group(1)] = len(f["ins"])
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if m:
+            f["ins"].append(m.group(2))
+    result = {}
+    for key, f in funcs.items():
+        ins, branches = f["ins"], []
+        lo, hi = 0, len(ins) - 1          # no loop: the whole function
+        loop = -1
+        for i, text in enumerate(ins):
+            m = re.search(r"BRA\s+`?\(?(\.L_x_\d+|0x[0-9a-f]+)", text)
+            if not m:
+                continue
+            t = m.group(1)
+            target = (f["labels"].get(t) if t.startswith(".L")
+                      else int(t, 16) // 16)
+            if target is None:
+                continue
+            branches.append((i, target))
+            if target <= i and i - target > loop:
+                lo, hi, loop = target, i, i - target
+        skip = set()
+        for i, target in branches:
+            body = range(i + 1, target)
+            if (lo <= i and target <= hi + 1
+                    and 0 < len(body) <= _SLOW_CALL_SPAN
+                    and any("CALL" in ins[j] for j in body)
+                    and not any("BRA" in ins[j] for j in body)):
+                skip.update(body)
+        path = [ins[j] for j in range(lo, hi + 1) if j not in skip]
+        ops = {}
+        for text in path:
+            op = re.sub(r"^@!?U?P\w+\s+", "", text).split()[0].split(".")[0]
+            ops[op] = ops.get(op, 0) + 1
+        result[key] = dict(path=len(path), span=hi - lo + 1, total=len(ins),
+                           skipped=len(skip), ops=ops)
+    return result
+
+
+def _fpq_case(torch, gen, shape_name, shape, fmt, dtype, sass):
+    """B6 against its plain version, packed bytes and scales bit for bit,
+    with times, the packed-byte bound and the issue time of the SASS
+    instructions the kernel runs for a whole group (at least what it
+    issues: a second bound)."""
+    from deepspeed_tpu_torch.ops import fp_quantizer as fq
+    from deepspeed_tpu_torch.ops.fp_quantizer import fp_groups
     from deepspeed_tpu_torch.ops.kernels import fp_quantizer as kfq
     q_bits, man = FPQ_FORMATS[fmt]
     x = (torch.randn(*shape, device="cuda", generator=gen) * 0.02).to(
         getattr(torch, dtype))
-    run = lambda: kfq.quantize_fp_codes(x, q_bits, man, 512)  # noqa: E731
-    codes, scales = run()
-    ref_codes, ref_scales = kfq.quantize_fp_codes_plain(x, q_bits, man, 512)
-    equal = torch.equal(codes, ref_codes) and torch.equal(scales,
-                                                          ref_scales)
-    err = (codes.int() - ref_codes.int()).abs().max().item()
-    del ref_codes, ref_scales
+    run = lambda: kfq.quantize_fp_packed(x, q_bits, man, 512)  # noqa: E731
+    before = kfq.quantize_fp_packed.launches
+    packed, scales = run()
+    launched = kfq.quantize_fp_packed.launches - before
+    ref, ref_scales = kfq.quantize_fp_packed_plain(x, q_bits, man, 512)
+    equal = (launched == 1 and torch.equal(packed, ref)
+             and torch.equal(scales, ref_scales))
+    err = (packed.int() - ref.int()).abs().max().item()
+    del ref, ref_scales
     _free(torch)
     row = dict(case=f"{shape_name}_{fmt}_{dtype}", shape=list(shape),
                fmt=fmt, dtype=dtype, bit_equal=equal, err=err)
     row["ms"] = cuda_ms(run, 10)
-    row["plain_ms"] = cuda_ms(lambda: kfq.quantize_fp_codes_plain(
+    row["plain_ms"] = cuda_ms(lambda: kfq.quantize_fp_packed_plain(
         x, q_bits, man, 512), 3, warmup=1)
+    row["ms_quantize_fp"] = cuda_ms(
+        lambda: fq.quantize_fp(x, q_bits, man, 512), 10)
     _free(torch)
-    nbytes = (x.numel() * x.element_size()
-              + codes.numel() * codes.element_size() + 4 * scales.numel())
+    n = x.numel()
+    nbytes = (n * x.element_size() + packed.numel()
+              + 4 * scales.numel())
     row["bound_ms"], row["bound_by"] = _roofline(nbytes, 0, BF16_FLOPS)
-    log(f"[fp-quant-kernel] {row['case']}: {x.numel():,} elements, "
-        f"{scales.numel():,} groups of 512: codes and scales "
-        f"{'bit-equal' if equal else 'DIFFER'} (max |Δcode| {err}) | kernel "
-        f"{row['ms']:.4f} ms, plain {row['plain_ms']:.3f}, bound "
-        f"{row['bound_ms']:.4f} ({row['bound_by']}: input, "
-        f"{codes.element_size()}-byte codes, scales)")
+    # the issue time of the instructions a whole group runs: groups of 512
+    # are one 16-element unit a lane in teams of 32, in the kernel built
+    # for whole, aligned groups (the case asserts both facts); 4 warp
+    # instructions a clock an SM at the card's highest SM clock
+    gs, _, padded = fp_groups(n, 512)
+    if padded * gs != n or x.data_ptr() % 16:
+        raise AssertionError(f"{row['case']}: groups not whole or input "
+                             f"not aligned: not the kernel counted")
+    key = ({"float32": "fp32", "bfloat16": "bf16"}[dtype], 1, True, q_bits)
+    got = sass.get(key)
+    if not got:
+        raise AssertionError(f"{row['case']}: no SASS for the B6 kernel "
+                             f"{key}")
+    clock = _max_sm_clock_hz()
+    top = sorted(got["ops"].items(), key=lambda kv: -kv[1])[:8]
+    row.update(sass_path_instructions=got["path"],
+               sass_loop_span=got["span"], sass_instructions=got["total"],
+               per_code=got["path"] / 16, sm_clock_hz=clock,
+               issue_ms=n / 512 * got["path"] / (4 * H100_SMS * clock)
+               * 1e3)
+    log(f"[fp-quant-kernel] {row['case']}: {n:,} elements, "
+        f"{scales.numel():,} groups of 512: packed bytes and scales "
+        f"{'bit-equal' if equal else 'DIFFER'} (max |Δbyte| {err}, "
+        f"{launched} launch) | kernel {row['ms']:.4f} ms, quantize_fp "
+        f"{row['ms_quantize_fp']:.4f} ms, plain {row['plain_ms']:.3f}, "
+        f"bound {row['bound_ms']:.4f} ({row['bound_by']}: input, "
+        f"{packed.numel():,} packed bytes, scales; "
+        f"{row['bound_ms'] / row['ms']:.2f} of it); SASS: "
+        f"{got['path']} instructions a trip on the path a whole group runs "
+        f"(loop span {got['span']}, {got['skipped']} of it slow-path "
+        f"calls; {got['total']} in the kernel) = {got['path'] / 16:.1f} a "
+        f"code: {row['issue_ms']:.4f} ms of issue at 4 a clock on "
+        f"{H100_SMS} SMs at {clock / 1e6:.0f} MHz "
+        f"({row['issue_ms'] / row['ms']:.2f} of the kernel's time); "
+        f"opcodes {dict(top)}")
     if not equal:
         raise AssertionError(f"{row['case']}: FP quantize kernel differs "
                              f"from its plain version")
-    del x, codes, scales
+    if row["issue_ms"] > row["ms"]:
+        raise AssertionError(f"{row['case']}: issue time {row['issue_ms']}"
+                             f" ms above the kernel's {row['ms']} ms: the "
+                             f"count is not of the path the kernel runs")
+    del x, packed, scales
     _free(torch)
     return row
+
+
+def _fpq_crafted_case(torch):
+    """B6 bit for bit over every bf16 and fp16 value at random scales and
+    over exact ties of the int8 grid, FP6 and FP12, groups of 128/512."""
+    from deepspeed_tpu_torch.ops.kernels import fp_quantizer as kfq
+    checked = 0
+    for dtype in (torch.bfloat16, torch.float16):
+        x = _crafted_quant_input(torch, dtype, rounds=16)
+        for q_bits, man in FPQ_FORMATS.values():
+            for gs in (128, 512):
+                got = kfq.quantize_fp_packed(x, q_bits, man, gs)
+                ref = kfq.quantize_fp_packed_plain(x, q_bits, man, gs)
+                if not (torch.equal(got[0], ref[0])
+                        and torch.equal(got[1], ref[1])):
+                    raise AssertionError(f"FP quantize {dtype} {q_bits} "
+                                         f"bits g{gs}: differs from its "
+                                         f"plain version on crafted values")
+                checked += x.numel()
+    log(f"[fp-quant-kernel] crafted: every finite bf16 and fp16 value 16 "
+        f"times at random scales and exact ties, FP6/FP12, groups of "
+        f"128/512: {checked:,} values, packed bytes and scales bit-equal")
+    return checked
+
+
+def stage_fp_quant_kernels(seed):
+    """Stage 21's kernel cases alone (``kernel_ab.py`` times them)."""
+    import torch
+    from deepspeed_tpu_torch.ops.op_builder import FPQuantizerBuilder
+    gen = torch.Generator(device="cuda").manual_seed(seed + 21)
+    sass = _sass_loop_instructions(FPQuantizerBuilder(), _gq_key)
+    rows = [_fpq_case(torch, gen, sn, shape, fmt, dtype, sass)
+            for sn, shape in FPQ_SHAPES for fmt in FPQ_FORMATS
+            for dtype in ("bfloat16", "float32")]
+    _fpq_crafted_case(torch)
+    return rows
 
 
 def _llama_jax_tree(torch, gen, L=32, D=4096, H=32, Dh=128, I=11008,
@@ -3366,26 +3764,40 @@ def stage_fp_quant(seed, smi):
     from deepspeed_tpu_torch.linear import (QuantizationConfig,
                                             QuantizedParameter,
                                             quantize_param_tree)
+    from deepspeed_tpu_torch.ops import fp_quantizer as fq
     from deepspeed_tpu_torch.ops.fp_quantizer import _fmt
     from deepspeed_tpu_torch.ops.kernels import fp_quantizer as kfq
-    gen = torch.Generator(device="cuda").manual_seed(seed + 21)
-    rows = [_fpq_case(torch, gen, sn, shape, fmt, dtype)
-            for sn, shape in FPQ_SHAPES for fmt in FPQ_FORMATS
-            for dtype in ("bfloat16", "float32")]
+    rows = stage_fp_quant_kernels(seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 121)
     tree = _llama_jax_tree(torch, gen)
     leaves = list(_tree_leaves(tree))
     n_values = sum(t.numel() for t in leaves)
     want = sum(t.dim() >= 2 for t in leaves)
     trees = {}
+    packs = []
+    pack_codes = fq.pack_codes
+
+    def counted_pack(*a, **k):      # the card path packs in the kernel
+        packs.append(1)
+        return pack_codes(*a, **k)
+
     for fmt, q_bits in (("fp6", 6), ("fp12", 12), ("fp8", 8)):
         torch.cuda.synchronize()
-        kfq.quantize_fp_codes.launches = 0
-        t0 = time.perf_counter()
-        qt = quantize_param_tree(tree, QuantizationConfig(q_dtype="fp",
-                                                          q_bits=q_bits))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        got = kfq.quantize_fp_codes.launches
+        kfq.quantize_fp_packed.launches = 0
+        packs.clear()
+        fq.pack_codes = kfq.pack_codes = counted_pack
+        run = lambda: quantize_param_tree(  # noqa: E731
+            tree, QuantizationConfig(q_dtype="fp", q_bits=q_bits))
+        try:
+            t0 = time.perf_counter()
+            qt = run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = kfq.quantize_fp_packed.launches
+            # again under the profiler, for the device time of its kernels
+            _, _, dev_ms, _ = device_time(torch, run)
+        finally:
+            fq.pack_codes = kfq.pack_codes = pack_codes
         qleaves = list(_tree_leaves(qt))
         resident = sum(
             t.numel() * t.element_size() for leaf in qleaves
@@ -3405,15 +3817,22 @@ def stage_fp_quant(seed, smi):
         # rounding of the dequantized value
         bound = 2.0 ** (max_unb - man - 1) / top + 2.0 ** -9
         r = dict(launches=got, want=want if q_bits != 8 else 0, wall_s=wall,
+                 device_ms=dev_ms, pack_codes_calls=len(packs),
                  resident_bytes=resident,
                  bytes_per_value=resident / n_values, worst_rel_err=worst,
                  err_bound=bound)
         log(f"[fp-quant] quantize_param_tree over Llama-2-7B's {len(leaves)}"
             f"-leaf bf16 tree ({n_values:,} values) in {fmt}: {got} kernel "
-            f"launches for {want} leaves of 2+ dims, {wall:.3f} s, resident "
+            f"launches for {want} leaves of 2+ dims, {wall:.3f} s wall, "
+            + (f"{dev_ms:.2f} ms of device kernels" if dev_ms is not None
+               else "device time not measured") + f", resident "
             f"{resident / 2**30:.3f} GiB ({r['bytes_per_value']:.4f} B a "
             f"value; bf16 2), worst max|dequantized - x| / max|x| over the "
-            f"leaves {worst:.4e} (bound {bound:.4e})")
+            f"leaves {worst:.4e} (bound {bound:.4e}); pack_codes called "
+            f"{len(packs)} times")
+        if packs:
+            raise AssertionError(f"{fmt}: pack_codes ran on the card path "
+                                 f"{len(packs)} times")
         if got != r["want"]:
             raise AssertionError(f"{fmt}: {got} FP quantize launches, want "
                                  f"{r['want']}")
@@ -3447,12 +3866,15 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
-    if os.environ.get("DS_TPU_DISABLE_PALLAS_ATTN"):
-        # the user's switch that turns the attention kernels off: the
-        # launch counts below would fail for a reason not the code's
-        print("chip_smoke: unset DS_TPU_DISABLE_PALLAS_ATTN, which turns "
-              "the attention kernels off", file=sys.stderr)
-        return 2
+    for var, what in (("DS_TPU_DISABLE_PALLAS_ATTN", "attention kernels"),
+                      ("DS_TPU_DISABLE_PALLAS_PAGED",
+                       "paged attention kernel")):
+        if os.environ.get(var):
+            # the user's switch that turns kernels off: the launch counts
+            # below would fail for a reason not the code's
+            print(f"chip_smoke: unset {var}, which turns the {what} off",
+                  file=sys.stderr)
+            return 2
     sys.path.insert(0, REPO)
     t_start = time.perf_counter()
 
@@ -3567,6 +3989,8 @@ def main():
     dec, pre = gmm_rows["decode_w1"], gmm_rows["prefill_w1"]
     qrow = next(r for r in moe_quant_kernels["quant"]
                 if r["case"] == "bfloat16_int8_g128")
+    qt_row = next(r for r in moe_quant_kernels["quant"]
+                  if r["route"] == "transposed")
     qsrc = "deepspeed_tpu_torch/csrc/quantizer.cu"
     # gmm: the decode case (16 rows, w1's shape: most of the serving run's
     # launches); the prefill case's numbers ride along under *_prefill.
@@ -3588,12 +4012,22 @@ def main():
                 for case in ("decode_w2", "prefill_w2", "mma_k4064_w1",
                              "mma_unaligned_w1")
                 for k in ("ms", "bound_ms", "library_ms")}),
+        # the Mixtral stack (contiguous route); the serving build's
+        # p.t() of Llama-2-7B's gate projection under *_transposed
         dict(name="quantize_blockwise", route="cuda", source=qsrc,
              replaces=src + "quantizer.py:91",
-             launches=quant["quantize_launches"], max_abs_err=qrow["err_q"],
+             launches=quant["quantize_launches"],
+             launches_by_route=quant["quantize_routes"],
+             max_abs_err=qrow["err_q"],
              ms=qrow["ms_q"], plain_ms=qrow["plain_ms_q"],
              bound_ms=qrow["bound_q"][0], bound_by=qrow["bound_q"][1],
-             library_ms=None),
+             library_ms=None, max_abs_err_transposed=qt_row["err_q"],
+             ms_transposed=qt_row["ms_q"],
+             plain_ms_transposed=qt_row["plain_ms_q"],
+             bound_ms_transposed=qt_row["bound_q"][0],
+             bound_by_transposed=qt_row["bound_q"][1],
+             library_ms_transposed=None,
+             quantize_tree_ms=quant["quantize_tree_ms"]),
         dict(name="dequantize_blockwise", route="cuda", source=qsrc,
              replaces=src + "quantizer.py:121",
              launches=quant["launches"]["dequantize_blockwise"],
@@ -3658,7 +4092,10 @@ def main():
                       f"ms{sfx}": r["ms"], f"plain_ms{sfx}": r["plain_ms"],
                       f"bound_ms{sfx}": r["bound_ms"],
                       f"bound_by{sfx}": r["bound_by"],
+                      f"issue_ms{sfx}": r["issue_ms"],
                       f"library_ms{sfx}": None})
+    entry.update(tree_s=fpq["trees"]["fp6"]["wall_s"],
+                 tree_s_fp12=fpq["trees"]["fp12"]["wall_s"])
     entries.append(entry)
     if args.json:
         with open(args.json, "w") as f:

@@ -1,230 +1,199 @@
-// Per-group FP grid quantization (FP6 e3m2, FP12 e4m7 and any format of
-// 2-7 exponent bits and at most 16 bits) for Hopper (sm_90a), plain C
-// interface.
+// Per-group FP grid quantization to packed codes (FP6 e3m2, FP12 e4m7 and
+// any format of 6, 8 or 12 bits with 2-7 exponent bits) for Hopper
+// (sm_90a), plain C interface.
 //
 // Replaces the Pallas TPU kernel of deepspeed_tpu/ops/fp_quantizer.py:
-// `quantize_fp` (:155), launched at :188, kernel body `_fpq_kernel` (:144).
+// `quantize_fp` (:155), launched at :188, kernel body `_fpq_kernel` (:144),
+// and the code packing that XLA fused beside it there (`pack_codes`, :106).
 // The input is viewed as rows of `gs` consecutive elements (row-major
 // flatten; zeros past n).  For each row (group), with e the exponent bits,
 // bias = 2^(e-1) - 1, max_unb = 2^e - 1 - bias and maxv the grid maximum:
 //   scale = absmax == 0 ? 1 : absmax / maxv          (true fp32 division)
 //   y     = x / scale                                (true fp32 division)
-//   ex    = clamp(floor(log2 |y|), 1 - bias, max_unb) (from the fp32 bits)
-//   q     = min(rint(|y| / 2^(ex - m)) * 2^(ex - m), maxv)
-//   code  = sign | exponent field | mantissa field of q (subnormal when
-//           q < 2^(1 - bias)); the sign bit only where q > 0, as JAX's
-//           `encode_fp` sees sign(y) * q.
-// Powers of two are built from their exponent bits, so the rounding is
-// exact and half to even (JAX's `jnp.round`).  Codes are written as uint8
-// for q_bits <= 8 and as 16 bits above; one fp32 scale per row.  Packing
-// (4 x 6 b -> 3 B, 2 x 12 b -> 3 B) is left to the caller.
+//   q     = |y| rounded half to even onto the grid, saturated at maxv
+//           (subnormal steps 2^(1 - bias - m) below 2^(1 - bias))
+//   code  = sign | exponent field | mantissa field of q; the sign bit only
+//           where q > 0, as JAX's `encode_fp` sees sign(y) * q.
+// Codes are packed as pack_codes packs them: 4 x 6 bits -> 3 bytes and
+// 2 x 12 bits -> 3 bytes, big-endian within the 3 bytes (the first code in
+// the high bits), 8 bits one byte each; one fp32 scale per row.
 //
-// Design (B5's quantize kernel, csrc/quantizer.cu).  One warp per group,
-// 8 groups per 256-thread block; each lane takes 4 consecutive elements
-// per pass (one 16- or 8-byte load where the input is aligned), the warp
-// reduces its absmax through shuffles, then a second pass over the same
-// elements (now in L1/L2) encodes them and writes 4 codes as one 32-bit
-// (uint8 codes) or 64-bit (16-bit codes) store per lane; lane 0 writes the
-// scale.
+// Design.  The load scheme is csrc/group_quant.cuh: a team of 8-32
+// lanes a group, each lane holding its 16-element units in registers
+// between the absmax and the encode (one pass, 16-byte loads, every load
+// of a group issued before its reduction).  A unit's 16 codes pack into 12
+// bytes (FP6, three 4-byte stores), 24 (FP12, three 8-byte stores) or 16
+// (8 bits, one 16-byte store): a unit's bytes are its own, since groups
+// (multiples of 128 codes) never share a byte.  The grid rounding works on
+// the fp32 bits of |y|, with no rintf, no products by powers of two and
+// one comparison:
+//   normal (|y| >= 2^(1 - bias)): add (2^(22 - m) - 1) plus the kept lsb
+//     to the bits and drop the low 23 - m: round half to even, a carry
+//     moving into the exponent; rebased by bias and clamped at maxv's
+//     bits, the shift leaves exponent field << m | mantissa field;
+//   subnormal: |y| + 2^(24 - bias - m) rounds |y| half to even at the step
+//     2^(1 - bias - m) (that sum's ulp), whose bits less the constant's are
+//     the code (2^m, the smallest normal, where it rounds up).
+// About 14 integer and fp32 operations a code besides the division; the
+// 16 divisions of a unit come first, so the format's constants stay in
+// registers across the codes.
 //
-// What bounds it on an H100: bytes.  It reads each input element once and
-// writes one or two bytes of code (plus 4 bytes per group), with a few
-// dozen integer and fp32 operations per element, far below the ~295
-// operations per byte where compute would bind.  No --use_fast_math: both
-// divisions must be IEEE so that the codes and scales equal the plain
-// version's bit for bit.
+// What bounds it on an H100: with packed codes it moves 2.75 (FP6) or 3.5
+// (FP12) bytes a bf16 element; a whole group's path issues ~31-33
+// instructions an element (the IEEE division ~12 of them: MUFU.RCP, five
+// FFMA, the FCHK range check and its branch), about as long at 4 warp
+// instructions a clock an SM as the bytes take at 3.35 TB/s: the two
+// bounds are close (chip_smoke.py stage 21 counts that path in the SASS),
+// and neither is reached.  No --use_fast_math: both divisions must be
+// IEEE so that the codes and scales equal the plain version's bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <cmath>
+#include <cstring>
+
+#include "group_quant.cuh"
+
 namespace {
 
-constexpr int kWarps = 8;
+// group_quant.cuh's encoder: a unit's 16 elements -> Q-bit packed codes
+template <int Q>
+struct FpEnc {
+  uint8_t* out;
+  float* scales;
+  float top;             // maxv
+  int sh;                // 23 - m: the dropped bits of a normal value
+  uint32_t half;         // 2^(22 - m) - 1
+  uint32_t lsb_or;       // 1 where m = 0 (the kept lsb is the implicit 1)
+  int base;              // (127 - bias) << 23: rebases the exponent
+  int max_r;             // bits(maxv) - base
+  uint32_t min_normal;   // bits(2^(1 - bias))
+  float sub;             // 2^(24 - bias - m): its ulp is the subnormal step
+  uint32_t sub_bits;
+  static constexpr uint32_t sign = 1u << (Q - 1);
 
-template <typename T>
-struct Cvt;
+  __device__ uint32_t code(float y) const {
+    const uint32_t u = __float_as_uint(y), a = u & 0x7fffffffu;
+    const int r =
+        min((int)(a + half + (((a >> sh) | lsb_or) & 1u)) - base, max_r);
+    const uint32_t cn = (uint32_t)r >> sh;
+    const uint32_t cs = __float_as_uint(__uint_as_float(a) + sub) - sub_bits;
+    const uint32_t c = a < min_normal ? cs : cn;
+    return c | ((u >> 31) && c ? sign : 0u);
+  }
 
-template <>
-struct Cvt<float> {
-  __device__ static float to_f(float x) { return x; }
-  __device__ static void load4(const float* p, float* f) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    f[0] = v.x;
-    f[1] = v.y;
-    f[2] = v.z;
-    f[3] = v.w;
+  // 4 x 24-bit values, each the bytes b0 b1 b2 from its high bits down ->
+  // 12 bytes in that order, as 3 words
+  __device__ static void bytes12(const uint32_t* v, uint32_t* w) {
+    w[0] = __byte_perm(v[0], v[1], 0x6012);
+    w[1] = __byte_perm(v[1], v[2], 0x5601);
+    w[2] = __byte_perm(v[2], v[3], 0x4560);
+  }
+
+  __device__ void store(long long unit, const float* y) const {
+    uint32_t c[gq::kUnit];
+#pragma unroll
+    for (int i = 0; i < gq::kUnit; ++i) c[i] = code(y[i]);
+    if constexpr (Q == 6) {  // 16 codes -> 12 bytes
+      uint32_t v[4], w[3];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        v[k] = (((c[4 * k] << 6 | c[4 * k + 1]) << 6 | c[4 * k + 2]) << 6) |
+               c[4 * k + 3];
+      bytes12(v, w);
+      uint32_t* o = reinterpret_cast<uint32_t*>(out + unit * 12);
+      o[0] = w[0];
+      o[1] = w[1];
+      o[2] = w[2];
+    } else if constexpr (Q == 12) {  // 16 codes -> 24 bytes
+      uint32_t v[8], w[6];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) v[k] = c[2 * k] << 12 | c[2 * k + 1];
+      bytes12(v, w);
+      bytes12(v + 4, w + 3);
+      uint2* o = reinterpret_cast<uint2*>(out + unit * 24);
+      o[0] = make_uint2(w[0], w[1]);
+      o[1] = make_uint2(w[2], w[3]);
+      o[2] = make_uint2(w[4], w[5]);
+    } else {  // 16 codes -> 16 bytes
+      uint32_t w[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        w[k] = __byte_perm(__byte_perm(c[4 * k], c[4 * k + 1], 0x0040),
+                           __byte_perm(c[4 * k + 2], c[4 * k + 3], 0x0040),
+                           0x5410);
+      *reinterpret_cast<uint4*>(out + unit * 16) =
+          make_uint4(w[0], w[1], w[2], w[3]);
+    }
   }
 };
 
-template <>
-struct Cvt<__nv_bfloat16> {
-  __device__ static float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-  __device__ static void load4(const __nv_bfloat16* p, float* f) {
-    const uint2 v = *reinterpret_cast<const uint2*>(p);
-    const float2 a =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
-    const float2 b =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
-    f[0] = a.x;
-    f[1] = a.y;
-    f[2] = b.x;
-    f[3] = b.y;
-  }
-};
+float pow2f(int e) { return ldexpf(1.f, e); }
 
-template <>
-struct Cvt<__half> {
-  __device__ static float to_f(__half x) { return __half2float(x); }
-  __device__ static void load4(const __half* p, float* f) {
-    const uint2 v = *reinterpret_cast<const uint2*>(p);
-    const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&v.x));
-    const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&v.y));
-    f[0] = a.x;
-    f[1] = a.y;
-    f[2] = b.x;
-    f[3] = b.y;
-  }
-};
-
-// elements i..i+3 of x (zeros past n); one vector load when all 4 are in
-// range and the input is aligned
-template <typename T>
-__device__ __forceinline__ void load4(const T* x, long long i, long long n,
-                                      bool vec, float* f) {
-  if (vec && i + 4 <= n) {
-    Cvt<T>::load4(x + i, f);
-    return;
-  }
-#pragma unroll
-  for (int k = 0; k < 4; ++k) f[k] = i + k < n ? Cvt<T>::to_f(x[i + k]) : 0.f;
+uint32_t bits_of(float f) {
+  uint32_t u;
+  memcpy(&u, &f, 4);
+  return u;
 }
 
-struct Format {
-  int q_bits, m, bias, max_unb;
-  float maxv;
-};
-
-// 2^e for e in [-126, 127], exact.
-__device__ __forceinline__ float pow2(int e) {
-  return __int_as_float((e + 127) << 23);
-}
-
-__device__ __forceinline__ int floor_log2(float a) {
-  return (int)((__float_as_uint(a) >> 23) & 0xFF) - 127;
-}
-
-// One value, already divided by its group's scale, -> its code.
-__device__ __forceinline__ uint32_t fp_code(float y, const Format& f) {
-  const float a = fabsf(y);
-  const int ex = min(max(floor_log2(fmaxf(a, 1.17549435e-38f)), 1 - f.bias),
-                     f.max_unb);
-  // |y| / 2^(ex - m) and the product back are exact (powers of two)
-  const float q =
-      fminf(rintf(a * pow2(f.m - ex)) * pow2(ex - f.m), f.maxv);
-  if (q == 0.f) return 0u;
-  const uint32_t sign = y < 0.f ? 1u : 0u;
-  uint32_t efield, mfield;
-  if (q >= pow2(1 - f.bias)) {           // normal: q = (1 + M / 2^m) 2^E
-    const uint32_t bits = __float_as_uint(q);
-    efield = (uint32_t)(floor_log2(q) + f.bias);
-    mfield = (bits >> (23 - f.m)) & ((1u << f.m) - 1u);
-  } else {                                // subnormal: q = M 2^(1 - bias - m)
-    efield = 0u;
-    mfield = (uint32_t)(q * pow2(f.m - 1 + f.bias));
-  }
-  return (sign << (f.q_bits - 1)) | (efield << f.m) | mfield;
-}
-
-__device__ __forceinline__ void store4(uint8_t* p, const uint32_t* c) {
-  *reinterpret_cast<uchar4*>(p) = make_uchar4(c[0], c[1], c[2], c[3]);
-}
-
-__device__ __forceinline__ void store4(uint16_t* p, const uint32_t* c) {
-  *reinterpret_cast<ushort4*>(p) = make_ushort4(c[0], c[1], c[2], c[3]);
-}
-
-template <typename T, typename C>
-__global__ void __launch_bounds__(kWarps * 32)
-    fp_quantize_kernel(const T* __restrict__ x, C* __restrict__ codes,
-                       float* __restrict__ scales, long long n,
-                       long long groups, int gs, Format f, bool vec) {
-  const long long g = (long long)blockIdx.x * kWarps + threadIdx.x / 32;
-  if (g >= groups) return;
-  const int lane = threadIdx.x % 32;
-  const long long base = g * gs;
-  float amax = 0.f;
-  for (int j = lane * 4; j < gs; j += 128) {
-    float v[4];
-    load4(x, base + j, n, vec, v);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) amax = fmaxf(amax, fabsf(v[k]));
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-  const float scale = amax == 0.f ? 1.f : amax / f.maxv;
-  for (int j = lane * 4; j < gs; j += 128) {
-    float v[4];
-    load4(x, base + j, n, vec, v);
-    uint32_t c[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) c[k] = fp_code(v[k] / scale, f);
-    store4(codes + base + j, c);
-  }
-  if (lane == 0) scales[g] = scale;
-}
-
-template <typename C>
-int launch(const void* x, int dtype, void* codes, float* scales, long long n,
-           long long groups, int gs, const Format& f, cudaStream_t st) {
-  const unsigned blocks = (unsigned)((groups + kWarps - 1) / kWarps);
-  const bool vec =
-      reinterpret_cast<uintptr_t>(x) % (dtype == 0 ? 16 : 8) == 0;
-  C* cp = static_cast<C*>(codes);
+template <int Q>
+int launch(const void* x, int dtype, void* out, void* scales, long long n,
+           long long groups, int gs, int m, int bias, float maxv,
+           cudaStream_t st) {
+  FpEnc<Q> enc;
+  enc.out = static_cast<uint8_t*>(out);
+  enc.scales = static_cast<float*>(scales);
+  enc.top = maxv;
+  enc.sh = 23 - m;
+  enc.half = (1u << (22 - m)) - 1u;
+  enc.lsb_or = m == 0 ? 1u : 0u;
+  enc.base = (127 - bias) << 23;
+  enc.max_r = (int)bits_of(maxv) - enc.base;
+  enc.min_normal = bits_of(pow2f(1 - bias));
+  enc.sub = pow2f(24 - bias - m);
+  enc.sub_bits = bits_of(enc.sub);
   if (dtype == 0)
-    fp_quantize_kernel<float, C><<<blocks, kWarps * 32, 0, st>>>(
-        static_cast<const float*>(x), cp, scales, n, groups, gs, f, vec);
-  else if (dtype == 1)
-    fp_quantize_kernel<__nv_bfloat16, C><<<blocks, kWarps * 32, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), cp, scales, n, groups, gs, f,
-        vec);
-  else if (dtype == 2)
-    fp_quantize_kernel<__half, C><<<blocks, kWarps * 32, 0, st>>>(
-        static_cast<const __half*>(x), cp, scales, n, groups, gs, f, vec);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+    return (int)gq::launch(static_cast<const float*>(x), n, groups, gs, enc,
+                           st);
+  if (dtype == 1)
+    return (int)gq::launch(static_cast<const __nv_bfloat16*>(x), n, groups,
+                           gs, enc, st);
+  if (dtype == 2)
+    return (int)gq::launch(static_cast<const __half*>(x), n, groups, gs, enc,
+                           st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// x: n elements (dtype 0 fp32, 1 bf16, 2 fp16); codes: [groups, gs] of
-// uint8 (q_bits <= 8) or 16 bits (q_bits <= 16); scales: [groups] fp32;
-// gs a multiple of 128 with groups * gs >= n.  The format is q_bits with
-// mantissa_bits of mantissa (2-7 exponent bits) and grid maximum
-// maxv.  Returns a cudaError_t code.
-extern "C" int ds_quantize_fp(const void* x, int dtype, void* codes,
-                              void* scales, long long n, long long groups,
-                              int gs, int q_bits, int mantissa_bits,
-                              float maxv, void* stream) {
+// x: n elements (dtype 0 fp32, 1 bf16, 2 fp16); out: groups * gs * q_bits
+// / 8 bytes of packed codes; scales: [groups] fp32; gs a multiple of 128
+// with groups * gs >= n.  The format is q_bits (6, 8 or 12) with
+// mantissa_bits of mantissa (2-7 exponent bits) and grid maximum maxv.
+// Returns a cudaError_t code.
+extern "C" int ds_quantize_fp_packed(const void* x, int dtype, void* out,
+                                     void* scales, long long n,
+                                     long long groups, int gs, int q_bits,
+                                     int mantissa_bits, float maxv,
+                                     void* stream) {
   const int exp_bits = q_bits - mantissa_bits - 1;
   if (n < 0 || groups < 0 || gs <= 0 || gs % 128 || groups * gs < n ||
-      mantissa_bits < 0 || exp_bits < 2 || exp_bits > 7 || q_bits > 16)
+      mantissa_bits < 0 || exp_bits < 2 || exp_bits > 7 ||
+      (q_bits != 6 && q_bits != 8 && q_bits != 12) ||
+      reinterpret_cast<uintptr_t>(out) % 16)
     return (int)cudaErrorInvalidValue;
   if (groups == 0) return 0;
-  Format f;
-  f.q_bits = q_bits;
-  f.m = mantissa_bits;
-  f.bias = (1 << (exp_bits - 1)) - 1;
-  f.max_unb = ((1 << exp_bits) - 1) - f.bias;
-  f.maxv = maxv;
+  const int m = mantissa_bits, bias = (1 << (exp_bits - 1)) - 1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* sp = static_cast<float*>(scales);
-  if (q_bits <= 8)
-    return launch<uint8_t>(x, dtype, codes, sp, n, groups, gs, f, st);
-  return launch<uint16_t>(x, dtype, codes, sp, n, groups, gs, f, st);
+  if (q_bits == 6)
+    return launch<6>(x, dtype, out, scales, n, groups, gs, m, bias, maxv, st);
+  if (q_bits == 12)
+    return launch<12>(x, dtype, out, scales, n, groups, gs, m, bias, maxv,
+                      st);
+  return launch<8>(x, dtype, out, scales, n, groups, gs, m, bias, maxv, st);
 }
 
 extern "C" const char* ds_cuda_error_string(int err) {

@@ -20,7 +20,7 @@
 // takes the route and refuses one its kernel cannot take.
 //
 // decode_split (bf16/fp16, atom 1) and atom_mma (bf16/fp16, atom > 1):
-// one tensor-core kernel, paged_attention_mma_kernel<T, DH, RT>.
+// one tensor-core kernel, paged_attention_mma_kernel<T, DH, RT, PAD>.
 // - Grid (tiles, Hkv, row groups x splits).  A block holds 16*RT rows of
 //   its (tile, kv head): RT in {1, 2, 4, 8} row tiles of 16, the smallest
 //   power of two that covers M (rows past M are zero rows, masked), so
@@ -60,6 +60,15 @@
 //   a 34 KB tile in flight a block while it computes the other.
 //   chip_smoke.py stage 2 prints each instantiation's registers, spills,
 //   shared memory and the runtime's count of blocks an SM.
+//
+// Head widths.  Each kernel is instantiated for tiles 64 and 128 columns
+// wide; a head of Dh columns (even, at most 128) runs in the 64-wide tile
+// when Dh <= 64, else in the 128-wide one.  Where Dh is narrower than its
+// tile (80, 96, 100, 112, ...), the `PAD` instantiation reads the true Dh
+// at run time: copies are 16 bytes where Dh % 8 == 0, else 8 or 4 bytes,
+// the tile's columns past Dh are zero-filled (so they add nothing to q.k),
+// only Dh columns are stored, and the scale is the caller's (Dh^-0.5).
+// Where Dh fills its tile, the kernels are the ones without padding.
 //
 // fp32: the CUDA cores (the first version of this kernel,
 // paged_attention_kernel<float>): one block per (tile, kv head, group of
@@ -137,15 +146,16 @@ struct Layout {
   static constexpr int total = kv_off + cmax(kv_bytes, merge_bytes);
 };
 
-template <int DH, int RM>
+template <int DH, int RM, bool PAD>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_kernel(const float* __restrict__ q, const float* __restrict__ kc,
                        const float* __restrict__ vc,
                        const int* __restrict__ tables,
                        const int* __restrict__ pos, float* __restrict__ out,
-                       int H, int Hkv, int bs, int maxb, int atom, int window,
-                       float scale) {
+                       int H, int Hkv, int dh_arg, int bs, int maxb, int atom,
+                       int window, float scale) {
   using L = Layout<DH, RM>;
+  const int dh = PAD ? dh_arg : DH;   // the head's columns (<= DH)
   constexpr int kVPR = DH / kPerVec;  // 16-byte vectors in one K/V row
   constexpr int kDPL = DH / 32;       // output dims per lane
 
@@ -164,9 +174,9 @@ paged_attention_kernel(const float* __restrict__ q, const float* __restrict__ kc
   for (int idx = threadIdx.x; idx < RM * DH; idx += kThreads) {
     const int r = idx / DH, d = idx % DH, row = rg * RM + r;
     float v = 0.f;
-    if (row < M) {
+    if (row < M && (!PAD || d < dh)) {
       const int tok = first + row / g, head = kh * g + row % g;
-      v = q[((int64_t)tok * H + head) * DH + d];
+      v = q[((int64_t)tok * H + head) * dh + d];
     }
     qs[idx] = v;
   }
@@ -191,7 +201,7 @@ paged_attention_kernel(const float* __restrict__ q, const float* __restrict__ kc
   const int k_begin = (key_lo / bs) * bs;
   const int k_end = (page_hi + 1) * bs;
   const int* trow = tables + (int64_t)first * maxb;  // the first row's table
-  const int64_t row_stride = (int64_t)Hkv * DH;       // between cache rows
+  const int64_t row_stride = (int64_t)Hkv * dh;       // between cache rows
 
   float* ks = reinterpret_cast<float*>(smem + L::kv_off + warp * (L::k_warp + L::v_warp));
   float* vs = ks + 32 * L::kKStride;
@@ -214,9 +224,22 @@ paged_attention_kernel(const float* __restrict__ q, const float* __restrict__ kc
       if (key < k_end) {
         const int blk = trow[key / bs];
         const int64_t off = ((int64_t)blk * bs + key % bs) * row_stride +
-                            (int64_t)kh * DH;
-        kval = reinterpret_cast<const uint4*>(kc + off)[v];
-        vval = reinterpret_cast<const uint4*>(vc + off)[v];
+                            (int64_t)kh * dh;
+        if (!PAD) {
+          kval = reinterpret_cast<const uint4*>(kc + off)[v];
+          vval = reinterpret_cast<const uint4*>(vc + off)[v];
+        } else {  // element copies, zeros past dh
+          uint32_t* kw = reinterpret_cast<uint32_t*>(&kval);
+          uint32_t* vw = reinterpret_cast<uint32_t*>(&vval);
+#pragma unroll
+          for (int e = 0; e < kPerVec; ++e) {
+            const int d = v * kPerVec + e;
+            if (d < dh) {
+              kw[e] = __float_as_uint(kc[off + d]);
+              vw[e] = __float_as_uint(vc[off + d]);
+            }
+          }
+        }
       }
       reinterpret_cast<uint4*>(ks + r * L::kKStride)[v] = kval;
       reinterpret_cast<uint4*>(vs + r * DH)[v] = vval;
@@ -294,7 +317,7 @@ paged_attention_kernel(const float* __restrict__ q, const float* __restrict__ kc
   __syncthreads();
   for (int idx = threadIdx.x; idx < RM * DH; idx += kThreads) {
     const int r = idx / DH, d = idx % DH, row = rg * RM + r;
-    if (row >= M) continue;
+    if (row >= M || (PAD && d >= dh)) continue;
     float mx = -INFINITY;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, mg_m[w * RM + r]);
@@ -308,47 +331,48 @@ paged_attention_kernel(const float* __restrict__ q, const float* __restrict__ kc
       a += f * mg_acc[(w * RM + r) * DH + d];
     }
     const int tok = first + row / g, head = kh * g + row % g;
-    out[((int64_t)tok * H + head) * DH + d] = l == 0.f ? 0.f : a / l;
+    out[((int64_t)tok * H + head) * dh + d] = l == 0.f ? 0.f : a / l;
   }
 }
 
-template <int DH, int RM>
+template <int DH, int RM, bool PAD>
 cudaError_t launch_fp32(const void* q, const void* kc, const void* vc,
                         const int* tables, const int* pos, void* out, int T_,
-                        int H, int Hkv, int bs, int maxb, int atom,
+                        int H, int Hkv, int dh, int bs, int maxb, int atom,
                         int window, float scale, cudaStream_t stream) {
   using L = Layout<DH, RM>;
   static bool configured = false;  // once per instantiation
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        paged_attention_kernel<DH, RM>,
+        paged_attention_kernel<DH, RM, PAD>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, L::total);
     if (e != cudaSuccess) return e;
     configured = true;
   }
   const int M = atom * (H / Hkv);
   dim3 grid(T_ / atom, Hkv, (M + RM - 1) / RM);
-  paged_attention_kernel<DH, RM><<<grid, kThreads, L::total, stream>>>(
+  paged_attention_kernel<DH, RM, PAD><<<grid, kThreads, L::total, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(kc),
       static_cast<const float*>(vc), tables, pos, static_cast<float*>(out),
-      H, Hkv, bs, maxb, atom, window, scale);
+      H, Hkv, dh, bs, maxb, atom, window, scale);
   return cudaGetLastError();
 }
 
-template <int DH>
+template <int DH, bool PAD>
 cudaError_t dispatch_fp32(const void* q, const void* kc, const void* vc,
                           const int* tables, const int* pos, void* out,
-                          int T_, int H, int Hkv, int bs, int maxb, int atom,
-                          int window, float scale, cudaStream_t stream) {
+                          int T_, int H, int Hkv, int dh, int bs, int maxb,
+                          int atom, int window, float scale,
+                          cudaStream_t stream) {
   const int M = atom * (H / Hkv);
   if (M == 1)
-    return launch_fp32<DH, 1>(q, kc, vc, tables, pos, out, T_, H, Hkv, bs,
-                              maxb, atom, window, scale, stream);
+    return launch_fp32<DH, 1, PAD>(q, kc, vc, tables, pos, out, T_, H, Hkv,
+                                   dh, bs, maxb, atom, window, scale, stream);
   if (M <= 4)
-    return launch_fp32<DH, 4>(q, kc, vc, tables, pos, out, T_, H, Hkv, bs,
-                              maxb, atom, window, scale, stream);
-  return launch_fp32<DH, 16>(q, kc, vc, tables, pos, out, T_, H, Hkv, bs,
-                             maxb, atom, window, scale, stream);
+    return launch_fp32<DH, 4, PAD>(q, kc, vc, tables, pos, out, T_, H, Hkv,
+                                   dh, bs, maxb, atom, window, scale, stream);
+  return launch_fp32<DH, 16, PAD>(q, kc, vc, tables, pos, out, T_, H, Hkv,
+                                  dh, bs, maxb, atom, window, scale, stream);
 }
 
 // ============================ tensor-core route (bf16 and fp16, split-KV)
@@ -394,24 +418,50 @@ struct MmaParams {
   const int *tables, *pos;
   void* out;
   float* part;  // [splits][T][H][Dh + 2]: acc, m, l (splits > 1)
-  int T, H, Hkv, bs, maxb, atom, window, splits, span;
+  int T, H, Hkv, dh, bs, maxb, atom, window, splits, span;  // dh: Dh
   float scale;
 };
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 8 : 0)
+               : "memory");
+}
 
 // Rows [0, R) of dst ([R][DP + 8]) = rows rows[r] (row stride rs elements)
 // of src, or zeros where rows[r] < 0: 16-byte cp.async copies by NTHR
 // threads (stage_rows_at of mma_common.cuh for a block of any size).
-template <typename T, int R, int DP, int NTHR>
+// PAD: a row holds dh <= DP columns, copied in `cb`-byte pieces (16 where
+// dh % 8 == 0, else 8 or 4), zeros past dh.
+template <typename T, int R, int DP, int NTHR, bool PAD>
 __device__ __forceinline__ void gather_rows(T* dst, const T* __restrict__ src,
-                                            const int* rows, int64_t rs) {
+                                            const int* rows, int64_t rs,
+                                            int dh, int cb) {
   constexpr int S = DP + 8, CH = DP / 8;
   static_assert(R * CH % NTHR == 0, "whole copies a thread");
 #pragma unroll
   for (int i = 0; i < R * CH / NTHR; ++i) {
     const int idx = threadIdx.x + i * NTHR;
     const int r = idx / CH, c = (idx % CH) * 8, row = rows[r];
-    cp_async16(dst + r * S + c, src + (row >= 0 ? row * rs + c : 0),
-               row >= 0);
+    if (!PAD) {
+      cp_async16(dst + r * S + c, src + (row >= 0 ? row * rs + c : 0),
+                 row >= 0);
+      continue;
+    }
+    const T* s = src + (row >= 0 ? row * rs : 0);
+    if (cb == 16) {
+      cp_async16(dst + r * S + c, s + c, row >= 0 && c < dh);
+    } else if (cb == 8) {
+#pragma unroll
+      for (int e = c; e < c + 8; e += 4)
+        cp_async8(dst + r * S + e, s + e, row >= 0 && e < dh);
+    } else {
+#pragma unroll
+      for (int e = c; e < c + 8; e += 2)
+        cp_async4(dst + r * S + e, s + e, row >= 0 && e < dh);
+    }
   }
 }
 
@@ -427,7 +477,7 @@ __device__ __forceinline__ void tile_rows(const int* __restrict__ trow,
   }
 }
 
-template <typename T, int DH, int RT>
+template <typename T, int DH, int RT, bool PAD>
 __global__ void __launch_bounds__(MmaShape<RT>::kThreads,
                                   min_blocks(DH, RT))
 paged_attention_mma_kernel(MmaParams a) {
@@ -453,6 +503,8 @@ paged_attention_mma_kernel(MmaParams a) {
   const int gq = lane / 4, t4 = lane % 4;
   const int rt = warp / Sh::kSlices;                // the warp's row tile
   const int c0 = (warp % Sh::kSlices) * Sh::kKeys;  // its keys in a tile
+  const int dh = PAD ? a.dh : DH;                   // the head's columns
+  const int cb = dh % 8 == 0 ? 16 : dh % 4 == 0 ? 8 : 4;  // copy bytes
 
   for (int r = threadIdx.x; r < ROWS; r += NTHR) {
     const int row = row0 + r, tok = first + row / g;
@@ -483,29 +535,30 @@ paged_attention_mma_kernel(MmaParams a) {
   const int n = k_stop > k_start ? (k_stop - k_start + kKT - 1) / kKT : 0;
 
   if (n == 0) {  // no key here: an empty state, or 0 where nothing merges
-    for (int idx = threadIdx.x; idx < nrows * DH; idx += NTHR) {
-      const int r = idx / DH, d = idx % DH, qr = qrow[r];
+    for (int idx = threadIdx.x; idx < nrows * dh; idx += NTHR) {
+      const int r = idx / dh, d = idx % dh, qr = qrow[r];
       if (a.splits == 1) {
-        static_cast<T*>(a.out)[(int64_t)qr * DH + d] = Cvt<T>::from_f(0.f);
+        static_cast<T*>(a.out)[(int64_t)qr * dh + d] = Cvt<T>::from_f(0.f);
       } else if (d < 2) {
         const int tok = qr / a.H, head = qr % a.H;
-        a.part[((int64_t)(split * a.T + tok) * a.H + head) * DS + DH + d] =
-            d == 0 ? -INFINITY : 0.f;
+        a.part[((int64_t)(split * a.T + tok) * a.H + head) * (dh + 2) + dh +
+               d] = d == 0 ? -INFINITY : 0.f;
       }
     }
     return;
   }
 
-  const T* kb = static_cast<const T*>(a.kc) + kh * DH;
-  const T* vb = static_cast<const T*>(a.vc) + kh * DH;
-  const int64_t rs = (int64_t)a.Hkv * DH;  // between cache rows
+  const T* kb = static_cast<const T*>(a.kc) + kh * dh;
+  const T* vb = static_cast<const T*>(a.vc) + kh * dh;
+  const int64_t rs = (int64_t)a.Hkv * dh;  // between cache rows
   const int* trow = a.tables + (int64_t)first * a.maxb;  // first row's table
 
   tile_rows(trow, a.bs, k_start, k_stop, rows);
   __syncthreads();
-  gather_rows<T, ROWS, DH, NTHR>(qs, static_cast<const T*>(a.q), qrow, DH);
-  gather_rows<T, kKT, DH, NTHR>(ks, kb, rows, rs);
-  gather_rows<T, kKT, DH, NTHR>(vs, vb, rows, rs);
+  gather_rows<T, ROWS, DH, NTHR, PAD>(qs, static_cast<const T*>(a.q), qrow,
+                                      dh, dh, cb);
+  gather_rows<T, kKT, DH, NTHR, PAD>(ks, kb, rows, rs, dh, cb);
+  gather_rows<T, kKT, DH, NTHR, PAD>(vs, vb, rows, rs, dh, cb);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();  // Q and tile 0 landed
@@ -536,10 +589,10 @@ paged_attention_mma_kernel(MmaParams a) {
     __syncthreads();
     if (it + 1 < n) {
       const int* nr = rows + ((it + 1) % 3) * kKT;
-      gather_rows<T, kKT, DH, NTHR>(ks + ((it + 1) & 1) * kKT * S, kb, nr,
-                                    rs);
-      gather_rows<T, kKT, DH, NTHR>(vs + ((it + 1) & 1) * kKT * S, vb, nr,
-                                    rs);
+      gather_rows<T, kKT, DH, NTHR, PAD>(ks + ((it + 1) & 1) * kKT * S, kb,
+                                         nr, rs, dh, cb);
+      gather_rows<T, kKT, DH, NTHR, PAD>(vs + ((it + 1) & 1) * kKT * S, vb,
+                                         nr, rs, dh, cb);
     }
     cp_async_commit();
     if (it + 2 < n)
@@ -646,8 +699,8 @@ paged_attention_mma_kernel(MmaParams a) {
   __syncthreads();
   // each row: its row tile's warps merged in warp order; then the output
   // (one split) or this split's state
-  for (int idx = threadIdx.x; idx < nrows * DH; idx += NTHR) {
-    const int r = idx / DH, d = idx % DH;
+  for (int idx = threadIdx.x; idx < nrows * dh; idx += NTHR) {
+    const int r = idx / dh, d = idx % dh;
     const float* w0 = dump + ((r / 16) * Sh::kSlices * 16 + r % 16) * DS;
     float mxr = -INFINITY;
 #pragma unroll
@@ -662,15 +715,16 @@ paged_attention_mma_kernel(MmaParams a) {
     }
     const int qr = qrow[r];
     if (a.splits == 1) {
-      static_cast<T*>(a.out)[(int64_t)qr * DH + d] =
+      static_cast<T*>(a.out)[(int64_t)qr * dh + d] =
           Cvt<T>::from_f(lr == 0.f ? 0.f : ar / lr);
     } else {
       const int tok = qr / a.H, head = qr % a.H;
-      float* pr = a.part + ((int64_t)(split * a.T + tok) * a.H + head) * DS;
+      float* pr =
+          a.part + ((int64_t)(split * a.T + tok) * a.H + head) * (dh + 2);
       pr[d] = ar;
       if (d == 0) {
-        pr[DH] = mxr;
-        pr[DH + 1] = lr;
+        pr[dh] = mxr;
+        pr[dh + 1] = lr;
       }
     }
   }
@@ -703,12 +757,12 @@ paged_attention_merge_kernel(const float* __restrict__ part,
   out[row * DH + d] = Cvt<T>::from_f(l == 0.f ? 0.f : acc / l);
 }
 
-template <typename T, int DH, int RT>
+template <typename T, int DH, int RT, bool PAD>
 cudaError_t configure_mma() {
   static bool configured = false;  // once per instantiation
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        paged_attention_mma_kernel<T, DH, RT>,
+        paged_attention_mma_kernel<T, DH, RT, PAD>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, MmaSmem<DH, RT>::total);
     if (e != cudaSuccess) return e;
     configured = true;
@@ -716,58 +770,80 @@ cudaError_t configure_mma() {
   return cudaSuccess;
 }
 
-template <typename T, int DH, int RT>
+template <typename T, int DH, int RT, bool PAD>
 cudaError_t launch_mma(const MmaParams& a, cudaStream_t st) {
   using Sh = MmaShape<RT>;
-  cudaError_t e = configure_mma<T, DH, RT>();
+  cudaError_t e = configure_mma<T, DH, RT, PAD>();
   if (e != cudaSuccess) return e;
   const int groups = (a.atom * (a.H / a.Hkv) + Sh::kRows - 1) / Sh::kRows;
   if ((int64_t)groups * a.splits > 65535) return cudaErrorInvalidValue;
-  paged_attention_mma_kernel<T, DH, RT>
+  paged_attention_mma_kernel<T, DH, RT, PAD>
       <<<dim3(a.T / a.atom, a.Hkv, groups * a.splits), Sh::kThreads,
          MmaSmem<DH, RT>::total, st>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess || a.splits == 1) return e;
-  paged_attention_merge_kernel<T><<<dim3(a.T, a.H), DH, 0, st>>>(
-      a.part, static_cast<T*>(a.out), a.T, a.H, DH, a.splits);
+  paged_attention_merge_kernel<T><<<dim3(a.T, a.H), a.dh, 0, st>>>(
+      a.part, static_cast<T*>(a.out), a.T, a.H, a.dh, a.splits);
   return cudaGetLastError();
 }
 
-template <typename T, int DH>
+template <typename T, int DH, bool PAD>
 cudaError_t dispatch_mma(const MmaParams& a, int row_tiles, cudaStream_t st) {
   switch (row_tiles) {
-    case 1: return launch_mma<T, DH, 1>(a, st);
-    case 2: return launch_mma<T, DH, 2>(a, st);
-    case 4: return launch_mma<T, DH, 4>(a, st);
-    case 8: return launch_mma<T, DH, 8>(a, st);
+    case 1: return launch_mma<T, DH, 1, PAD>(a, st);
+    case 2: return launch_mma<T, DH, 2, PAD>(a, st);
+    case 4: return launch_mma<T, DH, 4, PAD>(a, st);
+    case 8: return launch_mma<T, DH, 8, PAD>(a, st);
   }
   return cudaErrorInvalidValue;
 }
+
+// The head widths of Dh: its tile (64 or 128) pads it, or it fills it.
+template <typename T>
+cudaError_t dispatch_mma_dh(const MmaParams& a, int row_tiles,
+                            cudaStream_t st) {
+  if (a.dh == 128) return dispatch_mma<T, 128, false>(a, row_tiles, st);
+  if (a.dh == 64) return dispatch_mma<T, 64, false>(a, row_tiles, st);
+  if (a.dh > 64) return dispatch_mma<T, 128, true>(a, row_tiles, st);
+  return dispatch_mma<T, 64, true>(a, row_tiles, st);
+}
+
+// A head width the kernels take: even, 2 to 128.
+bool takes_dh(int Dh) { return Dh >= 2 && Dh <= 128 && Dh % 2 == 0; }
 
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-template <typename T, int DH, int RT>
+template <typename T, int DH, int RT, bool PAD>
 int blocks_per_sm() {
   int n = -1;
-  if (configure_mma<T, DH, RT>() != cudaSuccess ||
+  if (configure_mma<T, DH, RT, PAD>() != cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &n, paged_attention_mma_kernel<T, DH, RT>, MmaShape<RT>::kThreads,
-          MmaSmem<DH, RT>::total) != cudaSuccess)
+          &n, paged_attention_mma_kernel<T, DH, RT, PAD>,
+          MmaShape<RT>::kThreads, MmaSmem<DH, RT>::total) != cudaSuccess)
     return -1;
   return n;
 }
 
-template <typename T, int DH>
+template <typename T, int DH, bool PAD>
 int mma_blocks_per_sm(int row_tiles) {
   switch (row_tiles) {
-    case 1: return blocks_per_sm<T, DH, 1>();
-    case 2: return blocks_per_sm<T, DH, 2>();
-    case 4: return blocks_per_sm<T, DH, 4>();
-    case 8: return blocks_per_sm<T, DH, 8>();
+    case 1: return blocks_per_sm<T, DH, 1, PAD>();
+    case 2: return blocks_per_sm<T, DH, 2, PAD>();
+    case 4: return blocks_per_sm<T, DH, 4, PAD>();
+    case 8: return blocks_per_sm<T, DH, 8, PAD>();
   }
   return -1;
+}
+
+template <typename T>
+int mma_blocks_per_sm_dh(int Dh, int row_tiles) {
+  if (!takes_dh(Dh)) return -1;
+  if (Dh == 128) return mma_blocks_per_sm<T, 128, false>(row_tiles);
+  if (Dh == 64) return mma_blocks_per_sm<T, 64, false>(row_tiles);
+  if (Dh > 64) return mma_blocks_per_sm<T, 128, true>(row_tiles);
+  return mma_blocks_per_sm<T, 64, true>(row_tiles);
 }
 
 template <int DH>
@@ -782,7 +858,7 @@ int mma_smem(int row_tiles) {
 
 // q [T, H, Dh]; k_cache, v_cache [num_blocks, bs, Hkv, Dh]; tables [T, maxb]
 // int32; positions [T] int32; out [T, H, Dh].  All contiguous, on the card,
-// q and the caches 16-byte aligned.  dtype: 0 = float32, 1 = bfloat16,
+// q and the caches 16-byte aligned; Dh even, at most 128.  dtype: 0 = float32, 1 = bfloat16,
 // 2 = float16.  route: 0 fp32 (dtype 0), 1 decode_split (dtype 1 or 2,
 // atom 1), 2 atom_mma (dtype 1 or 2, atom > 1).  The tensor-core routes
 // take `splits` spans of `span` pages that cover the table's maxb pages
@@ -798,18 +874,21 @@ extern "C" int ds_paged_attention(const void* q, const void* k_cache,
                                   int splits, int span, int row_tiles,
                                   void* stream) {
   if (T_ <= 0 || atom <= 0 || T_ % atom || Hkv <= 0 || H % Hkv || bs <= 0 ||
-      maxb <= 0 || Hkv > 65535 || (Dh != 64 && Dh != 128))
+      maxb <= 0 || Hkv > 65535 || !takes_dh(Dh))
     return (int)cudaErrorInvalidValue;
   const int* tb = static_cast<const int*>(tables);
   const int* ps = static_cast<const int*>(positions);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (route == kRouteFp32) {
     if (dtype != 0 || splits != 1) return (int)cudaErrorInvalidValue;
-    if (Dh == 128)
-      return (int)dispatch_fp32<128>(q, k_cache, v_cache, tb, ps, out, T_, H,
-                                     Hkv, bs, maxb, atom, window, scale, st);
-    return (int)dispatch_fp32<64>(q, k_cache, v_cache, tb, ps, out, T_, H,
-                                  Hkv, bs, maxb, atom, window, scale, st);
+    if (Dh == 128 || Dh == 64)
+      return (int)(Dh == 128 ? dispatch_fp32<128, false>
+                             : dispatch_fp32<64, false>)(
+          q, k_cache, v_cache, tb, ps, out, T_, H, Hkv, Dh, bs, maxb, atom,
+          window, scale, st);
+    return (int)(Dh > 64 ? dispatch_fp32<128, true> : dispatch_fp32<64, true>)(
+        q, k_cache, v_cache, tb, ps, out, T_, H, Hkv, Dh, bs, maxb, atom,
+        window, scale, st);
   }
   const bool takes = (route == kRouteDecodeSplit && atom == 1) ||
                      (route == kRouteAtomMma && atom > 1);
@@ -822,21 +901,22 @@ extern "C" int ds_paged_attention(const void* q, const void* k_cache,
   MmaParams a{};
   a.q = q; a.kc = k_cache; a.vc = v_cache; a.tables = tb; a.pos = ps;
   a.out = out; a.part = static_cast<float*>(part);
-  a.T = T_; a.H = H; a.Hkv = Hkv; a.bs = bs; a.maxb = maxb; a.atom = atom;
+  a.T = T_; a.H = H; a.Hkv = Hkv; a.dh = Dh; a.bs = bs; a.maxb = maxb;
+  a.atom = atom;
   a.window = window; a.splits = splits; a.span = span; a.scale = scale;
   if (dtype == 1)
-    return (int)(Dh == 128 ? dispatch_mma<__nv_bfloat16, 128>(a, row_tiles, st)
-                           : dispatch_mma<__nv_bfloat16, 64>(a, row_tiles, st));
-  return (int)(Dh == 128 ? dispatch_mma<__half, 128>(a, row_tiles, st)
-                         : dispatch_mma<__half, 64>(a, row_tiles, st));
+    return (int)dispatch_mma_dh<__nv_bfloat16>(a, row_tiles, st);
+  return (int)dispatch_mma_dh<__half>(a, row_tiles, st);
 }
 
 // Dynamic shared memory of one block: the fp32 route's variant of `rows`
 // query rows a block (1, 4 or 16), or a tensor-core route's of `rows` =
-// row_tiles (1, 2, 4 or 8); -1 for a variant that does not exist.  ptxas
-// -v does not see dynamic shared memory, so the build report asks here.
+// row_tiles (1, 2, 4 or 8), for a head of Dh columns (its tile's); -1 for
+// a variant that does not exist.  ptxas -v does not see dynamic shared
+// memory, so the build report asks here.
 extern "C" int ds_paged_attention_smem_bytes(int route, int Dh, int rows) {
-  if (Dh != 64 && Dh != 128) return -1;
+  if (!takes_dh(Dh)) return -1;
+  Dh = Dh > 64 ? 128 : 64;
   if (route == kRouteFp32) {
     if (Dh == 128)
       return rows == 1 ? Layout<128, 1>::total
@@ -853,12 +933,8 @@ extern "C" int ds_paged_attention_smem_bytes(int route, int Dh, int rows) {
 // one SM holds at once (the runtime's occupancy count); -1 on error.
 extern "C" int ds_paged_attention_blocks_per_sm(int dtype, int Dh,
                                                 int row_tiles) {
-  if (dtype == 1)
-    return Dh == 128 ? mma_blocks_per_sm<__nv_bfloat16, 128>(row_tiles)
-         : Dh == 64 ? mma_blocks_per_sm<__nv_bfloat16, 64>(row_tiles) : -1;
-  if (dtype == 2)
-    return Dh == 128 ? mma_blocks_per_sm<__half, 128>(row_tiles)
-         : Dh == 64 ? mma_blocks_per_sm<__half, 64>(row_tiles) : -1;
+  if (dtype == 1) return mma_blocks_per_sm_dh<__nv_bfloat16>(Dh, row_tiles);
+  if (dtype == 2) return mma_blocks_per_sm_dh<__half>(Dh, row_tiles);
   return -1;
 }
 

@@ -26,6 +26,7 @@ from ...models.llama import rms_norm as _rmsnorm
 from ...models.llama import rope_tables as _rope_tables
 from ...models.llama import torch_dtype
 from ...models.mixtral import moe_apply
+from ...ops._use_kernels import paged_kernels_disabled
 from ...ops.kernels.paged_attention import (paged_attention,
                                             paged_attention_atoms,
                                             paged_attention_plain)
@@ -52,9 +53,9 @@ def _paged_attention(q, k_cache, v_cache, tables_t, positions, block_size,
     ``layout=(decode_cap, atom)`` > (0, 0) means the buffer is region-split
     by the batch builder: one row per tile for the first ``decode_cap``
     rows, ``atom`` same-sequence rows per tile for the rest.
-    ``use_kernel=False``: the gather path (each row gathers its own block
-    run)."""
-    if not use_kernel:
+    ``use_kernel=False``, or ``DS_TPU_DISABLE_PALLAS_PAGED`` set: the gather
+    path (each row gathers its own block run)."""
+    if not use_kernel or paged_kernels_disabled():
         return paged_attention_plain(q, k_cache, v_cache, tables_t,
                                      positions, window)
     decode_cap, atom = layout

@@ -12,10 +12,11 @@ per element; codes are bit-packed for storage (4 × 6 b → 3 B, 2 × 12 b →
 pads it (to a multiple of 8, then of its Pallas row block when above
 it), so ``scales`` and the packed bytes have JAX's sizes.
 
-The per-group absmax, scale, grid rounding and encoding is kernel B6
-(``ops/kernels/fp_quantizer.py``, hand-written CUDA on the card); the
-element math, packing and decoding here are plain PyTorch, as they are
-XLA code in JAX.  fp8 e4m3 skips the kernel: a clamp and a native
+The per-group absmax, scale, grid rounding, encoding and packing is
+kernel B6 (``ops/kernels/fp_quantizer.py``, hand-written CUDA on the card,
+one launch a tensor); the element math, packing and decoding here are
+plain PyTorch (the plain version's and the decode's), as they are XLA code
+in JAX.  fp8 e4m3 skips the kernel: a clamp and a native
 ``torch.float8_e4m3fn`` cast, as JAX casts to ``float8_e4m3fn``.
 
 Powers of two are built from their exponent bits, so every step is exact.
@@ -190,7 +191,7 @@ def quantize_fp(x, q_bits=8, mantissa_bits=3, group_size=512,
     (bit-identical to a scaled ``float8_e4m3fn`` cast).  Other formats run
     kernel B6 on a CUDA tensor and its plain version on a CPU one.
     ``use_pallas`` is accepted for the JAX signature and ignored."""
-    from .kernels.fp_quantizer import quantize_fp_codes
+    from .kernels.fp_quantizer import quantize_fp_packed
     gs, groups, _ = fp_groups(x.numel(), group_size)
     meta = (tuple(x.shape), x.dtype, groups, q_bits, mantissa_bits, gs)
     if q_bits == 8 and mantissa_bits == 3:
@@ -206,8 +207,8 @@ def quantize_fp(x, q_bits=8, mantissa_bits=3, group_size=512,
         q8 = (xf / scale).clamp(-_E4M3_MAX, _E4M3_MAX).to(
             torch.float8_e4m3fn)
         return q8.view(torch.uint8), scale[:, 0], meta
-    codes, scales = quantize_fp_codes(x, q_bits, mantissa_bits, gs)
-    return pack_codes(codes.reshape(-1), q_bits), scales, meta
+    packed, scales = quantize_fp_packed(x, q_bits, mantissa_bits, gs)
+    return packed, scales, meta
 
 
 def dequantize_fp(packed, scales, meta, use_pallas=None):

@@ -1,32 +1,35 @@
-"""FP6/FP12 grid quantization: the hand-written CUDA kernel's wrapper and
-its plain PyTorch version.
+"""FP6/FP12 grid quantization to packed codes: the hand-written CUDA
+kernel's wrapper and its plain PyTorch version.
 
 Replaces the Pallas TPU kernel of ``deepspeed_tpu/ops/fp_quantizer.py``:
 ``quantize_fp`` (:155), launched at :188, kernel body ``_fpq_kernel``
-(:144).  Per group of ``gs`` consecutive elements (row-major flatten,
-zero-padded to the padded group count of ``fp_groups``): the absmax; the
-scale ``absmax / fmt_max`` (a true fp32 division), 1 for an all-zero group;
-each element ``x / scale`` (a true division) rounded half to even onto the
-(q_bits, mantissa_bits) grid with subnormals and saturation
-(``round_to_fp_grid``) and encoded as sign|exp|mantissa (``encode_fp``).
-Codes come out as uint8 for q_bits <= 8 and as 16 bits (int16 holding the
-code) above; scales as fp32.  This is the function of JAX's XLA branch
-(:199-204), which the port follows bit for bit.  Packing stays plain
-PyTorch (``ops/fp_quantizer.py:pack_codes``).  The kernel is
-``csrc/fp_quantizer.cu``; what bounds it on an H100: bytes.
+(:144), with the code packing that XLA ran beside it (``pack_codes``,
+:106) in the same launch.  Per group of ``gs`` consecutive elements
+(row-major flatten, zero-padded to the padded group count of
+``fp_groups``): the absmax; the scale ``absmax / fmt_max`` (a true fp32
+division), 1 for an all-zero group; each element ``x / scale`` (a true
+division) rounded half to even onto the (q_bits, mantissa_bits) grid with
+subnormals and saturation (``round_to_fp_grid``) and encoded as
+sign|exp|mantissa (``encode_fp``); the codes packed as ``pack_codes``
+packs them (4 × 6 b → 3 B, 2 × 12 b → 3 B, 8 b → 1 B).  This is the
+function of JAX's XLA branch (:199-204), which the port follows bit for
+bit.  The kernel is ``csrc/fp_quantizer.cu``; what bounds it on an H100:
+instruction issue about as much as bytes (its source says why).
 
-On CPU tensors :func:`quantize_fp_codes` computes its plain version; on
-CUDA tensors it launches the kernel or raises.
-``quantize_fp_codes.launches`` counts kernel launches.
+On CPU tensors :func:`quantize_fp_packed` computes its plain version; on
+CUDA tensors it launches the kernel once or raises.
+``quantize_fp_packed.launches`` counts kernel launches.
+:func:`quantize_fp_codes_plain` (the unpacked codes) stays for the tests.
 """
 
 import torch
 
 from ..fp_quantizer import (_fmt, encode_fp, fp_groups, group_tiles,
-                            round_to_fp_grid)
+                            pack_codes, round_to_fp_grid)
 from ..op_builder import FPQuantizerBuilder
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+PACKED_BITS = (6, 8, 12)     # the widths pack_codes packs
 
 
 def code_dtype(q_bits):
@@ -34,7 +37,7 @@ def code_dtype(q_bits):
 
 
 def quantize_fp_codes_plain(x, q_bits, mantissa_bits, group_size):
-    """The kernel's function in plain PyTorch: (codes [groups_pad, gs],
+    """The unpacked codes in plain PyTorch: (codes [groups_pad, gs],
     scales fp32 [groups_pad])."""
     _, _, _, maxv = _fmt(q_bits, mantissa_bits)
     tiles = group_tiles(x, group_size)
@@ -48,39 +51,56 @@ def quantize_fp_codes_plain(x, q_bits, mantissa_bits, group_size):
     return codes, scale[:, 0]
 
 
-def quantize_fp_codes(x, q_bits, mantissa_bits, group_size):
-    """Per-group FP grid codes and fp32 scales of ``x`` (any shape, fp32,
-    bf16 or fp16): ``(codes [groups_pad, gs], scales [groups_pad])``."""
-    if not x.is_floating_point():
-        raise TypeError(f"quantize_fp takes a float tensor, got {x.dtype}")
-    _, _, _, maxv = _fmt(q_bits, mantissa_bits)
-    if x.device.type == "cpu":
-        return quantize_fp_codes_plain(x, q_bits, mantissa_bits, group_size)
-    if x.device.type != "cuda":
-        raise ValueError(f"quantize_fp runs on cpu or cuda, not "
-                         f"{x.device.type}")
+def quantize_fp_packed_plain(x, q_bits, mantissa_bits, group_size):
+    """The kernel's function in plain PyTorch: (packed uint8
+    [groups_pad · gs · q_bits / 8], scales fp32 [groups_pad])."""
+    codes, scales = quantize_fp_codes_plain(x, q_bits, mantissa_bits,
+                                            group_size)
+    return pack_codes(codes.reshape(-1), q_bits), scales
+
+
+def _launch(x, q_bits, mantissa_bits, group_size):
+    """One launch; returns (packed, scales, launched)."""
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"FP quantize kernel takes fp32, bf16 or fp16, got "
                         f"{x.dtype}")
+    _, _, _, maxv = _fmt(q_bits, mantissa_bits)
     gs, _, padded = fp_groups(x.numel(), group_size)
     x = x.contiguous()
-    codes = torch.empty(padded, gs, dtype=code_dtype(q_bits),
-                        device=x.device)
+    packed = torch.empty(padded * gs * q_bits // 8, dtype=torch.uint8,
+                         device=x.device)
     scales = torch.empty(padded, dtype=torch.float32, device=x.device)
-    if padded:
-        lib = FPQuantizerBuilder().load()
-        with torch.cuda.device(x.device):
-            err = lib.ds_quantize_fp(
-                x.data_ptr(), _DTYPE_CODES[x.dtype], codes.data_ptr(),
-                scales.data_ptr(), x.numel(), padded, gs, q_bits,
-                mantissa_bits, maxv,
-                torch.cuda.current_stream(x.device).cuda_stream)
-        if err:
-            raise RuntimeError(f"FP quantize kernel launch failed: "
-                               f"{lib.ds_cuda_error_string(err).decode()} "
-                               f"({err})")
-        quantize_fp_codes.launches += 1
-    return codes, scales
+    if not padded:
+        return packed, scales, False
+    lib = FPQuantizerBuilder().load()
+    with torch.cuda.device(x.device):
+        err = lib.ds_quantize_fp_packed(
+            x.data_ptr(), _DTYPE_CODES[x.dtype], packed.data_ptr(),
+            scales.data_ptr(), x.numel(), padded, gs, q_bits, mantissa_bits,
+            maxv, torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"FP quantize kernel launch failed: "
+                           f"{lib.ds_cuda_error_string(err).decode()} "
+                           f"({err})")
+    return packed, scales, True
 
 
-quantize_fp_codes.launches = 0
+def quantize_fp_packed(x, q_bits, mantissa_bits, group_size):
+    """Per-group FP grid codes of ``x`` (any shape, fp32, bf16 or fp16),
+    packed, and fp32 scales: ``(packed uint8, scales [groups_pad])``."""
+    if not x.is_floating_point():
+        raise TypeError(f"quantize_fp takes a float tensor, got {x.dtype}")
+    _fmt(q_bits, mantissa_bits)
+    if q_bits not in PACKED_BITS:
+        raise ValueError(f"no packing for q_bits={q_bits}")
+    if x.device.type == "cpu":
+        return quantize_fp_packed_plain(x, q_bits, mantissa_bits, group_size)
+    if x.device.type != "cuda":
+        raise ValueError(f"quantize_fp runs on cpu or cuda, not "
+                         f"{x.device.type}")
+    packed, scales, launched = _launch(x, q_bits, mantissa_bits, group_size)
+    quantize_fp_packed.launches += launched
+    return packed, scales
+
+
+quantize_fp_packed.launches = 0

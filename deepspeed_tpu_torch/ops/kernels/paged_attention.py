@@ -22,7 +22,9 @@ run one tensor-core kernel that holds all the rows sharing a kv head (up to
 runs both products on ``mma.sync`` with P fed as hi + lo; where the grid
 would be small (decode, or a prefill of a few tiles) it splits each tile's
 table into spans (split-KV) whose states a second kernel merges in split
-order.  ``fp32`` runs the CUDA-core kernel.
+order.  ``fp32`` runs the CUDA-core kernel.  Every route takes an even head
+width Dh up to 128: Dh <= 64 runs in the kernels' 64-column tile, a wider
+one in the 128-column tile, zero-filled past Dh.
 :func:`_emulate_split_kv_tensor_cores` is the tensor-core route's arithmetic
 in plain PyTorch, for the tests.
 
@@ -45,6 +47,9 @@ SPLIT_TARGET_BLOCKS = 4096
 ATOM_SPLIT_TARGET_BLOCKS = 264
 MAX_ROW_TILES = 8       # 16-row tiles a block: 128 rows
 KEYS_A_TILE = 64        # keys a staged K/V tile
+# head widths: even, up to 128 (tiles of 64 and 128 columns, zero-padded
+# past Dh; B1 stops at 128 too)
+MAX_HEAD_DIM = 128
 LOG2E = 1.4426950408889634
 
 
@@ -242,9 +247,9 @@ def _launch(q, k_cache, v_cache, tables_t, positions, atom, window):
                         f"{k_cache.dtype}, {v_cache.dtype}")
     if tables_t.dtype != torch.int32 or positions.dtype != torch.int32:
         raise TypeError("tables_t and positions must be int32")
-    if Dh not in (64, 128):
-        raise ValueError(f"paged attention kernel takes head_dim 64 or 128, "
-                         f"got {Dh}")
+    if Dh % 2 or not 2 <= Dh <= MAX_HEAD_DIM:
+        raise ValueError(f"paged attention kernel takes an even head_dim "
+                         f"of at most {MAX_HEAD_DIM}, got {Dh}")
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
                     ("tables_t", tables_t), ("positions", positions)):
         if not t.is_contiguous():

@@ -11,13 +11,21 @@ values stay in int8 storage at ±7, unpacked.  The kernels are
 ``csrc/quantizer.cu``, built by ``ops/op_builder.py`` and called through
 ctypes on PyTorch's current stream.  What bounds them on an H100: bytes.
 
+The quantize kernel reads its input on one of three routes, chosen by one
+host rule on shapes and strides (:func:`quantize_route`): ``contiguous``;
+``transposed``, the ``p.t()`` of a row-major ``nn.Linear`` weight read as
+it lies (the serving path's 225 of Llama-2-7B's 226 weights: no transposed
+copy); and ``copy``, any other layout made contiguous first (a stated
+route, counted apart).
+
 The JAX package pads the group count to its Pallas row block (a TPU tiling
 detail); the port pads only the last group, and ``meta``'s third entry is
 the group count either way.
 
 On CPU tensors each wrapper computes its plain version; on CUDA tensors it
 launches its kernel or raises.  ``quantize_blockwise.launches`` and
-``dequantize_blockwise.launches`` count kernel launches.
+``dequantize_blockwise.launches`` count kernel launches,
+``quantize_blockwise.route_launches`` the same by route.
 """
 
 import torch
@@ -26,6 +34,39 @@ from ..op_builder import QuantizerBuilder
 
 LANES = 128           # group sizes are multiples of this (quantizer.py:74)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+ROUTES = ("contiguous", "transposed", "copy")
+# the transposed kernel's groups: one tile of gs rows of p a block
+TRANSPOSED_GROUPS = (128, 256)
+
+
+def _is_contiguous(shape, strides):
+    want = 1
+    for d, st in zip(reversed(shape), reversed(strides)):
+        if d != 1 and st != want:
+            return False
+        want *= d
+    return True
+
+
+def quantize_route(shape, strides, dtype, addr, group_size):
+    """How the quantize kernel reads a tensor of ``shape``/``strides``
+    (elements) at address ``addr``, from host-known facts alone.
+
+    ``contiguous``: row-major.  ``transposed``: a 2-D ``p.t()`` of a
+    row-major [out, in] p (strides (1, in)) in fp32, bf16 or fp16, with
+    groups of 128 or 256 that tile ``out`` (out % gs == 0), p's rows
+    16-byte aligned (in · element size % 16 == 0) and p at a 16-byte
+    aligned address.  ``copy``: anything else, made contiguous before the
+    contiguous kernel."""
+    gs = max(LANES, group_size - group_size % LANES)
+    if _is_contiguous(shape, strides):
+        return "contiguous"
+    if (len(shape) == 2 and tuple(strides) == (1, shape[0])
+            and dtype in _DTYPE_CODES and gs in TRANSPOSED_GROUPS
+            and shape[1] % gs == 0 and addr % 16 == 0
+            and shape[0] * torch.finfo(dtype).bits % 128 == 0):
+        return "transposed"
+    return "copy"
 
 
 def _params(x, num_bits, group_size):
@@ -64,6 +105,41 @@ def dequantize_blockwise_plain(q, scales, meta):
     return out.reshape(-1)[:n].reshape(shape).to(dtype)
 
 
+def _launch_quantize(x, num_bits, group_size):
+    """One launch on :func:`quantize_route`'s route; returns (q, scales,
+    meta, the route, or None where an empty tensor launched nothing)."""
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"quantize kernel takes fp32, bf16 or fp16, got "
+                        f"{x.dtype}")
+    gs, qmax, n, groups = _params(x, num_bits, group_size)
+    meta = (tuple(x.shape), x.dtype, groups)
+    route = quantize_route(tuple(x.shape), x.stride(), x.dtype,
+                           x.data_ptr(), group_size)
+    if route == "copy":
+        x = x.contiguous()
+    q = torch.empty(groups, gs, dtype=torch.int8, device=x.device)
+    scales = torch.empty(groups, dtype=torch.float32, device=x.device)
+    if not groups:
+        return q, scales, meta, None
+    lib = QuantizerBuilder().load()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        if route == "transposed":
+            # x = p^T: p is [out, in] = [x.shape[1], x.shape[0]]
+            err = lib.ds_quantize_blockwise_t(
+                x.data_ptr(), _DTYPE_CODES[x.dtype], q.data_ptr(),
+                scales.data_ptr(), x.shape[1], x.shape[0], gs, qmax, stream)
+        else:
+            err = lib.ds_quantize_blockwise(
+                x.data_ptr(), _DTYPE_CODES[x.dtype], q.data_ptr(),
+                scales.data_ptr(), n, groups, gs, qmax, stream)
+    if err:
+        raise RuntimeError(f"quantize kernel launch failed ({route}): "
+                           f"{lib.ds_cuda_error_string(err).decode()} "
+                           f"({err})")
+    return q, scales, meta, route
+
+
 def quantize_blockwise(x, num_bits=8, group_size=2048):
     """Symmetric per-group quantization.  Returns ``(q int8 [groups, gs],
     scales fp32 [groups], meta)`` with ``meta = (shape, dtype, groups)``."""
@@ -75,29 +151,15 @@ def quantize_blockwise(x, num_bits=8, group_size=2048):
     if x.device.type != "cuda":
         raise ValueError(f"quantize_blockwise runs on cpu or cuda, not "
                          f"{x.device.type}")
-    if x.dtype not in _DTYPE_CODES:
-        raise TypeError(f"quantize kernel takes fp32, bf16 or fp16, got "
-                        f"{x.dtype}")
-    gs, qmax, n, groups = _params(x, num_bits, group_size)
-    x = x.contiguous()
-    q = torch.empty(groups, gs, dtype=torch.int8, device=x.device)
-    scales = torch.empty(groups, dtype=torch.float32, device=x.device)
-    if groups:
-        lib = QuantizerBuilder().load()
-        with torch.cuda.device(x.device):
-            err = lib.ds_quantize_blockwise(
-                x.data_ptr(), _DTYPE_CODES[x.dtype], q.data_ptr(),
-                scales.data_ptr(), n, groups, gs, qmax,
-                torch.cuda.current_stream(x.device).cuda_stream)
-        if err:
-            raise RuntimeError(f"quantize kernel launch failed: "
-                               f"{lib.ds_cuda_error_string(err).decode()} "
-                               f"({err})")
+    q, scales, meta, route = _launch_quantize(x, num_bits, group_size)
+    if route is not None:
         quantize_blockwise.launches += 1
-    return q, scales, (tuple(x.shape), x.dtype, groups)
+        quantize_blockwise.route_launches[route] += 1
+    return q, scales, meta
 
 
 quantize_blockwise.launches = 0
+quantize_blockwise.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 def dequantize_blockwise(q, scales, meta):

@@ -238,10 +238,14 @@ class QuantizerBuilder(CUDAOpBuilder):
         lib.ds_quantize_blockwise.argtypes = [
             p, i, p, p,                 # x, dtype code, q, scales
             n, n, i, f, p]              # n, groups, group size, qmax, stream
+        lib.ds_quantize_blockwise_t.argtypes = [
+            p, i, p, p,                 # p, dtype code, q, scales
+            i, i, i, f, p]              # out, in, group size, qmax, stream
         lib.ds_dequantize_blockwise.argtypes = [
             p, p, p, i,                 # q, scales, out, dtype code
             n, i, p]                    # n, group size, stream
-        for fn in (lib.ds_quantize_blockwise, lib.ds_dequantize_blockwise):
+        for fn in (lib.ds_quantize_blockwise, lib.ds_quantize_blockwise_t,
+                   lib.ds_dequantize_blockwise):
             fn.restype = i
         lib.ds_cuda_error_string.argtypes = [i]
         lib.ds_cuda_error_string.restype = ctypes.c_char_p
@@ -300,11 +304,11 @@ class FPQuantizerBuilder(CUDAOpBuilder):
     def bind(self, lib):
         p, i, f, n = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
             ctypes.c_longlong
-        lib.ds_quantize_fp.argtypes = [
-            p, i, p, p,                 # x, dtype code, codes, scales
+        lib.ds_quantize_fp_packed.argtypes = [
+            p, i, p, p,                 # x, dtype code, packed, scales
             n, n, i,                    # n, groups, group size
             i, i, f, p]                 # q_bits, mantissa bits, maxv, stream
-        lib.ds_quantize_fp.restype = i
+        lib.ds_quantize_fp_packed.restype = i
         lib.ds_cuda_error_string.argtypes = [i]
         lib.ds_cuda_error_string.restype = ctypes.c_char_p
 

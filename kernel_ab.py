@@ -15,8 +15,16 @@ kernels (into the tree's own build directory, all sources at once), then:
   16, 64] fp16), and of the bias flash kernels (B10: forward, dq, dk/dv,
   dbias) at stage 17's MSA-row shape ([512, 384, 8, 32] bf16, pair bias
   over 512 rows, key mask), inputs from a fixed seed;
-- runs chip_smoke's stages 3 (paged attention), 7, 13, 17 and 19
-  (``--stages``) and keeps the times of each kernel case.
+- runs chip_smoke's stages 3 (paged attention), 7, 13, 17 and 19, and
+  21's kernel cases (FP6/FP12, B6) (``--stages``), and keeps the times of
+  each kernel case;
+- with ``trees`` among the stages, times through the public functions of
+  either tree: the quantize of ``p.t()`` of Llama-2-7B's gate projection
+  (the int8 serving build's call), ``quantize_fp`` at stage 21's shapes,
+  ``quant_serving.quantize_tree`` over Llama-2-7B's 226 weights in int8
+  (loaded as the int8 serving build loads them)
+  and ``quantize_param_tree`` over its bf16 tree in FP6 and FP12 (wall
+  time, and the device time of their kernels under ``torch.profiler``).
 
 It writes one JSON file a run and prints, per kernel case, each run's ms
 and whether every run's output hashes agree.  Runs alternate (parent,
@@ -33,7 +41,8 @@ import sys
 
 STAGES = {"3": "stage_kernels", "7": "stage_train_kernels",
           "13": "stage_moe_quant_kernels",
-          "17": "stage_evoformer_kernels", "19": "stage_sparse_kernels"}
+          "17": "stage_evoformer_kernels", "19": "stage_sparse_kernels",
+          "21": "stage_fp_quant_kernels"}
 
 
 def _digest(t):
@@ -96,6 +105,113 @@ def _times(result):
     return times
 
 
+def _fp_kernel_cases(c, torch):
+    """Stage 21's kernel cases; a tree whose chip_smoke predates
+    ``stage_fp_quant_kernels`` (B6 writing unpacked codes) runs its
+    ``_fpq_case`` over the same shapes.  That branch can go once no
+    parent compared predates the stage."""
+    if hasattr(c, "stage_fp_quant_kernels"):
+        return c.stage_fp_quant_kernels(0)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    return [c._fpq_case(torch, gen, sn, shape, fmt, dtype)
+            for sn, shape in c.FPQ_SHAPES for fmt in c.FPQ_FORMATS
+            for dtype in ("bfloat16", "float32")]
+
+
+def _llama_model(torch, gen, here):
+    """Llama-2-7B as the int8 serving build holds it before
+    ``quantize_tree``: stage 15's random checkpoint (``here``, this
+    checkout's chip_smoke) loaded by the tree's own
+    ``build_model_and_params`` (what
+    ``build_engine_from_checkpoint`` runs), without the engine."""
+    from deepspeed_tpu_torch.inference.v2.engine_factory import (
+        _ConfiguredCheckpoint)
+    from deepspeed_tpu_torch.inference.v2.model_implementations.hf_builders \
+        import build_model_and_params
+    ckpt = _ConfiguredCheckpoint(
+        here._RandomCheckpoint(torch, here.LLAMA2_7B_HF, gen),
+        here.LLAMA2_7B_HF)
+    model, _ = build_model_and_params(
+        ckpt, dtype=here.SERVE_ENGINE["dtype"],
+        device=torch.device("cuda", torch.cuda.current_device()))
+    return model
+
+
+def _here_chip_smoke():
+    """The chip_smoke.py beside this script (its helpers, whichever tree
+    a run imports)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_here", os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _trees(c, torch):
+    """The public functions' times (parent and change alike)."""
+    import time
+    from deepspeed_tpu_torch.inference import quant_serving
+    from deepspeed_tpu_torch.linear import (QuantizationConfig,
+                                            quantize_param_tree)
+    from deepspeed_tpu_torch.ops import fp_quantizer as fq
+    from deepspeed_tpu_torch.ops.kernels import quantizer as qz
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    rows = []
+    p = (torch.randn(11008, 4096, device="cuda", generator=gen)
+         * 0.02).to(torch.bfloat16)
+    rows.append(dict(case="gate_proj_t_int8_g128", ms=c.cuda_ms(
+        lambda: qz.quantize_blockwise(p.t(), 8, 128), 10)))
+    del p
+    for sn, shape in c.FPQ_SHAPES:
+        x = (torch.randn(*shape, device="cuda", generator=gen)
+             * 0.02).to(torch.bfloat16)
+        for fmt, (q_bits, man) in c.FPQ_FORMATS.items():
+            rows.append(dict(case=f"quantize_fp_{sn}_{fmt}", ms=c.cuda_ms(
+                lambda: fq.quantize_fp(x, q_bits, man, 512), 10)))
+        del x
+    c._free(torch)
+    # quantize_tree and quantize_param_tree: wall (synchronized) in a
+    # plain run, the device time of their kernels in a run under the
+    # profiler (chip_smoke.device_time of this checkout), which slows the
+    # host
+    here = _here_chip_smoke()
+
+    def timed(tag, body, profiled):
+        if profiled:
+            out, wall, dev, records = here.device_time(torch, body)
+            rows.append(dict(case=tag, ms_device=dev, ms_wall_profiled=wall,
+                             records=float(records)))
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = body()
+            torch.cuda.synchronize()
+            rows.append(dict(case=tag,
+                             ms_wall=(time.perf_counter() - t0) * 1e3))
+        return out
+
+    for rep, profiled in enumerate((False, True)):
+        model = _llama_model(torch, gen, here)
+        timed(f"quantize_tree_llama2_7b_int8_{rep}",
+              lambda: quant_serving.quantize_tree(model, 8, torch.bfloat16),
+              profiled)
+        del model
+        c._free(torch)
+    tree = c._llama_jax_tree(torch, gen)
+    for fmt, q_bits in (("fp6", 6), ("fp12", 12)):
+        for rep, profiled in enumerate((False, False, True)):
+            qt = timed(f"quantize_param_tree_{fmt}_{rep}",
+                       lambda: quantize_param_tree(tree, QuantizationConfig(
+                           q_dtype="fp", q_bits=q_bits)), profiled)
+            del qt
+        c._free(torch)
+    del tree
+    c._free(torch)
+    return rows
+
+
 def run_one(tree, stages, out_path):
     sys.path.insert(0, os.path.abspath(tree))
     import torch
@@ -105,7 +221,12 @@ def run_one(tree, stages, out_path):
     res = dict(tree=os.path.abspath(tree), card=c.stage_environment(),
                hashes=_hashes(torch), times={})
     for st in stages:
-        result = getattr(c, STAGES[st])(0)
+        if st == "trees":
+            result = _trees(c, torch)
+        elif st == "21":
+            result = _fp_kernel_cases(c, torch)
+        else:
+            result = getattr(c, STAGES[st])(0)
         res["times"].update({f"{st}:{k}": v
                              for k, v in _times(result).items()})
         c._free(torch)
@@ -119,7 +240,7 @@ def main():
                     help="NAME=DIR, once per tree")
     ap.add_argument("--order", required=True,
                     help="comma-separated tree names, run in this order")
-    ap.add_argument("--stages", default="3,7,13,17,19")
+    ap.add_argument("--stages", default="3,7,13,17,19,21")
     ap.add_argument("--out", required=True, help="directory for the JSON")
     ap.add_argument("--one", nargs=2, metavar=("TREE", "OUT"),
                     help=argparse.SUPPRESS)   # a child process's run

@@ -46,8 +46,8 @@ across two runs (a fixed summation order, also where it is split into
 chunks summed by a second kernel).  Block-sparse attention: as flash
 attention's (fp32 sums in another order: 64 keys a pass where the plain
 version takes one layout block a step; bf16/fp16 on the tensor cores
-with P as hi + lo, as flash attention's), bit-equal over two runs.  FP quantizer: codes and scales
-bit for bit.
+with P as hi + lo, as flash attention's), bit-equal over two runs.  FP quantizer: packed codes and
+scales bit for bit.
 """
 
 import pytest
@@ -145,6 +145,32 @@ def test_kernel_matches_plain(card, dtype, Dh, H, Hkv, window, atom):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16],
+                         ids=["fp32", "bf16", "fp16"])
+@pytest.mark.parametrize("Dh", [80, 100, 32, 112])
+@pytest.mark.parametrize("window", [0, 40])
+@pytest.mark.parametrize("atom", [1, 16])
+def test_kernel_matches_plain_at_padded_head_widths(card, dtype, Dh, window,
+                                                    atom):
+    """Head widths below a tile's (Phi's 80 and OpenLLaMA-3B's 100 in the
+    128 tile, 32 in the 64 tile; 80, 112 and 32 copy 16 bytes, 100 copies
+    8) on every route, at the same tolerances, bit for bit over two runs."""
+    batch = _batch(card, dtype, 8, 2, Dh, atom, 6, seed=atom + window + Dh)
+    got, routes = _paged_call(batch, atom, window)
+    q, kc, vc, tables, pos = batch
+    want = pa.launch_plan(dtype, q.shape[0], 8, 2, tables.shape[1], atom)
+    assert routes == {want[0]: 1}
+    ref = pa.paged_attention_plain(q, kc, vc,
+                                   pa._first_row_tables(tables, atom), pos,
+                                   window)
+    over = (got.float() - ref.float()).abs() / _tol(dtype, ref.float())
+    assert over.max().item() <= 1.0, over.max().item()
+    again, _ = _paged_call(batch, atom, window)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
                          ids=["bf16", "fp16"])
 @pytest.mark.parametrize("atom,n_tiles", [(1, 512), (16, 40)])
@@ -173,10 +199,13 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(card):
     with pytest.raises(TypeError, match="caches of q's dtype"):
         pa.paged_attention(q.half(), kc.bfloat16(), vc.bfloat16(), tables,
                            pos)
-    with pytest.raises(ValueError, match="head_dim"):
-        pa.paged_attention(q[..., :32].contiguous(),
-                           kc[..., :32].contiguous(),
-                           vc[..., :32].contiguous(), tables, pos)
+    with pytest.raises(ValueError, match="head_dim"):     # odd
+        pa.paged_attention(q[..., :33].contiguous(),
+                           kc[..., :33].contiguous(),
+                           vc[..., :33].contiguous(), tables, pos)
+    wide = _batch(card, torch.bfloat16, 4, 2, 136, 1, 3, 0)
+    with pytest.raises(ValueError, match="head_dim"):     # above 128
+        pa.paged_attention(*wide)
     with pytest.raises(ValueError, match="contiguous"):
         pa.paged_attention(q.transpose(0, 1).contiguous().transpose(0, 1),
                            kc, vc, tables, pos)
@@ -604,14 +633,19 @@ def test_gmm_rows_past_the_groups_are_zero(card):
                                    torch.float16],
                          ids=["fp32", "bf16", "fp16"])
 @pytest.mark.parametrize("bits", [8, 4])
-@pytest.mark.parametrize("group_size", [128, 2048, 300])
+@pytest.mark.parametrize("group_size", [128, 2048, 300, 8192, 640, 1024])
 @pytest.mark.parametrize("shape,offset", [((37, 300), 0), ((4096, 512), 0),
-                                          ((1001, ), 1)],
-                         ids=["partial_group", "aligned", "misaligned"])
+                                          ((1001, ), 1), ((1920, 512), 0)],
+                         ids=["partial_group", "aligned", "misaligned",
+                              "whole"])
 def test_quantizer_kernels_match_plain(card, dtype, bits, group_size, shape,
                                        offset):
     """``offset`` 1 starts the input one element into its storage, so the
-    kernel takes its unvectorised path; group 300 is clamped to 256."""
+    kernel takes its unvectorised path; group 300 is clamped to 256.  The
+    group sizes reach every kernel of the one-pass scheme: 1, 2, 4 and 8
+    units a lane (128/300/640 in teams of 8 lanes, 1024, 2048), and groups
+    read twice (8192); ``whole`` divides by every group size, so each is
+    also reached by its kernel for whole, aligned groups."""
     g = torch.Generator().manual_seed(bits + group_size)
     n = 1
     for d in shape:
@@ -632,6 +666,95 @@ def test_quantizer_kernels_match_plain(card, dtype, bits, group_size, shape,
     assert (qz.quantize_blockwise.launches,
             qz.dequantize_blockwise.launches) == (before[0] + 1,
                                                   before[1] + 1)
+
+
+def _quant_routed(x, bits, group_size):
+    """quantize_blockwise on the card held bit for bit to its plain
+    version; the routes the call counted."""
+    before = dict(qz.quantize_blockwise.route_launches)
+    q, s, meta = qz.quantize_blockwise(x, bits, group_size)
+    torch.cuda.synchronize()
+    routes = [r for r, n in qz.quantize_blockwise.route_launches.items()
+              if n != before[r]]
+    q_ref, s_ref, meta_ref = qz.quantize_blockwise_plain(x, bits, group_size)
+    assert meta == meta_ref
+    assert torch.equal(q, q_ref) and torch.equal(s, s_ref)
+    return routes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16],
+                         ids=["fp32", "bf16", "fp16"])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("group_size", [128, 256])
+@pytest.mark.parametrize("out,inp", [(512, 136), (1024, 64), (256, 1000)],
+                         ids=["in_past_a_tile", "one_tile", "in_1000"])
+def test_quantizer_reads_a_transposed_weight_as_it_lies(card, dtype, bits,
+                                                        group_size, out,
+                                                        inp):
+    """``p.t()`` of a row-major [out, in] weight (the serving path's
+    layout) takes the transposed route, bit for bit against the plain
+    version of the same view, with an all-zero group and values at ties
+    of the rounding."""
+    g = torch.Generator().manual_seed(out + inp + bits)
+    p = (torch.randn(out, inp, generator=g) * 3).to(card, dtype)
+    p[:group_size, 5] = 0                         # an all-zero group
+    # absmax 127: scale 1 in int8, and 63.5, -0.5, 2.5 sit at ties
+    p[:4, 7] = torch.tensor([127.0, 63.5, -0.5, 2.5])
+    assert _quant_routed(p.t(), bits, group_size) == ["transposed"]
+
+
+@pytest.mark.cuda
+def test_quantizer_routes_other_layouts_through_a_copy(card):
+    """A strided slice, the ``p.t()`` of an fp32 p whose rows (510
+    values) are not 16-byte aligned, and a transposed view whose ``out`` is
+    not a multiple of the group take the copy route; a contiguous tensor
+    the contiguous one; all bit for bit."""
+    x = torch.randn(256, 512, device=card, dtype=torch.bfloat16)
+    assert _quant_routed(x[:, ::2], 8, 128) == ["copy"]
+    assert _quant_routed(x.float()[:, :510].contiguous().t(), 8,
+                         128) == ["copy"]
+    assert _quant_routed(x[:200].t(), 8, 128) == ["copy"]
+    assert _quant_routed(x, 8, 128) == ["contiguous"]
+
+
+def _every_16_bit_value(card, dtype, rounds=8):
+    """Groups of exact int8 rounding ties (absmax 127 · 2^e, the rest
+    (k + 0.5) · 2^e, e in [-12, 8]: normal in bf16 and fp16), then every
+    finite bf16 or fp16 value ``rounds`` times in random orders (random
+    group scales), as [rows, 2048] with rows % 8 == 0."""
+    vals = torch.arange(65536, dtype=torch.int32).to(torch.int16).view(dtype)
+    vals = vals[torch.isfinite(vals.float())]
+    g = torch.Generator().manual_seed(0)
+    k = torch.arange(-127, 127, dtype=torch.float32) + 0.5
+    ties = [torch.cat([torch.tensor([127.0]), k, torch.zeros(1)]) * 2.0**e
+            for e in range(-12, 9)]
+    x = torch.cat(ties + [vals[torch.randperm(vals.numel(),
+                                              generator=g)].float()
+                          for _ in range(rounds)])
+    return x[:x.numel() // 16384 * 16384].to(card, dtype).view(-1, 2048)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "fp16"])
+def test_quantizers_bit_equal_on_every_16_bit_value(card, dtype):
+    """Every bf16/fp16 value at random scales and at exact rounding ties,
+    bit for bit against the plain versions: B5's quantize on both read
+    routes, and B6's packed FP6/FP12."""
+    from deepspeed_tpu_torch.ops.kernels import fp_quantizer as kfq
+    x = _every_16_bit_value(card, dtype)
+    for bits in (8, 4):
+        for gs in (128, 256):
+            assert _quant_routed(x, bits, gs) == ["contiguous"]
+            assert _quant_routed(x.t().contiguous().t(), bits,
+                                 gs) == ["transposed"]
+    for q_bits, man in ((6, 2), (12, 7)):
+        for gs in (128, 512):
+            got = kfq.quantize_fp_packed(x, q_bits, man, gs)
+            ref = kfq.quantize_fp_packed_plain(x, q_bits, man, gs)
+            assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
 
 
 # ------------------------------------------------------------ B10 flash bias
@@ -1009,27 +1132,40 @@ def _fpq_input(card, dtype, offset):
                                    torch.float16],
                          ids=["fp32", "bf16", "fp16"])
 @pytest.mark.parametrize("q_bits,man", [(6, 2), (12, 7)])
-@pytest.mark.parametrize("group_size", [128, 512])
-@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "misaligned"])
+@pytest.mark.parametrize("group_size", [128, 512, 8192, 640, 1024])
+@pytest.mark.parametrize("offset", [0, 1, None],
+                         ids=["aligned", "misaligned", "whole"])
 def test_fp_quantizer_kernel_matches_plain(card, dtype, q_bits, man,
                                            group_size, offset):
-    """Codes and scales bit for bit (the same fp32 operations: true
-    divisions, exact powers of two, round half to even); the packed bytes
-    of ``quantize_fp`` too; one launch."""
+    """Packed bytes and scales bit for bit (the same fp32 operations: true
+    divisions, the grid rounding, pack_codes's byte order); ``quantize_fp``
+    makes that one launch and returns them.  Group sizes 640 (5 units a
+    lane of a team of 8), 1024 (2 units) and 8192 (read twice) reach the
+    one-pass scheme's other kernels; ``whole`` is a [5120, 2048] input
+    that fills its padded group count at every group size, so each is
+    also reached by its kernel for whole, aligned groups."""
     from deepspeed_tpu_torch.ops import fp_quantizer as fq
     from deepspeed_tpu_torch.ops.kernels import fp_quantizer as kfq
-    x = _fpq_input(card, dtype, offset)
-    before = kfq.quantize_fp_codes.launches
-    codes, scales = kfq.quantize_fp_codes(x, q_bits, man, group_size)
-    ref_codes, ref_scales = kfq.quantize_fp_codes_plain(x, q_bits, man,
-                                                        group_size)
+    if offset is None:
+        g = torch.Generator().manual_seed(group_size + q_bits)
+        x = (torch.randn(5120, 2048, generator=g) * 0.02).to(card, dtype)
+        x.view(-1)[:group_size] = 0               # an all-zero group
+        gs, _, padded = fq.fp_groups(x.numel(), group_size)
+        assert padded * gs == x.numel()
+    else:
+        x = _fpq_input(card, dtype, offset)
+    before = kfq.quantize_fp_packed.launches
+    packed, scales = kfq.quantize_fp_packed(x, q_bits, man, group_size)
+    ref, ref_scales = kfq.quantize_fp_packed_plain(x, q_bits, man,
+                                                   group_size)
     torch.cuda.synchronize()
-    assert kfq.quantize_fp_codes.launches == before + 1
-    assert codes.dtype == ref_codes.dtype == kfq.code_dtype(q_bits)
-    assert torch.equal(codes, ref_codes) and torch.equal(scales, ref_scales)
-    packed, s, meta = fq.quantize_fp(x, q_bits, man, group_size)
-    assert torch.equal(packed, fq.pack_codes(ref_codes.reshape(-1), q_bits))
-    back = fq.dequantize_fp(packed, s, meta)
+    assert kfq.quantize_fp_packed.launches == before + 1
+    assert packed.dtype == torch.uint8
+    assert torch.equal(packed, ref) and torch.equal(scales, ref_scales)
+    got, s, meta = fq.quantize_fp(x, q_bits, man, group_size)
+    assert kfq.quantize_fp_packed.launches == before + 2
+    assert torch.equal(got, ref) and torch.equal(s, ref_scales)
+    back = fq.dequantize_fp(got, s, meta)
     assert back.dtype == dtype and back.shape == x.shape
     assert torch.isfinite(back).all()
 
@@ -1039,8 +1175,8 @@ def test_fp_quantizer_fp8_launches_nothing(card):
     from deepspeed_tpu_torch.ops import fp_quantizer as fq
     from deepspeed_tpu_torch.ops.kernels import fp_quantizer as kfq
     x = torch.randn(1000, device=card)
-    before = kfq.quantize_fp_codes.launches
+    before = kfq.quantize_fp_packed.launches
     packed, s, meta = fq.quantize_fp(x, 8, 3, 128)
-    assert kfq.quantize_fp_codes.launches == before
+    assert kfq.quantize_fp_packed.launches == before
     cpu = fq.quantize_fp(x.cpu(), 8, 3, 128)
     assert torch.equal(packed.cpu(), cpu[0]) and torch.equal(s.cpu(), cpu[1])

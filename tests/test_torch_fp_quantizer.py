@@ -271,16 +271,21 @@ def test_fp12_bf16_tiny_values_differ_only_at_jax_exp2_margin():
 
 def test_wrapper_on_the_cpu_is_the_plain_version():
     x = torch.randn(5, 300, generator=torch.Generator().manual_seed(0))
-    codes, scales = port_kfp.quantize_fp_codes(x, 6, 2, 128)
-    ref = port_kfp.quantize_fp_codes_plain(x, 6, 2, 128)
-    assert torch.equal(codes, ref[0]) and torch.equal(scales, ref[1])
+    packed, scales = port_kfp.quantize_fp_packed(x, 6, 2, 128)
+    ref = port_kfp.quantize_fp_packed_plain(x, 6, 2, 128)
+    assert torch.equal(packed, ref[0]) and torch.equal(scales, ref[1])
+    codes, _ = port_kfp.quantize_fp_codes_plain(x, 6, 2, 128)
     assert codes.shape == (16, 128) and codes.dtype == torch.uint8
-    codes12, _ = port_kfp.quantize_fp_codes(x, 12, 7, 128)
+    assert torch.equal(packed, port_fp.pack_codes(codes.reshape(-1), 6))
+    assert packed.shape == (16 * 128 * 6 // 8, )
+    packed12, _ = port_kfp.quantize_fp_packed(x, 12, 7, 128)
+    codes12, _ = port_kfp.quantize_fp_codes_plain(x, 12, 7, 128)
     assert codes12.dtype == torch.int16 and int(codes12.max()) < 4096
-    assert port_kfp.quantize_fp_codes.launches == 0
+    assert torch.equal(packed12, port_fp.pack_codes(codes12.reshape(-1), 12))
+    assert port_kfp.quantize_fp_packed.launches == 0
     with pytest.raises(TypeError, match="float"):
-        port_kfp.quantize_fp_codes(torch.ones(4, dtype=torch.int32), 6, 2,
-                                   128)
+        port_kfp.quantize_fp_packed(torch.ones(4, dtype=torch.int32), 6, 2,
+                                    128)
     with pytest.raises(ValueError, match="exponent bits"):
         port_fp.quantize_fp(x, q_bits=4, mantissa_bits=2)
 
@@ -295,3 +300,137 @@ def test_group_padding_matches_jax_group_view():
             assert (groups, padded) == (jgroups, tiles.shape[0])
             assert gs == max(128, group_size - group_size % 128)
             assert padded * gs >= n and math.ceil(n / gs) == groups
+
+
+# ------------------------------------------- the kernel's arithmetic, emulated
+def _kernel_codes(y, q_bits, man):
+    """``csrc/fp_quantizer.cu``'s ``FpEnc::code`` step by step in numpy
+    (int64 for its uint32/int32 arithmetic): the normal grid rounding on
+    the fp32 bits, the subnormal one by adding 2^(24 - bias - m), the sign
+    bit only on a nonzero code."""
+    _, bias, _, maxv = port_fp._fmt(q_bits, man)
+    u = y.view(np.uint32).astype(np.int64)
+    a = u & 0x7FFFFFFF
+    sh, base = 23 - man, (127 - bias) << 23
+    kept = ((a >> sh) | (1 if man == 0 else 0)) & 1
+    max_r = int(np.float32(maxv).view(np.uint32)) - base
+    cn = (np.minimum(a + ((1 << (22 - man)) - 1) + kept - base, max_r)
+          & 0xFFFFFFFF) >> sh
+    sub = np.float32(2.0 ** (24 - bias - man))
+    cs = ((a.astype(np.uint32).view(np.float32) + sub).view(np.uint32)
+          .astype(np.int64) - int(sub.view(np.uint32)))
+    c = np.where(a < int(np.float32(2.0 ** (1 - bias)).view(np.uint32)), cs,
+                 cn)
+    return c | np.where((u >> 31).astype(bool) & (c != 0),
+                        1 << (q_bits - 1), 0)
+
+
+def _kernel_pack(codes, q_bits):
+    """The kernel's packing of 16 codes a unit: 24-bit values with the
+    first code in the high bits, their bytes laid out by the three
+    ``__byte_perm`` selectors of ``FpEnc::bytes12`` (or four bytes a word
+    at 8 bits)."""
+    c = codes.reshape(-1, 16).astype(np.uint32)
+
+    def perm(x, y, sel):          # __byte_perm: bytes 0-3 of x, 4-7 of y
+        both = np.stack([(x >> (8 * k)) & 0xFF for k in range(4)]
+                        + [(y >> (8 * k)) & 0xFF for k in range(4)])
+        return sum(both[(sel >> (4 * k)) & 0xF] << (8 * k)
+                   for k in range(4))
+
+    def bytes12(v):
+        return [perm(v[0], v[1], 0x6012), perm(v[1], v[2], 0x5601),
+                perm(v[2], v[3], 0x4560)]
+
+    if q_bits == 6:
+        v = [((c[:, 4 * k] << 6 | c[:, 4 * k + 1]) << 6 | c[:, 4 * k + 2])
+             << 6 | c[:, 4 * k + 3] for k in range(4)]
+        words = bytes12(v)
+    elif q_bits == 12:
+        v = [c[:, 2 * k] << 12 | c[:, 2 * k + 1] for k in range(8)]
+        words = bytes12(v[:4]) + bytes12(v[4:])
+    else:
+        words = [perm(perm(c[:, 4 * k], c[:, 4 * k + 1], 0x0040),
+                      perm(c[:, 4 * k + 2], c[:, 4 * k + 3], 0x0040),
+                      0x5410) for k in range(4)]
+    w = np.stack(words, axis=1).astype(np.uint32)
+    return w.view(np.uint8).reshape(-1)       # little-endian words
+
+
+@pytest.mark.parametrize("q_bits,man", [(6, 2), (12, 7), (6, 0), (6, 3),
+                                        (8, 2), (12, 4), (12, 9)])
+def test_kernel_grid_rounding_on_bits_equals_plain(q_bits, man):
+    """The kernel's integer rounding gives ``encode_fp(round_to_fp_grid)``
+    for every finite bf16 pattern within the grid's range, for every tie
+    of every binade (both signs), the subnormal steps' ties, ±0, fp32
+    subnormals and values past the maximum; and its packing gives
+    ``pack_codes``'s bytes."""
+    _, bias, max_unb, maxv = port_fp._fmt(q_bits, man)
+    every_bf16 = (np.arange(65536, dtype=np.uint32) << 16).view(np.float32)
+    ys = [every_bf16[np.isfinite(every_bf16)
+                     & (np.abs(every_bf16) <= maxv * 1.01)],
+          np.float32(2.0 ** (1 - bias - man))
+          * (np.arange(2 ** (man + 2)) + 0.5).astype(np.float32),
+          np.array([0.0, -0.0, maxv, -maxv, 1e-40, -1e-40, maxv * 1.004,
+                    2.0 ** (1 - bias)], np.float32)]
+    k = np.arange(2 ** man, dtype=np.float64)
+    for e in range(1 - bias, max_unb + 1):
+        tie = ((1 + (k + 0.5) / 2 ** man) * 2.0 ** e).astype(np.float32)
+        ys += [tie, -tie]
+    y = np.concatenate(ys)
+    y = np.concatenate([y, np.zeros(-len(y) % 16, np.float32)])
+    want = port_fp.encode_fp(port_fp.round_to_fp_grid(
+        torch.from_numpy(y), q_bits, man), q_bits, man).numpy()
+    got = _kernel_codes(y, q_bits, man)
+    np.testing.assert_array_equal(got, want)
+    if q_bits in (6, 8, 12):
+        np.testing.assert_array_equal(
+            _kernel_pack(got, q_bits),
+            port_fp.pack_codes(torch.from_numpy(want), q_bits).numpy())
+
+
+def test_quantize_fp_makes_one_launch_and_packs_nothing(monkeypatch):
+    """The card path of ``quantize_fp``: one call of the packed kernel's
+    wrapper, one C launch handed x's pointer, the padded group count and
+    the format, an output of groups_pad · gs · q_bits / 8 bytes, and no
+    ``pack_codes``."""
+    import contextlib
+
+    def refuse(*a, **k):
+        raise AssertionError("pack_codes called")
+
+    calls, launches = [], []
+
+    class Lib:
+        def ds_quantize_fp_packed(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(port_kfp.FPQuantizerBuilder, "load",
+                        lambda self: Lib())
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: type("S", (), {"cuda_stream": 0})())
+    monkeypatch.setattr(port_fp, "pack_codes", refuse)
+    monkeypatch.setattr(port_kfp, "pack_codes", refuse)
+
+    def on_the_card(x, q_bits, man, gs):      # quantize_fp_packed on CUDA
+        launches.append(q_bits)
+        packed, scales, _ = port_kfp._launch(x, q_bits, man, gs)
+        return packed, scales
+
+    monkeypatch.setattr(port_kfp, "quantize_fp_packed", on_the_card)
+    x = torch.randn(4096, 110).to(torch.bfloat16)
+    for q_bits, man in ((6, 2), (12, 7)):
+        calls.clear()
+        packed, scales, meta = port_fp.quantize_fp(x, q_bits, man, 512)
+        gs, groups, padded = port_fp.fp_groups(x.numel(), 512)
+        (args, ) = calls
+        assert args[:2] == (x.data_ptr(), 1)
+        assert args[2:4] == (packed.data_ptr(), scales.data_ptr())
+        assert args[4:9] == (x.numel(), padded, 512, q_bits, man)
+        assert args[9] == port_fp._fmt(q_bits, man)[3]
+        assert packed.shape == (padded * 512 * q_bits // 8, )
+        assert scales.shape == (padded, ) and meta[2] == groups
+    assert launches == [6, 12]

@@ -62,10 +62,10 @@ def test_quantize_param_tree_dequantizes_as_jax(q, dtype):
             getattr(torch, dtype)), jtree)
     jq = jax_linear.quantize_param_tree(jtree, jax_linear.QuantizationConfig(
         **q))
-    before = port_kfp.quantize_fp_codes.launches
+    before = port_kfp.quantize_fp_packed.launches
     pq = port_linear.quantize_param_tree(
         ttree, port_linear.QuantizationConfig(**q))
-    assert port_kfp.quantize_fp_codes.launches == before   # CPU: plain
+    assert port_kfp.quantize_fp_packed.launches == before   # CPU: plain
     n_quantized = apart = 0
     for (path, j), (_, p), (_, x) in zip(_leaves(jq), _leaves(pq),
                                          _leaves(ttree)):

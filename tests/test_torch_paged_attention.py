@@ -134,17 +134,17 @@ def test_wrapper_rejects_ragged_atom_count():
 EDH, EBS, EMAXB, ENB = 64, 8, 10, 40
 
 
-def _emu_batch(seed, atom, n_tiles, H, Hkv, dtype):
-    """Like :func:`_batch` at the kernel's head dim, tables of 10 pages of
-    8 (80 keys: two 64-key tiles), and a last tile whose rows sit past the
-    table (with a window they see no key at all).  q and caches rounded to
-    ``dtype``; torch tensors."""
+def _emu_batch(seed, atom, n_tiles, H, Hkv, dtype, dh=EDH):
+    """Like :func:`_batch` at a head dim the kernel takes (``dh``, 64 by
+    default), tables of 10 pages of 8 (80 keys: two 64-key tiles), and a
+    last tile whose rows sit past the table (with a window they see no key
+    at all).  q and caches rounded to ``dtype``; torch tensors."""
     rng = np.random.default_rng(seed)
     T = n_tiles * atom
     q, kc, vc = (torch.from_numpy(rng.standard_normal(shape).astype(
-        np.float32)).to(dtype) for shape in ((T, H, EDH),
-                                             (ENB, EBS, Hkv, EDH),
-                                             (ENB, EBS, Hkv, EDH)))
+        np.float32)).to(dtype) for shape in ((T, H, dh),
+                                             (ENB, EBS, Hkv, dh),
+                                             (ENB, EBS, Hkv, dh)))
     tables = np.zeros((T, EMAXB), np.int32)
     pos = np.zeros(T, np.int32)
     for i in range(n_tiles):
@@ -345,3 +345,108 @@ def test_cpu_path_counts_no_launch():
     port_pa.paged_attention_atoms(*batch, 4)
     assert (port_pa.paged_attention.launches,
             port_pa.paged_attention_atoms.launches) == before
+
+
+def _fake_launch_lib(monkeypatch):
+    """``_launch`` against a library that records its arguments: the C
+    entry's calls, and the scratch sizes ``torch.empty`` was asked for."""
+    calls, scratch = [], []
+
+    class Lib:
+        def ds_paged_attention(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(port_pa.PagedAttentionBuilder, "load",
+                        lambda self: Lib())
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: type("S", (), {"cuda_stream": 0})())
+    empty = torch.empty
+
+    def recording_empty(*shape, **kw):
+        t = empty(*shape, **kw)
+        scratch.append(t.numel())
+        return t
+
+    monkeypatch.setattr(torch, "empty", recording_empty)
+    return calls, scratch
+
+
+@pytest.mark.parametrize("dh", [80, 100])
+@pytest.mark.parametrize("dtype,atom,route", [
+    (torch.bfloat16, 1, "decode_split"), (torch.bfloat16, 4, "atom_mma"),
+    (torch.float32, 1, "fp32")])
+def test_launch_takes_head_widths_below_128(monkeypatch, dh, dtype, atom,
+                                            route):
+    """Head widths other than 64 and 128 (Phi's 80, OpenLLaMA-3B's 100)
+    reach the C entry on launch_plan's route, with the true Dh, the scale
+    Dh^-0.5 and a scratch of splits·T·H·(Dh + 2) fp32 values."""
+    calls, scratch = _fake_launch_lib(monkeypatch)
+    q, kc, vc, tables, pos = _emu_batch(0, atom, 4, 8, 2, dtype, dh=dh)
+    T = q.shape[0]
+    out, got = port_pa._launch(q, kc, vc, tables, pos, atom, 0)
+    monkeypatch.undo()
+    plan = port_pa.launch_plan(dtype, T, 8, 2, EMAXB, atom)
+    assert got == plan[0] == route
+    assert out.shape == (T, 8, dh)
+    (args, ) = calls
+    # ... T, H, Hkv, Dh, bs, maxb, atom, window, scale, dtype, route,
+    # splits, span, row tiles, stream
+    assert args[7:15] == (T, 8, 2, dh, EBS, EMAXB, atom, 0)
+    assert args[15] == pytest.approx(dh ** -0.5)
+    assert args[-5:-1] == (port_pa.ROUTES.index(route), *plan[1:])
+    want_scratch = [plan[1] * T * 8 * (dh + 2)] if plan[1] > 1 else []
+    assert scratch == want_scratch
+
+
+@pytest.mark.parametrize("dh", [130, 99, 0])
+def test_launch_refuses_odd_or_wide_heads(monkeypatch, dh):
+    """An odd head width, or one above 128 (B1's limit too), is refused
+    before anything reaches the card, with the limit in the message."""
+    calls, _ = _fake_launch_lib(monkeypatch)
+    q, kc, vc, tables, pos = _emu_batch(0, 1, 2, 4, 2, torch.bfloat16,
+                                        dh=dh)
+    with pytest.raises(ValueError, match="even head_dim of at most 128"):
+        port_pa._launch(q, kc, vc, tables, pos, 1, 0)
+    assert calls == []
+
+
+@pytest.mark.parametrize("dh", [80, 100])
+@pytest.mark.parametrize("atom", [1, 4])
+def test_tensor_core_emulation_at_padded_head_widths(dh, atom):
+    """The bf16 route's arithmetic at a head width its tile pads (the
+    padding adds exact zeros to q·k and is never stored) against the Pallas
+    kernel, interpreted, at the card tolerance."""
+    batch = _emu_batch(5, atom, 5, 4, 2, torch.bfloat16, dh=dh)
+    got = port_pa._emulate_split_kv_tensor_cores(*batch, atom)
+    want = _pallas_in(torch.bfloat16, *batch, atom, 0)
+    assert _worst_over_tol(got, want, torch.bfloat16) <= 1.0
+
+
+def _layout_batch():
+    q1, kc, vc, t1, p1 = _batch(3, 1, 4, 4, 2)      # 4 decode rows
+    q2, _, _, t2, p2 = _batch(4, 4, 3, 4, 2)        # 3 atom tiles
+    return _t(np.concatenate([q1, q2]), kc, vc, np.concatenate([t1, t2]),
+              np.concatenate([p1, p2]))
+
+
+@pytest.mark.parametrize("layout", [(0, 0), (4, 4)], ids=["rows", "split"])
+def test_disable_paged_switch_takes_gather_path(monkeypatch, layout):
+    """``DS_TPU_DISABLE_PALLAS_PAGED`` set: the ragged step's attention
+    calls neither paged wrapper and returns the gather path's output, each
+    row reading its own table (``ragged_forward.py:64-67, 82-107``)."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a paged kernel wrapper was called")
+
+    monkeypatch.setattr(port_rf, "paged_attention", refuse)
+    monkeypatch.setattr(port_rf, "paged_attention_atoms", refuse)
+    monkeypatch.setenv("DS_TPU_DISABLE_PALLAS_PAGED", "1")
+    batch = _layout_batch()
+    got = port_rf._paged_attention(*batch, BS, window=8, layout=layout)
+    want = port_pa.paged_attention_plain(*batch, window=8)
+    assert torch.equal(got, want)
+    monkeypatch.delenv("DS_TPU_DISABLE_PALLAS_PAGED")
+    with pytest.raises(AssertionError, match="paged kernel wrapper"):
+        port_rf._paged_attention(*batch, BS, window=8, layout=layout)

@@ -119,6 +119,123 @@ def test_quantizer_wrappers_on_the_cpu():
         port_kq.quantize_blockwise(torch.ones(4, dtype=torch.int32))
 
 
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("group_size", [128, 256])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_transposed_and_contiguous_inputs_match_jax(bits, group_size, dtype):
+    """A weight as ``nn.Linear`` keeps it ([out, in]) handed over as
+    ``p.t()`` (the transposed route's input on the card), and the same
+    values contiguous, both give JAX's ``quantize_blockwise`` of the [in,
+    out] kernel (XLA path) bit for bit."""
+    r = np.random.default_rng(bits + group_size)
+    p = r.standard_normal((512, 136)).astype(np.float32) * 3.0   # [out, in]
+    p[:group_size, 5] = 0.0                  # an all-zero group
+    p[:4, 7] = [127.0, 63.5, -0.5, 2.5]      # absmax 127: ties at int8
+    if dtype == "bfloat16":
+        p = _bf16(p)
+    kernel = np.ascontiguousarray(p.T)       # the JAX layout [in, out]
+    qj, sj, mj = jax_q.quantize_blockwise(
+        jnp.asarray(kernel, getattr(jnp, dtype)), bits, group_size,
+        use_pallas=False)
+    pt = torch.from_numpy(p.copy()).to(getattr(torch, dtype))
+    for x in (pt.t(), pt.t().contiguous()):
+        q, sc, meta = port_kq.quantize_blockwise(x, bits, group_size)
+        groups = meta[2]
+        assert meta[0] == tuple(mj[0]) == (136, 512) and groups == mj[2]
+        np.testing.assert_array_equal(q.numpy(), np.asarray(qj)[:groups])
+        np.testing.assert_array_equal(sc.numpy(), np.asarray(sj)[:groups])
+
+
+def test_quantize_route_rule():
+    """One rule on shapes, strides, dtype and address: ``p.t()`` of a
+    row-major weight is read as it lies where its groups tile ``out`` and
+    its rows are 16-byte aligned (all 225 ``nn.Linear`` weights of
+    Llama-2-7B, the fp32 LM head too); contiguous tensors are contiguous;
+    any other layout is copied."""
+    route = port_kq.quantize_route
+    bf16, fp16, fp32 = torch.bfloat16, torch.float16, torch.float32
+    p = torch.zeros(11008, 4096, dtype=bf16)             # [out, in]
+    t = p.t()
+    assert route(tuple(t.shape), t.stride(), bf16, 0, 128) == "transposed"
+    assert route(tuple(t.shape), t.stride(), fp16, 64, 256) == "transposed"
+    assert route(tuple(p.shape), p.stride(), bf16, 0, 128) == "contiguous"
+    assert route((8, 4096, 14336), (4096 * 14336, 14336, 1), bf16, 8,
+                 128) == "contiguous"                    # unaligned: still
+    # the fp32 LM head [32000, 4096] as its p.t(): 16-byte rows of 4096
+    assert route((4096, 32000), (1, 4096), fp32, 0, 128) == "transposed"
+    assert route((4098, 32000), (1, 4098), fp32, 0, 128) == "copy"
+    assert route((4100, 32000), (1, 4100), fp32, 0, 128) == "transposed"
+    assert route((4096, 11008), (1, 4096), torch.float64, 0, 128) == "copy"
+    assert route((4096, 11008), (1, 4096), bf16, 8, 128) == "copy"
+    assert route((4096, 11008), (1, 4096), bf16, 0, 2048) == "copy"
+    assert route((4096, 11000), (1, 4096), bf16, 0, 128) == "copy"  # out
+    assert route((4100, 11008), (1, 4100), bf16, 0, 128) == "copy"  # in
+    s = p[:, ::2]
+    assert route(tuple(s.shape), s.stride(), bf16, 0, 128) == "copy"
+    # group_size is clamped as the JAX package clamps it (300 → 256)
+    assert route(tuple(t.shape), t.stride(), bf16, 0, 300) == "transposed"
+
+
+def _fake_quant_lib(monkeypatch):
+    calls = []
+
+    class Lib:
+        def ds_quantize_blockwise(self, *args):
+            calls.append(("contiguous", args))
+            return 0
+
+        def ds_quantize_blockwise_t(self, *args):
+            calls.append(("transposed", args))
+            return 0
+
+    monkeypatch.setattr(port_kq.QuantizerBuilder, "load", lambda self: Lib())
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: __import__("contextlib").nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: type("S", (), {"cuda_stream": 0})())
+    return calls
+
+
+def test_launch_hands_a_transposed_weight_over_as_it_lies(monkeypatch):
+    """The transposed route hands the C entry p's own pointer, ``out`` and
+    ``in`` (p's shape), the group and qmax, and makes no contiguous copy;
+    the contiguous route hands the element and group counts; the copy
+    route copies first."""
+    calls = _fake_quant_lib(monkeypatch)
+    p = torch.randn(512, 136).to(torch.bfloat16)
+    copies = []
+    real = torch.Tensor.contiguous
+
+    def counted(self, *a, **k):
+        copies.append(tuple(self.shape))
+        return real(self, *a, **k)
+
+    monkeypatch.setattr(torch.Tensor, "contiguous", counted)
+    q, sc, meta, route = port_kq._launch_quantize(p.t(), 8, 128)
+    assert route == "transposed" and copies == []
+    (kind, args), = calls
+    assert kind == "transposed"
+    assert args[:2] == (p.data_ptr(), 1)
+    assert args[2:4] == (q.data_ptr(), sc.data_ptr())
+    assert args[4:8] == (512, 136, 128, 127.0)
+    assert q.shape == (136 * 4, 128) and sc.shape == (136 * 4, )
+    assert meta == ((136, 512), torch.bfloat16, 544)
+
+    calls.clear()
+    _, _, _, route = port_kq._launch_quantize(p, 4, 256)
+    (kind, args), = calls
+    assert (route, kind, copies) == ("contiguous", "contiguous", [])
+    assert args[0] == p.data_ptr() and args[4:8] == (512 * 136, 272, 256,
+                                                     7.0)
+
+    calls.clear()
+    s = p[:, ::2]
+    _, _, _, route = port_kq._launch_quantize(s, 8, 128)
+    (kind, args), = calls
+    assert (route, kind, copies) == ("copy", "contiguous", [(512, 68)])
+    assert args[0] != s.data_ptr()
+
+
 # -------------------------------------------------------------- serving
 _SM = dict(max_tracked_sequences=8, max_ragged_batch_size=16,
            max_ragged_sequence_count=8, max_context=64, block_size=8,
