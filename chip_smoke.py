@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--json PATH] [--profile DIR]
 
-Stages, run in the order 1-21; any failure exits non-zero:
+Stages, run in the order 1-24; any failure exits non-zero:
 
 1. environment: torch/CUDA/nvcc versions, the card's name and power limit;
 2. build: every ``deepspeed_tpu_torch/csrc/*.cu`` with nvcc for sm_90a
@@ -180,10 +180,32 @@ Stages, run in the order 1-21; any failure exits non-zero:
     Llama-2-7B's whole bf16 tree in the JAX layout (random from the seed)
     in FP6, FP12 and fp8: launches (one per leaf of two or more dims; none
     for fp8), ``pack_codes`` never called, wall and device time, resident
-    bytes and the worst relative error of ``dequantized()``.
+    bytes and the worst relative error of ``dequantized()``;
+22. BERT-base (BASELINE config 1) at full width and depth through
+    ``initialize()``: fp32 (products in full fp32), ZeRO 0, ``fusedadam``
+    lr 1e-4, B=64, S=128, 15 % of the tokens labelled, random weights and
+    data from the seed; the first step's update with the fused Adam kernel
+    against its plain version from the same state (one fp32 ulp), then 2
+    warm-up and 8 timed steps: losses, step ms, samples/s, TFLOP/s (6N +
+    12·L·S·D a token), MFU of 67 TFLOP/s fp32, peak memory, and launches
+    (the Adam kernel once a step, no other kernel);
+23. GPT-2 350M (BASELINE config 2) at ZeRO 1 on the NCCL world of one rank
+    (``init_distributed``): bench.py's config (B=8, S=1024, fp16 from a
+    scale of 2^16, remat, ``fusedadam``), 2 warm-up and 8 timed steps, and
+    the same config, seed and data at ZeRO 0 in the same process: losses
+    against ZeRO 0 (largest difference), step ms, tokens/s, MFU, peak
+    memory beside ZeRO 0's, skipped steps, the reduce-scatter and
+    all-gather calls a step from the comms logger, exact launches;
+24. Llama-2-7B width cut to stage 8's 8 layers (BASELINE config 3) at
+    ZeRO 2, bf16, gradient accumulation 2 (B=4, S=2048 a micro-step), on
+    NCCL: 1 warm-up and 3 timed steps, and the same at ZeRO 0: losses
+    against ZeRO 0, step ms, tokens/s, MFU, peak memory beside ZeRO 0's
+    and stage 8's, collectives and exact launches (flash 8 a micro-step,
+    Adam once a step).
 
 ``--profile DIR`` adds ``torch.profiler`` windows over serving (stages 4,
-14 and 15), over two training steps of stage 8 and two of stage 11, and
+14 and 15), over two training steps of stage 8, of stage 11, of stage 22
+and of each ZeRO stage of stages 23-24, and
 over three MSA-row Evoformer calls (stage 18's first shape, run right
 after the build, as the process's first window): device time by kind and
 the idle share.  A window that kept fewer device records of a kernel than
@@ -3848,6 +3870,356 @@ def stage_fp_quant(seed, smi):
 
 
 # ------------------------------------------------------------------ main
+# ----------------------------------------------------------- stages 22-24
+FP32_FLOPS = 67e12               # H100 SXM dense fp32 (no tensor cores)
+
+
+def _all_launches():
+    """Every kernel wrapper's launch counter, by wrapper name."""
+    from deepspeed_tpu_torch.ops.kernels import (block_sparse_attention,
+                                                 flash_attention, flash_bias,
+                                                 fp_quantizer,
+                                                 grouped_matmul, optimizers,
+                                                 paged_attention, quantizer)
+    fns = [flash_attention.flash_attention_fwd,
+           flash_attention.flash_attention_bwd_dq,
+           flash_attention.flash_attention_bwd_dkv,
+           optimizers.fused_adam_step, optimizers.fused_lamb_phase1,
+           optimizers.fused_lamb_phase2, optimizers.fused_lion_step,
+           paged_attention.paged_attention,
+           paged_attention.paged_attention_atoms, grouped_matmul.gmm,
+           quantizer.quantize_blockwise, quantizer.dequantize_blockwise,
+           flash_bias.flash_bias_fwd, flash_bias.flash_bias_bwd_dq,
+           flash_bias.flash_bias_bwd_dkv, flash_bias.flash_bias_bwd_dbias,
+           block_sparse_attention.block_sparse_attention_fwd,
+           fp_quantizer.quantize_fp_packed]
+    return {fn.__name__: fn for fn in fns}
+
+
+def _timed_steps(torch, engine, batches, warmup, timed):
+    """Warm-up and timed optimizer steps (each of ``gas`` micro-steps),
+    micro-step j on ``batches[j % len(batches)]``, with every launch
+    counter set to 0 just before: (losses of every micro-step, host seconds
+    of each timed step, launches, peak bytes over the timed steps)."""
+    counters = _all_launches()
+    gas = engine.gradient_accumulation_steps()
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    losses, times = [], []
+    for i in range(warmup + timed):
+        if i == warmup:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        for _ in range(gas):
+            loss = engine(*batches[len(losses) % len(batches)])
+            engine.backward(loss)
+            engine.step()
+            losses.append(loss)
+        torch.cuda.synchronize()
+        if i >= warmup:
+            times.append(time.perf_counter() - t)
+    launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    return ([x.item() for x in losses], times, launches,
+            torch.cuda.max_memory_allocated())
+
+
+def _train_kind(name):
+    """A training window's kernel kinds (stages 22-24)."""
+    if "flash_fwd" in name:
+        return "flash_fwd"
+    if "flash_bwd" in name:
+        return "flash_bwd"
+    if "adam_kernel" in name:
+        return "adam"
+    if "nccl" in name.lower():
+        return "nccl"
+    return "matmul" if _is_matmul(name) else "other"
+
+
+def _profile_steps(torch, engine, batches, stem, profile_dir, smi):
+    """Two optimizer steps under ``torch.profiler``."""
+    def body():
+        for j in range(2 * engine.gradient_accumulation_steps()):
+            engine.backward(engine(*batches[j % len(batches)]))
+            engine.step()
+    return _profile_window(stem, body, _train_kind, profile_dir, smi)
+
+
+def _rates(cfg_n, L, S, D, tokens_per_step, times, peak_flops):
+    step_s = sum(times) / len(times)
+    flops_tok = 6 * cfg_n + 12 * L * S * D
+    tok_s = tokens_per_step / step_s
+    return step_s, tok_s, tok_s * flops_tok / 1e12, \
+        tok_s * flops_tok / peak_flops, flops_tok
+
+
+BERT_CONFIG = {"train_micro_batch_size_per_gpu": 64,
+               "gradient_accumulation_steps": 1,
+               "optimizer": {"type": "fusedadam", "params": {"lr": 1e-4}},
+               "zero_optimization": {"stage": 0}}
+
+
+def stage_bert_train(seed, smi, profile_dir=None):
+    """BASELINE config 1: BERT-base, ZeRO 0, fp32, fusedadam."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.bert import (BertModel, bert_base,
+                                                 param_count)
+    B, S, warmup, timed = 64, 128, 2, 8
+    cfg = bert_base()
+    t0 = time.perf_counter()
+    engine = deepspeed_tpu_torch.initialize(
+        model=BertModel(cfg, device="meta"), config=dict(BERT_CONFIG))[0]
+    engine.initialize_parameters(seed)
+    rng = np.random.default_rng(seed + 22)
+    ids = rng.integers(0, cfg.vocab_size, size=(B, S))
+    labels = np.where(rng.random((B, S)) < 0.15, ids, -100)
+    batch = (torch.from_numpy(ids).cuda(), torch.from_numpy(labels).cuda())
+    N = param_count(cfg)
+    log(f"[bert] BERT-base ({cfg.num_hidden_layers} × {cfg.hidden_size}, "
+        f"{cfg.num_attention_heads} heads, FFN {cfg.intermediate_size}, "
+        f"vocab {cfg.vocab_size}, {N:,} params), fp32, ZeRO 0: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB of state, built "
+        f"in {time.perf_counter() - t0:.1f} s; B={B}, S={S}, "
+        f"{int((labels >= 0).sum())} of {B * S} tokens labelled")
+    # the first step's update, kernel against plain, from the same state
+    loss = engine(*batch)
+    engine.backward(loss)
+    st = engine.opt_state
+    snap = [t.clone() for t in (engine.params, st.exp_avg, st.exp_avg_sq)]
+    count = st.count
+    engine.step(use_kernel=True)
+    kern = engine.params.clone()
+    for t, v in zip((engine.params, st.exp_avg, st.exp_avg_sq), snap):
+        t.copy_(v)
+    st.count = count
+    engine.micro_steps -= 1
+    engine.global_steps -= 1
+    engine.global_samples -= engine.train_batch_size()
+    engine._acc_fresh = False
+    engine.step(use_kernel=False)
+    plain = engine.params
+    err = (kern - plain).abs().max().item()
+    ok = bool(((kern - plain).abs() <= ADAM_RTOL * plain.abs()).all())
+    log(f"[bert] first step: loss {loss.item():.6f}; master after the B2 "
+        f"step against the plain step: max |Δ| {err:.3e} (tol 2^-23·|ref|, "
+        f"{'held' if ok else 'FAILED'})")
+    if not ok:
+        raise AssertionError("BERT step: B2 differs from its plain version")
+    del snap, kern
+    losses, times, launches, peak = _timed_steps(torch, engine, [batch],
+                                                 warmup, timed)
+    step_s, tok_s, tflops, mfu, flops_tok = _rates(
+        N, cfg.num_hidden_layers, S, cfg.hidden_size, B * S, times,
+        FP32_FLOPS)
+    log(f"[bert] losses (2 warm-up, then {timed} timed): "
+        + ", ".join(f"{x:.4f}" for x in losses))
+    log(f"[bert] step ms " + ", ".join(f"{t * 1e3:.1f}" for t in times)
+        + f" | mean {step_s * 1e3:.2f} ms, {B / step_s:.1f} samples/s, "
+        f"{tflops:.2f} TFLOP/s ({flops_tok / 1e9:.4f} GFLOP/token = 6N + "
+        f"12·L·S·D), MFU {mfu:.4f} of 67 TFLOP/s fp32 | peak memory "
+        f"{peak / 2**30:.2f} GiB | {smi}")
+    log(f"[bert] kernel launches in the {warmup + timed} steps: {launches}")
+    want = {"fused_adam_step": warmup + timed}
+    if launches != want:
+        raise AssertionError(f"kernel launches {launches}, want {want}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"losses not finite and falling: {losses}")
+    result = dict(losses=losses, step_ms=[t * 1e3 for t in times],
+                  step_ms_mean=step_s * 1e3, samples_per_s=B / step_s,
+                  tflops=tflops, mfu=mfu, peak_bytes=peak,
+                  launches=launches, flops_per_token=flops_tok,
+                  first_step_err=err)
+    if profile_dir:
+        result["profile"] = _profile_steps(torch, engine, [batch],
+                                           "bert_profile", profile_dir, smi)
+    del engine, plain
+    _free(torch)
+    return result
+
+
+def _zero_pair(torch, make, batches, stages, warmup, timed, label, smi,
+               profile_dir=None):
+    """The same config, seed and data (micro-step j on ``batches[j %
+    len(batches)]``) at each ZeRO stage in ``stages`` (the first is
+    measured): losses, times, launches, peak, comm calls, the fp32 master
+    after the timed steps, on the host (and, with ``profile_dir``, two
+    profiled steps of each).  Returns them, the largest loss difference
+    and whether the two masters are equal bit for bit."""
+    from deepspeed_tpu_torch import comm
+    out, masters = {}, {}
+    for stage in stages:
+        engine = make(stage)
+        comm.comms_logger.reset()
+        losses, times, launches, peak = _timed_steps(torch, engine, batches,
+                                                     warmup, timed)
+        calls = comm.comms_logger.counts()
+        masters[stage] = engine.fp32_params()[:engine.zero_plan.numel].cpu()
+        out[stage] = dict(losses=losses, times=times, launches=launches,
+                          peak=peak, calls=calls,
+                          skipped=engine.skipped_steps,
+                          plan=engine.zero_plan.describe(
+                              param_bytes=engine.params.element_size(),
+                              grad_bytes=engine.grad_acc.element_size(),
+                              master=engine.master is not None))
+        if profile_dir:
+            out[stage]["profile"] = _profile_steps(
+                torch, engine, batches, f"{label}_zero{stage}_profile",
+                profile_dir, smi)
+        del engine
+        _free(torch)
+    a, b = out[stages[0]], out[stages[1]]
+    diff = max(abs(x - y) for x, y in zip(a["losses"], b["losses"]))
+    same = torch.equal(masters[stages[0]], masters[stages[1]])
+    log(f"[{label}] ZeRO {stages[0]} against ZeRO {stages[1]}, same config,"
+        f" seed and data ({len(batches)} batches in turn): largest loss "
+        f"difference {diff:.3e} over {len(a['losses'])} micro-steps; fp32 "
+        f"masters after the last step "
+        f"{'bit-equal' if same else 'DIFFER'} | {smi}")
+    return out, diff, same
+
+
+def stage_gpt2_zero1(seed, smi, profile_dir=None):
+    """BASELINE config 2: GPT-2 350M, ZeRO 1, fp16, fusedadam, on NCCL."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models.gpt2 import gpt2_350m, param_count
+    B, S, warmup, timed = 8, 1024, 2, 8
+    cfg = gpt2_350m()
+    cdb = deepspeed_tpu_torch.init_distributed(dist_backend="nccl")
+    if cdb.name != "nccl" or comm.get_world_size() != 1:
+        raise AssertionError(f"comm world {cdb.name}, "
+                             f"{comm.get_world_size()} ranks")
+    config = dict(GPT2_CONFIG, optimizer={"type": "fusedadam",
+                                          "params": {"lr": 1e-4}},
+                  comms_logger={"enabled": True})
+    rng = np.random.default_rng(seed + 23)
+    batches = [(ids, ids) for ids in (torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(B, S))).cuda() for _ in range(2))]
+
+    def make(stage):
+        return _gpt2_engine(torch, seed, dict(
+            config, zero_optimization={"stage": stage}))[0]
+
+    runs, diff, same = _zero_pair(torch, make, batches, (1, 0), warmup,
+                                  timed, "gpt2-zero1", smi, profile_dir)
+    z = runs[1]
+    N, L, D = param_count(cfg), cfg.num_hidden_layers, cfg.hidden_size
+    step_s, tok_s, tflops, mfu, flops_tok = _rates(N, L, S, D, B * S,
+                                                   z["times"], BF16_FLOPS)
+    steps = warmup + timed
+    per_step = {k: v / steps for k, v in z["calls"].items()}
+    log(f"[gpt2-zero1] GPT-2 350M, fp16, ZeRO 1 on NCCL (world "
+        f"{comm.get_world_size()}), fusedadam: losses "
+        + ", ".join(f"{x:.4f}" for x in z["losses"]))
+    log(f"[gpt2-zero1] step ms " + ", ".join(f"{t * 1e3:.1f}"
+                                            for t in z["times"])
+        + f" | mean {step_s * 1e3:.1f} ms, {tok_s:.1f} tokens/s, MFU "
+        f"{mfu:.4f} (989 TFLOP/s fp16) | peak memory "
+        f"{z['peak'] / 2**30:.2f} GiB (ZeRO 0: "
+        f"{runs[0]['peak'] / 2**30:.2f}) | {z['skipped']} of {steps} steps "
+        f"skipped | collectives a step {per_step} | {smi}")
+    log(f"[gpt2-zero1] launches in {steps} steps: {z['launches']}; plan "
+        f"{z['plan']['shard_numel']:,} elements a shard, sharded "
+        f"{z['plan']['sharded_bytes'] / 2**30:.2f} GiB, replicated "
+        f"{z['plan']['replicated_bytes'] / 2**30:.2f} GiB")
+    stepped = steps - z["skipped"]
+    want = dict(flash_attention_fwd=2 * L * steps,   # remat: twice a layer
+                flash_attention_bwd_dq=L * steps,
+                flash_attention_bwd_dkv=L * steps, fused_adam_step=stepped)
+    if z["launches"] != want:
+        raise AssertionError(f"kernel launches {z['launches']}, want {want}")
+    if z["calls"].get("reduce_scatter_fn") != steps or \
+            z["calls"].get("allgather_fn") != stepped:
+        raise AssertionError(f"collectives {z['calls']} for {steps} steps")
+    # one rank: the reduce-scatter and the in-place gather are copies, so
+    # ZeRO 1 is ZeRO 0 bit for bit (runtime/engine.py)
+    if not all(np.isfinite(z["losses"])) or diff != 0 or not same:
+        raise AssertionError(f"ZeRO 1 apart from ZeRO 0: losses by {diff}, "
+                             f"masters bit-equal {same}")
+    return dict(losses=z["losses"], losses_zero0=runs[0]["losses"],
+                max_loss_diff=diff, masters_equal=same,
+                step_ms=[t * 1e3 for t in z["times"]],
+                step_ms_mean=step_s * 1e3, tokens_per_s=tok_s, mfu=mfu,
+                peak_bytes=z["peak"], peak_bytes_zero0=runs[0]["peak"],
+                skipped=z["skipped"], calls_per_step=per_step,
+                launches=z["launches"], plan=z["plan"],
+                step_ms_zero0=sum(runs[0]["times"]) / timed * 1e3,
+                profile={s: r.get("profile") for s, r in runs.items()})
+
+
+def stage_llama_zero2(seed, smi, zero0_peak, profile_dir=None):
+    """BASELINE config 3 at stage 8's cut: Llama-2-7B width, 8 layers,
+    ZeRO 2, bf16, gradient accumulation 2."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models.llama import (LlamaModel, llama_7b,
+                                                  param_count)
+    B, S, L, gas, warmup, timed = 4, 2048, 8, 2, 1, 3
+    cfg = llama_7b(num_hidden_layers=L, remat=False, head_dtype="bfloat16")
+    config = dict(TRAIN_CONFIG, gradient_accumulation_steps=gas,
+                  comms_logger={"enabled": True})
+    rng = np.random.default_rng(seed + 24)
+    # a different batch for each micro-step of a step
+    batches = [(ids, ids) for ids in (torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(B, S))).cuda() for _ in range(gas))]
+
+    def make(stage):
+        engine = deepspeed_tpu_torch.initialize(
+            model=LlamaModel(cfg, device="meta"),
+            config=dict(config, zero_optimization={"stage": stage}))[0]
+        engine.initialize_parameters(seed)
+        return engine
+
+    runs, diff, same = _zero_pair(torch, make, batches, (2, 0), warmup,
+                                  timed, "llama-zero2", smi, profile_dir)
+    z = runs[2]
+    steps = warmup + timed
+    step_s, tok_s, tflops, mfu, flops_tok = _rates(
+        param_count(cfg), L, S, cfg.hidden_size, gas * B * S, z["times"],
+        BF16_FLOPS)
+    log(f"[llama-zero2] Llama-2-7B width, {L} layers, bf16, ZeRO 2 on NCCL "
+        f"(world {comm.get_world_size()}), gradient accumulation {gas}: "
+        f"losses " + ", ".join(f"{x:.4f}" for x in z["losses"]))
+    log(f"[llama-zero2] step ms (2 micro-steps) " + ", ".join(
+        f"{t * 1e3:.1f}" for t in z["times"])
+        + f" | mean {step_s * 1e3:.1f} ms, {tok_s:.1f} tokens/s, MFU "
+        f"{mfu:.4f} | peak memory {z['peak'] / 2**30:.2f} GiB (ZeRO 0 with "
+        f"the same accumulation {runs[0]['peak'] / 2**30:.2f}, stage 8's "
+        f"ZeRO 0 without it {zero0_peak / 2**30:.2f}) | collectives "
+        f"{z['calls']} in {steps} steps | {smi}")
+    log(f"[llama-zero2] launches in {steps} steps: {z['launches']}")
+    want = {"flash_attention_fwd": L * gas * steps,
+            "flash_attention_bwd_dq": L * gas * steps,
+            "flash_attention_bwd_dkv": L * gas * steps,
+            "fused_adam_step": steps}
+    if z["launches"] != want:
+        raise AssertionError(f"kernel launches {z['launches']}, want {want}")
+    if z["calls"].get("reduce_scatter_fn") != gas * steps or \
+            z["calls"].get("allgather_fn") != steps:
+        raise AssertionError(f"collectives {z['calls']} for {steps} steps")
+    # one rank: each micro-step's reduce-scatter is a copy added in fp32
+    # as ZeRO 0 adds it, so ZeRO 2 is ZeRO 0 bit for bit
+    if not all(np.isfinite(z["losses"])) or diff != 0 or not same:
+        raise AssertionError(f"ZeRO 2 apart from ZeRO 0: losses by {diff}, "
+                             f"masters bit-equal {same}")
+    return dict(losses=z["losses"], losses_zero0=runs[0]["losses"],
+                max_loss_diff=diff, masters_equal=same,
+                step_ms=[t * 1e3 for t in z["times"]],
+                step_ms_mean=step_s * 1e3, tokens_per_s=tok_s, mfu=mfu,
+                peak_bytes=z["peak"], peak_bytes_zero0=runs[0]["peak"],
+                calls=z["calls"], launches=z["launches"], plan=z["plan"],
+                step_ms_zero0=sum(runs[0]["times"]) / timed * 1e3,
+                profile={s: r.get("profile") for s, r in runs.items()})
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3906,6 +4278,10 @@ def main():
     sparse_kernels = stage_sparse_kernels(args.seed)
     sparse = stage_sparse_attention(args.seed, smi)
     fpq = stage_fp_quant(args.seed, smi)
+    bert = stage_bert_train(args.seed, smi, args.profile)
+    gpt2_zero1 = stage_gpt2_zero1(args.seed, smi, args.profile)
+    llama_zero2 = stage_llama_zero2(args.seed, smi, train["peak_bytes"],
+                                    args.profile)
 
     entries = []
     for wrapper, case in (("paged_attention", "serve_decode"),
@@ -3951,14 +4327,26 @@ def main():
              ms_dkv=flash["ms_dkv"], plain_ms=flash["plain_ms_bwd"],
              bound_ms=flash["bound_bwd"][0], bound_by=flash["bound_bwd"][1],
              library_ms=flash["library_ms_bwd"], tflops=flash["tflops_bwd"]),
+        # launches: stage 8's run; the BERT (stage 22), ZeRO-1 (23) and
+        # ZeRO-2 (24) paths' counts under their own keys, each counted
+        # from 0 around its run
         dict(name="fused_adam_step", route="cuda",
              source="deepspeed_tpu_torch/csrc/optimizers.cu",
              replaces=src + "optimizers.py:100",
              launches=launches["fused_adam_step"], max_abs_err=adam["err"],
              ms=adam["ms"], plain_ms=adam["plain_ms"],
              bound_ms=adam["bound"][0], bound_by=adam["bound"][1],
-             library_ms=adam["library_ms"]),
+             library_ms=adam["library_ms"],
+             launches_bert=bert["launches"]["fused_adam_step"],
+             launches_gpt2_zero1=gpt2_zero1["launches"]["fused_adam_step"],
+             launches_llama_zero2=llama_zero2["launches"][
+                 "fused_adam_step"]),
     ]
+    entries[-3]["launches_llama_zero2"] = llama_zero2["launches"][
+        "flash_attention_fwd"]
+    entries[-2]["launches_llama_zero2"] = (
+        llama_zero2["launches"]["flash_attention_bwd_dq"] +
+        llama_zero2["launches"]["flash_attention_bwd_dkv"])
     lamb = next(r for r in gpt2_kernels if r["case"] == "lamb_float32")
     lion = next(r for r in gpt2_kernels if r["case"] == "lion_float32")
     opt_src = "deepspeed_tpu_torch/csrc/optimizers.cu"
@@ -4109,9 +4497,12 @@ def main():
                            moe_quant_step=moe_quant_step,
                            evo_kernels=evo_kernels, evoformer=evo,
                            sparse_kernels=sparse_kernels, sparse=sparse,
-                           fp_quant=fpq,
+                           fp_quant=fpq, bert=bert, gpt2_zero1=gpt2_zero1,
+                           llama_zero2=llama_zero2,
                            seconds=time.perf_counter() - t_start),
                       f, indent=1, default=str)
+    from deepspeed_tpu_torch import comm
+    comm.destroy_process_group()
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": entries}))

@@ -10,9 +10,10 @@ unless the caller passes ``device="cpu"``.
 Ported so far: FastGen-v2 serving of the Llama family and Mixtral
 (``inference.v2.build_hf_engine``, with the paged-attention and
 grouped-matmul kernels; int8/int4 weights with the blockwise quantizer);
-training of Llama and GPT-2 through :func:`initialize` at ZeRO stage 0, in
-bf16, fp16 (dynamic loss scaling) or fp32 (with the flash-attention,
-fused-Adam, LAMB and Lion kernels); Evoformer attention (the bias flash
+training of Llama, GPT-2 and BERT through :func:`initialize` at ZeRO
+stages 0-2 over ``torch.distributed`` (the comm layer, ``comm/``), in bf16,
+fp16 (dynamic loss scaling) or fp32 (with the flash-attention, fused-Adam,
+LAMB and Lion kernels); Evoformer attention (the bias flash
 kernels); block-sparse attention (``ops.sparse_attention``, the
 block-sparse kernel); FP6/FP12 weight quantization (``ops.fp_quantizer``,
 ``linear``, the FP grid quantize kernel).  Every Pallas kernel of the JAX
@@ -20,6 +21,8 @@ package has its counterpart here.
 """
 
 __version__ = "0.1.0"
+
+from .comm import init_distributed  # noqa: E402  (JAX __init__.py:206)
 
 
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,
@@ -31,25 +34,26 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     training_dataloader, lr_scheduler)``; the dataloader is None.
 
     ``model``: a ``torch.nn.Module`` whose ``forward`` returns the loss when
-    given labels (``models.llama.LlamaModel``, ``models.gpt2.GPT2Model``).
+    given labels (``models.llama.LlamaModel``, ``models.gpt2.GPT2Model``,
+    ``models.bert.BertModel``).
     ``optimizer``: None (the config's), or the port's ``FusedAdam``,
     ``FusedLamb``, ``FusedLion`` or ``sgd`` transform.  ``model_parameters``: an
     optional ``{name: tensor}`` of initial (fp32) weights; without it the
     module's own values are used, or, for a module built on the meta
     device, ``engine.initialize_parameters(seed)`` draws them.
     ``device``: None means the CUDA card (raises without one); the CPU runs
-    only when named.  ``mesh_param``, ``dist_init_required=True`` and a
-    ``distributed_port`` other than the default concern the distributed
-    layer, and ``collate_fn`` the dataloader, which this port does not
-    have yet: they raise."""
+    only when named.  The comm world comes up through
+    :func:`init_distributed` (NCCL on the card, gloo on the CPU;
+    ``distributed_port`` is its default ``MASTER_PORT``) when
+    ``dist_init_required=True``, when ``WORLD_SIZE`` (or mpirun's) says
+    more than one rank, or when a world on the device's backend is up;
+    ``dist_init_required=False`` needs a world already up.  Otherwise the
+    engine is one rank on a local group and pins no backend.
+    ``mesh_param``: ``(dp, sp)`` as in JAX; dp must be the world size, and
+    sp > 1 raises item 9.  ``collate_fn`` (the dataloader) raises."""
     from .runtime.config import DeepSpeedConfig
     from .runtime.engine import DeepSpeedEngine
-    from .utils.not_ported import not_ported
 
-    if mesh_param is not None or dist_init_required or \
-            distributed_port != 29500:
-        raise not_ported("initialize(mesh_param=..., dist_init_required="
-                         "True, distributed_port=...)", 2)
     if config is None:
         config = config_params
     if config is None and args is not None:
@@ -60,6 +64,8 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                              lr_scheduler=lr_scheduler,
                              collate_fn=collate_fn,
                              config=DeepSpeedConfig(config), mpu=mpu,
-                             device=device)
+                             device=device, mesh_param=mesh_param,
+                             dist_init_required=dist_init_required,
+                             distributed_port=distributed_port)
     return (engine, engine.optimizer, engine.training_dataloader,
             engine.lr_scheduler)

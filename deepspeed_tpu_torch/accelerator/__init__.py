@@ -1,3 +1,8 @@
-from .real_accelerator import full_fp32_matmul, resolve_device
+from .abstract_accelerator import DeepSpeedAccelerator
+from .real_accelerator import (accelerator_for, full_fp32_matmul,
+                               get_accelerator, resolve_device,
+                               set_accelerator, set_accelerator_name)
 
-__all__ = ["full_fp32_matmul", "resolve_device"]
+__all__ = ["DeepSpeedAccelerator", "accelerator_for", "full_fp32_matmul",
+           "get_accelerator", "resolve_device", "set_accelerator",
+           "set_accelerator_name"]

@@ -1,13 +1,63 @@
-"""Device selection for the port's entry points.
+"""Device selection for the port's entry points, and the accelerator
+singleton (reference ``accelerator/real_accelerator.py:51``).
 
 The CUDA card is the default.  The CPU runs only when a caller names it
 (``device="cpu"``); asking for CUDA on a machine without a card raises
-instead of falling back.
+instead of falling back.  :func:`resolve_device` never reads
+``DS_ACCELERATOR``: that variable picks the singleton of
+:func:`get_accelerator` (the comm backend's name, events, memory
+statistics), not where an entry point runs.
 """
 
 import contextlib
+import os
 
 import torch
+
+_ACCELERATOR_NAMES = ("cuda", "cpu")
+_accelerator = None
+
+
+def get_accelerator():
+    """The accelerator singleton: ``DS_ACCELERATOR`` ("cuda" or "cpu") when
+    set, else the card when torch sees one, else the CPU."""
+    if _accelerator is None:
+        name = os.environ.get("DS_ACCELERATOR")
+        if name is None:
+            name = "cuda" if torch.cuda.is_available() else "cpu"
+        set_accelerator_name(name)
+    return _accelerator
+
+
+def set_accelerator_name(name):
+    """Install the singleton by name."""
+    global _accelerator
+    if name not in _ACCELERATOR_NAMES:
+        raise ValueError(f"DS_ACCELERATOR must be one of "
+                         f"{_ACCELERATOR_NAMES}, got {name!r}")
+    if name == "cuda":
+        from .cuda_accelerator import CUDA_Accelerator
+        _accelerator = CUDA_Accelerator()
+    else:
+        from .cpu_accelerator import CPU_Accelerator
+        _accelerator = CPU_Accelerator()
+    return _accelerator
+
+
+def set_accelerator(accel):
+    global _accelerator
+    _accelerator = accel
+    return _accelerator
+
+
+def accelerator_for(device):
+    """The accelerator of a ``torch.device`` (an engine's own device, which
+    may differ from the singleton's when the CPU was asked for by name)."""
+    if torch.device(device).type == "cuda":
+        from .cuda_accelerator import CUDA_Accelerator
+        return CUDA_Accelerator()
+    from .cpu_accelerator import CPU_Accelerator
+    return CPU_Accelerator()
 
 
 def resolve_device(device=None):

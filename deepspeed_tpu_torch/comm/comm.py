@@ -1,0 +1,491 @@
+"""deepspeed_tpu_torch.comm — the communication facade (the port of
+``deepspeed_tpu/comm/comm.py``; reference ``deepspeed/comm/comm.py``).
+
+``init_distributed`` brings up a ``torch.distributed`` world (NCCL on the
+card, gloo on the CPU; rendezvous through ``MASTER_ADDR``/``MASTER_PORT``/
+``RANK``/``WORLD_SIZE``, or ``OMPI_COMM_WORLD_*`` under mpirun; with none
+of them set, a one-rank world, as the JAX facade builds a one-process
+mesh).  The collectives keep the JAX facade's names, aliases and per-rank
+results (``backend.py``).  Every collective is wrapped by :func:`timed_op`,
+which feeds the comms logger when the ``comms_logger`` config enables it.
+
+Not ported: the collectives engine (``set_collectives_engine``, the
+``comm_optimizations`` dispatch; ROADMAP queue A item 7) and the host
+object channel ``send_obj``/``recv_obj`` of the pipeline (item 9).
+"""
+
+import datetime
+import functools
+import inspect
+import os
+
+import torch
+import torch.distributed as dist
+
+from ..utils.comms_logging import CommsLogger, get_msg_size_from_args
+from ..utils.logging import logger
+from ..utils.not_ported import not_ported
+from .backend import ProcessGroup, TorchBackend
+from .reduce_op import ReduceOp
+
+cdb = None  # the current backend (reference comm/comm.py:41)
+comms_logger = CommsLogger()
+
+
+def is_initialized():
+    return cdb is not None and cdb.initialized
+
+
+def _assert_initialized():
+    if not is_initialized():
+        init_distributed()
+
+
+# a local group's collectives touch no torch.distributed world
+_local_backend = TorchBackend(name="local")
+
+
+def _backend(group):
+    """The backend that runs a collective over ``group``: a local (one-rank)
+    group needs no world; any other brings the world up if it is not."""
+    if group is not None and group.local:
+        return _local_backend
+    _assert_initialized()
+    return cdb
+
+
+def env_world_size():
+    """The world size the environment describes (a launcher's
+    ``WORLD_SIZE``, or mpirun's ``OMPI_COMM_WORLD_SIZE``); 1 without
+    either."""
+    env = os.environ
+    return int(env.get("WORLD_SIZE", env.get("OMPI_COMM_WORLD_SIZE", "1")))
+
+
+def world_is_up(backend):
+    """Whether a ``torch.distributed`` world is up that an engine on
+    ``backend`` must join: one on that backend, or one of more than one
+    rank on any (which :func:`init_distributed` then refuses)."""
+    if not dist.is_initialized():
+        return False
+    return dist.get_backend() == backend or dist.get_world_size() > 1
+
+
+def set_collectives_engine(engine):
+    """The JAX facade's pluggable collectives engine (quantized and
+    hierarchical variants) is ROADMAP queue A item 7; ``None`` (no engine)
+    is what the port always runs."""
+    if engine is not None:
+        raise not_ported("set_collectives_engine (comm/collectives, "
+                         "quantized and hierarchical collectives)", 7)
+
+
+def get_collectives_engine():
+    return None
+
+
+def configure(config=None, enabled=None, prof_all=None, prof_ops=None,
+              verbose=None, debug=None):
+    """Comms-logger settings from a parsed config or by keyword."""
+    if config is not None and getattr(config, "comms_config", None) \
+            is not None:
+        comms_logger.configure(config.comms_config)
+    if enabled is not None:
+        comms_logger.enabled = enabled
+    if prof_all is not None:
+        comms_logger.prof_all = prof_all
+    if prof_ops is not None:
+        comms_logger.prof_ops = prof_ops
+    if verbose is not None:
+        comms_logger.verbose = verbose
+    if debug is not None:
+        comms_logger.debug = debug
+
+
+def _event(x):
+    from ..accelerator import accelerator_for
+    ev = accelerator_for(x.device).Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
+def timed_op(func):
+    """Record the op in the comms logger when it is on for this op's name:
+    events around the launch, the message size and the group's size."""
+    sig = inspect.signature(func)
+
+    @functools.wraps(func)
+    def wrapper(*args, log_name=None, **kwargs):
+        name = log_name or func.__name__
+        if not comms_logger.should_log(name):
+            return func(*args, **kwargs)
+        bound = sig.bind_partial(*args, **kwargs).arguments
+        x = bound.get("tensor", bound.get("input_tensor"))  # *_fn's input
+        if not isinstance(x, torch.Tensor):
+            return func(*args, **kwargs)
+        start = _event(x)
+        result = func(*args, **kwargs)
+        end = _event(x)
+        group = bound.get("group")
+        ws = group.size() if group is not None else get_world_size()
+        comms_logger.record(name, get_msg_size_from_args(x), ws, start, end)
+        return result
+
+    return wrapper
+
+
+def mpi_discovery(distributed_port=29500, verbose=True):
+    """Rank, world size and local rank from mpirun's ``OMPI_COMM_WORLD_*``
+    variables, written to ``RANK``/``WORLD_SIZE``/``LOCAL_RANK``
+    (reference ``comm/comm.py:688``).  ``MASTER_ADDR`` must come from the
+    environment unless every rank is on this host (then 127.0.0.1);
+    ``MASTER_PORT`` defaults to ``distributed_port``.  Returns False when
+    mpirun's variables are absent."""
+    env = os.environ
+    if "OMPI_COMM_WORLD_RANK" not in env:
+        return False
+    rank = int(env["OMPI_COMM_WORLD_RANK"])
+    world = int(env["OMPI_COMM_WORLD_SIZE"])
+    local_rank = int(env.get("OMPI_COMM_WORLD_LOCAL_RANK", 0))
+    local_size = int(env.get("OMPI_COMM_WORLD_LOCAL_SIZE", world))
+    if "MASTER_ADDR" not in env:
+        if local_size != world:
+            raise RuntimeError(
+                "launched under mpirun across hosts without MASTER_ADDR: "
+                "export MASTER_ADDR=<rank-0 host> (mpirun -x MASTER_ADDR)")
+        env["MASTER_ADDR"] = "127.0.0.1"
+    env.setdefault("MASTER_PORT", str(distributed_port))
+    env["RANK"], env["WORLD_SIZE"] = str(rank), str(world)
+    env["LOCAL_RANK"] = str(local_rank)
+    if verbose:
+        logger.info(f"mpi_discovery: rank {rank} of {world} (local "
+                    f"{local_rank}) @ {env['MASTER_ADDR']}:"
+                    f"{env['MASTER_PORT']}")
+    return True
+
+
+def _timeout(timeout):
+    if timeout is None or isinstance(timeout, datetime.timedelta):
+        return timeout
+    return datetime.timedelta(seconds=float(timeout))
+
+
+def init_distributed(dist_backend=None, auto_mpi_discovery=True,
+                     distributed_port=29500, verbose=True, timeout=None,
+                     init_method=None, dist_init_required=None, config=None,
+                     rank=-1, world_size=-1, mesh=None):
+    """Bring up the ``torch.distributed`` world and the backend over it
+    (reference ``comm/comm.py:619``).  ``dist_backend``: "nccl" or "gloo"
+    (default: the accelerator's, ``get_accelerator()
+    .communication_backend_name()``).  A world torch already has is
+    adopted; ``dist_init_required=False`` requires one.  A failed init
+    raises: nothing falls back to another backend."""
+    global cdb
+    if mesh is not None:
+        raise not_ported("init_distributed(mesh=...)", 9)
+    if is_initialized():
+        if dist_backend is not None and dist_backend != cdb.name:
+            raise RuntimeError(f"the comm world runs {cdb.name}; "
+                               f"{dist_backend} asked for")
+        configure(config=config)
+        return cdb
+    if not dist.is_initialized():
+        if dist_init_required is False:
+            raise RuntimeError("init_distributed(dist_init_required=False) "
+                               "but torch.distributed has no process group")
+        if dist_backend is None:
+            from ..accelerator import get_accelerator
+            dist_backend = get_accelerator().communication_backend_name()
+        env = os.environ
+        if auto_mpi_discovery and "RANK" not in env and rank < 0:
+            mpi_discovery(distributed_port=distributed_port, verbose=verbose)
+        if rank < 0:
+            rank = int(env.get("RANK", 0))
+        if world_size < 0:
+            world_size = int(env.get("WORLD_SIZE", 1))
+        if dist_backend == "nccl":
+            torch.cuda.set_device(int(env.get("LOCAL_RANK", 0)))
+        kw = dict(rank=rank, world_size=world_size)
+        if timeout is not None:
+            kw["timeout"] = _timeout(timeout)
+        if world_size == 1 and init_method is None:
+            # a one-rank world needs no rendezvous
+            dist.init_process_group(dist_backend, store=dist.HashStore(),
+                                    **kw)
+        else:
+            if init_method is None:
+                addr = env.get("MASTER_ADDR", "127.0.0.1")
+                port = env.get("MASTER_PORT", str(distributed_port))
+                init_method = f"tcp://{addr}:{port}"
+            dist.init_process_group(dist_backend, init_method=init_method,
+                                    **kw)
+        if verbose:
+            logger.info(f"init_distributed: {dist_backend}, rank {rank} of "
+                        f"{world_size}")
+    elif dist_backend is not None and dist.get_backend() != dist_backend:
+        raise RuntimeError(f"torch.distributed runs {dist.get_backend()}; "
+                           f"{dist_backend} asked for")
+    cdb = TorchBackend(name=dist.get_backend())
+    from ..utils import groups
+    if not groups.mesh_is_initialized():
+        groups.initialize_mesh()
+    configure(config=config)
+    return cdb
+
+
+def initialize_mesh_device(mesh_shape, mesh_axis_names=None):
+    """Reference ``comm/comm.py:603``: the (dp, sp, ...) mesh by shape."""
+    from ..utils import groups
+    if mesh_axis_names is None:
+        mesh_axis_names = ("dp", "sp")[:len(mesh_shape)]
+    unknown = set(mesh_axis_names) - {"dp", "sp", "pp", "tp"}
+    if unknown:
+        raise ValueError(f"unknown mesh axis names {sorted(unknown)}; "
+                         "supported: ['dp', 'pp', 'sp', 'tp']")
+    sizes = dict(zip(mesh_axis_names, mesh_shape))
+    _assert_initialized()
+    return groups.initialize_mesh(
+        dp=sizes.get("dp"), sp=sizes.get("sp", 1), pp=sizes.get("pp", 1),
+        tp=sizes.get("tp", 1)).mesh
+
+
+def get_world_group():
+    _assert_initialized()
+    return cdb.world_group
+
+
+def new_group(axis_names=None, ranks=None):
+    """A group over mesh axes (``new_group(("dp",))``, as in JAX) or, as in
+    torch, over a list of ranks (every rank must call it)."""
+    _assert_initialized()
+    if ranks is not None:
+        return ProcessGroup(("ranks", ), pg=dist.new_group(list(ranks)))
+    from ..utils import groups
+    axis_names = (axis_names, ) if isinstance(axis_names, str) else \
+        tuple(axis_names)
+    for a in axis_names:
+        if a not in groups.AXES:
+            raise ValueError(f"axis {a!r} not in mesh axes {groups.AXES}")
+    return groups._pg(axis_names)
+
+
+def get_rank(group=None):
+    if not is_initialized():
+        if dist.is_initialized():
+            return dist.get_rank()
+        return int(os.environ.get("RANK", "0"))
+    return group.rank() if group is not None else cdb.rank()
+
+
+def get_world_size(group=None):
+    if not is_initialized():
+        if dist.is_initialized():
+            return dist.get_world_size()
+        return int(os.environ.get("WORLD_SIZE", "1"))
+    return group.size() if group is not None else cdb.world_size()
+
+
+def get_local_rank():
+    return int(os.environ.get("LOCAL_RANK", "0"))
+
+
+# ------------------------------------------------------------ collectives
+@timed_op
+def all_reduce(tensor, op=ReduceOp.SUM, group=None, async_op=False):
+    """The reduction over the ranks, in place on every rank; returns it."""
+    return _backend(group).all_reduce(tensor, op=op, group=group)
+
+
+@timed_op
+def all_gather(tensor, group=None, axis=0, tiled=True, async_op=False):
+    """The ranks' blocks concatenated along ``axis`` (stacked on a new dim
+    0 when ``tiled=False``)."""
+    return _backend(group).all_gather(tensor, group=group, axis=axis,
+                                      tiled=tiled)
+
+
+all_gather_into_tensor = all_gather
+
+
+@timed_op
+def reduce_scatter(tensor, op=ReduceOp.SUM, group=None, axis=0,
+                   async_op=False):
+    """Block r (along ``axis``) of the reduction of the ranks' tensors."""
+    return _backend(group).reduce_scatter(tensor, op=op, group=group,
+                                          axis=axis)
+
+
+reduce_scatter_tensor = reduce_scatter
+
+
+@timed_op
+def all_to_all_single(tensor, group=None, split_axis=0, concat_axis=0,
+                      async_op=False):
+    return _backend(group).all_to_all(tensor, group=group,
+                                      split_axis=split_axis,
+                                      concat_axis=concat_axis)
+
+
+all_to_all = all_to_all_single
+
+
+@timed_op
+def broadcast(tensor, src=0, group=None, async_op=False):
+    """Rank ``src``'s tensor, in place on every rank; returns it."""
+    return _backend(group).broadcast(tensor, src=src, group=group)
+
+
+def barrier(group=None):
+    return _backend(group).barrier(group=group)
+
+
+def monitored_barrier(group=None, timeout=None, wait_all_ranks=False):
+    """A barrier that warns when it took longer than ``timeout`` seconds."""
+    import time
+    t0 = time.perf_counter()
+    barrier(group=group)
+    dt = time.perf_counter() - t0
+    if timeout is not None and dt > float(timeout):
+        logger.warning(f"monitored_barrier took {dt:.3f}s (timeout "
+                       f"{timeout}s)")
+
+
+@timed_op
+def reduce(tensor, dst=0, op=ReduceOp.SUM, group=None, async_op=False):
+    """As in the JAX facade, the reduced value lands on every rank."""
+    return _backend(group).all_reduce(tensor, op=op, group=group)
+
+
+@timed_op
+def gather(tensor, gather_list=None, dst=0, group=None, axis=0,
+           async_op=False):
+    """As in the JAX facade, the gathered value lands on every rank."""
+    return _backend(group).all_gather(tensor, group=group, axis=axis)
+
+
+inference_all_reduce = all_reduce
+
+
+def all_gather_coalesced(tensors, group=None, async_op=False):
+    return [all_gather(t, group=group) for t in tensors]
+
+
+def all_reduce_coalesced(tensors, op=ReduceOp.SUM, group=None,
+                         async_op=False):
+    return [all_reduce(t, op=op, group=group) for t in tensors]
+
+
+@timed_op
+def allgather_fn(output_tensor, input_tensor, group=None, async_op=False,
+                 debug=None):
+    """Flat all-gather of ``input_tensor`` into ``output_tensor`` (torch's
+    ``all_gather_into_tensor`` argument order); ``input_tensor`` may be
+    ``output_tensor``'s own block, gathered in place.  Returns the output."""
+    return _backend(group).all_gather_into(output_tensor, input_tensor,
+                                           group=group)
+
+
+@timed_op
+def reduce_scatter_fn(output_tensor, input_tensor, op=ReduceOp.SUM,
+                      group=None, async_op=False, debug=None):
+    """Flat reduce-scatter of ``input_tensor`` into ``output_tensor`` (rank
+    r's block of the reduction).  Returns the output."""
+    return _backend(group).reduce_scatter(input_tensor.reshape(-1), op=op,
+                                          group=group, out=output_tensor)
+
+
+@timed_op
+def send(tensor, dst, group=None, tag=0):
+    _backend(group).send(tensor, dst, group=group, tag=tag)
+
+
+@timed_op
+def recv(tensor, src, group=None, tag=0):
+    return _backend(group).recv(tensor, src, group=group, tag=tag)
+
+
+def isend(tensor, dst, group=None, tag=0):
+    _assert_initialized()
+    return dist.isend(tensor, dst, group=(group or cdb.world_group).pg,
+                      tag=tag)
+
+
+def irecv(tensor, src, group=None, tag=0):
+    _assert_initialized()
+    return dist.irecv(tensor, src, group=(group or cdb.world_group).pg,
+                      tag=tag)
+
+
+def send_obj(obj, dst, tag=0):
+    raise not_ported("send_obj/recv_obj (the pipeline's host object "
+                     "channel)", 9)
+
+
+def recv_obj(src, tag=0, timeout_s=300):
+    raise not_ported("send_obj/recv_obj (the pipeline's host object "
+                     "channel)", 9)
+
+
+def scatter(tensor, scatter_list=None, src=0, group=None, async_op=False):
+    raise NotImplementedError(
+        "eager scatter has no counterpart in the JAX facade either: feed "
+        "each rank its rows with engine.shard_batch")
+
+
+# ------------------------------------------------------- capability probes
+def is_available():
+    return dist.is_available()
+
+
+def has_all_gather_into_tensor():
+    return True
+
+
+def has_reduce_scatter_tensor():
+    return True
+
+
+def has_all_reduce_coalesced():
+    return True
+
+
+def has_coalescing_manager():
+    return False
+
+
+def get_global_rank(group=None, group_rank=0):
+    """The world rank of the group's ``group_rank``-th member."""
+    _assert_initialized()
+    g = group if group is not None else cdb.world_group
+    if not 0 <= group_rank < g.size():
+        raise IndexError(f"group_rank {group_rank} out of range for group "
+                         f"of size {g.size()}")
+    if g.local:
+        return cdb.rank()
+    return group_rank if g.pg is None else dist.get_global_rank(g.pg,
+                                                                group_rank)
+
+
+def get_all_ranks_from_group(group=None):
+    _assert_initialized()
+    g = group if group is not None else cdb.world_group
+    if g.local:
+        return [cdb.rank()]
+    return (list(range(cdb.world_size())) if g.pg is None
+            else dist.get_process_group_ranks(g.pg))
+
+
+def log_summary(show_straggler=False):
+    """Reference ``comm/comm.py:422``: the comms logger's table."""
+    return comms_logger.log_all(print_log=True,
+                                show_straggler=show_straggler)
+
+
+def destroy_process_group():
+    """Tear the world down (and the mesh with it)."""
+    global cdb
+    from ..utils import groups
+    cdb = None
+    groups.reset_mesh()
+    if dist.is_initialized():
+        dist.destroy_process_group()

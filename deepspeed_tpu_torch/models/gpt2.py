@@ -167,12 +167,13 @@ class GPT2Model(nn.Module):
         self.ln_f = LayerNorm(cfg.hidden_size, cfg.layer_norm_epsilon, device)
 
     def forward(self, input_ids, labels=None, attention_mask=None,
-                decode=False, positions=None, use_kernel=True):
+                decode=False, positions=None, use_kernel=True,
+                loss_reduction="mean"):
         """Training forward (``gpt2.py:95``): logits [B, S, V] in the model
         dtype, or, with ``labels``, the shifted cross-entropy loss (fp32;
         ``attention_mask`` weights it and does not enter attention, as in
-        the JAX model).  ``use_kernel=False`` runs attention's plain version
-        on any device."""
+        the JAX model; ``loss_reduction``: ``llama.lm_loss``).
+        ``use_kernel=False`` runs attention's plain version on any device."""
         cfg = self.config
         if decode:
             raise not_ported("GPT2Model(decode=True) (the KV-cache decode "
@@ -200,7 +201,8 @@ class GPT2Model(nn.Module):
         logits = F.linear(x, wte)                 # tied head, in dtype
         if labels is None:
             return logits
-        return lm_loss(logits, labels.to(logits.device), attention_mask)
+        return lm_loss(logits, labels.to(logits.device), attention_mask,
+                       loss_reduction)
 
     @torch.no_grad()
     def init_weights(self, generator, std=0.02):

@@ -180,13 +180,26 @@ def apply_rotary(x, cos, sin):
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
 
 
-def lm_loss(logits, labels, attention_mask=None):
+def lm_loss(logits, labels, attention_mask=None, loss_reduction="mean"):
     """Shifted next-token cross entropy (``llama.py:178 _lm_loss``): mean
-    over positions, or over the positions the mask keeps."""
+    over positions, or over the positions the mask keeps.
+    ``loss_reduction="sum_count"`` returns the sum and the count instead
+    (fp32 0-dim tensors), which the engine turns into the mean over every
+    rank's rows (``runtime/engine.py``)."""
     loss = softmax_cross_entropy_with_logits(logits[:, :-1], labels[:, 1:])
     if attention_mask is not None:
         m = attention_mask[:, 1:].float()
-        return (loss * m).sum() / torch.clamp(m.sum(), min=1.0)
+        total, count = (loss * m).sum(), m.sum()
+    else:
+        total = loss.sum()
+        count = torch.tensor(float(loss.numel()), device=loss.device)
+    if loss_reduction == "sum_count":
+        return total, count
+    if loss_reduction != "mean":
+        raise ValueError(f"loss_reduction {loss_reduction!r}: 'mean' or "
+                         "'sum_count'")
+    if attention_mask is not None:
+        return total / torch.clamp(count, min=1.0)
     return loss.mean()
 
 
@@ -350,12 +363,12 @@ class LlamaModel(nn.Module):
         return self.model.norm.weight.device
 
     def forward(self, input_ids, labels=None, attention_mask=None,
-                use_kernel=True):
+                use_kernel=True, loss_reduction="mean"):
         """Training forward (``llama.py:325``): logits [B, S, V] in the head
         dtype, or, with ``labels``, the shifted cross-entropy loss (fp32
         scalar; ``attention_mask`` weights it and does not enter attention,
-        as in the JAX model).  ``use_kernel=False`` runs attention's plain
-        version on any device."""
+        as in the JAX model; ``loss_reduction``: :func:`lm_loss`).
+        ``use_kernel=False`` runs attention's plain version on any device."""
         cfg = self.config
         dt = torch_dtype(cfg.dtype)
         if cfg.loss_chunk_vocab and labels is not None:
@@ -384,7 +397,8 @@ class LlamaModel(nn.Module):
             logits = _head_product(x.to(hd), self.lm_head.weight.to(hd))
         if labels is None:
             return logits
-        return lm_loss(logits, labels.to(logits.device), attention_mask)
+        return lm_loss(logits, labels.to(logits.device), attention_mask,
+                       loss_reduction)
 
     def tie_weights(self):
         """Training with ``tie_word_embeddings``: the head IS the embedding

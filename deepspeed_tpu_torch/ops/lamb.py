@@ -9,6 +9,14 @@ over the engine's flat buffers: phase 1 for every leaf in one launch, the
 ratios formed on the card, phase 2 in one launch.  The leaf partition is the
 model's own (each kernel, bias and norm weight is one leaf, as in flax),
 because the ratio is per leaf.
+
+Under ZeRO at more than one rank a rank holds one piece of some leaves.
+The engine then sets the state's ``reduce_sums``: phase 1's sums of p·p and
+u·u, one row a piece, go to it and come back as the whole leaves' sums
+(summed over the ranks), and phase 2 takes its ratios from those.  With the
+kernels each piece's chunk partials are summed on the card, in order and in
+float64 (:func:`piece_sums`), and handed to phase 2 as one partial a piece;
+nothing goes through the host.
 """
 
 from dataclasses import dataclass, field
@@ -17,7 +25,9 @@ import math
 import torch
 
 from .adam import FlatTransform, leaf_views, whole_buffer
-from .kernels.optimizers import (LambTable, fused_lamb_step,
+from .kernels.optimizers import (LambTable, fused_lamb_phase1,
+                                 fused_lamb_phase1_plain, fused_lamb_phase2,
+                                 fused_lamb_phase2_plain, fused_lamb_step,
                                  fused_lamb_step_plain)
 
 
@@ -30,6 +40,8 @@ class ScaleByLambState:
     table: LambTable
     lr_override: float = field(default=math.nan)
     leaves: list = None
+    # ZeRO: [pieces, 2] local sums -> the whole leaves' sums, a row a piece
+    reduce_sums: object = None
 
 
 class FusedLambTransform(FlatTransform):
@@ -62,6 +74,9 @@ class FusedLambTransform(FlatTransform):
                      count=count, bias_correction=self.bias_correction,
                      max_coeff=self.max_coeff, min_coeff=self.min_coeff,
                      grad_scale=grad_scale)
+        if state.reduce_sums is not None:
+            return self._apply_sharded(grad, state, target, param_out,
+                                       use_kernel, hyper)
         if use_kernel:
             return fused_lamb_step(grad, target, state.exp_avg,
                                    state.exp_avg_sq, state.update, param_out,
@@ -70,6 +85,43 @@ class FusedLambTransform(FlatTransform):
                                         state.exp_avg_sq, param_out,
                                         state.update)
         return fused_lamb_step_plain(g, p, m, v, out, u, **hyper)
+
+    @staticmethod
+    def _apply_sharded(grad, state, target, param_out, use_kernel, hyper):
+        """Both phases on this rank's pieces, the trust ratios from the
+        whole leaves' sums (``state.reduce_sums``)."""
+        ratio_kw = {k: hyper.pop(k) for k in ("lr", "max_coeff",
+                                              "min_coeff")}
+        table = state.table
+        if use_kernel and target.is_cuda:
+            partials = fused_lamb_phase1(grad, target, state.exp_avg,
+                                         state.exp_avg_sq, state.update,
+                                         table, **hyper)
+            sums = state.reduce_sums(piece_sums(partials, table))
+            # phase 2 sums a piece's partials in order: one partial a piece
+            partials.zero_()
+            partials[table.leaf_chunks[:-1].long()] = sums
+            return fused_lamb_phase2(target, state.update, param_out, table,
+                                     partials, **ratio_kw)
+        g, p, m, v, out, u = leaf_views(state, grad, target, state.exp_avg,
+                                        state.exp_avg_sq, param_out,
+                                        state.update)
+        sums = state.reduce_sums(fused_lamb_phase1_plain(g, p, m, v, u,
+                                                         **hyper))
+        ratios = fused_lamb_phase2_plain(p, u, out, sums, **ratio_kw)
+        return torch.cat([sums, ratios[:, None]], dim=1)
+
+
+def piece_sums(partials, table):
+    """[pieces, 2] fp32: each piece's rows of phase 1's chunk partials
+    (``table.leaf_chunks`` bounds them) summed in order in float64, on the
+    partials' device and without a host sync (``unsafe``: the table's
+    bounds are not checked on the host)."""
+    if not table.n_leaves:
+        return partials.new_zeros(0, 2)
+    return torch.segment_reduce(partials[:table.n_chunks].double(), "sum",
+                                offsets=table.leaf_chunks, axis=0,
+                                unsafe=True).float()
 
 
 def fused_lamb(lr=1e-3, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0,

@@ -5,8 +5,10 @@ Same key names as the JAX package: the batch trinity
 (``train_batch_size``, ``train_micro_batch_size_per_gpu``,
 ``gradient_accumulation_steps``), ``bf16``/``bfloat16``, ``fp16`` (with
 dynamic loss scaling), ``optimizer``, ``scheduler``,
-``gradient_clipping``, ``zero_optimization.stage``, ``steps_per_print``,
+``gradient_clipping``, ``zero_optimization`` (stages 0-2,
+``runtime/zero/config.py``), ``steps_per_print``,
 ``data_types.grad_accum_dtype``, ``resilience.check_finite_grads``,
+``comms_logger``, ``wall_clock_breakdown``, ``mesh.dp``,
 ``sequence_length`` and ``seed``.
 
 A key that turns on a feature this port does not have yet raises
@@ -20,6 +22,7 @@ import os
 
 from ..utils.not_ported import not_ported
 from .config_utils import DeepSpeedConfigModel
+from .zero.config import DeepSpeedZeroConfig
 
 ADAM_OPTIMIZER = "adam"
 ADAMW_OPTIMIZER = "adamw"
@@ -76,6 +79,32 @@ class DataTypesConfig(DeepSpeedConfigModel):
     grad_accum_dtype: str = None
 
 
+class CommsLoggerConfig(DeepSpeedConfigModel):
+    """The ``comms_logger`` block (``config.py:63``)."""
+    enabled: bool = False
+    verbose: bool = False
+    prof_all: bool = True
+    debug: bool = False
+    prof_ops: list = None
+
+    def __init__(self, strict=False, **data):
+        super().__init__(strict=strict, **data)
+        self.prof_ops = list(self.prof_ops or [])
+
+
+class CommsConfig(DeepSpeedConfigModel):
+    comms_logger: CommsLoggerConfig = None
+
+    def __init__(self, strict=False, **data):
+        super().__init__(strict=strict, **data)
+        if self.comms_logger is None:
+            self.comms_logger = CommsLoggerConfig()
+
+    @property
+    def comms_logger_enabled(self):
+        return self.comms_logger.enabled
+
+
 def _on(section, *keys):
     """True when ``section`` (a dict or None) has any of ``keys`` set to a
     true value other than "none"."""
@@ -111,9 +140,8 @@ def _offload_on(section):
 
 def _mesh_dims(pd):
     mesh = dict(pd.get("mesh") or {})
+    # dp is the world (utils/groups.py); the engine checks a given size
     dims = {k: v for k, v in mesh.items() if k != "dp" and v not in (None, 1)}
-    if mesh.get("dp") not in (None, -1, 1):
-        dims["dp"] = mesh["dp"]
     tp = (pd.get("tensor_parallel") or {}).get("tp_size", 1)
     if tp not in (None, 1):
         dims["tp"] = tp
@@ -124,8 +152,6 @@ def _mesh_dims(pd):
 
 # (what, queue-A item, predicate on the raw config dict)
 _UNPORTED = (
-    ("zero_optimization.stage >= 1", 6,
-     lambda pd: (pd.get("zero_optimization") or {}).get("stage", 0) > 0),
     ("ZeRO optimizer/parameter offload", 10,
      lambda pd: _offload_on((pd.get("zero_optimization") or {}).get(
          "offload_optimizer")) or _offload_on(
@@ -136,8 +162,6 @@ _UNPORTED = (
      (pd.get("zero_optimization") or {}).get("zero_hpz_partition_size", 1)
      > 1 or (pd.get("zero_optimization") or {}).get("mics_shard_size", -1)
      > 1),
-    ("zero_optimization.overlap_comm", 6,
-     lambda pd: _on(pd.get("zero_optimization"), "overlap_comm")),
     ("comm_optimizations", 7,
      lambda pd: _on(pd.get("comm_optimizations"), "enabled",
                     "quantized_weights", "quantized_gradients") or
@@ -171,9 +195,6 @@ _UNPORTED = (
     ("monitors (tensorboard, wandb, csv_monitor, comet)", 12,
      lambda pd: any(_on(pd.get(k), "enabled") for k in
                     ("tensorboard", "wandb", "csv_monitor", "comet"))),
-    ("comms_logger", 2, lambda pd: _on(pd.get("comms_logger"), "enabled")),
-    ("wall_clock_breakdown (utils/timer.py)", 2,
-     lambda pd: bool(pd.get("wall_clock_breakdown"))),
     ("autotuning", 12, lambda pd: _on(pd.get("autotuning"), "enabled")),
     ("elasticity", 12, lambda pd: _on(pd.get("elasticity"), "enabled")),
 )
@@ -223,8 +244,15 @@ class DeepSpeedConfig:
                 f"{self.sequence_length!r}")
         self.seed = pd.get("seed", 1234)
 
-        self.zero_optimization_stage = (pd.get("zero_optimization")
-                                        or {}).get("stage", 0)
+        self.zero_config = DeepSpeedZeroConfig.from_dict(
+            pd.get("zero_optimization"))
+        self.zero_optimization_stage = self.zero_config.stage
+        self.zero_enabled = self.zero_optimization_stage > 0
+        self.comms_config = CommsConfig(
+            comms_logger=pd.get("comms_logger") or {})
+        self.wall_clock_breakdown = bool(pd.get("wall_clock_breakdown",
+                                                False))
+        self.mesh_dp = (pd.get("mesh") or {}).get("dp")
         self.fp16_config = FP16Config(**pd.get("fp16", {}) or {})
         self.bf16_config = BF16Config(
             **pd.get("bfloat16", pd.get("bf16", {})) or {})

@@ -1,8 +1,11 @@
-"""DeepSpeedEngine, ZeRO stage 0 (the port of
+"""DeepSpeedEngine, ZeRO stages 0-2 (the port of
 ``deepspeed_tpu/runtime/engine.py``; reference ``runtime/engine.py:183``).
 
 The JAX engine owns a jitted train step over a mesh; this one owns a torch
-module on one CUDA card (or, asked by name, the CPU):
+module on one CUDA card (or, asked by name, the CPU) in each rank of a
+``torch.distributed`` world (``comm/``; NCCL on the card, gloo on the CPU),
+or, when no world is asked for, described or up, in one rank on a local
+group (:meth:`DeepSpeedEngine._init_comm`):
 
 * parameters (``_install_parameters``, ``engine.py:494-528``): every leaf
   in the compute dtype (bf16, fp16 or fp32; norm weights and the LM head
@@ -28,17 +31,46 @@ module on one CUDA card (or, asked by name, the CPU):
   on the host once per boundary (only when fp16 or the guard is on, as the
   JAX guard syncs at ``:1584``) and nothing is launched: the master, the
   moments, the optimizer's count and so its lr stay as they were.
+* ZeRO (``runtime/zero/partition.py``, the design of the reference's
+  ``stage_1_and_2.py``): the flat buffers are padded to a multiple of
+  ``world × 16`` elements and rank r owns the r-th slice.  Stage 1 keeps
+  the fp32 master and the moments as that shard; the full accumulator is
+  reduce-scattered (SUM) into it at the boundary.  Stage 2 reduce-scatters
+  each micro-step's gradients as soon as ``backward`` has folded them and
+  adds them into a shard-sized accumulator; no full-size one lives across
+  micro-steps.  The norm is the all-reduced sum of the shards' squares,
+  the overflow and spike flags are all-reduced (MAX) so every rank skips
+  the same steps, the optimizer kernel runs on the shard, and the updated
+  compute-dtype shard is all-gathered in place into the flat parameters
+  the module's parameters view.  At world size > 1 without ZeRO the
+  accumulator is all-reduced instead.
+* The loss over the global batch: the JAX engine runs one program on the
+  global batch, whose loss is the masked mean over every rank's rows.  A
+  model whose ``forward`` takes ``loss_reduction`` hands back the masked
+  sum and its count; the engine divides by the all-reduced count, so the
+  loss and the gradients (summed over the ranks) are JAX's whatever each
+  rank's count.  Other modules' per-rank means are averaged: their
+  gradients are summed, then × 1/world, which rides into the optimizer's
+  gradient scale.
 """
+
+import inspect
 
 import numpy as np
 import torch
 
-from ..accelerator import resolve_device
+from .. import comm as dist
+from ..accelerator import accelerator_for, resolve_device
+from ..comm import ReduceOp
 from ..ops.adam import FlatTransform, fused_adam
-from ..ops.lamb import fused_lamb
+from ..ops.lamb import FusedLambTransform, fused_lamb
 from ..ops.lion import fused_lion, sgd
+from ..utils import groups
 from ..utils.logging import log_dist, logger
 from ..utils.not_ported import not_ported
+from ..utils.timer import (BACKWARD_GLOBAL_TIMER, FORWARD_GLOBAL_TIMER,
+                           STEP_GLOBAL_TIMER, NoopTimer,
+                           SynchronizedWallClockTimer)
 from .config import (ADAM_OPTIMIZERS, ADAMW_OPTIMIZER, FUSED_ADAM_OPTIMIZER,
                      FUSED_LAMB_OPTIMIZER, LAMB_OPTIMIZER, LION_OPTIMIZER,
                      SGD_OPTIMIZER, DeepSpeedConfig)
@@ -46,8 +78,9 @@ from .loss_scaler import create_loss_scaler, has_overflow
 from .lr_schedules import get_lr_scheduler
 from .utils import (clip_coefficient, count_parameters, global_grad_norm,
                     make_scaled_loss_fn)
+from .zero.partition import ALIGN as _ALIGN, ZeroPartitionPlan
 
-_ALIGN = 16   # elements: every leaf starts 64-byte aligned in fp32 buffers
+# _ALIGN (16 elements): every leaf starts 64-byte aligned in fp32 buffers
 _ACCUM_DTYPES = {None: torch.float32, "fp32": torch.float32,
                  "bf16": torch.bfloat16, "fp16": torch.float16}
 
@@ -146,7 +179,8 @@ class DeepSpeedEngine:
     def __init__(self, args=None, model=None, optimizer=None,
                  model_parameters=None, training_data=None,
                  lr_scheduler=None, collate_fn=None, config=None, mpu=None,
-                 device=None):
+                 device=None, mesh_param=None, dist_init_required=None,
+                 distributed_port=29500):
         if not isinstance(config, DeepSpeedConfig):
             config = DeepSpeedConfig(config)
         if not isinstance(model, torch.nn.Module):
@@ -163,7 +197,12 @@ class DeepSpeedEngine:
         self.global_steps = 0
         self.global_samples = 0
         self.micro_steps = 0
-        config.resolve_batch_sizes(1)   # one data-parallel rank
+        self._init_comm(mesh_param, dist_init_required, distributed_port)
+        if self.device.type == "cuda" and torch.device(
+                device or "cuda").index is None:
+            # NCCL's init bound this process to its LOCAL_RANK card
+            self.device = resolve_device(device)
+        config.resolve_batch_sizes(self.dp_world_size)
 
         self.compute_dtype = (torch.bfloat16 if config.bfloat16_enabled
                               else torch.float16 if config.fp16_enabled
@@ -179,8 +218,14 @@ class DeepSpeedEngine:
         self.grad_accum_dtype = _ACCUM_DTYPES[
             config.gradient_accumulation_dtype]
         self.zero_stage = config.zero_optimization_stage
+        self.zero_plan = None
         self._loss_fn = make_scaled_loss_fn(model,
                                             self.gradient_accumulation_steps())
+        # the loss over the global batch (module docstring)
+        self._global_loss = self.dp_world_size > 1 and "loss_reduction" in \
+            inspect.signature(model.forward).parameters
+        self.timers = (SynchronizedWallClockTimer(accelerator_for(
+            self.device)) if config.wall_clock_breakdown else NoopTimer())
 
         self.params = None        # flat, compute dtype; module params view it
         self.master = None        # flat fp32 (mixed precision only)
@@ -207,6 +252,39 @@ class DeepSpeedEngine:
                      f"params={count_parameters(self.module):,}", ranks=[0])
 
     # ------------------------------------------------------------------ setup
+    def _init_comm(self, mesh_param, dist_init_required, distributed_port):
+        """The comm world (``engine.py:225-246``) and the data-parallel
+        degree, rank and group.  The world (on the backend the engine's
+        device needs) comes up when the caller asks for it
+        (``dist_init_required``), when the environment describes more than
+        one rank, or when one on that backend is already up.  Otherwise the
+        engine is one rank on a local group: no process-wide backend is
+        pinned, and its collectives are the one-rank identities."""
+        dp_want = [self._config.mesh_dp]
+        if mesh_param is not None:
+            dp, *rest = tuple(mesh_param)
+            if rest and rest[0] not in (None, 1):
+                raise not_ported("initialize(mesh_param=(dp, sp)) with sp > "
+                                 "1 (sequence parallelism)", 9)
+            dp_want.append(dp)
+        backend = "nccl" if self.device.type == "cuda" else "gloo"
+        if (dist_init_required is None and dist.env_world_size() == 1
+                and not dist.world_is_up(backend)):
+            dist.configure(config=self._config)
+            self.dp_world_size, self.dp_rank = 1, 0
+            self._dp_group = dist.ProcessGroup(groups.dp_axes(), local=True)
+        else:
+            dist.init_distributed(
+                dist_backend=backend, distributed_port=distributed_port,
+                dist_init_required=dist_init_required, config=self._config)
+            self.dp_world_size = groups._get_data_parallel_world_size()
+            self.dp_rank = groups._get_data_parallel_rank()
+            self._dp_group = groups._get_data_parallel_group()
+        for want in dp_want:
+            if want not in (None, -1) and want != self.dp_world_size:
+                raise ValueError(f"mesh dp={want} but the world has "
+                                 f"{self.dp_world_size} ranks")
+
     def _tie(self):
         """Let the module share what it shares (``tie_weights``: a tied LM
         head is the embedding), so each shared leaf is trained once."""
@@ -231,6 +309,10 @@ class DeepSpeedEngine:
         named = list(self.module.named_parameters())
         layout, off = flat_layout((n, p.shape) for n, p in named)
         self._layout = layout
+        plan = self.zero_plan = ZeroPartitionPlan(
+            self.zero_stage, self.dp_world_size, self.dp_rank, off,
+            self._config.zero_config)
+        lo, hi = plan.shard_range()
         source = (dict(model_parameters) if model_parameters is not None
                   else {n: p for n, p in named})
         missing = [n for n, *_ in layout if n not in source]
@@ -239,9 +321,9 @@ class DeepSpeedEngine:
             raise KeyError(f"model_parameters: missing {missing[:4]}, "
                            f"unknown {unknown[:4]}")
         mixed = self.compute_dtype != torch.float32
-        self.params = torch.zeros(off, dtype=self.compute_dtype,
+        self.params = torch.zeros(plan.padded_numel, dtype=self.compute_dtype,
                                   device=self.device)
-        self.master = (torch.zeros(off, dtype=torch.float32,
+        self.master = (torch.zeros(hi - lo, dtype=torch.float32,
                                    device=self.device) if mixed else None)
         with torch.no_grad():
             for name, o, n, shape in layout:
@@ -253,8 +335,9 @@ class DeepSpeedEngine:
                     continue
                 t = t.detach().to(self.device).reshape(-1)
                 self.params[o:o + n].copy_(t)
-                if mixed:
-                    self.master[o:o + n].copy_(t)
+                a, b = max(o, lo), min(o + n, hi)
+                if mixed and a < b:
+                    self.master[a - lo:b - lo].copy_(t[a - o:b - o])
         self._bind(self.params)
         self.grad_acc = None
         self._acc_fresh = True
@@ -266,12 +349,21 @@ class DeepSpeedEngine:
         if self._layout is None:
             self._install_parameters()
         gen = torch.Generator(device=self.device).manual_seed(int(seed))
-        target = self.master if self.master is not None else self.params
-        self._bind(target)
-        self.module.init_weights(gen)
-        if self.master is not None:
+        if self.master is None:
+            self._bind(self.params)
+            self.module.init_weights(gen)
+        else:
+            # drawn in fp32 over the whole layout (every rank draws the
+            # same weights), then this rank's shard kept as the master
+            full = torch.zeros(self.params.numel(), dtype=torch.float32,
+                               device=self.device)
+            self._bind(full)
+            self.module.init_weights(gen)
+            lo, hi = self.zero_plan.shard_range()
             with torch.no_grad():
-                self.params.copy_(self.master)
+                self.master.copy_(full[lo:hi])
+                self.params.copy_(full)
+            del full
             self._bind(self.params)
         if self.opt_state is None:
             self._init_opt_state()
@@ -306,13 +398,42 @@ class DeepSpeedEngine:
 
     def _init_opt_state(self):
         self.opt_state = self._transform.init(
-            self._target(), [(o, n) for _, o, n, _ in self._layout])
+            self._target(), [(o, n) for o, n, _ in
+                             self.zero_plan.leaf_pieces(self._layout)])
+        if self.zero_plan.sharded and self.dp_world_size > 1 and \
+                isinstance(self._transform, FusedLambTransform):
+            self._sum_lamb_leaves_over_ranks()
         if self._pending_client_lr is not None:
             self._set_client_lr(self._pending_client_lr)
 
+    def _sum_lamb_leaves_over_ranks(self):
+        """LAMB's trust ratio is per leaf, and a leaf may straddle two
+        ranks' shards: its pieces' sums are summed over the ranks.  (At one
+        rank the pieces are whole leaves and the fused call runs.)"""
+        lo, hi = self.zero_plan.shard_range()
+        self._piece_leaf = torch.tensor(
+            [i for i, (_, o, n, _) in enumerate(self._layout)
+             if max(o, lo) < min(o + n, hi)], device=self.device)
+        self.opt_state.reduce_sums = self._leaf_sums
+
+    def _leaf_sums(self, piece_sums):
+        """[pieces, 2] sums of this rank's leaf pieces → the whole leaves'
+        sums (all-reduced, SUM), one row a piece."""
+        leaves = torch.zeros(len(self._layout), 2, dtype=torch.float32,
+                             device=self.device)
+        leaves[self._piece_leaf] = piece_sums.to(self.device)
+        dist.all_reduce(leaves, group=self._dp_group)
+        return leaves[self._piece_leaf]
+
+    def _shard(self, flat):
+        lo, hi = self.zero_plan.shard_range()
+        return flat[lo:hi]
+
     def _target(self):
-        """The fp32 buffer the optimizer updates: the master when mixed."""
-        return self.master if self.master is not None else self.params
+        """The fp32 buffer the optimizer updates: this rank's master when
+        mixed, else its slice of the fp32 parameters."""
+        return (self.master if self.master is not None
+                else self._shard(self.params))
 
     def _configure_lr_scheduler(self, client_scheduler):
         if client_scheduler is not None:
@@ -389,11 +510,23 @@ class DeepSpeedEngine:
     def parameter_names(self):
         return [name for name, *_ in self._layout]
 
+    def fp32_params(self):
+        """The whole fp32 flat buffer (the master's, when mixed).  A sharded
+        master is all-gathered: every rank must call this together."""
+        if self.master is None:
+            return self.params
+        if not self.zero_plan.sharded:
+            return self.master
+        full = torch.empty(self.params.numel(), dtype=torch.float32,
+                           device=self.device)
+        return dist.allgather_fn(full, self.master, group=self._dp_group)
+
     def get_fp32_param(self, name):
-        """The fp32 value of one leaf (the master's, when mixed)."""
-        src = self.master if self.master is not None else self.params
+        """The fp32 value of one leaf (the master's, when mixed; a
+        collective when the master is sharded, :meth:`fp32_params`)."""
         for n, off, numel, shape in self._layout:
             if n == name:
+                src = self.fp32_params()
                 return src[off:off + numel].view(shape).float()
         raise KeyError(name)
 
@@ -420,9 +553,34 @@ class DeepSpeedEngine:
         if not self.training:
             with torch.no_grad():
                 return self.module(*inputs, **kwargs)
-        scaled, loss = self._loss_fn(self.cur_scale, *inputs, **kwargs)
+        self.timers(FORWARD_GLOBAL_TIMER).start()
+        if self._global_loss:
+            scaled, loss = self._global_batch_loss(*inputs, **kwargs)
+        else:
+            scaled, loss = self._loss_fn(self.cur_scale, *inputs, **kwargs)
+            if self.dp_world_size > 1:
+                loss = dist.all_reduce(loss.detach().float().clone(),
+                                       op=ReduceOp.AVG, group=self._dp_group)
         self._pending_loss = scaled
+        self.timers(FORWARD_GLOBAL_TIMER).stop()
         return loss
+
+    def _global_batch_loss(self, *inputs, **kwargs):
+        """(scaled local loss, global loss): the model's masked sum over
+        the all-reduced count.  Its gradients, summed over the ranks, are
+        the global mean's, and every row's share of them is the share it
+        has in JAX's program, so fp16 overflows where JAX's does."""
+        out = self.module(*inputs, loss_reduction="sum_count", **kwargs)
+        if not isinstance(out, tuple):
+            raise TypeError("loss_reduction='sum_count' must return (sum, "
+                            "count)")
+        total, count = out
+        both = torch.stack([total.detach().float(), count.detach().float()])
+        dist.all_reduce(both, group=self._dp_group)
+        denom = torch.clamp(both[1], min=1.0)
+        scaled = (total.float() / denom * self.cur_scale /
+                  self.gradient_accumulation_steps())
+        return scaled, both[0] / denom
 
     __call__ = forward
 
@@ -433,29 +591,55 @@ class DeepSpeedEngine:
         if self._pending_loss is None:
             raise RuntimeError("backward() called without a prior forward() "
                                "in training mode")
+        self.timers(BACKWARD_GLOBAL_TIMER).start()
         self._pending_loss.backward()
         self._pending_loss = None
-        if self.grad_acc is None:
-            self.grad_acc = torch.zeros(self.params.numel(),
-                                        dtype=self.grad_accum_dtype,
-                                        device=self.device)
+        if self.zero_stage >= 2:
+            self._fold_and_reduce_scatter()
+        else:
+            if self.grad_acc is None:
+                self.grad_acc = torch.zeros(self.params.numel(),
+                                            dtype=self.grad_accum_dtype,
+                                            device=self.device)
+            self._fold(self.grad_acc, self._acc_fresh)
+        self._acc_fresh = False
+        self.timers(BACKWARD_GLOBAL_TIMER).stop()
+        return loss
+
+    def _fold(self, buf, fresh):
+        """The module's gradients into the flat ``buf`` (copied when
+        ``fresh``, else added in ``buf``'s dtype); the grads are freed."""
         params = dict(self.module.named_parameters())
         with torch.no_grad():
             for name, off, n, _ in self._layout:
                 p = params[name]
-                view = self.grad_acc[off:off + n]
+                view = buf[off:off + n]
                 if p.grad is None:
-                    if self._acc_fresh:
+                    if fresh:
                         view.zero_()
                     continue
                 g = p.grad.reshape(-1)
-                if self._acc_fresh:
+                if fresh:
                     view.copy_(g)
                 else:
-                    view.add_(g.to(self.grad_accum_dtype))
+                    view.add_(g.to(buf.dtype))
                 p.grad = None
-        self._acc_fresh = False
-        return loss
+
+    def _fold_and_reduce_scatter(self):
+        """Stage 2: this micro-step's gradients, folded into a full-size
+        buffer that lives only until they are reduce-scattered (SUM) into
+        this rank's shard-sized accumulator."""
+        full = torch.zeros(self.params.numel(), dtype=self.grad_accum_dtype,
+                           device=self.device)
+        self._fold(full, fresh=True)
+        shard = torch.empty(self.zero_plan.shard_numel,
+                            dtype=self.grad_accum_dtype, device=self.device)
+        dist.reduce_scatter_fn(shard, full, group=self._dp_group)
+        del full
+        if self._acc_fresh or self.grad_acc is None:
+            self.grad_acc = shard
+        else:
+            self.grad_acc.add_(shard)
 
     def step(self, use_kernel=True):
         """Reference ``engine.py:2204``: the update at the accumulation
@@ -467,7 +651,12 @@ class DeepSpeedEngine:
             if self._acc_fresh:
                 raise RuntimeError("step() at a grad-accum boundary without "
                                    "any backward() since the last boundary")
+            self.timers(STEP_GLOBAL_TIMER).start()
             self._apply_update(use_kernel)
+            self.timers(STEP_GLOBAL_TIMER).stop()
+            if self._config.wall_clock_breakdown:
+                self.timers.log([FORWARD_GLOBAL_TIMER, BACKWARD_GLOBAL_TIMER,
+                                 STEP_GLOBAL_TIMER])
             self._acc_fresh = True
             self.global_steps += 1
             self.global_samples += self.train_batch_size()
@@ -481,21 +670,34 @@ class DeepSpeedEngine:
         """Unscale, overflow check, global norm, spike test, clip,
         optimizer, skip, scaler update (``engine.py:1469-1535``)."""
         fp16, guard = self._config.fp16_enabled, self._finite_guard.enabled
-        grads = self.grad_acc
+        grads = self._reduced_grads()
+        world = self.dp_world_size
+        # 1/scale (a power of two for the dynamic scaler) and, for a mean
+        # of the ranks' means, 1/world, applied to the norm and, through
+        # the optimizer's gradient scale, to the update
         inv = np.float32(1.0) / np.float32(self.scale_state.scale)
-        # the norm of the unscaled gradient: 1/scale is a power of two for
-        # the dynamic scaler, so the product is exact
-        gnorm = global_grad_norm([grads])
+        if world > 1 and not self._global_loss:
+            inv = inv * np.float32(1.0 / world)
+        if self.zero_plan.sharded and world > 1:
+            gnorm = self._sharded_norm(grads)
+        else:
+            # every rank holds the whole summed gradient
+            gnorm = global_grad_norm([grads])
         if inv != 1:
             gnorm = gnorm * torch.tensor(inv, device=gnorm.device)
         overflow = skip = False
         if fp16 or guard:
-            # one host sync per boundary, only when a step can be skipped
-            flags = has_overflow([grads])
+            # one host sync per boundary, only when a step can be skipped;
+            # the flags are every rank's (MAX), so all skip together
+            flags = has_overflow([grads]).reshape(1)
             if guard:
-                flags = torch.stack([flags, gnorm > self._spike_limit()])
+                flags = torch.cat([flags, (gnorm > self._spike_limit())
+                                   .reshape(1)])
+            if world > 1:
+                flags = dist.all_reduce(flags.float(), op=ReduceOp.MAX,
+                                        group=self._dp_group)
             flags = flags.cpu()
-            overflow = bool(flags.reshape(-1)[0])
+            overflow = bool(flags[0])
             skip = bool(flags.any())
         if not skip:
             clip = self._config.gradient_clipping
@@ -506,8 +708,14 @@ class DeepSpeedEngine:
                 scale = inv_t if scale is None else scale * inv_t
             mixed = self.master is not None
             self._transform.step(grads, self.opt_state, self._target(),
-                                 param_out=self.params if mixed else None,
+                                 param_out=(self._shard(self.params)
+                                            if mixed else None),
                                  grad_scale=scale, use_kernel=use_kernel)
+            if self.zero_plan.sharded:
+                # every rank's updated slice, gathered in place: the
+                # module's parameters view self.params
+                dist.allgather_fn(self.params, self._shard(self.params),
+                                  group=self._dp_group)
         # loss-scale dynamics key off true fp16 overflow only — a grad-norm
         # spike must not shrink the scale
         self.scale_state = self.loss_scaler.update(self.scale_state,
@@ -518,6 +726,27 @@ class DeepSpeedEngine:
             self._account_guarded_step(skip, gnorm)
         self._last_gnorm = gnorm
         self._last_skipped = skip
+
+    def _reduced_grads(self):
+        """The summed gradient this rank updates with: the accumulator, its
+        reduce-scattered shard (stage 1; in fp32), or, at world > 1 without
+        ZeRO, the all-reduced accumulator.  Stage 2's accumulator is
+        already the shard."""
+        grads = self.grad_acc
+        if self.zero_stage == 1:
+            full = grads if grads.dtype == torch.float32 else grads.float()
+            shard = torch.empty(self.zero_plan.shard_numel,
+                                dtype=torch.float32, device=self.device)
+            return dist.reduce_scatter_fn(shard, full, group=self._dp_group)
+        if self.zero_stage == 0 and self.dp_world_size > 1:
+            return dist.all_reduce(grads, group=self._dp_group)
+        return grads
+
+    def _sharded_norm(self, grads):
+        """L2 norm over every rank's ``grads``: the all-reduced (SUM) sum
+        of squares, then a square root (a leaf may straddle two shards)."""
+        sq = torch.linalg.vector_norm(grads, dtype=torch.float32).square()
+        return dist.all_reduce(sq.reshape(1), group=self._dp_group)[0].sqrt()
 
     def _spike_limit(self):
         """Grad-norm ceiling for the current step (``engine.py:1565``):
@@ -575,8 +804,65 @@ class DeepSpeedEngine:
             losses.append(loss.detach().float())
         return torch.stack(losses).mean()
 
+    def shard_batch(self, *inputs):
+        """This rank's rows of a global batch (``engine.py:1067``): rank r
+        takes rows ``[r·B, (r+1)·B)``, B = rows / data-parallel degree, on
+        the engine's device."""
+        w, r = self.dp_world_size, self.dp_rank
+        out = []
+        for x in inputs:
+            t = x if isinstance(x, torch.Tensor) else torch.as_tensor(
+                np.asarray(x))
+            shape = tuple(t.shape)
+            if shape:
+                if shape[0] % w:
+                    raise ValueError(
+                        f"batch dim {shape[0]} is not divisible by the "
+                        f"data-parallel degree {w} — feed "
+                        f"train_micro_batch_size_per_gpu × dp = "
+                        f"{self.train_micro_batch_size_per_gpu()} × {w} "
+                        f"rows per micro-step (shape {shape})")
+                b = shape[0] // w
+                t = t[r * b:(r + 1) * b]
+            out.append(self._to_device(t))
+        return tuple(out)
+
     def save_checkpoint(self, *args, **kwargs):
         raise not_ported("save_checkpoint", 5)
 
     def load_checkpoint(self, *args, **kwargs):
         raise not_ported("load_checkpoint", 5)
+
+    # the JAX engine's other public methods, each named by its item
+    def register_param_transform(self, fn):
+        raise not_ported("register_param_transform", 4)
+
+    def register_post_step_hook(self, fn):
+        raise not_ported("register_post_step_hook", 4)
+
+    def compile(self, *args, **kwargs):
+        raise not_ported("engine.compile", 4)
+
+    def is_compiled(self):
+        raise not_ported("engine.is_compiled", 4)
+
+    def offload_states(self, *args, **kwargs):
+        raise not_ported("offload_states", 10)
+
+    def reload_states(self, *args, **kwargs):
+        raise not_ported("reload_states", 10)
+
+    def wait_for_checkpoint(self, *args, **kwargs):
+        raise not_ported("wait_for_checkpoint", 5)
+
+    def empty_partition_cache(self):
+        raise not_ported("empty_partition_cache (ZeRO stage 3)", 6)
+
+    def start_device_trace(self, *args, **kwargs):
+        raise not_ported("start_device_trace", 12)
+
+    def stop_device_trace(self, *args, **kwargs):
+        raise not_ported("stop_device_trace", 12)
+
+    def compute_block_eigenvalues(self, *args, **kwargs):
+        raise not_ported("compute_block_eigenvalues", 11)

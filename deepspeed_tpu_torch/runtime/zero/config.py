@@ -1,0 +1,97 @@
+"""The ``zero_optimization`` block (the port of
+``deepspeed_tpu/runtime/zero/config.py``; reference
+``runtime/zero/config.py:344``), on the port's dataclass base.
+
+Stages 0-2 are ported.  Stage 3, ``overlap_comm`` and the stage-3 knobs
+raise ROADMAP queue A item 6; offload raises item 10, ZeRO++ and MiCS item
+7 (``runtime/config.py``).  ``reduce_bucket_size``,
+``allgather_bucket_size``, ``contiguous_gradients`` and the other knobs of
+stages 1-2 parse: the port reduces and gathers the whole flat buffer in one
+collective each, so it ignores them, and ``ZeroPartitionPlan.describe()``
+says so.
+"""
+
+from ...utils.not_ported import not_ported
+from ..config_utils import DeepSpeedConfigModel
+
+# the JSON aliases of the stage-3 knobs (the JAX model's ``alias=``)
+STAGE3_ALIASES = {
+    "stage3_prefetch_bucket_size": "prefetch_bucket_size",
+    "stage3_param_persistence_threshold": "param_persistence_threshold",
+    "stage3_model_persistence_threshold": "model_persistence_threshold",
+    "stage3_max_live_parameters": "max_live_parameters",
+    "stage3_max_reuse_distance": "max_reuse_distance",
+    "stage3_gather_16bit_weights_on_model_save":
+        "gather_16bit_weights_on_model_save",
+}
+# knobs of stages 1-2 that the port parses and does not act on
+IGNORED_KNOBS = ("contiguous_gradients", "reduce_scatter",
+                 "reduce_bucket_size", "use_multi_rank_bucket_allreduce",
+                 "allgather_partitions", "allgather_bucket_size",
+                 "round_robin_gradients", "sub_group_size")
+
+
+class DeepSpeedZeroConfig(DeepSpeedConfigModel):
+    stage: int = 0
+    contiguous_gradients: bool = True
+    reduce_scatter: bool = True
+    reduce_bucket_size: int = int(5e8)
+    use_multi_rank_bucket_allreduce: bool = True
+    allgather_partitions: bool = True
+    allgather_bucket_size: int = int(5e8)
+    overlap_comm: bool = None
+    load_from_fp32_weights: bool = True
+    elastic_checkpoint: bool = False
+    offload_param: dict = None
+    offload_optimizer: dict = None
+    sub_group_size: int = int(1e9)
+    prefetch_bucket_size: int = int(5e7)
+    param_persistence_threshold: int = int(1e5)
+    model_persistence_threshold: int = int(1e14)
+    max_live_parameters: int = int(1e9)
+    max_reuse_distance: int = int(1e9)
+    gather_16bit_weights_on_model_save: bool = False
+    ignore_unused_parameters: bool = True
+    legacy_stage1: bool = False
+    round_robin_gradients: bool = False
+    zero_hpz_partition_size: int = 1
+    zero_quantized_weights: bool = False
+    zero_quantized_weights_format: str = "int8"
+    zero_quantized_nontrainable_weights: bool = False
+    zero_quantized_gradients: bool = False
+    mics_shard_size: int = -1
+    mics_hierarchical_params_gather: bool = False
+    memory_efficient_linear: bool = True
+
+    @classmethod
+    def from_dict(cls, section):
+        """Parse the JSON block: stage-3 aliases map onto their fields, and
+        what the port does not have raises."""
+        section = dict(section or {})
+        stage3 = sorted(k for k in section if k in STAGE3_ALIASES)
+        for key in stage3:
+            section[STAGE3_ALIASES[key]] = section.pop(key)
+        cfg = cls(**section)
+        cfg.given = frozenset(section)
+        if not isinstance(cfg.stage, int) or not 0 <= cfg.stage <= 3:
+            raise ValueError(f"zero_optimization.stage must be 0-3, got "
+                             f"{cfg.stage!r}")
+        if cfg.stage == 3:
+            raise not_ported("zero_optimization.stage 3 (parameter "
+                             "partitioning, runtime/zero/overlap.py)", 6)
+        if cfg.overlap_comm:
+            raise not_ported("zero_optimization.overlap_comm", 6)
+        if stage3:
+            raise not_ported(f"zero_optimization: the stage-3 knobs "
+                             f"{stage3}", 6)
+        for key in ("reduce_bucket_size", "allgather_bucket_size",
+                    "sub_group_size"):
+            if getattr(cfg, key) < 0:
+                raise ValueError(f"zero_optimization.{key} must be >= 0")
+        return cfg
+
+    def ignored(self):
+        """{knob: value} of the knobs the config set that the port does
+        not act on."""
+        given = getattr(self, "given", ())
+        return {k: getattr(self, k) for k in IGNORED_KNOBS if k in given}

@@ -1180,3 +1180,170 @@ def test_fp_quantizer_fp8_launches_nothing(card):
     assert kfq.quantize_fp_packed.launches == before
     cpu = fq.quantize_fp(x.cpu(), 8, 3, 128)
     assert torch.equal(packed.cpu(), cpu[0]) and torch.equal(s.cpu(), cpu[1])
+
+
+# ------------------------------------------- the comm layer on NCCL, ZeRO
+@pytest.fixture(scope="module")
+def nccl_world():
+    """A one-rank NCCL world on the card (``comm.init_distributed``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    from deepspeed_tpu_torch import comm as dist
+    cdb = dist.init_distributed(dist_backend="nccl", verbose=False)
+    assert cdb.name == "nccl" and dist.get_world_size() == 1
+    yield dist
+    dist.destroy_process_group()
+
+
+NCCL_OPS = ("all_reduce_SUM", "all_reduce_MAX", "all_reduce_MIN",
+            "all_reduce_AVG", "all_reduce_PRODUCT", "all_gather_axis0",
+            "all_gather_axis1", "reduce_scatter", "broadcast",
+            "all_to_all_single", "allgather_fn_in_place",
+            "reduce_scatter_fn", "barrier")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", NCCL_OPS)
+def test_nccl_world_of_one_collective(nccl_world, op):
+    """Each collective at world size 1 over NCCL: the JAX facade's result
+    for one rank, which is its input (or, for a product or a mean over one
+    rank, the input itself)."""
+    from deepspeed_tpu_torch.comm import ReduceOp
+    dist = nccl_world
+    x = torch.randn(8, 6, generator=torch.Generator().manual_seed(3)).cuda()
+    want = x.clone()
+    if op.startswith("all_reduce"):
+        got = dist.all_reduce(x, op=ReduceOp[op.split("_")[-1]])
+    elif op.startswith("all_gather_axis"):
+        got = dist.all_gather(x, axis=int(op[-1]))
+    elif op == "reduce_scatter":
+        got = dist.reduce_scatter(x)
+    elif op == "broadcast":
+        got = dist.broadcast(x, src=0)
+    elif op == "all_to_all_single":
+        got = dist.all_to_all_single(x, split_axis=0, concat_axis=1)
+    elif op == "allgather_fn_in_place":
+        flat = x.reshape(-1)
+        got = dist.allgather_fn(flat, flat[:]).view(8, 6)
+    elif op == "reduce_scatter_fn":
+        out = torch.empty(48, device="cuda")
+        got = dist.reduce_scatter_fn(out, x).view(8, 6)
+    else:
+        dist.barrier()
+        got = want
+    torch.cuda.synchronize()
+    assert got.is_cuda and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_fused_adam_on_a_shard_at_an_offset(card):
+    """B2 on rank 1's shard of a padded flat buffer (the ZeRO path's call:
+    views at a non-zero offset, 16-element aligned), against its plain
+    version on the same views; the other shard is left untouched."""
+    n, world = 2 * 1_000_000, 2
+    s = n // world
+    g = torch.Generator().manual_seed(11)
+    grad = torch.randn(n, generator=g).to(card, torch.bfloat16)
+    master = torch.randn(s, generator=g).to(card)
+    m = (0.1 * torch.randn(s, generator=g)).to(card)
+    v = (0.01 * torch.rand(s, generator=g)).to(card)
+    params = torch.randn(n, generator=g).to(card, torch.bfloat16)
+    ref = [t.clone() for t in (master, m, v)]
+    params_ref = params.clone()
+    hyper = dict(lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-8,
+                 weight_decay=0.01, count=3,
+                 grad_scale=torch.tensor(0.5, device=card))
+    before = opt.fused_adam_step.launches
+    opt.fused_adam_step(grad[s:], master, m, v, params[s:], **hyper)
+    opt.fused_adam_step_plain([grad[s:]], *([t] for t in ref),
+                              [params_ref[s:]], **hyper)
+    torch.cuda.synchronize()
+    assert opt.fused_adam_step.launches == before + 1
+    for got, want in zip((master, m, v), ref):
+        assert ((got - want).abs() <= 2.0**-23 * want.abs()).all()
+    assert torch.equal(params, params_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", (1, 2))
+def test_zero_step_on_the_card_equals_zero0(nccl_world, stage):
+    """A bf16 Llama step at ZeRO 1/2 on the card (world size 1 over NCCL)
+    equals the ZeRO-0 step bit for bit: the reduce-scatter and the
+    in-place all-gather of one rank are copies."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import LlamaModel, llama_tiny
+    ids = torch.randint(0, 256, (2, 32),
+                        generator=torch.Generator().manual_seed(0)).cuda()
+    out = []
+    for st in (0, stage):
+        eng = deepspeed_tpu_torch.initialize(
+            model=LlamaModel(llama_tiny(dtype="bfloat16", remat=False),
+                             device="meta"),
+            config={"train_micro_batch_size_per_gpu": 2,
+                    "gradient_accumulation_steps": 2,
+                    "bf16": {"enabled": True},
+                    "optimizer": {"type": "fusedadam",
+                                  "params": {"lr": 1e-3}},
+                    "zero_optimization": {"stage": st}})[0]
+        eng.initialize_parameters(0)
+        losses = []
+        for _ in range(4):
+            loss = eng(ids, ids)
+            eng.backward(loss)
+            eng.step()
+            losses.append(loss.item())
+        out.append((losses, eng.params.clone(), eng.fp32_params().clone()))
+    assert out[0][0] == out[1][0]
+    assert torch.equal(out[0][1], out[1][1])
+    assert torch.equal(out[0][2], out[1][2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", (1, 2))
+def test_zero_lamb_on_the_card_matches_zero0(nccl_world, stage):
+    """LAMB at ZeRO 1/2 on the card (one NCCL rank).  At one rank the
+    pieces are whole leaves and the engine takes the fused two-phase call:
+    ZeRO 0's losses and master bit for bit.  With the leaves' sums over the
+    ranks armed by hand (the route of more than one rank: each piece's
+    partials summed on the card, all-reduced, one partial a piece to phase
+    2), the same losses within rtol 1e-3 and a master within rtol 2e-5
+    plus lr/20.  No step of the three makes a host sync."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Model, gpt2_tiny
+    from deepspeed_tpu_torch.ops.kernels import optimizers as opt
+    lr = 2e-3
+    ids = torch.randint(0, 256, (2, 64),
+                        generator=torch.Generator().manual_seed(1)).cuda()
+    out = {}
+    for run, st in (("zero0", 0), ("fused", stage), ("armed", stage)):
+        eng = deepspeed_tpu_torch.initialize(
+            model=GPT2Model(gpt2_tiny(dtype="bfloat16", remat=False),
+                            device="meta"),
+            config={"train_micro_batch_size_per_gpu": 2,
+                    "bf16": {"enabled": True},
+                    "optimizer": {"type": "fusedlamb",
+                                  "params": {"lr": lr}},
+                    "zero_optimization": {"stage": st}})[0]
+        eng.initialize_parameters(0)
+        assert eng.opt_state.reduce_sums is None
+        if run == "armed":
+            eng._sum_lamb_leaves_over_ranks()
+        before = opt.fused_lamb_phase2.launches
+        losses = []
+        for _ in range(4):
+            loss = eng(ids, ids)
+            eng.backward(loss)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                eng.step()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            losses.append(loss.item())
+        assert opt.fused_lamb_phase2.launches - before == 4
+        out[run] = (losses, eng.fp32_params().clone())
+    assert out["fused"][0] == out["zero0"][0]
+    assert torch.equal(out["fused"][1], out["zero0"][1])
+    torch.testing.assert_close(out["armed"][0], out["zero0"][0], rtol=1e-3,
+                               atol=0)
+    torch.testing.assert_close(out["armed"][1], out["zero0"][1], rtol=2e-5,
+                               atol=lr / 20)

@@ -382,7 +382,7 @@ def test_batch_trinity_matches_jax(i):
 
 REFUSED = [
     ({"optimizer": {"type": "muon"}}, 11),
-    ({"zero_optimization": {"stage": 1}}, 6),
+    ({"zero_optimization": {"stage": 3}}, 6),
     ({"zero_optimization": {"stage": 0, "offload_optimizer":
                             {"device": "cpu"}}}, 10),
     ({"zero_optimization": {"zero_quantized_gradients": True}}, 7),
@@ -403,14 +403,16 @@ REFUSED = [
     ({"eigenvalue": {"enabled": True}}, 11),
     ({"flops_profiler": {"enabled": True}}, 12),
     ({"tensorboard": {"enabled": True}}, 12),
-    ({"comms_logger": {"enabled": True}}, 2),
-    ({"wall_clock_breakdown": True}, 2),
+    ({"zero_optimization": {"stage": 2,
+                            "stage3_max_live_parameters": 10}}, 6),
+    ({"zero_optimization": {"stage": 1, "offload_param":
+                            {"device": "cpu"}}}, 10),
     ({"autotuning": {"enabled": True}}, 12),
     ({"elasticity": {"enabled": True}}, 12),
     ({"optimizer": {"type": "onebitlamb"}}, 7),
     ({"optimizer": {"type": "zerooneadam"}}, 7),
     ({"optimizer": {"type": "onebitadam"}}, 7),
-    ({"zero_optimization": {"stage": 2}}, 6),
+    ({"zero_optimization": {"stage": 2, "overlap_comm": True}}, 6),
 ]
 
 
@@ -462,9 +464,9 @@ def test_unported_model_and_engine_options_raise():
 
 UNPORTED_ARGS = [
     (dict(collate_fn=list), 4),
-    (dict(dist_init_required=True), 2),
-    (dict(distributed_port=29501), 2),
-    (dict(mesh_param=(1, 1)), 2),
+    (dict(mesh_param=(1, 2)), 9),
+    (dict(mpu=object()), 9),
+    (dict(mesh_param=(1, 4)), 9),
 ]
 
 

@@ -50,7 +50,13 @@ def test_import_loads_no_jax():
                  "ops.kernels.block_sparse_attention", "ops.fp_quantizer",
                  "ops.kernels.fp_quantizer", "compression.quantizers",
                  "linear.config", "linear.quantization",
-                 "linear.optimized_linear"):
+                 "linear.optimized_linear", "comm", "comm.comm",
+                 "comm.backend", "comm.reduce_op", "utils.groups",
+                 "utils.comms_logging", "utils.timer", "runtime.zero",
+                 "runtime.zero.config", "runtime.zero.partition",
+                 "accelerator.abstract_accelerator",
+                 "accelerator.cuda_accelerator",
+                 "accelerator.cpu_accelerator", "models.bert"):
         assert f"deepspeed_tpu_torch.{name}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -65,24 +71,31 @@ def test_import_loads_no_jax():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
-def test_source_imports_nothing_of_jax():
-    """AST scan of every import statement in the package."""
-    bad = []
+def _sources():
+    """Every .py file of the port, and chip_smoke.py."""
+    paths = [os.path.join(_REPO, "chip_smoke.py")]
     for root, _, files in os.walk(_PKG_DIR):
-        for fn in files:
-            if not fn.endswith(".py"):
+        paths += [os.path.join(root, fn) for fn in files
+                  if fn.endswith(".py")]
+    return paths
+
+
+def test_source_imports_nothing_of_jax():
+    """AST scan of every import statement in the package (comm/,
+    runtime/zero/, accelerator/ and models/bert.py included) and in
+    chip_smoke.py."""
+    bad = []
+    for path in _sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
                 continue
-            path = os.path.join(root, fn)
-            with open(path) as f:
-                tree = ast.parse(f.read(), path)
-            for node in ast.walk(tree):
-                if isinstance(node, ast.Import):
-                    names = [a.name for a in node.names]
-                elif isinstance(node, ast.ImportFrom) and node.level == 0:
-                    names = [node.module or ""]
-                else:
-                    continue
-                bad += [(path, n) for n in names if _forbidden(n)]
+            bad += [(path, n) for n in names if _forbidden(n)]
     assert not bad
 
 
@@ -100,6 +113,28 @@ def test_default_device_without_card_raises(monkeypatch):
         deepspeed_tpu_torch.initialize(
             model=llama.LlamaModel(llama.llama_tiny(dtype="float32")),
             config={"train_batch_size": 1})
+
+
+def test_default_device_raises_whatever_ds_accelerator_says(monkeypatch):
+    """``DS_ACCELERATOR`` picks the accelerator singleton (the comm
+    backend's name, events, memory statistics), not where an entry point
+    runs: with it set to cpu, ``device=None`` still means the card."""
+    from deepspeed_tpu_torch.accelerator import real_accelerator
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("DS_ACCELERATOR", "cpu")
+    monkeypatch.setattr(real_accelerator, "_accelerator", None)
+    acc = real_accelerator.get_accelerator()
+    assert acc.communication_backend_name() == "gloo"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        deepspeed_tpu_torch.initialize(
+            model=llama.LlamaModel(llama.llama_tiny(dtype="float32")),
+            config={"train_batch_size": 1})
+    monkeypatch.setenv("DS_ACCELERATOR", "tpu")
+    monkeypatch.setattr(real_accelerator, "_accelerator", None)
+    with pytest.raises(ValueError, match="DS_ACCELERATOR"):
+        real_accelerator.get_accelerator()
 
 
 def test_config_nested_dicts_auto_and_extra_keys():

@@ -1,0 +1,216 @@
+"""One rank of the port's multi-process tests: a gloo world on the CPU.
+
+    python tests/torch_dist_worker.py SPEC OUT_DIR
+
+``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT`` come from the
+environment (:func:`spawn` sets them).  ``SPEC`` is a pickle of a list of
+legs, run one after another in this one process (one interpreter start
+serves every leg); each leg writes ``OUT_DIR/<name>.r<rank>.pkl``.  The
+worker imports torch and the port only, never JAX.
+
+Leg kinds:
+
+* ``comm``: collectives of ``deepspeed_tpu_torch.comm`` on blocks of
+  global numpy arrays (rank r takes block r, as the JAX facade's sharded
+  inputs), every result as numpy;
+* ``train``: a model trained through ``deepspeed_tpu_torch.initialize()``
+  on this rank's rows of each global batch (``engine.shard_batch``); the
+  losses, scales, skips and gradient norms, the whole fp32 master and the
+  comm counts.
+"""
+
+import os
+import pickle
+import socket
+import subprocess
+import sys
+import tempfile
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+REPO = os.path.dirname(HERE)
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn(world, legs, timeout=240):
+    """Run ``legs`` on ``world`` gloo ranks (one process each); returns
+    {leg name: [rank 0's result, rank 1's, ...]}."""
+    with tempfile.TemporaryDirectory(prefix="ds_torch_dist_") as tmp:
+        spec = os.path.join(tmp, "spec.pkl")
+        with open(spec, "wb") as f:
+            pickle.dump(legs, f)
+        port = str(free_port())
+        procs = []
+        for rank in range(world):
+            env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world),
+                       LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=port, OMP_NUM_THREADS="1",
+                       PYTHONPATH=REPO)
+            env.pop("DS_ACCELERATOR", None)
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), spec, tmp],
+                env=env, cwd=REPO, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=timeout)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        bad = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode]
+        if bad:
+            raise RuntimeError(f"ranks failed {bad}:\n" + "\n".join(
+                o[-4000:] for o in outs))
+        results = {}
+        for leg in legs:
+            results[leg["name"]] = []
+            for rank in range(world):
+                with open(os.path.join(tmp, f"{leg['name']}.r{rank}.pkl"),
+                          "rb") as f:
+                    results[leg["name"]].append(pickle.load(f))
+        return results
+
+
+# ------------------------------------------------------------------ legs
+def _block(a, axis, rank, world):
+    n = a.shape[axis] // world
+    return a.take(range(rank * n, (rank + 1) * n), axis=axis)
+
+
+def run_comm(leg, rank, world):
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch import comm as dist
+    from deepspeed_tpu_torch.comm import ReduceOp
+    out = {}
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    for key, op in leg["ops"]:
+        g = leg["arrays"][key]
+        if op[0] == "all_reduce":
+            out[key] = dist.all_reduce(t(_block(g, 0, rank, world)),
+                                       op=ReduceOp[op[1]]).numpy()
+        elif op[0] == "all_gather":
+            axis = op[1]
+            out[key] = dist.all_gather(t(_block(g, axis, rank, world)),
+                                       axis=axis).numpy()
+        elif op[0] == "reduce_scatter":
+            x = g * (rank + 1) if op[1] == "distinct" else g
+            out[key] = dist.reduce_scatter(t(x)).numpy()
+        elif op[0] == "broadcast":
+            out[key] = dist.broadcast(t(_block(g, 0, rank, world)),
+                                      src=op[1]).numpy()
+        elif op[0] == "all_to_all":
+            split, concat = op[1], op[2]
+            out[key] = dist.all_to_all_single(
+                t(_block(g, concat, rank, world)), split_axis=split,
+                concat_axis=concat).numpy()
+        elif op[0] == "all_gather_stacked":
+            out[key] = dist.all_gather(t(_block(g, 0, rank, world)),
+                                       tiled=False).numpy()
+        elif op[0] == "allgather_fn":
+            # rank r's block written in place of a flat buffer, gathered
+            flat = torch.zeros(g.size, dtype=torch.float32)
+            n = g.size // world
+            flat[rank * n:(rank + 1) * n] = t(_block(g, 0, rank, world))
+            got = dist.allgather_fn(flat, flat[rank * n:(rank + 1) * n])
+            assert got.data_ptr() == flat.data_ptr()
+            out[key] = flat.numpy()
+        elif op[0] == "reduce_scatter_fn":
+            shard = torch.empty(g.size // world)
+            out[key] = dist.reduce_scatter_fn(shard, t(g)).numpy()
+        elif op[0] == "barrier":
+            dist.barrier()
+            out[key] = np.array(dist.get_world_size())
+        elif op[0] == "ranks":
+            out[key] = np.array([dist.get_rank(), dist.get_world_size(),
+                                 dist.get_global_rank(None, world - 1),
+                                 *dist.get_all_ranks_from_group()])
+        else:
+            raise ValueError(op)
+    return out
+
+
+def _model(kind, cfg_kw, tree, mean_only=False):
+    """The port's model and its fp32 weights from a flax tree.
+    ``mean_only``: a subclass whose ``forward`` has no ``loss_reduction``,
+    so the engine can only average the ranks' means."""
+    from deepspeed_tpu_torch.models import bert, gpt2, llama
+    mod = {"llama": llama, "gpt2": gpt2, "bert": bert}[kind]
+    make = {"llama": "llama_tiny", "gpt2": "gpt2_tiny", "bert": "bert_tiny"}
+    cfg = getattr(mod, make[kind])(**cfg_kw)
+    cls = getattr(mod, {"llama": "LlamaModel", "gpt2": "GPT2Model",
+                        "bert": "BertModel"}[kind])
+    if mean_only:
+        base = cls
+
+        class MeanOnly(base):
+            def forward(self, input_ids, labels=None, attention_mask=None):
+                return base.forward(self, input_ids, labels, attention_mask)
+
+        cls = MeanOnly
+    model = cls(cfg, device="meta")
+    return model, mod.params_from_flax(tree, cfg, dtype="float32")
+
+
+def run_train(leg, rank, world):
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm as dist
+    model, start = _model(leg["model"], leg["cfg"], leg["tree"],
+                          leg.get("mean_only", False))
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=model, model_parameters=start, config=dict(leg["config"]),
+        device="cpu")
+    dist.comms_logger.reset()
+    losses, scales, skips, gnorms = [], [], [], []
+    for i, batch in enumerate(leg["batches"]):
+        inputs = engine.shard_batch(*batch)
+        loss = engine(*inputs)
+        engine.backward(loss)
+        poison = leg.get("poison", {})
+        if poison.get(i) == rank:
+            engine.grad_acc[0] = float("nan")
+        engine.step()
+        losses.append(float(loss))
+        if engine.micro_steps % engine.gradient_accumulation_steps() == 0:
+            scales.append(float(engine.cur_scale))
+            skips.append(bool(engine._last_skipped))
+            gnorms.append(float(engine._last_gnorm))
+    counts = dist.comms_logger.counts()
+    master = engine.fp32_params()[:engine.zero_plan.numel].clone()
+    return dict(losses=losses, scales=scales, skips=skips, gnorms=gnorms,
+                master=master.numpy(), params=engine.params.float().numpy(),
+                names=[(n, o, k, s) for n, o, k, s in engine._layout],
+                counts=counts, plan=engine.zero_plan.describe(),
+                grad_acc_numel=int(engine.grad_acc.numel()),
+                skipped_steps=engine.skipped_steps,
+                global_loss=engine._global_loss)
+
+
+def main():
+    spec, out_dir = sys.argv[1], sys.argv[2]
+    import torch
+    torch.set_num_threads(1)
+    from deepspeed_tpu_torch import comm as dist
+    dist.init_distributed(dist_backend="gloo", verbose=False)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    with open(spec, "rb") as f:
+        legs = pickle.load(f)
+    for leg in legs:
+        fn = {"comm": run_comm, "train": run_train}[leg["kind"]]
+        out = fn(leg, rank, world)
+        with open(os.path.join(out_dir, f"{leg['name']}.r{rank}.pkl"),
+                  "wb") as f:
+            pickle.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,217 @@
+#!/usr/bin/env python3
+"""ZeRO stages 0, 1 and 2 across the cards of one host, one process a card.
+
+    python3 zero_multicard.py [--model gpt2|llama] [--world N]
+                              [--json PATH] [--device cpu]
+
+BASELINE config 2 (``--model gpt2``: GPT-2 350M, fp16 from a scale of
+2^16, remat, ``fusedadam``, 8 rows of 1024 tokens a rank) or config 3
+(``--model llama``: the Llama-2-7B-width model cut to 8 layers as
+``chip_smoke.py`` stage 8 cuts it, bf16, accumulation 2, 4 rows of 2048 a
+rank a micro-step), random weights from the seed, through
+``deepspeed_tpu_torch.initialize()`` on an NCCL world of ``--world``
+ranks (default: every card).  Each rank feeds its rows of one global
+batch (``engine.shard_batch``), and every stage runs 1 warm-up and 3
+timed steps from the same weights and data.  Rank 0 prints, a stage:
+the losses, step ms, tokens/s over the world, each rank's peak memory and
+the collectives a step (comms logger); then the largest loss difference
+of ZeRO 1 and 2 from ZeRO 0. It fails when a loss is not finite, when
+the ranks disagree on a loss, when ZeRO 1/2 leave ZeRO 0's losses by more
+than 2^-7 relative (bf16/fp16 training: the reduce-scatter and the
+all-reduce sum the ranks' gradients in other orders), or when a stage's
+peak memory is above the stage before it.  ``--device cpu`` runs gloo
+processes on the CPU at the models' tiny sizes (a rehearsal).
+"""
+
+import argparse
+import gc
+import json
+import math
+import os
+import socket
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+STAGES = (0, 1, 2)
+
+
+def _config(model, stage):
+    common = {"optimizer": {"type": "fusedadam", "params": {"lr": 1e-4}},
+              "zero_optimization": {"stage": stage},
+              "comms_logger": {"enabled": True}}
+    if model == "gpt2":
+        return dict(common, train_micro_batch_size_per_gpu=8,
+                    gradient_accumulation_steps=1,
+                    fp16={"enabled": True, "initial_scale_power": 16})
+    return dict(common, train_micro_batch_size_per_gpu=4,
+                gradient_accumulation_steps=2, bf16={"enabled": True})
+
+
+def _model(model, tiny):
+    from deepspeed_tpu_torch.models import gpt2, llama
+    if model == "gpt2":
+        cfg = (gpt2.gpt2_tiny(dtype="float16", max_position_embeddings=1024)
+               if tiny else gpt2.gpt2_350m(dtype="float16"))
+        return gpt2.GPT2Model(cfg, device="meta"), cfg, 1024
+    cfg = (llama.llama_tiny(dtype="bfloat16", remat=False,
+                            max_position_embeddings=2048) if tiny else
+           llama.llama_7b(num_hidden_layers=8, remat=False,
+                          head_dtype="bfloat16"))
+    return llama.LlamaModel(cfg, device="meta"), cfg, 2048
+
+
+def run_rank(args):
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    torch.set_num_threads(1)
+    cpu = args.device == "cpu"
+    device = "cpu" if cpu else None
+    rows = []
+    for stage in STAGES:
+        model, cfg, S = _model(args.model, cpu)
+        engine = deepspeed_tpu_torch.initialize(
+            model=model, config=_config(args.model, stage),
+            device=device)[0]
+        engine.initialize_parameters(args.seed)
+        world, rank = engine.dp_world_size, engine.dp_rank
+        B = engine.train_micro_batch_size_per_gpu() * world
+        gbatch = np.random.default_rng(args.seed + 1).integers(
+            0, cfg.vocab_size, size=(B, S))
+        (ids, ) = engine.shard_batch(gbatch)
+        gas = engine.gradient_accumulation_steps()
+        sync = (lambda: None) if cpu else torch.cuda.synchronize
+        losses, times = [], []
+        for i in range(1 + args.steps):
+            if i == 1:
+                sync()
+                comm.comms_logger.reset()
+                if not cpu:
+                    torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            for _ in range(gas):
+                loss = engine(ids, ids)
+                engine.backward(loss)
+                engine.step()
+                losses.append(loss.item())
+            sync()
+            if i >= 1:
+                times.append(time.perf_counter() - t)
+        peak = 0 if cpu else torch.cuda.max_memory_allocated()
+        calls = comm.comms_logger.counts()
+        mine = torch.tensor([float(peak)] + losses,
+                            device="cpu" if cpu else "cuda")
+        every = comm.all_gather(mine, tiled=False).cpu()
+        step_s = sum(times) / len(times)
+        rows.append(dict(
+            stage=stage, world=world, losses=losses,
+            rank_losses_equal=bool((every[:, 1:] == every[0, 1:]).all()),
+            step_ms=[t * 1e3 for t in times], step_ms_mean=step_s * 1e3,
+            tokens_per_s=B * S * gas / step_s,
+            peak_bytes_by_rank=[int(x) for x in every[:, 0].tolist()],
+            calls_per_step={k: v / args.steps for k, v in calls.items()},
+            shard_numel=engine.zero_plan.shard_numel,
+            padded_numel=engine.zero_plan.padded_numel,
+            skipped=engine.skipped_steps))
+        del engine, model, loss
+        gc.collect()
+        if not cpu:
+            torch.cuda.empty_cache()
+    if rank == 0:
+        with open(args.out_rank0, "w") as f:
+            json.dump(rows, f)
+    comm.destroy_process_group()
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=("gpt2", "llama"), default="gpt2")
+    ap.add_argument("--world", type=int, default=None)
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--json", help="also write every number to this file")
+    ap.add_argument("--rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--out-rank0", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    sys.path.insert(0, REPO)
+    if args.rank is not None:
+        run_rank(args)
+        return 0
+    import torch
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("zero_multicard: torch sees no CUDA device", file=sys.stderr)
+        return 2
+    world = args.world or (torch.cuda.device_count()
+                           if args.device == "cuda" else 4)
+    smi = ("CPU rehearsal" if args.device == "cpu" else subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().replace("\n", "; "))
+    out = os.path.join(os.environ.get("TMPDIR", "/tmp"),
+                       f"zero_multicard_{os.getpid()}.json")
+    port = str(_free_port())
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world),
+                   LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=port)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), *sys.argv[1:],
+             "--rank", str(rank), "--out-rank0", out], env=env))
+    try:
+        rcs = [p.wait(timeout=1200) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(rcs):
+        print(f"zero_multicard: ranks exited {rcs}", file=sys.stderr)
+        return 1
+    with open(out) as f:
+        rows = json.load(f)
+    os.remove(out)
+    base = rows[0]
+    ok = True
+    for r in rows:
+        diff = max(abs(a - b) for a, b in zip(r["losses"], base["losses"]))
+        scale = max(abs(x) for x in base["losses"])
+        r["max_loss_diff_vs_zero0"] = diff
+        print(f"[zero {r['stage']}] {args.model}, world {r['world']}: "
+              f"losses " + ", ".join(f"{x:.4f}" for x in r["losses"])
+              + f" | step ms {r['step_ms_mean']:.1f}, "
+              f"{r['tokens_per_s']:.1f} tokens/s over the world | peak "
+              "GiB by rank " + ", ".join(
+                  f"{b / 2**30:.2f}" for b in r["peak_bytes_by_rank"])
+              + f" | shard {r['shard_numel']:,} of {r['padded_numel']:,} "
+              f"elements | collectives a step {r['calls_per_step']} | "
+              f"largest loss difference from ZeRO 0 {diff:.3e} | {smi}",
+              flush=True)
+        ok &= all(math.isfinite(x) for x in r["losses"])
+        ok &= r["rank_losses_equal"] and diff <= 2.0**-7 * scale
+    peaks = [max(r["peak_bytes_by_rank"]) for r in rows]
+    ok &= all(b <= a for a, b in zip(peaks, peaks[1:]))
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(dict(card=smi, model=args.model, rows=rows), f,
+                      indent=1)
+    if not ok:
+        print("zero_multicard: a check failed (see the lines above)",
+              file=sys.stderr)
+        return 1
+    print(json.dumps({"ok": True, "model": args.model, "world": world}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
