@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--json PATH] [--profile DIR]
 
-Stages, run in the order 1-24; any failure exits non-zero:
+Stages, run in the order 1-25; any failure exits non-zero:
 
 1. environment: torch/CUDA/nvcc versions, the card's name and power limit;
 2. build: every ``deepspeed_tpu_torch/csrc/*.cu`` with nvcc for sm_90a
@@ -201,11 +201,22 @@ Stages, run in the order 1-24; any failure exits non-zero:
     NCCL: 1 warm-up and 3 timed steps, and the same at ZeRO 0: losses
     against ZeRO 0, step ms, tokens/s, MFU, peak memory beside ZeRO 0's
     and stage 8's, collectives and exact launches (flash 8 a micro-step,
-    Adam once a step).
+    Adam once a step);
+25. stage 24's model and data at ZeRO 3 with ``overlap_comm`` and the
+    gather prefetch armed (``stage3_prefetch_bucket_size``, one block a
+    bucket) and the default persistence threshold (the norms whole), 1
+    warm-up and 3 timed steps: losses and the fp32 master bit-equal to
+    stage 24's ZeRO-0 run, step ms, tokens/s, MFU and peak beside ZeRO 0's,
+    the all-gathers and reduce-scatters a step from the comms logger equal
+    to the plan's (each micro-step one gather a block and of the outer unit
+    in forward, one a block in backward, one reduce-scatter a unit; the
+    persistent unit gathered after the step), exact launches (flash 8 a
+    micro-step, Adam once a step); then 2 steps of ``fusedlamb`` at ZeRO 3
+    and at ZeRO 0, bit-equal, LAMB's two phases once a step.
 
 ``--profile DIR`` adds ``torch.profiler`` windows over serving (stages 4,
 14 and 15), over two training steps of stage 8, of stage 11, of stage 22
-and of each ZeRO stage of stages 23-24, and
+and of each ZeRO stage of stages 23-25, and
 over three MSA-row Evoformer calls (stage 18's first shape, run right
 after the build, as the process's first window): device time by kind and
 the idle share.  A window that kept fewer device records of a kernel than
@@ -4042,16 +4053,23 @@ def stage_bert_train(seed, smi, profile_dir=None):
 
 
 def _zero_pair(torch, make, batches, stages, warmup, timed, label, smi,
-               profile_dir=None):
+               profile_dir=None, ref=None):
     """The same config, seed and data (micro-step j on ``batches[j %
     len(batches)]``) at each ZeRO stage in ``stages`` (the first is
     measured): losses, times, launches, peak, comm calls, the fp32 master
     after the timed steps, on the host (and, with ``profile_dir``, two
-    profiled steps of each).  Returns them, the largest loss difference
-    and whether the two masters are equal bit for bit."""
+    profiled steps of each).  ``ref``: an earlier run of the second stage
+    (its result, with its master under ``"master"``), which is then not run
+    again.  Returns them, the largest loss difference and whether the two
+    masters are equal bit for bit."""
     from deepspeed_tpu_torch import comm
     out, masters = {}, {}
+    if ref is not None:
+        out[stages[1]] = ref
+        masters[stages[1]] = ref["master"]
     for stage in stages:
+        if stage in out:
+            continue
         engine = make(stage)
         comm.comms_logger.reset()
         losses, times, launches, peak = _timed_steps(torch, engine, batches,
@@ -4064,7 +4082,12 @@ def _zero_pair(torch, make, batches, stages, warmup, timed, label, smi,
                           plan=engine.zero_plan.describe(
                               param_bytes=engine.params.element_size(),
                               grad_bytes=engine.grad_acc.element_size(),
-                              master=engine.master is not None))
+                              master=engine.master is not None),
+                          per_step=engine.zero_plan.collectives_per_step(
+                              engine.gradient_accumulation_steps()),
+                          names={n: (o, k) for n, o, k, _ in engine._layout})
+        if engine._coord is not None:
+            out[stage]["peak_live_elems"] = engine._coord.peak_live_elems
         if profile_dir:
             out[stage]["profile"] = _profile_steps(
                 torch, engine, batches, f"{label}_zero{stage}_profile",
@@ -4073,12 +4096,17 @@ def _zero_pair(torch, make, batches, stages, warmup, timed, label, smi,
         _free(torch)
     a, b = out[stages[0]], out[stages[1]]
     diff = max(abs(x - y) for x, y in zip(a["losses"], b["losses"]))
-    same = torch.equal(masters[stages[0]], masters[stages[1]])
+    # leaf by leaf: stage 3 lays the leaves out block by block
+    ma, mb = masters[stages[0]], masters[stages[1]]
+    same = a["names"].keys() == b["names"].keys() and all(
+        torch.equal(ma[o:o + k], mb[b["names"][n][0]:b["names"][n][0] + k])
+        for n, (o, k) in a["names"].items())
     log(f"[{label}] ZeRO {stages[0]} against ZeRO {stages[1]}, same config,"
         f" seed and data ({len(batches)} batches in turn): largest loss "
         f"difference {diff:.3e} over {len(a['losses'])} micro-steps; fp32 "
         f"masters after the last step "
         f"{'bit-equal' if same else 'DIFFER'} | {smi}")
+    b["master"] = masters[stages[1]]
     return out, diff, same
 
 
@@ -4217,7 +4245,129 @@ def stage_llama_zero2(seed, smi, zero0_peak, profile_dir=None):
                 peak_bytes=z["peak"], peak_bytes_zero0=runs[0]["peak"],
                 calls=z["calls"], launches=z["launches"], plan=z["plan"],
                 step_ms_zero0=sum(runs[0]["times"]) / timed * 1e3,
-                profile={s: r.get("profile") for s, r in runs.items()})
+                profile={s: r.get("profile") for s, r in runs.items()},
+                zero0=runs[0])
+
+
+ZERO3 = {"stage": 3, "overlap_comm": True,
+         # an explicit size arms the prefetch: 2e8 bf16 elements a bucket,
+         # so one 7B-width block (202,375,168 elements less its norms)
+         "stage3_prefetch_bucket_size": int(2e8)}
+
+
+def stage_llama_zero3(seed, smi, zero0, profile_dir=None):
+    """Stage 24's model and data at ZeRO 3 with ``overlap_comm`` and the
+    prefetch armed, against stage 24's ZeRO-0 run (``zero0``); then
+    ``fusedlamb`` at ZeRO 3 and ZeRO 0."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models.llama import (LlamaModel, llama_7b,
+                                                  param_count)
+    B, S, L, gas, warmup, timed = 4, 2048, 8, 2, 1, 3
+    cfg = llama_7b(num_hidden_layers=L, remat=False, head_dtype="bfloat16")
+    config = dict(TRAIN_CONFIG, gradient_accumulation_steps=gas,
+                  comms_logger={"enabled": True})
+    rng = np.random.default_rng(seed + 24)      # stage 24's batches
+    batches = [(ids, ids) for ids in (torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(B, S))).cuda() for _ in range(gas))]
+
+    def make(stage, optimizer=None):
+        c = dict(config, zero_optimization=ZERO3 if stage == 3 else
+                 {"stage": stage})
+        if optimizer:
+            c["optimizer"] = optimizer
+        engine = deepspeed_tpu_torch.initialize(
+            model=LlamaModel(cfg, device="meta"), config=c)[0]
+        engine.initialize_parameters(seed)
+        return engine
+
+    runs, diff, same = _zero_pair(torch, make, batches, (3, 0), warmup,
+                                  timed, "llama-zero3", smi, profile_dir,
+                                  ref=zero0)
+    z, z0 = runs[3], runs[0]
+    steps = warmup + timed
+    step_s, tok_s, tflops, mfu, flops_tok = _rates(
+        param_count(cfg), L, S, cfg.hidden_size, gas * B * S, z["times"],
+        BF16_FLOPS)
+    step_s0 = sum(z0["times"]) / len(z0["times"])
+    plan = z["plan"]
+    log(f"[llama-zero3] Llama-2-7B width, {L} layers, bf16, ZeRO 3 on NCCL "
+        f"(world {comm.get_world_size()}), overlap_comm, prefetch "
+        f"{plan['prefetch_bucket_mb']:.1f} MB buckets, gradient "
+        f"accumulation {gas}: losses "
+        + ", ".join(f"{x:.4f}" for x in z["losses"]))
+    log(f"[llama-zero3] units {plan['unit_kinds']}, persistent "
+        f"{plan['persistent_numel']:,} elements, sharded "
+        f"{plan['sharded_bytes'] / 2**30:.2f} GiB, replicated "
+        f"{plan['replicated_bytes'] / 2**30:.4f} GiB; peak gathered "
+        f"{z['peak_live_elems']:,} elements")
+    log(f"[llama-zero3] step ms (2 micro-steps) " + ", ".join(
+        f"{t * 1e3:.1f}" for t in z["times"])
+        + f" | mean {step_s * 1e3:.1f} ms ({step_s / step_s0 - 1:+.2%} of "
+        f"ZeRO 0's {step_s0 * 1e3:.1f}), {tok_s:.1f} tokens/s (ZeRO 0 "
+        f"{gas * B * S / step_s0:.1f}), MFU {mfu:.4f} (ZeRO 0 "
+        f"{mfu * step_s / step_s0:.4f}) | peak memory "
+        f"{z['peak'] / 2**30:.2f} GiB (ZeRO 0 {z0['peak'] / 2**30:.2f}) | "
+        f"collectives {z['calls']} in {steps} steps | {smi}")
+    log(f"[llama-zero3] launches in {steps} steps: {z['launches']}")
+    want = {"flash_attention_fwd": L * gas * steps,
+            "flash_attention_bwd_dq": L * gas * steps,
+            "flash_attention_bwd_dkv": L * gas * steps,
+            "fused_adam_step": steps}
+    if z["launches"] != want:
+        raise AssertionError(f"kernel launches {z['launches']}, want {want}")
+    # per micro-step: the outer unit and each block gathered in forward,
+    # each block again in backward, every unit reduce-scattered; the
+    # persistent unit gathered after each step
+    per_step = z["per_step"]
+    if per_step != {"allgather_fn": gas * (1 + 2 * L) + 1,
+                    "reduce_scatter_fn": gas * (L + 2)} or \
+            {k: z["calls"].get(k) for k in per_step} != \
+            {k: n * steps for k, n in per_step.items()}:
+        raise AssertionError(f"collectives {z['calls']} for {steps} steps, "
+                             f"the plan's {per_step} a step")
+    # one rank: gathers and reduce-scatters are copies, the gradients the
+    # same ops on the same values
+    if not all(np.isfinite(z["losses"])) or diff != 0 or not same:
+        raise AssertionError(f"ZeRO 3 apart from ZeRO 0: losses by {diff}, "
+                             f"masters bit-equal {same}")
+    # B3 on the stage-3 shard: 2 steps at ZeRO 3 and at ZeRO 0
+    lamb = {"type": "fusedlamb", "params": {"lr": 1e-4,
+                                            "weight_decay": 0.01}}
+    lruns, ldiff, lsame = _zero_pair(
+        torch, lambda st: make(st, lamb), batches, (3, 0), 0, 2,
+        "llama-zero3-lamb", smi)
+    lz = lruns[3]
+    lwant = {"flash_attention_fwd": L * gas * 2,
+             "flash_attention_bwd_dq": L * gas * 2,
+             "flash_attention_bwd_dkv": L * gas * 2,
+             "fused_lamb_phase1": 2, "fused_lamb_phase2": 2}
+    log(f"[llama-zero3] fusedlamb at ZeRO 3, 2 steps: losses "
+        + ", ".join(f"{x:.4f}" for x in lz["losses"]) + f", launches "
+        f"{lz['launches']}, peak {lz['peak'] / 2**30:.2f} GiB (ZeRO 0 "
+        f"{lruns[0]['peak'] / 2**30:.2f}) | {smi}")
+    if lz["launches"] != lwant or lruns[0]["launches"] != lwant:
+        raise AssertionError(f"LAMB launches {lz['launches']}, ZeRO 0 "
+                             f"{lruns[0]['launches']}, want {lwant}")
+    if ldiff != 0 or not lsame:
+        raise AssertionError(f"LAMB at ZeRO 3 apart from ZeRO 0: losses by "
+                             f"{ldiff}, masters bit-equal {lsame}")
+    return dict(losses=z["losses"], losses_zero0=z0["losses"],
+                max_loss_diff=diff, masters_equal=same,
+                step_ms=[t * 1e3 for t in z["times"]],
+                step_ms_mean=step_s * 1e3, step_ms_zero0=step_s0 * 1e3,
+                tokens_per_s=tok_s, mfu=mfu, peak_bytes=z["peak"],
+                peak_bytes_zero0=z0["peak"], calls=z["calls"],
+                per_step=per_step, launches=z["launches"], plan=plan,
+                peak_live_elems=z["peak_live_elems"],
+                lamb=dict(losses=lz["losses"],
+                          losses_zero0=lruns[0]["losses"],
+                          max_loss_diff=ldiff, masters_equal=lsame,
+                          launches=lz["launches"], peak_bytes=lz["peak"],
+                          peak_bytes_zero0=lruns[0]["peak"]),
+                profile=z.get("profile"))
 
 
 def main():
@@ -4282,6 +4432,8 @@ def main():
     gpt2_zero1 = stage_gpt2_zero1(args.seed, smi, args.profile)
     llama_zero2 = stage_llama_zero2(args.seed, smi, train["peak_bytes"],
                                     args.profile)
+    llama_zero3 = stage_llama_zero3(args.seed, smi,
+                                    llama_zero2.pop("zero0"), args.profile)
 
     entries = []
     for wrapper, case in (("paged_attention", "serve_decode"),
@@ -4340,13 +4492,15 @@ def main():
              launches_bert=bert["launches"]["fused_adam_step"],
              launches_gpt2_zero1=gpt2_zero1["launches"]["fused_adam_step"],
              launches_llama_zero2=llama_zero2["launches"][
+                 "fused_adam_step"],
+             launches_llama_zero3=llama_zero3["launches"][
                  "fused_adam_step"]),
     ]
-    entries[-3]["launches_llama_zero2"] = llama_zero2["launches"][
-        "flash_attention_fwd"]
-    entries[-2]["launches_llama_zero2"] = (
-        llama_zero2["launches"]["flash_attention_bwd_dq"] +
-        llama_zero2["launches"]["flash_attention_bwd_dkv"])
+    for key, run in (("launches_llama_zero2", llama_zero2),
+                     ("launches_llama_zero3", llama_zero3)):
+        entries[-3][key] = run["launches"]["flash_attention_fwd"]
+        entries[-2][key] = (run["launches"]["flash_attention_bwd_dq"] +
+                            run["launches"]["flash_attention_bwd_dkv"])
     lamb = next(r for r in gpt2_kernels if r["case"] == "lamb_float32")
     lion = next(r for r in gpt2_kernels if r["case"] == "lion_float32")
     opt_src = "deepspeed_tpu_torch/csrc/optimizers.cu"
@@ -4358,14 +4512,18 @@ def main():
              max_abs_err=lamb["err_phase1"], ms=lamb["ms_phase1"],
              plain_ms=lamb["plain_ms_phase1"],
              bound_ms=lamb["bound_phase1"][0],
-             bound_by=lamb["bound_phase1"][1], library_ms=None),
+             bound_by=lamb["bound_phase1"][1], library_ms=None,
+             launches_llama_zero3=llama_zero3["lamb"]["launches"][
+                 "fused_lamb_phase1"]),
         dict(name="fused_lamb_phase2", route="cuda", source=opt_src,
              replaces=src + "optimizers.py:250",
              launches=gpt2["launches"]["fused_lamb_phase2"],
              max_abs_err=lamb["err_phase2"], ms=lamb["ms_phase2"],
              plain_ms=lamb["plain_ms_phase2"],
              bound_ms=lamb["bound_phase2"][0],
-             bound_by=lamb["bound_phase2"][1], library_ms=None),
+             bound_by=lamb["bound_phase2"][1], library_ms=None,
+             launches_llama_zero3=llama_zero3["lamb"]["launches"][
+                 "fused_lamb_phase2"]),
         dict(name="fused_lion_step", route="cuda", source=opt_src,
              replaces=src + "optimizers.py:150",
              launches=gpt2["lion"]["launches"]["fused_lion_step"],
@@ -4499,6 +4657,7 @@ def main():
                            sparse_kernels=sparse_kernels, sparse=sparse,
                            fp_quant=fpq, bert=bert, gpt2_zero1=gpt2_zero1,
                            llama_zero2=llama_zero2,
+                           llama_zero3=llama_zero3,
                            seconds=time.perf_counter() - t_start),
                       f, indent=1, default=str)
     from deepspeed_tpu_torch import comm

@@ -3,7 +3,7 @@
 of Ulysses, MoE and the pipeline, is not ported: its callers are ROADMAP
 queue A items 8 and 9."""
 
-from .backend import ProcessGroup, TorchBackend
+from .backend import AsyncHandle, ProcessGroup, TorchBackend
 from .comm import (all_gather, all_gather_coalesced, all_gather_into_tensor,
                    all_reduce, all_reduce_coalesced, all_to_all,
                    all_to_all_single, allgather_fn, barrier, broadcast,

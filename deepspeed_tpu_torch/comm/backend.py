@@ -19,16 +19,53 @@ holds block r of that global array.  Every op keeps JAX's result per rank:
 * ``barrier``.
 
 Each returns its result.  Where torch's op works in place (``all_reduce``,
-``broadcast``) the input tensor is that result.  The collectives are
-``all_reduce``, ``all_gather_into_tensor``, ``reduce_scatter_tensor``,
-``all_to_all_single``, ``broadcast`` and ``barrier``, which torch 2.11 and
-2.13 both have.
+``broadcast``) the input tensor is that result.  ``all_reduce``,
+``all_gather_into`` and ``reduce_scatter`` into a given output also take
+``async_op=True`` and then return an :class:`AsyncHandle` instead.  The
+collectives are ``all_reduce``, ``all_gather_into_tensor``,
+``reduce_scatter_tensor``, ``all_to_all_single``, ``broadcast`` and
+``barrier``, which torch 2.11 and 2.13 both have.
 """
 
 import torch
 import torch.distributed as dist
 
 from .reduce_op import ReduceOp, torch_op
+
+
+class AsyncHandle:
+    """An async collective in flight (``torch.distributed``'s ``Work``).
+    :meth:`wait` makes the current stream wait for it (on the CPU: the
+    caller) and returns its result; a one-rank group's handle is complete
+    from the start.  ``on_wait`` callbacks run once, at the first wait."""
+
+    def __init__(self, work, result):
+        self._work = work
+        self.result = result
+        self._on_wait = []
+        self._waited = False
+
+    def on_wait(self, fn):
+        self._on_wait.append(fn)
+
+    def is_completed(self):
+        return self._waited or self._work is None or \
+            self._work.is_completed()
+
+    def wait(self):
+        if not self._waited:
+            if self._work is not None:
+                self._work.wait()
+            self._work = None
+            self._waited = True
+            for fn in self._on_wait:
+                fn()
+        return self.result
+
+
+def _done(result, work, async_op):
+    """``result``, or with ``async_op`` its handle."""
+    return AsyncHandle(work, result) if async_op else result
 
 
 class ProcessGroup:
@@ -78,11 +115,13 @@ class TorchBackend:
     def _group(self, group):
         return group if group is not None else self.world_group
 
-    def all_reduce(self, x, op=ReduceOp.SUM, group=None):
+    def all_reduce(self, x, op=ReduceOp.SUM, group=None, async_op=False):
         g = self._group(group)
+        work = None
         if not g.local:
-            dist.all_reduce(x, op=torch_op(op), group=g.pg)
-        return x
+            work = dist.all_reduce(x, op=torch_op(op), group=g.pg,
+                                   async_op=async_op)
+        return _done(x, work, async_op)
 
     def all_gather(self, x, group=None, axis=0, tiled=True):
         g = self._group(group)
@@ -98,20 +137,25 @@ class TorchBackend:
             return out.view((n, ) + tuple(x.shape))
         return out.movedim(0, axis) if axis else out
 
-    def all_gather_into(self, out, x, group=None):
+    def all_gather_into(self, out, x, group=None, async_op=False):
         """Flat all-gather into ``out`` (n × ``x.numel()`` elements); ``x``
         may be ``out``'s own block r, which is then gathered in place."""
         g = self._group(group)
+        work = None
         if g.local:
             if out.data_ptr() != x.data_ptr():
                 out.copy_(x)
-            return out
-        dist.all_gather_into_tensor(out, x, group=g.pg)
-        return out
+        else:
+            work = dist.all_gather_into_tensor(out, x, group=g.pg,
+                                               async_op=async_op)
+        return _done(out, work, async_op)
 
     def reduce_scatter(self, x, op=ReduceOp.SUM, group=None, axis=0,
-                       out=None):
+                       out=None, async_op=False):
         g = self._group(group)
+        if async_op and out is None:
+            raise ValueError("an async reduce_scatter writes into a given "
+                             "output")
         n = g.size()
         axis = axis % max(x.dim(), 1)
         if x.shape[axis] % n:
@@ -120,7 +164,7 @@ class TorchBackend:
         if g.local:
             if out is not None:
                 out.copy_(x)
-                return out
+                return _done(out, None, async_op)
             return x
         xm = _contig_front(x, axis)
         if out is None:
@@ -128,8 +172,9 @@ class TorchBackend:
                               dtype=x.dtype, device=x.device)
             dist.reduce_scatter_tensor(out, xm, op=torch_op(op), group=g.pg)
             return out.movedim(0, axis) if axis else out
-        dist.reduce_scatter_tensor(out, xm, op=torch_op(op), group=g.pg)
-        return out
+        work = dist.reduce_scatter_tensor(out, xm, op=torch_op(op),
+                                          group=g.pg, async_op=async_op)
+        return _done(out, work, async_op)
 
     def broadcast(self, x, src=0, group=None):
         g = self._group(group)

@@ -8,6 +8,10 @@ of them set, a one-rank world, as the JAX facade builds a one-process
 mesh).  The collectives keep the JAX facade's names, aliases and per-rank
 results (``backend.py``).  Every collective is wrapped by :func:`timed_op`,
 which feeds the comms logger when the ``comms_logger`` config enables it.
+``all_reduce``, ``allgather_fn`` and ``reduce_scatter_fn`` honour
+``async_op=True``: they return an :class:`~.backend.AsyncHandle` whose
+``wait()`` makes the current stream wait for the collective (a one-rank
+group's handle is already complete).
 
 Not ported: the collectives engine (``set_collectives_engine``, the
 ``comm_optimizations`` dispatch; ROADMAP queue A item 7) and the host
@@ -25,7 +29,7 @@ import torch.distributed as dist
 from ..utils.comms_logging import CommsLogger, get_msg_size_from_args
 from ..utils.logging import logger
 from ..utils.not_ported import not_ported
-from .backend import ProcessGroup, TorchBackend
+from .backend import AsyncHandle, ProcessGroup, TorchBackend
 from .reduce_op import ReduceOp
 
 cdb = None  # the current backend (reference comm/comm.py:41)
@@ -111,7 +115,10 @@ def _event(x):
 
 def timed_op(func):
     """Record the op in the comms logger when it is on for this op's name:
-    events around the launch, the message size and the group's size."""
+    events around the launch, the message size and the group's size.  An
+    async op is recorded once, at its launch; its end event is recorded
+    when its handle is first waited on (so its time runs from the launch to
+    that wait)."""
     sig = inspect.signature(func)
 
     @functools.wraps(func)
@@ -125,10 +132,14 @@ def timed_op(func):
             return func(*args, **kwargs)
         start = _event(x)
         result = func(*args, **kwargs)
-        end = _event(x)
+        handle = result if isinstance(result, AsyncHandle) else None
+        end = None if handle is not None else _event(x)
         group = bound.get("group")
         ws = group.size() if group is not None else get_world_size()
-        comms_logger.record(name, get_msg_size_from_args(x), ws, start, end)
+        entry = comms_logger.record(name, get_msg_size_from_args(x), ws,
+                                    start, end)
+        if handle is not None:
+            handle.on_wait(lambda: entry.__setitem__(4, _event(x)))
         return result
 
     return wrapper
@@ -292,8 +303,10 @@ def get_local_rank():
 # ------------------------------------------------------------ collectives
 @timed_op
 def all_reduce(tensor, op=ReduceOp.SUM, group=None, async_op=False):
-    """The reduction over the ranks, in place on every rank; returns it."""
-    return _backend(group).all_reduce(tensor, op=op, group=group)
+    """The reduction over the ranks, in place on every rank; returns it (or,
+    with ``async_op``, its handle)."""
+    return _backend(group).all_reduce(tensor, op=op, group=group,
+                                      async_op=async_op)
 
 
 @timed_op
@@ -380,18 +393,21 @@ def allgather_fn(output_tensor, input_tensor, group=None, async_op=False,
                  debug=None):
     """Flat all-gather of ``input_tensor`` into ``output_tensor`` (torch's
     ``all_gather_into_tensor`` argument order); ``input_tensor`` may be
-    ``output_tensor``'s own block, gathered in place.  Returns the output."""
+    ``output_tensor``'s own block, gathered in place.  Returns the output
+    (or, with ``async_op``, its handle)."""
     return _backend(group).all_gather_into(output_tensor, input_tensor,
-                                           group=group)
+                                           group=group, async_op=async_op)
 
 
 @timed_op
 def reduce_scatter_fn(output_tensor, input_tensor, op=ReduceOp.SUM,
                       group=None, async_op=False, debug=None):
     """Flat reduce-scatter of ``input_tensor`` into ``output_tensor`` (rank
-    r's block of the reduction).  Returns the output."""
+    r's block of the reduction).  Returns the output (or, with
+    ``async_op``, its handle)."""
     return _backend(group).reduce_scatter(input_tensor.reshape(-1), op=op,
-                                          group=group, out=output_tensor)
+                                          group=group, out=output_tensor,
+                                          async_op=async_op)
 
 
 @timed_op

@@ -192,7 +192,9 @@ def lm_loss(logits, labels, attention_mask=None, loss_reduction="mean"):
         total, count = (loss * m).sum(), m.sum()
     else:
         total = loss.sum()
-        count = torch.tensor(float(loss.numel()), device=loss.device)
+        # filled on the device: no copy from the host, no wait for it
+        count = torch.full((), float(loss.numel()), dtype=torch.float32,
+                           device=loss.device)
     if loss_reduction == "sum_count":
         return total, count
     if loss_reduction != "mean":

@@ -5,7 +5,7 @@ Same key names as the JAX package: the batch trinity
 (``train_batch_size``, ``train_micro_batch_size_per_gpu``,
 ``gradient_accumulation_steps``), ``bf16``/``bfloat16``, ``fp16`` (with
 dynamic loss scaling), ``optimizer``, ``scheduler``,
-``gradient_clipping``, ``zero_optimization`` (stages 0-2,
+``gradient_clipping``, ``zero_optimization`` (stages 0-3,
 ``runtime/zero/config.py``), ``steps_per_print``,
 ``data_types.grad_accum_dtype``, ``resilience.check_finite_grads``,
 ``comms_logger``, ``wall_clock_breakdown``, ``mesh.dp``,
@@ -38,6 +38,11 @@ PORTED_OPTIMIZERS = ADAM_OPTIMIZERS + (LAMB_OPTIMIZER, FUSED_LAMB_OPTIMIZER,
 _UNPORTED_OPTIMIZERS = {"muon": 11, "adagrad": 11, "onebitadam": 7,
                         "zerooneadam": 7, "onebitlamb": 7}
 GRAD_ACCUM_DTYPES = (None, "fp32", "bf16", "fp16")
+# buckets in flight of the gradient overlap and of the gather prefetch (the
+# JAX package's ``comm_optimizations.overlap[.prefetch].max_inflight``
+# default, which the port has no block to set)
+MAX_INFLIGHT = 2
+MB = 1 << 20
 
 
 class DeepSpeedConfigError(Exception):
@@ -260,6 +265,7 @@ class DeepSpeedConfig:
         self.bfloat16_enabled = self.bf16_config.enabled
         if self.fp16_enabled and self.bfloat16_enabled:
             raise DeepSpeedConfigError("fp16 and bf16 cannot both be enabled")
+        self._zero_schedulers(pd)
         _check_fp16(self.fp16_config)
         self.fp16_auto_cast = self.fp16_config.auto_cast
         self.loss_scale = self.fp16_config.loss_scale
@@ -308,6 +314,25 @@ class DeepSpeedConfig:
                 f"data_types.grad_accum_dtype "
                 f"{self.gradient_accumulation_dtype!r} unknown (have fp32, "
                 f"bf16, fp16)")
+
+    def _zero_schedulers(self, pd):
+        """The JAX package's arming rules (``config.py:572-600``):
+        ``overlap_comm`` arms the bucketed gradient reduce (stages 2-3
+        here), and an EXPLICIT ``stage3_prefetch_bucket_size`` > 0 arms
+        the forward gather prefetch at stage 3.  That knob is an element
+        count, turned into bytes by the compute dtype's item size (its
+        default must not size buckets)."""
+        zc = self.zero_config
+        self.overlap_comm_enabled = bool(zc.overlap_comm) and zc.stage >= 2
+        zo = pd.get("zero_optimization") or {}
+        explicit = ("stage3_prefetch_bucket_size" in zo
+                    or "prefetch_bucket_size" in zo)
+        self.prefetch_enabled = (explicit and zc.stage >= 3
+                                 and zc.prefetch_bucket_size > 0)
+        itemsize = 2 if (self.fp16_enabled or self.bfloat16_enabled) else 4
+        self.prefetch_bucket_mb = (zc.prefetch_bucket_size * itemsize /
+                                   float(MB) if self.prefetch_enabled
+                                   else 0.0)
 
     def resolve_batch_sizes(self, dp_world_size):
         """Complete the trinity given the data-parallel degree

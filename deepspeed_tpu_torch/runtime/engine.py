@@ -1,4 +1,4 @@
-"""DeepSpeedEngine, ZeRO stages 0-2 (the port of
+"""DeepSpeedEngine, ZeRO stages 0-3 (the port of
 ``deepspeed_tpu/runtime/engine.py``; reference ``runtime/engine.py:183``).
 
 The JAX engine owns a jitted train step over a mesh; this one owns a torch
@@ -44,6 +44,16 @@ group (:meth:`DeepSpeedEngine._init_comm`):
   compute-dtype shard is all-gathered in place into the flat parameters
   the module's parameters view.  At world size > 1 without ZeRO the
   accumulator is all-reduced instead.
+* ZeRO 3, and stage 2 with ``overlap_comm`` (``runtime/zero/overlap.py``,
+  the design of the reference's ``stage3.py``): the layout is one unit a
+  block of the model, an outer unit and (stage 3) a persistent unit, each
+  padded and sliced over the ranks; the shard is the rank's slices.  Each
+  unit's gradients are reduce-scattered into the shard accumulator as soon
+  as backward has produced them.  At stage 3 ``self.params`` is the
+  compute-dtype shard: a block's parameters are gathered into its buffer
+  just before it runs, forward and backward, and released after; the step
+  gathers no parameters but the persistent unit's.  Bucketed stage 2 keeps
+  the parameters whole and gathers them unit by unit after the step.
 * The loss over the global batch: the JAX engine runs one program on the
   global batch, whose loss is the masked mean over every rank's rows.  A
   model whose ``forward`` takes ``loss_reduction`` hands back the masked
@@ -73,12 +83,15 @@ from ..utils.timer import (BACKWARD_GLOBAL_TIMER, FORWARD_GLOBAL_TIMER,
                            SynchronizedWallClockTimer)
 from .config import (ADAM_OPTIMIZERS, ADAMW_OPTIMIZER, FUSED_ADAM_OPTIMIZER,
                      FUSED_LAMB_OPTIMIZER, LAMB_OPTIMIZER, LION_OPTIMIZER,
-                     SGD_OPTIMIZER, DeepSpeedConfig)
+                     MAX_INFLIGHT, SGD_OPTIMIZER, DeepSpeedConfig)
 from .loss_scaler import create_loss_scaler, has_overflow
 from .lr_schedules import get_lr_scheduler
 from .utils import (clip_coefficient, count_parameters, global_grad_norm,
                     make_scaled_loss_fn)
-from .zero.partition import ALIGN as _ALIGN, ZeroPartitionPlan
+from .zero.overlap import (MB, Unit, ZeroCoordinator, block_modules,
+                           gather_items)
+from .zero.partition import (ALIGN as _ALIGN, BLOCK, OUTER, PERSISTENT,
+                             ZeroPartitionPlan, min_partition_size)
 
 # _ALIGN (16 elements): every leaf starts 64-byte aligned in fp32 buffers
 _ACCUM_DTYPES = {None: torch.float32, "fp32": torch.float32,
@@ -228,6 +241,8 @@ class DeepSpeedEngine:
             self.device)) if config.wall_clock_breakdown else NoopTimer())
 
         self.params = None        # flat, compute dtype; module params view it
+        self._pshard = None       # bucketed stage 2: the update's output
+        self._coord = None        # bucketed plans: ZeroCoordinator
         self.master = None        # flat fp32 (mixed precision only)
         self.grad_acc = None
         self.opt_state = None
@@ -293,26 +308,96 @@ class DeepSpeedEngine:
             tie()
 
     def _bind(self, flat):
-        """Make the module's parameters views into ``flat``."""
+        """Make the module's parameters views into ``flat`` (a buffer of
+        the whole layout)."""
         for name, off, n, shape in self._layout:
-            *path, leaf = name.split(".")
-            mod = self.module.get_submodule(".".join(path))
-            setattr(mod, leaf, torch.nn.Parameter(
-                flat[off:off + n].view(shape), requires_grad=True))
+            self._set_param(name, flat[off:off + n].view(shape))
         self._tie()
 
+    def _set_param(self, name, view):
+        *path, leaf = name.split(".")
+        mod = self.module.get_submodule(".".join(path))
+        setattr(mod, leaf, torch.nn.Parameter(view, requires_grad=True))
+
+    def _bind_units(self):
+        """Stage 3: the module's parameters, views into their units'
+        buffers (made while each buffer is allocated)."""
+        for u in self._coord.units:
+            with self._coord.allocated(u):
+                for name, off, n, shape in u.leaves:
+                    self._set_param(name, u.buffer[off:off + n].view(shape))
+        self._tie()
+
+    def _units(self, named):
+        """[(kind, block module or None, [(name, shape)])]: the outer unit,
+        one unit a block (``block_modules``) and, at stage 3, the persistent
+        unit of the leaves below the persistence threshold; empty units
+        left out."""
+        blocks = block_modules(self.module)
+        _, whole = gather_items(named, min_partition_size(
+            self._config.zero_config) if self.zero_stage == 3 else 0)
+        outer, persistent = [], []
+        inner = [[] for _ in blocks]
+        for name, p in named:
+            if name in whole:
+                persistent.append((name, p.shape))
+                continue
+            for (prefix, _), leaves in zip(blocks, inner):
+                if name.startswith(prefix + "."):
+                    leaves.append((name, p.shape))
+                    break
+            else:
+                outer.append((name, p.shape))
+        units = [(OUTER, None, outer)] + [
+            (BLOCK, m, leaves) for (_, m), leaves in zip(blocks, inner)]
+        units.append((PERSISTENT, None, persistent))
+        return [u for u in units if u[2]]
+
+    def _plan_units(self, named):
+        """The bucketed plan, the flat layout (unit after unit) and the
+        coordinator's units."""
+        spec, local = self._units(named), []
+        for kind, _, leaves in spec:
+            local.append(flat_layout(leaves))
+        zc = self._config.zero_config
+        cfg = self._config
+        plan = ZeroPartitionPlan(
+            self.zero_stage, self.dp_world_size, self.dp_rank, None, zc,
+            units=[(kind, n) for (kind, _, _), (_, n) in zip(spec, local)],
+            schedule=dict(
+                min_partition_size=(min_partition_size(zc)
+                                    if self.zero_stage == 3 else 1),
+                overlap_enabled=cfg.overlap_comm_enabled,
+                overlap_max_inflight=MAX_INFLIGHT,
+                prefetch_enabled=cfg.prefetch_enabled,
+                prefetch_bucket_mb=cfg.prefetch_bucket_mb,
+                prefetch_max_inflight=MAX_INFLIGHT))
+        layout, units = [], []
+        for u, ((kind, module, _), (leaves, _)) in enumerate(zip(spec,
+                                                                  local)):
+            base = plan.unit_offset[u]
+            layout += [(name, base + off, n, shape)
+                       for name, off, n, shape in leaves]
+            units.append(Unit(u, kind, module, leaves))
+        return plan, layout, units
+
     def _install_parameters(self, model_parameters=None):
-        """Lay every trainable leaf out in one flat buffer of the compute
+        """Lay every trainable leaf out in flat buffers of the compute
         dtype (and an fp32 master when mixed), from ``model_parameters``
-        (name → tensor, e.g. fp32 weights) or the module's own values."""
+        (name → tensor, e.g. fp32 weights) or the module's own values: one
+        buffer of the whole layout, or at stage 3 this rank's shard and the
+        persistent unit's buffer."""
         self._tie()
         named = list(self.module.named_parameters())
-        layout, off = flat_layout((n, p.shape) for n, p in named)
+        zc = self._config.zero_config
+        if zc.bucketed:
+            plan, layout, units = self._plan_units(named)
+        else:
+            layout, off = flat_layout((n, p.shape) for n, p in named)
+            plan = ZeroPartitionPlan(self.zero_stage, self.dp_world_size,
+                                     self.dp_rank, off, zc)
         self._layout = layout
-        plan = self.zero_plan = ZeroPartitionPlan(
-            self.zero_stage, self.dp_world_size, self.dp_rank, off,
-            self._config.zero_config)
-        lo, hi = plan.shard_range()
+        self.zero_plan = plan
         source = (dict(model_parameters) if model_parameters is not None
                   else {n: p for n, p in named})
         missing = [n for n, *_ in layout if n not in source]
@@ -321,12 +406,24 @@ class DeepSpeedEngine:
             raise KeyError(f"model_parameters: missing {missing[:4]}, "
                            f"unknown {unknown[:4]}")
         mixed = self.compute_dtype != torch.float32
-        self.params = torch.zeros(plan.padded_numel, dtype=self.compute_dtype,
+        whole = self.zero_stage < 3
+        S = plan.shard_numel
+        self.params = torch.zeros(plan.padded_numel if whole else S,
+                                  dtype=self.compute_dtype,
                                   device=self.device)
-        self.master = (torch.zeros(hi - lo, dtype=torch.float32,
+        self._pshard = (torch.zeros(S, dtype=self.compute_dtype,
+                                    device=self.device)
+                        if plan.bucketed and whole else None)
+        self.master = (torch.zeros(S, dtype=torch.float32,
                                    device=self.device) if mixed else None)
+        if zc.bucketed:
+            self._make_coordinator(units)
+        shard = self._param_shard() if plan.bucketed else None
+        pieces = {}
+        for off, k, within, i in plan.pieces(layout):
+            pieces.setdefault(i, []).append((off, k, within))
         with torch.no_grad():
-            for name, o, n, shape in layout:
+            for i, (name, o, n, shape) in enumerate(layout):
                 t = torch.as_tensor(source[name])
                 if tuple(t.shape) != shape:
                     raise ValueError(f"{name}: shape {tuple(t.shape)} != "
@@ -334,37 +431,93 @@ class DeepSpeedEngine:
                 if t.is_meta:
                     continue
                 t = t.detach().to(self.device).reshape(-1)
-                self.params[o:o + n].copy_(t)
-                a, b = max(o, lo), min(o + n, hi)
-                if mixed and a < b:
-                    self.master[a - lo:b - lo].copy_(t[a - o:b - o])
-        self._bind(self.params)
+                if whole:
+                    self.params[o:o + n].copy_(t)
+                for off, k, within in pieces.get(i, ()):
+                    if mixed:
+                        self.master[off:off + k].copy_(t[within:within + k])
+                    if shard is not None:
+                        shard[off:off + k].copy_(t[within:within + k])
+            if not whole:
+                self._fill_persistent(
+                    lambda name, o, n: torch.as_tensor(source[name]))
+        self._bind_module()
         self.grad_acc = None
         self._acc_fresh = True
+
+    def _make_coordinator(self, units):
+        if self._coord is not None:
+            self._coord.detach()
+        cfg = self._config
+        prefetch = None
+        if cfg.prefetch_enabled:
+            prefetch = dict(
+                bucket_bytes=max(1, int(cfg.prefetch_bucket_mb * MB)),
+                max_inflight=MAX_INFLIGHT,
+                max_live_params=int(cfg.zero_config.max_live_parameters
+                                    or 0))
+        self._coord = ZeroCoordinator(
+            self.zero_plan, units, self._dp_group, self.device,
+            self.compute_dtype, self.grad_accum_dtype,
+            shard=self.params if self.zero_stage == 3 else None,
+            overlap=cfg.overlap_comm_enabled, max_inflight=MAX_INFLIGHT,
+            prefetch=prefetch)
+
+    def _fill_persistent(self, value):
+        """Stage 3: the persistent unit's buffer from ``value(name, flat
+        offset, numel)``, each leaf's whole values."""
+        for u in self._coord.units:
+            if u.kind != PERSISTENT:
+                continue
+            base = self.zero_plan.unit_offset[u.index]
+            for name, off, n, _ in u.leaves:
+                t = value(name, base + off, n)
+                if not t.is_meta:
+                    u.buffer[off:off + n].copy_(t.detach().reshape(-1))
+
+    def _bind_module(self):
+        """The module's parameters onto the installed buffers, with the
+        coordinator's gradient hooks on them."""
+        if self.zero_stage == 3:
+            self._bind_units()
+        else:
+            self._bind(self.params)
+        if self._coord is not None:
+            self._coord.attach(dict(self.module.named_parameters()))
 
     def initialize_parameters(self, seed, *sample_inputs, **kw):
         """Random weights from the module's ``init_weights`` with a
         ``torch.Generator`` seeded on the engine's device, drawn in fp32
-        (into the master when mixed) and cast to the compute dtype."""
+        (into the master when mixed) and cast to the compute dtype.  A
+        sharded or bucketed layout draws the whole model in fp32 once (so
+        every stage starts from the same weights), keeps this rank's shard
+        and frees the rest."""
         if self._layout is None:
             self._install_parameters()
         gen = torch.Generator(device=self.device).manual_seed(int(seed))
-        if self.master is None:
-            self._bind(self.params)
+        plan = self.zero_plan
+        if self.master is None and not plan.bucketed:
+            self._bind_module()
             self.module.init_weights(gen)
         else:
             # drawn in fp32 over the whole layout (every rank draws the
             # same weights), then this rank's shard kept as the master
-            full = torch.zeros(self.params.numel(), dtype=torch.float32,
+            full = torch.zeros(plan.padded_numel, dtype=torch.float32,
                                device=self.device)
             self._bind(full)
             self.module.init_weights(gen)
-            lo, hi = self.zero_plan.shard_range()
             with torch.no_grad():
-                self.master.copy_(full[lo:hi])
-                self.params.copy_(full)
+                if self.master is not None:
+                    plan.take_shard(full, out=self.master)
+                if self.zero_stage < 3:
+                    self.params.copy_(full)
+                if plan.bucketed:
+                    plan.take_shard(full, out=self._param_shard())
+                if self.zero_stage == 3:
+                    self._fill_persistent(lambda _, o, n: full[o:o + n])
+                    self._coord.release_all()
             del full
-            self._bind(self.params)
+            self._bind_module()
         if self.opt_state is None:
             self._init_opt_state()
         return self.module
@@ -410,10 +563,9 @@ class DeepSpeedEngine:
         """LAMB's trust ratio is per leaf, and a leaf may straddle two
         ranks' shards: its pieces' sums are summed over the ranks.  (At one
         rank the pieces are whole leaves and the fused call runs.)"""
-        lo, hi = self.zero_plan.shard_range()
         self._piece_leaf = torch.tensor(
-            [i for i, (_, o, n, _) in enumerate(self._layout)
-             if max(o, lo) < min(o + n, hi)], device=self.device)
+            [p[3] for p in self.zero_plan.pieces(self._layout)],
+            device=self.device)
         self.opt_state.reduce_sums = self._leaf_sums
 
     def _leaf_sums(self, piece_sums):
@@ -425,15 +577,22 @@ class DeepSpeedEngine:
         dist.all_reduce(leaves, group=self._dp_group)
         return leaves[self._piece_leaf]
 
-    def _shard(self, flat):
+    def _param_shard(self):
+        """This rank's compute-dtype shard, which the update writes: a
+        slice of the whole buffer with one unit, the shard buffer of
+        bucketed stage 2, the parameters themselves at stage 3."""
+        if self.zero_stage == 3:
+            return self.params
+        if self._pshard is not None:
+            return self._pshard
         lo, hi = self.zero_plan.shard_range()
-        return flat[lo:hi]
+        return self.params[lo:hi]
 
     def _target(self):
         """The fp32 buffer the optimizer updates: this rank's master when
-        mixed, else its slice of the fp32 parameters."""
+        mixed, else its shard of the fp32 parameters."""
         return (self.master if self.master is not None
-                else self._shard(self.params))
+                else self._param_shard())
 
     def _configure_lr_scheduler(self, client_scheduler):
         if client_scheduler is not None:
@@ -511,15 +670,29 @@ class DeepSpeedEngine:
         return [name for name, *_ in self._layout]
 
     def fp32_params(self):
-        """The whole fp32 flat buffer (the master's, when mixed).  A sharded
-        master is all-gathered: every rank must call this together."""
+        """The whole fp32 flat buffer (the master's, when mixed) in the
+        layout's order.  A sharded master (or stage 3's fp32 parameters) is
+        all-gathered: every rank must call this together."""
         if self.master is None:
-            return self.params
+            return self.gathered_params()
         if not self.zero_plan.sharded:
             return self.master
-        full = torch.empty(self.params.numel(), dtype=torch.float32,
-                           device=self.device)
-        return dist.allgather_fn(full, self.master, group=self._dp_group)
+        return self._gather_shard(self.master)
+
+    def gathered_params(self):
+        """The whole compute-dtype flat buffer in the layout's order: the
+        parameters, or at stage 3 their all-gathered shards (every rank
+        must call this together)."""
+        if self.zero_stage < 3:
+            return self.params
+        return self._gather_shard(self.params)
+
+    def _gather_shard(self, shard):
+        plan = self.zero_plan
+        out = torch.empty(plan.world_size * plan.shard_numel,
+                          dtype=shard.dtype, device=self.device)
+        dist.allgather_fn(out, shard, group=self._dp_group)
+        return out if plan.n_units == 1 else plan.assemble(out)
 
     def get_fp32_param(self, name):
         """The fp32 value of one leaf (the master's, when mixed; a
@@ -550,9 +723,15 @@ class DeepSpeedEngine:
         self._check_params()
         inputs = [self._to_device(x) for x in inputs]
         kwargs = {k: self._to_device(v) for k, v in kwargs.items()}
+        stage3 = self.zero_stage == 3
+        if stage3:
+            self._coord.start_forward()
         if not self.training:
             with torch.no_grad():
-                return self.module(*inputs, **kwargs)
+                out = self.module(*inputs, **kwargs)
+            if stage3:
+                self._coord.release_outer()
+            return out
         self.timers(FORWARD_GLOBAL_TIMER).start()
         if self._global_loss:
             scaled, loss = self._global_batch_loss(*inputs, **kwargs)
@@ -587,24 +766,42 @@ class DeepSpeedEngine:
     def backward(self, loss=None, **kwargs):
         """Reference ``engine.py:2007``: autograd of the stashed, scaled
         loss, then the gradients, cast to ``grad_accum_dtype``, are folded
-        into the flat accumulator."""
+        into the flat accumulator (bucketed plans: unit by unit, during
+        autograd)."""
         if self._pending_loss is None:
             raise RuntimeError("backward() called without a prior forward() "
                                "in training mode")
         self.timers(BACKWARD_GLOBAL_TIMER).start()
-        self._pending_loss.backward()
-        self._pending_loss = None
-        if self.zero_stage >= 2:
-            self._fold_and_reduce_scatter()
+        if self._coord is not None:
+            self._backward_bucketed()
         else:
-            if self.grad_acc is None:
-                self.grad_acc = torch.zeros(self.params.numel(),
-                                            dtype=self.grad_accum_dtype,
-                                            device=self.device)
-            self._fold(self.grad_acc, self._acc_fresh)
+            self._pending_loss.backward()
+            if self.zero_stage >= 2:
+                self._fold_and_reduce_scatter()
+            else:
+                if self.grad_acc is None:
+                    self.grad_acc = torch.zeros(self.params.numel(),
+                                                dtype=self.grad_accum_dtype,
+                                                device=self.device)
+                self._fold(self.grad_acc, self._acc_fresh)
+        self._pending_loss = None
         self._acc_fresh = False
         self.timers(BACKWARD_GLOBAL_TIMER).stop()
         return loss
+
+    def _backward_bucketed(self):
+        """Autograd with the coordinator's hooks: each unit's gradients go
+        to the shard accumulator as soon as they are in."""
+        if self.grad_acc is None:
+            self.grad_acc = torch.empty(self.zero_plan.shard_numel,
+                                        dtype=self.grad_accum_dtype,
+                                        device=self.device)
+        self._coord.start_backward(self.grad_acc, self._acc_fresh)
+        try:
+            self._pending_loss.backward()
+        finally:
+            self._coord.in_backward = False
+        self._coord.finish_backward()
 
     def _fold(self, buf, fresh):
         """The module's gradients into the flat ``buf`` (copied when
@@ -708,14 +905,11 @@ class DeepSpeedEngine:
                 scale = inv_t if scale is None else scale * inv_t
             mixed = self.master is not None
             self._transform.step(grads, self.opt_state, self._target(),
-                                 param_out=(self._shard(self.params)
+                                 param_out=(self._param_shard()
                                             if mixed else None),
                                  grad_scale=scale, use_kernel=use_kernel)
             if self.zero_plan.sharded:
-                # every rank's updated slice, gathered in place: the
-                # module's parameters view self.params
-                dist.allgather_fn(self.params, self._shard(self.params),
-                                  group=self._dp_group)
+                self._gather_updated()
         # loss-scale dynamics key off true fp16 overflow only — a grad-norm
         # spike must not shrink the scale
         self.scale_state = self.loss_scaler.update(self.scale_state,
@@ -726,6 +920,26 @@ class DeepSpeedEngine:
             self._account_guarded_step(skip, gnorm)
         self._last_gnorm = gnorm
         self._last_skipped = skip
+
+    def _gather_updated(self):
+        """Every rank's updated slices where the module's parameters read
+        them: gathered in place into the whole buffer (one unit), unit by
+        unit (bucketed stage 2), or at stage 3 only the persistent unit's
+        (the next forward gathers the rest; the released units hold no
+        stale copy)."""
+        plan = self.zero_plan
+        if self.zero_stage == 3:
+            self._coord.release_all()
+            self._coord.refresh_persistent()
+        elif plan.n_units == 1:
+            dist.allgather_fn(self.params, self._param_shard(),
+                              group=self._dp_group)
+        else:
+            for u in range(plan.n_units):
+                lo, hi = plan.unit_range(u)
+                a, b = plan.shard_slice(u)
+                dist.allgather_fn(self.params[lo:hi], self._pshard[a:b],
+                                  group=self._dp_group)
 
     def _reduced_grads(self):
         """The summed gradient this rank updates with: the accumulator, its
@@ -856,7 +1070,11 @@ class DeepSpeedEngine:
         raise not_ported("wait_for_checkpoint", 5)
 
     def empty_partition_cache(self):
-        raise not_ported("empty_partition_cache (ZeRO stage 3)", 6)
+        """Stage 3: release every gathered unit but the persistent one
+        (reference semantics); a no-op at other stages, as in the JAX
+        engine.  Call it outside a forward/backward pair."""
+        if self.zero_stage == 3:
+            self._coord.release_all()
 
     def start_device_trace(self, *args, **kwargs):
         raise not_ported("start_device_trace", 12)

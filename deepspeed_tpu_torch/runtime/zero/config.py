@@ -2,16 +2,21 @@
 ``deepspeed_tpu/runtime/zero/config.py``; reference
 ``runtime/zero/config.py:344``), on the port's dataclass base.
 
-Stages 0-2 are ported.  Stage 3, ``overlap_comm`` and the stage-3 knobs
-raise ROADMAP queue A item 6; offload raises item 10, ZeRO++ and MiCS item
-7 (``runtime/config.py``).  ``reduce_bucket_size``,
-``allgather_bucket_size``, ``contiguous_gradients`` and the other knobs of
-stages 1-2 parse: the port reduces and gathers the whole flat buffer in one
-collective each, so it ignores them, and ``ZeroPartitionPlan.describe()``
-says so.
+Stages 0-3 are ported, with ``overlap_comm`` (stages 2-3) and the stage-3
+knobs ``stage3_prefetch_bucket_size``, ``stage3_param_persistence_threshold``
+and ``stage3_max_live_parameters`` (``runtime/zero/overlap.py``).  Offload
+raises ROADMAP queue A item 10, ZeRO++ and MiCS item 7
+(``runtime/config.py``).  ``reduce_bucket_size``, ``allgather_bucket_size``,
+``contiguous_gradients`` and the other bucket knobs parse: the port reduces
+and gathers the whole flat buffer in one collective each, or one block of
+the model at a time (``runtime/zero/partition.py``), so it ignores them.
+It ignores as well ``stage3_max_reuse_distance``,
+``stage3_model_persistence_threshold``,
+``stage3_gather_16bit_weights_on_model_save`` (checkpointing, item 5),
+``overlap_comm`` at stages 0-1 and the stage-3 knobs below stage 3;
+``ZeroPartitionPlan.describe()`` lists what it ignored.
 """
 
-from ...utils.not_ported import not_ported
 from ..config_utils import DeepSpeedConfigModel
 
 # the JSON aliases of the stage-3 knobs (the JAX model's ``alias=``)
@@ -24,11 +29,16 @@ STAGE3_ALIASES = {
     "stage3_gather_16bit_weights_on_model_save":
         "gather_16bit_weights_on_model_save",
 }
-# knobs of stages 1-2 that the port parses and does not act on
+# knobs the port parses and does not act on
 IGNORED_KNOBS = ("contiguous_gradients", "reduce_scatter",
                  "reduce_bucket_size", "use_multi_rank_bucket_allreduce",
                  "allgather_partitions", "allgather_bucket_size",
-                 "round_robin_gradients", "sub_group_size")
+                 "round_robin_gradients", "sub_group_size",
+                 "max_reuse_distance", "model_persistence_threshold",
+                 "gather_16bit_weights_on_model_save")
+# the stage-3 knobs the port acts on at stage 3 only
+STAGE3_KNOBS = ("prefetch_bucket_size", "param_persistence_threshold",
+                "max_live_parameters")
 
 
 class DeepSpeedZeroConfig(DeepSpeedConfigModel):
@@ -65,8 +75,7 @@ class DeepSpeedZeroConfig(DeepSpeedConfigModel):
 
     @classmethod
     def from_dict(cls, section):
-        """Parse the JSON block: stage-3 aliases map onto their fields, and
-        what the port does not have raises."""
+        """Parse the JSON block: stage-3 aliases map onto their fields."""
         section = dict(section or {})
         stage3 = sorted(k for k in section if k in STAGE3_ALIASES)
         for key in stage3:
@@ -76,22 +85,28 @@ class DeepSpeedZeroConfig(DeepSpeedConfigModel):
         if not isinstance(cfg.stage, int) or not 0 <= cfg.stage <= 3:
             raise ValueError(f"zero_optimization.stage must be 0-3, got "
                              f"{cfg.stage!r}")
-        if cfg.stage == 3:
-            raise not_ported("zero_optimization.stage 3 (parameter "
-                             "partitioning, runtime/zero/overlap.py)", 6)
-        if cfg.overlap_comm:
-            raise not_ported("zero_optimization.overlap_comm", 6)
-        if stage3:
-            raise not_ported(f"zero_optimization: the stage-3 knobs "
-                             f"{stage3}", 6)
         for key in ("reduce_bucket_size", "allgather_bucket_size",
-                    "sub_group_size"):
+                    "sub_group_size", "prefetch_bucket_size",
+                    "param_persistence_threshold", "max_live_parameters"):
             if getattr(cfg, key) < 0:
                 raise ValueError(f"zero_optimization.{key} must be >= 0")
         return cfg
+
+    @property
+    def bucketed(self):
+        """Whether the plan is one of the model's blocks (stage 3, and
+        stage 2 with ``overlap_comm``) rather than one flat buffer."""
+        return self.stage == 3 or (self.stage == 2 and
+                                   bool(self.overlap_comm))
 
     def ignored(self):
         """{knob: value} of the knobs the config set that the port does
         not act on."""
         given = getattr(self, "given", ())
-        return {k: getattr(self, k) for k in IGNORED_KNOBS if k in given}
+        knobs = IGNORED_KNOBS
+        if self.stage < 3:
+            knobs += STAGE3_KNOBS
+        out = {k: getattr(self, k) for k in knobs if k in given}
+        if self.stage < 2 and self.overlap_comm:
+            out["overlap_comm"] = self.overlap_comm
+        return out

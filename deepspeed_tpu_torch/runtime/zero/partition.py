@@ -3,37 +3,80 @@
 
 The JAX file is a sharding policy: each leaf is split along its largest
 divisible axis and GSPMD emits the collectives (``partition.py:52-103``).
-The port's engine already lays every leaf out in ONE flat buffer
-(``runtime/engine.py:flat_layout``), so its plan is a plan of flat ranges,
-as the reference's ``stage_1_and_2.py`` partitions its flat groups:
+The port's engine lays every leaf out in flat buffers, so its plan is a plan
+of flat ranges, as the reference's ``stage_1_and_2.py`` and ``stage3.py``
+partition their flat groups.  The layout is a sequence of *units*:
 
-* the buffer is padded to a multiple of ``world_size × ALIGN`` elements, so
-  every rank's shard has the same length and starts 16-byte aligned (the
-  optimizer kernels refuse unaligned pointers);
-* rank r owns ``[r·S, (r+1)·S)``; a leaf may straddle two shards;
-* stage 1 shards the fp32 master and the optimizer's moments; stage 2 also
-  the gradient accumulator; the compute-dtype parameters stay whole on
-  every rank (stage 3, which shards them, is ROADMAP queue A item 6).
+* each unit's range is padded to a multiple of ``world_size × ALIGN``
+  elements and rank r owns slice r of every unit, so every slice starts
+  16-element aligned (the optimizer kernels refuse unaligned pointers) and
+  a leaf may straddle two ranks' slices;
+* the rank's *shard* is its slices of all units, concatenated: the fp32
+  master, the moments and the gradient accumulator are one flat buffer
+  each, and an optimizer kernel is one launch over it;
+* stages 0-2 (without ``overlap_comm``) have ONE unit, the whole buffer
+  (rank r owns ``[r·S, (r+1)·S)``); stage 3, and stage 2 with
+  ``overlap_comm``, have one unit a block of the model (an element of its
+  block ``nn.ModuleList``), an *outer* unit for every other leaf
+  (embeddings, final norm, head, tied weights) and, at stage 3, a
+  *persistent* unit of the leaves below the persistence threshold, which
+  every rank holds whole (``runtime/zero/overlap.py`` gathers and releases
+  the others around their use);
+* stage 1 shards the fp32 master and the moments; stage 2 also the gradient
+  accumulator; stage 3 also the compute-dtype parameters.
 
 The padding is zero in the parameters, the gradients and the moments, so
 neither the norm nor the update sees anything but zeros there.
 """
 
+import torch
+
 ALIGN = 16   # elements (engine.py's _ALIGN): 64 bytes of fp32
+
+OUTER, BLOCK, PERSISTENT = "outer", "block", "persistent"
+
+
+def min_partition_size(zero_config):
+    """The JAX engine's persistence bound (``engine.py:311``): a leaf with
+    fewer elements stays whole on every rank at stage 3."""
+    return max(1, int(zero_config.param_persistence_threshold) // 8)
 
 
 class ZeroPartitionPlan:
+    """``units``: [(kind, length)] of the layout's units in order (each
+    length a multiple of ``ALIGN``); None: one unit of ``numel``.
+    ``schedule``: the gradient-overlap and prefetch settings for
+    :meth:`describe`."""
 
-    def __init__(self, stage, world_size, rank, numel, zero_config=None):
+    def __init__(self, stage, world_size, rank, numel, zero_config=None,
+                 units=None, schedule=None):
         if not 0 <= rank < world_size:
             raise ValueError(f"rank {rank} outside a world of {world_size}")
         self.stage = stage
         self.world_size = world_size
         self.rank = rank
-        self.numel = int(numel)
-        quantum = world_size * ALIGN
-        self.padded_numel = -(-self.numel // quantum) * quantum
         self.zero_config = zero_config
+        self.schedule = dict(schedule or {})
+        quantum = world_size * ALIGN
+        if units is None:
+            units = [(OUTER, int(numel))]
+        self.unit_kinds = [kind for kind, _ in units]
+        self.unit_numel, self.unit_offset = [], []
+        off = 0
+        for _, n in units:
+            self.unit_offset.append(off)
+            self.unit_numel.append(-(-int(n) // quantum) * quantum)
+            off += self.unit_numel[-1]
+        self.padded_numel = off
+        # where the last leaf ends (the layout's length)
+        self.numel = (self.unit_offset[-1] + int(units[-1][1]) if units
+                      else 0)
+        self.slice_numel = [n // world_size if self.sharded else n
+                            for n in self.unit_numel]
+        self.shard_offset, off = [], 0
+        for n in self.slice_numel:
+            self.shard_offset.append(off)
+            off += n
 
     @property
     def sharded(self):
@@ -41,28 +84,108 @@ class ZeroPartitionPlan:
         return self.stage >= 1
 
     @property
+    def n_units(self):
+        return len(self.unit_numel)
+
+    @property
+    def bucketed(self):
+        """More than one unit: the plan of stage 3 or of ``overlap_comm``."""
+        return self.n_units > 1 or self.stage == 3
+
+    @property
     def shard_numel(self):
-        return (self.padded_numel // self.world_size if self.sharded
-                else self.padded_numel)
+        return sum(self.slice_numel)
+
+    def unit_range(self, u):
+        """[lo, hi) of unit ``u`` in the flat layout."""
+        return self.unit_offset[u], self.unit_offset[u] + self.unit_numel[u]
+
+    def unit_slice(self, u, rank=None):
+        """[lo, hi) of ``rank``'s (default: this rank's) slice of unit
+        ``u`` in the flat layout (the whole unit when not sharded)."""
+        lo = self.unit_offset[u]
+        if not self.sharded:
+            return lo, lo + self.unit_numel[u]
+        r = self.rank if rank is None else rank
+        s = self.slice_numel[u]
+        return lo + r * s, lo + (r + 1) * s
+
+    def shard_slice(self, u):
+        """[lo, hi) of unit ``u``'s slice in this rank's shard."""
+        return self.shard_offset[u], self.shard_offset[u] + \
+            self.slice_numel[u]
 
     def shard_range(self, rank=None):
         """[lo, hi) of ``rank``'s (default: this rank's) shard in the flat
-        buffer; the whole buffer at stage 0."""
-        if not self.sharded:
-            return 0, self.padded_numel
-        r = self.rank if rank is None else rank
-        return r * self.shard_numel, (r + 1) * self.shard_numel
+        buffer; the whole buffer at stage 0.  One-unit plans only: a
+        bucketed shard is one slice a unit (:meth:`unit_slice`)."""
+        if self.n_units != 1:
+            raise ValueError("a bucketed plan's shard is no one range")
+        return self.unit_slice(0, rank)
+
+    def _slices(self):
+        """[(flat lo, flat hi, shard lo)] of this rank's slices."""
+        return [(*self.unit_slice(u), self.shard_offset[u])
+                for u in range(self.n_units)]
 
     def leaf_pieces(self, layout):
         """The shard's part of each leaf: [(leaf offset in the shard, its
-        numel, offset within the leaf)] for every leaf the shard touches."""
-        lo, hi = self.shard_range()
+        numel, offset within the leaf)] for every leaf the shard touches,
+        in shard order."""
+        return [p[:3] for p in self.pieces(layout)]
+
+    def pieces(self, layout):
+        """:meth:`leaf_pieces`, each with its leaf's index in ``layout``."""
         pieces = []
-        for _, off, n, _ in layout:
-            a, b = max(off, lo), min(off + n, hi)
-            if a < b:
-                pieces.append((a - lo, b - a, a - off))
+        for lo, hi, base in self._slices():
+            for i, (_, off, n, _) in enumerate(layout):
+                a, b = max(off, lo), min(off + n, hi)
+                if a < b:
+                    pieces.append((a - lo + base, b - a, a - off, i))
         return pieces
+
+    def take_shard(self, flat, out):
+        """This rank's shard of a flat buffer of the layout, copied into
+        ``out`` slice by slice."""
+        for lo, hi, base in self._slices():
+            out[base:base + hi - lo].copy_(flat[lo:hi])
+        return out
+
+    def assemble(self, gathered):
+        """The flat layout from every rank's shard, ``gathered`` rank after
+        rank (``world_size × shard_numel`` elements)."""
+        if not self.sharded:
+            return gathered
+        per_rank = gathered.view(self.world_size, self.shard_numel)
+        return torch.cat([per_rank[:, lo:hi].reshape(-1) for lo, hi in
+                          map(self.shard_slice, range(self.n_units))])
+
+    def units_of(self, kind):
+        return [u for u, k in enumerate(self.unit_kinds) if k == kind]
+
+    def collectives_per_step(self, gas):
+        """{op: calls a step of ``gas`` micro-steps} of the gathers and
+        reduce-scatters the engine makes: at stage 3 each micro-step
+        gathers the outer unit and each block (forward), each block again
+        (backward), and reduce-scatters every unit; after the step the
+        persistent unit's slices are gathered.  Bucketed stage 2
+        reduce-scatters every unit a micro-step and gathers every unit
+        after the step; one-unit stages 1 and 2 reduce-scatter once a step
+        or a micro-step and gather once a step."""
+        if self.world_size == 1 and self.stage == 0:
+            return {}
+        if self.stage == 3:
+            blocks = len(self.units_of(BLOCK))
+            gathers = len(self.units_of(OUTER)) + 2 * blocks
+            return {"allgather_fn": gas * gathers +
+                    len(self.units_of(PERSISTENT)),
+                    "reduce_scatter_fn": gas * self.n_units}
+        if self.stage == 2:
+            return {"allgather_fn": self.n_units,
+                    "reduce_scatter_fn": gas * self.n_units}
+        if self.stage == 1:
+            return {"allgather_fn": 1, "reduce_scatter_fn": 1}
+        return {}
 
     def describe(self, param_bytes=2, state_buffers=2, grad_bytes=4,
                  master=True):
@@ -73,24 +196,52 @@ class ZeroPartitionPlan:
         gradient accumulator; ``master``: whether an fp32 master exists."""
         full, shard = self.padded_numel, self.shard_numel
         sharded = shard * 4 * (state_buffers + (1 if master else 0))
-        replicated = full * param_bytes
+        persistent = sum(self.unit_numel[u]
+                         for u in self.units_of(PERSISTENT))
+        if self.stage == 3:
+            sharded += shard * param_bytes
+            replicated = persistent * param_bytes
+        else:
+            replicated = full * param_bytes
+            if self.bucketed:
+                sharded += shard * param_bytes   # the update's output
         if self.stage >= 2:
             sharded += shard * grad_bytes
         else:
             replicated += full * grad_bytes
+        sch = self.schedule
         out = {"stage": self.stage, "world_size": self.world_size,
-               "zero_axes": ["dp", "ep"], "numel": self.numel,
-               "padded_numel": full, "shard_numel": shard,
-               "shard_range": list(self.shard_range()),
+               "zero_axes": ["dp", "ep"],
+               "param_axes": ["dp", "ep"] if self.stage >= 3 else [],
+               "numel": self.numel, "padded_numel": full,
+               "shard_numel": shard,
+               "shard_range": (list(self.shard_range()) if self.n_units == 1
+                               else None),
+               "units": self.n_units,
+               "unit_kinds": {k: len(self.units_of(k))
+                              for k in (OUTER, BLOCK, PERSISTENT)},
+               "persistent_numel": persistent,
+               "min_partition_size": sch.get("min_partition_size", 1),
                "sharded_bytes": int(sharded),
                "replicated_bytes": int(replicated),
                "offload_optimizer": False, "offload_param": False,
-               "overlap_enabled": False, "prefetch_enabled": False}
+               "overlap_enabled": bool(sch.get("overlap_enabled", False)),
+               "overlap_max_inflight": (sch.get("overlap_max_inflight", 0)
+                                        if sch.get("overlap_enabled")
+                                        else 0),
+               "prefetch_enabled": bool(sch.get("prefetch_enabled", False)),
+               "prefetch_bucket_mb": float(sch.get("prefetch_bucket_mb",
+                                                   0.0)),
+               "prefetch_max_inflight": (sch.get("prefetch_max_inflight",
+                                                 0)
+                                         if sch.get("prefetch_enabled")
+                                         else 0)}
         ignored = ({} if self.zero_config is None
                    else self.zero_config.ignored())
         out["ignored"] = ignored
         if ignored:
-            out["ignored_because"] = ("the port reduces and gathers the "
-                                      "whole flat buffer in one collective "
-                                      "each")
+            out["ignored_because"] = (
+                "the port reduces and gathers one block of the model at a "
+                "time" if self.bucketed else "the port reduces and gathers "
+                "the whole flat buffer in one collective each")
         return out

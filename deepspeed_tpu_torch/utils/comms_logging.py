@@ -5,7 +5,8 @@ and latencies, with algorithmic and bus bandwidth.
 A collective on the card is timed by two CUDA events recorded around its
 launch; the elapsed time is read only when a summary is asked for
 (:meth:`CommsLogger.resolve`), so logging adds no host sync to the step.
-On the CPU the events are the host clock's.
+An async collective is recorded once, at its launch; its end event comes
+when its handle is waited on.  On the CPU the events are the host clock's.
 """
 
 from .logging import log_dist, logger
@@ -62,14 +63,19 @@ class CommsLogger:
 
     def record(self, name, msg_size, world_size, start, end):
         """One collective, timed by two recorded events; its latency is
-        read at the next :meth:`resolve`."""
-        self._pending.append((name, msg_size, world_size, start, end))
+        read at the next :meth:`resolve`.  Returns the entry, whose ``end``
+        (item 4; None for an async op not yet waited on) may be set
+        later."""
+        entry = [name, msg_size, world_size, start, end]
+        self._pending.append(entry)
+        return entry
 
     def resolve(self):
         """Fold the recorded events into the table (waits for each op's
-        end event)."""
+        end event; an async op never waited on ends at its start)."""
         pending, self._pending = self._pending, []
         for name, msg_size, world, start, end in pending:
+            end = start if end is None else end
             end.synchronize()
             self.append(name, name, start.elapsed_time(end) / 1e3, msg_size,
                         world)

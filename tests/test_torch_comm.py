@@ -10,6 +10,9 @@ the JAX facade's result for that rank: the whole reduced or gathered array
 on every rank, block r of a reduce-scatter or an all-to-all.  Exact for
 MAX, MIN, the gathers, broadcast and all-to-all; rtol 1e-6 for the sums,
 the mean and the product (another order of the same fp32 operations).
+``allgather_fn``, ``reduce_scatter_fn`` and ``all_reduce`` also run with
+``async_op=True``: the handle's result equals the synchronous call's (in the
+worker) and the JAX facade's; the comms logger records each async op once.
 """
 
 import jax
@@ -50,6 +53,10 @@ def _cases(n):
         "all_gather_stacked": (("all_gather_stacked", ), f(2 * n, 3)),
         "allgather_fn_in_place": (("allgather_fn", ), f(4 * n)),
         "reduce_scatter_fn": (("reduce_scatter_fn", ), f(4 * n)),
+        "async_allgather_fn": (("async_allgather_fn", ), f(4 * n)),
+        "async_reduce_scatter_fn": (("async_reduce_scatter_fn", ),
+                                    f(4 * n)),
+        "async_all_reduce": (("async_all_reduce", ), f(4 * n)),
         "barrier": (("barrier", ), np.zeros(1, np.float32)),
         "ranks": (("ranks", ), np.zeros(1, np.float32)),
     })
@@ -57,7 +64,14 @@ def _cases(n):
 
 
 def _jax_result(op, g, n):
-    """The JAX facade's result for each of n ranks."""
+    """The JAX facade's result for each of n ranks (an async op's is its
+    synchronous counterpart's)."""
+    if op[0] == "async_allgather_fn":
+        op = ("allgather_fn", )
+    elif op[0] == "async_all_reduce":
+        op = ("all_reduce", "SUM")
+    elif op[0] == "async_reduce_scatter_fn":
+        op = ("reduce_scatter", "distinct")
     grp = jax_dist.new_group(("dp", ))
     x = jnp.asarray(g)
     block = lambda a, axis, r: np.take(  # noqa: E731
@@ -118,9 +132,10 @@ def results():
         leg = dict(name="comm", kind="comm",
                    ops=[(k, op) for k, (op, _) in cases.items()],
                    arrays={k: g for k, (_, g) in cases.items()})
-        got = spawn(n, [leg])["comm"]
-        out[n] = {k: (want[k], [got[r][k] for r in range(n)])
+        got = spawn(n, [leg, dict(name="comm_log", kind="comm_log")])
+        out[n] = {k: (want[k], [got["comm"][r][k] for r in range(n)])
                   for k in cases}
+        out[n]["comm_log"] = got["comm_log"]
     return out
 
 
@@ -139,6 +154,27 @@ def test_collective_matches_jax_facade(results, world, key):
         else:
             np.testing.assert_allclose(got[r], want[r], rtol=1e-6,
                                        atol=1e-6, err_msg=key)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_async_ops_are_logged_once(results, world):
+    for r in results[world]["comm_log"]:
+        assert r["counts"] == {"allgather_fn": 1, "reduce_scatter_fn": 1,
+                               "all_reduce": 2}
+
+
+def test_async_handle_of_a_local_group_is_complete():
+    group = port_dist.ProcessGroup(("dp", ), local=True)
+    x = torch.arange(8, dtype=torch.float32)
+    handle = port_dist.allgather_fn(torch.empty(8), x, group=group,
+                                    async_op=True)
+    assert handle.is_completed()
+    assert torch.equal(handle.wait(), x)
+    out = torch.empty(8)
+    handle = port_dist.reduce_scatter_fn(out, x, group=group, async_op=True)
+    assert handle.wait() is out and torch.equal(out, x)
+    assert torch.equal(port_dist.all_reduce(x.clone(), group=group,
+                                            async_op=True).wait(), x)
 
 
 def test_init_distributed_without_env_is_a_one_rank_world(monkeypatch):

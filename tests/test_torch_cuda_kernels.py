@@ -4,7 +4,8 @@ fp16), the fused Adam step (B2), the two LAMB phases (B3), the Lion step
 (B8), the grouped matmul (B7), blockwise quantize/dequantize (B5) and
 the bias-operand flash attention's forward, dq, dk/dv and dbias (B10),
 the block-sparse attention forward (B9) and the FP6/FP12 grid quantizer
-(B6).
+(B6); and the engine's ZeRO steps on a one-rank NCCL world against ZeRO 0
+(ZeRO 3 without a host sync).
 
 Marked ``cuda``: each test asks for the ``card`` fixture, which skips when
 torch sees no CUDA device.  The file imports neither JAX nor the JAX
@@ -1347,3 +1348,63 @@ def test_zero_lamb_on_the_card_matches_zero0(nccl_world, stage):
                                atol=0)
     torch.testing.assert_close(out["armed"][1], out["zero0"][1], rtol=2e-5,
                                atol=lr / 20)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ("plain", "overlap", "prefetch"))
+def test_zero3_on_the_card_matches_zero0(nccl_world, variant):
+    """A bf16 Llama at ZeRO 3 on the card (one NCCL rank), with remat,
+    gradient accumulation 2 and blocks sharded (the norms persistent):
+    without ``overlap_comm``, with it, and with it and a prefetch window of
+    two one-block buckets.  At one rank a gather and a reduce-scatter are
+    copies: ZeRO 0's losses, master and parameters bit for bit.  Every
+    forward, backward and step of ZeRO 3 runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: the gathers, releases and
+    reduce-scatters make no host sync."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import LlamaModel, llama_tiny
+    ids = torch.randint(0, 256, (2, 64),
+                        generator=torch.Generator().manual_seed(2)).cuda()
+    zero3 = {"stage": 3, "stage3_param_persistence_threshold": 8 * 100}
+    if variant != "plain":
+        zero3["overlap_comm"] = True
+    if variant == "prefetch":
+        zero3["stage3_prefetch_bucket_size"] = 1
+    out = {}
+    for st, zero in ((0, {"stage": 0}), (3, zero3)):
+        eng = deepspeed_tpu_torch.initialize(
+            model=LlamaModel(llama_tiny(dtype="bfloat16", remat=True),
+                             device="meta"),
+            config={"train_micro_batch_size_per_gpu": 2,
+                    "gradient_accumulation_steps": 2,
+                    "bf16": {"enabled": True},
+                    "optimizer": {"type": "fusedadam",
+                                  "params": {"lr": 1e-3}},
+                    "zero_optimization": zero})[0]
+        eng.initialize_parameters(0)
+        losses = []
+        for _ in range(6):
+            if st == 3:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                loss = eng(ids, ids)
+                eng.backward(loss)
+                eng.step()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            losses.append(loss.item())
+        names = eng.parameter_names()
+        fp32, params = eng.fp32_params(), eng.gathered_params()
+        out[st] = (losses, {n: (fp32[o:o + k].clone(), params[o:o + k]
+                                .clone()) for n, o, k, _ in eng._layout})
+        if st == 3:
+            plan = eng.zero_plan.describe()
+            assert plan["unit_kinds"] == {"outer": 1, "block": 2,
+                                          "persistent": 1}
+            assert plan["prefetch_enabled"] == (variant == "prefetch")
+            assert eng._coord.window == (2 if variant == "prefetch" else 1)
+    assert out[3][0] == out[0][0]
+    assert out[3][1].keys() == out[0][1].keys() == set(names)
+    for name, (master, param) in out[0][1].items():
+        assert torch.equal(out[3][1][name][0], master), name
+        assert torch.equal(out[3][1][name][1], param), name

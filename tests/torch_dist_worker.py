@@ -12,11 +12,14 @@ Leg kinds:
 
 * ``comm``: collectives of ``deepspeed_tpu_torch.comm`` on blocks of
   global numpy arrays (rank r takes block r, as the JAX facade's sharded
-  inputs), every result as numpy;
+  inputs), every result as numpy (the ``async_*`` ops run with
+  ``async_op=True`` and check the result against the synchronous call);
+* ``comm_log``: async collectives with the comms logger on, and its counts;
 * ``train``: a model trained through ``deepspeed_tpu_torch.initialize()``
   on this rank's rows of each global batch (``engine.shard_batch``); the
   losses, scales, skips and gradient norms, the whole fp32 master and the
-  comm counts.
+  comm counts (and, at ZeRO 3, the coordinator's peak of gathered
+  elements beside what bounds it).
 """
 
 import os
@@ -125,6 +128,8 @@ def run_comm(leg, rank, world):
         elif op[0] == "reduce_scatter_fn":
             shard = torch.empty(g.size // world)
             out[key] = dist.reduce_scatter_fn(shard, t(g)).numpy()
+        elif op[0].startswith("async_"):
+            out[key] = _async_op(op[0][len("async_"):], g, rank, world)
         elif op[0] == "barrier":
             dist.barrier()
             out[key] = np.array(dist.get_world_size())
@@ -135,6 +140,54 @@ def run_comm(leg, rank, world):
         else:
             raise ValueError(op)
     return out
+
+
+def _async_op(name, g, rank, world):
+    """One collective with ``async_op=True``: the handle's ``wait()`` gives
+    the result, which must equal the synchronous call's."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch import comm as dist
+    n = g.size // world
+    mine = torch.from_numpy(np.ascontiguousarray(g[rank * n:(rank + 1) * n]))
+    if name == "allgather_fn":
+        args = lambda: (torch.empty(g.size), mine.clone())  # noqa: E731
+    elif name == "reduce_scatter_fn":
+        args = lambda: (torch.empty(n),  # noqa: E731
+                        torch.from_numpy(g * (rank + 1)))
+    else:
+        args = lambda: (mine.clone(), )  # noqa: E731
+    fn = getattr(dist, name)
+    sync = fn(*args())
+    handle = fn(*args(), async_op=True)
+    assert isinstance(handle, dist.AsyncHandle)
+    got = handle.wait()
+    assert handle.is_completed() and handle.wait() is got
+    assert torch.equal(got, sync), name
+    return got.numpy()
+
+
+def run_comm_log(leg, rank, world):
+    """Each async op is recorded once by the comms logger."""
+    import torch
+    from deepspeed_tpu_torch import comm as dist
+    dist.comms_logger.reset()
+    dist.configure(enabled=True, prof_all=True)
+    try:
+        x = torch.ones(8 * world)
+        handles = [dist.allgather_fn(torch.empty(8 * world * world), x,
+                                     async_op=True),
+                   dist.reduce_scatter_fn(torch.empty(8), x,
+                                          async_op=True),
+                   dist.all_reduce(x.clone(), async_op=True),
+                   dist.all_reduce(x.clone(), async_op=True)]
+        for h in handles:
+            h.wait()
+        handles[0].wait()
+        return dict(counts=dist.comms_logger.counts())
+    finally:
+        dist.configure(enabled=False)
+        dist.comms_logger.reset()
 
 
 def _model(kind, cfg_kw, tree, mean_only=False):
@@ -184,11 +237,22 @@ def run_train(leg, rank, world):
             gnorms.append(float(engine._last_gnorm))
     counts = dist.comms_logger.counts()
     master = engine.fp32_params()[:engine.zero_plan.numel].clone()
+    plan = engine.zero_plan
+    coord = engine._coord
+    live = {}
+    if coord is not None and coord.sharded_params:
+        live = dict(peak=coord.peak_live_elems, window=coord.window,
+                    bucket_elems=[b.elems for b in coord.buckets],
+                    unit_numel=list(plan.unit_numel),
+                    unit_kinds=list(plan.unit_kinds))
     return dict(losses=losses, scales=scales, skips=skips, gnorms=gnorms,
-                master=master.numpy(), params=engine.params.float().numpy(),
+                master=master.numpy(),
+                params=engine.gathered_params().float().numpy(),
                 names=[(n, o, k, s) for n, o, k, s in engine._layout],
-                counts=counts, plan=engine.zero_plan.describe(),
-                grad_acc_numel=int(engine.grad_acc.numel()),
+                counts=counts, plan=plan.describe(),
+                per_step=plan.collectives_per_step(
+                    engine.gradient_accumulation_steps()),
+                live=live, grad_acc_numel=int(engine.grad_acc.numel()),
                 skipped_steps=engine.skipped_steps,
                 global_loss=engine._global_loss)
 
@@ -203,7 +267,8 @@ def main():
     with open(spec, "rb") as f:
         legs = pickle.load(f)
     for leg in legs:
-        fn = {"comm": run_comm, "train": run_train}[leg["kind"]]
+        fn = {"comm": run_comm, "comm_log": run_comm_log,
+              "train": run_train}[leg["kind"]]
         out = fn(leg, rank, world)
         with open(os.path.join(out_dir, f"{leg['name']}.r{rank}.pkl"),
                   "wb") as f:

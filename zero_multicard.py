@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""ZeRO stages 0, 1 and 2 across the cards of one host, one process a card.
+"""ZeRO stages 0-3 across the cards of one host, one process a card.
 
-    python3 zero_multicard.py [--model gpt2|llama] [--world N]
+    python3 zero_multicard.py [--model gpt2|llama|llama7b] [--world N]
                               [--json PATH] [--device cpu]
 
 BASELINE config 2 (``--model gpt2``: GPT-2 350M, fp16 from a scale of
@@ -12,12 +12,17 @@ rank a micro-step), random weights from the seed, through
 ``deepspeed_tpu_torch.initialize()`` on an NCCL world of ``--world``
 ranks (default: every card).  Each rank feeds its rows of one global
 batch (``engine.shard_batch``), and every stage runs 1 warm-up and 3
-timed steps from the same weights and data.  Rank 0 prints, a stage:
-the losses, step ms, tokens/s over the world, each rank's peak memory and
-the collectives a step (comms logger); then the largest loss difference
-of ZeRO 1 and 2 from ZeRO 0. It fails when a loss is not finite, when
-the ranks disagree on a loss, when ZeRO 1/2 leave ZeRO 0's losses by more
-than 2^-7 relative (bf16/fp16 training: the reduce-scatter and the
+timed steps from the same weights and data; ZeRO 3 with ``overlap_comm``
+and the gather prefetch armed at the reference's default bucket (5e7
+elements).  ``--model llama7b`` is full-depth Llama-2-7B (32 layers,
+hidden 4096, 32 heads, FFN 11008, vocab 32000), bf16, remat
+``nothing_saveable``, 4 rows of 2048 a rank, ``fusedadam``, at ZeRO 3
+only.  Rank 0 prints, a stage: the losses, step ms, tokens/s over the
+world, MFU (6N + 12·L·S·D a token over 989 TFLOP/s bf16, or fp16), each
+rank's peak memory and the collectives a step (comms logger); then the
+largest loss difference from ZeRO 0. It fails when a loss is not finite,
+when the ranks disagree on a loss, when a stage leaves ZeRO 0's losses by
+more than 2^-7 relative (bf16/fp16 training: the reduce-scatter and the
 all-reduce sum the ranks' gradients in other orders), or when a stage's
 peak memory is above the stage before it.  ``--device cpu`` runs gloo
 processes on the CPU at the models' tiny sizes (a rehearsal).
@@ -34,13 +39,19 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-STAGES = (0, 1, 2)
+STAGES = {"gpt2": (0, 1, 2, 3), "llama": (0, 1, 2, 3), "llama7b": (3, )}
+ZERO3 = {"stage": 3, "overlap_comm": True,
+         "stage3_prefetch_bucket_size": int(5e7)}
+PEAK_FLOPS = 989e12        # H100 SXM dense bf16 (and fp16) tensor rate
 
 
 def _config(model, stage):
     common = {"optimizer": {"type": "fusedadam", "params": {"lr": 1e-4}},
-              "zero_optimization": {"stage": stage},
+              "zero_optimization": ZERO3 if stage == 3 else {"stage": stage},
               "comms_logger": {"enabled": True}}
+    if model == "llama7b":
+        return dict(common, train_micro_batch_size_per_gpu=4,
+                    gradient_accumulation_steps=1, bf16={"enabled": True})
     if model == "gpt2":
         return dict(common, train_micro_batch_size_per_gpu=8,
                     gradient_accumulation_steps=1,
@@ -55,11 +66,21 @@ def _model(model, tiny):
         cfg = (gpt2.gpt2_tiny(dtype="float16", max_position_embeddings=1024)
                if tiny else gpt2.gpt2_350m(dtype="float16"))
         return gpt2.GPT2Model(cfg, device="meta"), cfg, 1024
-    cfg = (llama.llama_tiny(dtype="bfloat16", remat=False,
-                            max_position_embeddings=2048) if tiny else
-           llama.llama_7b(num_hidden_layers=8, remat=False,
-                          head_dtype="bfloat16"))
+    remat = dict(remat=model == "llama7b", remat_policy="nothing_saveable")
+    if tiny:
+        cfg = llama.llama_tiny(dtype="bfloat16", max_position_embeddings=2048,
+                               **remat)
+    else:
+        cfg = llama.llama_7b(head_dtype="bfloat16", **remat,
+                             **({} if model == "llama7b" else
+                                {"num_hidden_layers": 8}))
     return llama.LlamaModel(cfg, device="meta"), cfg, 2048
+
+
+def _flops_per_token(model, cfg, S):
+    from deepspeed_tpu_torch.models import gpt2, llama
+    n = (gpt2 if model == "gpt2" else llama).param_count(cfg)
+    return 6 * n + 12 * cfg.num_hidden_layers * S * cfg.hidden_size
 
 
 def run_rank(args):
@@ -71,7 +92,7 @@ def run_rank(args):
     cpu = args.device == "cpu"
     device = "cpu" if cpu else None
     rows = []
-    for stage in STAGES:
+    for stage in STAGES[args.model]:
         model, cfg, S = _model(args.model, cpu)
         engine = deepspeed_tpu_torch.initialize(
             model=model, config=_config(args.model, stage),
@@ -111,6 +132,8 @@ def run_rank(args):
             rank_losses_equal=bool((every[:, 1:] == every[0, 1:]).all()),
             step_ms=[t * 1e3 for t in times], step_ms_mean=step_s * 1e3,
             tokens_per_s=B * S * gas / step_s,
+            mfu=B * S * gas / step_s * _flops_per_token(args.model, cfg, S)
+            / (PEAK_FLOPS * world),
             peak_bytes_by_rank=[int(x) for x in every[:, 0].tolist()],
             calls_per_step={k: v / args.steps for k, v in calls.items()},
             shard_numel=engine.zero_plan.shard_numel,
@@ -134,7 +157,7 @@ def _free_port():
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=("gpt2", "llama"), default="gpt2")
+    ap.add_argument("--model", choices=tuple(STAGES), default="gpt2")
     ap.add_argument("--world", type=int, default=None)
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
@@ -190,7 +213,8 @@ def main():
         print(f"[zero {r['stage']}] {args.model}, world {r['world']}: "
               f"losses " + ", ".join(f"{x:.4f}" for x in r["losses"])
               + f" | step ms {r['step_ms_mean']:.1f}, "
-              f"{r['tokens_per_s']:.1f} tokens/s over the world | peak "
+              f"{r['tokens_per_s']:.1f} tokens/s over the world, MFU "
+              f"{r['mfu']:.4f} | peak "
               "GiB by rank " + ", ".join(
                   f"{b / 2**30:.2f}" for b in r["peak_bytes_by_rank"])
               + f" | shard {r['shard_numel']:,} of {r['padded_numel']:,} "
