@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--json PATH] [--profile DIR]
 
-Stages, run in the order 1-25; any failure exits non-zero:
+Stages, run in the order 1-26; any failure exits non-zero:
 
 1. environment: torch/CUDA/nvcc versions, the card's name and power limit;
 2. build: every ``deepspeed_tpu_torch/csrc/*.cu`` with nvcc for sm_90a
@@ -212,7 +212,23 @@ Stages, run in the order 1-25; any failure exits non-zero:
     in forward, one a block in backward, one reduce-scatter a unit; the
     persistent unit gathered after the step), exact launches (flash 8 a
     micro-step, Adam once a step); then 2 steps of ``fusedlamb`` at ZeRO 3
-    and at ZeRO 0, bit-equal, LAMB's two phases once a step.
+    and at ZeRO 0, bit-equal, LAMB's two phases once a step;
+26. save and resume (``runtime/checkpoint_engine.py``), into a temporary
+    directory on local disk that the stage removes: (a) stage 23's GPT-2
+    350M, fp16, ZeRO 1: 3 steps, ``save_checkpoint(async_save=True)``, 3
+    more steps; (b) stage 25's model at ZeRO 3 (``overlap_comm``,
+    prefetch), bf16: 2 steps, a synchronous save, 2 more steps.  Each time a
+    fresh engine from the same config and seed loads the tag and takes the
+    same steps: losses bit-equal, loss scale, skipped steps and lr equal,
+    the fp32 master ``torch.equal`` (just after the load to the saved one,
+    after the steps to the first run's), the same flash and Adam launches.
+    (b) then writes ``save_16bit_model`` (one unit gathered at a time: the
+    peak beyond the memory before it at most the largest unit) and holds
+    ``zero_to_fp32``'s consolidation of the tag to the saved master bit for
+    bit.  Printed a configuration: free disk before the save, bytes of
+    each file, the seconds the save took to return, to write and to commit
+    (wait), the CRC verification's and the load's seconds, and GB/s.  (b)
+    is cut in depth, full width kept, when the disk cannot hold its tag.
 
 ``--profile DIR`` adds ``torch.profiler`` windows over serving (stages 4,
 14 and 15), over two training steps of stage 8, of stage 11, of stage 22
@@ -232,6 +248,7 @@ turn the attention kernels and the paged one off) is set.
 import argparse
 import gc
 import json
+import math
 import os
 import re
 import subprocess
@@ -4370,6 +4387,224 @@ def stage_llama_zero3(seed, smi, zero0, profile_dir=None):
                 profile=z.get("profile"))
 
 
+def _counted_steps(torch, engine, batches):
+    """One micro-step a batch (optimizer steps at the accumulation
+    boundaries), every launch counter set to 0 just before: (losses,
+    launches)."""
+    counters = _all_launches()
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    losses = []
+    for batch in batches:
+        loss = engine(*batch)
+        engine.backward(loss)
+        engine.step()
+        losses.append(loss)
+    torch.cuda.synchronize()
+    return ([x.item() for x in losses],
+            {k: fn.launches for k, fn in counters.items() if fn.launches})
+
+
+def _host_state(engine):
+    return dict(master=engine.fp32_params().to("cpu", copy=True),
+                scale=float(engine.cur_scale),
+                skipped=engine.skipped_steps, lr=engine.get_lr(),
+                count=engine.opt_state.count, steps=engine.global_steps)
+
+
+def _save_resume(torch, tag, make, pre, post, save_dir, async_save, smi):
+    """Train ``pre``, save, train ``post`` (the first run); a fresh engine
+    loads the tag and trains ``post``.  Returns (the fresh engine, the
+    master at the save on the host, the numbers)."""
+    import shutil
+    from deepspeed_tpu_torch.runtime import checkpoint_engine as ce
+    a = make()
+    _counted_steps(torch, a, pre)
+    free = shutil.disk_usage(save_dir).free
+    saved = a.fp32_params().to("cpu", copy=True)
+    t = time.perf_counter()
+    a.save_checkpoint(save_dir, tag=tag, async_save=async_save)
+    save_s = time.perf_counter() - t
+    losses, launches = _counted_steps(torch, a, post)
+    t = time.perf_counter()
+    a.wait_for_checkpoint()
+    wait_s = time.perf_counter() - t
+    stats = a.last_checkpoint.stats()
+    first = _host_state(a)
+    del a
+    _free(torch)
+    root = os.path.join(save_dir, tag)
+    files = {f: os.path.getsize(os.path.join(root, f))
+             for f in sorted(os.listdir(root))}
+    total = sum(files.values())
+    b = make()
+    verify_s = []
+    verify = ce.verify_checkpoint_tag
+
+    def timed_verify(path):
+        t0 = time.perf_counter()
+        out = verify(path)
+        verify_s.append(time.perf_counter() - t0)
+        return out
+
+    ce.verify_checkpoint_tag = timed_verify
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        b.load_checkpoint(save_dir)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+    finally:
+        ce.verify_checkpoint_tag = verify
+    loaded_equal = torch.equal(b.fp32_params().cpu(), saved)
+    losses_b, launches_b = _counted_steps(torch, b, post)
+    second = _host_state(b)
+    r = dict(free_disk_bytes=free, file_bytes=files, tag_bytes=total,
+             save_return_s=save_s, wait_s=wait_s,
+             stage_s=stats["stage_s"], write_s=stats["write_s"],
+             commit_s=stats["commit_s"], verify_s=sum(verify_s),
+             load_s=load_s, write_gb_s=total / stats["write_s"] / 1e9,
+             load_gb_s=total / load_s / 1e9, losses=losses,
+             losses_resumed=losses_b, launches=launches,
+             launches_resumed=launches_b, loaded_master_equal=loaded_equal,
+             master_equal=torch.equal(first["master"], second["master"]),
+             scale=(first["scale"], second["scale"]),
+             skipped=(first["skipped"], second["skipped"]),
+             lr=(first["lr"], second["lr"]),
+             count=(first["count"], second["count"]))
+    log(f"[save-resume] {tag}: free disk {free / 1e9:.1f} GB before the "
+        f"save; files " + ", ".join(f"{f} {n:,} B" for f, n in files.items())
+        + f" ({total / 1e9:.2f} GB); save returned in {save_s:.2f} s "
+        f"({'async' if async_save else 'sync'}: host copies "
+        f"{stats['stage_s']:.2f} s, writes {stats['write_s']:.2f} s = "
+        f"{r['write_gb_s']:.2f} GB/s, commit {stats['commit_s']:.2f} s), "
+        f"wait_for_checkpoint {wait_s:.2f} s; load {load_s:.2f} s = "
+        f"{r['load_gb_s']:.2f} GB/s, of which CRC verify "
+        f"{r['verify_s']:.2f} s | {smi}")
+    log(f"[save-resume] {tag}: losses {losses} | resumed {losses_b}; "
+        f"scale {r['scale']}, skipped {r['skipped']}, lr {r['lr']}, "
+        f"count {r['count']}; master bit-equal after the load "
+        f"{loaded_equal}, after the steps {r['master_equal']}; launches "
+        f"{launches} | resumed {launches_b}")
+    bad = [k for k in ("scale", "skipped", "lr", "count")
+           if r[k][0] != r[k][1]]
+    if losses != losses_b or bad or not loaded_equal or \
+            not r["master_equal"] or launches != launches_b:
+        raise AssertionError(f"{tag}: the resumed run left the first "
+                             f"(losses {losses} vs {losses_b}, unequal "
+                             f"{bad}, master after load {loaded_equal}, "
+                             f"after the steps {r['master_equal']}, "
+                             f"launches {launches} vs {launches_b})")
+    for k in ("flash_attention_fwd", "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkv", "fused_adam_step"):
+        if not launches.get(k):
+            raise AssertionError(f"{tag}: {k} never launched")
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{tag}: losses {losses}")
+    return b, saved, r
+
+
+def stage_save_resume(seed, smi):
+    """Stage 26: save and resume at ZeRO 1 (GPT-2 350M, fp16, async save)
+    and ZeRO 3 (Llama-2-7B width, bf16, sync save), then the 16-bit export
+    and ``zero_to_fp32`` of the ZeRO-3 tag."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.checkpoint import \
+        get_fp32_state_dict_from_zero_checkpoint
+    from deepspeed_tpu_torch.models.gpt2 import gpt2_350m
+    from deepspeed_tpu_torch.models.llama import (LlamaModel, llama_7b,
+                                                  param_count)
+    save_dir = tempfile.mkdtemp(prefix="ds_ckpt_")
+    out = {}
+    try:
+        # (a) stage 23's config and batch shape, async save
+        rng = np.random.default_rng(seed + 26)
+        B, S = 8, 1024
+        gcfg = gpt2_350m()
+        batches = [(ids, ids) for ids in (torch.from_numpy(rng.integers(
+            0, gcfg.vocab_size, size=(B, S))).cuda() for _ in range(6))]
+        config = dict(GPT2_CONFIG, optimizer={"type": "fusedadam",
+                                              "params": {"lr": 1e-4}},
+                      zero_optimization={"stage": 1})
+        eng, _, out["gpt2_zero1"] = _save_resume(
+            torch, "gpt2_zero1", lambda: _gpt2_engine(torch, seed,
+                                                      config)[0],
+            batches[:3], batches[3:], save_dir, True, smi)
+        del eng
+        _free(torch)
+        shutil.rmtree(os.path.join(save_dir, "gpt2_zero1"))
+        # (b) stage 25's model at ZeRO 3, sync save; depth cut to the disk
+        free = shutil.disk_usage(save_dir).free
+        L, gas = 8, 2
+        while L > 1 and 16 * param_count(llama_7b(num_hidden_layers=L)) \
+                * 1.1 > free:
+            L //= 2
+        if L != 8:
+            log(f"[save-resume] llama_zero3 cut to {L} layers: "
+                f"{free / 1e9:.1f} GB free")
+        cfg = llama_7b(num_hidden_layers=L, remat=False,
+                       head_dtype="bfloat16")
+        zero = dict(ZERO3, stage3_gather_16bit_weights_on_model_save=True)
+        lconfig = dict(TRAIN_CONFIG, gradient_accumulation_steps=gas,
+                       zero_optimization=zero)
+        rng = np.random.default_rng(seed + 2626)
+        mb = [(ids, ids) for ids in (torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, size=(4, 2048))).cuda() for _ in range(8))]
+
+        def make():
+            engine = deepspeed_tpu_torch.initialize(
+                model=LlamaModel(cfg, device="meta"), config=lconfig)[0]
+            engine.initialize_parameters(seed)
+            return engine
+
+        eng, saved, r = _save_resume(torch, "llama_zero3", make, mb[:4],
+                                     mb[4:], save_dir, False, smi)
+        r["layers"] = L
+        step_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        if not eng.save_16bit_model(os.path.join(save_dir, "export16")):
+            raise AssertionError("save_16bit_model wrote nothing")
+        r["save_16bit_s"] = time.perf_counter() - t
+        r["save_16bit_extra_bytes"] = torch.cuda.max_memory_allocated() - \
+            before
+        unit = 2 * max(eng.zero_plan.unit_numel)
+        layout = list(eng._layout)
+        del eng
+        _free(torch)
+        t = time.perf_counter()
+        sd = get_fp32_state_dict_from_zero_checkpoint(save_dir,
+                                                      tag="llama_zero3")
+        r["zero_to_fp32_s"] = time.perf_counter() - t
+        r["zero_to_fp32_equal"] = all(
+            torch.equal(sd[n].reshape(-1), saved[o:o + k])
+            for n, o, k, _ in layout) and len(sd) == len(layout)
+        log(f"[save-resume] llama_zero3 ({L} layers): save_16bit_model "
+            f"{r['save_16bit_s']:.2f} s, "
+            f"{os.path.getsize(os.path.join(save_dir, 'export16', 'pytorch_model.bin')) / 1e9:.2f}"
+            f" GB, peak {r['save_16bit_extra_bytes'] / 2**30:.3f} GiB "
+            f"beyond the memory before it (largest unit "
+            f"{unit / 2**30:.3f} GiB; the steps' peak "
+            f"{step_peak / 2**30:.2f} GiB); zero_to_fp32 "
+            f"{r['zero_to_fp32_s']:.2f} s, equal to the saved master "
+            f"{r['zero_to_fp32_equal']} | {smi}")
+        if r["save_16bit_extra_bytes"] > unit or \
+                not r["zero_to_fp32_equal"]:
+            raise AssertionError("16-bit export above one unit, or "
+                                 "zero_to_fp32 apart from the master")
+        out["llama_zero3"] = r
+        return out
+    finally:
+        shutil.rmtree(save_dir, ignore_errors=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4434,6 +4669,7 @@ def main():
                                     args.profile)
     llama_zero3 = stage_llama_zero3(args.seed, smi,
                                     llama_zero2.pop("zero0"), args.profile)
+    save_resume = stage_save_resume(args.seed, smi)
 
     entries = []
     for wrapper, case in (("paged_attention", "serve_decode"),
@@ -4501,6 +4737,17 @@ def main():
         entries[-3][key] = run["launches"]["flash_attention_fwd"]
         entries[-2][key] = (run["launches"]["flash_attention_bwd_dq"] +
                             run["launches"]["flash_attention_bwd_dkv"])
+    # stage 26: both runs after each save, both configurations
+    resumed = {}
+    for r in save_resume.values():
+        for counts in (r["launches"], r["launches_resumed"]):
+            for k, n in counts.items():
+                resumed[k] = resumed.get(k, 0) + n
+    entries[-3]["launches_save_resume"] = resumed["flash_attention_fwd"]
+    entries[-2]["launches_save_resume"] = (
+        resumed["flash_attention_bwd_dq"] +
+        resumed["flash_attention_bwd_dkv"])
+    entries[-1]["launches_save_resume"] = resumed["fused_adam_step"]
     lamb = next(r for r in gpt2_kernels if r["case"] == "lamb_float32")
     lion = next(r for r in gpt2_kernels if r["case"] == "lion_float32")
     opt_src = "deepspeed_tpu_torch/csrc/optimizers.cu"
@@ -4658,6 +4905,7 @@ def main():
                            fp_quant=fpq, bert=bert, gpt2_zero1=gpt2_zero1,
                            llama_zero2=llama_zero2,
                            llama_zero3=llama_zero3,
+                           save_resume=save_resume,
                            seconds=time.perf_counter() - t_start),
                       f, indent=1, default=str)
     from deepspeed_tpu_torch import comm

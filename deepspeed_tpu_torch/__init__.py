@@ -11,10 +11,12 @@ Ported so far: FastGen-v2 serving of the Llama family and Mixtral
 (``inference.v2.build_hf_engine``, with the paged-attention and
 grouped-matmul kernels; int8/int4 weights with the blockwise quantizer);
 training of Llama, GPT-2 and BERT through :func:`initialize` at ZeRO
-stages 0-2 over ``torch.distributed`` (the comm layer, ``comm/``), in bf16,
+stages 0-3 over ``torch.distributed`` (the comm layer, ``comm/``), in bf16,
 fp16 (dynamic loss scaling) or fp32 (with the flash-attention, fused-Adam,
-LAMB and Lion kernels); Evoformer attention (the bias flash
-kernels); block-sparse attention (``ops.sparse_attention``, the
+LAMB and Lion kernels), with checkpoints in upstream DeepSpeed's per-rank
+files that load at any world size and stage and convert to and from the
+JAX package's universal layout (``checkpoint/``); Evoformer attention (the
+bias flash kernels); block-sparse attention (``ops.sparse_attention``, the
 block-sparse kernel); FP6/FP12 weight quantization (``ops.fp_quantizer``,
 ``linear``, the FP grid quantize kernel).  Every Pallas kernel of the JAX
 package has its counterpart here.

@@ -226,3 +226,26 @@ def params_from_flax(tree, cfg: BertConfig, dtype="float32", device="cpu"):
                        f"{sorted(expected - set(out))[:4]}, unknown "
                        f"{sorted(set(out) - expected)[:4]}")
     return out
+
+
+def params_to_flax(named, cfg: BertConfig):
+    """The exact inverse of :func:`params_from_flax`: ``{name: tensor or
+    array}`` (any subset, e.g. one leaf, or a moment of the optimizer) →
+    the JAX package's nested flax tree of fp32 numpy leaves (the shapes are
+    flax's already; ``layer.{i}`` becomes ``layer_{i}``)."""
+    out = {}
+    for name, value in named.items():
+        a = (value.detach().float().cpu().numpy()
+             if isinstance(value, torch.Tensor)
+             else np.asarray(value, dtype=np.float32))
+        parts, path = name.split("."), []
+        while parts:
+            part = parts.pop(0)
+            if part == "layer" and parts and parts[0].isdigit():
+                part = f"layer_{parts.pop(0)}"
+            path.append(part)
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = np.ascontiguousarray(a, dtype=np.float32)
+    return out

@@ -496,6 +496,57 @@ def params_from_flax(tree, cfg: LlamaConfig, dtype=None, device="cpu"):
     return out
 
 
+def params_to_flax(named, cfg: LlamaConfig):
+    """The exact inverse of :func:`params_from_flax`: HF-named tensors or
+    arrays (any subset, e.g. one leaf, or a moment of the optimizer, which
+    shares the weights' layout) → the JAX package's nested flax tree of
+    fp32 numpy leaves in the flax shapes (``[H·Dh, D]`` q/k/v weights →
+    ``[D, H, Dh]`` kernels, ``[out, in]`` → ``[in, out]``).  A tied head
+    is the embedding, so ``lm_head.weight`` has no leaf of its own."""
+    out = {}
+    for name, value in named.items():
+        a = (value.detach().float().cpu().numpy()
+             if isinstance(value, torch.Tensor)
+             else np.asarray(value, dtype=np.float32))
+        path, a = _flax_leaf(name, a, cfg)
+        if path is None:
+            continue
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.ascontiguousarray(a, dtype=np.float32)
+    return out
+
+
+def _flax_leaf(name, a, cfg):
+    """(flax path, array in the flax shape) of one HF-named leaf."""
+    if name == "model.embed_tokens.weight":
+        return ("embed_tokens", "embedding"), a
+    if name == "model.norm.weight":
+        return ("norm", "weight"), a
+    if name == "lm_head.weight":
+        if cfg.tie_word_embeddings:
+            return None, a
+        return ("lm_head", "kernel"), a.T
+    parts = name.split(".")
+    if parts[:2] != ["model", "layers"] or len(parts) not in (5, 6):
+        raise KeyError(f"{name!r} is no Llama weight")
+    layer, block = f"layers_{parts[2]}", parts[3]
+    if block in ("input_layernorm", "post_attention_layernorm"):
+        return (layer, block, "weight"), a
+    proj, leaf = parts[4:]
+    if block == "mlp":
+        return (layer, "mlp", proj, "kernel"), a.T
+    if proj == "o_proj":
+        return (layer, "self_attn", proj, "kernel"), a.T
+    heads = (cfg.num_attention_heads if proj == "q_proj"
+             else cfg.num_key_value_heads)
+    if leaf == "bias":
+        return (layer, "self_attn", proj, "bias"), a.reshape(heads, -1)
+    return (layer, "self_attn", proj, "kernel"), a.T.reshape(
+        cfg.hidden_size, heads, -1)
+
+
 def _flax_converter(dtype, device):
     """numpy leaf → contiguous torch tensor on ``device``, by default in
     ``dtype``."""

@@ -8,15 +8,17 @@ dynamic loss scaling), ``optimizer``, ``scheduler``,
 ``gradient_clipping``, ``zero_optimization`` (stages 0-3,
 ``runtime/zero/config.py``), ``steps_per_print``,
 ``data_types.grad_accum_dtype``, ``resilience.check_finite_grads``,
-``comms_logger``, ``wall_clock_breakdown``, ``mesh.dp``,
-``sequence_length`` and ``seed``.
+``resilience.checkpoint_integrity``, ``checkpoint`` (``load_universal``,
+``use_node_local_storage``), ``comms_logger``, ``wall_clock_breakdown``,
+``mesh.dp``, ``sequence_length`` and ``seed``.
 
 A key that turns on a feature this port does not have yet raises
 ``NotImplementedError`` naming its ROADMAP queue-A item
 (:data:`_UNPORTED`); none is silently ignored.  Keys that configure a
-feature without turning it on (bucket sizes, checkpoint options) parse.
+feature without turning it on (bucket sizes) parse.
 """
 
+import hashlib
 import json
 import os
 
@@ -84,6 +86,30 @@ class DataTypesConfig(DeepSpeedConfigModel):
     grad_accum_dtype: str = None
 
 
+class CheckpointConfig(DeepSpeedConfigModel):
+    """The ``checkpoint`` block (``config.py:338``): ``load_universal``
+    sends ``load_checkpoint`` to the universal layout; with
+    ``use_node_local_storage`` every rank commits (and resolves) its own
+    tag.  ``tag_validation`` and ``parallel_write`` parse, as in JAX."""
+    tag_validation: str = "Warn"
+    load_universal: bool = False
+    use_node_local_storage: bool = False
+    parallel_write: dict = None
+
+
+class CheckpointIntegrityConfig(DeepSpeedConfigModel):
+    """``resilience.checkpoint_integrity`` (``config.py:359``): a
+    ``manifest.json`` (file list, sizes, CRC32s, config hash) committed
+    after every file of a tag; ``load_checkpoint`` verifies it and falls
+    back to the newest valid tag.  ``keep_n`` valid tags are kept (0: all);
+    a failed write is retried ``save_retries`` times, ``retry_backoff``
+    seconds doubling."""
+    enabled: bool = True
+    keep_n: int = 0
+    save_retries: int = 3
+    retry_backoff: float = 0.25
+
+
 class CommsLoggerConfig(DeepSpeedConfigModel):
     """The ``comms_logger`` block (``config.py:63``)."""
     enabled: bool = False
@@ -136,6 +162,13 @@ def _check_finite_grads(cfg):
         raise DeepSpeedConfigError(
             "resilience.check_finite_grads: max_consecutive_skips >= 1, "
             "grad_norm_spike_factor >= 0 and spike_warmup_steps >= 0")
+
+
+def _check_integrity(cfg):
+    if cfg.keep_n < 0 or cfg.save_retries < 0 or cfg.retry_backoff < 0:
+        raise DeepSpeedConfigError(
+            "resilience.checkpoint_integrity: keep_n, save_retries and "
+            "retry_backoff must be >= 0")
 
 
 def _offload_on(section):
@@ -280,6 +313,14 @@ class DeepSpeedConfig:
         self.finite_grads_config = FiniteGradsConfig(
             **resilience.get("check_finite_grads", {}) or {})
         _check_finite_grads(self.finite_grads_config)
+        self.checkpoint_integrity = CheckpointIntegrityConfig(
+            **resilience.get("checkpoint_integrity", {}) or {})
+        _check_integrity(self.checkpoint_integrity)
+        self.checkpoint_config = CheckpointConfig(
+            **pd.get("checkpoint", {}) or {})
+        self.load_universal_checkpoint = self.checkpoint_config.load_universal
+        self.use_node_local_storage = \
+            self.checkpoint_config.use_node_local_storage
 
         grad_clip = pd.get("gradient_clipping", 0.0)
         self.gradient_clipping = float(grad_clip) if grad_clip else 0.0
@@ -333,6 +374,13 @@ class DeepSpeedConfig:
         self.prefetch_bucket_mb = (zc.prefetch_bucket_size * itemsize /
                                    float(MB) if self.prefetch_enabled
                                    else 0.0)
+
+    def config_hash(self):
+        """Content hash of the user config (``config.py:766-773``, the same
+        hash for the same dict in both packages): each checkpoint's
+        manifest records it, and a resume under another config warns."""
+        blob = json.dumps(self._param_dict, sort_keys=True, default=str)
+        return hashlib.sha256(blob.encode()).hexdigest()[:16]
 
     def resolve_batch_sizes(self, dp_world_size):
         """Complete the trinity given the data-parallel degree

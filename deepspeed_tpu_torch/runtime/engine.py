@@ -54,6 +54,9 @@ group (:meth:`DeepSpeedEngine._init_comm`):
   just before it runs, forward and backward, and released after; the step
   gathers no parameters but the persistent unit's.  Bucketed stage 2 keeps
   the parameters whole and gathers them unit by unit after the step.
+* Checkpoints (``runtime/checkpoint_engine.py``): every rank writes its
+  shard in upstream DeepSpeed's per-rank files and loads at any world size
+  and stage; the JAX package's manifest, rollback and async commit.
 * The loss over the global batch: the JAX engine runs one program on the
   global batch, whose loss is the masked mean over every rank's rows.  A
   model whose ``forward`` takes ``loss_reduction`` hands back the masked
@@ -64,7 +67,11 @@ group (:meth:`DeepSpeedEngine._init_comm`):
   gradient scale.
 """
 
+import atexit
 import inspect
+import os
+import weakref
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -252,6 +259,7 @@ class DeepSpeedEngine:
         self._pending_client_lr = None
         self._last_gnorm = None
         self._last_skipped = False
+        self.last_checkpoint = None   # the last save's handle (its stats())
         if model_parameters is not None or not any(
                 p.is_meta for p in model.parameters()):
             self._install_parameters(model_parameters)
@@ -1041,11 +1049,172 @@ class DeepSpeedEngine:
             out.append(self._to_device(t))
         return tuple(out)
 
-    def save_checkpoint(self, *args, **kwargs):
-        raise not_ported("save_checkpoint", 5)
+    # ----------------------------------------------------------- checkpoints
+    def save_checkpoint(self, save_dir, tag=None, client_state=None,
+                        save_latest=True, exclude_frozen_parameters=False,
+                        async_save=False):
+        """Write a tag (``runtime/checkpoint_engine.py``; JAX
+        ``engine.py:2162``), every rank together.  The host copies are made
+        before it returns; ``async_save=True`` returns the pending handle,
+        whose commit (manifest, then ``latest``) is
+        :meth:`wait_for_checkpoint`, also made before the next save or load
+        and at exit.  ``exclude_frozen_parameters``: the port trains every
+        leaf, so there is none to exclude."""
+        from .checkpoint_engine import save_engine_checkpoint
+        self._check_params()
+        self.wait_for_checkpoint()   # one pending async save at a time
+        out = save_engine_checkpoint(self, save_dir, tag=tag,
+                                     client_state=client_state,
+                                     save_latest=save_latest,
+                                     async_save=async_save)
+        if async_save:
+            self._pending_ckpt = out
+            if not getattr(self, "_ckpt_atexit", False):
+                # a script whose last act is an async save would otherwise
+                # exit without committing its tag
+                ref = weakref.ref(self)
+                atexit.register(
+                    lambda: ref() is not None and ref().wait_for_checkpoint())
+                self._ckpt_atexit = True
+        return out
 
-    def load_checkpoint(self, *args, **kwargs):
-        raise not_ported("load_checkpoint", 5)
+    def wait_for_checkpoint(self):
+        """Block until a pending ``async_save`` tag is committed; raises
+        its write's error (JAX ``engine.py:2189``)."""
+        pending = getattr(self, "_pending_ckpt", None)
+        if pending is not None:
+            self._pending_ckpt = None  # even a failed commit must not wedge
+            pending.wait()
+
+    def load_checkpoint(self, load_dir, tag=None, load_module_strict=True,
+                        load_optimizer_states=True,
+                        load_lr_scheduler_states=True,
+                        load_module_only=False, custom_load_fn=None):
+        """Load a tag of the port or of upstream DeepSpeed, saved at any
+        world size and stage, or with ``checkpoint.load_universal`` a
+        universal directory (JAX ``engine.py:2196-2225``); returns ``(tag
+        dir, client_state)``, ``(None, {})`` when nothing was loaded.
+        ``custom_load_fn(src=module state, dst=module)`` replaces the
+        module's load (stages 0-2).  Every rank calls it."""
+        if custom_load_fn is not None and self.zero_stage == 3:
+            raise ValueError("load_checkpoint(custom_load_fn=...) needs the "
+                             "whole parameters: ZeRO stages 0-2")
+        self.wait_for_checkpoint()
+        if self._config.load_universal_checkpoint:
+            from ..checkpoint.universal_checkpoint import \
+                load_universal_checkpoint
+            return load_universal_checkpoint(
+                self, load_dir, tag=tag,
+                load_optimizer_states=load_optimizer_states,
+                load_lr_scheduler_states=load_lr_scheduler_states,
+                load_module_only=load_module_only)
+        from .checkpoint_engine import load_engine_checkpoint
+        return load_engine_checkpoint(
+            self, load_dir, tag=tag,
+            load_optimizer_states=load_optimizer_states,
+            load_lr_scheduler_states=load_lr_scheduler_states,
+            load_module_only=load_module_only,
+            load_module_strict=load_module_strict,
+            custom_load_fn=custom_load_fn)
+
+    def save_16bit_model(self, save_dir, save_filename="pytorch_model.bin",
+                         exclude_frozen_parameters=False):
+        """Rank 0 writes ``torch.save`` of :meth:`module_state_dict` under
+        ``save_filename`` (JAX ``engine.py:2232`` writes ``.npz`` only
+        because numpy has no bf16).  A stage-3 model is gathered one unit
+        at a time, and only with ``stage3_gather_16bit_weights_on_model_
+        save``: without it nothing is written and False returned, as
+        upstream does.  Every rank calls it."""
+        self._check_params()
+        if self.zero_stage == 3 and \
+                not self._config.zero_config.gather_16bit_weights_on_model_save:
+            logger.warning(
+                "save_16bit_model: a stage-3 model is written only with "
+                "zero_optimization.stage3_gather_16bit_weights_on_model_save"
+                " (nothing written); zero_to_fp32 recovers the weights from "
+                "a checkpoint")
+            return False
+        sd = self.module_state_dict(dst=0)
+        if self.dp_rank == 0:
+            os.makedirs(save_dir, exist_ok=True)
+            torch.save(sd, os.path.join(save_dir, save_filename))
+        return True
+
+    def module_state_dict(self, dst=None):
+        """``{name: compute-dtype tensor on the host}`` of every leaf in the
+        layout's order, on rank ``dst`` (every rank when None; None on the
+        others).  A stage-3 model is gathered one unit at a time, so one
+        unit at most is gathered beside the shard; every rank must call
+        it."""
+        self._check_params()
+        mine = dst is None or self.dp_rank == dst
+        out = OrderedDict() if mine else None
+        if self.zero_stage < 3:
+            if mine:
+                for name, off, n, shape in self._layout:
+                    out[name] = self.params[off:off + n].view(shape).to(
+                        "cpu", copy=True)
+            return out
+        for u in self._coord.units:
+            self._coord.gather(u)
+            if mine:
+                for name, off, n, shape in u.leaves:
+                    out[name] = u.buffer[off:off + n].view(shape).to(
+                        "cpu", copy=True)
+            self._coord.release(u)
+        return out
+
+    def _all_ranks_agree(self, ok):
+        """Whether ``ok`` holds on every rank (a MIN over the ranks)."""
+        flag = torch.tensor([1.0 if ok else 0.0], device=self.device)
+        dist.all_reduce(flag, op=ReduceOp.MIN, group=self._dp_group)
+        return bool(flag.item())
+
+    def _load_module(self, module, custom_load_fn=None):
+        """The compute-dtype parameters from ``module`` ({name: tensor};
+        a leaf it lacks keeps its value): the whole buffer below stage 3,
+        this rank's pieces and the persistent unit at stage 3."""
+        plan = self.zero_plan
+        if custom_load_fn is not None:
+            custom_load_fn(src=module, dst=self.module)
+        elif self.zero_stage < 3:
+            for name, off, n, _ in self._layout:
+                if name in module:
+                    self.params[off:off + n].copy_(module[name].reshape(-1))
+        else:
+            for off, k, within, i in plan.pieces(self._layout):
+                name = self._layout[i][0]
+                if name in module:
+                    self.params[off:off + k].copy_(
+                        module[name].reshape(-1)[within:within + k])
+            for u in self._coord.units:
+                if u.kind == PERSISTENT:
+                    for name, off, n, _ in u.leaves:
+                        if name in module:
+                            u.buffer[off:off + n].copy_(
+                                module[name].reshape(-1))
+            self._coord.release_all()
+        if self._pshard is not None:
+            plan.take_shard(self.params, out=self._pshard)
+
+    def _master_from_params(self):
+        """The fp32 master re-derived from the compute-dtype parameters
+        (JAX ``checkpoint_engine.py:677-690``); without a master the
+        optimizer's target is the parameters themselves."""
+        if self.master is None:
+            return
+        if self.zero_stage == 3:
+            self.master.copy_(self.params)
+        else:
+            self.zero_plan.take_shard(self.params, out=self.master)
+
+    def _params_from_master(self):
+        """The compute-dtype parameters as the master's cast, gathered
+        where other ranks hold their slices (as after a step)."""
+        if self.master is not None:
+            self._param_shard().copy_(self.master)
+        if self.zero_plan.sharded:
+            self._gather_updated()
 
     # the JAX engine's other public methods, each named by its item
     def register_param_transform(self, fn):
@@ -1065,9 +1234,6 @@ class DeepSpeedEngine:
 
     def reload_states(self, *args, **kwargs):
         raise not_ported("reload_states", 10)
-
-    def wait_for_checkpoint(self, *args, **kwargs):
-        raise not_ported("wait_for_checkpoint", 5)
 
     def empty_partition_cache(self):
         """Stage 3: release every gathered unit but the persistent one

@@ -11,10 +11,10 @@ raises ROADMAP queue A item 10, ZeRO++ and MiCS item 7
 and gathers the whole flat buffer in one collective each, or one block of
 the model at a time (``runtime/zero/partition.py``), so it ignores them.
 It ignores as well ``stage3_max_reuse_distance``,
-``stage3_model_persistence_threshold``,
-``stage3_gather_16bit_weights_on_model_save`` (checkpointing, item 5),
-``overlap_comm`` at stages 0-1 and the stage-3 knobs below stage 3;
-``ZeroPartitionPlan.describe()`` lists what it ignored.
+``stage3_model_persistence_threshold``, ``overlap_comm`` at stages 0-1 and
+the stage-3 knobs below stage 3; ``ZeroPartitionPlan.describe()`` lists
+what it ignored.  ``stage3_gather_16bit_weights_on_model_save`` lets
+``save_16bit_model`` gather a stage-3 model unit by unit.
 """
 
 from ..config_utils import DeepSpeedConfigModel
@@ -34,11 +34,10 @@ IGNORED_KNOBS = ("contiguous_gradients", "reduce_scatter",
                  "reduce_bucket_size", "use_multi_rank_bucket_allreduce",
                  "allgather_partitions", "allgather_bucket_size",
                  "round_robin_gradients", "sub_group_size",
-                 "max_reuse_distance", "model_persistence_threshold",
-                 "gather_16bit_weights_on_model_save")
+                 "max_reuse_distance", "model_persistence_threshold")
 # the stage-3 knobs the port acts on at stage 3 only
 STAGE3_KNOBS = ("prefetch_bucket_size", "param_persistence_threshold",
-                "max_live_parameters")
+                "max_live_parameters", "gather_16bit_weights_on_model_save")
 
 
 class DeepSpeedZeroConfig(DeepSpeedConfigModel):

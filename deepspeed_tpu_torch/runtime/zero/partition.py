@@ -144,6 +144,51 @@ class ZeroPartitionPlan:
                     pieces.append((a - lo + base, b - a, a - off, i))
         return pieces
 
+    def fragment_map(self, layout):
+        """This rank's shard as upstream's stage ≤ 2 checkpoints describe a
+        partition: ``{leaf name: (numel, offset in the shard)}``, in shard
+        order.  At every stage a shard is a concatenation of leaf pieces
+        (:meth:`pieces`), and a leaf lies in one unit, whose slices cut it
+        into contiguous pieces in rank order: so a leaf has at most one
+        piece a rank, and its pieces over the ranks, in rank order, are the
+        leaf.  The stage ≤ 2 content (``param_slice_mappings`` and one flat
+        fp32 group a rank) therefore describes a stage-3 shard exactly."""
+        return {layout[i][0]: (k, off) for off, k, _, i in
+                self.pieces(layout)}
+
+    def fill_shard(self, layout, sources, targets):
+        """The inverse of :meth:`fragment_map` over every saved partition:
+        fill this rank's shard buffers ``targets`` ({field: tensor, or None
+        to skip}) from ``sources`` saved at any world size and stage,
+        ``[(fragments, flats)]`` with ``fragments = {name: (start, numel,
+        within)}`` (the leaf's elements ``[within, within + numel)`` lie at
+        ``[start, start + numel)`` of each of ``flats``, ``{field: 1-D
+        tensor}``).  Only the pieces that overlap this rank's are copied.
+        Raises KeyError when a saved field is missing or the saved pieces
+        do not cover this rank's."""
+        saved = {}
+        for frags, flats in sources:
+            for name, (start, n, within) in frags.items():
+                saved.setdefault(name, []).append((within, start, n, flats))
+        for off, k, mine, i in self.pieces(layout):
+            name, covered = layout[i][0], 0
+            for within, start, n, flats in saved.get(name, ()):
+                a, b = max(mine, within), min(mine + k, within + n)
+                if a >= b:
+                    continue
+                for field, t in targets.items():
+                    if t is None:
+                        continue
+                    if field not in flats:
+                        raise KeyError(f"{name}: the checkpoint holds no "
+                                       f"{field}")
+                    t[off + a - mine:off + b - mine].copy_(
+                        flats[field][start + a - within:start + b - within])
+                covered += b - a
+            if covered != k:
+                raise KeyError(f"{name}: the checkpoint covers {covered} of "
+                               f"the {k} elements of this rank's piece")
+
     def take_shard(self, flat, out):
         """This rank's shard of a flat buffer of the layout, copied into
         ``out`` slice by slice."""

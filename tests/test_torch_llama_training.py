@@ -449,9 +449,8 @@ def test_unported_model_and_engine_options_raise():
     eng, *_ = deepspeed_tpu_torch.initialize(
         model=port_llama.LlamaModel(pcfg, device="cpu"),
         config={"train_batch_size": 1}, device="cpu")
-    for call in (eng.train_batch, eng.save_checkpoint, eng.load_checkpoint):
-        with pytest.raises(NotImplementedError):
-            call()
+    with pytest.raises(NotImplementedError):
+        eng.train_batch()
     with pytest.raises(NotImplementedError, match="item 4"):
         deepspeed_tpu_torch.initialize(
             model=port_llama.LlamaModel(pcfg, device="cpu"),

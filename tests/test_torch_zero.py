@@ -669,7 +669,6 @@ STUBS = {
     "is_compiled": ((), 4),
     "offload_states": ((), 10),
     "reload_states": ((), 10),
-    "wait_for_checkpoint": ((), 5),
     "start_device_trace": (("trace_dir", ), 12),
     "stop_device_trace": ((), 12),
     "compute_block_eigenvalues": ((), 11),

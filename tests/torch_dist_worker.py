@@ -19,7 +19,12 @@ Leg kinds:
   on this rank's rows of each global batch (``engine.shard_batch``); the
   losses, scales, skips and gradient norms, the whole fp32 master and the
   comm counts (and, at ZeRO 3, the coordinator's peak of gathered
-  elements beside what bounds it).
+  elements beside what bounds it);
+* ``ckpt``: the same training, a ``save_checkpoint`` into the leg's
+  directory after ``k`` batches and the rest of the batches; then, for each
+  of the leg's ``resume`` configs, a fresh engine that loads the tag and
+  trains on the same batches: every run's losses and its gathered state
+  (master, moments, count, counters) by leaf name.
 """
 
 import os
@@ -257,6 +262,69 @@ def run_train(leg, rank, world):
                 global_loss=engine._global_loss)
 
 
+def gathered_state(engine):
+    """The engine's whole fp32 master and moments, by leaf name (a
+    collective when sharded), with its counters."""
+    import numpy as np
+    opt = engine.opt_state
+
+    def leaves(flat):
+        return {n: flat[o:o + k].reshape(s).numpy().copy()
+                for n, o, k, s in engine._layout}
+
+    def whole(t):
+        if t is None:
+            return None
+        return leaves(engine._gather_shard(t) if engine.zero_plan.sharded
+                      else t)
+
+    return dict(master=leaves(engine.fp32_params().float()),
+                exp_avg=whole(opt.exp_avg),
+                exp_avg_sq=whole(getattr(opt, "exp_avg_sq", None)),
+                params=leaves(engine.gathered_params().float()),
+                count=opt.count, scale=float(engine.cur_scale),
+                skipped=engine.skipped_steps, steps=engine.global_steps,
+                micro=engine.micro_steps)
+
+
+def run_ckpt(leg, rank, world):
+    import deepspeed_tpu_torch
+
+    def train(engine, batches):
+        out = []
+        for batch in batches:
+            loss = engine(*engine.shard_batch(*batch))
+            engine.backward(loss)
+            engine.step()
+            out.append(float(loss))
+        return out
+
+    model, start = _model(leg["model"], leg["cfg"], leg["tree"])
+    engine = deepspeed_tpu_torch.initialize(
+        model=model, model_parameters=start, config=dict(leg["config"]),
+        device="cpu")[0]
+    k = leg["k"]
+    train(engine, leg["batches"][:k])
+    saved = gathered_state(engine)
+    engine.save_checkpoint(leg["dir"], tag="t",
+                           async_save=leg.get("async", False))
+    losses = train(engine, leg["batches"][k:])
+    engine.wait_for_checkpoint()
+    out = dict(saved=saved, losses=losses, final=gathered_state(engine),
+               resumed={})
+    for name, config in leg.get("resume", {"same": leg["config"]}).items():
+        fresh, _ = _model(leg["model"], leg["cfg"], leg["tree"])
+        eng = deepspeed_tpu_torch.initialize(model=fresh,
+                                             config=dict(config),
+                                             device="cpu")[0]
+        eng.load_checkpoint(leg["dir"])
+        loaded = gathered_state(eng)
+        out["resumed"][name] = dict(
+            loaded=loaded, losses=train(eng, leg["batches"][k:]),
+            final=gathered_state(eng))
+    return out
+
+
 def main():
     spec, out_dir = sys.argv[1], sys.argv[2]
     import torch
@@ -268,7 +336,7 @@ def main():
         legs = pickle.load(f)
     for leg in legs:
         fn = {"comm": run_comm, "comm_log": run_comm_log,
-              "train": run_train}[leg["kind"]]
+              "train": run_train, "ckpt": run_ckpt}[leg["kind"]]
         out = fn(leg, rank, world)
         with open(os.path.join(out_dir, f"{leg['name']}.r{rank}.pkl"),
                   "wb") as f:

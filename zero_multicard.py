@@ -2,7 +2,7 @@
 """ZeRO stages 0-3 across the cards of one host, one process a card.
 
     python3 zero_multicard.py [--model gpt2|llama|llama7b] [--world N]
-                              [--json PATH] [--device cpu]
+                              [--json PATH] [--device cpu] [--checkpoint]
 
 BASELINE config 2 (``--model gpt2``: GPT-2 350M, fp16 from a scale of
 2^16, remat, ``fusedadam``, 8 rows of 1024 tokens a rank) or config 3
@@ -26,6 +26,17 @@ more than 2^-7 relative (bf16/fp16 training: the reduce-scatter and the
 all-reduce sum the ranks' gradients in other orders), or when a stage's
 peak memory is above the stage before it.  ``--device cpu`` runs gloo
 processes on the CPU at the models' tiny sizes (a rehearsal).
+
+``--checkpoint`` (``--model llama`` or ``llama7b``, ZeRO 3) checks save
+and resume across the cards instead: 2 steps, ``save_checkpoint`` into a
+temporary directory on local disk (removed at the end), 2 more steps; a
+fresh engine loads the tag and takes the same 2 steps, which must be
+bit-equal (losses, and the master just after the load and after the
+steps).  With ``--model llama`` a world of half the ranks then loads the
+same tag, and its master must hash as the saved one did.  Rank 0 prints
+the bytes each rank wrote, the save's and the load's seconds and the free
+disk before the save; a depth the disk cannot hold is cut, widths kept,
+and the cut printed.
 """
 
 import argparse
@@ -149,10 +160,216 @@ def run_rank(args):
     comm.destroy_process_group()
 
 
+def _master_digest(engine):
+    """sha256 of the whole fp32 master, leaf by leaf in name order (the
+    same at any world size; a collective), on rank 0 (None elsewhere)."""
+    import hashlib
+    flat = engine.fp32_params()
+    if engine.dp_rank:
+        return None
+    h = hashlib.sha256()
+    for name, off, n, _ in sorted(engine._layout):
+        h.update(flat[off:off + n].cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _ckpt_layers(model, free):
+    """The largest depth (at most the model's) whose tag, 14 bytes an
+    element, fits ``free`` bytes of disk."""
+    from deepspeed_tpu_torch.models import llama
+    L = 32 if model == "llama7b" else 8
+    while L > 1 and 14 * llama.param_count(llama.llama_7b(
+            num_hidden_layers=L)) * 1.05 > free:
+        L -= 1
+    return L
+
+
+def run_checkpoint_rank(args):
+    """``--checkpoint``: save and resume at ZeRO 3 (module docstring)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models import llama
+    cpu = args.device == "cpu"
+    device = "cpu" if cpu else None
+    sync = (lambda: None) if cpu else torch.cuda.synchronize
+    model, cfg, S = _model(args.model, cpu)
+    if not cpu:
+        cfg = dataclasses.replace(cfg, num_hidden_layers=args.ckpt_layers)
+    config = _config(args.model, 3)
+
+    def make():
+        engine = deepspeed_tpu_torch.initialize(
+            model=llama.LlamaModel(cfg, device="meta"), config=config,
+            device=device)[0]
+        engine.initialize_parameters(args.seed)
+        return engine
+
+    def train(engine, batches):
+        out = []
+        for ids in batches:
+            for _ in range(engine.gradient_accumulation_steps()):
+                loss = engine(ids, ids)
+                engine.backward(loss)
+                engine.step()
+                out.append(loss.item())
+        sync()
+        return out
+
+    row = dict(world=None, layers=cfg.num_hidden_layers)
+    if args.ckpt_phase == "load":
+        engine = make()
+        t = time.perf_counter()
+        engine.load_checkpoint(args.ckpt_dir)
+        sync()
+        row.update(world=engine.dp_world_size,
+                   load_s=time.perf_counter() - t,
+                   digest=_master_digest(engine))
+    else:
+        engine = make()
+        world, rank = engine.dp_world_size, engine.dp_rank
+        B = engine.train_micro_batch_size_per_gpu() * world
+        rng = np.random.default_rng(args.seed + 1)
+        batches = [engine.shard_batch(rng.integers(
+            0, cfg.vocab_size, size=(B, S)))[0] for _ in range(4)]
+        train(engine, batches[:2])
+        saved = engine._target().to("cpu", copy=True)
+        # the other world's load compares against it (--model llama)
+        digest = _master_digest(engine) if args.model == "llama" else None
+        sync()
+        t = time.perf_counter()
+        engine.save_checkpoint(args.ckpt_dir, tag="t")
+        save_s = time.perf_counter() - t
+        stats = engine.last_checkpoint.stats()
+        losses = train(engine, batches[2:])
+        after = engine._target().to("cpu", copy=True)
+        del engine
+        gc.collect()
+        if not cpu:
+            torch.cuda.empty_cache()
+        engine = make()
+        t = time.perf_counter()
+        engine.load_checkpoint(args.ckpt_dir)
+        sync()
+        load_s = time.perf_counter() - t
+        loaded = torch.equal(engine._target().cpu(), saved)
+        resumed = train(engine, batches[2:])
+        same = torch.equal(engine._target().cpu(), after)
+        mine = torch.tensor([float(loaded and same), save_s, load_s,
+                             float(sum(stats["bytes"].values()))] +
+                            losses + resumed,
+                            device="cpu" if cpu else "cuda")
+        every = comm.all_gather(mine, tiled=False).cpu()
+        row.update(world=world, losses=losses, losses_resumed=resumed,
+                   equal_by_rank=[bool(x) for x in every[:, 0].tolist()],
+                   save_s_by_rank=every[:, 1].tolist(),
+                   load_s_by_rank=every[:, 2].tolist(),
+                   bytes_by_rank=[int(x) for x in every[:, 3].tolist()],
+                   stage_s=stats["stage_s"], write_s=stats["write_s"],
+                   commit_s=stats["commit_s"], digest=digest,
+                   rank_losses_equal=bool(
+                       (every[:, 4:] == every[0, 4:]).all()))
+    if engine.dp_rank == 0:
+        with open(args.out_rank0, "w") as f:
+            json.dump(row, f)
+    comm.destroy_process_group()
+
+
 def _free_port():
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
+
+
+def _spawn(world, argv):
+    """Run this script's ranks (``argv`` plus ``--rank r``) on a fresh NCCL
+    or gloo world of ``world``; their exit codes."""
+    port = str(_free_port())
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world),
+                   LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=port)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), *argv,
+             "--rank", str(rank)], env=env))
+    try:
+        return [p.wait(timeout=1800) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def _checkpoint_main(args, world, smi, out):
+    """``--checkpoint``: the save-and-resume world, then (``--model
+    llama``) a world of half the ranks loading the same tag."""
+    import shutil
+    import tempfile
+    if args.model not in ("llama", "llama7b"):
+        print("zero_multicard: --checkpoint takes --model llama or llama7b",
+              file=sys.stderr)
+        return 2
+    ckpt = tempfile.mkdtemp(prefix="zero_multicard_ckpt_")
+    free = shutil.disk_usage(ckpt).free
+    layers = _ckpt_layers(args.model, free)
+    if args.device == "cuda" and layers != (32 if args.model == "llama7b"
+                                            else 8):
+        print(f"[checkpoint] {args.model} cut to {layers} layers (widths "
+              f"kept): {free / 1e9:.1f} GB of disk free", flush=True)
+    phases = [(world, "save")]
+    if args.model == "llama" and world > 1:
+        phases.append((world // 2, "load"))
+    rows = []
+    try:
+        for w, phase in phases:
+            rcs = _spawn(w, sys.argv[1:] + [
+                "--out-rank0", out, "--ckpt-dir", ckpt, "--ckpt-phase", phase,
+                "--ckpt-layers", str(layers)])
+            if any(rcs):
+                print(f"zero_multicard: {phase} ranks exited {rcs}",
+                      file=sys.stderr)
+                return 1
+            with open(out) as f:
+                rows.append(dict(json.load(f), phase=phase))
+            os.remove(out)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    save = rows[0]
+    ok = (save["losses"] == save["losses_resumed"] and
+          all(save["equal_by_rank"]) and save["rank_losses_equal"] and
+          all(map(math.isfinite, save["losses"])))
+    print(f"[checkpoint] {args.model} ({save['layers']} layers), ZeRO 3, "
+          f"world {save['world']}: free disk {free / 1e9:.1f} GB before "
+          "the save; bytes by rank " + ", ".join(
+              f"{b / 1e9:.2f} GB" for b in save["bytes_by_rank"])
+          + "; save s by rank " + ", ".join(
+              f"{x:.1f}" for x in save["save_s_by_rank"])
+          + f" (rank 0: host copies {save['stage_s']:.1f}, writes "
+          f"{save['write_s']:.1f}, commit {save['commit_s']:.1f}); load s "
+          "by rank " + ", ".join(f"{x:.1f}" for x in save["load_s_by_rank"])
+          + f" | losses {save['losses']} resumed {save['losses_resumed']}; "
+          f"master bit-equal by rank {save['equal_by_rank']} | {smi}",
+          flush=True)
+    for r in rows[1:]:
+        same = r["digest"] == save["digest"]
+        ok &= same
+        print(f"[checkpoint] the world-{save['world']} tag loaded at world "
+              f"{r['world']} in {r['load_s']:.1f} s: master equal to the "
+              f"saved one {same} | {smi}", flush=True)
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(dict(card=smi, model=args.model, free_disk_bytes=free,
+                           checkpoint=rows), f, indent=1)
+    if not ok:
+        print("zero_multicard: a checkpoint check failed", file=sys.stderr)
+        return 1
+    print(json.dumps({"ok": True, "model": args.model, "world": world,
+                      "checkpoint": True}))
+    return 0
 
 
 def main():
@@ -163,12 +380,17 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--json", help="also write every number to this file")
+    ap.add_argument("--checkpoint", action="store_true",
+                    help="save and resume at ZeRO 3 (llama, llama7b)")
     ap.add_argument("--rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--out-rank0", help=argparse.SUPPRESS)
+    ap.add_argument("--ckpt-dir", help=argparse.SUPPRESS)
+    ap.add_argument("--ckpt-phase", help=argparse.SUPPRESS)
+    ap.add_argument("--ckpt-layers", type=int, help=argparse.SUPPRESS)
     args = ap.parse_args()
     sys.path.insert(0, REPO)
     if args.rank is not None:
-        run_rank(args)
+        (run_checkpoint_rank if args.checkpoint else run_rank)(args)
         return 0
     import torch
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -182,22 +404,9 @@ def main():
         timeout=60).stdout.strip().replace("\n", "; "))
     out = os.path.join(os.environ.get("TMPDIR", "/tmp"),
                        f"zero_multicard_{os.getpid()}.json")
-    port = str(_free_port())
-    procs = []
-    for rank in range(world):
-        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world),
-                   LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
-                   MASTER_PORT=port)
-        procs.append(subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), *sys.argv[1:],
-             "--rank", str(rank), "--out-rank0", out], env=env))
-    try:
-        rcs = [p.wait(timeout=1200) for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+    if args.checkpoint:
+        return _checkpoint_main(args, world, smi, out)
+    rcs = _spawn(world, sys.argv[1:] + ["--out-rank0", out])
     if any(rcs):
         print(f"zero_multicard: ranks exited {rcs}", file=sys.stderr)
         return 1
