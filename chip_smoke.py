@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--json PATH] [--profile DIR]
 
-Stages, run in the order 1-26; any failure exits non-zero:
+Stages, run in the order 1-27; any failure exits non-zero:
 
 1. environment: torch/CUDA/nvcc versions, the card's name and power limit;
 2. build: every ``deepspeed_tpu_torch/csrc/*.cu`` with nvcc for sm_90a
@@ -229,6 +229,29 @@ Stages, run in the order 1-26; any failure exits non-zero:
     each file, the seconds the save took to return, to write and to commit
     (wait), the CRC verification's and the load's seconds, and GB/s.  (b)
     is cut in depth, full width kept, when the disk cannot hold its tag.
+27. offload, in this order: (a) ZeRO-Infinity parameter streaming at
+    Llama-2-13B width (``offload_param`` and ``offload_optimizer`` cpu,
+    the host Adam, bf16, B=4, S=2048), its depth the most blocks whose
+    host state fits 0.7 × ``MemAvailable`` (the reckoning printed): 1
+    warm-up and 3 timed steps, step ms, tokens/s, MFU, peak HBM, host
+    bytes, the host sweep's and the H2D/D2H copies' seconds,
+    ``max_resident_blocks`` ≤ 3, exact B1 launches (2 forwards a block a
+    step: the backward recomputes); then 2 blocks at that width streamed
+    and through the ordinary engine at ZeRO 0 from the same weights and
+    data, losses within 2^-7 relative; (b) the same width with
+    ``offload_optimizer: nvme`` in a temporary directory on local disk
+    (cut to what 0.7 of the free disk holds at 12 bytes an element, and
+    to one block for the time limit): 2 steps, the aio engine that ran,
+    the bytes swapped a step and GB/s; (c) stage 25's model at ZeRO 3
+    (``overlap_comm``), bf16, 2 steps of 2 micro-steps with
+    ``offload_optimizer: cpu`` and without, FusedLamb (B3) and FusedAdam
+    (B2): losses, the fp32 master and the launches bit-equal, the master
+    and moments ``is_pinned()``, peak HBM of the second step at least 0.8
+    × 12 bytes an element lower; (d) in the Adam offload run,
+    ``offload_states()`` then ``reload_states()`` after the first step:
+    the freed HBM printed, the next step bit-equal to the run without the
+    round trip.  ``MemAvailable`` (after each run) and the free disk are
+    printed.
 
 ``--profile DIR`` adds ``torch.profiler`` windows over serving (stages 4,
 14 and 15), over two training steps of stage 8, of stage 11, of stage 22
@@ -4605,6 +4628,393 @@ def stage_save_resume(seed, smi):
         shutil.rmtree(save_dir, ignore_errors=True)
 
 
+# ----------------------------------------------------------- stage 27
+def _mem_available():
+    """The kernel's ``MemAvailable`` in bytes."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def _free_all(torch, label):
+    """:func:`_free`, and the pinned blocks PyTorch's host allocator keeps
+    cached (an offload run leaves tens of GB there); logs
+    ``MemAvailable`` after."""
+    _free(torch)
+    empty = getattr(torch._C, "_host_emptyCache", None)
+    if empty is not None:
+        empty()
+    log(f"[offload] after {label}: MemAvailable "
+        f"{_mem_available() / 1e9:.1f} GB (host cache emptied: "
+        f"{empty is not None})")
+
+
+def _pinned_bytes(n):
+    """Bytes PyTorch's pinned allocator takes for ``n`` bytes (it rounds a
+    block up to a power of two)."""
+    return 1 << max(0, int(n - 1).bit_length())
+
+
+def _offload_run(torch, engine, batches, steps, mid=None):
+    """``steps`` optimizer steps (``gas`` micro-steps each, micro-step j
+    on ``batches[j % len]``), launch counters set to 0 just before;
+    ``mid(engine)`` after the first step, then the peak reset: the peak is
+    the later steps'.  Returns losses, launches, peak, step seconds and
+    the fp32 master on the host."""
+    counters = _all_launches()
+    gas = engine.gradient_accumulation_steps()
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    losses, times, extra = [], [], {}
+    for s in range(steps):
+        t = time.perf_counter()
+        for _ in range(gas):
+            loss = engine(*batches[len(losses) % len(batches)])
+            engine.backward(loss)
+            engine.step()
+            losses.append(loss)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        if s == 0:
+            if mid is not None:
+                extra = mid(engine)
+            torch.cuda.reset_peak_memory_stats()
+    launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    peak = torch.cuda.max_memory_allocated()
+    master = engine.fp32_params()[:engine.zero_plan.numel].cpu()
+    return dict(losses=[x.item() for x in losses], launches=launches,
+                peak=peak, times=times, master=master, **extra)
+
+
+def _round_trip(torch):
+    """(d): ``offload_states()`` then ``reload_states()`` mid-run."""
+    def mid(engine):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        engine.offload_states()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        freed = before - torch.cuda.memory_allocated()
+        where = engine.state_placement()
+        offloaded = sorted(engine._host_offloaded)
+        engine.reload_states()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if set(where.values()) != {"host"} or \
+                torch.cuda.memory_allocated() != before:
+            raise AssertionError(f"offload_states left {where}, or reload "
+                                 f"did not refill what it freed")
+        return dict(freed_bytes=freed, offload_s=t1 - t0,
+                    reload_s=t2 - t1, offloaded=offloaded)
+    return mid
+
+
+def _offload_zero3(torch, seed, smi):
+    """(c) and (d): stage 25's model at ZeRO 3 with and without
+    ``offload_optimizer: cpu``, FusedLamb (B3) and FusedAdam (B2), 2 steps
+    each; the Adam offload run takes (d)'s round trip after its first
+    step."""
+    import numpy as np
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import (LlamaModel, llama_7b,
+                                                  param_count)
+    B, S, L, gas, steps = 4, 2048, 8, 2, 2
+    cfg = llama_7b(num_hidden_layers=L, remat=False, head_dtype="bfloat16")
+    rng = np.random.default_rng(seed + 24)      # stage 24's batches
+    batches = [(ids, ids) for ids in (torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(B, S))).cuda() for _ in range(gas))]
+    out = {}
+    for opt, params in (("fusedlamb", {"lr": 1e-4, "weight_decay": 0.01}),
+                        ("fusedadam", {"lr": 1e-4})):
+        runs = {}
+        for off in (False, True):
+            zero = dict(ZERO3)
+            if off:
+                zero["offload_optimizer"] = {"device": "cpu",
+                                             "pin_memory": True}
+            t0 = time.perf_counter()
+            engine = deepspeed_tpu_torch.initialize(
+                model=LlamaModel(cfg, device="meta"), config=dict(
+                    TRAIN_CONFIG, gradient_accumulation_steps=gas,
+                    optimizer={"type": opt, "params": params},
+                    zero_optimization=zero))[0]
+            engine.initialize_parameters(seed)
+            build_s = time.perf_counter() - t0
+            mid = _round_trip(torch) if off and opt == "fusedadam" else None
+            r = _offload_run(torch, engine, batches, steps, mid)
+            r["build_s"] = build_s
+            if off:
+                state = {"master": engine.master,
+                         **engine._moments()}
+                r["pinned"] = {k: t.is_pinned() for k, t in state.items()}
+                r["placement"] = engine.state_placement()
+                r["pin_seconds"] = engine.offload_stats["pin_seconds"]
+                r["pinned_bytes"] = engine.offload_stats["pinned_bytes"]
+            runs[off] = r
+            del engine
+            _free_all(torch, f"{opt}{' offload' if off else ''}")
+        a, b = runs[True], runs[False]
+        same = torch.equal(a.pop("master"), b.pop("master"))
+        drop = b["peak"] - a["peak"]
+        kern = ({"fused_lamb_phase1": steps, "fused_lamb_phase2": steps}
+                if opt == "fusedlamb" else {"fused_adam_step": steps})
+        want = dict({f"flash_attention_{k}": L * gas * steps
+                     for k in ("fwd", "bwd_dq", "bwd_dkv")}, **kern)
+        log(f"[offload-z3] {opt}, ZeRO 3, offload_optimizer cpu, 8-layer "
+            f"7B width, {steps} steps of {gas} micro-steps: losses "
+            + ", ".join(f"{x:.4f}" for x in a["losses"])
+            + f" (without offload " + ", ".join(
+                f"{x:.4f}" for x in b["losses"]) + f"); master "
+            f"{'bit-equal' if same else 'DIFFERS'}; step ms "
+            + ", ".join(f"{t * 1e3:.1f}" for t in a["times"])
+            + " (without " + ", ".join(f"{t * 1e3:.1f}" for t in b["times"])
+            + f"); peak HBM {a['peak'] / 2**30:.2f} GiB (without "
+            f"{b['peak'] / 2**30:.2f}: {drop / 1e9:.2f} GB less); pinned "
+            f"{a['pinned_bytes'] / 1e9:.2f} GB in {a['pin_seconds']:.2f} s, "
+            f"is_pinned {a['pinned']}; launches {a['launches']} | {smi}")
+        if "freed_bytes" in a:
+            log(f"[offload-z3] (d) offload_states() after step 1 freed "
+                f"{a['freed_bytes'] / 1e9:.2f} GB of HBM ({a['offloaded']}) "
+                f"in {a['offload_s']:.2f} s, reload_states() "
+                f"{a['reload_s']:.2f} s; the next step bit-equal: "
+                f"{a['losses'] == b['losses'] and same} | {smi}")
+        if a["losses"] != b["losses"] or not same:
+            raise AssertionError(f"{opt}: offload apart from no offload")
+        if a["launches"] != want or b["launches"] != want:
+            raise AssertionError(f"{opt} launches {a['launches']}, without "
+                                 f"offload {b['launches']}, want {want}")
+        if not all(a["pinned"].values()) or \
+                set(a["placement"][k] for k in a["pinned"]) != {"host"}:
+            raise AssertionError(f"state not pinned on the host: "
+                                 f"{a['pinned']} {a['placement']}")
+        # the master and two moments, 12 bytes an element, leave the card
+        floor = 0.8 * 12 * param_count(cfg)
+        if drop < floor:
+            raise AssertionError(f"peak HBM fell by {drop / 1e9:.2f} GB, "
+                                 f"under {floor / 1e9:.2f}")
+        a["peak_drop_bytes"] = drop
+        out[opt] = dict(offload=a, plain=b, masters_equal=same)
+    return out
+
+
+def _stream_steps(torch, engine, batches, warmup, timed):
+    """Warm-up and timed steps of a streaming engine, counters set to 0
+    just before: losses, step seconds, launches, peak over the timed
+    steps, sweep and copy seconds a timed step."""
+    counters = _all_launches()
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    losses, times, sweep, copies = [], [], [], []
+    store = engine._store
+    for i in range(warmup + timed):
+        if i == warmup:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            store.transfer_seconds()
+        t = time.perf_counter()
+        loss = engine(*batches[i % len(batches)])
+        engine.backward(loss)
+        engine.step()
+        losses.append(loss)
+        torch.cuda.synchronize()
+        if i >= warmup:
+            times.append(time.perf_counter() - t)
+            sweep.append(engine.sweep_seconds[-1])
+            copies.append(store.transfer_seconds())
+    launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    return dict(losses=[x.item() for x in losses], times=times,
+                launches=launches, peak=torch.cuda.max_memory_allocated(),
+                sweep_s=sweep, h2d_s=[c["h2d"] for c in copies],
+                d2h_s=[c["d2h"] for c in copies])
+
+
+def _stream_engine(cfg, seed, zero, model_parameters=None):
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import LlamaModel
+    t0 = time.perf_counter()
+    engine = deepspeed_tpu_torch.initialize(
+        model=LlamaModel(cfg, device="meta"),
+        model_parameters=model_parameters,
+        config=dict(TRAIN_CONFIG, zero_optimization=zero))[0]
+    if model_parameters is None:
+        engine.initialize_parameters(seed)
+    return engine, time.perf_counter() - t0
+
+
+def _stream_depth(spec_block, spec_res, budget, per_elem):
+    """The most blocks whose host state fits ``budget``."""
+    L = 0
+    while per_elem(spec_block * (L + 1) + spec_res, L + 1) <= budget:
+        L += 1
+    return L
+
+
+def stage_offload(seed, smi):
+    """Stage 27: (a) ZeRO-Infinity parameter streaming at Llama-2-13B width
+    with its state on the host (first: its depth is what the host's
+    memory holds), its 2-block parity with the ordinary engine, (b) the
+    optimizer state on NVMe, then (c) and (d) at ZeRO 3."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.models.llama import llama_13b
+    out = {}
+    _free_all(torch, "the earlier stages")
+
+    # (a) ZeRO-Infinity at 13B width: depth from the host's memory
+    B, S, warmup, timed = 4, 2048, 1, 3
+    full = llama_13b(dtype="bfloat16", head_dtype="bfloat16")
+    D, I, V = full.hidden_size, full.intermediate_size, full.vocab_size
+    n_block = 4 * D * D + 3 * D * I + 2 * D           # 317.2 M
+    n_res = 2 * V * D + D                             # 327.7 M
+    avail = _mem_available()
+    budget = 0.7 * avail
+    # the formula: 16 bytes an element (master, m, v, bf16 cache and
+    # stash); what PyTorch takes: the cache and stash of each group
+    # rounded up to a power of two by the pinned allocator
+    L16 = _stream_depth(n_block, n_res, budget, lambda n, L: 16 * n)
+    L = _stream_depth(n_block, n_res, budget, lambda n, L: 12 * n + 2 * (
+        L * _pinned_bytes(2 * n_block) + _pinned_bytes(2 * n_res)))
+    L = max(1, min(L, full.num_hidden_layers))
+    n = n_block * L + n_res
+    log(f"[infinity] MemAvailable {avail / 1e9:.1f} GB, budget 0.7 × = "
+        f"{budget / 1e9:.1f} GB; 16 bytes × ({n_block / 1e6:.1f} M · L + "
+        f"{n_res / 1e6:.1f} M) fits L = {L16}; with the pinned allocator's "
+        f"power-of-two blocks L = {L} ({n / 1e9:.3f} G elements, "
+        f"{16 * n / 1e9:.1f} GB of host state by the formula); full depth "
+        f"{full.num_hidden_layers} would need "
+        f"{16 * (n_block * full.num_hidden_layers + n_res) / 1e9:.0f} GB")
+    cfg = llama_13b(num_hidden_layers=L, dtype="bfloat16",
+                    head_dtype="bfloat16")
+    zero = {"stage": 3, "offload_param": {"device": "cpu"},
+            "offload_optimizer": {"device": "cpu"}}
+    rng = np.random.default_rng(seed + 27)
+    batches = [(ids, ids) for ids in (torch.from_numpy(rng.integers(
+        0, V, size=(B, S))).cuda() for _ in range(2))]
+    engine, build_s = _stream_engine(cfg, seed, zero)
+    # the store's master, moments and cache, and a step's bf16 stash
+    host = engine._store.host_bytes() + 2 * n
+    r = _stream_steps(torch, engine, batches, warmup, timed)
+    steps = warmup + timed
+    step_s = sum(r["times"]) / timed
+    tok_s = B * S / step_s
+    flops_tok = 6 * n + 12 * L * S * D
+    mfu = tok_s * flops_tok / BF16_FLOPS
+    a = dict(r, layers=L, layers_formula=L16, mem_available=avail,
+             build_s=build_s, host_bytes=host,
+             max_resident_blocks=engine.max_resident_blocks,
+             hbm_param_bytes_after=engine.hbm_param_bytes(),
+             transfer_bytes=dict(engine._store.transfer),
+             step_ms_mean=step_s * 1e3, tokens_per_s=tok_s, mfu=mfu)
+    log(f"[infinity] Llama-2-13B width, {L} layers, bf16, offload_param and "
+        f"offload_optimizer cpu, host fusedadam, B={B} S={S}: built in "
+        f"{build_s:.1f} s (host init); losses "
+        + ", ".join(f"{x:.4f}" for x in r["losses"]))
+    log(f"[infinity] step ms " + ", ".join(f"{t * 1e3:.1f}" for t in
+                                           r["times"])
+        + f" | mean {step_s * 1e3:.1f} ms, {tok_s:.1f} tokens/s, MFU "
+        f"{mfu:.4f} | host sweep s " + ", ".join(
+            f"{t:.2f}" for t in r["sweep_s"]) + " | H2D s " + ", ".join(
+            f"{t:.3f}" for t in r["h2d_s"]) + " | D2H s " + ", ".join(
+            f"{t:.3f}" for t in r["d2h_s"])
+        + f" | peak HBM {r['peak'] / 2**30:.2f} GiB | host bytes "
+        f"{a['host_bytes'] / 1e9:.1f} GB | max_resident_blocks "
+        f"{engine.max_resident_blocks}, hbm_param_bytes after the step "
+        f"{engine.hbm_param_bytes()} | copied {engine._store.transfer} in "
+        f"{steps} steps | {smi}")
+    log(f"[infinity] launches in {steps} steps: {r['launches']}")
+    want = {"flash_attention_fwd": 2 * L * steps,
+            "flash_attention_bwd_dq": L * steps,
+            "flash_attention_bwd_dkv": L * steps}
+    if r["launches"] != want:
+        raise AssertionError(f"streaming launches {r['launches']}, want "
+                             f"{want}")
+    if not 0 < engine.max_resident_blocks <= 3 or \
+            engine.hbm_param_bytes() != 0 or \
+            not all(np.isfinite(r["losses"])):
+        raise AssertionError("streaming: more than 3 blocks on the card, "
+                             "a block left after the step, or a non-finite "
+                             "loss")
+    del engine
+    _free_all(torch, "(a)")
+
+    # the same width at 2 blocks, streamed and through the ordinary engine
+    # at ZeRO 0, from the same weights and data
+    cfg2 = llama_13b(num_hidden_layers=2, dtype="bfloat16",
+                     head_dtype="bfloat16", remat=False)
+    streamed, _ = _stream_engine(cfg2, seed, zero)
+    weights = streamed.get_fp32_param()
+    rs = _stream_steps(torch, streamed, batches, 0, 2)
+    del streamed
+    _free_all(torch, "the 2-block streamed run")
+    plain, _ = _stream_engine(cfg2, seed, {"stage": 0}, weights)
+    del weights
+    rp = _offload_run(torch, plain, batches, 2)
+    del plain, rp["master"]
+    _free_all(torch, "the 2-block ZeRO-0 run")
+    rel = [abs(x - y) / abs(y) for x, y in zip(rs["losses"], rp["losses"])]
+    log(f"[infinity] 2 blocks at 13B width, streamed (host Adam) against "
+        f"ZeRO 0 (B2), same weights and data: losses "
+        + ", ".join(f"{x:.5f}" for x in rs["losses"]) + " against "
+        + ", ".join(f"{x:.5f}" for x in rp["losses"])
+        + f"; largest relative difference {max(rel):.2e} (limit 2^-7) | "
+        f"{smi}")
+    if max(rel) > 2.0**-7:
+        raise AssertionError(f"streamed apart from ZeRO 0: {rel}")
+    a["parity"] = dict(streamed=rs["losses"], zero0=rp["losses"],
+                       max_rel=max(rel))
+    out["infinity"] = a
+
+    # (b) the optimizer state on NVMe, on the local disk
+    swap = tempfile.mkdtemp(prefix="ds_nvme_")
+    try:
+        free = shutil.disk_usage(swap).free
+        Ld = _stream_depth(n_block, n_res, 0.7 * free, lambda n, L: 12 * n)
+        # one block: two steps move 4 × 7.7 GB through a disk of about
+        # 1.2 GB/s (stage 26), inside the script's time limit
+        Lb = max(1, min(Ld, 1))
+        log(f"[nvme] free disk under {swap}: {free / 1e9:.1f} GB; 12 bytes "
+            f"× ({n_block / 1e6:.1f} M · L + {n_res / 1e6:.1f} M) ≤ 0.7 × "
+            f"fits L = {Ld}; cut to L = {Lb} for the time limit")
+        cfgb = llama_13b(num_hidden_layers=Lb, dtype="bfloat16",
+                         head_dtype="bfloat16")
+        zb = {"stage": 3, "offload_param": {"device": "cpu"},
+              "offload_optimizer": {"device": "nvme", "nvme_path": swap}}
+        engine, build_s = _stream_engine(cfgb, seed, zb)
+        rb = _stream_steps(torch, engine, batches, 0, 2)
+        nb = n_block * Lb + n_res
+        moved = 2 * 12 * nb     # the state read and written in a sweep
+        aio = engine._store._swapper.aio.engine
+        gbs = [moved / t / 1e9 for t in rb["sweep_s"]]
+        log(f"[nvme] {Lb} layer(s) at 13B width, offload_optimizer nvme "
+            f"(aio engine {aio}), 2 steps: losses " + ", ".join(
+                f"{x:.4f}" for x in rb["losses"]) + f"; built (state written)"
+            f" in {build_s:.1f} s; step ms " + ", ".join(
+                f"{t * 1e3:.1f}" for t in rb["times"]) + f"; swapped "
+            f"{moved / 1e9:.2f} GB a step in the host sweep (s " + ", ".join(
+                f"{t:.2f}" for t in rb["sweep_s"]) + "): " + ", ".join(
+                f"{g:.2f}" for g in gbs) + " GB/s over the sweep (its host "
+            f"Adam included); launches {rb['launches']}"
+            f" | {smi}")
+        if not all(np.isfinite(rb["losses"])):
+            raise AssertionError("NVMe offload: a non-finite loss")
+        out["nvme"] = dict(rb, layers=Lb, layers_disk=Ld, free_disk=free,
+                           aio_engine=aio, bytes_per_step=moved, gbps=gbs,
+                           build_s=build_s)
+        del engine
+        _free_all(torch, "(b)")
+    finally:
+        shutil.rmtree(swap, ignore_errors=True)
+    out["zero3"] = _offload_zero3(torch, seed, smi)
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4670,6 +5080,7 @@ def main():
     llama_zero3 = stage_llama_zero3(args.seed, smi,
                                     llama_zero2.pop("zero0"), args.profile)
     save_resume = stage_save_resume(args.seed, smi)
+    offload = stage_offload(args.seed, smi)
 
     entries = []
     for wrapper, case in (("paged_attention", "serve_decode"),
@@ -4748,6 +5159,14 @@ def main():
         resumed["flash_attention_bwd_dq"] +
         resumed["flash_attention_bwd_dkv"])
     entries[-1]["launches_save_resume"] = resumed["fused_adam_step"]
+    # stage 27: B1 in (a)'s streamed steps, B2 and B3 in (c)'s runs on
+    # pinned state
+    streamed = offload["infinity"]["launches"]
+    entries[-3]["launches_offload"] = streamed["flash_attention_fwd"]
+    entries[-2]["launches_offload"] = (streamed["flash_attention_bwd_dq"] +
+                                       streamed["flash_attention_bwd_dkv"])
+    entries[-1]["launches_offload"] = offload["zero3"]["fusedadam"][
+        "offload"]["launches"]["fused_adam_step"]
     lamb = next(r for r in gpt2_kernels if r["case"] == "lamb_float32")
     lion = next(r for r in gpt2_kernels if r["case"] == "lion_float32")
     opt_src = "deepspeed_tpu_torch/csrc/optimizers.cu"
@@ -4761,7 +5180,9 @@ def main():
              bound_ms=lamb["bound_phase1"][0],
              bound_by=lamb["bound_phase1"][1], library_ms=None,
              launches_llama_zero3=llama_zero3["lamb"]["launches"][
-                 "fused_lamb_phase1"]),
+                 "fused_lamb_phase1"],
+             launches_offload=offload["zero3"]["fusedlamb"]["offload"][
+                 "launches"]["fused_lamb_phase1"]),
         dict(name="fused_lamb_phase2", route="cuda", source=opt_src,
              replaces=src + "optimizers.py:250",
              launches=gpt2["launches"]["fused_lamb_phase2"],
@@ -4770,7 +5191,9 @@ def main():
              bound_ms=lamb["bound_phase2"][0],
              bound_by=lamb["bound_phase2"][1], library_ms=None,
              launches_llama_zero3=llama_zero3["lamb"]["launches"][
-                 "fused_lamb_phase2"]),
+                 "fused_lamb_phase2"],
+             launches_offload=offload["zero3"]["fusedlamb"]["offload"][
+                 "launches"]["fused_lamb_phase2"]),
         dict(name="fused_lion_step", route="cuda", source=opt_src,
              replaces=src + "optimizers.py:150",
              launches=gpt2["lion"]["launches"]["fused_lion_step"],
@@ -4905,7 +5328,7 @@ def main():
                            fp_quant=fpq, bert=bert, gpt2_zero1=gpt2_zero1,
                            llama_zero2=llama_zero2,
                            llama_zero3=llama_zero3,
-                           save_resume=save_resume,
+                           save_resume=save_resume, offload=offload,
                            seconds=time.perf_counter() - t_start),
                       f, indent=1, default=str)
     from deepspeed_tpu_torch import comm

@@ -15,7 +15,10 @@ stages 0-3 over ``torch.distributed`` (the comm layer, ``comm/``), in bf16,
 fp16 (dynamic loss scaling) or fp32 (with the flash-attention, fused-Adam,
 LAMB and Lion kernels), with checkpoints in upstream DeepSpeed's per-rank
 files that load at any world size and stage and convert to and from the
-JAX package's universal layout (``checkpoint/``); Evoformer attention (the
+JAX package's universal layout (``checkpoint/``), and offload: optimizer
+state in pinned host memory or on NVMe with the host optimizers, and
+ZeRO-Infinity parameter streaming (``runtime/infinity_engine.py``);
+Evoformer attention (the
 bias flash kernels); block-sparse attention (``ops.sparse_attention``, the
 block-sparse kernel); FP6/FP12 weight quantization (``ops.fp_quantizer``,
 ``linear``, the FP grid quantize kernel).  Every Pallas kernel of the JAX
@@ -52,7 +55,9 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     ``dist_init_required=False`` needs a world already up.  Otherwise the
     engine is one rank on a local group and pins no backend.
     ``mesh_param``: ``(dp, sp)`` as in JAX; dp must be the world size, and
-    sp > 1 raises item 9.  ``collate_fn`` (the dataloader) raises."""
+    sp > 1 raises item 9.  ``collate_fn`` (the dataloader) raises.
+    ``zero_optimization.offload_param`` of cpu or nvme builds the
+    parameter-streaming ``runtime.infinity_engine.InfinityEngine``."""
     from .runtime.config import DeepSpeedConfig
     from .runtime.engine import DeepSpeedEngine
 
@@ -60,14 +65,18 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
         config = config_params
     if config is None and args is not None:
         config = getattr(args, "deepspeed_config", None)
-    engine = DeepSpeedEngine(args=args, model=model, optimizer=optimizer,
-                             model_parameters=model_parameters,
-                             training_data=training_data,
-                             lr_scheduler=lr_scheduler,
-                             collate_fn=collate_fn,
-                             config=DeepSpeedConfig(config), mpu=mpu,
-                             device=device, mesh_param=mesh_param,
-                             dist_init_required=dist_init_required,
-                             distributed_port=distributed_port)
+    ds_config = DeepSpeedConfig(config)
+    cls = DeepSpeedEngine
+    if ds_config.zero_config.offload_param_device in ("cpu", "nvme"):
+        # ZeRO-Infinity parameter streaming, at any stage (JAX
+        # __init__.py:65-94)
+        from .runtime.infinity_engine import InfinityEngine as cls
+    engine = cls(args=args, model=model, optimizer=optimizer,
+                 model_parameters=model_parameters,
+                 training_data=training_data, lr_scheduler=lr_scheduler,
+                 collate_fn=collate_fn, config=ds_config, mpu=mpu,
+                 device=device, mesh_param=mesh_param,
+                 dist_init_required=dist_init_required,
+                 distributed_port=distributed_port)
     return (engine, engine.optimizer, engine.training_dataloader,
             engine.lr_scheduler)

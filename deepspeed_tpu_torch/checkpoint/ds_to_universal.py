@@ -29,6 +29,7 @@ import numpy as np
 
 from .constants import DS_VERSION, STATE_FIELDS, UNIVERSAL_META, \
     ZERO_FILE_PREFIX
+from ..utils.not_ported import not_ported
 from .zero_to_fp32 import param_shapes, assemble, resolve_tag
 
 
@@ -61,6 +62,11 @@ def convert_to_universal(checkpoint_dir, output_dir, tag=None):
     root = os.path.join(checkpoint_dir, tag) if tag else checkpoint_dir
     if not os.path.isdir(root):
         raise FileNotFoundError(f"no checkpoint at {root}")
+    if os.path.exists(os.path.join(root, "infinity_state.pkl")):
+        # JAX ds_to_universal.py:51 converts a streaming engine's tag
+        raise not_ported("converting a ZeRO-Infinity parameter-streaming "
+                         "tag (infinity_state.pkl) to the universal layout",
+                         10)
     engine_state, model_sd, sources, step = read_tag(root)
     shapes = param_shapes(model_sd)
     held = [f for f in STATE_FIELDS if any(f in flats for _, flats in

@@ -210,13 +210,65 @@ class GPT2Model(nn.Module):
         on the module's device): normal(0, std) kernels and embeddings,
         zero biases, unit LayerNorm scales."""
         for name, p in self.named_parameters():
-            if name.endswith(".scale"):
-                p.fill_(1.0)
-            elif name.endswith(".bias"):
-                p.zero_()
-            else:
-                p.normal_(0.0, std, generator=generator)
+            init_leaf(name, p, generator, std)
         return self
+
+    def streaming_parts(self):
+        """ZeRO-Infinity's view of the model (JAX ``gpt2.py:135-190``):
+        wte + wpe → L blocks → ln_f and the tied head."""
+        return gpt2_streaming_parts(self)
+
+
+def init_leaf(name, t, generator, std=0.02):
+    """One leaf of :meth:`GPT2Model.init_weights`'s random init."""
+    if name.endswith(".scale"):
+        t.fill_(1.0)
+    elif name.endswith(".bias"):
+        t.zero_()
+    else:
+        t.normal_(0.0, std, generator=generator)
+
+
+def gpt2_streaming_parts(model):
+    """The :class:`~..runtime.zero.infinity.StreamingSpec` of a
+    :class:`GPT2Model` (blocks take no mask, as in the monolithic
+    model)."""
+    from torch.func import functional_call
+    from ..runtime.zero.infinity import StreamingSpec
+    cfg = model.config
+    dt = torch_dtype(cfg.dtype)
+    block = GPT2Block(cfg, device="meta")
+    ln_f = LayerNorm(cfg.hidden_size, cfg.layer_norm_epsilon, "meta")
+    shapes = dict((n, tuple(p.shape)) for n, p in model.named_parameters())
+    resident = ["wte.embedding", "wpe.embedding", "ln_f.scale", "ln_f.bias"]
+
+    def embed_apply(res, input_ids, labels=None, attention_mask=None):
+        ids = input_ids.long()
+        pos = torch.arange(ids.shape[1], device=ids.device)[None]
+        return (F.embedding(ids, res["wte.embedding"].to(dt)) +
+                F.embedding(pos, res["wpe.embedding"].to(dt)))
+
+    def block_apply(w, x, use_kernel=True):
+        return functional_call(block, w, (x, use_kernel))
+
+    def head_apply(res, x, input_ids, labels=None, attention_mask=None):
+        x = functional_call(ln_f, {"scale": res["ln_f.scale"],
+                                   "bias": res["ln_f.bias"]}, (x, dt))
+        logits = F.linear(x, res["wte.embedding"].to(dt))
+        if labels is None:
+            return logits
+        return lm_loss(logits, labels.to(logits.device), attention_mask)
+
+    L = cfg.num_hidden_layers
+    return StreamingSpec(
+        block_keys=tuple(f"h_{i}" for i in range(L)),
+        block_prefixes=tuple(f"h.{i}." for i in range(L)),
+        block_leaves=tuple((n, tuple(p.shape))
+                           for n, p in block.named_parameters()),
+        resident_keys=("wte", "wpe", "ln_f"),
+        resident_leaves=tuple((n, shapes[n]) for n in resident),
+        embed_apply=embed_apply, block_apply=block_apply,
+        head_apply=head_apply, init_leaf=init_leaf)
 
 
 def params_from_flax(tree, cfg: GPT2Config, dtype="float32", device="cpu"):

@@ -402,6 +402,13 @@ class LlamaModel(nn.Module):
         return lm_loss(logits, labels.to(logits.device), attention_mask,
                        loss_reduction)
 
+    def streaming_parts(self):
+        """ZeRO-Infinity's view of the model (``runtime/zero/infinity.py``;
+        JAX ``llama.py:370-440``): embed → L blocks → head, each block
+        applied by ``torch.func.functional_call`` on one block module built
+        on the meta device with the fetched block's leaves."""
+        return llama_streaming_parts(self)
+
     def tie_weights(self):
         """Training with ``tie_word_embeddings``: the head IS the embedding
         (one parameter), as in the JAX model, which has no head leaf then.
@@ -415,12 +422,7 @@ class LlamaModel(nn.Module):
         on the module's device): normal(0, std) projections and embedding,
         unit norms."""
         for name, p in self.named_parameters():
-            if name.endswith("layernorm.weight") or name == "model.norm.weight":
-                p.fill_(1.0)
-            elif name.endswith(".bias"):
-                p.zero_()
-            else:
-                p.normal_(0.0, std, generator=generator)
+            init_leaf(name, p, generator, std)
         if self.config.tie_word_embeddings:
             self.lm_head.weight.copy_(self.model.embed_tokens.weight)
         return self
@@ -472,6 +474,65 @@ class LlamaModel(nn.Module):
             mod = getattr(mod, p)
         setattr(mod, leaf, nn.Parameter(
             t.detach().to(device=device, dtype=dtype), requires_grad=False))
+
+
+def init_leaf(name, t, generator, std=0.02):
+    """One leaf of :meth:`LlamaModel.init_weights`'s random init."""
+    if name.endswith("layernorm.weight") or name == "model.norm.weight":
+        t.fill_(1.0)
+    elif name.endswith(".bias"):
+        t.zero_()
+    else:
+        t.normal_(0.0, std, generator=generator)
+
+
+def llama_streaming_parts(model):
+    """The :class:`~..runtime.zero.infinity.StreamingSpec` of a
+    :class:`LlamaModel`.  The attention mask is not threaded into the
+    blocks: attention is causal-only here as in the monolithic model, and
+    the mask weights the loss (JAX ``llama.py:401-404``)."""
+    from torch.func import functional_call
+    from ..runtime.zero.infinity import StreamingSpec
+    cfg = model.config
+    dt = torch_dtype(cfg.dtype)
+    hd = torch_dtype(cfg.head_dtype)
+    block = model.LAYER(cfg, dt, "meta")
+    tied = cfg.tie_word_embeddings
+    shapes = dict((n, tuple(p.shape)) for n, p in model.named_parameters())
+    resident = ["model.embed_tokens.weight", "model.norm.weight"] + \
+        ([] if tied else ["lm_head.weight"])
+
+    def embed_apply(res, input_ids, labels=None, attention_mask=None):
+        return F.embedding(input_ids.long(),
+                           res["model.embed_tokens.weight"].to(dt))
+
+    def block_apply(w, x, use_kernel=True):
+        cos, sin = rope_tables(cfg.head_dim, cfg.max_position_embeddings,
+                               cfg.rope_theta, cfg.rope_scaling, x.device)
+        return functional_call(block, w, (x, cos, sin, use_kernel))
+
+    def head_apply(res, x, input_ids, labels=None, attention_mask=None):
+        x = rms_norm(x, res["model.norm.weight"], cfg.rms_norm_eps, dt)
+        if tied:
+            logits = _head_product(x.to(hd).to(dt),
+                                   res["model.embed_tokens.weight"].to(dt))
+        else:
+            logits = _head_product(x.to(hd), res["lm_head.weight"].to(hd))
+        if labels is None:
+            return logits
+        return lm_loss(logits, labels.to(logits.device), attention_mask)
+
+    L = cfg.num_hidden_layers
+    return StreamingSpec(
+        block_keys=tuple(f"layers_{i}" for i in range(L)),
+        block_prefixes=tuple(f"model.layers.{i}." for i in range(L)),
+        block_leaves=tuple((n, tuple(p.shape))
+                           for n, p in block.named_parameters()),
+        resident_keys=("embed_tokens", "norm") + (() if tied else
+                                                  ("lm_head", )),
+        resident_leaves=tuple((n, shapes[n]) for n in resident),
+        embed_apply=embed_apply, block_apply=block_apply,
+        head_apply=head_apply, init_leaf=init_leaf)
 
 
 def params_from_flax(tree, cfg: LlamaConfig, dtype=None, device="cpu"):

@@ -41,6 +41,22 @@ def resolve_lr(cur_lr, state):
     return cur_lr if ov is None or math.isnan(ov) else ov
 
 
+def pinned(t):
+    """Whether ``t`` is in pinned host memory (offloaded state)."""
+    return t.device.type == "cpu" and torch.cuda.is_available() and \
+        t.is_pinned()
+
+
+def zeros_as(target, pin=False):
+    """fp32 zeros shaped like ``target`` on its device, or in pinned host
+    memory when it is pinned or ``pin`` (offloaded state: the moments live
+    beside the master)."""
+    if pin or pinned(target):
+        return torch.zeros(target.shape, dtype=torch.float32,
+                           pin_memory=True)
+    return torch.zeros_like(target, dtype=torch.float32)
+
+
 def whole_buffer(target, leaves):
     """``leaves`` as a list of (offset, numel), or the whole buffer as one
     leaf."""
@@ -64,7 +80,14 @@ class FlatTransform:
         lr = self.lr_fn(count) if self.lr_fn is not None else self.lr
         return float(np.float32(resolve_lr(lr, state)))
 
-    def init(self, target, leaves=None):
+    # the state's fields that persist between steps (offload moves them
+    # with the master; scratch stays where the kernels run)
+    MOMENTS = ("exp_avg", "exp_avg_sq")
+
+    def init(self, target, leaves=None, device=None, pin=False):
+        """The state for the fp32 ``target``: its moments beside it, or
+        pinned on the host with ``pin`` (:func:`zeros_as`); scratch and
+        tables on ``device`` (default: the target's)."""
         raise NotImplementedError
 
     def step(self, grad, state, target, param_out=None, grad_scale=None,
@@ -108,11 +131,11 @@ class FusedAdamTransform(FlatTransform):
         self.adam_w_mode = adam_w_mode
         self.bias_correction = bias_correction
 
-    def init(self, target, leaves=None):
+    def init(self, target, leaves=None, device=None, pin=False):
         """Zero moments shaped like the fp32 target."""
         return ScaleByAdamState(
-            count=0, exp_avg=torch.zeros_like(target, dtype=torch.float32),
-            exp_avg_sq=torch.zeros_like(target, dtype=torch.float32),
+            count=0, exp_avg=zeros_as(target, pin),
+            exp_avg_sq=zeros_as(target, pin),
             leaves=whole_buffer(target, leaves))
 
     def _apply(self, grad, state, target, param_out, grad_scale, use_kernel,

@@ -25,7 +25,12 @@ engine's layout.  What bounds them on an H100: bytes (30, 22 and 28 + 14
 per element with an fp32 gradient).
 
 On CPU tensors each wrapper computes its plain version; on CUDA tensors it
-launches the kernel or raises.  ``fused_adam_step.launches``,
+launches the kernel or raises.  Offloaded optimizer state (the engine's
+``offload_optimizer: cpu``) is pinned host memory beside a gradient on the
+card: the kernel then reads and writes it in place through its
+device-mapped address (unified addressing: the host pointer is valid on
+the card), so a pinned host buffer takes the kernel route, never the
+plain one; a pageable host buffer beside a card's buffer raises.  ``fused_adam_step.launches``,
 ``fused_lion_step.launches``, ``fused_lamb_phase1.launches`` and
 ``fused_lamb_phase2.launches`` count kernel launches.
 """
@@ -168,14 +173,28 @@ def fused_lamb_step_plain(grads, masters, exp_avgs, exp_avg_sqs,
 
 # ---------------------------------------------------------------- checks
 def _check_flat(named, n):
+    """Checks the flat buffers; returns the card the kernel launches on, or
+    None for the plain version (every buffer on the CPU).  A host buffer
+    beside one on the card must be pinned (module docstring)."""
     for name, t in named:
         if t.dim() != 1 or t.numel() != n:
             raise ValueError(f"{name} must be a flat buffer of {n} elements, "
                              f"got {tuple(t.shape)}")
-    devices = {t.device for _, t in named}
-    if len(devices) != 1:
-        raise ValueError(f"buffers on several devices: {devices}")
-    return named[0][1].device.type
+    kinds = {t.device.type for _, t in named}
+    if kinds - {"cpu", "cuda"}:
+        raise ValueError(f"the optimizer kernels run on cpu or cuda, not "
+                         f"{sorted(kinds - {'cpu', 'cuda'})}")
+    cards = {t.device for _, t in named if t.device.type == "cuda"}
+    if not cards:
+        return None
+    if len(cards) > 1:
+        raise ValueError(f"buffers on several cards: {cards}")
+    for name, t in named:
+        if t.device.type == "cpu" and not t.is_pinned():
+            raise ValueError(
+                f"{name} lies in pageable host memory beside buffers on the "
+                "card: offloaded optimizer state must be pinned")
+    return cards.pop()
 
 
 def _check_kernel_args(what, grad, fp32_bufs, param_out, grad_scale, device):
@@ -238,26 +257,24 @@ def fused_adam_step(grad, master, exp_avg, exp_avg_sq, param_out=None, *,
                  weight_decay=weight_decay, count=count,
                  adam_w_mode=adam_w_mode, bias_correction=bias_correction,
                  grad_scale=grad_scale)
-    if device == "cpu":
+    if device is None:
         fused_adam_step_plain([grad], [master], [exp_avg], [exp_avg_sq],
                               None if param_out is None else [param_out],
                               **hyper)
         return
-    if device != "cuda":
-        raise ValueError(f"fused Adam runs on cpu or cuda, not {device}")
     _check_kernel_args("Adam", grad, bufs[1:4], param_out, grad_scale,
-                       master.device)
+                       device)
     if n == 0:
         return
     c1, c2 = bias_corrections(beta1, beta2, count, bias_correction)
     lib = OptimizersBuilder().load()
-    with torch.cuda.device(master.device):
+    with torch.cuda.device(device):
         err = lib.ds_fused_adam(
             grad.data_ptr(), _GRAD_CODES[grad.dtype], master.data_ptr(),
             exp_avg.data_ptr(), exp_avg_sq.data_ptr(), _ptr(param_out),
             _out_code(param_out), _ptr(grad_scale), n, float(lr),
             float(beta1), float(beta2), float(eps), float(weight_decay), c1,
-            c2, int(bool(adam_w_mode)), _stream(master.device))
+            c2, int(bool(adam_w_mode)), _stream(device))
     _raise_on(lib, err, "Adam")
     fused_adam_step.launches += 1
 
@@ -278,24 +295,22 @@ def fused_lion_step(grad, master, exp_avg, param_out=None, *, lr, beta1,
     device = _check_flat(bufs, n)
     hyper = dict(lr=lr, beta1=beta1, beta2=beta2, weight_decay=weight_decay,
                  grad_scale=grad_scale)
-    if device == "cpu":
+    if device is None:
         fused_lion_step_plain([grad], [master], [exp_avg],
                               None if param_out is None else [param_out],
                               **hyper)
         return
-    if device != "cuda":
-        raise ValueError(f"fused Lion runs on cpu or cuda, not {device}")
     _check_kernel_args("Lion", grad, bufs[1:3], param_out, grad_scale,
-                       master.device)
+                       device)
     if n == 0:
         return
     lib = OptimizersBuilder().load()
-    with torch.cuda.device(master.device):
+    with torch.cuda.device(device):
         err = lib.ds_fused_lion(
             grad.data_ptr(), _GRAD_CODES[grad.dtype], master.data_ptr(),
             exp_avg.data_ptr(), _ptr(param_out), _out_code(param_out),
             _ptr(grad_scale), n, float(lr), float(beta1), float(beta2),
-            float(weight_decay), _stream(master.device))
+            float(weight_decay), _stream(device))
     _raise_on(lib, err, "Lion")
     fused_lion_step.launches += 1
 
@@ -339,10 +354,10 @@ class LambTable:
         return [t[o:o + n] for o, n in self.leaves]
 
 
-def _check_table(table, master):
-    if table.rows.device != master.device:
+def _check_table(table, master, device):
+    if table.rows.device != device:
         raise ValueError("the LAMB table lies on another device than the "
-                         "buffers")
+                         "kernel's")
     end = max((o + n for o, n in table.leaves), default=0)
     if end > master.numel():
         raise ValueError(f"the LAMB table reaches element {end} of a "
@@ -357,25 +372,25 @@ def fused_lamb_phase1(grad, master, exp_avg, exp_avg_sq, update, table, *,
     [chunks, 2] of p·p and u·u for :func:`fused_lamb_phase2`."""
     bufs = [("grad", grad), ("master", master), ("exp_avg", exp_avg),
             ("exp_avg_sq", exp_avg_sq), ("update", update)]
-    if _check_flat(bufs, master.numel()) != "cuda":
+    device = _check_flat(bufs, master.numel())
+    if device is None:
         raise ValueError("fused_lamb_phase1 launches the kernel: CUDA "
                          "buffers only")
-    _check_kernel_args("LAMB", grad, bufs[1:], None, grad_scale,
-                       master.device)
-    _check_table(table, master)
+    _check_kernel_args("LAMB", grad, bufs[1:], None, grad_scale, device)
+    _check_table(table, master, device)
     partials = torch.empty(max(table.n_chunks, 1), 2, dtype=torch.float32,
-                           device=master.device)
+                           device=device)
     if table.n_chunks == 0:
         return partials
     c1, c2 = bias_corrections(beta1, beta2, count, bias_correction)
     lib = OptimizersBuilder().load()
-    with torch.cuda.device(master.device):
+    with torch.cuda.device(device):
         err = lib.ds_lamb_phase1(
             grad.data_ptr(), _GRAD_CODES[grad.dtype], master.data_ptr(),
             exp_avg.data_ptr(), exp_avg_sq.data_ptr(), update.data_ptr(),
             _ptr(grad_scale), table.rows.data_ptr(), table.n_chunks,
             partials.data_ptr(), float(beta1), float(beta2), float(eps),
-            float(weight_decay), c1, c2, _stream(master.device))
+            float(weight_decay), c1, c2, _stream(device))
     _raise_on(lib, err, "LAMB phase-1")
     fused_lamb_phase1.launches += 1
     return partials
@@ -393,27 +408,27 @@ def fused_lamb_phase2(master, update, param_out, table, partials, *, lr,
     bufs = [("master", master), ("update", update)]
     if param_out is not None:
         bufs.append(("param_out", param_out))
-    if _check_flat(bufs, master.numel()) != "cuda":
+    device = _check_flat(bufs, master.numel())
+    if device is None:
         raise ValueError("fused_lamb_phase2 launches the kernel: CUDA "
                          "buffers only")
-    _check_kernel_args("LAMB", master, bufs[1:2], param_out, None,
-                       master.device)
-    _check_table(table, master)
+    _check_kernel_args("LAMB", master, bufs[1:2], param_out, None, device)
+    _check_table(table, master, device)
     if partials.shape[0] < table.n_chunks or \
             partials.dtype != torch.float32:
         raise ValueError("partials must be phase 1's [chunks, 2] fp32 sums")
     stats = torch.zeros(table.n_leaves, 3, dtype=torch.float32,
-                        device=master.device)
+                        device=device)
     if table.n_chunks == 0:
         return stats
     lib = OptimizersBuilder().load()
-    with torch.cuda.device(master.device):
+    with torch.cuda.device(device):
         err = lib.ds_lamb_phase2(
             master.data_ptr(), update.data_ptr(), _ptr(param_out),
             _out_code(param_out), table.rows.data_ptr(), table.n_chunks,
             table.leaf_chunks.data_ptr(), partials.data_ptr(),
             stats.data_ptr(), float(lr), float(max_coeff), float(min_coeff),
-            _stream(master.device))
+            _stream(device))
     _raise_on(lib, err, "LAMB phase-2")
     fused_lamb_phase2.launches += 1
     return stats
@@ -440,14 +455,12 @@ def fused_lamb_step(grad, master, exp_avg, exp_avg_sq, update,
     hyper = dict(beta1=beta1, beta2=beta2, eps=eps,
                  weight_decay=weight_decay, count=count,
                  bias_correction=bias_correction, grad_scale=grad_scale)
-    if device == "cpu":
+    if device is None:
         v = table.views
         return fused_lamb_step_plain(
             v(grad), v(master), v(exp_avg), v(exp_avg_sq),
             None if param_out is None else v(param_out), v(update), lr=lr,
             **hyper, **ratio_kw)
-    if device != "cuda":
-        raise ValueError(f"fused LAMB runs on cpu or cuda, not {device}")
     partials = fused_lamb_phase1(grad, master, exp_avg, exp_avg_sq, update,
                                  table, **hyper)
     return fused_lamb_phase2(master, update, param_out, table, partials,

@@ -24,7 +24,7 @@ import math
 
 import torch
 
-from .adam import FlatTransform, leaf_views, whole_buffer
+from .adam import FlatTransform, leaf_views, whole_buffer, zeros_as
 from .kernels.optimizers import (LambTable, fused_lamb_phase1,
                                  fused_lamb_phase1_plain, fused_lamb_phase2,
                                  fused_lamb_phase2_plain, fused_lamb_step,
@@ -58,14 +58,17 @@ class FusedLambTransform(FlatTransform):
         self.max_coeff = max_coeff
         self.min_coeff = min_coeff
 
-    def init(self, target, leaves=None):
-        """Zero moments and the u scratch shaped like the fp32 target, and
-        the chunk table of its leaves on the target's device."""
+    def init(self, target, leaves=None, device=None, pin=False):
+        """Zero moments shaped like the fp32 target; the u scratch and the
+        chunk table of its leaves on ``device`` (default: the target's)."""
         leaves = whole_buffer(target, leaves)
-        zeros = lambda: torch.zeros_like(target, dtype=torch.float32)  # noqa
+        device = target.device if device is None else device
         return ScaleByLambState(
-            count=0, exp_avg=zeros(), exp_avg_sq=zeros(), update=zeros(),
-            table=LambTable(leaves, device=target.device), leaves=leaves)
+            count=0, exp_avg=zeros_as(target, pin),
+            exp_avg_sq=zeros_as(target, pin),
+            update=torch.zeros(target.shape, dtype=torch.float32,
+                               device=device),
+            table=LambTable(leaves, device=device), leaves=leaves)
 
     def _apply(self, grad, state, target, param_out, grad_scale, use_kernel,
                count, lr):
@@ -93,7 +96,7 @@ class FusedLambTransform(FlatTransform):
         ratio_kw = {k: hyper.pop(k) for k in ("lr", "max_coeff",
                                               "min_coeff")}
         table = state.table
-        if use_kernel and target.is_cuda:
+        if use_kernel and state.update.is_cuda:
             partials = fused_lamb_phase1(grad, target, state.exp_avg,
                                          state.exp_avg_sq, state.update,
                                          table, **hyper)

@@ -13,7 +13,7 @@ import math
 
 import torch
 
-from .adam import FlatTransform, leaf_views, whole_buffer
+from .adam import FlatTransform, leaf_views, whole_buffer, zeros_as
 from .kernels.optimizers import fused_lion_step, fused_lion_step_plain
 
 
@@ -34,10 +34,11 @@ class FusedLionTransform(FlatTransform):
         self.betas = tuple(betas)
         self.weight_decay = weight_decay
 
-    def init(self, target, leaves=None):
-        return ScaleByLionState(
-            count=0, exp_avg=torch.zeros_like(target, dtype=torch.float32),
-            leaves=whole_buffer(target, leaves))
+    MOMENTS = ("exp_avg", )
+
+    def init(self, target, leaves=None, device=None, pin=False):
+        return ScaleByLionState(count=0, exp_avg=zeros_as(target, pin),
+                                leaves=whole_buffer(target, leaves))
 
     def _apply(self, grad, state, target, param_out, grad_scale, use_kernel,
                count, lr):
@@ -63,17 +64,19 @@ class SGDTransform(FlatTransform):
         self.weight_decay = weight_decay
         self.nesterov = nesterov
 
-    def init(self, target, leaves=None):
-        mu = (None if self.momentum == 0.0 else
-              torch.zeros_like(target, dtype=torch.float32))
+    MOMENTS = ("exp_avg", )
+
+    def init(self, target, leaves=None, device=None, pin=False):
+        mu = None if self.momentum == 0.0 else zeros_as(target, pin)
         return ScaleByLionState(count=0, exp_avg=mu,
                                 leaves=whole_buffer(target, leaves))
 
     def _apply(self, grad, state, target, param_out, grad_scale, use_kernel,
                count, lr):
-        g = grad.float()
+        # plain PyTorch where the target lies (offloaded: on the host)
+        g = grad.float().to(target.device)
         if grad_scale is not None:
-            g = g * grad_scale
+            g = g * grad_scale.to(target.device)
         if self.weight_decay != 0.0:
             g = g + self.weight_decay * target
         d = g

@@ -9,6 +9,11 @@ source, the headers it includes from ``csrc/`` and the flags, and
 seconds.  The build happens at first use, never at import; ``build_all``
 starts one ``nvcc`` per source at once.
 
+The host libraries of offload (:class:`HostOpBuilder`: the host
+optimizers and the async I/O engines, ``csrc/host/*.cpp``, copies of the
+JAX package's sources) are built the same way with ``g++`` and the JAX
+builders' flags, into the same directory.
+
 The build directory is ``$DS_TORCH_BUILD_DIR`` if set, else
 ``build/deepspeed_tpu_torch/`` beside the package.
 """
@@ -74,6 +79,12 @@ class CUDAOpBuilder:
                     todo.append(os.path.join(os.path.dirname(path), name))
         return found
 
+    def flags(self):
+        return NVCC_FLAGS
+
+    def command(self, out):
+        return [find_nvcc(), *self.flags(), self.source(), "-o", out]
+
     def lib_path(self):
         """Named by a hash of the flags, the source and its headers: an
         edited header builds a new library."""
@@ -81,23 +92,24 @@ class CUDAOpBuilder:
         for path in self.sources():
             with open(path, "rb") as f:
                 h.update(f.read())
-        h.update(" ".join(NVCC_FLAGS).encode())
+        h.update(" ".join(self.flags()).encode())
         return os.path.join(build_dir(),
                             f"lib{self.NAME}-{h.hexdigest()[:16]}.so")
 
     def start_build(self):
-        """Start ``nvcc`` unless the library is built; returns the running
+        """Start the compiler unless the library is built; returns the running
         process (or None) for :meth:`finish_build`."""
         out = self.lib_path()
         if os.path.exists(out):
             return None
         os.makedirs(build_dir(), exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [find_nvcc(), *NVCC_FLAGS, self.source(), "-o", tmp]
+        cmd = self.command(tmp)
         logger.info(f"building {self.NAME}: {' '.join(cmd)}")
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         proc.ds_tmp, proc.ds_t0 = tmp, time.perf_counter()
+        proc.ds_compiler = os.path.basename(cmd[0])
         return proc
 
     def finish_build(self, proc):
@@ -114,7 +126,7 @@ class CUDAOpBuilder:
         log, _ = proc.communicate()
         secs = time.perf_counter() - proc.ds_t0
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {self.NAME} "
+            raise RuntimeError(f"{proc.ds_compiler} failed for {self.NAME} "
                                f"(rc={proc.returncode}):\n{log}")
         with open(self.lib_path() + ".log", "w") as f:
             f.write(log)
@@ -313,16 +325,97 @@ class FPQuantizerBuilder(CUDAOpBuilder):
         lib.ds_cuda_error_string.restype = ctypes.c_char_p
 
 
+class HostOpBuilder(CUDAOpBuilder):
+    """A host C++ library (JAX ``ops/op_builder.py:70 NativeOpBuilder``):
+    ``SOURCES`` under ``csrc/host/``, compiled by ``g++`` with the JAX
+    builder's flags and ``EXTRA_CFLAGS``/``EXTRA_LDFLAGS``."""
+
+    SOURCES = ()
+    EXTRA_CFLAGS = ()
+    EXTRA_LDFLAGS = ()
+
+    def sources(self):
+        return [os.path.join(_PKG_ROOT, s) for s in self.SOURCES]
+
+    def flags(self):
+        return ("-O3", "-shared", "-fPIC", "-std=c++17", *self.EXTRA_CFLAGS,
+                *self.EXTRA_LDFLAGS)
+
+    def command(self, out):
+        gxx = shutil.which("g++")
+        if gxx is None:
+            raise RuntimeError("g++ not found: the host libraries of "
+                               "deepspeed_tpu_torch are compiled at first use")
+        return [gxx, "-O3", "-shared", "-fPIC", "-std=c++17",
+                *self.EXTRA_CFLAGS, *self.sources(), "-o", out,
+                *self.EXTRA_LDFLAGS]
+
+
+class CPUOptimizersBuilder(HostOpBuilder):
+    """The host Adam/Adagrad/Lion and the squared norm (JAX
+    ``ops/cpu_optimizers.py:18 CPUAdamBuilder``)."""
+    NAME = "cpu_optimizers"
+    SOURCES = (os.path.join("csrc", "host", "cpu_optimizers.cpp"), )
+    EXTRA_CFLAGS = ("-fopenmp", "-march=native", "-funroll-loops")
+    EXTRA_LDFLAGS = ("-fopenmp", )
+
+    def bind(self, lib):
+        p, n, f, i = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float, \
+            ctypes.c_int
+        lib.ds_cpu_adam_step.argtypes = [p, p, p, p, n, f, f, f, f, f, i, i,
+                                         p]
+        lib.ds_cpu_adagrad_step.argtypes = [p, p, p, n, f, f, f, p]
+        lib.ds_cpu_lion_step.argtypes = [p, p, p, n, f, f, f, f, p]
+        lib.ds_cpu_sq_norm.restype = ctypes.c_double
+        lib.ds_cpu_sq_norm.argtypes = [p, n]
+
+
+class AsyncIOBuilder(HostOpBuilder):
+    """The io_uring and thread-pool I/O engines (JAX ``ops/aio.py:26``)."""
+    NAME = "async_io"
+    SOURCES = (os.path.join("csrc", "host", "ds_aio.cpp"),
+               os.path.join("csrc", "host", "ds_aio_uring.cpp"))
+    EXTRA_CFLAGS = ("-pthread", )
+    EXTRA_LDFLAGS = ("-pthread", )
+
+    def bind(self, lib):
+        p, n, i, s = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, \
+            ctypes.c_char_p
+        lib.ds_aio_handle_new.restype = p
+        lib.ds_aio_handle_new.argtypes = [n, i, i, i]
+        lib.ds_aio_handle_free.argtypes = [p]
+        lib.ds_uring_available.restype = i
+        lib.ds_uring_handle_new.restype = p
+        lib.ds_uring_handle_new.argtypes = [n, i, i]
+        lib.ds_uring_handle_free.argtypes = [p]
+        for prefix in ("ds_aio", "ds_uring"):
+            for op in ("submit_read", "submit_write"):
+                fn = getattr(lib, f"{prefix}_{op}")
+                fn.restype = n
+                fn.argtypes = [p, s, p, n, n]
+            wait = getattr(lib, f"{prefix}_wait")
+            wait.restype = i
+            wait.argtypes = [p, n]
+            pend = getattr(lib, f"{prefix}_pending")
+            pend.restype = n
+            pend.argtypes = [p]
+            for op in ("pread", "pwrite"):
+                fn = getattr(lib, f"{prefix}_{op}")
+                fn.restype = i
+                fn.argtypes = [p, s, p, n, n]
+
+
 ALL_OPS = {b.NAME: b for b in (PagedAttentionBuilder, FlashAttentionBuilder,
                                OptimizersBuilder, GroupedMatmulBuilder,
                                QuantizerBuilder, FlashBiasBuilder,
                                BlockSparseAttentionBuilder,
-                               FPQuantizerBuilder)}
+                               FPQuantizerBuilder, CPUOptimizersBuilder,
+                               AsyncIOBuilder)}
 
 
 def build_all():
-    """Build every kernel library, one ``nvcc`` per source started
-    together.  Returns {name: (seconds, compiler output)}."""
+    """Build every kernel and host library, one compiler per library
+    started together.  Returns {name: (seconds, compiler output)}."""
     builders = [cls() for cls in ALL_OPS.values()]
     procs = [(b, b.start_build()) for b in builders]
     return {b.NAME: b.finish_build(proc) for b, proc in procs}

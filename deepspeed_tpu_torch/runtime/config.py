@@ -171,11 +171,6 @@ def _check_integrity(cfg):
             "retry_backoff must be >= 0")
 
 
-def _offload_on(section):
-    dev = (section or {}).get("device", "none")
-    return section is not None and str(dev) != "none"
-
-
 def _mesh_dims(pd):
     mesh = dict(pd.get("mesh") or {})
     # dp is the world (utils/groups.py); the engine checks a given size
@@ -190,10 +185,6 @@ def _mesh_dims(pd):
 
 # (what, queue-A item, predicate on the raw config dict)
 _UNPORTED = (
-    ("ZeRO optimizer/parameter offload", 10,
-     lambda pd: _offload_on((pd.get("zero_optimization") or {}).get(
-         "offload_optimizer")) or _offload_on(
-             (pd.get("zero_optimization") or {}).get("offload_param"))),
     ("ZeRO++ (zero_quantized_weights/gradients, hpZ, MiCS)", 7,
      lambda pd: _on(pd.get("zero_optimization"), "zero_quantized_weights",
                     "zero_quantized_gradients") or

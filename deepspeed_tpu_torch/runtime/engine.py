@@ -57,6 +57,11 @@ group (:meth:`DeepSpeedEngine._init_comm`):
 * Checkpoints (``runtime/checkpoint_engine.py``): every rank writes its
   shard in upstream DeepSpeed's per-rank files and loads at any world size
   and stage; the JAX package's manifest, rollback and async commit.
+* Offload (``runtime/offload.py``): ``offload_optimizer`` cpu keeps the
+  fp32 master and moments in pinned host memory, which the optimizer
+  kernels update in place; nvme keeps them in files between steps, with
+  the host optimizer step; ``offload_states``/``reload_states``.
+  ``offload_param`` (parameter streaming) is ``runtime/infinity_engine.py``.
 * The loss over the global batch: the JAX engine runs one program on the
   global batch, whose loss is the masked mean over every rank's rows.  A
   model whose ``forward`` takes ``loss_reduction`` hands back the masked
@@ -93,6 +98,7 @@ from .config import (ADAM_OPTIMIZERS, ADAMW_OPTIMIZER, FUSED_ADAM_OPTIMIZER,
                      MAX_INFLIGHT, SGD_OPTIMIZER, DeepSpeedConfig)
 from .loss_scaler import create_loss_scaler, has_overflow
 from .lr_schedules import get_lr_scheduler
+from .offload import OffloadMixin
 from .utils import (clip_coefficient, count_parameters, global_grad_norm,
                     make_scaled_loss_fn)
 from .zero.overlap import (MB, Unit, ZeroCoordinator, block_modules,
@@ -194,7 +200,7 @@ class _OptimizerFacade:
         return self._engine.cur_scale
 
 
-class DeepSpeedEngine:
+class DeepSpeedEngine(OffloadMixin):
 
     def __init__(self, args=None, model=None, optimizer=None,
                  model_parameters=None, training_data=None,
@@ -260,6 +266,7 @@ class DeepSpeedEngine:
         self._last_gnorm = None
         self._last_skipped = False
         self.last_checkpoint = None   # the last save's handle (its stats())
+        self._configure_offload()
         if model_parameters is not None or not any(
                 p.is_meta for p in model.parameters()):
             self._install_parameters(model_parameters)
@@ -422,8 +429,7 @@ class DeepSpeedEngine:
         self._pshard = (torch.zeros(S, dtype=self.compute_dtype,
                                     device=self.device)
                         if plan.bucketed and whole else None)
-        self.master = (torch.zeros(S, dtype=torch.float32,
-                                   device=self.device) if mixed else None)
+        self.master = self._fp32_zeros(S) if mixed else None
         if zc.bucketed:
             self._make_coordinator(units)
         shard = self._param_shard() if plan.bucketed else None
@@ -502,6 +508,7 @@ class DeepSpeedEngine:
         and frees the rest."""
         if self._layout is None:
             self._install_parameters()
+        self._ensure_state_resident()
         gen = torch.Generator(device=self.device).manual_seed(int(seed))
         plan = self.zero_plan
         if self.master is None and not plan.bucketed:
@@ -528,6 +535,8 @@ class DeepSpeedEngine:
             self._bind_module()
         if self.opt_state is None:
             self._init_opt_state()
+        elif self._nvme_swapper is not None:
+            self._nvme_swap_out()
         return self.module
 
     def _configure_optimizer(self, client_optimizer):
@@ -537,6 +546,7 @@ class DeepSpeedEngine:
         ``ops.adam``/``ops.lamb``/``ops.lion``."""
         cfg = self._config
         lr_fn = None
+        self._client_optimizer = client_optimizer is not None
         if cfg.scheduler_name is not None:
             self._sched_for_lr = get_lr_scheduler(cfg.scheduler_name,
                                                   cfg.scheduler_params)
@@ -560,12 +570,14 @@ class DeepSpeedEngine:
     def _init_opt_state(self):
         self.opt_state = self._transform.init(
             self._target(), [(o, n) for o, n, _ in
-                             self.zero_plan.leaf_pieces(self._layout)])
+                             self.zero_plan.leaf_pieces(self._layout)],
+            device=self.device, pin=self._pin_state)
         if self.zero_plan.sharded and self.dp_world_size > 1 and \
                 isinstance(self._transform, FusedLambTransform):
             self._sum_lamb_leaves_over_ranks()
         if self._pending_client_lr is not None:
             self._set_client_lr(self._pending_client_lr)
+        self._after_opt_state_init()
 
     def _sum_lamb_leaves_over_ranks(self):
         """LAMB's trust ratio is per leaf, and a leaf may straddle two
@@ -681,6 +693,7 @@ class DeepSpeedEngine:
         """The whole fp32 flat buffer (the master's, when mixed) in the
         layout's order.  A sharded master (or stage 3's fp32 parameters) is
         all-gathered: every rank must call this together."""
+        self._ensure_state_resident()
         if self.master is None:
             return self.gathered_params()
         if not self.zero_plan.sharded:
@@ -697,6 +710,7 @@ class DeepSpeedEngine:
 
     def _gather_shard(self, shard):
         plan = self.zero_plan
+        shard = shard.to(self.device)     # an offloaded master
         out = torch.empty(plan.world_size * plan.shard_numel,
                           dtype=shard.dtype, device=self.device)
         dist.allgather_fn(out, shard, group=self._dp_group)
@@ -718,6 +732,8 @@ class DeepSpeedEngine:
         return x.to(self.device) if isinstance(x, torch.Tensor) else x
 
     def _check_params(self):
+        if "params" in self._host_offloaded:
+            self._reload("params")
         if self.params is None:
             raise RuntimeError(
                 "engine has no parameters — pass model_parameters to "
@@ -780,6 +796,10 @@ class DeepSpeedEngine:
             raise RuntimeError("backward() called without a prior forward() "
                                "in training mode")
         self.timers(BACKWARD_GLOBAL_TIMER).start()
+        if "grad_acc" in self._host_offloaded:
+            # before the fold, or the earlier micro-steps' gradients are
+            # lost (JAX engine.py:1737-1744)
+            self._reload("grad_acc")
         if self._coord is not None:
             self._backward_bucketed()
         else:
@@ -794,6 +814,9 @@ class DeepSpeedEngine:
                 self._fold(self.grad_acc, self._acc_fresh)
         self._pending_loss = None
         self._acc_fresh = False
+        if self._state_on_nvme and self.is_gradient_accumulation_boundary():
+            # the reads overlap what is left of the step's backward
+            self._nvme_start_swap_in()
         self.timers(BACKWARD_GLOBAL_TIMER).stop()
         return loss
 
@@ -857,7 +880,16 @@ class DeepSpeedEngine:
                 raise RuntimeError("step() at a grad-accum boundary without "
                                    "any backward() since the last boundary")
             self.timers(STEP_GLOBAL_TIMER).start()
-            self._apply_update(use_kernel)
+            gnorm = self._try_host_offload_step()
+            if gnorm is not None:
+                self.scale_state = self.loss_scaler.update(self.scale_state,
+                                                           False)
+                self._last_gnorm, self._last_skipped = gnorm, False
+            else:
+                self._ensure_state_resident()
+                self._apply_update(use_kernel)
+                if self._nvme_swapper is not None:
+                    self._nvme_swap_out()
             self.timers(STEP_GLOBAL_TIMER).stop()
             if self._config.wall_clock_breakdown:
                 self.timers.log([FORWARD_GLOBAL_TIMER, BACKWARD_GLOBAL_TIMER,
@@ -1063,10 +1095,11 @@ class DeepSpeedEngine:
         from .checkpoint_engine import save_engine_checkpoint
         self._check_params()
         self.wait_for_checkpoint()   # one pending async save at a time
-        out = save_engine_checkpoint(self, save_dir, tag=tag,
-                                     client_state=client_state,
-                                     save_latest=save_latest,
-                                     async_save=async_save)
+        with self._state_on_host(write_back=False):
+            out = save_engine_checkpoint(self, save_dir, tag=tag,
+                                         client_state=client_state,
+                                         save_latest=save_latest,
+                                         async_save=async_save)
         if async_save:
             self._pending_ckpt = out
             if not getattr(self, "_ckpt_atexit", False):
@@ -1100,22 +1133,28 @@ class DeepSpeedEngine:
             raise ValueError("load_checkpoint(custom_load_fn=...) needs the "
                              "whole parameters: ZeRO stages 0-2")
         self.wait_for_checkpoint()
-        if self._config.load_universal_checkpoint:
-            from ..checkpoint.universal_checkpoint import \
-                load_universal_checkpoint
-            return load_universal_checkpoint(
+        if self._nvme_swapper is not None and self.opt_state is None:
+            if self.params is None:
+                self._install_parameters()
+            self._init_opt_state()
+        # NVMe: the loaded state goes into host buffers and out to disk
+        with self._state_on_host(write_back=True):
+            if self._config.load_universal_checkpoint:
+                from ..checkpoint.universal_checkpoint import \
+                    load_universal_checkpoint
+                return load_universal_checkpoint(
+                    self, load_dir, tag=tag,
+                    load_optimizer_states=load_optimizer_states,
+                    load_lr_scheduler_states=load_lr_scheduler_states,
+                    load_module_only=load_module_only)
+            from .checkpoint_engine import load_engine_checkpoint
+            return load_engine_checkpoint(
                 self, load_dir, tag=tag,
                 load_optimizer_states=load_optimizer_states,
                 load_lr_scheduler_states=load_lr_scheduler_states,
-                load_module_only=load_module_only)
-        from .checkpoint_engine import load_engine_checkpoint
-        return load_engine_checkpoint(
-            self, load_dir, tag=tag,
-            load_optimizer_states=load_optimizer_states,
-            load_lr_scheduler_states=load_lr_scheduler_states,
-            load_module_only=load_module_only,
-            load_module_strict=load_module_strict,
-            custom_load_fn=custom_load_fn)
+                load_module_only=load_module_only,
+                load_module_strict=load_module_strict,
+                custom_load_fn=custom_load_fn)
 
     def save_16bit_model(self, save_dir, save_filename="pytorch_model.bin",
                          exclude_frozen_parameters=False):
@@ -1228,12 +1267,6 @@ class DeepSpeedEngine:
 
     def is_compiled(self):
         raise not_ported("engine.is_compiled", 4)
-
-    def offload_states(self, *args, **kwargs):
-        raise not_ported("offload_states", 10)
-
-    def reload_states(self, *args, **kwargs):
-        raise not_ported("reload_states", 10)
 
     def empty_partition_cache(self):
         """Stage 3: release every gathered unit but the persistent one

@@ -269,7 +269,12 @@ class ZeroPartitionPlan:
                "min_partition_size": sch.get("min_partition_size", 1),
                "sharded_bytes": int(sharded),
                "replicated_bytes": int(replicated),
-               "offload_optimizer": False, "offload_param": False,
+               "offload_optimizer": (
+                   self.zero_config is not None and
+                   self.zero_config.offload_optimizer_device == "cpu"),
+               "offload_param": (
+                   self.zero_config is not None and
+                   self.zero_config.offload_param_device != "none"),
                "overlap_enabled": bool(sch.get("overlap_enabled", False)),
                "overlap_max_inflight": (sch.get("overlap_max_inflight", 0)
                                         if sch.get("overlap_enabled")

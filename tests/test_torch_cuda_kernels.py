@@ -406,6 +406,54 @@ def test_fused_adam_wrapper_rejects(card):
         opt.fused_adam_step(x, x, x.clone(), x.clone(), x.clone(), **hyper)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ("adam", "lamb", "lion"))
+def test_optimizer_kernels_update_pinned_host_state_in_place(card, kernel):
+    """Offloaded optimizer state: master and moments in pinned host memory
+    beside a gradient and a bf16 copy on the card take the kernel route
+    (one launch, read and written through the device-mapped address) and
+    give the same bits as the same launch on device buffers; pageable
+    host state is refused."""
+    n = 1 << 20
+    g = torch.Generator().manual_seed(n)
+    grad = torch.randn(n, generator=g).to(card, torch.bfloat16)
+    state = [torch.randn(n, generator=g), 0.1 * torch.randn(n, generator=g),
+             0.01 * torch.rand(n, generator=g)]
+    pinned = [t.pin_memory() for t in state]
+    device = [t.to(card) for t in state]
+    outs = [torch.empty(n, dtype=torch.bfloat16, device=card)
+            for _ in range(2)]
+    fn = {"adam": opt.fused_adam_step, "lion": opt.fused_lion_step,
+          "lamb": opt.fused_lamb_phase1}[kernel]
+    table = opt.LambTable([(0, n // 2), (n // 2, n // 2)], device=card)
+
+    def run(bufs, out):
+        if kernel == "adam":
+            opt.fused_adam_step(grad, *bufs, out, lr=1e-3, beta1=0.9,
+                                beta2=0.999, eps=1e-8, weight_decay=0.01,
+                                count=3)
+        elif kernel == "lion":
+            opt.fused_lion_step(grad, *bufs[:2], out, lr=1e-3, beta1=0.9,
+                                beta2=0.99, weight_decay=0.01)
+        else:
+            opt.fused_lamb_step(grad, *bufs, torch.empty(n, device=card),
+                                out, table=table, lr=1e-3, beta1=0.9,
+                                beta2=0.999, eps=1e-6, weight_decay=0.01,
+                                count=3)
+
+    before = fn.launches
+    run(pinned, outs[0])
+    run(device, outs[1])
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    assert all(t.is_pinned() for t in pinned)
+    for a, b in zip(pinned, device):
+        assert torch.equal(a, b.cpu())
+    assert torch.equal(outs[0], outs[1])
+    with pytest.raises(ValueError, match="pageable"):
+        run([t.clone() for t in state], outs[0])
+
+
 # --------------------------------------------------------- B3 LAMB, B8 Lion
 def _opt_state(card, n, grad_dtype, seed):
     g = torch.Generator().manual_seed(seed)

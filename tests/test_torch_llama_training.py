@@ -382,8 +382,6 @@ def test_batch_trinity_matches_jax(i):
 
 REFUSED = [
     ({"optimizer": {"type": "muon"}}, 11),
-    ({"zero_optimization": {"stage": 0, "offload_optimizer":
-                            {"device": "cpu"}}}, 10),
     ({"zero_optimization": {"zero_quantized_gradients": True}}, 7),
     ({"zero_optimization": {"mics_shard_size": 2}}, 7),
     ({"comm_optimizations": {"enabled": True}}, 7),
@@ -401,10 +399,6 @@ REFUSED = [
     ({"eigenvalue": {"enabled": True}}, 11),
     ({"flops_profiler": {"enabled": True}}, 12),
     ({"tensorboard": {"enabled": True}}, 12),
-    ({"zero_optimization": {"stage": 1, "offload_param":
-                            {"device": "cpu"}}}, 10),
-    ({"zero_optimization": {"stage": 3, "offload_param":
-                            {"device": "cpu"}}}, 10),
     ({"autotuning": {"enabled": True}}, 12),
     ({"elasticity": {"enabled": True}}, 12),
     ({"optimizer": {"type": "onebitlamb"}}, 7),
@@ -420,6 +414,31 @@ def test_unported_keys_raise_not_ported(i):
     with pytest.raises(NotImplementedError,
                        match=rf"queue A, item {item}\)"):
         PortConfig(config)
+
+
+# the offload configs the list above refused until queue A item 10 came
+OFFLOAD_BUILDS = [
+    ({"stage": 0, "offload_optimizer": {"device": "cpu"}}, "DeepSpeedEngine"),
+    ({"stage": 1, "offload_param": {"device": "cpu"}}, "InfinityEngine"),
+    ({"stage": 3, "offload_param": {"device": "cpu"}}, "InfinityEngine"),
+]
+
+
+@pytest.mark.parametrize("i", range(len(OFFLOAD_BUILDS)))
+def test_offload_configs_build_and_step(i):
+    zero, engine_class = OFFLOAD_BUILDS[i]
+    _, pcfg = _configs(dtype="float32", remat=False)
+    eng = deepspeed_tpu_torch.initialize(
+        model=port_llama.LlamaModel(pcfg, device="meta"),
+        config={"train_micro_batch_size_per_gpu": 1,
+                "zero_optimization": zero}, device="cpu")[0]
+    assert type(eng).__name__ == engine_class
+    eng.initialize_parameters(0)
+    ids = torch.from_numpy(_batches(1, 1, seed=5)[0])
+    loss = eng(ids, ids)
+    eng.backward(loss)
+    eng.step()
+    assert eng.global_steps == 1 and np.isfinite(float(loss))
 
 
 def test_inert_keys_parse():

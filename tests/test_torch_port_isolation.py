@@ -80,6 +80,36 @@ def _sources():
     return paths
 
 
+# the port's copies of the JAX package's host C++ (offload)
+HOST_SOURCES = {"cpu_optimizers.cpp": "optimizers", "ds_aio.cpp": "aio",
+                "ds_aio_uring.cpp": "aio"}
+
+
+def test_host_builder_reads_nothing_of_the_jax_package():
+    from deepspeed_tpu_torch.ops.op_builder import ALL_OPS, HostOpBuilder
+    jax_dir = os.path.join(_REPO, "deepspeed_tpu") + os.sep
+    hosts = [c for c in ALL_OPS.values() if issubclass(c, HostOpBuilder)]
+    assert {os.path.basename(s) for c in hosts for s in c().sources()} == \
+        set(HOST_SOURCES)
+    for cls in hosts:
+        b = cls()
+        for path in [*b.sources(), *b.command("out.so")]:
+            assert not os.path.abspath(path).startswith(jax_dir), path
+            if path.endswith(".cpp"):
+                assert path.startswith(os.path.join(_PKG_DIR, "csrc",
+                                                    "host"))
+
+
+@pytest.mark.parametrize("name", sorted(HOST_SOURCES))
+def test_host_sources_equal_the_reference_byte_for_byte(name):
+    """A change to the copies is made on purpose, in both places."""
+    with open(os.path.join(_PKG_DIR, "csrc", "host", name), "rb") as f:
+        mine = f.read()
+    with open(os.path.join(_REPO, "deepspeed_tpu", "csrc",
+                           HOST_SOURCES[name], name), "rb") as f:
+        assert mine == f.read()
+
+
 def test_source_imports_nothing_of_jax():
     """AST scan of every import statement in the package (comm/,
     runtime/zero/, accelerator/ and models/bert.py included) and in

@@ -667,8 +667,6 @@ STUBS = {
     "register_post_step_hook": ((lambda e: None, ), 4),
     "compile": ((), 4),
     "is_compiled": ((), 4),
-    "offload_states": ((), 10),
-    "reload_states": ((), 10),
     "start_device_trace": (("trace_dir", ), 12),
     "stop_device_trace": ((), 12),
     "compute_block_eigenvalues": ((), 11),

@@ -19,7 +19,10 @@ Leg kinds:
   on this rank's rows of each global batch (``engine.shard_batch``); the
   losses, scales, skips and gradient norms, the whole fp32 master and the
   comm counts (and, at ZeRO 3, the coordinator's peak of gathered
-  elements beside what bounds it);
+  elements beside what bounds it), and where the engine keeps each state
+  (``state_placement``); ``offload_at`` (a batch index) sends every state
+  to the host with ``offload_states`` after that batch's step (and records
+  the placement then);
 * ``ckpt``: the same training, a ``save_checkpoint`` into the leg's
   directory after ``k`` batches and the rest of the batches; then, for each
   of the leg's ``resume`` configs, a fresh engine that loads the tag and
@@ -227,6 +230,7 @@ def run_train(leg, rank, world):
         device="cpu")
     dist.comms_logger.reset()
     losses, scales, skips, gnorms = [], [], [], []
+    offloaded = None
     for i, batch in enumerate(leg["batches"]):
         inputs = engine.shard_batch(*batch)
         loss = engine(*inputs)
@@ -240,6 +244,10 @@ def run_train(leg, rank, world):
             scales.append(float(engine.cur_scale))
             skips.append(bool(engine._last_skipped))
             gnorms.append(float(engine._last_gnorm))
+        if leg.get("offload_at") == i:
+            engine.offload_states()
+            offloaded = engine.state_placement()
+    placement = engine.state_placement()
     counts = dist.comms_logger.counts()
     master = engine.fp32_params()[:engine.zero_plan.numel].clone()
     plan = engine.zero_plan
@@ -259,7 +267,8 @@ def run_train(leg, rank, world):
                     engine.gradient_accumulation_steps()),
                 live=live, grad_acc_numel=int(engine.grad_acc.numel()),
                 skipped_steps=engine.skipped_steps,
-                global_loss=engine._global_loss)
+                global_loss=engine._global_loss, placement=placement,
+                offloaded=offloaded)
 
 
 def gathered_state(engine):

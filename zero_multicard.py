@@ -3,6 +3,8 @@
 
     python3 zero_multicard.py [--model gpt2|llama|llama7b] [--world N]
                               [--json PATH] [--device cpu] [--checkpoint]
+    python3 zero_multicard.py --offload [--world N] [--json PATH]
+                              [--device cpu]
 
 BASELINE config 2 (``--model gpt2``: GPT-2 350M, fp16 from a scale of
 2^16, remat, ``fusedadam``, 8 rows of 1024 tokens a rank) or config 3
@@ -37,6 +39,21 @@ same tag, and its master must hash as the saved one did.  Rank 0 prints
 the bytes each rank wrote, the save's and the load's seconds and the free
 disk before the save; a depth the disk cannot hold is cut, widths kept,
 and the cut printed.
+
+``--offload`` runs the runnable half of BASELINE config 4 instead:
+Llama-2-13B at full size (40 layers, hidden 5120, 40 heads, FFN 13824,
+vocab 32000), ZeRO 3 with ``overlap_comm`` and ``offload_optimizer:
+cpu`` (each rank's fp32 master and moments in pinned host memory, which
+B3 updates in place), ``fusedlamb``, bf16, remat, 4 rows of 2048 a rank:
+1 warm-up and ``--steps`` timed steps.  Each rank pins 12 bytes an
+element of its shard (3.25 G elements at world 4), in blocks the pinned
+allocator rounds up to a power of two; where 0.7 × ``MemAvailable``
+cannot hold that, the depth is cut, widths kept, and the cut printed.
+Rank 0 prints each rank's peak memory, step ms, tokens/s and MFU, then
+the same config at 2 layers with and without offload, 2 steps each,
+whose losses must agree within 2^-7 relative.  (Config 4's param offload
+with LAMB is refused by the JAX package and the port alike: the host has
+no LAMB kernel.)
 """
 
 import argparse
@@ -51,6 +68,7 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 STAGES = {"gpt2": (0, 1, 2, 3), "llama": (0, 1, 2, 3), "llama7b": (3, )}
+LAMB = {"type": "fusedlamb", "params": {"lr": 1e-4, "weight_decay": 0.01}}
 ZERO3 = {"stage": 3, "overlap_comm": True,
          "stage3_prefetch_bucket_size": int(5e7)}
 PEAK_FLOPS = 989e12        # H100 SXM dense bf16 (and fp16) tensor rate
@@ -277,6 +295,170 @@ def run_checkpoint_rank(args):
     comm.destroy_process_group()
 
 
+def _pinned_bytes(n):
+    """Bytes the pinned allocator takes for ``n`` (a power of two)."""
+    return 1 << max(0, int(n - 1).bit_length())
+
+
+def _mem_available():
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def _offload_layers(world, avail):
+    """The most layers (at most 40) whose pinned state on the host, every
+    rank's master and two moments, fits 0.7 × ``avail`` bytes."""
+    from deepspeed_tpu_torch.models import llama
+    L = 40
+    while L > 1 and world * 3 * _pinned_bytes(4 * math.ceil(
+            llama.param_count(llama.llama_13b(num_hidden_layers=L)) /
+            world)) > 0.7 * avail:
+        L -= 1
+    return L
+
+
+def run_offload_rank(args):
+    """``--offload``: the 13B run with its state pinned, then the 2-layer
+    pair with and without offload (module docstring)."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models import llama
+    cpu = args.device == "cpu"
+    sync = (lambda: None) if cpu else torch.cuda.synchronize
+    S = 2048
+    tiny = dict(vocab_size=256, hidden_size=64, intermediate_size=128,
+                num_attention_heads=4, num_key_value_heads=4,
+                max_position_embeddings=S) if cpu else {}
+    remat = dict(remat=True, remat_policy="nothing_saveable")
+
+    def run(layers, offload, steps):
+        cfg = llama.llama_13b(**{**dict(num_hidden_layers=layers,
+                                        head_dtype="bfloat16"),
+                                 **remat, **tiny})
+        zero = dict(ZERO3)
+        if offload:
+            zero["offload_optimizer"] = {"device": "cpu", "pin_memory": True}
+        t0 = time.perf_counter()
+        engine = deepspeed_tpu_torch.initialize(
+            model=llama.LlamaModel(cfg, device="meta"),
+            config=dict(_config("llama7b", 3), optimizer=LAMB,
+                        zero_optimization=zero),
+            device="cpu" if cpu else None)[0]
+        engine.initialize_parameters(args.seed)
+        build_s = time.perf_counter() - t0
+        world = engine.dp_world_size
+        B = engine.train_micro_batch_size_per_gpu() * world
+        rng = np.random.default_rng(args.seed + 1)
+        batches = [engine.shard_batch(rng.integers(
+            0, cfg.vocab_size, size=(B, S)))[0] for _ in range(2)]
+        losses, times = [], []
+        for i in range(steps):
+            if i == 1:
+                sync()
+                if not cpu:
+                    torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            loss = engine(batches[i % 2], batches[i % 2])
+            engine.backward(loss)
+            engine.step()
+            losses.append(loss.item())
+            sync()
+            times.append(time.perf_counter() - t)
+        peak = 0 if cpu else torch.cuda.max_memory_allocated()
+        pinned = engine.offload_stats
+        mine = torch.tensor([float(peak), pinned["pin_seconds"],
+                             float(pinned["pinned_bytes"])] + losses,
+                            device="cpu" if cpu else "cuda")
+        every = comm.all_gather(mine, tiled=False).cpu()
+        step_s = sum(times[1:]) / max(1, len(times) - 1)
+        row = dict(layers=layers, offload=offload, world=world,
+                   losses=losses, step_ms=[t * 1e3 for t in times],
+                   build_s=build_s, step_ms_mean=step_s * 1e3,
+                   tokens_per_s=B * S / step_s,
+                   mfu=B * S / step_s * _flops_per_token("llama", cfg, S) /
+                   (PEAK_FLOPS * world),
+                   peak_bytes_by_rank=[int(x) for x in every[:, 0]],
+                   pin_s_by_rank=every[:, 1].tolist(),
+                   pinned_bytes_by_rank=[int(x) for x in every[:, 2]],
+                   rank_losses_equal=bool((every[:, 3:] ==
+                                           every[0, 3:]).all()),
+                   placement=engine.state_placement())
+        del engine
+        gc.collect()
+        if not cpu:
+            torch.cuda.empty_cache()
+            empty = getattr(torch._C, "_host_emptyCache", None)
+            if empty is not None:
+                empty()
+        return row
+
+    rows = [run(args.offload_layers, True, 1 + args.steps),
+            run(2, True, 2), run(2, False, 2)]
+    if comm.get_rank() == 0:
+        with open(args.out_rank0, "w") as f:
+            json.dump(rows, f)
+    comm.destroy_process_group()
+
+
+def _offload_main(args, world, smi, out):
+    avail = _mem_available()
+    layers = _offload_layers(world, avail)
+    print(f"[offload] MemAvailable {avail / 1e9:.1f} GB; Llama-2-13B's "
+          f"pinned state at world {world}: 12 bytes × its shard a rank, in "
+          f"power-of-two blocks; 0.7 × MemAvailable holds {layers} of 40 "
+          "layers" + ("" if layers == 40 else " (cut, widths kept)"),
+          flush=True)
+    rcs = _spawn(world, sys.argv[1:] + ["--out-rank0", out,
+                                        "--offload-layers", str(layers)])
+    if any(rcs):
+        print(f"zero_multicard: ranks exited {rcs}", file=sys.stderr)
+        return 1
+    with open(out) as f:
+        main_run, off2, plain2 = json.load(f)
+    os.remove(out)
+    r = main_run
+    print(f"[offload] Llama-2-13B, {r['layers']} layers, ZeRO 3 + "
+          f"offload_optimizer cpu + fusedlamb, bf16, remat, world "
+          f"{r['world']}: losses " + ", ".join(
+              f"{x:.4f}" for x in r["losses"])
+          + f" | built in {r['build_s']:.1f} s, pinned GB by rank " +
+          ", ".join(f"{b / 1e9:.2f}" for b in r["pinned_bytes_by_rank"])
+          + " in s " + ", ".join(f"{x:.1f}" for x in r["pin_s_by_rank"])
+          + f" | step ms (after the warm-up) " + ", ".join(
+              f"{t:.1f}" for t in r["step_ms"][1:])
+          + f", mean {r['step_ms_mean']:.1f}, {r['tokens_per_s']:.1f} "
+          f"tokens/s over the world, MFU {r['mfu']:.4f} | peak GiB by rank "
+          + ", ".join(f"{b / 2**30:.2f}" for b in r["peak_bytes_by_rank"])
+          + f" | placement {r['placement']} | {smi}", flush=True)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(off2["losses"],
+                                                  plain2["losses"]))
+    print(f"[offload] 2 layers with and without offload: losses "
+          f"{off2['losses']} and {plain2['losses']} (largest relative "
+          f"difference {rel:.2e}, limit 2^-7); peak GiB by rank "
+          + ", ".join(f"{b / 2**30:.2f}" for b in off2["peak_bytes_by_rank"])
+          + " and " + ", ".join(f"{b / 2**30:.2f}" for b in
+                                plain2["peak_bytes_by_rank"])
+          + f" | {smi}", flush=True)
+    ok = (all(x["rank_losses_equal"] for x in (r, off2, plain2)) and
+          all(map(math.isfinite, r["losses"])) and rel <= 2.0**-7 and
+          r["placement"].get("master") == "host")
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(dict(card=smi, mem_available=avail, layers=layers,
+                           offload=[r, off2, plain2]), f, indent=1)
+    if not ok:
+        print("zero_multicard: an offload check failed", file=sys.stderr)
+        return 1
+    print(json.dumps({"ok": True, "model": "llama13b", "world": world,
+                      "offload": True}))
+    return 0
+
+
 def _free_port():
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -382,6 +564,10 @@ def main():
     ap.add_argument("--json", help="also write every number to this file")
     ap.add_argument("--checkpoint", action="store_true",
                     help="save and resume at ZeRO 3 (llama, llama7b)")
+    ap.add_argument("--offload", action="store_true",
+                    help="Llama-2-13B at ZeRO 3 with its optimizer state "
+                         "pinned on the host, fusedlamb")
+    ap.add_argument("--offload-layers", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--out-rank0", help=argparse.SUPPRESS)
     ap.add_argument("--ckpt-dir", help=argparse.SUPPRESS)
@@ -390,7 +576,8 @@ def main():
     args = ap.parse_args()
     sys.path.insert(0, REPO)
     if args.rank is not None:
-        (run_checkpoint_rank if args.checkpoint else run_rank)(args)
+        (run_offload_rank if args.offload else run_checkpoint_rank
+         if args.checkpoint else run_rank)(args)
         return 0
     import torch
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -406,6 +593,8 @@ def main():
                        f"zero_multicard_{os.getpid()}.json")
     if args.checkpoint:
         return _checkpoint_main(args, world, smi, out)
+    if args.offload:
+        return _offload_main(args, world, smi, out)
     rcs = _spawn(world, sys.argv[1:] + ["--out-rank0", out])
     if any(rcs):
         print(f"zero_multicard: ranks exited {rcs}", file=sys.stderr)
