@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--json PATH] [--profile DIR]
 
-Stages, run in the order 1-27; any failure exits non-zero:
+Stages, run in the order 1-28; any failure exits non-zero:
 
 1. environment: torch/CUDA/nvcc versions, the card's name and power limit;
 2. build: every ``deepspeed_tpu_torch/csrc/*.cu`` with nvcc for sm_90a
@@ -246,12 +246,29 @@ Stages, run in the order 1-27; any failure exits non-zero:
     (``overlap_comm``), bf16, 2 steps of 2 micro-steps with
     ``offload_optimizer: cpu`` and without, FusedLamb (B3) and FusedAdam
     (B2): losses, the fp32 master and the launches bit-equal, the master
-    and moments ``is_pinned()``, peak HBM of the second step at least 0.8
+    and moments ``is_pinned()``, peak HBM of the second step at least 0.95
     × 12 bytes an element lower; (d) in the Adam offload run,
     ``offload_states()`` then ``reload_states()`` after the first step:
     the freed HBM printed, the next step bit-equal to the run without the
     round trip.  ``MemAvailable`` (after each run) and the free disk are
-    printed.
+    printed, and after each ZeRO-3 engine of (c) the card memory still
+    allocated and the live CUDA tensors above 256 MB (ROADMAP queue C3);
+28. ZeRO++ on one card: (a) the wire codecs (``comm/collectives/
+    quantized.py``) on one 7B-width block's flat bf16 buffer (202,383,360
+    elements from the seed): int8 and int4 (B5's quantize, contiguous
+    route, and dequantize), fp8 (the e4m3fn cast, no kernel), fp6 and
+    fp12 (B6 and the plain decode), at groups of 2048 and 128; codes,
+    scales and decode bit-equal to the plain versions on the card; ms
+    against the bytes bound, launches by route, and ``quantized_wire_bytes``
+    against the bf16 bytes; (b) ``quantized_all_gather``,
+    ``all_to_all_quant_reduce``, ``hierarchical_quant_reduce_scatter``
+    (a 1 × 1 hierarchy) and ``quantized_all_to_all`` on the NCCL world of
+    one rank, where each exchange is a copy, bit-equal to the plain
+    composition of codec, copy and decode; (c) stage 25's ZeRO-3 engine
+    with ``zero_quantized_weights`` and ``zero_quantized_gradients``:
+    every quantized collective declines at one rank (as in JAX), so its 4
+    steps are stage 25's bit for bit (losses, the master's digest,
+    launches), and its dispatch counters are all ``flat_fallback``.
 
 ``--profile DIR`` adds ``torch.profiler`` windows over serving (stages 4,
 14 and 15), over two training steps of stage 8, of stage 11, of stage 22
@@ -281,6 +298,8 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
+# one Llama-2-7B block's elements: 4 · 4096² + 3 · 4096 · 11008 + 2 · 4096
+BLOCK_7B = 202_383_360
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor rate
 # kernel vs plain, elementwise: both accumulate in fp32 and round the
 # output once, so in bf16 they may differ by one ulp of |ref| (at most
@@ -4092,6 +4111,23 @@ def stage_bert_train(seed, smi, profile_dir=None):
     return result
 
 
+def _digest(torch, engine, flat):
+    """A digest of ``flat`` (a fp32 buffer of ``engine``'s layout), leaf by
+    leaf in name order, so that two layouts of the same values agree: the
+    sum, wrapping in int64, of each element's bits times a weight that
+    follows its place in the leaf (a moved or changed element changes
+    it)."""
+    acc = 0
+    for _, off, n, _ in sorted(engine._layout):
+        v = flat[off:off + n].view(torch.int32)
+        for i in range(0, n, 1 << 26):
+            c = v[i:i + (1 << 26)].to(torch.int64)
+            w = torch.arange(i, i + c.numel(), device=c.device,
+                             dtype=torch.int64) % 65521 + 1
+            acc = (acc + int((c * w).sum().item())) % (1 << 64)
+    return acc
+
+
 def _zero_pair(torch, make, batches, stages, warmup, timed, label, smi,
                profile_dir=None, ref=None):
     """The same config, seed and data (micro-step j on ``batches[j %
@@ -4115,8 +4151,12 @@ def _zero_pair(torch, make, batches, stages, warmup, timed, label, smi,
         losses, times, launches, peak = _timed_steps(torch, engine, batches,
                                                      warmup, timed)
         calls = comm.comms_logger.counts()
-        masters[stage] = engine.fp32_params()[:engine.zero_plan.numel].cpu()
+        master = engine.fp32_params()[:engine.zero_plan.numel]
+        digest = _digest(torch, engine, master)
+        masters[stage] = master.cpu()
+        del master
         out[stage] = dict(losses=losses, times=times, launches=launches,
+                          digest=digest,
                           peak=peak, calls=calls,
                           skipped=engine.skipped_steps,
                           plan=engine.zero_plan.describe(
@@ -4402,6 +4442,7 @@ def stage_llama_zero3(seed, smi, zero0, profile_dir=None):
                 peak_bytes_zero0=z0["peak"], calls=z["calls"],
                 per_step=per_step, launches=z["launches"], plan=plan,
                 peak_live_elems=z["peak_live_elems"],
+                digest=z["digest"], batches=batches, config=config,
                 lamb=dict(losses=lz["losses"],
                           losses_zero0=lruns[0]["losses"],
                           max_loss_diff=ldiff, masters_equal=lsame,
@@ -4651,6 +4692,29 @@ def _free_all(torch, label):
         f"{empty is not None})")
 
 
+def _report_left(torch, label):
+    """After an engine is deleted and collected: the card memory still
+    allocated, and each live CUDA tensor whose storage is above 256 MB
+    with the types of what refers to it (ROADMAP queue C3).  Returns the
+    bytes allocated."""
+    left = torch.cuda.memory_allocated()
+    found = []
+    for obj in gc.get_objects():
+        try:
+            big = (isinstance(obj, torch.Tensor) and obj.is_cuda and
+                   obj.untyped_storage().nbytes() > (256 << 20))
+        except Exception:   # objects that fail isinstance probes
+            continue
+        if big:
+            refs = sorted({type(r).__name__ for r in gc.get_referrers(obj)
+                           if r is not found})
+            found.append((tuple(obj.shape), str(obj.dtype),
+                          obj.untyped_storage().nbytes(), refs[:6]))
+    log(f"[offload] after {label}: {left / 1e9:.2f} GB of the card still "
+        f"allocated; live CUDA tensors above 256 MB: {found or 'none'}")
+    return left
+
+
 def _pinned_bytes(n):
     """Bytes PyTorch's pinned allocator takes for ``n`` bytes (it rounds a
     block up to a power of two)."""
@@ -4757,6 +4821,8 @@ def _offload_zero3(torch, seed, smi):
             runs[off] = r
             del engine
             _free_all(torch, f"{opt}{' offload' if off else ''}")
+            r["left_bytes"] = _report_left(torch, f"{opt}"
+                                           f"{' offload' if off else ''}")
         a, b = runs[True], runs[False]
         same = torch.equal(a.pop("master"), b.pop("master"))
         drop = b["peak"] - a["peak"]
@@ -4792,7 +4858,8 @@ def _offload_zero3(torch, seed, smi):
             raise AssertionError(f"state not pinned on the host: "
                                  f"{a['pinned']} {a['placement']}")
         # the master and two moments, 12 bytes an element, leave the card
-        floor = 0.8 * 12 * param_count(cfg)
+        # (no earlier engine's shard left behind: ROADMAP queue C3)
+        floor = 0.95 * 12 * param_count(cfg)
         if drop < floor:
             raise AssertionError(f"peak HBM fell by {drop / 1e9:.2f} GB, "
                                  f"under {floor / 1e9:.2f}")
@@ -5015,6 +5082,214 @@ def stage_offload(seed, smi):
     return out
 
 
+# ----------------------------------------------------------- stage 28
+ZP_FORMATS = ("int8", "int4", "fp8", "fp6", "fp12")
+
+
+def _zp_launches():
+    """B5's and B6's counters (B5's quantize by route)."""
+    from deepspeed_tpu_torch.ops.kernels import fp_quantizer, quantizer
+    q = quantizer.quantize_blockwise
+    return dict(quantize_blockwise=q.launches,
+                dequantize_blockwise=quantizer.dequantize_blockwise.launches,
+                quantize_fp_packed=fp_quantizer.quantize_fp_packed.launches,
+                **{f"quantize_blockwise_{r}": n
+                   for r, n in q.route_launches.items()})
+
+
+def _zp_diff(before, after):
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def _zp_plain(torch, fmt, gs):
+    """The plain versions of ``fmt``'s codec: (quantize, dequantize)."""
+    from deepspeed_tpu_torch.comm.collectives import quantized as Q
+    from deepspeed_tpu_torch.ops import fp_quantizer as fpq
+    from deepspeed_tpu_torch.ops.kernels import fp_quantizer as kfp
+    from deepspeed_tpu_torch.ops.kernels import quantizer as qz
+    egs = Q.effective_group_size(gs)
+    if fmt in ("int8", "int4"):
+        bits = 8 if fmt == "int8" else 4
+        return ((lambda x: qz.quantize_blockwise_plain(x, bits, gs)),
+                qz.dequantize_blockwise_plain)
+    if fmt == "fp8":        # the codec is a cast: its own plain version
+        return Q.wire_codec(fmt, gs)[0], fpq.dequantize_fp
+    bits, man = Q._FP_FORMATS[fmt]
+
+    def quant(x):
+        packed, scales = kfp.quantize_fp_packed_plain(x, bits, man, egs)
+        _, groups, _ = fpq.fp_groups(x.numel(), egs)
+        return packed, scales, (tuple(x.shape), x.dtype, groups, bits, man,
+                                egs)
+    return quant, fpq.dequantize_fp
+
+
+def _zp_codec_case(torch, x, fmt, gs):
+    """(a): one codec on the block buffer against its plain version."""
+    from deepspeed_tpu_torch.comm.collectives import quantized as Q
+    quant, dequant = Q.wire_codec(fmt, gs)
+    pquant, pdequant = _zp_plain(torch, fmt, gs)
+    n = x.numel()
+    before = _zp_launches()
+    q, sc, meta = quant(x)
+    back = dequant(q, sc, meta)
+    torch.cuda.synchronize()
+    launched = _zp_diff(before, _zp_launches())
+    q_ref, s_ref, meta_ref = pquant(x)
+    same = (tuple(meta) == tuple(meta_ref) and torch.equal(q, q_ref)
+            and torch.equal(sc, s_ref))
+    del q_ref, s_ref
+    back_ref = pdequant(q, sc, meta)
+    err = (back.float() - back_ref.float()).abs().max().item()
+    same_back = torch.equal(back, back_ref)
+    del back_ref
+    ms_q = cuda_ms(lambda: quant(x), 5)
+    ms_d = cuda_ms(lambda: dequant(q, sc, meta, out=back), 5)
+    payload = q.numel() * q.element_size() + sc.numel() * 4
+    # bytes the work must move: the bf16 input read once, the codes and
+    # scales written once (and the reverse to decode)
+    bound_q = (n * x.element_size() + payload) / HBM_BYTES_PER_S * 1e3
+    bound_d = (payload + n * x.element_size()) / HBM_BYTES_PER_S * 1e3
+    wire = Q.quantized_wire_bytes(n, fmt, gs)
+    route = {"int8": "B5", "int4": "B5", "fp8": "cast (no kernel)",
+             "fp6": "B6 + plain decode", "fp12": "B6 + plain decode"}[fmt]
+    del q, sc, back
+    return dict(fmt=fmt, group_size=gs, route=route, equal=same,
+                equal_decode=same_back, err=err, ms_q=ms_q, ms_d=ms_d,
+                bound_q=bound_q, bound_d=bound_d, wire_bytes=wire,
+                bf16_bytes=2 * n, launches=launched)
+
+
+def _zp_primitives(torch, x):
+    """(b): the primitives on the NCCL world of one rank, against the plain
+    codec, a copy and the plain decode."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.comm.collectives import quantized as Q
+    from deepspeed_tpu_torch.utils import groups
+    comm.init_distributed(dist_backend="nccl", verbose=False)
+    g = comm.get_world_group()
+    inner, outer = groups.factor_groups(1)
+    rows = []
+    before = _zp_launches()
+    for fmt in ("int8", "fp6"):
+        gs = 2048
+        pquant, pdequant = _zp_plain(torch, fmt, gs)
+        q, sc, meta = pquant(x)
+        plain = pdequant(q, sc, meta)
+        plain32 = pdequant(q, sc, (meta[0], torch.float32) + tuple(meta[2:]))
+        got = {
+            "quantized_all_gather": (Q.quantized_all_gather(
+                x, g, 0, fmt, gs), plain),
+            "all_to_all_quant_reduce": (Q.all_to_all_quant_reduce(
+                x, g, 0, 1, wire_format=fmt, group_size=gs, mean=False),
+                plain32),
+            "hierarchical_quant_reduce_scatter": (
+                Q.hierarchical_quant_reduce_scatter(
+                    x, inner, outer, 0, 1, 1, wire_format=fmt,
+                    group_size=gs, mean=True), plain32),
+            "quantized_all_to_all": (Q.quantized_all_to_all(
+                x, g, 0, 0, 1, fmt, gs), plain),
+        }
+        torch.cuda.synchronize()
+        for name, (a, b) in got.items():
+            rows.append(dict(fn=name, fmt=fmt, equal=torch.equal(a, b),
+                             dtype=str(a.dtype)))
+        del q, sc, plain, plain32, got
+    launched = _zp_diff(before, _zp_launches())
+    return rows, launched
+
+
+def stage_zeropp(seed, smi, zero3):
+    """Stage 28: (a) the wire codecs at a real size, (b) the primitives at
+    world 1, (c) stage 25's engine with qwZ and qgZ (module docstring).
+    ``zero3``: stage 25's result."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import LlamaModel, llama_7b
+    t0 = time.perf_counter()
+    _free(torch)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 28)
+    x = torch.randn(BLOCK_7B, generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    x[:4096] = 0                                   # all-zero groups
+    codecs = []
+    for gs in (2048, 128):
+        for fmt in ZP_FORMATS:
+            r = _zp_codec_case(torch, x, fmt, gs)
+            codecs.append(r)
+            log(f"[zeropp] (a) {fmt} wire, groups of {gs}, on one 7B-width "
+                f"block ({BLOCK_7B:,} bf16 elements), {r['route']}: codes "
+                f"and scales {'bit-equal' if r['equal'] else 'DIFFER'} to "
+                f"the plain version, decode "
+                f"{'bit-equal' if r['equal_decode'] else 'DIFFERS'} "
+                f"(max |diff| {r['err']:.3e}) | encode {r['ms_q']:.3f} ms "
+                f"(bound {r['bound_q']:.3f}, bytes), decode "
+                f"{r['ms_d']:.3f} ms (bound {r['bound_d']:.3f}, bytes) | "
+                f"wire {r['wire_bytes']:,} bytes against {r['bf16_bytes']:,}"
+                f" in bf16 ({r['wire_bytes'] / r['bf16_bytes']:.4f}) | "
+                f"launches {r['launches']} | {smi}")
+            _free(torch)
+    want = {"int8": {"quantize_blockwise": 1, "dequantize_blockwise": 1,
+                     "quantize_blockwise_contiguous": 1},
+            "fp8": {}, "fp6": {"quantize_fp_packed": 1}}
+    want["int4"], want["fp12"] = want["int8"], want["fp6"]
+    bad = [(r["fmt"], r["group_size"]) for r in codecs
+           if not (r["equal"] and r["equal_decode"]) or
+           r["launches"] != want[r["fmt"]]]
+    if bad:
+        raise AssertionError(f"wire codecs apart from their plain versions "
+                             f"or launching other kernels: {bad}")
+    prims, prim_launches = _zp_primitives(torch, x[:(1 << 24) + 1000])
+    del x
+    _free(torch)
+    log(f"[zeropp] (b) at world 1 (each exchange a copy): " + ", ".join(
+        f"{r['fn']} {r['fmt']} {'bit-equal' if r['equal'] else 'DIFFERS'}"
+        for r in prims) + f" to the plain codec, copy and decode | "
+        f"launches {prim_launches} | {smi}")
+    if not all(r["equal"] for r in prims):
+        raise AssertionError(f"primitives apart from the plain composition: "
+                             f"{prims}")
+    # (c) stage 25's engine with qwZ and qgZ: every collective declines
+    cfg = llama_7b(num_hidden_layers=8, remat=False, head_dtype="bfloat16")
+    engine = deepspeed_tpu_torch.initialize(
+        model=LlamaModel(cfg, device="meta"), config=dict(
+            zero3["config"], zero_optimization=dict(
+                ZERO3, zero_quantized_weights=True,
+                zero_quantized_gradients=True)))[0]
+    engine.initialize_parameters(seed)
+    losses, times, launches, peak = _timed_steps(torch, engine,
+                                                 zero3["batches"], 1, 3)
+    digest = _digest(torch, engine,
+                     engine.fp32_params()[:engine.zero_plan.numel])
+    counts = engine.zeropp_dispatch_counts()
+    variant = engine._micro_variant()
+    del engine
+    _free(torch)
+    same = losses == zero3["losses"] and digest == zero3["digest"]
+    log(f"[zeropp] (c) stage 25's ZeRO 3 with zero_quantized_weights and "
+        f"zero_quantized_gradients at one rank ({variant}): losses "
+        + ", ".join(f"{v:.4f}" for v in losses) + f"; losses and master "
+        f"digest {'bit-equal' if same else 'DIFFER from'} stage 25's; "
+        f"dispatch {counts}; launches {launches}; peak "
+        f"{peak / 2**30:.2f} GiB (stage 25 {zero3['peak_bytes'] / 2**30:.2f})"
+        f" | {smi}")
+    if not same or launches != zero3["launches"] or not counts or \
+            any(not k.endswith("/flat_fallback") for k in counts):
+        raise AssertionError(f"ZeRO++ at one rank apart from stage 25: "
+                             f"losses {losses} vs {zero3['losses']}, "
+                             f"digest equal {digest == zero3['digest']}, "
+                             f"dispatch {counts}")
+    seconds = time.perf_counter() - t0
+    log(f"[zeropp] stage 28 took {seconds:.1f} s")
+    return dict(codecs=codecs, primitives=prims,
+                primitive_launches=prim_launches,
+                engine=dict(losses=losses, dispatch=counts, variant=variant,
+                            launches=launches, peak_bytes=peak,
+                            step_ms=[t * 1e3 for t in times]),
+                seconds=seconds)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5081,6 +5356,7 @@ def main():
                                     llama_zero2.pop("zero0"), args.profile)
     save_resume = stage_save_resume(args.seed, smi)
     offload = stage_offload(args.seed, smi)
+    zeropp = stage_zeropp(args.seed, smi, llama_zero3)
 
     entries = []
     for wrapper, case in (("paged_attention", "serve_decode"),
@@ -5313,6 +5589,35 @@ def main():
     entry.update(tree_s=fpq["trees"]["fp6"]["wall_s"],
                  tree_s_fp12=fpq["trees"]["fp12"]["wall_s"])
     entries.append(entry)
+    # stage 28: B5 and B6 as ZeRO++'s wire codecs on a 7B-width block, (a)
+    # and (b) counted from 0 around each call
+    zp = {}
+    for counts in [r["launches"] for r in zeropp["codecs"]] + [
+            zeropp["primitive_launches"]]:
+        for k, n in counts.items():
+            zp[k] = zp.get(k, 0) + n
+    block = {(r["fmt"], r["group_size"]): r for r in zeropp["codecs"]}
+    for e in entries:
+        if e["name"] == "quantize_blockwise":
+            r = block[("int8", 2048)]
+            e.update(launches_zeropp=zp.get("quantize_blockwise", 0),
+                     launches_zeropp_by_route={
+                         k[len("quantize_blockwise_"):]: n
+                         for k, n in zp.items()
+                         if k.startswith("quantize_blockwise_")},
+                     ms_zeropp_block=r["ms_q"],
+                     bound_ms_zeropp_block=r["bound_q"])
+        elif e["name"] == "dequantize_blockwise":
+            r = block[("int8", 2048)]
+            e.update(launches_zeropp=zp.get("dequantize_blockwise", 0),
+                     ms_zeropp_block=r["ms_d"],
+                     bound_ms_zeropp_block=r["bound_d"])
+        elif e["name"] == "quantize_fp":
+            r = block[("fp6", 2048)]
+            e.update(launches_zeropp=zp.get("quantize_fp_packed", 0),
+                     ms_zeropp_block=r["ms_q"],
+                     bound_ms_zeropp_block=r["bound_q"])
+    llama_zero3.pop("batches")
     if args.json:
         with open(args.json, "w") as f:
             json.dump(dict(card=smi, kernels=kernels, serve=serve,
@@ -5329,6 +5634,7 @@ def main():
                            llama_zero2=llama_zero2,
                            llama_zero3=llama_zero3,
                            save_resume=save_resume, offload=offload,
+                           zeropp=zeropp,
                            seconds=time.perf_counter() - t_start),
                       f, indent=1, default=str)
     from deepspeed_tpu_torch import comm

@@ -34,10 +34,12 @@ from .reduce_op import ReduceOp, torch_op
 
 
 class AsyncHandle:
-    """An async collective in flight (``torch.distributed``'s ``Work``).
-    :meth:`wait` makes the current stream wait for it (on the CPU: the
-    caller) and returns its result; a one-rank group's handle is complete
-    from the start.  ``on_wait`` callbacks run once, at the first wait."""
+    """An async collective in flight (``torch.distributed``'s ``Work``, or
+    any object with ``wait`` and ``is_completed``, such as a quantized
+    gather's).  :meth:`wait` makes the current stream wait for it (on the
+    CPU: the caller) and returns its result; a one-rank group's handle is
+    complete from the start.  ``on_wait`` callbacks run once, at the first
+    wait."""
 
     def __init__(self, work, result):
         self._work = work
@@ -72,14 +74,23 @@ class ProcessGroup:
     """A communication group: the mesh axis names it spans and the torch
     process group that carries it (None: the world).  A group over axes
     whose sizes are all 1 (``local``) holds only the calling rank: its
-    collectives return their input as a one-rank collective would."""
+    collectives return their input as a one-rank collective would.  The
+    facade never offers a collective over a ``flat`` group to the
+    installed collectives engine (the training engine's own groups, whose
+    wires its ZeRO plan chooses)."""
 
-    def __init__(self, axis_names, pg=None, local=False):
+    def __init__(self, axis_names, pg=None, local=False, flat=False):
         if isinstance(axis_names, str):
             axis_names = (axis_names, )
         self.axis_names = tuple(axis_names)
         self.pg = pg
         self.local = local
+        self.flat = flat
+
+    def as_flat(self):
+        """This group, marked ``flat``."""
+        return ProcessGroup(self.axis_names, pg=self.pg, local=self.local,
+                            flat=True)
 
     def size(self):
         return 1 if self.local else dist.get_world_size(self.pg)

@@ -13,9 +13,18 @@ which feeds the comms logger when the ``comms_logger`` config enables it.
 ``wait()`` makes the current stream wait for the collective (a one-rank
 group's handle is already complete).
 
-Not ported: the collectives engine (``set_collectives_engine``, the
-``comm_optimizations`` dispatch; ROADMAP queue A item 7) and the host
-object channel ``send_obj``/``recv_obj`` of the pipeline (item 9).
+The collectives engine (``comm/collectives``, JAX ``comm.py:49-73`` and
+``:305-322``): ``configure`` installs one from the config's enabled
+``comm_optimizations`` block (``set_collectives_engine`` by hand), and
+one dispatch point, :func:`_dispatch`, offers it every ``all_reduce``,
+``all_gather``, ``reduce_scatter``, ``allgather_fn``,
+``reduce_scatter_fn`` and coalesced call, except over a ``flat`` group;
+the comms logger records the variant it ran and its wire bytes.  The
+``allgather_fn``/``reduce_scatter_fn`` of ZeRO++ name their own engine
+and wire (``runtime/zero/zeropp.py``).
+
+Not ported: the host object channel ``send_obj``/``recv_obj`` of the
+pipeline (item 9).
 """
 
 import datetime
@@ -34,6 +43,12 @@ from .reduce_op import ReduceOp
 
 cdb = None  # the current backend (reference comm/comm.py:41)
 comms_logger = CommsLogger()
+
+# the installed collectives engine (None: every op flat)
+_engine = None
+# (variant, wire bytes) of the collective the engine just ran, for
+# timed_op's record
+_last_dispatch = None
 
 
 def is_initialized():
@@ -76,24 +91,35 @@ def world_is_up(backend):
 
 
 def set_collectives_engine(engine):
-    """The JAX facade's pluggable collectives engine (quantized and
-    hierarchical variants) is ROADMAP queue A item 7; ``None`` (no engine)
-    is what the port always runs."""
-    if engine is not None:
-        raise not_ported("set_collectives_engine (comm/collectives, "
-                         "quantized and hierarchical collectives)", 7)
+    """Install (None: remove) the collectives engine that :func:`_dispatch`
+    offers every eager collective to.  With a world up, its subgroups are
+    made now: every rank installs it, as every rank builds the mesh."""
+    global _engine
+    _engine = engine
+    if engine is not None and is_initialized():
+        engine.prepare()
 
 
 def get_collectives_engine():
-    return None
+    return _engine
 
 
 def configure(config=None, enabled=None, prof_all=None, prof_ops=None,
               verbose=None, debug=None):
-    """Comms-logger settings from a parsed config or by keyword."""
+    """Comms-logger settings, and the collectives engine of an enabled
+    ``comm_optimizations`` block (none when it is disabled), from a parsed
+    config; the logger's by keyword."""
     if config is not None and getattr(config, "comms_config", None) \
             is not None:
         comms_logger.configure(config.comms_config)
+    co = getattr(config, "comm_optimizations_config", None) \
+        if config is not None else None
+    if co is not None:
+        if co.enabled:
+            from .collectives import CollectivesEngine
+            set_collectives_engine(CollectivesEngine(co))
+        else:
+            set_collectives_engine(None)
     if enabled is not None:
         comms_logger.enabled = enabled
     if prof_all is not None:
@@ -123,6 +149,7 @@ def timed_op(func):
 
     @functools.wraps(func)
     def wrapper(*args, log_name=None, **kwargs):
+        global _last_dispatch
         name = log_name or func.__name__
         if not comms_logger.should_log(name):
             return func(*args, **kwargs)
@@ -131,13 +158,17 @@ def timed_op(func):
         if not isinstance(x, torch.Tensor):
             return func(*args, **kwargs)
         start = _event(x)
+        _last_dispatch = None
         result = func(*args, **kwargs)
+        variant, wire = _last_dispatch or (None, None)
+        _last_dispatch = None
         handle = result if isinstance(result, AsyncHandle) else None
         end = None if handle is not None else _event(x)
         group = bound.get("group")
         ws = group.size() if group is not None else get_world_size()
         entry = comms_logger.record(name, get_msg_size_from_args(x), ws,
-                                    start, end)
+                                    start, end, wire_size=wire,
+                                    variant=variant)
         if handle is not None:
             handle.on_wait(lambda: entry.__setitem__(4, _event(x)))
         return result
@@ -239,7 +270,7 @@ def init_distributed(dist_backend=None, auto_mpi_discovery=True,
     cdb = TorchBackend(name=dist.get_backend())
     from ..utils import groups
     if not groups.mesh_is_initialized():
-        groups.initialize_mesh()
+        groups.initialize_mesh(user_built=False)
     configure(config=config)
     return cdb
 
@@ -301,10 +332,38 @@ def get_local_rank():
 
 
 # ------------------------------------------------------------ collectives
+def _dispatch(op_name, tensor, op=ReduceOp.SUM, group=None, axis=0,
+              engine=None, **route):
+    """THE dispatch point: the op offered to ``engine`` (default: the
+    installed one, unless ``group`` is ``flat``).  Returns the engine's
+    result, with ``(variant, wire bytes)`` left for :func:`timed_op`, or
+    None: the caller runs the flat op."""
+    global _last_dispatch
+    _last_dispatch = None
+    if engine is None and (group is None or not group.flat):
+        engine = _engine
+    if engine is None or not engine.enabled:
+        return None
+    if group is None or not group.local:
+        _assert_initialized()
+    g = group if group is not None else cdb.world_group
+    hit = engine.dispatch(op_name, tensor, g, reduce_op=op, axis=axis,
+                          **route)
+    if hit is None:
+        return None
+    result, variant, wire = hit
+    _last_dispatch = (variant, wire)
+    return result
+
+
 @timed_op
 def all_reduce(tensor, op=ReduceOp.SUM, group=None, async_op=False):
     """The reduction over the ranks, in place on every rank; returns it (or,
     with ``async_op``, its handle)."""
+    hit = _dispatch("all_reduce", tensor, op=op, group=group,
+                    async_op=async_op)
+    if hit is not None:
+        return hit
     return _backend(group).all_reduce(tensor, op=op, group=group,
                                       async_op=async_op)
 
@@ -313,6 +372,10 @@ def all_reduce(tensor, op=ReduceOp.SUM, group=None, async_op=False):
 def all_gather(tensor, group=None, axis=0, tiled=True, async_op=False):
     """The ranks' blocks concatenated along ``axis`` (stacked on a new dim
     0 when ``tiled=False``)."""
+    if tiled:
+        hit = _dispatch("all_gather", tensor, group=group, axis=axis)
+        if hit is not None:
+            return hit
     return _backend(group).all_gather(tensor, group=group, axis=axis,
                                       tiled=tiled)
 
@@ -324,6 +387,9 @@ all_gather_into_tensor = all_gather
 def reduce_scatter(tensor, op=ReduceOp.SUM, group=None, axis=0,
                    async_op=False):
     """Block r (along ``axis``) of the reduction of the ranks' tensors."""
+    hit = _dispatch("reduce_scatter", tensor, op=op, group=group, axis=axis)
+    if hit is not None:
+        return hit
     return _backend(group).reduce_scatter(tensor, op=op, group=group,
                                           axis=axis)
 
@@ -366,6 +432,9 @@ def monitored_barrier(group=None, timeout=None, wait_all_ranks=False):
 @timed_op
 def reduce(tensor, dst=0, op=ReduceOp.SUM, group=None, async_op=False):
     """As in the JAX facade, the reduced value lands on every rank."""
+    hit = _dispatch("all_reduce", tensor, op=op, group=group)
+    if hit is not None:
+        return hit
     return _backend(group).all_reduce(tensor, op=op, group=group)
 
 
@@ -373,6 +442,9 @@ def reduce(tensor, dst=0, op=ReduceOp.SUM, group=None, async_op=False):
 def gather(tensor, gather_list=None, dst=0, group=None, axis=0,
            async_op=False):
     """As in the JAX facade, the gathered value lands on every rank."""
+    hit = _dispatch("all_gather", tensor, group=group, axis=axis)
+    if hit is not None:
+        return hit
     return _backend(group).all_gather(tensor, group=group, axis=axis)
 
 
@@ -390,23 +462,38 @@ def all_reduce_coalesced(tensors, op=ReduceOp.SUM, group=None,
 
 @timed_op
 def allgather_fn(output_tensor, input_tensor, group=None, async_op=False,
-                 debug=None):
-    """Flat all-gather of ``input_tensor`` into ``output_tensor`` (torch's
-    ``all_gather_into_tensor`` argument order); ``input_tensor`` may be
-    ``output_tensor``'s own block, gathered in place.  Returns the output
-    (or, with ``async_op``, its handle)."""
+                 debug=None, engine=None, wire_format=None):
+    """All-gather of ``input_tensor`` into the flat ``output_tensor``
+    (torch's ``all_gather_into_tensor`` argument order); ``input_tensor``
+    may be ``output_tensor``'s own block, gathered in place.  Returns the
+    output (or, with ``async_op``, its handle).  ``engine`` and
+    ``wire_format``: the collectives engine and the quantized wire ZeRO++
+    asks for (``runtime/zero/zeropp.py``)."""
+    hit = _dispatch("all_gather", input_tensor, group=group, engine=engine,
+                    out=output_tensor.reshape(-1), async_op=async_op,
+                    wire_format=wire_format)
+    if hit is not None:
+        return hit
     return _backend(group).all_gather_into(output_tensor, input_tensor,
                                            group=group, async_op=async_op)
 
 
 @timed_op
 def reduce_scatter_fn(output_tensor, input_tensor, op=ReduceOp.SUM,
-                      group=None, async_op=False, debug=None):
-    """Flat reduce-scatter of ``input_tensor`` into ``output_tensor`` (rank
-    r's block of the reduction).  Returns the output (or, with
-    ``async_op``, its handle)."""
-    return _backend(group).reduce_scatter(input_tensor.reshape(-1), op=op,
-                                          group=group, out=output_tensor,
+                      group=None, async_op=False, debug=None, engine=None,
+                      wire_format=None, hierarchy=None):
+    """Reduce-scatter of ``input_tensor`` into ``output_tensor`` (rank r's
+    block of the reduction).  Returns the output (or, with ``async_op``,
+    its handle).  ``engine``, ``wire_format`` and ``hierarchy``: ZeRO++'s
+    collectives engine, quantized wire and 2-hop groups."""
+    flat = input_tensor.reshape(-1)
+    hit = _dispatch("reduce_scatter", flat, op=op, group=group,
+                    engine=engine, out=output_tensor, async_op=async_op,
+                    wire_format=wire_format, hierarchy=hierarchy)
+    if hit is not None:
+        return hit
+    return _backend(group).reduce_scatter(flat, op=op, group=group,
+                                          out=output_tensor,
                                           async_op=async_op)
 
 
@@ -502,6 +589,6 @@ def destroy_process_group():
     global cdb
     from ..utils import groups
     cdb = None
-    groups.reset_mesh()
+    groups.reset_mesh()   # the hierarchy subgroups go with it
     if dist.is_initialized():
         dist.destroy_process_group()

@@ -105,6 +105,17 @@ def dequantize_blockwise_plain(q, scales, meta):
     return out.reshape(-1)[:n].reshape(shape).to(dtype)
 
 
+def _into(out, value):
+    """``value`` written into ``out`` when given (its shape and dtype),
+    else ``value``."""
+    if out is None:
+        return value
+    if tuple(out.shape) != tuple(value.shape) or out.dtype != value.dtype:
+        raise ValueError(f"out is {tuple(out.shape)} {out.dtype}, the "
+                         f"result {tuple(value.shape)} {value.dtype}")
+    return out.copy_(value)
+
+
 def _launch_quantize(x, num_bits, group_size):
     """One launch on :func:`quantize_route`'s route; returns (q, scales,
     meta, the route, or None where an empty tensor launched nothing)."""
@@ -162,9 +173,11 @@ quantize_blockwise.launches = 0
 quantize_blockwise.route_launches = dict.fromkeys(ROUTES, 0)
 
 
-def dequantize_blockwise(q, scales, meta):
+def dequantize_blockwise(q, scales, meta, out=None):
     """Inverse of :func:`quantize_blockwise`: the original shape and dtype,
-    each value ``float(q) · scale`` rounded once."""
+    each value ``float(q) · scale`` rounded once.  ``out``: a contiguous
+    tensor of that shape and dtype to write (the kernel writes it in
+    place)."""
     shape, dtype, groups = meta
     if q.dim() != 2 or q.dtype != torch.int8 or q.shape[0] < groups or \
             tuple(scales.shape) != (q.shape[0], ):
@@ -172,7 +185,7 @@ def dequantize_blockwise(q, scales, meta):
                          f"got {tuple(q.shape)} {q.dtype} and "
                          f"{tuple(scales.shape)}")
     if q.device.type == "cpu":
-        return dequantize_blockwise_plain(q, scales, meta)
+        return _into(out, dequantize_blockwise_plain(q, scales, meta))
     if q.device.type != "cuda" or scales.device != q.device:
         raise ValueError(f"dequantize_blockwise runs on cpu or cuda, got q "
                          f"on {q.device} and scales on {scales.device}")
@@ -181,7 +194,13 @@ def dequantize_blockwise(q, scales, meta):
                         f"fp32 scales, got {dtype} and {scales.dtype}")
     if not (q.is_contiguous() and scales.is_contiguous()):
         raise ValueError("q and scales must be contiguous")
-    out = torch.empty(shape, dtype=dtype, device=q.device)
+    if out is None:
+        out = torch.empty(shape, dtype=dtype, device=q.device)
+    elif (tuple(out.shape) != tuple(shape) or out.dtype != dtype
+          or out.device != q.device or not out.is_contiguous()):
+        raise ValueError(f"out must be contiguous {tuple(shape)} {dtype} on "
+                         f"{q.device}, got {tuple(out.shape)} {out.dtype} "
+                         f"on {out.device}")
     n = out.numel()
     if n > q.numel():
         raise ValueError(f"q holds {q.numel()} values, meta wants {n}")

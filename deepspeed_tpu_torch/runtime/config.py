@@ -9,8 +9,10 @@ dynamic loss scaling), ``optimizer``, ``scheduler``,
 ``runtime/zero/config.py``), ``steps_per_print``,
 ``data_types.grad_accum_dtype``, ``resilience.check_finite_grads``,
 ``resilience.checkpoint_integrity``, ``checkpoint`` (``load_universal``,
-``use_node_local_storage``), ``comms_logger``, ``wall_clock_breakdown``,
-``mesh.dp``, ``sequence_length`` and ``seed``.
+``use_node_local_storage``), ``comms_logger``, ``comm_optimizations``
+(the collectives engine, its wire ladder, ``zero_mode`` and the
+``overlap``/``prefetch`` schedulers, with JAX's validation),
+``wall_clock_breakdown``, ``mesh.dp``, ``sequence_length`` and ``seed``.
 
 A key that turns on a feature this port does not have yet raises
 ``NotImplementedError`` naming its ROADMAP queue-A item
@@ -21,7 +23,9 @@ feature without turning it on (bucket sizes) parse.
 import hashlib
 import json
 import os
+from dataclasses import field
 
+from ..utils.logging import logger
 from ..utils.not_ported import not_ported
 from .config_utils import DeepSpeedConfigModel
 from .zero.config import DeepSpeedZeroConfig
@@ -40,11 +44,9 @@ PORTED_OPTIMIZERS = ADAM_OPTIMIZERS + (LAMB_OPTIMIZER, FUSED_LAMB_OPTIMIZER,
 _UNPORTED_OPTIMIZERS = {"muon": 11, "adagrad": 11, "onebitadam": 7,
                         "zerooneadam": 7, "onebitlamb": 7}
 GRAD_ACCUM_DTYPES = (None, "fp32", "bf16", "fp16")
-# buckets in flight of the gradient overlap and of the gather prefetch (the
-# JAX package's ``comm_optimizations.overlap[.prefetch].max_inflight``
-# default, which the port has no block to set)
-MAX_INFLIGHT = 2
 MB = 1 << 20
+# comm_optimizations.zero_mode: the JAX package's two qgZ micro-steps
+ZERO_MODES = ("gspmd", "flat_manual")
 
 
 class DeepSpeedConfigError(Exception):
@@ -136,6 +138,80 @@ class CommsConfig(DeepSpeedConfigModel):
         return self.comms_logger.enabled
 
 
+class PrefetchConfig(DeepSpeedConfigModel):
+    """``comm_optimizations.overlap.prefetch`` (``config.py:83``): stage
+    3's forward gather prefetch, its own gate.  ``bucket_mb`` 0: the
+    overlap block's ``bucket_mb``; an explicit
+    ``stage3_prefetch_bucket_size`` arms it when this block does not say."""
+    enabled: bool = False
+    bucket_mb: float = 0.0
+    max_inflight: int = 2
+
+
+class OverlapConfig(DeepSpeedConfigModel):
+    """``comm_optimizations.overlap`` (``config.py:102``): the bucketed
+    gradient reduce.  ``max_inflight`` bounds the reduce-scatters in
+    flight; the port's reduce bucket is a unit of the plan (a block), so
+    ``bucket_mb`` is the prefetch's default bucket."""
+    enabled: bool = False
+    bucket_mb: float = 32.0
+    max_inflight: int = 2
+    prefetch: PrefetchConfig = field(default_factory=PrefetchConfig)
+
+
+class CommOptimizationsConfig(DeepSpeedConfigModel):
+    """``comm_optimizations`` (``config.py:124``): the collectives engine
+    (``comm/collectives``).  Disabled (the default) every collective is
+    flat; enabled, the facade's collectives dispatch to the hierarchical
+    and quantized variants, and ZeRO's gathers (``quantized_weights``)
+    and reduce-scatters (``quantized_gradients``) take the quantized
+    wire."""
+    enabled: bool = False
+    hierarchical_allreduce: bool = True
+    quantized_weights: bool = False
+    quantized_gradients: bool = False
+    wire_dtype: str = "int8"
+    wire_dtype_by_size: list = None
+    quantization_group_size: int = 2048
+    intra_node_size: int = 0
+    min_message_size: int = 0
+    zero_mode: str = "gspmd"
+    overlap: OverlapConfig = field(default_factory=OverlapConfig)
+
+
+def _check_comm_optimizations(co):
+    """The JAX model's bounds and validators (``config.py:140-178``,
+    ``:557-571``)."""
+    from ..comm.collectives import WIRE_FORMATS, build_wire_ladder
+    if co.wire_dtype not in WIRE_FORMATS:
+        raise DeepSpeedConfigError(
+            f"comm_optimizations.wire_dtype {co.wire_dtype!r} unknown "
+            f"(have {', '.join(WIRE_FORMATS)})")
+    try:
+        build_wire_ladder(co.wire_dtype_by_size)
+    except ValueError as e:
+        raise DeepSpeedConfigError(
+            f"comm_optimizations.wire_dtype_by_size invalid: {e}") from e
+    if co.zero_mode not in ZERO_MODES:
+        raise DeepSpeedConfigError(
+            f"comm_optimizations.zero_mode {co.zero_mode!r} unknown (have "
+            f"{', '.join(ZERO_MODES)})")
+    for key, low in (("quantization_group_size", 128),
+                     ("intra_node_size", 0), ("min_message_size", 0)):
+        if getattr(co, key) < low:
+            raise DeepSpeedConfigError(
+                f"comm_optimizations.{key} must be >= {low}")
+    ov = co.overlap
+    if not ov.bucket_mb > 0 or ov.max_inflight < 1:
+        raise DeepSpeedConfigError(
+            "comm_optimizations.overlap: bucket_mb > 0 and max_inflight "
+            ">= 1")
+    if ov.prefetch.bucket_mb < 0 or ov.prefetch.max_inflight < 1:
+        raise DeepSpeedConfigError(
+            "comm_optimizations.overlap.prefetch: bucket_mb >= 0 and "
+            "max_inflight >= 1")
+
+
 def _on(section, *keys):
     """True when ``section`` (a dict or None) has any of ``keys`` set to a
     true value other than "none"."""
@@ -185,16 +261,6 @@ def _mesh_dims(pd):
 
 # (what, queue-A item, predicate on the raw config dict)
 _UNPORTED = (
-    ("ZeRO++ (zero_quantized_weights/gradients, hpZ, MiCS)", 7,
-     lambda pd: _on(pd.get("zero_optimization"), "zero_quantized_weights",
-                    "zero_quantized_gradients") or
-     (pd.get("zero_optimization") or {}).get("zero_hpz_partition_size", 1)
-     > 1 or (pd.get("zero_optimization") or {}).get("mics_shard_size", -1)
-     > 1),
-    ("comm_optimizations", 7,
-     lambda pd: _on(pd.get("comm_optimizations"), "enabled",
-                    "quantized_weights", "quantized_gradients") or
-     _on((pd.get("comm_optimizations") or {}).get("overlap"), "enabled")),
     ("a device mesh beyond one data-parallel rank (mesh, tensor_parallel, "
      "sequence_parallel_size)", 9, lambda pd: bool(_mesh_dims(pd))),
     ("pipeline parallelism", 9,
@@ -250,6 +316,18 @@ class DeepSpeedConfig:
         self._initialize_params(self._param_dict)
 
     def _initialize_params(self, pd):
+        zo = pd.get("zero_optimization") or {}
+        co = pd.get("comm_optimizations") or {}
+        qgz = bool(zo.get("zero_quantized_gradients")) or bool(
+            co.get("enabled") and co.get("quantized_gradients"))
+        if qgz and (pd.get("sequence_parallel_size", 1) not in (None, 1) or
+                    _mesh_dims(pd).get("sp") not in (None, 1) or
+                    _mesh_dims(pd).get("pp") not in (None, 1) or
+                    (pd.get("pipeline") or {}).get("stages", "auto")
+                    not in ("auto", 1)):
+            # the JAX engine's refusal (zeropp.py build_manual_dp_micro)
+            from .zero.zeropp import QGZ_SP_PP
+            raise ValueError(QGZ_SP_PP)
         for what, item, turned_on in _UNPORTED:
             if turned_on(pd):
                 raise not_ported(f"config: {what}", item)
@@ -279,6 +357,9 @@ class DeepSpeedConfig:
         self.zero_enabled = self.zero_optimization_stage > 0
         self.comms_config = CommsConfig(
             comms_logger=pd.get("comms_logger") or {})
+        self.comm_optimizations_config = CommOptimizationsConfig(
+            **(pd.get("comm_optimizations") or {}))
+        _check_comm_optimizations(self.comm_optimizations_config)
         self.wall_clock_breakdown = bool(pd.get("wall_clock_breakdown",
                                                 False))
         self.mesh_dp = (pd.get("mesh") or {}).get("dp")
@@ -348,23 +429,45 @@ class DeepSpeedConfig:
                 f"bf16, fp16)")
 
     def _zero_schedulers(self, pd):
-        """The JAX package's arming rules (``config.py:572-600``):
-        ``overlap_comm`` arms the bucketed gradient reduce (stages 2-3
-        here), and an EXPLICIT ``stage3_prefetch_bucket_size`` > 0 arms
-        the forward gather prefetch at stage 3.  That knob is an element
-        count, turned into bytes by the compute dtype's item size (its
-        default must not size buckets)."""
+        """The JAX package's arming rules (``config.py:572-600``): the
+        ``comm_optimizations.overlap`` block, or ``overlap_comm`` when the
+        block does not say, arms the bucketed gradient reduce (stages 2-3
+        here); the ``overlap.prefetch`` block, or an EXPLICIT
+        ``stage3_prefetch_bucket_size`` > 0 when the block does not say,
+        arms the forward gather prefetch at stage 3.  That knob is an
+        element count, turned into bytes by the compute dtype's item size
+        (its default must not size buckets).  ``overlap.max_inflight`` and
+        ``prefetch.max_inflight`` bound each scheduler's window."""
         zc = self.zero_config
+        ov = self.comm_optimizations_config.overlap
+        ov_user = (pd.get("comm_optimizations") or {}).get("overlap") or {}
+        if "enabled" in ov_user:
+            zc.overlap_comm = bool(ov.enabled)
+        else:
+            ov.enabled = bool(zc.overlap_comm)
         self.overlap_comm_enabled = bool(zc.overlap_comm) and zc.stage >= 2
+        self.overlap_max_inflight = int(ov.max_inflight)
+        pf, pf_user = ov.prefetch, ov_user.get("prefetch") or {}
         zo = pd.get("zero_optimization") or {}
         explicit = ("stage3_prefetch_bucket_size" in zo
                     or "prefetch_bucket_size" in zo)
-        self.prefetch_enabled = (explicit and zc.stage >= 3
-                                 and zc.prefetch_bucket_size > 0)
         itemsize = 2 if (self.fp16_enabled or self.bfloat16_enabled) else 4
-        self.prefetch_bucket_mb = (zc.prefetch_bucket_size * itemsize /
-                                   float(MB) if self.prefetch_enabled
+        if "enabled" in pf_user:
+            if explicit and zc.stage >= 3:
+                logger.warning(
+                    "zero_optimization.stage3_prefetch_bucket_size is "
+                    "overridden by the explicit comm_optimizations.overlap."
+                    "prefetch block (prefetch stays %s)",
+                    "enabled" if pf.enabled else "disabled")
+            bucket_mb = pf.bucket_mb or ov.bucket_mb
+        else:
+            pf.enabled = explicit and zc.prefetch_bucket_size > 0
+            bucket_mb = (pf.bucket_mb if "bucket_mb" in pf_user else
+                         zc.prefetch_bucket_size * itemsize / float(MB))
+        self.prefetch_enabled = bool(pf.enabled) and zc.stage >= 3
+        self.prefetch_bucket_mb = (float(bucket_mb) if self.prefetch_enabled
                                    else 0.0)
+        self.prefetch_max_inflight = int(pf.max_inflight)
 
     def config_hash(self):
         """Content hash of the user config (``config.py:766-773``, the same

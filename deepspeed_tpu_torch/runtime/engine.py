@@ -57,6 +57,12 @@ group (:meth:`DeepSpeedEngine._init_comm`):
 * Checkpoints (``runtime/checkpoint_engine.py``): every rank writes its
   shard in upstream DeepSpeed's per-rank files and loads at any world size
   and stage; the JAX package's manifest, rollback and async commit.
+* ZeRO++ and MiCS (``runtime/zero/zeropp.py``): qwZ gathers and qgZ
+  reduce-scatters on quantized wires (B5, B6), the 2-hop reduce where a
+  hierarchy exists, hpZ's parameters sharded over the ``zp`` group and
+  MiCS's state over the shard group; one ``ZeroComm`` chooses each
+  collective's group and wire, and the collectives engine it holds counts
+  each pick (``zeropp_dispatch_counts``).
 * Offload (``runtime/offload.py``): ``offload_optimizer`` cpu keeps the
   fp32 master and moments in pinned host memory, which the optimizer
   kernels update in place; nvme keeps them in files between steps, with
@@ -95,7 +101,7 @@ from ..utils.timer import (BACKWARD_GLOBAL_TIMER, FORWARD_GLOBAL_TIMER,
                            SynchronizedWallClockTimer)
 from .config import (ADAM_OPTIMIZERS, ADAMW_OPTIMIZER, FUSED_ADAM_OPTIMIZER,
                      FUSED_LAMB_OPTIMIZER, LAMB_OPTIMIZER, LION_OPTIMIZER,
-                     MAX_INFLIGHT, SGD_OPTIMIZER, DeepSpeedConfig)
+                     SGD_OPTIMIZER, DeepSpeedConfig)
 from .loss_scaler import create_loss_scaler, has_overflow
 from .lr_schedules import get_lr_scheduler
 from .offload import OffloadMixin
@@ -105,6 +111,7 @@ from .zero.overlap import (MB, Unit, ZeroCoordinator, block_modules,
                            gather_items)
 from .zero.partition import (ALIGN as _ALIGN, BLOCK, OUTER, PERSISTENT,
                              ZeroPartitionPlan, min_partition_size)
+from .zero.zeropp import ZeroComm, check_shard_sizes
 
 # _ALIGN (16 elements): every leaf starts 64-byte aligned in fp32 buffers
 _ACCUM_DTYPES = {None: torch.float32, "fp32": torch.float32,
@@ -266,6 +273,8 @@ class DeepSpeedEngine(OffloadMixin):
         self._last_gnorm = None
         self._last_skipped = False
         self.last_checkpoint = None   # the last save's handle (its stats())
+        if config.zero_config.offload_optimizer_device != "none":
+            self._refuse_shard_groups("offload_optimizer")
         self._configure_offload()
         if model_parameters is not None or not any(
                 p.is_meta for p in model.parameters()):
@@ -298,22 +307,45 @@ class DeepSpeedEngine(OffloadMixin):
                                  "1 (sequence parallelism)", 9)
             dp_want.append(dp)
         backend = "nccl" if self.device.type == "cuda" else "gloo"
+        zp = check_shard_sizes(self._config.zero_config)
         if (dist_init_required is None and dist.env_world_size() == 1
                 and not dist.world_is_up(backend)):
             dist.configure(config=self._config)
             self.dp_world_size, self.dp_rank = 1, 0
+            if zp is not None:
+                raise ValueError(
+                    f"zero_partition_size={zp} must divide dp=1")
             self._dp_group = dist.ProcessGroup(groups.dp_axes(), local=True)
         else:
+            premade = groups.mesh_is_initialized() and \
+                groups.get_mesh_state().user_built
             dist.init_distributed(
                 dist_backend=backend, distributed_port=distributed_port,
                 dist_init_required=dist_init_required, config=self._config)
+            have = groups.get_mesh_state().zero_partition_size
+            if zp is not None and have != zp:
+                if premade:
+                    # a pre-built mesh without the matching factoring would
+                    # silently drop hpZ/MiCS (JAX engine.py:230-238)
+                    raise ValueError(
+                        f"config requests zero partition groups of {zp} but "
+                        f"the mesh was pre-initialized with "
+                        f"zero_partition_size={have}; pass "
+                        "zero_partition_size to groups.initialize_mesh()")
+                groups.initialize_mesh(zero_partition_size=zp,
+                                       user_built=False)
+                dist.configure(config=self._config)
             self.dp_world_size = groups._get_data_parallel_world_size()
             self.dp_rank = groups._get_data_parallel_rank()
-            self._dp_group = groups._get_data_parallel_group()
+            # the engine's own collectives take the wires its plan chooses
+            self._dp_group = groups._get_data_parallel_group().as_flat()
         for want in dp_want:
             if want not in (None, -1) and want != self.dp_world_size:
                 raise ValueError(f"mesh dp={want} but the world has "
                                  f"{self.dp_world_size} ranks")
+        self._zcomm = ZeroComm(self._config, self._config.zero_config.stage,
+                               self._dp_group)
+        self._shard_group = self._zcomm.shard_group
 
     def _tie(self):
         """Let the module share what it shares (``tie_weights``: a tied LM
@@ -376,17 +408,17 @@ class DeepSpeedEngine(OffloadMixin):
             local.append(flat_layout(leaves))
         zc = self._config.zero_config
         cfg = self._config
-        plan = ZeroPartitionPlan(
-            self.zero_stage, self.dp_world_size, self.dp_rank, None, zc,
-            units=[(kind, n) for (kind, _, _), (_, n) in zip(spec, local)],
+        plan = self._new_plan(
+            None, units=[(kind, n) for (kind, _, _), (_, n) in
+                         zip(spec, local)],
             schedule=dict(
                 min_partition_size=(min_partition_size(zc)
                                     if self.zero_stage == 3 else 1),
                 overlap_enabled=cfg.overlap_comm_enabled,
-                overlap_max_inflight=MAX_INFLIGHT,
+                overlap_max_inflight=cfg.overlap_max_inflight,
                 prefetch_enabled=cfg.prefetch_enabled,
                 prefetch_bucket_mb=cfg.prefetch_bucket_mb,
-                prefetch_max_inflight=MAX_INFLIGHT))
+                prefetch_max_inflight=cfg.prefetch_max_inflight))
         layout, units = [], []
         for u, ((kind, module, _), (leaves, _)) in enumerate(zip(spec,
                                                                   local)):
@@ -395,6 +427,22 @@ class DeepSpeedEngine(OffloadMixin):
                        for name, off, n, shape in leaves]
             units.append(Unit(u, kind, module, leaves))
         return plan, layout, units
+
+    def _new_plan(self, numel, **kw):
+        """The ZeRO plan over the shard group (the world; MiCS: the rank's
+        shard group), with hpZ's parameter partition and the wires of
+        ``comm_optimizations``."""
+        zc, zcomm = self._config.zero_config, self._zcomm
+        world, rank = self.dp_world_size, self.dp_rank
+        if zcomm.mics:
+            world, rank = self._shard_group.size(), self._shard_group.rank()
+        plan = ZeroPartitionPlan(
+            self.zero_stage, world, rank, numel, zc,
+            param_world=(zcomm.param_group.size() if zcomm.hpz else None),
+            comm_opts=self._config.comm_optimizations_config,
+            mics=zcomm.mics, **kw)
+        zcomm.bind(plan)
+        return plan
 
     def _install_parameters(self, model_parameters=None):
         """Lay every trainable leaf out in flat buffers of the compute
@@ -409,8 +457,7 @@ class DeepSpeedEngine(OffloadMixin):
             plan, layout, units = self._plan_units(named)
         else:
             layout, off = flat_layout((n, p.shape) for n, p in named)
-            plan = ZeroPartitionPlan(self.zero_stage, self.dp_world_size,
-                                     self.dp_rank, off, zc)
+            plan = self._new_plan(off)
         self._layout = layout
         self.zero_plan = plan
         source = (dict(model_parameters) if model_parameters is not None
@@ -423,12 +470,14 @@ class DeepSpeedEngine(OffloadMixin):
         mixed = self.compute_dtype != torch.float32
         whole = self.zero_stage < 3
         S = plan.shard_numel
-        self.params = torch.zeros(plan.padded_numel if whole else S,
+        # stage 3: the parameter shard (hpZ: the secondary slices)
+        self.params = torch.zeros(plan.padded_numel if whole
+                                  else plan.param_numel,
                                   dtype=self.compute_dtype,
                                   device=self.device)
         self._pshard = (torch.zeros(S, dtype=self.compute_dtype,
                                     device=self.device)
-                        if plan.bucketed and whole else None)
+                        if (plan.bucketed and whole) or plan.hpz else None)
         self.master = self._fp32_zeros(S) if mixed else None
         if zc.bucketed:
             self._make_coordinator(units)
@@ -455,27 +504,43 @@ class DeepSpeedEngine(OffloadMixin):
             if not whole:
                 self._fill_persistent(
                     lambda name, o, n: torch.as_tensor(source[name]))
+            if plan.hpz:
+                self._refresh_secondary()
         self._bind_module()
         self.grad_acc = None
         self._acc_fresh = True
 
     def _make_coordinator(self, units):
         if self._coord is not None:
-            self._coord.detach()
+            self._coord.close()
         cfg = self._config
         prefetch = None
         if cfg.prefetch_enabled:
             prefetch = dict(
                 bucket_bytes=max(1, int(cfg.prefetch_bucket_mb * MB)),
-                max_inflight=MAX_INFLIGHT,
+                max_inflight=cfg.prefetch_max_inflight,
                 max_live_params=int(cfg.zero_config.max_live_parameters
                                     or 0))
+        stage3 = self.zero_stage == 3
         self._coord = ZeroCoordinator(
-            self.zero_plan, units, self._dp_group, self.device,
+            self.zero_plan, units, self._zcomm, self.device,
             self.compute_dtype, self.grad_accum_dtype,
-            shard=self.params if self.zero_stage == 3 else None,
-            overlap=cfg.overlap_comm_enabled, max_inflight=MAX_INFLIGHT,
-            prefetch=prefetch)
+            shard=self.params if stage3 else None,
+            overlap=cfg.overlap_comm_enabled,
+            max_inflight=cfg.overlap_max_inflight, prefetch=prefetch,
+            primary=self._pshard if stage3 else None)
+
+    def _refresh_secondary(self):
+        """hpZ: every sharded unit's updated world slices into the
+        secondary slices (over the ``zp_outer`` group)."""
+        plan = self.zero_plan
+        for u in self._coord.units:
+            if u.kind == PERSISTENT:
+                continue
+            lo, hi = plan.param_slice(u.index)
+            a, b = plan.shard_slice(u.index)
+            self._zcomm.refresh_secondary(self.params[lo:hi],
+                                          self._pshard[a:b])
 
     def _fill_persistent(self, value):
         """Stage 3: the persistent unit's buffer from ``value(name, flat
@@ -531,6 +596,8 @@ class DeepSpeedEngine(OffloadMixin):
                 if self.zero_stage == 3:
                     self._fill_persistent(lambda _, o, n: full[o:o + n])
                     self._coord.release_all()
+                if plan.hpz:
+                    self._refresh_secondary()
             del full
             self._bind_module()
         if self.opt_state is None:
@@ -572,7 +639,7 @@ class DeepSpeedEngine(OffloadMixin):
             self._target(), [(o, n) for o, n, _ in
                              self.zero_plan.leaf_pieces(self._layout)],
             device=self.device, pin=self._pin_state)
-        if self.zero_plan.sharded and self.dp_world_size > 1 and \
+        if self.zero_plan.sharded and self.zero_plan.world_size > 1 and \
                 isinstance(self._transform, FusedLambTransform):
             self._sum_lamb_leaves_over_ranks()
         if self._pending_client_lr is not None:
@@ -594,17 +661,18 @@ class DeepSpeedEngine(OffloadMixin):
         leaves = torch.zeros(len(self._layout), 2, dtype=torch.float32,
                              device=self.device)
         leaves[self._piece_leaf] = piece_sums.to(self.device)
-        dist.all_reduce(leaves, group=self._dp_group)
+        dist.all_reduce(leaves, group=self._shard_group)
         return leaves[self._piece_leaf]
 
     def _param_shard(self):
         """This rank's compute-dtype shard, which the update writes: a
         slice of the whole buffer with one unit, the shard buffer of
-        bucketed stage 2, the parameters themselves at stage 3."""
-        if self.zero_stage == 3:
-            return self.params
+        bucketed stage 2 and of hpZ, the parameters themselves at stage
+        3."""
         if self._pshard is not None:
             return self._pshard
+        if self.zero_stage == 3:
+            return self.params
         lo, hi = self.zero_plan.shard_range()
         return self.params[lo:hi]
 
@@ -706,14 +774,14 @@ class DeepSpeedEngine(OffloadMixin):
         must call this together)."""
         if self.zero_stage < 3:
             return self.params
-        return self._gather_shard(self.params)
+        return self._gather_shard(self._param_shard())
 
     def _gather_shard(self, shard):
         plan = self.zero_plan
         shard = shard.to(self.device)     # an offloaded master
         out = torch.empty(plan.world_size * plan.shard_numel,
                           dtype=shard.dtype, device=self.device)
-        dist.allgather_fn(out, shard, group=self._dp_group)
+        self._zcomm.gather_shard(out, shard)
         return out if plan.n_units == 1 else plan.assemble(out)
 
     def get_fp32_param(self, name):
@@ -862,7 +930,7 @@ class DeepSpeedEngine(OffloadMixin):
         self._fold(full, fresh=True)
         shard = torch.empty(self.zero_plan.shard_numel,
                             dtype=self.grad_accum_dtype, device=self.device)
-        dist.reduce_scatter_fn(shard, full, group=self._dp_group)
+        self._zcomm.reduce_scatter(shard, full)
         del full
         if self._acc_fresh or self.grad_acc is None:
             self.grad_acc = shard
@@ -915,7 +983,7 @@ class DeepSpeedEngine(OffloadMixin):
         inv = np.float32(1.0) / np.float32(self.scale_state.scale)
         if world > 1 and not self._global_loss:
             inv = inv * np.float32(1.0 / world)
-        if self.zero_plan.sharded and world > 1:
+        if self.zero_plan.sharded and self.zero_plan.world_size > 1:
             gnorm = self._sharded_norm(grads)
         else:
             # every rank holds the whole summed gradient
@@ -971,15 +1039,16 @@ class DeepSpeedEngine(OffloadMixin):
         if self.zero_stage == 3:
             self._coord.release_all()
             self._coord.refresh_persistent()
+            if plan.hpz:
+                self._refresh_secondary()
         elif plan.n_units == 1:
-            dist.allgather_fn(self.params, self._param_shard(),
-                              group=self._dp_group)
+            self._zcomm.gather_shard(self.params, self._param_shard())
         else:
             for u in range(plan.n_units):
                 lo, hi = plan.unit_range(u)
                 a, b = plan.shard_slice(u)
-                dist.allgather_fn(self.params[lo:hi], self._pshard[a:b],
-                                  group=self._dp_group)
+                self._zcomm.gather_shard(self.params[lo:hi],
+                                         self._pshard[a:b])
 
     def _reduced_grads(self):
         """The summed gradient this rank updates with: the accumulator, its
@@ -991,7 +1060,7 @@ class DeepSpeedEngine(OffloadMixin):
             full = grads if grads.dtype == torch.float32 else grads.float()
             shard = torch.empty(self.zero_plan.shard_numel,
                                 dtype=torch.float32, device=self.device)
-            return dist.reduce_scatter_fn(shard, full, group=self._dp_group)
+            return self._zcomm.reduce_scatter(shard, full)
         if self.zero_stage == 0 and self.dp_world_size > 1:
             return dist.all_reduce(grads, group=self._dp_group)
         return grads
@@ -1000,7 +1069,8 @@ class DeepSpeedEngine(OffloadMixin):
         """L2 norm over every rank's ``grads``: the all-reduced (SUM) sum
         of squares, then a square root (a leaf may straddle two shards)."""
         sq = torch.linalg.vector_norm(grads, dtype=torch.float32).square()
-        return dist.all_reduce(sq.reshape(1), group=self._dp_group)[0].sqrt()
+        return dist.all_reduce(sq.reshape(1),
+                               group=self._shard_group)[0].sqrt()
 
     def _spike_limit(self):
         """Grad-norm ceiling for the current step (``engine.py:1565``):
@@ -1093,6 +1163,7 @@ class DeepSpeedEngine(OffloadMixin):
         and at exit.  ``exclude_frozen_parameters``: the port trains every
         leaf, so there is none to exclude."""
         from .checkpoint_engine import save_engine_checkpoint
+        self._refuse_shard_groups("save_checkpoint")
         self._check_params()
         self.wait_for_checkpoint()   # one pending async save at a time
         with self._state_on_host(write_back=False):
@@ -1129,6 +1200,7 @@ class DeepSpeedEngine(OffloadMixin):
         dir, client_state)``, ``(None, {})`` when nothing was loaded.
         ``custom_load_fn(src=module state, dst=module)`` replaces the
         module's load (stages 0-2).  Every rank calls it."""
+        self._refuse_shard_groups("load_checkpoint")
         if custom_load_fn is not None and self.zero_stage == 3:
             raise ValueError("load_checkpoint(custom_load_fn=...) needs the "
                              "whole parameters: ZeRO stages 0-2")
@@ -1267,6 +1339,38 @@ class DeepSpeedEngine(OffloadMixin):
 
     def is_compiled(self):
         raise not_ported("engine.is_compiled", 4)
+
+    def zeropp_dispatch_counts(self):
+        """{"<op>/<variant>": picks} of the ZeRO++ collectives (qwZ
+        gathers, qgZ reduce-scatters); a decline is ``flat_fallback``."""
+        return self._zcomm.dispatch_counts
+
+    def _micro_variant(self):
+        """Which path the micro-step runs, in the JAX engine's names
+        (``engine.py:1336 _micro_variant``): ``qgZ_islands[+qwZ]`` or
+        ``qgZ_manual`` (``zero_mode: flat_manual``, hpZ, MiCS), else
+        ``overlap``, ``prefetch`` and ``qwZ`` joined by ``+``, or
+        ``flat``.  Both ``zero_mode`` values run the port's one path."""
+        qv = self._zcomm.micro_variant()
+        if qv is not None:
+            return qv
+        cfg, stage3 = self._config, self.zero_stage >= 3
+        parts = [name for name, on in (
+            ("overlap", cfg.comm_optimizations_config.overlap.enabled),
+            ("prefetch", cfg.prefetch_enabled and stage3),
+            ("qwZ", self._zcomm.qwz)) if on]
+        return "+".join(parts) if parts else "flat"
+
+    def _refuse_shard_groups(self, what):
+        if self._zcomm.hpz or self._zcomm.mics:
+            raise not_ported(f"{what} with hpZ or MiCS shard groups", "7a")
+
+    def __del__(self):
+        # the coordinator's hooks would keep it, and its shard, alive
+        # (ZeroCoordinator.close); no waiting: the world may be gone
+        coord = getattr(self, "_coord", None)
+        if coord is not None:
+            coord.close(wait=False)
 
     def empty_partition_cache(self):
         """Stage 3: release every gathered unit but the persistent one

@@ -29,8 +29,14 @@ the model, the outer unit of every other leaf, the persistent unit):
   micro-step, added after) and a block's buffer is released.  The end of
   ``backward`` reduces the units whose leaves got no gradient, as zeros;
 * ``overlap_comm`` issues each unit's reduce-scatter asynchronously, with
-  at most ``max_inflight`` outstanding; all are waited on before
-  ``backward`` returns;
+  at most ``max_inflight`` outstanding (``comm_optimizations.overlap``);
+  all are waited on before ``backward`` returns;
+* the collectives are the engine's :class:`~.zeropp.ZeroComm`'s: qwZ
+  gathers and qgZ reduce-scatters on a quantized wire, hpZ's gathers
+  over the ``zp`` group, MiCS's shard and replica groups.  A quantized
+  gather keeps its codes alive while the unit is in flight and
+  dequantizes into the buffer at the wait; remat's regather in backward
+  takes the same path;
 * an explicit ``stage3_prefetch_bucket_size`` groups the blocks into
   buckets in forward order (:func:`partition_prefetch_buckets`); when a
   bucket starts, the next ones are all-gathered asynchronously, so that at
@@ -48,7 +54,6 @@ import contextlib
 import numpy as np
 import torch
 
-from ... import comm as dist
 from .partition import BLOCK, OUTER, PERSISTENT
 
 MB = 1 << 20
@@ -181,21 +186,25 @@ class Unit:
 
 class ZeroCoordinator:
     """The gathers, releases and gradient reduce-scatters of the bucketed
-    plans (module docstring).  ``shard``: stage 3's compute-dtype shard,
-    which the units' buffers gather; None at stage 2 with
-    ``overlap_comm``, where only the gradients are bucketed.
-    ``prefetch``: {bucket_bytes, max_inflight, max_live_params}, or None."""
+    plans (module docstring).  ``comm``: the engine's ``ZeroComm``.
+    ``shard``: stage 3's compute-dtype parameter shard (in the plan's
+    ``param_slice`` layout), which the units' buffers gather; None at
+    stage 2 with ``overlap_comm``, where only the gradients are bucketed.
+    ``primary``: the world slices of the parameters (the persistent unit's
+    source; ``shard`` but under hpZ).  ``prefetch``: {bucket_bytes,
+    max_inflight, max_live_params}, or None."""
 
-    def __init__(self, plan, units, group, device, compute_dtype,
+    def __init__(self, plan, units, comm, device, compute_dtype,
                  accum_dtype, shard=None, overlap=False, max_inflight=2,
-                 prefetch=None):
+                 prefetch=None, primary=None):
         self.plan = plan
         self.units = units
-        self.group = group
+        self.comm = comm
         self.device = device
         self.compute_dtype = compute_dtype
         self.accum_dtype = accum_dtype
         self.shard = shard
+        self.primary = shard if primary is None else primary
         self.sharded_params = shard is not None
         self.overlap = overlap
         self.max_inflight = max(1, int(max_inflight))
@@ -208,6 +217,7 @@ class ZeroCoordinator:
         self.buckets, self.window, self._bucket_of = [], 1, {}
         self._issued = set()
         self._hooks = []
+        self._grad_hooks = []
         if self.sharded_params:
             for u in units:
                 u.buffer = torch.zeros(plan.unit_numel[u.index],
@@ -221,10 +231,35 @@ class ZeroCoordinator:
                 self._plan_prefetch(prefetch)
 
     def detach(self):
-        """Remove the module hooks (a new layout replaces this one)."""
-        for h in self._hooks:
+        """Remove the module hooks and the parameters' gradient hooks (a
+        new layout replaces this one, or the engine goes)."""
+        for h in self._hooks + self._grad_hooks:
             h.remove()
-        self._hooks = []
+        self._hooks, self._grad_hooks = [], []
+
+    def close(self, wait=True):
+        """Tear down: every collective in flight waited on (``wait``) and
+        dropped, every unit's buffer freed, the hooks removed, so that
+        nothing of this coordinator keeps device memory alive.  A
+        parameter's gradient hook is held by autograd's C++ side, which
+        Python's garbage collector does not see: left in place, it kept
+        this coordinator, and with it the stage-3 shard, alive after the
+        engine was collected (ROADMAP queue C3)."""
+        if wait:
+            for entry in self._pending:
+                self._finish(entry)
+        self._pending = []
+        for u in self.units:
+            if u.handle is not None and wait:
+                u.handle.wait()
+            u.handle = None
+            if u.buffer is not None:
+                u.buffer.untyped_storage().resize_(0)
+            u.buffer = u.scratch = None
+            u.state = RELEASED
+        self.detach()
+        self.shard = self.primary = self._acc = None
+        self.live_elems = 0
 
     # ---------------------------------------------------- gather / release
     def _plan_prefetch(self, prefetch):
@@ -250,11 +285,11 @@ class ZeroCoordinator:
         if unit.state == RELEASED:
             buf = unit.buffer
             buf.untyped_storage().resize_(buf.numel() * buf.element_size())
-            lo, hi = self.plan.shard_slice(unit.index)
+            lo, hi = self.plan.param_slice(unit.index)
             # buf.data: the write leaves the version of autograd's saved
             # views of the weights as it was (the values are the same)
-            unit.handle = dist.allgather_fn(buf.data, self.shard[lo:hi],
-                                            group=self.group, async_op=True)
+            unit.handle = self.comm.gather_params(
+                buf.data, self.shard[lo:hi], unit.index, async_op=True)
             unit.state = IN_FLIGHT
             self.live_elems += buf.numel()
             self.peak_live_elems = max(self.peak_live_elems,
@@ -314,8 +349,8 @@ class ZeroCoordinator:
         for u in self.units:
             if u.kind == PERSISTENT:
                 lo, hi = self.plan.shard_slice(u.index)
-                dist.allgather_fn(u.buffer.data, self.shard[lo:hi],
-                                  group=self.group)
+                self.comm.gather_shard(u.buffer.data,
+                                       self.primary[lo:hi])
 
     def _prefetch(self, unit):
         k = self._bucket_of.get(unit.index)
@@ -354,10 +389,13 @@ class ZeroCoordinator:
         ``named_params``: name → parameter."""
         where = {name: (u, off, n) for u in self.units
                  for name, off, n, _ in u.leaves}
+        for h in self._grad_hooks:      # the parameters this replaces
+            h.remove()
+        self._grad_hooks = []
         for name, p in named_params.items():
             u, off, n = where[name]
-            p.register_post_accumulate_grad_hook(
-                lambda p, u=u, off=off, n=n: self._on_grad(u, off, n, p))
+            self._grad_hooks.append(p.register_post_accumulate_grad_hook(
+                lambda p, u=u, off=off, n=n: self._on_grad(u, off, n, p)))
 
     def start_backward(self, acc, fresh):
         """Before a micro-step's backward: the shard accumulator and whether
@@ -393,10 +431,9 @@ class ZeroCoordinator:
         lo, hi = self.plan.shard_slice(unit.index)
         out = self._acc[lo:hi]
         tmp = None if self._fresh else torch.empty_like(out)
-        handle = dist.reduce_scatter_fn(out if tmp is None else tmp,
-                                        self._scratch(unit),
-                                        group=self.group,
-                                        async_op=self.overlap)
+        handle = self.comm.reduce_scatter(out if tmp is None else tmp,
+                                          self._scratch(unit),
+                                          async_op=self.overlap)
         self._pending.append((handle, unit.scratch, tmp, out))
         unit.scratch, unit.reduced = None, True
         if self.sharded_params and unit.kind == BLOCK:
@@ -408,7 +445,7 @@ class ZeroCoordinator:
     @staticmethod
     def _finish(entry):
         handle, _, tmp, out = entry
-        if not isinstance(handle, torch.Tensor):
+        if hasattr(handle, "wait"):
             handle.wait()
         if tmp is not None:
             out.add_(tmp)

@@ -27,6 +27,20 @@ partition their flat groups.  The layout is a sequence of *units*:
 
 The padding is zero in the parameters, the gradients and the moments, so
 neither the norm nor the update sees anything but zeros there.
+
+The plan is over the group the state is sharded over: the data-parallel
+world, or with MiCS (``mics_shard_size``) the rank's shard group of
+``zp`` consecutive ranks, replicated across the groups (JAX
+``partition.py:218-252``).  hpZ (``zero_hpz_partition_size``, stage 3
+only) keeps the master, the moments and the gradients sharded over the
+world and shards the compute-dtype parameters over ``zp`` alone: the
+rank at (outer o, inner i) holds, of each unit, the world slices of the
+ranks (o', i) for every o' in order (its *secondary* slice), which the
+updated slices reach over the ``zp_outer`` group after each step; a
+gather over the ``zp`` group then yields the unit with its slices in
+(i, o') order, put back in order by one copy (:meth:`param_slice`).
+``grad_wire``, ``param_wire`` and ``wire_for_size`` are JAX's
+``partition.py:294-330``: the wire each quantized ZeRO collective takes.
 """
 
 import torch
@@ -49,7 +63,8 @@ class ZeroPartitionPlan:
     :meth:`describe`."""
 
     def __init__(self, stage, world_size, rank, numel, zero_config=None,
-                 units=None, schedule=None):
+                 units=None, schedule=None, param_world=None,
+                 comm_opts=None, mics=False):
         if not 0 <= rank < world_size:
             raise ValueError(f"rank {rank} outside a world of {world_size}")
         self.stage = stage
@@ -57,6 +72,8 @@ class ZeroPartitionPlan:
         self.rank = rank
         self.zero_config = zero_config
         self.schedule = dict(schedule or {})
+        self.comm_opts = comm_opts
+        self.mics = bool(mics)
         quantum = world_size * ALIGN
         if units is None:
             units = [(OUTER, int(numel))]
@@ -77,6 +94,47 @@ class ZeroPartitionPlan:
         for n in self.slice_numel:
             self.shard_offset.append(off)
             off += n
+        # hpZ: the compute-dtype parameters over param_world ranks
+        pw = param_world or world_size
+        if stage != 3 or pw >= world_size or pw < 1:
+            pw = world_size
+        if world_size % pw:
+            raise ValueError(f"zero_hpz_partition_size={pw} must divide "
+                             f"the world of {world_size}")
+        self.param_world = pw
+        self.param_slice_numel = [n // pw if self.sharded else n
+                                  for n in self.unit_numel]
+        self.param_offset, off = [], 0
+        for n in self.param_slice_numel:
+            self.param_offset.append(off)
+            off += n
+        self.param_numel = off
+
+    @property
+    def hpz(self):
+        """Whether the parameters are sharded over fewer ranks than the
+        master (hpZ's secondary partition)."""
+        return self.param_world != self.world_size
+
+    @property
+    def hpz_outer(self):
+        """Ranks in a ``zp_outer`` group: world slices in a secondary
+        slice."""
+        return self.world_size // self.param_world
+
+    def param_slice(self, u):
+        """[lo, hi) of unit ``u``'s slice in this rank's compute-dtype
+        parameter shard (its secondary slice under hpZ)."""
+        return self.param_offset[u], self.param_offset[u] + \
+            self.param_slice_numel[u]
+
+    def secondary_view(self, unit_buf, u):
+        """``unit_buf`` (a whole unit) as [zp, n_outer, S]: the layout a
+        gather of the secondary slices over the ``zp`` group writes, seen
+        in flat order (``.transpose(0, 1)`` of a [n_outer, zp, S] view)."""
+        s = self.slice_numel[u]
+        return unit_buf.view(self.hpz_outer, self.param_world, s) \
+            .transpose(0, 1)
 
     @property
     def sharded(self):
@@ -205,6 +263,49 @@ class ZeroPartitionPlan:
         return torch.cat([per_rank[:, lo:hi].reshape(-1) for lo, hi in
                           map(self.shard_slice, range(self.n_units))])
 
+    # wire formats (JAX partition.py:294-330) -------------------------------
+    def _co_wire(self, flag):
+        co = self.comm_opts
+        if co is not None and getattr(co, "enabled", False) and \
+                getattr(co, flag, False):
+            return co.wire_dtype, co.quantization_group_size
+        return None
+
+    def grad_wire(self):
+        """(wire format, scale-group size) of the quantized gradient
+        reduce."""
+        from ...comm.collectives.quantized import DEFAULT_GROUP_SIZE
+        return self._co_wire("quantized_gradients") or \
+            ("int8", DEFAULT_GROUP_SIZE)
+
+    def param_wire(self, fallback_format="int8"):
+        """(wire format, scale-group size) of the quantized parameter
+        gather."""
+        from ...comm.collectives.quantized import DEFAULT_GROUP_SIZE
+        return self._co_wire("quantized_weights") or \
+            (fallback_format, DEFAULT_GROUP_SIZE)
+
+    def wire_for_size(self, default_fmt, nbytes):
+        """A message's wire through the ``wire_dtype_by_size`` ladder: the
+        first rung admitting ``nbytes`` logical bytes (``"fp32"``: the flat
+        collective), ``default_fmt`` without a ladder or above it."""
+        co = self.comm_opts
+        if co is None or not getattr(co, "enabled", False):
+            return default_fmt
+        from ...comm.collectives.engine import (build_wire_ladder,
+                                                resolve_in_ladder)
+        if not hasattr(self, "_wire_ladder"):
+            self._wire_ladder = build_wire_ladder(
+                getattr(co, "wire_dtype_by_size", None))
+        return resolve_in_ladder(self._wire_ladder, nbytes, default_fmt)
+
+    def hierarchical_reduce(self):
+        """Whether ``comm_optimizations`` asks the gradient reduce for the
+        2-hop scheme where the group has a hierarchy."""
+        co = self.comm_opts
+        return bool(co is not None and getattr(co, "enabled", False)
+                    and getattr(co, "hierarchical_allreduce", False))
+
     def units_of(self, kind):
         return [u for u, k in enumerate(self.unit_kinds) if k == kind]
 
@@ -222,7 +323,10 @@ class ZeroPartitionPlan:
         if self.stage == 3:
             blocks = len(self.units_of(BLOCK))
             gathers = len(self.units_of(OUTER)) + 2 * blocks
-            return {"allgather_fn": gas * gathers +
+            # hpZ: each sharded unit's updated slices to the secondary
+            secondary = (len(self.units_of(OUTER)) + blocks if self.hpz
+                         else 0)
+            return {"allgather_fn": gas * gathers + secondary +
                     len(self.units_of(PERSISTENT)),
                     "reduce_scatter_fn": gas * self.n_units}
         if self.stage == 2:
@@ -255,9 +359,20 @@ class ZeroPartitionPlan:
         else:
             replicated += full * grad_bytes
         sch = self.schedule
+        if self.hpz:
+            # the secondary slices beside the primary shard
+            sharded += self.param_numel * param_bytes
+        state_axes = ["zp"] if self.mics else ["dp", "ep"]
+        co = self.comm_opts
         out = {"stage": self.stage, "world_size": self.world_size,
-               "zero_axes": ["dp", "ep"],
-               "param_axes": ["dp", "ep"] if self.stage >= 3 else [],
+               "zero_axes": ["dp", "ep"], "state_axes": state_axes,
+               "param_axes": ((["zp"] if self.hpz else state_axes)
+                              if self.stage >= 3 else []),
+               "param_world": self.param_world, "mics": self.mics,
+               "zero_mode": getattr(co, "zero_mode", None) or "gspmd",
+               "grad_wire": list(self.grad_wire()),
+               "param_wire": list(self.param_wire()),
+               "hierarchical_reduce": self.hierarchical_reduce(),
                "numel": self.numel, "padded_numel": full,
                "shard_numel": shard,
                "shard_range": (list(self.shard_range()) if self.n_units == 1

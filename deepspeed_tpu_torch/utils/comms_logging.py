@@ -7,6 +7,11 @@ launch; the elapsed time is read only when a summary is asked for
 (:meth:`CommsLogger.resolve`), so logging adds no host sync to the step.
 An async collective is recorded once, at its launch; its end event comes
 when its handle is waited on.  On the CPU the events are the host clock's.
+
+A collective the collectives engine (``comm/collectives``) ran on a
+quantized or hierarchical variant is recorded as ``op[variant]`` with its
+*wire* bytes (what the links carried) beside its message size; the
+bandwidths are the wire's.  A flat op's wire is its message size.
 """
 
 from .logging import log_dist, logger
@@ -47,7 +52,8 @@ class CommsLogger:
         self.debug = debug
         self.prof_ops = prof_ops or []
         self.comms_dict = {}
-        self._pending = []   # (name, msg_size, world, start, end) events
+        # [name, msg_size, world, start, end, wire, variant] events
+        self._pending = []
 
     def configure(self, comms_config):
         self.enabled = comms_config.comms_logger_enabled
@@ -61,12 +67,13 @@ class CommsLogger:
     def should_log(self, name):
         return self.enabled and (self.prof_all or name in self.prof_ops)
 
-    def record(self, name, msg_size, world_size, start, end):
+    def record(self, name, msg_size, world_size, start, end, wire_size=None,
+               variant=None):
         """One collective, timed by two recorded events; its latency is
         read at the next :meth:`resolve`.  Returns the entry, whose ``end``
         (item 4; None for an async op not yet waited on) may be set
         later."""
-        entry = [name, msg_size, world_size, start, end]
+        entry = [name, msg_size, world_size, start, end, wire_size, variant]
         self._pending.append(entry)
         return entry
 
@@ -74,31 +81,38 @@ class CommsLogger:
         """Fold the recorded events into the table (waits for each op's
         end event; an async op never waited on ends at its start)."""
         pending, self._pending = self._pending, []
-        for name, msg_size, world, start, end in pending:
+        for name, msg_size, world, start, end, wire, variant in pending:
             end = start if end is None else end
             end.synchronize()
             self.append(name, name, start.elapsed_time(end) / 1e3, msg_size,
-                        world)
+                        world, wire_size=wire, variant=variant)
 
     def reset(self):
         self.comms_dict = {}
         self._pending = []
 
-    def append(self, raw_name, record_name, latency, msg_size, world_size):
-        algbw, busbw = calc_bw_log(raw_name, msg_size, latency, world_size)
-        sizes = self.comms_dict.setdefault(record_name, {})
+    def append(self, raw_name, record_name, latency, msg_size, world_size,
+               wire_size=None, variant=None):
+        """One collective into the table: ``msg_size`` the logical bytes,
+        ``wire_size`` the transported ones (the message size when None);
+        entry slot 4 sums the row's wire bytes, each call once."""
+        wire = wire_size if wire_size is not None else msg_size
+        name = f"{record_name}[{variant}]" if variant else record_name
+        raw = f"{raw_name}[{variant}]" if variant else raw_name
+        algbw, busbw = calc_bw_log(raw, wire, latency, world_size)
+        sizes = self.comms_dict.setdefault(name, {})
         if msg_size in sizes:
             entry = sizes[msg_size]
             entry[0] += 1
             entry[1].append(latency)
             entry[2].append(algbw)
             entry[3].append(busbw)
-            entry[4] += msg_size
+            entry[4] += wire
         else:
-            sizes[msg_size] = [1, [latency], [algbw], [busbw], msg_size]
+            sizes[msg_size] = [1, [latency], [algbw], [busbw], wire]
         if self.verbose:
-            log_dist(f"comm op: {record_name} | time(ms): "
-                     f"{latency * 1000:.2f} | msg size: {msg_size} | "
+            log_dist(f"comm op: {name} | time(ms): {latency * 1000:.2f} | "
+                     f"msg size: {msg_size} | wire size: {wire} | "
                      f"algbw(Gbps): {algbw:.2f} | busbw(Gbps): {busbw:.2f}",
                      ranks=[0])
 
@@ -110,15 +124,17 @@ class CommsLogger:
 
     def log_all(self, print_log=True, show_straggler=False):
         self.resolve()
-        lines = [f"{'Comm. Op':<28}{'Message Size':<16}{'Count':<8}"
+        lines = [f"{'Comm. Op (variant)':<28}{'Message Size':<16}"
+                 f"{'Wire Size':<14}{'Count':<8}"
                  f"{'Total Latency(ms)':<20}{'Avg Latency(ms)':<18}"
                  f"{'tput_avg (Gbps)':<18}{'busbw_avg (Gbps)':<18}"]
         for record_name, sizes in sorted(self.comms_dict.items()):
             lines.append(record_name)
             for msg_size, (count, latencies, algbws, busbws,
-                           _) in sorted(sizes.items()):
+                           wire_total) in sorted(sizes.items()):
                 total = sum(latencies) * 1000
-                lines.append(f"{'':<28}{msg_size:<16}{count:<8}"
+                lines.append(f"{'':<28}{msg_size:<16}"
+                             f"{wire_total // count:<14}{count:<8}"
                              f"{total:<20.2f}{total / count:<18.2f}"
                              f"{sum(algbws) / len(algbws):<18.2f}"
                              f"{sum(busbws) / len(busbws):<18.2f}")
@@ -127,30 +143,49 @@ class CommsLogger:
         return self.comms_dict
 
     def get_summary_dict(self):
-        """The table as data: ``{"ops": {name: {count, total_latency_ms,
-        avg_latency_ms, total_msg_bytes, algbw_gbps_avg, busbw_gbps_avg,
-        msg_sizes}}}`` (the JAX logger's keys that a flat op has)."""
+        """The table as data (the JAX logger's keys): ``{"ops": {"op" or
+        "op[variant]": {base_op, variant, count, total_latency_ms,
+        avg_latency_ms, total_msg_bytes, total_wire_bytes, algbw_gbps_avg,
+        busbw_gbps_avg, msg_sizes}}, "totals": {base op: {count,
+        total_latency_ms, total_msg_bytes, total_wire_bytes,
+        variants}}}``, each call counted once in its variant's row and
+        once in its base op's total."""
         self.resolve()
-        ops = {}
+        ops, totals = {}, {}
         for name, sizes in sorted(self.comms_dict.items()):
-            op = {"base_op": name, "count": 0, "total_latency_ms": 0.0,
-                  "total_msg_bytes": 0, "msg_sizes": {}}
+            if "[" in name and name.endswith("]"):
+                base, variant = name[:-1].split("[", 1)
+            else:
+                base, variant = name, None
+            op = {"base_op": base, "variant": variant, "count": 0,
+                  "total_latency_ms": 0.0, "total_msg_bytes": 0,
+                  "total_wire_bytes": 0, "msg_sizes": {}}
             alg_all, bus_all = [], []
             for msg_size, (count, latencies, algbws, busbws,
-                           _) in sorted(sizes.items()):
+                           wire_total) in sorted(sizes.items()):
                 total_ms = sum(latencies) * 1000
                 op["msg_sizes"][int(msg_size)] = {
                     "count": count, "total_latency_ms": total_ms,
                     "avg_latency_ms": total_ms / count,
+                    "wire_bytes_per_call": wire_total // count,
                     "algbw_gbps_avg": sum(algbws) / len(algbws),
                     "busbw_gbps_avg": sum(busbws) / len(busbws)}
                 op["count"] += count
                 op["total_latency_ms"] += total_ms
                 op["total_msg_bytes"] += int(msg_size) * count
+                op["total_wire_bytes"] += int(wire_total)
                 alg_all += algbws
                 bus_all += busbws
             op["avg_latency_ms"] = op["total_latency_ms"] / op["count"]
             op["algbw_gbps_avg"] = sum(alg_all) / len(alg_all)
             op["busbw_gbps_avg"] = sum(bus_all) / len(bus_all)
             ops[name] = op
-        return {"ops": ops}
+            t = totals.setdefault(base, {"count": 0, "total_latency_ms": 0.0,
+                                         "total_msg_bytes": 0,
+                                         "total_wire_bytes": 0,
+                                         "variants": []})
+            for key in ("count", "total_latency_ms", "total_msg_bytes",
+                        "total_wire_bytes"):
+                t[key] += op[key]
+            t["variants"].append(variant or "flat")
+        return {"ops": ops, "totals": totals}

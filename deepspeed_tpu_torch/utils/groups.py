@@ -7,9 +7,17 @@ torch process group with the axis names it spans.  Only data parallelism is
 ported: any other axis of size > 1 raises ROADMAP queue A item 9, as the
 config's ``mesh`` keys do (``runtime/config.py:_mesh_dims``).  The
 data-parallel group is then the world.
+
+``zero_partition_size`` (hpZ's secondary partition and MiCS's shard
+groups, JAX ``groups.py:171-182``) factors dp into ``zp_outer × zp``: the
+``zp`` groups of consecutive ranks and the ``zp_outer`` groups of the
+ranks ``zp`` apart, the torch counterparts of the JAX hpZ mesh's axes.
+The collectives engine's hierarchies are the same kind of pair
+(:func:`factor_groups`).  ``torch.distributed.new_group`` is collective:
+every rank makes every subgroup once, in the same order, here.
 """
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 from .not_ported import not_ported
 
@@ -19,6 +27,8 @@ SP_AXIS = "sp"
 TP_AXIS = "tp"
 EP_AXIS = "ep"
 AXES = (PP_AXIS, DP_AXIS, EP_AXIS, SP_AXIS, TP_AXIS)
+ZP_AXIS = "zp"
+ZP_OUTER_AXIS = "zp_outer"
 
 _mesh_state = None
 
@@ -53,6 +63,15 @@ class MeshState:
     sp: int
     tp: int
     ep: int = 1
+    # hpZ / MiCS: ranks a shard group (None: no factoring)
+    zero_partition_size: int = None
+    # ranks a node from the probe (None: not probed yet)
+    node_size: int = None
+    # split s → (inner, outer) ProcessGroups holding this rank
+    factors: dict = field(default_factory=dict)
+    # built by a caller of initialize_mesh (not by init_distributed or on
+    # first use): an engine must not rebuild it
+    user_built: bool = True
 
 
 def _world_size():
@@ -60,10 +79,79 @@ def _world_size():
     return comm.get_world_size()
 
 
+def factor_groups(s, state=None):
+    """The (inner, outer) pair of a split of the world into groups of ``s``
+    consecutive ranks and groups of the ranks ``s`` apart, made once (a
+    collective: every rank calls it with the same ``s``).  ``s`` equal to
+    the world: inner is the world, outer this rank alone; 1: the reverse.
+    """
+    import torch.distributed as tdist
+    from ..comm import comm
+    from ..comm.backend import ProcessGroup
+    st = state or get_mesh_state()
+    if s in st.factors:
+        return st.factors[s]
+    world = _world_size()
+    if s < 1 or world % s:
+        raise ValueError(f"a split of {s} ranks a group must divide the "
+                         f"world of {world}")
+    inner_axes, outer_axes = (DP_AXIS + "_in", ), (DP_AXIS + "_out", )
+    if s == world:
+        pair = (ProcessGroup(inner_axes), ProcessGroup(outer_axes,
+                                                       local=True))
+    elif s == 1:
+        pair = (ProcessGroup(inner_axes, local=True),
+                ProcessGroup(outer_axes))
+    else:
+        rank = comm.get_rank()
+        inner = outer = None
+        for o in range(world // s):
+            ranks = list(range(o * s, (o + 1) * s))
+            pg = tdist.new_group(ranks)
+            if rank in ranks:
+                inner = ProcessGroup(inner_axes, pg=pg)
+        for i in range(s):
+            ranks = list(range(i, world, s))
+            pg = tdist.new_group(ranks)
+            if rank in ranks:
+                outer = ProcessGroup(outer_axes, pg=pg)
+        pair = (inner, outer)
+    st.factors[s] = pair
+    return pair
+
+
+def prepare_hierarchy(intra_node_size=0):
+    """Probe the nodes (once) and make the subgroups of the hierarchy that
+    ``intra_node_size`` (or ``DS_TPU_INTRA_NODE_SIZE``, or the probe)
+    gives the world, if it has one.  Collective: every rank calls it, at
+    engine install."""
+    from ..comm.collectives.topology import (detect_intra_node_size,
+                                             probe_node_size)
+    world = _world_size()
+    if world <= 1:
+        return None
+    st = get_mesh_state()
+    if st.node_size is None:
+        import os
+        hosts = None
+        if not os.environ.get("LOCAL_WORLD_SIZE"):
+            import socket
+            import torch.distributed as tdist
+            hosts = [None] * world
+            tdist.all_gather_object(hosts, socket.gethostname())
+        st.node_size = probe_node_size(world, hosts)
+    s = detect_intra_node_size(override=intra_node_size)
+    if 1 < s < world and world % s == 0:
+        return factor_groups(s, st)
+    return None
+
+
 def initialize_mesh(dp=None, pp=1, sp=1, tp=1, ep=1, devices=None,
-                    zero_partition_size=None):
+                    zero_partition_size=None, user_built=True):
     """The mesh over the world (``groups.py:initialize_mesh``):
-    ``dp=None`` takes every rank.  Axes other than dp must be 1."""
+    ``dp=None`` takes every rank.  Axes other than dp must be 1.
+    ``zero_partition_size`` > 1 makes the ``zp``/``zp_outer`` subgroups
+    (every rank calls this together)."""
     global _mesh_state
     others = {"pp": pp, "sp": sp, "tp": tp, "ep": ep}
     if devices is not None:
@@ -73,16 +161,23 @@ def initialize_mesh(dp=None, pp=1, sp=1, tp=1, ep=1, devices=None,
         raise not_ported(f"a device mesh beyond data parallelism "
                          f"({ {k: v for k, v in others.items() if v != 1} })",
                          9)
-    if zero_partition_size not in (None, 0, 1):
-        raise not_ported("zero_partition_size (hpZ secondary partition)", 7)
     total = _world_size()
     if dp is None:
         dp = total
     if dp != total:
         raise ValueError(f"pp(1) * dp({dp}) * sp(1) * tp(1) = {dp} != world "
                          f"size {total}")
-    _mesh_state = MeshState(mesh=Mesh(pp=1, dp=dp, ep=1, sp=1, tp=1),
-                            pp=1, dp=dp, sp=1, tp=1, ep=1)
+    zp = zero_partition_size if zero_partition_size and \
+        zero_partition_size > 1 else None
+    if zp is not None and dp % zp != 0:
+        raise ValueError(
+            f"zero_partition_size={zp} must divide dp={dp}")
+    state = MeshState(mesh=Mesh(pp=1, dp=dp, ep=1, sp=1, tp=1), pp=1,
+                      dp=dp, sp=1, tp=1, ep=1, zero_partition_size=zp,
+                      user_built=user_built)
+    if zp is not None:
+        factor_groups(zp, state)
+    _mesh_state = state
     return _mesh_state
 
 
@@ -92,7 +187,7 @@ def mesh_is_initialized():
 
 def get_mesh_state():
     if _mesh_state is None:
-        initialize_mesh()
+        initialize_mesh(user_built=False)
     return _mesh_state
 
 
@@ -122,6 +217,29 @@ def _pg(axes):
 
 def _get_data_parallel_group():
     return _pg(dp_axes())
+
+
+def _get_zero_param_partition_group():
+    """hpZ's secondary partition group, MiCS's shard group (JAX
+    ``groups.py:258-265``): the ``zp`` consecutive ranks holding this one;
+    None without a ``zero_partition_size``."""
+    from ..comm.backend import ProcessGroup
+    st = get_mesh_state()
+    if st.zero_partition_size is None:
+        return None
+    inner = st.factors[st.zero_partition_size][0]
+    return ProcessGroup((ZP_AXIS, ), pg=inner.pg, local=inner.local)
+
+
+def _get_zero_param_partition_outer_group():
+    """The ranks ``zp`` apart holding this one (the hpZ mesh's
+    ``zp_outer`` axis); None without a ``zero_partition_size``."""
+    from ..comm.backend import ProcessGroup
+    st = get_mesh_state()
+    if st.zero_partition_size is None:
+        return None
+    outer = st.factors[st.zero_partition_size][1]
+    return ProcessGroup((ZP_OUTER_AXIS, ), pg=outer.pg, local=outer.local)
 
 
 def _get_data_parallel_world_size():

@@ -213,10 +213,16 @@ def test_mpi_discovery_reads_ompi_env(monkeypatch):
         ("3", "4", "1", "29611")
 
 
-def test_set_collectives_engine_raises_item_7():
-    with pytest.raises(NotImplementedError, match=r"queue A, item 7\)"):
-        port_dist.set_collectives_engine(object())
-    assert port_dist.set_collectives_engine(None) is None
+def test_set_collectives_engine_installs_and_removes():
+    from deepspeed_tpu_torch.comm.collectives import (CollectivesEngine,
+                                                      CommOptimizations)
+    port_dist.init_distributed(dist_backend="gloo", verbose=False)
+    eng = CollectivesEngine(CommOptimizations(enabled=True))
+    try:
+        port_dist.set_collectives_engine(eng)
+        assert port_dist.get_collectives_engine() is eng
+    finally:
+        port_dist.set_collectives_engine(None)
     assert port_dist.get_collectives_engine() is None
     with pytest.raises(NotImplementedError, match=r"queue A, item 9\)"):
         port_dist.send_obj(1, 0)

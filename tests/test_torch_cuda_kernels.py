@@ -717,6 +717,59 @@ def test_quantizer_kernels_match_plain(card, dtype, bits, group_size, shape,
                                                   before[1] + 1)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("group_size", [128, 2048])
+@pytest.mark.parametrize("fmt", ["int8", "int4", "fp8", "fp6", "fp12"])
+def test_wire_codecs_match_plain_on_a_shard(card, fmt, group_size, dtype):
+    """ZeRO++'s wire codecs (``comm/collectives/quantized.py:wire_codec``:
+    B5 for int8/int4, B6 for fp6/fp12, the e4m3fn cast for fp8) on a unit
+    slice whose length is no multiple of the group (its last group padded),
+    against the plain versions on the same values: codes, scales and the
+    decode bit for bit, the decode also written into a view of a larger
+    buffer (``out=``, as a gather dequantizes each rank's part in place).
+    """
+    from deepspeed_tpu_torch.comm.collectives import quantized as Q
+    from deepspeed_tpu_torch.ops import fp_quantizer as fpq
+    from deepspeed_tpu_torch.ops.kernels import fp_quantizer as kfp
+    g = torch.Generator().manual_seed(group_size + len(fmt))
+    n = 7 * group_size + 1000
+    x = (torch.randn(n, generator=g) * 3).to(card, dtype)
+    x[:group_size] = 0                            # an all-zero group
+    quant, dequant = Q.wire_codec(fmt, group_size)
+    before = (qz.quantize_blockwise.launches,
+              qz.dequantize_blockwise.launches,
+              kfp.quantize_fp_packed.launches)
+    q, s, meta = quant(x)
+    if fmt in ("int8", "int4"):
+        q_ref, s_ref, meta_ref = qz.quantize_blockwise_plain(
+            x, 8 if fmt == "int8" else 4, group_size)
+    elif fmt == "fp8":
+        q_ref, s_ref, meta_ref = q, s, meta       # the cast: no kernel
+    else:
+        bits, man = Q._FP_FORMATS[fmt]
+        q_ref, s_ref = kfp.quantize_fp_packed_plain(
+            x, bits, man, Q.effective_group_size(group_size))
+        meta_ref = meta
+    torch.cuda.synchronize()
+    assert meta == meta_ref
+    assert torch.equal(q, q_ref) and torch.equal(s, s_ref)
+    big = torch.full((3 * n, ), 7.0, dtype=dtype, device=card)
+    got = dequant(q, s, meta, out=big[n:2 * n])
+    assert got.data_ptr() == big[n:].data_ptr()
+    want = (qz.dequantize_blockwise_plain(q, s, meta)
+            if fmt in ("int8", "int4") else fpq.dequantize_fp(q, s, meta))
+    assert torch.equal(big[n:2 * n], want)
+    assert bool((big[:n] == 7).all() and (big[2 * n:] == 7).all())
+    launched = (qz.quantize_blockwise.launches - before[0],
+                qz.dequantize_blockwise.launches - before[1],
+                kfp.quantize_fp_packed.launches - before[2])
+    assert launched == {"int8": (1, 1, 0), "int4": (1, 1, 0),
+                        "fp8": (0, 0, 0), "fp6": (0, 0, 1),
+                        "fp12": (0, 0, 1)}[fmt]
+
+
 def _quant_routed(x, bits, group_size):
     """quantize_blockwise on the card held bit for bit to its plain
     version; the routes the call counted."""

@@ -382,9 +382,6 @@ def test_batch_trinity_matches_jax(i):
 
 REFUSED = [
     ({"optimizer": {"type": "muon"}}, 11),
-    ({"zero_optimization": {"zero_quantized_gradients": True}}, 7),
-    ({"zero_optimization": {"mics_shard_size": 2}}, 7),
-    ({"comm_optimizations": {"enabled": True}}, 7),
     ({"mesh": {"tp": 2}}, 9),
     ({"pipeline": {"stages": 2}}, 9),
     ({"moe": {"enabled": True}}, 8),
@@ -414,6 +411,50 @@ def test_unported_keys_raise_not_ported(i):
     with pytest.raises(NotImplementedError,
                        match=rf"queue A, item {item}\)"):
         PortConfig(config)
+
+
+# the ZeRO++ configs the list above refused until queue A item 7a came
+ZEROPP_BUILDS = [
+    {"zero_optimization": {"stage": 2, "zero_quantized_gradients": True}},
+    {"zero_optimization": {"stage": 3, "zero_quantized_weights": True,
+                           "zero_quantized_gradients": True}},
+    {"comm_optimizations": {"enabled": True, "quantized_gradients": True,
+                            "quantized_weights": True}},
+]
+
+
+@pytest.mark.parametrize("i", range(len(ZEROPP_BUILDS)))
+def test_zeropp_configs_build_and_step(i):
+    """At one rank every quantized collective declines (a group of one),
+    so the run is the plain one bit for bit."""
+    _, pcfg = _configs(dtype="float32", remat=False)
+    ids = torch.from_numpy(_batches(1, 1, seed=5)[0])
+    losses = []
+    for extra in (ZEROPP_BUILDS[i], {"zero_optimization": dict(
+            ZEROPP_BUILDS[i].get("zero_optimization", {}),
+            zero_quantized_gradients=False, zero_quantized_weights=False)}):
+        eng = deepspeed_tpu_torch.initialize(
+            model=port_llama.LlamaModel(pcfg, device="meta"),
+            config={"train_micro_batch_size_per_gpu": 1, **extra},
+            device="cpu")[0]
+        eng.initialize_parameters(0)
+        for _ in range(2):
+            loss = eng(ids, ids)
+            eng.backward(loss)
+            eng.step()
+            losses.append(float(loss))
+    assert losses[:2] == losses[2:]
+
+
+def test_mics_at_one_rank_is_refused():
+    _, pcfg = _configs(dtype="float32", remat=False)
+    with pytest.raises(ValueError, match="must divide dp=1"):
+        deepspeed_tpu_torch.initialize(
+            model=port_llama.LlamaModel(pcfg, device="meta"),
+            config={"train_micro_batch_size_per_gpu": 1,
+                    "zero_optimization": {"stage": 3,
+                                          "mics_shard_size": 2}},
+            device="cpu")
 
 
 # the offload configs the list above refused until queue A item 10 came

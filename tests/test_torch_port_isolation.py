@@ -56,7 +56,11 @@ def test_import_loads_no_jax():
                  "runtime.zero.config", "runtime.zero.partition",
                  "accelerator.abstract_accelerator",
                  "accelerator.cuda_accelerator",
-                 "accelerator.cpu_accelerator", "models.bert"):
+                 "accelerator.cpu_accelerator", "models.bert",
+                 "comm.collectives", "comm.collectives.config",
+                 "comm.collectives.quantized", "comm.collectives.topology",
+                 "comm.collectives.engine", "runtime.zero.zeropp",
+                 "runtime.zero.mics", "runtime.zero.overlap"):
         assert f"deepspeed_tpu_torch.{name}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -72,8 +76,9 @@ def test_import_loads_no_jax():
 
 
 def _sources():
-    """Every .py file of the port, and chip_smoke.py."""
-    paths = [os.path.join(_REPO, "chip_smoke.py")]
+    """Every .py file of the port, chip_smoke.py and zero_multicard.py."""
+    paths = [os.path.join(_REPO, "chip_smoke.py"),
+             os.path.join(_REPO, "zero_multicard.py")]
     for root, _, files in os.walk(_PKG_DIR):
         paths += [os.path.join(root, fn) for fn in files
                   if fn.endswith(".py")]
@@ -111,9 +116,10 @@ def test_host_sources_equal_the_reference_byte_for_byte(name):
 
 
 def test_source_imports_nothing_of_jax():
-    """AST scan of every import statement in the package (comm/,
-    runtime/zero/, accelerator/ and models/bert.py included) and in
-    chip_smoke.py."""
+    """AST scan of every import statement in the package (comm/ and
+    comm/collectives/, runtime/zero/ with zeropp.py and mics.py,
+    accelerator/ and models/bert.py included), in chip_smoke.py and in
+    zero_multicard.py."""
     bad = []
     for path in _sources():
         with open(path) as f:

@@ -23,6 +23,14 @@ Leg kinds:
   (``state_placement``); ``offload_at`` (a batch index) sends every state
   to the host with ``offload_states`` after that batch's step (and records
   the placement then);
+* ``coll``: the quantized primitives of ``comm/collectives`` on rank r's
+  row of each array (``quantized_all_gather``, ``all_to_all_quant_reduce``,
+  ``hierarchical_quant_reduce_scatter``, ``quantized_all_to_all``, the
+  straight-through gather's gradient), and the facade's collectives with a
+  collectives engine installed (results, the engine's counts and the comms
+  logger's summary);
+* ``refuse``: an engine built on a mesh the leg builds first; the error's
+  type and message;
 * ``ckpt``: the same training, a ``save_checkpoint`` into the leg's
   directory after ``k`` batches and the rest of the batches; then, for each
   of the leg's ``resume`` configs, a fresh engine that loads the tag and
@@ -198,10 +206,151 @@ def run_comm_log(leg, rank, world):
         dist.comms_logger.reset()
 
 
+def run_coll(leg, rank, world):
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch import comm as dist
+    from deepspeed_tpu_torch.comm import ReduceOp
+    from deepspeed_tpu_torch.comm import collectives as C
+    from deepspeed_tpu_torch.comm.collectives import quantized as Q
+    from deepspeed_tpu_torch.utils import groups
+    g = dist.get_world_group()
+    out = {}
+    for key, op in leg["ops"]:
+        x = torch.from_numpy(np.ascontiguousarray(leg["arrays"][key][rank]))
+        kind, args = op[0], op[1:]
+        if kind == "qag":
+            fmt, gs, dim = args
+            res = Q.quantized_all_gather(x, g, dim, fmt, gs)
+        elif kind == "a2a_reduce":
+            fmt, gs, mean = args
+            res = Q.all_to_all_quant_reduce(x, g, 0, world, wire_format=fmt,
+                                            group_size=gs, mean=mean)
+        elif kind == "hier":
+            fmt, gs, n_in, mean = args
+            inner, outer = groups.factor_groups(n_in)
+            res = Q.hierarchical_quant_reduce_scatter(
+                x, inner, outer, 0, n_in, world // n_in, wire_format=fmt,
+                group_size=gs, mean=mean)
+        elif kind == "qa2a":
+            split, concat, fmt, gs = args
+            res = Q.quantized_all_to_all(x, g, split, concat, world, fmt, gs)
+        elif kind == "st_grad":
+            fmt, gs = args
+            x.requires_grad_(True)
+            y = Q.qdq_all_gather_st(x, g, 0, fmt, gs)
+            (y.float() ** 2).sum().backward()
+            res = x.grad
+        elif kind == "facade":
+            opts, fn, extra = args
+            eng = C.CollectivesEngine(C.CommOptimizations(
+                **dict({"enabled": True}, **opts)))
+            dist.set_collectives_engine(eng)
+            dist.comms_logger.reset()
+            dist.configure(enabled=True, prof_all=True)
+            try:
+                if fn == "all_reduce":
+                    res = dist.all_reduce(x.clone(), op=ReduceOp[extra])
+                elif fn == "all_gather":
+                    res = dist.all_gather(x)
+                elif fn == "reduce_scatter":
+                    res = dist.reduce_scatter(x)
+                elif fn == "all_gather_coalesced":
+                    res = torch.stack(dist.all_gather_coalesced([x, 2 * x]))
+                elif fn == "allgather_fn":
+                    buf = torch.empty(world * x.numel(), dtype=x.dtype)
+                    res = dist.allgather_fn(buf, x, async_op=True).wait()
+                elif fn == "reduce_scatter_fn":
+                    res = dist.reduce_scatter_fn(
+                        torch.empty(x.numel() // world, dtype=x.dtype), x)
+                else:
+                    raise ValueError(fn)
+                summary = dist.comms_logger.get_summary_dict()
+            finally:
+                dist.configure(enabled=False)
+                dist.comms_logger.reset()
+                dist.set_collectives_engine(None)
+            out[key] = dict(result=res.detach().float().numpy(),
+                            counts=dict(eng.counts), summary=summary)
+            continue
+        else:
+            raise ValueError(op)
+        out[key] = res.detach().float().numpy()
+    return out
+
+
+def run_refuse(leg, rank, world):
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.utils import groups
+    if leg.get("mesh") is not None:
+        groups.initialize_mesh(**leg["mesh"])
+    model, start = _model(leg["model"], leg["cfg"], leg["tree"])
+    try:
+        deepspeed_tpu_torch.initialize(model=model, model_parameters=start,
+                                       config=dict(leg["config"]),
+                                       device="cpu")
+    except Exception as e:         # the refusal under test
+        return dict(error=type(e).__name__, message=str(e))
+    finally:
+        groups.reset_mesh()
+    return dict(error=None, message="")
+
+
+def _mlp(tree, kind):
+    """The JAX tests' small models in torch: ``mlp`` is
+    ``tests/unit/simple_model.py:simple_mlp_apply`` (``layer_i`` w, b;
+    relu between; MSE), ``smoke`` is ``tools/comm_smoke.py``'s (tanh(x w1
+    + b) w2; MSE)."""
+    import torch
+
+    class Layer(torch.nn.Module):
+        def __init__(self, w, b):
+            super().__init__()
+            self.w = torch.nn.Parameter(torch.empty(w.shape, device="meta"))
+            self.b = torch.nn.Parameter(torch.empty(b.shape, device="meta"))
+
+        def forward(self, h):
+            return h @ self.w + self.b
+
+    class MLP(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            keys = sorted(tree)
+            self.layers = torch.nn.ModuleList(
+                Layer(tree[k]["w"], tree[k]["b"]) for k in keys)
+
+        def forward(self, x, y):
+            h = x
+            for i, layer in enumerate(self.layers):
+                h = layer(h)
+                if i < len(self.layers) - 1:
+                    h = torch.relu(h)
+            return torch.mean((h - y) ** 2)
+
+    class Smoke(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            for k, v in tree.items():
+                setattr(self, k, torch.nn.Parameter(
+                    torch.empty(v.shape, device="meta")))
+
+        def forward(self, x, y):
+            h = torch.tanh(x @ self.w1 + self.b)
+            return torch.mean((h @ self.w2 - y) ** 2)
+
+    if kind == "mlp":
+        start = {f"layers.{i}.{p}": torch.from_numpy(tree[k][p])
+                 for i, k in enumerate(sorted(tree)) for p in ("w", "b")}
+        return MLP(), start
+    return Smoke(), {k: torch.from_numpy(v) for k, v in tree.items()}
+
+
 def _model(kind, cfg_kw, tree, mean_only=False):
     """The port's model and its fp32 weights from a flax tree.
     ``mean_only``: a subclass whose ``forward`` has no ``loss_reduction``,
     so the engine can only average the ranks' means."""
+    if kind in ("mlp", "smoke"):
+        return _mlp(tree, kind)
     from deepspeed_tpu_torch.models import bert, gpt2, llama
     mod = {"llama": llama, "gpt2": gpt2, "bert": bert}[kind]
     make = {"llama": "llama_tiny", "gpt2": "gpt2_tiny", "bert": "bert_tiny"}
@@ -259,7 +408,9 @@ def run_train(leg, rank, world):
                     unit_numel=list(plan.unit_numel),
                     unit_kinds=list(plan.unit_kinds))
     return dict(losses=losses, scales=scales, skips=skips, gnorms=gnorms,
-                master=master.numpy(),
+                master=master.numpy(), variant=engine._micro_variant(),
+                dispatch=engine.zeropp_dispatch_counts(),
+                param_numel=int(engine.params.numel()),
                 params=engine.gathered_params().float().numpy(),
                 names=[(n, o, k, s) for n, o, k, s in engine._layout],
                 counts=counts, plan=plan.describe(),
@@ -345,7 +496,8 @@ def main():
         legs = pickle.load(f)
     for leg in legs:
         fn = {"comm": run_comm, "comm_log": run_comm_log,
-              "train": run_train, "ckpt": run_ckpt}[leg["kind"]]
+              "train": run_train, "ckpt": run_ckpt, "coll": run_coll,
+              "refuse": run_refuse}[leg["kind"]]
         out = fn(leg, rank, world)
         with open(os.path.join(out_dir, f"{leg['name']}.r{rank}.pkl"),
                   "wb") as f:

@@ -5,6 +5,8 @@
                               [--json PATH] [--device cpu] [--checkpoint]
     python3 zero_multicard.py --offload [--world N] [--json PATH]
                               [--device cpu]
+    python3 zero_multicard.py --zeropp [--world N] [--json PATH]
+                              [--device cpu]
 
 BASELINE config 2 (``--model gpt2``: GPT-2 350M, fp16 from a scale of
 2^16, remat, ``fusedadam``, 8 rows of 1024 tokens a rank) or config 3
@@ -54,6 +56,24 @@ the same config at 2 layers with and without offload, 2 steps each,
 whose losses must agree within 2^-7 relative.  (Config 4's param offload
 with LAMB is refused by the JAX package and the port alike: the host has
 no LAMB kernel.)
+
+``--zeropp`` runs ZeRO++ and MiCS on ``--model llama7b``'s setting
+(full-depth Llama-2-7B, ZeRO 3 with ``overlap_comm`` and the prefetch,
+bf16, remat, ``fusedadam``, 4 rows of 2048 a rank), 1 warm-up and
+``--steps`` timed steps a configuration, in one world: plain ZeRO 3,
+qwZ + qgZ on the int8 wire (``zero_quantized_weights``/``gradients``),
+and hierarchical qgZ (``comm_optimizations`` with ``intra_node_size: 2``:
+an fp reduce-scatter over pairs of cards, the int8 all-to-all across the
+pairs) at full depth; then at stage 25's 8-layer cut (widths kept, to fit
+the call's time; the printout says so) plain ZeRO 3 again, hpZ
+(``zero_hpz_partition_size: 2``), MiCS (``mics_shard_size: 2``) and qwZ on
+the fp6 wire.  Rank 0 prints, a configuration: step ms, tokens/s, MFU,
+each rank's peak HBM, the wire bytes a step by op and variant (comms
+logger), the collectives engine's picks and the launches of B5's quantize
+and dequantize and of B6.  It fails when a loss is not finite or the
+ranks disagree, when hpZ is not plain ZeRO 3 bit for bit (losses and
+master), MiCS not within 2e-4 relative, or a quantized run's final loss
+not within 1e-2 relative of its plain run's.
 """
 
 import argparse
@@ -176,6 +196,196 @@ def run_rank(args):
         with open(args.out_rank0, "w") as f:
             json.dump(rows, f)
     comm.destroy_process_group()
+
+
+# (name, depth: full or the 8-layer cut, extra zero_optimization keys,
+#  comm_optimizations block)
+ZEROPP_RUNS = (
+    ("zero3", None, {}, None),
+    ("qwz_qgz_int8", None, {"zero_quantized_weights": True,
+                            "zero_quantized_gradients": True}, None),
+    ("hier_qgz_int8", None, {}, {"enabled": True,
+                                 "quantized_gradients": True,
+                                 "intra_node_size": 2}),
+    ("zero3_8l", 8, {}, None),
+    ("hpz2_8l", 8, {"zero_hpz_partition_size": 2}, None),
+    ("mics2_8l", 8, {"mics_shard_size": 2}, None),
+    ("qwz_fp6_8l", 8, {"zero_quantized_weights": True,
+                       "zero_quantized_weights_format": "fp6"}, None),
+)
+
+
+def _zp_counters():
+    from deepspeed_tpu_torch.ops.kernels import fp_quantizer, quantizer
+    return {"quantize_blockwise": quantizer.quantize_blockwise,
+            "dequantize_blockwise": quantizer.dequantize_blockwise,
+            "quantize_fp_packed": fp_quantizer.quantize_fp_packed}
+
+
+def _shard_digest(torch, flat):
+    """A digest of this rank's fp32 master shard, on the card: the sum,
+    modulo 2^62, of each element's bits times a weight that follows its
+    place (a changed or moved element changes it)."""
+    v = flat.reshape(-1).view(torch.int32)
+    acc = 0
+    for i in range(0, v.numel(), 1 << 26):
+        c = v[i:i + (1 << 26)].to(torch.int64)
+        w = torch.arange(i, i + c.numel(), device=c.device,
+                         dtype=torch.int64) % 65521 + 1
+        acc = (acc + int((c * w).sum().item())) % (1 << 62)
+    return acc
+
+
+def run_zeropp_rank(args):
+    """``--zeropp``: each configuration of :data:`ZEROPP_RUNS` in turn
+    (module docstring)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models import llama
+    cpu = args.device == "cpu"
+    sync = (lambda: None) if cpu else torch.cuda.synchronize
+    rows = []
+    for name, layers, zero, co in ZEROPP_RUNS:
+        model, cfg, S = _model("llama7b", cpu)
+        if layers is not None and not cpu:
+            cfg = dataclasses.replace(cfg, num_hidden_layers=layers)
+        config = _config("llama7b", 3)
+        config["zero_optimization"] = dict(ZERO3, **zero)
+        if co is not None:
+            config["comm_optimizations"] = co
+        engine = deepspeed_tpu_torch.initialize(
+            model=llama.LlamaModel(cfg, device="meta"), config=config,
+            device="cpu" if cpu else None)[0]
+        engine.initialize_parameters(args.seed)
+        world = engine.dp_world_size
+        B = engine.train_micro_batch_size_per_gpu() * world
+        gbatch = np.random.default_rng(args.seed + 1).integers(
+            0, cfg.vocab_size, size=(B, S))
+        (ids, ) = engine.shard_batch(gbatch)
+        counters = _zp_counters()
+        losses, times = [], []
+        for i in range(1 + args.steps):
+            if i == 1:
+                sync()
+                comm.comms_logger.reset()
+                for fn in counters.values():
+                    fn.launches = 0
+                if not cpu:
+                    torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            loss = engine(ids, ids)
+            engine.backward(loss)
+            engine.step()
+            losses.append(loss.item())
+            sync()
+            if i >= 1:
+                times.append(time.perf_counter() - t)
+        peak = 0 if cpu else torch.cuda.max_memory_allocated()
+        summary = comm.comms_logger.get_summary_dict()["ops"]
+        launches = {k: fn.launches for k, fn in counters.items()}
+        mine = torch.tensor([float(peak)] + losses,
+                            device="cpu" if cpu else "cuda")
+        every = comm.all_gather(mine, tiled=False).cpu()
+        # each rank's master shard (hpZ keeps ZeRO 3's world slices)
+        digests = comm.all_gather(torch.tensor(
+            [_shard_digest(torch, engine._target())], dtype=torch.int64,
+            device="cpu" if cpu else "cuda"), tiled=False).cpu()
+        step_s = sum(times) / len(times)
+        rows.append(dict(
+            name=name, layers=cfg.num_hidden_layers, world=world,
+            losses=losses, variant=engine._micro_variant(),
+            rank_losses_equal=bool((every[:, 1:] == every[0, 1:]).all()),
+            step_ms=[t * 1e3 for t in times], step_ms_mean=step_s * 1e3,
+            tokens_per_s=B * S / step_s,
+            mfu=B * S / step_s * _flops_per_token("llama7b", cfg, S)
+            / (PEAK_FLOPS * world),
+            peak_bytes_by_rank=[int(x) for x in every[:, 0].tolist()],
+            wire_bytes_per_step={k: v["total_wire_bytes"] / args.steps
+                                 for k, v in summary.items()},
+            msg_bytes_per_step={k: v["total_msg_bytes"] / args.steps
+                                for k, v in summary.items()},
+            calls_per_step={k: v["count"] / args.steps
+                            for k, v in summary.items()},
+            dispatch=engine.zeropp_dispatch_counts(),
+            launches_per_step={k: v / args.steps
+                               for k, v in launches.items()},
+            param_numel=int(engine.params.numel()),
+            master_digests=[int(x) for x in digests.reshape(-1)]))
+        del engine, model, loss
+        gc.collect()
+        if not cpu:
+            torch.cuda.empty_cache()
+    if comm.get_rank() == 0:
+        with open(args.out_rank0, "w") as f:
+            json.dump(rows, f)
+    comm.destroy_process_group()
+
+
+def _zeropp_main(args, world, smi, out):
+    rcs = _spawn(world, sys.argv[1:] + ["--out-rank0", out])
+    if any(rcs):
+        print(f"zero_multicard: ranks exited {rcs}", file=sys.stderr)
+        return 1
+    with open(out) as f:
+        rows = {r["name"]: r for r in json.load(f)}
+    os.remove(out)
+    ok = True
+    for r in rows.values():
+        cut = ("" if r["layers"] == rows["zero3"]["layers"] else
+               f" (cut to {r['layers']} layers, widths kept, for the "
+               "call's time)")
+        print(f"[zeropp] {r['name']}{cut}, world {r['world']}, "
+              f"{r['variant']}: losses " + ", ".join(
+                  f"{x:.4f}" for x in r["losses"])
+              + f" | step ms {r['step_ms_mean']:.1f}, "
+              f"{r['tokens_per_s']:.1f} tokens/s over the world, MFU "
+              f"{r['mfu']:.4f} | peak GiB by rank " + ", ".join(
+                  f"{b / 2**30:.2f}" for b in r["peak_bytes_by_rank"])
+              + f" | parameter shard {r['param_numel']:,} elements | wire "
+              "MB a step " + ", ".join(
+                  f"{k} {v / 1e6:.1f} (of {r['msg_bytes_per_step'][k] / 1e6:.1f})"
+                  for k, v in sorted(r["wire_bytes_per_step"].items()))
+              + f" | engine picks {r['dispatch']} | launches a step "
+              f"{r['launches_per_step']} | {smi}", flush=True)
+        ok &= r["rank_losses_equal"] and all(
+            map(math.isfinite, r["losses"]))
+    checks = []
+    for name, ref, rule in (("hpz2_8l", "zero3_8l", "bit"),
+                            ("mics2_8l", "zero3_8l", 2e-4),
+                            ("qwz_qgz_int8", "zero3", 1e-2),
+                            ("hier_qgz_int8", "zero3", 1e-2),
+                            ("qwz_fp6_8l", "zero3_8l", 1e-2)):
+        a, b = rows[name], rows[ref]
+        if rule == "bit":
+            good = (a["losses"] == b["losses"] and
+                    a["master_digests"] == b["master_digests"])
+            what = "losses and master bit-equal"
+        elif rule == 2e-4:
+            rel = max(abs(x - y) / abs(y) for x, y in zip(a["losses"],
+                                                          b["losses"]))
+            good, what = rel <= rule, f"losses within {rel:.2e} relative"
+        else:
+            rel = abs(a["losses"][-1] - b["losses"][-1]) / abs(
+                b["losses"][-1])
+            good = rel <= rule
+            what = f"final loss {rel:.2e} relative from"
+        checks.append(dict(run=name, ref=ref, ok=good, what=what))
+        print(f"[zeropp] {name}: {what} {ref} (limit {rule}) -> "
+              f"{'ok' if good else 'FAILED'}", flush=True)
+        ok &= good
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(dict(card=smi, runs=list(rows.values()),
+                           checks=checks), f, indent=1)
+    if not ok:
+        print("zero_multicard: a ZeRO++ check failed", file=sys.stderr)
+        return 1
+    print(json.dumps({"ok": True, "model": "llama7b", "world": world,
+                      "zeropp": True}))
+    return 0
 
 
 def _master_digest(engine):
@@ -567,6 +777,9 @@ def main():
     ap.add_argument("--offload", action="store_true",
                     help="Llama-2-13B at ZeRO 3 with its optimizer state "
                          "pinned on the host, fusedlamb")
+    ap.add_argument("--zeropp", action="store_true",
+                    help="ZeRO++ (qwZ, qgZ, hierarchical qgZ, hpZ) and "
+                         "MiCS against plain ZeRO 3 on Llama-2-7B")
     ap.add_argument("--offload-layers", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--out-rank0", help=argparse.SUPPRESS)
@@ -577,7 +790,8 @@ def main():
     sys.path.insert(0, REPO)
     if args.rank is not None:
         (run_offload_rank if args.offload else run_checkpoint_rank
-         if args.checkpoint else run_rank)(args)
+         if args.checkpoint else run_zeropp_rank if args.zeropp
+         else run_rank)(args)
         return 0
     import torch
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -595,6 +809,8 @@ def main():
         return _checkpoint_main(args, world, smi, out)
     if args.offload:
         return _offload_main(args, world, smi, out)
+    if args.zeropp:
+        return _zeropp_main(args, world, smi, out)
     rcs = _spawn(world, sys.argv[1:] + ["--out-rank0", out])
     if any(rcs):
         print(f"zero_multicard: ranks exited {rcs}", file=sys.stderr)
