@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--json PATH] [--profile DIR]
 
-Stages, run in the order 1-28; any failure exits non-zero:
+Stages, run in the order 1-29; any failure exits non-zero:
 
 1. environment: torch/CUDA/nvcc versions, the card's name and power limit;
 2. build: every ``deepspeed_tpu_torch/csrc/*.cu`` with nvcc for sm_90a
@@ -268,7 +268,21 @@ Stages, run in the order 1-28; any failure exits non-zero:
     with ``zero_quantized_weights`` and ``zero_quantized_gradients``:
     every quantized collective declines at one rank (as in JAX), so its 4
     steps are stage 25's bit for bit (losses, the master's digest,
-    launches), and its dispatch counters are all ``flat_fallback``.
+    launches), and its dispatch counters are all ``flat_fallback``;
+29. pipeline and Ulysses at GPT-3 13B width (d_model 5120, 40 heads of
+    128, vocabulary 50257): (a) ``sequence/layer.py:DistributedAttention``
+    at sp = 1 on bf16 [1, 2048, 40, 128], forward and backward: exactly
+    one launch of each B1 kernel, the output bit-equal to B1's forward and
+    the output and dq, dk, dv within B1's tolerance of the plain version
+    (the backward's on the kernel's o and lse); B1 at the shape Ulysses
+    hands it at sp = 2, [1, 2048, 20, 128], against its plain version,
+    SDPA and the bound; (b) ``models/gpt2.pipeline_module`` cut to 4
+    blocks (tied embedding and head, remat a block) through
+    ``initialize()`` → ``PipelineEngine`` at pp = 1 on the NCCL world of
+    one rank, M = 4 microbatches of [1, 2048], ZeRO 1, bf16, fusedadam,
+    3 steps, against the base engine on ``to_module()`` of the same
+    module: losses and master digest bit-equal, and exactly 2·4·4, 4·4,
+    4·4 B1 launches and one B2 launch a step in each.
 
 ``--profile DIR`` adds ``torch.profiler`` windows over serving (stages 4,
 14 and 15), over two training steps of stage 8, of stage 11, of stage 22
@@ -5290,6 +5304,174 @@ def stage_zeropp(seed, smi, zero3):
                 seconds=seconds)
 
 
+# --------------------------------------------------------------- stage 29
+PIPE_LAYERS, PIPE_M = 4, 4
+
+
+def _pipe_config():
+    return {"train_micro_batch_size_per_gpu": 1,
+            "gradient_accumulation_steps": PIPE_M,
+            "optimizer": {"type": "fusedadam", "params": {"lr": 1e-4}},
+            "bf16": {"enabled": True},
+            "zero_optimization": {"stage": 1}}
+
+
+def _pipe_steps(torch, engine, batches, steps, pipeline):
+    """``steps`` optimizer steps on ``batches`` (a step's ``PIPE_M``
+    microbatches), every launch counter set to 0 just before: (each
+    step's loss, host seconds a step, launches)."""
+    counters = _all_launches()
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    losses, times = [], []
+    for _ in range(steps):
+        t = time.perf_counter()
+        if pipeline:
+            loss = engine.train_batch(iter(batches))
+        else:
+            micro = []
+            for x, y in batches:
+                out = engine(x, y)
+                engine.backward(out)
+                engine.step()
+                micro.append(out.detach().float())
+            loss = torch.stack(micro).mean()
+        losses.append(loss.item())
+        times.append(time.perf_counter() - t)
+    launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    return losses, times, launches
+
+
+def stage_pipeline(seed, smi):
+    """Stage 29: (a) Ulysses' ``DistributedAttention`` at sp = 1 at GPT-3
+    13B width, forward and backward through B1, against the plain version;
+    B1 at the sp = 2 shape against its plain version, SDPA and the bound;
+    (b) the ``PipelineEngine`` at pp = 1 over NCCL against the base engine
+    on the same module (module docstring)."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models.gpt2 import gpt3_13b, pipeline_module
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    from deepspeed_tpu_torch.sequence.layer import DistributedAttention
+    t0 = time.perf_counter()
+    _free(torch)
+    cdb = deepspeed_tpu_torch.init_distributed(dist_backend="nccl")
+    if cdb.name != "nccl" or comm.get_world_size() != 1:
+        raise AssertionError(f"comm world {cdb.name}, "
+                             f"{comm.get_world_size()} ranks")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 29)
+    cfg = gpt3_13b(num_hidden_layers=PIPE_LAYERS)
+    B, S, H, Dh = 1, 2048, cfg.num_attention_heads, cfg.head_dim
+    # (a) DistributedAttention at sp = 1: the passthrough onto B1
+    q, k, v, do = (torch.randn(B, S, H, Dh, device="cuda", generator=gen)
+                   .to(torch.bfloat16) for _ in range(4))
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    counters = _all_launches()
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    out = DistributedAttention()(q, k, v, causal=True)
+    out.backward(do)
+    torch.cuda.synchronize()
+    launches_a = {n: fn.launches for n, fn in counters.items()
+                  if fn.launches}
+    want = dict(flash_attention_fwd=1, flash_attention_bwd_dq=1,
+                flash_attention_bwd_dkv=1)
+    if launches_a != want:
+        raise AssertionError(f"DistributedAttention launched {launches_a}, "
+                             f"want {want}")
+    scale = Dh**-0.5
+    with torch.no_grad():
+        o, lse = fa.flash_attention_fwd(q, k, v, scale, causal=True)
+        errs = {"o": _compare(torch, out, fa._plain_fwd(
+            q, k, v, scale, causal=True)[0], "bf16")}
+        same_o = torch.equal(out, o)
+        dq_ref, delta = fa._plain_bwd_dq(q, k, v, o, do, lse, scale,
+                                         causal=True)
+        dk_ref, dv_ref = fa._plain_bwd_dkv(q, k, v, do, lse, delta, scale,
+                                           causal=True)
+        for name, got, ref in (("dq", q.grad, dq_ref), ("dk", k.grad, dk_ref),
+                               ("dv", v.grad, dv_ref)):
+            errs[name] = _compare(torch, got, ref, "bf16")
+    log(f"[pipeline] (a) DistributedAttention, sp = 1, q/k/v [{B},{S},{H},"
+        f"{Dh}] bf16 causal, forward and backward: launches {launches_a}; "
+        f"output {'bit-equal to' if same_o else 'APART from'} B1's forward "
+        f"on the same inputs; against the plain version (dq, dk, dv on the "
+        f"kernel's o and lse): " + ", ".join(
+            f"{n} {e:.2e} ({r:.3f})" for n, (e, r) in errs.items())
+        + f" — max_abs_err (worst |err| / tol), tol 2^-7·|ref| + "
+        f"{BF16_ATOL:g} | {smi}")
+    if not same_o or any(not r <= 1.0 for _, r in errs.values()):
+        raise AssertionError(f"DistributedAttention apart from B1's plain "
+                             f"version: {errs}, same o {same_o}")
+    del q, k, v, do, out, o, lse, dq_ref, dk_ref, dv_ref, delta
+    _free(torch)
+    # B1 at the shape Ulysses gives it at sp = 2: H/2 heads, the whole
+    # sequence
+    ulysses = _flash_case(torch, gen, "ulysses_sp2", B, S, S, H // 2, H // 2,
+                          Dh, 0, "bfloat16", timed=True)
+    _free(torch)
+    # (b) the pipeline at pp = 1 over NCCL against the base engine
+    rng = np.random.default_rng(seed + 290)
+    batches = []
+    for _ in range(PIPE_M):
+        ids = rng.integers(0, cfg.vocab_size, size=(B, S))
+        batches.append((torch.from_numpy(ids).cuda(),
+                        torch.from_numpy(np.roll(ids, -1, axis=1)).cuda()))
+    runs = {}
+    for kind in ("pipeline", "base"):
+        pm = pipeline_module(cfg, activation_checkpoint_interval=1)
+        model = pm if kind == "pipeline" else pm.to_module(device="meta")
+        engine = deepspeed_tpu_torch.initialize(
+            model=model, config=_pipe_config(), dist_init_required=True)[0]
+        engine.initialize_parameters(seed)
+        losses, times, launches = _pipe_steps(torch, engine, batches, 3,
+                                              kind == "pipeline")
+        runs[kind] = dict(
+            losses=losses, times=times, launches=launches,
+            type=type(engine).__name__,
+            digest=_digest(torch, engine,
+                           engine.fp32_params()[:engine.zero_plan.numel]),
+            params=engine.zero_plan.numel,
+            peak=torch.cuda.max_memory_allocated())
+        del engine
+        _free(torch)
+    p, b = runs["pipeline"], runs["base"]
+    same = p["losses"] == b["losses"] and p["digest"] == b["digest"]
+    L, steps = PIPE_LAYERS, len(p["losses"])
+    want = dict(flash_attention_fwd=2 * L * PIPE_M * steps,  # remat
+                flash_attention_bwd_dq=L * PIPE_M * steps,
+                flash_attention_bwd_dkv=L * PIPE_M * steps,
+                fused_adam_step=steps)
+    log(f"[pipeline] (b) GPT-3 13B width, {L} blocks, tied embedding and "
+        f"head, {p['params']:,} parameters, S={S}, M={PIPE_M} microbatches "
+        f"of {B}, ZeRO 1, bf16, fusedadam, remat, NCCL world 1: "
+        f"{p['type']} (pp = 1) losses " + ", ".join(
+            f"{x:.6f}" for x in p["losses"]) + f"; the base engine on "
+        f"to_module() " + ", ".join(f"{x:.6f}" for x in b["losses"])
+        + f"; losses and master digest "
+        f"{'bit-equal' if same else 'DIFFER'} | step ms " + ", ".join(
+            f"{t * 1e3:.1f}" for t in p["times"]) + f" (base " + ", ".join(
+            f"{t * 1e3:.1f}" for t in b["times"]) + f") | launches "
+        f"{p['launches']} | {smi}")
+    if p["type"] != "PipelineEngine" or not same or \
+            not all(np.isfinite(p["losses"])):
+        raise AssertionError(f"pipeline at pp = 1 apart from the base "
+                             f"engine: {p['losses']} vs {b['losses']}, "
+                             f"digest equal {p['digest'] == b['digest']}")
+    if p["launches"] != want or b["launches"] != want:
+        raise AssertionError(f"launches {p['launches']} (base "
+                             f"{b['launches']}), want {want}")
+    seconds = time.perf_counter() - t0
+    log(f"[pipeline] stage 29 took {seconds:.1f} s")
+    return dict(attention=dict(launches=launches_a,
+                               errs={n: e for n, (e, _) in errs.items()}),
+                ulysses=ulysses, pipeline=p, base=b, seconds=seconds)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5357,6 +5539,7 @@ def main():
     save_resume = stage_save_resume(args.seed, smi)
     offload = stage_offload(args.seed, smi)
     zeropp = stage_zeropp(args.seed, smi, llama_zero3)
+    pipe = stage_pipeline(args.seed, smi)
 
     entries = []
     for wrapper, case in (("paged_attention", "serve_decode"),
@@ -5443,6 +5626,28 @@ def main():
                                        streamed["flash_attention_bwd_dkv"])
     entries[-1]["launches_offload"] = offload["zero3"]["fusedadam"][
         "offload"]["launches"]["fused_adam_step"]
+    # stage 29: B1 under DistributedAttention (a) and B1, B2 in the
+    # pipeline's steps (b), each counted from 0 around its run; B1 at the
+    # sp = 2 Ulysses shape [1, 2048, 20, 128] under *_ulysses
+    counted, ul = pipe["pipeline"]["launches"], pipe["ulysses"]
+    entries[-3].update(
+        launches_pipeline=counted["flash_attention_fwd"],
+        launches_ulysses=pipe["attention"]["launches"]["flash_attention_fwd"],
+        ms_ulysses=ul["ms_fwd"], plain_ms_ulysses=ul["plain_ms_fwd"],
+        bound_ms_ulysses=ul["bound_fwd"][0], library_ms_ulysses=ul[
+            "library_ms_fwd"], max_abs_err_ulysses=ul["err_fwd"])
+    entries[-2].update(
+        launches_pipeline=(counted["flash_attention_bwd_dq"] +
+                           counted["flash_attention_bwd_dkv"]),
+        launches_ulysses=(
+            pipe["attention"]["launches"]["flash_attention_bwd_dq"] +
+            pipe["attention"]["launches"]["flash_attention_bwd_dkv"]),
+        ms_ulysses=ul["ms_dq"] + ul["ms_dkv"],
+        plain_ms_ulysses=ul["plain_ms_bwd"],
+        bound_ms_ulysses=ul["bound_bwd"][0],
+        library_ms_ulysses=ul["library_ms_bwd"],
+        max_abs_err_ulysses=ul["err_bwd"])
+    entries[-1]["launches_pipeline"] = counted["fused_adam_step"]
     lamb = next(r for r in gpt2_kernels if r["case"] == "lamb_float32")
     lion = next(r for r in gpt2_kernels if r["case"] == "lion_float32")
     opt_src = "deepspeed_tpu_torch/csrc/optimizers.cu"
@@ -5634,7 +5839,7 @@ def main():
                            llama_zero2=llama_zero2,
                            llama_zero3=llama_zero3,
                            save_resume=save_resume, offload=offload,
-                           zeropp=zeropp,
+                           zeropp=zeropp, pipeline=pipe,
                            seconds=time.perf_counter() - t_start),
                       f, indent=1, default=str)
     from deepspeed_tpu_torch import comm

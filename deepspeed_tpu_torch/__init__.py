@@ -18,6 +18,9 @@ files that load at any world size and stage and convert to and from the
 JAX package's universal layout (``checkpoint/``), and offload: optimizer
 state in pinned host memory or on NVMe with the host optimizers, and
 ZeRO-Infinity parameter streaming (``runtime/infinity_engine.py``);
+pipeline parallelism (``runtime/pipe/``: ``PipelineModule`` and the 1F1B
+``PipelineEngine`` on NCCL point-to-point) and Ulysses sequence
+parallelism (``sequence/layer.py``, the pp and sp mesh axes);
 Evoformer attention (the
 bias flash kernels); block-sparse attention (``ops.sparse_attention``, the
 block-sparse kernel); FP6/FP12 weight quantization (``ops.fp_quantizer``,
@@ -40,7 +43,9 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
 
     ``model``: a ``torch.nn.Module`` whose ``forward`` returns the loss when
     given labels (``models.llama.LlamaModel``, ``models.gpt2.GPT2Model``,
-    ``models.bert.BertModel``).
+    ``models.bert.BertModel``), or a ``runtime.pipe.PipelineModule``, which
+    gives a ``runtime.pipe.engine.PipelineEngine`` (JAX
+    ``__init__.py:56-80``; ``offload_param`` is refused there, as in JAX).
     ``optimizer``: None (the config's), or the port's ``FusedAdam``,
     ``FusedLamb``, ``FusedLion`` or ``sgd`` transform.  ``model_parameters``: an
     optional ``{name: tensor}`` of initial (fp32) weights; without it the
@@ -54,12 +59,13 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     more than one rank, or when a world on the device's backend is up;
     ``dist_init_required=False`` needs a world already up.  Otherwise the
     engine is one rank on a local group and pins no backend.
-    ``mesh_param``: ``(dp, sp)`` as in JAX; dp must be the world size, and
-    sp > 1 raises item 9.  ``collate_fn`` (the dataloader) raises.
+    ``mesh_param``: ``(dp, sp)`` as in JAX.  ``mpu`` is accepted and unused,
+    as in JAX.  ``collate_fn`` (the dataloader) raises.
     ``zero_optimization.offload_param`` of cpu or nvme builds the
     parameter-streaming ``runtime.infinity_engine.InfinityEngine``."""
     from .runtime.config import DeepSpeedConfig
     from .runtime.engine import DeepSpeedEngine
+    from .runtime.pipe.module import PipelineModule
 
     if config is None:
         config = config_params
@@ -67,7 +73,15 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
         config = getattr(args, "deepspeed_config", None)
     ds_config = DeepSpeedConfig(config)
     cls = DeepSpeedEngine
-    if ds_config.zero_config.offload_param_device in ("cpu", "nvme"):
+    streaming = ds_config.zero_config.offload_param_device in ("cpu", "nvme")
+    if isinstance(model, PipelineModule):
+        if streaming:
+            raise ValueError(
+                "offload_param (ZeRO-Infinity param streaming) does not "
+                "compose with PipelineModule — the pipeline needs its stage "
+                "weights resident")
+        from .runtime.pipe.engine import PipelineEngine as cls
+    elif streaming:
         # ZeRO-Infinity parameter streaming, at any stage (JAX
         # __init__.py:65-94)
         from .runtime.infinity_engine import InfinityEngine as cls

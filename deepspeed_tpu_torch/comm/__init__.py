@@ -1,7 +1,7 @@
 """The comm layer on ``torch.distributed`` (the port of
-``deepspeed_tpu/comm``).  ``functional.py``, the in-``shard_map`` wrappers
-of Ulysses, MoE and the pipeline, is not ported: its callers are ROADMAP
-queue A items 8 and 9."""
+``deepspeed_tpu/comm``).  ``functional.py`` holds the collectives that run
+inside a forward and backward: Ulysses' differentiable all-to-all and the
+ring shifts."""
 
 from .backend import AsyncHandle, ProcessGroup, TorchBackend
 from .comm import (all_gather, all_gather_coalesced, all_gather_into_tensor,

@@ -23,8 +23,12 @@ the comms logger records the variant it ran and its wire bytes.  The
 ``allgather_fn``/``reduce_scatter_fn`` of ZeRO++ name their own engine
 and wire (``runtime/zero/zeropp.py``).
 
-Not ported: the host object channel ``send_obj``/``recv_obj`` of the
-pipeline (item 9).
+``send_obj``/``recv_obj`` (JAX ``comm.py:436-441``, ``:522-529``) are the
+pipeline's host object channel: a pickled object posted under a key of the
+world's rendezvous store (the JAX package posts it to its coordination
+service's key-value store) and read, then deleted, by the receiver, which
+waits up to ``timeout_s``.  A send never blocks, so a stage can announce a
+shape before the tick whose exchange needs it.
 """
 
 import datetime
@@ -37,7 +41,6 @@ import torch.distributed as dist
 
 from ..utils.comms_logging import CommsLogger, get_msg_size_from_args
 from ..utils.logging import logger
-from ..utils.not_ported import not_ported
 from .backend import AsyncHandle, ProcessGroup, TorchBackend
 from .reduce_op import ReduceOp
 
@@ -221,14 +224,16 @@ def init_distributed(dist_backend=None, auto_mpi_discovery=True,
     (default: the accelerator's, ``get_accelerator()
     .communication_backend_name()``).  A world torch already has is
     adopted; ``dist_init_required=False`` requires one.  A failed init
-    raises: nothing falls back to another backend."""
+    raises: nothing falls back to another backend.  ``mesh``: a
+    ``utils.groups.Mesh`` (or a dict of axis sizes) whose groups are made
+    over the world; every rank passes the same."""
     global cdb
-    if mesh is not None:
-        raise not_ported("init_distributed(mesh=...)", 9)
     if is_initialized():
         if dist_backend is not None and dist_backend != cdb.name:
             raise RuntimeError(f"the comm world runs {cdb.name}; "
                                f"{dist_backend} asked for")
+        if mesh is not None:
+            _install_mesh(mesh)
         configure(config=config)
         return cdb
     if not dist.is_initialized():
@@ -269,10 +274,19 @@ def init_distributed(dist_backend=None, auto_mpi_discovery=True,
                            f"{dist_backend} asked for")
     cdb = TorchBackend(name=dist.get_backend())
     from ..utils import groups
-    if not groups.mesh_is_initialized():
+    if mesh is not None:
+        _install_mesh(mesh)
+    elif not groups.mesh_is_initialized():
         groups.initialize_mesh(user_built=False)
     configure(config=config)
     return cdb
+
+
+def _install_mesh(mesh):
+    """``init_distributed(mesh=...)``: the mesh of those axis sizes."""
+    from ..utils import groups
+    sizes = mesh.shape if isinstance(mesh, groups.Mesh) else dict(mesh)
+    groups.initialize_mesh(**sizes)
 
 
 def initialize_mesh_device(mesh_shape, mesh_axis_names=None):
@@ -519,14 +533,41 @@ def irecv(tensor, src, group=None, tag=0):
                       tag=tag)
 
 
+_obj_send_seq = {}      # (dst, tag) → next sequence number
+_obj_recv_seq = {}      # (src, tag) → next sequence number
+
+
+def _obj_store():
+    _assert_initialized()
+    return dist.distributed_c10d._get_default_store()
+
+
 def send_obj(obj, dst, tag=0):
-    raise not_ported("send_obj/recv_obj (the pipeline's host object "
-                     "channel)", 9)
+    """Send a picklable object to rank ``dst`` (reference ``pipe/p2p.py``
+    ``send_obj``): posted to the world's store, read by :func:`recv_obj`.
+    Does not block."""
+    import pickle
+    me = get_rank()
+    seq = _obj_send_seq.get((dst, tag), 0)
+    _obj_send_seq[(dst, tag)] = seq + 1
+    _obj_store().set(f"ds_p2p/{me}->{dst}/t{tag}/s{seq}",
+                     pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL))
 
 
 def recv_obj(src, tag=0, timeout_s=300):
-    raise not_ported("send_obj/recv_obj (the pipeline's host object "
-                     "channel)", 9)
+    """The next object rank ``src`` sent this rank with ``tag``; waits up
+    to ``timeout_s`` seconds for it, then raises."""
+    import pickle
+    me = get_rank()
+    seq = _obj_recv_seq.get((src, tag), 0)
+    key = f"ds_p2p/{src}->{me}/t{tag}/s{seq}"
+    store = _obj_store()
+    store.wait([key], datetime.timedelta(seconds=timeout_s))
+    _obj_recv_seq[(src, tag)] = seq + 1
+    payload = store.get(key)
+    # consumed: free the store's copy (a long run would keep every one)
+    store.delete_key(key)
+    return pickle.loads(payload)
 
 
 def scatter(tensor, scatter_list=None, src=0, group=None, async_op=False):

@@ -18,6 +18,15 @@ approximation (``nn.gelu``'s default); the tied head runs in ``dtype``
 although the JAX code casts x to fp32 first (``Embed.attend`` promotes both
 operands to the Embed's dtype), and the cross entropy is fp32.  Attention is
 ``ops/attention.py:attention_core`` (kernel B1 on the card).
+
+``use_ulysses`` (``gpt2.py:76``): the forward takes the rank's chunk of the
+sequence, ``wpe`` is read at the chunk's global positions, attention is
+``sequence/layer.py:DistributedAttention`` over the sp group, and the loss
+is the global next-token loss (``llama.lm_loss``).
+
+:func:`pipeline_module` lays the same model out as a ``PipelineModule``
+(the embedding and the tied head, the blocks, the final norm) for
+``runtime/pipe/engine.py``.
 """
 
 from dataclasses import dataclass
@@ -30,7 +39,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attention_core
 from ..utils.not_ported import not_ported
-from .llama import lm_loss, torch_dtype
+from .llama import lm_loss, sequence_chunk, torch_dtype
 
 
 @dataclass(frozen=True)
@@ -46,8 +55,10 @@ class GPT2Config:
     loss_chunk_vocab: int = 0
     # training: recompute each block in the backward (torch.utils.checkpoint)
     remat: bool = True
-    # Ulysses sequence parallelism (not ported: ROADMAP queue A item 9)
+    # Ulysses sequence parallelism over the mesh's sp group;
+    # sp_backend "ring" (ring attention) is ROADMAP queue A item 9b
     use_ulysses: bool = False
+    sp_backend: str = "ulysses"
 
     @property
     def head_dim(self):
@@ -63,6 +74,14 @@ def gpt2_tiny(**overrides):
     return GPT2Config(**{**dict(vocab_size=256, hidden_size=64,
                                 num_hidden_layers=2, num_attention_heads=4,
                                 max_position_embeddings=128), **overrides})
+
+
+def gpt3_13b(**overrides):
+    """GPT-3 13B (``gpt2.py:49``; Brown et al. 2020, table 2.1): 40 layers,
+    d_model 5120, 40 heads of 128, context 2048, GPT-2's vocabulary."""
+    return GPT2Config(**{**dict(vocab_size=50257, hidden_size=5120,
+                                num_hidden_layers=40, num_attention_heads=40,
+                                max_position_embeddings=2048), **overrides})
 
 
 def param_count(cfg: GPT2Config):
@@ -143,12 +162,91 @@ class GPT2Block(nn.Module):
     def forward(self, x, use_kernel=True):
         dt = torch_dtype(self.config.dtype)
         h = self.ln_1(x, dt)
-        attn = attention_core(self.q_proj(h, dt), self.k_proj(h, dt),
-                              self.v_proj(h, dt), causal=True,
-                              use_kernel=use_kernel)
+        q, k, v = self.q_proj(h, dt), self.k_proj(h, dt), self.v_proj(h, dt)
+        if self.config.use_ulysses:
+            from ..sequence.layer import DistributedAttention
+            attn = DistributedAttention()(q, k, v, causal=True,
+                                          use_kernel=use_kernel)
+        else:
+            attn = attention_core(q, k, v, causal=True,
+                                  use_kernel=use_kernel)
         x = x + self.c_proj(attn, dt)
         h = F.gelu(self.c_fc(self.ln_2(x, dt), dt), approximate="tanh")
         return x + self.mlp_proj(h, dt)
+
+
+def _init_module(module, generator, std=0.02):
+    for name, p in module.named_parameters():
+        init_leaf(name, p, generator, std)
+    return module
+
+
+GPT2Block.init_weights = torch.no_grad()(_init_module)
+
+
+class GPT2Embedding(nn.Module):
+    """The pipeline's first layer and, tied, its head: ``wte`` and ``wpe``
+    as in :class:`GPT2Model`; ``forward(ids)`` embeds at the chunk's
+    global positions, ``head(x)`` projects through ``wte``."""
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        self.config = cfg
+        self.wte = Embed(cfg.vocab_size, cfg.hidden_size, device)
+        self.wpe = Embed(cfg.max_position_embeddings, cfg.hidden_size,
+                         device)
+
+    def forward(self, input_ids):
+        dt = torch_dtype(self.config.dtype)
+        _, offset = sequence_chunk(self.config, input_ids.shape[1])
+        ids = input_ids.long()
+        pos = offset + torch.arange(ids.shape[1], device=ids.device)[None]
+        return (F.embedding(ids, self.wte.embedding.to(dt)) +
+                F.embedding(pos, self.wpe.embedding.to(dt)))
+
+    def head(self, x):
+        return F.linear(x, self.wte.embedding.to(x.dtype))
+
+    init_weights = torch.no_grad()(_init_module)
+
+
+class GPT2FinalNorm(nn.Module):
+    """``ln_f``, the pipeline's layer between the blocks and the head."""
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        self.config = cfg
+        self.ln_f = LayerNorm(cfg.hidden_size, cfg.layer_norm_epsilon, device)
+
+    def forward(self, x):
+        return self.ln_f(x, torch_dtype(self.config.dtype))
+
+    init_weights = torch.no_grad()(_init_module)
+
+
+def token_cross_entropy(logits, labels):
+    """The pipeline's loss: fp32 cross entropy averaged over every position
+    of the batch, ``labels`` holding each position's next token (the
+    feeder shifts them), so that it is a uniform per-row mean, as the
+    pipeline's loss contract asks."""
+    from ..sequence.cross_entropy import softmax_cross_entropy_with_logits
+    return softmax_cross_entropy_with_logits(
+        logits, labels.to(logits.device)).mean()
+
+
+def pipeline_module(cfg, **kw):
+    """GPT-2 (or GPT-3, :func:`gpt3_13b`) as a ``PipelineModule``: the
+    embedding, tied to the head, then the blocks, ``ln_f`` and the head;
+    the loss is :func:`token_cross_entropy`.  ``kw`` goes to
+    ``PipelineModule`` (e.g. ``activation_checkpoint_interval=1``)."""
+    from ..runtime.pipe.module import (LayerSpec, PipelineModule,
+                                       TiedLayerSpec)
+    layers = ([TiedLayerSpec("wte", GPT2Embedding, cfg)] +
+              [LayerSpec(GPT2Block, cfg)] * cfg.num_hidden_layers +
+              [LayerSpec(GPT2FinalNorm, cfg),
+               TiedLayerSpec("wte", GPT2Embedding, cfg,
+                             forward_fn=GPT2Embedding.head)])
+    return PipelineModule(layers=layers, loss_fn=token_cross_entropy, **kw)
 
 
 class GPT2Model(nn.Module):
@@ -178,16 +276,15 @@ class GPT2Model(nn.Module):
         if decode:
             raise not_ported("GPT2Model(decode=True) (the KV-cache decode "
                              "path, models/cache.py)", 11)
-        if cfg.use_ulysses:
-            raise not_ported("GPT2Config.use_ulysses (DistributedAttention)",
-                             9)
         if cfg.loss_chunk_vocab and labels is not None:
             raise not_ported("GPT2Config.loss_chunk_vocab > 0 "
                              "(fused_linear_cross_entropy)", 3)
+        sp_group, offset = sequence_chunk(cfg, input_ids.shape[1])
         dt = torch_dtype(cfg.dtype)
         ids = input_ids.long()
         if positions is None:
-            positions = torch.arange(ids.shape[1], device=ids.device)[None]
+            positions = offset + torch.arange(ids.shape[1],
+                                              device=ids.device)[None]
         wte = self.wte.embedding.to(dt)
         x = (F.embedding(ids, wte) +
              F.embedding(positions.long(), self.wpe.embedding.to(dt)))
@@ -202,7 +299,7 @@ class GPT2Model(nn.Module):
         if labels is None:
             return logits
         return lm_loss(logits, labels.to(logits.device), attention_mask,
-                       loss_reduction)
+                       loss_reduction, sp_group)
 
     @torch.no_grad()
     def init_weights(self, generator, std=0.02):

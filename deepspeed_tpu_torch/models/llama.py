@@ -17,6 +17,12 @@ Two paths use it:
   the weight promoted to fp32; rotary runs in fp32; the head computes in
   ``head_dtype`` (or, tied, in the model dtype, as flax ``Embed.attend``
   does); attention is ``ops/attention.py:attention_core``.
+
+With ``use_ulysses`` (``llama.py:73-74``, ``:259-275``) the forward takes
+the rank's chunk of the sequence (``engine.shard_batch`` cuts it): RoPE
+runs at the chunk's global positions, attention is
+``sequence/layer.py:DistributedAttention`` over the sp group (kv at its
+own width), and the next-token loss is the global one (:func:`lm_loss`).
 """
 
 import functools
@@ -67,6 +73,10 @@ class LlamaConfig:
     # training: recompute each block in the backward (torch.utils.checkpoint)
     remat: bool = True
     remat_policy: str = "nothing_saveable"
+    # Ulysses sequence parallelism over the mesh's sp group;
+    # sp_backend "ring" (ring attention) is ROADMAP queue A item 9b
+    use_ulysses: bool = False
+    sp_backend: str = "ulysses"
 
     @property
     def head_dim(self):
@@ -180,29 +190,84 @@ def apply_rotary(x, cos, sin):
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
 
 
-def lm_loss(logits, labels, attention_mask=None, loss_reduction="mean"):
+def lm_loss(logits, labels, attention_mask=None, loss_reduction="mean",
+            sp_group=None):
     """Shifted next-token cross entropy (``llama.py:178 _lm_loss``): mean
     over positions, or over the positions the mask keeps.
     ``loss_reduction="sum_count"`` returns the sum and the count instead
     (fp32 0-dim tensors), which the engine turns into the mean over every
-    rank's rows (``runtime/engine.py``)."""
-    loss = softmax_cross_entropy_with_logits(logits[:, :-1], labels[:, 1:])
-    if attention_mask is not None:
-        m = attention_mask[:, 1:].float()
+    rank's rows (``runtime/engine.py``).
+
+    ``sp_group`` of more than one rank: ``logits``, ``labels`` and the mask
+    are this rank's chunk of the sequence.  The shift crosses chunks, so
+    the targets are the chunk of the global ``labels[:, 1:]`` (labels and
+    mask gathered over the group, a few bytes a token), the global last
+    position masked; "mean" is then the global mean, whose gradient is this
+    chunk's share of it (summed over the group, the global gradient)."""
+    sp = sp_group is not None and sp_group.size() > 1
+    if sp:
+        logits, labels, m = _sp_targets(logits, labels, attention_mask,
+                                        sp_group)
+        loss = softmax_cross_entropy_with_logits(logits, labels)
         total, count = (loss * m).sum(), m.sum()
     else:
-        total = loss.sum()
-        # filled on the device: no copy from the host, no wait for it
-        count = torch.full((), float(loss.numel()), dtype=torch.float32,
-                           device=loss.device)
+        loss = softmax_cross_entropy_with_logits(logits[:, :-1],
+                                                 labels[:, 1:])
+        if attention_mask is not None:
+            m = attention_mask[:, 1:].float()
+            total, count = (loss * m).sum(), m.sum()
+        else:
+            total = loss.sum()
+            # filled on the device: no copy from the host, no wait for it
+            count = torch.full((), float(loss.numel()), dtype=torch.float32,
+                               device=loss.device)
     if loss_reduction == "sum_count":
         return total, count
     if loss_reduction != "mean":
         raise ValueError(f"loss_reduction {loss_reduction!r}: 'mean' or "
                          "'sum_count'")
+    if sp:
+        from .. import comm as dist
+        both = dist.all_reduce(torch.stack([total.detach(), count]),
+                               group=sp_group)
+        return (total + (both[0] - total.detach())) / torch.clamp(both[1],
+                                                                  min=1.0)
     if attention_mask is not None:
         return total / torch.clamp(count, min=1.0)
     return loss.mean()
+
+
+def _sp_targets(logits, labels, attention_mask, group):
+    """(logits, the chunk's targets, its fp32 weights) for the rank's
+    sequence chunk: the global ``labels[:, 1:]`` and mask ``[:, 1:]``
+    (ones without a mask) padded by one masked position and cut at the
+    chunk."""
+    from .. import comm as dist
+    c, q = labels.shape[1], group.rank()
+    group = group.as_flat()    # plain gathers, never a quantized wire
+    full = dist.all_gather(labels.contiguous(), group=group, axis=1)
+    m = (torch.ones_like(full, dtype=torch.float32) if attention_mask is None
+         else dist.all_gather(attention_mask.float().contiguous(),
+                              group=group, axis=1))
+    tgt = F.pad(full[:, 1:], (0, 1))[:, q * c:(q + 1) * c]
+    m = F.pad(m[:, 1:], (0, 1))[:, q * c:(q + 1) * c]
+    return logits, tgt.to(logits.device), m.to(logits.device)
+
+
+def sequence_chunk(cfg, chunk_len):
+    """(sp group, the chunk's first global position) of a model config:
+    (None, 0) without ``use_ulysses``.  ``sp_backend="ring"`` raises."""
+    if not cfg.use_ulysses:
+        return None, 0
+    if cfg.sp_backend == "ring":
+        raise not_ported("sp_backend='ring' (ring attention, "
+                         "sequence/ring_attention.py)", "9b")
+    if cfg.sp_backend != "ulysses":
+        raise ValueError(f"sp_backend {cfg.sp_backend!r}: 'ulysses' or "
+                         "'ring'")
+    from ..utils import groups
+    group = groups._get_sequence_parallel_group()
+    return group, group.rank() * chunk_len
 
 
 def _dense(x, lin, dtype):
@@ -278,7 +343,9 @@ class LlamaAttention(nn.Module):
 
     def forward(self, x, cos, sin, use_kernel=True):
         """x: [B, S, D] → [B, S, D]; causal (and windowed) self-attention.
-        GQA repeats the kv heads up to H first (``llama.py:279-282``)."""
+        GQA repeats the kv heads up to H first (``llama.py:279-282``);
+        under Ulysses kv goes to ``DistributedAttention`` at its own width
+        (cos/sin then start at the chunk's first position)."""
         cfg = self.config
         dt = torch_dtype(cfg.dtype)
         B, S, _ = x.shape
@@ -289,11 +356,18 @@ class LlamaAttention(nn.Module):
         k = apply_rotary(_dense(x, self.k_proj, dt).view(B, S, Hkv, Dh), cos,
                          sin)
         v = _dense(x, self.v_proj, dt).view(B, S, Hkv, Dh)
-        if Hkv != H:
-            k = k.repeat_interleave(H // Hkv, dim=2)
-            v = v.repeat_interleave(H // Hkv, dim=2)
-        out = attention_core(q, k, v, causal=True, window=cfg.sliding_window,
-                             use_kernel=use_kernel)
+        if cfg.use_ulysses:
+            from ..sequence.layer import DistributedAttention
+            out = DistributedAttention()(q, k, v, causal=True,
+                                         window=cfg.sliding_window,
+                                         use_kernel=use_kernel)
+        else:
+            if Hkv != H:
+                k = k.repeat_interleave(H // Hkv, dim=2)
+                v = v.repeat_interleave(H // Hkv, dim=2)
+            out = attention_core(q, k, v, causal=True,
+                                 window=cfg.sliding_window,
+                                 use_kernel=use_kernel)
         return _dense(out.reshape(B, S, H * Dh), self.o_proj, dt)
 
 
@@ -370,12 +444,15 @@ class LlamaModel(nn.Module):
         dtype, or, with ``labels``, the shifted cross-entropy loss (fp32
         scalar; ``attention_mask`` weights it and does not enter attention,
         as in the JAX model; ``loss_reduction``: :func:`lm_loss`).
-        ``use_kernel=False`` runs attention's plain version on any device."""
+        ``use_kernel=False`` runs attention's plain version on any device.
+        ``use_ulysses``: the inputs are the rank's sequence chunk (module
+        docstring)."""
         cfg = self.config
         dt = torch_dtype(cfg.dtype)
         if cfg.loss_chunk_vocab and labels is not None:
             raise not_ported("LlamaConfig.loss_chunk_vocab > 0 "
                              "(fused_linear_cross_entropy)", 3)
+        sp_group, offset = sequence_chunk(cfg, input_ids.shape[1])
         remat = cfg.remat and torch.is_grad_enabled()
         if remat and cfg.remat_policy not in _FULL_REMAT_POLICIES:
             raise not_ported(f"remat_policy {cfg.remat_policy!r}", 3)
@@ -383,6 +460,7 @@ class LlamaModel(nn.Module):
         x = F.embedding(input_ids.long(), body.embed_tokens.weight.to(dt))
         cos, sin = rope_tables(cfg.head_dim, cfg.max_position_embeddings,
                                cfg.rope_theta, cfg.rope_scaling, x.device)
+        cos, sin = cos[offset:], sin[offset:]
         for layer in body.layers:
             if remat:
                 x = checkpoint(layer, x, cos, sin, use_kernel,
@@ -400,7 +478,7 @@ class LlamaModel(nn.Module):
         if labels is None:
             return logits
         return lm_loss(logits, labels.to(logits.device), attention_mask,
-                       loss_reduction)
+                       loss_reduction, sp_group)
 
     def streaming_parts(self):
         """ZeRO-Infinity's view of the model (``runtime/zero/infinity.py``;

@@ -12,7 +12,9 @@ dynamic loss scaling), ``optimizer``, ``scheduler``,
 ``use_node_local_storage``), ``comms_logger``, ``comm_optimizations``
 (the collectives engine, its wire ladder, ``zero_mode`` and the
 ``overlap``/``prefetch`` schedulers, with JAX's validation),
-``wall_clock_breakdown``, ``mesh.dp``, ``sequence_length`` and ``seed``.
+``wall_clock_breakdown``, ``mesh`` (``pp``, ``dp``, ``sp``),
+``sequence_parallel_size``, ``pipeline`` (JAX's ``PipelineConfig``),
+``sequence_length`` and ``seed``.
 
 A key that turns on a feature this port does not have yet raises
 ``NotImplementedError`` naming its ROADMAP queue-A item
@@ -110,6 +112,20 @@ class CheckpointIntegrityConfig(DeepSpeedConfigModel):
     keep_n: int = 0
     save_retries: int = 3
     retry_backoff: float = 0.25
+
+
+class PipelineConfig(DeepSpeedConfigModel):
+    """The ``pipeline`` block (JAX ``config.py:314``).  ``stages`` (an int)
+    gives the pipeline degree where ``mesh.pp`` does not; the rest parse,
+    as in JAX, whose engine reads none of them (the ``PipelineModule``
+    carries its own ``activation_checkpoint_interval``)."""
+    stages: object = "auto"
+    partition: str = "best"
+    seed_layers: bool = False
+    activation_checkpoint_interval: int = 0
+    pipe_partitioned: bool = True
+    grad_partitioned: bool = True
+    schedule: str = "1f1b"
 
 
 class CommsLoggerConfig(DeepSpeedConfigModel):
@@ -248,27 +264,25 @@ def _check_integrity(cfg):
 
 
 def _mesh_dims(pd):
+    """The mesh axes sizes the config asks for, tp's key folded in."""
     mesh = dict(pd.get("mesh") or {})
-    # dp is the world (utils/groups.py); the engine checks a given size
-    dims = {k: v for k, v in mesh.items() if k != "dp" and v not in (None, 1)}
     tp = (pd.get("tensor_parallel") or {}).get("tp_size", 1)
     if tp not in (None, 1):
-        dims["tp"] = tp
+        mesh["tp"] = tp
     if pd.get("sequence_parallel_size", 1) not in (None, 1):
-        dims["sp"] = pd["sequence_parallel_size"]
-    return dims
+        mesh["sp"] = pd["sequence_parallel_size"]
+    return mesh
 
 
 # (what, queue-A item, predicate on the raw config dict)
 _UNPORTED = (
-    ("a device mesh beyond one data-parallel rank (mesh, tensor_parallel, "
-     "sequence_parallel_size)", 9, lambda pd: bool(_mesh_dims(pd))),
-    ("pipeline parallelism", 9,
-     lambda pd: (pd.get("pipeline") or {}).get("stages", "auto") not in (
-         "auto", 1)),
+    ("tensor parallelism (mesh.tp, tensor_parallel.tp_size)", "9b",
+     lambda pd: _mesh_dims(pd).get("tp") not in (None, 1)),
+    ("expert parallelism (mesh.ep)", 8,
+     lambda pd: _mesh_dims(pd).get("ep") not in (None, 1)),
     ("moe", 8, lambda pd: _on(pd.get("moe"), "enabled")),
-    ("domino", 9, lambda pd: _on(pd.get("domino"), "enabled")),
-    ("activation_checkpointing (partitioned/CPU/contiguous)", 9,
+    ("domino", "9b", lambda pd: _on(pd.get("domino"), "enabled")),
+    ("activation_checkpointing (partitioned/CPU/contiguous)", "9b",
      lambda pd: _on(pd.get("activation_checkpointing"),
                     "partition_activations", "cpu_checkpointing",
                     "contiguous_memory_optimization", "number_checkpoints")),
@@ -362,7 +376,25 @@ class DeepSpeedConfig:
         _check_comm_optimizations(self.comm_optimizations_config)
         self.wall_clock_breakdown = bool(pd.get("wall_clock_breakdown",
                                                 False))
-        self.mesh_dp = (pd.get("mesh") or {}).get("dp")
+        mesh = pd.get("mesh") or {}
+        self.mesh_dp = mesh.get("dp")
+        sps = {int(v) for v in (mesh.get("sp"),
+                                pd.get("sequence_parallel_size"))
+               if v not in (None, 1)}
+        if len(sps) > 1:
+            raise DeepSpeedConfigError(
+                f"mesh.sp={mesh.get('sp')} and sequence_parallel_size="
+                f"{pd.get('sequence_parallel_size')} disagree")
+        self.mesh_sp = sps.pop() if sps else 1
+        self.pipeline_config = PipelineConfig(**pd.get("pipeline", {}) or {})
+        stages = self.pipeline_config.stages
+        self.mesh_pp = int(mesh.get("pp") or 1)
+        if isinstance(stages, int) and stages > 1:
+            if self.mesh_pp not in (1, stages):
+                raise DeepSpeedConfigError(
+                    f"mesh.pp={self.mesh_pp} and pipeline.stages={stages} "
+                    "disagree")
+            self.mesh_pp = stages
         self.fp16_config = FP16Config(**pd.get("fp16", {}) or {})
         self.bf16_config = BF16Config(
             **pd.get("bfloat16", pd.get("bf16", {})) or {})

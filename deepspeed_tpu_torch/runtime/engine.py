@@ -68,6 +68,14 @@ group (:meth:`DeepSpeedEngine._init_comm`):
   kernels update in place; nvme keeps them in files between steps, with
   the host optimizer step; ``offload_states``/``reload_states``.
   ``offload_param`` (parameter streaming) is ``runtime/infinity_engine.py``.
+* Sequence parallelism (``sequence_parallel_size``, ``mesh.sp`` or
+  ``mesh_param=(dp, sp)``): ``shard_batch`` gives each rank its dp rows
+  and its sp chunk of the sequence (JAX ``engine.py:1058-1064``), the model
+  runs Ulysses over the sp group (``use_ulysses``), and the gradients and
+  the ZeRO shards span the sequence-data-parallel group, dp × sp (JAX
+  ``:281``): the engine's data group below.  The pipeline engine
+  (``runtime/pipe/engine.py``) trains one stage a rank over its own data
+  group.
 * The loss over the global batch: the JAX engine runs one program on the
   global batch, whose loss is the masked mean over every rank's rows.  A
   model whose ``forward`` takes ``loss_reduction`` hands back the masked
@@ -209,6 +217,10 @@ class _OptimizerFacade:
 
 class DeepSpeedEngine(OffloadMixin):
 
+    # the mesh's other axes (set by _init_comm)
+    pp_world_size, stage_id = 1, 0
+    seq_parallel_world_size, seq_parallel_rank = 1, 0
+
     def __init__(self, args=None, model=None, optimizer=None,
                  model_parameters=None, training_data=None,
                  lr_scheduler=None, collate_fn=None, config=None, mpu=None,
@@ -216,25 +228,24 @@ class DeepSpeedEngine(OffloadMixin):
                  distributed_port=29500):
         if not isinstance(config, DeepSpeedConfig):
             config = DeepSpeedConfig(config)
-        if not isinstance(model, torch.nn.Module):
-            raise TypeError("model must be a torch.nn.Module")
-        if mpu is not None:
-            raise not_ported("initialize(mpu=...) (model parallelism)", 9)
+        # mpu (reference model-parallel unit): accepted and unused, as in
+        # JAX (engine.py:194-242); the mesh carries the topology
         if training_data is not None or collate_fn is not None:
             raise not_ported("initialize(training_data=..., collate_fn=...) "
                              "(the dataloader)", 4)
         self._config = config
         self.device = resolve_device(device)
-        self.module = model
         self.training = True
         self.global_steps = 0
         self.global_samples = 0
         self.micro_steps = 0
-        self._init_comm(mesh_param, dist_init_required, distributed_port)
+        self._init_comm(mesh_param, dist_init_required, distributed_port,
+                        model)
         if self.device.type == "cuda" and torch.device(
                 device or "cuda").index is None:
             # NCCL's init bound this process to its LOCAL_RANK card
             self.device = resolve_device(device)
+        self.module = model = self._build_module(model)
         config.resolve_batch_sizes(self.dp_world_size)
 
         self.compute_dtype = (torch.bfloat16 if config.bfloat16_enabled
@@ -255,7 +266,7 @@ class DeepSpeedEngine(OffloadMixin):
         self._loss_fn = make_scaled_loss_fn(model,
                                             self.gradient_accumulation_steps())
         # the loss over the global batch (module docstring)
-        self._global_loss = self.dp_world_size > 1 and "loss_reduction" in \
+        self._global_loss = self._data_world > 1 and "loss_reduction" in \
             inspect.signature(model.forward).parameters
         self.timers = (SynchronizedWallClockTimer(accelerator_for(
             self.device)) if config.wall_clock_breakdown else NoopTimer())
@@ -291,61 +302,117 @@ class DeepSpeedEngine(OffloadMixin):
                      f"params={count_parameters(self.module):,}", ranks=[0])
 
     # ------------------------------------------------------------------ setup
-    def _init_comm(self, mesh_param, dist_init_required, distributed_port):
-        """The comm world (``engine.py:225-246``) and the data-parallel
-        degree, rank and group.  The world (on the backend the engine's
-        device needs) comes up when the caller asks for it
+    def _build_module(self, model):
+        """The ``nn.Module`` this engine trains (the pipeline engine: its
+        stage's layers)."""
+        if not isinstance(model, torch.nn.Module):
+            raise TypeError("model must be a torch.nn.Module")
+        if self.pp_world_size > 1:
+            raise ValueError(
+                f"mesh pp={self.pp_world_size} trains a PipelineModule: "
+                "initialize(model=PipelineModule(...))")
+        return model
+
+    def _requested_mesh(self, mesh_param, model):
+        """(pp, sp) the config and ``mesh_param=(dp, sp)`` ask for."""
+        sp = self._config.mesh_sp
+        if mesh_param is not None and len(tuple(mesh_param)) > 1:
+            want = tuple(mesh_param)[1]
+            if want not in (None, 1):
+                if sp not in (1, want):
+                    raise ValueError(f"mesh_param sp={want} but the config "
+                                     f"asks for sp={sp}")
+                sp = int(want)
+        return self._config.mesh_pp, sp
+
+    def _init_comm(self, mesh_param, dist_init_required, distributed_port,
+                   model=None):
+        """The comm world (``engine.py:225-246``), the mesh and this
+        engine's groups.  The world (on the backend the engine's device
+        needs) comes up when the caller asks for it
         (``dist_init_required``), when the environment describes more than
         one rank, or when one on that backend is already up.  Otherwise the
         engine is one rank on a local group: no process-wide backend is
-        pinned, and its collectives are the one-rank identities."""
+        pinned, and its collectives are the one-rank identities.  The mesh
+        takes the config's pp and sp (and hpZ/MiCS's shard groups); a mesh
+        built before with other sizes is rebuilt (every rank builds it)."""
         dp_want = [self._config.mesh_dp]
         if mesh_param is not None:
-            dp, *rest = tuple(mesh_param)
-            if rest and rest[0] not in (None, 1):
-                raise not_ported("initialize(mesh_param=(dp, sp)) with sp > "
-                                 "1 (sequence parallelism)", 9)
-            dp_want.append(dp)
+            dp_want.append(tuple(mesh_param)[0])
+        pp, sp = self._requested_mesh(mesh_param, model)
         backend = "nccl" if self.device.type == "cuda" else "gloo"
         zp = check_shard_sizes(self._config.zero_config)
         if (dist_init_required is None and dist.env_world_size() == 1
                 and not dist.world_is_up(backend)):
+            if pp * sp > 1:
+                raise ValueError(f"pp={pp} × sp={sp} needs a world of that "
+                                 "many ranks; this process has none (pass "
+                                 "dist_init_required=True or launch ranks)")
             dist.configure(config=self._config)
             self.dp_world_size, self.dp_rank = 1, 0
             if zp is not None:
                 raise ValueError(
                     f"zero_partition_size={zp} must divide dp=1")
-            self._dp_group = dist.ProcessGroup(groups.dp_axes(), local=True)
+            local = dist.ProcessGroup(groups.dp_axes(), local=True)
+            self._dp_group = local
+            self._sp_group = self._pp_group = local
         else:
             premade = groups.mesh_is_initialized() and \
                 groups.get_mesh_state().user_built
             dist.init_distributed(
                 dist_backend=backend, distributed_port=distributed_port,
                 dist_init_required=dist_init_required, config=self._config)
-            have = groups.get_mesh_state().zero_partition_size
-            if zp is not None and have != zp:
-                if premade:
-                    # a pre-built mesh without the matching factoring would
-                    # silently drop hpZ/MiCS (JAX engine.py:230-238)
-                    raise ValueError(
-                        f"config requests zero partition groups of {zp} but "
-                        f"the mesh was pre-initialized with "
-                        f"zero_partition_size={have}; pass "
-                        "zero_partition_size to groups.initialize_mesh()")
-                groups.initialize_mesh(zero_partition_size=zp,
+            st = groups.get_mesh_state()
+            if premade:
+                # sizes the config leaves at 1 merge from the user's mesh
+                pp = pp if pp > 1 else st.pp
+                sp = sp if sp > 1 else st.sp
+            if dist.get_world_size() % (pp * sp):
+                raise ValueError(f"pp={pp} × sp={sp} does not divide the "
+                                 f"world of {dist.get_world_size()} ranks")
+            if zp is not None and st.zero_partition_size != zp and premade:
+                # a pre-built mesh without the matching factoring would
+                # silently drop hpZ/MiCS (JAX engine.py:230-238)
+                raise ValueError(
+                    f"config requests zero partition groups of {zp} but "
+                    f"the mesh was pre-initialized with "
+                    f"zero_partition_size={st.zero_partition_size}; pass "
+                    "zero_partition_size to groups.initialize_mesh()")
+            if (st.zero_partition_size != zp and zp is not None) or \
+                    (st.pp, st.sp) != (pp, sp):
+                if (st.pp, st.sp) != (pp, sp) and premade:
+                    logger.warning(
+                        f"mesh built as pp={st.pp} sp={st.sp}; the config "
+                        f"asks for pp={pp} sp={sp}: rebuilding it")
+                groups.initialize_mesh(pp=pp, sp=sp,
+                                       zero_partition_size=zp,
                                        user_built=False)
                 dist.configure(config=self._config)
             self.dp_world_size = groups._get_data_parallel_world_size()
             self.dp_rank = groups._get_data_parallel_rank()
-            # the engine's own collectives take the wires its plan chooses
-            self._dp_group = groups._get_data_parallel_group().as_flat()
+            # the engine's own collectives take the wires its plan chooses;
+            # gradients reduce and ZeRO shards over dp × sp
+            self._dp_group = \
+                groups._get_sequence_data_parallel_group().as_flat()
+            self._sp_group = groups._get_sequence_parallel_group()
+            self._pp_group = groups._get_pipe_parallel_group()
         for want in dp_want:
             if want not in (None, -1) and want != self.dp_world_size:
                 raise ValueError(f"mesh dp={want} but the world has "
                                  f"{self.dp_world_size} ranks")
+        self.seq_parallel_world_size = self._sp_group.size()
+        self.seq_parallel_rank = self._sp_group.rank()
+        self.pp_world_size = self._pp_group.size()
+        self.stage_id = self._pp_group.rank()
         self._zcomm = ZeroComm(self._config, self._config.zero_config.stage,
                                self._dp_group)
         self._shard_group = self._zcomm.shard_group
+
+    @property
+    def _data_world(self):
+        """The size of the data group, the ranks whose gradients sum and
+        over which ZeRO shards (dp × sp; ``_dp_group``)."""
+        return self.dp_world_size * self.seq_parallel_world_size
 
     def _tie(self):
         """Let the module share what it shares (``tie_weights``: a tied LM
@@ -433,7 +500,10 @@ class DeepSpeedEngine(OffloadMixin):
         shard group), with hpZ's parameter partition and the wires of
         ``comm_optimizations``."""
         zc, zcomm = self._config.zero_config, self._zcomm
-        world, rank = self.dp_world_size, self.dp_rank
+        # the data group's rank: its coordinates (dp, sp), most-major first
+        world = self._data_world
+        rank = self.dp_rank * self.seq_parallel_world_size + \
+            self.seq_parallel_rank
         if zcomm.mics:
             world, rank = self._shard_group.size(), self._shard_group.rank()
         plan = ZeroPartitionPlan(
@@ -829,7 +899,7 @@ class DeepSpeedEngine(OffloadMixin):
             scaled, loss = self._global_batch_loss(*inputs, **kwargs)
         else:
             scaled, loss = self._loss_fn(self.cur_scale, *inputs, **kwargs)
-            if self.dp_world_size > 1:
+            if self._data_world > 1:
                 loss = dist.all_reduce(loss.detach().float().clone(),
                                        op=ReduceOp.AVG, group=self._dp_group)
         self._pending_loss = scaled
@@ -871,7 +941,7 @@ class DeepSpeedEngine(OffloadMixin):
         if self._coord is not None:
             self._backward_bucketed()
         else:
-            self._pending_loss.backward()
+            self._autograd()
             if self.zero_stage >= 2:
                 self._fold_and_reduce_scatter()
             else:
@@ -897,10 +967,15 @@ class DeepSpeedEngine(OffloadMixin):
                                         device=self.device)
         self._coord.start_backward(self.grad_acc, self._acc_fresh)
         try:
-            self._pending_loss.backward()
+            self._autograd()
         finally:
             self._coord.in_backward = False
         self._coord.finish_backward()
+
+    def _autograd(self):
+        """The micro-step's backward pass: autograd of the stashed, scaled
+        loss."""
+        self._pending_loss.backward()
 
     def _fold(self, buf, fresh):
         """The module's gradients into the flat ``buf`` (copied when
@@ -976,18 +1051,14 @@ class DeepSpeedEngine(OffloadMixin):
         optimizer, skip, scaler update (``engine.py:1469-1535``)."""
         fp16, guard = self._config.fp16_enabled, self._finite_guard.enabled
         grads = self._reduced_grads()
-        world = self.dp_world_size
+        world = self._data_world
         # 1/scale (a power of two for the dynamic scaler) and, for a mean
         # of the ranks' means, 1/world, applied to the norm and, through
         # the optimizer's gradient scale, to the update
         inv = np.float32(1.0) / np.float32(self.scale_state.scale)
         if world > 1 and not self._global_loss:
             inv = inv * np.float32(1.0 / world)
-        if self.zero_plan.sharded and self.zero_plan.world_size > 1:
-            gnorm = self._sharded_norm(grads)
-        else:
-            # every rank holds the whole summed gradient
-            gnorm = global_grad_norm([grads])
+        gnorm = self._grad_norm(grads)
         if inv != 1:
             gnorm = gnorm * torch.tensor(inv, device=gnorm.device)
         overflow = skip = False
@@ -998,10 +1069,7 @@ class DeepSpeedEngine(OffloadMixin):
             if guard:
                 flags = torch.cat([flags, (gnorm > self._spike_limit())
                                    .reshape(1)])
-            if world > 1:
-                flags = dist.all_reduce(flags.float(), op=ReduceOp.MAX,
-                                        group=self._dp_group)
-            flags = flags.cpu()
+            flags = self._agree_flags(flags).cpu()
             overflow = bool(flags[0])
             skip = bool(flags.any())
         if not skip:
@@ -1050,6 +1118,20 @@ class DeepSpeedEngine(OffloadMixin):
                 self._zcomm.gather_shard(self.params[lo:hi],
                                          self._pshard[a:b])
 
+    def _grad_norm(self, grads):
+        """The L2 norm of the summed gradient (before unscaling)."""
+        if self.zero_plan.sharded and self.zero_plan.world_size > 1:
+            return self._sharded_norm(grads)
+        # every rank holds the whole summed gradient
+        return global_grad_norm([grads])
+
+    def _agree_flags(self, flags):
+        """The skip flags, every rank's (MAX), so that all skip together."""
+        if self._data_world > 1:
+            flags = dist.all_reduce(flags.float(), op=ReduceOp.MAX,
+                                    group=self._dp_group)
+        return flags
+
     def _reduced_grads(self):
         """The summed gradient this rank updates with: the accumulator, its
         reduce-scattered shard (stage 1; in fp32), or, at world > 1 without
@@ -1058,10 +1140,13 @@ class DeepSpeedEngine(OffloadMixin):
         grads = self.grad_acc
         if self.zero_stage == 1:
             full = grads if grads.dtype == torch.float32 else grads.float()
-            shard = torch.empty(self.zero_plan.shard_numel,
-                                dtype=torch.float32, device=self.device)
+            # a shard group of one rank: the shard is the whole buffer,
+            # reduced in place (no second fp32 buffer of the model's size)
+            shard = (full if self.zero_plan.world_size == 1 else
+                     torch.empty(self.zero_plan.shard_numel,
+                                 dtype=torch.float32, device=self.device))
             return self._zcomm.reduce_scatter(shard, full)
-        if self.zero_stage == 0 and self.dp_world_size > 1:
+        if self.zero_stage == 0 and self._data_world > 1:
             return dist.all_reduce(grads, group=self._dp_group)
         return grads
 
@@ -1130,9 +1215,12 @@ class DeepSpeedEngine(OffloadMixin):
 
     def shard_batch(self, *inputs):
         """This rank's rows of a global batch (``engine.py:1067``): rank r
-        takes rows ``[r·B, (r+1)·B)``, B = rows / data-parallel degree, on
-        the engine's device."""
+        takes rows ``[r·B, (r+1)·B)``, B = rows / data-parallel degree, and
+        under sequence parallelism (JAX ``:1058-1064``) sp rank q the
+        positions ``[q·C, (q+1)·C)`` of dim 1, C = S / sp, on the engine's
+        device."""
         w, r = self.dp_world_size, self.dp_rank
+        sp, q = self.seq_parallel_world_size, self.seq_parallel_rank
         out = []
         for x in inputs:
             t = x if isinstance(x, torch.Tensor) else torch.as_tensor(
@@ -1148,6 +1236,14 @@ class DeepSpeedEngine(OffloadMixin):
                         f"rows per micro-step (shape {shape})")
                 b = shape[0] // w
                 t = t[r * b:(r + 1) * b]
+            if sp > 1 and len(shape) >= 2:
+                if shape[1] % sp:
+                    raise ValueError(
+                        f"sequence dim {shape[1]} is not divisible by the "
+                        f"sequence-parallel degree {sp} (mesh sp) — pad "
+                        f"the sequence (shape {shape})")
+                c = shape[1] // sp
+                t = t[:, q * c:(q + 1) * c]
             out.append(self._to_device(t))
         return tuple(out)
 
@@ -1164,6 +1260,7 @@ class DeepSpeedEngine(OffloadMixin):
         leaf, so there is none to exclude."""
         from .checkpoint_engine import save_engine_checkpoint
         self._refuse_shard_groups("save_checkpoint")
+        self._refuse_model_parallel("save_checkpoint")
         self._check_params()
         self.wait_for_checkpoint()   # one pending async save at a time
         with self._state_on_host(write_back=False):
@@ -1201,6 +1298,7 @@ class DeepSpeedEngine(OffloadMixin):
         ``custom_load_fn(src=module state, dst=module)`` replaces the
         module's load (stages 0-2).  Every rank calls it."""
         self._refuse_shard_groups("load_checkpoint")
+        self._refuse_model_parallel("load_checkpoint")
         if custom_load_fn is not None and self.zero_stage == 3:
             raise ValueError("load_checkpoint(custom_load_fn=...) needs the "
                              "whole parameters: ZeRO stages 0-2")
@@ -1360,6 +1458,12 @@ class DeepSpeedEngine(OffloadMixin):
             ("prefetch", cfg.prefetch_enabled and stage3),
             ("qwZ", self._zcomm.qwz)) if on]
         return "+".join(parts) if parts else "flat"
+
+    def _refuse_model_parallel(self, what):
+        """Checkpoints of a pipeline stage or an sp group (upstream's
+        ``layer_XX-model_states`` files) are item 9b."""
+        if self.pp_world_size > 1 or self.seq_parallel_world_size > 1:
+            raise not_ported(f"{what} with pp or sp > 1", "9b")
 
     def _refuse_shard_groups(self, what):
         if self._zcomm.hpz or self._zcomm.mics:

@@ -131,7 +131,7 @@ class InfinityEngine(DeepSpeedEngine):
         self._store = None
         self._pending_install = None
         super().__init__(*args, **kwargs)
-        if self.dp_world_size > 1:
+        if self._data_world > 1:
             raise not_ported("ZeRO-Infinity parameter streaming at world "
                              "size > 1", 10)
         oo = zc.offload_optimizer

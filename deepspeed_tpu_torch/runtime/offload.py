@@ -40,6 +40,7 @@ import time
 import numpy as np
 import torch
 
+from .. import comm as dist
 from ..utils.logging import log_dist
 from .config import ADAM_OPTIMIZERS, LION_OPTIMIZER
 
@@ -84,7 +85,7 @@ class OffloadMixin:
             base = zc.offload_optimizer.nvme_path or os.path.join(
                 tempfile.gettempdir(), "ds_tpu_nvme")
             swap_dir = os.path.join(str(base), f"zero_stage_{zc.stage}",
-                                    f"rank{self.dp_rank}")
+                                    f"rank{dist.get_rank()}")
             self._nvme_swapper = PartitionedOptimizerSwapper(swap_dir)
             log_dist(f"NVMe optimizer-state offload → {swap_dir}", ranks=[0])
 
@@ -236,7 +237,7 @@ class OffloadMixin:
         kind = self._host_step_kind()
         if kind is None or self._config.fp16_enabled or \
                 self._host_offloaded or self._finite_guard.enabled or \
-                self.dp_world_size > 1:
+                self._data_world > 1:
             return None
         from ..ops import cpu_optimizers as K
         g = self._reduced_grads().detach().to("cpu", torch.float32,

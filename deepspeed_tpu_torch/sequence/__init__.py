@@ -1,0 +1,1 @@
+from .layer import DistributedAttention, UlyssesAttention, single_all_to_all

@@ -2,22 +2,30 @@
 reference ``deepspeed/utils/groups.py``).
 
 The JAX package builds one 5-axis mesh ``(pp, dp, ep, sp, tp)``.  Here the
-same axes are sizes over the ``torch.distributed`` world, and a group is a
-torch process group with the axis names it spans.  Only data parallelism is
-ported: any other axis of size > 1 raises ROADMAP queue A item 9, as the
-config's ``mesh`` keys do (``runtime/config.py:_mesh_dims``).  The
-data-parallel group is then the world.
+same axes are sizes over the ``torch.distributed`` world, in the same
+order, most-major first: rank r's coordinates are those of the r-th
+device of JAX's mesh (``rank = (((pp·DP + dp)·EP + ep)·SP + sp)·TP +
+tp``).  A group is a torch process group with the axis names it spans:
+the ranks that differ from this one only along those axes.  pp, dp and sp
+are ported; tp > 1 raises ROADMAP queue A item 9b and ep > 1 item 8, as
+the config's ``mesh`` keys do (``runtime/config.py``).
+
+``torch.distributed.new_group`` is collective: every rank makes every
+subgroup once, in the same order, here, at mesh init (the pipeline's, the
+sequence-parallel ones, the sequence-data-parallel ones ZeRO shards over,
+hpZ's and MiCS's).  A group of one rank is local (no process group), and
+one of every rank is the world.
 
 ``zero_partition_size`` (hpZ's secondary partition and MiCS's shard
 groups, JAX ``groups.py:171-182``) factors dp into ``zp_outer × zp``: the
 ``zp`` groups of consecutive ranks and the ``zp_outer`` groups of the
 ranks ``zp`` apart, the torch counterparts of the JAX hpZ mesh's axes.
 The collectives engine's hierarchies are the same kind of pair
-(:func:`factor_groups`).  ``torch.distributed.new_group`` is collective:
-every rank makes every subgroup once, in the same order, here.
+(:func:`factor_groups`).
 """
 
 from dataclasses import dataclass, field
+from itertools import product
 
 from .not_ported import not_ported
 
@@ -72,6 +80,10 @@ class MeshState:
     # built by a caller of initialize_mesh (not by init_distributed or on
     # first use): an engine must not rebuild it
     user_built: bool = True
+    # this rank's coordinates, axis name → index
+    coord: dict = field(default_factory=dict)
+    # axes tuple → the ProcessGroup over them holding this rank
+    groups: dict = field(default_factory=dict)
 
 
 def _world_size():
@@ -146,35 +158,109 @@ def prepare_hierarchy(intra_node_size=0):
     return None
 
 
+def _axis_ranks(shape, coord, axes):
+    """The world ranks that differ from ``coord`` only along ``axes``, in
+    rank order (``shape``, ``coord``: axis name → size, index)."""
+    ranks = []
+    for vals in product(*(range(shape[a]) for a in axes)):
+        c = dict(coord, **dict(zip(axes, vals)))
+        r = 0
+        for a in AXES:
+            r = r * shape[a] + c[a]
+        ranks.append(r)
+    return ranks
+
+
+def axis_rank_lists(axes):
+    """Every group over ``axes``, as rank lists in one order on every rank
+    (one list for each coordinate of the other axes)."""
+    shape = get_mesh_state().mesh.shape
+    others = [a for a in AXES if a not in axes]
+    return [_axis_ranks(shape, dict(zip(others, vals), **{a: 0 for a in axes}),
+                        axes)
+            for vals in product(*(range(shape[a]) for a in others))]
+
+
+# the groups every mesh holds (``_get_*_group`` below)
+_GROUP_AXES = ((PP_AXIS, ), (DP_AXIS, EP_AXIS), (SP_AXIS, ),
+               (DP_AXIS, EP_AXIS, SP_AXIS))
+
+
+def _make_groups(shape, rank):
+    """{axes: ProcessGroup holding ``rank``} for every axes tuple of
+    :data:`_GROUP_AXES`; every group of every such tuple is made, once,
+    in one order on every rank (``new_group`` is collective)."""
+    import torch.distributed as tdist
+    from ..comm.backend import ProcessGroup
+    world = 1
+    for a in AXES:
+        world *= shape[a]
+    made = {}
+    out = {}
+    for axes in _GROUP_AXES:
+        others = [a for a in AXES if a not in axes]
+        mine = None
+        for vals in product(*(range(shape[a]) for a in others)):
+            base = dict(zip(others, vals), **{a: 0 for a in axes})
+            ranks = tuple(_axis_ranks(shape, base, axes))
+            if len(ranks) == 1:
+                if rank in ranks:
+                    mine = ProcessGroup(axes, local=True)
+                continue
+            if len(ranks) == world:
+                if rank in ranks:
+                    mine = ProcessGroup(axes)
+                continue
+            if ranks not in made:
+                made[ranks] = tdist.new_group(list(ranks))
+            if rank in ranks:
+                mine = ProcessGroup(axes, pg=made[ranks])
+        out[axes] = mine
+    return out
+
+
 def initialize_mesh(dp=None, pp=1, sp=1, tp=1, ep=1, devices=None,
                     zero_partition_size=None, user_built=True):
     """The mesh over the world (``groups.py:initialize_mesh``):
-    ``dp=None`` takes every rank.  Axes other than dp must be 1.
-    ``zero_partition_size`` > 1 makes the ``zp``/``zp_outer`` subgroups
-    (every rank calls this together)."""
+    ``dp=None`` takes the ranks pp × sp leave.  tp and ep must be 1.
+    Every rank calls this together: it makes the subgroups (and, with
+    ``zero_partition_size`` > 1, the ``zp``/``zp_outer`` ones)."""
     global _mesh_state
-    others = {"pp": pp, "sp": sp, "tp": tp, "ep": ep}
+    from ..comm import comm
     if devices is not None:
         raise not_ported("initialize_mesh(devices=...) (a mesh over a "
-                         "device subset)", 9)
-    if any(v not in (None, 1) for v in others.values()):
-        raise not_ported(f"a device mesh beyond data parallelism "
-                         f"({ {k: v for k, v in others.items() if v != 1} })",
-                         9)
+                         "device subset)", "9b")
+    if tp not in (None, 1):
+        raise not_ported(f"tensor parallelism (tp={tp})", "9b")
+    if ep not in (None, 1):
+        raise not_ported(f"expert parallelism (ep={ep})", 8)
+    pp, sp = int(pp or 1), int(sp or 1)
     total = _world_size()
     if dp is None:
-        dp = total
-    if dp != total:
-        raise ValueError(f"pp(1) * dp({dp}) * sp(1) * tp(1) = {dp} != world "
-                         f"size {total}")
+        if total % (pp * sp):
+            raise ValueError(f"world size {total} not divisible by "
+                             f"pp*sp*tp={pp * sp}")
+        dp = total // (pp * sp)
+    if pp * dp * sp != total:
+        raise ValueError(f"pp({pp}) * dp({dp}) * sp({sp}) * tp(1) = "
+                         f"{pp * dp * sp} != world size {total}")
     zp = zero_partition_size if zero_partition_size and \
         zero_partition_size > 1 else None
     if zp is not None and dp % zp != 0:
         raise ValueError(
             f"zero_partition_size={zp} must divide dp={dp}")
-    state = MeshState(mesh=Mesh(pp=1, dp=dp, ep=1, sp=1, tp=1), pp=1,
-                      dp=dp, sp=1, tp=1, ep=1, zero_partition_size=zp,
-                      user_built=user_built)
+    if zp is not None and pp * sp > 1:
+        raise not_ported("hpZ / MiCS shard groups with pp or sp > 1", "9b")
+    mesh = Mesh(pp=pp, dp=dp, ep=1, sp=sp, tp=1)
+    rank = comm.get_rank() if total > 1 else 0
+    coord, r = {}, rank
+    for a in reversed(AXES):
+        coord[a] = r % mesh.shape[a]
+        r //= mesh.shape[a]
+    state = MeshState(mesh=mesh, pp=pp, dp=dp, sp=sp, tp=1, ep=1,
+                      zero_partition_size=zp, user_built=user_built,
+                      coord=coord)
+    state.groups = (_make_groups(mesh.shape, rank) if pp * sp > 1 else {})
     if zp is not None:
         factor_groups(zp, state)
     _mesh_state = state
@@ -206,17 +292,44 @@ def dp_axes():
 
 
 def _pg(axes):
+    """The group over ``axes`` holding this rank (one made at mesh init,
+    the world, or a local one)."""
     from ..comm.backend import ProcessGroup
     st = get_mesh_state()
+    axes = tuple(axes)
+    if axes in st.groups:
+        return st.groups[axes]
     size = 1
     for a in axes:
         size *= st.mesh.shape[a]
-    # the only axes of size > 1 are dp's, and they span the world
-    return ProcessGroup(axes, local=size == 1 and DP_AXIS not in axes)
+    if size == 1 and DP_AXIS not in axes:
+        return ProcessGroup(axes, local=True)
+    if size == st.mesh.size:
+        # the world; the data groups at one rank too, whose collectives
+        # then run on the backend
+        return ProcessGroup(axes)
+    if size == 1:
+        return ProcessGroup(axes, local=True)
+    raise ValueError(f"no group over {axes} on this mesh "
+                     f"{st.mesh.shape}")
 
 
 def _get_data_parallel_group():
     return _pg(dp_axes())
+
+
+def _get_sequence_parallel_group():
+    return _pg((SP_AXIS, ))
+
+
+def _get_sequence_data_parallel_group():
+    """ZeRO shards over the combined dp × sp group when sp is on
+    (reference ``engine.py:1580,1651`` seq_data_parallel_group)."""
+    return _pg(dp_axes() + (SP_AXIS, ))
+
+
+def _get_pipe_parallel_group():
+    return _pg((PP_AXIS, ))
 
 
 def _get_zero_param_partition_group():
@@ -246,9 +359,36 @@ def _get_data_parallel_world_size():
     return get_mesh_state().dp
 
 
+def _get_sequence_parallel_world_size():
+    return get_mesh_state().sp
+
+
+def _get_pipe_parallel_world_size():
+    return get_mesh_state().pp
+
+
+def _coord(axis):
+    return get_mesh_state().coord.get(axis, 0)
+
+
 def _get_data_parallel_rank():
-    """This process's data-parallel rank: its rank in the world (rank r
-    feeds rows ``[r·B, (r+1)·B)`` of a global batch,
-    ``engine.shard_batch``)."""
-    from ..comm import comm
-    return comm.get_rank()
+    """This process's data-parallel rank, its coordinate along (dp, ep):
+    rank r feeds rows ``[r·B, (r+1)·B)`` of a global batch
+    (``engine.shard_batch``).  Ranks with the same value (the pp and sp
+    axes) feed the same rows."""
+    return _coord(DP_AXIS) * get_mesh_state().mesh.ep + _coord(EP_AXIS)
+
+
+def _get_sequence_parallel_rank():
+    """The rank's coordinate along sp: its chunk of the sequence."""
+    return _coord(SP_AXIS)
+
+
+def _get_pipe_parallel_rank():
+    """The rank's pipeline stage."""
+    return _coord(PP_AXIS)
+
+
+def zero_sharding_axes(sequence_parallel=False):
+    """Mesh axes over which ZeRO partitions optimizer/grad/param state."""
+    return dp_axes() + ((SP_AXIS, ) if sequence_parallel else ())

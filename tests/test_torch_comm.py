@@ -224,8 +224,13 @@ def test_set_collectives_engine_installs_and_removes():
     finally:
         port_dist.set_collectives_engine(None)
     assert port_dist.get_collectives_engine() is None
-    with pytest.raises(NotImplementedError, match=r"queue A, item 9\)"):
-        port_dist.send_obj(1, 0)
+    # the host object channel (ported with the pipeline): to this rank
+    port_dist.send_obj({"shape": (2, 3)}, 0, tag=5)
+    port_dist.send_obj([1], 0, tag=5)
+    assert port_dist.recv_obj(0, tag=5) == {"shape": (2, 3)}
+    assert port_dist.recv_obj(0, tag=5, timeout_s=5) == [1]
+    with pytest.raises(RuntimeError):       # nothing sent: the timeout
+        port_dist.recv_obj(0, tag=6, timeout_s=0.2)
 
 
 def test_comms_logger_counts_ops():

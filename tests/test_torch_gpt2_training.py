@@ -139,9 +139,11 @@ def test_gpt2_350m_size_and_leaves():
 
 def test_unported_model_options_raise():
     ids = torch.zeros(1, SEQ, dtype=torch.long)
-    for over, item in ((dict(loss_chunk_vocab=64), 3),
-                       (dict(use_ulysses=True), 9)):
-        _, pcfg = _configs(dtype="float32", **over)
+    _, chunked = _configs(dtype="float32", loss_chunk_vocab=64)
+    # JAX's GPT2Config has no sp_backend: Ulysses is its only GPT-2 backend
+    ring = port_gpt2.gpt2_tiny(dtype="float32", use_ulysses=True,
+                               sp_backend="ring")
+    for pcfg, item in ((chunked, 3), (ring, "9b")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             port_gpt2.GPT2Model(pcfg)(ids, ids)
     _, pcfg = _configs(dtype="float32")

@@ -382,11 +382,11 @@ def test_batch_trinity_matches_jax(i):
 
 REFUSED = [
     ({"optimizer": {"type": "muon"}}, 11),
-    ({"mesh": {"tp": 2}}, 9),
-    ({"pipeline": {"stages": 2}}, 9),
+    ({"mesh": {"tp": 2}}, "9b"),
+    ({"mesh": {"ep": 2}}, 8),
     ({"moe": {"enabled": True}}, 8),
-    ({"domino": {"enabled": True}}, 9),
-    ({"activation_checkpointing": {"partition_activations": True}}, 9),
+    ({"domino": {"enabled": True}}, "9b"),
+    ({"activation_checkpointing": {"partition_activations": True}}, "9b"),
     ({"optimizer": {"type": "adagrad"}}, 11),
     ({"resilience": {"watchdog": {"enabled": True}}}, 12),
     ({"telemetry": {"enabled": True}}, 12),
@@ -518,11 +518,13 @@ def test_unported_model_and_engine_options_raise():
             device="cpu")
 
 
+# mesh_param=(dp, sp) and mpu=, refused here until the pipeline slice
+# ported them, are held in test_torch_ulysses.py and test_torch_pipe.py
 UNPORTED_ARGS = [
     (dict(collate_fn=list), 4),
-    (dict(mesh_param=(1, 2)), 9),
-    (dict(mpu=object()), 9),
-    (dict(mesh_param=(1, 4)), 9),
+    (dict(training_data=[1]), 4),
+    (dict(optimizer=object()), 11),
+    (dict(collate_fn=list, training_data=[1]), 4),
 ]
 
 

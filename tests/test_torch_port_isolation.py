@@ -60,7 +60,11 @@ def test_import_loads_no_jax():
                  "comm.collectives", "comm.collectives.config",
                  "comm.collectives.quantized", "comm.collectives.topology",
                  "comm.collectives.engine", "runtime.zero.zeropp",
-                 "runtime.zero.mics", "runtime.zero.overlap"):
+                 "runtime.zero.mics", "runtime.zero.overlap",
+                 "comm.functional", "sequence", "sequence.layer", "pipe",
+                 "runtime.pipe", "runtime.pipe.schedule",
+                 "runtime.pipe.topology", "runtime.pipe.module",
+                 "runtime.pipe.p2p", "runtime.pipe.engine"):
         assert f"deepspeed_tpu_torch.{name}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

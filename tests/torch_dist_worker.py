@@ -35,7 +35,18 @@ Leg kinds:
   directory after ``k`` batches and the rest of the batches; then, for each
   of the leg's ``resume`` configs, a fresh engine that loads the tag and
   trains on the same batches: every run's losses and its gathered state
-  (master, moments, count, counters) by leaf name.
+  (master, moments, count, counters) by leaf name;
+* ``pipe``: a ``PipelineModule`` of the JAX pipeline tests' toy layers
+  (:func:`pipe_twins`, the flax layers' torch twins) or GPT-2's, trained
+  with ``train_batch`` from the leg's flax tree (or ``initialize_
+  parameters(init_seed)``): each step's loss, scale and
+  skip, this stage's fp32 master by name, and ``eval_batch``'s loss and
+  logits, a ragged batch's refusal, a stage checkpoint's refusal;
+* ``ulysses``: ``DistributedAttention`` on rank r's sequence chunk of the
+  leg's q, k, v over an sp group of the whole world: the output chunk and
+  the gradients of ``sum(out ** 2)``;
+* ``ring``: ``comm/functional.py``'s ring shifts of rank r's block of the
+  leg's array over the world.
 """
 
 import os
@@ -485,6 +496,206 @@ def run_ckpt(leg, rank, world):
     return out
 
 
+def pipe_twins():
+    """The JAX pipeline tests' flax layers as torch modules that take
+    ``device=``, with the flax parameter names and shapes (a Dense kernel
+    is [in, out...], products in the promoted dtype, as flax computes
+    them): ``Block``, ``Embed``, ``Head``, ``TiedEmbed``
+    (``tests/unit/runtime/pipe/test_pipe_engine.py``) and ``UEmbed``,
+    ``UlyssesBlock``, ``UHead`` (``test_pipe_sp.py``); and their losses."""
+    import torch
+    import torch.nn.functional as F
+    from torch import nn
+
+    def param(*shape, device=None):
+        return nn.Parameter(torch.zeros(shape, device=device))
+
+    class Dense(nn.Module):
+        def __init__(self, n_in, out, device=None):
+            super().__init__()
+            self.kernel = param(n_in, *out, device=device)
+            self.bias = param(*out, device=device)
+
+        def forward(self, x):
+            dt = torch.promote_types(x.dtype, self.kernel.dtype)
+            k = self.kernel.to(dt).reshape(self.kernel.shape[0], -1)
+            y = x.to(dt) @ k + self.bias.to(dt).reshape(-1)
+            return y.view(*x.shape[:-1], *self.bias.shape)
+
+    class Table(nn.Module):
+        def __init__(self, n, d, device=None):
+            super().__init__()
+            self.embedding = param(n, d, device=device)
+
+    class Block(nn.Module):
+        def __init__(self, d, device=None):
+            super().__init__()
+            self.fc = Dense(d, (d, ), device)
+
+        def forward(self, x):
+            return x + torch.tanh(self.fc(x))
+
+    class Embed(nn.Module):
+        def __init__(self, vocab, d, device=None):
+            super().__init__()
+            self.wte = Table(vocab, d, device)
+
+        def forward(self, ids):
+            return F.embedding(ids.long(), self.wte.embedding)
+
+    class Head(nn.Module):
+        def __init__(self, vocab, d, device=None):
+            super().__init__()
+            self.lm_head = Dense(d, (vocab, ), device)
+
+        def forward(self, x):
+            return self.lm_head(x)
+
+    class TiedEmbed(Embed):
+        """Embeds int inputs, projects float hiddens through the same
+        table (flax ``Embed.attend``)."""
+
+        def forward(self, x):
+            if not x.is_floating_point():
+                return super().forward(x)
+            return x @ self.wte.embedding.to(x.dtype).t()
+
+    class UEmbed(nn.Module):
+        def __init__(self, vocab, d, device=None):
+            super().__init__()
+            self.Embed_0 = Table(vocab, d, device)
+
+        def forward(self, ids):
+            return F.embedding(ids.long(), self.Embed_0.embedding)
+
+    class UlyssesBlock(nn.Module):
+        def __init__(self, d, heads, device=None):
+            super().__init__()
+            self.heads = heads
+            self.DenseGeneral_0 = Dense(d, (3, heads, d // heads), device)
+            self.Dense_0 = Dense(d, (4 * d, ), device)
+            self.Dense_1 = Dense(4 * d, (d, ), device)
+
+        def forward(self, x):
+            from deepspeed_tpu_torch.sequence.layer import \
+                DistributedAttention
+            B, S, D = x.shape
+            qkv = self.DenseGeneral_0(x)
+            out = DistributedAttention()(qkv[:, :, 0], qkv[:, :, 1],
+                                         qkv[:, :, 2], causal=True)
+            h = self.Dense_0(out.reshape(B, S, D) + x)
+            return x + self.Dense_1(torch.tanh(h))
+
+    class UHead(nn.Module):
+        def __init__(self, vocab, d, device=None):
+            super().__init__()
+            self.Dense_0 = Dense(d, (vocab, ), device)
+
+        def forward(self, x):
+            return self.Dense_0(x)
+
+    def mse(out, labels):
+        return torch.mean((out - labels) ** 2)
+
+    def xent(logits, labels):
+        lp = torch.log_softmax(logits.float(), dim=-1)
+        return -torch.gather(lp, -1, labels.long()[..., None]).mean()
+
+    return dict(Block=Block, Embed=Embed, Head=Head, TiedEmbed=TiedEmbed,
+                UEmbed=UEmbed, UlyssesBlock=UlyssesBlock, UHead=UHead,
+                mse=mse, xent=xent)
+
+
+def pipe_module(spec):
+    """The ``PipelineModule`` of a leg's ``model``: (layers, loss name)
+    with layers [(class name, args, tie key or None)], or ("gpt2",
+    ``gpt2_tiny`` overrides): ``models/gpt2.pipeline_module``, a block a
+    checkpointed run."""
+    from deepspeed_tpu_torch.runtime.pipe import (LayerSpec, PipelineModule,
+                                                  TiedLayerSpec)
+    if spec[0] == "gpt2":
+        from deepspeed_tpu_torch.models import gpt2
+        return gpt2.pipeline_module(gpt2.gpt2_tiny(**spec[1]),
+                                    activation_checkpoint_interval=1)
+    tw = pipe_twins()
+    layers = [TiedLayerSpec(key, tw[name], *args) if key else
+              LayerSpec(tw[name], *args) for name, args, key in spec[0]]
+    return PipelineModule(layers=layers, loss_fn=tw[spec[1]])
+
+
+def run_pipe(leg, rank, world):
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.runtime.pipe.module import params_from_flax
+    pm = pipe_module(leg["model"])
+    stages = leg["config"]["mesh"]["pp"]
+    start = (None if leg.get("tree") is None else
+             params_from_flax(leg["tree"], pm, stages))
+    engine = deepspeed_tpu_torch.initialize(
+        model=pm, model_parameters=start, config=dict(leg["config"]),
+        device="cpu")[0]
+    if start is None:
+        engine.initialize_parameters(leg["init_seed"])
+    it = iter(leg["batches"])
+    losses, scales, skips = [], [], []
+    for _ in range(leg["steps"]):
+        losses.append(float(engine.train_batch(it)))
+        scales.append(float(engine.cur_scale))
+        skips.append(bool(engine._last_skipped))
+    flat = engine.fp32_params()
+    from deepspeed_tpu_torch.utils import groups
+    out = dict(losses=losses, scales=scales, skips=skips,
+               stage=engine.stage_id, layers=list(engine.stage_layers),
+               coords=(groups._get_pipe_parallel_rank(),
+                       groups._get_data_parallel_rank(),
+                       groups._get_sequence_parallel_rank()),
+               master={n: flat[o:o + k].view(s).numpy().copy()
+                       for n, o, k, s in engine._layout},
+               stats=dict(engine.last_step_stats))
+    if leg.get("eval") is not None:
+        loss, logits = engine.eval_batch(iter([leg["eval"]]),
+                                         return_logits=True)
+        out["eval"] = (float(loss), logits.float().numpy())
+    if leg.get("ragged") is not None:
+        try:
+            engine.eval_batch(iter([leg["ragged"]]))
+            out["ragged"] = None
+        except ValueError as e:          # the refusal under test
+            out["ragged"] = str(e)
+    if leg.get("ckpt_refusal"):
+        try:
+            engine.save_checkpoint(leg.get("dir", "."))
+            out["ckpt_refusal"] = None
+        except NotImplementedError as e:  # the refusal under test
+            out["ckpt_refusal"] = str(e)
+    return out
+
+
+def run_ulysses(leg, rank, world):
+    import torch
+    from deepspeed_tpu_torch.sequence.layer import DistributedAttention
+    from deepspeed_tpu_torch.utils import groups
+    groups.initialize_mesh(sp=world)
+    try:
+        q, k, v = (torch.from_numpy(_block(a, 1, rank, world)).requires_grad_()
+                   for a in (leg["q"], leg["k"], leg["v"]))
+        out = DistributedAttention()(q, k, v, causal=leg["causal"])
+        (out ** 2).sum().backward()
+        return dict(out=out.detach().numpy(), dq=q.grad.numpy(),
+                    dk=k.grad.numpy(), dv=v.grad.numpy())
+    finally:
+        groups.reset_mesh()
+
+
+def run_ring(leg, rank, world):
+    import torch
+    from deepspeed_tpu_torch import comm as dist
+    from deepspeed_tpu_torch.comm import functional
+    x = torch.from_numpy(_block(leg["x"], 0, rank, world))
+    group = dist.get_world_group()
+    return dict(next=functional.send_next_recv_prev(x, group).numpy(),
+                prev=functional.send_prev_recv_next(x, group).numpy())
+
+
 def main():
     spec, out_dir = sys.argv[1], sys.argv[2]
     import torch
@@ -497,7 +708,8 @@ def main():
     for leg in legs:
         fn = {"comm": run_comm, "comm_log": run_comm_log,
               "train": run_train, "ckpt": run_ckpt, "coll": run_coll,
-              "refuse": run_refuse}[leg["kind"]]
+              "refuse": run_refuse, "pipe": run_pipe,
+              "ulysses": run_ulysses, "ring": run_ring}[leg["kind"]]
         out = fn(leg, rank, world)
         with open(os.path.join(out_dir, f"{leg['name']}.r{rank}.pkl"),
                   "wb") as f:

@@ -7,6 +7,8 @@
                               [--device cpu]
     python3 zero_multicard.py --zeropp [--world N] [--json PATH]
                               [--device cpu]
+    python3 zero_multicard.py --pipe [--world N] [--json PATH]
+                              [--device cpu]
 
 BASELINE config 2 (``--model gpt2``: GPT-2 350M, fp16 from a scale of
 2^16, remat, ``fusedadam``, 8 rows of 1024 tokens a rank) or config 3
@@ -74,6 +76,29 @@ and dequantize and of B6.  It fails when a loss is not finite or the
 ranks disagree, when hpZ is not plain ZeRO 3 bit for bit (losses and
 master), MiCS not within 2e-4 relative, or a quantized run's final loss
 not within 1e-2 relative of its plain run's.
+
+``--pipe`` runs BASELINE config 5's shape (GPT-3 13B, ``PipelineEngine``
++ ZeRO 1 + Ulysses) as far as the world allows:
+``models/gpt2.pipeline_module(gpt3_13b())`` (40 layers, d_model 5120, 40
+heads of 128, vocabulary 50257, S 2048, the embedding tied to the head,
+remat a block), bf16, ``fusedadam``, ZeRO 1, random weights from the seed
+(each layer from its own seed, so every split starts equal), one global
+batch of M microbatches, labels the next tokens.  (a) pp 4 × sp 1 at full
+depth, M 8; (b) pp 2 × sp 2 (the Ulysses all-to-all over NCCL) at the
+depth its ZeRO-1 state and activations fit (12 bytes a parameter: bf16
+parameters, the fp32 accumulator and a half of the fp32 master and
+moments; each depth cut is printed); (c) at 4 blocks, full width, 4
+microbatches of 4 rows: pp 2, pp 4, sp 2, sp 4 and pp 2 × sp 2 against
+the base engine on the same module (``to_module()``) at dp = world, each
+step's loss within 2^-7 of it.  1 warm-up and ``--steps`` timed steps a
+run.  Rank 0 prints, a run: step ms, tokens/s, MFU (6N + 12·L·S·D a token
+over 989 TFLOP/s a card), each rank's peak, the point-to-point MB each
+rank sent a step, the all-to-all MB and ms a step (comms logger), and each
+rank's idle share of a step (1 − its forward and backward time, CUDA
+events, over the step) beside the 1F1B bubble (pp − 1)/(M + pp − 1).  It
+fails when a loss is not finite, the ranks disagree, or a parity run
+leaves the base engine's losses.  pp 4 × sp 2, the config's own shape,
+needs eight cards.
 """
 
 import argparse
@@ -385,6 +410,219 @@ def _zeropp_main(args, world, smi, out):
         return 1
     print(json.dumps({"ok": True, "model": "llama7b", "world": world,
                       "zeropp": True}))
+    return 0
+
+
+# --pipe: (name, pp, sp, layers (None: as deep as fits), microbatches,
+#          global rows a microbatch, compared with "base")
+PIPE_RUNS = (
+    ("a_pp4_full", 4, 1, None, 8, 1, False),
+    ("b_pp2_sp2", 2, 2, None, 8, 1, False),
+    ("base", 1, 1, 4, 4, 4, False),
+    ("pp2", 2, 1, 4, 4, 4, True),
+    ("pp4", 4, 1, 4, 4, 4, True),
+    ("sp2", 1, 2, 4, 4, 4, True),
+    ("sp4", 1, 4, 4, 4, 4, True),
+    ("pp2_sp2", 2, 2, 4, 4, 4, True),
+)
+
+
+def _pipe_depth(cfg, pp, sp, world, total_bytes):
+    """The deepest stack (a multiple of ``pp`` blocks, at most the
+    model's) whose busiest stage's ZeRO-1 state fits 0.85 of the card: 2
+    (bf16) + 4 (fp32 accumulator) + 12 / data world (master, moments)
+    bytes a parameter, the step's fp32 shard (none in a data group of one
+    rank, which reduces in place), and 3 GB of activations."""
+    from deepspeed_tpu_torch.models import gpt2
+    D, V, P = cfg.hidden_size, cfg.vocab_size, cfg.max_position_embeddings
+    block = gpt2.param_count(gpt2.GPT2Config(
+        vocab_size=0, hidden_size=D, num_hidden_layers=1,
+        max_position_embeddings=0)) - 2 * D
+    embed = (V + P) * D
+    data = world // pp
+    for L in range(cfg.num_hidden_layers, 0, -pp):
+        n = -(-L // pp) * block + embed
+        need = n * (2 + 4 + 12 / data) + (4 * n / data if data > 1 else
+                                          0) + 3e9
+        if need <= 0.85 * total_bytes:
+            return L
+    raise RuntimeError("not one block a stage fits the card")
+
+
+def run_pipe_rank(args):
+    """``--pipe``: each run of :data:`PIPE_RUNS` in turn (module
+    docstring)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    from deepspeed_tpu_torch.ops.kernels import optimizers as opt
+    cpu = args.device == "cpu"
+    torch.set_num_threads(1)
+    sync = (lambda: None) if cpu else torch.cuda.synchronize
+    dev = "cpu" if cpu else "cuda"
+    full = (gpt2.gpt2_tiny(num_hidden_layers=8, max_position_embeddings=64)
+            if cpu else gpt2.gpt3_13b())
+    S = full.max_position_embeddings
+    counters = {"flash_fwd": fa.flash_attention_fwd,
+                "flash_dq": fa.flash_attention_bwd_dq,
+                "flash_dkv": fa.flash_attention_bwd_dkv,
+                "adam": opt.fused_adam_step}
+    rows = []
+    deepspeed_tpu_torch.init_distributed(
+        dist_backend="gloo" if cpu else "nccl", verbose=False)
+    world = comm.get_world_size()
+    for name, pp, sp, layers, M, R, compare in PIPE_RUNS:
+        if layers is None:
+            layers = (full.num_hidden_layers if cpu else _pipe_depth(
+                full, pp, sp, world, torch.cuda.mem_get_info()[1]))
+        cfg = dataclasses.replace(full, num_hidden_layers=layers,
+                                  use_ulysses=sp > 1)
+        pm = gpt2.pipeline_module(cfg, activation_checkpoint_interval=1)
+        dp = world // (pp * sp)
+        config = {"train_micro_batch_size_per_gpu": R // dp,
+                  "gradient_accumulation_steps": M,
+                  "optimizer": {"type": "fusedadam", "params": {"lr": 1e-4}},
+                  "bf16": {"enabled": True},
+                  "zero_optimization": {"stage": 1},
+                  "mesh": {"pp": pp, "sp": sp},
+                  "comms_logger": {"enabled": True, "prof_all": True}}
+        model = pm.to_module(device="meta") if name == "base" else pm
+        engine = deepspeed_tpu_torch.initialize(
+            model=model, config=config, device=dev if cpu else None)[0]
+        engine.initialize_parameters(args.seed)
+        rng = np.random.default_rng(args.seed + 1)
+        batches = []
+        for _ in range(M):
+            ids = rng.integers(0, cfg.vocab_size, size=(R, S))
+            batches.append((ids, np.roll(ids, -1, axis=1)))
+        pipeline = name != "base"
+        losses, times, compute, p2p = [], [], [], []
+        for i in range(1 + args.steps):
+            if i == 1:
+                sync()
+                comm.comms_logger.reset()
+                for fn in counters.values():
+                    fn.launches = 0
+                if not cpu:
+                    torch.cuda.reset_peak_memory_stats()
+                if pipeline:
+                    engine.instruction_timing = True
+            t = time.perf_counter()
+            if pipeline:
+                loss = engine.train_batch(iter(batches))
+            else:
+                micro = []
+                for x, y in batches:
+                    out = engine(*engine.shard_batch(x, y))
+                    engine.backward(out)
+                    engine.step()
+                    micro.append(out.detach().float())
+                loss = torch.stack(micro).mean()
+            losses.append(loss.item())
+            sync()
+            if i >= 1:
+                times.append(time.perf_counter() - t)
+                if pipeline:
+                    st = engine.last_step_stats
+                    compute.append(st["compute_ms"])
+                    p2p.append(st["p2p_bytes"])
+        peak = 0 if cpu else torch.cuda.max_memory_allocated()
+        summary = comm.comms_logger.get_summary_dict()["ops"]
+        a2a = summary.get("all_to_all_single", {})
+        step_ms = sum(times) / len(times) * 1e3
+        idle = (1 - sum(compute) / len(compute) / step_ms) if compute else 0
+        mine = torch.tensor([float(peak), idle,
+                             sum(p2p) / max(1, len(p2p))] + losses,
+                            device=dev)
+        every = comm.all_gather(mine, tiled=False).cpu()
+        tokens = R * S * M
+        rows.append(dict(
+            name=name, pp=pp, sp=sp, dp=dp, layers=layers, M=M,
+            full_layers=full.num_hidden_layers,
+            global_rows=R, world=world, compare=compare, losses=losses,
+            rank_losses_equal=bool((every[:, 3:] == every[0, 3:]).all()),
+            step_ms=[t * 1e3 for t in times], step_ms_mean=step_ms,
+            tokens_per_s=tokens / step_ms * 1e3,
+            mfu=tokens / step_ms * 1e3 * (
+                6 * gpt2.param_count(cfg) +
+                12 * layers * S * cfg.hidden_size) / (PEAK_FLOPS * world),
+            peak_bytes_by_rank=[int(x) for x in every[:, 0].tolist()],
+            idle_share_by_rank=[float(x) for x in every[:, 1].tolist()],
+            bubble=(pp - 1) / (M + pp - 1),
+            p2p_mb_by_rank=[float(x) / 1e6 for x in every[:, 2].tolist()],
+            a2a_mb_per_step=a2a.get("total_msg_bytes", 0) / 1e6 / args.steps,
+            a2a_ms_per_step=a2a.get("total_latency_ms", 0.0) / args.steps,
+            a2a_calls_per_step=a2a.get("count", 0) / args.steps,
+            launches_per_step={k: fn.launches / args.steps
+                               for k, fn in counters.items()},
+            param_numel=engine.zero_plan.numel))
+        del engine, model, pm, loss
+        gc.collect()
+        if not cpu:
+            torch.cuda.empty_cache()
+    if args.rank == 0:
+        with open(args.out_rank0, "w") as f:
+            json.dump(rows, f)
+    comm.destroy_process_group()
+
+
+def _pipe_main(args, world, smi, out):
+    rcs = _spawn(world, sys.argv[1:] + ["--out-rank0", out])
+    if any(rcs):
+        print(f"zero_multicard: ranks exited {rcs}", file=sys.stderr)
+        return 1
+    with open(out) as f:
+        rows = {r["name"]: r for r in json.load(f)}
+    os.remove(out)
+    base = rows["base"]
+    scale = max(abs(x) for x in base["losses"])
+    ok = True
+    for r in rows.values():
+        line = (f"[pipe] {r['name']}: pp {r['pp']} × sp {r['sp']} × dp "
+                f"{r['dp']}, {r['layers']} layers, M {r['M']} of "
+                f"{r['global_rows']} rows: losses " + ", ".join(
+                    f"{x:.5f}" for x in r["losses"])
+                + f" | step ms {r['step_ms_mean']:.1f}, "
+                f"{r['tokens_per_s']:.1f} tokens/s, MFU {r['mfu']:.4f} | "
+                "peak GiB by rank " + ", ".join(
+                    f"{b / 2**30:.2f}" for b in r["peak_bytes_by_rank"])
+                + " | p2p MB sent a step by rank " + ", ".join(
+                    f"{x:.1f}" for x in r["p2p_mb_by_rank"])
+                + f" | all-to-all {r['a2a_mb_per_step']:.1f} MB, "
+                f"{r['a2a_ms_per_step']:.1f} ms, "
+                f"{r['a2a_calls_per_step']:.0f} calls a step | idle share "
+                "by rank " + ", ".join(
+                    f"{x:.3f}" for x in r["idle_share_by_rank"])
+                + f" (1F1B bubble {r['bubble']:.3f}) | launches a step "
+                f"{r['launches_per_step']} | {smi}")
+        ok &= r["rank_losses_equal"] and all(
+            map(math.isfinite, r["losses"]))
+        if r["compare"]:
+            diff = max(abs(a - b) for a, b in zip(r["losses"],
+                                                  base["losses"]))
+            r["max_loss_diff_vs_base"] = diff
+            good = diff <= 2.0**-7 * scale
+            ok &= good
+            line += (f" | largest loss difference from the base engine "
+                     f"{diff:.3e} (limit 2^-7 × {scale:.4f}) -> "
+                     f"{'ok' if good else 'FAILED'}")
+        print(line, flush=True)
+    for key in ("a_pp4_full", "b_pp2_sp2"):
+        print(f"[pipe] {key}: depth {rows[key]['layers']} of the model's "
+              f"{rows[key]['full_layers']} (the deepest whose ZeRO-1 state fits "
+              "0.85 of a card; widths kept)", flush=True)
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(dict(card=smi, runs=list(rows.values())), f, indent=1)
+    if not ok:
+        print("zero_multicard: a pipeline check failed", file=sys.stderr)
+        return 1
+    print(json.dumps({"ok": True, "model": "gpt3_13b", "world": world,
+                      "pipe": True}))
     return 0
 
 
@@ -780,6 +1018,9 @@ def main():
     ap.add_argument("--zeropp", action="store_true",
                     help="ZeRO++ (qwZ, qgZ, hierarchical qgZ, hpZ) and "
                          "MiCS against plain ZeRO 3 on Llama-2-7B")
+    ap.add_argument("--pipe", action="store_true",
+                    help="GPT-3 13B through the PipelineEngine and Ulysses "
+                         "(pp, sp) against the base engine")
     ap.add_argument("--offload-layers", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--out-rank0", help=argparse.SUPPRESS)
@@ -791,7 +1032,7 @@ def main():
     if args.rank is not None:
         (run_offload_rank if args.offload else run_checkpoint_rank
          if args.checkpoint else run_zeropp_rank if args.zeropp
-         else run_rank)(args)
+         else run_pipe_rank if args.pipe else run_rank)(args)
         return 0
     import torch
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -811,6 +1052,8 @@ def main():
         return _offload_main(args, world, smi, out)
     if args.zeropp:
         return _zeropp_main(args, world, smi, out)
+    if args.pipe:
+        return _pipe_main(args, world, smi, out)
     rcs = _spawn(world, sys.argv[1:] + ["--out-rank0", out])
     if any(rcs):
         print(f"zero_multicard: ranks exited {rcs}", file=sys.stderr)
