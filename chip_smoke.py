@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--json PATH] [--profile DIR]
 
-Stages, run in the order 1-29; any failure exits non-zero:
+Stages, run in the order 1-30; any failure exits non-zero:
 
 1. environment: torch/CUDA/nvcc versions, the card's name and power limit;
 2. build: every ``deepspeed_tpu_torch/csrc/*.cu`` with nvcc for sm_90a
@@ -282,7 +282,27 @@ Stages, run in the order 1-29; any failure exits non-zero:
     one rank, M = 4 microbatches of [1, 2048], ZeRO 1, bf16, fusedadam,
     3 steps, against the base engine on ``to_module()`` of the same
     module: losses and master digest bit-equal, and exactly 2·4·4, 4·4,
-    4·4 B1 launches and one B2 launch a step in each.
+    4·4 B1 launches and one B2 launch a step in each;
+30. the universal bridge of streaming and the 1-bit optimizers on one
+    card: (a) a ZeRO-Infinity streamed engine at Llama-2-7B width cut to 2
+    blocks (bf16, B=4, S=2048, the host Adam) takes 2 steps and saves its
+    tag, which ``convert_to_universal`` turns into the universal layout;
+    a ZeRO-3 engine on the card and a fresh streamed engine each load it
+    and take the next 2 steps: their losses within 2e-3 relative of the
+    streamed engine that went on without stopping, B1 launched in each
+    (B2 in the ZeRO-3 one); the save's, the conversion's and each load's
+    seconds and the universal bytes; (b) the 1-bit codec
+    (``runtime/comm/compressed.py``) on a 7B block's 202,383,360 fp32
+    elements from the seed: ``pack_signs``, ``unpack_signs`` and one
+    rank's compression (corrected input, scale, packed signs, new worker
+    error) bit-equal to the same functions on the CPU copy, with their ms
+    beside the bytes bound; (c) OnebitAdam, OnebitLamb and ZeroOneAdam
+    through ``initialize()`` at one rank on GPT-2 350M in fp16 (B=8,
+    S=1024, one fixed batch, warm-up of 2 steps), 5 steps each: finite
+    losses that fall, B1 as the model's attention and no optimizer kernel
+    launched (the 1-bit leaf updates are plain PyTorch), and an injected
+    fp16 overflow that leaves every piece of the state bit-unchanged
+    (digests before and after) and is counted as skipped.
 
 ``--profile DIR`` adds ``torch.profiler`` windows over serving (stages 4,
 14 and 15), over two training steps of stage 8, of stage 11, of stage 22
@@ -5472,6 +5492,211 @@ def stage_pipeline(seed, smi):
                 ulysses=ulysses, pipeline=p, base=b, seconds=seconds)
 
 
+# ----------------------------------------------------------- stage 30
+def _state_digests(torch, tensors):
+    """A digest a tensor (bits × place, wrapping in int64), to tell
+    whether a state changed without keeping a copy of it."""
+    out = []
+    for t in tensors:
+        v = t.detach().reshape(-1)
+        v = v.view(torch.int32) if v.element_size() == 4 else \
+            v.view(torch.int16).to(torch.int32)
+        acc = 0
+        for i in range(0, v.numel(), 1 << 26):
+            c = v[i:i + (1 << 26)].to(torch.int64)
+            w = torch.arange(i, i + c.numel(), device=c.device,
+                             dtype=torch.int64) % 65521 + 1
+            acc = (acc + int((c * w).sum().item())) % (1 << 63)
+        out.append(acc)
+    return out
+
+
+def _universal_bridge(torch, seed, smi):
+    """Stage 30 (a): a streamed engine's tag → universal → a ZeRO-3 engine
+    on the card, and → a streamed engine again; each resumed run's next
+    two losses against the streamed engine that did not stop."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.checkpoint import convert_to_universal
+    from deepspeed_tpu_torch.models.llama import LlamaModel, llama_7b
+    B, S, L = 4, 2048, 2
+    cfg = llama_7b(num_hidden_layers=L, dtype="bfloat16",
+                   head_dtype="bfloat16")
+    streamed = {"stage": 3, "offload_param": {"device": "cpu"},
+                "offload_optimizer": {"device": "cpu"}}
+    rng = np.random.default_rng(seed + 30)
+    batches = [(ids, ids) for ids in (torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(B, S))).cuda() for _ in range(4))]
+
+    def build(zero, universal=False):
+        config = dict(TRAIN_CONFIG, zero_optimization=zero)
+        if universal:
+            config["checkpoint"] = {"load_universal": True}
+        return deepspeed_tpu_torch.initialize(
+            model=LlamaModel(cfg, device="meta"), config=config)[0]
+
+    root = tempfile.mkdtemp(prefix="ds_universal_")
+    out = {}
+    try:
+        src = build(streamed)
+        src.initialize_parameters(seed)
+        first, _ = _counted_steps(torch, src, batches[:2])
+        t0 = time.perf_counter()
+        src.save_checkpoint(os.path.join(root, "tag"), tag="t")
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        convert_to_universal(os.path.join(root, "tag"),
+                             os.path.join(root, "uni"), tag="t")
+        convert_s = time.perf_counter() - t0
+        files = sum(os.path.getsize(os.path.join(d, f))
+                    for d, _, fs in os.walk(os.path.join(root, "uni"))
+                    for f in fs)
+        want, _ = _counted_steps(torch, src, batches[2:])
+        del src
+        _free_all(torch, "the streamed source")
+        for name, zero in (("zero3", {"stage": 3}), ("streamed", streamed)):
+            eng = build(zero, universal=True)
+            t0 = time.perf_counter()
+            eng.load_checkpoint(os.path.join(root, "uni"))
+            load_s = time.perf_counter() - t0
+            got, launches = _counted_steps(torch, eng, batches[2:])
+            rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+            log(f"[universal] Llama-2-7B width, {L} blocks, bf16: a "
+                f"streamed tag ({save_s:.1f} s to save, {convert_s:.1f} s "
+                f"to convert, {files / 1e9:.2f} GB of universal files) "
+                f"loaded into {name} in {load_s:.1f} s: next losses "
+                + ", ".join(f"{x:.6f}" for x in got) + " against the "
+                "streamed engine that did not stop " + ", ".join(
+                    f"{x:.6f}" for x in want)
+                + f"; largest relative difference {rel:.2e} (limit 2e-3); "
+                f"launches {launches} | {smi}")
+            if rel > 2e-3 or not all(np.isfinite(got)):
+                raise AssertionError(f"universal → {name}: {got} vs {want}")
+            if launches.get("flash_attention_fwd", 0) < L * 2:
+                raise AssertionError(f"universal → {name}: B1 not launched "
+                                     f"({launches})")
+            out[name] = dict(losses=got, launches=launches, load_s=load_s,
+                             max_rel=rel)
+            del eng
+            _free_all(torch, f"the {name} engine")
+        out.update(reference=want, first=first, save_s=save_s,
+                   convert_s=convert_s, universal_bytes=files)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def _onebit_codec(torch, seed, smi):
+    """Stage 30 (b): the 1-bit codec on a 7B-width block's flat buffer,
+    bit-equal to the same functions on the CPU copy."""
+    from deepspeed_tpu_torch.runtime.comm import compressed as c
+    gen = torch.Generator(device="cuda").manual_seed(seed + 301)
+    x = torch.randn(BLOCK_7B, generator=gen, device="cuda")
+    err = torch.randn(BLOCK_7B, generator=gen, device="cuda") * 0.1
+    bits = x >= 0
+    dev = dict(packed=c.pack_signs(bits))
+    dev["unpacked"] = c.unpack_signs(dev["packed"])
+    (dev["corrected"], dev["scale"], dev["packed2"],
+     dev["error"]) = c.compress(x, err)
+    torch.cuda.synchronize()
+    xc, ec = x.cpu(), err.cpu()
+    host = dict(packed=c.pack_signs(xc >= 0))
+    host["unpacked"] = c.unpack_signs(host["packed"])
+    (host["corrected"], host["scale"], host["packed2"],
+     host["error"]) = c.compress(xc, ec)
+    equal = {k: bool(torch.equal(dev[k].cpu(), host[k])) for k in dev}
+    ms = dict(pack=cuda_ms(lambda: c.pack_signs(bits), 5),
+              unpack=cuda_ms(lambda: c.unpack_signs(dev["packed"]), 5),
+              compress=cuda_ms(lambda: c.compress(x, err), 5))
+    n = BLOCK_7B
+    # bytes each must move, read once and written once
+    moved = dict(pack=n + n // 8, unpack=n // 8 + 4 * n,
+                 compress=8 * n + 8 * n + n // 8)
+    bound = {k: v / HBM_BYTES_PER_S * 1e3 for k, v in moved.items()}
+    log(f"[onebit] codec on {n:,} fp32 elements (a 7B block): card vs CPU "
+        f"bit-equal {equal}; scale {float(dev['scale']):.9g} | ms "
+        + ", ".join(f"{k} {v:.3f} (bytes bound {bound[k]:.3f})"
+                    for k, v in ms.items()) + f" | {smi}")
+    if not all(equal.values()):
+        raise AssertionError(f"1-bit codec: card and CPU differ {equal}")
+    del x, err, bits, dev
+    _free(torch)
+    return dict(equal=equal, ms=ms, bound_ms=bound, elements=n)
+
+
+ONEBIT_CONFIGS = {
+    "onebitadam": {"lr": 1e-4, "freeze_step": 2},
+    "onebitlamb": {"lr": 1e-3, "freeze_step": 2},
+    "zerooneadam": {"lr": 1e-4, "var_freeze_step": 2,
+                    "local_step_scaler": 2, "var_update_scaler": 1},
+}
+
+
+def _onebit_optimizers(torch, seed, smi):
+    """Stage 30 (c): the three 1-bit optimizers through ``initialize()``
+    at one rank on GPT-2 350M in fp16, 5 steps each, then an injected
+    overflow that must leave every piece of state as it was."""
+    import numpy as np
+    out = {}
+    for name, params in ONEBIT_CONFIGS.items():
+        engine, cfg = _gpt2_engine(torch, seed, config_over={
+            "optimizer": {"type": name, "params": params}})
+        ids = torch.from_numpy(np.random.default_rng(seed + 302).integers(
+            0, cfg.vocab_size, size=(8, 1024))).cuda()
+        losses, launches = _counted_steps(torch, engine, [(ids, ids)] * 5)
+        st = engine.opt_state
+        state = [engine.fp32_params(), engine.params, st.exp_avg,
+                 st.exp_avg_sq, st.worker_error, st.server_error,
+                 *st.extra.values()]
+        before = _state_digests(torch, state) + [st.count,
+                                                 engine.global_steps]
+        skipped, scale = engine.skipped_steps, engine.cur_scale
+        gnorm = float(engine._last_gnorm)
+        loss = engine(ids, ids)
+        engine.backward(loss)
+        engine.grad_acc[3] = float("inf")
+        engine.step()
+        after = _state_digests(torch, state) + [st.count,
+                                                engine.global_steps - 1]
+        kept = before == after and engine.skipped_steps == skipped + 1 \
+            and engine.cur_scale <= scale
+        log(f"[onebit] {name} {params}, GPT-2 350M fp16, B=8 S=1024, one "
+            f"rank, 5 steps: losses " + ", ".join(
+                f"{x:.4f}" for x in losses)
+            + f"; skipped {skipped}; the synced momentum's norm "
+            f"{gnorm:.4g}; launches {launches}; an "
+            f"injected overflow kept every piece of state: {kept} | {smi}")
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            raise AssertionError(f"{name}: losses {losses}")
+        if launches.get("flash_attention_fwd", 0) == 0 or any(
+                k.startswith("fused_") for k in launches):
+            raise AssertionError(f"{name}: launches {launches}")
+        if not kept:
+            raise AssertionError(f"{name}: the overflow changed the state "
+                                 f"({before} → {after})")
+        out[name] = dict(losses=losses, launches=launches, kept=kept,
+                         skipped=skipped)
+        del engine, st, state
+        _free(torch)
+    return out
+
+
+def stage_universal_onebit(seed, smi):
+    """Stage 30: (a) the universal bridge of a streamed tag on the card,
+    (b) the 1-bit codec, card against CPU, (c) the 1-bit optimizers."""
+    import torch
+    _free_all(torch, "the earlier stages")
+    t0 = time.perf_counter()
+    out = dict(universal=_universal_bridge(torch, seed, smi),
+               codec=_onebit_codec(torch, seed, smi),
+               optimizers=_onebit_optimizers(torch, seed, smi))
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[stage 30] {out['seconds']:.1f} s")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5540,6 +5765,7 @@ def main():
     offload = stage_offload(args.seed, smi)
     zeropp = stage_zeropp(args.seed, smi, llama_zero3)
     pipe = stage_pipeline(args.seed, smi)
+    uni_onebit = stage_universal_onebit(args.seed, smi)
 
     entries = []
     for wrapper, case in (("paged_attention", "serve_decode"),
@@ -5648,6 +5874,26 @@ def main():
         library_ms_ulysses=ul["library_ms_bwd"],
         max_abs_err_ulysses=ul["err_bwd"])
     entries[-1]["launches_pipeline"] = counted["fused_adam_step"]
+    # stage 30: B1 and B2 in the ZeRO-3 engine's two steps from the
+    # universal tag, B1 in the streamed engine's, and B1 under the three
+    # 1-bit optimizers' five steps each, each counted from 0 around its run
+    z3u = uni_onebit["universal"]["zero3"]["launches"]
+    stu = uni_onebit["universal"]["streamed"]["launches"]
+    ob = uni_onebit["optimizers"]
+    entries[-3].update(
+        launches_universal_zero3=z3u["flash_attention_fwd"],
+        launches_universal_streamed=stu["flash_attention_fwd"],
+        launches_onebit=sum(r["launches"]["flash_attention_fwd"]
+                            for r in ob.values()))
+    entries[-2].update(
+        launches_universal_zero3=(z3u["flash_attention_bwd_dq"] +
+                                  z3u["flash_attention_bwd_dkv"]),
+        launches_universal_streamed=(stu["flash_attention_bwd_dq"] +
+                                     stu["flash_attention_bwd_dkv"]),
+        launches_onebit=sum(r["launches"]["flash_attention_bwd_dq"] +
+                            r["launches"]["flash_attention_bwd_dkv"]
+                            for r in ob.values()))
+    entries[-1]["launches_universal_zero3"] = z3u["fused_adam_step"]
     lamb = next(r for r in gpt2_kernels if r["case"] == "lamb_float32")
     lion = next(r for r in gpt2_kernels if r["case"] == "lion_float32")
     opt_src = "deepspeed_tpu_torch/csrc/optimizers.cu"
@@ -5840,6 +6086,7 @@ def main():
                            llama_zero3=llama_zero3,
                            save_resume=save_resume, offload=offload,
                            zeropp=zeropp, pipeline=pipe,
+                           universal_onebit=uni_onebit,
                            seconds=time.perf_counter() - t_start),
                       f, indent=1, default=str)
     from deepspeed_tpu_torch import comm

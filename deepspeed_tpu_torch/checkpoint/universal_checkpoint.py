@@ -13,6 +13,12 @@ field (``fp32``, ``exp_avg``, ``exp_avg_sq``) goes through the model's
 ``params_from_flax`` as a tree of its own.  A field no parameter has is
 left as it is (Lion has no ``exp_avg_sq``); one that some parameters lack
 raises.
+
+A ZeRO-Infinity streaming engine (``runtime/infinity_engine.py``) takes a
+universal directory group by group into its host store, each rank its
+slices (JAX ``_load_into_infinity``): the master, the host optimizer's
+moments (``exp_avg`` → ``m``, ``exp_avg_sq`` → ``v``), the step, the
+counters and the lr scheduler.
 """
 
 import json
@@ -23,7 +29,8 @@ import numpy as np
 import torch
 
 from ..utils.logging import log_dist
-from .constants import STATE_FIELDS, UNIVERSAL_META, ZERO_FILE_PREFIX
+from .constants import (STATE_FIELD_TO_UNIVERSAL, STATE_FIELDS,
+                        UNIVERSAL_META, ZERO_FILE_PREFIX)
 
 
 def _unflatten(leaves):
@@ -90,6 +97,7 @@ def load_universal_checkpoint(engine, load_dir, tag=None,
     and lr scheduler from the universal directory ``load_dir[/tag]``;
     returns ``(directory, client_state)``.  Every rank calls it."""
     from ..runtime.checkpoint_engine import DATA_STATE_KEYS, restore_state
+    from ..runtime.infinity_engine import InfinityEngine
     from ..utils.not_ported import not_ported
     root = os.path.join(load_dir, tag) if tag else load_dir
     meta, fields = read_universal(root, engine.module)
@@ -98,6 +106,14 @@ def load_universal_checkpoint(engine, load_dir, tag=None,
     if data and not load_module_only:
         raise not_ported(f"restoring {', '.join(data)} from a checkpoint "
                          "(the dataloader)", 4)
+    if isinstance(engine, InfinityEngine):
+        _load_into_infinity(engine, meta, fields,
+                            load_optimizer_states and not load_module_only,
+                            load_lr_scheduler_states and
+                            not load_module_only)
+        log_dist(f"ZeRO-Infinity: loaded universal checkpoint from {root} "
+                 f"(step {meta.get('step', 0)})", ranks=[0])
+        return root, es.get("client_state", {})
     sources = [({name: (0, t.numel(), 0)},
                 {f: leaves[name].reshape(-1) for f, leaves in fields.items()})
                for name, t in fields["fp32"].items()]
@@ -112,3 +128,31 @@ def load_universal_checkpoint(engine, load_dir, tag=None,
     log_dist(f"loaded universal checkpoint from {root} "
              f"(step {engine.global_steps})", ranks=[0])
     return root, es.get("client_state", {})
+
+
+def _load_into_infinity(engine, meta, fields, load_opt, load_sched):
+    """The universal ``fields`` ({field: {torch name: tensor}}) into the
+    streaming engine's store, this rank's slice of each group."""
+    store = engine._store
+
+    def slice_of(key, leaves, full, field):
+        src = fields.get(field)
+        if key not in store.keys():
+            store.add_group(key, leaves)
+        flat = torch.zeros(store.numel(key), dtype=torch.float32)
+        if src is not None:
+            for name, o, k, _ in store.layout(key):
+                flat[o:o + k].copy_(src[full(name)].reshape(-1))
+        return store.take_slice(key, flat).clone()
+
+    masters, kinds = {}, {}
+    for key, leaves, full in engine._groups():
+        masters[key] = slice_of(key, leaves, full, "fp32")
+        if load_opt:
+            kinds[key] = {
+                kind: slice_of(key, leaves, full,
+                               STATE_FIELD_TO_UNIVERSAL.get(kind, kind))
+                for kind in store.KINDS[store.optimizer]}
+    engine.install_state(masters, {"step_count": int(meta.get("step", 0)),
+                                   "kinds": kinds} if load_opt else None)
+    engine.restore_counters(meta.get("engine_state", {}), load_sched)

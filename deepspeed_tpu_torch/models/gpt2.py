@@ -348,13 +348,15 @@ def gpt2_streaming_parts(model):
     def block_apply(w, x, use_kernel=True):
         return functional_call(block, w, (x, use_kernel))
 
-    def head_apply(res, x, input_ids, labels=None, attention_mask=None):
+    def head_apply(res, x, input_ids, labels=None, attention_mask=None,
+                   loss_reduction="mean"):
         x = functional_call(ln_f, {"scale": res["ln_f.scale"],
                                    "bias": res["ln_f.bias"]}, (x, dt))
         logits = F.linear(x, res["wte.embedding"].to(dt))
         if labels is None:
             return logits
-        return lm_loss(logits, labels.to(logits.device), attention_mask)
+        return lm_loss(logits, labels.to(logits.device), attention_mask,
+                       loss_reduction)
 
     L = cfg.num_hidden_layers
     return StreamingSpec(

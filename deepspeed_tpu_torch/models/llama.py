@@ -589,7 +589,8 @@ def llama_streaming_parts(model):
                                cfg.rope_theta, cfg.rope_scaling, x.device)
         return functional_call(block, w, (x, cos, sin, use_kernel))
 
-    def head_apply(res, x, input_ids, labels=None, attention_mask=None):
+    def head_apply(res, x, input_ids, labels=None, attention_mask=None,
+                   loss_reduction="mean"):
         x = rms_norm(x, res["model.norm.weight"], cfg.rms_norm_eps, dt)
         if tied:
             logits = _head_product(x.to(hd).to(dt),
@@ -598,7 +599,8 @@ def llama_streaming_parts(model):
             logits = _head_product(x.to(hd), res["lm_head.weight"].to(hd))
         if labels is None:
             return logits
-        return lm_loss(logits, labels.to(logits.device), attention_mask)
+        return lm_loss(logits, labels.to(logits.device), attention_mask,
+                       loss_reduction)
 
     L = cfg.num_hidden_layers
     return StreamingSpec(

@@ -111,6 +111,12 @@ class DeepSpeedCPULion:
             _ptr(bf16_out) if bf16_out is not None else None)
 
 
+def set_host_threads(n):
+    """Run the host kernels that this thread calls on ``n`` OpenMP
+    threads (``omp_set_num_threads`` of the library's OpenMP runtime)."""
+    _lib().omp_set_num_threads(int(n))
+
+
 def cpu_sq_norm(grad):
     """Σ g² in double precision over a contiguous fp32 CPU tensor."""
     _check("grad", grad, grad.numel())

@@ -368,6 +368,9 @@ class CPUOptimizersBuilder(HostOpBuilder):
         lib.ds_cpu_lion_step.argtypes = [p, p, p, n, f, f, f, f, p]
         lib.ds_cpu_sq_norm.restype = ctypes.c_double
         lib.ds_cpu_sq_norm.argtypes = [p, n]
+        # the OpenMP runtime the library links (``set_host_threads``)
+        lib.omp_set_num_threads.argtypes = [i]
+        lib.omp_set_num_threads.restype = None
 
 
 class AsyncIOBuilder(HostOpBuilder):

@@ -34,6 +34,21 @@ pieces (``ZeroPartitionPlan.fill_shard``): the elastic resume JAX gets from
 orbax's global arrays (``:13-15``).  Upstream stage-3 tags
 (``fp32_flat_groups``) load through the same fill.
 
+A 1-bit optimizer (``runtime/fp16/onebit/``) writes its moments as
+``exp_avg``/``exp_avg_sq`` (JAX's ``mu``/``nu``), and every rank writes
+what is its own, JAX's other ``OnebitState`` fields, to
+``onebit_rank_{r}_states.pt``: ``{"world", "worker_error",
+"server_error", "extra"}`` (the count is the optim file's step).  A load at the same world size restores them;
+at another one the error buffers restart at zero (their sizes depend on
+the world) and the extras are rank 0's.
+
+With MiCS (``mics_shard_size``) the state is sharded within a shard group
+and replicated across the groups: the first group's ranks alone write
+their partitions, named by their rank in the group, so a tag holds one
+partition a shard and loads at any world size and stage.  hpZ keeps the
+master on the world's slices and writes as stage 3 does; its secondary
+copy of the parameters is derived from the master and is not written.
+
 A save stages every tensor on the host before it returns; a thread writes
 the files (each retried), and the commit (manifest, then ``latest``, then
 retention) waits until every rank's files are written.  With
@@ -483,6 +498,57 @@ def optim_state_dict(engine):
     }}
 
 
+ONEBIT_FILE = "onebit_rank_{}_states.pt"
+
+
+def onebit_state_dict(engine):
+    """This rank's own 1-bit optimizer state (module docstring)."""
+    st = engine.opt_state
+    return {"world": st.world,
+            "worker_error": _host(st.worker_error),
+            "server_error": _host(st.server_error),
+            "extra": {k: _host(v) for k, v in st.extra.items()}}
+
+
+def restore_onebit(engine, root):
+    """The 1-bit state of this rank's file (rank 0's extras at another
+    world size, the error buffers then left at zero)."""
+    st = engine.opt_state
+    path = os.path.join(root, ONEBIT_FILE.format(engine.dp_rank))
+    same = os.path.exists(path)
+    if not same:
+        path = os.path.join(root, ONEBIT_FILE.format(0))
+        if not os.path.exists(path):
+            logger.warning(f"{root} holds no 1-bit optimizer state: the "
+                           "error buffers and extras start afresh")
+            return
+    sd = torch.load(path, map_location="cpu", weights_only=False)
+    with torch.no_grad():
+        for k, v in sd["extra"].items():
+            if k in st.extra and st.extra[k].shape == v.shape:
+                st.extra[k].copy_(v)
+        if same and sd["world"] == st.world:
+            st.worker_error.copy_(sd["worker_error"])
+            st.server_error.copy_(sd["server_error"])
+        else:
+            st.worker_error.zero_()
+            st.server_error.zero_()
+            logger.warning(f"1-bit error buffers of world {sd['world']} "
+                           f"at world {st.world}: they restart at zero")
+
+
+def _writes_partition(engine):
+    """(whether this rank writes an optim file, the partition's index):
+    every partition of a sharded plan, rank 0 alone below stage 1; MiCS's
+    first shard group alone."""
+    plan = engine.zero_plan
+    if plan.mics:
+        replicas = engine._zcomm.replica_group
+        first = replicas is None or replicas.rank() == 0
+        return first, engine._shard_group.rank()
+    return plan.sharded or engine.dp_rank == 0, engine.dp_rank
+
+
 def save_engine_checkpoint(engine, save_dir, tag=None, client_state=None,
                            save_latest=True, async_save=False):
     """Stage and write a tag (module docstring); returns the
@@ -514,8 +580,11 @@ def save_engine_checkpoint(engine, save_dir, tag=None, client_state=None,
             "mp_world_size": 1,
             "ds_config": dict(cfg._param_dict),
         }))
-    if engine.zero_plan.sharded or rank == 0:
-        jobs.append((optim_file(rank), optim_state_dict(engine)))
+    writes, part = _writes_partition(engine)
+    if writes:
+        jobs.append((optim_file(part), optim_state_dict(engine)))
+    if engine._onebit:
+        jobs.append((ONEBIT_FILE.format(rank), onebit_state_dict(engine)))
     writer = _FileWriter(root, tag, jobs, ic.save_retries, ic.retry_backoff)
     handle = _AsyncSaveHandle(
         [writer], latest_path=(os.path.join(save_dir, "latest")
@@ -792,5 +861,7 @@ def load_engine_checkpoint(engine, load_dir, tag=None,
                   load_module_only=load_module_only,
                   load_module_strict=load_module_strict,
                   custom_load_fn=custom_load_fn)
+    if engine._onebit and load_optimizer_states and not load_module_only:
+        restore_onebit(engine, root)
     log_dist(f"loaded checkpoint {root}", ranks=[0])
     return root, state.get("client_state", {})

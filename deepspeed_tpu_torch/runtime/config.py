@@ -39,12 +39,17 @@ LAMB_OPTIMIZER = "lamb"
 FUSED_LAMB_OPTIMIZER = "fusedlamb"
 LION_OPTIMIZER = "lion"
 SGD_OPTIMIZER = "sgd"
+ONEBIT_ADAM_OPTIMIZER = "onebitadam"
+ZERO_ONE_ADAM_OPTIMIZER = "zerooneadam"
+ONEBIT_LAMB_OPTIMIZER = "onebitlamb"
+ONEBIT_OPTIMIZERS = (ONEBIT_ADAM_OPTIMIZER, ZERO_ONE_ADAM_OPTIMIZER,
+                     ONEBIT_LAMB_OPTIMIZER)
 ADAM_OPTIMIZERS = (ADAM_OPTIMIZER, ADAMW_OPTIMIZER, FUSED_ADAM_OPTIMIZER)
 PORTED_OPTIMIZERS = ADAM_OPTIMIZERS + (LAMB_OPTIMIZER, FUSED_LAMB_OPTIMIZER,
-                                       LION_OPTIMIZER, SGD_OPTIMIZER)
+                                       LION_OPTIMIZER, SGD_OPTIMIZER) + \
+    ONEBIT_OPTIMIZERS
 # the JAX package's other optimizers → the queue-A item that brings each
-_UNPORTED_OPTIMIZERS = {"muon": 11, "adagrad": 11, "onebitadam": 7,
-                        "zerooneadam": 7, "onebitlamb": 7}
+_UNPORTED_OPTIMIZERS = {"muon": 11, "adagrad": 11}
 GRAD_ACCUM_DTYPES = (None, "fp32", "bf16", "fp16")
 MB = 1 << 20
 # comm_optimizations.zero_mode: the JAX package's two qgZ micro-steps

@@ -109,7 +109,7 @@ from ..utils.timer import (BACKWARD_GLOBAL_TIMER, FORWARD_GLOBAL_TIMER,
                            SynchronizedWallClockTimer)
 from .config import (ADAM_OPTIMIZERS, ADAMW_OPTIMIZER, FUSED_ADAM_OPTIMIZER,
                      FUSED_LAMB_OPTIMIZER, LAMB_OPTIMIZER, LION_OPTIMIZER,
-                     SGD_OPTIMIZER, DeepSpeedConfig)
+                     ONEBIT_OPTIMIZERS, SGD_OPTIMIZER, DeepSpeedConfig)
 from .loss_scaler import create_loss_scaler, has_overflow
 from .lr_schedules import get_lr_scheduler
 from .offload import OffloadMixin
@@ -163,6 +163,12 @@ def _optimizer_from_config(name, p, lr_fn):
     if name == SGD_OPTIMIZER:
         return sgd(lr=lr, momentum=p.pop("momentum", 0.0),
                    weight_decay=p.pop("weight_decay", 0.0), lr_fn=lr_fn)
+    if name in ONEBIT_OPTIMIZERS:
+        from .fp16 import onebit
+        cls = {"onebitadam": onebit.OnebitAdam,
+               "onebitlamb": onebit.OnebitLamb,
+               "zerooneadam": onebit.ZeroOneAdam}[name]
+        return cls(lr=lr, lr_fn=lr_fn, **p)
     raise ValueError(f"unsupported optimizer {name!r}")
 
 
@@ -263,11 +269,19 @@ class DeepSpeedEngine(OffloadMixin):
             config.gradient_accumulation_dtype]
         self.zero_stage = config.zero_optimization_stage
         self.zero_plan = None
+        # a 1-bit optimizer reduces the gradients itself, from each rank's
+        # own (runtime/fp16/onebit/common.py)
+        self._onebit = optimizer is None and \
+            config.optimizer_name in ONEBIT_OPTIMIZERS
+        if self._onebit:
+            from .fp16.onebit.common import check_compatible
+            check_compatible(self, config.optimizer_name)
         self._loss_fn = make_scaled_loss_fn(model,
                                             self.gradient_accumulation_steps())
-        # the loss over the global batch (module docstring)
-        self._global_loss = self._data_world > 1 and "loss_reduction" in \
-            inspect.signature(model.forward).parameters
+        # the loss over the global batch (module docstring); a 1-bit
+        # optimizer takes each rank's mean, as JAX's 1-bit micro-step does
+        self._global_loss = self._data_world > 1 and not self._onebit and \
+            "loss_reduction" in inspect.signature(model.forward).parameters
         self.timers = (SynchronizedWallClockTimer(accelerator_for(
             self.device)) if config.wall_clock_breakdown else NoopTimer())
 
@@ -284,8 +298,6 @@ class DeepSpeedEngine(OffloadMixin):
         self._last_gnorm = None
         self._last_skipped = False
         self.last_checkpoint = None   # the last save's handle (its stats())
-        if config.zero_config.offload_optimizer_device != "none":
-            self._refuse_shard_groups("offload_optimizer")
         self._configure_offload()
         if model_parameters is not None or not any(
                 p.is_meta for p in model.parameters()):
@@ -705,10 +717,14 @@ class DeepSpeedEngine(OffloadMixin):
             self._init_opt_state()
 
     def _init_opt_state(self):
+        pieces = [(o, n) for o, n, _ in
+                  self.zero_plan.leaf_pieces(self._layout)]
+        if self._onebit:
+            self.opt_state = self._transform.init(self._target(), pieces,
+                                                  world=self._data_world)
+            return
         self.opt_state = self._transform.init(
-            self._target(), [(o, n) for o, n, _ in
-                             self.zero_plan.leaf_pieces(self._layout)],
-            device=self.device, pin=self._pin_state)
+            self._target(), pieces, device=self.device, pin=self._pin_state)
         if self.zero_plan.sharded and self.zero_plan.world_size > 1 and \
                 isinstance(self._transform, FusedLambTransform):
             self._sum_lamb_leaves_over_ranks()
@@ -1049,6 +1065,8 @@ class DeepSpeedEngine(OffloadMixin):
     def _apply_update(self, use_kernel):
         """Unscale, overflow check, global norm, spike test, clip,
         optimizer, skip, scaler update (``engine.py:1469-1535``)."""
+        if self._onebit:
+            return self._apply_onebit()
         fp16, guard = self._config.fp16_enabled, self._finite_guard.enabled
         grads = self._reduced_grads()
         world = self._data_world
@@ -1096,6 +1114,33 @@ class DeepSpeedEngine(OffloadMixin):
             self._account_guarded_step(skip, gnorm)
         self._last_gnorm = gnorm
         self._last_skipped = skip
+
+    def _apply_onebit(self):
+        """The 1-bit optimizers' boundary step (JAX ``common.py:109
+        build_onebit_apply``): this rank's unreduced gradients, unscaled;
+        the fp16 overflow flag max-reduced over the ranks (an overflow
+        keeps every piece of state); the leaf updates, which average over
+        the ranks themselves; the reported norm is the synced momentum's."""
+        inv = np.float32(1.0) / np.float32(self.scale_state.scale)
+        grads = self.grad_acc.float() * torch.tensor(inv,
+                                                     device=self.device)
+        overflow = False
+        if self._config.fp16_enabled:
+            flags = (~torch.isfinite(grads)).any().reshape(1)
+            overflow = bool(self._agree_flags(flags).cpu()[0])
+        if overflow:
+            gnorm = torch.tensor(float("nan"))
+            self.skipped_steps += 1
+        else:
+            gnorm = self._transform.onebit_step(grads, self.opt_state,
+                                                self._target(),
+                                                group=self._dp_group)
+            if self.master is not None:
+                self._param_shard().copy_(self.master)
+        self.scale_state = self.loss_scaler.update(self.scale_state,
+                                                   overflow)
+        self._last_gnorm = gnorm
+        self._last_skipped = overflow
 
     def _gather_updated(self):
         """Every rank's updated slices where the module's parameters read
@@ -1259,7 +1304,6 @@ class DeepSpeedEngine(OffloadMixin):
         and at exit.  ``exclude_frozen_parameters``: the port trains every
         leaf, so there is none to exclude."""
         from .checkpoint_engine import save_engine_checkpoint
-        self._refuse_shard_groups("save_checkpoint")
         self._refuse_model_parallel("save_checkpoint")
         self._check_params()
         self.wait_for_checkpoint()   # one pending async save at a time
@@ -1297,7 +1341,6 @@ class DeepSpeedEngine(OffloadMixin):
         dir, client_state)``, ``(None, {})`` when nothing was loaded.
         ``custom_load_fn(src=module state, dst=module)`` replaces the
         module's load (stages 0-2).  Every rank calls it."""
-        self._refuse_shard_groups("load_checkpoint")
         self._refuse_model_parallel("load_checkpoint")
         if custom_load_fn is not None and self.zero_stage == 3:
             raise ValueError("load_checkpoint(custom_load_fn=...) needs the "
@@ -1391,10 +1434,13 @@ class DeepSpeedEngine(OffloadMixin):
                 if name in module:
                     self.params[off:off + n].copy_(module[name].reshape(-1))
         else:
+            # this rank's pieces (hpZ: of its primary world slices, from
+            # which the secondary slices are derived)
+            shard = self._param_shard()
             for off, k, within, i in plan.pieces(self._layout):
                 name = self._layout[i][0]
                 if name in module:
-                    self.params[off:off + k].copy_(
+                    shard[off:off + k].copy_(
                         module[name].reshape(-1)[within:within + k])
             for u in self._coord.units:
                 if u.kind == PERSISTENT:
@@ -1403,6 +1449,9 @@ class DeepSpeedEngine(OffloadMixin):
                             u.buffer[off:off + n].copy_(
                                 module[name].reshape(-1))
             self._coord.release_all()
+            if plan.hpz:
+                self._refresh_secondary()
+            return
         if self._pshard is not None:
             plan.take_shard(self.params, out=self._pshard)
 
@@ -1413,7 +1462,8 @@ class DeepSpeedEngine(OffloadMixin):
         if self.master is None:
             return
         if self.zero_stage == 3:
-            self.master.copy_(self.params)
+            # hpZ: the primary world slices, not the secondary copy
+            self.master.copy_(self._param_shard())
         else:
             self.zero_plan.take_shard(self.params, out=self.master)
 
@@ -1464,10 +1514,6 @@ class DeepSpeedEngine(OffloadMixin):
         ``layer_XX-model_states`` files) are item 9b."""
         if self.pp_world_size > 1 or self.seq_parallel_world_size > 1:
             raise not_ported(f"{what} with pp or sp > 1", "9b")
-
-    def _refuse_shard_groups(self, what):
-        if self._zcomm.hpz or self._zcomm.mics:
-            raise not_ported(f"{what} with hpZ or MiCS shard groups", "7a")
 
     def __del__(self):
         # the coordinator's hooks would keep it, and its shard, alive

@@ -23,16 +23,30 @@ NVMe), and a step is a Python-level stream of per-block calls:
 so the card holds at most the current block, the one being fetched and
 the boundary activations (``max_resident_blocks`` ≤ 3); the full model
 never exists on the card, its random init included
-(:meth:`InfinityEngine.initialize_parameters`).  Checkpoints are the JAX
-package's ``infinity_state.pkl`` (masters in the flax paths and shapes,
-moments flat in flax leaf order), so a tag crosses between the packages.
+(:meth:`InfinityEngine.initialize_parameters`).
+
+At world size > 1 the host store is sharded over the data ranks
+(``runtime/zero/infinity.py``): each fetch all-gathers a block from the
+ranks' slices, each block's gradients are reduce-scattered, the loss is
+the global batch's token-counted mean (the model's ``sum_count`` loss over
+the all-reduced count, as the base engine takes it), the gradient norm
+sums the ranks' slices once, and each rank's host sweep updates its slice.
+
+Checkpoints: at world 1 the JAX package's ``infinity_state.pkl`` (masters
+in the flax paths and shapes, moments flat in flax leaf order), so a tag
+crosses between the packages; at world > 1 no rank gathers the store: each
+writes its slices to ``infinity_rank_{r}.pt`` beside
+``infinity_manifest.json`` (the groups' layouts, the world size, the
+counters).  Either loads at any world size, and
+``checkpoint.convert_to_universal`` converts either; a universal directory
+loads into a streaming engine with ``checkpoint.load_universal``.
 
 Refused loudly, with JAX's messages: fp16, ZeRO++, a model without
-``streaming_parts``, an optimizer with no host kernel (LAMB).  Not ported
-yet (queue A item 10): streaming at world size > 1, and the universal
-checkpoint of this engine.
+``streaming_parts``, an optimizer with no host kernel (LAMB); sequence
+parallelism is queue A item 9b.
 """
 
+import json
 import os
 import pickle
 import sys
@@ -44,6 +58,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from .. import comm as dist
 from ..utils.logging import log_dist
 from ..utils.not_ported import not_ported
 from ..utils.timer import (BACKWARD_GLOBAL_TIMER, FORWARD_GLOBAL_TIMER,
@@ -53,6 +68,8 @@ from .zero.infinity import BlockStore, views
 
 RESIDENT = "__resident__"
 STATE_FILE = "infinity_state.pkl"
+SHARD_MANIFEST = "infinity_manifest.json"
+SHARD_FILE = "infinity_rank_{}.pt"
 
 
 def flax_leaves(tree):
@@ -88,10 +105,12 @@ def unflatten_like(tree, flat):
 
 
 class _SaveThread:
-    """A background write; :meth:`wait` joins it and raises its error."""
+    """A background write; :meth:`wait` joins it, raises its error, then
+    runs ``commit`` (on the caller's thread: it may be a collective)."""
 
-    def __init__(self, fn):
+    def __init__(self, fn, commit=None):
         self._err = None
+        self._commit = commit
         self._t = threading.Thread(target=self._run, args=(fn, ),
                                    daemon=False)
         self._t.start()
@@ -106,6 +125,8 @@ class _SaveThread:
         self._t.join()
         if self._err is not None:
             raise self._err
+        if self._commit is not None:
+            self._commit()
 
 
 class InfinityEngine(DeepSpeedEngine):
@@ -131,9 +152,10 @@ class InfinityEngine(DeepSpeedEngine):
         self._store = None
         self._pending_install = None
         super().__init__(*args, **kwargs)
-        if self._data_world > 1:
-            raise not_ported("ZeRO-Infinity parameter streaming at world "
-                             "size > 1", 10)
+        if self.seq_parallel_world_size > 1:
+            raise not_ported("ZeRO-Infinity parameter streaming with "
+                             "sequence parallelism", "9b")
+        sharded = self._data_world > 1
         oo = zc.offload_optimizer
         state_dev = zc.offload_optimizer_device
         self._store = BlockStore(
@@ -145,7 +167,9 @@ class InfinityEngine(DeepSpeedEngine):
             opt_params=dict(cfg.optimizer_params or {}),
             wire_dtype=self.compute_dtype,
             grad_accum_fp32=self.gradient_accumulation_steps() > 1,
-            device=self.device, rank=self.dp_rank)
+            device=self.device,
+            rank=self._dp_group.rank() if sharded else 0,
+            group=self._dp_group if sharded else None)
         self._dev_blocks = {}      # key → {name: device tensor}
         self._pending_fetch = {}   # key → fetch handle (copy in flight)
         self._dev_resident = None
@@ -212,10 +236,14 @@ class InfinityEngine(DeepSpeedEngine):
             self._spec.init_leaf(full(name), t, gen)
             return name, t
 
-        with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        with ThreadPoolExecutor(self._store.threads) as pool:
             for key, leaves, full in self._groups():
+                # only the leaves this rank's slice holds a piece of
+                self._store.add_group(key, leaves)
+                mine = self._store.leaves_in_slice(key)
                 values = dict(pool.map(lambda leaf: draw(full, leaf),
-                                       leaves))
+                                       [lf for lf in leaves
+                                        if lf[0] in mine]))
                 self._store.install_group(key, leaves, values)
                 del values
         self._log_installed()
@@ -289,14 +317,30 @@ class InfinityEngine(DeepSpeedEngine):
         with torch.enable_grad():
             leaves = {k: v.detach().requires_grad_() for k, v in res.items()}
             xl = x.detach().requires_grad_()
-            loss = spec.head_apply(leaves, xl, *batch, **kwargs)
+            if self._data_world > 1:
+                loss, shown = self._global_head_loss(leaves, xl, batch,
+                                                     kwargs)
+            else:
+                loss = shown = spec.head_apply(leaves, xl, *batch, **kwargs)
             grads = torch.autograd.grad(loss, [xl, *leaves.values()],
                                         allow_unused=True)
         self._head_stash = (grads[1:], grads[0])
         self._acts = acts
         self._fwd_batch = (batch, kwargs)
         self.timers(FORWARD_GLOBAL_TIMER).stop()
-        return loss.detach()
+        return shown.detach()
+
+    def _global_head_loss(self, leaves, xl, batch, kwargs):
+        """(this rank's share of the loss, the global loss): the head's
+        masked sum over the all-reduced count, so the gradients summed by
+        the reduce-scatters are those of the global batch's mean (the base
+        engine's ``_global_batch_loss``)."""
+        total, count = self._spec.head_apply(
+            leaves, xl, *batch, loss_reduction="sum_count", **kwargs)
+        both = torch.stack([total.detach().float(), count.detach().float()])
+        dist.all_reduce(both, group=self._dp_group)
+        denom = torch.clamp(both[1], min=1.0)
+        return total.float() / denom, both[0] / denom
 
     __call__ = forward
 
@@ -396,9 +440,22 @@ class InfinityEngine(DeepSpeedEngine):
         return sum(self._store.param_bytes(k) for k in
                    (*self._dev_blocks, *self._pending_fetch))
 
+    def _whole(self, key, part):
+        """A group's whole padded flat vector (CPU) from this rank's slice
+        ``part``: an all-gather over the ranks at world > 1."""
+        if self._store.world == 1:
+            return part
+        t = part.to(self.device)
+        out = torch.empty(self._store.numel(key), dtype=t.dtype,
+                          device=self.device)
+        dist.allgather_fn(out, t, group=self._dp_group)
+        return out.cpu()
+
     def _masters(self):
-        """{module name: fp32 tensor} of every leaf, from the store."""
-        flats = self._store.export_master()
+        """{module name: fp32 tensor} of every leaf, from the store (a
+        collective at world > 1)."""
+        flats = {k: self._whole(k, v)
+                 for k, v in self._store.export_master().items()}
         out = {}
         for key, leaves, full in self._groups():
             for name, t in views(flats[key], self._store.layout(key)).items():
@@ -452,27 +509,8 @@ class InfinityEngine(DeepSpeedEngine):
             out[key] = flat
         return out
 
-    def save_checkpoint(self, save_dir, tag=None, client_state=None,
-                        save_latest=True, exclude_frozen_parameters=False,
-                        async_save=False):
-        """``{save_dir}/{tag}/infinity_state.pkl`` in the JAX package's
-        layout, then ``latest``.  The snapshot is taken before returning;
-        ``async_save`` writes it in a thread (:meth:`wait_for_checkpoint`)."""
-        self._check_params()
-        self.wait_for_checkpoint()
-        tag = tag or f"global_step{self.global_steps}"
-        path = os.path.join(save_dir, str(tag), STATE_FILE)
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        opt = self._store.export_state()
-        masters = self._store.export_master()
-        kinds = {}
-        for key, ks in opt["kinds"].items():
-            kinds[key] = {k: np.concatenate([
-                np.ravel(a) for a in flax_leaves(self._to_flax(key, v))])
-                for k, v in ks.items()}
-        state = {
-            "master": {k: self._to_flax(k, v) for k, v in masters.items()},
-            "opt": {"step_count": opt["step_count"], "kinds": kinds},
+    def _counters(self, client_state):
+        return {
             "global_steps": self.global_steps,
             "global_samples": self.global_samples,
             "micro_steps": self.micro_steps,
@@ -483,39 +521,172 @@ class InfinityEngine(DeepSpeedEngine):
             "client_state": client_state or {},
         }
 
-        def write():
-            with open(path, "wb") as f:
-                pickle.dump(state, f)
-            if save_latest:
-                # only a whole checkpoint becomes the resume target
-                with open(os.path.join(save_dir, "latest"), "w") as f:
-                    f.write(str(tag))
+    def save_checkpoint(self, save_dir, tag=None, client_state=None,
+                        save_latest=True, exclude_frozen_parameters=False,
+                        async_save=False):
+        """A tag of the store (module docstring), then ``latest``: at world
+        1 ``{save_dir}/{tag}/infinity_state.pkl`` in the JAX package's
+        layout, at world > 1 each rank's slices and rank 0's manifest.  The
+        snapshot is taken before returning; ``async_save`` writes it in a
+        thread (:meth:`wait_for_checkpoint` commits it).  Every rank calls
+        it."""
+        self._check_params()
+        self.wait_for_checkpoint()
+        tag = str(tag or f"global_step{self.global_steps}")
+        root = os.path.join(save_dir, tag)
+        os.makedirs(root, exist_ok=True)
+        if self._store.world == 1:
+            path = os.path.join(root, STATE_FILE)
+            state = dict(self._flax_state(), **self._counters(client_state))
 
-        if async_save:
-            self._pending_ckpt = _SaveThread(write)
+            def write():
+                with open(path, "wb") as f:
+                    pickle.dump(state, f, protocol=pickle.HIGHEST_PROTOCOL)
         else:
-            write()
+            path = root
+            write = self._shard_writer(root, client_state)
+        latest = (os.path.join(save_dir, "latest") if save_latest else None)
+        commit = self._commit(latest, tag)
+        if self._store.world == 1:
+            # no collective in the commit: the thread makes it, as JAX's
+            def write(written=write, commit=commit):
+                written()
+                commit()
+            commit = None
+        self._pending_ckpt = _SaveThread(write, commit)
+        if not async_save:
+            self.wait_for_checkpoint()
         return path
 
-    def load_checkpoint(self, load_dir, tag=None, **kw):
-        if self._config.load_universal_checkpoint:
-            raise not_ported("the universal checkpoint of ZeRO-Infinity "
-                             "parameter streaming", 10)
+    def _commit(self, latest, tag):
+        """What makes a written tag the resume target: every rank's files
+        are written (a barrier at world > 1), then rank 0 writes
+        ``latest``."""
+        def commit():
+            if self._store.world > 1:
+                dist.barrier(group=self._dp_group)
+            if latest is not None and self._dp_group.rank() == 0:
+                with open(latest, "w") as f:
+                    f.write(tag)
+        return commit
+
+    def _flax_state(self):
+        """The ``master`` and ``opt`` of ``infinity_state.pkl``: every
+        group in the flax layout, the moments flat in flax leaf order."""
+        opt = self._store.export_state()
+        masters = self._store.export_master()
+        kinds = {}
+        for key, ks in opt["kinds"].items():
+            kinds[key] = {k: np.concatenate([
+                np.ravel(a) for a in flax_leaves(self._to_flax(key, v))])
+                for k, v in ks.items()}
+        return {"master": {k: self._to_flax(k, v) for k, v in
+                           masters.items()},
+                "opt": {"step_count": opt["step_count"], "kinds": kinds}}
+
+    def _shard_writer(self, root, client_state):
+        """World > 1: this rank's slices (and rank 0's manifest), copied
+        now, written by the returned function."""
+        from .checkpoint_engine import module_record
+        store = self._store
+        opt = store.export_state()
+        mine = {"master": store.export_master(), "kinds": opt["kinds"],
+                "rank": store.rank}
+        manifest = None
+        if store.rank == 0:
+            manifest = dict(
+                self._counters(client_state), world=store.world,
+                optimizer=store.optimizer, step_count=opt["step_count"],
+                module=module_record(self.module),
+                groups={key: {"padded": store.numel(key),
+                              "leaves": [[full(n), o, k, list(shape)]
+                                         for n, o, k, shape in
+                                         store.layout(key)]}
+                        for key, _, full in self._groups()})
+
+        def write():
+            torch.save(mine, os.path.join(root,
+                                          SHARD_FILE.format(store.rank)))
+            if manifest is not None:
+                with open(os.path.join(root, SHARD_MANIFEST), "w") as f:
+                    json.dump(manifest, f, indent=1)
+        return write
+
+    def wait_for_checkpoint(self):
+        pending = getattr(self, "_pending_ckpt", None)
+        if pending is not None:
+            self._pending_ckpt = None
+            pending.wait()
+
+    def load_checkpoint(self, load_dir, tag=None,
+                        load_optimizer_states=True,
+                        load_lr_scheduler_states=True, **kw):
+        """Load a streamed tag written at any world size (or, with
+        ``checkpoint.load_universal``, a universal directory); returns
+        ``(path, client_state)``.  Every rank calls it."""
         self.wait_for_checkpoint()
+        if self._config.load_universal_checkpoint:
+            from ..checkpoint.universal_checkpoint import \
+                load_universal_checkpoint
+            return load_universal_checkpoint(
+                self, load_dir, tag=tag,
+                load_optimizer_states=load_optimizer_states,
+                load_lr_scheduler_states=load_lr_scheduler_states)
         if tag is None:
             with open(os.path.join(load_dir, "latest")) as f:
                 tag = f.read().strip()
-        path = os.path.join(load_dir, str(tag), STATE_FILE)
-        with open(path, "rb") as f:
-            state = pickle.load(f)
+        root = os.path.join(load_dir, str(tag))
+        for key, leaves, _ in self._groups():
+            if key not in self._store.keys():
+                self._store.add_group(key, leaves)
+        if os.path.exists(os.path.join(root, STATE_FILE)):
+            path = os.path.join(root, STATE_FILE)
+            with open(path, "rb") as f:
+                state = pickle.load(f)
+            masters, opt = self._from_pkl(state, path)
+        else:
+            path = root
+            state, masters, opt = self._from_shards(root)
+        self.install_state(masters, opt if load_optimizer_states else None)
+        self.restore_counters(state, load_lr_scheduler_states)
+        return path, state.get("client_state", {})
+
+    def install_state(self, masters, opt=None):
+        """{key: this rank's fp32 master slice} and, unless None, ``{
+        "step_count", "kinds": {key: {kind: slice}}}`` into the store (the
+        groups laid out first when the engine holds none yet)."""
+        for key, leaves, _ in self._groups():
+            if not self._store.installed(key):
+                self._store.install_zeros(key, leaves)
+        self._store.import_master(masters)
+        if opt is not None:
+            self._store.import_state(opt)
+
+    def restore_counters(self, state, load_lr_scheduler_states=True):
+        self.global_steps = state.get("global_steps", self.global_steps)
+        self.global_samples = state.get("global_samples",
+                                        self.global_samples)
+        self.micro_steps = state.get("micro_steps", self.micro_steps)
+        if load_lr_scheduler_states and \
+                state.get("lr_scheduler") is not None and \
+                self.lr_scheduler is not None and \
+                hasattr(self.lr_scheduler, "load_state_dict"):
+            self.lr_scheduler.load_state_dict(state["lr_scheduler"])
+        self._dev_resident = None
+        self._dev_blocks.clear()
+        self._pending_fetch.clear()
+        self._acc_fresh = True
+
+    def _from_pkl(self, state, path):
+        """A world-1 ``infinity_state.pkl`` (flax layout) → this rank's
+        master slices and optimizer state."""
         expect = {k for k, _, _ in self._groups()}
         if set(state["master"]) != expect:
             raise KeyError(f"{path}: groups {sorted(state['master'])[:4]}, "
                            f"the model's {sorted(expect)[:4]}")
-        if not self._store.keys():
-            for key, leaves, _ in self._groups():
-                self._store.install_group(key, leaves, _zeros(leaves))
-        self._store.import_master(self._from_flax(state["master"]))
+        take = self._store.take_slice
+        masters = {k: take(k, v).clone() for k, v in
+                   self._from_flax(state["master"]).items()}
         opt = state["opt"]
         per_kind = {}
         for key, ks in opt["kinds"].items():
@@ -525,22 +696,40 @@ class InfinityEngine(DeepSpeedEngine):
         kinds = {}
         for k, trees in per_kind.items():
             for key, flat in self._from_flax(trees).items():
-                kinds.setdefault(key, {})[k] = flat
-        self._store.import_state({"step_count": opt["step_count"],
-                                  "kinds": kinds})
-        self.global_steps = state["global_steps"]
-        self.global_samples = state["global_samples"]
-        self.micro_steps = state["micro_steps"]
-        if state.get("lr_scheduler") is not None and \
-                self.lr_scheduler is not None and \
-                hasattr(self.lr_scheduler, "load_state_dict"):
-            self.lr_scheduler.load_state_dict(state["lr_scheduler"])
-        self._dev_resident = None
-        self._dev_blocks.clear()
-        self._pending_fetch.clear()
-        self._acc_fresh = True
-        return path, state.get("client_state", {})
+                kinds.setdefault(key, {})[k] = take(key, flat).clone()
+        return masters, {"step_count": opt["step_count"], "kinds": kinds}
 
-
-def _zeros(leaves):
-    return {n: torch.zeros(shape) for n, shape in leaves}
+    def _from_shards(self, root):
+        """A world > 1 tag → (manifest, this rank's master slices, its
+        optimizer state): each slice filled from the old ranks' files that
+        overlap it."""
+        with open(os.path.join(root, SHARD_MANIFEST)) as f:
+            man = json.load(f)
+        store = self._store
+        for key, _, full in self._groups():
+            want = [[full(n), o, k, list(shape)]
+                    for n, o, k, shape in store.layout(key)]
+            got = man["groups"].get(key)
+            if got is None or got["leaves"] != want:
+                raise KeyError(f"{root}: group {key!r} is not the model's")
+        masters, kinds = {}, {}
+        for q in range(man["world"]):
+            part = torch.load(os.path.join(root, SHARD_FILE.format(q)),
+                              map_location="cpu", mmap=True,
+                              weights_only=True)
+            for key, _, _ in self._groups():
+                s0 = man["groups"][key]["padded"] // man["world"]
+                bufs = [(masters, None, part["master"][key])] + [
+                    (kinds.setdefault(key, {}), k, v)
+                    for k, v in part["kinds"][key].items()]
+                lo, hi = store.slice_range(key)
+                a, b = max(lo, q * s0), min(hi, (q + 1) * s0)
+                for dst, kind, src in bufs:
+                    slot = key if kind is None else kind
+                    if slot not in dst:
+                        dst[slot] = torch.zeros(hi - lo, dtype=torch.float32)
+                    if a < b:
+                        dst[slot][a - lo:b - lo].copy_(
+                            src[a - q * s0:b - q * s0])
+        return man, masters, {"step_count": man["step_count"],
+                              "kinds": kinds}

@@ -12,8 +12,9 @@ host memory; nvme: on disk between steps, ``runtime/engine.py``) and
 ``runtime/infinity_engine.py``).  The deprecated ``cpu_offload`` and
 ``cpu_offload_param`` (with ``cpu_offload_use_pin_memory``) become
 ``offload_optimizer``/``offload_param`` of device cpu, as upstream
-DeepSpeed maps them, unless the new key is given.  ZeRO++ and MiCS raise
-item 7 (``runtime/config.py``).  ``reduce_bucket_size``, ``allgather_bucket_size``,
+DeepSpeed maps them, unless the new key is given.  ZeRO++ and MiCS are
+``runtime/zero/{zeropp,mics}.py``.  ``reduce_bucket_size``,
+``allgather_bucket_size``,
 ``contiguous_gradients`` and the other bucket knobs parse: the port reduces
 and gathers the whole flat buffer in one collective each, or one block of
 the model at a time (``runtime/zero/partition.py``), so it ignores them.

@@ -22,6 +22,18 @@ per (block, kind) in the port's leaf order (the block module's
   asynchronous copy on another side stream into the stash (wire dtype at
   one micro-step a step, fp32 when accumulating).
 
+At world size W > 1 the store is sharded across the ranks, not replicated
+(JAX's one process a host replicates it; here a host runs one process a
+card, and four copies of a 13B store would not fit its memory).  Each
+group's flat vector is padded to a multiple of 16·W elements and rank r
+holds slice r of it: its master, moments, wire cache and gradient stash.
+A fetch copies the rank's slice of the cache to the card and all-gathers
+the block there (issued where the fetch starts, so every rank issues the
+gathers, the prefetch's included, in one order); a block's gradients are
+reduce-scattered (SUM: the loss is already the global batch's mean) and
+only the rank's slice comes down; the host sweep updates the rank's slice.
+Adam and Lion are elementwise, so the result is the replicated sweep's.
+
 A failed swap raises; an optimizer with no host kernel raises.
 """
 
@@ -33,6 +45,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from ... import comm as dist
 from ...utils.logging import log_dist
 
 _ALIGN = 16
@@ -53,8 +66,9 @@ class StreamingSpec(NamedTuple):
     ``block_apply``      ``(block leaves by local name, activations) ->
                          activations``
     ``head_apply``       ``(resident, activations, input_ids, labels=None,
-                         attention_mask=None) -> loss`` (logits without
-                         labels)
+                         attention_mask=None, loss_reduction="mean") ->
+                         loss`` (logits without labels; "sum_count": the
+                         loss's sum and count, ``llama.lm_loss``)
     ``init_leaf``        ``(module name, fp32 CPU tensor, generator)``:
                          fills one leaf with the model's random init.
     """
@@ -85,15 +99,29 @@ def views(flat, layout):
     return {name: flat[o:o + n].view(shape) for name, o, n, shape in layout}
 
 
+def host_threads(world):
+    """The host threads one rank of ``world`` ranks on this host may take
+    (``LOCAL_WORLD_SIZE`` when the launcher sets it): the cores over the
+    ranks that share them, and never more than ``OMP_NUM_THREADS`` asks
+    (OpenMP's setting is the process's: raising it would change the other
+    host kernels' reduction order too)."""
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    cores = len(os.sched_getaffinity(0)) if hasattr(
+        os, "sched_getaffinity") else (os.cpu_count() or 1)
+    share = max(1, cores // max(1, local))
+    return min(share, int(os.environ.get("OMP_NUM_THREADS", share)))
+
+
 class _FetchHandle:
     """A fetch in flight: an optional NVMe read, then the copy to the
-    card."""
+    card, then (world > 1) the all-gather of the block."""
 
     def __init__(self, key):
         self.key = key
         self.read = None       # SwapHandle of an NVMe read
-        self.flat = None       # the device copy
+        self.flat = None       # the device copy (the whole block)
         self.event = None      # the copy's end on the side stream
+        self.gather = None     # the all-gather's handle
 
 
 class BlockStore:
@@ -103,6 +131,9 @@ class BlockStore:
     ``optimizer``: adam, adamw, fusedadam, adagrad or lion, on the host
     kernels.  ``device``: the engine's (a card: the wire cache and the
     gradient stash are pinned, transfers asynchronous on side streams).
+    ``group``: the ranks the store is sharded over (module docstring);
+    ``rank`` is this rank's place in it.  The host kernels and the aio
+    pool take :func:`host_threads` threads.
     """
 
     KINDS = {"adam": ("m", "v"), "adamw": ("m", "v"), "fusedadam": ("m", "v"),
@@ -111,7 +142,7 @@ class BlockStore:
     def __init__(self, param_device="cpu", state_device="cpu", nvme_path=None,
                  optimizer="adam", opt_params=None,
                  wire_dtype=torch.bfloat16, grad_accum_fp32=False,
-                 device="cpu", rank=0):
+                 device="cpu", rank=0, group=None):
         if optimizer not in self.KINDS:
             raise ValueError(
                 f"host optimizer {optimizer!r} is not supported for "
@@ -132,13 +163,19 @@ class BlockStore:
         self.grad_accum_fp32 = grad_accum_fp32
         self.device = torch.device(device)
         self._cuda = self.device.type == "cuda"
+        self.group = group
+        self.world = group.size() if group is not None else 1
+        self.rank = rank if self.world > 1 else 0
+        self.threads = host_threads(self.world)
         self.step_count = 0
         self._kernels = None
-        self._layout = {}    # key → ([(name, off, numel, shape)], length)
+        self._layout = {}    # key → ([(name, off, numel, shape)], padded
+        #                     length, this rank's slice length)
         self._master = {}    # key → flat fp32 (state in host memory)
         self._state = {}     # key → {kind: flat fp32}
         self._cache = {}     # key → flat wire dtype (params in host memory)
         self._grads = {}     # key → flat stash, from a block's first grads
+        self._installed = set()
         self.transfer = {"h2d_bytes": 0, "d2h_bytes": 0}
         self._copies = {"h2d": [], "d2h": []}   # (start, end) events
         if self._cuda:
@@ -150,8 +187,12 @@ class BlockStore:
             base = nvme_path or os.path.join(tempfile.gettempdir(),
                                              "ds_tpu_infinity")
             swap_dir = os.path.join(str(base), "param_stream", f"rank{rank}")
-            self._swapper = AsyncTensorSwapper(swap_dir)
+            self._swapper = AsyncTensorSwapper(
+                swap_dir, thread_count=min(4, self.threads))
             log_dist(f"ZeRO-Infinity param streaming → {swap_dir}", ranks=[0])
+        log_dist(f"ZeRO-Infinity host store: rank {self.rank} of "
+                 f"{self.world}, {self.threads} host threads a rank",
+                 ranks=[0])
 
     def _mark(self):
         if not self._cuda:
@@ -182,21 +223,66 @@ class BlockStore:
         return torch.empty(n, dtype=dtype, pin_memory=self._cuda)
 
     # ------------------------------------------------------------ install
+    def add_group(self, key, leaves):
+        """Lay a group out (``leaves``: ((name, shape), ...)) without
+        values: padded to a multiple of 16 · world elements."""
+        layout, n = group_layout(leaves)
+        unit = _ALIGN * self.world
+        padded = -(-n // unit) * unit
+        self._layout[key] = (layout, padded, padded // self.world)
+
     def install_group(self, key, leaves, values):
         """Adopt a group's fp32 values (``{name: tensor}`` over ``leaves``,
-        ((name, shape), ...)); makes its zero moments and its wire cache."""
-        layout, n = group_layout(leaves)
-        self._layout[key] = (layout, n)
+        ((name, shape), ...)); this rank keeps its slice, with zero moments
+        and its wire cache."""
+        self.add_group(key, leaves)
+        layout, n, _ = self._layout[key]
         flat = torch.zeros(n, dtype=torch.float32)
+        mine = self.leaves_in_slice(key)
         for name, o, k, shape in layout:
+            if name not in values and name not in mine:
+                continue     # another rank's: not needed here
             t = values[name]
             if tuple(t.shape) != shape:
                 raise ValueError(f"{key}/{name}: shape {tuple(t.shape)} != "
                                  f"{shape}")
             flat[o:o + k].copy_(t.detach().reshape(-1))
-        self._set_master(key, flat, zero_state=True)
+        self._set_master(key, self.take_slice(key, flat).clone(),
+                         zero_state=True)
+
+    def leaves_in_slice(self, key):
+        """The names of the group's leaves that overlap this rank's
+        slice (all of them at world 1)."""
+        lo, hi = self.slice_range(key)
+        return {name for name, o, k, _ in self._layout[key][0]
+                if o < hi and o + k > lo}
+
+    def install_zeros(self, key, leaves):
+        """Lay a group out with zero master and state (a load fills
+        them)."""
+        self.add_group(key, leaves)
+        self._set_master(key, torch.zeros(self.shard_numel(key)),
+                         zero_state=True)
+
+    def slice_range(self, key):
+        """[lo, hi) of this rank's slice in the group's padded flat
+        vector."""
+        s = self._layout[key][2]
+        return self.rank * s, (self.rank + 1) * s
+
+    def take_slice(self, key, flat):
+        """This rank's slice (a view) of the group's whole padded flat
+        vector."""
+        lo, hi = self.slice_range(key)
+        return flat[lo:hi]
+
+    def installed(self, key):
+        """Whether the group holds values (a load may still lay it out
+        first)."""
+        return key in self._installed
 
     def _set_master(self, key, flat, zero_state=False):
+        self._installed.add(key)
         cache = flat
         if self.wire_dtype != torch.float32:
             cache = self._host_empty(flat.numel(), self.wire_dtype)
@@ -229,7 +315,12 @@ class BlockStore:
         return self._layout[key][0]
 
     def numel(self, key):
+        """The group's padded length (the whole block on the card)."""
         return self._layout[key][1]
+
+    def shard_numel(self, key):
+        """The length of this rank's slice."""
+        return self._layout[key][2]
 
     def param_bytes(self, key):
         return self.numel(key) * torch.empty(
@@ -240,11 +331,12 @@ class BlockStore:
         stash; NVMe-resident kinds excluded)."""
         out = 0
         for key in self.keys():
-            n = self.numel(key)
+            n = self.shard_numel(key)
             if self.state_device != "nvme":
                 out += 4 * n * (1 + len(self.KINDS[self.optimizer]))
             if self.param_device != "nvme":
-                out += self.param_bytes(key)
+                out += n * torch.empty(
+                    (), dtype=self.wire_dtype).element_size()
         out += sum(t.numel() * t.element_size() for t in self._grads.values())
         return out
 
@@ -256,22 +348,37 @@ class BlockStore:
         if self.param_device == "nvme":
             h.read = self._swapper.swap_in(
                 f"{key}:cache",
-                out=self._host_empty(self.numel(key), self.wire_dtype))
+                out=self._host_empty(self.shard_numel(key), self.wire_dtype))
         else:
             self._copy_up(h, self._cache[key])
         return h
 
     def _copy_up(self, h, host):
+        """The rank's slice to the card and (world > 1) the block's
+        all-gather, both queued behind the compute stream's work."""
+        whole = self.world > 1
         if not self._cuda:
             h.flat = host
+            if whole:
+                h.flat = torch.empty(self.numel(h.key), dtype=host.dtype)
+                h.gather = dist.allgather_fn(h.flat, host, group=self.group,
+                                             async_op=True)
             return
         cur = torch.cuda.current_stream(self.device)
-        flat = torch.empty(host.numel(), dtype=host.dtype, device=self.device)
+        n = self.numel(h.key)
+        flat = torch.empty(n, dtype=host.dtype, device=self.device)
+        lo, hi = self.slice_range(h.key)
+        mine = flat[lo:hi]
         # after whatever the compute stream queued before (the buffer may
         # be memory it just freed)
         self._h2d.wait_stream(cur)
         with torch.cuda.stream(self._h2d):
-            h.event = self._timed_copy("h2d", flat, host)
+            h.event = self._timed_copy("h2d", mine, host)
+            if whole:
+                # the gather follows the copy on this stream (in place:
+                # the rank's slice is its block of the output)
+                h.gather = dist.allgather_fn(flat, mine, group=self.group,
+                                             async_op=True)
         self.transfer["h2d_bytes"] += host.numel() * host.element_size()
         # a pinned source freed before the copy ends is not reused until
         # it does (PyTorch's pinned allocator records the copy's stream)
@@ -279,21 +386,47 @@ class BlockStore:
 
     def finish_fetch(self, handle):
         """{name: device view} of a fetched group; the compute stream waits
-        for its copy."""
+        for its copy and gather."""
         if handle.flat is None:
             self._copy_up(handle, handle.read.wait())
+        if handle.gather is not None:
+            with (torch.cuda.stream(self._h2d) if self._cuda else
+                  contextlib.nullcontext()):
+                handle.gather.wait()
+                if self._cuda:
+                    handle.event = self._mark()
+            handle.gather = None
         if handle.event is not None:
             torch.cuda.current_stream(self.device).wait_event(handle.event)
             handle.event = None
         return views(handle.flat, self.layout(handle.key))
 
     # ------------------------------------------------------------ grads
+    def _reduce_scatter(self, key, grads):
+        """World > 1: the group's gradients as one padded flat on the
+        device, reduce-scattered (SUM) over the ranks: this rank's slice,
+        in the gradients' dtype."""
+        layout, n, s = self._layout[key]
+        dt = grads_dtype(grads)
+        full = torch.zeros(n, dtype=dt, device=self.device)
+        for (_, o, k, _), g in zip(layout, grads):
+            if g is not None:
+                full[o:o + k].copy_(g.reshape(-1))
+        out = torch.empty(s, dtype=dt, device=self.device)
+        dist.reduce_scatter_fn(out, full, group=self.group)
+        return out
+
     def start_grads(self, key, grads):
         """A group's gradients (device tensors in its leaf order, None for
         a leaf without one) start down to the host stash, on the side
         stream: accumulated in place at its first micro-step, through a
-        staging buffer after.  Returns what :meth:`finish_grads` takes."""
-        layout, n = self._layout[key]
+        staging buffer after (world > 1: the rank's slice of their
+        reduce-scatter).  Returns what :meth:`finish_grads` takes."""
+        layout, _, n = self._layout[key]
+        if self.world > 1:
+            mine = self._reduce_scatter(key, grads)
+            layout = [("", 0, n, (n, ))]
+            grads = [mine]
         stash = self._grads.get(key)
         first = stash is None
         if first:
@@ -331,15 +464,21 @@ class BlockStore:
         self.finish_grads(self.start_grads(key, grads))
 
     def grad_sq_norm(self):
-        """Σ ‖g‖² over every stash (the host kernel, in double)."""
+        """Σ ‖g‖² over every stash (the host kernel, in double), summed
+        over the ranks' slices."""
         from ...ops.cpu_optimizers import cpu_sq_norm
-        return sum(cpu_sq_norm(s if s.dtype == torch.float32 else s.float())
-                   for s in self._grads.values())
+        sq = sum(cpu_sq_norm(s if s.dtype == torch.float32 else s.float())
+                 for s in self._grads.values())
+        if self.world > 1:
+            t = torch.tensor([sq], dtype=torch.float64, device=self.device)
+            sq = float(dist.all_reduce(t, group=self.group)[0])
+        return sq
 
     # ------------------------------------------------------------ step
     def _get_kernels(self):
         if self._kernels is None:
             from ...ops import cpu_optimizers as k
+            k.set_host_threads(self.threads)
             if self.optimizer == "adagrad":
                 self._kernels = k.DeepSpeedCPUAdagrad(
                     lr=self.lr, eps=self.eps, weight_decay=self.weight_decay)
@@ -405,7 +544,8 @@ class BlockStore:
 
     # ------------------------------------------------- checkpoint interface
     def export_master(self):
-        """{key: fp32 flat copy} in the port's layout."""
+        """{key: fp32 flat copy} in the port's layout (this rank's
+        slices)."""
         return {key: self._read_state(key)[0].clone() for key in self.keys()}
 
     def export_state(self):
@@ -416,7 +556,8 @@ class BlockStore:
         return out
 
     def import_master(self, flats):
-        """{key: fp32 flat in the port's layout}: master and cache."""
+        """{key: fp32 flat in the port's layout (this rank's slice)}:
+        master and cache."""
         for key, flat in flats.items():
             self._set_master(key, flat.float().contiguous().clone())
 

@@ -64,7 +64,11 @@ def test_import_loads_no_jax():
                  "comm.functional", "sequence", "sequence.layer", "pipe",
                  "runtime.pipe", "runtime.pipe.schedule",
                  "runtime.pipe.topology", "runtime.pipe.module",
-                 "runtime.pipe.p2p", "runtime.pipe.engine"):
+                 "runtime.pipe.p2p", "runtime.pipe.engine",
+                 "runtime.comm", "runtime.comm.compressed",
+                 "runtime.fp16.onebit", "runtime.fp16.onebit.common",
+                 "runtime.fp16.onebit.adam", "runtime.fp16.onebit.lamb",
+                 "runtime.fp16.onebit.zoadam"):
         assert f"deepspeed_tpu_torch.{name}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -121,7 +125,8 @@ def test_host_sources_equal_the_reference_byte_for_byte(name):
 
 def test_source_imports_nothing_of_jax():
     """AST scan of every import statement in the package (comm/ and
-    comm/collectives/, runtime/zero/ with zeropp.py and mics.py,
+    comm/collectives/, runtime/comm/ and runtime/fp16/onebit/,
+    runtime/zero/ with zeropp.py and mics.py,
     accelerator/ and models/bert.py included), in chip_smoke.py and in
     zero_multicard.py."""
     bad = []

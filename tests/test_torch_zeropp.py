@@ -24,7 +24,14 @@ on the final loss against the port's unquantized run.  What is exact:
 * the 2-hop qgZ runs where a hierarchy exists (hpZ's ``zp_outer × zp``,
   ``intra_node_size``) and the dispatch counters say so;
 * the micro-step's name is JAX's ``_micro_variant``; the refusals are
-  JAX's; an engine's teardown frees every buffer it made (fault C3).
+  JAX's; an engine's teardown frees every buffer it made (fault C3);
+* checkpoints and optimizer offload with hpZ and MiCS at world 4: a tag
+  resumes bit for bit; an hpZ or MiCS tag loads into plain ZeRO 3 (at 4
+  ranks, and at one rank in this process) and a ZeRO-3 tag into both,
+  the loaded state bit for bit (the next losses within 2e-4: MiCS sums
+  in another order); ``offload_optimizer: cpu`` with Adam, LAMB and Lion
+  is bit-equal to the same run without it (here host and device are one
+  memory; on a card the state is pinned and B2, B3 or B8 update it).
 """
 
 import gc
@@ -143,6 +150,15 @@ def _legs2():
     return legs
 
 
+# the optimizers of the offload legs: B2, B3 and B8 on a card
+OFFLOAD_OPTS = {
+    "adam": {"type": "adam", "params": {"lr": 0.02}},
+    "lamb": {"type": "fusedlamb", "params": {"lr": 0.02,
+                                             "weight_decay": 0.01}},
+    "lion": {"type": "lion", "params": {"lr": 1e-3}},
+}
+
+
 def _legs4():
     tree = {k: {p: np.asarray(v) for p, v in d.items()}
             for k, d in make_simple_mlp_params(HIDDEN).items()}
@@ -170,8 +186,22 @@ def _legs4():
         "smoke_flat": _smoke_leg(4, None),
         "smoke_qgz": _smoke_leg(4, SMOKE_OPTS),
     }
+    cpu = {"offload_optimizer": {"device": "cpu"}}
+    for opt in OFFLOAD_OPTS:
+        for kind, zp in (("mics", mics), ("hpz", hpz)):
+            for off in ("", "_offload"):
+                legs[f"mlp_{kind}_{opt}{off}_z3"] = leg(
+                    dict(Z3, **zp, **(cpu if off else {})),
+                    optimizer=OFFLOAD_OPTS[opt])
     for name, leg_ in legs.items():
         leg_.update(name=name, kind="train")
+    for kind, zp in (("mics", mics), ("hpz", hpz), ("z3", {})):
+        legs[f"ckpt_{kind}"] = dict(
+            name=f"ckpt_{kind}", kind="ckpt", model="mlp", cfg={},
+            tree=tree, config=_mlp_config(dict(Z3, **zp)), batches=b[:8],
+            k=4, resume={name: _mlp_config(dict(Z3, **z))
+                         for name, z in (("same", zp), ("z3", {}),
+                                         ("mics", mics), ("hpz", hpz))})
     legs["refuse_premade"] = dict(
         name="refuse_premade", kind="refuse", model="mlp", cfg={},
         tree=tree, mesh={"dp": 4},
@@ -241,8 +271,11 @@ def _jax_refusal(zero):
 
 
 @pytest.fixture(scope="module")
-def runs():
+def runs(tmp_path_factory):
     legs2, legs4 = _legs2(), _legs4()
+    for name, leg in legs4.items():
+        if leg["kind"] == "ckpt":
+            leg["dir"] = str(tmp_path_factory.mktemp(name))
     got = spawn(2, list(legs2.values()), timeout=420)
     got.update(spawn(4, list(legs4.values()), timeout=420))
     jax_runs = {
@@ -251,7 +284,8 @@ def runs():
         "mlp_z3": _jax_mlp(Z3),
         "mlp_mics_z3": _jax_mlp(dict(Z3, mics_shard_size=2), zp=2),
     }
-    return got, jax_runs
+    dirs = {n: leg["dir"] for n, leg in legs4.items() if "dir" in leg}
+    return got, jax_runs, dirs
 
 
 def _ranks_agree(res):
@@ -271,7 +305,7 @@ def _tracks(q, ref):
                                  "mlp_qwz_qgz_z3", "mlp_zeropp_hpz_z3",
                                  "mlp_qgz_mics_z3"))
 def test_quantized_runs_track_plain(runs, leg):
-    got, _ = runs
+    got = runs[0]
     ref = got["mlp_z2" if "z2" in leg else "mlp_z3"][0]["losses"]
     _ranks_agree(got[leg])
     _tracks(got[leg][0]["losses"], ref)
@@ -280,13 +314,13 @@ def test_quantized_runs_track_plain(runs, leg):
 
 
 def test_plain_mlp_matches_jax(runs):
-    got, jax_runs = runs
+    got, jax_runs = runs[:2]
     np.testing.assert_allclose(got["mlp_z3"][0]["losses"],
                                jax_runs["mlp_z3"]["losses"], rtol=2e-5)
 
 
 def test_hpz_is_zero3_bit_for_bit(runs):
-    got, _ = runs
+    got = runs[0]
     hpz, z3 = got["mlp_hpz_z3"], got["mlp_z3"]
     _ranks_agree(hpz)
     for r in range(4):
@@ -301,7 +335,7 @@ def test_hpz_is_zero3_bit_for_bit(runs):
 
 
 def test_mics_matches_jax_and_zero3(runs):
-    got, jax_runs = runs
+    got, jax_runs = runs[:2]
     mics = got["mlp_mics_z3"]
     _ranks_agree(mics)
     for ref in (jax_runs["mlp_mics_z3"]["losses"],
@@ -316,7 +350,7 @@ def test_mics_matches_jax_and_zero3(runs):
 @pytest.mark.parametrize("leg", ("mlp_hier_qgz_hpz_z3",
                                  "mlp_hier_qgz_intra2_z3"))
 def test_hierarchical_qgz_runs_the_two_hops(runs, leg):
-    got, _ = runs
+    got = runs[0]
     _ranks_agree(got[leg])
     _tracks(got[leg][0]["losses"], got["mlp_z3"][0]["losses"])
     counts = got[leg][0]["dispatch"]
@@ -329,7 +363,7 @@ def test_hierarchical_qgz_runs_the_two_hops(runs, leg):
 def test_comm_smoke_parity(runs):
     """``tools/comm_smoke.py``: the quantized run converges and ends within
     1e-2 of the flat one."""
-    got, _ = runs
+    got = runs[0]
     flat, quant = got["smoke_flat"][0]["losses"], got["smoke_qgz"][0][
         "losses"]
     assert quant[-1] < quant[0] * 0.8
@@ -338,7 +372,7 @@ def test_comm_smoke_parity(runs):
 
 
 def test_llama_zeropp_tracks_plain_and_jax(runs):
-    got, jax_runs = runs
+    got, jax_runs = runs[:2]
     q, plain = got["llama_qwz_qgz_z3"], got["llama_z3"]
     _ranks_agree(q)
     np.testing.assert_allclose(plain[0]["losses"],
@@ -358,7 +392,7 @@ def test_llama_zeropp_tracks_plain_and_jax(runs):
 @pytest.mark.parametrize("leg", ("llama_qwz_qgz_knobs_z3",
                                  "llama_qwz_qgz_remat_z3"))
 def test_schedulers_and_remat_leave_quantized_runs_bit_equal(runs, leg):
-    got, _ = runs
+    got = runs[0]
     base, other = got["llama_qwz_qgz_z3"], got[leg]
     for r in range(2):
         assert other[r]["losses"] == base[r]["losses"]
@@ -366,7 +400,7 @@ def test_schedulers_and_remat_leave_quantized_runs_bit_equal(runs, leg):
 
 
 def test_fp6_weights_wire(runs):
-    got, _ = runs
+    got = runs[0]
     q, plain = got["llama_qwz_fp6_z3"], got["llama_z3"]
     _ranks_agree(q)
     assert abs(q[0]["losses"][-1] - plain[0]["losses"][-1]) < \
@@ -379,7 +413,7 @@ def test_fp6_weights_wire(runs):
 def test_qgz_below_stage3(runs, stage):
     """Stage 0 reduces flat (JAX's micro has no sharded dim there): bit
     for bit; stages 1-2 quantize their reduce-scatters."""
-    got, _ = runs
+    got = runs[0]
     q, plain = got[f"llama_qgz_z{stage}"], got[f"llama_z{stage}"]
     _ranks_agree(q)
     if stage == 0:
@@ -395,7 +429,7 @@ def test_qgz_below_stage3(runs, stage):
 
 
 def test_fp32_rung_is_the_flat_path(runs):
-    got, _ = runs
+    got = runs[0]
     rung, plain = got["llama_fp32_rung_z3"], got["llama_z3"]
     for r in range(2):
         assert rung[r]["losses"] == plain[r]["losses"]
@@ -405,7 +439,7 @@ def test_fp32_rung_is_the_flat_path(runs):
 
 
 def test_refusals_match_jax(runs):
-    got, _ = runs
+    got = runs[0]
     want = _jax_refusal(dict(Z3, zero_hpz_partition_size=2,
                              mics_shard_size=4))
     for r in got["refuse_mismatch"]:
@@ -502,3 +536,69 @@ def test_teardown_frees_every_buffer():
         gc.collect()
         assert [r for r in refs if r() is not None] == []
         assert [h for h in handles if h() is not None] == []
+
+
+# ------------------------------------------------ checkpoints and offload
+@pytest.mark.parametrize("kind", ("mics", "hpz"))
+def test_shard_group_tag_resumes_bit_for_bit(runs, kind):
+    got = runs[0]
+    for r in got[f"ckpt_{kind}"]:
+        again = r["resumed"]["same"]
+        assert again["losses"] == r["losses"]
+        for key in ("master", "exp_avg", "exp_avg_sq"):
+            for name, a in r["saved"][key].items():
+                np.testing.assert_array_equal(again["loaded"][key][name], a)
+                np.testing.assert_array_equal(again["final"][key][name],
+                                              r["final"][key][name])
+
+
+@pytest.mark.parametrize("src,dst", [("mics", "z3"), ("hpz", "z3"),
+                                     ("z3", "mics"), ("z3", "hpz")])
+def test_tags_cross_between_shard_groups_and_zero3(runs, src, dst):
+    """The loaded master and moments bit for bit; the next losses within
+    2e-4 (MiCS's reduce sums in another order than ZeRO 3's)."""
+    got = runs[0]
+    for r in got[f"ckpt_{src}"]:
+        res = r["resumed"][dst]
+        for key in ("master", "exp_avg", "exp_avg_sq"):
+            for name, a in r["saved"][key].items():
+                np.testing.assert_array_equal(res["loaded"][key][name], a)
+        np.testing.assert_allclose(res["losses"], r["losses"], rtol=2e-4,
+                                   atol=2e-4)
+
+
+@pytest.mark.parametrize("kind", ("mics", "hpz"))
+def test_shard_group_tag_loads_at_one_rank(runs, kind):
+    """MiCS writes one partition a shard (its first group's), hpZ the
+    world's; either loads into a one-rank ZeRO-3 engine."""
+    import glob
+    import os
+    got = runs[0]
+    r = got[f"ckpt_{kind}"][0]
+    legs = _legs4()
+    root = os.path.join(runs[2][f"ckpt_{kind}"], "t")
+    parts = glob.glob(os.path.join(root, "*optim_states.pt"))
+    assert len(parts) == (2 if kind == "mics" else 4)
+    from torch_dist_worker import _model, gathered_state
+    model, _ = _model("mlp", {}, legs[f"ckpt_{kind}"]["tree"])
+    eng = deepspeed_tpu_torch.initialize(
+        model=model, config=_mlp_config(Z3), device="cpu")[0]
+    eng.load_checkpoint(runs[2][f"ckpt_{kind}"])
+    loaded = gathered_state(eng)
+    for key in ("master", "exp_avg", "exp_avg_sq"):
+        for name, a in r["saved"][key].items():
+            np.testing.assert_array_equal(loaded[key][name], a)
+    assert loaded["steps"] == r["saved"]["steps"]
+
+
+@pytest.mark.parametrize("opt", tuple(OFFLOAD_OPTS))
+@pytest.mark.parametrize("kind", ("mics", "hpz"))
+def test_offload_under_shard_groups_is_bit_equal(runs, kind, opt):
+    got = runs[0]
+    off, ref = (got[f"mlp_{kind}_{opt}_offload_z3"],
+                got[f"mlp_{kind}_{opt}_z3"])
+    _ranks_agree(off)
+    for r in range(4):
+        assert off[r]["losses"] == ref[r]["losses"]
+        np.testing.assert_array_equal(off[r]["master"], ref[r]["master"])
+    assert off[0]["losses"][-1] < off[0]["losses"][0]

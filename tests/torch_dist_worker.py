@@ -22,7 +22,8 @@ Leg kinds:
   elements beside what bounds it), and where the engine keeps each state
   (``state_placement``); ``offload_at`` (a batch index) sends every state
   to the host with ``offload_states`` after that batch's step (and records
-  the placement then);
+  the placement then); ``per_step_master``: the fp32 master after each
+  batch;
 * ``coll``: the quantized primitives of ``comm/collectives`` on rank r's
   row of each array (``quantized_all_gather``, ``all_to_all_quant_reduce``,
   ``hierarchical_quant_reduce_scatter``, ``quantized_all_to_all``, the
@@ -46,7 +47,17 @@ Leg kinds:
   leg's q, k, v over an sp group of the whole world: the output chunk and
   the gradients of ``sum(out ** 2)``;
 * ``ring``: ``comm/functional.py``'s ring shifts of rank r's block of the
-  leg's array over the world.
+  leg's array over the world;
+* ``codec``: ``runtime/comm/compressed.py``'s 1-bit all-reduce of rank r's
+  row of each of the leg's arrays, its error buffers fed back from one
+  call to the next: each call's mean and both error buffers (and the same
+  through ``compressed_allreduce_many`` and ``CompressedBackend``);
+* ``stream``: ZeRO-Infinity parameter streaming (``InfinityEngine``) from
+  the leg's flax tree, or from the tag at ``load`` (the universal
+  directory at ``universal``): each batch's loss, then the whole fp32
+  master by name; with ``save_at`` (a batch index) a tag in ``dir`` after
+  that batch, and a fresh engine loading it that trains on the batches
+  after it (its losses, and its master right after the load).
 """
 
 import os
@@ -331,7 +342,9 @@ def _mlp(tree, kind):
                 Layer(tree[k]["w"], tree[k]["b"]) for k in keys)
 
         def forward(self, x, y):
-            h = x
+            # fp16 runs take the inputs in the parameters' dtype
+            h = x.to(self.layers[0].w.dtype)
+            y = y.to(h.dtype)
             for i, layer in enumerate(self.layers):
                 h = layer(h)
                 if i < len(self.layers) - 1:
@@ -391,6 +404,7 @@ def run_train(leg, rank, world):
     dist.comms_logger.reset()
     losses, scales, skips, gnorms = [], [], [], []
     offloaded = None
+    step_masters = []
     for i, batch in enumerate(leg["batches"]):
         inputs = engine.shard_batch(*batch)
         loss = engine(*inputs)
@@ -404,6 +418,9 @@ def run_train(leg, rank, world):
             scales.append(float(engine.cur_scale))
             skips.append(bool(engine._last_skipped))
             gnorms.append(float(engine._last_gnorm))
+        if leg.get("per_step_master"):
+            step_masters.append(
+                engine.fp32_params().float().clone().numpy())
         if leg.get("offload_at") == i:
             engine.offload_states()
             offloaded = engine.state_placement()
@@ -430,7 +447,7 @@ def run_train(leg, rank, world):
                 live=live, grad_acc_numel=int(engine.grad_acc.numel()),
                 skipped_steps=engine.skipped_steps,
                 global_loss=engine._global_loss, placement=placement,
-                offloaded=offloaded)
+                offloaded=offloaded, step_masters=step_masters)
 
 
 def gathered_state(engine):
@@ -696,6 +713,82 @@ def run_ring(leg, rank, world):
                 prev=functional.send_prev_recv_next(x, group).numpy())
 
 
+def run_codec(leg, rank, world):
+    import torch
+    from deepspeed_tpu_torch import comm as dist
+    from deepspeed_tpu_torch.runtime.comm import compressed as c
+    group = dist.get_world_group()
+    xs = [torch.from_numpy(a[rank]) for a in leg["inputs"]]
+    sizes = [c.error_shapes(x.numel(), world) for x in xs]
+    we = [torch.zeros(a) for a, _ in sizes]
+    se = [torch.zeros(b) for _, b in sizes]
+    single = []
+    for _ in range(leg["calls"]):
+        out, w, s = c.compressed_allreduce(xs[0], we[0], se[0], group)
+        we[0], se[0] = w, s
+        single.append((out.numpy(), w.numpy(), s.numpy()))
+    we = [torch.zeros(a) for a, _ in sizes]
+    se = [torch.zeros(b) for _, b in sizes]
+    many = []
+    for _ in range(leg["calls"]):
+        outs, we, se = c.compressed_allreduce_many(xs, we, se, group)
+        many.append([o.numpy() for o in outs])
+    backend = c.CompressedBackend(group)
+    shim = [backend.compressed_allreduce(xs[0]).numpy()
+            for _ in range(leg["calls"])]
+    return dict(single=single, many=many, shim=shim)
+
+
+def run_stream(leg, rank, world):
+    import deepspeed_tpu_torch
+
+    def build(config, tree=True):
+        model, start = _model(leg["model"], leg["cfg"], leg["tree"])
+        return deepspeed_tpu_torch.initialize(
+            model=model, model_parameters=start if tree else None,
+            config=dict(config), device="cpu")[0]
+
+    def master(engine):
+        return {n: t.numpy().copy()
+                for n, t in engine.get_fp32_param().items()}
+
+    def train(engine, batches):
+        out = []
+        for batch in batches:
+            loss = engine(*engine.shard_batch(*batch))
+            engine.backward(loss)
+            engine.step()
+            out.append(float(loss))
+        return out
+
+    config = dict(leg["config"])
+    if leg.get("universal"):
+        config["checkpoint"] = {"load_universal": True}
+    engine = build(config, tree=not (leg.get("load") or
+                                     leg.get("universal")))
+    loaded = None
+    if leg.get("load") or leg.get("universal"):
+        engine.load_checkpoint(leg.get("load") or leg["universal"])
+        loaded = master(engine)
+    k = leg.get("save_at")
+    batches = leg["batches"]
+    losses = train(engine, batches if k is None else batches[:k + 1])
+    out = dict(loaded=loaded, steps=engine.global_steps,
+               store_numel={key: engine._store.shard_numel(key)
+                            for key in engine._store.keys()},
+               threads=engine._store.threads)
+    if k is None:
+        return dict(out, losses=losses, master=master(engine))
+    saved = master(engine)
+    engine.save_checkpoint(leg["dir"], tag="t")
+    rest = train(engine, batches[k + 1:])
+    fresh = build(leg["config"], tree=False)
+    fresh.load_checkpoint(leg["dir"])
+    return dict(out, losses=losses + rest, master=master(engine),
+                saved=saved, resumed_master=master(fresh),
+                resumed=train(fresh, batches[k + 1:]))
+
+
 def main():
     spec, out_dir = sys.argv[1], sys.argv[2]
     import torch
@@ -709,7 +802,8 @@ def main():
         fn = {"comm": run_comm, "comm_log": run_comm_log,
               "train": run_train, "ckpt": run_ckpt, "coll": run_coll,
               "refuse": run_refuse, "pipe": run_pipe,
-              "ulysses": run_ulysses, "ring": run_ring}[leg["kind"]]
+              "ulysses": run_ulysses, "ring": run_ring,
+              "codec": run_codec, "stream": run_stream}[leg["kind"]]
         out = fn(leg, rank, world)
         with open(os.path.join(out_dir, f"{leg['name']}.r{rank}.pkl"),
                   "wb") as f:

@@ -9,6 +9,8 @@
                               [--device cpu]
     python3 zero_multicard.py --pipe [--world N] [--json PATH]
                               [--device cpu]
+    python3 zero_multicard.py --onebit [--world N] [--json PATH]
+                              [--device cpu]
 
 BASELINE config 2 (``--model gpt2``: GPT-2 350M, fp16 from a scale of
 2^16, remat, ``fusedadam``, 8 rows of 1024 tokens a rank) or config 3
@@ -57,7 +59,15 @@ Rank 0 prints each rank's peak memory, step ms, tokens/s and MFU, then
 the same config at 2 layers with and without offload, 2 steps each,
 whose losses must agree within 2^-7 relative.  (Config 4's param offload
 with LAMB is refused by the JAX package and the port alike: the host has
-no LAMB kernel.)
+no LAMB kernel.)  Then its param-offload half with Adam: Llama-2-13B
+streamed (``offload_param`` and ``offload_optimizer`` cpu, ZeRO-Infinity;
+the host store sharded over the ranks, each rank's host Adam on its
+slice, on cores / ranks threads), at the depth whose store fits 0.7 ×
+``MemAvailable`` over the world, 1 warm-up and ``--steps`` timed steps:
+step ms, tokens/s, MFU, the host sweep's share of the steps, each rank's
+host RSS, store bytes and pinned bytes, peak HBM; then 2 layers streamed
+against ZeRO 3 with its state pinned (``fusedadam``) from the streamed
+engine's weights, 2 steps each, within 2^-7 relative.
 
 ``--zeropp`` runs ZeRO++ and MiCS on ``--model llama7b``'s setting
 (full-depth Llama-2-7B, ZeRO 3 with ``overlap_comm`` and the prefetch,
@@ -75,7 +85,14 @@ logger), the collectives engine's picks and the launches of B5's quantize
 and dequantize and of B6.  It fails when a loss is not finite or the
 ranks disagree, when hpZ is not plain ZeRO 3 bit for bit (losses and
 master), MiCS not within 2e-4 relative, or a quantized run's final loss
-not within 1e-2 relative of its plain run's.
+not within 1e-2 relative of its plain run's.  Then hpZ and MiCS (zp 2)
+at 4 layers, widths kept: 2 steps, ``save_checkpoint`` into a temporary
+directory on local disk, 2 more steps; a fresh engine of the same config
+and one of plain ZeRO 3 load the tag and take the same 2 steps (the same
+config bit-equal, losses and the gathered master's digest; plain ZeRO 3
+from a master bit-equal to the saved one, its losses bit-equal after hpZ
+and within 2e-4 after MiCS); and the first 2 steps with the optimizer
+state pinned on the host, bit-equal to the run without.
 
 ``--pipe`` runs BASELINE config 5's shape (GPT-3 13B, ``PipelineEngine``
 + ZeRO 1 + Ulysses) as far as the world allows:
@@ -99,6 +116,14 @@ events, over the step) beside the 1F1B bubble (pp − 1)/(M + pp − 1).  It
 fails when a loss is not finite, the ranks disagree, or a parity run
 leaves the base engine's losses.  pp 4 × sp 2, the config's own shape,
 needs eight cards.
+
+``--onebit`` runs BASELINE config 2's model (GPT-2 350M, fp16 from a scale
+of 2^16, 8 rows of 1024 a rank) at ZeRO 0 with ``onebitadam`` (lr 1e-4,
+``freeze_step`` 10) and with ``fusedadam``, 30 steps each from the same
+weights and batches: step ms in the warmup and in the compressed phase,
+the message bytes a step by op (comms logger) and what a ring sends a rank
+(the 1-bit exchange's formula against the fp32 all-reduce's), and the
+final-loss gap.  It fails when a loss is not finite or the ranks disagree.
 """
 
 import argparse
@@ -114,6 +139,9 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 STAGES = {"gpt2": (0, 1, 2, 3), "llama": (0, 1, 2, 3), "llama7b": (3, )}
 LAMB = {"type": "fusedlamb", "params": {"lr": 1e-4, "weight_decay": 0.01}}
+ADAM = {"type": "fusedadam", "params": {"lr": 1e-4}}
+STREAMED = {"stage": 3, "offload_param": {"device": "cpu"},
+            "offload_optimizer": {"device": "cpu"}}
 ZERO3 = {"stage": 3, "overlap_comm": True,
          "stage3_prefetch_bucket_size": int(5e7)}
 PEAK_FLOPS = 989e12        # H100 SXM dense bf16 (and fp16) tensor rate
@@ -240,6 +268,11 @@ ZEROPP_RUNS = (
 )
 
 
+# --zeropp's checkpoint and offload legs: cut to 4 layers, widths kept,
+# for the disk and the call's time
+ZEROPP_CKPT_LAYERS = 4
+
+
 def _zp_counters():
     from deepspeed_tpu_torch.ops.kernels import fp_quantizer, quantizer
     return {"quantize_blockwise": quantizer.quantize_blockwise,
@@ -343,19 +376,120 @@ def run_zeropp_rank(args):
         gc.collect()
         if not cpu:
             torch.cuda.empty_cache()
+    legs = _zeropp_ckpt_legs(args, cpu, sync)
     if comm.get_rank() == 0:
         with open(args.out_rank0, "w") as f:
-            json.dump(rows, f)
+            json.dump(dict(rows=rows, legs=legs), f)
     comm.destroy_process_group()
 
 
+def _zeropp_ckpt_legs(args, cpu, sync):
+    """hpZ and MiCS at ``ZEROPP_CKPT_LAYERS`` layers: 2 steps, a save, 2
+    more; a fresh engine of the same config and one of plain ZeRO 3 load
+    the tag and take the same 2 steps; the same 2 first steps with the
+    optimizer state pinned on the host.  Losses and master digests."""
+    import dataclasses
+    import shutil
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models import llama
+
+    def build(zero):
+        _, cfg, S = _model("llama7b", cpu)
+        if not cpu:
+            cfg = dataclasses.replace(cfg,
+                                      num_hidden_layers=ZEROPP_CKPT_LAYERS)
+        config = _config("llama7b", 3)
+        config["zero_optimization"] = dict(ZERO3, **zero)
+        engine = deepspeed_tpu_torch.initialize(
+            model=llama.LlamaModel(cfg, device="meta"), config=config,
+            device="cpu" if cpu else None)[0]
+        B = engine.train_micro_batch_size_per_gpu() * engine.dp_world_size
+        gbatch = np.random.default_rng(args.seed + 1).integers(
+            0, cfg.vocab_size, size=(B, S))
+        return engine, engine.shard_batch(gbatch)[0]
+
+    def steps(engine, ids, n):
+        out = []
+        for _ in range(n):
+            loss = engine(ids, ids)
+            engine.backward(loss)
+            engine.step()
+            out.append(loss.item())
+        sync()
+        return out
+
+    def digests(engine):
+        """Every rank's digest of the whole fp32 master (gathered, so two
+        layouts of the same values agree)."""
+        flat = engine.fp32_params()
+        return _shard_digest(torch, flat[:engine.zero_plan.numel])
+
+    def free(engine):
+        del engine
+        gc.collect()
+        if not cpu:
+            torch.cuda.empty_cache()
+            empty = getattr(torch._C, "_host_emptyCache", None)
+            if empty is not None:
+                empty()
+
+    legs = []
+    for kind, zp in (("hpz", {"zero_hpz_partition_size": 2}),
+                     ("mics", {"mics_shard_size": 2})):
+        root = os.path.join(args.ckpt_dir, kind)
+        engine, ids = build(zp)
+        engine.initialize_parameters(args.seed)
+        first = steps(engine, ids, 2)
+        at_save = digests(engine)
+        t0 = time.perf_counter()
+        engine.save_checkpoint(root, tag="t")
+        save_s = time.perf_counter() - t0
+        then = steps(engine, ids, 2)
+        after = digests(engine)
+        free(engine)
+        row = dict(kind=kind, first=first, then=then, save_s=save_s,
+                   digest_at_save=at_save, digest_after=after)
+        for name, zero in (("same", zp), ("zero3", {})):
+            eng, ids = build(zero)
+            t0 = time.perf_counter()
+            eng.load_checkpoint(root)
+            row[f"load_s_{name}"] = time.perf_counter() - t0
+            row[f"loaded_digest_{name}"] = digests(eng)
+            row[f"then_{name}"] = steps(eng, ids, 2)
+            row[f"digest_after_{name}"] = digests(eng)
+            free(eng)
+        if comm.get_rank() == 0:
+            shutil.rmtree(root, ignore_errors=True)
+        eng, ids = build(dict(zp, offload_optimizer={
+            "device": "cpu", "pin_memory": True}))
+        eng.initialize_parameters(args.seed)
+        row["first_offload"] = steps(eng, ids, 2)
+        row["digest_offload"] = digests(eng)
+        row["placement_offload"] = eng.state_placement()
+        free(eng)
+        comm.barrier()
+        legs.append(row)
+    return legs
+
+
 def _zeropp_main(args, world, smi, out):
-    rcs = _spawn(world, sys.argv[1:] + ["--out-rank0", out])
+    import shutil
+    import tempfile
+    ckpt = tempfile.mkdtemp(prefix="zero_multicard_zeropp_")
+    try:
+        rcs = _spawn(world, sys.argv[1:] + ["--out-rank0", out,
+                                            "--ckpt-dir", ckpt])
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
     if any(rcs):
         print(f"zero_multicard: ranks exited {rcs}", file=sys.stderr)
         return 1
     with open(out) as f:
-        rows = {r["name"]: r for r in json.load(f)}
+        got = json.load(f)
+    rows = {r["name"]: r for r in got["rows"]}
     os.remove(out)
     ok = True
     for r in rows.values():
@@ -401,10 +535,38 @@ def _zeropp_main(args, world, smi, out):
         print(f"[zeropp] {name}: {what} {ref} (limit {rule}) -> "
               f"{'ok' if good else 'FAILED'}", flush=True)
         ok &= good
+    for leg in got["legs"]:
+        rel = max(abs(a - b) / abs(b) for a, b in zip(leg["then_zero3"],
+                                                      leg["then"]))
+        limit = 0.0 if leg["kind"] == "hpz" else 2e-4
+        good = {
+            "resume bit-equal": leg["then_same"] == leg["then"] and
+            leg["loaded_digest_same"] == leg["digest_at_save"] and
+            leg["digest_after_same"] == leg["digest_after"],
+            "loads into ZeRO 3 bit-equal": leg["loaded_digest_zero3"] ==
+            leg["digest_at_save"],
+            f"ZeRO 3's next losses within {limit}": rel <= limit,
+            "pinned offload bit-equal": leg["first_offload"] ==
+            leg["first"] and leg["digest_offload"] ==
+            leg["digest_at_save"] and
+            leg["placement_offload"].get("master") == "host",
+        }
+        print(f"[zeropp] {leg['kind']} (zp 2) at {ZEROPP_CKPT_LAYERS} "
+              f"layers: losses {leg['first']} then {leg['then']}; resumed "
+              f"{leg['then_same']}, as ZeRO 3 {leg['then_zero3']} "
+              f"({rel:.2e} relative); with pinned state "
+              f"{leg['first_offload']}; save {leg['save_s']:.1f} s, loads "
+              f"{leg['load_s_same']:.1f} and {leg['load_s_zero3']:.1f} s | "
+              + ", ".join(f"{k}: {'ok' if v else 'FAILED'}"
+                          for k, v in good.items()) + f" | {smi}",
+              flush=True)
+        checks.append(dict(run=leg["kind"], ok=all(good.values()),
+                           what=good))
+        ok &= all(good.values())
     if args.json:
         with open(args.json, "w") as f:
             json.dump(dict(card=smi, runs=list(rows.values()),
-                           checks=checks), f, indent=1)
+                           legs=got["legs"], checks=checks), f, indent=1)
     if not ok:
         print("zero_multicard: a ZeRO++ check failed", file=sys.stderr)
         return 1
@@ -756,6 +918,36 @@ def _mem_available():
     raise RuntimeError("no MemAvailable in /proc/meminfo")
 
 
+def _rss_bytes():
+    """This process's resident host memory."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def _stream_layers(world, avail):
+    """The most layers (at most 40) whose streamed host store fits 0.7 ×
+    ``avail`` over the world: each rank's slice of every group, 12 bytes
+    an element of fp32 state and its pinned bf16 cache and stash in
+    power-of-two blocks."""
+    from deepspeed_tpu_torch.models import llama
+    cfg = llama.llama_13b()
+    D, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    block, res = 4 * D * D + 3 * D * I + 2 * D, 2 * V * D + D
+
+    def rank_bytes(n):
+        s = -(-n // (16 * world)) * 16
+        return 12 * s + 2 * _pinned_bytes(2 * s)
+
+    L = 40
+    while L > 1 and world * (L * rank_bytes(block) + rank_bytes(res)) > \
+            0.7 * avail:
+        L -= 1
+    return L
+
+
 def _offload_layers(world, avail):
     """The most layers (at most 40) whose pinned state on the host, every
     rank's master and two moments, fits 0.7 × ``avail`` bytes."""
@@ -784,7 +976,7 @@ def run_offload_rank(args):
                 max_position_embeddings=S) if cpu else {}
     remat = dict(remat=True, remat_policy="nothing_saveable")
 
-    def run(layers, offload, steps):
+    def run(layers, offload, steps, opt=LAMB, weights=None):
         cfg = llama.llama_13b(**{**dict(num_hidden_layers=layers,
                                         head_dtype="bfloat16"),
                                  **remat, **tiny})
@@ -794,10 +986,12 @@ def run_offload_rank(args):
         t0 = time.perf_counter()
         engine = deepspeed_tpu_torch.initialize(
             model=llama.LlamaModel(cfg, device="meta"),
-            config=dict(_config("llama7b", 3), optimizer=LAMB,
+            model_parameters=weights,
+            config=dict(_config("llama7b", 3), optimizer=opt,
                         zero_optimization=zero),
             device="cpu" if cpu else None)[0]
-        engine.initialize_parameters(args.seed)
+        if weights is None:
+            engine.initialize_parameters(args.seed)
         build_s = time.perf_counter() - t0
         world = engine.dp_world_size
         B = engine.train_micro_batch_size_per_gpu() * world
@@ -845,8 +1039,86 @@ def run_offload_rank(args):
                 empty()
         return row
 
+    def stream(layers, steps, weights_out=None):
+        """ZeRO-Infinity parameter streaming: this rank's quarter of the
+        host store, the host Adam.  ``weights_out``: a dict that gets the
+        initial fp32 weights (a collective)."""
+        cfg = llama.llama_13b(**{**dict(num_hidden_layers=layers,
+                                        head_dtype="bfloat16"),
+                                 **remat, **tiny})
+        t0 = time.perf_counter()
+        engine = deepspeed_tpu_torch.initialize(
+            model=llama.LlamaModel(cfg, device="meta"),
+            config=dict(_config("llama7b", 3), optimizer=ADAM,
+                        zero_optimization=STREAMED),
+            device="cpu" if cpu else None)[0]
+        engine.initialize_parameters(args.seed)
+        build_s = time.perf_counter() - t0
+        if weights_out is not None:
+            weights_out.update(engine.get_fp32_param())
+        world = engine.dp_world_size
+        B = engine.train_micro_batch_size_per_gpu() * world
+        rng = np.random.default_rng(args.seed + 1)
+        batches = [engine.shard_batch(rng.integers(
+            0, cfg.vocab_size, size=(B, S)))[0] for _ in range(2)]
+        losses, times = [], []
+        for i in range(steps):
+            if i == 1:
+                sync()
+                if not cpu:
+                    torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            loss = engine(batches[i % 2], batches[i % 2])
+            engine.backward(loss)
+            engine.step()
+            losses.append(loss.item())
+            sync()
+            times.append(time.perf_counter() - t)
+        store = engine._store
+        peak = 0 if cpu else torch.cuda.max_memory_allocated()
+        # the cache and the stash are pinned, in power-of-two blocks
+        pinned = 0 if cpu else 2 * sum(_pinned_bytes(
+            2 * store.shard_numel(k)) for k in store.keys())
+        sweep = engine.sweep_seconds[1:]
+        mine = torch.tensor([float(peak), float(_rss_bytes()),
+                             float(store.host_bytes()), float(pinned),
+                             float(store.threads)] + losses,
+                            device="cpu" if cpu else "cuda")
+        every = comm.all_gather(mine, tiled=False).cpu()
+        step_s = sum(times[1:]) / max(1, len(times) - 1)
+        row = dict(layers=layers, streamed=True, world=world,
+                   losses=losses, step_ms=[t * 1e3 for t in times],
+                   build_s=build_s, step_ms_mean=step_s * 1e3,
+                   tokens_per_s=B * S / step_s,
+                   mfu=B * S / step_s * _flops_per_token("llama", cfg, S) /
+                   (PEAK_FLOPS * world),
+                   sweep_s=sweep,
+                   sweep_share=sum(sweep) / max(1e-9, sum(times[1:])),
+                   peak_bytes_by_rank=[int(x) for x in every[:, 0]],
+                   rss_bytes_by_rank=[int(x) for x in every[:, 1]],
+                   store_bytes_by_rank=[int(x) for x in every[:, 2]],
+                   pinned_bytes_by_rank=[int(x) for x in every[:, 3]],
+                   host_threads=int(every[0, 4]),
+                   rank_losses_equal=bool((every[:, 5:] ==
+                                           every[0, 5:]).all()))
+        del engine
+        gc.collect()
+        if not cpu:
+            torch.cuda.empty_cache()
+            empty = getattr(torch._C, "_host_emptyCache", None)
+            if empty is not None:
+                empty()
+        return row
+
     rows = [run(args.offload_layers, True, 1 + args.steps),
-            run(2, True, 2), run(2, False, 2)]
+            run(2, True, 2), run(2, False, 2),
+            stream(args.stream_layers, 1 + args.steps)]
+    # the pair starts from the streamed engine's weights (its host init
+    # draws each leaf from its own generator)
+    weights = {}
+    rows.append(stream(2, 2, weights))
+    rows.append(run(2, True, 2, opt=ADAM, weights=weights))
+    del weights
     if comm.get_rank() == 0:
         with open(args.out_rank0, "w") as f:
             json.dump(rows, f)
@@ -856,18 +1128,23 @@ def run_offload_rank(args):
 def _offload_main(args, world, smi, out):
     avail = _mem_available()
     layers = _offload_layers(world, avail)
+    streamed = _stream_layers(world, avail)
     print(f"[offload] MemAvailable {avail / 1e9:.1f} GB; Llama-2-13B's "
           f"pinned state at world {world}: 12 bytes × its shard a rank, in "
           f"power-of-two blocks; 0.7 × MemAvailable holds {layers} of 40 "
-          "layers" + ("" if layers == 40 else " (cut, widths kept)"),
-          flush=True)
+          "layers" + ("" if layers == 40 else " (cut, widths kept)")
+          + f"; its streamed host store (each rank a slice of every group: "
+          f"12 bytes an element and the pinned cache and stash) holds "
+          f"{streamed} of 40" + ("" if streamed == 40 else
+                                 " (cut, widths kept)"), flush=True)
     rcs = _spawn(world, sys.argv[1:] + ["--out-rank0", out,
-                                        "--offload-layers", str(layers)])
+                                        "--offload-layers", str(layers),
+                                        "--stream-layers", str(streamed)])
     if any(rcs):
         print(f"zero_multicard: ranks exited {rcs}", file=sys.stderr)
         return 1
     with open(out) as f:
-        main_run, off2, plain2 = json.load(f)
+        main_run, off2, plain2, st, st2, off2_adam = json.load(f)
     os.remove(out)
     r = main_run
     print(f"[offload] Llama-2-13B, {r['layers']} layers, ZeRO 3 + "
@@ -892,18 +1169,184 @@ def _offload_main(args, world, smi, out):
           + " and " + ", ".join(f"{b / 2**30:.2f}" for b in
                                 plain2["peak_bytes_by_rank"])
           + f" | {smi}", flush=True)
-    ok = (all(x["rank_losses_equal"] for x in (r, off2, plain2)) and
-          all(map(math.isfinite, r["losses"])) and rel <= 2.0**-7 and
+    print(f"[offload] streamed Llama-2-13B, {st['layers']} layers, "
+          f"offload_param + offload_optimizer cpu, the host Adam on "
+          f"{st['host_threads']} threads a rank, bf16, remat, world "
+          f"{st['world']}: losses " + ", ".join(
+              f"{x:.4f}" for x in st["losses"])
+          + f" | built in {st['build_s']:.1f} s | step ms (after the "
+          "warm-up) " + ", ".join(f"{t:.1f}" for t in st["step_ms"][1:])
+          + f", mean {st['step_ms_mean']:.1f}, {st['tokens_per_s']:.1f} "
+          f"tokens/s over the world, MFU {st['mfu']:.4f} | host sweep s "
+          + ", ".join(f"{x:.2f}" for x in st["sweep_s"])
+          + f" ({st['sweep_share']:.3f} of the steps) | host RSS GB by "
+          "rank " + ", ".join(f"{b / 1e9:.1f}" for b in
+                              st["rss_bytes_by_rank"])
+          + ", store GB " + ", ".join(f"{b / 1e9:.1f}" for b in
+                                      st["store_bytes_by_rank"])
+          + ", pinned GB " + ", ".join(f"{b / 1e9:.1f}" for b in
+                                       st["pinned_bytes_by_rank"])
+          + " | peak HBM GiB by rank " + ", ".join(
+              f"{b / 2**30:.2f}" for b in st["peak_bytes_by_rank"])
+          + f" | {smi}", flush=True)
+    rel_st = max(abs(a - b) / abs(b) for a, b in zip(st2["losses"],
+                                                     off2_adam["losses"]))
+    print(f"[offload] 2 layers streamed against ZeRO 3 with pinned state, "
+          f"fusedadam, world {st2['world']}: losses {st2['losses']} and "
+          f"{off2_adam['losses']} (largest relative difference "
+          f"{rel_st:.2e}, limit 2^-7) | {smi}", flush=True)
+    ok = (all(x["rank_losses_equal"] for x in (r, off2, plain2, st, st2,
+                                               off2_adam)) and
+          all(map(math.isfinite, r["losses"] + st["losses"])) and
+          rel <= 2.0**-7 and rel_st <= 2.0**-7 and
           r["placement"].get("master") == "host")
     if args.json:
         with open(args.json, "w") as f:
             json.dump(dict(card=smi, mem_available=avail, layers=layers,
-                           offload=[r, off2, plain2]), f, indent=1)
+                           stream_layers=streamed,
+                           offload=[r, off2, plain2],
+                           streamed=[st, st2, off2_adam]), f, indent=1)
     if not ok:
         print("zero_multicard: an offload check failed", file=sys.stderr)
         return 1
     print(json.dumps({"ok": True, "model": "llama13b", "world": world,
                       "offload": True}))
+    return 0
+
+
+# --onebit: (name, optimizer), both at ZeRO 0
+ONEBIT_RUNS = (
+    ("onebitadam", {"type": "onebitadam",
+                    "params": {"lr": 1e-4, "freeze_step": 10}}),
+    ("fusedadam", {"type": "fusedadam", "params": {"lr": 1e-4}}),
+)
+ONEBIT_STEPS = 30
+
+
+def _sent_bytes(summary):
+    """{op: message bytes} of the comms logger's summary."""
+    return {k: v["total_msg_bytes"] for k, v in summary["ops"].items()}
+
+
+def run_onebit_rank(args):
+    """``--onebit``: GPT-2 350M in fp16 with OnebitAdam and with FusedAdam
+    at ZeRO 0, the same weights and batches (module docstring)."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.runtime.comm import compressed
+    cpu = args.device == "cpu"
+    sync = (lambda: None) if cpu else torch.cuda.synchronize
+    rows = []
+    for name, opt in ONEBIT_RUNS:
+        model, cfg, S = _model("gpt2", cpu)
+        config = dict(_config("gpt2", 0), optimizer=opt)
+        engine = deepspeed_tpu_torch.initialize(
+            model=model, config=config, device="cpu" if cpu else None)[0]
+        engine.initialize_parameters(args.seed)
+        world = engine.dp_world_size
+        B = engine.train_micro_batch_size_per_gpu() * world
+        rng = np.random.default_rng(args.seed + 1)
+        batches = [engine.shard_batch(rng.integers(
+            0, cfg.vocab_size, size=(B, S)))[0] for _ in range(4)]
+        losses, times, sent, skipped = [], [], [], []
+        comm.comms_logger.reset()
+        before = {}
+        for i in range(ONEBIT_STEPS):
+            ids = batches[i % len(batches)]
+            sync()
+            t = time.perf_counter()
+            loss = engine(ids, ids)
+            engine.backward(loss)
+            engine.step()
+            losses.append(loss.item())
+            sync()
+            times.append(time.perf_counter() - t)
+            skipped.append(bool(engine._last_skipped))
+            now = _sent_bytes(comm.comms_logger.get_summary_dict())
+            sent.append({k: v - before.get(k, 0) for k, v in now.items()
+                         if v - before.get(k, 0)})
+            before = now
+        onebit = getattr(engine, "_onebit", False)
+        leaves = [k for _, k in engine.opt_state.leaves] if onebit else []
+        mine = torch.tensor(losses, device="cpu" if cpu else "cuda")
+        every = comm.all_gather(mine, tiled=False).cpu()
+        rows.append(dict(
+            name=name, world=world, losses=losses, skipped=skipped,
+            step_ms=[t * 1e3 for t in times],
+            freeze_step=opt["params"].get("freeze_step"),
+            msg_bytes_by_step=sent,
+            # what a ring sends a rank: the 1-bit scheme (its formula) or
+            # the all-reduce of the fp32 accumulator
+            ring_bytes_compressed=compressed.wire_bytes(leaves, world),
+            ring_bytes_dense_fp32=2 * (world - 1) / world * 4 *
+            int(engine.grad_acc.numel()),
+            numel=int(engine.grad_acc.numel()),
+            rank_losses_equal=bool((every == every[0]).all())))
+        del engine, model
+        gc.collect()
+        if not cpu:
+            torch.cuda.empty_cache()
+    if comm.get_rank() == 0:
+        with open(args.out_rank0, "w") as f:
+            json.dump(rows, f)
+    comm.destroy_process_group()
+
+
+def _onebit_main(args, world, smi, out):
+    rcs = _spawn(world, sys.argv[1:] + ["--out-rank0", out])
+    if any(rcs):
+        print(f"zero_multicard: ranks exited {rcs}", file=sys.stderr)
+        return 1
+    with open(out) as f:
+        rows = {r["name"]: r for r in json.load(f)}
+    os.remove(out)
+    ob, dense = rows["onebitadam"], rows["fusedadam"]
+    k = ob["freeze_step"]
+    ok = True
+    for r in rows.values():
+        phases = ((("warmup", 1, k), ("compressed", k, ONEBIT_STEPS))
+                  if r is ob else (("all", 1, ONEBIT_STEPS), ))
+        for phase, a, b in phases:
+            ms = r["step_ms"][a:b]
+            sent = [sum(x.values()) for x in r["msg_bytes_by_step"][a:b]]
+            by_op = {}
+            for x in r["msg_bytes_by_step"][a:b]:
+                for op, v in x.items():
+                    by_op[op] = by_op.get(op, 0) + v / len(ms)
+            print(f"[onebit] {r['name']}, GPT-2 350M fp16, world "
+                  f"{r['world']}, ZeRO 0, {phase} steps {a + 1}-{b}: step ms "
+                  f"mean {sum(ms) / len(ms):.1f} (min {min(ms):.1f}, max "
+                  f"{max(ms):.1f}) | comms-logger message MB a step "
+                  f"{sum(sent) / len(sent) / 1e6:.2f}: " + ", ".join(
+                      f"{op} {v / 1e6:.2f}" for op, v in sorted(
+                          by_op.items())) + f" | {smi}", flush=True)
+        ok &= r["rank_losses_equal"] and all(map(math.isfinite,
+                                                 r["losses"]))
+    gap = abs(ob["losses"][-1] - dense["losses"][-1]) / abs(
+        dense["losses"][-1])
+    ratio = ob["ring_bytes_compressed"] / dense["ring_bytes_dense_fp32"]
+    print(f"[onebit] a rank's ring bytes a step: compressed "
+          f"{ob['ring_bytes_compressed'] / 1e6:.2f} MB against the fp32 "
+          f"all-reduce's {dense['ring_bytes_dense_fp32'] / 1e6:.2f} MB "
+          f"({ratio:.4f}; 1/32 is {1 / 32:.4f}, of an fp16 all-reduce "
+          f"{2 * ratio:.4f}) | losses onebitadam " + ", ".join(
+              f"{x:.4f}" for x in ob["losses"]) + " | fusedadam " +
+          ", ".join(f"{x:.4f}" for x in dense["losses"])
+          + f" | final-loss gap {gap:.4f} relative | skipped "
+          f"{sum(ob['skipped'])} and {sum(dense['skipped'])} | {smi}",
+          flush=True)
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(dict(card=smi, runs=list(rows.values()),
+                           final_loss_gap=gap, wire_ratio=ratio), f,
+                      indent=1)
+    if not ok:
+        print("zero_multicard: a 1-bit check failed", file=sys.stderr)
+        return 1
+    print(json.dumps({"ok": True, "model": "gpt2", "world": world,
+                      "onebit": True}))
     return 0
 
 
@@ -1021,7 +1464,11 @@ def main():
     ap.add_argument("--pipe", action="store_true",
                     help="GPT-3 13B through the PipelineEngine and Ulysses "
                          "(pp, sp) against the base engine")
+    ap.add_argument("--onebit", action="store_true",
+                    help="GPT-2 350M with OnebitAdam against FusedAdam at "
+                         "ZeRO 0")
     ap.add_argument("--offload-layers", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--stream-layers", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--out-rank0", help=argparse.SUPPRESS)
     ap.add_argument("--ckpt-dir", help=argparse.SUPPRESS)
@@ -1032,7 +1479,8 @@ def main():
     if args.rank is not None:
         (run_offload_rank if args.offload else run_checkpoint_rank
          if args.checkpoint else run_zeropp_rank if args.zeropp
-         else run_pipe_rank if args.pipe else run_rank)(args)
+         else run_pipe_rank if args.pipe else run_onebit_rank
+         if args.onebit else run_rank)(args)
         return 0
     import torch
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -1054,6 +1502,8 @@ def main():
         return _zeropp_main(args, world, smi, out)
     if args.pipe:
         return _pipe_main(args, world, smi, out)
+    if args.onebit:
+        return _onebit_main(args, world, smi, out)
     rcs = _spawn(world, sys.argv[1:] + ["--out-rank0", out])
     if any(rcs):
         print(f"zero_multicard: ranks exited {rcs}", file=sys.stderr)
