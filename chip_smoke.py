@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--json PATH] [--profile DIR]
 
-Stages, run in the order 1-30; any failure exits non-zero:
+Stages, run in the order 1-31; any failure exits non-zero:
 
 1. environment: torch/CUDA/nvcc versions, the card's name and power limit;
 2. build: every ``deepspeed_tpu_torch/csrc/*.cu`` with nvcc for sm_90a
@@ -303,6 +303,31 @@ Stages, run in the order 1-30; any failure exits non-zero:
     launched (the 1-bit leaf updates are plain PyTorch), and an injected
     fp16 overflow that leaves every piece of the state bit-unchanged
     (digests before and after) and is counted as skipped.
+31. MoE training on one card: (a) B7's backward at Mixtral-8x7B's
+    products, T = 16,384 token copies (B=4, S=2048, top-2) routed by a
+    random router over 8 experts with one forced empty: ``gmm_dx`` and
+    ``gmm_dw`` for w1 [8, 4096, 14336] and w2 [8, 14336, 4096] against
+    their plain versions (one bf16 ulp of |ref| plus 2^-10 of the
+    product's rms: both sum thousands of fp32 products in other orders),
+    two reruns bit-equal, ms beside the flop bound, TFLOP/s, the plain
+    versions' and ``torch._grouped_mm``'s ms (a yardstick only), the SASS
+    counts (HGMMA/UTMALDG for dx, HMMA for dw); (b) Mixtral-8x7B width
+    (hidden 4096, FFN 14336, 32/8 heads, 8 experts, top-2, vocab 32000)
+    cut to 1 layer, bf16, B=4, S=2048, ZeRO 0, ``fusedadam``, remat,
+    through ``initialize()``: 4 steps whose losses are finite and fall,
+    the launches of B7 (forward twice a layer under remat, dx, dw, by
+    route), B1 and B2 counted from 0 around them, step ms, tokens/s, MFU
+    on the active parameters (6·N_active + 12·L·S·D a token, N_active = N
+    − L·(E − k)·3·D·I), peak; then one step at a narrow width (hidden
+    1024, 2 layers) in bf16 with the kernels, in bf16 with every plain
+    version and in fp32 with the plain versions: loss and norm within
+    2^-7 of the plain bf16 step, and each leaf's gradient no further from
+    the fp32 step's than twice the plain bf16 step's plus 2^-7 (L2,
+    relative); (c) the MoE layer of the MoE tests' model at hidden 4096
+    (8 experts of 4 × 4096, top-2, capacity factor 1.25, 8192 tokens,
+    bf16) through engine steps on the NCCL world of one rank, with
+    ``moe`` off and with the int8 ``quantized_dispatch``: bit-equal (one
+    rank exchanges nothing, as in JAX).
 
 ``--profile DIR`` adds ``torch.profiler`` windows over serving (stages 4,
 14 and 15), over two training steps of stage 8, of stage 11, of stage 22
@@ -502,7 +527,9 @@ def stage_build():
         ", ".join(f"D{d} {slib.ds_block_sparse_attention_smem_bytes(16, d, 1)}"
                   for d in (16, 32, 64, 128)))
     for name, key_fn, want in (("block_sparse_attention", _bsa_mma_key, 8),
-                               ("grouped_matmul", _gmm_tma_key, 4)):
+                               ("grouped_matmul", _gmm_tma_key, 4),
+                               ("grouped_matmul", _gmm_dx_key, 4),
+                               ("grouped_matmul", _gmm_dw_key, 4)):
         usage = _ptxas_usage(results[name][1], key_fn)
         for key, u in sorted(usage.items()):
             log(f"[build]   {name} {key}: {u.get('registers', '?')} "
@@ -1277,8 +1304,10 @@ def _pa_key(symbol):
 
 
 _BSA_MMA = re.compile(r"bsa_fwd_mma_kernelI(13__nv_bfloat16|6__half)Li(\d+)E")
-_GMM_TMA = re.compile(r"gmm_tma_kernelI(13__nv_bfloat16|6__half)Li(\d)E")
+_GMM_TMA = re.compile(r"gmm_tma_kernelI(13__nv_bfloat16|6__half)Li(\d)E"
+                      r"Lb([01])E")
 _GMM_MMA = re.compile(r"gmm_mma_kernelI(13__nv_bfloat16|6__half)Lb([01])E")
+_GMM_DW = re.compile(r"gmm_dw_mma_kernelI(13__nv_bfloat16|6__half)Lb([01])E")
 
 
 def _bsa_mma_key(symbol):
@@ -1289,10 +1318,27 @@ def _bsa_mma_key(symbol):
 
 
 def _gmm_tma_key(symbol):
-    """(dtype, consumer warpgroups) of a wgmma/TMA B7 kernel's name."""
+    """(dtype, consumer warpgroups) of a wgmma/TMA B7 forward kernel's
+    name."""
     m = _GMM_TMA.search(symbol)
+    if not m or m.group(3) != "0":
+        return None
+    return ("bf16" if "bfloat16" in m.group(1) else "fp16", int(m.group(2)))
+
+
+def _gmm_dx_key(symbol):
+    """(dtype, consumer warpgroups) of B7's wgmma/TMA dx kernel."""
+    m = _GMM_TMA.search(symbol)
+    if not m or m.group(3) != "1":
+        return None
+    return ("bf16" if "bfloat16" in m.group(1) else "fp16", int(m.group(2)))
+
+
+def _gmm_dw_key(symbol):
+    """(dtype, 16-byte copies) of B7's mma.sync dw kernel."""
+    m = _GMM_DW.search(symbol)
     return m and ("bf16" if "bfloat16" in m.group(1) else "fp16",
-                  int(m.group(2)))
+                  m.group(2) == "1")
 
 
 def _gmm_mma_key(symbol):
@@ -3992,6 +4038,7 @@ def _all_launches():
            optimizers.fused_lamb_phase2, optimizers.fused_lion_step,
            paged_attention.paged_attention,
            paged_attention.paged_attention_atoms, grouped_matmul.gmm,
+           grouped_matmul.gmm_dx, grouped_matmul.gmm_dw,
            quantizer.quantize_blockwise, quantizer.dequantize_blockwise,
            flash_bias.flash_bias_fwd, flash_bias.flash_bias_bwd_dq,
            flash_bias.flash_bias_bwd_dkv, flash_bias.flash_bias_bwd_dbias,
@@ -5697,6 +5744,347 @@ def stage_universal_onebit(seed, smi):
     return out
 
 
+# --------------------------------------------------------------- stage 31
+MIXTRAL_TRAIN = dict(vocab_size=32000, hidden_size=4096,
+                     intermediate_size=14336, num_attention_heads=32,
+                     num_key_value_heads=8, max_position_embeddings=4096,
+                     rms_norm_eps=1e-5, rope_theta=1e6, num_local_experts=8,
+                     num_experts_per_tok=2, dtype="bfloat16",
+                     head_dtype="bfloat16", remat=True)
+
+
+def _routed_sizes(torch, gen, tokens, E, k, empty):
+    """Group sizes of ``tokens`` × k copies routed by a random router over
+    E experts, expert ``empty`` never chosen."""
+    logits = torch.randn(tokens, E, device="cuda", generator=gen)
+    logits[:, empty] = -float("inf")
+    topi = torch.topk(logits, k, dim=-1).indices.reshape(-1)
+    return torch.bincount(topi, minlength=E).tolist()
+
+
+def _grouped_mm_ms(torch, kind, a, b, gs, name):
+    """``torch._grouped_mm``'s time on the same product (a yardstick the
+    port never calls), or None where this torch has none or refuses."""
+    grouped = getattr(torch, "_grouped_mm", None)
+    if grouped is None:
+        return None, "none in this torch"
+    offs = torch.cumsum(gs, 0, dtype=torch.int32)
+    try:
+        if kind == "dx":
+            fn = lambda: grouped(a, b.transpose(1, 2), offs=offs)  # noqa
+        else:
+            fn = lambda: grouped(a.t(), b, offs=offs)  # noqa: E731
+        fn()
+    except RuntimeError as e:
+        log(f"[moe-train] torch._grouped_mm refused {name}: "
+            f"{str(e).splitlines()[0][:120]}")
+        return None, "refused"
+    return cuda_ms(fn, 5), "torch._grouped_mm"
+
+
+def _gmm_bwd_case(torch, gen, kind, proj, sizes, K, N):
+    """One backward kernel of B7 at Mixtral's width: against its plain
+    version (one bf16 ulp of |ref| + 2^-10 of its rms), two launches
+    bit-equal,
+    its time beside the plain version's, ``torch._grouped_mm``'s and the
+    bound, and its SASS counts."""
+    from deepspeed_tpu_torch.ops.kernels import grouped_matmul as gm
+    from deepspeed_tpu_torch.ops.op_builder import GroupedMatmulBuilder
+    dt = torch.bfloat16
+    T, E = sum(sizes), len(sizes)
+    gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    dy = torch.randn(T, N, device="cuda", generator=gen).to(dt)
+    if kind == "dx":
+        w = (torch.randn(E, K, N, device="cuda", generator=gen)
+             / K**0.5).to(dt)
+        a, b, fn, plain = dy, w, gm.gmm_dx, gm.gmm_dx_plain
+        route = gm.gmm_bwd_route("dx", T, K, N, dt, a.data_ptr(),
+                                 b.data_ptr())
+        nbytes = (T * N + sum(1 for n in sizes if n) * K * N + T * K) * 2
+    else:
+        x = torch.randn(T, K, device="cuda", generator=gen).to(dt)
+        a, b, fn, plain = x, dy, gm.gmm_dw, gm.gmm_dw_plain
+        route = gm.gmm_bwd_route("dw", T, K, N, dt, a.data_ptr(),
+                                 b.data_ptr())
+        nbytes = (T * K + T * N + E * K * N) * 2
+    before = dict(fn.route_launches)
+    got, again = fn(a, b, gs), fn(a, b, gs)
+    torch.cuda.synchronize()
+    taken = {r: n - before[r] for r, n in fn.route_launches.items()
+             if n != before[r]}
+    if taken != {route: 2}:
+        raise AssertionError(f"gmm_{kind} {proj}: launches by route "
+                             f"{taken}, want 2 on {route}")
+    bit_equal = torch.equal(got, again)
+    ref = plain(a, b, gs).float()
+    # both sum thousands of fp32 products, in other orders, then round
+    # once to bf16: one bf16 ulp of |ref| plus the fp32 order's spread,
+    # held at 2^-10 of the product's rms (a row dropped or doubled moves
+    # every element of its expert by about the rms over sqrt(rows))
+    atol = 2.0**-10 * ref.square().mean().sqrt().item()
+    diff = (got.float() - ref).abs()
+    err = diff.max().item()
+    worst = (diff / (BF16_RTOL * ref.abs() + atol)).max().item()
+    del again, ref, diff
+    ms = cuda_ms(lambda: fn(a, b, gs), 5)
+    plain_ms = cuda_ms(lambda: plain(a, b, gs), 1, warmup=1)
+    lib_ms, lib = _grouped_mm_ms(torch, kind, a, b, gs, f"{kind} {proj}")
+    flops = 2 * T * K * N
+    bound = _roofline(nbytes, flops, BF16_FLOPS)
+    if kind == "dx":
+        key_fn, key, ops = _gmm_dx_key, ("bf16", 2 if route == "wgmma_tma"
+                                         else 1), (" HGMMA.", " UTMALDG")
+    else:
+        key_fn, ops = _gmm_dw_key, (" HMMA.", )
+        key = ("bf16", K % 8 == 0 and N % 8 == 0)
+    report, counts = _kernel_report(GroupedMatmulBuilder(), key_fn, key, ops)
+    row = dict(case=f"{kind}_{proj}", kind=kind, route=route, rows=T, K=K,
+               N=N, sizes=sizes, err=err, err_over_tol=worst, atol=atol,
+               bit_equal=bit_equal, ms=ms, plain_ms=plain_ms,
+               library_ms=lib_ms, library=lib, bound_ms=bound[0],
+               bound_by=bound[1], tflops=flops / ms / 1e9,
+               share_of_bound=bound[0] / ms, kernel=report)
+    log(f"[moe-train] gmm_{kind} {proj}: T {T} (groups {sizes}), K {K}, N "
+        f"{N}, route {route}: max_abs_err {err:.3e}, worst |err| / "
+        f"(2^-7·|ref| + {atol:.3g}, 2^-10 of the rms) {worst:.3f}, reruns "
+        f"bit-equal "
+        f"{bit_equal} | kernel {ms:.4f} ms ({row['tflops']:.1f} TFLOP/s, "
+        f"{row['share_of_bound']:.3f} of the bound), plain {plain_ms:.4f} "
+        f"ms, {lib} {lib_ms} ms | bound {bound[0]:.4f} ms by {bound[1]} | "
+        f"{report['registers']} registers, {report['spill_stores']} B "
+        f"spills, SASS " + " / ".join(f"{n} {op.strip(' .')}"
+                                      for op, n in zip(ops, counts)))
+    if not (worst <= 1.0 and bit_equal and all(counts)):
+        raise AssertionError(f"gmm_{kind} {proj}: worst {worst}, bit-equal "
+                             f"{bit_equal}, SASS {counts}")
+    return row
+
+
+def _mixtral_parameters(torch, cfg, seed, gate_std):
+    """Random fp32 weights of a MixtralModel (``init_leaf``'s normal(0,
+    0.02) and unit norms), the router at ``gate_std`` so that its top-2
+    choices are decided."""
+    from deepspeed_tpu_torch.models.llama import init_leaf
+    from deepspeed_tpu_torch.models.mixtral import MixtralModel
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = {}
+    for name, p in MixtralModel(cfg, device="meta").named_parameters():
+        t = torch.empty(p.shape, dtype=torch.float32, device="cuda")
+        init_leaf(name, t, gen)
+        if name.endswith("block_sparse_moe.gate"):
+            t.normal_(0.0, gate_std, generator=gen)
+        out[name] = t
+    return out
+
+
+def _mixtral_step_vs_plain(torch, seed):
+    """One step at a narrow width (hidden 1024, FFN 2048, 8 experts, 2
+    layers, B=2, S=512) from the same weights three ways: bf16 with the
+    kernels, bf16 with every plain version, and fp32 with the plain
+    versions (the reference both bf16 runs are measured against)."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.mixtral import (MixtralConfig,
+                                                    MixtralModel)
+    narrow = dict(MIXTRAL_TRAIN, vocab_size=8192, hidden_size=1024,
+                  intermediate_size=2048, num_attention_heads=8,
+                  num_key_value_heads=2, num_hidden_layers=2, remat=False)
+    ids = torch.from_numpy(__import__("numpy").random.default_rng(
+        seed + 31).integers(0, narrow["vocab_size"], size=(2, 512))).cuda()
+    res = {}
+    for run, use_kernel, dtype in (("kernels", True, "bfloat16"),
+                                   ("plain", False, "bfloat16"),
+                                   ("fp32", False, "float32")):
+        cfg = MixtralConfig(**dict(narrow, dtype=dtype, head_dtype=dtype))
+        config = dict(TRAIN_CONFIG, train_micro_batch_size_per_gpu=2)
+        if dtype == "float32":
+            config.pop("bf16")
+        start = _mixtral_parameters(torch, cfg, seed + 32,
+                                    cfg.hidden_size ** -0.5)
+        eng = deepspeed_tpu_torch.initialize(
+            model=MixtralModel(cfg, device="meta"), model_parameters=start,
+            config=config)[0]
+        del start
+        loss = eng(ids, ids, use_kernel=use_kernel)
+        eng.backward(loss)
+        grad = eng.grad_acc.float().clone()
+        layout = eng._layout
+        eng.step(use_kernel=use_kernel)
+        res[run] = (loss.item(), float(eng._last_gnorm), grad)
+        del eng, loss
+        _free(torch)
+    (lk, nk, gk), (lp, npl, gp), (_, _, g32) = (res["kernels"],
+                                                 res["plain"], res["fp32"])
+    loss_rel, norm_rel = abs(lk - lp) / abs(lp), abs(nk - npl) / npl
+
+    def err(g, o, n):
+        return ((g[o:o + n] - g32[o:o + n]).norm() /
+                g32[o:o + n].norm().clamp_min(1e-30)).item()
+
+    leaves = [(err(gk, o, n), err(gp, o, n), name)
+              for name, o, n, _ in layout]
+    excess, worst = max((ek - 2 * ep, (ek, ep, name))
+                        for ek, ep, name in leaves)
+    log(f"[moe-train] narrow step, kernels vs plain (bf16): loss {lk:.6f} "
+        f"vs {lp:.6f} (rel {loss_rel:.2e}, tol 2^-7), grad norm {nk:.6f} "
+        f"vs {npl:.6f} (rel {norm_rel:.2e}, tol 2^-7); each leaf's "
+        f"gradient against the fp32 step's, ||Δ|| / ||g||: worst leaf "
+        f"{worst[2]} kernels {worst[0]:.2e}, plain {worst[1]:.2e} (tol "
+        f"2 × plain + 2^-7)")
+    # bf16 rounds activations and gradients, and a token whose top-2
+    # scores nearly tie may go to another expert: the router's gradient,
+    # a sum over tokens that cancels, moves by several percent between two
+    # bf16 runs.  So each leaf is held against the fp32 step: the kernels'
+    # error may not exceed twice the plain bf16 run's (plus 2^-7), where a
+    # wrong kernel is off by a large part of the gradient
+    if not (loss_rel <= 2.0**-7 and norm_rel <= 2.0**-7 and
+            excess <= 2.0**-7):
+        raise AssertionError("Mixtral step: kernels differ from the plain "
+                             "path beyond tolerance")
+    return dict(loss=(lk, lp), grad_norm=(nk, npl), loss_rel=loss_rel,
+                norm_rel=norm_rel, worst_leaf=worst[2],
+                worst_leaf_err_kernels=worst[0],
+                worst_leaf_err_plain=worst[1],
+                leaf_errs={name: (ek, ep) for ek, ep, name in leaves})
+
+
+def _moe_layer_nccl(torch, seed, smi):
+    """(c) The MoE layer (the shape of ``zero_multicard.py --moe``) in
+    engine steps on the NCCL world of one rank, with ``moe`` off and with
+    ``quantized_dispatch`` on: at ep 1 nothing is exchanged, so the runs
+    are bit-equal, as in JAX."""
+    import numpy as np
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    from zero_multicard import moe_layer_model
+    cdb = deepspeed_tpu_torch.init_distributed(dist_backend="nccl")
+    if cdb.name != "nccl" or comm.get_world_size() != 1:
+        raise AssertionError(f"comm world {cdb.name}, "
+                             f"{comm.get_world_size()} ranks")
+    D, T, steps = 4096, 8192, 2
+    rng = np.random.default_rng(seed + 33)
+    x = torch.from_numpy(rng.standard_normal((T, D)).astype(
+        np.float32)).cuda()
+    y = torch.tanh(x * 0.5)
+    runs = {}
+    for name, moe in (("flat", {"enabled": False}),
+                      ("int8", {"enabled": True, "quantized_dispatch": True,
+                                "wire_dtype": "int8"})):
+        model, start = moe_layer_model(torch, D, seed + 34)
+        eng = deepspeed_tpu_torch.initialize(
+            model=model, model_parameters=start, config=dict(
+                TRAIN_CONFIG, train_micro_batch_size_per_gpu=T, moe=moe))[0]
+        del start
+        losses, times = [], []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss = eng(x, y)
+            eng.backward(loss)
+            eng.step()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            losses.append(loss.item())
+        runs[name] = dict(losses=losses, step_ms=[t * 1e3 for t in times],
+                          master=eng.master.clone())
+        del eng, model
+        _free(torch)
+    same = runs["flat"]["losses"] == runs["int8"]["losses"] and \
+        torch.equal(runs["flat"]["master"], runs["int8"]["master"])
+    for r in runs.values():
+        r.pop("master")
+    log(f"[moe-train] MoE layer (hidden {D}, 8 experts of 4×{D}, top-2, "
+        f"cf 1.25, {T} tokens, bf16) on NCCL world 1: losses "
+        f"{runs['flat']['losses']} flat, {runs['int8']['losses']} with "
+        f"int8 quantized_dispatch (bit-equal {same}); step ms "
+        f"{runs['flat']['step_ms']} | {smi}")
+    if not same or not all(np.isfinite(runs["flat"]["losses"])):
+        raise AssertionError(f"MoE layer at ep 1: quantized_dispatch "
+                             f"changed the run: {runs}")
+    return dict(runs=runs, bit_equal=same)
+
+
+def stage_moe_train(seed, smi):
+    """Stage 31: B7's backward kernels at Mixtral-8x7B's width, Mixtral
+    training at full width cut to one layer, a narrow step against every
+    plain version, and the MoE layer on one NCCL rank."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.mixtral import (MixtralConfig,
+                                                    MixtralModel,
+                                                    param_count)
+    from deepspeed_tpu_torch.ops.kernels import grouped_matmul as gm
+    t_stage = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 31)
+    B, S, D, I, E, k = 4, 2048, 4096, 14336, 8, 2
+    sizes = _routed_sizes(torch, gen, B * S, E, k, empty=2)
+    rows = []
+    for kind in ("dx", "dw"):
+        for proj, K, N in (("w1", D, I), ("w2", I, D)):
+            rows.append(_gmm_bwd_case(torch, gen, kind, proj, sizes, K, N))
+            _free(torch)
+    # (b) Mixtral-8x7B width, one layer, through initialize()
+    cfg = MixtralConfig(**dict(MIXTRAL_TRAIN, num_hidden_layers=1))
+    L = cfg.num_hidden_layers
+    t0 = time.perf_counter()
+    engine = deepspeed_tpu_torch.initialize(
+        model=MixtralModel(cfg, device="meta"), config=dict(TRAIN_CONFIG))[0]
+    engine.initialize_parameters(seed)
+    torch.cuda.synchronize()
+    n_total = param_count(cfg)
+    n_active = n_total - L * (E - k) * 3 * D * I
+    log(f"[moe-train] Mixtral-8x7B width, {L} layer, {n_total:,} params "
+        f"({n_active:,} active a token), bf16 + fp32 master/moments/grad "
+        f"accumulator: {torch.cuda.memory_allocated() / 2**30:.2f} GiB of "
+        f"state, built in {time.perf_counter() - t0:.1f} s")
+    ids = torch.from_numpy(np.random.default_rng(seed + 31).integers(
+        0, cfg.vocab_size, size=(B, S))).cuda()
+    steps = 4
+    for fn in ("gmm", "gmm_dx", "gmm_dw"):
+        getattr(gm, fn).route_launches = dict.fromkeys(
+            getattr(gm, fn).route_launches, 0)
+    losses, times, launches, peak = _timed_steps(torch, engine, [(ids, ids)],
+                                                 1, steps - 1)
+    routes = {fn: {r: n for r, n in getattr(gm, fn).route_launches.items()
+                   if n} for fn in ("gmm", "gmm_dx", "gmm_dw")}
+    for fn, by_route in routes.items():
+        if sum(by_route.values()) != launches.get(fn, 0):
+            raise AssertionError(f"{fn}: launches by route {by_route} do "
+                                 f"not sum to its {launches.get(fn, 0)}")
+    step_s, tok_s, tflops, mfu, flops_tok = _rates(n_active, L, S, D, B * S,
+                                                   times, BF16_FLOPS)
+    log(f"[moe-train] losses {losses} | step ms "
+        + ", ".join(f"{t * 1e3:.1f}" for t in times)
+        + f" | mean {step_s * 1e3:.1f} ms, {tok_s:.1f} tokens/s, MFU "
+        f"{mfu:.4f} on the active parameters ({flops_tok / 1e9:.2f} "
+        f"GFLOP/token = 6·N_active + 12·L·S·D, N_active = N − L·(E−k)·3·D·I"
+        f"; 989 TFLOP/s) | peak memory {peak / 2**30:.2f} GiB | {smi}")
+    log(f"[moe-train] launches in the {steps} steps: {launches}")
+    # remat: each layer's forward runs twice a step (3 products each), the
+    # backward once (dx and dw of each product)
+    want = dict(gmm=6 * L * steps, gmm_dx=3 * L * steps,
+                gmm_dw=3 * L * steps, flash_attention_fwd=2 * L * steps,
+                flash_attention_bwd_dq=L * steps,
+                flash_attention_bwd_dkv=L * steps, fused_adam_step=steps)
+    if launches != want:
+        raise AssertionError(f"kernel launches {launches}, want {want}")
+    del engine
+    _free(torch)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"losses not finite and falling: {losses}")
+    step = _mixtral_step_vs_plain(torch, seed)
+    layer = _moe_layer_nccl(torch, seed, smi)
+    seconds = time.perf_counter() - t_stage
+    log(f"[moe-train] stage 31 took {seconds:.1f} s")
+    return dict(kernels=rows, sizes=sizes, losses=losses,
+                step_ms=[t * 1e3 for t in times], step_ms_mean=step_s * 1e3,
+                tokens_per_s=tok_s, mfu_active=mfu, tflops=tflops,
+                flops_per_token=flops_tok, n_params=n_total,
+                n_active=n_active, peak_bytes=peak, launches=launches,
+                route_launches=routes, step_vs_plain=step, moe_layer=layer,
+                seconds=seconds)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5766,6 +6154,7 @@ def main():
     zeropp = stage_zeropp(args.seed, smi, llama_zero3)
     pipe = stage_pipeline(args.seed, smi)
     uni_onebit = stage_universal_onebit(args.seed, smi)
+    moe_train = stage_moe_train(args.seed, smi)
 
     entries = []
     for wrapper, case in (("paged_attention", "serve_decode"),
@@ -5955,6 +6344,44 @@ def main():
                 for case in ("decode_w2", "prefill_w2", "mma_k4064_w1",
                              "mma_unaligned_w1")
                 for k in ("ms", "bound_ms", "library_ms")}),
+    ]
+    # stage 31: B7's backward, w1's products (w2's under *_w2); launches
+    # from stage 31(b)'s Mixtral training steps; the forward's launches
+    # there under launches_training
+    bwd = {r["case"]: r for r in moe_train["kernels"]}
+    for kind, wrapper in (("dx", "gmm_dx"), ("dw", "gmm_dw")):
+        r, r2 = bwd[f"{kind}_w1"], bwd[f"{kind}_w2"]
+        entries.append(dict(
+            name=wrapper, route="cuda",
+            source="deepspeed_tpu_torch/csrc/grouped_matmul.cu",
+            replaces=src + "grouped_matmul.py:100",
+            replaces_note="the gradient of the grouped matmul, which JAX "
+                          "takes from XLA's transpose of lax.ragged_dot",
+            launches=moe_train["launches"][wrapper],
+            launches_by_route=moe_train["route_launches"][wrapper],
+            max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"], library=r["library"],
+            tflops=r["tflops"], kernel_route=r["route"],
+            max_abs_err_w2=r2["err"],
+            **{f"{k}_w2": r2[k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "library_ms", "tflops")}))
+    for e in entries:
+        if e["name"] == "gmm":
+            e.update(launches_training=moe_train["launches"]["gmm"],
+                     launches_training_by_route=moe_train[
+                         "route_launches"]["gmm"])
+        elif e["name"] == "flash_attention":
+            e["launches_mixtral_training"] = moe_train["launches"][
+                "flash_attention_fwd"]
+        elif e["name"] == "flash_attention_bwd":
+            e["launches_mixtral_training"] = (
+                moe_train["launches"]["flash_attention_bwd_dq"] +
+                moe_train["launches"]["flash_attention_bwd_dkv"])
+        elif e["name"] == "fused_adam_step":
+            e["launches_mixtral_training"] = moe_train["launches"][
+                "fused_adam_step"]
+    entries += [
         # the Mixtral stack (contiguous route); the serving build's
         # p.t() of Llama-2-7B's gate projection under *_transposed
         dict(name="quantize_blockwise", route="cuda", source=qsrc,
@@ -6087,6 +6514,7 @@ def main():
                            save_resume=save_resume, offload=offload,
                            zeropp=zeropp, pipeline=pipe,
                            universal_onebit=uni_onebit,
+                           moe_train=moe_train,
                            seconds=time.perf_counter() - t_start),
                       f, indent=1, default=str)
     from deepspeed_tpu_torch import comm

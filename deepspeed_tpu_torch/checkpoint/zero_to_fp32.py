@@ -18,7 +18,10 @@ a partition.  Their ``"optimizer_state_dict"`` is either
   (per group ``{name: fragment_address(numel, start)}``),
   ``single_partition_of_fp32_groups`` (per group the rank's flat fp32
   partition) and ``base_optimizer_state["state"]`` (per group the flat
-  ``exp_avg``/``exp_avg_sq`` and ``step``); or
+  ``exp_avg``/``exp_avg_sq`` and ``step``), and in the port's files of
+  an expert-parallel run ``param_slice_offsets`` (per group ``{name:
+  offset of the piece in the parameter}`` for the expert stacks, whose
+  pieces do not follow the files' rank order); or
 * upstream stage-3 content: ``fp32_flat_groups`` (one flat group, each
   parameter's ceil(numel/dp)-element slice in ``param_shapes`` order, the
   walk of upstream ``ds_to_universal.py:152``) and
@@ -189,11 +192,15 @@ def read_zero_tag(root, mmap=True):
             step = step if step is not None else _step(state)
             continue
         states = osd["base_optimizer_state"]["state"]
+        offsets = osd.get("param_slice_offsets") or []
         for gid, mapping in enumerate(osd["param_slice_mappings"]):
             state = _state_of(states, gid)
+            placed = offsets[gid] if gid < len(offsets) else {}
             frags = {}
             for name, frag in mapping.items():
                 w = within.get(name, 0)
+                if name in placed:
+                    w = int(placed[name])
                 frags[name] = (int(frag.start), int(frag.numel), w)
                 within[name] = w + int(frag.numel)
             sources.append((frags, _flats(

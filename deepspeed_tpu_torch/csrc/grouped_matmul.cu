@@ -72,6 +72,7 @@ constexpr int kBK = 32;   // depth of one k step
 constexpr int kThreads = 128;
 constexpr int kAStride = kBK + 8;  // shared-memory row strides (elements),
 constexpr int kBStride = kBN + 8;  // padded by 16 bytes
+constexpr int kDwAStride = kBM + 8;  // dw's x tile [32 rows][64 k]
 
 struct Tile {
   int expert, row0, rows;
@@ -408,13 +409,21 @@ struct TmaCfg {
   static constexpr int smem = 1024 + kStages * kStageBytes + 16 * kStages;
 };
 
-template <typename T, int NC>
+// kDx false: the forward, y [T, N] = x [T, K] @ w[g] (xmap: x; w's boxes
+// [64 k x 64 n], B MN-major).  kDx true: the input gradient, y = dx [T, K]
+// = dy [T, N] @ w[g]^T (xmap: dy; one w box [BN k x 64 n] a stage: the
+// contraction runs along w's contiguous dimension, so w as it lies is a
+// K-major B operand, read with no transposed copy).  K, N: the forward's
+// dimensions in both cases; the contraction is K (forward) or N (dx), the
+// output width N or K.
+template <typename T, int NC, bool kDx>
 __global__ void __launch_bounds__(TmaCfg<NC>::kThreads, TmaCfg<NC>::kBlocks)
     gmm_tma_kernel(const __grid_constant__ CUtensorMap xmap,
                    const __grid_constant__ CUtensorMap wmap,
                    const int* __restrict__ group_sizes, T* __restrict__ y,
                    int T_, int K, int N, int E) {
   using C = TmaCfg<NC>;
+  const int n_out = kDx ? K : N;
   constexpr int kAcc = C::BN / 2;  // accumulators a thread
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* ring = reinterpret_cast<unsigned char*>(
@@ -434,7 +443,8 @@ __global__ void __launch_bounds__(TmaCfg<NC>::kThreads, TmaCfg<NC>::kBlocks)
   __syncthreads();
   const Tile tile = s_tile;
   if (tile.rows <= 0) return;
-  const int n0 = blockIdx.y * C::BN, nk = K / C::BK;
+  const int n0 = blockIdx.y * C::BN;
+  const int nk = kDx ? (N + C::BK - 1) / C::BK : K / C::BK;
   const int wg = threadIdx.x / 128;
 
   if (wg == NC) {
@@ -448,10 +458,16 @@ __global__ void __launch_bounds__(TmaCfg<NC>::kThreads, TmaCfg<NC>::kBlocks)
         unsigned char* st = ring + s * C::kStageBytes;
         mbar_expect_tx(&full[s], C::kStageBytes);
         tma_load_2d(st, &xmap, &full[s], kt * C::BK, tile.row0);
+        if constexpr (kDx) {
+          // rows n0.. of w[g] (output columns), 64 of its columns (the
+          // contraction); rows past the expert are computed, not stored
+          tma_load_2d(st + C::XB, &wmap, &full[s], kt * C::BK, wrow + n0);
+        } else {
 #pragma unroll
-        for (int c = 0; c < C::BN / 64; ++c)
-          tma_load_2d(st + C::XB + c * C::WB, &wmap, &full[s], n0 + 64 * c,
-                      wrow + kt * C::BK);
+          for (int c = 0; c < C::BN / 64; ++c)
+            tma_load_2d(st + C::XB + c * C::WB, &wmap, &full[s],
+                        n0 + 64 * c, wrow + kt * C::BK);
+        }
       }
     }
   } else {
@@ -473,9 +489,14 @@ __global__ void __launch_bounds__(TmaCfg<NC>::kThreads, TmaCfg<NC>::kBlocks)
       fence_regs<kAcc>(d);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < C::BK / 16; ++kk)
-        Wgmma<T, C::BN, 1>::run(d, wgmma_desc(a0 + kk * 32, 16, 1024),
-                             wgmma_desc(b0 + kk * 2048, C::WB, 1024), 1);
+      for (int kk = 0; kk < C::BK / 16; ++kk) {
+        if constexpr (kDx)  // B K-major: BN rows of 128 bytes, as A
+          Wgmma<T, C::BN, 0>::run(d, wgmma_desc(a0 + kk * 32, 16, 1024),
+                                  wgmma_desc(b0 + kk * 32, 16, 1024), 1);
+        else
+          Wgmma<T, C::BN, 1>::run(d, wgmma_desc(a0 + kk * 32, 16, 1024),
+                                  wgmma_desc(b0 + kk * 2048, C::WB, 1024), 1);
+      }
       wgmma_commit();
       fence_regs<kAcc>(d);
       // the previous step's products are done: hand its stage back
@@ -490,11 +511,12 @@ __global__ void __launch_bounds__(TmaCfg<NC>::kThreads, TmaCfg<NC>::kBlocks)
     for (int i = 0; i < 2; ++i) {
       const int r = wg * 64 + warp * 16 + g + 8 * i;
       if (r >= tile.rows) continue;
-      T* yr = y + (size_t)(tile.row0 + r) * N;
+      T* yr = y + (size_t)(tile.row0 + r) * n_out;
 #pragma unroll
       for (int j = 0; j < C::BN / 8; ++j) {
-        const int col = n0 + 8 * j + 2 * t;  // N % 8 == 0: col + 1 < N too
-        if (col < N)
+        // n_out % 8 == 0: col + 1 < n_out too
+        const int col = n0 + 8 * j + 2 * t;
+        if (col < n_out)
           *reinterpret_cast<uint32_t*>(yr + col) =
               Mma<T>::pack2(d[4 * j + 2 * i], d[4 * j + 2 * i + 1]);
       }
@@ -502,31 +524,384 @@ __global__ void __launch_bounds__(TmaCfg<NC>::kThreads, TmaCfg<NC>::kBlocks)
   }
 }
 
-template <typename T, int NC>
+// kDx false: x [T, K] -> y [T, N]; true: x is dy [T, N], y is dx [T, K].
+template <typename T, int NC, bool kDx = false>
 cudaError_t launch_tma(const void* x, const void* w, const int* gs, void* y,
                        int T_, int K, int N, int E, cudaStream_t st) {
   using C = TmaCfg<NC>;
   CUtensorMap xmap, wmap;
-  // a box of w must not straddle two experts; the encoder refuses an
-  // unaligned base or a row that is not whole 16 bytes
-  if (K % C::BK != 0 ||
-      !make_tensor_map_2d(&xmap, x, TmaType<T>::value, T_, K, K, C::BM,
-                          C::BK) ||
-      !make_tensor_map_2d(&wmap, w, TmaType<T>::value, (uint64_t)E * K, N,
-                          N, C::BK, 64))
-    return cudaErrorInvalidValue;
+  // forward: a box of w must not straddle two experts (K % 64); dx: the
+  // output width K in whole 16 bytes for the paired stores; the encoder
+  // refuses an unaligned base or a row that is not whole 16 bytes
+  const bool ok =
+      kDx ? (K % 8 == 0 &&
+             make_tensor_map_2d(&xmap, x, TmaType<T>::value, T_, N, N, C::BM,
+                                C::BK) &&
+             make_tensor_map_2d(&wmap, w, TmaType<T>::value,
+                                (uint64_t)E * K, N, N, C::BN, C::BK))
+          : (K % C::BK == 0 &&
+             make_tensor_map_2d(&xmap, x, TmaType<T>::value, T_, K, K, C::BM,
+                                C::BK) &&
+             make_tensor_map_2d(&wmap, w, TmaType<T>::value,
+                                (uint64_t)E * K, N, N, C::BK, 64));
+  if (!ok) return cudaErrorInvalidValue;
   static bool configured = false;
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        gmm_tma_kernel<T, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        C::smem);
+        gmm_tma_kernel<T, NC, kDx>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, C::smem);
     if (e != cudaSuccess) return e;
     configured = true;
   }
-  dim3 grid((T_ + C::BM - 1) / C::BM + E, (N + C::BN - 1) / C::BN);
-  gmm_tma_kernel<T, NC><<<grid, C::kThreads, C::smem, st>>>(
+  const int n_out = kDx ? K : N;
+  dim3 grid((T_ + C::BM - 1) / C::BM + E, (n_out + C::BN - 1) / C::BN);
+  gmm_tma_kernel<T, NC, kDx><<<grid, C::kThreads, C::smem, st>>>(
       xmap, wmap, gs, static_cast<T*>(y), T_, K, N, E);
   return cudaGetLastError();
+}
+
+// ============================================ backward: dx and dw kernels
+//
+// The gradient of y = gmm(x, w, group_sizes) (lax.ragged_dot's transpose):
+// dx[i] = dy[i] @ w[g(i)]^T, and dw[e] = x_e^T @ dy_e over expert e's own
+// rows, fp32 accumulation rounded once to w's dtype; an expert with no
+// rows gets dw[e] = 0.  dx takes the forward's wgmma + TMA kernel with w as
+// a K-major B operand (gmm_tma_kernel<.., kDx = true>), or the CUDA-core
+// route below; dw is mma.sync over 64 x 128 tiles of [K, N] (kRouteMma)
+// or the CUDA-core route.  Both find their expert's row range from
+// group_sizes on the device, as the forward's blocks do.
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+template <>
+__device__ __forceinline__ __half from_f<__half>(float v) {
+  return __float2half_rn(v);
+}
+
+// [row0, row1) of expert e's rows (clamped to T)
+__device__ __forceinline__ int2 expert_rows(const int* group_sizes, int e,
+                                            int T) {
+  int start = 0;
+  for (int i = 0; i < e; ++i) start += max(group_sizes[i], 0);
+  const int end = start + max(group_sizes[e], 0);
+  return make_int2(min(start, T), min(end, T));
+}
+
+// dx on the CUDA cores (fp32, or 16-bit shapes TMA cannot take): a block
+// is a 64-row tile of the static bound (as the forward's) x 64 columns of
+// dx; dy's tile [64 x 16] and w[g]'s [64 k x 16 n] per contraction step.
+template <typename T>
+__global__ void __launch_bounds__(kFThreads)
+    gmm_dx_simt_kernel(const T* __restrict__ dy, const T* __restrict__ w,
+                       const int* __restrict__ group_sizes,
+                       T* __restrict__ dx, int T_, int K, int N, int E) {
+  __shared__ Tile s_tile;
+  __shared__ float As[kFBK][kBM + 4];   // [n][row]
+  __shared__ float Bs[kFBK][kFBN + 4];  // [n][k]
+  load_tile_info(group_sizes, E, T_, &s_tile);
+  const Tile tile = s_tile;
+  if (tile.rows <= 0) return;
+  const int k0 = blockIdx.y * kFBN;
+  const T* we = w + (size_t)tile.expert * K * N;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  float acc[4][4] = {};
+  for (int c0 = 0; c0 < N; c0 += kFBK) {
+    for (int v = tid; v < kBM * kFBK; v += kFThreads) {
+      const int r = v / kFBK, c = v % kFBK;
+      As[c][r] = (r < tile.rows && c0 + c < N)
+                     ? to_f(dy[(size_t)(tile.row0 + r) * N + c0 + c])
+                     : 0.f;
+    }
+    for (int v = tid; v < kFBK * kFBN; v += kFThreads) {
+      const int j = v / kFBK, c = v % kFBK;  // consecutive threads: along n
+      Bs[c][j] = (k0 + j < K && c0 + c < N)
+                     ? to_f(we[(size_t)(k0 + j) * N + c0 + c])
+                     : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int cc = 0; cc < kFBK; ++cc) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = As[cc][ty * 4 + i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = Bs[cc][tx * 4 + j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty * 4 + i;
+    if (r >= tile.rows) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = k0 + tx * 4 + j;
+      if (col < K)
+        dx[(size_t)(tile.row0 + r) * K + col] = from_f<T>(acc[i][j]);
+    }
+  }
+}
+
+// dw on the CUDA cores: a block is 64 x 64 of dw[e] ([K, N]); the
+// contraction runs over the expert's rows in steps of 16.
+template <typename T>
+__global__ void __launch_bounds__(kFThreads)
+    gmm_dw_simt_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                       const int* __restrict__ group_sizes,
+                       T* __restrict__ dw, int T_, int K, int N, int E) {
+  __shared__ float As[kFBK][kBM + 4];   // [row][k]
+  __shared__ float Bs[kFBK][kFBN + 4];  // [row][n]
+  const int e = blockIdx.z, m0 = blockIdx.x * kBM, n0 = blockIdx.y * kFBN;
+  const int2 rows = expert_rows(group_sizes, e, T_);
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  float acc[4][4] = {};
+  for (int r0 = rows.x; r0 < rows.y; r0 += kFBK) {
+    for (int v = tid; v < kFBK * kBM; v += kFThreads) {
+      const int r = v / kBM, c = v % kBM;
+      As[r][c] = (r0 + r < rows.y && m0 + c < K)
+                     ? to_f(x[(size_t)(r0 + r) * K + m0 + c])
+                     : 0.f;
+    }
+    for (int v = tid; v < kFBK * kFBN; v += kFThreads) {
+      const int r = v / kFBN, c = v % kFBN;
+      Bs[r][c] = (r0 + r < rows.y && n0 + c < N)
+                     ? to_f(dy[(size_t)(r0 + r) * N + n0 + c])
+                     : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int rr = 0; rr < kFBK; ++rr) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = As[rr][ty * 4 + i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = Bs[rr][tx * 4 + j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+  T* out = dw + (size_t)e * K * N;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + ty * 4 + i;
+    if (m >= K) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = n0 + tx * 4 + j;
+      if (col < N) out[(size_t)m * N + col] = from_f<T>(acc[i][j]);
+    }
+  }
+}
+
+// dw with mma.sync m16n8k16: a block is 64 (k) x 128 (n) of dw[e], 4 warps
+// of 32 x 64; the contraction runs over the expert's rows 32 at a time
+// through a 2-deep cp.async ring.  A = x_e^T is stored as x's rows
+// ([row][k], k contiguous) and read with ldmatrix.trans; B = dy_e as
+// [row][n], read with ldmatrix.trans as the forward's B.  Rows past the
+// expert arrive as zeros (cp.async with 0 source bytes).
+template <typename T, bool kVec>
+__device__ void load_dw_stage(const T* __restrict__ x,
+                              const T* __restrict__ dy, T* As, T* Bs,
+                              int r0, int r1, int m0, int n0, int K, int N) {
+  const int tid = threadIdx.x;
+  if (kVec) {
+    // x: 32 rows x 8 vectors of 8; dy: 32 rows x 16 vectors of 8
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int v = tid + i * kThreads;
+      const int r = v / 8, c = (v % 8) * 8;
+      const bool ok = r0 + r < r1 && m0 + c < K;
+      const T* src = ok ? x + (size_t)(r0 + r) * K + m0 + c : x;
+      cp_async16(As + r * kDwAStride + c, src, ok);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int v = tid + i * kThreads;
+      const int r = v / 16, c = (v % 16) * 8;
+      const bool ok = r0 + r < r1 && n0 + c < N;
+      const T* src = ok ? dy + (size_t)(r0 + r) * N + n0 + c : dy;
+      cp_async16(Bs + r * kBStride + c, src, ok);
+    }
+  } else {
+    for (int v = tid; v < kBK * kBM; v += kThreads) {
+      const int r = v / kBM, c = v % kBM;
+      As[r * kDwAStride + c] = (r0 + r < r1 && m0 + c < K)
+                                   ? x[(size_t)(r0 + r) * K + m0 + c]
+                                   : Mma<T>::zero();
+    }
+    for (int v = tid; v < kBK * kBN; v += kThreads) {
+      const int r = v / kBN, c = v % kBN;
+      Bs[r * kBStride + c] = (r0 + r < r1 && n0 + c < N)
+                                 ? dy[(size_t)(r0 + r) * N + n0 + c]
+                                 : Mma<T>::zero();
+    }
+  }
+}
+
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+    gmm_dw_mma_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                      const int* __restrict__ group_sizes,
+                      T* __restrict__ dw, int T_, int K, int N, int E) {
+  __shared__ __align__(16) uint16_t a_raw[2][kBK * kDwAStride];
+  __shared__ __align__(16) uint16_t b_raw[2][kBK * kBStride];
+  T* const As = reinterpret_cast<T*>(&a_raw[0][0]);
+  T* const Bs = reinterpret_cast<T*>(&b_raw[0][0]);
+  constexpr int kAStage = kBK * kDwAStride, kBStage = kBK * kBStride;
+  const int e = blockIdx.z, m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
+  const int2 rows = expert_rows(group_sizes, e, T_);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int wm = (warp / 2) * 32, wn = (warp % 2) * 64;
+
+  float acc[2][8][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
+
+  const int nk = (rows.y - rows.x + kBK - 1) / kBK;
+  if (nk > 0) {
+    load_dw_stage<T, kVec>(x, dy, As, Bs, rows.x, rows.y, m0, n0, K, N);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    const int buf = kt % 2;
+    if (kt + 1 < nk) {
+      load_dw_stage<T, kVec>(x, dy, As + (buf ^ 1) * kAStage,
+                             Bs + (buf ^ 1) * kBStage,
+                             rows.x + (kt + 1) * kBK, rows.y, m0, n0, K, N);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* a_s = As + buf * kAStage;
+    const T* b_s = Bs + buf * kBStage;
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 16) {
+      uint32_t a[2][4], b[8][2];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        // matrices (m 0-7 | 8-15) x (k 0-7 | 8-15) of the 16 x 16 A tile,
+        // each 8 x 8 stored k-major: .trans hands out the row fragment
+        const int q = lane / 8;
+        const int r = kk + (lane % 8) + (q / 2) * 8;
+        const int c = wm + mi * 16 + (q % 2) * 8;
+        ldmatrix_x4_trans(a[mi], a_s + r * kDwAStride + c);
+      }
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj) {
+        const int m = lane / 8;
+        const int r = kk + (lane % 8) + (m % 2) * 8;
+        const int c = wn + nj * 16 + (m / 2) * 8;
+        uint32_t t[4];
+        ldmatrix_x4_trans(t, b_s + r * kBStride + c);
+        b[2 * nj][0] = t[0];
+        b[2 * nj][1] = t[1];
+        b[2 * nj + 1][0] = t[2];
+        b[2 * nj + 1][1] = t[3];
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 8; ++ni) Mma<T>::run(acc[mi][ni], a[mi], b[ni]);
+    }
+    __syncthreads();
+  }
+
+  // every block stores its tile: an expert with no rows gets zeros
+  T* out = dw + (size_t)e * K * N;
+  const int g = lane / 4, tig = lane % 4;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int m = m0 + wm + mi * 16 + g + half * 8;
+      if (m >= K) continue;
+      T* yr = out + (size_t)m * N;
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni) {
+        const int col = n0 + wn + ni * 8 + tig * 2;
+        if (col < N) yr[col] = Mma<T>::from_f(acc[mi][ni][half * 2]);
+        if (col + 1 < N)
+          yr[col + 1] = Mma<T>::from_f(acc[mi][ni][half * 2 + 1]);
+      }
+    }
+}
+
+constexpr int kRouteSimt = 4;  // backward only: CUDA cores, any dtype
+
+template <typename T>
+cudaError_t launch_dx(int route, const void* dy, const void* w,
+                      const int* gs, void* dx, int T_, int K, int N, int E,
+                      cudaStream_t st) {
+  if (route == kRouteSimt) {
+    dim3 grid((T_ + kBM - 1) / kBM + E, (K + kFBN - 1) / kFBN);
+    gmm_dx_simt_kernel<T><<<grid, kFThreads, 0, st>>>(
+        static_cast<const T*>(dy), static_cast<const T*>(w), gs,
+        static_cast<T*>(dx), T_, K, N, E);
+    return cudaGetLastError();
+  }
+  if constexpr (sizeof(T) == 2) {
+    if (route == kRouteTma)
+      return launch_tma<T, 2, true>(dy, w, gs, dx, T_, K, N, E, st);
+    if (route == kRouteTma64)
+      return launch_tma<T, 1, true>(dy, w, gs, dx, T_, K, N, E, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t launch_dw(int route, const void* x, const void* dy,
+                      const int* gs, void* dw, int T_, int K, int N, int E,
+                      cudaStream_t st) {
+  if (route == kRouteSimt) {
+    dim3 grid((K + kBM - 1) / kBM, (N + kFBN - 1) / kFBN, E);
+    gmm_dw_simt_kernel<T><<<grid, kFThreads, 0, st>>>(
+        static_cast<const T*>(x), static_cast<const T*>(dy), gs,
+        static_cast<T*>(dw), T_, K, N, E);
+    return cudaGetLastError();
+  }
+  if constexpr (sizeof(T) == 2) {
+    if (route == kRouteMma) {
+      dim3 grid((K + kBM - 1) / kBM, (N + kBN - 1) / kBN, E);
+      const bool vec = K % 8 == 0 && N % 8 == 0 &&
+                       reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(dy) % 16 == 0;
+      if (vec)
+        gmm_dw_mma_kernel<T, true><<<grid, kThreads, 0, st>>>(
+            static_cast<const T*>(x), static_cast<const T*>(dy), gs,
+            static_cast<T*>(dw), T_, K, N, E);
+      else
+        gmm_dw_mma_kernel<T, false><<<grid, kThreads, 0, st>>>(
+            static_cast<const T*>(x), static_cast<const T*>(dy), gs,
+            static_cast<T*>(dw), T_, K, N, E);
+      return cudaGetLastError();
+    }
+  }
+  return cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -566,6 +941,42 @@ extern "C" int ds_gmm(const void* x, const void* w, const void* group_sizes,
       static_cast<const float*>(x), static_cast<const float*>(w), gs,
       static_cast<float*>(y), T_, K, N, E);
   return (int)cudaGetLastError();
+}
+
+// The backward of ds_gmm.  dx: dy [T, N], w [E, K, N] -> dx [T, K]
+// (rows past the sum of the sizes left to the caller); routes 2, 3 (wgmma
+// + TMA, 16-bit) or 4 (CUDA cores, any dtype).  dw: x [T, K], dy [T, N]
+// -> dw [E, K, N] (every expert written, zeros where it has no rows);
+// routes 1 (mma.sync, 16-bit) or 4.  Returns a cudaError_t code.
+extern "C" int ds_gmm_dx(const void* dy, const void* w,
+                         const void* group_sizes, void* dx, int T_, int K,
+                         int N, int E, int dtype, int route, void* stream) {
+  if (T_ < 0 || K <= 0 || N <= 0 || E <= 0 || dtype < 0 || dtype > 2)
+    return (int)cudaErrorInvalidValue;
+  if (T_ == 0) return 0;
+  const int* gs = static_cast<const int*>(group_sizes);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return (int)launch_dx<__nv_bfloat16>(route, dy, w, gs, dx, T_, K, N, E,
+                                         st);
+  if (dtype == 2)
+    return (int)launch_dx<__half>(route, dy, w, gs, dx, T_, K, N, E, st);
+  return (int)launch_dx<float>(route, dy, w, gs, dx, T_, K, N, E, st);
+}
+
+extern "C" int ds_gmm_dw(const void* x, const void* dy,
+                         const void* group_sizes, void* dw, int T_, int K,
+                         int N, int E, int dtype, int route, void* stream) {
+  if (T_ < 0 || K <= 0 || N <= 0 || E <= 0 || dtype < 0 || dtype > 2)
+    return (int)cudaErrorInvalidValue;
+  const int* gs = static_cast<const int*>(group_sizes);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return (int)launch_dw<__nv_bfloat16>(route, x, dy, gs, dw, T_, K, N, E,
+                                         st);
+  if (dtype == 2)
+    return (int)launch_dw<__half>(route, x, dy, gs, dw, T_, K, N, E, st);
+  return (int)launch_dw<float>(route, x, dy, gs, dw, T_, K, N, E, st);
 }
 
 extern "C" const char* ds_cuda_error_string(int err) {

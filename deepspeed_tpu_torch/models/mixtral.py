@@ -1,5 +1,5 @@
 """Mixtral-family model (sparse-MoE Llama; the port of
-``deepspeed_tpu/models/mixtral.py``) for serving.
+``deepspeed_tpu/models/mixtral.py``) for serving and training.
 
 Attention and norms are the port's Llama modules; the MLP is a top-k router
 over ``E`` experts whose weights are STACKED as in the JAX tree — ``w1``/
@@ -13,7 +13,13 @@ the Llama model's HuggingFace names.
 The expert compute is :func:`moe_apply` — exact (no-drop) top-k routing, a
 stable sort of token copies by expert, and the grouped matmul
 (``ops/kernels/grouped_matmul.py``, kernel B7) — serving through
-``inference/v2/ragged_forward.py:mixtral_ragged_step``.
+``inference/v2/ragged_forward.py:mixtral_ragged_step`` and training
+through :meth:`MixtralModel.forward` (the Llama training forward with each
+layer's MLP replaced by the MoE block; the grouped matmul's gradient is
+B7's dx and dw kernels).  As in the JAX model, the loss with labels is the
+LM loss alone: each layer's router logits are kept
+(:meth:`MixtralModel.intermediates`, JAX's ``sow``) and
+:func:`aux_loss_from_vars` is a helper a caller may add.
 """
 
 import re
@@ -24,10 +30,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..accelerator import full_fp32_matmul
 from ..ops.kernels.grouped_matmul import gmm, gmm_plain
 from ..utils.not_ported import not_ported
 from .llama import (LlamaAttention, LlamaConfig, LlamaModel, RMSNorm,
-                    _flax_attention_and_norms, _flax_converter)
+                    _flax_attention_and_norms, _flax_converter, _flax_leaf,
+                    torch_dtype)
 
 
 @dataclass(frozen=True)
@@ -67,7 +75,10 @@ def moe_apply(x, router_logits, w1, w2, w3, k, norm_topk=True,
     (renormalised), a stable sort of the token copies by expert, the grouped
     SwiGLU, then the routing weights — cast to the activation dtype first —
     scale each copy and a scatter-add in that dtype sums them per token.
-    x: [T, D] → [T, D].  The group sizes never leave the device."""
+    x: [T, D] → [T, D].  The group sizes never leave the device.  The
+    copies are gathered through the permutation ``order`` of x repeated k
+    times, so x's gradient is a permutation's (every index once: the same
+    bits in every rerun) followed by a sum over the k copies."""
     T, D = x.shape
     E = w1.shape[0]
     probs = torch.softmax(router_logits.float(), dim=-1)
@@ -80,7 +91,8 @@ def moe_apply(x, router_logits, w1, w2, w3, k, norm_topk=True,
     group_sizes = torch.zeros(E, dtype=torch.int32, device=x.device)
     group_sizes.index_add_(0, flat_expert,
                            torch.ones_like(flat_expert, dtype=torch.int32))
-    y_sorted = moe_expert_ffn(x[token_of], group_sizes, w1, w2, w3,
+    x_sorted = x.unsqueeze(1).expand(T, k, D).reshape(T * k, D)[order]
+    y_sorted = moe_expert_ffn(x_sorted, group_sizes, w1, w2, w3,
                               use_kernel)
     w_sorted = topw.reshape(-1)[order].to(y_sorted.dtype)
     out = torch.zeros(T, D, dtype=y_sorted.dtype, device=x.device)
@@ -88,12 +100,49 @@ def moe_apply(x, router_logits, w1, w2, w3, k, norm_topk=True,
     return out.to(x.dtype)
 
 
+def load_balance_aux_loss(router_logits, k):
+    """Switch/GShard aux loss over a batch of router logits [T, E]
+    (``mixtral.py:102``): E · Σ_e (share of top-k slots on e) · (mean
+    router probability of e)."""
+    probs = torch.softmax(router_logits.float(), dim=-1)
+    E = probs.shape[-1]
+    _, topi = torch.topk(probs, k, dim=-1)
+    counts = F.one_hot(topi, E).sum(dim=(0, 1)).float()    # [E]
+    frac_tokens = counts / torch.clamp(counts.sum(), min=1.0)
+    return (frac_tokens * probs.mean(dim=0)).sum() * E
+
+
+def aux_loss_from_vars(variables, k, coef):
+    """``coef`` × the mean over layers of the aux loss of each layer's kept
+    router logits (``mixtral.py:234``); ``variables``: the
+    ``{"intermediates": {"layers_{i}": {"moe": {"router_logits": (rl,)}}}}``
+    of :meth:`MixtralModel.intermediates` (JAX's sown collection)."""
+    total, n = 0.0, 0
+    for layer in variables.get("intermediates", {}).values():
+        moe = layer.get("moe") if isinstance(layer, dict) else None
+        if moe and "router_logits" in moe:
+            for rl in moe["router_logits"]:
+                total = total + load_balance_aux_loss(rl, k)
+                n += 1
+    return coef * total / max(n, 1)
+
+
+def _check_expert_parallel():
+    from ..utils import groups
+    if groups.mesh_is_initialized() and groups.get_mesh_state().ep > 1:
+        raise not_ported("MixtralModel at ep > 1 (expert stacks sharded "
+                         "over the ep axis)", "8b")
+
+
 class MixtralSparseMoeBlock(nn.Module):
     """Router gate ``[D, E]`` (fp32) and stacked experts in the model
-    dtype (HF ``block_sparse_moe``)."""
+    dtype (HF ``block_sparse_moe``).  Its forward (training) keeps the
+    router logits of its last call in ``router_logits``."""
 
     def __init__(self, cfg, dtype, device):
         super().__init__()
+        self.config = cfg
+        self.router_logits = None
         E, D, I = (cfg.num_local_experts, cfg.hidden_size,
                    cfg.intermediate_size)
 
@@ -106,16 +155,39 @@ class MixtralSparseMoeBlock(nn.Module):
         self.w3 = param(E, D, I)
         self.w2 = param(E, I, D)
 
+    def forward(self, x, use_kernel=True):
+        """x: [B, S, D] → [B, S, D] (``mixtral.py:119``): the fp32 router
+        (the gate promoted to fp32, full fp32 on the card), then
+        :func:`moe_apply` over the stacks in the model dtype."""
+        cfg = self.config
+        dt = torch_dtype(cfg.dtype)
+        B, S, D = x.shape
+        tokens = x.reshape(-1, D)
+        with full_fp32_matmul():
+            logits = tokens.float() @ self.gate.float()      # [T, E]
+        out = moe_apply(tokens, logits, self.w1.to(dt), self.w2.to(dt),
+                        self.w3.to(dt), cfg.num_experts_per_tok,
+                        norm_topk=cfg.norm_topk_prob, use_kernel=use_kernel)
+        self.router_logits = logits
+        return out.reshape(B, S, D)
+
 
 class MixtralDecoderLayer(nn.Module):
 
     def __init__(self, cfg, dtype, device):
         super().__init__()
+        self.dtype = torch_dtype(cfg.dtype)
         eps = cfg.rms_norm_eps
         self.self_attn = LlamaAttention(cfg, dtype, device)
         self.block_sparse_moe = MixtralSparseMoeBlock(cfg, dtype, device)
         self.input_layernorm = RMSNorm(cfg.hidden_size, device, eps)
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size, device, eps)
+
+    def forward(self, x, cos, sin, use_kernel=True):
+        h = x + self.self_attn(self.input_layernorm(x, self.dtype), cos, sin,
+                               use_kernel)
+        return h + self.block_sparse_moe(
+            self.post_attention_layernorm(h, self.dtype), use_kernel)
 
 
 _EXPERT_SLICE = re.compile(r"(.*\.block_sparse_moe\.w[123])\.(\d+)$")
@@ -123,8 +195,8 @@ _EXPERT_SLICE = re.compile(r"(.*\.block_sparse_moe\.w[123])\.(\d+)$")
 
 class MixtralModel(LlamaModel):
     """Causal-LM weights: the Llama model's, with each layer's MLP replaced
-    by :class:`MixtralSparseMoeBlock`.  Serving only: the training forward
-    is not ported.
+    by :class:`MixtralSparseMoeBlock`.  :meth:`forward` is the training
+    forward (``mixtral.py:172-231``).
 
     :meth:`load_weights` takes whole tensors under the module's own names,
     and also one expert at a time as ``...block_sparse_moe.w1.{e}`` (the
@@ -140,8 +212,33 @@ class MixtralModel(LlamaModel):
                              "(shared_expert_intermediate_size > 0)", "S5")
         super().__init__(config, device)
 
-    def forward(self, *args, **kwargs):
-        raise not_ported("MixtralModel training forward", 8)
+    def forward(self, input_ids, labels=None, attention_mask=None,
+                use_kernel=True, loss_reduction="mean"):
+        """The Llama training forward (remat, dtypes, ``loss_reduction``,
+        the refusals) with the MoE blocks: logits, or with ``labels`` the
+        LM loss WITHOUT the aux loss, as JAX's model returns it (its
+        comment says the engine adds the aux loss; its engine does not).
+        Each layer's router logits stay reachable through
+        :meth:`intermediates`."""
+        _check_expert_parallel()
+        for layer in self.model.layers:
+            layer.block_sparse_moe.router_logits = None
+        return super().forward(input_ids, labels, attention_mask,
+                               use_kernel, loss_reduction)
+
+    def intermediates(self):
+        """The last forward's router logits in the layout of JAX's sown
+        collection: ``{"intermediates": {"layers_{i}": {"moe":
+        {"router_logits": (logits [T, E],)}}}}`` (:func:`aux_loss_from_vars`
+        reads it)."""
+        return {"intermediates": {
+            f"layers_{i}": {"moe": {"router_logits": (
+                layer.block_sparse_moe.router_logits, )}}
+            for i, layer in enumerate(self.model.layers)
+            if layer.block_sparse_moe.router_logits is not None}}
+
+    # the JAX Mixtral has no streaming view: offload_param refuses it
+    streaming_parts = None
 
     def _load(self, name, t, params, device, seen):
         """An expert slice ``...block_sparse_moe.w1.{e}`` goes into its
@@ -186,6 +283,34 @@ def params_from_flax(tree, cfg: MixtralConfig, dtype=None, device="cpu"):
         out[pre + "gate"] = t(moe["gate"]["kernel"], torch.float32)
         for w in ("w1", "w2", "w3"):
             out[pre + w] = t(np.asarray(moe[w]))
+    return out
+
+
+def params_to_flax(named, cfg: MixtralConfig):
+    """The exact inverse of :func:`params_from_flax`: HF-named tensors or
+    arrays (any subset; a moment of the optimizer shares the layout) →
+    the JAX package's nested flax tree of fp32 numpy leaves: the Llama
+    leaves as ``models/llama.py:params_to_flax`` writes them, each layer's
+    router ``moe/gate/kernel`` [D, E] and ``moe/w1``/``w2``/``w3`` stacks as
+    they are."""
+    out = {}
+    for name, value in named.items():
+        a = (value.detach().float().cpu().numpy()
+             if isinstance(value, torch.Tensor)
+             else np.asarray(value, dtype=np.float32))
+        parts = name.split(".")
+        if len(parts) == 5 and parts[3] == "block_sparse_moe":
+            layer, leaf = f"layers_{parts[2]}", parts[4]
+            path = ((layer, "moe", "gate", "kernel") if leaf == "gate"
+                    else (layer, "moe", leaf))
+        else:
+            path, a = _flax_leaf(name, a, cfg)
+            if path is None:
+                continue
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.ascontiguousarray(a, dtype=np.float32)
     return out
 
 

@@ -236,6 +236,10 @@ class GroupedMatmulBuilder(CUDAOpBuilder):
             p, p, p, p,                 # x, w, group_sizes, y
             i, i, i, i, i, i, p]        # T, K, N, E, dtype, route, stream
         lib.ds_gmm.restype = i
+        for fn in (lib.ds_gmm_dx, lib.ds_gmm_dw):
+            # dx: dy, w, group_sizes, dx; dw: x, dy, group_sizes, dw
+            fn.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+            fn.restype = i
         lib.ds_cuda_error_string.argtypes = [i]
         lib.ds_cuda_error_string.restype = ctypes.c_char_p
 

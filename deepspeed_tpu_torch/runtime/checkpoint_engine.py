@@ -486,16 +486,25 @@ def optim_state_dict(engine):
         t = getattr(opt, key, None)
         if t is not None:
             state[key] = _host(t)
+    frags = plan.fragment_map(engine._layout,
+                              dense=plan.sharded or engine.dp_rank == 0)
     mapping = OrderedDict(
         (name, fragment_address(numel=k, start=off))
-        for name, (k, off) in plan.fragment_map(engine._layout).items())
-    return {"optimizer_state_dict": {
+        for name, (k, off, _) in frags.items())
+    osd = {
         "zero_stage": engine.zero_stage,
         "partition_count": plan.world_size if plan.sharded else 1,
         "param_slice_mappings": [mapping],
         "single_partition_of_fp32_groups": [_host(engine._target())],
         "base_optimizer_state": {"state": [state]},
-    }}
+    }
+    if plan.experts_split:
+        # where each expert piece lies in the whole stack: the files' rank
+        # order is not the stacks' order at ep > 1 (zero_to_fp32.py)
+        osd["param_slice_offsets"] = [OrderedDict(
+            (name, within) for name, (_, _, within) in frags.items()
+            if name in plan.leaf_base)]
+    return {"optimizer_state_dict": osd}
 
 
 ONEBIT_FILE = "onebit_rank_{}_states.pt"
@@ -546,6 +555,9 @@ def _writes_partition(engine):
         replicas = engine._zcomm.replica_group
         first = replicas is None or replicas.rank() == 0
         return first, engine._shard_group.rank()
+    if plan.experts_split and not plan.sharded:
+        # one rank of each expert-data group: its experts' stacks
+        return plan.expert_rank == 0, engine.dp_rank
     return plan.sharded or engine.dp_rank == 0, engine.dp_rank
 
 
@@ -572,7 +584,7 @@ def save_engine_checkpoint(engine, save_dir, tag=None, client_state=None,
         jobs.append((MODEL_FILE, {
             "module": module,
             "param_shapes": [OrderedDict((n, torch.Size(s)) for n, *_, s in
-                                         engine._layout)],
+                                         engine.global_layout()[0])],
             "global_steps": engine.global_steps,
             "global_samples": engine.global_samples,
             "skipped_steps": engine.skipped_steps,

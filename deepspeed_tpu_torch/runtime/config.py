@@ -200,6 +200,32 @@ class CommOptimizationsConfig(DeepSpeedConfigModel):
     overlap: OverlapConfig = field(default_factory=OverlapConfig)
 
 
+class MoeConfig(DeepSpeedConfigModel):
+    """``moe`` (``config.py:183``): the expert-parallel dispatch
+    (``moe/engine.py``).  ``quantized_dispatch`` moves the exchange over
+    ep on a quantized wire; ``hierarchical_dispatch`` with an
+    ``intra_node_size`` (the 2-hop exchange) is item 8b."""
+    enabled: bool = False
+    quantized_dispatch: bool = False
+    wire_dtype: str = "int8"
+    quantization_group_size: int = 2048
+    hierarchical_dispatch: bool = True
+    intra_node_size: int = 0
+
+
+def _check_moe(mc):
+    """JAX's validators (``config.py:207-213``, ``:615-625``)."""
+    from ..comm.collectives import WIRE_FORMATS
+    wires = ("fp32", ) + tuple(WIRE_FORMATS)
+    if mc.wire_dtype not in wires:
+        raise DeepSpeedConfigError(
+            f"moe.wire_dtype {mc.wire_dtype!r} unknown (have "
+            f"{', '.join(wires)})")
+    if int(mc.quantization_group_size) < 128 or int(mc.intra_node_size) < 0:
+        raise DeepSpeedConfigError(
+            "moe: quantization_group_size >= 128 and intra_node_size >= 0")
+
+
 def _check_comm_optimizations(co):
     """The JAX model's bounds and validators (``config.py:140-178``,
     ``:557-571``)."""
@@ -283,9 +309,19 @@ def _mesh_dims(pd):
 _UNPORTED = (
     ("tensor parallelism (mesh.tp, tensor_parallel.tp_size)", "9b",
      lambda pd: _mesh_dims(pd).get("tp") not in (None, 1)),
-    ("expert parallelism (mesh.ep)", 8,
-     lambda pd: _mesh_dims(pd).get("ep") not in (None, 1)),
-    ("moe", 8, lambda pd: _on(pd.get("moe"), "enabled")),
+    ("expert parallelism (mesh.ep) with pp or sp > 1", "8b",
+     lambda pd: _mesh_dims(pd).get("ep") not in (None, 1) and (
+         _mesh_dims(pd).get("sp") not in (None, 1) or
+         _mesh_dims(pd).get("pp") not in (None, 1) or
+         (pd.get("pipeline") or {}).get("stages", "auto") not in ("auto",
+                                                                  1))),
+    ("moe.intra_node_size (the 2-hop hierarchical expert dispatch)", "8b",
+     lambda pd: _on(pd.get("moe"), "enabled") and
+     _on(pd.get("moe"), "quantized_dispatch") and
+     (pd.get("moe") or {}).get("hierarchical_dispatch", True) and
+     int((pd.get("moe") or {}).get("intra_node_size") or 0) > 0),
+    ("moe.gating_seed (noisy-gate rngs threaded by the engine)", "8b",
+     lambda pd: (pd.get("moe") or {}).get("gating_seed") is not None),
     ("domino", "9b", lambda pd: _on(pd.get("domino"), "enabled")),
     ("activation_checkpointing (partitioned/CPU/contiguous)", "9b",
      lambda pd: _on(pd.get("activation_checkpointing"),
@@ -383,6 +419,9 @@ class DeepSpeedConfig:
                                                 False))
         mesh = pd.get("mesh") or {}
         self.mesh_dp = mesh.get("dp")
+        self.mesh_ep = int(mesh.get("ep") or 1)
+        self.moe_config = MoeConfig(**pd.get("moe", {}) or {})
+        _check_moe(self.moe_config)
         sps = {int(v) for v in (mesh.get("sp"),
                                 pd.get("sequence_parallel_size"))
                if v not in (None, 1)}

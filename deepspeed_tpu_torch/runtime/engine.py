@@ -253,6 +253,7 @@ class DeepSpeedEngine(OffloadMixin):
             self.device = resolve_device(device)
         self.module = model = self._build_module(model)
         config.resolve_batch_sizes(self.dp_world_size)
+        self._configure_moe(model)
 
         self.compute_dtype = (torch.bfloat16 if config.bfloat16_enabled
                               else torch.float16 if config.fp16_enabled
@@ -299,6 +300,7 @@ class DeepSpeedEngine(OffloadMixin):
         self._last_skipped = False
         self.last_checkpoint = None   # the last save's handle (its stats())
         self._configure_offload()
+        self._split_experts(model)
         if model_parameters is not None or not any(
                 p.is_meta for p in model.parameters()):
             self._install_parameters(model_parameters)
@@ -352,14 +354,16 @@ class DeepSpeedEngine(OffloadMixin):
         if mesh_param is not None:
             dp_want.append(tuple(mesh_param)[0])
         pp, sp = self._requested_mesh(mesh_param, model)
+        ep = self._config.mesh_ep
         backend = "nccl" if self.device.type == "cuda" else "gloo"
         zp = check_shard_sizes(self._config.zero_config)
         if (dist_init_required is None and dist.env_world_size() == 1
                 and not dist.world_is_up(backend)):
-            if pp * sp > 1:
-                raise ValueError(f"pp={pp} × sp={sp} needs a world of that "
-                                 "many ranks; this process has none (pass "
-                                 "dist_init_required=True or launch ranks)")
+            if pp * sp * ep > 1:
+                raise ValueError(f"pp={pp} × sp={sp} × ep={ep} needs a "
+                                 "world of that many ranks; this process "
+                                 "has none (pass dist_init_required=True "
+                                 "or launch ranks)")
             dist.configure(config=self._config)
             self.dp_world_size, self.dp_rank = 1, 0
             if zp is not None:
@@ -379,6 +383,7 @@ class DeepSpeedEngine(OffloadMixin):
                 # sizes the config leaves at 1 merge from the user's mesh
                 pp = pp if pp > 1 else st.pp
                 sp = sp if sp > 1 else st.sp
+                ep = ep if ep > 1 else st.ep
             if dist.get_world_size() % (pp * sp):
                 raise ValueError(f"pp={pp} × sp={sp} does not divide the "
                                  f"world of {dist.get_world_size()} ranks")
@@ -391,12 +396,13 @@ class DeepSpeedEngine(OffloadMixin):
                     f"zero_partition_size={st.zero_partition_size}; pass "
                     "zero_partition_size to groups.initialize_mesh()")
             if (st.zero_partition_size != zp and zp is not None) or \
-                    (st.pp, st.sp) != (pp, sp):
-                if (st.pp, st.sp) != (pp, sp) and premade:
+                    (st.pp, st.sp, st.ep) != (pp, sp, ep):
+                if (st.pp, st.sp, st.ep) != (pp, sp, ep) and premade:
                     logger.warning(
-                        f"mesh built as pp={st.pp} sp={st.sp}; the config "
-                        f"asks for pp={pp} sp={sp}: rebuilding it")
-                groups.initialize_mesh(pp=pp, sp=sp,
+                        f"mesh built as pp={st.pp} sp={st.sp} ep={st.ep}; "
+                        f"the config asks for pp={pp} sp={sp} ep={ep}: "
+                        "rebuilding it")
+                groups.initialize_mesh(pp=pp, sp=sp, ep=ep,
                                        zero_partition_size=zp,
                                        user_built=False)
                 dist.configure(config=self._config)
@@ -419,6 +425,108 @@ class DeepSpeedEngine(OffloadMixin):
         self._zcomm = ZeroComm(self._config, self._config.zero_config.stage,
                                self._dp_group)
         self._shard_group = self._zcomm.shard_group
+
+    def _configure_moe(self, model):
+        """The ``moe`` block's dispatch options (JAX ``engine.py:287-307``;
+        disabled: the flat exchange).  The MoE layer gates over the global
+        batch; JAX's qgZ micro gates per rank, which the port's one qgZ
+        path does not reproduce: refused."""
+        from ..moe import engine as moe_engine
+        from ..moe.layer import MoE
+        moe_cfg = self._config.moe_config
+        moe_engine.configure(moe_cfg if moe_cfg.enabled else None,
+                             comm_opts=self._config.comm_optimizations_config)
+        if self._zcomm.qgz and self._data_world > 1 and any(
+                isinstance(m, MoE) for m in model.modules()):
+            raise not_ported("the MoE layer under quantized gradients (qgZ "
+                             "gates per rank)", "8b")
+
+    def _split_experts(self, model):
+        """The expert-parallel split (JAX ``leaf_zero_axes``, ``partition.py
+        :345-376``): at ep > 1 each ``Experts`` stack keeps this rank's
+        ``E / ep`` experts, and the plan shards their leaves over the
+        expert-data group.  ``_experts``: {leaf name: (first expert, the
+        rank's count, E)}; empty without the split."""
+        from ..moe.experts import Experts
+        self._experts, self._global = {}, None
+        self._ep_group = None
+        ep = (groups._get_expert_parallel_world_size()
+              if self._data_world > 1 else 1)
+        stacks = [(p, m) for p, m in model.named_modules()
+                  if isinstance(m, Experts)]
+        if ep <= 1 or not stacks:
+            return
+        zc = self._config.zero_config
+        for what, on in (
+                ("offload_optimizer", zc.offload_optimizer_device != "none"),
+                ("offload_param", zc.offload_param_device != "none"),
+                ("a 1-bit optimizer", self._onebit)):
+            if on:
+                raise not_ported(f"{what} with expert parallelism (ep > 1)",
+                                 "8b")
+        j = groups._get_expert_parallel_rank()
+        for prefix, m in stacks:
+            if m.num_experts % ep:
+                raise ValueError(
+                    f"num_experts={m.num_experts} must be divisible by "
+                    f"ep={ep} (expert stacks split their leading dim over "
+                    "the ep axis)")
+            n = m.num_experts // ep
+            m.localize(j * n, (j + 1) * n)
+            for name, _ in m.named_parameters():
+                full = f"{prefix}.{name}" if prefix else name
+                self._experts[full] = (j * n, n, m.num_experts)
+        self._ep_group = groups._get_expert_parallel_group().as_flat()
+        self._zcomm.expert_group = \
+            groups._get_expert_data_parallel_group().as_flat()
+
+    def _local_value(self, name, t):
+        """``t``, a value of leaf ``name``, as this rank holds it: an
+        expert stack given whole is cut to this rank's experts."""
+        split = self._experts.get(name)
+        if split is not None and t.shape[0] == split[2]:
+            return t[split[0]:split[0] + split[1]]
+        return t
+
+    def _whole_leaf(self, name, t):
+        """Leaf ``name``'s whole value from this rank's ``t``: an expert
+        stack all-gathered over ep (a collective), else ``t``."""
+        if name not in self._experts:
+            return t
+        n = self._ep_group.size()
+        out = torch.empty((n * t.shape[0], ) + tuple(t.shape[1:]),
+                          dtype=t.dtype, device=t.device)
+        dist.allgather_fn(out, t.contiguous(), group=self._ep_group)
+        return out
+
+    def global_layout(self):
+        """``(layout, numel)`` of the whole model, each leaf at its global
+        shape (the layout's order; :meth:`fp32_params` returns a buffer of
+        it): the engine's own layout but with the expert split."""
+        if not self._experts:
+            return self._layout, self.zero_plan.numel
+        if self._global is None:
+            shapes = []
+            for name, _, _, shape in self._layout:
+                split = self._experts.get(name)
+                shapes.append((name, shape if split is None else
+                               (split[2], ) + tuple(shape[1:])))
+            layout, _ = flat_layout(shapes)
+            self._global = layout, layout[-1][1] + layout[-1][2]
+        return self._global
+
+    def _globalize(self, flat):
+        """A buffer of :meth:`global_layout` from one of this rank's
+        layout (every rank calls it together at ep > 1)."""
+        if not self._experts:
+            return flat
+        layout, numel = self.global_layout()
+        out = torch.zeros(numel, dtype=flat.dtype, device=flat.device)
+        for (name, off, n, shape), (_, go, gn, _) in zip(self._layout,
+                                                          layout):
+            out[go:go + gn].copy_(self._whole_leaf(
+                name, flat[off:off + n].view(shape)).reshape(-1))
+        return out
 
     @property
     def _data_world(self):
@@ -455,10 +563,11 @@ class DeepSpeedEngine(OffloadMixin):
         self._tie()
 
     def _units(self, named):
-        """[(kind, block module or None, [(name, shape)])]: the outer unit,
-        one unit a block (``block_modules``) and, at stage 3, the persistent
-        unit of the leaves below the persistence threshold; empty units
-        left out."""
+        """[(kind, block module or None, [(name, shape)], expert)]: the
+        outer unit, one unit a block (``block_modules``) and, at stage 3,
+        the persistent unit of the leaves below the persistence threshold;
+        with the expert split each of them twice, its expert leaves apart
+        (``expert``); empty units left out."""
         blocks = block_modules(self.module)
         _, whole = gather_items(named, min_partition_size(
             self._config.zero_config) if self.zero_stage == 3 else 0)
@@ -477,19 +586,23 @@ class DeepSpeedEngine(OffloadMixin):
         units = [(OUTER, None, outer)] + [
             (BLOCK, m, leaves) for (_, m), leaves in zip(blocks, inner)]
         units.append((PERSISTENT, None, persistent))
-        return [u for u in units if u[2]]
+        return [(kind, m, [leaf for leaf in leaves
+                           if (leaf[0] in self._experts) == expert], expert)
+                for kind, m, leaves in units for expert in (False, True)
+                if any((leaf[0] in self._experts) == expert
+                       for leaf in leaves)]
 
     def _plan_units(self, named):
         """The bucketed plan, the flat layout (unit after unit) and the
         coordinator's units."""
         spec, local = self._units(named), []
-        for kind, _, leaves in spec:
+        for kind, _, leaves, _ in spec:
             local.append(flat_layout(leaves))
         zc = self._config.zero_config
         cfg = self._config
         plan = self._new_plan(
-            None, units=[(kind, n) for (kind, _, _), (_, n) in
-                         zip(spec, local)],
+            None, units=[(kind, n, expert) for (kind, _, _, expert), (_, n)
+                         in zip(spec, local)],
             schedule=dict(
                 min_partition_size=(min_partition_size(zc)
                                     if self.zero_stage == 3 else 1),
@@ -499,8 +612,8 @@ class DeepSpeedEngine(OffloadMixin):
                 prefetch_bucket_mb=cfg.prefetch_bucket_mb,
                 prefetch_max_inflight=cfg.prefetch_max_inflight))
         layout, units = [], []
-        for u, ((kind, module, _), (leaves, _)) in enumerate(zip(spec,
-                                                                  local)):
+        for u, ((kind, module, _, _), (leaves, _)) in enumerate(zip(spec,
+                                                                     local)):
             base = plan.unit_offset[u]
             layout += [(name, base + off, n, shape)
                        for name, off, n, shape in leaves]
@@ -518,11 +631,13 @@ class DeepSpeedEngine(OffloadMixin):
             self.seq_parallel_rank
         if zcomm.mics:
             world, rank = self._shard_group.size(), self._shard_group.rank()
+        ed = zcomm.expert_group if self._experts else None
         plan = ZeroPartitionPlan(
             self.zero_stage, world, rank, numel, zc,
             param_world=(zcomm.param_group.size() if zcomm.hpz else None),
             comm_opts=self._config.comm_optimizations_config,
-            mics=zcomm.mics, **kw)
+            mics=zcomm.mics, expert_world=ed and ed.size(),
+            expert_rank=ed.rank() if ed else 0, **kw)
         zcomm.bind(plan)
         return plan
 
@@ -537,10 +652,24 @@ class DeepSpeedEngine(OffloadMixin):
         zc = self._config.zero_config
         if zc.bucketed:
             plan, layout, units = self._plan_units(named)
+        elif self._experts:
+            # two units: the dense leaves, the expert leaves
+            parts = [flat_layout((n, p.shape) for n, p in named
+                                 if (n in self._experts) == expert)
+                     for expert in (False, True)]
+            plan = self._new_plan(None, units=[
+                (OUTER, parts[0][1], False), (OUTER, parts[1][1], True)])
+            layout = parts[0][0] + [
+                (name, plan.unit_offset[1] + off, n, shape)
+                for name, off, n, shape in parts[1][0]]
         else:
             layout, off = flat_layout((n, p.shape) for n, p in named)
             plan = self._new_plan(off)
+        plan.leaf_base = {name: self._experts[name][0] * (n // shape[0])
+                          for name, _, n, shape in layout
+                          if name in self._experts}
         self._layout = layout
+        self._global = None
         self.zero_plan = plan
         source = (dict(model_parameters) if model_parameters is not None
                   else {n: p for n, p in named})
@@ -559,7 +688,8 @@ class DeepSpeedEngine(OffloadMixin):
                                   device=self.device)
         self._pshard = (torch.zeros(S, dtype=self.compute_dtype,
                                     device=self.device)
-                        if (plan.bucketed and whole) or plan.hpz else None)
+                        if (plan.bucketed and whole and plan.sharded)
+                        or plan.hpz else None)
         self.master = self._fp32_zeros(S) if mixed else None
         if zc.bucketed:
             self._make_coordinator(units)
@@ -569,7 +699,7 @@ class DeepSpeedEngine(OffloadMixin):
             pieces.setdefault(i, []).append((off, k, within))
         with torch.no_grad():
             for i, (name, o, n, shape) in enumerate(layout):
-                t = torch.as_tensor(source[name])
+                t = self._local_value(name, torch.as_tensor(source[name]))
                 if tuple(t.shape) != shape:
                     raise ValueError(f"{name}: shape {tuple(t.shape)} != "
                                      f"{shape}")
@@ -584,8 +714,8 @@ class DeepSpeedEngine(OffloadMixin):
                     if shard is not None:
                         shard[off:off + k].copy_(t[within:within + k])
             if not whole:
-                self._fill_persistent(
-                    lambda name, o, n: torch.as_tensor(source[name]))
+                self._fill_persistent(lambda name, o, n: self._local_value(
+                    name, torch.as_tensor(source[name])))
             if plan.hpz:
                 self._refresh_secondary()
         self._bind_module()
@@ -666,8 +796,11 @@ class DeepSpeedEngine(OffloadMixin):
             # same weights), then this rank's shard kept as the master
             full = torch.zeros(plan.padded_numel, dtype=torch.float32,
                                device=self.device)
-            self._bind(full)
-            self.module.init_weights(gen)
+            if self._experts:
+                self._draw_global(full, gen)
+            else:
+                self._bind(full)
+                self.module.init_weights(gen)
             with torch.no_grad():
                 if self.master is not None:
                     plan.take_shard(full, out=self.master)
@@ -687,6 +820,23 @@ class DeepSpeedEngine(OffloadMixin):
         elif self._nvme_swapper is not None:
             self._nvme_swap_out()
         return self.module
+
+    def _draw_global(self, full, gen):
+        """``init_weights`` over the whole model at its global shapes (so
+        every ep degree starts from the same weights), this rank's part of
+        each leaf into ``full`` (a buffer of the layout)."""
+        layout, numel = self.global_layout()
+        drawn = torch.zeros(numel, dtype=torch.float32, device=self.device)
+        for name, off, n, shape in layout:
+            self._set_param(name, drawn[off:off + n].view(shape))
+        self._tie()
+        self.module.init_weights(gen)
+        base = self.zero_plan.leaf_base
+        with torch.no_grad():
+            for (name, off, n, _), (_, go, _, _) in zip(self._layout,
+                                                         layout):
+                b = go + base.get(name, 0)
+                full[off:off + n].copy_(drawn[b:b + n])
 
     def _configure_optimizer(self, client_optimizer):
         """Reference ``_configure_optimizer`` (``engine.py:559``; the JAX
@@ -717,6 +867,9 @@ class DeepSpeedEngine(OffloadMixin):
             self._init_opt_state()
 
     def _init_opt_state(self):
+        if self._experts and isinstance(self._transform, FusedLambTransform):
+            # its trust ratio is over each whole stack, which no rank holds
+            raise not_ported("LAMB with expert parallelism (ep > 1)", "8b")
         pieces = [(o, n) for o, n, _ in
                   self.zero_plan.leaf_pieces(self._layout)]
         if self._onebit:
@@ -757,7 +910,7 @@ class DeepSpeedEngine(OffloadMixin):
         3."""
         if self._pshard is not None:
             return self._pshard
-        if self.zero_stage == 3:
+        if self.zero_stage == 3 or not self.zero_plan.sharded:
             return self.params
         lo, hi = self.zero_plan.shard_range()
         return self.params[lo:hi]
@@ -845,26 +998,42 @@ class DeepSpeedEngine(OffloadMixin):
 
     def fp32_params(self):
         """The whole fp32 flat buffer (the master's, when mixed) in the
-        layout's order.  A sharded master (or stage 3's fp32 parameters) is
+        order of :meth:`global_layout`.  A sharded master (or stage 3's
+        fp32 parameters), and at ep > 1 the expert stacks, are
         all-gathered: every rank must call this together."""
         self._ensure_state_resident()
         if self.master is None:
             return self.gathered_params()
-        if not self.zero_plan.sharded:
-            return self.master
-        return self._gather_shard(self.master)
+        return self._whole(self.master)
 
     def gathered_params(self):
-        """The whole compute-dtype flat buffer in the layout's order: the
-        parameters, or at stage 3 their all-gathered shards (every rank
-        must call this together)."""
+        """The whole compute-dtype flat buffer in the order of
+        :meth:`global_layout`: the parameters, or at stage 3 their
+        all-gathered shards (every rank must call this together)."""
         if self.zero_stage < 3:
-            return self.params
-        return self._gather_shard(self._param_shard())
+            return self._globalize(self.params)
+        return self._whole(self._param_shard())
+
+    def _whole(self, shard):
+        """A buffer of :meth:`global_layout` from this rank's shard-sized
+        ``shard`` (the master, a moment; a collective)."""
+        if self.zero_plan.sharded:
+            shard = self._gather_shard(shard)
+        return self._globalize(shard)
 
     def _gather_shard(self, shard):
+        """A buffer of the layout from every rank's ``shard``."""
         plan = self.zero_plan
         shard = shard.to(self.device)     # an offloaded master
+        if plan.experts_split:
+            # unit by unit, each over its own group
+            out = torch.empty(plan.padded_numel, dtype=shard.dtype,
+                              device=self.device)
+            for u in range(plan.n_units):
+                lo, hi = plan.unit_range(u)
+                a, b = plan.shard_slice(u)
+                self._zcomm.gather_shard(out[lo:hi], shard[a:b], u=u)
+            return out
         out = torch.empty(plan.world_size * plan.shard_numel,
                           dtype=shard.dtype, device=self.device)
         self._zcomm.gather_shard(out, shard)
@@ -873,7 +1042,7 @@ class DeepSpeedEngine(OffloadMixin):
     def get_fp32_param(self, name):
         """The fp32 value of one leaf (the master's, when mixed; a
         collective when the master is sharded, :meth:`fp32_params`)."""
-        for n, off, numel, shape in self._layout:
+        for n, off, numel, shape in self.global_layout()[0]:
             if n == name:
                 src = self.fp32_params()
                 return src[off:off + numel].view(shape).float()
@@ -1021,12 +1190,25 @@ class DeepSpeedEngine(OffloadMixin):
         self._fold(full, fresh=True)
         shard = torch.empty(self.zero_plan.shard_numel,
                             dtype=self.grad_accum_dtype, device=self.device)
-        self._zcomm.reduce_scatter(shard, full)
+        self._reduce_scatter_units(shard, full)
         del full
         if self._acc_fresh or self.grad_acc is None:
             self.grad_acc = shard
         else:
             self.grad_acc.add_(shard)
+
+    def _reduce_scatter_units(self, shard, full):
+        """``full``'s SUM over the ranks, this rank's slices into ``shard``:
+        one collective, or one a unit, each over its own group (the expert
+        split)."""
+        plan = self.zero_plan
+        if not plan.experts_split:
+            return self._zcomm.reduce_scatter(shard, full)
+        for u in range(plan.n_units):
+            lo, hi = plan.unit_range(u)
+            a, b = plan.shard_slice(u)
+            self._zcomm.reduce_scatter(shard[a:b], full[lo:hi], u=u)
+        return shard
 
     def step(self, use_kernel=True):
         """Reference ``engine.py:2204``: the update at the accumulation
@@ -1161,12 +1343,25 @@ class DeepSpeedEngine(OffloadMixin):
                 lo, hi = plan.unit_range(u)
                 a, b = plan.shard_slice(u)
                 self._zcomm.gather_shard(self.params[lo:hi],
-                                         self._pshard[a:b])
+                                         self._pshard[a:b], u=u)
 
     def _grad_norm(self, grads):
-        """The L2 norm of the summed gradient (before unscaling)."""
-        if self.zero_plan.sharded and self.zero_plan.world_size > 1:
+        """The L2 norm of the summed gradient (before unscaling).  Sharded,
+        the ranks' slices are each counted once over the world (an expert
+        unit's slices over the expert-data group, its other experts on the
+        other ep coordinates); unsharded with the expert split, the
+        experts' part is summed over ep."""
+        plan = self.zero_plan
+        if plan.sharded and plan.world_size > 1:
             return self._sharded_norm(grads)
+        if plan.experts_split:
+            sq = torch.zeros(2, dtype=torch.float32, device=grads.device)
+            for u in range(plan.n_units):
+                lo, hi = plan.unit_range(u)
+                sq[int(plan.unit_expert[u])] += torch.linalg.vector_norm(
+                    grads[lo:hi], dtype=torch.float32).square()
+            dist.all_reduce(sq[1:], group=self._ep_group)
+            return sq.sum().sqrt()
         # every rank holds the whole summed gradient
         return global_grad_norm([grads])
 
@@ -1190,9 +1385,16 @@ class DeepSpeedEngine(OffloadMixin):
             shard = (full if self.zero_plan.world_size == 1 else
                      torch.empty(self.zero_plan.shard_numel,
                                  dtype=torch.float32, device=self.device))
-            return self._zcomm.reduce_scatter(shard, full)
+            return self._reduce_scatter_units(shard, full)
         if self.zero_stage == 0 and self._data_world > 1:
-            return dist.all_reduce(grads, group=self._dp_group)
+            plan = self.zero_plan
+            if not plan.experts_split:
+                return dist.all_reduce(grads, group=self._dp_group)
+            for u in range(plan.n_units):
+                lo, hi = plan.unit_range(u)
+                dist.all_reduce(grads[lo:hi], group=(
+                    self._zcomm.expert_group if plan.unit_expert[u]
+                    else self._dp_group))
         return grads
 
     def _sharded_norm(self, grads):
@@ -1395,24 +1597,25 @@ class DeepSpeedEngine(OffloadMixin):
     def module_state_dict(self, dst=None):
         """``{name: compute-dtype tensor on the host}`` of every leaf in the
         layout's order, on rank ``dst`` (every rank when None; None on the
-        others).  A stage-3 model is gathered one unit at a time, so one
+        others), the expert stacks whole.  A stage-3 model is gathered one unit at a time, so one
         unit at most is gathered beside the shard; every rank must call
         it."""
         self._check_params()
         mine = dst is None or self.dp_rank == dst
         out = OrderedDict() if mine else None
         if self.zero_stage < 3:
-            if mine:
-                for name, off, n, shape in self._layout:
-                    out[name] = self.params[off:off + n].view(shape).to(
-                        "cpu", copy=True)
+            for name, off, n, shape in self._layout:
+                t = self._whole_leaf(name, self.params[off:off + n].view(
+                    shape))
+                if mine:
+                    out[name] = t.to("cpu", copy=True)
             return out
         for u in self._coord.units:
             self._coord.gather(u)
-            if mine:
-                for name, off, n, shape in u.leaves:
-                    out[name] = u.buffer[off:off + n].view(shape).to(
-                        "cpu", copy=True)
+            for name, off, n, shape in u.leaves:
+                t = self._whole_leaf(name, u.buffer[off:off + n].view(shape))
+                if mine:
+                    out[name] = t.to("cpu", copy=True)
             self._coord.release(u)
         return out
 
@@ -1432,7 +1635,8 @@ class DeepSpeedEngine(OffloadMixin):
         elif self.zero_stage < 3:
             for name, off, n, _ in self._layout:
                 if name in module:
-                    self.params[off:off + n].copy_(module[name].reshape(-1))
+                    self.params[off:off + n].copy_(self._local_value(
+                        name, module[name]).reshape(-1))
         else:
             # this rank's pieces (hpZ: of its primary world slices, from
             # which the secondary slices are derived)
@@ -1440,14 +1644,14 @@ class DeepSpeedEngine(OffloadMixin):
             for off, k, within, i in plan.pieces(self._layout):
                 name = self._layout[i][0]
                 if name in module:
-                    shard[off:off + k].copy_(
-                        module[name].reshape(-1)[within:within + k])
+                    shard[off:off + k].copy_(self._local_value(
+                        name, module[name]).reshape(-1)[within:within + k])
             for u in self._coord.units:
                 if u.kind == PERSISTENT:
                     for name, off, n, _ in u.leaves:
                         if name in module:
-                            u.buffer[off:off + n].copy_(
-                                module[name].reshape(-1))
+                            u.buffer[off:off + n].copy_(self._local_value(
+                                name, module[name]).reshape(-1))
             self._coord.release_all()
             if plan.hpz:
                 self._refresh_secondary()

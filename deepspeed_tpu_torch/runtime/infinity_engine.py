@@ -142,7 +142,7 @@ class InfinityEngine(DeepSpeedEngine):
         if zc.zero_quantized_weights or zc.zero_quantized_gradients:
             raise ValueError("ZeRO++ quantization cannot compose with "
                              "param streaming (weights live on host)")
-        if not hasattr(model, "streaming_parts"):
+        if getattr(model, "streaming_parts", None) is None:
             raise TypeError(
                 "offload_param requires a model exposing streaming_parts() "
                 "(see runtime/zero/infinity.StreamingSpec; models/llama.py "

@@ -350,7 +350,7 @@ class ZeroCoordinator:
             if u.kind == PERSISTENT:
                 lo, hi = self.plan.shard_slice(u.index)
                 self.comm.gather_shard(u.buffer.data,
-                                       self.primary[lo:hi])
+                                       self.primary[lo:hi], u=u.index)
 
     def _prefetch(self, unit):
         k = self._bucket_of.get(unit.index)
@@ -433,7 +433,8 @@ class ZeroCoordinator:
         tmp = None if self._fresh else torch.empty_like(out)
         handle = self.comm.reduce_scatter(out if tmp is None else tmp,
                                           self._scratch(unit),
-                                          async_op=self.overlap)
+                                          async_op=self.overlap,
+                                          u=unit.index)
         self._pending.append((handle, unit.scratch, tmp, out))
         unit.scratch, unit.reduced = None, True
         if self.sharded_params and unit.kind == BLOCK:

@@ -41,6 +41,15 @@ gather over the ``zp`` group then yields the unit with its slices in
 (i, o') order, put back in order by one copy (:meth:`param_slice`).
 ``grad_wire``, ``param_wire`` and ``wire_for_size`` are JAX's
 ``partition.py:294-330``: the wire each quantized ZeRO collective takes.
+
+Expert units (ep > 1, JAX's ``leaf_zero_axes`` / ``rule_claimed_axes``,
+``partition.py:345-376``): the expert leaves' E dimension is split over
+ep, so a rank holds its own experts only, and their units are sharded over
+the *expert-data* group (the dp/ep ranks that hold the same experts)
+instead of the world; their gradients sum over that group.  Every other
+unit keeps the world.  ``leaf_base`` ({leaf name: offset of this rank's
+elements in the whole leaf}) places an expert leaf's pieces in the global
+stack for the checkpoint files (:meth:`fragment_map`, :meth:`fill_shard`).
 """
 
 import torch
@@ -57,30 +66,38 @@ def min_partition_size(zero_config):
 
 
 class ZeroPartitionPlan:
-    """``units``: [(kind, length)] of the layout's units in order (each
-    length a multiple of ``ALIGN``); None: one unit of ``numel``.
-    ``schedule``: the gradient-overlap and prefetch settings for
-    :meth:`describe`."""
+    """``units``: [(kind, length)] or [(kind, length, expert)] of the
+    layout's units in order (each length a multiple of ``ALIGN``); None:
+    one unit of ``numel``.  ``expert_world``, ``expert_rank``: the
+    expert-data group's size and this rank's place in it, over which the
+    expert units are sharded.  ``schedule``: the gradient-overlap and
+    prefetch settings for :meth:`describe`."""
 
     def __init__(self, stage, world_size, rank, numel, zero_config=None,
                  units=None, schedule=None, param_world=None,
-                 comm_opts=None, mics=False):
+                 comm_opts=None, mics=False, expert_world=None,
+                 expert_rank=0):
         if not 0 <= rank < world_size:
             raise ValueError(f"rank {rank} outside a world of {world_size}")
         self.stage = stage
         self.world_size = world_size
         self.rank = rank
+        self.expert_world = expert_world or world_size
+        self.expert_rank = expert_rank if expert_world else rank
         self.zero_config = zero_config
         self.schedule = dict(schedule or {})
         self.comm_opts = comm_opts
         self.mics = bool(mics)
-        quantum = world_size * ALIGN
+        self.leaf_base = {}
         if units is None:
             units = [(OUTER, int(numel))]
-        self.unit_kinds = [kind for kind, _ in units]
+        self.unit_kinds = [u[0] for u in units]
+        self.unit_expert = [bool(u[2]) if len(u) > 2 else False
+                            for u in units]
         self.unit_numel, self.unit_offset = [], []
         off = 0
-        for _, n in units:
+        for u, (_, n, *_) in enumerate(units):
+            quantum = self.unit_world(u) * ALIGN
             self.unit_offset.append(off)
             self.unit_numel.append(-(-int(n) // quantum) * quantum)
             off += self.unit_numel[-1]
@@ -88,8 +105,8 @@ class ZeroPartitionPlan:
         # where the last leaf ends (the layout's length)
         self.numel = (self.unit_offset[-1] + int(units[-1][1]) if units
                       else 0)
-        self.slice_numel = [n // world_size if self.sharded else n
-                            for n in self.unit_numel]
+        self.slice_numel = [n // self.unit_world(u) if self.sharded else n
+                            for u, n in enumerate(self.unit_numel)]
         self.shard_offset, off = [], 0
         for n in self.slice_numel:
             self.shard_offset.append(off)
@@ -102,13 +119,27 @@ class ZeroPartitionPlan:
             raise ValueError(f"zero_hpz_partition_size={pw} must divide "
                              f"the world of {world_size}")
         self.param_world = pw
-        self.param_slice_numel = [n // pw if self.sharded else n
-                                  for n in self.unit_numel]
+        self.param_slice_numel = [
+            n // (self.unit_world(u) if not self.hpz else pw)
+            if self.sharded else n for u, n in enumerate(self.unit_numel)]
         self.param_offset, off = [], 0
         for n in self.param_slice_numel:
             self.param_offset.append(off)
             off += n
         self.param_numel = off
+
+    def unit_world(self, u):
+        """The ranks unit ``u`` is sharded over: the expert-data group for
+        an expert unit, else the world."""
+        return self.expert_world if self.unit_expert[u] else self.world_size
+
+    def unit_rank(self, u):
+        return self.expert_rank if self.unit_expert[u] else self.rank
+
+    @property
+    def experts_split(self):
+        """Whether some unit is an expert unit."""
+        return any(self.unit_expert)
 
     @property
     def hpz(self):
@@ -164,7 +195,7 @@ class ZeroPartitionPlan:
         lo = self.unit_offset[u]
         if not self.sharded:
             return lo, lo + self.unit_numel[u]
-        r = self.rank if rank is None else rank
+        r = self.unit_rank(u) if rank is None else rank
         s = self.slice_numel[u]
         return lo + r * s, lo + (r + 1) * s
 
@@ -202,17 +233,22 @@ class ZeroPartitionPlan:
                     pieces.append((a - lo + base, b - a, a - off, i))
         return pieces
 
-    def fragment_map(self, layout):
+    def fragment_map(self, layout, dense=True):
         """This rank's shard as upstream's stage ≤ 2 checkpoints describe a
-        partition: ``{leaf name: (numel, offset in the shard)}``, in shard
-        order.  At every stage a shard is a concatenation of leaf pieces
+        partition: ``{leaf name: (numel, offset in the shard, offset in
+        the whole leaf)}``, in shard order (``dense=False``: the expert
+        leaves only).  At every stage a shard is a concatenation of leaf pieces
         (:meth:`pieces`), and a leaf lies in one unit, whose slices cut it
         into contiguous pieces in rank order: so a leaf has at most one
         piece a rank, and its pieces over the ranks, in rank order, are the
         leaf.  The stage ≤ 2 content (``param_slice_mappings`` and one flat
         fp32 group a rank) therefore describes a stage-3 shard exactly."""
-        return {layout[i][0]: (k, off) for off, k, _, i in
-                self.pieces(layout)}
+        out = {}
+        for off, k, within, i in self.pieces(layout):
+            name = layout[i][0]
+            if dense or name in self.leaf_base:
+                out[name] = (k, off, within + self.leaf_base.get(name, 0))
+        return out
 
     def fill_shard(self, layout, sources, targets):
         """The inverse of :meth:`fragment_map` over every saved partition:
@@ -230,6 +266,7 @@ class ZeroPartitionPlan:
                 saved.setdefault(name, []).append((within, start, n, flats))
         for off, k, mine, i in self.pieces(layout):
             name, covered = layout[i][0], 0
+            mine += self.leaf_base.get(name, 0)
             for within, start, n, flats in saved.get(name, ()):
                 a, b = max(mine, within), min(mine + k, within + n)
                 if a >= b:
@@ -256,7 +293,7 @@ class ZeroPartitionPlan:
 
     def assemble(self, gathered):
         """The flat layout from every rank's shard, ``gathered`` rank after
-        rank (``world_size × shard_numel`` elements)."""
+        rank (``world_size × shard_numel`` elements; no expert units)."""
         if not self.sharded:
             return gathered
         per_rank = gathered.view(self.world_size, self.shard_numel)
@@ -333,7 +370,8 @@ class ZeroPartitionPlan:
             return {"allgather_fn": self.n_units,
                     "reduce_scatter_fn": gas * self.n_units}
         if self.stage == 1:
-            return {"allgather_fn": 1, "reduce_scatter_fn": 1}
+            return {"allgather_fn": self.n_units,
+                    "reduce_scatter_fn": self.n_units}
         return {}
 
     def describe(self, param_bytes=2, state_buffers=2, grad_bytes=4,
@@ -369,6 +407,9 @@ class ZeroPartitionPlan:
                "param_axes": ((["zp"] if self.hpz else state_axes)
                               if self.stage >= 3 else []),
                "param_world": self.param_world, "mics": self.mics,
+               "expert_axes": (["dp"] if self.experts_split else None),
+               "expert_world": (self.expert_world if self.experts_split
+                                else None),
                "zero_mode": getattr(co, "zero_mode", None) or "gspmd",
                "grad_wire": list(self.grad_wire()),
                "param_wire": list(self.param_wire()),

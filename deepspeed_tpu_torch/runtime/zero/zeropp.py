@@ -25,6 +25,9 @@ ZeRO++ is a choice of wire and group for each of its collectives,
 * **MiCS**: all state sharded over the ``zp`` shard group; each gradient
   reduce-scatter over it is followed by an all-reduce over ``zp_outer``.
 
+An expert unit of the plan (ep > 1) takes the expert-data group in place
+of the shard group and of the parameter group (``expert_group``).
+
 Every wire goes through the plan's ``wire_for_size`` ladder.  The
 collectives run through the facade's ``allgather_fn``/``reduce_scatter_fn``
 with this engine's :class:`~...comm.collectives.CollectivesEngine`, which
@@ -111,6 +114,16 @@ class ZeroComm:
                         outer_size=h.outer_size, inner_size=h.inner_size)
         self.plan = None
         self.param_engine = self.grad_engine = None
+        # the expert units' group (the engine sets it at ep > 1)
+        self.expert_group = None
+
+    def _group(self, u, default):
+        """The group of unit ``u``'s collectives: the expert-data group for
+        an expert unit, else ``default``."""
+        if u is not None and self.plan is not None and \
+                self.plan.unit_expert[u]:
+            return self.expert_group
+        return default
 
     def bind(self, plan):
         """The plan whose wires and slices the collectives use."""
@@ -154,18 +167,20 @@ class ZeroComm:
         return None
 
     # ---------------------------------------------------------- gradients
-    def reduce_scatter(self, out, full, async_op=False):
-        """The SUM of every rank's ``full`` gradient, this rank's slice into
-        ``out``: over the shard group on the quantized wire (qgZ) or flat,
-        then (MiCS) all-reduced over the replica group.  Returns the
-        handle (``async_op``) or ``out``."""
+    def reduce_scatter(self, out, full, async_op=False, u=None):
+        """The SUM of every rank's ``full`` gradient (of unit ``u``, or the
+        whole layout), this rank's slice into ``out``: over the shard group
+        on the quantized wire (qgZ) or flat, then (MiCS) all-reduced over
+        the replica group.  Returns the handle (``async_op``) or
+        ``out``."""
         fmt, engine = None, None
         if self.qgz and self.stage >= 1:
             fmt = self.plan.wire_for_size(
                 self.grad_fmt, full.numel() * full.element_size())
             engine = self.grad_engine
         handle = dist.reduce_scatter_fn(
-            out, full, group=self.shard_group, async_op=async_op,
+            out, full, group=self._group(u, self.shard_group),
+            async_op=async_op,
             engine=engine, wire_format=fmt, hierarchy=self.hierarchy)
         if self.replica_group is None:
             return handle
@@ -188,7 +203,8 @@ class ZeroComm:
                                      buf.numel() * buf.element_size())
             engine = self.param_engine
         if not (plan.hpz and plan.hpz_outer > 1):
-            return dist.allgather_fn(buf, piece, group=self.param_group,
+            return dist.allgather_fn(buf, piece,
+                                     group=self._group(u, self.param_group),
                                      async_op=async_op, engine=engine,
                                      wire_format=fmt)
         scratch = torch.empty(buf.numel(), dtype=buf.dtype,
@@ -201,9 +217,11 @@ class ZeroComm:
                          plan.slice_numel[u])))
         return handle if async_op else handle.wait()
 
-    def gather_shard(self, out, shard, async_op=False):
-        """Flat gather of ``shard`` over the shard group into ``out``."""
-        return dist.allgather_fn(out, shard, group=self.shard_group,
+    def gather_shard(self, out, shard, async_op=False, u=None):
+        """Flat gather of ``shard`` (of unit ``u``, or the whole layout)
+        over the shard group into ``out``."""
+        return dist.allgather_fn(out, shard,
+                                 group=self._group(u, self.shard_group),
                                  async_op=async_op)
 
     def refresh_secondary(self, secondary, primary):

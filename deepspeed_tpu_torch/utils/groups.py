@@ -6,9 +6,14 @@ same axes are sizes over the ``torch.distributed`` world, in the same
 order, most-major first: rank r's coordinates are those of the r-th
 device of JAX's mesh (``rank = (((pp·DP + dp)·EP + ep)·SP + sp)·TP +
 tp``).  A group is a torch process group with the axis names it spans:
-the ranks that differ from this one only along those axes.  pp, dp and sp
-are ported; tp > 1 raises ROADMAP queue A item 9b and ep > 1 item 8, as
-the config's ``mesh`` keys do (``runtime/config.py``).
+the ranks that differ from this one only along those axes.  pp, dp, ep
+and sp are ported; tp > 1 raises ROADMAP queue A item 9b, as the config's
+``mesh`` key does (``runtime/config.py``), and ep > 1 with pp or sp > 1
+item 8b.  ``ep`` factors the data-parallel degree dp into (dp/ep, ep), as
+JAX's mesh does (``groups.py:148-158``): the data-parallel rank is
+``dp_coord · ep + ep_coord``; the ``ep`` group holds the ranks whose
+experts differ, the ``dp`` group (the expert-data group) the ranks that
+hold the same experts.
 
 ``torch.distributed.new_group`` is collective: every rank makes every
 subgroup once, in the same order, here, at mesh init (the pipeline's, the
@@ -181,15 +186,17 @@ def axis_rank_lists(axes):
             for vals in product(*(range(shape[a]) for a in others))]
 
 
-# the groups every mesh holds (``_get_*_group`` below)
+# the groups every mesh holds (``_get_*_group`` below); the ep and
+# expert-data groups at ep > 1
 _GROUP_AXES = ((PP_AXIS, ), (DP_AXIS, EP_AXIS), (SP_AXIS, ),
                (DP_AXIS, EP_AXIS, SP_AXIS))
+_EP_GROUP_AXES = ((EP_AXIS, ), (DP_AXIS, ))
 
 
-def _make_groups(shape, rank):
+def _make_groups(shape, rank, group_axes=_GROUP_AXES):
     """{axes: ProcessGroup holding ``rank``} for every axes tuple of
-    :data:`_GROUP_AXES`; every group of every such tuple is made, once,
-    in one order on every rank (``new_group`` is collective)."""
+    ``group_axes``; every group of every such tuple is made, once, in one
+    order on every rank (``new_group`` is collective)."""
     import torch.distributed as tdist
     from ..comm.backend import ProcessGroup
     world = 1
@@ -197,7 +204,7 @@ def _make_groups(shape, rank):
         world *= shape[a]
     made = {}
     out = {}
-    for axes in _GROUP_AXES:
+    for axes in group_axes:
         others = [a for a in AXES if a not in axes]
         mine = None
         for vals in product(*(range(shape[a]) for a in others)):
@@ -222,9 +229,11 @@ def _make_groups(shape, rank):
 def initialize_mesh(dp=None, pp=1, sp=1, tp=1, ep=1, devices=None,
                     zero_partition_size=None, user_built=True):
     """The mesh over the world (``groups.py:initialize_mesh``):
-    ``dp=None`` takes the ranks pp × sp leave.  tp and ep must be 1.
-    Every rank calls this together: it makes the subgroups (and, with
-    ``zero_partition_size`` > 1, the ``zp``/``zp_outer`` ones)."""
+    ``dp=None`` takes the ranks pp × sp leave; ``ep`` must divide it
+    (the mesh is (pp, dp/ep, ep, sp, tp)).  tp must be 1.  Every rank
+    calls this together: it makes the subgroups (with ep > 1 the ep and
+    expert-data groups; with ``zero_partition_size`` > 1, the
+    ``zp``/``zp_outer`` ones)."""
     global _mesh_state
     from ..comm import comm
     if devices is not None:
@@ -232,9 +241,9 @@ def initialize_mesh(dp=None, pp=1, sp=1, tp=1, ep=1, devices=None,
                          "device subset)", "9b")
     if tp not in (None, 1):
         raise not_ported(f"tensor parallelism (tp={tp})", "9b")
-    if ep not in (None, 1):
-        raise not_ported(f"expert parallelism (ep={ep})", 8)
-    pp, sp = int(pp or 1), int(sp or 1)
+    pp, sp, ep = int(pp or 1), int(sp or 1), int(ep or 1)
+    if ep < 1:
+        raise ValueError(f"expert parallel size ep={ep} must be >= 1")
     total = _world_size()
     if dp is None:
         if total % (pp * sp):
@@ -244,23 +253,36 @@ def initialize_mesh(dp=None, pp=1, sp=1, tp=1, ep=1, devices=None,
     if pp * dp * sp != total:
         raise ValueError(f"pp({pp}) * dp({dp}) * sp({sp}) * tp(1) = "
                          f"{pp * dp * sp} != world size {total}")
+    if dp % ep != 0:
+        raise ValueError(
+            f"expert parallel size (ep_size) ep={ep} must divide the "
+            f"data-parallel world size dp={dp} — the mesh factors dp into "
+            f"(dp/ep, ep) = ({dp}/{ep}, {ep}); pick ep from the divisors "
+            "of dp")
+    if ep > 1 and pp * sp > 1:
+        raise not_ported(f"expert parallelism (ep={ep}) with pp or sp > 1",
+                         "8b")
     zp = zero_partition_size if zero_partition_size and \
         zero_partition_size > 1 else None
     if zp is not None and dp % zp != 0:
         raise ValueError(
             f"zero_partition_size={zp} must divide dp={dp}")
+    if zp is not None and ep > 1:
+        raise not_ported("hpZ / MiCS shard groups with ep > 1", "8b")
     if zp is not None and pp * sp > 1:
         raise not_ported("hpZ / MiCS shard groups with pp or sp > 1", "9b")
-    mesh = Mesh(pp=pp, dp=dp, ep=1, sp=sp, tp=1)
+    mesh = Mesh(pp=pp, dp=dp // ep, ep=ep, sp=sp, tp=1)
     rank = comm.get_rank() if total > 1 else 0
     coord, r = {}, rank
     for a in reversed(AXES):
         coord[a] = r % mesh.shape[a]
         r //= mesh.shape[a]
-    state = MeshState(mesh=mesh, pp=pp, dp=dp, sp=sp, tp=1, ep=1,
+    state = MeshState(mesh=mesh, pp=pp, dp=dp, sp=sp, tp=1, ep=ep,
                       zero_partition_size=zp, user_built=user_built,
                       coord=coord)
     state.groups = (_make_groups(mesh.shape, rank) if pp * sp > 1 else {})
+    if ep > 1:
+        state.groups.update(_make_groups(mesh.shape, rank, _EP_GROUP_AXES))
     if zp is not None:
         factor_groups(zp, state)
     _mesh_state = state
@@ -320,6 +342,25 @@ def _get_data_parallel_group():
 
 def _get_sequence_parallel_group():
     return _pg((SP_AXIS, ))
+
+
+def _get_expert_parallel_group():
+    """The ranks that hold the other experts (the ``ep`` axis)."""
+    return _pg((EP_AXIS, ))
+
+
+def _get_expert_data_parallel_group():
+    """The ranks that hold this rank's experts (the mesh's ``dp`` axis,
+    dp/ep ranks): expert leaves' gradients sum over it."""
+    return _pg((DP_AXIS, ))
+
+
+def _get_expert_parallel_world_size():
+    return get_mesh_state().ep
+
+
+def _get_expert_parallel_rank():
+    return _coord(EP_AXIS)
 
 
 def _get_sequence_data_parallel_group():

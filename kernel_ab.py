@@ -26,6 +26,13 @@ kernels (into the tree's own build directory, all sources at once), then:
   and ``quantize_param_tree`` over its bf16 tree in FP6 and FP12 (wall
   time, and the device time of their kernels under ``torch.profiler``).
 
+It also reads the SASS of B7's forward ``wgmma``/TMA kernels out of each
+tree's built library (``cuobjdump -sass`` and ``-res-usage``, beside
+nvcc): per instantiation its registers, its instruction count and a
+hash of its instructions with addresses and the symbol's own name taken
+out, so two trees' builds of one kernel compare instruction for
+instruction.
+
 It writes one JSON file a run and prints, per kernel case, each run's ms
 and whether every run's output hashes agree.  Runs alternate (parent,
 change, change, parent) so that a drift of the card's clock shows as a
@@ -36,6 +43,7 @@ import argparse
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -87,6 +95,58 @@ def _hashes(torch):
     for key, t in dict(o=o, lse=lse, dq=dq, delta=delta, dk=dk, dv=dv,
                        dbias=dbias).items():
         out[f"b10_msa_row_bf16.{key}"] = _digest(t)
+    return out
+
+
+_GMM_FWD = re.compile(r"gmm_tma_kernelI(13__nv_bfloat16|6__half)Li(\d)E"
+                      r"(?:Lb0E)?E")
+
+
+def _gmm_forward_sass():
+    """{"<dtype>/nc<NC>": {registers, instructions, sha}} of B7's forward
+    wgmma/TMA kernels in this tree's built library."""
+    from deepspeed_tpu_torch.ops.op_builder import (GroupedMatmulBuilder,
+                                                    find_nvcc)
+    tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    lib = GroupedMatmulBuilder().lib_path()
+
+    def key_of(line):
+        m = re.search(r"Function\s*:?\s*(\S+)", line)
+        if not m:
+            return False
+        m = _GMM_FWD.search(m.group(1))
+        return m and (("bf16" if "bfloat16" in m.group(1) else "fp16") +
+                      f"/nc{m.group(2)}")
+
+    out, key = {}, None
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, timeout=300).stdout
+    for line in sass.splitlines():
+        k = key_of(line)
+        if k is not False:
+            key = k or None
+            if key:
+                out[key] = dict(instructions=0, text=[])
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;", line)
+        if key and m:
+            out[key]["instructions"] += 1
+            out[key]["text"].append(re.sub(r"0x[0-9a-f]+", "#", m.group(1)))
+    for v in out.values():
+        v["sha"] = hashlib.sha256("\n".join(v.pop("text")).encode()) \
+            .hexdigest()[:16]
+    usage = subprocess.run([tool, "-res-usage", lib], capture_output=True,
+                           text=True, timeout=300).stdout
+    key = None
+    for line in usage.splitlines():
+        k = key_of(line)
+        if k is not False:
+            key = k or None
+            continue
+        m = re.search(r"REG:(\d+)", line)
+        if key in out and m:
+            out[key]["registers"] = int(m.group(1))
+            key = None
     return out
 
 
@@ -219,7 +279,8 @@ def run_one(tree, stages, out_path):
     from deepspeed_tpu_torch.ops.op_builder import build_all
     build_all()
     res = dict(tree=os.path.abspath(tree), card=c.stage_environment(),
-               hashes=_hashes(torch), times={})
+               hashes=_hashes(torch), times={},
+               gmm_forward_sass=_gmm_forward_sass())
     for st in stages:
         if st == "trees":
             result = _trees(c, torch)
@@ -276,6 +337,13 @@ def main():
         print(f"{key} | " + " | ".join(
             f"{r['times'][key]:.4f}" if key in r["times"] else "-"
             for _, r in runs))
+    for key in sorted(runs[0][1]["gmm_forward_sass"]):
+        print(f"B7 forward {key} SASS (registers, instructions, sha) | "
+              + " | ".join(
+                  "{registers}, {instructions}, {sha}".format(
+                      **r["gmm_forward_sass"].get(key, dict(
+                          registers="-", instructions="-", sha="-")))
+                  for _, r in runs))
     bad = [k for k in runs[0][1]["hashes"]
            if len({r["hashes"].get(k) for _, r in runs}) != 1]
     print(f"output hashes ({len(runs[0][1]['hashes'])} tensors of B1 and "

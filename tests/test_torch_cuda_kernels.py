@@ -37,7 +37,10 @@ of each rounded product (lr·ratio, and its product with u) and of the
 result.  Grouped matmul: fp32 1e-4 + 1e-5·|ref| (fp32 FMA in another
 order); bf16 2^-7·|ref| and fp16 2^-10·|ref|, each plus 1e-4 (both sides
 sum in fp32 and round once), on every route (wgmma + TMA at 128 and 64
-rows a tile, mma.sync), bit-equal over two runs.  Quantize and dequantize: bit for bit (the
+rows a tile, mma.sync), bit-equal over two runs; its backward (dx on
+wgmma + TMA or the CUDA cores, dw on mma.sync or the CUDA cores) one ulp
+of |ref| in the type plus 2^-10 of the product's rms (both sum the same
+products in fp32 in other orders), bit-equal over two runs.  Quantize and dequantize: bit for bit (the
 same fp32 operations, a true division and round half to even).  Flash
 bias: o, dq, dk, dv as flash attention's (its bf16/fp16 kernels are on
 the tensor cores with the same hi + lo design, held also with dO × 2^-12
@@ -674,6 +677,72 @@ def test_gmm_rows_past_the_groups_are_zero(card):
     assert torch.equal(y[7:], torch.zeros_like(y[7:]))
     with pytest.raises(TypeError, match="int32"):
         gm.gmm(x, w, torch.tensor([3, 4], device=card))
+
+
+# ------------------------------------------------------ B7's backward
+def _bwd_tol(dtype, ref):
+    """One ulp of |ref| in the type (fp32: 1e-5·|ref|), plus 2^-10 of the
+    product's rms: both sum the same products in fp32 in other orders."""
+    rtol = {torch.float32: 1e-5, torch.bfloat16: 2.0**-7,
+            torch.float16: 2.0**-10}[dtype]
+    return rtol * ref.abs() + 2.0**-10 * ref.square().mean().sqrt()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16],
+                         ids=["fp32", "bf16", "fp16"])
+@pytest.mark.parametrize("case", sorted(TMA_CASES))
+def test_gmm_backward_kernels_match_plain(card, case, dtype):
+    """dx on every route its dtype has (wgmma + TMA at 128 and 64 rows a
+    tile, the CUDA cores) and dw (mma.sync for 16-bit, the CUDA cores)
+    against their plain versions; reruns bit-equal; dx's rows past the
+    groups and an empty expert's dw are zeros."""
+    sizes, K, N, extra = TMA_CASES[case]
+    x, w, gs = _gmm_inputs(card, dtype, sizes, K, N, extra)
+    dy = torch.randn(x.shape[0], N, generator=torch.Generator().manual_seed(
+        3)).to(card, dtype)
+    want_dx = gm.gmm_dx_plain(dy, w, gs).float()
+    want_dw = gm.gmm_dw_plain(x, dy, gs).float()
+    for kind, routes, fn, args, want in (
+            ("dx", gm.BWD_ROUTES["dx"], gm.gmm_dx, (dy, w, gs), want_dx),
+            ("dw", gm.BWD_ROUTES["dw"], gm.gmm_dw, (x, dy, gs), want_dw)):
+        for route in routes:
+            if dtype == torch.float32 and route != "simt":
+                continue
+            got, again = fn(*args, route=route), fn(*args, route=route)
+            torch.cuda.synchronize()
+            over = (got.float() - want).abs() / _bwd_tol(dtype, want)
+            assert over.max().item() <= 1.0, (kind, route, over.max())
+            assert torch.equal(got, again), (kind, route)
+    assert not gm.gmm_dx(dy, w, gs)[sum(sizes):].any()
+    dw = gm.gmm_dw(x, dy, gs)
+    for e, n in enumerate(sizes):
+        if n == 0:
+            assert not dw[e].any()
+
+
+@pytest.mark.cuda
+def test_gmm_autograd_launches_the_backward_kernels(card):
+    """Through ``gmm`` under autograd: one dx and one dw launch a
+    backward, on :func:`gmm_bwd_route`'s routes, and the gradients are
+    the kernels' own; with x detached only dw launches."""
+    x, w, gs = _gmm_inputs(card, torch.bfloat16, [300, 0, 212], 128, 256, 0)
+    x.requires_grad_(True)
+    w.requires_grad_(True)
+    dy = torch.randn(x.shape[0], 256, device=card, dtype=torch.bfloat16)
+    before = (gm.gmm_dx.launches, gm.gmm_dw.launches,
+              dict(gm.gmm_dx.route_launches))
+    gx, gw = torch.autograd.grad(gm.gmm(x, w, gs), (x, w), dy)
+    assert (gm.gmm_dx.launches, gm.gmm_dw.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert gm.gmm_dx.route_launches["wgmma_tma"] == \
+        before[2]["wgmma_tma"] + 1
+    assert torch.equal(gx, gm.gmm_dx(dy, w.detach(), gs))
+    assert torch.equal(gw, gm.gmm_dw(x.detach(), dy, gs))
+    n = gm.gmm_dx.launches
+    torch.autograd.grad(gm.gmm(x.detach(), w, gs), (w, ), dy)
+    assert gm.gmm_dx.launches == n
 
 
 # ------------------------------------------------------------ B5 quantizer

@@ -383,8 +383,9 @@ def test_batch_trinity_matches_jax(i):
 REFUSED = [
     ({"optimizer": {"type": "muon"}}, 11),
     ({"mesh": {"tp": 2}}, "9b"),
-    ({"mesh": {"ep": 2}}, 8),
-    ({"moe": {"enabled": True}}, 8),
+    ({"mesh": {"ep": 2, "sp": 2}}, "8b"),
+    ({"moe": {"enabled": True, "quantized_dispatch": True,
+              "intra_node_size": 2}}, "8b"),
     ({"domino": {"enabled": True}}, "9b"),
     ({"activation_checkpointing": {"partition_activations": True}}, "9b"),
     ({"optimizer": {"type": "adagrad"}}, 11),

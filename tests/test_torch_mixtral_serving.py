@@ -452,9 +452,11 @@ def test_mixtral_refusals():
     with pytest.raises(NotImplementedError, match="S5"):
         port_mixtral.MixtralModel(port_mixtral.MixtralConfig(
             **{**cfg.__dict__, "shared_expert_intermediate_size": 32}))
-    model = port_mixtral.MixtralModel(cfg)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        model(torch.zeros(1, 4, dtype=torch.long))
+    model = port_mixtral.MixtralModel(port_mixtral.MixtralConfig(
+        **{**cfg.__dict__, "loss_chunk_vocab": 64}))
+    ids = torch.zeros(1, 4, dtype=torch.long)
+    with pytest.raises(NotImplementedError, match="item 3"):
+        model(ids, ids)
     state = port_mixtral.params_from_flax(
         _flax_tree(jax_mixtral.mixtral_tiny(dtype="float32"), 0), cfg)
     stack = state.pop("model.layers.0.block_sparse_moe.w1")

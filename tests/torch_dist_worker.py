@@ -15,7 +15,7 @@ Leg kinds:
   inputs), every result as numpy (the ``async_*`` ops run with
   ``async_op=True`` and check the result against the synchronous call);
 * ``comm_log``: async collectives with the comms logger on, and its counts;
-* ``train``: a model trained through ``deepspeed_tpu_torch.initialize()``
+* ``train``: a model (``moe``: the MoE twin) trained through ``deepspeed_tpu_torch.initialize()``
   on this rank's rows of each global batch (``engine.shard_batch``); the
   losses, scales, skips and gradient norms, the whole fp32 master and the
   comm counts (and, at ZeRO 3, the coordinator's peak of gathered
@@ -52,6 +52,12 @@ Leg kinds:
   row of each of the leg's arrays, its error buffers fed back from one
   call to the next: each call's mean and both error buffers (and the same
   through ``compressed_allreduce_many`` and ``CompressedBackend``);
+* ``moe_local``: one micro-step of the MoE twin (:func:`moe_twin`) at
+  ZeRO 0: each expert leaf's unreduced gradient on this rank;
+* ``moe_shards``: the MoE twin at the leg's ZeRO stage, one step: where
+  this rank's master holds each expert leaf (the pieces in the whole
+  stack, and their values), its coordinates, the plan's groups and the
+  whole master;
 * ``stream``: ZeRO-Infinity parameter streaming (``InfinityEngine``) from
   the leg's flax tree, or from the tag at ``load`` (the universal
   directory at ``universal``): each batch's loss, then the whole fp32
@@ -375,6 +381,8 @@ def _model(kind, cfg_kw, tree, mean_only=False):
     so the engine can only average the ranks' means."""
     if kind in ("mlp", "smoke"):
         return _mlp(tree, kind)
+    if kind == "moe":
+        return moe_twin(tree)
     from deepspeed_tpu_torch.models import bert, gpt2, llama
     mod = {"llama": llama, "gpt2": gpt2, "bert": bert}[kind]
     make = {"llama": "llama_tiny", "gpt2": "gpt2_tiny", "bert": "bert_tiny"}
@@ -391,6 +399,48 @@ def _model(kind, cfg_kw, tree, mean_only=False):
         cls = MeanOnly
     model = cls(cfg, device="meta")
     return model, mod.params_from_flax(tree, cfg, dtype="float32")
+
+
+def moe_twin(tree):
+    """The port's twin of the JAX MoE tests' model
+    (``tests/unit/moe/test_moe_engine.py:MoEModel``): in_proj, a residual
+    ``MoE`` (4 experts, top-1, capacity factor 2), out_proj; MSE plus 0.01 ×
+    the aux loss.  Its parameters carry flax's paths joined by dots.
+    Returns (model, {name: fp32 tensor}) from the flax tree."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.moe import MoE
+    from deepspeed_tpu_torch.moe.experts import Dense
+
+    hidden = np.asarray(tree["in_proj"]["kernel"]).shape[1]
+    experts = np.asarray(tree["moe"]["gate"]["kernel"]).shape[1]
+
+    class MoEModel(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.in_proj = Dense(hidden, hidden)
+            self.moe = MoE(hidden, num_experts=experts, k=1,
+                           capacity_factor=2.0)
+            self.out_proj = Dense(hidden, hidden)
+
+        def forward(self, x, y):
+            h = self.in_proj(x)
+            moe_out, l_aux, _ = self.moe(h)
+            out = self.out_proj(h + moe_out)
+            return torch.mean((out - y) ** 2) + 0.01 * l_aux
+
+    named = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, prefix + k + ".")
+            else:
+                named[prefix + k] = torch.from_numpy(
+                    np.array(v, dtype=np.float32))
+
+    walk(tree, "")
+    return MoEModel(), named
 
 
 def run_train(leg, rank, world):
@@ -426,7 +476,8 @@ def run_train(leg, rank, world):
             offloaded = engine.state_placement()
     placement = engine.state_placement()
     counts = dist.comms_logger.counts()
-    master = engine.fp32_params()[:engine.zero_plan.numel].clone()
+    layout, numel = engine.global_layout()
+    master = engine.fp32_params()[:numel].clone()
     plan = engine.zero_plan
     coord = engine._coord
     live = {}
@@ -440,7 +491,7 @@ def run_train(leg, rank, world):
                 dispatch=engine.zeropp_dispatch_counts(),
                 param_numel=int(engine.params.numel()),
                 params=engine.gathered_params().float().numpy(),
-                names=[(n, o, k, s) for n, o, k, s in engine._layout],
+                names=[(n, o, k, s) for n, o, k, s in layout],
                 counts=counts, plan=plan.describe(),
                 per_step=plan.collectives_per_step(
                     engine.gradient_accumulation_steps()),
@@ -458,13 +509,10 @@ def gathered_state(engine):
 
     def leaves(flat):
         return {n: flat[o:o + k].reshape(s).numpy().copy()
-                for n, o, k, s in engine._layout}
+                for n, o, k, s in engine.global_layout()[0]}
 
     def whole(t):
-        if t is None:
-            return None
-        return leaves(engine._gather_shard(t) if engine.zero_plan.sharded
-                      else t)
+        return None if t is None else leaves(engine._whole(t))
 
     return dict(master=leaves(engine.fp32_params().float()),
                 exp_avg=whole(opt.exp_avg),
@@ -511,6 +559,54 @@ def run_ckpt(leg, rank, world):
             loaded=loaded, losses=train(eng, leg["batches"][k:]),
             final=gathered_state(eng))
     return out
+
+
+def run_moe_local(leg, rank, world):
+    """One micro-step of the MoE twin at ZeRO 0 (whose accumulator holds
+    this rank's own, unreduced gradient until the step): the expert
+    leaves' gradient, by name, and the rank's ep coordinate."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.moe.utils import is_moe_param
+    from deepspeed_tpu_torch.utils import groups
+    model, start = moe_twin(leg["tree"])
+    engine = deepspeed_tpu_torch.initialize(
+        model=model, model_parameters=start, config=dict(leg["config"]),
+        device="cpu")[0]
+    x, y = leg["batch"]
+    engine.backward(engine(*engine.shard_batch(x, y)))
+    grads = {n: engine.grad_acc[o:o + k].reshape(s).float().numpy().copy()
+             for n, o, k, s in engine._layout if is_moe_param(n)}
+    return dict(grads=grads, ep_rank=groups._get_expert_parallel_rank(),
+                ep=groups._get_expert_parallel_world_size())
+
+
+def run_moe_shards(leg, rank, world):
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.utils import groups
+    model, start = moe_twin(leg["tree"])
+    engine = deepspeed_tpu_torch.initialize(
+        model=model, model_parameters=start, config=dict(leg["config"]),
+        device="cpu")[0]
+    x, y = leg["batch"]
+    engine.backward(engine(*engine.shard_batch(x, y)))
+    engine.step()
+    plan = engine.zero_plan
+    target = engine._target()
+    pieces = {name: (within, target[off:off + k].numpy().copy())
+              for name, (k, off, within) in
+              plan.fragment_map(engine._layout, dense=False).items()}
+    layout, numel = engine.global_layout()
+    master = engine.fp32_params()
+    return dict(
+        pieces=pieces, ep_rank=groups._get_expert_parallel_rank(),
+        ep=groups._get_expert_parallel_world_size(),
+        expert_rank=plan.expert_rank, expert_world=plan.expert_world,
+        world=plan.world_size, shard_numel=plan.shard_numel,
+        unit_expert=list(plan.unit_expert),
+        slice_numel=list(plan.slice_numel),
+        local_shapes={n: s for n, _, _, s in engine._layout},
+        master={n: master[o:o + k].reshape(s).numpy().copy()
+                for n, o, k, s in layout})
 
 
 def pipe_twins():
@@ -803,7 +899,9 @@ def main():
               "train": run_train, "ckpt": run_ckpt, "coll": run_coll,
               "refuse": run_refuse, "pipe": run_pipe,
               "ulysses": run_ulysses, "ring": run_ring,
-              "codec": run_codec, "stream": run_stream}[leg["kind"]]
+              "codec": run_codec, "stream": run_stream,
+              "moe_local": run_moe_local,
+              "moe_shards": run_moe_shards}[leg["kind"]]
         out = fn(leg, rank, world)
         with open(os.path.join(out_dir, f"{leg['name']}.r{rank}.pkl"),
                   "wb") as f:

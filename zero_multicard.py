@@ -11,6 +11,8 @@
                               [--device cpu]
     python3 zero_multicard.py --onebit [--world N] [--json PATH]
                               [--device cpu]
+    python3 zero_multicard.py --moe [--world 4] [--json PATH]
+                              [--device cpu]
 
 BASELINE config 2 (``--model gpt2``: GPT-2 350M, fp16 from a scale of
 2^16, remat, ``fusedadam``, 8 rows of 1024 tokens a rank) or config 3
@@ -124,6 +126,24 @@ weights and batches: step ms in the warmup and in the compressed phase,
 the message bytes a step by op (comms logger) and what a ring sends a rank
 (the 1-bit exchange's formula against the fp32 all-reduce's), and the
 final-loss gap.  It fails when a loss is not finite or the ranks disagree.
+
+``--moe`` (four ranks) runs what exists only across cards for MoE
+training.  (i) The MoE layer in the MoE tests' model
+(``tests/unit/moe/test_moe.py:53``: in_proj, MoE, out_proj) at hidden
+4096, 8 ``ExpertFFN`` experts of 4 × 4096, top-2, capacity factor 1.25,
+bf16, ZeRO 2, ``fusedadam``, 8192 tokens a rank of one global batch, 1
+warm-up and ``--steps`` timed steps: dp 4 × ep 1, ep 4, dp 2 × ep 2, and
+ep 4 with the int8 ``quantized_dispatch``; rank 0 prints each run's
+losses and their largest relative difference from dp 4 × ep 1 (gate 2^-7;
+1e-2 for the int8 run, ``tools/moe_smoke.py``'s), step ms, the exchange's
+bytes on the wire a forward and its ms timed alone, and each rank's peak.
+(ii) Mixtral-8x7B width (hidden 4096, FFN 14336, 32/8 heads, 8 experts,
+top-2, vocab 32000) at 6 of 32 layers (8 would not fit a card: PERF.md
+§4's estimate), ZeRO 3 with ``overlap_comm``, bf16, remat, ``fusedadam``,
+4 rows of 2048 a rank: step ms, tokens/s, MFU on the active parameters
+(6·N_active + 12·L·S·D a token, N_active = N − L·(E − k)·3·D·I), each
+rank's peak.  It fails when a loss is not finite, the ranks disagree, or
+a run leaves its gate.
 """
 
 import argparse
@@ -1350,6 +1370,299 @@ def _onebit_main(args, world, smi, out):
     return 0
 
 
+# ------------------------------------------------------------------ --moe
+MOE_HIDDEN, MOE_EXPERTS, MOE_K, MOE_CF = 4096, 8, 2, 1.25
+MOE_TOKENS = 8192          # a rank's rows a step
+MOE_RUNS = (("dp4", 1, None), ("ep4", 4, None), ("dp2ep2", 2, None),
+            ("ep4_int8", 4, "int8"))
+MIXTRAL_LAYERS = 6         # of 32: the estimate in PERF.md §4 (8 would not
+                           # leave room for a gathered layer's gradients)
+
+
+def moe_layer_model(torch, D, seed, device="cuda", dtype="bfloat16"):
+    """The MoE tests' model (``tests/unit/moe/test_moe.py:53``: in_proj,
+    a residual ``MoE``, out_proj; MSE plus 0.01 × the aux loss) at hidden
+    ``D``: 8 ``ExpertFFN`` experts of 4·D, top-2, capacity factor 1.25,
+    computing in ``dtype``.  Returns (model, fp32 weights from ``seed``:
+    kernels normal / sqrt(fan in), biases zero)."""
+    from deepspeed_tpu_torch.moe import MoE
+    from deepspeed_tpu_torch.moe.experts import Dense
+
+    class MoEModel(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.in_proj = Dense(D, D, dtype=dtype, device="meta")
+            self.moe = MoE(D, num_experts=MOE_EXPERTS, k=MOE_K,
+                           capacity_factor=MOE_CF, dtype=dtype,
+                           device="meta")
+            self.out_proj = Dense(D, D, dtype=dtype, device="meta")
+
+        def forward(self, x, y):
+            h = self.in_proj(x)
+            moe_out, l_aux, _ = self.moe(h)
+            out = self.out_proj(h + moe_out)
+            return torch.mean((out.float() - y) ** 2) + 0.01 * l_aux
+
+    model = MoEModel()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    start = {}
+    for name, p in model.named_parameters():
+        t = torch.zeros(p.shape, dtype=torch.float32, device=device)
+        if p.dim() >= 2:
+            t.normal_(0.0, p.shape[-2] ** -0.5, generator=gen)
+        start[name] = t
+    return model, start
+
+
+def _exchange_bytes(E, C, D, dtype_bytes, ep):
+    """(bytes of one dispatch or return exchange as they go on the wire:
+    the [E, C, D] buffer at its own element size on the flat rung, the
+    codes and scales on a quantized one; 0 at ep 1, where nothing is
+    exchanged), (JAX ``expert_dispatch_wire_bytes``'s figure, 4 bytes an
+    element on the flat rung)."""
+    from deepspeed_tpu_torch.comm.collectives import quantized as Q
+    from deepspeed_tpu_torch.moe import engine as moe_engine
+    wire, gs, jax_formula = moe_engine.exchange_plan(E, C, D)
+    if ep <= 1:
+        return 0, jax_formula
+    n = E * C * D
+    moved = n * dtype_bytes if wire == Q.LADDER_FP else \
+        Q.quantized_wire_bytes(n, wire, gs)
+    return moved, jax_formula
+
+
+def _exchange_ms(torch, E, C, D, dtype, reps=5):
+    """One forward dispatch (reduce-scatter over ep) and return
+    (all-gather) of an [E, C, D] buffer, timed alone with CUDA events."""
+    from deepspeed_tpu_torch.moe import engine as moe_engine
+    ep_group = moe_engine._ep_group()
+    if ep_group is None:
+        return 0.0
+    wire, gs, _ = moe_engine.exchange_plan(E, C, D)
+    buf = torch.randn(E, C, D, device="cuda").to(dtype)
+
+    def once():
+        local = moe_engine._Exchange.apply(buf, ep_group, wire, gs)
+        moe_engine._Collect.apply(local, ep_group, wire, gs)
+
+    once()
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(reps):
+        once()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def run_moe_rank(args):
+    """``--moe``: (i) the MoE layer at ep 1, 4 and 2 (and ep 4 with the
+    int8 dispatch) on the same global batch; (ii) Mixtral-8x7B width at
+    ZeRO 3 (module docstring)."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.moe.utils import is_moe_param
+    from deepspeed_tpu_torch.utils import groups
+    cpu = args.device == "cpu"
+    dev = "cpu" if cpu else "cuda"
+    sync = (lambda: None) if cpu else torch.cuda.synchronize
+    D = 64 if cpu else MOE_HIDDEN
+    T = 64 if cpu else MOE_TOKENS
+    out = dict(layer=[], mixtral=None)
+    for name, ep, wire in MOE_RUNS:
+        model, start = moe_layer_model(torch, D, args.seed, device=dev,
+                                       dtype="float32" if cpu else
+                                       "bfloat16")
+        moe = {"enabled": True}
+        if wire:
+            moe.update(quantized_dispatch=True, wire_dtype=wire)
+        config = {"train_micro_batch_size_per_gpu": T,
+                  "optimizer": ADAM, "zero_optimization": {"stage": 2},
+                  "mesh": {"dp": -1, "ep": ep}, "moe": moe}
+        if not cpu:
+            config["bf16"] = {"enabled": True}
+        engine = deepspeed_tpu_torch.initialize(
+            model=model, model_parameters=start, config=config,
+            device=dev if cpu else None)[0]
+        del start
+        world = engine.dp_world_size
+        rng = np.random.default_rng(args.seed + 1)
+        x = torch.from_numpy(rng.standard_normal((T * world, D)).astype(
+            np.float32))
+        batch = engine.shard_batch(x, torch.tanh(x * 0.5))
+        if not cpu:
+            torch.cuda.reset_peak_memory_stats()
+        losses, times = [], []
+        for _ in range(1 + args.steps):
+            sync()
+            t = time.perf_counter()
+            loss = engine(*batch)
+            engine.backward(loss)
+            engine.step()
+            losses.append(loss.item())
+            sync()
+            times.append(time.perf_counter() - t)
+        C = max(int(T * world * MOE_K * MOE_CF / MOE_EXPERTS), 4)
+        ep_now = groups._get_expert_parallel_world_size()
+        wire_bytes, jax_bytes = _exchange_bytes(
+            MOE_EXPERTS, C, D, 4 if cpu else 2, ep_now)
+        ex_ms = 0.0 if cpu else _exchange_ms(torch, MOE_EXPERTS, C, D,
+                                             torch.bfloat16)
+        peak = 0 if cpu else torch.cuda.max_memory_allocated()
+        mine = torch.tensor(losses + [peak], dtype=torch.float64,
+                            device=dev)
+        every = comm.all_gather(mine, tiled=False).cpu()
+        out["layer"].append(dict(
+            name=name, ep=ep_now, world=world, wire=wire or "flat",
+            losses=losses, step_ms=[t * 1e3 for t in times[1:]],
+            exchange_wire_bytes=wire_bytes,
+            exchange_bytes_jax_formula=jax_bytes, exchange_ms=ex_ms,
+            expert_state_elems=sum(
+                k for _, k, _, i in engine.zero_plan.pieces(engine._layout)
+                if is_moe_param(engine._layout[i][0])),
+            shard_elems=engine.zero_plan.shard_numel,
+            peak_bytes_by_rank=[int(v) for v in every[:, -1].tolist()],
+            rank_losses_equal=bool((every[:, :-1] == every[0, :-1]).all())))
+        del engine, model, batch
+        gc.collect()
+        if not cpu:
+            torch.cuda.empty_cache()
+    out["mixtral"] = _moe_mixtral(args, torch, np, cpu, dev, sync)
+    if comm.get_rank() == 0:
+        with open(args.out_rank0, "w") as f:
+            json.dump(out, f)
+    comm.destroy_process_group()
+
+
+def _moe_mixtral(args, torch, np, cpu, dev, sync):
+    """(ii): Mixtral-8x7B width at ``MIXTRAL_LAYERS`` layers, ZeRO 3 with
+    ``overlap_comm``, bf16, remat, ``fusedadam``, 4 rows of 2048 a rank."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models.mixtral import (MixtralConfig,
+                                                    MixtralModel,
+                                                    mixtral_tiny,
+                                                    param_count)
+    if cpu:
+        cfg, B, S = mixtral_tiny(dtype="float32"), 2, 32
+    else:
+        cfg = MixtralConfig(
+            vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+            num_hidden_layers=MIXTRAL_LAYERS, num_attention_heads=32,
+            num_key_value_heads=8, max_position_embeddings=4096,
+            rope_theta=1e6, num_local_experts=8, num_experts_per_tok=2,
+            dtype="bfloat16", head_dtype="bfloat16", remat=True)
+        B, S = 4, 2048
+    config = {"train_micro_batch_size_per_gpu": B, "optimizer": ADAM,
+              "zero_optimization": dict(ZERO3)}
+    if not cpu:
+        config["bf16"] = {"enabled": True}
+    engine = deepspeed_tpu_torch.initialize(
+        model=MixtralModel(cfg, device="meta"), config=config,
+        device=dev if cpu else None)[0]
+    engine.initialize_parameters(args.seed)
+    world = engine.dp_world_size
+    rng = np.random.default_rng(args.seed + 2)
+    ids = engine.shard_batch(rng.integers(0, cfg.vocab_size,
+                                          size=(B * world, S)))[0]
+    if not cpu:
+        torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(1 + args.steps):
+        sync()
+        t = time.perf_counter()
+        loss = engine(ids, ids)
+        engine.backward(loss)
+        engine.step()
+        losses.append(loss.item())
+        sync()
+        times.append(time.perf_counter() - t)
+    L, D, I, E = (cfg.num_hidden_layers, cfg.hidden_size,
+                  cfg.intermediate_size, cfg.num_local_experts)
+    k = cfg.num_experts_per_tok
+    n_total = param_count(cfg)
+    n_active = n_total - L * (E - k) * 3 * D * I
+    step_s = sum(times[1:]) / len(times[1:])
+    tok_s = B * S * world / step_s
+    flops_tok = 6 * n_active + 12 * L * S * D
+    peak = 0 if cpu else torch.cuda.max_memory_allocated()
+    every = comm.all_gather(torch.tensor(losses + [peak],
+                                         dtype=torch.float64, device=dev),
+                            tiled=False).cpu()
+    row = dict(layers=L, world=world, n_params=n_total, n_active=n_active,
+               losses=losses, step_ms=[t * 1e3 for t in times[1:]],
+               step_ms_mean=step_s * 1e3, tokens_per_s=tok_s,
+               mfu_active=tok_s * flops_tok / world / PEAK_FLOPS,
+               flops_per_token=flops_tok,
+               peak_bytes_by_rank=[int(v) for v in every[:, -1].tolist()],
+               rank_losses_equal=bool((every[:, :-1] ==
+                                       every[0, :-1]).all()))
+    del engine
+    gc.collect()
+    return row
+
+
+def _moe_main(args, world, smi, out):
+    rcs = _spawn(world, sys.argv[1:] + ["--out-rank0", out])
+    if any(rcs):
+        print(f"zero_multicard: ranks exited {rcs}", file=sys.stderr)
+        return 1
+    with open(out) as f:
+        res = json.load(f)
+    os.remove(out)
+    runs = {r["name"]: r for r in res["layer"]}
+    base = runs["dp4"]["losses"]
+    ok = True
+    for r in res["layer"]:
+        diff = max(abs(a - b) / abs(b) for a, b in zip(r["losses"], base))
+        r["max_rel_loss_diff_vs_dp4"] = diff
+        gate = 1e-2 if r["wire"] != "flat" else 2.0**-7
+        ok &= (r["rank_losses_equal"] and diff <= gate and
+               all(map(math.isfinite, r["losses"])))
+        ms = r["step_ms"]
+        print(f"[moe] MoE layer (hidden {MOE_HIDDEN}, {MOE_EXPERTS} experts "
+              f"of 4×{MOE_HIDDEN}, top-{MOE_K}, cf {MOE_CF}, bf16, "
+              f"{MOE_TOKENS} tokens a rank, ZeRO 2) {r['name']}: ep "
+              f"{r['ep']} of world {r['world']}, wire {r['wire']} | losses "
+              + ", ".join(f"{x:.5f}" for x in r["losses"])
+              + f" | largest relative loss difference from dp 4 × ep 1 "
+              f"{diff:.3e} (gate {gate:g}) | step ms mean "
+              f"{sum(ms) / len(ms):.1f} | exchange "
+              f"{2 * r['exchange_wire_bytes'] / 1e6:.2f} MB a forward on "
+              f"the wire (dispatch + return; JAX's 4-byte-an-element "
+              f"figure {2 * r['exchange_bytes_jax_formula'] / 1e6:.2f}), "
+              f"{r['exchange_ms']:.3f} ms timed alone | expert state "
+              f"{r['expert_state_elems'] / 1e6:.1f} M of the rank's "
+              f"{r['shard_elems'] / 1e6:.1f} M master elements | peak "
+              f"GiB by rank "
+              + ", ".join(f"{b / 2**30:.2f}" for b in r["peak_bytes_by_rank"])
+              + f" | {smi}", flush=True)
+    m = res["mixtral"]
+    ok &= m["rank_losses_equal"] and all(map(math.isfinite, m["losses"]))
+    print(f"[moe] Mixtral-8x7B width, {m['layers']} of 32 layers "
+          f"({m['n_params'] / 1e9:.2f} G elements, {m['n_active'] / 1e9:.2f}"
+          f" G active a token), ZeRO 3 overlap_comm, bf16, remat, "
+          f"fusedadam, world {m['world']}, 4 × 2048 tokens a rank: losses "
+          + ", ".join(f"{x:.4f}" for x in m["losses"])
+          + f" | step ms mean {m['step_ms_mean']:.1f}, "
+          f"{m['tokens_per_s']:.1f} tokens/s over the world, MFU "
+          f"{m['mfu_active']:.4f} on the active parameters (6·N_active + "
+          f"12·L·S·D a token, 989 TFLOP/s a card) | peak GiB by rank "
+          + ", ".join(f"{b / 2**30:.2f}" for b in m["peak_bytes_by_rank"])
+          + f" | {smi}", flush=True)
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(dict(card=smi, **res), f, indent=1)
+    if not ok:
+        print("zero_multicard: a MoE check failed", file=sys.stderr)
+        return 1
+    print(json.dumps({"ok": True, "world": world, "moe": True}))
+    return 0
+
+
 def _free_port():
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -1467,6 +1780,9 @@ def main():
     ap.add_argument("--onebit", action="store_true",
                     help="GPT-2 350M with OnebitAdam against FusedAdam at "
                          "ZeRO 0")
+    ap.add_argument("--moe", action="store_true",
+                    help="the MoE layer expert-parallel (ep 4, dp 2 × ep 2) "
+                         "against dp 4, and Mixtral-8x7B width at ZeRO 3")
     ap.add_argument("--offload-layers", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--stream-layers", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--rank", type=int, help=argparse.SUPPRESS)
@@ -1480,7 +1796,7 @@ def main():
         (run_offload_rank if args.offload else run_checkpoint_rank
          if args.checkpoint else run_zeropp_rank if args.zeropp
          else run_pipe_rank if args.pipe else run_onebit_rank
-         if args.onebit else run_rank)(args)
+         if args.onebit else run_moe_rank if args.moe else run_rank)(args)
         return 0
     import torch
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -1504,6 +1820,8 @@ def main():
         return _pipe_main(args, world, smi, out)
     if args.onebit:
         return _onebit_main(args, world, smi, out)
+    if args.moe:
+        return _moe_main(args, world, smi, out)
     rcs = _spawn(world, sys.argv[1:] + ["--out-rank0", out])
     if any(rcs):
         print(f"zero_multicard: ranks exited {rcs}", file=sys.stderr)
