@@ -311,12 +311,14 @@ Stages, run in the order 1-31; any failure exits non-zero:
     product's rms: both sum thousands of fp32 products in other orders),
     two reruns bit-equal, ms beside the flop bound, TFLOP/s, the plain
     versions' and ``torch._grouped_mm``'s ms (a yardstick only), the SASS
-    counts (HGMMA/UTMALDG for dx, HMMA for dw); (b) Mixtral-8x7B width
-    (hidden 4096, FFN 14336, 32/8 heads, 8 experts, top-2, vocab 32000)
-    cut to 1 layer, bf16, B=4, S=2048, ZeRO 0, ``fusedadam``, remat,
-    through ``initialize()``: 4 steps whose losses are finite and fall,
-    the launches of B7 (forward twice a layer under remat, dx, dw, by
-    route), B1 and B2 counted from 0 around them, step ms, tokens/s, MFU
+    counts (HGMMA and UTMALDG: both on wgmma + TMA), and w1's ``gmm_dw``
+    again on ``route="mma_sync"`` (HMMA: the kernel of the 16-bit shapes
+    TMA cannot take); (b) Mixtral-8x7B width (hidden 4096, FFN 14336, 32/8
+    heads, 8 experts, top-2, vocab 32000) cut to 1 layer, bf16, B=4,
+    S=2048, ZeRO 0, ``fusedadam``, remat, through ``initialize()``: 4
+    steps whose losses are finite and fall, the launches of B7 (forward
+    twice a layer under remat, dx, dw, by route), B1 and B2 counted from
+    0 around them, step ms, tokens/s, MFU
     on the active parameters (6·N_active + 12·L·S·D a token, N_active = N
     − L·(E − k)·3·D·I), peak; then one step at a narrow width (hidden
     1024, 2 layers) in bf16 with the kernels, in bf16 with every plain
@@ -529,7 +531,7 @@ def stage_build():
     for name, key_fn, want in (("block_sparse_attention", _bsa_mma_key, 8),
                                ("grouped_matmul", _gmm_tma_key, 4),
                                ("grouped_matmul", _gmm_dx_key, 4),
-                               ("grouped_matmul", _gmm_dw_key, 4)):
+                               ("grouped_matmul", _gmm_dw_key, 6)):
         usage = _ptxas_usage(results[name][1], key_fn)
         for key, u in sorted(usage.items()):
             log(f"[build]   {name} {key}: {u.get('registers', '?')} "
@@ -1307,7 +1309,8 @@ _BSA_MMA = re.compile(r"bsa_fwd_mma_kernelI(13__nv_bfloat16|6__half)Li(\d+)E")
 _GMM_TMA = re.compile(r"gmm_tma_kernelI(13__nv_bfloat16|6__half)Li(\d)E"
                       r"Lb([01])E")
 _GMM_MMA = re.compile(r"gmm_mma_kernelI(13__nv_bfloat16|6__half)Lb([01])E")
-_GMM_DW = re.compile(r"gmm_dw_mma_kernelI(13__nv_bfloat16|6__half)Lb([01])E")
+_GMM_DW = re.compile(r"gmm_dw_(mma|tma)_kernelI(13__nv_bfloat16|6__half)"
+                     r"(?:Lb([01])E)?")
 
 
 def _bsa_mma_key(symbol):
@@ -1335,10 +1338,14 @@ def _gmm_dx_key(symbol):
 
 
 def _gmm_dw_key(symbol):
-    """(dtype, 16-byte copies) of B7's mma.sync dw kernel."""
+    """(dtype, "wgmma_tma") of B7's wgmma/TMA dw kernel, (dtype,
+    "mma_sync", 16-byte copies) of its mma.sync one."""
     m = _GMM_DW.search(symbol)
-    return m and ("bf16" if "bfloat16" in m.group(1) else "fp16",
-                  m.group(2) == "1")
+    if not m:
+        return None
+    dtype = "bf16" if "bfloat16" in m.group(2) else "fp16"
+    return ((dtype, "wgmma_tma") if m.group(1) == "tma" else
+            (dtype, "mma_sync", m.group(3) == "1"))
 
 
 def _gmm_mma_key(symbol):
@@ -5782,12 +5789,12 @@ def _grouped_mm_ms(torch, kind, a, b, gs, name):
     return cuda_ms(fn, 5), "torch._grouped_mm"
 
 
-def _gmm_bwd_case(torch, gen, kind, proj, sizes, K, N):
-    """One backward kernel of B7 at Mixtral's width: against its plain
-    version (one bf16 ulp of |ref| + 2^-10 of its rms), two launches
-    bit-equal,
-    its time beside the plain version's, ``torch._grouped_mm``'s and the
-    bound, and its SASS counts."""
+def _gmm_bwd_case(torch, gen, kind, proj, sizes, K, N, route=None):
+    """One backward kernel of B7 at Mixtral's width, on ``route`` (default
+    :func:`gmm_bwd_route`'s): against its plain version (one bf16 ulp of
+    |ref| + 2^-10 of its rms), two launches bit-equal, its time beside the
+    plain version's, ``torch._grouped_mm``'s and the bound, and its SASS
+    counts."""
     from deepspeed_tpu_torch.ops.kernels import grouped_matmul as gm
     from deepspeed_tpu_torch.ops.op_builder import GroupedMatmulBuilder
     dt = torch.bfloat16
@@ -5798,17 +5805,15 @@ def _gmm_bwd_case(torch, gen, kind, proj, sizes, K, N):
         w = (torch.randn(E, K, N, device="cuda", generator=gen)
              / K**0.5).to(dt)
         a, b, fn, plain = dy, w, gm.gmm_dx, gm.gmm_dx_plain
-        route = gm.gmm_bwd_route("dx", T, K, N, dt, a.data_ptr(),
-                                 b.data_ptr())
         nbytes = (T * N + sum(1 for n in sizes if n) * K * N + T * K) * 2
     else:
         x = torch.randn(T, K, device="cuda", generator=gen).to(dt)
         a, b, fn, plain = x, dy, gm.gmm_dw, gm.gmm_dw_plain
-        route = gm.gmm_bwd_route("dw", T, K, N, dt, a.data_ptr(),
-                                 b.data_ptr())
         nbytes = (T * K + T * N + E * K * N) * 2
+    route = route or gm.gmm_bwd_route(kind, T, K, N, dt, a.data_ptr(),
+                                      b.data_ptr())
     before = dict(fn.route_launches)
-    got, again = fn(a, b, gs), fn(a, b, gs)
+    got, again = fn(a, b, gs, route), fn(a, b, gs, route)
     torch.cuda.synchronize()
     taken = {r: n - before[r] for r, n in fn.route_launches.items()
              if n != before[r]}
@@ -5826,23 +5831,33 @@ def _gmm_bwd_case(torch, gen, kind, proj, sizes, K, N):
     err = diff.max().item()
     worst = (diff / (BF16_RTOL * ref.abs() + atol)).max().item()
     del again, ref, diff
-    ms = cuda_ms(lambda: fn(a, b, gs), 5)
+    ms = cuda_ms(lambda: fn(a, b, gs, route), 5)
     plain_ms = cuda_ms(lambda: plain(a, b, gs), 1, warmup=1)
     lib_ms, lib = _grouped_mm_ms(torch, kind, a, b, gs, f"{kind} {proj}")
+    # gmm_dx's time includes the zero fill of dx (rows past the sizes stay
+    # zero): the fill alone, on the same shape
+    fill_ms = (cuda_ms(lambda: torch.zeros(T, K, dtype=dt, device="cuda"), 5)
+               if kind == "dx" else None)
     flops = 2 * T * K * N
     bound = _roofline(nbytes, flops, BF16_FLOPS)
+    ops = (" HGMMA.", " UTMALDG")
     if kind == "dx":
-        key_fn, key, ops = _gmm_dx_key, ("bf16", 2 if route == "wgmma_tma"
-                                         else 1), (" HGMMA.", " UTMALDG")
+        key_fn, key = _gmm_dx_key, ("bf16", 2 if route == "wgmma_tma" else 1)
+    elif route == "wgmma_tma":
+        key_fn, key = _gmm_dw_key, ("bf16", "wgmma_tma")
     else:
-        key_fn, ops = _gmm_dw_key, (" HMMA.", )
-        key = ("bf16", K % 8 == 0 and N % 8 == 0)
+        # PR 19's mma.sync dw, with 16-byte copies where the shapes and
+        # addresses allow them
+        key_fn, ops = _gmm_dw_key, (" HMMA.",)
+        key = ("bf16", "mma_sync", K % 8 == 0 and N % 8 == 0 and
+               a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0)
     report, counts = _kernel_report(GroupedMatmulBuilder(), key_fn, key, ops)
-    row = dict(case=f"{kind}_{proj}", kind=kind, route=route, rows=T, K=K,
+    case = f"{kind}_{proj}" + (f"_{route}" if route == "mma_sync" else "")
+    row = dict(case=case, kind=kind, route=route, rows=T, K=K,
                N=N, sizes=sizes, err=err, err_over_tol=worst, atol=atol,
                bit_equal=bit_equal, ms=ms, plain_ms=plain_ms,
-               library_ms=lib_ms, library=lib, bound_ms=bound[0],
-               bound_by=bound[1], tflops=flops / ms / 1e9,
+               zero_fill_ms=fill_ms, library_ms=lib_ms, library=lib,
+               bound_ms=bound[0], bound_by=bound[1], tflops=flops / ms / 1e9,
                share_of_bound=bound[0] / ms, kernel=report)
     log(f"[moe-train] gmm_{kind} {proj}: T {T} (groups {sizes}), K {K}, N "
         f"{N}, route {route}: max_abs_err {err:.3e}, worst |err| / "
@@ -5850,7 +5865,9 @@ def _gmm_bwd_case(torch, gen, kind, proj, sizes, K, N):
         f"bit-equal "
         f"{bit_equal} | kernel {ms:.4f} ms ({row['tflops']:.1f} TFLOP/s, "
         f"{row['share_of_bound']:.3f} of the bound), plain {plain_ms:.4f} "
-        f"ms, {lib} {lib_ms} ms | bound {bound[0]:.4f} ms by {bound[1]} | "
+        f"ms, {lib} {lib_ms} ms"
+        + ("" if fill_ms is None else f", dx's zero fill {fill_ms:.4f} ms")
+        + f" | bound {bound[0]:.4f} ms by {bound[1]} | "
         f"{report['registers']} registers, {report['spill_stores']} B "
         f"spills, SASS " + " / ".join(f"{n} {op.strip(' .')}"
                                       for op, n in zip(ops, counts)))
@@ -6003,6 +6020,27 @@ def _moe_layer_nccl(torch, seed, smi):
     return dict(runs=runs, bit_equal=same)
 
 
+def stage_moe_train_kernels(seed):
+    """Stage 31 (a): B7's dx and dw at Mixtral-8x7B's products (T = 16,384
+    token copies routed over 8 experts, one empty), each against its plain
+    version, and w1's dw once more on the mma.sync route (the kernel of the
+    16-bit shapes TMA cannot take); the list of ``_gmm_bwd_case`` rows
+    (``kernel_ab.py`` runs this alone)."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed + 31)
+    B, S, D, I, E, k = 4, 2048, 4096, 14336, 8, 2
+    sizes = _routed_sizes(torch, gen, B * S, E, k, empty=2)
+    rows = []
+    for kind in ("dx", "dw"):
+        for proj, K, N in (("w1", D, I), ("w2", I, D)):
+            rows.append(_gmm_bwd_case(torch, gen, kind, proj, sizes, K, N))
+            _free(torch)
+    rows.append(_gmm_bwd_case(torch, gen, "dw", "w1", sizes, D, I,
+                              "mma_sync"))
+    _free(torch)
+    return rows
+
+
 def stage_moe_train(seed, smi):
     """Stage 31: B7's backward kernels at Mixtral-8x7B's width, Mixtral
     training at full width cut to one layer, a narrow step against every
@@ -6015,14 +6053,9 @@ def stage_moe_train(seed, smi):
                                                     param_count)
     from deepspeed_tpu_torch.ops.kernels import grouped_matmul as gm
     t_stage = time.perf_counter()
-    gen = torch.Generator(device="cuda").manual_seed(seed + 31)
     B, S, D, I, E, k = 4, 2048, 4096, 14336, 8, 2
-    sizes = _routed_sizes(torch, gen, B * S, E, k, empty=2)
-    rows = []
-    for kind in ("dx", "dw"):
-        for proj, K, N in (("w1", D, I), ("w2", I, D)):
-            rows.append(_gmm_bwd_case(torch, gen, kind, proj, sizes, K, N))
-            _free(torch)
+    rows = stage_moe_train_kernels(seed)
+    sizes = rows[0]["sizes"]
     # (b) Mixtral-8x7B width, one layer, through initialize()
     cfg = MixtralConfig(**dict(MIXTRAL_TRAIN, num_hidden_layers=1))
     L = cfg.num_hidden_layers
@@ -6366,6 +6399,11 @@ def main():
             max_abs_err_w2=r2["err"],
             **{f"{k}_w2": r2[k] for k in ("ms", "plain_ms", "bound_ms",
                                           "library_ms", "tflops")}))
+    # dw's mma.sync route (the 16-bit shapes TMA cannot take), at w1
+    r = bwd["dw_w1_mma_sync"]
+    entries[-1].update(max_abs_err_mma_sync_w1=r["err"], **{
+        f"{k}_mma_sync_w1": r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                           "library_ms", "tflops")})
     for e in entries:
         if e["name"] == "gmm":
             e.update(launches_training=moe_train["launches"]["gmm"],

@@ -60,6 +60,7 @@
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include "sm90_common.cuh"
@@ -393,6 +394,22 @@ cudaError_t launch_mma(const void* x, const void* w, const int* gs, void* y,
 
 constexpr int kRouteFp32 = 0, kRouteMma = 1, kRouteTma = 2, kRouteTma64 = 3;
 
+// Band size of the backward's tile orders, dx's and dw's (row tiles a
+// band; on an H100 bands of 4, 8 and 16 ran within the card's spread)
+constexpr int kBand = 8;
+
+// Tile `lin` of a rows x cols grid of tiles, in bands of `band` rows: a
+// band walks all its tiles, rows fastest, before the next band starts, so
+// the tiles in flight together share a few rows' and columns' operands in
+// L2.  Returns (row tile, column tile).
+__device__ __forceinline__ int2 banded(int lin, int rows, int cols,
+                                       int band) {
+  const int b = lin / (band * cols), r0 = b * band;
+  const int in_band = min(band, rows - r0);
+  const int idx = lin - r0 * cols;
+  return make_int2(r0 + idx % in_band, idx / in_band);
+}
+
 // NC consumer warpgroups: a BM x BN = 64 NC x 128 NC tile (128 x 256, one
 // block an SM; 64 x 128, two), and a ring of 4 stages of 48 or 24 KB.
 template <int NC>
@@ -432,8 +449,17 @@ __global__ void __launch_bounds__(TmaCfg<NC>::kThreads, TmaCfg<NC>::kBlocks)
                                                C::kStageBytes);
   uint64_t* empty = full + C::kStages;
   __shared__ Tile s_tile;
+  int row_tile = blockIdx.x, col_tile = blockIdx.y;
+  if constexpr (kDx) {
+    // dy's rows are the streamed operand here: bands of row tiles walk
+    // every column tile while their dy stays in L2
+    const int2 rc = banded(blockIdx.x + blockIdx.y * gridDim.x, gridDim.x,
+                           gridDim.y, kBand);
+    row_tile = rc.x;
+    col_tile = rc.y;
+  }
   if (threadIdx.x == 0) {
-    s_tile = find_tile(group_sizes, E, T_, blockIdx.x, C::BM);
+    s_tile = find_tile(group_sizes, E, T_, row_tile, C::BM);
     for (int s = 0; s < C::kStages; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 4 * NC);  // one arrival a consumer warp
@@ -443,7 +469,7 @@ __global__ void __launch_bounds__(TmaCfg<NC>::kThreads, TmaCfg<NC>::kBlocks)
   __syncthreads();
   const Tile tile = s_tile;
   if (tile.rows <= 0) return;
-  const int n0 = blockIdx.y * C::BN;
+  const int n0 = col_tile * C::BN;
   const int nk = kDx ? (N + C::BK - 1) / C::BK : K / C::BK;
   const int wg = threadIdx.x / 128;
 
@@ -565,11 +591,28 @@ cudaError_t launch_tma(const void* x, const void* w, const int* gs, void* y,
 // The gradient of y = gmm(x, w, group_sizes) (lax.ragged_dot's transpose):
 // dx[i] = dy[i] @ w[g(i)]^T, and dw[e] = x_e^T @ dy_e over expert e's own
 // rows, fp32 accumulation rounded once to w's dtype; an expert with no
-// rows gets dw[e] = 0.  dx takes the forward's wgmma + TMA kernel with w as
-// a K-major B operand (gmm_tma_kernel<.., kDx = true>), or the CUDA-core
-// route below; dw is mma.sync over 64 x 128 tiles of [K, N] (kRouteMma)
-// or the CUDA-core route.  Both find their expert's row range from
+// rows gets dw[e] = 0.  Both find their expert's row range from
 // group_sizes on the device, as the forward's blocks do.
+//
+// What bounds them on an H100: each does 2 T K N flops, at Mixtral's
+// training shapes (T = 16,384 token copies) 1.95 ms of the bf16 tensor
+// rate; their bytes (T K + T N + E K N) take a quarter of that, if each is
+// read about once.
+// - dx (bf16/fp16 where TMA takes the shapes): the forward's wgmma + TMA
+//   kernel with w as a K-major B operand (gmm_tma_kernel<.., kDx = true>).
+//   In the forward's order (row tiles fastest) a wave of 132 blocks is one
+//   output column tile over every row tile, so each wave would read all of
+//   dy (0.47 GB for w1's dx, past the 50 MB L2) again: ~7.5 GB, above the
+//   flop bound.  So dx takes its blocks in bands of kBand row tiles that
+//   walk every column tile: dy comes from device memory about once, w once
+//   a band.  (dx on dw's persistent kernel below, pairs of
+//   column tiles sharing dy, ran no faster.)  Otherwise the CUDA-core
+//   route below.
+// - dw (bf16/fp16, K and N multiples of 8, 16-byte aligned x and dy):
+//   gmm_dw_tma_kernel, wgmma fed by TMA with the expert's ragged tail
+//   zeroed in shared memory (the notes at the kernel); other 16-bit
+//   shapes mma.sync over 64 x 128 tiles (kRouteMma, ~0.2 of the rate);
+//   fp32 the CUDA cores.
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -851,6 +894,259 @@ __global__ void __launch_bounds__(kThreads)
     }
 }
 
+// dw on wgmma fed by TMA (bf16/fp16; K and N multiples of 8, x and dy
+// 16-byte aligned): the forward's warp-specialised block (one producer
+// warp, two consumer warpgroups) on a 128 (k) x 256 (n) tile of dw[e], 128
+// fp32 accumulators a thread.  A stage is the contraction's next 64 rows
+// of the expert: two x boxes [64 rows x 64 k] (one a consumer warpgroup)
+// and four dy boxes [64 rows x 64 n], 128-byte swizzled, each from the
+// expert's own first row (TMA takes any row coordinate; rows past T
+// arrive as zeros).  A = x_e^T is MN-major (x's rows as they lie, k
+// contiguous: the transpose flag, no copy), B = dy_e MN-major as the
+// forward's B.
+//
+// The ragged tail: the expert's last box runs past its rows into the next
+// expert's.  Those are contraction rows, so they must add nothing: the
+// consumers overwrite them with zeros in all six boxes (x and dy both,
+// since 0 * inf is NaN: a neighbour's non-finite dy must not reach this
+// expert) after the stage has landed, fence the async proxy (wgmma reads
+// through it) and meet on a named barrier before the first wgmma of the
+// step.  A swizzled box's row is its own 128 bytes, so a whole row is
+// zeroed whatever the swizzle.  Only the last step of a tile pays it.
+//
+// Pairs: the two blocks of a cluster take the row tiles 2p and 2p + 1 of
+// one expert at one column tile, which read the same dy boxes: each loads
+// two of the four and multicasts them into both, so a block reads 32 KB a
+// stage from L2 instead of 48.  A stage is free again only when both
+// blocks' consumers have released it (its empty barrier counts the warps
+// of both).
+//
+// Persistent: the clusters the card holds walk the pairs of tiles p =
+// cluster, + clusters, ... over every expert (an expert's in bands of
+// kBand pairs of row tiles that walk all column tiles, so the band's x
+// columns and the column tiles' dy stay in L2); the producer runs ahead
+// into the next tile.  The epilogue does not hold the tensor cores:
+// each consumer warpgroup rounds its 64 x 256 accumulators into four
+// swizzled boxes in shared memory and one thread hands them to TMA stores,
+// which drain while the next tile's products run; a tile's store waits
+// only for the previous tile's to have read those boxes.  So the ring is 3
+// stages (144 KB) beside the 64 KB staged tile.  An expert with no rows
+// loads nothing and stores zeros.  No atomics, and each tile sums its
+// expert's rows in one fixed order: reruns are bit-equal.
+struct DwCfg {
+  static constexpr int BM = 128, BN = 256, BK = 64;
+  static constexpr int kThreads = 384;   // 2 consumer warpgroups + 1
+  static constexpr int kStages = 3;
+  static constexpr int kBox = 64 * 64 * 2;  // one [64 x 64] 16-bit box
+  static constexpr int kStageBytes = 6 * kBox;  // 2 x boxes, 4 dy boxes
+  static constexpr int kOutBytes = 8 * kBox;    // the rounded tile
+  static constexpr int smem =
+      1024 + kStages * kStageBytes + kOutBytes + 16 * kStages;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(DwCfg::kThreads, 1)
+    gmm_dw_tma_kernel(const __grid_constant__ CUtensorMap xmap,
+                      const __grid_constant__ CUtensorMap dymap,
+                      const __grid_constant__ CUtensorMap dwmap,
+                      const int* __restrict__ group_sizes, int T_, int K,
+                      int N, int E) {
+  using C = DwCfg;
+  constexpr int kAcc = C::BN / 2;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* staged = ring + C::kStages * C::kStageBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(staged + C::kOutBytes);
+  uint64_t* empty = full + C::kStages;
+  const uint32_t rank = cluster_ctarank();  // 0 or 1: the pair's row tile
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 16);  // one arrival a consumer warp of the pair
+    }
+    mbar_init_fence();
+  }
+  // both blocks' barriers are set before either multicasts or arrives
+  cluster_sync();
+  const int tm = (K + C::BM - 1) / C::BM, tn = (N + C::BN - 1) / C::BN;
+  const int tp = (tm + 1) / 2, pairs = E * tp * tn;
+  const int cluster = blockIdx.x / 2, clusters = gridDim.x / 2;
+  const int wg = threadIdx.x / 128;
+
+  if (wg == 2) {
+    // ---- producer: one thread keeps the ring full across tiles
+    setmaxnreg_dec<40>();
+    if (threadIdx.x % 128 == 0) {
+      int it = 0;  // k steps issued, over all of this block's tiles
+      for (int p = cluster; p < pairs; p += clusters) {
+        const int e = p / (tp * tn);
+        const int2 mn = banded(p - e * tp * tn, tp, tn, kBand);
+        const int m0 = (2 * mn.x + rank) * C::BM;
+        const int2 rows = expert_rows(group_sizes, e, T_);
+        const int nk = (rows.y - rows.x + C::BK - 1) / C::BK;
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          const int s = it % C::kStages, round = it / C::kStages;
+          if (round > 0) mbar_wait(&empty[s], (round - 1) & 1);
+          unsigned char* st = ring + s * C::kStageBytes;
+          const int r = rows.x + kt * C::BK;
+          // all six boxes land here: this block's x boxes, its two dy
+          // boxes and the pair's other two
+          mbar_expect_tx(&full[s], C::kStageBytes);
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            tma_load_2d(st + c * C::kBox, &xmap, &full[s], m0 + 64 * c, r);
+#pragma unroll
+          for (int c = 2 * rank; c < 2 * rank + 2; ++c)
+            tma_load_2d_multicast(st + (2 + c) * C::kBox, &dymap, &full[s],
+                                  mn.y * C::BN + 64 * c, r, 0x3);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns dw rows (k) 64 wg.. of the tile
+    setmaxnreg_inc<232>();
+    const int wtid = threadIdx.x % 128, lane = threadIdx.x % 32;
+    const int warp = wtid / 32;
+    unsigned char* out = staged + wg * 4 * C::kBox;  // this warpgroup's
+    float d[kAcc];
+    int it = 0;
+    for (int p = cluster; p < pairs; p += clusters) {
+      const int e = p / (tp * tn);
+      const int2 mn = banded(p - e * tp * tn, tp, tn, kBand);
+      const int m0 = (2 * mn.x + rank) * C::BM;
+      const int2 rows = expert_rows(group_sizes, e, T_);
+      const int nk = (rows.y - rows.x + C::BK - 1) / C::BK;
+#pragma unroll
+      for (int i = 0; i < kAcc; ++i) d[i] = 0.f;
+      for (int kt = 0; kt < nk; ++kt, ++it) {
+        const int s = it % C::kStages;
+        mbar_wait(&full[s], (it / C::kStages) & 1);
+        unsigned char* st = ring + s * C::kStageBytes;
+        const int valid = rows.y - rows.x - kt * C::BK;
+        if (valid < C::BK) {
+          // rows valid..63 of every box are the next expert's (or past
+          // the groups): zero them, 16 bytes a store, in all six boxes
+          const int per_box = (C::BK - valid) * 8;
+          for (int c = threadIdx.x; c < 6 * per_box; c += 256) {
+            const int b = c / per_box, q = c - b * per_box;
+            *reinterpret_cast<uint4*>(st + b * C::kBox +
+                                      (valid + q / 8) * 128 + (q % 8) * 16) =
+                make_uint4(0, 0, 0, 0);
+          }
+          fence_proxy_async();
+          named_barrier_sync(1, 256);
+        }
+        // A: this warpgroup's x box, B: the four dy boxes (8 KB apart);
+        // both MN-major, 16 contraction rows (2 KB) a k step
+        const unsigned char* a0 = st + wg * C::kBox;
+        const unsigned char* b0 = st + 2 * C::kBox;
+        fence_regs<kAcc>(d);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < C::BK / 16; ++kk)
+          Wgmma<T, C::BN, 1, 1>::run(
+              d, wgmma_desc(a0 + kk * 2048, C::kBox, 1024),
+              wgmma_desc(b0 + kk * 2048, C::kBox, 1024), 1);
+        wgmma_commit();
+        fence_regs<kAcc>(d);
+        // the previous step's products are done: hand its stage back to
+        // both blocks' producers (each multicasts into it)
+        wgmma_wait<1>();
+        fence_regs<kAcc>(d);
+        if (kt > 0 && lane == 0)
+          for (uint32_t c = 0; c < 2; ++c)
+            mbar_arrive_cluster(&empty[(it - 1) % C::kStages], c);
+      }
+      wgmma_wait<0>();
+      fence_regs<kAcc>(d);
+      if (nk > 0 && lane == 0)
+        for (uint32_t c = 0; c < 2; ++c)
+          mbar_arrive_cluster(&empty[(it - 1) % C::kStages], c);
+      // the previous tile's stores have read the staged boxes
+      if (wtid == 0) bulk_wait_read<0>();
+      named_barrier_sync(2 + wg, 128);
+      // d[4j + 2i + c] is row 16 warp + lane / 4 + 8i, column 8j + 2 (lane
+      // % 4) + c: column chunk j % 8 of box j / 8, swizzled by the row
+      const int g = lane / 4, q = lane % 4;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = warp * 16 + g + 8 * i;
+#pragma unroll
+        for (int j = 0; j < C::BN / 8; ++j)
+          *reinterpret_cast<uint32_t*>(
+              out + (j / 8) * C::kBox + r * 128 + (((j % 8) ^ (r % 8)) * 16) +
+              q * 4) = Mma<T>::pack2(d[4 * j + 2 * i], d[4 * j + 2 * i + 1]);
+      }
+      fence_proxy_async();
+      named_barrier_sync(2 + wg, 128);
+      if (wtid == 0) {
+        // rows past K and columns past N are clipped by the map
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          tma_store_3d(&dwmap, out + c * C::kBox, mn.y * C::BN + 64 * c,
+                       m0 + 64 * wg, e);
+        bulk_commit();
+      }
+    }
+    if (wtid == 0) bulk_wait<0>();
+  }
+  // no block leaves while its pair may still arrive on its barriers
+  cluster_sync();
+}
+
+// x [T, K], dy [T, N] -> dw [E, K, N] on gmm_dw_tma_kernel: clusters of 2
+// blocks, as many as the card holds at once (at most one a pair of tiles).
+// The encoder refuses an unaligned base or rows that are not whole 16
+// bytes (K or N not a multiple of 8), and T = 0.
+template <typename T>
+cudaError_t launch_dw_tma(const void* x, const void* dy, const int* gs,
+                          void* dw, int T_, int K, int N, int E,
+                          cudaStream_t st) {
+  using C = DwCfg;
+  CUtensorMap xmap, dymap, dwmap;
+  if (!(make_tensor_map_2d(&xmap, x, TmaType<T>::value, T_, K, K, 64,
+                           C::BK) &&
+        make_tensor_map_2d(&dymap, dy, TmaType<T>::value, T_, N, N, 64,
+                           C::BK) &&
+        make_tensor_map_3d(&dwmap, dw, TmaType<T>::value, E, K, N, 64, 64)))
+    return cudaErrorInvalidValue;
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        gmm_dw_tma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        C::smem);
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 2;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(C::kThreads);
+  cfg.dynamicSmemBytes = C::smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  static int resident = 0;  // clusters the card holds at once
+  if (!resident) {
+    cfg.gridDim = dim3(2);
+    const cudaError_t e = cudaOccupancyMaxActiveClusters(
+        &resident, gmm_dw_tma_kernel<T>, &cfg);
+    if (e != cudaSuccess) return e;
+    if (resident <= 0) return cudaErrorInvalidConfiguration;
+  }
+  const long pairs = (long)E * ((K + 2 * C::BM - 1) / (2 * C::BM)) *
+                     ((N + C::BN - 1) / C::BN);
+  if (pairs > INT_MAX / 2) return cudaErrorInvalidValue;
+  cfg.gridDim = dim3(2 * (int)(pairs < resident ? pairs : resident));
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, gmm_dw_tma_kernel<T>, xmap,
+                                           dymap, dwmap, gs, T_, K, N, E);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
 constexpr int kRouteSimt = 4;  // backward only: CUDA cores, any dtype
 
 template <typename T>
@@ -885,6 +1181,8 @@ cudaError_t launch_dw(int route, const void* x, const void* dy,
     return cudaGetLastError();
   }
   if constexpr (sizeof(T) == 2) {
+    if (route == kRouteTma)
+      return launch_dw_tma<T>(x, dy, gs, dw, T_, K, N, E, st);
     if (route == kRouteMma) {
       dim3 grid((K + kBM - 1) / kBM, (N + kBN - 1) / kBN, E);
       const bool vec = K % 8 == 0 && N % 8 == 0 &&
@@ -947,7 +1245,8 @@ extern "C" int ds_gmm(const void* x, const void* w, const void* group_sizes,
 // (rows past the sum of the sizes left to the caller); routes 2, 3 (wgmma
 // + TMA, 16-bit) or 4 (CUDA cores, any dtype).  dw: x [T, K], dy [T, N]
 // -> dw [E, K, N] (every expert written, zeros where it has no rows);
-// routes 1 (mma.sync, 16-bit) or 4.  Returns a cudaError_t code.
+// routes 2 (wgmma + TMA, 16-bit, T > 0), 1 (mma.sync, 16-bit) or 4.
+// Returns a cudaError_t code.
 extern "C" int ds_gmm_dx(const void* dy, const void* w,
                          const void* group_sizes, void* dx, int T_, int K,
                          int N, int E, int dtype, int route, void* stream) {

@@ -3,17 +3,25 @@
 // memory, register rebalancing between warpgroups, and the host-side
 // encoder of a TMA tensor map.  First used by csrc/grouped_matmul.cu (B7).
 //
-// - make_tensor_map_2d (host): a 2-D row-major tensor map with the
-//   128-byte swizzle, encoded by the driver's cuTensorMapEncodeTiled,
-//   which cudaGetDriverEntryPoint hands over: no -lcuda at link time;
+// - make_tensor_map_2d / _3d (host): a 2-D or 3-D row-major tensor map
+//   with the 128-byte swizzle, encoded by the driver's
+//   cuTensorMapEncodeTiled, which cudaGetDriverEntryPoint hands over: no
+//   -lcuda at link time;
 // - mbarriers: init, arrive, arrive with an expected transaction count,
 //   and a parity wait that traps (rather than hangs the card) if a phase
 //   never completes;
 // - tma_load_2d: one box global -> shared, completing on an mbarrier;
-//   elements past the tensor's edge arrive as zeros;
+//   elements past the tensor's edge arrive as zeros; tma_store_3d: one box
+//   shared -> global in a bulk group (elements past the edge are not
+//   written), with the group's commit and waits;
+// - thread block clusters: a block's rank, the cluster-wide barrier, a
+//   TMA load multicast into several blocks' shared memory, and an mbarrier
+//   arrival on another block's barrier;
 // - wgmma: the shared-memory descriptor of a 128-byte-swizzled tile, the
 //   fence / commit / wait instructions, and m64n128k16 / m64n256k16 with
-//   fp32 accumulation for bf16 and fp16 (A K-major, B K- or MN-major);
+//   fp32 accumulation for bf16 and fp16 (A and B each K- or MN-major);
+// - the proxy fence that orders threads' own shared-memory stores before
+//   wgmma's reads of them, and a named barrier over some warps;
 // - setmaxnreg in both directions.
 // Device code is inline in an anonymous namespace, as in mma_common.cuh.
 
@@ -54,27 +62,49 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
+// The driver's encoder on a tensor map of 16-bit elements, boxes `box`
+// (innermost first), the 128-byte swizzle.  TMA asks for a 16-byte-aligned
+// base and strides of whole 16 bytes.
+inline bool encode_swizzled(CUtensorMap* map, const void* base,
+                            CUtensorMapDataType type, cuuint32_t rank,
+                            const cuuint64_t* dims, const cuuint64_t* strides,
+                            const cuuint32_t* box) {
+  if (reinterpret_cast<uintptr_t>(base) % 16 != 0) return false;
+  for (cuuint32_t i = 0; i + 1 < rank; ++i)
+    if (strides[i] % 16 != 0) return false;
+  const EncodeTiledFn fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, type, rank, const_cast<void*>(base), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // A tensor map of a row-major [rows, cols] matrix of 16-bit elements at
 // `base` (row pitch `pitch` elements), read in boxes of [box_rows,
-// box_cols] with the 128-byte swizzle (box_cols * 2 <= 128).  TMA asks
-// for a 16-byte-aligned base and a pitch of whole 16 bytes.
+// box_cols] with the 128-byte swizzle (box_cols * 2 <= 128).
 inline bool make_tensor_map_2d(CUtensorMap* map, const void* base,
                                CUtensorMapDataType type, uint64_t rows,
                                uint64_t cols, uint64_t pitch,
                                uint32_t box_rows, uint32_t box_cols) {
-  // TMA takes a 16-byte aligned base and rows of whole 16 bytes
-  if (reinterpret_cast<uintptr_t>(base) % 16 != 0 || pitch * 2 % 16 != 0)
-    return false;
-  const EncodeTiledFn fn = encode_tiled();
-  if (!fn) return false;
   const cuuint64_t dims[2] = {cols, rows};
   const cuuint64_t strides[1] = {pitch * 2};
   const cuuint32_t box[2] = {box_cols, box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode_swizzled(map, base, type, 2, dims, strides, box);
+}
+
+// A tensor map of a contiguous [d2, d1, d0] array of 16-bit elements (d0
+// innermost, a multiple of 8), read or written in boxes of [1, box1,
+// box0] with the 128-byte swizzle (box0 * 2 <= 128).
+inline bool make_tensor_map_3d(CUtensorMap* map, const void* base,
+                               CUtensorMapDataType type, uint64_t d2,
+                               uint64_t d1, uint64_t d0, uint32_t box1,
+                               uint32_t box0) {
+  const cuuint64_t dims[3] = {d0, d1, d2};
+  const cuuint64_t strides[2] = {d0 * 2, d1 * d0 * 2};
+  const cuuint32_t box[3] = {box0, box1, 1};
+  return encode_swizzled(map, base, type, 3, dims, strides, box);
 }
 
 template <typename T>
@@ -152,6 +182,79 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// The same box into the shared memory of every block of the cluster in
+// `mask` (at dst's offset in each), completing on each one's barrier at
+// bar's offset.
+__device__ __forceinline__ void tma_load_2d_multicast(void* dst,
+                                                      const CUtensorMap* map,
+                                                      uint64_t* bar, int c0,
+                                                      int c1,
+                                                      uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(
+          sm90_smem(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(sm90_smem(bar)), "r"(c0),
+      "r"(c1), "h"(mask)
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every non-exited thread of the cluster arrives and waits (release /
+// acquire at cluster scope).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n"
+               "barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// Arrive on the barrier at bar's offset in block `cta` of the cluster
+// (this block's own rank included), with the default release at CTA
+// scope: a consumer hands back a stage whose reads have completed (a
+// release at cluster scope made each arrival wait, and dw twice as slow).
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
+                                                    uint32_t cta) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(sm90_smem(bar)), "r"(cta));
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(remote)
+               : "memory");
+}
+
+// Box (c0 inner, c1, c2 outer) of a 3-D tensor map <- shared memory at src
+// (1024-byte aligned, 128-byte swizzled), in this thread's bulk group;
+// elements past the tensor's edge are not written.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(sm90_smem(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's bulk groups still read shared
+// memory (_read) or are still in flight at all
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // Descriptor of a 128-byte-swizzled operand in shared memory: start
 // address, leading and stride byte offsets (PTX ISA, "matrix
 // descriptor"; all in 16-byte units).  K-major: rows of 128 bytes, 8-row
@@ -164,6 +267,18 @@ __device__ __forceinline__ uint64_t wgmma_desc(const void* smem, int lbo,
   d |= static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32;
   d |= static_cast<uint64_t>(1) << 62;  // 128-byte swizzle
   return d;
+}
+
+// Order this thread's generic-proxy stores to shared memory before later
+// async-proxy accesses (wgmma's operand reads, TMA)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// bar.sync on barrier `id` (1-15; 0 is __syncthreads) of `threads`
+// threads, a multiple of 32
+__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -217,39 +332,43 @@ __device__ __forceinline__ void setmaxnreg_dec() {
           SM90_R16(8) SM90_R16(9) SM90_R16(10) SM90_R16(11)              \
   " %120, %121, %122, %123, %124, %125, %126, %127}"
 // the operands after the accumulators: A's and B's descriptors, the
-// accumulate flag, B's transpose flag
-#define SM90_WGMMA(N, TYPE, REGS, DA, DB, ACC, TB)                      \
+// accumulate flag, A's and B's transpose flags
+#define SM90_WGMMA(N, TYPE, REGS, DA, DB, ACC, TA, TB)                  \
   "{\n .reg .pred p;\n setp.ne.b32 p, " ACC ", 0;\n"                    \
   " wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TYPE "." TYPE " "  \
-  REGS ", " DA ", " DB ", p, 1, 1, 0, " TB ";\n}\n"
+  REGS ", " DA ", " DB ", p, 1, 1, " TA ", " TB ";\n}\n"
 
 // d[N / 2] (+)= A[64 x 16] B[16 x N], fp32 accumulate, N = 128 or 256:
 // the accumulator fragment of an m64nNk16 product (warp w of the
 // warpgroup holds rows 16w.., as an m16n8 C fragment for each 8 columns:
 // d[4j + 2i + c] is row 16w + lane / 4 + 8i, column 8j + 2 (lane % 4) +
-// c).  accumulate 0 overwrites d; kTransB 1: B MN-major.
-template <typename T, int N, int kTransB>
+// c).  accumulate 0 overwrites d; kTransB 1: B MN-major; kTransA 1: A
+// MN-major (A's 64 rows contiguous, as B's columns are; 16-bit types
+// only, which are all these take).
+template <typename T, int N, int kTransB, int kTransA = 0>
 struct Wgmma;
 
 #define SM90_WGMMA_STRUCT(CT, TYPE)                                     \
-  template <int kTransB>                                                \
-  struct Wgmma<CT, 128, kTransB> {                                      \
+  template <int kTransB, int kTransA>                                   \
+  struct Wgmma<CT, 128, kTransB, kTransA> {                             \
     __device__ __forceinline__ static void run(float* d, uint64_t a,    \
                                                uint64_t b, int acc) {   \
       asm volatile(SM90_WGMMA(128, TYPE, SM90_REGS64, "%64", "%65",  \
-                                           "%66", "%67")              \
+                                           "%66", "%67", "%68")       \
                    : SM90_D64(0)                                        \
-                   : "l"(a), "l"(b), "r"(acc), "n"(kTransB));           \
+                   : "l"(a), "l"(b), "r"(acc), "n"(kTransA),            \
+                     "n"(kTransB));                                     \
     }                                                                   \
   };                                                                    \
-  template <int kTransB>                                                \
-  struct Wgmma<CT, 256, kTransB> {                                      \
+  template <int kTransB, int kTransA>                                   \
+  struct Wgmma<CT, 256, kTransB, kTransA> {                             \
     __device__ __forceinline__ static void run(float* d, uint64_t a,    \
                                                uint64_t b, int acc) {   \
       asm volatile(SM90_WGMMA(256, TYPE, SM90_REGS128, "%128", "%129", \
-                                           "%130", "%131")            \
+                                           "%130", "%131", "%132")    \
                    : SM90_D64(0), SM90_D64(64)                          \
-                   : "l"(a), "l"(b), "r"(acc), "n"(kTransB));           \
+                   : "l"(a), "l"(b), "r"(acc), "n"(kTransA),            \
+                     "n"(kTransB));                                     \
     }                                                                   \
   };
 

@@ -26,9 +26,16 @@ The gradient (training): :class:`GroupedMatmul`, the autograd Function
 the same file in its backward, each only where its input needs a
 gradient: :func:`gmm_dx` (``dx[i] = dy[i] @ w[g(i)]ᵀ``; the forward's
 ``wgmma`` + TMA kernel with w, as it lies, the K-major B operand — no
-transposed copy of the stack) and :func:`gmm_dw` (``dw[e] = x_eᵀ @ dy_e``
-over expert e's rows, ``mma.sync``; an expert with no rows gets zeros).
-Both accumulate in fp32 and round once (``ragged_dot``'s transpose), and
+transposed copy of the stack — its blocks taken in bands of row tiles that
+walk every column tile, so that dy, the streamed operand, is read from
+device memory about once) and :func:`gmm_dw` (``dw[e] = x_eᵀ @ dy_e`` over
+expert e's rows: a persistent ``wgmma`` + TMA kernel whose boxes start at
+each expert's first row, with x read as the MN-major A operand, and the
+rows of the next expert in an expert's last box zeroed in shared memory
+in both operands before they are multiplied; an expert with no rows gets
+zeros).  Both do 2·T·K·N flops and are bound by the bf16 tensor rate at
+training shapes.  Both accumulate in fp32 and round once
+(``ragged_dot``'s transpose), with no atomics (reruns are bit-equal), and
 find their rows from ``group_sizes`` on the device, so a training step
 reads no group size on the host.  :func:`gmm_bwd_route` is their one rule
 of routes.  JAX differentiates ``lax.ragged_dot`` through XLA; these two
@@ -50,7 +57,7 @@ ROUTES = ("fp32", "mma_sync", "wgmma_tma", "wgmma_tma_64")  # C route codes
 # the backward's, by their C codes: the forward's plus "simt" (4), the
 # CUDA cores in any dtype
 BWD_ROUTES = {"dx": ("wgmma_tma", "wgmma_tma_64", "simt"),
-              "dw": ("mma_sync", "simt")}
+              "dw": ("wgmma_tma", "mma_sync", "simt")}
 _BWD_CODES = ROUTES + ("simt", )
 SMALL_T = 64          # T at or below: the 64-row TMA tiles
 
@@ -207,19 +214,22 @@ class GroupedMatmul(torch.autograd.Function):
 
 
 def gmm_bwd_route(kind, T, K, N, dtype, a_addr, w_addr):
-    """The backward kernel's route: ``kind`` "dx" takes "wgmma_tma" (or
-    "wgmma_tma_64" when T <= SMALL_T) for bf16/fp16 where TMA can take the
-    shapes (N % 8 == 0: rows of dy and w in whole 16 bytes, K % 8 == 0:
-    dx's paired stores; dy and w 16-byte aligned); "dw" takes "mma_sync"
-    for bf16/fp16; fp32, and dx's other shapes, "simt" (the CUDA cores).
-    ``a_addr``: dy's address (dx) or x's (dw)."""
+    """The backward kernel's route.  For bf16/fp16 where TMA can take the
+    shapes (K % 8 == 0 and N % 8 == 0: rows of x, dy and w in whole 16
+    bytes, and dx's or dw's paired stores; both operands 16-byte
+    aligned): "dx" takes "wgmma_tma" (or "wgmma_tma_64" when T <=
+    SMALL_T), "dw" "wgmma_tma"; for its other shapes dx takes "simt" (the
+    CUDA cores), dw "mma_sync".  fp32: "simt".  ``a_addr``: dy's address
+    (dx) or x's (dw); ``w_addr``: w's (dx) or dy's (dw)."""
     if kind not in BWD_ROUTES:
         raise ValueError(f"kind {kind!r}: 'dx' or 'dw'")
     if dtype == torch.float32:
         return "simt"
+    tma = (K % 8 == 0 and N % 8 == 0 and a_addr % 16 == 0
+           and w_addr % 16 == 0)
     if kind == "dw":
-        return "mma_sync"
-    if K % 8 == 0 and N % 8 == 0 and a_addr % 16 == 0 and w_addr % 16 == 0:
+        return "wgmma_tma" if tma else "mma_sync"
+    if tma:
         return "wgmma_tma_64" if T <= SMALL_T else "wgmma_tma"
     return "simt"
 
@@ -285,7 +295,8 @@ def gmm_dw(x, dy, group_sizes, route=None):
     """``dw[e] = x_eᵀ @ dy_e`` over expert e's rows: x [T, K], dy [T, N]
     → [E, K, N] in x's dtype (E = ``group_sizes``' length; zeros for an
     expert with no rows).  On the card: one launch on ``route`` (default
-    :func:`gmm_bwd_route`'s), which writes every expert."""
+    :func:`gmm_bwd_route`'s), which writes every expert; T = 0 launches
+    nothing and gives zeros."""
     if x.dim() != 2 or dy.dim() != 2 or x.shape[0] != dy.shape[0]:
         raise ValueError(f"gmm_dw takes x [T, K] and dy [T, N], got "
                          f"{tuple(x.shape)} and {tuple(dy.shape)}")
@@ -293,6 +304,8 @@ def gmm_dw(x, dy, group_sizes, route=None):
         return gmm_dw_plain(x, dy, group_sizes)
     T, K = x.shape
     N, E = dy.shape[1], group_sizes.shape[0]
+    if T == 0:
+        return torch.zeros(E, K, N, dtype=x.dtype, device=x.device)
     dw = torch.empty(E, K, N, dtype=x.dtype, device=x.device)
     route = route or gmm_bwd_route("dw", T, K, N, x.dtype, x.data_ptr(),
                                    dy.data_ptr())

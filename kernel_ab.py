@@ -16,8 +16,9 @@ kernels (into the tree's own build directory, all sources at once), then:
   dbias) at stage 17's MSA-row shape ([512, 384, 8, 32] bf16, pair bias
   over 512 rows, key mask), inputs from a fixed seed;
 - runs chip_smoke's stages 3 (paged attention), 7, 13, 17 and 19, and
-  21's kernel cases (FP6/FP12, B6) (``--stages``), and keeps the times of
-  each kernel case;
+  the kernel cases of 21 (FP6/FP12, B6) and 31 (a) (B7's dx and dw at
+  Mixtral's training shapes) (``--stages``), and keeps the times of each
+  kernel case (its ``ms``, and its ``library_ms`` where it has one);
 - with ``trees`` among the stages, times through the public functions of
   either tree: the quantize of ``p.t()`` of Llama-2-7B's gate projection
   (the int8 serving build's call), ``quantize_fp`` at stage 21's shapes,
@@ -50,7 +51,7 @@ import sys
 STAGES = {"3": "stage_kernels", "7": "stage_train_kernels",
           "13": "stage_moe_quant_kernels",
           "17": "stage_evoformer_kernels", "19": "stage_sparse_kernels",
-          "21": "stage_fp_quant_kernels"}
+          "21": "stage_fp_quant_kernels", "31": "stage_moe_train_kernels"}
 
 
 def _digest(t):
@@ -160,7 +161,8 @@ def _times(result):
         if not isinstance(r, dict) or "case" not in r:
             continue
         for k, v in r.items():
-            if (k == "ms" or k.startswith("ms_")) and isinstance(v, float):
+            if (k in ("ms", "library_ms") or k.startswith("ms_")) and \
+                    isinstance(v, float):
                 times[f"{r['case']}.{k}"] = v
     return times
 

@@ -38,9 +38,11 @@ result.  Grouped matmul: fp32 1e-4 + 1e-5·|ref| (fp32 FMA in another
 order); bf16 2^-7·|ref| and fp16 2^-10·|ref|, each plus 1e-4 (both sides
 sum in fp32 and round once), on every route (wgmma + TMA at 128 and 64
 rows a tile, mma.sync), bit-equal over two runs; its backward (dx on
-wgmma + TMA or the CUDA cores, dw on mma.sync or the CUDA cores) one ulp
-of |ref| in the type plus 2^-10 of the product's rms (both sum the same
-products in fp32 in other orders), bit-equal over two runs.  Quantize and dequantize: bit for bit (the
+wgmma + TMA or the CUDA cores, dw on wgmma + TMA, mma.sync or the CUDA
+cores) one ulp of |ref| in the type plus 2^-10 of the product's rms (both
+sum the same products in fp32 in other orders), bit-equal over two runs,
+and each expert's dw bit-equal whatever non-finite values its
+neighbours' rows hold.  Quantize and dequantize: bit for bit (the
 same fp32 operations, a true division and round half to even).  Flash
 bias: o, dq, dk, dv as flash attention's (its bf16/fp16 kernels are on
 the tensor cores with the same hi + lo design, held also with dO × 2^-12
@@ -604,12 +606,15 @@ def test_gmm_kernel_matches_plain(card, dtype, case):
 
 
 # (group sizes, K, N, rows past the groups) for the TMA routes: groups
-# straddling 128-row tiles, empty first and last experts, a one-row group
+# straddling 128-row tiles, empty first and last experts, a one-row group;
+# an expert of exactly 64 rows that starts inside a 64-row box, with K and
+# N not multiples of dw's 128 x 256 tile
 TMA_CASES = {
     "straddle": ([0, 130, 1, 257, 0, 64, 3, 0], 128, 256, 0),
     "rows_past": ([70, 0, 190], 192, 136, 37),
     "decode": ([2] * 8, 256, 384, 0),
     "one_row": ([1], 64, 8, 5),
+    "mid_box": ([37, 64, 0, 100, 5], 320, 328, 11),
 }
 
 
@@ -695,9 +700,9 @@ def _bwd_tol(dtype, ref):
 @pytest.mark.parametrize("case", sorted(TMA_CASES))
 def test_gmm_backward_kernels_match_plain(card, case, dtype):
     """dx on every route its dtype has (wgmma + TMA at 128 and 64 rows a
-    tile, the CUDA cores) and dw (mma.sync for 16-bit, the CUDA cores)
-    against their plain versions; reruns bit-equal; dx's rows past the
-    groups and an empty expert's dw are zeros."""
+    tile, the CUDA cores) and dw (wgmma + TMA and mma.sync for 16-bit, the
+    CUDA cores) against their plain versions; reruns bit-equal; dx's rows
+    past the groups and an empty expert's dw are zeros."""
     sizes, K, N, extra = TMA_CASES[case]
     x, w, gs = _gmm_inputs(card, dtype, sizes, K, N, extra)
     dy = torch.randn(x.shape[0], N, generator=torch.Generator().manual_seed(
@@ -723,6 +728,68 @@ def test_gmm_backward_kernels_match_plain(card, case, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "fp16"])
+@pytest.mark.parametrize("case", sorted(TMA_CASES))
+def test_gmm_dw_keeps_a_neighbours_nonfinite_rows_out(card, case, dtype):
+    """An expert's last rows share a box with the next experts' (and with
+    the rows past the groups): with -inf in x and +inf in dy on every
+    other expert's rows, and NaN past the groups, each of the other
+    experts' dw is finite and bit-equal to the run on clean inputs, on
+    every 16-bit dw route; an empty expert's dw is exactly zero."""
+    sizes, K, N, extra = TMA_CASES[case]
+    x, _, gs = _gmm_inputs(card, dtype, sizes, K, N, extra)
+    dy = torch.randn(x.shape[0], N, generator=torch.Generator().manual_seed(
+        5)).to(card, dtype)
+    starts = [sum(sizes[:e]) for e in range(len(sizes))]
+    live = [e for e, n in enumerate(sizes) if n]
+    for parity in (0, 1):
+        bad = live[parity::2]
+        xp, dyp = x.clone(), dy.clone()
+        for e in bad:
+            xp[starts[e]:starts[e] + sizes[e]] = -float("inf")
+            dyp[starts[e]:starts[e] + sizes[e]] = float("inf")
+        xp[sum(sizes):] = float("nan")
+        dyp[sum(sizes):] = float("nan")
+        for route in gm.BWD_ROUTES["dw"]:
+            clean = gm.gmm_dw(x, dy, gs, route=route)
+            got = gm.gmm_dw(xp, dyp, gs, route=route)
+            torch.cuda.synchronize()
+            for e in range(len(sizes)):
+                if e in bad:
+                    assert not got[e].isfinite().all(), (route, e)
+                    continue
+                assert got[e].isfinite().all(), (route, parity, e)
+                assert torch.equal(got[e], clean[e]), (route, parity, e)
+                if sizes[e] == 0:
+                    assert not got[e].any(), (route, e)
+
+
+@pytest.mark.cuda
+def test_gmm_dw_refuses_a_route_that_cannot_take_the_arguments(card):
+    """The dw entry refuses wgmma + TMA for K or N not a multiple of 8, an
+    unaligned x, or fp32, and mma.sync for fp32, rather than compute a
+    wrong result; the wrapper picks mma.sync for those 16-bit shapes."""
+    x, _, gs = _gmm_inputs(card, torch.bfloat16, [40, 24], 100, 64, 0)
+    dy = torch.randn(64, 64, device=card, dtype=torch.bfloat16)
+    base = torch.zeros(64 * 128 + 4, dtype=torch.bfloat16, device=card)
+    shifted = base[4:].view(64, 128)                   # 8 bytes off
+    for args, route in (((x, dy, gs), "wgmma_tma"),
+                        ((dy, x[:, :60].contiguous(), gs), "wgmma_tma"),
+                        ((shifted, dy, gs), "wgmma_tma"),
+                        ((x.float(), dy.float(), gs), "wgmma_tma"),
+                        ((x.float(), dy.float(), gs), "mma_sync")):
+        with pytest.raises(RuntimeError, match=route):
+            gm.gmm_dw(*args, route=route)
+    before = dict(gm.gmm_dw.route_launches)
+    got = gm.gmm_dw(x, dy, gs)
+    assert gm.gmm_dw.route_launches["mma_sync"] == before["mma_sync"] + 1
+    want = gm.gmm_dw_plain(x, dy, gs).float()
+    over = (got.float() - want).abs() / _bwd_tol(torch.bfloat16, want)
+    assert over.max().item() <= 1.0
+
+
+@pytest.mark.cuda
 def test_gmm_autograd_launches_the_backward_kernels(card):
     """Through ``gmm`` under autograd: one dx and one dw launch a
     backward, on :func:`gmm_bwd_route`'s routes, and the gradients are
@@ -732,12 +799,14 @@ def test_gmm_autograd_launches_the_backward_kernels(card):
     w.requires_grad_(True)
     dy = torch.randn(x.shape[0], 256, device=card, dtype=torch.bfloat16)
     before = (gm.gmm_dx.launches, gm.gmm_dw.launches,
-              dict(gm.gmm_dx.route_launches))
+              dict(gm.gmm_dx.route_launches), dict(gm.gmm_dw.route_launches))
     gx, gw = torch.autograd.grad(gm.gmm(x, w, gs), (x, w), dy)
     assert (gm.gmm_dx.launches, gm.gmm_dw.launches) == \
         (before[0] + 1, before[1] + 1)
     assert gm.gmm_dx.route_launches["wgmma_tma"] == \
         before[2]["wgmma_tma"] + 1
+    assert gm.gmm_dw.route_launches["wgmma_tma"] == \
+        before[3]["wgmma_tma"] + 1
     assert torch.equal(gx, gm.gmm_dx(dy, w.detach(), gs))
     assert torch.equal(gw, gm.gmm_dw(x.detach(), dy, gs))
     n = gm.gmm_dx.launches

@@ -136,17 +136,27 @@ def test_gmm_grad_matches_ragged_dot(sizes, dtype):
 def test_backward_routes_are_a_function_of_shapes():
     """dx takes wgmma + TMA at Mixtral's widths (64-row tiles at decode
     sizes), the CUDA cores where TMA cannot take the shapes or for fp32;
-    dw takes mma.sync for 16-bit types."""
-    bf = torch.bfloat16
+    dw takes wgmma + TMA at Mixtral's widths, mma.sync for the other
+    16-bit shapes (K or N not a multiple of 8, x or dy unaligned), the
+    CUDA cores for fp32."""
+    bf, fp16 = torch.bfloat16, torch.float16
+    assert gm.BWD_ROUTES["dw"] == ("wgmma_tma", "mma_sync", "simt")
     for K, N in ((4096, 14336), (14336, 4096)):
         assert gm.gmm_bwd_route("dx", 16384, K, N, bf, 0, 0) == "wgmma_tma"
         assert gm.gmm_bwd_route("dx", 64, K, N, bf, 0, 0) == "wgmma_tma_64"
-        assert gm.gmm_bwd_route("dw", 16384, K, N, bf, 0, 0) == "mma_sync"
+        for T, dt in ((16384, bf), (64, bf), (16384, fp16)):
+            assert gm.gmm_bwd_route("dw", T, K, N, dt, 0, 0) == "wgmma_tma"
         assert gm.gmm_bwd_route("dx", 16, K, N, torch.float32, 0, 0) == \
+            "simt"
+        assert gm.gmm_bwd_route("dw", 16384, K, N, torch.float32, 0, 0) == \
             "simt"
     assert gm.gmm_bwd_route("dx", 512, 4096, 14340, bf, 0, 0) == "simt"
     assert gm.gmm_bwd_route("dx", 512, 4100, 4096, bf, 0, 0) == "simt"
     assert gm.gmm_bwd_route("dx", 512, 4096, 4096, bf, 8, 0) == "simt"
+    for K, N, x_addr, dy_addr in ((4096, 14340, 0, 0), (4100, 4096, 0, 0),
+                                  (4096, 4096, 8, 0), (4096, 4096, 0, 2)):
+        assert gm.gmm_bwd_route("dw", 512, K, N, bf, x_addr, dy_addr) == \
+            "mma_sync"
     with pytest.raises(ValueError, match="'dx' or 'dw'"):
         gm.gmm_bwd_route("dz", 1, 8, 8, bf, 0, 0)
     before = (gm.gmm_dx.launches, gm.gmm_dw.launches)
@@ -154,6 +164,103 @@ def test_backward_routes_are_a_function_of_shapes():
     w = torch.ones(2, 8, 4, requires_grad=True)
     gm.gmm(x, w, torch.tensor([3, 3], dtype=torch.int32)).sum().backward()
     assert (gm.gmm_dx.launches, gm.gmm_dw.launches) == before
+
+
+def _dw_in_boxes(x, dy, sizes, box=64):
+    """The order of the wgmma dw kernel, in plain PyTorch: per expert,
+    boxes of ``box`` rows from its own first row (rows past T read as
+    zeros, as TMA fills them), the rows of a box past the expert zeroed in
+    both operands, the boxes' products summed in fp32, one rounding to
+    x's dtype at the end."""
+    T, K = x.shape
+    N = dy.shape[1]
+    xz = torch.cat([x.float(), torch.zeros(box, K)])
+    dyz = torch.cat([dy.float(), torch.zeros(box, N)])
+    dw = torch.zeros(len(sizes), K, N, dtype=x.dtype)
+    start = 0
+    for e, n in enumerate(sizes):
+        end = min(start + n, T)
+        acc = torch.zeros(K, N)
+        for r0 in range(start, end, box):
+            xb, dyb = xz[r0:r0 + box].clone(), dyz[r0:r0 + box].clone()
+            xb[end - r0:] = 0
+            dyb[end - r0:] = 0
+            acc += xb.t() @ dyb
+        dw[e] = acc.to(x.dtype)
+        start += n
+    return dw
+
+
+DW_BOX_CASES = {
+    # an expert starting mid-box, one shorter than a box, an empty one, an
+    # expert of exactly one box starting mid-box, rows past the sizes
+    "mid_box_start": ([37, 100, 0, 64, 5], 0),
+    "short_and_empty": ([20, 0, 9, 150], 0),
+    "rows_past": ([70, 0, 45], 23),
+    "one_short": ([3], 40),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DW_BOX_CASES))
+@pytest.mark.parametrize("poison", [False, True], ids=["clean", "inf"])
+def test_dw_box_order_matches_ragged_dot(case, poison):
+    """The wgmma dw kernel's order (:func:`_dw_in_boxes`) against
+    ``jax.vjp`` of ``lax.ragged_dot`` at bf16, with the tolerance of
+    :func:`test_gmm_grad_matches_ragged_dot`; an empty expert's dw is
+    exactly zero.  ``inf``: +inf planted in the dy rows of every other
+    expert (the ones whose rows share a box with their predecessor's last
+    rows) and past the sizes: each remaining expert's dw stays finite and
+    equal to the clean reference, which holds only because the box's
+    foreign rows are zeroed in dy too (0 · inf is NaN)."""
+    sizes, extra = DW_BOX_CASES[case]
+    r = np.random.default_rng(9)
+    T, K, N, E = sum(sizes) + extra, 24, 40, len(sizes)
+
+    def pair(a):
+        j = jnp.asarray(a, jnp.bfloat16)
+        return j, torch.from_numpy(np.array(j.astype(jnp.float32))).to(
+            torch.bfloat16)
+
+    xj, xt = pair(r.standard_normal((T, K)))
+    wj, _ = pair(r.standard_normal((E, K, N)) / np.sqrt(K))
+    dyj, dyt = pair(r.standard_normal((T, N)))
+    gsj = jnp.asarray(sizes, jnp.int32)
+    _, vjp = jax.vjp(lambda x, w: jax.lax.ragged_dot(x, w, gsj), xj, wj)
+    want = _np(vjp(dyj)[1])
+    starts = np.cumsum([0] + sizes[:-1])
+    bad = [e for e, n in enumerate(sizes) if n][1::2] if poison else []
+    if poison:
+        for e in bad:
+            dyt[starts[e]:starts[e] + sizes[e]] = float("inf")
+        dyt[sum(sizes):] = float("inf")
+    got = _dw_in_boxes(xt, dyt, sizes)
+    assert got.dtype == torch.bfloat16 and got.shape == (E, K, N)
+    for e in range(E):
+        if e in bad:
+            assert not got[e].isfinite().all()
+            continue
+        g = _np(got[e])
+        assert np.isfinite(g).all()
+        assert np.all(np.abs(g - want[e]) <= 2.0**-7 * np.abs(want[e]) +
+                      1e-6)
+        if sizes[e] == 0:
+            assert not got[e].any()
+    if poison:
+        # the foreign rows are zeroed in dy as well as in x: with x's alone
+        # zeroed, 0 · inf would make the expert's sum NaN
+        xz = torch.cat([xt.float(), torch.zeros(64, K)])
+        dyz = torch.cat([dyt.float(), torch.zeros(64, N)])
+        hit = 0
+        for e, n in enumerate(sizes):
+            if not n or e in bad:
+                continue
+            r0 = starts[e] + (n - 1) // 64 * 64
+            xb = xz[r0:r0 + 64].clone()
+            xb[starts[e] + n - r0:] = 0
+            if not dyz[r0:r0 + 64].isfinite().all():
+                hit += 1
+                assert not (xb.t() @ dyz[r0:r0 + 64]).isfinite().all()
+        assert hit
 
 
 # ------------------------------------------------------------- the model
