@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--json PATH] [--profile DIR]
 
-Stages, run in the order 1-31; any failure exits non-zero:
+Stages, run in the order 1-32; any failure exits non-zero:
 
 1. environment: torch/CUDA/nvcc versions, the card's name and power limit;
 2. build: every ``deepspeed_tpu_torch/csrc/*.cu`` with nvcc for sm_90a
@@ -330,6 +330,18 @@ Stages, run in the order 1-31; any failure exits non-zero:
     bf16) through engine steps on the NCCL world of one rank, with
     ``moe`` off and with the int8 ``quantized_dispatch``: bit-equal (one
     rank exchanges nothing, as in JAX).
+
+32. pipeline ZeRO: stage 29 (b)'s model and batches (GPT-3 13B width,
+    4 blocks, M = 4 microbatches of 1 × 2048, bf16, ``fusedadam``, remat,
+    NCCL world 1) through the ``PipelineEngine`` at pp = 1 under ZeRO 3,
+    ZeRO 2 with ``overlap_comm`` and ZeRO 1 with ``offload_optimizer:
+    cpu`` (master and moments pinned on the host, B2 updating them in
+    place), each against the base engine on ``to_module()`` at the same
+    configuration: 3 steps, losses and master digest bit-equal, B1's and
+    B2's launches (counted from 0 around each run) those the schedule
+    implies, step ms and peak; the ZeRO-3 pipeline engine saves a tag
+    after step 2 (seconds, GB, files), a fresh engine loads it (seconds)
+    and its step 3 equals the unbroken run's, loss and master digest.
 
 ``--profile DIR`` adds ``torch.profiler`` windows over serving (stages 4,
 14 and 15), over two training steps of stage 8, of stage 11, of stage 22
@@ -5546,6 +5558,162 @@ def stage_pipeline(seed, smi):
                 ulysses=ulysses, pipeline=p, base=b, seconds=seconds)
 
 
+# ----------------------------------------------------------- stage 32
+PIPE_ZERO = {
+    "zero3": {"stage": 3},
+    "zero2_overlap": {"stage": 2, "overlap_comm": True},
+    "zero1_offload": {"stage": 1, "offload_optimizer": {"device": "cpu"}},
+}
+
+
+def stage_pipeline_zero(seed, smi):
+    """Stage 32: the ``PipelineEngine`` at pp = 1 under ZeRO 3, bucketed
+    ZeRO 2 and optimizer offload against the base engine, and a resume of
+    the ZeRO-3 pipeline from its tag (module docstring)."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models.gpt2 import gpt3_13b, pipeline_module
+    t0 = time.perf_counter()
+    _free(torch)
+    deepspeed_tpu_torch.init_distributed(dist_backend="nccl")
+    if comm.get_world_size() != 1:
+        raise AssertionError(f"{comm.get_world_size()} ranks")
+    cfg = gpt3_13b(num_hidden_layers=PIPE_LAYERS)
+    B, S, L = 1, 2048, PIPE_LAYERS
+    rng = np.random.default_rng(seed + 290)      # stage 29 (b)'s batches
+    batches = []
+    for _ in range(PIPE_M):
+        ids = rng.integers(0, cfg.vocab_size, size=(B, S))
+        batches.append((torch.from_numpy(ids).cuda(),
+                        torch.from_numpy(np.roll(ids, -1, axis=1)).cuda()))
+
+    def make(kind, zero):
+        pm = pipeline_module(cfg, activation_checkpoint_interval=1)
+        model = pm if kind == "pipeline" else pm.to_module(device="meta")
+        engine = deepspeed_tpu_torch.initialize(
+            model=model, config=dict(_pipe_config(), zero_optimization=zero),
+            dist_init_required=True)[0]
+        engine.initialize_parameters(seed)
+        return engine
+
+    def digest(engine):
+        flat = engine.fp32_params()[:engine.zero_plan.numel]
+        return _digest(torch, engine, flat.to("cuda"))
+
+    def want(steps):
+        return dict(flash_attention_fwd=2 * L * PIPE_M * steps,  # remat
+                    flash_attention_bwd_dq=L * PIPE_M * steps,
+                    flash_attention_bwd_dkv=L * PIPE_M * steps,
+                    fused_adam_step=steps)
+
+    save_dir = tempfile.mkdtemp(prefix="ds_pipe_ckpt_")
+    runs, resume = {}, None
+    try:
+        for name, zero in PIPE_ZERO.items():
+            pair = {}
+            for kind in ("pipeline", "base"):
+                torch.cuda.reset_peak_memory_stats()
+                engine = make(kind, zero)
+                pipeline = kind == "pipeline"
+                if name == "zero3" and pipeline:
+                    losses, times, launches = _pipe_steps(
+                        torch, engine, batches, 2, True)
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    engine.save_checkpoint(save_dir, tag="t")
+                    save_s = time.perf_counter() - t
+                    more, more_t, more_l = _pipe_steps(torch, engine,
+                                                       batches, 1, True)
+                    losses, times = losses + more, times + more_t
+                    launches = {k: launches.get(k, 0) + more_l.get(k, 0)
+                                for k in set(launches) | set(more_l)}
+                else:
+                    losses, times, launches = _pipe_steps(
+                        torch, engine, batches, 3, pipeline)
+                pair[kind] = dict(
+                    losses=losses, times=times, launches=launches,
+                    type=type(engine).__name__, digest=digest(engine),
+                    params=engine.zero_plan.numel,
+                    placement=engine.state_placement(),
+                    peak=torch.cuda.max_memory_allocated())
+                del engine
+                _free(torch)
+                if name == "zero3" and pipeline:
+                    root = os.path.join(save_dir, "t")
+                    files = {f: os.path.getsize(os.path.join(root, f))
+                             for f in sorted(os.listdir(root))}
+                    fresh = deepspeed_tpu_torch.initialize(
+                        model=pipeline_module(
+                            cfg, activation_checkpoint_interval=1),
+                        config=dict(_pipe_config(), zero_optimization=zero),
+                        dist_init_required=True)[0]
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    fresh.load_checkpoint(save_dir)
+                    torch.cuda.synchronize()
+                    load_s = time.perf_counter() - t
+                    r_losses, _, r_launches = _pipe_steps(torch, fresh,
+                                                          batches, 1, True)
+                    resume = dict(save_s=save_s, load_s=load_s,
+                                  files=files, tag_bytes=sum(files.values()),
+                                  losses=r_losses, launches=r_launches,
+                                  digest=digest(fresh))
+                    del fresh
+                    _free(torch)
+                    shutil.rmtree(root, ignore_errors=True)
+            p, b = pair["pipeline"], pair["base"]
+            same = p["losses"] == b["losses"] and p["digest"] == b["digest"]
+            log(f"[pipeline-zero] {name} ({zero}): GPT-3 13B width, {L} "
+                f"blocks, {p['params']:,} parameters, S={S}, M={PIPE_M} "
+                f"microbatches of {B}, bf16, fusedadam, remat, NCCL world "
+                f"1: {p['type']} (pp = 1) losses " + ", ".join(
+                    f"{x:.6f}" for x in p["losses"]) + "; the base engine "
+                "on to_module() " + ", ".join(
+                    f"{x:.6f}" for x in b["losses"]) + f"; losses and "
+                f"master digest {'bit-equal' if same else 'DIFFER'} | step "
+                f"ms " + ", ".join(f"{t * 1e3:.1f}" for t in p["times"])
+                + " (base " + ", ".join(f"{t * 1e3:.1f}" for t in b["times"])
+                + f") | peak {p['peak'] / 2**30:.2f} GiB (base "
+                f"{b['peak'] / 2**30:.2f}) | state {p['placement']} | "
+                f"launches {p['launches']} (base {b['launches']}) | {smi}")
+            if p["type"] != "PipelineEngine" or not same or \
+                    not all(np.isfinite(p["losses"])):
+                raise AssertionError(
+                    f"{name}: the pipeline apart from the base engine: "
+                    f"{p['losses']} vs {b['losses']}, digest equal "
+                    f"{p['digest'] == b['digest']}")
+            if p["launches"] != want(3) or b["launches"] != want(3):
+                raise AssertionError(f"{name}: launches {p['launches']} "
+                                     f"(base {b['launches']}), want "
+                                     f"{want(3)}")
+            if name == "zero1_offload" and \
+                    p["placement"].get("master") != "host":
+                raise AssertionError(f"{name}: state {p['placement']}")
+            runs[name] = pair
+    finally:
+        shutil.rmtree(save_dir, ignore_errors=True)
+    z3 = runs["zero3"]["pipeline"]
+    ok = (resume["losses"] == z3["losses"][2:] and
+          resume["digest"] == z3["digest"] and resume["launches"] == want(1))
+    log(f"[pipeline-zero] zero3 resume: save after step 2 "
+        f"{resume['save_s']:.2f} s, {resume['tag_bytes'] / 1e9:.2f} GB ("
+        + ", ".join(f"{f} {n:,} B" for f, n in resume["files"].items())
+        + f"); load {resume['load_s']:.2f} s; step 3 from the tag "
+        f"{resume['losses']} against the unbroken run's {z3['losses'][2:]}"
+        f", master digest {'equal' if ok else 'DIFFERS'}; launches "
+        f"{resume['launches']} | {smi}")
+    if not ok:
+        raise AssertionError(f"the resumed ZeRO-3 pipeline left the "
+                             f"unbroken run: {resume}")
+    seconds = time.perf_counter() - t0
+    log(f"[pipeline-zero] stage 32 took {seconds:.1f} s")
+    return dict(runs=runs, resume=resume, seconds=seconds)
+
+
 # ----------------------------------------------------------- stage 30
 def _state_digests(torch, tensors):
     """A digest a tensor (bits × place, wrapping in int64), to tell
@@ -6188,6 +6356,7 @@ def main():
     pipe = stage_pipeline(args.seed, smi)
     uni_onebit = stage_universal_onebit(args.seed, smi)
     moe_train = stage_moe_train(args.seed, smi)
+    pipe_zero = stage_pipeline_zero(args.seed, smi)
 
     entries = []
     for wrapper, case in (("paged_attention", "serve_decode"),
@@ -6296,6 +6465,17 @@ def main():
         library_ms_ulysses=ul["library_ms_bwd"],
         max_abs_err_ulysses=ul["err_bwd"])
     entries[-1]["launches_pipeline"] = counted["fused_adam_step"]
+    # stage 32: B1 and B2 in each pipeline ZeRO run's three steps, counted
+    # from 0 around each run (the ZeRO-3 run's around its two legs about
+    # the save), summed over the runs
+    pz = [r["pipeline"]["launches"] for r in pipe_zero["runs"].values()]
+    entries[-3]["launches_pipeline_zero"] = sum(
+        c["flash_attention_fwd"] for c in pz)
+    entries[-2]["launches_pipeline_zero"] = sum(
+        c["flash_attention_bwd_dq"] + c["flash_attention_bwd_dkv"]
+        for c in pz)
+    entries[-1]["launches_pipeline_zero"] = sum(c["fused_adam_step"]
+                                                for c in pz)
     # stage 30: B1 and B2 in the ZeRO-3 engine's two steps from the
     # universal tag, B1 in the streamed engine's, and B1 under the three
     # 1-bit optimizers' five steps each, each counted from 0 around its run
@@ -6552,7 +6732,7 @@ def main():
                            save_resume=save_resume, offload=offload,
                            zeropp=zeropp, pipeline=pipe,
                            universal_onebit=uni_onebit,
-                           moe_train=moe_train,
+                           moe_train=moe_train, pipeline_zero=pipe_zero,
                            seconds=time.perf_counter() - t_start),
                       f, indent=1, default=str)
     from deepspeed_tpu_torch import comm

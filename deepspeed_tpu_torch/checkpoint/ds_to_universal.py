@@ -16,8 +16,13 @@ layout the JAX package reads:
 ``name`` is the JAX package's flax path and the arrays are in the flax
 shapes when the tag's model has ``params_to_flax`` (its record in
 ``engine_state.json``, ``checkpoint_engine.module_record``);
-``param_names`` is then ``"flax"``.  Otherwise the module's torch names and
-shapes stay and ``param_names`` says ``"torch"``.  Runs on the CPU.
+``param_names`` is then ``"flax"``.  A tag of a ``PipelineModule`` (a
+pipeline's stages, or the base engine on ``to_module()``) records its
+geometry instead, and its leaves are written as the JAX
+``PipelineEngine``'s tree (``runtime/pipe/module.py:params_to_flax``: the
+block stack laid out for the tag's stage count, pad slots zero).
+Otherwise the module's torch names and shapes stay and ``param_names``
+says ``"torch"``.  Runs on the CPU.
 
 A tag of ZeRO-Infinity parameter streaming (``runtime/infinity_engine.py``)
 converts too, as JAX's ``_convert_infinity`` does: the world-1
@@ -43,9 +48,15 @@ _STREAMED_STATE = ("lr_scheduler", "client_state", "data_sampler",
                    "curriculum_scheduler")
 
 
-def flax_converter(record):
+def flax_converter(record, pipeline=None):
     """``named → flax tree`` of the model a tag's ``"module"`` record
-    names, or None."""
+    names, or of the ``PipelineModule`` whose geometry its ``"pipeline"``
+    record holds (the JAX ``PipelineEngine``'s tree, its block stack laid
+    out for the tag's stage count), or None."""
+    if pipeline:
+        from ..runtime.pipe.module import params_to_flax
+        return lambda named: params_to_flax(named, pipeline,
+                                            pipeline["num_stages"])
     if not record:
         return None
     mod = importlib.import_module(record["module"])
@@ -81,7 +92,8 @@ def convert_to_universal(checkpoint_dir, output_dir, tag=None):
     held = [f for f in STATE_FIELDS if any(f in flats for _, flats in
                                            sources)]
     fields = {f: assemble(shapes, sources, f) for f in held}
-    to_flax = flax_converter(engine_state.get("module"))
+    to_flax = flax_converter(engine_state.get("module"),
+                             engine_state.get("pipeline"))
     if to_flax is not None:
         fields = {f: flatten(to_flax(full)) for f, full in fields.items()}
     else:

@@ -10,7 +10,9 @@ fp32 master and the moments; the compute-dtype parameters are the master's
 cast, as in JAX.  Directories written by the JAX package (and by the port
 for models with ``params_to_flax``) name flax paths in flax shapes: each
 field (``fp32``, ``exp_avg``, ``exp_avg_sq``) goes through the model's
-``params_from_flax`` as a tree of its own.  A field no parameter has is
+``params_from_flax`` as a tree of its own (a pipeline stage's: the JAX
+``PipelineEngine``'s tree, so a directory loads into a pipeline at any
+pp, each stage taking its own leaves).  A field no parameter has is
 left as it is (Lion has no ``exp_avg_sq``); one that some parameters lack
 raises.
 
@@ -44,15 +46,31 @@ def _unflatten(leaves):
     return tree
 
 
-def _from_flax(module):
-    """``flax tree → {name: fp32 tensor}`` for the engine's model."""
+def _from_flax(module, meta, trees):
+    """``{field: flax tree} → {field: {name: fp32 tensor}}`` for the
+    engine's model; for a ``PipelineModule``'s stage, from the JAX
+    ``PipelineEngine``'s tree laid out for the stage count the directory
+    records (else the one its block stacks show:
+    ``pipe/module.py:stages_of_block_stack``)."""
+    pipe = getattr(module, "pipe", None)
+    if pipe is not None:
+        from ..runtime.pipe import module as pipe_module
+        record = meta.get("engine_state", {}).get("pipeline") or {}
+        pp = record.get("num_stages")
+        if pp is None:
+            pp = pipe_module.stages_of_block_stack(
+                pipe_module.geometry(pipe),
+                [t["blocks"] for t in trees.values()])
+        return {f: pipe_module.params_from_flax(t, pipe, pp)
+                for f, t in trees.items()}
     pymod = sys.modules.get(type(module).__module__)
     convert = getattr(pymod, "params_from_flax", None)
     if convert is None or getattr(module, "config", None) is None:
         raise ValueError(
             f"{type(module).__name__} has no params_from_flax: a universal "
             "checkpoint with flax names cannot be mapped onto it")
-    return lambda tree: convert(tree, module.config, dtype="float32")
+    return {f: convert(t, module.config, dtype="float32")
+            for f, t in trees.items()}
 
 
 def read_universal(root, module):
@@ -79,9 +97,8 @@ def read_universal(root, module):
     if "fp32" not in fields:
         raise KeyError(f"universal checkpoint {root} holds no fp32 weights")
     if meta.get("param_names", "flax") == "flax":
-        convert = _from_flax(module)
-        fields = {f: convert(_unflatten(leaves))
-                  for f, leaves in fields.items()}
+        fields = _from_flax(module, meta, {
+            f: _unflatten(leaves) for f, leaves in fields.items()})
     else:
         fields = {f: {n: torch.from_numpy(np.asarray(a, np.float32))
                       for n, a in leaves.items()}

@@ -12,7 +12,12 @@ writes ``{name: fp32 tensor}`` (the module's names) with ``torch.save``.
 It reads the port's tags and upstream torch DeepSpeed's ZeRO 0-3 tags, which
 share one scheme: rank 0's ``mp_rank_00_model_states.pt`` (``"module"``,
 ``"param_shapes"``) and one ``zero_pp_rank_{r}_mp_rank_00_optim_states.pt``
-a partition.  Their ``"optimizer_state_dict"`` is either
+a partition.  A pipeline tag of the port has one ``mp_rank_{s:02d}`` file
+a stage s (its leaves' shapes, and the ``layer_{idx:02d}-model_states.pt``
+files holding its layers' weights) and optim files
+``zero_pp_rank_{r}_mp_rank_{s:02d}_optim_states.pt``; a leaf tied across
+stages lies in its first stage's files only.  Their
+``"optimizer_state_dict"`` is either
 
 * stage ≤ 2 content (the port's at every stage): ``param_slice_mappings``
   (per group ``{name: fragment_address(numel, start)}``),
@@ -53,7 +58,8 @@ import types
 import torch
 
 MODEL_FILE = "mp_rank_00_model_states.pt"
-OPTIM_GLOB = "zero_pp_rank_*_mp_rank_00_optim_states.pt"
+MODEL_GLOB = "mp_rank_*_model_states.pt"
+OPTIM_GLOB = "zero_pp_rank_*_mp_rank_*_optim_states.pt"
 FIELDS = ("fp32", "exp_avg", "exp_avg_sq")
 UPSTREAM_FRAGMENT = ("deepspeed.utils.tensor_fragment", "fragment_address")
 
@@ -64,8 +70,18 @@ fragment_address = collections.namedtuple("fragment_address",
 fragment_address.__module__ = UPSTREAM_FRAGMENT[0]
 
 
-def optim_file(rank):
-    return f"zero_pp_rank_{rank}_mp_rank_00_optim_states.pt"
+def optim_file(rank, mp_rank=0):
+    return f"zero_pp_rank_{rank}_mp_rank_{mp_rank:02d}_optim_states.pt"
+
+
+def model_file(mp_rank):
+    return f"mp_rank_{mp_rank:02d}_model_states.pt"
+
+
+def layer_file(idx):
+    """Upstream ``PipelineModule.ckpt_layer_path`` without a tensor-parallel
+    rank: one file a layer, named by its index in the model."""
+    return f"layer_{idx:02d}-model_states.pt"
 
 
 class _Anything:
@@ -146,16 +162,40 @@ def _step(state):
     return None if step is None else int(step)
 
 
+def _merge_stages(root, stage_sds, mmap=True):
+    """One model state of a pipeline tag's stages (``mp_rank_{s}`` a
+    stage): every stage's ``param_shapes``, in stage order, and the module
+    from the layer files each stage names (``"layers"``: {file: the
+    layer's prefix in the parameters' names})."""
+    out = dict(stage_sds[0])
+    shapes, module = collections.OrderedDict(), collections.OrderedDict()
+    for sd in stage_sds:
+        shapes.update(param_shapes(sd))
+        for name, prefix in (sd.get("layers") or {}).items():
+            for k, v in load_file(os.path.join(root, name), mmap).items():
+                module[f"{prefix}.{k}"] = v
+    out["param_shapes"] = [shapes]
+    out["module"] = module or None
+    return out
+
+
 def read_zero_tag(root, mmap=True):
     """``(model states, {name: shape}, sources, step)`` of the tag at
     ``root`` (module docstring); ``step`` is the optimizer's count, or None
-    when no file records it."""
+    when no file records it.  A pipeline tag's stages (``mp_rank_{s}``)
+    are read as one model."""
     model_path = os.path.join(root, MODEL_FILE)
     if not os.path.exists(model_path):
         raise FileNotFoundError(f"no {MODEL_FILE} under {root}")
     model_sd = load_file(model_path, mmap)
+    stages = sorted(glob.glob(os.path.join(root, MODEL_GLOB)), key=_rank_of)
+    if len(stages) > 1 or model_sd.get("layers"):
+        model_sd = _merge_stages(root, [load_file(p, mmap) for p in stages],
+                                 mmap)
     shapes = param_shapes(model_sd)
-    paths = sorted(glob.glob(os.path.join(root, OPTIM_GLOB)), key=_rank_of)
+    # by stage (mp rank), then partition: a leaf lies in one stage's files
+    paths = sorted(glob.glob(os.path.join(root, OPTIM_GLOB)),
+                   key=lambda p: _rank_of(p)[::-1])
     if model_sd.get("frozen_param_shapes"):
         raise ValueError(f"{root}: frozen parameters are not read (the "
                          "port trains every parameter)")

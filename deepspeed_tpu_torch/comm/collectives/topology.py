@@ -103,7 +103,7 @@ def factor_group(group, intra_node_size=0):
     if s <= 1 or s >= n or n % s:
         return None
     from ...utils import groups
-    made = groups.get_mesh_state().factors.get(s)
+    made = groups.get_mesh_state().factors.get((s, n))
     if made is None:
         raise RuntimeError(
             f"no subgroups of {s} ranks a node: they are made when the mesh "

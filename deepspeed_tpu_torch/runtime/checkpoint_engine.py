@@ -42,6 +42,33 @@ what is its own, JAX's other ``OnebitState`` fields, to
 at another one the error buffers restart at zero (their sizes depend on
 the world) and the extras are rank 0's.
 
+Under a pipeline of more than one stage (``runtime/pipe/engine.py``) every
+stage writes what it owns, and a leaf tied across stages is written once,
+by the first stage holding it:
+
+    {save_dir}/{tag}/mp_rank_{s:02d}_model_states.pt   the first data rank
+        of stage s: {"module": None, "param_shapes": [its leaves],
+        "layers": {layer file: the layer's prefix in the names}, the
+        counters, "mp_world_size": pp}
+    {save_dir}/{tag}/layer_{idx:02d}-model_states.pt   one a layer (idx its
+        index in the ``PipelineModule``; a tied key's layer is its first
+        occurrence): {name within the layer: compute-dtype tensor}
+    {save_dir}/{tag}/zero_pp_rank_{d}_mp_rank_{s:02d}_optim_states.pt
+        the content above, one a partition d of stage s's data group
+
+These are upstream DeepSpeed's pipeline names (``PipelineModule.
+ckpt_layer_path`` without a tensor-parallel rank; upstream's mp rank of a
+pipeline is the stage's rank in its model group, the stage here).  The
+leaves keep their names whatever the split (``blocks.{j}`` is block j of
+the model), so a tag loads at another pp, dp, sp or stage, and into the
+base engine on ``PipelineModule.to_module()``, by
+``ZeroPartitionPlan.fill_shard`` over every stage's pieces; the commit
+waits for every rank of every stage.  ``engine_state.json`` holds the
+pipeline's geometry (``runtime/pipe/module.py:geometry``), from which the
+universal converter writes the JAX engine's names.  Under sequence
+parallelism the partitions are over the data group dp × sp, named by the
+rank in it.
+
 With MiCS (``mics_shard_size``) the state is sharded within a shard group
 and replicated across the groups: the first group's ranks alone write
 their partitions, named by their rank in the group, so a tag holds one
@@ -67,7 +94,8 @@ import torch
 
 from ..checkpoint import zero_to_fp32
 from ..checkpoint.zero_to_fp32 import (MODEL_FILE, fragment_address,
-                                       optim_file, read_zero_tag)
+                                       layer_file, model_file, optim_file,
+                                       read_zero_tag)
 from ..utils.fault_injection import fault_point
 from ..utils.logging import log_dist, logger
 from ..utils.not_ported import not_ported
@@ -469,6 +497,12 @@ def engine_state(engine, client_state=None):
         "dp_world_size": engine.dp_world_size,
         "client_state": client_state or {},
     }
+    pipe = getattr(engine.module, "pipe", None)
+    if pipe is not None:
+        # what the universal converter needs to write JAX's names
+        from .pipe.module import geometry
+        state["pipeline"] = dict(geometry(pipe),
+                                 num_stages=engine.pp_world_size)
     if engine.lr_scheduler is not None and hasattr(engine.lr_scheduler,
                                                    "state_dict"):
         state["lr_scheduler"] = engine.lr_scheduler.state_dict()
@@ -487,10 +521,11 @@ def optim_state_dict(engine):
         if t is not None:
             state[key] = _host(t)
     frags = plan.fragment_map(engine._layout,
-                              dense=plan.sharded or engine.dp_rank == 0)
+                              dense=plan.sharded or engine._data_rank == 0)
+    skip = engine._tied_copies()
     mapping = OrderedDict(
         (name, fragment_address(numel=k, start=off))
-        for name, (k, off, _) in frags.items())
+        for name, (k, off, _) in frags.items() if name not in skip)
     osd = {
         "zero_stage": engine.zero_stage,
         "partition_count": plan.world_size if plan.sharded else 1,
@@ -558,7 +593,44 @@ def _writes_partition(engine):
     if plan.experts_split and not plan.sharded:
         # one rank of each expert-data group: its experts' stacks
         return plan.expert_rank == 0, engine.dp_rank
-    return plan.sharded or engine.dp_rank == 0, engine.dp_rank
+    rank = engine._data_rank
+    return plan.sharded or rank == 0, rank
+
+
+def _model_jobs(engine, module):
+    """The files of the model's weights, written by the first rank of a
+    data group: the module state (one stage), or under a pipeline of more
+    stages this stage's ``mp_rank_{s}`` file and one layer file a layer
+    it writes (module docstring)."""
+    cfg = engine._config
+    skip = engine._tied_copies()
+    states = {
+        "param_shapes": [OrderedDict((n, torch.Size(s)) for n, *_, s in
+                                     engine.global_layout()[0]
+                                     if n not in skip)],
+        "global_steps": engine.global_steps,
+        "global_samples": engine.global_samples,
+        "skipped_steps": engine.skipped_steps,
+        "dp_world_size": engine.dp_world_size,
+        "mp_world_size": engine.pp_world_size,
+        "ds_config": dict(cfg._param_dict),
+    }
+    if engine.pp_world_size == 1:
+        return [(MODEL_FILE, dict(states, module=module))]
+    from .pipe.module import geometry
+    index = geometry(engine.pipe_module)["layers"]
+    layers = OrderedDict()
+    for name, t in module.items():
+        if name in skip:
+            continue
+        region, key, rest = name.split(".", 2)
+        prefix = f"{region}.{key}"
+        layers.setdefault(prefix, OrderedDict())[rest] = t
+    files = OrderedDict((layer_file(index[p]), p) for p in layers)
+    jobs = [(name, layers[p]) for name, p in files.items()]
+    jobs.append((model_file(engine.stage_id),
+                 dict(states, module=None, layers=files)))
+    return jobs
 
 
 def save_engine_checkpoint(engine, save_dir, tag=None, client_state=None,
@@ -571,30 +643,20 @@ def save_engine_checkpoint(engine, save_dir, tag=None, client_state=None,
         tag = f"global_step{engine.global_steps}"
     save_dir = os.path.abspath(save_dir)
     root = os.path.join(save_dir, str(tag))
-    rank, cfg = engine.dp_rank, engine._config
+    rank, cfg = engine._data_rank, engine._config
+    first = rank == 0 and engine.stage_id == 0
     ic = cfg.checkpoint_integrity
-    commits = rank == 0 or cfg.use_node_local_storage
+    commits = first or cfg.use_node_local_storage
     os.makedirs(root, exist_ok=True)
-    if rank == 0:
+    if first:
         with open(os.path.join(root, ENGINE_STATE), "w") as f:
             json.dump(engine_state(engine, client_state), f, indent=2)
     module = engine.module_state_dict(dst=0)      # a collective at stage 3
-    jobs = []
-    if rank == 0:
-        jobs.append((MODEL_FILE, {
-            "module": module,
-            "param_shapes": [OrderedDict((n, torch.Size(s)) for n, *_, s in
-                                         engine.global_layout()[0])],
-            "global_steps": engine.global_steps,
-            "global_samples": engine.global_samples,
-            "skipped_steps": engine.skipped_steps,
-            "dp_world_size": engine.dp_world_size,
-            "mp_world_size": 1,
-            "ds_config": dict(cfg._param_dict),
-        }))
+    jobs = _model_jobs(engine, module) if rank == 0 else []
     writes, part = _writes_partition(engine)
     if writes:
-        jobs.append((optim_file(part), optim_state_dict(engine)))
+        jobs.append((optim_file(part, engine.stage_id),
+                     optim_state_dict(engine)))
     if engine._onebit:
         jobs.append((ONEBIT_FILE.format(rank), onebit_state_dict(engine)))
     writer = _FileWriter(root, tag, jobs, ic.save_retries, ic.retry_backoff)
@@ -605,10 +667,11 @@ def save_engine_checkpoint(engine, save_dir, tag=None, client_state=None,
         integrity=ic.enabled and commits, keep_n=ic.keep_n,
         save_dir=save_dir, retries=ic.save_retries,
         backoff=ic.retry_backoff,
-        agree=engine._all_ranks_agree if engine.dp_world_size > 1 else None)
+        agree=(engine._all_ranks_agree
+               if engine._data_world * engine.pp_world_size > 1 else None))
     handle.stage_seconds = time.perf_counter() - t0
     engine.last_checkpoint = handle
-    if rank == 0:
+    if first:
         # the recovery script beside the tags (reference engine.py:3540)
         shutil.copy2(zero_to_fp32.__file__,
                      os.path.join(save_dir, "zero_to_fp32.py"))
@@ -805,7 +868,8 @@ def _checked_module(engine, module, strict):
     if not real:
         return None     # upstream stage 3 writes placeholders
     missing = sorted(names - set(real))
-    unknown = sorted(set(real) - names)
+    # a pipeline stage holds some of the model's leaves
+    unknown = [] if engine.pp_world_size > 1 else sorted(set(real) - names)
     if strict and (missing or unknown):
         raise KeyError(f"checkpoint module: missing {missing[:4]}, unknown "
                        f"{unknown[:4]} (load_module_strict=False loads the "
@@ -815,18 +879,22 @@ def _checked_module(engine, module, strict):
 
 def _agree_on_tag(engine, tag):
     """Rank 0's resolved tag on every rank (each rank resolves its own with
-    node-local storage)."""
-    if engine.dp_world_size == 1 or engine._config.use_node_local_storage:
+    node-local storage): over the stages, then over each data group."""
+    if engine._data_world * engine.pp_world_size == 1 or \
+            engine._config.use_node_local_storage:
         return tag
     from .. import comm as dist
     buf = torch.zeros(1024, dtype=torch.uint8, device=engine.device)
-    if engine.dp_rank == 0 and tag is not None:
+    if engine._data_rank == 0 and engine.stage_id == 0 and tag is not None:
         raw = str(tag).encode()
         if len(raw) > buf.numel() - 1:
             raise ValueError(f"tag name of {len(raw)} bytes")
         buf[0] = 1
         buf[1:1 + len(raw)] = torch.tensor(list(raw), dtype=torch.uint8)
-    dist.broadcast(buf, src=0, group=engine._dp_group)
+    if engine.pp_world_size > 1:
+        dist.broadcast(buf, src=0, group=engine._pp_group.as_flat())
+    if engine._data_world > 1:
+        dist.broadcast(buf, src=0, group=engine._dp_group)
     host = buf.cpu()
     if not int(host[0]):
         return None
@@ -842,7 +910,7 @@ def load_engine_checkpoint(engine, load_dir, tag=None,
     into ``engine`` at its world size and stage; returns ``(tag dir,
     client_state)``, or ``(None, {})`` when nothing was loaded."""
     load_dir = os.path.abspath(load_dir)
-    tag = None if engine.dp_rank and not \
+    tag = None if (engine._data_rank or engine.stage_id) and not \
         engine._config.use_node_local_storage else \
         _resolve_load_tag(engine, load_dir, tag)
     tag = _agree_on_tag(engine, tag)

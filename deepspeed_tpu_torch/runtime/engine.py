@@ -225,6 +225,8 @@ class DeepSpeedEngine(OffloadMixin):
 
     # the mesh's other axes (set by _init_comm)
     pp_world_size, stage_id = 1, 0
+    # ZeRO 3's gather prefetch in forward order (the pipeline turns it off)
+    _gather_prefetch = True
     seq_parallel_world_size, seq_parallel_rank = 1, 0
 
     def __init__(self, args=None, model=None, optimizer=None,
@@ -534,6 +536,13 @@ class DeepSpeedEngine(OffloadMixin):
         over which ZeRO shards (dp × sp; ``_dp_group``)."""
         return self.dp_world_size * self.seq_parallel_world_size
 
+    @property
+    def _data_rank(self):
+        """This rank's place in the data group: its (dp, sp) coordinates,
+        most-major first."""
+        return self.dp_rank * self.seq_parallel_world_size + \
+            self.seq_parallel_rank
+
     def _tie(self):
         """Let the module share what it shares (``tie_weights``: a tied LM
         head is the embedding), so each shared leaf is trained once."""
@@ -626,9 +635,7 @@ class DeepSpeedEngine(OffloadMixin):
         ``comm_optimizations``."""
         zc, zcomm = self._config.zero_config, self._zcomm
         # the data group's rank: its coordinates (dp, sp), most-major first
-        world = self._data_world
-        rank = self.dp_rank * self.seq_parallel_world_size + \
-            self.seq_parallel_rank
+        world, rank = self._data_world, self._data_rank
         if zcomm.mics:
             world, rank = self._shard_group.size(), self._shard_group.rank()
         ed = zcomm.expert_group if self._experts else None
@@ -727,7 +734,7 @@ class DeepSpeedEngine(OffloadMixin):
             self._coord.close()
         cfg = self._config
         prefetch = None
-        if cfg.prefetch_enabled:
+        if cfg.prefetch_enabled and self._gather_prefetch:
             prefetch = dict(
                 bucket_bytes=max(1, int(cfg.prefetch_bucket_mb * MB)),
                 max_inflight=cfg.prefetch_max_inflight,
@@ -1506,7 +1513,6 @@ class DeepSpeedEngine(OffloadMixin):
         and at exit.  ``exclude_frozen_parameters``: the port trains every
         leaf, so there is none to exclude."""
         from .checkpoint_engine import save_engine_checkpoint
-        self._refuse_model_parallel("save_checkpoint")
         self._check_params()
         self.wait_for_checkpoint()   # one pending async save at a time
         with self._state_on_host(write_back=False):
@@ -1543,7 +1549,6 @@ class DeepSpeedEngine(OffloadMixin):
         dir, client_state)``, ``(None, {})`` when nothing was loaded.
         ``custom_load_fn(src=module state, dst=module)`` replaces the
         module's load (stages 0-2).  Every rank calls it."""
-        self._refuse_model_parallel("load_checkpoint")
         if custom_load_fn is not None and self.zero_stage == 3:
             raise ValueError("load_checkpoint(custom_load_fn=...) needs the "
                              "whole parameters: ZeRO stages 0-2")
@@ -1589,9 +1594,12 @@ class DeepSpeedEngine(OffloadMixin):
                 "a checkpoint")
             return False
         sd = self.module_state_dict(dst=0)
-        if self.dp_rank == 0:
+        if self._data_rank == 0:
+            skip = self._tied_copies()
             os.makedirs(save_dir, exist_ok=True)
-            torch.save(sd, os.path.join(save_dir, save_filename))
+            torch.save(OrderedDict((k, v) for k, v in sd.items()
+                                   if k not in skip),
+                       os.path.join(save_dir, save_filename))
         return True
 
     def module_state_dict(self, dst=None):
@@ -1601,7 +1609,7 @@ class DeepSpeedEngine(OffloadMixin):
         unit at most is gathered beside the shard; every rank must call
         it."""
         self._check_params()
-        mine = dst is None or self.dp_rank == dst
+        mine = dst is None or self._data_rank == dst
         out = OrderedDict() if mine else None
         if self.zero_stage < 3:
             for name, off, n, shape in self._layout:
@@ -1709,15 +1717,15 @@ class DeepSpeedEngine(OffloadMixin):
         cfg, stage3 = self._config, self.zero_stage >= 3
         parts = [name for name, on in (
             ("overlap", cfg.comm_optimizations_config.overlap.enabled),
-            ("prefetch", cfg.prefetch_enabled and stage3),
+            ("prefetch", cfg.prefetch_enabled and stage3 and
+             self._gather_prefetch),
             ("qwZ", self._zcomm.qwz)) if on]
         return "+".join(parts) if parts else "flat"
 
-    def _refuse_model_parallel(self, what):
-        """Checkpoints of a pipeline stage or an sp group (upstream's
-        ``layer_XX-model_states`` files) are item 9b."""
-        if self.pp_world_size > 1 or self.seq_parallel_world_size > 1:
-            raise not_ported(f"{what} with pp or sp > 1", "9b")
+    def _tied_copies(self):
+        """Names of the leaves another stage counts and writes (a
+        pipeline's copies of tied leaves)."""
+        return frozenset()
 
     def __del__(self):
         # the coordinator's hooks would keep it, and its shard, alive

@@ -228,7 +228,9 @@ class OffloadMixin:
         the compute-dtype parameters go up, and the state goes back out.
         Returns the gradient norm, or None where JAX keeps the device path:
         fp16, offloaded states, the finite-grad guard, more than one rank,
-        no host kernel for the optimizer, or ``DS_TPU_HOST_OFFLOAD_STEP=0``."""
+        no host kernel for the optimizer, or ``DS_TPU_HOST_OFFLOAD_STEP=0``;
+        and under a pipeline of more than one stage, whose norm is summed
+        over the stages (JAX's fused pipeline step is a device program)."""
         if self._nvme_swapper is None or not self._state_on_nvme or \
                 self._acc_fresh:
             return None
@@ -237,7 +239,7 @@ class OffloadMixin:
         kind = self._host_step_kind()
         if kind is None or self._config.fp16_enabled or \
                 self._host_offloaded or self._finite_guard.enabled or \
-                self._data_world > 1:
+                self._data_world > 1 or self.pp_world_size > 1:
             return None
         from ..ops import cpu_optimizers as K
         g = self._reduced_grads().detach().to("cpu", torch.float32,

@@ -18,13 +18,34 @@ tick:
   gradients are folded into the flat accumulator as the base engine
   folds them;
 * ``ReduceTiedGrads`` all-reduces the tied modules' gradients over the
-  stages that hold a copy (at ZeRO 2, each micro-step's, before its
-  reduce-scatter), so the copies, equal at init, stay equal;
+  stages that hold a copy, so the copies, equal at init, stay equal: the
+  accumulator's span (ZeRO 0-1); at ZeRO 2 the spans held back from each
+  micro-step's reduce-scatter; at ZeRO 3 and bucketed ZeRO 2 the
+  coordinator's *held* units (``runtime/zero/overlap.py``), whose
+  gradients sum over the micro-steps and are reduce-scattered only here.
   ``OptimizerStep`` is the base engine's step on the stage's flat buffers
-  (B2 or B3 on the stage's ZeRO shard over its dp × sp group), with the
+  (B2 or B3 on the stage's ZeRO shard over its dp × sp group, the state
+  pinned on the host or on NVMe under ``offload_optimizer``), with the
   gradient norm summed over the stages (a tied leaf counted once) and
   the overflow flag agreed over the stages too, so every stage skips or
   steps together.
+
+ZeRO 3: each block is gathered by its forward pre-hook and released after
+its forward, gathered again by the hook on its output's gradient before
+its backward (several micro-steps' forwards are in flight under 1F1B);
+the outer unit is gathered around each compute instruction and released
+after it.  The forward-order gather prefetch is off: 1F1B runs the
+forward of micro-step m + 1 between backwards, so a window issued in
+forward order would gather blocks no instruction needs next.  Every
+backward waits for its reduce-scatters before it returns, so no
+collective of the data group is in flight when the next tick's
+point-to-point exchange is posted, and every rank of a data group
+(the same stage, the same instruction stream) issues its collectives in
+one order.
+
+Checkpoints (``runtime/checkpoint_engine.py``): every stage writes its
+layers and its partitions, a tied leaf once; a tag loads at any pp, dp,
+sp or ZeRO stage, and into the base engine on ``to_module()``.
 
 A receive's shape is announced once per input shape through
 ``send_obj`` (the store channel, which does not block), never inferred
@@ -37,11 +58,10 @@ weights.
 
 Refused, as in JAX (``__init__.py:68-74``, ``pipe/engine.py:75-93``):
 ``offload_param``, ZeRO++'s quantized collectives and progressive layer
-drop (the config refuses it).  Not ported yet: ZeRO 3, bucketed ZeRO 2
-(``overlap_comm``) and optimizer offload under the pipeline (9a's
-remainder), checkpoints of a stage (9b).
+drop (the config refuses it).
 """
 
+import os
 import time
 
 import torch
@@ -57,8 +77,6 @@ from .schedule import (BackwardPass, ForwardPass, InferenceSchedule,
                        OptimizerStep, RecvActivation, RecvGrad,
                        ReduceTiedGrads, SendActivation, SendGrad,
                        TrainSchedule)
-
-_REMAINDER = "9a's remainder"
 
 
 class PipelineEngine(DeepSpeedEngine):
@@ -83,14 +101,6 @@ class PipelineEngine(DeepSpeedEngine):
                 "ZeRO++ quantized communication (zero_quantized_gradients/"
                 "zero_quantized_weights) is not wired into the pipeline "
                 "step — disable it or use the base engine")
-        if zc.stage >= 3:
-            raise not_ported("ZeRO stage 3 under the pipeline", _REMAINDER)
-        if zc.bucketed:
-            raise not_ported("ZeRO 2 with overlap_comm under the pipeline",
-                             _REMAINDER)
-        if zc.offload_optimizer_device != "none":
-            raise not_ported("offload_optimizer under the pipeline",
-                             _REMAINDER)
         self.pipe_module = model
         self.micro_batches = None
         # the last step's bytes sent to other stages and, with
@@ -180,6 +190,19 @@ class PipelineEngine(DeepSpeedEngine):
                 src[name] = dist.broadcast(t, src=0, group=group)
         super()._install_parameters(src)
 
+    # ZeRO 3's prefetch issues gathers in forward order, which the 1F1B
+    # stream does not follow (module docstring)
+    _gather_prefetch = False
+
+    def _make_coordinator(self, units):
+        """The base coordinator, holding back the units of the tied leaves
+        until ``ReduceTiedGrads``."""
+        super()._make_coordinator(units)
+        tied = tuple(f"tied.{key}." for key in self._tie_groups)
+        if tied:
+            self._coord.held = {u.index for u in units if any(
+                name.startswith(tied) for name, *_ in u.leaves)}
+
     # ---------------------------------------------------- the step's agreement
     def _autograd(self):
         tensors, grads = self._pending_loss
@@ -215,6 +238,9 @@ class PipelineEngine(DeepSpeedEngine):
         reduce-scattered into the shard accumulator."""
         if not self._tie_groups:
             return
+        if self._coord is not None:
+            self._coord.reduce_held(self.grad_acc, self._sum_tied_in_unit)
+            return
         if self.zero_stage < 2:
             for key, (group, _) in sorted(self._tie_groups.items()):
                 lo, hi = self._tied_span(key)
@@ -230,21 +256,29 @@ class PipelineEngine(DeepSpeedEngine):
                             dtype=self.grad_accum_dtype, device=self.device)
         self.grad_acc.add_(self._zcomm.reduce_scatter(shard, full))
 
+    def _sum_tied_in_unit(self, unit, scratch):
+        """A held unit's summed gradients: each tied key's leaves in it
+        all-reduced over the stages holding the key, keys in order."""
+        for key, (group, _) in sorted(self._tie_groups.items()):
+            prefix = f"tied.{key}."
+            span = [(off, off + n) for name, off, n, _ in unit.leaves
+                    if name.startswith(prefix)]
+            if span:
+                lo, hi = min(a for a, _ in span), max(b for _, b in span)
+                dist.all_reduce(scratch[lo:hi], group=group)
+
     def _grad_norm(self, grads):
         """The norm over every stage: each stage's sum of squares (its
         copies of a tied leaf counted on the lowest stage only), summed
         over its data group when sharded, then over the stages."""
         if self.pp_world_size == 1:
             return super()._grad_norm(grads)
-        drop = []
-        for key, (_, counts) in self._tie_groups.items():
-            if not counts:
-                drop += [(o, o + k) for _, o, k in self._tied_leaves(key)]
-        lo, hi = 0, grads.numel()
-        if self.zero_plan.sharded:
-            lo, hi = self.zero_plan.shard_range()
-        cut = sorted((max(a, lo) - lo, min(b, hi) - lo) for a, b in drop
-                     if a < hi and b > lo)
+        drop = self._tied_copies()
+        # the shard's pieces of the uncounted leaves (the whole buffer's
+        # when not sharded)
+        cut = sorted((off, off + k) for off, k, _, i in
+                     self.zero_plan.pieces(self._layout)
+                     if self._layout[i][0] in drop)
         kept, at = [], 0
         for a, b in cut:
             if a > at:
@@ -298,6 +332,9 @@ class PipelineEngine(DeepSpeedEngine):
                               "send_grad", "recv_grad")}
         stats = dict(p2p_bytes=0, compute_ms=0.0)
         events = []
+        # ZeRO 3: the outer unit is gathered for each compute instruction
+        # and released after it (the blocks gather themselves)
+        coord = self._coord if self.zero_stage == 3 else None
 
         def take(kind):
             m = nxt[kind]
@@ -342,6 +379,8 @@ class PipelineEngine(DeepSpeedEngine):
                     x, y = batches[m]
                     if stage > 0:
                         x = inputs[m]
+                    if coord is not None:
+                        coord.gather_outer()
                     if not self.is_last_stage:
                         outputs[m] = self.module(x)
                     elif train:
@@ -354,12 +393,18 @@ class PipelineEngine(DeepSpeedEngine):
                             losses.append(self.module.loss_fn(out, y)
                                           .detach().float())
                         logits.append(out)
+                    if coord is not None:
+                        coord.release_outer()
                     self._mark(events, ev)
                 elif isinstance(c, BackwardPass):
                     m = take("bwd")
                     ev = self._mark(events)
                     grad = None if self.is_last_stage else [out_grads.pop(m)]
                     self._pending_loss = ([outputs.pop(m)], grad)
+                    if coord is not None:
+                        # released again by the coordinator's
+                        # finish_backward
+                        coord.gather_outer()
                     DeepSpeedEngine.backward(self)
                     if nxt["bwd"] < len(batches):
                         self.micro_steps += 1
@@ -479,6 +524,31 @@ class PipelineEngine(DeepSpeedEngine):
     def step(self, *a, **k):
         raise RuntimeError("PipelineEngine: use train_batch")
 
-    def save_16bit_model(self, *a, **k):
-        self._refuse_model_parallel("save_16bit_model")
-        return super().save_16bit_model(*a, **k)
+    # ------------------------------------------------------------- checkpoints
+    def _tied_copies(self):
+        """This stage's copies of the tied leaves whose first stage is
+        another: counted once in the norm, written once in a checkpoint
+        (``runtime/checkpoint_engine.py``)."""
+        return frozenset(n for key, (_, counts) in self._tie_groups.items()
+                         if not counts for n, _, _ in self._tied_leaves(key))
+
+    def _all_ranks_agree(self, ok):
+        """Whether ``ok`` holds on every rank of every stage."""
+        ok = super()._all_ranks_agree(ok)
+        if self.pp_world_size == 1:
+            return ok
+        flag = torch.tensor([1.0 if ok else 0.0], device=self.device)
+        dist.all_reduce(flag, op=ReduceOp.MIN,
+                        group=self._pp_group.as_flat())
+        return bool(flag.item())
+
+    def save_16bit_model(self, save_dir, save_filename="pytorch_model.bin",
+                         exclude_frozen_parameters=False):
+        """The base engine's file, of this stage's leaves; under more than
+        one stage each stage's first data rank writes its own, named with
+        ``_stage_{s:02d}`` before the extension (the port's naming), a tied
+        leaf in its first stage's file only.  Every rank calls it."""
+        if self.pp_world_size > 1:
+            stem, ext = os.path.splitext(save_filename)
+            save_filename = f"{stem}_stage_{self.stage_id:02d}{ext}"
+        return super().save_16bit_model(save_dir, save_filename)

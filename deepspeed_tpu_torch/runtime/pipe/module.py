@@ -285,6 +285,14 @@ class PipelineModule:
         return self.build_stage(0, 1, device)
 
 
+class _Blocks(nn.ModuleDict):
+    """A stage's blocks, keyed by each block's index in the model; ZeRO 3
+    and bucketed ZeRO 2 make each of them a unit
+    (``runtime/zero/overlap.py:block_modules``)."""
+
+    zero_block_container = True
+
+
 class PipeStage(nn.Module):
     """One stage's layers.  ``forward(x)`` runs them; on the last stage,
     ``forward(x, labels)`` gives the loss.  Blocks run under activation
@@ -293,11 +301,12 @@ class PipeStage(nn.Module):
     def __init__(self, pipe, layer_ids, last, device=None):
         super().__init__()
         self.last = last
+        self.pipe = pipe        # not a module: its layers are not registered
         self.loss_fn = pipe.loss_fn
         self.interval = int(pipe.activation_checkpoint_interval or 0)
         pre, blocks, post = pipe.regions()
         self.pre = nn.ModuleDict()
-        self.blocks = nn.ModuleDict()
+        self.blocks = _Blocks()
         self.post = nn.ModuleDict()
         self.tied = nn.ModuleDict()
         self._seeds = {}    # module path → the layer index that seeds it
@@ -425,12 +434,80 @@ def _layer_to_flax(named):
     return tree
 
 
+def geometry(pipe):
+    """What :func:`params_from_flax` and :func:`params_to_flax` need of a
+    ``PipelineModule`` (a checkpoint records it): ``{"pre": [...],
+    "post": [...], "blocks": [block layer indices], "layers": {prefix:
+    layer index}}``, the pre and post lists holding each layer's prefix in
+    :class:`PipeStage`'s names (``tied.{key}`` for a tied layer; its layer
+    index is its key's first)."""
+    pre, blocks, post = pipe.regions()
+    out = {"pre": [], "post": [], "blocks": list(blocks), "layers": {}}
+    for region, rng in (("pre", pre), ("post", post)):
+        for i, li in enumerate(rng):
+            spec = pipe.specs[li]
+            tied = isinstance(spec, TiedLayerSpec)
+            prefix = f"tied.{spec.key}" if tied else f"{region}.{i}"
+            out[region].append(prefix)
+            out["layers"].setdefault(prefix, li)
+    out["layers"].update({f"blocks.{b}": b for b in blocks})
+    return out
+
+
+def _geometry(pipe):
+    return pipe if isinstance(pipe, dict) else geometry(pipe)
+
+
+def stages_of_block_stack(geo, stacks):
+    """The stage count of a JAX tree's padded block stack (a JAX tree
+    records none).  ``stacks``: the block stack (``tree["blocks"]``) of
+    each field of the tree (fp32, the moments).  Stage counts that give
+    the stack's slot count may lay the blocks out differently (10 blocks
+    make 12 slots at pp 3, 4 and 6, their pad slots at 7 and 11, 8 and
+    11, 9 and 11); of those, the one taken is the only one whose
+    pad slots are all inert: zero in some field.  The JAX engine's pad
+    slots take no gradient, so their moments stay zero once a real block
+    has stepped, and the port's converter writes them zero.  Where no
+    layout or more than one is left, the stage count must be recorded in
+    the directory's meta."""
+    n = len(geo["blocks"])
+    leaves = [np.asarray(a) for st in stacks for a in _leaves(st)]
+    n_slots = leaves[0].shape[0]
+    layouts = {}
+    for pp in range(1, n + 1):
+        slots = _slot_to_layer(n, pp)
+        if len(slots) == n_slots:
+            layouts.setdefault(tuple(slots), pp)
+    if len(layouts) > 1:
+        per_field = [[np.asarray(a) for a in _leaves(st)] for st in stacks]
+
+        def inert(p):
+            return any(all(not a[p].any() for a in field)
+                       for field in per_field)
+        layouts = {k: pp for k, pp in layouts.items()
+                   if all(inert(p) for p, b in enumerate(k) if b < 0)}
+    if len(layouts) != 1:
+        raise ValueError(
+            f"the stage count of a block stack of {n_slots} slots for {n} "
+            "blocks cannot be read from it: record it as "
+            '{"engine_state": {"pipeline": {"num_stages": N}}} in the '
+            "universal directory's meta")
+    return next(iter(layouts.values()))
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [a for v in tree.values() for a in _leaves(v)]
+    return [tree]
+
+
 def params_from_flax(tree, pipe, num_stages, dtype=torch.float32):
     """The JAX ``PipelineEngine``'s parameter tree (numpy leaves; its block
     stack laid out for ``num_stages`` stages, with pad slots) → {name:
     tensor} in :class:`PipeStage`'s names over every stage.  The engine of
-    each stage takes its own names from it."""
-    pre, blocks, post = pipe.regions()
+    each stage takes its own names from it.  ``pipe``: the
+    ``PipelineModule`` or its :func:`geometry`."""
+    geo = _geometry(pipe)
     out = {}
 
     def put(prefix, subtree):
@@ -438,13 +515,13 @@ def params_from_flax(tree, pipe, num_stages, dtype=torch.float32):
             out[f"{prefix}.{name}"] = torch.from_numpy(
                 np.array(a, dtype=np.float32)).to(dtype)
 
-    for region, rng in (("pre", pre), ("post", post)):
-        for i, li in enumerate(rng):
-            spec = pipe.specs[li]
-            if isinstance(spec, TiedLayerSpec):
-                put(f"tied.{spec.key}", tree["tied"][spec.key])
+    for region in ("pre", "post"):
+        for i, prefix in enumerate(geo[region]):
+            if prefix.startswith("tied."):
+                put(prefix, tree["tied"][prefix[len("tied."):]])
             else:
-                put(f"{region}.{i}", tree[region][f"layer_{i}"])
+                put(prefix, tree[region][f"layer_{i}"])
+    blocks = geo["blocks"]
     slots = _slot_to_layer(len(blocks), num_stages)
     for p, b in enumerate(slots):
         if b < 0:
@@ -462,7 +539,7 @@ def params_to_flax(named, pipe, num_stages):
     """The inverse of :func:`params_from_flax`: {name: tensor or array} of
     every stage (e.g. each stage's fp32 master, by name) → the JAX engine's
     tree for ``num_stages`` stages, pad slots zero."""
-    pre, blocks, post = pipe.regions()
+    geo = _geometry(pipe)
     arr = {k: (v.detach().float().cpu().numpy()
                if isinstance(v, torch.Tensor) else np.asarray(v, np.float32))
            for k, v in named.items()}
@@ -473,14 +550,13 @@ def params_to_flax(named, pipe, num_stages):
 
     tree = {"pre": {}, "post": {}}
     tied = {}
-    for region, rng in (("pre", pre), ("post", post)):
-        for i, li in enumerate(rng):
-            spec = pipe.specs[li]
-            if isinstance(spec, TiedLayerSpec):
-                tied[spec.key] = _layer_to_flax(take(f"tied.{spec.key}"))
+    for region in ("pre", "post"):
+        for i, prefix in enumerate(geo[region]):
+            if prefix.startswith("tied."):
+                tied[prefix[len("tied."):]] = _layer_to_flax(take(prefix))
             else:
-                tree[region][f"layer_{i}"] = _layer_to_flax(
-                    take(f"{region}.{i}"))
+                tree[region][f"layer_{i}"] = _layer_to_flax(take(prefix))
+    blocks = geo["blocks"]
     slots = _slot_to_layer(len(blocks), num_stages)
     per_layer = [_layer_to_flax(take(f"blocks.{b}")) for b in blocks]
 

@@ -28,6 +28,12 @@ the model, the outer unit of every other leaf, the persistent unit):
   into the unit's slice of the shard accumulator (copied on a step's first
   micro-step, added after) and a block's buffer is released.  The end of
   ``backward`` reduces the units whose leaves got no gradient, as zeros;
+* a *held* unit (the pipeline engine holds the units of a stage's tied
+  leaves) sums its gradients over the step's micro-steps in its scratch
+  and is reduce-scattered only by :meth:`ZeroCoordinator.reduce_held`,
+  after the stages have summed the tied leaves (a collective across
+  stages inside the 1F1B stream would wait on a stage that is elsewhere
+  in it);
 * ``overlap_comm`` issues each unit's reduce-scatter asynchronously, with
   at most ``max_inflight`` outstanding (``comm_optimizations.overlap``);
   all are waited on before ``backward`` returns;
@@ -153,16 +159,19 @@ def live_window(buckets, max_live_params, max_inflight=2):
 
 
 def block_modules(module):
-    """[(prefix, module)] of every element of the model's block
-    ``nn.ModuleList``s (the outermost ones), in registration order."""
+    """[(prefix, module)] of every element of the model's block containers
+    (the outermost ones), in registration order: an ``nn.ModuleList``, or
+    a container that sets ``zero_block_container`` (a pipeline stage's
+    ``blocks``, keyed by each block's index in the model)."""
     out = []
     for name, m in module.named_modules():
-        if not isinstance(m, torch.nn.ModuleList):
+        if not (isinstance(m, torch.nn.ModuleList) or
+                getattr(m, "zero_block_container", False)):
             continue
         if any(name.startswith(p + ".") for p, _ in out):
             continue
-        out += [(f"{name}.{i}" if name else str(i), child)
-                for i, child in enumerate(m)]
+        out += [(f"{name}.{k}" if name else k, child)
+                for k, child in m.named_children()]
     return out
 
 
@@ -218,6 +227,10 @@ class ZeroCoordinator:
         self._issued = set()
         self._hooks = []
         self._grad_hooks = []
+        # units whose gradients are summed over the step's micro-steps and
+        # reduced only by :meth:`reduce_held` (a pipeline stage's tied
+        # leaves, which must first be summed over the stages)
+        self.held = set()
         if self.sharded_params:
             for u in units:
                 u.buffer = torch.zeros(plan.unit_numel[u.index],
@@ -334,6 +347,9 @@ class ZeroCoordinator:
         """Before the model runs: the outer unit gathered, the prefetch's
         buckets all to be issued again."""
         self._issued.clear()
+        self.gather_outer()
+
+    def gather_outer(self):
         for u in self.units:
             if u.kind == OUTER:
                 self.gather(u)
@@ -402,7 +418,9 @@ class ZeroCoordinator:
         this micro-step starts it."""
         self._acc, self._fresh = acc, fresh
         for u in self.units:
-            u.arrived, u.reduced, u.scratch = 0, False, None
+            u.arrived, u.reduced = 0, False
+            if fresh or u.index not in self.held:
+                u.scratch = None
         self.in_backward = True
 
     def _scratch(self, unit):
@@ -419,8 +437,14 @@ class ZeroCoordinator:
             raise RuntimeError(f"a second gradient for a leaf of unit "
                                f"{unit.index}, already reduced")
         with torch.no_grad():
-            self._scratch(unit)[off:off + n].copy_(p.grad.reshape(-1))
+            view = self._scratch(unit)[off:off + n]
+            if unit.index in self.held:
+                view.add_(p.grad.reshape(-1))
+            else:
+                view.copy_(p.grad.reshape(-1))
         p.grad = None
+        if unit.index in self.held:
+            return
         unit.arrived += 1
         if unit.arrived == len(unit.leaves):
             self._reduce(unit)
@@ -457,10 +481,24 @@ class ZeroCoordinator:
         on, the outer unit released."""
         self.in_backward = False
         for u in self.units:
-            if not u.reduced:
+            if not u.reduced and u.index not in self.held:
                 self._reduce(u)
         while self._pending:
             self._finish(self._pending.pop(0))
         self._acc = None
         if self.sharded_params:
             self.release_outer()
+
+    def reduce_held(self, acc, combine):
+        """At the step's end: each held unit's gradients, summed over its
+        micro-steps, first passed to ``combine(unit, scratch)`` (which may
+        change them in place) and then reduce-scattered into its slice of
+        the shard accumulator ``acc`` (copied: no micro-step wrote it)."""
+        self._acc, self._fresh = acc, True
+        for u in self.units:
+            if u.index in self.held:
+                combine(u, self._scratch(u))
+                self._reduce(u)
+        while self._pending:
+            self._finish(self._pending.pop(0))
+        self._acc = None

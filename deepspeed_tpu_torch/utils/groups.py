@@ -22,9 +22,10 @@ hpZ's and MiCS's).  A group of one rank is local (no process group), and
 one of every rank is the world.
 
 ``zero_partition_size`` (hpZ's secondary partition and MiCS's shard
-groups, JAX ``groups.py:171-182``) factors dp into ``zp_outer × zp``: the
-``zp`` groups of consecutive ranks and the ``zp_outer`` groups of the
-ranks ``zp`` apart, the torch counterparts of the JAX hpZ mesh's axes.
+groups, JAX ``groups.py:171-182``) factors each pipeline stage's data
+group (dp × sp) into ``zp_outer × zp``: the ``zp`` groups of consecutive
+ranks and the ``zp_outer`` groups of the ranks ``zp`` apart, the torch
+counterparts of the JAX hpZ mesh's axes (which carries pp too).
 The collectives engine's hierarchies are the same kind of pair
 (:func:`factor_groups`).
 """
@@ -96,44 +97,44 @@ def _world_size():
     return comm.get_world_size()
 
 
-def factor_groups(s, state=None):
-    """The (inner, outer) pair of a split of the world into groups of ``s``
+def factor_groups(s, state=None, block=None):
+    """The (inner, outer) pair of a split of each block of ``block``
+    consecutive ranks (default: the world) into groups of ``s``
     consecutive ranks and groups of the ranks ``s`` apart, made once (a
-    collective: every rank calls it with the same ``s``).  ``s`` equal to
-    the world: inner is the world, outer this rank alone; 1: the reverse.
-    """
+    collective: every rank calls it with the same arguments).  ``s`` equal
+    to the block: inner is the block, outer this rank alone; 1: the
+    reverse.  A block is a pipeline stage's data group (pp is the mesh's
+    most-major axis), so hpZ's and MiCS's groups stay inside a stage."""
     import torch.distributed as tdist
     from ..comm import comm
     from ..comm.backend import ProcessGroup
     st = state or get_mesh_state()
-    if s in st.factors:
-        return st.factors[s]
     world = _world_size()
-    if s < 1 or world % s:
+    block = world if block is None else block
+    if (s, block) in st.factors:
+        return st.factors[(s, block)]
+    if s < 1 or world % block or block % s:
         raise ValueError(f"a split of {s} ranks a group must divide the "
-                         f"world of {world}")
+                         f"{block} ranks of a block of the world of {world}")
     inner_axes, outer_axes = (DP_AXIS + "_in", ), (DP_AXIS + "_out", )
-    if s == world:
-        pair = (ProcessGroup(inner_axes), ProcessGroup(outer_axes,
-                                                       local=True))
-    elif s == 1:
-        pair = (ProcessGroup(inner_axes, local=True),
-                ProcessGroup(outer_axes))
-    else:
-        rank = comm.get_rank()
-        inner = outer = None
-        for o in range(world // s):
-            ranks = list(range(o * s, (o + 1) * s))
-            pg = tdist.new_group(ranks)
+    rank = comm.get_rank() if world > 1 else 0
+
+    def split(lists, axes):
+        mine = None
+        for ranks in lists:
+            # one rank: local; every rank: the world
+            pg = (tdist.new_group(ranks) if 1 < len(ranks) < world
+                  else None)
             if rank in ranks:
-                inner = ProcessGroup(inner_axes, pg=pg)
-        for i in range(s):
-            ranks = list(range(i, world, s))
-            pg = tdist.new_group(ranks)
-            if rank in ranks:
-                outer = ProcessGroup(outer_axes, pg=pg)
-        pair = (inner, outer)
-    st.factors[s] = pair
+                mine = ProcessGroup(axes, pg=pg, local=len(ranks) == 1)
+        return mine
+
+    bases = range(0, world, block)
+    inner = split([list(range(b + o * s, b + (o + 1) * s)) for b in bases
+                   for o in range(block // s)], inner_axes)
+    outer = split([list(range(b + i, b + block, s)) for b in bases
+                   for i in range(s)], outer_axes)
+    st.factors[(s, block)] = pair = (inner, outer)
     return pair
 
 
@@ -269,8 +270,6 @@ def initialize_mesh(dp=None, pp=1, sp=1, tp=1, ep=1, devices=None,
             f"zero_partition_size={zp} must divide dp={dp}")
     if zp is not None and ep > 1:
         raise not_ported("hpZ / MiCS shard groups with ep > 1", "8b")
-    if zp is not None and pp * sp > 1:
-        raise not_ported("hpZ / MiCS shard groups with pp or sp > 1", "9b")
     mesh = Mesh(pp=pp, dp=dp // ep, ep=ep, sp=sp, tp=1)
     rank = comm.get_rank() if total > 1 else 0
     coord, r = {}, rank
@@ -284,7 +283,7 @@ def initialize_mesh(dp=None, pp=1, sp=1, tp=1, ep=1, devices=None,
     if ep > 1:
         state.groups.update(_make_groups(mesh.shape, rank, _EP_GROUP_AXES))
     if zp is not None:
-        factor_groups(zp, state)
+        factor_groups(zp, state, block=dp * sp)
     _mesh_state = state
     return _mesh_state
 
@@ -381,7 +380,7 @@ def _get_zero_param_partition_group():
     st = get_mesh_state()
     if st.zero_partition_size is None:
         return None
-    inner = st.factors[st.zero_partition_size][0]
+    inner = st.factors[(st.zero_partition_size, st.dp * st.sp)][0]
     return ProcessGroup((ZP_AXIS, ), pg=inner.pg, local=inner.local)
 
 
@@ -392,7 +391,7 @@ def _get_zero_param_partition_outer_group():
     st = get_mesh_state()
     if st.zero_partition_size is None:
         return None
-    outer = st.factors[st.zero_partition_size][1]
+    outer = st.factors[(st.zero_partition_size, st.dp * st.sp)][1]
     return ProcessGroup((ZP_OUTER_AXIS, ), pg=outer.pg, local=outer.local)
 
 

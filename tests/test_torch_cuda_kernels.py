@@ -1647,3 +1647,58 @@ def test_zero3_on_the_card_matches_zero0(nccl_world, variant):
     for name, (master, param) in out[0][1].items():
         assert torch.equal(out[3][1][name][0], master), name
         assert torch.equal(out[3][1][name][1], param), name
+
+
+@pytest.mark.cuda
+def test_pipeline_zero3_on_the_card_equals_the_base_engine(nccl_world):
+    """The ``PipelineEngine`` at pp = 1 under ZeRO 3 on the card (one NCCL
+    rank): a bf16 GPT-2 with remat, its blocks sharded, two microbatches a
+    step, against the base engine on ``to_module()`` at the same ZeRO 3:
+    losses and master bit for bit, and each wrapper's launches equal."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import gpt2_tiny, pipeline_module
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    from deepspeed_tpu_torch.ops.kernels import optimizers as ko
+    gen = torch.Generator().manual_seed(3)
+    batches = [(ids.cuda(), ids.roll(-1, 1).cuda()) for ids in (
+        torch.randint(0, 256, (2, 64), generator=gen) for _ in range(2))]
+    counters = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkv, ko.fused_adam_step)
+    out = {}
+    for kind in ("pipeline", "base"):
+        # heads of 64, a width B1 takes
+        pm = pipeline_module(gpt2_tiny(dtype="bfloat16", hidden_size=128,
+                                       num_attention_heads=2),
+                             activation_checkpoint_interval=1)
+        eng = deepspeed_tpu_torch.initialize(
+            model=pm if kind == "pipeline" else pm.to_module(device="meta"),
+            config={"train_micro_batch_size_per_gpu": 2,
+                    "gradient_accumulation_steps": 2,
+                    "bf16": {"enabled": True},
+                    "optimizer": {"type": "fusedadam",
+                                  "params": {"lr": 1e-3}},
+                    "zero_optimization": {
+                        "stage": 3,
+                        "stage3_param_persistence_threshold": 8 * 100}})[0]
+        eng.initialize_parameters(0)
+        assert eng.zero_plan.describe()["unit_kinds"]["block"] == 2
+        for fn in counters:
+            fn.launches = 0
+        losses = []
+        for _ in range(3):
+            if kind == "pipeline":
+                losses.append(eng.train_batch(iter(batches)).item())
+                continue
+            micro = []
+            for x, y in batches:
+                loss = eng(x, y)
+                eng.backward(loss)
+                eng.step()
+                micro.append(loss.detach().float())
+            losses.append(torch.stack(micro).mean().item())
+        out[kind] = (losses, eng.fp32_params().clone(),
+                     [fn.launches for fn in counters])
+    assert type(eng).__name__ == "DeepSpeedEngine"
+    assert out["pipeline"][0] == out["base"][0]
+    assert torch.equal(out["pipeline"][1], out["base"][1])
+    assert out["pipeline"][2] == out["base"][2] and all(out["base"][2])

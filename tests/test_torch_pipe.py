@@ -42,10 +42,16 @@ logits plus 1e-5 absolute, for those near 0):
   batches: each layer draws from its own seed whatever the split, the
   tied table's copies stay equal, and the chunks' positions are global.
 
+In this process, JAX's ``PipelineEngine`` at pp 4 on 10 blocks writes a
+universal directory, which loads into the port's module block for block
+(its stage count read from the block stack, where pp 3 and 6 give the
+same slot count).
+
 Each world is spawned once.
 """
 
 import gc
+import os
 
 import jax
 import jax.numpy as jnp
@@ -65,6 +71,10 @@ from deepspeed_tpu_torch.runtime.pipe import module as port_module
 from deepspeed_tpu_torch.runtime.pipe import schedule as port_schedule
 from deepspeed_tpu_torch.runtime.pipe import topology as port_topology
 from deepspeed_tpu_torch.utils import groups as port_groups
+from deepspeed_tpu.checkpoint import convert_to_universal as jax_convert
+from test_torch_gpt2_training import _flax_tree as gpt2_tree
+from test_torch_universal_checkpoint import _npy
+from test_torch_universal_checkpoint import jax_llama_tree as flax_tree
 from torch_dist_worker import pipe_module, spawn
 from unit.runtime.pipe import test_pipe_engine as jpe
 from unit.runtime.pipe import test_pipe_sp as jps
@@ -250,16 +260,18 @@ def test_refusals_and_the_engine_interface():
     for call in (engine.forward, engine.backward, engine.step):
         with pytest.raises(RuntimeError, match="train_batch"):
             call()
-    for zero, what in (({"stage": 3}, "9a's remainder"),
-                       ({"stage": 2, "overlap_comm": True}, "9a's remainder"),
-                       ({"stage": 3, "zero_quantized_weights": True},
-                        "quantized"),
-                       ({"stage": 1, "offload_optimizer": {"device": "cpu"}},
-                        "9a's remainder")):
-        with pytest.raises(NotImplementedError, match=what):
-            deepspeed_tpu_torch.initialize(
-                model=model, config=dict(base, zero_optimization=zero),
-                device="cpu")
+    # ZeRO 3, bucketed ZeRO 2 and optimizer offload compose with the
+    # pipeline; ZeRO++'s quantized collectives stay refused, as in JAX
+    for zero in ({"stage": 3}, {"stage": 2, "overlap_comm": True},
+                 {"stage": 1, "offload_optimizer": {"device": "cpu"}}):
+        assert isinstance(deepspeed_tpu_torch.initialize(
+            model=model, config=dict(base, zero_optimization=zero),
+            device="cpu")[0], PipelineEngine)
+    with pytest.raises(NotImplementedError, match="quantized"):
+        deepspeed_tpu_torch.initialize(
+            model=model, config=dict(base, zero_optimization={
+                "stage": 3, "zero_quantized_weights": True}),
+            device="cpu")
     with pytest.raises(ValueError, match="offload_param"):
         deepspeed_tpu_torch.initialize(
             model=model, config=dict(base, zero_optimization={
@@ -353,7 +365,9 @@ def _config(mesh, micro, gas=4, zero=1, **extra):
     return {"train_micro_batch_size_per_gpu": micro,
             "gradient_accumulation_steps": gas,
             "optimizer": {"type": "adam", "params": {"lr": LR}},
-            "zero_optimization": {"stage": zero}, "mesh": mesh, **extra}
+            "zero_optimization": (zero if isinstance(zero, dict)
+                                  else {"stage": zero}),
+            "mesh": mesh, **extra}
 
 
 def _float_batches(rows, n, seed=42):
@@ -373,21 +387,34 @@ def _id_batches(rows, n, vocab=V, seq=8, seed=42):
     return out
 
 
-def _legs2():
+Z3 = {"stage": 3, "stage3_param_persistence_threshold": 0}
+
+
+def _legs2(tmp):
     legs = {}
-    for zero in (1, 2):
+    for zero in (1, 2, 3):
         legs[f"mse_z{zero}"] = dict(
-            model=_mse_model(), config=_config({"pp": 2}, 4, zero=zero),
+            offload_states_at=1 if zero == 3 else None,
+            model=_mse_model(), config=_config(
+                {"pp": 2}, 4, zero=dict(Z3) if zero == 3 else zero),
             batches=_float_batches(4, 12), steps=3,
             eval=_float_batches(8, 1, seed=7)[0])
+    # optimizer offload: bit-equal to mse_z1, so held to its JAX run
+    for device in ("cpu", "nvme"):
+        off = {"device": device}
+        if device == "nvme":
+            off["nvme_path"] = str(tmp / "nvme")
+        legs[f"offload_{device}"] = dict(
+            legs["mse_z1"], same_as="mse_z1",
+            config=_config({"pp": 2}, 4, zero_optimization={
+                "stage": 1, "offload_optimizer": off}))
     legs["uneven"] = dict(model=_mse_model(5),
                           config=_config({"pp": 2}, 4),
                           batches=_float_batches(4, 12), steps=3)
     legs["tied_clip"] = dict(
         model=_tied_model(),
         config=_config({"pp": 2}, 4, gas=2, gradient_clipping=0.05),
-        batches=_id_batches(4, 6), steps=3, eval=_id_batches(8, 1, seed=5)[0],
-        ckpt_refusal=True)
+        batches=_id_batches(4, 6), steps=3, eval=_id_batches(8, 1, seed=5)[0])
     legs["fp16"] = dict(
         model=_mse_model(), batches=_float_batches(4, 10), steps=5,
         config=_config({"pp": 2}, 4, gas=2, fp16={
@@ -407,15 +434,42 @@ def _gpt2_leg(mesh, micro, sp=1):
                 steps=3, port_only=True)
 
 
-def _legs4():
+SAVE_AT = 2     # the tag of tied_z3_dp2 is written before its third step
+
+
+def _tied_dp2(zero, **extra):
+    return dict(model=_tied_model(), batches=_id_batches(4, 6), steps=3,
+                config=_config({"pp": 2, "dp": 2}, 2, gas=2, zero=zero,
+                               gradient_clipping=0.05, **extra),
+                jax_mesh=dict(pp=2, dp=2))
+
+
+def _legs4(tmp):
     ragged = _float_batches(7, 1)[0]
+    tied_z3 = _tied_dp2(dict(Z3, stage3_gather_16bit_weights_on_model_save=(
+        True)))
+    tied_z3.update(save_at=SAVE_AT, dir=str(tmp / "stage_tag"),
+                   jax_dir=str(tmp / "jax_tag"), jax_uni=str(tmp / "jax_uni"),
+                   save16=str(tmp / "fp16_model"))
     return {
         "gpt2_pp2_sp2": _gpt2_leg({"pp": 2, "sp": 2}, 4, sp=2),
-        "tied_z2_dp2": dict(
-            model=_tied_model(), batches=_id_batches(4, 6), steps=3,
-            config=_config({"pp": 2, "dp": 2}, 2, gas=2, zero=2,
-                           gradient_clipping=0.05),
-            jax_mesh=dict(pp=2, dp=2)),
+        "tied_z2_dp2": _tied_dp2(2),
+        "tied_z3_dp2": tied_z3,
+        "tied_z2_overlap_dp2": _tied_dp2({"stage": 2, "overlap_comm": True}),
+        # hpZ's and MiCS's groups of 2 inside each stage's data group
+        **{f"{kind}_pp2_dp2": dict(
+            model=_mse_model(), batches=_float_batches(4, 12), steps=3,
+            config=_config({"pp": 2, "dp": 2}, 2, zero=dict(Z3, **{key: 2})),
+            jax_mesh=dict(pp=2, dp=2, zero_partition_size=2),
+            save_at=SAVE_AT, dir=str(tmp / f"{kind}_tag"))
+           for kind, key in (("hpz", "zero_hpz_partition_size"),
+                             ("mics", "mics_shard_size"))},
+        "pp2_sp2_z3": dict(model=_sp_model(),
+                           config=_config({"pp": 2, "sp": 2}, 8, gas=2,
+                                          zero=dict(Z3)),
+                           batches=_id_batches(8, 6, vocab=jps.VOCAB,
+                                               seq=jps.S), steps=3,
+                           jax_mesh=dict(pp=2, dp=1, sp=2)),
         "pp2_dp2": dict(model=_mse_model(),
                         config=_config({"pp": 2, "dp": 2}, 2),
                         batches=_float_batches(4, 12), steps=3,
@@ -449,14 +503,20 @@ def _jax_leg(leg, world):
         tree = fp32(eng.master if eng.master is not None else eng.params)
         it = iter(leg["batches"])
         losses, scales, skips = [], [], []
-        for _ in range(leg["steps"]):
+        saved = None
+        for step in range(leg["steps"]):
+            if step == leg.get("save_at") and "jax_dir" in leg:
+                saved = fp32(eng.master if eng.master is not None
+                             else eng.params)
+                eng.save_checkpoint(leg["jax_dir"], tag="t")
+                jax_convert(leg["jax_dir"], leg["jax_uni"], tag="t")
             done = eng.skipped_steps
             losses.append(float(eng.train_batch(it)))
             scales.append(float(np.asarray(eng.scale_state.scale)))
             skips.append(eng.skipped_steps != done)
         out = dict(tree=tree, losses=losses, scales=scales, skips=skips,
-                   master=fp32(eng.master if eng.master is not None
-                               else eng.params))
+                   saved=saved, master=fp32(eng.master if eng.master
+                                            is not None else eng.params))
         if leg.get("eval") is not None:
             loss, logits = eng.eval_batch(iter([leg["eval"]]),
                                           return_logits=True)
@@ -516,9 +576,15 @@ def _jax_ring():
     return out
 
 
-def _run_world(legs, world, extra=()):
-    want = {n: (_base_leg(leg) if leg.get("port_only") else
-                _jax_leg(leg, world)) for n, leg in legs.items()}
+def _run_world(legs, world, extra=(), want=None):
+    want = dict(want or {})
+    for n, leg in legs.items():
+        if n not in want and not leg.get("same_as"):
+            want[n] = (_base_leg(leg) if leg.get("port_only") else
+                       _jax_leg(leg, world))
+    for n, leg in legs.items():
+        if leg.get("same_as"):
+            want[n] = want[leg["same_as"]]
     spec = [dict(leg, name=n, kind="pipe", tree=want[n]["tree"])
             for n, leg in legs.items()] + list(extra)
     got = spawn(world, spec, timeout=300)
@@ -527,11 +593,82 @@ def _run_world(legs, world, extra=()):
     return out
 
 
+def _after_save(want):
+    """The JAX run of tied_z3_dp2 from its tag on: the steps after it."""
+    return dict(want, losses=want["losses"][SAVE_AT:],
+                scales=want["scales"][SAVE_AT:],
+                skips=want["skips"][SAVE_AT:])
+
+
+def _cross_legs(saved_leg, tmp):
+    """Loads of tied_z3_dp2's tags at world 2: the stage tag at pp 1 × dp 2
+    and pp 2 × dp 1, JAX's universal directory at pp 2 × dp 1; and a base
+    engine's tag at dp 1 × sp 2 (GPT-2 with Ulysses, ZeRO 3), resumed."""
+    rest = saved_leg["batches"][SAVE_AT * 2:]
+    load = dict(model=_tied_model(), batches=rest, steps=1, jax_pp=2,
+                load=saved_leg["dir"])
+    legs = {
+        "load_pp1_dp2": dict(load, config=_config(
+            {"pp": 1, "dp": 2}, 2, gas=2, zero=dict(Z3),
+            gradient_clipping=0.05)),
+        "load_pp2_dp1": dict(load, config=_config(
+            {"pp": 2}, 4, gas=2, zero=dict(Z3), gradient_clipping=0.05)),
+        "uni_pp2": dict(load, load=saved_leg["jax_uni"], config=_config(
+            {"pp": 2}, 4, gas=2, zero=1, gradient_clipping=0.05,
+            checkpoint={"load_universal": True})),
+        # the port's stage tag through its own universal directory
+        "port_uni_pp1_dp2": dict(load, load=saved_leg["port_uni"],
+                                 config=_config(
+            {"pp": 1, "dp": 2}, 2, gas=2, zero=dict(Z3),
+            gradient_clipping=0.05, checkpoint={"load_universal": True})),
+    }
+    gpt2 = dict(dtype="float32", remat=False, use_ulysses=True)
+    sp = dict(name="sp2_base", kind="ckpt", model="gpt2", cfg=gpt2,
+              tree=gpt2_tree(5), k=2, batches=[
+                  (x, x) for x, _ in _id_batches(2, 4, vocab=256, seq=16,
+                                                 seed=3)],
+              dir=str(tmp / "sp_tag"),
+              config={"train_micro_batch_size_per_gpu": 2,
+                      "optimizer": {"type": "adam", "params": {"lr": LR}},
+                      "zero_optimization": dict(Z3),
+                      "sequence_parallel_size": 2})
+    return legs, sp
+
+
+def _sp_shard_group_legs():
+    """The base engine at dp 2 × sp 2 (GPT-2 with Ulysses, world 4) at
+    ZeRO 3, and with hpZ's and MiCS's groups of 2 inside the data group of
+    4."""
+    gpt2 = dict(dtype="float32", remat=False, use_ulysses=True)
+    batches = [(x, x) for x, _ in _id_batches(4, 3, vocab=256, seq=16,
+                                              seed=4)]
+    legs = []
+    for name, extra in (("sp_z3", {}), ("sp_hpz", {
+            "zero_hpz_partition_size": 2}), ("sp_mics", {
+                "mics_shard_size": 2})):
+        legs.append(dict(
+            name=name, kind="train", model="gpt2", cfg=gpt2,
+            tree=gpt2_tree(6), batches=batches,
+            config={"train_micro_batch_size_per_gpu": 2,
+                    "optimizer": {"type": "adam", "params": {"lr": LR}},
+                    "zero_optimization": dict(Z3, **extra),
+                    "sequence_parallel_size": 2}))
+    return legs
+
+
 @pytest.fixture(scope="module")
-def runs():
-    out = _run_world(_legs2(), 2)
-    out.update(_run_world(_legs4(), 4, extra=[dict(name="ring", kind="ring",
-                                                   x=RING)]))
+def runs(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("pipe")
+    out = _run_world(_legs2(tmp), 2)
+    out.update(_run_world(_legs4(tmp), 4, extra=[
+        dict(name="ring", kind="ring", x=RING), *_sp_shard_group_legs()]))
+    saved_leg, saved_want, _ = out["tied_z3_dp2"]
+    saved_leg["port_uni"] = str(tmp / "port_uni")
+    from deepspeed_tpu_torch.checkpoint import convert_to_universal
+    convert_to_universal(saved_leg["dir"], saved_leg["port_uni"], tag="t")
+    legs, sp = _cross_legs(saved_leg, tmp)
+    out.update(_run_world(legs, 2, extra=[sp], want={
+        n: _after_save(saved_want) for n in legs}))
     return out
 
 
@@ -555,7 +692,12 @@ def _master_by_name(leg, got):
 
 @pytest.mark.parametrize("leg", ["mse_z1", "mse_z2", "uneven", "tied_clip",
                                  "fp16", "pp2_dp2", "pp2_sp2", "tied_z2_dp2",
-                                 "gpt2_pp2_sp2"])
+                                 "gpt2_pp2_sp2", "mse_z3", "offload_cpu",
+                                 "offload_nvme", "tied_z3_dp2",
+                                 "tied_z2_overlap_dp2", "pp2_sp2_z3",
+                                 "hpz_pp2_dp2", "mics_pp2_dp2",
+                                 "load_pp1_dp2", "load_pp2_dp1", "uni_pp2",
+                                 "port_uni_pp1_dp2"])
 def test_pipeline_matches_jax(runs, leg):
     """The JAX engine's run (the port's base engine for the GPT-2 legs)."""
     spec, want, got = runs[leg]
@@ -565,7 +707,8 @@ def test_pipeline_matches_jax(runs, leg):
     pm = pipe_module(spec["model"])
     ref = want.get("named") or {
         n: t.numpy() for n, t in port_module.params_from_flax(
-            want["master"], pm, spec["config"]["mesh"]["pp"]).items()}
+            want["master"], pm, spec.get(
+                "jax_pp", spec["config"]["mesh"]["pp"])).items()}
     port = _master_by_name(spec, got)
     assert set(port) == set(ref)
     for n in ref:
@@ -606,9 +749,236 @@ def test_stage_split_matches_jax(runs):
                                              for r in range(4)]
 
 
-def test_stage_checkpoints_name_their_item(runs):
-    _, _, got = runs["tied_clip"]
-    assert all("9b" in r["ckpt_refusal"] for r in got)
+# ------------------------------------------------- offload and checkpoints
+@pytest.mark.parametrize("device", ["cpu", "nvme"])
+def test_offload_is_bit_equal_to_the_run_without(runs, device):
+    """``offload_optimizer`` under the pipeline: the same run as without
+    it, bit for bit; the state where the offload puts it."""
+    _, _, got = runs[f"offload_{device}"]
+    _, _, plain = runs["mse_z1"]
+    for r, p in zip(got, plain):
+        assert r["losses"] == p["losses"]
+        for n in p["master"]:
+            np.testing.assert_array_equal(r["master"][n], p["master"][n])
+        assert "master" not in r["placement"]      # fp32: no master
+        assert r["placement"]["exp_avg"] == (
+            "host" if device == "cpu" else "nvme")
+
+
+def test_offload_states_on_a_pipeline_stage(runs):
+    """``offload_states`` between two steps of the ZeRO-3 pipeline moves
+    every state to the host; the next step brings them back (the run
+    matches JAX in ``test_pipeline_matches_jax``)."""
+    _, _, got = runs["mse_z3"]
+    for r in got:
+        assert set(r["offloaded"].values()) == {"host"}, r["offloaded"]
+
+
+@pytest.mark.parametrize("leg", ["tied_z3_dp2", "hpz_pp2_dp2",
+                                 "mics_pp2_dp2"])
+def test_stage_tag_resumes_bit_for_bit(runs, leg):
+    """A pp 2 × dp 2 ZeRO-3 tag (plain, hpZ, MiCS): a fresh engine that
+    loads it runs the next step as the unbroken run did."""
+    _, _, got = runs[leg]
+    for r in got:
+        assert r["resumed"]["losses"] == r["losses"][SAVE_AT:]
+        for n, a in r["master"].items():
+            np.testing.assert_array_equal(r["resumed"]["master"][n], a,
+                                          err_msg=n)
+
+
+def test_stage_tag_holds_upstream_names(runs):
+    """One ``layer_{idx}`` file a layer (the tied key's once), one
+    ``mp_rank_{s}`` file a stage, one optim file a partition of a stage;
+    the 16-bit model one file a stage, the tied leaf in the first."""
+    leg, _, _ = runs["tied_z3_dp2"]
+    files = set(os.listdir(os.path.join(leg["dir"], "t")))
+    assert files == {
+        "engine_state.json", "manifest.json",
+        "mp_rank_00_model_states.pt", "mp_rank_01_model_states.pt",
+        *(f"layer_{i:02d}-model_states.pt" for i in range(5)),
+        *(f"zero_pp_rank_{d}_mp_rank_{s:02d}_optim_states.pt"
+          for d in range(2) for s in range(2))}
+    sd = [torch.load(os.path.join(leg["save16"],
+                                  f"pytorch_model_stage_{s:02d}.bin"))
+          for s in range(2)]
+    assert [sorted({n.split(".")[0] for n in d}) for d in sd] == [
+        ["blocks", "tied"], ["blocks"]]
+
+
+def _saved_by_name(runs):
+    _, _, got = runs["tied_z3_dp2"]
+    return _master_by_name(None, [dict(master=r["saved"]) for r in got])
+
+
+@pytest.mark.parametrize("leg", ["load_pp1_dp2", "load_pp2_dp1"])
+def test_stage_tag_loads_at_another_split(runs, leg):
+    """The tag fills each rank's shard at another pp and dp: the loaded
+    master is the saved one by name (stepped against JAX in
+    ``test_pipeline_matches_jax``)."""
+    saved = _saved_by_name(runs)
+    _, _, got = runs[leg]
+    loaded = _master_by_name(None, [dict(master=r["loaded"]) for r in got])
+    assert set(loaded) == set(saved)
+    for n, a in saved.items():
+        np.testing.assert_array_equal(loaded[n], a, err_msg=n)
+    assert all(r["count"] == SAVE_AT for r in got)
+
+
+def test_stage_tag_loads_into_the_base_engine(runs):
+    """The base engine on ``to_module()`` (one rank, ZeRO 3) loads the
+    pipeline's tag and steps as JAX's pipeline does."""
+    import deepspeed_tpu_torch
+    leg, want, _ = runs["tied_z3_dp2"]
+    pm = pipe_module(leg["model"])
+    config = dict(leg["config"], mesh={"pp": 1},
+                  train_micro_batch_size_per_gpu=4)
+    eng = deepspeed_tpu_torch.initialize(model=pm.to_module(device="meta"),
+                                         config=config, device="cpu")[0]
+    eng.load_checkpoint(leg["dir"])
+    flat = eng.fp32_params()
+    saved = _saved_by_name(runs)
+    for n, o, k, s in eng._layout:
+        np.testing.assert_array_equal(flat[o:o + k].view(s).numpy(),
+                                      saved[n], err_msg=n)
+    micro = []
+    for x, y in leg["batches"][SAVE_AT * 2:]:
+        loss = eng(torch.as_tensor(x), torch.as_tensor(y))
+        eng.backward(loss)
+        eng.step()
+        micro.append(loss.detach().float())
+    np.testing.assert_allclose(float(torch.stack(micro).mean()),
+                               want["losses"][SAVE_AT], rtol=1e-5)
+    ref = port_module.params_from_flax(want["master"], pm, 2)
+    flat = eng.fp32_params()
+    for n, o, k, s in eng._layout:
+        np.testing.assert_allclose(flat[o:o + k].view(s).numpy(),
+                                   ref[n].numpy(), rtol=1e-5, atol=LR / 20,
+                                   err_msg=n)
+
+
+def test_stage_tag_to_universal_matches_jax(runs):
+    """The port's stage tag through its universal converter holds the JAX
+    ``PipelineEngine``'s names and shapes (its padded block stack) and, leaf
+    by leaf, JAX's universal directory from its own tag after the same
+    steps: the master at the master's tolerance, the moments at 1e-4
+    relative plus 1e-6 of each leaf's largest value."""
+    leg, _, _ = runs["tied_z3_dp2"]
+    for field in ("fp32", "exp_avg", "exp_avg_sq"):
+        port, ref = (_npy(leg["port_uni"], field),
+                     _npy(leg["jax_uni"], field))
+        assert set(port) == set(ref), field
+        for path, a in ref.items():
+            assert port[path].shape == a.shape, (field, path)
+            if field == "fp32":
+                tol = dict(rtol=1e-5, atol=LR / 20)
+            else:
+                tol = dict(rtol=1e-4, atol=1e-6 * float(np.abs(a).max()))
+            np.testing.assert_allclose(port[path], a, err_msg=field + path,
+                                       **tol)
+
+
+@pytest.mark.parametrize("leg", ["uni_pp2", "port_uni_pp1_dp2"])
+def test_universal_loads_into_a_pipeline(runs, leg):
+    """A universal directory into the port's pipeline at another split:
+    JAX's at pp 2 × dp 1, the port's own (from its pp 2 × dp 2 stage tag)
+    at pp 1 × dp 2.  Every stage's master is the directory's fp32, bit for
+    bit (stepped against JAX in ``test_pipeline_matches_jax``)."""
+    leg, _, got = runs[leg]
+    want = port_module.params_from_flax(flax_tree(_npy(leg["load"], "fp32")),
+                                        pipe_module(leg["model"]), 2)
+    loaded = _master_by_name(None, [dict(master=r["loaded"]) for r in got])
+    assert set(loaded) == set(want)
+    for n, t in want.items():
+        np.testing.assert_array_equal(loaded[n], t.numpy(), err_msg=n)
+
+
+def test_jax_directory_at_pp4_loads_block_for_block(tmp_path):
+    """A JAX universal directory records no stage count.  Ten blocks make
+    12 slots at pp 3, 4 and 6, laid out differently; a directory written
+    by JAX's ``PipelineEngine`` at pp 4 after a step loads into the port's
+    module with every block its own, read at pp 4 from the pad slots'
+    zero moments (at pp 3 slot 8 would be block 7, and block 7 taken as
+    pad)."""
+    from types import SimpleNamespace
+    from deepspeed_tpu_torch.checkpoint.universal_checkpoint import \
+        read_universal
+    leg = dict(model=_mse_model(10), config=_config({"pp": 4}, 4),
+               batches=_float_batches(4, 8), steps=2, save_at=1,
+               jax_dir=str(tmp_path / "tag"), jax_uni=str(tmp_path / "uni"),
+               jax_mesh=dict(pp=4, dp=1))
+    want = _jax_leg(leg, 4)
+    pm = pipe_module(leg["model"])
+    _, fields = read_universal(leg["jax_uni"], SimpleNamespace(pipe=pm))
+    at4 = port_module.params_from_flax(want["saved"], pm, 4)
+    at3 = port_module.params_from_flax(want["saved"], pm, 3)
+    assert set(fields["fp32"]) == set(at4)
+    for n, t in at4.items():
+        torch.testing.assert_close(fields["fp32"][n], t, rtol=0, atol=0,
+                                   msg=n)
+    assert any(not torch.equal(at3[n], t) for n, t in at4.items())
+
+
+def test_an_unreadable_stage_count_asks_for_it():
+    """Where the block stack leaves more than one layout (a JAX directory
+    before its first step: every moment zero), the load raises and says
+    where to record the stage count; where one layout's pads alone are
+    zero (the port's converter writes them so), that one is taken."""
+    geo = port_module.geometry(pipe_module(_mse_model(10)))
+    rng = np.random.default_rng(0)
+    fp32 = {"w": rng.standard_normal((12, 3)).astype(np.float32)}
+    zeros = {"w": np.zeros((12, 3), np.float32)}
+    with pytest.raises(ValueError, match="num_stages"):
+        port_module.stages_of_block_stack(geo, [fp32, zeros, zeros])
+    for pp, pads in ((3, [7, 11]), (4, [8, 11]), (6, [9, 11])):
+        padded = {"w": fp32["w"].copy()}
+        padded["w"][pads] = 0
+        assert port_module.stages_of_block_stack(geo, [padded]) == pp
+
+
+def test_zero_to_fp32_of_a_stage_tag(runs):
+    """``zero_to_fp32`` puts every stage's pieces together: the whole fp32
+    model, each leaf the saved master (a tied leaf once)."""
+    from deepspeed_tpu_torch.checkpoint.zero_to_fp32 import \
+        get_fp32_state_dict_from_zero_checkpoint
+    leg, _, _ = runs["tied_z3_dp2"]
+    sd = get_fp32_state_dict_from_zero_checkpoint(leg["dir"], tag="t")
+    saved = _saved_by_name(runs)
+    assert set(sd) == set(saved)
+    for n, a in saved.items():
+        np.testing.assert_array_equal(sd[n].numpy(), a, err_msg=n)
+
+
+def test_shard_groups_with_sequence_parallelism(runs):
+    """hpZ over groups of 2 inside the data group of dp 2 × sp 2 is ZeRO 3
+    bit for bit (the gathers move the same bits); MiCS's losses within
+    2e-4 and its master within the Adam rule's LR / 20 (its sums in
+    another order)."""
+    _, _, z3 = runs["sp_z3"]
+    _, _, hpz = runs["sp_hpz"]
+    _, _, mics = runs["sp_mics"]
+    for r, p in zip(hpz, z3):
+        assert r["losses"] == p["losses"]
+        np.testing.assert_array_equal(r["master"], p["master"])
+    for r, p in zip(mics, z3):
+        np.testing.assert_allclose(r["losses"], p["losses"], rtol=2e-4)
+        np.testing.assert_allclose(r["master"], p["master"], rtol=2e-4,
+                                   atol=LR / 20)
+
+
+def test_sp2_base_tag_resumes_bit_for_bit(runs):
+    """The base engine at dp 1 × sp 2 (ZeRO 3 over the data group of both
+    sp ranks): the loaded state is the saved one and the resumed run the
+    unbroken one, bit for bit."""
+    _, _, got = runs["sp2_base"]
+    for r in got:
+        res = r["resumed"]["same"]
+        assert res["losses"] == r["losses"]
+        for key in ("master", "exp_avg", "exp_avg_sq"):
+            for n, a in r["saved"][key].items():
+                np.testing.assert_array_equal(res["loaded"][key][n], a)
+            for n, a in r["final"][key].items():
+                np.testing.assert_array_equal(res["final"][key][n], a)
 
 
 def test_gpt2_pipeline_logits_are_gpt2_models():

@@ -145,6 +145,14 @@ def _legs2():
     }
     legs["llama_qwz_qgz_remat_z3"] = dict(
         legs["llama_qwz_qgz_z3"], cfg=dict(LLAMA, remat=True))
+    # zero_multicard.py --zeropp's fp6 leg at a small width: 8 layers, one
+    # batch taken 4 times
+    deep = dict(LLAMA, num_hidden_layers=8)
+    deep_tree = llama_tree(jax_llama.llama_tiny(**deep), seed=7)
+    for name, zero in (("llama_z3_8l", Z3), ("llama_qwz_fp6_8l", dict(
+            Z3, **QW, zero_quantized_weights_format="fp6"))):
+        legs[name] = dict(model="llama", cfg=deep, tree=deep_tree,
+                          config=_llama_config(zero), batches=b[:1] * 4)
     for name, leg_ in legs.items():
         leg_.update(name=name, kind="train")
     return legs
@@ -229,7 +237,11 @@ def _jax_llama(leg):
             eng.backward(loss)
             eng.step()
             losses.append(float(loss))
-        return dict(losses=losses, variant=eng._micro_variant())
+        master = eng.master if eng.master is not None else eng.params
+        return dict(losses=losses, variant=eng._micro_variant(),
+                    master=np.concatenate([
+                        np.asarray(a, np.float32).reshape(-1)
+                        for a in jax.tree_util.tree_leaves(master)]))
     finally:
         groups.reset_mesh()
         jax_dist.destroy_process_group()
@@ -281,6 +293,9 @@ def runs(tmp_path_factory):
     jax_runs = {
         "llama_z3": _jax_llama(legs2["llama_z3"]),
         "llama_qwz_qgz_z3": _jax_llama(legs2["llama_qwz_qgz_z3"]),
+        "llama_qwz_fp6_z3": _jax_llama(legs2["llama_qwz_fp6_z3"]),
+        "llama_z3_8l": _jax_llama(legs2["llama_z3_8l"]),
+        "llama_qwz_fp6_8l": _jax_llama(legs2["llama_qwz_fp6_8l"]),
         "mlp_z3": _jax_mlp(Z3),
         "mlp_mics_z3": _jax_mlp(dict(Z3, mics_shard_size=2), zp=2),
     }
@@ -407,6 +422,38 @@ def test_fp6_weights_wire(runs):
         0.25 * abs(plain[0]["losses"][0])
     assert q[0]["dispatch"]["all_gather/q_fp6"] > 0
     assert q[0]["variant"] == "qwZ"
+
+
+def _fp6_gaps(q_losses, p_losses, q_master, p_master):
+    """(final loss, master) of an fp6 run relative to its plain run."""
+    return (abs(q_losses[-1] - p_losses[-1]) / abs(p_losses[-1]),
+            float(np.linalg.norm(q_master - p_master) /
+                  np.linalg.norm(p_master)))
+
+
+@pytest.mark.parametrize("fp6, plain", [
+    ("llama_qwz_fp6_z3", "llama_z3"), ("llama_qwz_fp6_8l", "llama_z3_8l")],
+    ids=["2_layers", "8_layers_one_batch"])
+def test_fp6_gap_to_plain_matches_jax(runs, fp6, plain):
+    """The fp6 qwZ wire against plain ZeRO 3, in each package from the same
+    weights and batches: the port's gap (final loss and master, relative)
+    is at most twice JAX's, plus 1e-6.  The two packages quantize
+    different groups (a unit's flat slice, a leaf's tile), so the gaps
+    differ; a port gap above twice JAX's would be a fault of the port's
+    fp6 wire, not of fp6's 2-bit mantissa.  Held at the tiny model's 2
+    layers over 4 batches, and at the depth and steps of
+    ``zero_multicard.py --zeropp``'s fp6 leg (8 layers, one batch 4
+    times), where a fault growing with depth or steps would show."""
+    got, jax_runs = runs[:2]
+    q, plain_run = got[fp6][0], got[plain][0]
+    jq, jplain = jax_runs[fp6], jax_runs[plain]
+    assert jq["losses"] != jplain["losses"]      # JAX did quantize
+    port = _fp6_gaps(q["losses"], plain_run["losses"], q["master"],
+                     plain_run["master"])
+    ref = _fp6_gaps(jq["losses"], jplain["losses"], jq["master"],
+                    jplain["master"])
+    for what, p, j in zip(("final loss", "master"), port, ref):
+        assert p <= 2 * j + 1e-6, (what, port, ref)
 
 
 @pytest.mark.parametrize("stage", (0, 1, 2))

@@ -40,9 +40,14 @@ Leg kinds:
 * ``pipe``: a ``PipelineModule`` of the JAX pipeline tests' toy layers
   (:func:`pipe_twins`, the flax layers' torch twins) or GPT-2's, trained
   with ``train_batch`` from the leg's flax tree (or ``initialize_
-  parameters(init_seed)``): each step's loss, scale and
-  skip, this stage's fp32 master by name, and ``eval_batch``'s loss and
-  logits, a ragged batch's refusal, a stage checkpoint's refusal;
+  parameters(init_seed)``, or from the tag or universal directory at
+  ``load``): each step's loss, scale and skip, this stage's fp32 master by
+  name and where the engine keeps each state, and ``eval_batch``'s loss
+  and logits, a ragged batch's refusal; with ``save_at`` (a step index) a
+  tag in ``dir`` before that step, and a fresh engine that loads it and
+  runs the steps after it (its losses and master); with
+  ``offload_states_at`` every state sent to the host before that step
+  (the placement then);
 * ``ulysses``: ``DistributedAttention`` on rank r's sequence chunk of the
   leg's q, k, v over an sp group of the whole world: the output chunk and
   the gradients of ``sum(out ** 2)``;
@@ -736,34 +741,65 @@ def pipe_module(spec):
     return PipelineModule(layers=layers, loss_fn=tw[spec[1]])
 
 
+def _stage_master(engine):
+    """This stage's fp32 master by leaf name (a collective when sharded)."""
+    flat = engine.fp32_params()
+    return {n: flat[o:o + k].view(s).numpy().copy()
+            for n, o, k, s in engine._layout}
+
+
 def run_pipe(leg, rank, world):
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.runtime.pipe.module import params_from_flax
     pm = pipe_module(leg["model"])
     stages = leg["config"]["mesh"]["pp"]
-    start = (None if leg.get("tree") is None else
+    start = (None if leg.get("tree") is None or leg.get("load") else
              params_from_flax(leg["tree"], pm, stages))
     engine = deepspeed_tpu_torch.initialize(
         model=pm, model_parameters=start, config=dict(leg["config"]),
         device="cpu")[0]
-    if start is None:
+    out = {}
+    if leg.get("load"):
+        engine.load_checkpoint(leg["load"])
+        out["loaded"] = _stage_master(engine)
+        out["count"] = engine.opt_state.count
+    elif start is None:
         engine.initialize_parameters(leg["init_seed"])
     it = iter(leg["batches"])
     losses, scales, skips = [], [], []
-    for _ in range(leg["steps"]):
+    for step in range(leg["steps"]):
+        if step == leg.get("save_at"):
+            out["saved"] = _stage_master(engine)
+            engine.save_checkpoint(leg["dir"], tag="t")
+        if step == leg.get("offload_states_at"):
+            engine.offload_states()
+            out["offloaded"] = engine.state_placement()
         losses.append(float(engine.train_batch(it)))
         scales.append(float(engine.cur_scale))
         skips.append(bool(engine._last_skipped))
-    flat = engine.fp32_params()
     from deepspeed_tpu_torch.utils import groups
-    out = dict(losses=losses, scales=scales, skips=skips,
+    out["placement"] = engine.state_placement()   # before the gathers
+    out.update(losses=losses, scales=scales, skips=skips,
                stage=engine.stage_id, layers=list(engine.stage_layers),
                coords=(groups._get_pipe_parallel_rank(),
                        groups._get_data_parallel_rank(),
                        groups._get_sequence_parallel_rank()),
-               master={n: flat[o:o + k].view(s).numpy().copy()
-                       for n, o, k, s in engine._layout},
+               master=_stage_master(engine),
                stats=dict(engine.last_step_stats))
+    if leg.get("save16"):
+        engine.save_16bit_model(leg["save16"])
+    if leg.get("save_at") is not None:
+        # a fresh engine resumes from the tag
+        fresh = deepspeed_tpu_torch.initialize(
+            model=pipe_module(leg["model"]), config=dict(leg["config"]),
+            device="cpu")[0]
+        fresh.load_checkpoint(leg["dir"])
+        it = iter(leg["batches"][leg["save_at"] *
+                                 engine.gradient_accumulation_steps():])
+        out["resumed"] = dict(
+            losses=[float(fresh.train_batch(it))
+                    for _ in range(leg["steps"] - leg["save_at"])],
+            master=_stage_master(fresh))
     if leg.get("eval") is not None:
         loss, logits = engine.eval_batch(iter([leg["eval"]]),
                                          return_logits=True)
@@ -774,12 +810,6 @@ def run_pipe(leg, rank, world):
             out["ragged"] = None
         except ValueError as e:          # the refusal under test
             out["ragged"] = str(e)
-    if leg.get("ckpt_refusal"):
-        try:
-            engine.save_checkpoint(leg.get("dir", "."))
-            out["ckpt_refusal"] = None
-        except NotImplementedError as e:  # the refusal under test
-            out["ckpt_refusal"] = str(e)
     return out
 
 

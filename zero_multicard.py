@@ -119,6 +119,16 @@ fails when a loss is not finite, the ranks disagree, or a parity run
 leaves the base engine's losses.  pp 4 × sp 2, the config's own shape,
 needs eight cards.
 
+Under ZeRO 3 (``--pipe``): (d) pp 2 × dp 2 at full depth if its
+ZeRO-3 state fits (18 bytes a parameter over the data world, a gathered
+block and the outer unit with their fp32 gradient scratch), M 8 of 2
+rows; (e) pp 2 × sp 2 as deep as that fits; at 4 blocks ``pp2_dp2_z3``
+and ``pp2_dp2_z2_overlap`` (ZeRO 2 with ``overlap_comm``) each against
+the base engine at the same ZeRO; and a checkpoint leg: ``pp2_dp2_z3``
+saves a tag after its steps and runs 2 more, and fresh engines at pp 4
+and at pp 1 × dp 4 load it and run the same 2, each step's loss within
+2^-7 of the saver's, the save and load seconds printed.
+
 ``--onebit`` runs BASELINE config 2's model (GPT-2 350M, fp16 from a scale
 of 2^16, 8 rows of 1024 a rank) at ZeRO 0 with ``onebitadam`` (lr 1e-4,
 ``freeze_step`` 10) and with ``fusedadam``, 30 steps each from the same
@@ -596,25 +606,41 @@ def _zeropp_main(args, world, smi, out):
 
 
 # --pipe: (name, pp, sp, layers (None: as deep as fits), microbatches,
-#          global rows a microbatch, compared with "base")
+#          global rows a microbatch, the run it is compared with, ZeRO)
+Z1, Z3 = {"stage": 1}, {"stage": 3}
+Z2_OVERLAP = {"stage": 2, "overlap_comm": True}
 PIPE_RUNS = (
-    ("a_pp4_full", 4, 1, None, 8, 1, False),
-    ("b_pp2_sp2", 2, 2, None, 8, 1, False),
-    ("base", 1, 1, 4, 4, 4, False),
-    ("pp2", 2, 1, 4, 4, 4, True),
-    ("pp4", 4, 1, 4, 4, 4, True),
-    ("sp2", 1, 2, 4, 4, 4, True),
-    ("sp4", 1, 4, 4, 4, 4, True),
-    ("pp2_sp2", 2, 2, 4, 4, 4, True),
+    ("a_pp4_full", 4, 1, None, 8, 1, None, Z1),
+    ("b_pp2_sp2", 2, 2, None, 8, 1, None, Z1),
+    ("base", 1, 1, 4, 4, 4, None, Z1),
+    ("pp2", 2, 1, 4, 4, 4, "base", Z1),
+    ("pp4", 4, 1, 4, 4, 4, "base", Z1),
+    ("sp2", 1, 2, 4, 4, 4, "base", Z1),
+    ("sp4", 1, 4, 4, 4, 4, "base", Z1),
+    ("pp2_sp2", 2, 2, 4, 4, 4, "base", Z1),
+    ("d_pp2_dp2_z3_full", 2, 1, None, 8, 2, None, Z3),
+    ("e_pp2_sp2_z3", 2, 2, None, 8, 1, None, Z3),
+    ("base_z3", 1, 1, 4, 4, 4, None, Z3),
+    ("pp2_dp2_z3", 2, 1, 4, 4, 4, "base_z3", Z3),
+    ("base_z2_overlap", 1, 1, 4, 4, 4, None, Z2_OVERLAP),
+    ("pp2_dp2_z2_overlap", 2, 1, 4, 4, 4, "base_z2_overlap", Z2_OVERLAP),
 )
+# the checkpoint leg: the tag pp2_dp2_z3 writes after its steps, loaded at
+# these (pp, dp) splits, each then running CKPT_STEPS steps as it did
+CKPT_SAVER, CKPT_STEPS = "pp2_dp2_z3", 2
+CKPT_LOADS = (("ckpt_pp4", 4), ("ckpt_pp1_dp4", 1))
 
 
-def _pipe_depth(cfg, pp, sp, world, total_bytes):
+def _pipe_depth(cfg, pp, sp, world, total_bytes, zero=1):
     """The deepest stack (a multiple of ``pp`` blocks, at most the
-    model's) whose busiest stage's ZeRO-1 state fits 0.85 of the card: 2
-    (bf16) + 4 (fp32 accumulator) + 12 / data world (master, moments)
-    bytes a parameter, the step's fp32 shard (none in a data group of one
-    rank, which reduces in place), and 3 GB of activations."""
+    model's) whose busiest stage's state fits 0.85 of the card, with 3 GB
+    of activations.  ZeRO 1: 2 (bf16) + 4 (fp32 accumulator) + 12 / data
+    world (master, moments) bytes a parameter, and the step's fp32 shard
+    (none in a data group of one rank, which reduces in place).  ZeRO 3:
+    (2 + 4 + 12) / data world bytes a parameter (every state sharded),
+    one block and the outer unit gathered in bf16, and their fp32
+    gradient scratch (the outer unit's held through the step when it
+    holds the tied embedding)."""
     from deepspeed_tpu_torch.models import gpt2
     D, V, P = cfg.hidden_size, cfg.vocab_size, cfg.max_position_embeddings
     block = gpt2.param_count(gpt2.GPT2Config(
@@ -624,8 +650,11 @@ def _pipe_depth(cfg, pp, sp, world, total_bytes):
     data = world // pp
     for L in range(cfg.num_hidden_layers, 0, -pp):
         n = -(-L // pp) * block + embed
-        need = n * (2 + 4 + 12 / data) + (4 * n / data if data > 1 else
-                                          0) + 3e9
+        if zero >= 3:
+            need = n * 18 / data + (2 + 4) * (block + embed) + 3e9
+        else:
+            need = n * (2 + 4 + 12 / data) + (4 * n / data if data > 1 else
+                                              0) + 3e9
         if need <= 0.85 * total_bytes:
             return L
     raise RuntimeError("not one block a stage fits the card")
@@ -653,35 +682,42 @@ def run_pipe_rank(args):
                 "flash_dq": fa.flash_attention_bwd_dq,
                 "flash_dkv": fa.flash_attention_bwd_dkv,
                 "adam": opt.fused_adam_step}
-    rows = []
+    rows, ckpt = [], None
     deepspeed_tpu_torch.init_distributed(
         dist_backend="gloo" if cpu else "nccl", verbose=False)
     world = comm.get_world_size()
-    for name, pp, sp, layers, M, R, compare in PIPE_RUNS:
+    for name, pp, sp, layers, M, R, compare, zero in PIPE_RUNS:
         if layers is None:
             layers = (full.num_hidden_layers if cpu else _pipe_depth(
-                full, pp, sp, world, torch.cuda.mem_get_info()[1]))
+                full, pp, sp, world, torch.cuda.mem_get_info()[1],
+                zero["stage"]))
         cfg = dataclasses.replace(full, num_hidden_layers=layers,
                                   use_ulysses=sp > 1)
-        pm = gpt2.pipeline_module(cfg, activation_checkpoint_interval=1)
         dp = world // (pp * sp)
-        config = {"train_micro_batch_size_per_gpu": R // dp,
-                  "gradient_accumulation_steps": M,
-                  "optimizer": {"type": "fusedadam", "params": {"lr": 1e-4}},
-                  "bf16": {"enabled": True},
-                  "zero_optimization": {"stage": 1},
-                  "mesh": {"pp": pp, "sp": sp},
-                  "comms_logger": {"enabled": True, "prof_all": True}}
-        model = pm.to_module(device="meta") if name == "base" else pm
-        engine = deepspeed_tpu_torch.initialize(
-            model=model, config=config, device=dev if cpu else None)[0]
+
+        def build(pp, dp):
+            pm = gpt2.pipeline_module(cfg, activation_checkpoint_interval=1)
+            config = {"train_micro_batch_size_per_gpu": R // dp,
+                      "gradient_accumulation_steps": M,
+                      "optimizer": {"type": "fusedadam",
+                                    "params": {"lr": 1e-4}},
+                      "bf16": {"enabled": True},
+                      "zero_optimization": dict(zero),
+                      "mesh": {"pp": pp, "sp": sp},
+                      "comms_logger": {"enabled": True, "prof_all": True}}
+            model = (pm.to_module(device="meta") if name.startswith("base")
+                     else pm)
+            return deepspeed_tpu_torch.initialize(
+                model=model, config=config, device=dev if cpu else None)[0]
+
+        engine = build(pp, dp)
         engine.initialize_parameters(args.seed)
         rng = np.random.default_rng(args.seed + 1)
         batches = []
         for _ in range(M):
             ids = rng.integers(0, cfg.vocab_size, size=(R, S))
             batches.append((ids, np.roll(ids, -1, axis=1)))
-        pipeline = name != "base"
+        pipeline = not name.startswith("base")
         losses, times, compute, p2p = [], [], [], []
         for i in range(1 + args.steps):
             if i == 1:
@@ -722,8 +758,12 @@ def run_pipe_rank(args):
                             device=dev)
         every = comm.all_gather(mine, tiled=False).cpu()
         tokens = R * S * M
+        launches = {k: fn.launches / args.steps for k, fn in counters.items()}
+        if name == CKPT_SAVER and args.ckpt_dir:
+            ckpt = _pipe_checkpoint(args, engine, build, batches, dp * pp,
+                                    sync)
         rows.append(dict(
-            name=name, pp=pp, sp=sp, dp=dp, layers=layers, M=M,
+            name=name, pp=pp, sp=sp, dp=dp, layers=layers, M=M, zero=zero,
             full_layers=full.num_hidden_layers,
             global_rows=R, world=world, compare=compare, losses=losses,
             rank_losses_equal=bool((every[:, 3:] == every[0, 3:]).all()),
@@ -739,33 +779,72 @@ def run_pipe_rank(args):
             a2a_mb_per_step=a2a.get("total_msg_bytes", 0) / 1e6 / args.steps,
             a2a_ms_per_step=a2a.get("total_latency_ms", 0.0) / args.steps,
             a2a_calls_per_step=a2a.get("count", 0) / args.steps,
-            launches_per_step={k: fn.launches / args.steps
-                               for k, fn in counters.items()},
-            param_numel=engine.zero_plan.numel))
-        del engine, model, pm, loss
+            launches_per_step=launches, param_numel=engine.zero_plan.numel))
+        del engine, loss
         gc.collect()
         if not cpu:
             torch.cuda.empty_cache()
     if args.rank == 0:
         with open(args.out_rank0, "w") as f:
-            json.dump(rows, f)
+            json.dump(dict(rows=rows, ckpt=ckpt), f)
     comm.destroy_process_group()
 
 
+def _pipe_checkpoint(args, engine, build, batches, world, sync):
+    """The checkpoint leg (:data:`CKPT_LOADS`): ``engine`` saves a tag and
+    runs :data:`CKPT_STEPS` more steps; a fresh engine at each other split
+    loads the tag and runs the same steps.  Every split's losses, the save
+    and load seconds and the tag's bytes."""
+    import torch
+    t = time.perf_counter()
+    engine.save_checkpoint(args.ckpt_dir, tag="t")
+    sync()
+    save_s = time.perf_counter() - t
+
+    def steps(eng):
+        return [float(eng.train_batch(iter(batches)).item())
+                for _ in range(CKPT_STEPS)]
+
+    out = dict(save_s=save_s, after={"saver": steps(engine)}, load_s={})
+    root = os.path.join(args.ckpt_dir, "t")
+    out["tag_bytes"] = sum(os.path.getsize(os.path.join(root, f))
+                           for f in os.listdir(root))
+    for name, pp in CKPT_LOADS:
+        fresh = build(pp, world // pp)
+        sync()
+        t = time.perf_counter()
+        fresh.load_checkpoint(args.ckpt_dir)
+        sync()
+        out["load_s"][name] = time.perf_counter() - t
+        out["after"][name] = steps(fresh)
+        del fresh
+        gc.collect()
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+    return out
+
+
 def _pipe_main(args, world, smi, out):
-    rcs = _spawn(world, sys.argv[1:] + ["--out-rank0", out])
+    import shutil
+    import tempfile
+    ckpt_dir = tempfile.mkdtemp(prefix="zero_multicard_pipe_")
+    try:
+        rcs = _spawn(world, sys.argv[1:] + ["--out-rank0", out,
+                                            "--ckpt-dir", ckpt_dir])
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
     if any(rcs):
         print(f"zero_multicard: ranks exited {rcs}", file=sys.stderr)
         return 1
     with open(out) as f:
-        rows = {r["name"]: r for r in json.load(f)}
+        got = json.load(f)
+    rows = {r["name"]: r for r in got["rows"]}
     os.remove(out)
-    base = rows["base"]
-    scale = max(abs(x) for x in base["losses"])
     ok = True
     for r in rows.values():
         line = (f"[pipe] {r['name']}: pp {r['pp']} × sp {r['sp']} × dp "
-                f"{r['dp']}, {r['layers']} layers, M {r['M']} of "
+                f"{r['dp']}, ZeRO {r['zero']}, {r['layers']} layers, M "
+                f"{r['M']} of "
                 f"{r['global_rows']} rows: losses " + ", ".join(
                     f"{x:.5f}" for x in r["losses"])
                 + f" | step ms {r['step_ms_mean']:.1f}, "
@@ -783,23 +862,44 @@ def _pipe_main(args, world, smi, out):
                 f"{r['launches_per_step']} | {smi}")
         ok &= r["rank_losses_equal"] and all(
             map(math.isfinite, r["losses"]))
-        if r["compare"]:
+        if r["compare"] is not None:
+            base = rows[r["compare"]]
+            scale = max(abs(x) for x in base["losses"])
             diff = max(abs(a - b) for a, b in zip(r["losses"],
                                                   base["losses"]))
             r["max_loss_diff_vs_base"] = diff
             good = diff <= 2.0**-7 * scale
             ok &= good
-            line += (f" | largest loss difference from the base engine "
+            line += (f" | largest loss difference from {r['compare']} "
                      f"{diff:.3e} (limit 2^-7 × {scale:.4f}) -> "
                      f"{'ok' if good else 'FAILED'}")
         print(line, flush=True)
-    for key in ("a_pp4_full", "b_pp2_sp2"):
-        print(f"[pipe] {key}: depth {rows[key]['layers']} of the model's "
-              f"{rows[key]['full_layers']} (the deepest whose ZeRO-1 state fits "
-              "0.85 of a card; widths kept)", flush=True)
+    for key in ("a_pp4_full", "b_pp2_sp2", "d_pp2_dp2_z3_full",
+                "e_pp2_sp2_z3"):
+        print(f"[pipe] {key}: depth {rows[key]['layers']} of the "
+              f"model's {rows[key]['full_layers']} (the deepest whose "
+              f"ZeRO-{rows[key]['zero']['stage']} state fits 0.85 of a "
+              "card; widths kept)", flush=True)
+    ck = got["ckpt"]
+    ref = ck["after"]["saver"]
+    scale = max(abs(x) for x in ref)
+    for name, losses in ck["after"].items():
+        diff = max(abs(a - b) for a, b in zip(losses, ref))
+        good = diff <= 2.0**-7 * scale
+        ok &= good and all(map(math.isfinite, losses))
+        load = ("" if name == "saver" else
+                f", load {ck['load_s'][name]:.2f} s")
+        print(f"[pipe] checkpoint: {CKPT_SAVER} saved "
+              f"{ck['tag_bytes'] / 1e9:.2f} GB in {ck['save_s']:.2f} s"
+              f"{load}; {name} then {CKPT_STEPS} steps: losses "
+              + ", ".join(f"{x:.5f}" for x in losses)
+              + f" | largest difference from the saver's "
+              f"{diff:.3e} (limit 2^-7 × {scale:.4f}) -> "
+              f"{'ok' if good else 'FAILED'} | {smi}", flush=True)
     if args.json:
         with open(args.json, "w") as f:
-            json.dump(dict(card=smi, runs=list(rows.values())), f, indent=1)
+            json.dump(dict(card=smi, runs=list(rows.values()),
+                           checkpoint=ck), f, indent=1)
     if not ok:
         print("zero_multicard: a pipeline check failed", file=sys.stderr)
         return 1
