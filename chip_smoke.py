@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--json PATH] [--profile DIR]
 
-Stages, run in the order 1-32; any failure exits non-zero:
+Stages, run in the order 1-33; any failure exits non-zero:
 
 1. environment: torch/CUDA/nvcc versions, the card's name and power limit;
 2. build: every ``deepspeed_tpu_torch/csrc/*.cu`` with nvcc for sm_90a
@@ -343,6 +343,22 @@ Stages, run in the order 1-32; any failure exits non-zero:
     after step 2 (seconds, GB, files), a fresh engine loads it (seconds)
     and its step 3 equals the unbroken run's, loss and master digest.
 
+33. tensor parallelism at one rank: (a) stage 8's model, config, weights
+    and batch with its linears and embedding replaced by
+    ``module_inject``'s parallel modules (``shard_params_for_tp`` over a
+    tp group of one rank, ``llama.tp_rules``): 2 + 2 steps whose losses
+    are bit-equal to stage 8's first four, B1's and B2's launches counted;
+    (b) stage 4's Llama-2-7B weights loaded into a model cut by
+    ``shard_params_for_tp`` at tp 1 before the load (the order the tp path
+    takes) and served with ``tensor_parallel.tp_size`` 1: stage 4's
+    requests give stage 4's greedy tokens bit for bit, B4's launches
+    counted on their routes; (c) B4 at the heads a tp rank holds (Llama-2-
+    7B at tp 4: H = Hkv = 8; Mistral-7B at tp 4: H = 8, Hkv = 2; Llama-2-
+    70B at tp 8: H = 8, Hkv = 1, the shape of replicated-kv GQA) and B7 at
+    Mixtral-8x7B's expert slices at tp 4 (w1 [8, 4096, 3584], w2 [8,
+    3584, 4096]), decode and prefill, each against its plain version on
+    its route (B7 ``wgmma_tma``/``wgmma_tma_64``).
+
 ``--profile DIR`` adds ``torch.profiler`` windows over serving (stages 4,
 14 and 15), over two training steps of stage 8, of stage 11, of stage 22
 and of each ZeRO stage of stages 23-25, and
@@ -681,6 +697,80 @@ def _pa_flops(q, pos, window):
     return 4 * Dh * H * keys
 
 
+def _paged_row(torch, gen, pa, name, wrapper, line, shape):
+    """One paged attention case: the launch must take the route
+    ``launch_plan`` gives these shapes, twice bit for bit, within the
+    tolerance of the plain version; the times of the kernel, the plain
+    version, SDPA and the bound."""
+    q, kc, vc, tables, pos = _paged_case(torch, gen, **shape)
+    atom, window = shape["atom"], shape["window"]
+    fn = getattr(pa, wrapper)
+    args = (q, kc, vc, tables, pos) + ((atom, ) if atom > 1 else ())
+    route, splits, span, row_tiles = pa.launch_plan(
+        q.dtype, q.shape[0], shape["H"], shape["Hkv"], tables.shape[1],
+        atom)
+    before = dict(fn.route_launches)
+    got = fn(*args, window=window)
+    again = fn(*args, window=window)
+    torch.cuda.synchronize()
+    taken = {r: n - before[r] for r, n in fn.route_launches.items()
+             if n != before[r]}
+    if taken != {route: 2}:
+        raise AssertionError(f"{name}: launches by route {taken}, want "
+                             f"two on {route}")
+    bit_equal = torch.equal(got, again)
+    first = pa._first_row_tables(tables, atom)
+    ref = _plain(pa, q, kc, vc, first, pos, window)
+    low = {torch.bfloat16: "bf16", torch.float16: "fp16"}.get(q.dtype)
+    diff = (got.float() - ref.float()).abs()
+    if low is None:
+        tol, tol_text = FP32_ATOL, f"{FP32_ATOL:g}"
+    else:
+        rtol = FP16_RTOL if low == "fp16" else BF16_RTOL
+        tol = rtol * ref.float().abs() + BF16_ATOL
+        tol_text = (f"2^-{10 if low == 'fp16' else 7}·|ref| + "
+                    f"{BF16_ATOL:g}")
+    err = diff.max().item()
+    worst = (diff / tol).max().item()
+    ms = cuda_ms(lambda: fn(*args, window=window), 20)
+    plain_ms = cuda_ms(lambda: _plain(pa, q, kc, vc, first, pos,
+                                      window), 3, warmup=1)
+    lib_ms, lib_out = _sdpa_ms(torch, q, kc, vc, tables, pos, atom,
+                               window)
+    lib_err = (lib_out.float() - ref.float()).abs().max().item()
+    bound_ms, bound_by = _bound(q, kc, tables, pos, atom, window)
+    tflops = _pa_flops(q, pos, window) / ms / 1e9
+    plan = (f"route {route}" + (f", {splits} splits of {span} pages"
+                                if route == "decode_split" else "")
+            + (f", {row_tiles} row tiles" if route != "fp32" else ""))
+    log(f"[kernel] {name}: T={q.shape[0]} H={shape['H']} "
+        f"Hkv={shape['Hkv']} atom={atom} window={window} "
+        f"ctx<={shape['max_ctx']} table={tables.shape[1] * kc.shape[1]}: "
+        f"{shape.get('dtype', 'bfloat16')}, {plan}: max_abs_err "
+        f"{err:.3e}, worst |err| / ({tol_text}) {worst:.3f}, rerun "
+        f"bit-equal {bit_equal} | kernel {ms:.4f} ms ({tflops:.1f} "
+        f"TFLOP/s, {bound_ms / ms:.3f} of the bound), plain "
+        f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (err {lib_err:.2e}), "
+        f"bound {bound_ms:.4f} ms by {bound_by}")
+    if not worst <= 1.0:
+        raise AssertionError(f"{name}: kernel differs from its plain "
+                             f"version by {worst} × ({tol_text})")
+    if not bit_equal:
+        raise AssertionError(f"{name}: two runs on the same inputs "
+                             f"differ")
+    dh = q.shape[2]
+    tile = 64 if dh <= 64 else 128
+    key = ("mma", low, tile, row_tiles, dh != tile) if low else None
+    row = dict(key=key, case=name, wrapper=wrapper, line=line, err=err,
+               err_over_tol=worst, route=route, splits=splits, span=span,
+               row_tiles=row_tiles, ms=ms, plain_ms=plain_ms,
+               library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
+               share_of_bound=bound_ms / ms, tflops=tflops)
+    del q, kc, vc, tables, pos, got, again, ref, lib_out, diff, tol
+    _free(torch)
+    return row
+
+
 def stage_kernels(seed):
     import torch
     from deepspeed_tpu_torch.ops.kernels import paged_attention as pa
@@ -731,76 +821,7 @@ def stage_kernels(seed):
          dict(H=32, Hkv=32, atom=16, n_tiles=16, max_ctx=2048, window=0,
               Dh=100)),
     ]
-    rows = []
-    for name, wrapper, line, shape in cases:
-        q, kc, vc, tables, pos = _paged_case(torch, gen, **shape)
-        atom, window = shape["atom"], shape["window"]
-        fn = getattr(pa, wrapper)
-        args = (q, kc, vc, tables, pos) + ((atom, ) if atom > 1 else ())
-        route, splits, span, row_tiles = pa.launch_plan(
-            q.dtype, q.shape[0], shape["H"], shape["Hkv"], tables.shape[1],
-            atom)
-        before = dict(fn.route_launches)
-        got = fn(*args, window=window)
-        again = fn(*args, window=window)
-        torch.cuda.synchronize()
-        taken = {r: n - before[r] for r, n in fn.route_launches.items()
-                 if n != before[r]}
-        if taken != {route: 2}:
-            raise AssertionError(f"{name}: launches by route {taken}, want "
-                                 f"two on {route}")
-        bit_equal = torch.equal(got, again)
-        first = pa._first_row_tables(tables, atom)
-        ref = _plain(pa, q, kc, vc, first, pos, window)
-        low = {torch.bfloat16: "bf16", torch.float16: "fp16"}.get(q.dtype)
-        diff = (got.float() - ref.float()).abs()
-        if low is None:
-            tol, tol_text = FP32_ATOL, f"{FP32_ATOL:g}"
-        else:
-            rtol = FP16_RTOL if low == "fp16" else BF16_RTOL
-            tol = rtol * ref.float().abs() + BF16_ATOL
-            tol_text = (f"2^-{10 if low == 'fp16' else 7}·|ref| + "
-                        f"{BF16_ATOL:g}")
-        err = diff.max().item()
-        worst = (diff / tol).max().item()
-        ms = cuda_ms(lambda: fn(*args, window=window), 20)
-        plain_ms = cuda_ms(lambda: _plain(pa, q, kc, vc, first, pos,
-                                          window), 3, warmup=1)
-        lib_ms, lib_out = _sdpa_ms(torch, q, kc, vc, tables, pos, atom,
-                                   window)
-        lib_err = (lib_out.float() - ref.float()).abs().max().item()
-        bound_ms, bound_by = _bound(q, kc, tables, pos, atom, window)
-        tflops = _pa_flops(q, pos, window) / ms / 1e9
-        plan = (f"route {route}" + (f", {splits} splits of {span} pages"
-                                    if route == "decode_split" else "")
-                + (f", {row_tiles} row tiles" if route != "fp32" else ""))
-        log(f"[kernel] {name}: T={q.shape[0]} H={shape['H']} "
-            f"Hkv={shape['Hkv']} atom={atom} window={window} "
-            f"ctx<={shape['max_ctx']} table={tables.shape[1] * kc.shape[1]}: "
-            f"{shape.get('dtype', 'bfloat16')}, {plan}: max_abs_err "
-            f"{err:.3e}, worst |err| / ({tol_text}) {worst:.3f}, rerun "
-            f"bit-equal {bit_equal} | kernel {ms:.4f} ms ({tflops:.1f} "
-            f"TFLOP/s, {bound_ms / ms:.3f} of the bound), plain "
-            f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (err {lib_err:.2e}), "
-            f"bound {bound_ms:.4f} ms by {bound_by}")
-        if not worst <= 1.0:
-            raise AssertionError(f"{name}: kernel differs from its plain "
-                                 f"version by {worst} × ({tol_text})")
-        if not bit_equal:
-            raise AssertionError(f"{name}: two runs on the same inputs "
-                                 f"differ")
-        dh = q.shape[2]
-        tile = 64 if dh <= 64 else 128
-        key = ("mma", low, tile, row_tiles, dh != tile) if low else None
-        rows.append(dict(key=key, case=name, wrapper=wrapper, line=line,
-                         err=err, err_over_tol=worst, route=route,
-                         splits=splits,
-                         span=span, row_tiles=row_tiles,
-                         ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=bound_ms, bound_by=bound_by,
-                         share_of_bound=bound_ms / ms, tflops=tflops))
-        del q, kc, vc, tables, pos, got, again, ref, lib_out, diff, tol
-        _free(torch)
+    rows = [_paged_row(torch, gen, pa, *case) for case in cases]
     reports = {}
     for key in sorted({r["key"] for r in rows if r["key"]}):
         report, counts = _kernel_report(PagedAttentionBuilder(), _pa_key,
@@ -964,7 +985,8 @@ def stage_serve(seed, smi, profile_dir=None):
                              f"{launches}")
     if eng.state_manager.free_blocks != eng.kv_cache.num_blocks - 1:
         raise AssertionError("blocks leaked after generate")
-    result = dict(wall_s=wall, prefill_tok_s=sum(lengths) / prefill_end,
+    result = dict(outs=outs, wall_s=wall,
+                  prefill_tok_s=sum(lengths) / prefill_end,
                   decode_tok_s=(n_gen - len(prompts)) / (wall - prefill_end),
                   ttft_mean_s=float(np.mean(ttft)), ttft_max_s=prefill_end,
                   peak_bytes=peak, steps=steps[0], bursts=bursts,
@@ -6286,6 +6308,173 @@ def stage_moe_train(seed, smi):
                 seconds=seconds)
 
 
+# --------------------------------------------------------------- stage 33
+TP_PAGED_CASES = [
+    # (name, wrapper, replaces line, shape args): the heads one tp rank
+    # holds, at stage 3's token counts and contexts
+    ("tp4_llama7b_decode", "paged_attention", 29,
+     dict(H=8, Hkv=8, atom=1, n_tiles=16, min_ctx=128, max_ctx=2112,
+          table_ctx=4096, window=0)),
+    ("tp4_llama7b_prefill", "paged_attention_atoms", 120,
+     dict(H=8, Hkv=8, atom=16, n_tiles=47, max_ctx=2048, table_ctx=4096,
+          window=0)),
+    ("tp4_mistral7b_decode", "paged_attention", 29,
+     dict(H=8, Hkv=2, atom=1, n_tiles=64, max_ctx=6144, window=4096)),
+    ("tp4_mistral7b_prefill", "paged_attention_atoms", 120,
+     dict(H=8, Hkv=2, atom=16, n_tiles=8, max_ctx=6144, window=4096)),
+    ("tp8_llama70b_decode_kv1", "paged_attention", 29,
+     dict(H=8, Hkv=1, atom=1, n_tiles=16, min_ctx=128, max_ctx=4096,
+          window=0)),
+]
+TP_GMM_SLICE = 14336 // 4        # Mixtral-8x7B's FFN over 4 tp ranks
+
+
+def _local_tp_group():
+    from deepspeed_tpu_torch.comm.backend import ProcessGroup
+    return ProcessGroup(("tp", ), local=True)
+
+
+def _tp_train(torch, np, seed, train):
+    """(a): stage 8 with ``module_inject``'s modules in place."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import (LlamaModel, llama_7b,
+                                                  tp_rules)
+    from deepspeed_tpu_torch.module_inject import (ColumnParallelLinear,
+                                                   RowParallelLinear,
+                                                   VocabParallelEmbedding,
+                                                   shard_params_for_tp)
+    B, S, L = 4, 2048, 8
+    cfg = llama_7b(num_hidden_layers=L, remat=False, head_dtype="bfloat16")
+    model = shard_params_for_tp(LlamaModel(cfg, device="meta"),
+                                tp_rules(cfg), group=_local_tp_group())
+    kinds = {type(model.model.layers[0].self_attn.q_proj),
+             type(model.model.layers[0].mlp.down_proj),
+             type(model.model.embed_tokens), type(model.lm_head)}
+    if kinds != {ColumnParallelLinear, RowParallelLinear,
+                 VocabParallelEmbedding}:
+        raise AssertionError(f"tp-1 model holds {kinds}")
+    engine = deepspeed_tpu_torch.initialize(model=model,
+                                            config=dict(TRAIN_CONFIG))[0]
+    engine.initialize_parameters(seed)
+    ids = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, size=(B, S))).cuda()
+    counters = _train_launches()
+    for fn in counters.values():
+        fn.launches = 0
+    losses = []
+    for _ in range(4):
+        loss = engine(ids, ids)
+        engine.backward(loss)
+        engine.step()
+        losses.append(loss.item())
+    launches = {k: fn.launches for k, fn in counters.items()}
+    equal = losses == train["losses"][:4]
+    log(f"[tp] (a) stage 8's step through shard_params_for_tp at tp 1 "
+        f"(ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding "
+        f"in place): losses " + ", ".join(f"{x:.6f}" for x in losses)
+        + f" | bit-equal to stage 8's first four {equal} | launches in 4 "
+        f"steps {launches}")
+    want = {"flash_attention": 4 * L, "flash_attention_bwd_dq": 4 * L,
+            "flash_attention_bwd_dkv": 4 * L, "fused_adam_step": 4}
+    if not equal:
+        raise AssertionError(f"tp-1 losses {losses} != stage 8's "
+                             f"{train['losses'][:4]}")
+    if launches != want:
+        raise AssertionError(f"tp-1 launches {launches}, want {want}")
+    del engine, model
+    _free(torch)
+    return dict(losses=losses, launches=launches)
+
+
+def _tp_serve(torch, np, seed, serve):
+    """(b): stage 4's weights and requests on a model cut at tp 1."""
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.inference.v2.model_implementations \
+        .hf_builders import _ingest_llama, _llama_config_from_hf
+    from deepspeed_tpu_torch.models.llama import LlamaModel, tp_rules
+    from deepspeed_tpu_torch.module_inject import (ColumnParallelLinear,
+                                                   RowParallelLinear,
+                                                   VocabParallelEmbedding,
+                                                   shard_params_for_tp)
+    from deepspeed_tpu_torch.ops.kernels import paged_attention as pa
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    state = _random_hf_state(torch, LLAMA2_7B_HF, gen)
+    cfg = _llama_config_from_hf(LLAMA2_7B_HF, "bfloat16")
+    model = shard_params_for_tp(LlamaModel(cfg, device="meta"),
+                                tp_rules(cfg), group=_local_tp_group())
+    model.load_weights(_ingest_llama(cfg, state.items()), device="cuda")
+    del state
+    layer = model.model.layers[0]
+    if not (isinstance(layer.self_attn.q_proj, ColumnParallelLinear) and
+            isinstance(layer.self_attn.o_proj, RowParallelLinear) and
+            isinstance(model.model.embed_tokens, VocabParallelEmbedding) and
+            isinstance(model.lm_head, ColumnParallelLinear)):
+        raise AssertionError("the tp-1 serving model was not cut")
+    config = dict(
+        dtype="bfloat16", decode_burst=16, tensor_parallel=dict(tp_size=1),
+        state_manager=dict(block_size=128, num_blocks=160, max_context=4096,
+                           max_ragged_sequence_count=16,
+                           max_tracked_sequences=16,
+                           max_ragged_batch_size=768, prefill_atom_size=16))
+    eng = InferenceEngineV2(model, config=config)
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(128, 2049, size=8).tolist()
+    prompts = [rng.integers(0, 32000, size=n).tolist() for n in lengths]
+    for fn in (pa.paged_attention, pa.paged_attention_atoms):
+        fn.launches = 0
+        fn.route_launches = dict.fromkeys(pa.ROUTES, 0)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    outs = eng.generate(prompts, max_new_tokens=64)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = {"paged_attention": pa.paged_attention.launches,
+                "paged_attention_atoms": pa.paged_attention_atoms.launches}
+    routes = {"paged_attention": dict(pa.paged_attention.route_launches),
+              "paged_attention_atoms":
+                  dict(pa.paged_attention_atoms.route_launches)}
+    equal = outs == serve["outs"]
+    log(f"[tp] (b) Llama-2-7B cut at tp 1 before the load, "
+        f"tensor_parallel.tp_size 1: stage 4's 8 requests in {wall:.2f} s, "
+        f"greedy tokens bit-equal to stage 4's {equal} | B4 launches "
+        f"{launches}")
+    _check_paged_routes("tp", launches, routes)
+    if not equal:
+        raise AssertionError("tp-1 serving tokens differ from stage 4's")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"B4 never launched at tp 1: {launches}")
+    del eng, model
+    _free(torch)
+    return dict(wall_s=wall, launches=launches, route_launches=routes)
+
+
+def stage_tp(seed, smi, train, serve):
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.ops.kernels import paged_attention as pa
+    t0 = time.perf_counter()
+    out = dict(train=_tp_train(torch, np, seed, train),
+               serve=_tp_serve(torch, np, seed, serve))
+    gen = torch.Generator(device="cuda").manual_seed(seed + 33)
+    out["paged"] = [_paged_row(torch, gen, pa, *case)
+                    for case in TP_PAGED_CASES]
+    for row in out["paged"]:
+        row.pop("key")
+    D, I, E = 4096, TP_GMM_SLICE, 8
+    prefill = [96, 0, 412, 230, 318, 57, 269, 154]
+    out["gmm"] = []
+    for name, sizes, route in (("decode", [2] * E, "wgmma_tma_64"),
+                               ("prefill", prefill, "wgmma_tma")):
+        for proj, K, N in (("w1", D, I), ("w2", I, D)):
+            out["gmm"].append(_gmm_case(torch, gen, f"tp4_{name}_{proj}",
+                                        sizes, K, N, "bfloat16", route))
+            _free(torch)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[tp] stage 33 took {out['seconds']:.1f} s | {smi}")
+    return out
+
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6357,6 +6546,7 @@ def main():
     uni_onebit = stage_universal_onebit(args.seed, smi)
     moe_train = stage_moe_train(args.seed, smi)
     pipe_zero = stage_pipeline_zero(args.seed, smi)
+    tp = stage_tp(args.seed, smi, train, serve)
 
     entries = []
     for wrapper, case in (("paged_attention", "serve_decode"),
@@ -6713,6 +6903,30 @@ def main():
             e.update(launches_zeropp=zp.get("quantize_fp_packed", 0),
                      ms_zeropp_block=r["ms_q"],
                      bound_ms_zeropp_block=r["bound_q"])
+    # stage 33: the tp-1 paths' launches, and the kernels' cases at the
+    # tp-local shapes under *_<case> (route, error, ms, plain, library,
+    # bound)
+    keys = ("route", "err", "ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by")
+    for e in entries:
+        if e["name"] in ("paged_attention", "paged_attention_atoms"):
+            e["launches_tp1_serve"] = tp["serve"]["launches"][e["name"]]
+            for r in tp["paged"]:
+                if r["wrapper"] == e["name"]:
+                    e.update({f"{k}_{r['case']}": r[k] for k in keys})
+        elif e["name"] == "gmm":
+            for r in tp["gmm"]:
+                e.update({f"{k}_{r['case']}": r[k] for k in keys})
+        elif e["name"] == "flash_attention":
+            e["launches_tp1_train"] = tp["train"]["launches"][
+                "flash_attention"]
+        elif e["name"] == "flash_attention_bwd":
+            e["launches_tp1_train"] = (
+                tp["train"]["launches"]["flash_attention_bwd_dq"] +
+                tp["train"]["launches"]["flash_attention_bwd_dkv"])
+        elif e["name"] == "fused_adam_step":
+            e["launches_tp1_train"] = tp["train"]["launches"][
+                "fused_adam_step"]
     llama_zero3.pop("batches")
     if args.json:
         with open(args.json, "w") as f:
@@ -6733,6 +6947,7 @@ def main():
                            zeropp=zeropp, pipeline=pipe,
                            universal_onebit=uni_onebit,
                            moe_train=moe_train, pipeline_zero=pipe_zero,
+                           tp=tp,
                            seconds=time.perf_counter() - t_start),
                       f, indent=1, default=str)
     from deepspeed_tpu_torch import comm

@@ -36,7 +36,8 @@ from .comm import init_distributed  # noqa: E402  (JAX __init__.py:206)
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                training_data=None, lr_scheduler=None, distributed_port=29500,
                mesh_param=None, dist_init_required=None, collate_fn=None,
-               config=None, mpu=None, config_params=None, device=None):
+               config=None, mpu=None, config_params=None, device=None,
+               tp_rules=None):
     """Build the training engine (reference ``deepspeed/__init__.py:69``;
     the JAX package's ``initialize``).  Returns ``(engine, optimizer,
     training_dataloader, lr_scheduler)``; the dataloader is None.
@@ -62,7 +63,11 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     ``mesh_param``: ``(dp, sp)`` as in JAX.  ``mpu`` is accepted and unused,
     as in JAX.  ``collate_fn`` (the dataloader) raises.
     ``zero_optimization.offload_param`` of cpu or nvme builds the
-    parameter-streaming ``runtime.infinity_engine.InfinityEngine``."""
+    parameter-streaming ``runtime.infinity_engine.InfinityEngine``.
+    ``tp_rules`` (JAX ``__init__.py:41``): the tensor-parallel rule table
+    (flax path suffix → ``module_inject.Spec``) at ``mesh.tp`` > 1; None
+    takes ``model.tp_sharding_rules`` or derives the rules from the
+    model's dataflow (``module_inject/tp_parser.py``)."""
     from .runtime.config import DeepSpeedConfig
     from .runtime.engine import DeepSpeedEngine
     from .runtime.pipe.module import PipelineModule
@@ -85,12 +90,17 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
         # ZeRO-Infinity parameter streaming, at any stage (JAX
         # __init__.py:65-94)
         from .runtime.infinity_engine import InfinityEngine as cls
+    if streaming and ds_config.mesh_tp > 1:
+        from .utils.not_ported import not_ported
+        raise not_ported("parameter streaming (offload_param) with tensor "
+                         "parallelism", "9b")
+    kw = {} if tp_rules is None else dict(tp_rules=tp_rules)
     engine = cls(args=args, model=model, optimizer=optimizer,
                  model_parameters=model_parameters,
                  training_data=training_data, lr_scheduler=lr_scheduler,
                  collate_fn=collate_fn, config=ds_config, mpu=mpu,
                  device=device, mesh_param=mesh_param,
                  dist_init_required=dist_init_required,
-                 distributed_port=distributed_port)
+                 distributed_port=distributed_port, **kw)
     return (engine, engine.optimizer, engine.training_dataloader,
             engine.lr_scheduler)

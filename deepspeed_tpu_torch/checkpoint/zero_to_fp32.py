@@ -12,8 +12,14 @@ writes ``{name: fp32 tensor}`` (the module's names) with ``torch.save``.
 It reads the port's tags and upstream torch DeepSpeed's ZeRO 0-3 tags, which
 share one scheme: rank 0's ``mp_rank_00_model_states.pt`` (``"module"``,
 ``"param_shapes"``) and one ``zero_pp_rank_{r}_mp_rank_00_optim_states.pt``
-a partition.  A pipeline tag of the port has one ``mp_rank_{s:02d}`` file
-a stage s (its leaves' shapes, and the ``layer_{idx:02d}-model_states.pt``
+a partition.  A tensor-parallel tag of the port (tp > 1) has one
+``mp_rank_{t:02d}`` file a tp rank t, the first holding the whole module
+and every one the tp geometry (``tp_world_size``, ``tp_splits``: {name:
+the dim its slices split}), and optim files
+``zero_pp_rank_{d}_mp_rank_{t:02d}_optim_states.pt`` whose pieces are of
+the rank's slices; the reader joins the slices along their dim, so the
+sources it returns are of the whole parameters.  A pipeline tag of the
+port has one ``mp_rank_{s:02d}`` file a stage s (its leaves' shapes, and the ``layer_{idx:02d}-model_states.pt``
 files holding its layers' weights) and optim files
 ``zero_pp_rank_{r}_mp_rank_{s:02d}_optim_states.pt``; a leaf tied across
 stages lies in its first stage's files only.  Their
@@ -183,13 +189,14 @@ def read_zero_tag(root, mmap=True):
     """``(model states, {name: shape}, sources, step)`` of the tag at
     ``root`` (module docstring); ``step`` is the optimizer's count, or None
     when no file records it.  A pipeline tag's stages (``mp_rank_{s}``)
-    are read as one model."""
+    are read as one model, a tensor-parallel tag's slices joined."""
     model_path = os.path.join(root, MODEL_FILE)
     if not os.path.exists(model_path):
         raise FileNotFoundError(f"no {MODEL_FILE} under {root}")
     model_sd = load_file(model_path, mmap)
+    tp = int(model_sd.get("tp_world_size") or 1)
     stages = sorted(glob.glob(os.path.join(root, MODEL_GLOB)), key=_rank_of)
-    if len(stages) > 1 or model_sd.get("layers"):
+    if tp == 1 and (len(stages) > 1 or model_sd.get("layers")):
         model_sd = _merge_stages(root, [load_file(p, mmap) for p in stages],
                                  mmap)
     shapes = param_shapes(model_sd)
@@ -199,6 +206,71 @@ def read_zero_tag(root, mmap=True):
     if model_sd.get("frozen_param_shapes"):
         raise ValueError(f"{root}: frozen parameters are not read (the "
                          "port trains every parameter)")
+    if tp > 1:
+        sources, step = _tp_sources(model_sd, shapes, paths, tp, mmap)
+        return model_sd, shapes, sources, step
+    sources, step = _read_optim(root, paths, shapes, mmap)
+    return model_sd, shapes, sources, step
+
+
+def _tp_sources(model_sd, shapes, paths, tp, mmap):
+    """Sources of the whole parameters from a tensor-parallel tag: each tp
+    rank's files read in its slices' coordinates, the replicated leaves
+    from rank 0's, each split leaf's slices joined along its dim (one
+    source a leaf)."""
+    splits = {n: int(d) for n, d in model_sd["tp_splits"].items()}
+    local = collections.OrderedDict()
+    for name, shape in shapes.items():
+        shape = list(shape)
+        if name in splits:
+            shape[splits[name]] //= tp
+        local[name] = tuple(shape)
+    per_rank = [_read_optim(os.path.dirname(paths[0]) if paths else "",
+                            [p for p in paths if _rank_of(p)[1] == t],
+                            local, mmap) for t in range(tp)]
+    sources = []
+    for frags, flats in per_rank[0][0]:
+        keep = {n: f for n, f in frags.items() if n not in splits}
+        if keep:
+            sources.append((keep, flats))
+    for name, dim in splits.items():
+        flats = {}
+        for field in FIELDS:
+            parts = [_assemble_leaf(name, local[name], srcs, field)
+                     for srcs, _ in per_rank]
+            if all(p is not None for p in parts):
+                flats[field] = torch.cat(parts, dim=dim).reshape(-1)
+        numel = 1
+        for d in shapes[name]:
+            numel *= d
+        sources.append(({name: (0, numel, 0)}, flats))
+    return sources, per_rank[0][1]
+
+
+def _assemble_leaf(name, shape, sources, field):
+    """One parameter's ``field`` from ``sources`` (None when no source
+    holds that field)."""
+    numel = 1
+    for d in shape:
+        numel *= d
+    full, covered = torch.empty(numel, dtype=torch.float32), 0
+    for frags, flats in sources:
+        if name not in frags or field not in flats:
+            continue
+        start, n, within = frags[name]
+        full[within:within + n].copy_(flats[field][start:start + n])
+        covered += n
+    if covered == 0:
+        return None
+    if covered != numel:
+        raise ValueError(f"{name}: the saved {field} pieces cover {covered} "
+                         f"of {numel} elements — an incomplete checkpoint?")
+    return full.view(shape)
+
+
+def _read_optim(root, paths, shapes, mmap=True):
+    """``(sources, step)`` of the optim files ``paths`` (one stage's, or
+    all of a pipeline's in stage order) of parameters of ``shapes``."""
     sources, step, within, stage3 = [], None, {}, None
     for r, path in enumerate(paths):
         sd = load_file(path, mmap)
@@ -246,7 +318,7 @@ def read_zero_tag(root, mmap=True):
             sources.append((frags, _flats(
                 osd["single_partition_of_fp32_groups"][gid], state)))
             step = step if step is not None else _step(state)
-    return model_sd, shapes, sources, step
+    return sources, step
 
 
 def assemble(shapes, sources, field="fp32"):

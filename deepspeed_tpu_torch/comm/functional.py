@@ -12,10 +12,26 @@ inside ``shard_map``, where autodiff transposes them.  Here a group is a
 * :func:`send_next_recv_prev` / :func:`send_prev_recv_next`: a ring shift
   along the group (JAX's ``ppermute`` of the pipeline), one batched
   exchange of a send and a receive so that neither side can block the
-  other.
+  other;
+* :func:`psum`, :func:`pmean`, :func:`pmax`, :func:`pmin`,
+  :func:`all_gather` and :func:`reduce_scatter`: JAX's ``lax`` collectives
+  with the gradients JAX's transposes give them (a psum's cotangent is
+  itself psummed, an all-gather's is the rank's block of the cotangent's
+  reduce-scatter, ...); pmax and pmin pass the summed cotangent to the
+  ranks that held the extreme value;
+* Megatron's pair for tensor parallelism (``module_inject/layers.py``):
+  :func:`copy_to_tp_region` (identity forward, psum backward) before a
+  column-parallel product, :func:`reduce_from_tp_region` (psum forward,
+  identity backward) after a row-parallel one, and
+  :func:`gather_from_tp_region` (all-gather of the last dim forward, the
+  rank's block backward) for vocabulary-sharded logits.  Under GSPMD the
+  JAX package gets these from the sharding propagation; here every rank of
+  the tp group runs the same program on the same replicated activations,
+  so each replicated cotangent is the same on every rank.
 
-The rest of the JAX file (psum, pmean, ...) waits for its callers (ROADMAP
-queue A items 8 and 9b).
+Every op takes a ``ProcessGroup`` and runs on its flat form (never through
+the collectives engine's quantized wires); a group of one rank, or None,
+returns its input.
 """
 
 import torch
@@ -76,3 +92,166 @@ def send_prev_recv_next(x, group):
     """Group rank i sends ``x`` to rank i − 1 and returns what rank i + 1
     sent."""
     return _shift(x, group, -1)
+
+
+def _one(group):
+    return group is None or group.size() == 1
+
+
+def _reduce(x, group, op):
+    return comm.all_reduce(x.contiguous().clone(), op=op,
+                           group=group.as_flat())
+
+
+class _Psum(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _reduce(x, group, comm.ReduceOp.SUM)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _reduce(grad, ctx.group, comm.ReduceOp.SUM), None
+
+
+class _Extreme(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, group, op):
+        ctx.group = group
+        out = _reduce(x, group, op)
+        ctx.save_for_backward((x == out).to(x.dtype))
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        # every rank's cotangent, to the ranks that held the extreme
+        mask, = ctx.saved_tensors
+        return (_reduce(grad, ctx.group, comm.ReduceOp.SUM) * mask, None,
+                None)
+
+
+class _AllGather(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, group, axis):
+        ctx.group, ctx.axis = group, axis
+        return comm.all_gather(x.contiguous(), group=group.as_flat(),
+                               axis=axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (comm.reduce_scatter(grad.contiguous(),
+                                    group=ctx.group.as_flat(),
+                                    axis=ctx.axis), None, None)
+
+
+class _ReduceScatter(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, group, axis):
+        ctx.group, ctx.axis = group, axis
+        return comm.reduce_scatter(x.contiguous(), group=group.as_flat(),
+                                   axis=axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (comm.all_gather(grad.contiguous(), group=ctx.group.as_flat(),
+                                axis=ctx.axis), None, None)
+
+
+def psum(x, group):
+    """The sum over the group's ranks (``lax.psum``); differentiable."""
+    return x if _one(group) else _Psum.apply(x, group)
+
+
+def pmean(x, group):
+    """The mean over the group's ranks (``lax.pmean``)."""
+    return x if _one(group) else psum(x, group) / group.size()
+
+
+def pmax(x, group):
+    """The elementwise maximum over the group's ranks (``lax.pmax``)."""
+    return x if _one(group) else _Extreme.apply(x, group, comm.ReduceOp.MAX)
+
+
+def pmin(x, group):
+    """The elementwise minimum over the group's ranks (``lax.pmin``)."""
+    return x if _one(group) else _Extreme.apply(x, group, comm.ReduceOp.MIN)
+
+
+def all_gather(x, group, axis=0):
+    """The ranks' blocks concatenated along ``axis`` (``lax.all_gather``,
+    tiled); its gradient is the rank's block of the summed cotangent."""
+    if _one(group):
+        return x
+    return _AllGather.apply(x, group, axis % x.dim())
+
+
+def reduce_scatter(x, group, axis=0):
+    """Block r along ``axis`` of the sum over the ranks
+    (``lax.psum_scatter``, tiled); its gradient is the all-gathered
+    cotangent."""
+    if _one(group):
+        return x
+    return _ReduceScatter.apply(x, group, axis % x.dim())
+
+
+class _CopyToRegion(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _reduce(grad, ctx.group, comm.ReduceOp.SUM), None
+
+
+class _ReduceFromRegion(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _reduce(x, group, comm.ReduceOp.SUM)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GatherFromRegion(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return comm.all_gather(x.contiguous(), group=group.as_flat(),
+                               axis=x.dim() - 1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        n, r = ctx.group.size(), ctx.group.rank()
+        k = grad.shape[-1] // n
+        return grad[..., r * k:(r + 1) * k].contiguous(), None
+
+
+def copy_to_tp_region(x, group):
+    """Identity forward; the cotangent summed over the tp group backward
+    (the input of a column-parallel product: each rank's product sees only
+    its own columns, so each holds a part of the input's gradient)."""
+    return x if _one(group) else _CopyToRegion.apply(x, group)
+
+
+def reduce_from_tp_region(x, group):
+    """Sum over the tp group forward (a row-parallel product's partial
+    sums); the cotangent as it is backward."""
+    return x if _one(group) else _ReduceFromRegion.apply(x, group)
+
+
+def gather_from_tp_region(x, group):
+    """The tp group's blocks of the last dim, concatenated in rank order
+    (vocabulary-sharded logits); backward, the rank's block of the
+    cotangent, which every rank computes alike from the same gathered
+    value."""
+    return x if _one(group) else _GatherFromRegion.apply(x, group)

@@ -10,12 +10,16 @@ Reads a *local* HF model directory (no hub downloads) and yields
 
 The safetensors format is parsed here, without the ``safetensors``
 package: an 8-byte little-endian header length, a JSON header mapping each
-name to ``{dtype, shape, data_offsets}``, then the raw bytes, which
-``torch.frombuffer`` reads as they are (bf16 included).
+name to ``{dtype, shape, data_offsets}``, then the raw bytes.  The file is
+memory-mapped (private, copy on write) and each tensor is a
+``torch.frombuffer`` view of its bytes (bf16 included), so a loader that
+keeps a slice of a tensor (a tensor-parallel rank's) reads only the pages
+of that slice.
 """
 
 import glob
 import json
+import mmap
 import os
 import struct
 from typing import Iterable, Tuple
@@ -35,28 +39,33 @@ _ST_DTYPES = {
 
 
 def read_safetensors(path) -> Iterable[Tuple[str, torch.Tensor]]:
-    """Yield ``(name, tensor)`` from one ``.safetensors`` file."""
+    """Yield ``(name, tensor)`` from one ``.safetensors`` file: views of
+    the file's private mapping (each keeps the mapping alive)."""
     with open(path, "rb") as f:
         (n,) = struct.unpack("<Q", f.read(8))
         header = json.loads(f.read(n))
         data_start = 8 + n
-        for name, info in header.items():
-            if name == "__metadata__":
-                continue
-            dtype = _ST_DTYPES.get(info["dtype"])
-            if dtype is None:
-                raise ValueError(f"{path}: tensor {name!r} has unsupported "
-                                 f"safetensors dtype {info['dtype']!r}")
-            begin, end = info["data_offsets"]
-            shape = tuple(info["shape"])
-            if end == begin:
-                yield name, torch.empty(shape, dtype=dtype)
-                continue
-            buf = bytearray(end - begin)
-            f.seek(data_start + begin)
-            if f.readinto(buf) != len(buf):
-                raise ValueError(f"{path}: truncated data for {name!r}")
-            yield name, torch.frombuffer(buf, dtype=dtype).reshape(shape)
+        size = os.fstat(f.fileno()).st_size
+        mm = (mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_COPY)
+              if size > data_start else None)
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        dtype = _ST_DTYPES.get(info["dtype"])
+        if dtype is None:
+            raise ValueError(f"{path}: tensor {name!r} has unsupported "
+                             f"safetensors dtype {info['dtype']!r}")
+        begin, end = info["data_offsets"]
+        shape = tuple(info["shape"])
+        if end == begin:
+            yield name, torch.empty(shape, dtype=dtype)
+            continue
+        if data_start + end > size:
+            raise ValueError(f"{path}: truncated data for {name!r}")
+        item = torch.empty((), dtype=dtype).element_size()
+        yield name, torch.frombuffer(
+            mm, dtype=dtype, count=(end - begin) // item,
+            offset=data_start + begin).reshape(shape)
 
 
 class HuggingFaceCheckpointEngine(CheckpointEngineBase):

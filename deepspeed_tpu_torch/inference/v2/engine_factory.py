@@ -30,9 +30,9 @@ def build_hf_engine(path: str,
                                                        **kwargs})
     device = resolve_device(device)
     checkpoint = HuggingFaceCheckpointEngine(path)
-    model, params = build_model_and_params(checkpoint,
-                                           dtype=engine_config.dtype,
-                                           device=device)
+    model, params = build_model_and_params(
+        checkpoint, dtype=engine_config.dtype, device=device,
+        tp_size=int(engine_config.tensor_parallel.tp_size or 1))
     return InferenceEngineV2(model, params=params, config=engine_config,
                              device=device)
 
@@ -61,6 +61,7 @@ def build_engine_from_checkpoint(checkpoint: CheckpointEngineBase,
     device = resolve_device(device)
     model, params = build_model_and_params(
         _ConfiguredCheckpoint(checkpoint, model_config),
-        dtype=engine_config.dtype, device=device)
+        dtype=engine_config.dtype, device=device,
+        tp_size=int(engine_config.tensor_parallel.tp_size or 1))
     return InferenceEngineV2(model, params=params, config=engine_config,
                              device=device)

@@ -1,9 +1,9 @@
 """InferenceEngineV2 — FastGen-style continuous batching (reference
 ``inference/v2/engine_v2.py``: ``put``/``query``/``flush`` over a ragged
 batch + blocked KV cache); the port of
-``deepspeed_tpu/inference/v2/engine_v2.py`` for ``tp_size == 1`` and a
-full-precision KV cache, with full-precision or weight-only int8/int4
-(``quantization_mode``) weights.
+``deepspeed_tpu/inference/v2/engine_v2.py`` for a full-precision KV cache,
+with full-precision or weight-only int8/int4 (``quantization_mode``)
+weights, on one rank or over a tp group (``tensor_parallel.tp_size``).
 
 Each engine iteration packs a **fixed token budget** with a mix of decode
 tokens (one per running sequence) and prefill chunks, runs ONE ragged step
@@ -12,6 +12,16 @@ pending tokens were fully consumed.  Prefills longer than the budget stream
 across iterations (chunked prefill).  The host-side scheduling is the JAX
 engine's, line for line, so that every token lands in the same buffer row,
 block and tile.
+
+Tensor parallelism (S1; JAX ``engine_v2.py:53-157``): every rank of the
+world runs this engine with the same requests, the model holds the rank's
+slices (the model's ``tp_rules`` through ``module_inject``), and the KV
+cache holds the rank's Hkv/tp kv heads.  GQA with fewer kv heads than
+ranks (``n_kv % tp != 0``, ``tp % n_kv == 0``, ``n_q % tp == 0``) keeps
+the k/v projections whole on every rank, and each rank caches the one kv
+head its q heads read.  Any other shape tp does not divide raises JAX's
+``ValueError``.  The host schedule is the same on every rank and the
+logits are all-gathered, so every rank emits the same tokens.
 """
 
 import numpy as np
@@ -19,6 +29,7 @@ import torch
 
 from ...accelerator import resolve_device
 from ...models.llama import torch_dtype
+from ...module_inject.layers import attention_heads
 from ...utils.logging import logger
 from ...utils.not_ported import not_ported
 from ..quant_serving import quantize_tree, resolve_mode
@@ -57,12 +68,12 @@ class InferenceEngineV2:
             raise NotImplementedError(
                 "quantization_mode does not compose with tensor "
                 "parallelism yet (quant grouping is laid out pre-shard)")
-        if tp > 1:
-            raise not_ported("tensor_parallel.tp_size > 1", "S1")
         if config.kv_cache_dtype is not None:
             raise not_ported("kv_cache_dtype", "S3")
         if config.decode_burst_sampling:
             raise not_ported("decode_burst_sampling", "S4")
+        if tp > 1 and getattr(model, "tp_splits", None) is None:
+            shard_for_serving(model, tp, self.device)
         self._step_fn = RAGGED_FORWARDS[name]
         if params is not None:
             items = params.items() if isinstance(params, dict) else params
@@ -87,9 +98,12 @@ class InferenceEngineV2:
             num_blocks = 1 + max(sm.max_ragged_sequence_count,
                                  (sm.max_tracked_sequences *
                                   max_blocks_per_seq) // 2)
+        attn = model.model.layers[0].self_attn
+        # this rank's kv heads (all of them at tp 1)
+        _, kv_heads, _, _ = attention_heads(attn.q_proj, attn.k_proj, cfg)
         self.kv_cache = BlockedKVCache(
             cfg.num_hidden_layers, num_blocks, block_size,
-            cfg.num_key_value_heads, cfg.head_dim,
+            kv_heads, cfg.head_dim,
             dtype=torch_dtype(config.dtype), device=self.device)
         self.state_manager = DSStateManager(sm, self.kv_cache)
         self._budget = int(sm.max_ragged_batch_size)
@@ -477,3 +491,58 @@ class InferenceEngineV2:
                     self.state_manager.get_sequence(uid).tokens.append(tok)
         self.flush(uids)
         return [produced[u] for u in uids]
+
+
+def serving_tp_group(tp, device):
+    """The tp group of ``tp`` ranks serving together: the world comes up
+    (NCCL on the card, gloo on the CPU) if it is not, and the mesh is
+    (dp = world / tp, tp), every rank building it (a collective)."""
+    from ...comm import comm as dist
+    from ...utils import groups
+    world = (dist.get_world_size() if dist.is_initialized()
+             else dist.env_world_size())
+    if world % tp:
+        raise ValueError(f"tp_size={tp} must divide the world size "
+                         f"({world}): launch tp ranks")
+    if not dist.is_initialized():
+        dist.init_distributed(
+            dist_backend="nccl" if device.type == "cuda" else "gloo",
+            verbose=False)
+    st = groups.get_mesh_state() if groups.mesh_is_initialized() else None
+    if st is None or st.tp != tp or (st.pp, st.sp, st.ep) != (1, 1, 1) \
+            or st.ranks is not None:
+        groups.initialize_mesh(tp=tp, user_built=False)
+    return groups._get_tensor_parallel_group().as_flat()
+
+
+def check_tp_shape(cfg, tp):
+    """Whether the kv heads are replicated at ``tp`` (GQA with fewer kv
+    heads than ranks); raises JAX's ``ValueError`` for a shape tp divides
+    neither way."""
+    n_kv = cfg.num_key_value_heads
+    n_q = cfg.num_attention_heads
+    replicated = n_kv % tp != 0 and tp % n_kv == 0 and n_q % tp == 0
+    if n_kv % tp and not replicated:
+        raise ValueError(
+            f"tp_size={tp} must divide the device count and either "
+            f"num_key_value_heads ({n_kv}) or — for replicated-kv GQA — be "
+            f"a multiple of it with num_attention_heads ({n_q}) divisible "
+            "by tp")
+    return replicated
+
+
+def shard_for_serving(model, tp, device):
+    """Cut a Llama or Mixtral model to this rank's slices over the serving
+    tp group with its module's ``tp_rules`` (the ``ep`` and ``zero``
+    entries dropped); with replicated kv the k/v projections stay whole.
+    A meta model stays meta (its loader then cuts whole tensors)."""
+    import sys
+    from ...module_inject.auto_tp import Spec, shard_params_for_tp
+    replicated = check_tp_shape(model.config, tp)
+    group = serving_tp_group(tp, device)
+    rules = dict(sys.modules[type(model).__module__].tp_rules(model.config))
+    if replicated:
+        for key in list(rules):
+            if "k_proj" in key or "v_proj" in key:
+                rules[key] = Spec()
+    return shard_params_for_tp(model, rules, group=group)

@@ -127,11 +127,14 @@ def _ingest_mixtral(model_cfg: MixtralConfig,
 
 
 def build_model_and_params(checkpoint_engine, dtype: str = "bfloat16",
-                           device=None):
+                           device=None, tp_size=1):
     """The loaded model (:class:`LlamaModel` or :class:`MixtralModel`) from
     a checkpoint engine with a ``model_config`` dict (HF ``config.json``),
     on ``device`` (a resolved ``torch.device``).  Returns ``(model, None)``:
-    the model holds its weights."""
+    the model holds its weights.  At ``tp_size`` > 1 the meta model is cut
+    to this rank's slices first (``engine_v2.shard_for_serving``), so the
+    load copies only them out of each tensor (the safetensors reader maps
+    the files, so only their pages are read)."""
     hf_cfg = checkpoint_engine.model_config
     model_type = hf_cfg.get("model_type", "llama")
     if model_type not in SUPPORTED_MODEL_TYPES:
@@ -142,6 +145,9 @@ def build_model_and_params(checkpoint_engine, dtype: str = "bfloat16",
     else:
         cfg = _llama_config_from_hf(hf_cfg, dtype)
         model, ingest = LlamaModel(cfg, device="meta"), _ingest_llama
+    if tp_size > 1:
+        from ..engine_v2 import shard_for_serving
+        shard_for_serving(model, tp_size, device)
     model.load_weights(ingest(cfg, checkpoint_engine.parameters()),
                        device=device)
     if cfg.sliding_window:

@@ -16,6 +16,15 @@ the JAX package left them to XLA; attention is the paged kernel, a MoE
 layer's experts the grouped-matmul kernel.  Every weight is read through
 ``quant_serving.weight``: under ``quantization_mode`` it is dequantized
 there, just before its product.
+
+Under tensor parallelism (``tensor_parallel.tp_size > 1``, JAX
+``engine_v2.py:53-157``) the model holds this rank's slices
+(``module_inject/auto_tp.py:shard_params_for_tp``) and the step runs the
+rank's heads (their counts read from the weights), all-reduces after
+``o_proj`` and after the dense or MoE MLP, looks the embedding up in its
+vocabulary slice (summed over the group) and all-gathers the fp32 head's
+vocabulary slices, so every rank holds the same logits and picks the same
+token.
 """
 
 import torch
@@ -26,6 +35,9 @@ from ...models.llama import rms_norm as _rmsnorm
 from ...models.llama import rope_tables as _rope_tables
 from ...models.llama import torch_dtype
 from ...models.mixtral import moe_apply
+from ...module_inject.layers import (attention_heads, gather_logits,
+                                     tp_group_of, vocab_parallel_lookup)
+from ...comm.functional import reduce_from_tp_region
 from ...ops._use_kernels import paged_kernels_disabled
 from ...ops.kernels.paged_attention import (paged_attention,
                                             paged_attention_atoms,
@@ -73,8 +85,14 @@ def _paged_attention(q, k_cache, v_cache, tables_t, positions, block_size,
                            window=window)
 
 
-def _linear(x, lin, use_kernel):
-    return F.linear(x, weight(lin.weight, use_kernel), lin.bias)
+def _linear(x, lin, use_kernel, rows=None):
+    """``lin``'s product; ``rows``: only those rows of its weight and bias
+    (a replicated kv projection's head for this rank)."""
+    w, b = weight(lin.weight, use_kernel), lin.bias
+    if rows is not None:
+        w = w[rows[0]:rows[1]]
+        b = None if b is None else b[rows[0]:rows[1]]
+    return F.linear(x, w, b)
 
 
 def _ragged_attention_block(attn, h, kv_layer, blk, off, tables_t, positions,
@@ -83,28 +101,31 @@ def _ragged_attention_block(attn, h, kv_layer, blk, off, tables_t, positions,
     """qkv → rotary → cache scatter → paged attention → output projection.
     ``kv_layer``: [2, num_blocks, bs, Hkv, Dh], written in place."""
     T = h.shape[0]
-    H, Hkv, Dh = (cfg.num_attention_heads, cfg.num_key_value_heads,
-                  cfg.head_dim)
+    Dh = cfg.head_dim
+    H, Hkv, rows, _ = attention_heads(attn.q_proj, attn.k_proj, cfg)
     q = _rotary(_linear(h, attn.q_proj, use_kernel).view(T, H, Dh), cos, sin,
                 positions)
-    k = _rotary(_linear(h, attn.k_proj, use_kernel).view(T, Hkv, Dh), cos,
-                sin, positions)
-    v = _linear(h, attn.v_proj, use_kernel).view(T, Hkv, Dh)
+    k = _rotary(_linear(h, attn.k_proj, use_kernel, rows).view(T, Hkv, Dh),
+                cos, sin, positions)
+    v = _linear(h, attn.v_proj, use_kernel, rows).view(T, Hkv, Dh)
     # in place, where the JAX step rebuilt the donated cache (.at[].set)
     kv_layer[0, blk, off] = k.to(kv_layer.dtype)
     kv_layer[1, blk, off] = v.to(kv_layer.dtype)
     out = _paged_attention(q, kv_layer[0], kv_layer[1], tables_t, positions,
                            block_size, window=cfg.sliding_window,
                            layout=layout, use_kernel=use_kernel)
-    return _linear(out.reshape(T, H * Dh), attn.o_proj, use_kernel)
+    return reduce_from_tp_region(
+        _linear(out.reshape(T, H * Dh), attn.o_proj, use_kernel),
+        tp_group_of(attn.o_proj))
 
 
 def _dense_mlp(layer, h2, cfg, use_kernel):
     """The Llama SwiGLU MLP."""
     mlp = layer.mlp
-    return _linear(F.silu(_linear(h2, mlp.gate_proj, use_kernel))
-                   * _linear(h2, mlp.up_proj, use_kernel), mlp.down_proj,
-                   use_kernel)
+    return reduce_from_tp_region(
+        _linear(F.silu(_linear(h2, mlp.gate_proj, use_kernel))
+                * _linear(h2, mlp.up_proj, use_kernel), mlp.down_proj,
+                use_kernel), tp_group_of(mlp.down_proj))
 
 
 def _sparse_moe(layer, h2, cfg, use_kernel):
@@ -115,12 +136,14 @@ def _sparse_moe(layer, h2, cfg, use_kernel):
     dtype = torch_dtype(cfg.dtype)
     with full_fp32_matmul():
         router_logits = h2.float() @ weight(moe.gate, use_kernel).float()
-    return moe_apply(h2, router_logits,
-                     weight(moe.w1, use_kernel).to(dtype),
-                     weight(moe.w2, use_kernel).to(dtype),
-                     weight(moe.w3, use_kernel).to(dtype),
-                     cfg.num_experts_per_tok, norm_topk=cfg.norm_topk_prob,
-                     use_kernel=use_kernel)
+    out = moe_apply(h2, router_logits,
+                    weight(moe.w1, use_kernel).to(dtype),
+                    weight(moe.w2, use_kernel).to(dtype),
+                    weight(moe.w3, use_kernel).to(dtype),
+                    cfg.num_experts_per_tok, norm_topk=cfg.norm_topk_prob,
+                    use_kernel=use_kernel)
+    # the experts' intermediate slices give partial sums
+    return reduce_from_tp_region(out, tp_group_of(moe))
 
 
 def _ragged_step(mlp, model, kv_data, token_ids, positions, seq_slots,
@@ -134,8 +157,10 @@ def _ragged_step(mlp, model, kv_data, token_ids, positions, seq_slots,
                             cfg.rope_theta, cfg.rope_scaling, kv_data.device)
     body = model.model
     pos_l = positions.long()
-    x = weight(body.embed_tokens.weight, use_kernel)[
-        token_ids.long()].to(dtype)                           # [T, D]
+    emb = body.embed_tokens
+    x = vocab_parallel_lookup(weight(emb.weight, use_kernel), token_ids,
+                              getattr(emb, "vocab_start", 0),
+                              tp_group_of(emb)).to(dtype)     # [T, D]
     tables_t = block_tables[seq_slots.long()]                 # [T, maxb]
     blk = tables_t[torch.arange(token_ids.shape[0], device=pos_l.device),
                    pos_l // block_size].long()                # [T]
@@ -202,7 +227,8 @@ def _lm_head(model, x, last_token_idx, cfg, use_kernel=True):
                   cfg.rms_norm_eps)
     w = weight(model.lm_head.weight, use_kernel)
     with full_fp32_matmul():
-        return xl.float() @ w.float().t()
+        logits = xl.float() @ w.float().t()
+    return gather_logits(logits, model.lm_head)
 
 
 RAGGED_FORWARDS = {"LlamaModel": llama_ragged_step,

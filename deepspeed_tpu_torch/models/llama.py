@@ -35,6 +35,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..accelerator import full_fp32_matmul
+from ..comm.functional import copy_to_tp_region, reduce_from_tp_region
+from ..module_inject.auto_tp import Spec, tp_local
+from ..module_inject.layers import (attention_heads, gather_logits,
+                                    kv_weights, tp_embedding, tp_group_of)
 from ..ops.attention import attention_core
 from ..sequence.cross_entropy import softmax_cross_entropy_with_logits
 from ..utils.not_ported import not_ported
@@ -270,10 +274,12 @@ def sequence_chunk(cfg, chunk_len):
     return group, group.rank() * chunk_len
 
 
-def _dense(x, lin, dtype):
-    """flax ``Dense(dtype=...)``: input and weights cast to ``dtype``."""
-    bias = None if lin.bias is None else lin.bias.to(dtype)
-    return F.linear(x.to(dtype), lin.weight.to(dtype), bias)
+def _dense(x, lin, dtype, weights=None):
+    """flax ``Dense(dtype=...)``: input and weights cast to ``dtype``
+    (``weights``: the ``(weight, bias)`` to use instead of ``lin``'s)."""
+    w, b = weights if weights is not None else (lin.weight, lin.bias)
+    bias = None if b is None else b.to(dtype)
+    return F.linear(x.to(dtype), w.to(dtype), bias)
 
 
 def _head_product(x, w):
@@ -345,17 +351,22 @@ class LlamaAttention(nn.Module):
         """x: [B, S, D] → [B, S, D]; causal (and windowed) self-attention.
         GQA repeats the kv heads up to H first (``llama.py:279-282``);
         under Ulysses kv goes to ``DistributedAttention`` at its own width
-        (cos/sin then start at the chunk's first position)."""
+        (cos/sin then start at the chunk's first position).  Under tensor
+        parallelism (``module_inject``) the heads are this rank's, read
+        from the weights (``attention_heads``), x enters the tp region once
+        for q, k and v, and o_proj's partial sums are reduced."""
         cfg = self.config
         dt = torch_dtype(cfg.dtype)
         B, S, _ = x.shape
-        H, Hkv, Dh = (cfg.num_attention_heads, cfg.num_key_value_heads,
-                      cfg.head_dim)
+        Dh = cfg.head_dim
+        H, Hkv, rows, group = attention_heads(self.q_proj, self.k_proj, cfg)
+        x = copy_to_tp_region(x, group)
         q = apply_rotary(_dense(x, self.q_proj, dt).view(B, S, H, Dh), cos,
                          sin)
-        k = apply_rotary(_dense(x, self.k_proj, dt).view(B, S, Hkv, Dh), cos,
-                         sin)
-        v = _dense(x, self.v_proj, dt).view(B, S, Hkv, Dh)
+        k = apply_rotary(_dense(x, self.k_proj, dt, kv_weights(
+            self.k_proj, rows, group)).view(B, S, Hkv, Dh), cos, sin)
+        v = _dense(x, self.v_proj, dt, kv_weights(
+            self.v_proj, rows, group)).view(B, S, Hkv, Dh)
         if cfg.use_ulysses:
             from ..sequence.layer import DistributedAttention
             out = DistributedAttention()(q, k, v, causal=True,
@@ -368,7 +379,9 @@ class LlamaAttention(nn.Module):
             out = attention_core(q, k, v, causal=True,
                                  window=cfg.sliding_window,
                                  use_kernel=use_kernel)
-        return _dense(out.reshape(B, S, H * Dh), self.o_proj, dt)
+        return reduce_from_tp_region(
+            _dense(out.reshape(B, S, H * Dh), self.o_proj, dt),
+            tp_group_of(self.o_proj))
 
 
 class LlamaMLP(nn.Module):
@@ -383,8 +396,11 @@ class LlamaMLP(nn.Module):
 
     def forward(self, x):
         dt = self.dtype
-        return _dense(F.silu(_dense(x, self.gate_proj, dt)) *
-                      _dense(x, self.up_proj, dt), self.down_proj, dt)
+        x = copy_to_tp_region(x, tp_group_of(self.gate_proj))
+        return reduce_from_tp_region(
+            _dense(F.silu(_dense(x, self.gate_proj, dt)) *
+                   _dense(x, self.up_proj, dt), self.down_proj, dt),
+            tp_group_of(self.down_proj))
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -457,7 +473,7 @@ class LlamaModel(nn.Module):
         if remat and cfg.remat_policy not in _FULL_REMAT_POLICIES:
             raise not_ported(f"remat_policy {cfg.remat_policy!r}", 3)
         body = self.model
-        x = F.embedding(input_ids.long(), body.embed_tokens.weight.to(dt))
+        x = tp_embedding(body.embed_tokens, input_ids, dt)
         cos, sin = rope_tables(cfg.head_dim, cfg.max_position_embeddings,
                                cfg.rope_theta, cfg.rope_scaling, x.device)
         cos, sin = cos[offset:], sin[offset:]
@@ -469,12 +485,16 @@ class LlamaModel(nn.Module):
                 x = layer(x, cos, sin, use_kernel)
         x = body.norm(x, dt)
         hd = torch_dtype(cfg.head_dtype)
+        head = body.embed_tokens if cfg.tie_word_embeddings else self.lm_head
+        x = copy_to_tp_region(x, tp_group_of(head))
         if cfg.tie_word_embeddings:
             # flax Embed.attend promotes both sides to the model dtype
             logits = _head_product(x.to(hd).to(dt),
                                    body.embed_tokens.weight.to(dt))
         else:
             logits = _head_product(x.to(hd), self.lm_head.weight.to(hd))
+        # a vocabulary-sharded head: the whole vocabulary on every rank
+        logits = gather_logits(logits, head)
         if labels is None:
             return logits
         return lm_loss(logits, labels.to(logits.device), attention_mask,
@@ -543,6 +563,8 @@ class LlamaModel(nn.Module):
             seen.add("lm_head.weight")
 
     def _install(self, name, t, dtype, shape, device):
+        # a tensor-parallel model keeps this rank's slice of a whole tensor
+        t = tp_local(self, name, t)
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name}: shape {tuple(t.shape)} != "
                              f"{tuple(shape)}")
@@ -552,6 +574,54 @@ class LlamaModel(nn.Module):
             mod = getattr(mod, p)
         setattr(mod, leaf, nn.Parameter(
             t.detach().to(device=device, dtype=dtype), requires_grad=False))
+
+
+def tp_rules(config: LlamaConfig):
+    """Tensor-parallel rules (JAX ``llama.py:441-464``): flax path suffix →
+    spec.  Column-parallel q/k/v (the head dim), gate/up and the head, and
+    the embedding on its vocabulary; row-parallel o/down.  JAX's ``zero``
+    pin is dropped: it places ZeRO's shard of a leaf, and the port's ZeRO
+    slices flat buffers."""
+    tp = "tp"
+    return {
+        "q_proj/kernel": Spec(None, tp, None),
+        "k_proj/kernel": Spec(None, tp, None),
+        "v_proj/kernel": Spec(None, tp, None),
+        "o_proj/kernel": Spec(tp, None),
+        "gate_proj/kernel": Spec(None, tp),
+        "up_proj/kernel": Spec(None, tp),
+        "down_proj/kernel": Spec(tp, None),
+        "embed_tokens/embedding": Spec(tp, None),
+        "lm_head/kernel": Spec(None, tp),
+    }
+
+
+def tp_leaf_info(name, shape, cfg):
+    """``(flax path, flax shape, torch dim of each flax dim)`` of an
+    HF-named leaf of ``shape`` (``module_inject/auto_tp.py``); None for a
+    tied head, which has no flax leaf.  A transposed kernel swaps its dims;
+    a q/k/v kernel ``[H·Dh, D]`` is flax's ``[D, H, Dh]``, whose head dim is
+    a slab of torch's dim 0 (its Dh dim is none)."""
+    if name == "model.embed_tokens.weight":
+        return ("embed_tokens", "embedding"), shape, (0, 1)
+    if name == "model.norm.weight":
+        return ("norm", "weight"), shape, (0, )
+    if name == "lm_head.weight":
+        if cfg.tie_word_embeddings:
+            return None
+        return ("lm_head", "kernel"), shape[::-1], (1, 0)
+    parts = name.split(".")
+    layer, block = f"layers_{parts[2]}", parts[3]
+    if block in ("input_layernorm", "post_attention_layernorm"):
+        return (layer, block, "weight"), shape, (0, )
+    proj, leaf = parts[4:]
+    if block == "mlp" or proj == "o_proj":
+        return (layer, block, proj, "kernel"), shape[::-1], (1, 0)
+    dh = cfg.head_dim
+    if leaf == "bias":
+        return (layer, block, proj, "bias"), (shape[0] // dh, dh), (0, None)
+    return ((layer, block, proj, "kernel"), (shape[1], shape[0] // dh, dh),
+            (1, 0, None))
 
 
 def init_leaf(name, t, generator, std=0.02):

@@ -33,9 +33,12 @@ from torch import nn
 from ..accelerator import full_fp32_matmul
 from ..ops.kernels.grouped_matmul import gmm, gmm_plain
 from ..utils.not_ported import not_ported
+from ..module_inject.auto_tp import Spec
 from .llama import (LlamaAttention, LlamaConfig, LlamaModel, RMSNorm,
                     _flax_attention_and_norms, _flax_converter, _flax_leaf,
                     torch_dtype)
+from .llama import tp_leaf_info as llama_tp_leaf_info
+from .llama import tp_rules as llama_tp_rules
 
 
 @dataclass(frozen=True)
@@ -252,6 +255,13 @@ class MixtralModel(LlamaModel):
             raise KeyError(f"unexpected weight {name!r}")
         ref = params[stack]
         E = ref.shape[0]
+        split = getattr(self, "tp_splits", {}).get(stack)
+        if split is not None and tuple(t.shape) == tuple(
+                self.tp_global_shapes[stack][1:]):
+            # this rank's slice of one expert's whole matrix
+            dim, rank, size = split
+            n = t.shape[dim - 1] // size
+            t = t.narrow(dim - 1, rank * n, n).contiguous()
         if tuple(t.shape) != tuple(ref.shape[1:]) or not 0 <= e < E:
             raise ValueError(f"{name}: shape {tuple(t.shape)} or index does "
                              f"not fit the stack {tuple(ref.shape)}")
@@ -267,6 +277,35 @@ class MixtralModel(LlamaModel):
         seen.add(name)
         if all(s in seen for s in slices):
             seen.add(stack)
+
+
+def tp_rules(config: MixtralConfig):
+    """Tensor-parallel rules (JAX ``mixtral.py:248-262``, the ``zero`` pin
+    dropped): attention as Llama's, the router replicated, the expert
+    stacks over ``ep`` on E and over ``tp`` on the intermediate dim (w1,
+    w3 column, w2 row).  On a tp-only mesh the ``ep`` entries drop out."""
+    rules = dict(llama_tp_rules(config))
+    for key in ("gate_proj/kernel", "up_proj/kernel", "down_proj/kernel"):
+        rules.pop(key)
+    rules.update({
+        "moe/gate/kernel": Spec(None, None),
+        "moe/w1": Spec("ep", None, "tp"),
+        "moe/w3": Spec("ep", None, "tp"),
+        "moe/w2": Spec("ep", "tp", None),
+    })
+    return rules
+
+
+def tp_leaf_info(name, shape, cfg):
+    """As ``models/llama.py:tp_leaf_info``; the router ``[D, E]`` and the
+    stacks keep the flax layout."""
+    parts = name.split(".")
+    if len(parts) == 5 and parts[3] == "block_sparse_moe":
+        layer, leaf = f"layers_{parts[2]}", parts[4]
+        path = ((layer, "moe", "gate", "kernel") if leaf == "gate"
+                else (layer, "moe", leaf))
+        return path, shape, tuple(range(len(shape)))
+    return llama_tp_leaf_info(name, shape, cfg)
 
 
 def params_from_flax(tree, cfg: MixtralConfig, dtype=None, device="cpu"):

@@ -69,6 +69,21 @@ universal converter writes the JAX engine's names.  Under sequence
 parallelism the partitions are over the data group dp × sp, named by the
 rank in it.
 
+Under tensor parallelism (tp > 1; upstream's model-parallel names) every
+tp rank t writes its own files, its pieces in its slices' coordinates:
+
+    {save_dir}/{tag}/mp_rank_{t:02d}_model_states.pt   the first data rank
+        of tp rank t: {"module": the whole module (tp rank 0; None on the
+        others), "param_shapes": the whole shapes, "tp_world_size",
+        "tp_rank", "tp_splits": {name: the dim its slices split}}
+    {save_dir}/{tag}/zero_pp_rank_{d}_mp_rank_{t:02d}_optim_states.pt
+        partition d of tp rank t's data group
+
+``zero_to_fp32.read_zero_tag`` joins the slices, so a tp tag loads at any
+tp, dp and stage (a tp engine cuts the whole leaves to its slices,
+:func:`localize_sources`), into the base engine, and converts to the
+universal layout as a tp-1 tag does.
+
 With MiCS (``mics_shard_size``) the state is sharded within a shard group
 and replicated across the groups: the first group's ranks alone write
 their partitions, named by their rank in the group, so a tag holds one
@@ -615,6 +630,12 @@ def _model_jobs(engine, module):
         "mp_world_size": engine.pp_world_size,
         "ds_config": dict(cfg._param_dict),
     }
+    if engine.tp_world_size > 1:
+        t = engine.tp_rank
+        return [(model_file(t), dict(
+            states, module=module if t == 0 else None,
+            tp_world_size=engine.tp_world_size, tp_rank=t,
+            tp_splits={n: d for n, (d, _, _) in engine._tp_splits.items()}))]
     if engine.pp_world_size == 1:
         return [(MODEL_FILE, dict(states, module=module))]
     from .pipe.module import geometry
@@ -644,18 +665,19 @@ def save_engine_checkpoint(engine, save_dir, tag=None, client_state=None,
     save_dir = os.path.abspath(save_dir)
     root = os.path.join(save_dir, str(tag))
     rank, cfg = engine._data_rank, engine._config
-    first = rank == 0 and engine.stage_id == 0
+    first = rank == 0 and engine.stage_id == 0 and engine.tp_rank == 0
     ic = cfg.checkpoint_integrity
     commits = first or cfg.use_node_local_storage
     os.makedirs(root, exist_ok=True)
     if first:
         with open(os.path.join(root, ENGINE_STATE), "w") as f:
             json.dump(engine_state(engine, client_state), f, indent=2)
-    module = engine.module_state_dict(dst=0)      # a collective at stage 3
+    # a collective at stage 3 and at tp > 1
+    module = engine.module_state_dict(dst=0)
     jobs = _model_jobs(engine, module) if rank == 0 else []
     writes, part = _writes_partition(engine)
     if writes:
-        jobs.append((optim_file(part, engine.stage_id),
+        jobs.append((optim_file(part, engine.stage_id or engine.tp_rank),
                      optim_state_dict(engine)))
     if engine._onebit:
         jobs.append((ONEBIT_FILE.format(rank), onebit_state_dict(engine)))
@@ -668,7 +690,8 @@ def save_engine_checkpoint(engine, save_dir, tag=None, client_state=None,
         save_dir=save_dir, retries=ic.save_retries,
         backoff=ic.retry_backoff,
         agree=(engine._all_ranks_agree
-               if engine._data_world * engine.pp_world_size > 1 else None))
+               if engine._data_world * engine.pp_world_size *
+               engine.tp_world_size > 1 else None))
     handle.stage_seconds = time.perf_counter() - t0
     engine.last_checkpoint = handle
     if first:
@@ -806,6 +829,8 @@ def restore_state(engine, state, step, sources, module=None,
         engine._init_opt_state()
     if module is not None:
         module = _checked_module(engine, module, load_module_strict)
+    if engine._tp_splits:
+        sources = localize_sources(engine, sources)
     with torch.no_grad():
         if load_module_only:
             if module is None:
@@ -834,6 +859,31 @@ def restore_state(engine, state, step, sources, module=None,
             and hasattr(engine.lr_scheduler, "load_state_dict"):
         engine.lr_scheduler.load_state_dict(state["lr_scheduler"])
     restore_counters(engine, state)
+
+
+def localize_sources(engine, sources):
+    """``sources`` of whole parameters (any tag, any tp) → the same with
+    each of the engine's tp-sharded leaves cut to this rank's slice (one
+    source a leaf, in the slice's coordinates), which ``fill_shard`` reads
+    against the engine's layout."""
+    from ..checkpoint.zero_to_fp32 import FIELDS, _assemble_leaf
+    splits = engine._tp_splits
+    out = []
+    for frags, flats in sources:
+        keep = {n: f for n, f in frags.items() if n not in splits}
+        if keep:
+            out.append((keep, flats))
+    for name in splits:
+        whole = engine._tp_whole_shape(name)
+        flats = {}
+        for field in FIELDS:
+            t = _assemble_leaf(name, whole, sources, field)
+            if t is not None:
+                flats[field] = engine._local_value(name, t).reshape(-1)
+        if flats:
+            n = next(iter(flats.values())).numel()
+            out.append(({name: (0, n, 0)}, flats))
+    return out
 
 
 def restore_counters(engine, state):
@@ -880,12 +930,14 @@ def _checked_module(engine, module, strict):
 def _agree_on_tag(engine, tag):
     """Rank 0's resolved tag on every rank (each rank resolves its own with
     node-local storage): over the stages, then over each data group."""
-    if engine._data_world * engine.pp_world_size == 1 or \
+    if engine._data_world * engine.pp_world_size * \
+            engine.tp_world_size == 1 or \
             engine._config.use_node_local_storage:
         return tag
     from .. import comm as dist
     buf = torch.zeros(1024, dtype=torch.uint8, device=engine.device)
-    if engine._data_rank == 0 and engine.stage_id == 0 and tag is not None:
+    if engine._data_rank == 0 and engine.stage_id == 0 and \
+            engine.tp_rank == 0 and tag is not None:
         raw = str(tag).encode()
         if len(raw) > buf.numel() - 1:
             raise ValueError(f"tag name of {len(raw)} bytes")
@@ -893,6 +945,8 @@ def _agree_on_tag(engine, tag):
         buf[1:1 + len(raw)] = torch.tensor(list(raw), dtype=torch.uint8)
     if engine.pp_world_size > 1:
         dist.broadcast(buf, src=0, group=engine._pp_group.as_flat())
+    if engine.tp_world_size > 1:
+        dist.broadcast(buf, src=0, group=engine._tp_group)
     if engine._data_world > 1:
         dist.broadcast(buf, src=0, group=engine._dp_group)
     host = buf.cpu()
@@ -910,7 +964,8 @@ def load_engine_checkpoint(engine, load_dir, tag=None,
     into ``engine`` at its world size and stage; returns ``(tag dir,
     client_state)``, or ``(None, {})`` when nothing was loaded."""
     load_dir = os.path.abspath(load_dir)
-    tag = None if (engine._data_rank or engine.stage_id) and not \
+    tag = None if (engine._data_rank or engine.stage_id or
+                   engine.tp_rank) and not \
         engine._config.use_node_local_storage else \
         _resolve_load_tag(engine, load_dir, tag)
     tag = _agree_on_tag(engine, tag)

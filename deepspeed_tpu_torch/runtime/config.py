@@ -295,20 +295,43 @@ def _check_integrity(cfg):
 
 
 def _mesh_dims(pd):
-    """The mesh axes sizes the config asks for, tp's key folded in."""
+    """The mesh axes sizes the config asks for: ``mesh.tp`` with
+    ``tensor_parallel.tp_size`` as its default (JAX ``config.py:671-672``)
+    and ``sequence_parallel_size`` folded in."""
     mesh = dict(pd.get("mesh") or {})
     tp = (pd.get("tensor_parallel") or {}).get("tp_size", 1)
     if tp not in (None, 1):
-        mesh["tp"] = tp
+        mesh.setdefault("tp", tp)
     if pd.get("sequence_parallel_size", 1) not in (None, 1):
         mesh["sp"] = pd["sequence_parallel_size"]
     return mesh
 
 
+def _tp_with(pd, *axes):
+    """Whether the config asks for tp > 1 together with any of ``axes``
+    (a pipeline's ``stages`` count as pp)."""
+    m = _mesh_dims(pd)
+    if m.get("tp") in (None, 1):
+        return False
+    stages = (pd.get("pipeline") or {}).get("stages", "auto")
+    return any(m.get(a) not in (None, 1) for a in axes) or (
+        "pp" in axes and stages not in ("auto", 1))
+
+
+def _zp(pd):
+    z = pd.get("zero_optimization") or {}
+    return any(int(z.get(k) or 1) > 1 for k in ("zero_hpz_partition_size",
+                                                  "mics_shard_size"))
+
+
 # (what, queue-A item, predicate on the raw config dict)
 _UNPORTED = (
-    ("tensor parallelism (mesh.tp, tensor_parallel.tp_size)", "9b",
-     lambda pd: _mesh_dims(pd).get("tp") not in (None, 1)),
+    ("tensor parallelism (mesh.tp) with pp or sp > 1", "9b",
+     lambda pd: _tp_with(pd, "pp", "sp")),
+    ("tensor parallelism (mesh.tp) with expert parallelism (mesh.ep)", "8b",
+     lambda pd: _tp_with(pd, "ep")),
+    ("tensor parallelism (mesh.tp) with hpZ / MiCS shard groups", "9b",
+     lambda pd: _mesh_dims(pd).get("tp") not in (None, 1) and _zp(pd)),
     ("expert parallelism (mesh.ep) with pp or sp > 1", "8b",
      lambda pd: _mesh_dims(pd).get("ep") not in (None, 1) and (
          _mesh_dims(pd).get("sp") not in (None, 1) or
@@ -420,6 +443,7 @@ class DeepSpeedConfig:
         mesh = pd.get("mesh") or {}
         self.mesh_dp = mesh.get("dp")
         self.mesh_ep = int(mesh.get("ep") or 1)
+        self.mesh_tp = int(_mesh_dims(pd).get("tp") or 1)
         self.moe_config = MoeConfig(**pd.get("moe", {}) or {})
         _check_moe(self.moe_config)
         sps = {int(v) for v in (mesh.get("sp"),

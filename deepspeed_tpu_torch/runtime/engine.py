@@ -89,6 +89,7 @@ group (:meth:`DeepSpeedEngine._init_comm`):
 import atexit
 import inspect
 import os
+import sys
 import weakref
 from collections import OrderedDict
 
@@ -98,6 +99,7 @@ import torch
 from .. import comm as dist
 from ..accelerator import accelerator_for, resolve_device
 from ..comm import ReduceOp
+from ..module_inject.auto_tp import tp_local
 from ..ops.adam import FlatTransform, fused_adam
 from ..ops.lamb import FusedLambTransform, fused_lamb
 from ..ops.lion import fused_lion, sgd
@@ -225,6 +227,9 @@ class DeepSpeedEngine(OffloadMixin):
 
     # the mesh's other axes (set by _init_comm)
     pp_world_size, stage_id = 1, 0
+    tp_world_size, tp_rank = 1, 0
+    # {leaf name: (dim, tp rank, tp size)} of the tp-sharded leaves
+    _tp_splits = {}
     # ZeRO 3's gather prefetch in forward order (the pipeline turns it off)
     _gather_prefetch = True
     seq_parallel_world_size, seq_parallel_rank = 1, 0
@@ -233,7 +238,7 @@ class DeepSpeedEngine(OffloadMixin):
                  model_parameters=None, training_data=None,
                  lr_scheduler=None, collate_fn=None, config=None, mpu=None,
                  device=None, mesh_param=None, dist_init_required=None,
-                 distributed_port=29500):
+                 distributed_port=29500, tp_rules=None):
         if not isinstance(config, DeepSpeedConfig):
             config = DeepSpeedConfig(config)
         # mpu (reference model-parallel unit): accepted and unused, as in
@@ -254,6 +259,7 @@ class DeepSpeedEngine(OffloadMixin):
             # NCCL's init bound this process to its LOCAL_RANK card
             self.device = resolve_device(device)
         self.module = model = self._build_module(model)
+        self._shard_for_tp(model, tp_rules)
         config.resolve_batch_sizes(self.dp_world_size)
         self._configure_moe(model)
 
@@ -356,16 +362,16 @@ class DeepSpeedEngine(OffloadMixin):
         if mesh_param is not None:
             dp_want.append(tuple(mesh_param)[0])
         pp, sp = self._requested_mesh(mesh_param, model)
-        ep = self._config.mesh_ep
+        ep, tp = self._config.mesh_ep, self._config.mesh_tp
         backend = "nccl" if self.device.type == "cuda" else "gloo"
         zp = check_shard_sizes(self._config.zero_config)
         if (dist_init_required is None and dist.env_world_size() == 1
                 and not dist.world_is_up(backend)):
-            if pp * sp * ep > 1:
-                raise ValueError(f"pp={pp} × sp={sp} × ep={ep} needs a "
-                                 "world of that many ranks; this process "
-                                 "has none (pass dist_init_required=True "
-                                 "or launch ranks)")
+            if pp * sp * ep * tp > 1:
+                raise ValueError(f"pp={pp} × sp={sp} × ep={ep} × tp={tp} "
+                                 "needs a world of that many ranks; this "
+                                 "process has none (pass "
+                                 "dist_init_required=True or launch ranks)")
             dist.configure(config=self._config)
             self.dp_world_size, self.dp_rank = 1, 0
             if zp is not None:
@@ -373,7 +379,7 @@ class DeepSpeedEngine(OffloadMixin):
                     f"zero_partition_size={zp} must divide dp=1")
             local = dist.ProcessGroup(groups.dp_axes(), local=True)
             self._dp_group = local
-            self._sp_group = self._pp_group = local
+            self._sp_group = self._pp_group = self._tp_group = local
         else:
             premade = groups.mesh_is_initialized() and \
                 groups.get_mesh_state().user_built
@@ -381,14 +387,20 @@ class DeepSpeedEngine(OffloadMixin):
                 dist_backend=backend, distributed_port=distributed_port,
                 dist_init_required=dist_init_required, config=self._config)
             st = groups.get_mesh_state()
+            if st.ranks is not None:
+                raise ValueError("the engine trains over the whole world; "
+                                 "the mesh was built over the device subset "
+                                 f"{list(st.ranks)}")
             if premade:
                 # sizes the config leaves at 1 merge from the user's mesh
                 pp = pp if pp > 1 else st.pp
                 sp = sp if sp > 1 else st.sp
                 ep = ep if ep > 1 else st.ep
-            if dist.get_world_size() % (pp * sp):
-                raise ValueError(f"pp={pp} × sp={sp} does not divide the "
-                                 f"world of {dist.get_world_size()} ranks")
+                tp = tp if tp > 1 else st.tp
+            if dist.get_world_size() % (pp * sp * tp):
+                raise ValueError(f"pp={pp} × sp={sp} × tp={tp} does not "
+                                 "divide the world of "
+                                 f"{dist.get_world_size()} ranks")
             if zp is not None and st.zero_partition_size != zp and premade:
                 # a pre-built mesh without the matching factoring would
                 # silently drop hpZ/MiCS (JAX engine.py:230-238)
@@ -397,14 +409,15 @@ class DeepSpeedEngine(OffloadMixin):
                     f"the mesh was pre-initialized with "
                     f"zero_partition_size={st.zero_partition_size}; pass "
                     "zero_partition_size to groups.initialize_mesh()")
+            sizes = (pp, sp, ep, tp)
             if (st.zero_partition_size != zp and zp is not None) or \
-                    (st.pp, st.sp, st.ep) != (pp, sp, ep):
-                if (st.pp, st.sp, st.ep) != (pp, sp, ep) and premade:
+                    (st.pp, st.sp, st.ep, st.tp) != sizes:
+                if (st.pp, st.sp, st.ep, st.tp) != sizes and premade:
                     logger.warning(
-                        f"mesh built as pp={st.pp} sp={st.sp} ep={st.ep}; "
-                        f"the config asks for pp={pp} sp={sp} ep={ep}: "
-                        "rebuilding it")
-                groups.initialize_mesh(pp=pp, sp=sp, ep=ep,
+                        f"mesh built as pp={st.pp} sp={st.sp} ep={st.ep} "
+                        f"tp={st.tp}; the config asks for pp={pp} sp={sp} "
+                        f"ep={ep} tp={tp}: rebuilding it")
+                groups.initialize_mesh(pp=pp, sp=sp, ep=ep, tp=tp,
                                        zero_partition_size=zp,
                                        user_built=False)
                 dist.configure(config=self._config)
@@ -416,6 +429,7 @@ class DeepSpeedEngine(OffloadMixin):
                 groups._get_sequence_data_parallel_group().as_flat()
             self._sp_group = groups._get_sequence_parallel_group()
             self._pp_group = groups._get_pipe_parallel_group()
+            self._tp_group = groups._get_tensor_parallel_group().as_flat()
         for want in dp_want:
             if want not in (None, -1) and want != self.dp_world_size:
                 raise ValueError(f"mesh dp={want} but the world has "
@@ -424,9 +438,50 @@ class DeepSpeedEngine(OffloadMixin):
         self.seq_parallel_rank = self._sp_group.rank()
         self.pp_world_size = self._pp_group.size()
         self.stage_id = self._pp_group.rank()
+        self.tp_world_size = self._tp_group.size()
+        self.tp_rank = self._tp_group.rank()
         self._zcomm = ZeroComm(self._config, self._config.zero_config.stage,
                                self._dp_group)
         self._shard_group = self._zcomm.shard_group
+
+    def _shard_for_tp(self, model, tp_rules):
+        """At tp > 1 (JAX ``engine.py:284-310``, ``:539-546``): the rules
+        (``tp_rules``, else ``model.tp_sharding_rules``, else derived from
+        the model's dataflow, ``module_inject/tp_parser.py``) cut the model
+        to this rank's slices over the tp group
+        (``module_inject/auto_tp.py:shard_params_for_tp``).  ``_tp_splits``:
+        {leaf name: (dim, tp rank, tp size)} of the sharded leaves; empty
+        at tp 1.  The Llama family trains at tp; GPT-2 and BERT (item 9b)
+        and Mixtral (item 8b) are refused, as are the 1-bit optimizers
+        and parameter streaming (9b)."""
+        self._tp_splits = {}
+        if self.tp_world_size == 1:
+            return
+        from ..models.llama import LlamaModel
+        from ..models.mixtral import MixtralModel
+        from ..module_inject.auto_tp import shard_params_for_tp
+        if isinstance(model, MixtralModel):
+            raise not_ported("Mixtral training with tensor parallelism "
+                             "(tp > 1)", "8b")
+        if not isinstance(model, LlamaModel):
+            raise not_ported(f"{type(model).__name__} training with tensor "
+                             "parallelism (tp > 1)", "9b")
+        if self._config.optimizer_name in ONEBIT_OPTIMIZERS:
+            raise not_ported("the 1-bit optimizers with tensor parallelism",
+                             "9b")
+        if tp_rules is None:
+            tp_rules = getattr(model, "tp_sharding_rules", None)
+        if tp_rules is None:
+            from ..module_inject.tp_parser import \
+                derive_tp_rules_from_dataflow
+            twin = type(model)(model.config, device="meta")
+            tp_rules = derive_tp_rules_from_dataflow(
+                twin, torch.zeros((1, 8), dtype=torch.long, device="meta"))
+            log_dist(f"AutoTP derived {len(tp_rules)} sharding rules from "
+                     "dataflow", ranks=[0])
+        self.tp_rules = tp_rules
+        shard_params_for_tp(model, tp_rules, group=self._tp_group)
+        self._tp_splits = dict(model.tp_splits)
 
     def _configure_moe(self, model):
         """The ``moe`` block's dispatch options (JAX ``engine.py:287-307``;
@@ -484,15 +539,31 @@ class DeepSpeedEngine(OffloadMixin):
 
     def _local_value(self, name, t):
         """``t``, a value of leaf ``name``, as this rank holds it: an
-        expert stack given whole is cut to this rank's experts."""
+        expert stack given whole is cut to this rank's experts, a leaf
+        sharded over tp to this rank's slice (contiguous)."""
         split = self._experts.get(name)
         if split is not None and t.shape[0] == split[2]:
             return t[split[0]:split[0] + split[1]]
+        if name in self._tp_splits:
+            return tp_local(self.module, name, t)
         return t
+
+    def _tp_whole_shape(self, name):
+        return self.module.tp_global_shapes[name]
+
+    @property
+    def _split_leaves(self):
+        """Whether some leaf is held in part (an expert split or tp)."""
+        return bool(self._experts or self._tp_splits)
 
     def _whole_leaf(self, name, t):
         """Leaf ``name``'s whole value from this rank's ``t``: an expert
-        stack all-gathered over ep (a collective), else ``t``."""
+        stack all-gathered over ep, a tp-sharded leaf over tp along its
+        split dim (collectives), else ``t``."""
+        tp = self._tp_splits.get(name)
+        if tp is not None:
+            return dist.all_gather(t.contiguous(), group=self._tp_group,
+                                   axis=tp[0])
         if name not in self._experts:
             return t
         n = self._ep_group.size()
@@ -504,23 +575,27 @@ class DeepSpeedEngine(OffloadMixin):
     def global_layout(self):
         """``(layout, numel)`` of the whole model, each leaf at its global
         shape (the layout's order; :meth:`fp32_params` returns a buffer of
-        it): the engine's own layout but with the expert split."""
-        if not self._experts:
+        it): the engine's own layout but with the expert split and the tp
+        slices whole."""
+        if not self._split_leaves:
             return self._layout, self.zero_plan.numel
         if self._global is None:
             shapes = []
             for name, _, _, shape in self._layout:
                 split = self._experts.get(name)
-                shapes.append((name, shape if split is None else
-                               (split[2], ) + tuple(shape[1:])))
+                if name in self._tp_splits:
+                    shape = self._tp_whole_shape(name)
+                elif split is not None:
+                    shape = (split[2], ) + tuple(shape[1:])
+                shapes.append((name, shape))
             layout, _ = flat_layout(shapes)
             self._global = layout, layout[-1][1] + layout[-1][2]
         return self._global
 
     def _globalize(self, flat):
         """A buffer of :meth:`global_layout` from one of this rank's
-        layout (every rank calls it together at ep > 1)."""
-        if not self._experts:
+        layout (every rank calls it together at ep > 1 or tp > 1)."""
+        if not self._split_leaves:
             return flat
         layout, numel = self.global_layout()
         out = torch.zeros(numel, dtype=flat.dtype, device=flat.device)
@@ -795,7 +870,8 @@ class DeepSpeedEngine(OffloadMixin):
         self._ensure_state_resident()
         gen = torch.Generator(device=self.device).manual_seed(int(seed))
         plan = self.zero_plan
-        if self.master is None and not plan.bucketed:
+        if self.master is None and not plan.bucketed and \
+                not self._split_leaves:
             self._bind_module()
             self.module.init_weights(gen)
         else:
@@ -803,7 +879,7 @@ class DeepSpeedEngine(OffloadMixin):
             # same weights), then this rank's shard kept as the master
             full = torch.zeros(plan.padded_numel, dtype=torch.float32,
                                device=self.device)
-            if self._experts:
+            if self._split_leaves:
                 self._draw_global(full, gen)
             else:
                 self._bind(full)
@@ -830,20 +906,35 @@ class DeepSpeedEngine(OffloadMixin):
 
     def _draw_global(self, full, gen):
         """``init_weights`` over the whole model at its global shapes (so
-        every ep degree starts from the same weights), this rank's part of
-        each leaf into ``full`` (a buffer of the layout)."""
+        every ep and tp degree starts from the same weights), this rank's
+        part of each leaf into ``full`` (a buffer of the layout)."""
         layout, numel = self.global_layout()
+        init_leaf = getattr(sys.modules[type(self.module).__module__],
+                            "init_leaf", None)
+        if self._tp_splits and init_leaf is not None:
+            # leaf by leaf in the module's order, as ``init_weights`` draws
+            # them: no rank holds the whole model at once
+            where = {name: (off, n, gshape) for (name, off, n, _),
+                     (_, _, _, gshape) in zip(self._layout, layout)}
+            with torch.no_grad():
+                for name, _ in self.module.named_parameters():
+                    off, n, gshape = where[name]
+                    t = torch.empty(gshape, dtype=torch.float32,
+                                    device=self.device)
+                    init_leaf(name, t, gen)
+                    full[off:off + n].copy_(
+                        self._local_value(name, t).reshape(-1))
+            return
         drawn = torch.zeros(numel, dtype=torch.float32, device=self.device)
         for name, off, n, shape in layout:
             self._set_param(name, drawn[off:off + n].view(shape))
         self._tie()
         self.module.init_weights(gen)
-        base = self.zero_plan.leaf_base
         with torch.no_grad():
-            for (name, off, n, _), (_, go, _, _) in zip(self._layout,
-                                                         layout):
-                b = go + base.get(name, 0)
-                full[off:off + n].copy_(drawn[b:b + n])
+            for (name, off, n, _), (_, go, gn, gshape) in zip(self._layout,
+                                                              layout):
+                full[off:off + n].copy_(self._local_value(
+                    name, drawn[go:go + gn].view(gshape)).reshape(-1))
 
     def _configure_optimizer(self, client_optimizer):
         """Reference ``_configure_optimizer`` (``engine.py:559``; the JAX
@@ -885,8 +976,9 @@ class DeepSpeedEngine(OffloadMixin):
             return
         self.opt_state = self._transform.init(
             self._target(), pieces, device=self.device, pin=self._pin_state)
-        if self.zero_plan.sharded and self.zero_plan.world_size > 1 and \
-                isinstance(self._transform, FusedLambTransform):
+        if isinstance(self._transform, FusedLambTransform) and (
+                (self.zero_plan.sharded and self.zero_plan.world_size > 1)
+                or self._tp_splits):
             self._sum_lamb_leaves_over_ranks()
         if self._pending_client_lr is not None:
             self._set_client_lr(self._pending_client_lr)
@@ -908,7 +1000,21 @@ class DeepSpeedEngine(OffloadMixin):
                              device=self.device)
         leaves[self._piece_leaf] = piece_sums.to(self.device)
         dist.all_reduce(leaves, group=self._shard_group)
+        if self._tp_splits:
+            # a tp-sharded leaf's sums are over every tp rank's slice
+            split = self._tp_leaf_rows()
+            leaves[split] = dist.all_reduce(leaves[split].contiguous(),
+                                            group=self._tp_group)
         return leaves[self._piece_leaf]
+
+    def _tp_leaf_rows(self):
+        """Indices in the layout of the tp-sharded leaves."""
+        if getattr(self, "_tp_rows", None) is None:
+            self._tp_rows = torch.tensor(
+                [i for i, (name, *_) in enumerate(self._layout)
+                 if name in self._tp_splits], dtype=torch.long,
+                device=self.device)
+        return self._tp_rows
 
     def _param_shard(self):
         """This rank's compute-dtype shard, which the update writes: a
@@ -1358,6 +1464,8 @@ class DeepSpeedEngine(OffloadMixin):
         unit's slices over the expert-data group, its other experts on the
         other ep coordinates); unsharded with the expert split, the
         experts' part is summed over ep."""
+        if self._tp_splits:
+            return self._tp_norm(grads)
         plan = self.zero_plan
         if plan.sharded and plan.world_size > 1:
             return self._sharded_norm(grads)
@@ -1372,11 +1480,56 @@ class DeepSpeedEngine(OffloadMixin):
         # every rank holds the whole summed gradient
         return global_grad_norm([grads])
 
+    def _tp_norm(self, grads):
+        """The norm at tp > 1: the squares of the tp-sharded leaves' slices
+        summed over the tp group, the replicated leaves' (the same on every
+        tp rank) counted once, each over the data group when sharded."""
+        zero = torch.zeros((), dtype=torch.float32, device=grads.device)
+        sq = torch.stack([
+            sum((torch.linalg.vector_norm(grads[a:b], dtype=torch.float32)
+                 .square() for a, b in ranges), zero)
+            for ranges in self._tp_ranges(grads.numel())])
+        plan = self.zero_plan
+        if plan.sharded and plan.world_size > 1:
+            dist.all_reduce(sq, group=self._shard_group)
+        sq[0] = dist.all_reduce(sq[:1].contiguous(), group=self._tp_group)[0]
+        return sq.sum().sqrt()
+
+    def _tp_ranges(self, numel):
+        """``(sharded, replicated)``: the [a, b) ranges of a gradient buffer
+        of ``numel`` elements (the shard, or the whole layout) that hold
+        the tp-sharded leaves' elements and the others', neighbours of one
+        kind merged (cached by size)."""
+        cache = self.__dict__.setdefault("_tp_range_cache", {})
+        if numel not in cache:
+            plan = self.zero_plan
+            if numel == plan.shard_numel and plan.sharded:
+                spans = [(off, off + k, self._layout[i][0])
+                         for off, k, _, i in plan.pieces(self._layout)]
+            else:
+                spans = [(off, off + n, name)
+                         for name, off, n, _ in self._layout]
+            out, last = ([], []), None
+            for a, b, name in sorted(spans):
+                kind = name not in self._tp_splits
+                if kind == last:    # across zero padding only
+                    out[kind][-1] = (out[kind][-1][0], b)
+                else:
+                    out[kind].append((a, b))
+                last = kind
+            cache[numel] = out
+        return cache[numel]
+
     def _agree_flags(self, flags):
-        """The skip flags, every rank's (MAX), so that all skip together."""
+        """The skip flags, every rank's (MAX), so that all skip together:
+        over the data group, then over tp (whose ranks hold other slices
+        of the sharded leaves' gradients)."""
         if self._data_world > 1:
             flags = dist.all_reduce(flags.float(), op=ReduceOp.MAX,
                                     group=self._dp_group)
+        if self.tp_world_size > 1:
+            flags = dist.all_reduce(flags.float().clone(), op=ReduceOp.MAX,
+                                    group=self._tp_group)
         return flags
 
     def _reduced_grads(self):
@@ -1594,7 +1747,8 @@ class DeepSpeedEngine(OffloadMixin):
                 "a checkpoint")
             return False
         sd = self.module_state_dict(dst=0)
-        if self._data_rank == 0:
+        # at tp > 1 every tp rank's first data rank holds the whole leaves
+        if self._data_rank == 0 and self.tp_rank == 0:
             skip = self._tied_copies()
             os.makedirs(save_dir, exist_ok=True)
             torch.save(OrderedDict((k, v) for k, v in sd.items()
@@ -1628,9 +1782,12 @@ class DeepSpeedEngine(OffloadMixin):
         return out
 
     def _all_ranks_agree(self, ok):
-        """Whether ``ok`` holds on every rank (a MIN over the ranks)."""
+        """Whether ``ok`` holds on every rank (a MIN over the data group and
+        over tp)."""
         flag = torch.tensor([1.0 if ok else 0.0], device=self.device)
         dist.all_reduce(flag, op=ReduceOp.MIN, group=self._dp_group)
+        if self.tp_world_size > 1:
+            dist.all_reduce(flag, op=ReduceOp.MIN, group=self._tp_group)
         return bool(flag.item())
 
     def _load_module(self, module, custom_load_fn=None):

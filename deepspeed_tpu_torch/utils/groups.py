@@ -7,9 +7,14 @@ order, most-major first: rank r's coordinates are those of the r-th
 device of JAX's mesh (``rank = (((pp·DP + dp)·EP + ep)·SP + sp)·TP +
 tp``).  A group is a torch process group with the axis names it spans:
 the ranks that differ from this one only along those axes.  pp, dp, ep
-and sp are ported; tp > 1 raises ROADMAP queue A item 9b, as the config's
-``mesh`` key does (``runtime/config.py``), and ep > 1 with pp or sp > 1
-item 8b.  ``ep`` factors the data-parallel degree dp into (dp/ep, ep), as
+sp and tp are ported; tp > 1 with pp, sp, hpZ/MiCS raises ROADMAP queue A
+item 9b, with ep item 8b, and ep > 1 with pp or sp > 1 item 8b.  tp is the
+innermost axis, so a tp group is ``tp`` consecutive ranks (one node's
+NVLink); at tp > 1 the data group is the ranks that share this rank's tp
+coordinate.  ``devices`` (a list of world ranks, whole tp groups) builds
+the mesh over a subset of the world: position p of the list takes the
+coordinates of JAX's p-th device, and a rank outside the list holds local
+groups only (``MeshState.member``).  ``ep`` factors the data-parallel degree dp into (dp/ep, ep), as
 JAX's mesh does (``groups.py:148-158``): the data-parallel rank is
 ``dp_coord · ep + ep_coord``; the ``ep`` group holds the ranks whose
 experts differ, the ``dp`` group (the expert-data group) the ranks that
@@ -90,6 +95,10 @@ class MeshState:
     coord: dict = field(default_factory=dict)
     # axes tuple → the ProcessGroup over them holding this rank
     groups: dict = field(default_factory=dict)
+    # the world ranks of the mesh, in mesh order (None: the whole world)
+    ranks: tuple = None
+    # whether this rank is one of them
+    member: bool = True
 
 
 def _world_size():
@@ -164,45 +173,53 @@ def prepare_hierarchy(intra_node_size=0):
     return None
 
 
-def _axis_ranks(shape, coord, axes):
+def _axis_ranks(shape, coord, axes, ranks=None):
     """The world ranks that differ from ``coord`` only along ``axes``, in
-    rank order (``shape``, ``coord``: axis name → size, index)."""
-    ranks = []
+    rank order (``shape``, ``coord``: axis name → size, index; ``ranks``:
+    the mesh's world ranks in mesh order, None for the whole world)."""
+    out = []
     for vals in product(*(range(shape[a]) for a in axes)):
         c = dict(coord, **dict(zip(axes, vals)))
         r = 0
         for a in AXES:
             r = r * shape[a] + c[a]
-        ranks.append(r)
-    return ranks
+        out.append(r if ranks is None else ranks[r])
+    return out
 
 
 def axis_rank_lists(axes):
     """Every group over ``axes``, as rank lists in one order on every rank
     (one list for each coordinate of the other axes)."""
-    shape = get_mesh_state().mesh.shape
+    st = get_mesh_state()
+    shape = st.mesh.shape
     others = [a for a in AXES if a not in axes]
     return [_axis_ranks(shape, dict(zip(others, vals), **{a: 0 for a in axes}),
-                        axes)
+                        axes, st.ranks)
             for vals in product(*(range(shape[a]) for a in others))]
 
 
 # the groups every mesh holds (``_get_*_group`` below); the ep and
-# expert-data groups at ep > 1
+# expert-data groups at ep > 1; the tp group and the model group (tp × the
+# axes that split the model: the ranks whose states together make it)
 _GROUP_AXES = ((PP_AXIS, ), (DP_AXIS, EP_AXIS), (SP_AXIS, ),
                (DP_AXIS, EP_AXIS, SP_AXIS))
 _EP_GROUP_AXES = ((EP_AXIS, ), (DP_AXIS, ))
+_TP_GROUP_AXES = ((TP_AXIS, ), )
 
 
-def _make_groups(shape, rank, group_axes=_GROUP_AXES):
+def _make_groups(shape, rank, group_axes=_GROUP_AXES, ranks=None,
+                 world=None):
     """{axes: ProcessGroup holding ``rank``} for every axes tuple of
     ``group_axes``; every group of every such tuple is made, once, in one
-    order on every rank (``new_group`` is collective)."""
+    order on every rank (``new_group`` is collective).  ``ranks``: the
+    mesh's world ranks (None: the world, of ``world`` ranks); a rank
+    outside the mesh gets a local group of each."""
     import torch.distributed as tdist
     from ..comm.backend import ProcessGroup
-    world = 1
+    size = 1
     for a in AXES:
-        world *= shape[a]
+        size *= shape[a]
+    world = size if world is None else world
     made = {}
     out = {}
     for axes in group_axes:
@@ -210,50 +227,67 @@ def _make_groups(shape, rank, group_axes=_GROUP_AXES):
         mine = None
         for vals in product(*(range(shape[a]) for a in others)):
             base = dict(zip(others, vals), **{a: 0 for a in axes})
-            ranks = tuple(_axis_ranks(shape, base, axes))
-            if len(ranks) == 1:
-                if rank in ranks:
+            group = tuple(_axis_ranks(shape, base, axes, ranks))
+            if len(group) == 1:
+                if rank in group:
                     mine = ProcessGroup(axes, local=True)
                 continue
-            if len(ranks) == world:
-                if rank in ranks:
+            if len(group) == world:
+                if rank in group:
                     mine = ProcessGroup(axes)
                 continue
-            if ranks not in made:
-                made[ranks] = tdist.new_group(list(ranks))
-            if rank in ranks:
-                mine = ProcessGroup(axes, pg=made[ranks])
-        out[axes] = mine
+            if group not in made:
+                made[group] = tdist.new_group(list(group))
+            if rank in group:
+                mine = ProcessGroup(axes, pg=made[group])
+        out[axes] = mine or ProcessGroup(axes, local=True)
     return out
+
+
+def _check_devices(devices, total, tp):
+    """The mesh's world ranks from ``devices`` (world ranks, or objects
+    with an ``id``), which must name whole tp groups: each run of ``tp``
+    list entries is ``tp`` consecutive ranks from a multiple of ``tp``."""
+    ranks = tuple(int(getattr(d, "id", d)) for d in devices)
+    if len(set(ranks)) != len(ranks) or any(
+            not 0 <= r < total for r in ranks):
+        raise ValueError(f"devices {list(ranks)} must be distinct ranks of "
+                         f"the world of {total}")
+    if len(ranks) % tp or any(
+            ranks[i] % tp or ranks[i:i + tp] != tuple(
+                range(ranks[i], ranks[i] + tp))
+            for i in range(0, len(ranks), tp)):
+        raise ValueError(f"devices {list(ranks)} do not name whole tp "
+                         f"groups of {tp} consecutive ranks")
+    return ranks
 
 
 def initialize_mesh(dp=None, pp=1, sp=1, tp=1, ep=1, devices=None,
                     zero_partition_size=None, user_built=True):
-    """The mesh over the world (``groups.py:initialize_mesh``):
-    ``dp=None`` takes the ranks pp × sp leave; ``ep`` must divide it
-    (the mesh is (pp, dp/ep, ep, sp, tp)).  tp must be 1.  Every rank
-    calls this together: it makes the subgroups (with ep > 1 the ep and
-    expert-data groups; with ``zero_partition_size`` > 1, the
-    ``zp``/``zp_outer`` ones)."""
+    """The mesh over the world, or over the world ranks ``devices``
+    (``groups.py:initialize_mesh``): ``dp=None`` takes the ranks pp × sp ×
+    tp leave; ``ep`` must divide it (the mesh is (pp, dp/ep, ep, sp, tp)).
+    Every rank of the world calls this together: it makes the subgroups
+    (with ep > 1 the ep and expert-data groups; with tp > 1 the tp group;
+    with ``zero_partition_size`` > 1, the ``zp``/``zp_outer`` ones)."""
     global _mesh_state
     from ..comm import comm
-    if devices is not None:
-        raise not_ported("initialize_mesh(devices=...) (a mesh over a "
-                         "device subset)", "9b")
-    if tp not in (None, 1):
-        raise not_ported(f"tensor parallelism (tp={tp})", "9b")
     pp, sp, ep = int(pp or 1), int(sp or 1), int(ep or 1)
-    if ep < 1:
-        raise ValueError(f"expert parallel size ep={ep} must be >= 1")
-    total = _world_size()
+    tp = int(tp or 1)
+    if ep < 1 or tp < 1:
+        raise ValueError(f"ep={ep} and tp={tp} must be >= 1")
+    world = _world_size()
+    rank = comm.get_rank() if world > 1 else 0
+    ranks = None if devices is None else _check_devices(devices, world, tp)
+    total = world if ranks is None else len(ranks)
     if dp is None:
-        if total % (pp * sp):
+        if total % (pp * sp * tp):
             raise ValueError(f"world size {total} not divisible by "
-                             f"pp*sp*tp={pp * sp}")
-        dp = total // (pp * sp)
-    if pp * dp * sp != total:
-        raise ValueError(f"pp({pp}) * dp({dp}) * sp({sp}) * tp(1) = "
-                         f"{pp * dp * sp} != world size {total}")
+                             f"pp*sp*tp={pp * sp * tp}")
+        dp = total // (pp * sp * tp)
+    if pp * dp * sp * tp != total:
+        raise ValueError(f"pp({pp}) * dp({dp}) * sp({sp}) * tp({tp}) = "
+                         f"{pp * dp * sp * tp} != world size {total}")
     if dp % ep != 0:
         raise ValueError(
             f"expert parallel size (ep_size) ep={ep} must divide the "
@@ -263,6 +297,12 @@ def initialize_mesh(dp=None, pp=1, sp=1, tp=1, ep=1, devices=None,
     if ep > 1 and pp * sp > 1:
         raise not_ported(f"expert parallelism (ep={ep}) with pp or sp > 1",
                          "8b")
+    if tp > 1 and ep > 1:
+        raise not_ported(f"tensor parallelism (tp={tp}) with expert "
+                         f"parallelism (ep={ep})", "8b")
+    if tp > 1 and pp * sp > 1:
+        raise not_ported(f"tensor parallelism (tp={tp}) with pp={pp} or "
+                         f"sp={sp}", "9b")
     zp = zero_partition_size if zero_partition_size and \
         zero_partition_size > 1 else None
     if zp is not None and dp % zp != 0:
@@ -270,18 +310,30 @@ def initialize_mesh(dp=None, pp=1, sp=1, tp=1, ep=1, devices=None,
             f"zero_partition_size={zp} must divide dp={dp}")
     if zp is not None and ep > 1:
         raise not_ported("hpZ / MiCS shard groups with ep > 1", "8b")
-    mesh = Mesh(pp=pp, dp=dp // ep, ep=ep, sp=sp, tp=1)
-    rank = comm.get_rank() if total > 1 else 0
-    coord, r = {}, rank
-    for a in reversed(AXES):
-        coord[a] = r % mesh.shape[a]
-        r //= mesh.shape[a]
-    state = MeshState(mesh=mesh, pp=pp, dp=dp, sp=sp, tp=1, ep=ep,
+    if zp is not None and tp > 1:
+        raise not_ported(f"hpZ / MiCS shard groups with tp={tp}", "9b")
+    if ranks is not None and zp is not None:
+        raise not_ported("hpZ / MiCS shard groups on a device subset", "9b")
+    if ranks is not None and tuple(ranks) == tuple(range(world)):
+        ranks = None
+    mesh = Mesh(pp=pp, dp=dp // ep, ep=ep, sp=sp, tp=tp)
+    member = ranks is None or rank in ranks
+    coord = {}
+    if member:
+        r = rank if ranks is None else ranks.index(rank)
+        for a in reversed(AXES):
+            coord[a] = r % mesh.shape[a]
+            r //= mesh.shape[a]
+    state = MeshState(mesh=mesh, pp=pp, dp=dp, sp=sp, tp=tp, ep=ep,
                       zero_partition_size=zp, user_built=user_built,
-                      coord=coord)
-    state.groups = (_make_groups(mesh.shape, rank) if pp * sp > 1 else {})
+                      coord=coord, ranks=ranks, member=member)
+    kinds = (_GROUP_AXES if pp * sp > 1 or tp > 1 or ranks is not None
+             else ())
     if ep > 1:
-        state.groups.update(_make_groups(mesh.shape, rank, _EP_GROUP_AXES))
+        kinds += _EP_GROUP_AXES
+    if tp > 1 or ranks is not None:
+        kinds += _TP_GROUP_AXES
+    state.groups = _make_groups(mesh.shape, rank, kinds, ranks, world)
     if zp is not None:
         factor_groups(zp, state, block=dp * sp)
     _mesh_state = state
@@ -325,7 +377,7 @@ def _pg(axes):
         size *= st.mesh.shape[a]
     if size == 1 and DP_AXIS not in axes:
         return ProcessGroup(axes, local=True)
-    if size == st.mesh.size:
+    if size == st.mesh.size and st.ranks is None:
         # the world; the data groups at one rank too, whose collectives
         # then run on the backend
         return ProcessGroup(axes)
@@ -341,6 +393,28 @@ def _get_data_parallel_group():
 
 def _get_sequence_parallel_group():
     return _pg((SP_AXIS, ))
+
+
+def _get_tensor_parallel_group():
+    """The ``tp`` consecutive ranks that hold the slices of one model
+    replica's sharded leaves."""
+    return _pg((TP_AXIS, ))
+
+
+_get_model_parallel_group = _get_tensor_parallel_group
+
+
+def _get_tensor_parallel_world_size():
+    return get_mesh_state().tp
+
+
+_get_model_parallel_world_size = _get_tensor_parallel_world_size
+
+
+def _get_tensor_parallel_rank():
+    """The rank's coordinate along tp: which slice of each sharded leaf it
+    holds."""
+    return _coord(TP_AXIS)
 
 
 def _get_expert_parallel_group():

@@ -281,13 +281,18 @@ def test_lm_head_turns_tf32_off_for_itself_only():
 
 
 def test_not_ported_options_raise():
-    for over in (dict(tensor_parallel={"tp_size": 2}),
-                 dict(kv_cache_dtype="int8"),
+    for over in (dict(kv_cache_dtype="int8"),
                  dict(decode_burst_sampling=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             InferenceEngineV2(
                 port_llama.LlamaModel(port_llama.llama_tiny(
                     dtype="float32")), config=over, device="cpu")
+    # tp_size > 1 is served (tests/test_torch_tp_serving.py); a process
+    # that is one rank cannot hold a tp group of two
+    with pytest.raises(ValueError, match="tp_size"):
+        InferenceEngineV2(
+            port_llama.LlamaModel(port_llama.llama_tiny(dtype="float32")),
+            config=dict(tensor_parallel={"tp_size": 2}), device="cpu")
     # a mode the JAX engine refuses too, with its wording
     with pytest.raises(NotImplementedError, match="quantization_mode"):
         InferenceEngineV2(

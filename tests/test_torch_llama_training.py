@@ -382,7 +382,7 @@ def test_batch_trinity_matches_jax(i):
 
 REFUSED = [
     ({"optimizer": {"type": "muon"}}, 11),
-    ({"mesh": {"tp": 2}}, "9b"),
+    ({"mesh": {"tp": 2, "sp": 2}}, "9b"),
     ({"mesh": {"ep": 2, "sp": 2}}, "8b"),
     ({"moe": {"enabled": True, "quantized_dispatch": True,
               "intra_node_size": 2}}, "8b"),

@@ -23,7 +23,8 @@ Leg kinds:
   (``state_placement``); ``offload_at`` (a batch index) sends every state
   to the host with ``offload_states`` after that batch's step (and records
   the placement then); ``per_step_master``: the fp32 master after each
-  batch;
+  batch; ``init_seed`` (a Llama leg without a tree): the weights
+  ``engine.initialize_parameters`` draws from that seed;
 * ``coll``: the quantized primitives of ``comm/collectives`` on rank r's
   row of each array (``quantized_all_gather``, ``all_to_all_quant_reduce``,
   ``hierarchical_quant_reduce_scatter``, ``quantized_all_to_all``, the
@@ -63,6 +64,19 @@ Leg kinds:
   this rank's master holds each expert leaf (the pieces in the whole
   stack, and their values), its coordinates, the plan's groups and the
   whole master;
+* ``groups``: for each of the leg's meshes (``initialize_mesh`` keyword
+  arguments, ``devices`` a list of world ranks), this rank's coordinates,
+  whether it is in the mesh, and the world ranks of its tp and data
+  groups (their sizes and ranks, and a sum over each as a check);
+* ``functional``: ``comm/functional.py``'s differentiable collectives and
+  ``module_inject``'s parallel layers over the world: outputs and input
+  gradients;
+* ``serve``: ``InferenceEngineV2`` (Llama or Mixtral from the leg's flax
+  tree, or ``build_hf_engine`` of the leg's ``hf_dir``) at the leg's
+  ``tensor_parallel.tp_size`` over the world: the
+  greedy tokens of ``generate`` (with its decode bursts), of a
+  ``put``/``query``/``flush`` loop and of ``burst_decode``, the KV cache's
+  shape and the local weight shapes;
 * ``stream``: ZeRO-Infinity parameter streaming (``InfinityEngine``) from
   the leg's flax tree, or from the tag at ``load`` (the universal
   directory at ``universal``): each batch's loss, then the whole fp32
@@ -388,12 +402,15 @@ def _model(kind, cfg_kw, tree, mean_only=False):
         return _mlp(tree, kind)
     if kind == "moe":
         return moe_twin(tree)
-    from deepspeed_tpu_torch.models import bert, gpt2, llama
-    mod = {"llama": llama, "gpt2": gpt2, "bert": bert}[kind]
-    make = {"llama": "llama_tiny", "gpt2": "gpt2_tiny", "bert": "bert_tiny"}
+    from deepspeed_tpu_torch.models import bert, gpt2, llama, mixtral
+    mod = {"llama": llama, "gpt2": gpt2, "bert": bert,
+           "mixtral": mixtral}[kind]
+    make = {"llama": "llama_tiny", "gpt2": "gpt2_tiny", "bert": "bert_tiny",
+            "mixtral": "mixtral_tiny"}
     cfg = getattr(mod, make[kind])(**cfg_kw)
     cls = getattr(mod, {"llama": "LlamaModel", "gpt2": "GPT2Model",
-                        "bert": "BertModel"}[kind])
+                        "bert": "BertModel",
+                        "mixtral": "MixtralModel"}[kind])
     if mean_only:
         base = cls
 
@@ -451,11 +468,19 @@ def moe_twin(tree):
 def run_train(leg, rank, world):
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch import comm as dist
-    model, start = _model(leg["model"], leg["cfg"], leg["tree"],
-                          leg.get("mean_only", False))
+    if leg.get("init_seed") is None:
+        model, start = _model(leg["model"], leg["cfg"], leg["tree"],
+                              leg.get("mean_only", False))
+    else:
+        from deepspeed_tpu_torch.models import llama
+        model = llama.LlamaModel(llama.llama_tiny(**leg["cfg"]),
+                                 device="meta")
+        start = None
     engine, *_ = deepspeed_tpu_torch.initialize(
         model=model, model_parameters=start, config=dict(leg["config"]),
-        device="cpu")
+        device="cpu", tp_rules=leg.get("tp_rules"))
+    if start is None:
+        engine.initialize_parameters(leg["init_seed"])
     dist.comms_logger.reset()
     losses, scales, skips, gnorms = [], [], [], []
     offloaded = None
@@ -543,7 +568,7 @@ def run_ckpt(leg, rank, world):
     model, start = _model(leg["model"], leg["cfg"], leg["tree"])
     engine = deepspeed_tpu_torch.initialize(
         model=model, model_parameters=start, config=dict(leg["config"]),
-        device="cpu")[0]
+        device="cpu", tp_rules=leg.get("tp_rules"))[0]
     k = leg["k"]
     train(engine, leg["batches"][:k])
     saved = gathered_state(engine)
@@ -555,9 +580,9 @@ def run_ckpt(leg, rank, world):
                resumed={})
     for name, config in leg.get("resume", {"same": leg["config"]}).items():
         fresh, _ = _model(leg["model"], leg["cfg"], leg["tree"])
-        eng = deepspeed_tpu_torch.initialize(model=fresh,
-                                             config=dict(config),
-                                             device="cpu")[0]
+        eng = deepspeed_tpu_torch.initialize(
+            model=fresh, config=dict(config), device="cpu",
+            tp_rules=leg.get("tp_rules"))[0]
         eng.load_checkpoint(leg["dir"])
         loaded = gathered_state(eng)
         out["resumed"][name] = dict(
@@ -915,6 +940,120 @@ def run_stream(leg, rank, world):
                 resumed=train(fresh, batches[k + 1:]))
 
 
+def run_groups(leg, rank, world):
+    import torch
+    from deepspeed_tpu_torch import comm as dist
+    from deepspeed_tpu_torch.utils import groups
+    out = []
+    for kw in leg["meshes"]:
+        if leg.get("expect_error"):
+            try:
+                groups.initialize_mesh(**kw)
+            except Exception as e:       # the refusal under test
+                out.append(dict(error=type(e).__name__, message=str(e)))
+            else:
+                out.append(dict(error=None, message=""))
+            continue
+        st = groups.initialize_mesh(**kw)
+        got = dict(member=st.member, coord=dict(st.coord))
+        for key, g in (("tp", groups._get_tensor_parallel_group()),
+                       ("data", groups._get_data_parallel_group())):
+            g = g.as_flat()
+            ranks = torch.zeros(world)
+            ranks[rank] = 1.0
+            got[key] = dict(size=g.size(), rank=g.rank(), members=[
+                i for i, v in enumerate(
+                    dist.all_reduce(ranks, group=g).tolist()) if v])
+        out.append(got)
+    groups.reset_mesh()
+    return out
+
+
+def run_functional(leg, rank, world):
+    """``comm/functional.py``'s collectives and ``module_inject``'s
+    parallel layers over the world: each op's output and the gradient of
+    ``sum(out * c)`` in its input, ``c`` rank r's row of the leg's
+    cotangents."""
+    import torch
+    from deepspeed_tpu_torch.comm import functional as fn
+    from deepspeed_tpu_torch.comm.backend import ProcessGroup
+    from deepspeed_tpu_torch.module_inject import layers
+    g = ProcessGroup(("tp", ))
+    ops = {"psum": fn.psum, "pmean": fn.pmean, "pmax": fn.pmax,
+           "pmin": fn.pmin, "all_gather": fn.all_gather,
+           "reduce_scatter": fn.reduce_scatter,
+           "copy_to": fn.copy_to_tp_region,
+           "reduce_from": fn.reduce_from_tp_region,
+           "gather_from": fn.gather_from_tp_region}
+    out = {}
+    for name, op in ops.items():
+        x = torch.from_numpy(leg["x"][rank]).requires_grad_()
+        y = op(x, g)
+        c = torch.from_numpy(leg["c"][rank][:y.numel()])
+        (y * c).sum().backward()
+        out[name] = (y.detach().numpy(), x.grad.numpy())
+    # a column-parallel then a row-parallel linear, and the vocabulary-
+    # parallel embedding, each cut from the whole layer
+    full1 = torch.nn.Linear(8, 4 * world, bias=True, dtype=torch.float64)
+    full2 = torch.nn.Linear(4 * world, 8, bias=True, dtype=torch.float64)
+    emb = torch.nn.Embedding(4 * world, 8, dtype=torch.float64)
+    with torch.no_grad():
+        for m, key in ((full1, "w1"), (full2, "w2")):
+            m.weight.copy_(torch.from_numpy(leg[key]))
+            m.bias.copy_(torch.from_numpy(leg[key + "_b"]))
+        emb.weight.copy_(torch.from_numpy(leg["table"]))
+    col = layers.ColumnParallelLinear.from_linear(full1, g, rank, world)
+    row = layers.RowParallelLinear.from_linear(full2, g, rank, world)
+    vocab = layers.VocabParallelEmbedding.from_embedding(emb, g, rank,
+                                                         world)
+    X = torch.from_numpy(leg["X"]).requires_grad_()
+    Y = row(torch.tanh(col(X)))
+    (Y * torch.from_numpy(leg["C"])).sum().backward()
+    out["mlp"] = (Y.detach().numpy(), X.grad.numpy())
+    out["embedding"] = vocab(torch.from_numpy(leg["ids"])).numpy()
+    out["vocab_start"] = vocab.vocab_start
+    return out
+
+
+def run_serve(leg, rank, world):
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  build_hf_engine)
+    from deepspeed_tpu_torch.models import llama, mixtral
+    if leg.get("hf_dir"):
+        eng = build_hf_engine(leg["hf_dir"], dict(leg["config"]),
+                              device="cpu")
+    else:
+        mod = {"llama": llama, "mixtral": mixtral}[leg["model"]]
+        cfg = getattr(mod, leg["model"] + "_tiny")(**leg["cfg"])
+        cls = (mod.MixtralModel if leg["model"] == "mixtral"
+               else mod.LlamaModel)
+        model = cls(cfg, device="meta")
+        params = mod.params_from_flax(leg["tree"], cfg, dtype=cfg.dtype)
+        eng = InferenceEngineV2(model, params, config=dict(leg["config"]),
+                                device="cpu")
+    new = leg["new"]
+    out = dict(generate=eng.generate(leg["prompts"], max_new_tokens=new),
+               burst_steps=getattr(eng, "burst_steps", 0),
+               kv_shape=tuple(eng.kv_cache.data.shape),
+               shapes={n: tuple(p.shape)
+                       for n, p in eng.module.named_parameters()})
+    eng.burst_steps = 0
+    # put / query / flush, one step at a time, then a decode burst
+    uids = [100 + i for i in range(len(leg["prompts"]))]
+    eng.put(uids, leg["prompts"])
+    got = {u: [] for u in uids}
+    while any(len(got[u]) < 2 for u in uids):
+        for uid, tok in eng.schedule_step().items():
+            got[uid].append(tok)
+            eng.state_manager.get_sequence(uid).tokens.append(tok)
+    burst = eng.burst_decode(uids, max_tokens=new - 2)
+    out["stepped"] = {u: got[u] + burst.get(u, [])[:-1] for u in uids}
+    out["queried"] = {u: eng.query(u)["length"] for u in uids}
+    eng.flush(uids)
+    out["flushed"] = [eng.query(u) for u in uids]
+    return out
+
+
 def main():
     spec, out_dir = sys.argv[1], sys.argv[2]
     import torch
@@ -930,7 +1069,8 @@ def main():
               "refuse": run_refuse, "pipe": run_pipe,
               "ulysses": run_ulysses, "ring": run_ring,
               "codec": run_codec, "stream": run_stream,
-              "moe_local": run_moe_local,
+              "moe_local": run_moe_local, "groups": run_groups,
+              "serve": run_serve, "functional": run_functional,
               "moe_shards": run_moe_shards}[leg["kind"]]
         out = fn(leg, rank, world)
         with open(os.path.join(out_dir, f"{leg['name']}.r{rank}.pkl"),

@@ -13,6 +13,8 @@
                               [--device cpu]
     python3 zero_multicard.py --moe [--world 4] [--json PATH]
                               [--device cpu]
+    python3 zero_multicard.py --tp [--world 4] [--json PATH]
+                              [--device cpu]
 
 BASELINE config 2 (``--model gpt2``: GPT-2 350M, fp16 from a scale of
 2^16, remat, ``fusedadam``, 8 rows of 1024 tokens a rank) or config 3
@@ -154,6 +156,40 @@ top-2, vocab 32000) at 6 of 32 layers (8 would not fit a card: PERF.md
 (6·N_active + 12·L·S·D a token, N_active = N − L·(E − k)·3·D·I), each
 rank's peak.  It fails when a loss is not finite, the ranks disagree, or
 a run leaves its gate.
+
+``--tp`` (four ranks) runs tensor parallelism, which exists only across
+cards: NCCL takes no two ranks on one GPU.  Random bf16 weights from
+``--seed`` are made on the card leaf by leaf (leaf i from its own
+generator; the whole leaf is drawn and this rank's slice kept), so every
+tp degree holds the same weights.  Serving, through
+``build_engine_from_checkpoint`` with ``tensor_parallel.tp_size``, the
+requests of ``chip_smoke.py`` stage 4 (8 prompts of 128-2048 tokens, 64
+greedy tokens each): (a) Llama-2-7B at full depth at tp 4 against tp 1
+(every rank serving alone); (b) Mistral-7B width (32 layers, GQA 32/8:
+2 kv heads a rank) at tp 4 against tp 1; (c) Mixtral-8x7B at full depth
+(32 layers, 46.7 G parameters, 93.4 GB: more than one card holds) at tp
+4, 4 of the prompts, and its parity at 8 layers against tp 1.  The
+kernels are built first, on rank 0.  Each parity run is made twice more
+in fp32 from the same (bf16-rounded) weights.  Rank 0 prints, a run: the
+largest difference of the first step's (prefill) logits from tp 1's,
+the greedy tokens that match tp 1's before the first that differs (bf16
+all-reduce sums in another order than one card's products, which can
+move a near tie), the same in fp32, how far bf16's logits sit from
+fp32's at tp 1 and at tp 4, prefill and decode tokens/s, TTFT, each
+rank's peak memory and B4's and B7's launches a rank.  It fails when
+logits are not finite, the ranks disagree on a token, the first tokens
+differ, the bf16 prefill logits leave tp 1's by more than 2^-3 (bf16
+logits of about unit size, summed over 4096 products in another order),
+or the fp32 ones by more than 1e-3.  Training,
+Llama-2-7B width, bf16, ``fusedadam``, remat, 4 rows of 2048 a data rank:
+(d) at full depth tp 2 × dp 2 at ZeRO 1, tp 2 × dp 2 at ZeRO 3 and tp 4
+at ZeRO 0, step ms, tokens/s, MFU (6N + 12·L·S·D a token over 989
+TFLOP/s a card), each rank's peak and B1's and B2's launches a rank a
+step; and at 8 layers on one global batch
+of 16 rows tp 2 × dp 2 and tp 4 against tp 1 × dp 4, each step's loss
+within 2^-7; (e) at 4 layers a tp 2 × dp 2 ZeRO-3 tag, resumed at tp 4
+(ZeRO 1) and at tp 1 × dp 4 (ZeRO 0): the loaded master's digest equal to
+the saved one, the next step's loss within 2^-7 of the saver's.
 """
 
 import argparse
@@ -1763,6 +1799,540 @@ def _moe_main(args, world, smi, out):
     return 0
 
 
+TP_SERVE = dict(
+    dtype="bfloat16", decode_burst=16,
+    state_manager=dict(block_size=128, num_blocks=160, max_context=4096,
+                       max_ragged_sequence_count=16, max_tracked_sequences=16,
+                       max_ragged_batch_size=768, prefill_atom_size=16))
+TINY_HF = dict(vocab_size=256, hidden_size=64, intermediate_size=128,
+               num_hidden_layers=2, num_attention_heads=4,
+               num_key_value_heads=4, max_position_embeddings=4096)
+TP_LOGIT_GATE = 2.0**-3
+# fp32 at tp 4 against fp32 at tp 1: the same products, the row-parallel
+# ones' partial sums added in another order
+TP_FP32_GATE = 1e-3
+
+
+def _tp_serve_runs():
+    """(name, HF config, layers, prompts) of (a), (b) and (c)'s parity
+    run, on ``chip_smoke.py``'s configs (Mistral-7B: Llama-2-7B's with
+    its FFN, GQA 32/8 and window)."""
+    from chip_smoke import LLAMA2_7B_HF, MIXTRAL_8X7B_HF
+    mistral = dict(LLAMA2_7B_HF, model_type="mistral",
+                   intermediate_size=14336, num_key_value_heads=8,
+                   max_position_embeddings=32768, sliding_window=4096)
+    return (("llama7b", LLAMA2_7B_HF, 32, 8), ("mistral7b", mistral, 32, 8),
+            ("mixtral8x7b_8l", MIXTRAL_8X7B_HF, 8, 8))
+
+
+class _SeededCheckpoint:
+    """HF-named weights drawn on ``device`` leaf by leaf: leaf i from a
+    generator seeded with (seed, i), in fp32, rounded to bf16 and handed
+    over in ``dtype`` (so the bf16 and fp32 runs hold the same values),
+    whole (the loader keeps this rank's slice and frees the rest)."""
+
+    def __init__(self, hf, seed, device, dtype, std=0.02):
+        self.model_config = hf
+        self._seed, self._device, self._dtype = seed, device, dtype
+        self._std = std
+
+    def parameters(self):
+        import torch
+        from chip_smoke import _hf_shapes
+        for i, (name, shape) in enumerate(_hf_shapes(self.model_config)):
+            t = torch.empty(shape, dtype=torch.float32,
+                            device=self._device)
+            if name.endswith("norm.weight"):
+                t.fill_(1.0)
+            else:
+                gen = torch.Generator(device=self._device).manual_seed(
+                    self._seed * 1_000_003 + i)
+                t.normal_(0.0, self._std, generator=gen)
+            yield name, t.to(torch.bfloat16).to(self._dtype)
+
+
+def _tp_prompts(seed, cpu):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lo, hi, vocab = (8, 33, 256) if cpu else (128, 2049, 32000)
+    lengths = rng.integers(lo, hi, size=8).tolist()
+    return [rng.integers(0, vocab, size=n).tolist() for n in lengths]
+
+
+def _tp_serve(torch, hf, tp, prompts, new_tokens, seed, cpu, sync,
+              fp32=False):
+    """One serving run at ``tp`` (bf16, or ``fp32``): tokens, the first
+    step's logits, rates, TTFT, peak memory and B4's and B7's launches on
+    this rank."""
+    from deepspeed_tpu_torch.inference.v2 import build_engine_from_checkpoint
+    from deepspeed_tpu_torch.ops.kernels import grouped_matmul as gm
+    from deepspeed_tpu_torch.ops.kernels import paged_attention as pa
+    dev = "cpu" if cpu else "cuda"
+    dtype = torch.float32 if cpu or fp32 else torch.bfloat16
+    config = dict(TP_SERVE, tensor_parallel=dict(tp_size=tp),
+                  dtype=str(dtype).split(".")[-1])
+    if cpu:
+        config = dict(config, state_manager=dict(
+            TP_SERVE["state_manager"], block_size=16, max_context=256,
+            max_ragged_batch_size=64, num_blocks=160))
+    if not cpu:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = build_engine_from_checkpoint(
+        _SeededCheckpoint(hf, seed, dev, dtype), hf, config,
+        device=dev if cpu else None)
+    sync()
+    build_s = time.perf_counter() - t0
+    first = []
+    step_fn = eng._step_fn
+
+    def probed(*args, **kwargs):
+        logits, kv = step_fn(*args, **kwargs)
+        if not first:
+            first.append(logits.float().clone())
+        return logits, kv
+
+    eng._step_fn = probed
+    first_token = {}
+    schedule = eng.schedule_step
+
+    def timed_schedule(*args, **kwargs):
+        out = schedule(*args, **kwargs)
+        now = time.perf_counter()
+        for uid in out:
+            first_token.setdefault(uid, now)
+        return out
+
+    eng.schedule_step = timed_schedule
+    for fn in (pa.paged_attention, pa.paged_attention_atoms, gm.gmm):
+        fn.launches = 0
+    sync()
+    start = time.perf_counter()
+    outs = eng.generate(prompts, max_new_tokens=new_tokens)
+    sync()
+    wall = time.perf_counter() - start
+    ttft = [first_token[u] - start for u in range(len(prompts))]
+    n_gen = sum(len(o) for o in outs)
+    prefill_end = max(ttft)
+    row = dict(outs=outs, logits=first[0], build_s=build_s, wall_s=wall,
+               prefill_tok_s=sum(map(len, prompts)) / prefill_end,
+               decode_tok_s=(n_gen - len(prompts)) / max(
+                   wall - prefill_end, 1e-9),
+               ttft_mean_s=sum(ttft) / len(ttft), ttft_max_s=prefill_end,
+               peak=0 if cpu else torch.cuda.max_memory_allocated(),
+               b4=pa.paged_attention.launches +
+               pa.paged_attention_atoms.launches, b7=gm.gmm.launches,
+               finite=bool(torch.isfinite(first[0]).all()))
+    del eng
+    gc.collect()
+    if not cpu:
+        torch.cuda.empty_cache()
+    return row
+
+
+def _tp_gathered(torch, comm, dev, values):
+    """Every rank's list of numbers, as [world, n] on the host."""
+    t = torch.tensor(values, dtype=torch.float64, device=dev)
+    return comm.all_gather(t, tiled=False).cpu()
+
+
+def _tp_first_diff(x, y):
+    """How many greedy tokens match before the first that differs, a
+    prompt."""
+    return [next((i for i, (a, b) in enumerate(zip(p, q)) if a != b),
+                 len(p)) for p, q in zip(x, y)]
+
+
+def _tp_serving_legs(args, torch, comm, cpu, dev, sync):
+    """(a), (b), (c): each serving run at tp 1 (every rank alone) and at
+    tp 4, in bf16 and in fp32, compared on rank 0."""
+    out = []
+    prompts = _tp_prompts(args.seed, cpu)
+    world = comm.get_world_size()
+    for name, hf, layers, n_prompts in _tp_serve_runs():
+        hf = dict(TINY_HF if cpu else hf, num_hidden_layers=2 if cpu else
+                  layers, model_type=hf["model_type"])
+        if hf["model_type"] == "mixtral" and cpu:
+            hf.update(num_local_experts=4, num_experts_per_tok=2)
+        if hf["model_type"] == "mistral" and cpu:
+            hf.update(num_key_value_heads=8 if not cpu else 4,
+                      sliding_window=16)
+        new = 8 if cpu else 64
+        one = _tp_serve(torch, hf, 1, prompts[:n_prompts], new, args.seed,
+                        cpu, sync)
+        many = _tp_serve(torch, hf, world, prompts[:n_prompts], new,
+                         args.seed, cpu, sync)
+        # the same weights in fp32: what tp changes without bf16's
+        # roundings, and how far bf16 itself sits from fp32
+        one32 = _tp_serve(torch, hf, 1, prompts[:n_prompts], new,
+                          args.seed, cpu, sync, fp32=True)
+        many32 = _tp_serve(torch, hf, world, prompts[:n_prompts], new,
+                           args.seed, cpu, sync, fp32=True)
+        diff = (one["logits"] - many["logits"]).abs().max().item()
+        match = _tp_first_diff(one["outs"], many["outs"])
+        fp32 = dict(
+            logit_max_abs_diff=(one32["logits"] -
+                                many32["logits"]).abs().max().item(),
+            tokens_matching=_tp_first_diff(one32["outs"], many32["outs"]),
+            bf16_tp1_vs_fp32=(one["logits"] -
+                              one32["logits"]).abs().max().item(),
+            bf16_tpn_vs_fp32=(many["logits"] -
+                              one32["logits"]).abs().max().item(),
+            bf16_tp1_tokens_matching_fp32=_tp_first_diff(one32["outs"],
+                                                         one["outs"]),
+            tp1={k: v for k, v in one32.items() if k not in ("outs",
+                                                             "logits")},
+            tpn={k: v for k, v in many32.items() if k not in ("outs",
+                                                              "logits")})
+        toks = torch.tensor(sum(many["outs"], []), dtype=torch.float64,
+                            device=dev)
+        every = comm.all_gather(toks, tiled=False).cpu()
+        stats = _tp_gathered(torch, comm, dev, [many["peak"], many["b4"],
+                                                many["b7"]])
+        out.append(dict(
+            name=name, layers=hf["num_hidden_layers"], tp=world,
+            prompts=n_prompts, new_tokens=new, logit_max_abs_diff=diff,
+            logit_max_abs_tp1=one["logits"].abs().max().item(),
+            tokens_matching=match,
+            first_tokens_equal=all(m > 0 for m in match),
+            ranks_agree=bool((every == every[0]).all()),
+            finite=one["finite"] and many["finite"],
+            tp1={k: v for k, v in one.items() if k not in ("outs",
+                                                           "logits")},
+            tpn={k: v for k, v in many.items() if k not in ("outs",
+                                                            "logits")},
+            fp32=fp32,
+            peak_bytes_by_rank=[int(v) for v in stats[:, 0].tolist()],
+            b4_launches_by_rank=[int(v) for v in stats[:, 1].tolist()],
+            b7_launches_by_rank=[int(v) for v in stats[:, 2].tolist()]))
+    if not cpu:
+        # (c) at full depth: 93.4 GB in bf16, a quarter a rank
+        hf = dict(_tp_serve_runs()[2][1], num_hidden_layers=32)
+        many = _tp_serve(torch, hf, world, prompts[:4], 64, args.seed, cpu,
+                         sync)
+        stats = _tp_gathered(torch, comm, dev, [many["peak"], many["b4"],
+                                                many["b7"]])
+        out.append(dict(
+            name="mixtral8x7b_full", layers=32, tp=world, prompts=4,
+            new_tokens=64, finite=many["finite"],
+            tpn={k: v for k, v in many.items() if k not in ("outs",
+                                                            "logits")},
+            peak_bytes_by_rank=[int(v) for v in stats[:, 0].tolist()],
+            b4_launches_by_rank=[int(v) for v in stats[:, 1].tolist()],
+            b7_launches_by_rank=[int(v) for v in stats[:, 2].tolist()]))
+    return out
+
+
+def _tp_train_config(stage, tp, rows, cpu):
+    config = {"train_micro_batch_size_per_gpu": rows, "optimizer": ADAM,
+              "zero_optimization": dict(ZERO3) if stage == 3
+              else {"stage": stage}, "mesh": {"tp": tp}}
+    if not cpu:
+        config["bf16"] = {"enabled": True}
+    return config
+
+
+def _tp_train_run(torch, np, args, cpu, dev, sync, tp, stage, layers, rows,
+                  steps, global_rows=None):
+    """One training run: the engine from the seed, ``steps`` steps (the
+    first a warm-up) on one global batch; losses, step ms, peak."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.models import llama
+    cfg = (llama.llama_tiny(dtype="bfloat16", max_position_embeddings=2048,
+                            num_hidden_layers=layers, num_key_value_heads=4)
+           if cpu else llama.llama_7b(num_hidden_layers=layers,
+                                      head_dtype="bfloat16", remat=True))
+    S = 64 if cpu else 2048
+    if not cpu:
+        torch.cuda.reset_peak_memory_stats()
+    engine = deepspeed_tpu_torch.initialize(
+        model=llama.LlamaModel(cfg, device="meta"),
+        config=_tp_train_config(stage, tp, rows, cpu),
+        device=dev if cpu else None, tp_rules=llama.tp_rules(cfg))[0]
+    engine.initialize_parameters(args.seed)
+    total = global_rows or rows * engine.dp_world_size
+    rng = np.random.default_rng(args.seed + 5)
+    ids = engine.shard_batch(rng.integers(0, cfg.vocab_size,
+                                          size=(total, S)))[0]
+    counters = _tp_train_counters()
+    for fn in counters:
+        fn.launches = 0
+    losses, times = [], []
+    for _ in range(steps):
+        sync()
+        t = time.perf_counter()
+        loss = engine(ids, ids)
+        engine.backward(loss)
+        engine.step()
+        losses.append(loss.item())
+        sync()
+        times.append(time.perf_counter() - t)
+    step_s = sum(times[1:]) / max(len(times) - 1, 1)
+    tok_s = total * S / step_s
+    flops = 6 * llama.param_count(cfg) + 12 * layers * S * cfg.hidden_size
+    world = comm.get_world_size()
+    launches = [fn.launches / steps for fn in counters]
+    stats = _tp_gathered(torch, comm, dev, losses + launches + [
+        0 if cpu else torch.cuda.max_memory_allocated()])
+    n = len(losses)
+    row = dict(tp=tp, dp=engine.dp_world_size, stage=stage, layers=layers,
+               rows_global=total, losses=losses,
+               step_ms=[t * 1e3 for t in times[1:]],
+               step_ms_mean=step_s * 1e3, tokens_per_s=tok_s,
+               mfu=tok_s * flops / world / PEAK_FLOPS,
+               peak_bytes_by_rank=[int(v) for v in stats[:, -1].tolist()],
+               launches_a_step=dict(zip(
+                   ("flash_fwd", "flash_dq", "flash_dkv", "adam"),
+                   stats[0, n:n + len(counters)].tolist())),
+               ranks_agree=bool((stats[:, :-1] == stats[0, :-1]).all()))
+    del engine
+    gc.collect()
+    if not cpu:
+        torch.cuda.empty_cache()
+    return row
+
+
+def _tp_train_counters():
+    """B1's three kernels and B2: their wrappers, whose ``launches``
+    count on the card."""
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    from deepspeed_tpu_torch.ops.kernels import optimizers as opt
+    return (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+            fa.flash_attention_bwd_dkv, opt.fused_adam_step)
+
+
+def _tp_digest(engine):
+    """sha256 of the whole fp32 master, leaf by leaf in name order, at its
+    global shapes (the same at any tp and dp; a collective)."""
+    import hashlib
+    flat = engine.fp32_params()
+    h = hashlib.sha256()
+    for name, off, n, _ in sorted(engine.global_layout()[0]):
+        h.update(flat[off:off + n].float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _tp_checkpoint_leg(torch, np, args, cpu, dev, sync):
+    """(e): a tp 2 × dp 2 ZeRO-3 tag at 4 layers, resumed at tp 4 and at
+    tp 1 × dp 4."""
+    import shutil
+    import tempfile
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.models import llama
+    layers, S = (2, 64) if cpu else (4, 2048)
+    cfg = (llama.llama_tiny(dtype="bfloat16", max_position_embeddings=2048,
+                            num_hidden_layers=layers, num_key_value_heads=4)
+           if cpu else llama.llama_7b(num_hidden_layers=layers,
+                                      head_dtype="bfloat16", remat=True))
+    world = comm.get_world_size()
+    rng = np.random.default_rng(args.seed + 7)
+    batch = rng.integers(0, cfg.vocab_size, size=(16, S))
+    root = tempfile.mkdtemp(prefix="zero_multicard_tp_") \
+        if comm.get_rank() == 0 else None
+    box = [root]
+    import torch.distributed as tdist
+    tdist.broadcast_object_list(box, src=0)
+    root = box[0]
+
+    def make(tp, stage):
+        eng = deepspeed_tpu_torch.initialize(
+            model=llama.LlamaModel(cfg, device="meta"),
+            config=_tp_train_config(stage, tp, 16 // (world // tp), cpu),
+            device=dev if cpu else None, tp_rules=llama.tp_rules(cfg))[0]
+        return eng
+
+    def step(eng):
+        ids = eng.shard_batch(batch)[0]
+        loss = eng(ids, ids)
+        eng.backward(loss)
+        eng.step()
+        return loss.item()
+
+    try:
+        saver = make(2, 3)
+        saver.initialize_parameters(args.seed)
+        for _ in range(2):
+            step(saver)
+        sync()
+        t = time.perf_counter()
+        saver.save_checkpoint(root, tag="t")
+        save_s = time.perf_counter() - t
+        digest = _tp_digest(saver)
+        nxt = step(saver)
+        del saver
+        gc.collect()
+        rows = []
+        for tp, stage in ((world, 1), (1, 0)):
+            eng = make(tp, stage)
+            sync()
+            t = time.perf_counter()
+            eng.load_checkpoint(root)
+            load_s = time.perf_counter() - t
+            same = _tp_digest(eng) == digest
+            loss = step(eng)
+            rows.append(dict(tp=tp, stage=stage, load_s=load_s,
+                             digest_equal=same, next_loss=loss,
+                             rel_diff=abs(loss - nxt) / abs(nxt)))
+            del eng
+            gc.collect()
+            if not cpu:
+                torch.cuda.empty_cache()
+        nbytes = sum(os.path.getsize(os.path.join(dp, f))
+                     for dp, _, fs in os.walk(root) for f in fs)
+    finally:
+        comm.barrier()
+        if comm.get_rank() == 0:
+            shutil.rmtree(root, ignore_errors=True)
+    return dict(layers=layers, save_s=save_s, tag_bytes=nbytes,
+                next_loss=nxt, resumed=rows)
+
+
+def _tp_prebuild(comm):
+    """The kernels of the tp paths built once, on rank 0 (one nvcc a
+    source, started together), before anything is timed."""
+    from deepspeed_tpu_torch.ops.op_builder import (FlashAttentionBuilder,
+                                                    GroupedMatmulBuilder,
+                                                    OptimizersBuilder,
+                                                    PagedAttentionBuilder)
+    if comm.get_rank() == 0:
+        procs = [(b, b.start_build()) for b in (
+            PagedAttentionBuilder(), GroupedMatmulBuilder(),
+            FlashAttentionBuilder(), OptimizersBuilder())]
+        for b, proc in procs:
+            b.finish_build(proc)
+    comm.barrier()
+
+
+def run_tp_rank(args):
+    """``--tp`` (module docstring)."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch import comm
+    cpu = args.device == "cpu"
+    dev = "cpu" if cpu else "cuda"
+    sync = (lambda: None) if cpu else torch.cuda.synchronize
+    comm.init_distributed(dist_backend="gloo" if cpu else "nccl",
+                          verbose=False)
+    if not cpu:
+        _tp_prebuild(comm)
+    world = comm.get_world_size()
+    out = {}
+
+    def record(key, value):
+        # rank 0 rewrites the file after each leg: a later leg's failure
+        # leaves the earlier legs' figures to print
+        out[key] = value
+        if comm.get_rank() == 0:
+            with open(args.out_rank0, "w") as f:
+                json.dump(out, f)
+
+    record("serve", _tp_serving_legs(args, torch, comm, cpu, dev, sync))
+    full, cut = (2, 2) if cpu else (32, 8)
+    rows = 2 if cpu else 4
+    record("train", [
+        _tp_train_run(torch, np, args, cpu, dev, sync, tp, stage, full,
+                      rows, 1 + args.steps)
+        for tp, stage in ((2, 1), (2, 3), (world, 0))])
+    record("parity", [
+        _tp_train_run(torch, np, args, cpu, dev, sync, tp, 1, cut,
+                      16 // (world // tp), 3, global_rows=16)
+        for tp in (1, 2, world)])
+    record("checkpoint", _tp_checkpoint_leg(torch, np, args, cpu, dev,
+                                            sync))
+    comm.destroy_process_group()
+
+
+def _tp_main(args, world, smi, out):
+    rcs = _spawn(world, sys.argv[1:] + ["--out-rank0", out])
+    ok = not any(rcs)
+    if not ok:
+        print(f"zero_multicard: ranks exited {rcs}", file=sys.stderr)
+    if not os.path.exists(out):
+        return 1
+    with open(out) as f:
+        res = json.load(f)
+    os.remove(out)
+    for r in res.get("serve", []):
+        gib = ", ".join(f"{b / 2**30:.2f}" for b in r["peak_bytes_by_rank"])
+        t = r["tpn"]
+        line = (f"[tp] serve {r['name']} ({r['layers']} layers) at tp "
+                f"{r['tp']}, {r['prompts']} prompts × {r['new_tokens']} "
+                f"tokens: prefill {t['prefill_tok_s']:.1f} tok/s, decode "
+                f"{t['decode_tok_s']:.1f} tok/s, TTFT mean "
+                f"{t['ttft_mean_s']:.3f} s max {t['ttft_max_s']:.3f} s, "
+                f"build {t['build_s']:.1f} s | peak GiB by rank {gib} | B4 "
+                f"launches by rank {r['b4_launches_by_rank']}, B7 "
+                f"{r['b7_launches_by_rank']}")
+        ok &= r["finite"]
+        if "tp1" in r:
+            o = r["tp1"]
+            line += (f" | tp 1: prefill {o['prefill_tok_s']:.1f} tok/s, "
+                     f"decode {o['decode_tok_s']:.1f} tok/s, peak "
+                     f"{o['peak'] / 2**30:.2f} GiB | prefill logits max "
+                     f"|tp {r['tp']} − tp 1| {r['logit_max_abs_diff']:.4e} "
+                     f"(max |logit| {r['logit_max_abs_tp1']:.3f}; gate "
+                     f"{TP_LOGIT_GATE:g}) | greedy tokens matching tp 1 "
+                     f"before the first difference {r['tokens_matching']} "
+                     f"of {r['new_tokens']} | ranks agree "
+                     f"{r['ranks_agree']}")
+            ok &= (r["ranks_agree"] and r["first_tokens_equal"] and
+                   r["logit_max_abs_diff"] <= TP_LOGIT_GATE)
+            f = r["fp32"]
+            line += (f" | fp32, the same weights: max |tp {r['tp']} − tp 1| "
+                     f"{f['logit_max_abs_diff']:.4e} (gate "
+                     f"{TP_FP32_GATE:g}), tokens matching "
+                     f"{f['tokens_matching']}; bf16 from fp32 at tp 1 "
+                     f"{f['bf16_tp1_vs_fp32']:.4e} (tokens matching "
+                     f"{f['bf16_tp1_tokens_matching_fp32']}), at tp "
+                     f"{r['tp']} {f['bf16_tpn_vs_fp32']:.4e}; fp32 decode "
+                     f"{f['tpn']['decode_tok_s']:.1f} tok/s at tp "
+                     f"{r['tp']}, {f['tp1']['decode_tok_s']:.1f} at tp 1")
+            ok &= f["logit_max_abs_diff"] <= TP_FP32_GATE
+        print(line + f" | {smi}", flush=True)
+    for r in res.get("train", []):
+        ok &= r["ranks_agree"] and all(map(math.isfinite, r["losses"]))
+        print(f"[tp] train Llama-2-7B width, {r['layers']} layers, tp "
+              f"{r['tp']} × dp {r['dp']}, ZeRO {r['stage']}: losses "
+              + ", ".join(f"{x:.4f}" for x in r["losses"])
+              + f" | step ms mean {r['step_ms_mean']:.1f}, "
+              f"{r['tokens_per_s']:.1f} tokens/s over the world, MFU "
+              f"{r['mfu']:.4f} | peak GiB by rank " + ", ".join(
+                  f"{b / 2**30:.2f}" for b in r["peak_bytes_by_rank"])
+              + f" | launches a rank a step {r['launches_a_step']}"
+              + f" | {smi}", flush=True)
+    for r in res.get("parity", []):
+        base = res["parity"][0]
+        diff = max(abs(a - b) / abs(b)
+                   for a, b in zip(r["losses"], base["losses"]))
+        r["max_rel_loss_diff_vs_tp1"] = diff
+        ok &= r["ranks_agree"] and diff <= 2.0**-7
+        print(f"[tp] parity {r['layers']} layers, {r['rows_global']} rows, "
+              f"ZeRO 1, tp {r['tp']} × dp {r['dp']}: losses " + ", ".join(
+                  f"{x:.5f}" for x in r["losses"])
+              + f" | largest relative loss difference from tp 1 × dp "
+              f"{base['dp']} {diff:.3e} (gate 2^-7) | {smi}", flush=True)
+    c = res.get("checkpoint", {"resumed": []})
+    for r in c["resumed"]:
+        ok &= r["digest_equal"] and r["rel_diff"] <= 2.0**-7
+        print(f"[tp] checkpoint {c['layers']} layers: tp 2 × dp 2 ZeRO 3 "
+              f"tag ({c['tag_bytes'] / 1e9:.2f} GB, saved in "
+              f"{c['save_s']:.1f} s) loaded at tp {r['tp']} ZeRO "
+              f"{r['stage']} in {r['load_s']:.1f} s: master digest equal "
+              f"{r['digest_equal']}, next loss {r['next_loss']:.5f} against "
+              f"the saver's {c['next_loss']:.5f} (relative "
+              f"{r['rel_diff']:.2e}, gate 2^-7) | {smi}", flush=True)
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(dict(card=smi, **res), f, indent=1)
+    if not ok:
+        print("zero_multicard: a tp check failed", file=sys.stderr)
+        return 1
+    print(json.dumps({"ok": True, "world": world, "tp": True}))
+    return 0
+
+
 def _free_port():
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -1883,6 +2453,11 @@ def main():
     ap.add_argument("--moe", action="store_true",
                     help="the MoE layer expert-parallel (ep 4, dp 2 × ep 2) "
                          "against dp 4, and Mixtral-8x7B width at ZeRO 3")
+    ap.add_argument("--tp", action="store_true",
+                    help="tensor parallelism: Llama-2-7B, Mistral-7B and "
+                         "Mixtral-8x7B serving at tp 4 against tp 1, "
+                         "Llama-2-7B-width training at tp 2 × dp 2 and tp 4, "
+                         "and a tp checkpoint resumed at other tp")
     ap.add_argument("--offload-layers", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--stream-layers", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--rank", type=int, help=argparse.SUPPRESS)
@@ -1896,7 +2471,8 @@ def main():
         (run_offload_rank if args.offload else run_checkpoint_rank
          if args.checkpoint else run_zeropp_rank if args.zeropp
          else run_pipe_rank if args.pipe else run_onebit_rank
-         if args.onebit else run_moe_rank if args.moe else run_rank)(args)
+         if args.onebit else run_moe_rank if args.moe else run_tp_rank
+         if args.tp else run_rank)(args)
         return 0
     import torch
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -1922,6 +2498,8 @@ def main():
         return _onebit_main(args, world, smi, out)
     if args.moe:
         return _moe_main(args, world, smi, out)
+    if args.tp:
+        return _tp_main(args, world, smi, out)
     rcs = _spawn(world, sys.argv[1:] + ["--out-rank0", out])
     if any(rcs):
         print(f"zero_multicard: ranks exited {rcs}", file=sys.stderr)
