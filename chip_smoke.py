@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--json PATH] [--profile DIR]
 
-Stages, run in the order 1-33; any failure exits non-zero:
+Stages, run in the order 1-34; any failure exits non-zero:
 
 1. environment: torch/CUDA/nvcc versions, the card's name and power limit;
 2. build: every ``deepspeed_tpu_torch/csrc/*.cu`` with nvcc for sm_90a
@@ -358,6 +358,35 @@ Stages, run in the order 1-33; any failure exits non-zero:
     Mixtral-8x7B's expert slices at tp 4 (w1 [8, 4096, 3584], w2 [8,
     3584, 4096]), decode and prefill, each against its plain version on
     its route (B7 ``wgmma_tma``/``wgmma_tma_64``).
+
+34. long-context training, every fold on B1: (a) ring attention's own
+    function with the sp = 4 blocks of one card in the ring's order (the
+    exchange replaced by indexing; ``ring_attention_blocks``) at
+    Llama-2-7B width, [1, 32768, 32, 128] bf16, causal, forward and
+    backward, against B1 over the whole sequence and, at S = 4096, against
+    the plain version (o, dq, dk, dv within 2^-7 of each tensor's norm and
+    2^-5 of its largest element), B1's launches exactly 10 / 10 / 10 (the
+    10 live pairs of a causal ring of four), ms beside B1 whole and SDPA,
+    peak; again with Hkv = 8 (k/v at their own width); (b) FPDT's
+    host-streamed attention (bench.py's card shape: B 1, H 8, D 128,
+    chunks of 8192 to 131072 positions): every stored chunk pinned, the
+    16 outputs against B1 over all positions, tokens/s with and without
+    ``double_buffer``, a call's working set at 64K and 128K context flat
+    within one chunk pair, 136 B1 launches a stream; ``chunked_attention``
+    forward and backward at [1, 32768, 32, 128], chunks of 4096, against
+    B1 whole (launches 72 / 36 / 36: the checkpoint reruns the forward);
+    (c) the fused chunked head + loss at Llama-2-7B's head (N 8192, D
+    4096, V 32000, chunks of 4096) against the full-logits loss: loss,
+    dx, dw, ms and a lower peak; (d) stage 8's model and batch with
+    ``loss_chunk_vocab`` 4096 (losses within 2^-7 of the scale of stage
+    8's, as they fall from 11 to 0.003) and with
+    ``remat_policy="dots_saveable"`` (bit-equal to stage 8's; B1's
+    forward kept, so launches stay 8 / 8 / 8 a step): 4 steps each, step
+    ms, peak, B1 and B2 launches; and a two-block user model through
+    ``deepspeed_tpu_torch.checkpointing.checkpoint`` with
+    ``cpu_checkpointing`` (an input projection, two MLP blocks, an LM head
+    over 32000): gradients bit-equal to the plain checkpoint's, a lower
+    peak.
 
 ``--profile DIR`` adds ``torch.profiler`` windows over serving (stages 4,
 14 and 15), over two training steps of stage 8, of stage 11, of stage 22
@@ -6475,6 +6504,445 @@ def stage_tp(seed, smi, train, serve):
 
 
 
+# ---------------------------------------------------------------- stage 34
+# bf16 against bf16: the ring and the chunked attention merge the pairs'
+# bf16 outputs in fp32 and round once more, and sum the pairs' bf16
+# gradients in fp32, where one B1 call over the whole sequence rounds
+# once; the difference stays within a bf16 rounding of the tensor (2^-7 of
+# its norm) and within 2^-5 of its largest element everywhere
+LONG_NORM_RTOL, LONG_MAX_RTOL = 2.0**-7, 2.0**-5
+RING = dict(B=1, S=32768, H=32, D=128, sp=4)       # Llama-2-7B width
+FPDT = dict(B=1, H=8, D=128, chunk=8192, context=131072)   # bench.py:667
+CHUNKED = dict(B=1, S=32768, H=32, D=128, chunk=4096)
+HEAD = dict(N=8192, D=4096, V=32000, chunk=4096)   # Llama-2-7B's head
+USER_CKPT = dict(B=8, S=4096, D=4096, I=11008, V=32000)   # (d)
+
+
+def _flash_counters():
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    return {"fwd": fa.flash_attention_fwd, "dq": fa.flash_attention_bwd_dq,
+            "dkv": fa.flash_attention_bwd_dkv}
+
+
+def _zeroed(counters):
+    import torch
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    return counters
+
+
+def _counts(counters):
+    return {k: fn.launches for k, fn in counters.items()}
+
+
+def _hold(torch, tag, pairs):
+    """{name: (norm-relative, max-relative) error} of each (got, ref) pair;
+    outside LONG_NORM_RTOL / LONG_MAX_RTOL fails."""
+    errs = {}
+    for name, (got, ref) in pairs.items():
+        d, r = got.float() - ref.float(), ref.float()
+        errs[name] = ((d.norm() / r.norm()).item(),
+                      (d.abs().max() / r.abs().max()).item())
+    bad = {n: e for n, e in errs.items()
+           if not (e[0] <= LONG_NORM_RTOL and e[1] <= LONG_MAX_RTOL)}
+    if bad:
+        raise AssertionError(f"{tag}: outside 2^-7 of the norm / 2^-5 of "
+                             f"the largest element: {bad}")
+    return errs
+
+
+def _fmt_errs(errs):
+    return ", ".join(f"{k} {a:.2e}/{b:.2e}" for k, (a, b) in errs.items())
+
+
+def _attention_flops(B, H, S, D, passes):
+    """Products of causal attention over S positions: ``passes`` × 2·D a
+    live (query, key) pair (2 forward, 5 backward)."""
+    return passes * 2 * B * H * D * _live_pairs(S, S, True, 0)
+
+
+def _fwd_bwd(fn, leaves, do):
+    import torch
+    out = fn(*leaves)
+    return out, torch.autograd.grad(out, leaves, do)
+
+
+def _ring_case(torch, gen, Hkv):
+    """(a): the ring of four on one card against B1 over the whole
+    sequence, and against the plain version at S = 4096."""
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    from deepspeed_tpu_torch.sequence.ring_attention import \
+        ring_attention_blocks
+    B, S, H, D, sp = (RING[k] for k in ("B", "S", "H", "D", "sp"))
+
+    def inputs(S):
+        return [torch.randn(B, S, h, D, device="cuda", generator=gen).to(
+            torch.bfloat16).requires_grad_(i < 3)
+            for i, h in enumerate((H, Hkv, Hkv, H))]
+
+    ring = lambda q, k, v: ring_attention_blocks(q, k, v, sp)  # noqa: E731
+    whole = lambda q, k, v: fa.flash_attention(q, k, v)  # noqa: E731
+    q, k, v, do = inputs(S)
+    counters = _zeroed(_flash_counters())
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out, grads = _fwd_bwd(ring, (q, k, v), do)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = _counts(counters)
+    ref, rgrads = _fwd_bwd(whole, (q, k, v), do)
+    errs = _hold(torch, f"ring Hkv {Hkv}", dict(
+        o=(out, ref), **{f"d{n}": (g, r) for n, g, r in zip("qkv", grads,
+                                                             rgrads)}))
+    del out, grads, ref, rgrads
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _fwd_bwd(whole, (q, k, v), do)
+    torch.cuda.synchronize()
+    whole_peak = torch.cuda.max_memory_allocated() - base
+    with torch.no_grad():
+        kr, vr = (t.repeat_interleave(H // Hkv, dim=2).transpose(1, 2)
+                  for t in (k, v))
+        ms = dict(ring_fwd=cuda_ms(lambda: ring(q, k, v), 3),
+                  whole_fwd=cuda_ms(lambda: whole(q, k, v), 3),
+                  sdpa_fwd=cuda_ms(lambda: F.scaled_dot_product_attention(
+                      q.transpose(1, 2), kr, vr, is_causal=True), 3))
+        del kr, vr
+    ms["ring_fwd_bwd"] = cuda_ms(lambda: _fwd_bwd(ring, (q, k, v), do), 2)
+    ms["whole_fwd_bwd"] = cuda_ms(lambda: _fwd_bwd(whole, (q, k, v), do), 2)
+    del q, k, v, do
+    _free(torch)
+    # the plain version (fp32 scores of the whole sequence) at S = 4096
+    q, k, v, do = inputs(S // 8)
+    out, grads = _fwd_bwd(lambda q, k, v: ring_attention_blocks(q, k, v, sp),
+                          (q, k, v), do)
+    ref, rgrads = _fwd_bwd(fa.flash_attention_plain, (q, k, v), do)
+    plain_errs = _hold(torch, f"ring Hkv {Hkv} vs plain", dict(
+        o=(out, ref), **{f"d{n}": (g, r) for n, g, r in zip("qkv", grads,
+                                                             rgrads)}))
+    del q, k, v, do, out, grads, ref, rgrads
+    _free(torch)
+    want = {"fwd": 10, "dq": 10, "dkv": 10}
+    fwd_tf = _attention_flops(B, H, S, D, 2) / ms["ring_fwd"] / 1e9
+    log(f"[long] (a) ring of {sp} on one card, [{B}, {S}, {H}, {D}] bf16, "
+        f"Hkv {Hkv}, causal, blocks of {S // sp}: B1 launches {launches} "
+        f"(want {want}) | vs B1 over the whole sequence (norm/max "
+        f"relative): {_fmt_errs(errs)} | vs the plain version at S = "
+        f"{S // 8}: {_fmt_errs(plain_errs)} | ms: ring fwd "
+        f"{ms['ring_fwd']:.3f} ({fwd_tf:.1f} TFLOP/s), fwd+bwd "
+        f"{ms['ring_fwd_bwd']:.3f}; B1 whole fwd {ms['whole_fwd']:.3f}, "
+        f"fwd+bwd {ms['whole_fwd_bwd']:.3f}; SDPA fwd {ms['sdpa_fwd']:.3f} "
+        f"| peak above the inputs: ring {peak / 2**30:.3f} GiB, B1 whole "
+        f"{whole_peak / 2**30:.3f} GiB")
+    if launches != want:
+        raise AssertionError(f"ring launches {launches}, want {want}")
+    return dict(Hkv=Hkv, launches=launches, errs=errs, plain_errs=plain_errs,
+                ms=ms, peak_bytes=peak, whole_peak_bytes=whole_peak,
+                fwd_tflops=fwd_tf)
+
+
+def _fpdt_stream(torch, q, k, v, double_buffer):
+    """Every block of ``q``/``k``/``v`` through one
+    ``FPDTHostOffloadAttention`` in order (each attends the stored chunks
+    and itself, causally, then is stored): (attention, outputs, seconds,
+    each call's working set above what it started with)."""
+    from deepspeed_tpu_torch.sequence.fpdt_layer import \
+        FPDTHostOffloadAttention
+    ch = FPDT["chunk"]
+    attn = FPDTHostOffloadAttention(chunk_size=ch,
+                                    double_buffer=double_buffer)
+    outs, work = [], []
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for lo in range(0, q.shape[1], ch):
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        sl = slice(lo, lo + ch)
+        outs.append(attn.attend(q[:, sl], k[:, sl], v[:, sl]))
+        work.append(torch.cuda.max_memory_allocated() - before)
+    torch.cuda.synchronize()
+    return attn, outs, time.perf_counter() - t, work
+
+
+def _fpdt_case(torch, gen):
+    """(b): FPDT's host-streamed attention over 128K positions, and
+    ``chunked_attention`` at [1, 32768, 32, 128]."""
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    from deepspeed_tpu_torch.sequence.fpdt_layer import chunked_attention
+    with torch.no_grad():
+        B, H, D, ch, n = (FPDT[k] for k in ("B", "H", "D", "chunk",
+                                            "context"))
+        q, k, v = (torch.randn(B, n, H, D, device="cuda", generator=gen)
+                   .to(torch.bfloat16) for _ in range(3))
+        _fpdt_stream(torch, q[:, :2 * ch], k[:, :2 * ch], v[:, :2 * ch],
+                     True)                                    # warm-up
+        runs = {}
+        for db in (False, True):
+            counters = _zeroed(_flash_counters())
+            attn, outs, secs, work = _fpdt_stream(torch, q, k, v, db)
+            runs[db] = dict(launches=_counts(counters), seconds=secs,
+                            tokens_per_s=n / secs, work=work)
+        pinned = all(c.k.is_pinned() and c.v.is_pinned()
+                     for c in attn.chunks)
+        errs = _hold(torch, "fpdt stream", dict(
+            o=(torch.cat(outs, dim=1), fa.flash_attention(q, k, v))))
+        del attn, outs, q, k, v
+    _free(torch)
+    blocks = n // ch
+    want = {"fwd": blocks + blocks * (blocks - 1) // 2, "dq": 0, "dkv": 0}
+    pair = 2 * B * ch * H * D * 2          # one stored chunk's k and v
+    work = runs[True]["work"]
+    half = blocks // 2 - 1                 # the call that sees 64K
+    flat = work[-1] - work[half] <= pair
+    log(f"[long] (b) FPDT host streaming, B {B}, H {H}, D {D}, chunks of "
+        f"{ch}, {blocks} blocks to {n} positions, bf16: every stored chunk "
+        f"pinned {pinned} ({blocks} chunks) | "
+        f"vs B1 over all {n} positions: {_fmt_errs(errs)} | tokens/s "
+        f"double_buffer {runs[True]['tokens_per_s']:.1f}, without "
+        f"{runs[False]['tokens_per_s']:.1f} | B1 launches a stream "
+        f"{runs[True]['launches']} (want {want}) | a call's working set "
+        f"above its start: at 64K context {work[half] / 2**20:.1f} MiB, at "
+        f"128K {work[-1] / 2**20:.1f} MiB, flat within one chunk pair "
+        f"({pair / 2**20:.1f} MiB) {flat}")
+    for db, r in runs.items():
+        if r["launches"] != want:
+            raise AssertionError(f"fpdt (double_buffer {db}) launches "
+                                 f"{r['launches']}, want {want}")
+    if not pinned or not flat:
+        raise AssertionError(f"fpdt: chunks pinned {pinned}, working set "
+                             f"flat {flat} ({work})")
+    out = dict(launches=runs[True]["launches"], errs=errs,
+               tokens_per_s=runs[True]["tokens_per_s"],
+               tokens_per_s_no_double_buffer=runs[False]["tokens_per_s"],
+               work_bytes_64k=work[half], work_bytes_128k=work[-1],
+               pinned=pinned)
+    # chunked_attention, forward and backward
+    B, S, H, D, ch = (CHUNKED[k] for k in ("B", "S", "H", "D", "chunk"))
+    q, k, v, do = (torch.randn(B, S, H, D, device="cuda", generator=gen)
+                   .to(torch.bfloat16).requires_grad_(i < 3)
+                   for i in range(4))
+    chunked = lambda q, k, v: chunked_attention(  # noqa: E731
+        q, k, v, q_chunk=ch, kv_chunk=ch)
+    counters = _zeroed(_flash_counters())
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got, grads = _fwd_bwd(chunked, (q, k, v), do)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = _counts(counters)
+    ref, rgrads = _fwd_bwd(fa.flash_attention, (q, k, v), do)
+    cerrs = _hold(torch, "chunked_attention", dict(
+        o=(got, ref), **{f"d{n}": (g, r) for n, g, r in zip("qkv", grads,
+                                                             rgrads)}))
+    del got, grads, ref, rgrads
+    ms = cuda_ms(lambda: _fwd_bwd(chunked, (q, k, v), do), 2)
+    m = S // ch
+    pairs = m * (m + 1) // 2
+    cwant = {"fwd": 2 * pairs, "dq": pairs, "dkv": pairs}
+    log(f"[long] (b) chunked_attention [{B}, {S}, {H}, {D}] bf16, chunks "
+        f"of {ch}, causal, each q chunk under checkpoint: B1 launches "
+        f"{launches} (want {cwant}: the forward again in the backward) | "
+        f"vs B1 over the whole sequence: {_fmt_errs(cerrs)} | fwd+bwd "
+        f"{ms:.3f} ms | peak above the inputs {peak / 2**30:.3f} GiB")
+    if launches != cwant:
+        raise AssertionError(f"chunked launches {launches}, want {cwant}")
+    del q, k, v, do
+    _free(torch)
+    out["chunked"] = dict(launches=launches, errs=cerrs, ms=ms,
+                          peak_bytes=peak)
+    return out
+
+
+def _head_case(torch, gen):
+    """(c): the fused chunked head + loss against the full-logits loss."""
+    from deepspeed_tpu_torch.sequence.cross_entropy import (
+        fused_linear_cross_entropy, softmax_cross_entropy_with_logits)
+    N, D, V, ch = (HEAD[k] for k in ("N", "D", "V", "chunk"))
+    x = torch.randn(N, D, device="cuda", generator=gen).to(
+        torch.bfloat16).requires_grad_()
+    w = (0.02 * torch.randn(V, D, device="cuda", generator=gen)).to(
+        torch.bfloat16).requires_grad_()
+    labels = torch.randint(0, V, (N, ), device="cuda", generator=gen)
+    paths = {
+        "fused": lambda: fused_linear_cross_entropy(
+            x, w.t(), labels, ch, torch.bfloat16).mean(),
+        "full": lambda: softmax_cross_entropy_with_logits(
+            x @ w.t(), labels).mean()}
+    res = {}
+    for name, fn in paths.items():
+        _free(torch)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        loss = fn()
+        dx, dw = torch.autograd.grad(loss, (x, w))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        ms = cuda_ms(lambda: torch.autograd.grad(fn(), (x, w)), 3)
+        res[name] = dict(loss=loss.item(), dx=dx, dw=dw, peak_bytes=peak,
+                         ms=ms)
+    f, p = res["fused"], res["full"]
+    errs = _hold(torch, "fused head + loss", dict(dx=(f["dx"], p["dx"]),
+                                                  dw=(f["dw"], p["dw"])))
+    loss_rel = abs(f["loss"] - p["loss"]) / abs(p["loss"])
+    log(f"[long] (c) fused head + loss, N {N}, D {D}, V {V}, chunks of "
+        f"{ch}, bf16 products: loss {f['loss']:.6f} against the full "
+        f"logits' {p['loss']:.6f} (relative {loss_rel:.2e}) | "
+        f"{_fmt_errs(errs)} | fwd+bwd {f['ms']:.3f} ms against "
+        f"{p['ms']:.3f} | peak above the inputs {f['peak_bytes'] / 2**30:.3f}"
+        f" GiB against {p['peak_bytes'] / 2**30:.3f} (the fp32 logits alone "
+        f"{N * V * 4 / 2**30:.3f} GiB)")
+    if loss_rel > LONG_NORM_RTOL or not f["peak_bytes"] < p["peak_bytes"]:
+        raise AssertionError(f"fused loss {f['loss']} vs {p['loss']}, peaks "
+                             f"{f['peak_bytes']} vs {p['peak_bytes']}")
+    for r in res.values():
+        del r["dx"], r["dw"]
+    del x, w
+    _free(torch)
+    return dict(errs=errs, loss_rel=loss_rel, **res)
+
+
+def _long_train(torch, np, seed, train):
+    """(d): stage 8's model and batch with ``loss_chunk_vocab`` 4096, then
+    with ``remat_policy="dots_saveable"``."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import LlamaModel, llama_7b
+    B, S, L, steps = 4, 2048, 8, 4
+    runs = {}
+    for name, over in (("chunked_loss", dict(remat=False,
+                                              loss_chunk_vocab=4096)),
+                       ("dots_saveable", dict(remat=True,
+                                              remat_policy="dots_saveable"))):
+        cfg = llama_7b(num_hidden_layers=L, head_dtype="bfloat16", **over)
+        engine = deepspeed_tpu_torch.initialize(
+            model=LlamaModel(cfg, device="meta"),
+            config=dict(TRAIN_CONFIG))[0]
+        engine.initialize_parameters(seed)
+        ids = torch.from_numpy(np.random.default_rng(seed).integers(
+            0, cfg.vocab_size, size=(B, S))).cuda()
+        counters = _train_launches()
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        losses, times = [], []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss = engine(ids, ids)
+            engine.backward(loss)
+            engine.step()
+            losses.append(loss.item())
+            times.append(time.perf_counter() - t)
+        runs[name] = dict(losses=losses, step_ms=[t * 1e3 for t in times],
+                          launches={k: fn.launches
+                                    for k, fn in counters.items()},
+                          peak_bytes=torch.cuda.max_memory_allocated())
+        del engine
+        _free(torch)
+    ref = train["losses"][:steps]
+    want = {"flash_attention": L * steps, "flash_attention_bwd_dq": L * steps,
+            "flash_attention_bwd_dkv": L * steps, "fused_adam_step": steps}
+    for name, r in runs.items():
+        r["max_rel_loss_diff"] = max(abs(a - b) / abs(b)
+                                     for a, b in zip(r["losses"], ref))
+        log(f"[long] (d) stage 8's model and batch with {name}: losses "
+            + ", ".join(f"{x:.6f}" for x in r["losses"])
+            + f" | largest difference from stage 8's "
+            f"{max(abs(a - b) for a, b in zip(r['losses'], ref)):.3e} "
+            f"(relative {r['max_rel_loss_diff']:.3e}) | step ms "
+            + ", ".join(f"{t:.1f}" for t in r["step_ms"])
+            + f" | peak {r['peak_bytes'] / 2**30:.2f} GiB (stage 8 "
+            f"{train['peak_bytes'] / 2**30:.2f}) | launches {r['launches']}")
+        if r["launches"] != want:
+            raise AssertionError(f"{name} launches {r['launches']}, want "
+                                 f"{want}")
+    # bf16 training from sums in another order: within 2^-7 of the losses'
+    # scale (zero_multicard.py's gate), as they fall from 11 to 0.003
+    scale = max(abs(x) for x in ref)
+    chunked = runs["chunked_loss"]
+    chunked["max_abs_loss_diff"] = max(
+        abs(a - b) for a, b in zip(chunked["losses"], ref))
+    if chunked["max_abs_loss_diff"] > 2.0**-7 * scale:
+        raise AssertionError("the chunked loss left stage 8's losses")
+    if runs["dots_saveable"]["losses"] != ref:
+        raise AssertionError("dots_saveable's losses are not stage 8's")
+    return runs
+
+
+def _cpu_checkpointing(torch, gen):
+    """(d): a two-block user model (an input projection, two checkpointed
+    MLP blocks, an LM head and its loss) through ``deepspeed_tpu_torch.
+    checkpointing.checkpoint``, plain and with ``cpu_checkpointing``: the
+    blocks' saved inputs are what the host takes off the card while the
+    head runs."""
+    import torch.nn.functional as F
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.sequence.cross_entropy import \
+        softmax_cross_entropy_with_logits
+    ac = deepspeed_tpu_torch.checkpointing
+    B, S, D, I, V = (USER_CKPT[k] for k in ("B", "S", "D", "I", "V"))
+    inp = torch.randn(B, S, D, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    labels = torch.randint(0, V, (B, S), device="cuda", generator=gen)
+    ws = [(torch.randn(*shape, device="cuda", generator=gen) / shape[0]
+           ** 0.5).to(torch.bfloat16).requires_grad_()
+          for shape in ((D, D), (D, I), (I, D), (D, I), (I, D), (D, V))]
+
+    def block(h, w1, w2):
+        return h + F.silu(h @ w1) @ w2
+
+    def run(cpu):
+        ac.reset()
+        if cpu:
+            ac.configure(checkpoint_in_cpu=True)
+        _free(torch)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        h = ac.checkpoint(block, inp @ ws[0], ws[1], ws[2])
+        h = ac.checkpoint(block, h, ws[3], ws[4])
+        loss = softmax_cross_entropy_with_logits(h @ ws[5], labels).mean()
+        del h
+        grads = torch.autograd.grad(loss, ws)
+        torch.cuda.synchronize()
+        return loss.item(), grads, torch.cuda.max_memory_allocated() - base
+
+    plain, host = run(False), run(True)
+    ac.reset()
+    equal = plain[0] == host[0] and all(
+        torch.equal(a, b) for a, b in zip(plain[1], host[1]))
+    log(f"[long] (d) two blocks of [{B}, {S}, {D}] bf16 (MLP {I}, head "
+        f"{V}) through checkpointing.checkpoint: gradients with "
+        f"cpu_checkpointing "
+        f"bit-equal to the plain checkpoint's {equal} | peak above the "
+        f"inputs {host[2] / 2**30:.3f} GiB against {plain[2] / 2**30:.3f}")
+    if not equal or not host[2] < plain[2]:
+        raise AssertionError(f"cpu_checkpointing: equal {equal}, peaks "
+                             f"{host[2]} vs {plain[2]}")
+    del inp, ws, labels
+    _free(torch)
+    return dict(equal=equal, peak_bytes=host[2], plain_peak_bytes=plain[2])
+
+
+def stage_long_context(seed, smi, train):
+    import numpy as np
+    import torch
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 34)
+    out = dict(ring=[_ring_case(torch, gen, Hkv) for Hkv in (32, 8)])
+    out["fpdt"] = _fpdt_case(torch, gen)
+    out["head"] = _head_case(torch, gen)
+    out["train"] = _long_train(torch, np, seed, train)
+    out["cpu_checkpointing"] = _cpu_checkpointing(torch, gen)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[long] stage 34 took {out['seconds']:.1f} s | {smi}")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6547,6 +7015,7 @@ def main():
     moe_train = stage_moe_train(args.seed, smi)
     pipe_zero = stage_pipeline_zero(args.seed, smi)
     tp = stage_tp(args.seed, smi, train, serve)
+    long_ctx = stage_long_context(args.seed, smi, train)
 
     entries = []
     for wrapper, case in (("paged_attention", "serve_decode"),
@@ -6927,6 +7396,38 @@ def main():
         elif e["name"] == "fused_adam_step":
             e["launches_tp1_train"] = tp["train"]["launches"][
                 "fused_adam_step"]
+    # stage 34: B1 under the ring of four on one card (both cases), the
+    # FPDT stream (double-buffered), chunked_attention, and B1 and B2 in
+    # the two training runs (d), each counted from 0 around its run
+    ring_n = [r["launches"] for r in long_ctx["ring"]]
+    fpdt_n, chunk_n = (long_ctx["fpdt"]["launches"],
+                       long_ctx["fpdt"]["chunked"]["launches"])
+    lt = [r["launches"] for r in long_ctx["train"].values()]
+    ring_ms = long_ctx["ring"][0]["ms"]
+    for e in entries:
+        if e["name"] == "flash_attention":
+            e.update(launches_ring=sum(c["fwd"] for c in ring_n),
+                     launches_fpdt=fpdt_n["fwd"],
+                     launches_chunked=chunk_n["fwd"],
+                     launches_long_context_train=sum(
+                         c["flash_attention"] for c in lt),
+                     ms_ring_32k=ring_ms["ring_fwd"],
+                     ms_whole_32k=ring_ms["whole_fwd"],
+                     library_ms_32k=ring_ms["sdpa_fwd"])
+        elif e["name"] == "flash_attention_bwd":
+            e.update(launches_ring=sum(c["dq"] + c["dkv"] for c in ring_n),
+                     launches_fpdt=fpdt_n["dq"] + fpdt_n["dkv"],
+                     launches_chunked=chunk_n["dq"] + chunk_n["dkv"],
+                     launches_long_context_train=sum(
+                         c["flash_attention_bwd_dq"] +
+                         c["flash_attention_bwd_dkv"] for c in lt),
+                     ms_ring_32k=ring_ms["ring_fwd_bwd"] - ring_ms[
+                         "ring_fwd"],
+                     ms_whole_32k=ring_ms["whole_fwd_bwd"] - ring_ms[
+                         "whole_fwd"])
+        elif e["name"] == "fused_adam_step":
+            e["launches_long_context_train"] = sum(c["fused_adam_step"]
+                                                   for c in lt)
     llama_zero3.pop("batches")
     if args.json:
         with open(args.json, "w") as f:
@@ -6947,7 +7448,7 @@ def main():
                            zeropp=zeropp, pipeline=pipe,
                            universal_onebit=uni_onebit,
                            moe_train=moe_train, pipeline_zero=pipe_zero,
-                           tp=tp,
+                           tp=tp, long_context=long_ctx,
                            seconds=time.perf_counter() - t_start),
                       f, indent=1, default=str)
     from deepspeed_tpu_torch import comm

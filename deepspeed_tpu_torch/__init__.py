@@ -104,3 +104,13 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                  distributed_port=distributed_port, **kw)
     return (engine, engine.optimizer, engine.training_dataloader,
             engine.lr_scheduler)
+
+
+def __getattr__(name):
+    # ``deepspeed_tpu_torch.checkpointing``: the activation-checkpointing
+    # module, as reference ``deepspeed.checkpointing`` (JAX
+    # __init__.py:212-215); imported on first use
+    if name == "checkpointing":
+        from .runtime.activation_checkpointing import checkpointing
+        return checkpointing
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -10,9 +10,9 @@ inside ``shard_map``, where autodiff transposes them.  Here a group is a
   backward is the inverse all-to-all (split along the gathered dim,
   concatenated along the scattered one);
 * :func:`send_next_recv_prev` / :func:`send_prev_recv_next`: a ring shift
-  along the group (JAX's ``ppermute`` of the pipeline), one batched
-  exchange of a send and a receive so that neither side can block the
-  other;
+  along the group (JAX's ``ppermute`` of the pipeline and of ring
+  attention), one batched exchange of the sends and receives so that
+  neither side can block the other;
 * :func:`psum`, :func:`pmean`, :func:`pmax`, :func:`pmin`,
   :func:`all_gather` and :func:`reduce_scatter`: JAX's ``lax`` collectives
   with the gradients JAX's transposes give them (a psum's cotangent is
@@ -68,23 +68,30 @@ def all_to_all(x, group, scatter_idx, gather_idx):
 
 
 def _shift(x, group, step):
+    many = isinstance(x, (list, tuple))
+    xs = list(x) if many else [x]
     n = group.size()
     if n == 1:
-        return x
+        return xs if many else x
     me = group.rank()
     peer = lambda r: comm.get_global_rank(group, r % n)  # noqa: E731
-    out = torch.empty_like(x)
-    ops = [tdist.P2POp(tdist.isend, x.contiguous(), peer(me + step),
-                       group=group.pg),
-           tdist.P2POp(tdist.irecv, out, peer(me - step), group=group.pg)]
+    outs = [torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in xs]
+    ops = []
+    for t, out in zip(xs, outs):
+        ops += [tdist.P2POp(tdist.isend, t.contiguous(), peer(me + step),
+                            group=group.pg),
+                tdist.P2POp(tdist.irecv, out, peer(me - step),
+                            group=group.pg)]
     for work in tdist.batch_isend_irecv(ops):
         work.wait()
-    return out
+    return outs if many else outs[0]
 
 
 def send_next_recv_prev(x, group):
     """Group rank i sends ``x`` to rank i + 1 and returns what rank i − 1
-    sent (a ring: ``ppermute`` with ``(i, (i + 1) % n)``)."""
+    sent (a ring: ``ppermute`` with ``(i, (i + 1) % n)``).  ``x`` may be a
+    list of tensors: all of them go in one batched exchange, and the list
+    of what arrived comes back."""
     return _shift(x, group, 1)
 
 

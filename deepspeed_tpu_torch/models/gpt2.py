@@ -39,7 +39,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attention_core
 from ..utils.not_ported import not_ported
-from .llama import lm_loss, sequence_chunk, torch_dtype
+from .llama import lm_loss, lm_loss_chunked, sequence_chunk, torch_dtype
 
 
 @dataclass(frozen=True)
@@ -51,14 +51,22 @@ class GPT2Config:
     max_position_embeddings: int = 1024
     layer_norm_epsilon: float = 1e-5
     dtype: str = "bfloat16"
-    # > 0 → fused chunked head + loss (not ported: ROADMAP queue A item 3)
+    # > 0 → fused chunked head + loss over vocabulary chunks of this size
+    # (sequence/cross_entropy.py), in fp32 as JAX's
     loss_chunk_vocab: int = 0
     # training: recompute each block in the backward (torch.utils.checkpoint)
     remat: bool = True
-    # Ulysses sequence parallelism over the mesh's sp group;
-    # sp_backend "ring" (ring attention) is ROADMAP queue A item 9b
+    # Ulysses sequence parallelism over the mesh's sp group
     use_ulysses: bool = False
     sp_backend: str = "ulysses"
+
+    def __post_init__(self):
+        if self.sp_backend != "ulysses":
+            # JAX's GPT2Config has no sp_backend: Ulysses is GPT-2's only
+            # sequence-parallel backend there
+            raise ValueError(f"GPT-2 runs sequence parallelism with Ulysses "
+                             f"only (sp_backend {self.sp_backend!r}); ring "
+                             f"attention is a Llama-family backend")
 
     @property
     def head_dim(self):
@@ -276,9 +284,6 @@ class GPT2Model(nn.Module):
         if decode:
             raise not_ported("GPT2Model(decode=True) (the KV-cache decode "
                              "path, models/cache.py)", 11)
-        if cfg.loss_chunk_vocab and labels is not None:
-            raise not_ported("GPT2Config.loss_chunk_vocab > 0 "
-                             "(fused_linear_cross_entropy)", 3)
         sp_group, offset = sequence_chunk(cfg, input_ids.shape[1])
         dt = torch_dtype(cfg.dtype)
         ids = input_ids.long()
@@ -295,6 +300,12 @@ class GPT2Model(nn.Module):
             else:
                 x = block(x, use_kernel)
         x = self.ln_f(x, dt)
+        if cfg.loss_chunk_vocab and labels is not None:
+            # JAX gpt2.py:118-122: x and the tied kernel in fp32
+            return lm_loss_chunked(x.float(), self.wte.embedding.float().t(),
+                                   labels, attention_mask,
+                                   cfg.loss_chunk_vocab, torch.float32,
+                                   loss_reduction, sp_group)
         logits = F.linear(x, wte)                 # tied head, in dtype
         if labels is None:
             return logits

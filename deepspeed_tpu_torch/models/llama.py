@@ -21,8 +21,12 @@ Two paths use it:
 With ``use_ulysses`` (``llama.py:73-74``, ``:259-275``) the forward takes
 the rank's chunk of the sequence (``engine.shard_batch`` cuts it): RoPE
 runs at the chunk's global positions, attention is
-``sequence/layer.py:DistributedAttention`` over the sp group (kv at its
-own width), and the next-token loss is the global one (:func:`lm_loss`).
+``sequence/layer.py:DistributedAttention`` over the sp group, or with
+``sp_backend="ring"`` ``sequence/ring_attention.py:RingAttention`` (kv at
+its own width either way), and the next-token loss is the global one
+(:func:`lm_loss`).  ``loss_chunk_vocab`` takes the loss through the fused
+chunked head + loss (:func:`lm_loss_chunked`); ``remat_policy`` is a name
+of ``runtime/activation_checkpointing``'s table.
 """
 
 import functools
@@ -32,7 +36,6 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from ..accelerator import full_fp32_matmul
 from ..comm.functional import copy_to_tp_region, reduce_from_tp_region
@@ -40,12 +43,11 @@ from ..module_inject.auto_tp import Spec, tp_local
 from ..module_inject.layers import (attention_heads, gather_logits,
                                     kv_weights, tp_embedding, tp_group_of)
 from ..ops.attention import attention_core
-from ..sequence.cross_entropy import softmax_cross_entropy_with_logits
+from ..runtime.activation_checkpointing.checkpointing import (policy_ops,
+                                                              remat)
+from ..sequence.cross_entropy import (fused_linear_cross_entropy,
+                                      softmax_cross_entropy_with_logits)
 from ..utils.not_ported import not_ported
-
-# jax.checkpoint_policies that save nothing: the JAX model reads the policy
-# with getattr(..., None), and a None policy saves nothing too
-_FULL_REMAT_POLICIES = ("nothing_saveable", "none")
 
 
 @dataclass(frozen=True)
@@ -72,13 +74,15 @@ class LlamaConfig:
     # training: the LM head's matmul dtype ("bfloat16" runs it on the fast
     # path; cross entropy is fp32 either way)
     head_dtype: str = "float32"
-    # > 0 → fused chunked head + loss (not ported: ROADMAP queue A item 3)
+    # > 0 → fused chunked head + loss over vocabulary chunks of this size
+    # (sequence/cross_entropy.py): no [B, S, V] logits
     loss_chunk_vocab: int = 0
-    # training: recompute each block in the backward (torch.utils.checkpoint)
+    # training: recompute each block in the backward, under a policy of
+    # runtime/activation_checkpointing's table (JAX's names)
     remat: bool = True
     remat_policy: str = "nothing_saveable"
-    # Ulysses sequence parallelism over the mesh's sp group;
-    # sp_backend "ring" (ring attention) is ROADMAP queue A item 9b
+    # sequence parallelism over the mesh's sp group: sp_backend "ulysses"
+    # (all-to-all) or "ring" (ring attention)
     use_ulysses: bool = False
     sp_backend: str = "ulysses"
 
@@ -208,15 +212,41 @@ def lm_loss(logits, labels, attention_mask=None, loss_reduction="mean",
     mask gathered over the group, a few bytes a token), the global last
     position masked; "mean" is then the global mean, whose gradient is this
     chunk's share of it (summed over the group, the global gradient)."""
+    return _shifted_loss(
+        lambda rows, tgt: softmax_cross_entropy_with_logits(logits[:, rows],
+                                                            tgt),
+        labels.to(logits.device), attention_mask, loss_reduction, sp_group)
+
+
+def lm_loss_chunked(x, w, labels, attention_mask, chunk, logit_dtype,
+                    loss_reduction="mean", sp_group=None):
+    """:func:`lm_loss` through the fused chunked head + loss (``llama.py:189
+    _lm_loss_chunked``): x [B, S, D] final hidden states, w [D, V] head
+    kernel; no [B, S, V] logits.  Under sp the targets and weights are
+    :func:`lm_loss`'s (the global shift), not a local ``[:, :-1]``."""
+
+    def token_loss(rows, tgt):
+        xs = x[:, rows]
+        B, n, D = xs.shape
+        return fused_linear_cross_entropy(
+            xs.reshape(B * n, D), w, tgt.reshape(B * n), chunk,
+            logit_dtype).view(B, n)
+
+    return _shifted_loss(token_loss, labels.to(x.device), attention_mask,
+                         loss_reduction, sp_group)
+
+
+def _shifted_loss(token_loss, labels, attention_mask, loss_reduction,
+                  sp_group):
+    """The next-token loss of :func:`lm_loss`; ``token_loss(rows, targets)``
+    gives the fp32 per-token loss of the positions ``rows`` (a slice)."""
     sp = sp_group is not None and sp_group.size() > 1
     if sp:
-        logits, labels, m = _sp_targets(logits, labels, attention_mask,
-                                        sp_group)
-        loss = softmax_cross_entropy_with_logits(logits, labels)
+        labels, m = _sp_targets(labels, attention_mask, sp_group)
+        loss = token_loss(slice(None), labels)
         total, count = (loss * m).sum(), m.sum()
     else:
-        loss = softmax_cross_entropy_with_logits(logits[:, :-1],
-                                                 labels[:, 1:])
+        loss = token_loss(slice(None, -1), labels[:, 1:])
         if attention_mask is not None:
             m = attention_mask[:, 1:].float()
             total, count = (loss * m).sum(), m.sum()
@@ -241,11 +271,10 @@ def lm_loss(logits, labels, attention_mask=None, loss_reduction="mean",
     return loss.mean()
 
 
-def _sp_targets(logits, labels, attention_mask, group):
-    """(logits, the chunk's targets, its fp32 weights) for the rank's
-    sequence chunk: the global ``labels[:, 1:]`` and mask ``[:, 1:]``
-    (ones without a mask) padded by one masked position and cut at the
-    chunk."""
+def _sp_targets(labels, attention_mask, group):
+    """(the chunk's targets, its fp32 weights) for the rank's sequence
+    chunk: the global ``labels[:, 1:]`` and mask ``[:, 1:]`` (ones without
+    a mask) padded by one masked position and cut at the chunk."""
     from .. import comm as dist
     c, q = labels.shape[1], group.rank()
     group = group.as_flat()    # plain gathers, never a quantized wire
@@ -255,18 +284,16 @@ def _sp_targets(logits, labels, attention_mask, group):
                               group=group, axis=1))
     tgt = F.pad(full[:, 1:], (0, 1))[:, q * c:(q + 1) * c]
     m = F.pad(m[:, 1:], (0, 1))[:, q * c:(q + 1) * c]
-    return logits, tgt.to(logits.device), m.to(logits.device)
+    return tgt.to(labels.device), m.to(labels.device)
 
 
 def sequence_chunk(cfg, chunk_len):
     """(sp group, the chunk's first global position) of a model config:
-    (None, 0) without ``use_ulysses``.  ``sp_backend="ring"`` raises."""
+    (None, 0) without ``use_ulysses``.  Both backends split the sequence
+    the same way; they differ in the attention only."""
     if not cfg.use_ulysses:
         return None, 0
-    if cfg.sp_backend == "ring":
-        raise not_ported("sp_backend='ring' (ring attention, "
-                         "sequence/ring_attention.py)", "9b")
-    if cfg.sp_backend != "ulysses":
+    if cfg.sp_backend not in ("ulysses", "ring"):
         raise ValueError(f"sp_backend {cfg.sp_backend!r}: 'ulysses' or "
                          "'ring'")
     from ..utils import groups
@@ -350,8 +377,9 @@ class LlamaAttention(nn.Module):
     def forward(self, x, cos, sin, use_kernel=True):
         """x: [B, S, D] → [B, S, D]; causal (and windowed) self-attention.
         GQA repeats the kv heads up to H first (``llama.py:279-282``);
-        under Ulysses kv goes to ``DistributedAttention`` at its own width
-        (cos/sin then start at the chunk's first position).  Under tensor
+        under Ulysses kv goes to ``DistributedAttention`` at its own width,
+        under the ring to ``RingAttention`` (cos/sin then start at the
+        chunk's first position).  Under tensor
         parallelism (``module_inject``) the heads are this rank's, read
         from the weights (``attention_heads``), x enters the tp region once
         for q, k and v, and o_proj's partial sums are reduced."""
@@ -367,7 +395,13 @@ class LlamaAttention(nn.Module):
             self.k_proj, rows, group)).view(B, S, Hkv, Dh), cos, sin)
         v = _dense(x, self.v_proj, dt, kv_weights(
             self.v_proj, rows, group)).view(B, S, Hkv, Dh)
-        if cfg.use_ulysses:
+        if cfg.use_ulysses and cfg.sp_backend == "ring":
+            # k/v circulate at their own width (JAX llama.py:259-268)
+            from ..sequence.ring_attention import RingAttention
+            out = RingAttention()(q, k, v, causal=True,
+                                  window=cfg.sliding_window,
+                                  use_kernel=use_kernel)
+        elif cfg.use_ulysses:
             from ..sequence.layer import DistributedAttention
             out = DistributedAttention()(q, k, v, causal=True,
                                          window=cfg.sliding_window,
@@ -465,27 +499,26 @@ class LlamaModel(nn.Module):
         docstring)."""
         cfg = self.config
         dt = torch_dtype(cfg.dtype)
-        if cfg.loss_chunk_vocab and labels is not None:
-            raise not_ported("LlamaConfig.loss_chunk_vocab > 0 "
-                             "(fused_linear_cross_entropy)", 3)
         sp_group, offset = sequence_chunk(cfg, input_ids.shape[1])
-        remat = cfg.remat and torch.is_grad_enabled()
-        if remat and cfg.remat_policy not in _FULL_REMAT_POLICIES:
-            raise not_ported(f"remat_policy {cfg.remat_policy!r}", 3)
+        remat_on = cfg.remat and torch.is_grad_enabled()
+        if remat_on:
+            policy_ops(cfg.remat_policy)      # an unknown name raises
         body = self.model
         x = tp_embedding(body.embed_tokens, input_ids, dt)
         cos, sin = rope_tables(cfg.head_dim, cfg.max_position_embeddings,
                                cfg.rope_theta, cfg.rope_scaling, x.device)
         cos, sin = cos[offset:], sin[offset:]
         for layer in body.layers:
-            if remat:
-                x = checkpoint(layer, x, cos, sin, use_kernel,
-                               use_reentrant=False)
+            if remat_on:
+                x = remat(layer, cfg.remat_policy)(x, cos, sin, use_kernel)
             else:
                 x = layer(x, cos, sin, use_kernel)
         x = body.norm(x, dt)
         hd = torch_dtype(cfg.head_dtype)
         head = body.embed_tokens if cfg.tie_word_embeddings else self.lm_head
+        if cfg.loss_chunk_vocab and labels is not None:
+            return self._chunked_loss(x, head, labels, attention_mask, hd,
+                                      loss_reduction, sp_group)
         x = copy_to_tp_region(x, tp_group_of(head))
         if cfg.tie_word_embeddings:
             # flax Embed.attend promotes both sides to the model dtype
@@ -499,6 +532,19 @@ class LlamaModel(nn.Module):
             return logits
         return lm_loss(logits, labels.to(logits.device), attention_mask,
                        loss_reduction, sp_group)
+
+    def _chunked_loss(self, x, head, labels, attention_mask, hd,
+                      loss_reduction, sp_group):
+        """The loss through the fused chunked head + loss (JAX
+        ``llama.py:343-358``): the head's weight (the embedding when tied)
+        as the [D, V] kernel, products in the head dtype."""
+        group = tp_group_of(head)
+        if group is not None and group.size() > 1:
+            raise not_ported("loss_chunk_vocab with a vocabulary-sharded "
+                             "head (tensor parallelism)", "9b")
+        return lm_loss_chunked(x, head.weight.t(), labels, attention_mask,
+                               self.config.loss_chunk_vocab, hd,
+                               loss_reduction, sp_group)
 
     def streaming_parts(self):
         """ZeRO-Infinity's view of the model (``runtime/zero/infinity.py``;

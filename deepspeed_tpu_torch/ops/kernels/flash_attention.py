@@ -25,6 +25,8 @@ raises.  ``flash_attention_fwd.launches``, ``flash_attention_bwd_dq.launches``
 and ``flash_attention_bwd_dkv.launches`` count kernel launches.
 """
 
+from typing import Optional, Tuple
+
 import torch
 
 from ..op_builder import FlashAttentionBuilder
@@ -355,6 +357,28 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale, causal=True,
 flash_attention_bwd_dkv.launches = 0
 
 
+@torch.library.custom_op("deepspeed_tpu_torch::flash_attention_fwd",
+                         mutates_args=())
+def flash_forward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     slopes: Optional[torch.Tensor], causal: bool,
+                     scale: float, window: int,
+                     use_kernel: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel (or, ``use_kernel=False``, its plain version) as
+    one dispatcher op: (o, lse).  A selective activation-checkpointing
+    policy sees it as one op and can keep its outputs
+    (``runtime/activation_checkpointing``)."""
+    fwd = flash_attention_fwd if use_kernel else _plain_fwd
+    o, lse = fwd(q, k, v, scale, causal, window, slopes)
+    return o.contiguous(), lse
+
+
+@flash_forward_op.register_fake
+def _(q, k, v, slopes, causal, scale, window, use_kernel):
+    return (torch.empty_like(q),
+            q.new_empty((q.shape[0], q.shape[2], q.shape[1]),
+                        dtype=torch.float32))
+
+
 class FlashAttentionFunction(torch.autograd.Function):
     """The port of ``_flash``'s custom VJP: the forward kernel, then the dq
     and dk/dv kernels by recomputation from the saved fp32 lse — or, with
@@ -362,8 +386,8 @@ class FlashAttentionFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, slopes, causal, scale, window, use_kernel):
-        fwd = flash_attention_fwd if use_kernel else _plain_fwd
-        o, lse = fwd(q, k, v, scale, causal, window, slopes)
+        o, lse = flash_forward_op(q, k, v, slopes, causal, scale, window,
+                                  use_kernel)
         ctx.save_for_backward(q, k, v, o, lse, slopes)
         ctx.cfg = (scale, causal, window, use_kernel)
         return o

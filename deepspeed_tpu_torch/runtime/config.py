@@ -133,6 +133,18 @@ class PipelineConfig(DeepSpeedConfigModel):
     schedule: str = "1f1b"
 
 
+class ActivationCheckpointingConfig(DeepSpeedConfigModel):
+    """The ``activation_checkpointing`` block (JAX ``config.py:304``);
+    ``runtime/activation_checkpointing/checkpointing.py:configure`` reads
+    it."""
+    partition_activations: bool = False
+    contiguous_memory_optimization: bool = False
+    cpu_checkpointing: bool = False
+    number_checkpoints: object = None
+    synchronize_checkpoint_boundary: bool = False
+    profile: bool = False
+
+
 class CommsLoggerConfig(DeepSpeedConfigModel):
     """The ``comms_logger`` block (``config.py:63``)."""
     enabled: bool = False
@@ -346,10 +358,6 @@ _UNPORTED = (
     ("moe.gating_seed (noisy-gate rngs threaded by the engine)", "8b",
      lambda pd: (pd.get("moe") or {}).get("gating_seed") is not None),
     ("domino", "9b", lambda pd: _on(pd.get("domino"), "enabled")),
-    ("activation_checkpointing (partitioned/CPU/contiguous)", "9b",
-     lambda pd: _on(pd.get("activation_checkpointing"),
-                    "partition_activations", "cpu_checkpointing",
-                    "contiguous_memory_optimization", "number_checkpoints")),
     ("resilience.watchdog", 12,
      lambda pd: _on((pd.get("resilience") or {}).get("watchdog"),
                     "enabled")),
@@ -455,6 +463,8 @@ class DeepSpeedConfig:
                 f"{pd.get('sequence_parallel_size')} disagree")
         self.mesh_sp = sps.pop() if sps else 1
         self.pipeline_config = PipelineConfig(**pd.get("pipeline", {}) or {})
+        self.activation_checkpointing_config = ActivationCheckpointingConfig(
+            **pd.get("activation_checkpointing", {}) or {})
         stages = self.pipeline_config.stages
         self.mesh_pp = int(mesh.get("pp") or 1)
         if isinstance(stages, int) and stages > 1:

@@ -293,6 +293,12 @@ class DeepSpeedEngine(OffloadMixin):
             "loss_reduction" in inspect.signature(model.forward).parameters
         self.timers = (SynchronizedWallClockTimer(accelerator_for(
             self.device)) if config.wall_clock_breakdown else NoopTimer())
+        ac = config.activation_checkpointing_config
+        if (ac.partition_activations or ac.cpu_checkpointing or
+                ac.contiguous_memory_optimization or ac.number_checkpoints):
+            # JAX engine.py:335-339: what checkpointing.checkpoint runs
+            from .activation_checkpointing import configure
+            configure(deepspeed_config=config)
 
         self.params = None        # flat, compute dtype; module params view it
         self._pshard = None       # bucketed stage 2: the update's output

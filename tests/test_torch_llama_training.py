@@ -387,7 +387,7 @@ REFUSED = [
     ({"moe": {"enabled": True, "quantized_dispatch": True,
               "intra_node_size": 2}}, "8b"),
     ({"domino": {"enabled": True}}, "9b"),
-    ({"activation_checkpointing": {"partition_activations": True}}, "9b"),
+    ({"moe": {"gating_seed": 7}}, "8b"),
     ({"optimizer": {"type": "adagrad"}}, 11),
     ({"resilience": {"watchdog": {"enabled": True}}}, 12),
     ({"telemetry": {"enabled": True}}, 12),
@@ -524,14 +524,16 @@ def test_inert_keys_parse():
 
 
 def test_unported_model_and_engine_options_raise():
-    _, pcfg = _configs(dtype="float32", loss_chunk_vocab=64)
+    """``loss_chunk_vocab`` and every remat policy of the table run
+    (tests/test_torch_fused_ce.py, tests/test_torch_activation_
+    checkpointing.py); a remat policy name outside the table (one of
+    ``jax.checkpoint_policies``' factories too) raises; the engine's
+    ``train_batch`` and dataloader stay refused."""
     ids = torch.zeros(1, SEQ, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        port_llama.LlamaModel(pcfg, device="cpu")(ids, ids)
-    _, pcfg = _configs(dtype="float32", remat=True,
-                       remat_policy="dots_saveable")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        port_llama.LlamaModel(pcfg, device="cpu")(ids, ids)
+    for name in ("no_such_policy", "save_only_these_names"):
+        _, pcfg = _configs(dtype="float32", remat=True, remat_policy=name)
+        with pytest.raises(ValueError, match="remat policy"):
+            port_llama.LlamaModel(pcfg, device="cpu")(ids, ids)
     _, pcfg = _configs(dtype="float32")
     eng, *_ = deepspeed_tpu_torch.initialize(
         model=port_llama.LlamaModel(pcfg, device="cpu"),

@@ -452,13 +452,16 @@ def test_mixtral_refusals():
     with pytest.raises(NotImplementedError, match="S5"):
         port_mixtral.MixtralModel(port_mixtral.MixtralConfig(
             **{**cfg.__dict__, "shared_expert_intermediate_size": 32}))
-    model = port_mixtral.MixtralModel(port_mixtral.MixtralConfig(
-        **{**cfg.__dict__, "loss_chunk_vocab": 64}))
-    ids = torch.zeros(1, 4, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        model(ids, ids)
     state = port_mixtral.params_from_flax(
         _flax_tree(jax_mixtral.mixtral_tiny(dtype="float32"), 0), cfg)
+    # loss_chunk_vocab runs through Llama's forward: the fused chunked
+    # loss equals the full-logits one (fp32, 1e-5)
+    ids = torch.arange(12).view(2, 6) % cfg.vocab_size
+    losses = [port_mixtral.MixtralModel(port_mixtral.MixtralConfig(
+        **{**cfg.__dict__, "loss_chunk_vocab": chunk}), device="meta")
+        .load_weights(list(state.items()), device="cpu")(ids, ids).item()
+        for chunk in (0, 64)]
+    assert losses[1] == pytest.approx(losses[0], rel=1e-5)
     stack = state.pop("model.layers.0.block_sparse_moe.w1")
     slices = [(f"model.layers.0.block_sparse_moe.w1.{e}", stack[e])
               for e in range(3)]             # expert 3 never arrives

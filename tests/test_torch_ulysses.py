@@ -19,7 +19,8 @@ on the 8-device CPU mesh, fp32, inputs and weights from numpy seeds.
   gradient is 0 up to rounding, left out).  The shifted loss crosses the
   ranks' chunks; RoPE and ``wpe`` run at the chunks' global positions;
 * the config keys and refusals: ``sequence_parallel_size``/``mesh.sp``/
-  ``mesh_param`` parse, ring attention raises item 9b.
+  ``mesh_param`` parse; GPT-2 has no ring backend, and the ring refuses a
+  sliding window.
 
 Every multi-process leg runs in ONE spawn of the two processes.
 """
@@ -219,10 +220,17 @@ def test_invalid_gqa_ratio_raises():
 
 
 def test_ring_backend_names_its_item():
-    model = port_gpt2.GPT2Model(port_gpt2.gpt2_tiny(
-        dtype="float32", use_ulysses=True, sp_backend="ring"))
+    """The ring backend is Llama's (tests/test_torch_ring_attention.py):
+    GPT-2 has Ulysses only, as in JAX, and the ring refuses a sliding
+    window with JAX's NotImplementedError."""
+    with pytest.raises(ValueError, match="Ulysses only"):
+        port_gpt2.gpt2_tiny(dtype="float32", use_ulysses=True,
+                            sp_backend="ring")
+    model = port_llama.LlamaModel(port_llama.llama_tiny(
+        dtype="float32", use_ulysses=True, sp_backend="ring",
+        sliding_window=4), device="cpu")
     ids = torch.zeros(1, 8, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="9b"):
+    with pytest.raises(NotImplementedError, match="sliding_window"):
         model(ids, ids)
 
 

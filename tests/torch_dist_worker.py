@@ -77,6 +77,15 @@ Leg kinds:
   greedy tokens of ``generate`` (with its decode bursts), of a
   ``put``/``query``/``flush`` loop and of ``burst_decode``, the KV cache's
   shape and the local weight shapes;
+* ``ring_attn``: ring attention (``sequence/ring_attention.py``) over an
+  sp group of the leg's size on rank r's sequence block: the output block
+  and the gradients of ``sum(out ** 2)``; rank 0 also the one-device ring
+  over the whole inputs;
+* ``fpdt_attn``: ``FPDT_Attention`` over an sp group of the world, as
+  ``ulysses``;
+* ``ac_partition``: ``partition_activations`` over a tp group of the
+  world: a two-block model's loss and gradients with the flag on and off,
+  and one saved activation's packed slice and unpacked whole;
 * ``stream``: ZeRO-Infinity parameter streaming (``InfinityEngine``) from
   the leg's flax tree, or from the tag at ``load`` (the universal
   directory at ``universal``): each batch's loss, then the whole fp32
@@ -864,6 +873,94 @@ def run_ring(leg, rank, world):
                 prev=functional.send_prev_recv_next(x, group).numpy())
 
 
+def _qkv_grads(q, k, v, out):
+    (out ** 2).sum().backward()
+    return dict(out=out.detach().numpy(), dq=q.grad.numpy(),
+                dk=k.grad.numpy(), dv=v.grad.numpy())
+
+
+def _leaves(leg, names, rank, sp):
+    import torch
+    return [torch.from_numpy(_block(leg[x], 1, rank, sp)).requires_grad_()
+            for x in names]
+
+
+def run_ring_attn(leg, rank, world):
+    """Ring attention over an sp group of ``leg["sp"]`` ranks (the mesh's sp
+    axis; dp the rest): this rank's sequence block of q, k, v, its output
+    block and the gradients of ``sum(out ** 2)``; rank 0 also runs the
+    one-device ring of the same sp over the whole inputs
+    (``ring_attention_blocks``, the exchange replaced by indexing)."""
+    import torch
+    from deepspeed_tpu_torch.sequence import ring_attention as ra
+    from deepspeed_tpu_torch.utils import groups
+    sp = leg["sp"]
+    groups.initialize_mesh(sp=sp)
+    try:
+        group = groups._get_sequence_parallel_group()
+        q, k, v = _leaves(leg, "qkv", group.rank(), sp)
+        got = _qkv_grads(q, k, v, ra.ring_attention_local(
+            q, k, v, group, causal=leg["causal"]))
+        if rank == 0:
+            q, k, v = _leaves(leg, "qkv", 0, 1)
+            got["one_device"] = _qkv_grads(q, k, v, ra.ring_attention_blocks(
+                q, k, v, sp, causal=leg["causal"]))
+        return got
+    finally:
+        groups.reset_mesh()
+
+
+def run_fpdt_attn(leg, rank, world):
+    """``FPDT_Attention`` (Ulysses + chunked local attention) over an sp
+    group of the whole world: this rank's output block and the gradients
+    of ``sum(out ** 2)``."""
+    from deepspeed_tpu_torch.sequence.fpdt_layer import FPDT_Attention
+    from deepspeed_tpu_torch.utils import groups
+    groups.initialize_mesh(sp=world)
+    try:
+        q, k, v = _leaves(leg, "qkv", rank, world)
+        attn = FPDT_Attention(q_chunk=leg["chunk"], kv_chunk=leg["chunk"],
+                              causal=True)
+        return _qkv_grads(q, k, v, attn(q, k, v))
+    finally:
+        groups.reset_mesh()
+
+
+def run_ac_partition(leg, rank, world):
+    """``partition_activations`` over a tp group of the whole world: a
+    two-block model (the leg's weights, replicated) through
+    ``checkpointing.checkpoint`` with the flag on and off; the loss and the
+    gradients of x and the weights each time, and what one saved
+    activation packs to (this rank's slice) and unpacks to."""
+    import torch
+    from deepspeed_tpu_torch.runtime.activation_checkpointing import \
+        checkpointing as ac
+    from deepspeed_tpu_torch.utils import groups
+    groups.initialize_mesh(tp=world)
+    try:
+        out = {}
+        for flag in (False, True):
+            ac.configure(partition_activations=flag)
+            x = torch.from_numpy(leg["x"]).requires_grad_()
+            ws = [torch.from_numpy(w).requires_grad_() for w in leg["ws"]]
+            h = x
+            for w in ws:
+                h = ac.checkpoint(lambda a, b: torch.tanh(a @ b), h, w)
+            loss = (h ** 2).sum()
+            loss.backward()
+            out[flag] = dict(loss=float(loss), dx=x.grad.numpy(),
+                             dws=[w.grad.numpy() for w in ws])
+        hooks = ac._SavedActivations(groups._get_tensor_parallel_group(),
+                                     False)
+        packed = hooks.pack_hook(torch.from_numpy(leg["x"]))
+        out["packed_shape"] = tuple(packed[0].shape)
+        out["unpacked"] = hooks.unpack_hook(packed).numpy()
+        return out
+    finally:
+        ac.reset()
+        groups.reset_mesh()
+
+
 def run_codec(leg, rank, world):
     import torch
     from deepspeed_tpu_torch import comm as dist
@@ -1071,7 +1168,9 @@ def main():
               "codec": run_codec, "stream": run_stream,
               "moe_local": run_moe_local, "groups": run_groups,
               "serve": run_serve, "functional": run_functional,
-              "moe_shards": run_moe_shards}[leg["kind"]]
+              "moe_shards": run_moe_shards, "ring_attn": run_ring_attn,
+              "fpdt_attn": run_fpdt_attn,
+              "ac_partition": run_ac_partition}[leg["kind"]]
         out = fn(leg, rank, world)
         with open(os.path.join(out_dir, f"{leg['name']}.r{rank}.pkl"),
                   "wb") as f:

@@ -15,6 +15,8 @@
                               [--device cpu]
     python3 zero_multicard.py --tp [--world 4] [--json PATH]
                               [--device cpu]
+    python3 zero_multicard.py --ring [--world 4] [--steps N] [--json PATH]
+                              [--device cpu]
 
 BASELINE config 2 (``--model gpt2``: GPT-2 350M, fp16 from a scale of
 2^16, remat, ``fusedadam``, 8 rows of 1024 tokens a rank) or config 3
@@ -190,6 +192,18 @@ of 16 rows tp 2 × dp 2 and tp 4 against tp 1 × dp 4, each step's loss
 within 2^-7; (e) at 4 layers a tp 2 × dp 2 ZeRO-3 tag, resumed at tp 4
 (ZeRO 1) and at tp 1 × dp 4 (ZeRO 0): the loaded master's digest equal to
 the saved one, the next step's loss within 2^-7 of the saver's.
+
+``--ring`` trains Llama-2-7B (32 layers, random weights from the seed) at
+sp = the world (dp 1), ZeRO 3 over the dp × sp data group, remat, bf16,
+``fusedadam``, one row of 32768 tokens (8192 a rank at world 4): with
+``sp_backend="ring"`` and with ``"ulysses"`` on the same weights and
+batch, 1 warm-up and ``--steps`` timed steps each, the ring's losses
+within 2^-7 of Ulysses'; then the ring at 131072 tokens (32768 a rank),
+8 layers, ``loss_chunk_vocab`` 4096.  Rank 0 prints each run's losses,
+step ms, tokens/s, MFU (6N + 12·L·S·D a token at the run's S, over 989
+TFLOP/s a card), B1's and B2's launches a rank a step and each rank's
+peak.  ``--device cpu`` rehearses it at ``llama_tiny`` on gloo ranks
+(64 and 256 tokens).
 """
 
 import argparse
@@ -2333,6 +2347,141 @@ def _tp_main(args, world, smi, out):
     return 0
 
 
+# --ring: (name, layers, global sequence, backend, extra config);
+# Llama-2-7B widths, sp over every rank, ZeRO 3, remat, 1 row
+RING_RUNS = (
+    ("ring_32k", None, 32768, "ring", {}),
+    ("ulysses_32k", None, 32768, "ulysses", {}),
+    ("ring_128k_8l", 8, 131072, "ring", {"loss_chunk_vocab": 4096}),
+)
+RING_TINY_SEQ = {32768: 64, 131072: 256}
+
+
+def run_ring_rank(args):
+    """``--ring``: Llama-2-7B at sp = the world, ZeRO 3 over the dp × sp
+    data group, remat: the ring against Ulysses on the same weights and
+    batches, then the ring at 128K tokens (module docstring)."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models import llama
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    from deepspeed_tpu_torch.ops.kernels import optimizers as opt
+    torch.set_num_threads(1)
+    cpu = args.device == "cpu"
+    dev = "cpu" if cpu else "cuda"
+    sync = (lambda: None) if cpu else torch.cuda.synchronize
+    counters = {"flash_attention": fa.flash_attention_fwd,
+                "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+                "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
+                "fused_adam_step": opt.fused_adam_step}
+    world = int(os.environ["WORLD_SIZE"])
+    out = []
+    for name, layers, S, backend, extra in RING_RUNS:
+        S = RING_TINY_SEQ[S] if cpu else S
+        over = dict(use_ulysses=True, sp_backend=backend, remat=True,
+                    max_position_embeddings=S, **extra)
+        if cpu:
+            cfg = llama.llama_tiny(dtype="bfloat16", **over)
+        else:
+            cfg = llama.llama_7b(head_dtype="bfloat16", **over, **(
+                {} if layers is None else {"num_hidden_layers": layers}))
+        config = {"train_micro_batch_size_per_gpu": 1,
+                  "optimizer": ADAM, "bf16": {"enabled": True},
+                  "sequence_parallel_size": world,
+                  "zero_optimization": {"stage": 3} if not cpu else {
+                      "stage": 3, "stage3_param_persistence_threshold": 0}}
+        engine = deepspeed_tpu_torch.initialize(
+            model=llama.LlamaModel(cfg, device="meta"), config=config,
+            device=dev if cpu else None)[0]
+        engine.initialize_parameters(args.seed)
+        ids = np.random.default_rng(args.seed + 1).integers(
+            0, cfg.vocab_size, size=(1, S))
+        (chunk, ) = engine.shard_batch(ids)
+        losses, times = [], []
+        for i in range(1 + args.steps):
+            if i == 1:
+                sync()
+                for fn in counters.values():
+                    fn.launches = 0
+                if not cpu:
+                    torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            loss = engine(chunk, chunk)
+            engine.backward(loss)
+            engine.step()
+            losses.append(loss.item())
+            sync()
+            if i >= 1:
+                times.append(time.perf_counter() - t)
+        peak = 0 if cpu else torch.cuda.max_memory_allocated()
+        mine = torch.tensor([float(peak)] + losses, dtype=torch.float64,
+                            device=dev)
+        every = comm.all_gather(mine, tiled=False).cpu()
+        step_s = sum(times) / len(times)
+        flops = 6 * llama.param_count(cfg) + 12 * cfg.num_hidden_layers * \
+            S * cfg.hidden_size
+        out.append(dict(
+            name=name, layers=cfg.num_hidden_layers, seq=S, backend=backend,
+            world=world, sp=engine.seq_parallel_world_size, losses=losses,
+            rank_losses_equal=bool((every[:, 1:] == every[0, 1:]).all()),
+            step_ms=[t * 1e3 for t in times], step_ms_mean=step_s * 1e3,
+            tokens_per_s=S / step_s, flops_per_token=flops,
+            mfu=S / step_s * flops / (PEAK_FLOPS * world),
+            launches_per_step={k: fn.launches / args.steps
+                               for k, fn in counters.items()},
+            peak_bytes_by_rank=[int(x) for x in every[:, 0].tolist()]))
+        del engine, loss
+        gc.collect()
+        if not cpu:
+            torch.cuda.empty_cache()
+        if comm.get_rank() == 0:
+            with open(args.out_rank0, "w") as f:
+                json.dump(out, f)
+    comm.destroy_process_group()
+
+
+def _ring_main(args, world, smi, out):
+    rcs = _spawn(world, sys.argv[1:] + ["--out-rank0", out])
+    res = []
+    if os.path.exists(out):
+        with open(out) as f:
+            res = json.load(f)
+        os.remove(out)
+    runs = {r["name"]: r for r in res}
+    ok = not any(rcs) and len(runs) == len(RING_RUNS)
+    for r in res:
+        print(f"[ring] {r['name']}: Llama-2-7B widths, {r['layers']} layers,"
+              f" sp {r['sp']} of world {r['world']}, {r['seq']} tokens (1 "
+              f"row), {r['backend']}, ZeRO 3, remat, bf16 | losses "
+              + ", ".join(f"{x:.5f}" for x in r["losses"])
+              + f" | step ms mean {r['step_ms_mean']:.1f}, "
+              f"{r['tokens_per_s']:.1f} tokens/s, MFU {r['mfu']:.4f} (6N + "
+              f"12·L·S·D = {r['flops_per_token'] / 1e9:.2f} GFLOP a token, "
+              f"989 TFLOP/s a card) | launches a rank a step "
+              f"{r['launches_per_step']} | peak GiB by rank "
+              + ", ".join(f"{b / 2**30:.2f}" for b in r["peak_bytes_by_rank"])
+              + f" | {smi}", flush=True)
+        ok &= r["rank_losses_equal"] and all(map(math.isfinite,
+                                                 r["losses"]))
+    if "ring_32k" in runs and "ulysses_32k" in runs:
+        a, b = runs["ring_32k"]["losses"], runs["ulysses_32k"]["losses"]
+        diff = max(abs(x - y) / abs(y) for x, y in zip(a, b))
+        print(f"[ring] ring against Ulysses at 32K: largest relative loss "
+              f"difference {diff:.3e} (gate 2^-7)", flush=True)
+        ok &= diff <= 2.0**-7
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(dict(card=smi, runs=res), f, indent=1)
+    if not ok:
+        print(f"zero_multicard: a ring check failed (ranks exited {rcs})",
+              file=sys.stderr)
+        return 1
+    print(json.dumps({"ok": True, "world": world, "ring": True}))
+    return 0
+
+
 def _free_port():
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -2458,6 +2607,11 @@ def main():
                          "Mixtral-8x7B serving at tp 4 against tp 1, "
                          "Llama-2-7B-width training at tp 2 × dp 2 and tp 4, "
                          "and a tp checkpoint resumed at other tp")
+    ap.add_argument("--ring", action="store_true",
+                    help="long-context training: Llama-2-7B at sp = world "
+                         "with ring attention against Ulysses at 32K "
+                         "tokens, then the ring at 128K (8 layers, fused "
+                         "chunked loss)")
     ap.add_argument("--offload-layers", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--stream-layers", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--rank", type=int, help=argparse.SUPPRESS)
@@ -2472,7 +2626,7 @@ def main():
          if args.checkpoint else run_zeropp_rank if args.zeropp
          else run_pipe_rank if args.pipe else run_onebit_rank
          if args.onebit else run_moe_rank if args.moe else run_tp_rank
-         if args.tp else run_rank)(args)
+         if args.tp else run_ring_rank if args.ring else run_rank)(args)
         return 0
     import torch
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -2500,6 +2654,8 @@ def main():
         return _moe_main(args, world, smi, out)
     if args.tp:
         return _tp_main(args, world, smi, out)
+    if args.ring:
+        return _ring_main(args, world, smi, out)
     rcs = _spawn(world, sys.argv[1:] + ["--out-rank0", out])
     if any(rcs):
         print(f"zero_multicard: ranks exited {rcs}", file=sys.stderr)
