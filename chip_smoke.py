@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--json PATH] [--profile DIR]
 
-Stages, run in the order 1-34; any failure exits non-zero:
+Stages, run in the order 1-35; any failure exits non-zero:
 
 1. environment: torch/CUDA/nvcc versions, the card's name and power limit;
 2. build: every ``deepspeed_tpu_torch/csrc/*.cu`` with nvcc for sm_90a
@@ -387,6 +387,33 @@ Stages, run in the order 1-34; any failure exits non-zero:
     ``cpu_checkpointing`` (an input projection, two MLP blocks, an LM head
     over 32000): gradients bit-equal to the plain checkpoint's, a lower
     peak.
+
+35. item 9b's remainder at one rank: (a) stage 8's step with ``domino``
+    (two µ-streams of 2 rows): 4 steps, losses within 2^-7 of the scale
+    of stage 8's first four, step ms beside stage 8's, B1's launches twice stage 8's
+    at half the batch, and ``measure_tp_overlap``'s report at tp 1, where
+    no tp collective exists; (b) GPT-2 350M (stage 11's fp16 ``fusedlamb``
+    step) with its model cut by ``shard_params_for_tp`` at tp 1 on
+    ``gpt2.tp_rules``: 3 steps bit-equal to stage 11's first three; then
+    the padded-vocabulary route (3 zero rows appended to ``wte``, the
+    vocabulary-parallel loss) from the same weights, losses within 2^-7;
+    BERT-base (stage 22's config and batch) cut at tp 1 on the rules
+    derived from its dataflow: 3 steps' losses bit-equal to the plain
+    model's (the masters' equal leaves beside those of the plain model
+    run twice); B1, B2, B3 launches counted; (c) ``fused_attention``
+    over a CLIP ViT-L/14 text encoder (12 layers, 12 heads of 64, 77
+    tokens, causal, fp16) and Stable Diffusion 2.1's top UNet attention
+    (320 channels, 5 heads of 64, a 96 × 96 latent: 9216 tokens), port
+    modules with transformers' and diffusers' class names and layouts:
+    outputs against the module's own attention and against B1's plain
+    version through the same injection (2^-7 of the norm, 2^-5 of the
+    largest element), B1 launches and the fused / fallback counts, ms and
+    peak of each; a cross-attention call (77 tokens of width 1024) takes
+    the counted fallback, bit-equal to the module; a forced kernel failure
+    raises; (d) the vocabulary-parallel chunked loss at tp 1 on GPT-2
+    350M's tied head padded by 3 rows (N 8192, V 50257, fp32) against the
+    full logits: loss, dx, dw within 1e-4 of the norm, the pad rows'
+    gradient 0, ms and peak.
 
 ``--profile DIR`` adds ``torch.profiler`` windows over serving (stages 4,
 14 and 15), over two training steps of stage 8, of stage 11, of stage 22
@@ -6943,6 +6970,563 @@ def stage_long_context(seed, smi, train):
     return out
 
 
+# ---------------------------------------------------------------- stage 35
+# (b): the padded-vocabulary route runs the tied head at another width
+# (50260 columns), for which cuBLAS may pick another fp16 kernel; its
+# losses stay within an fp16 head's rounding of the unpadded run's
+PAD_ROWS, PAD_LOSS_RTOL = 3, 2.0**-7
+# (c): the text encoder's and the UNet's fp16 outputs, fused against the
+# module's own attention: B1 keeps P in fp16 and sums in fp32 where the
+# module rounds the softmax to fp16 first, over 12 layers
+INJECT_NORM_RTOL, INJECT_MAX_RTOL = 2.0**-7, 2.0**-5
+CLIP_L14 = dict(vocab=49408, D=768, L=12, H=12, I=3072, S=77, B=2)
+UNET_TOP = dict(C=320, H=5, side=96, ctx=77, ctx_dim=1024, B=2)
+GPT2_HEAD = dict(N=8192, D=1024, V=50257, chunk=4096)
+# (d): fp32 products in full fp32, another summation order
+HEAD_FP32_RTOL = 1e-4
+
+
+def _domino_case(torch, np, seed, train, smi):
+    """(a): stage 8's step with ``domino`` (two µ-streams)."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import llama as llama_mod
+    from deepspeed_tpu_torch.models.llama import LlamaModel, llama_7b
+    from deepspeed_tpu_torch.runtime.domino import (measure_tp_overlap,
+                                                    split_microstreams)
+    B, S, L, steps = 4, 2048, 8, 4
+    cfg = llama_7b(num_hidden_layers=L, remat=False, head_dtype="bfloat16")
+    config = dict(TRAIN_CONFIG, domino={"enabled": True, "n_streams": 2})
+    engine = deepspeed_tpu_torch.initialize(
+        model=LlamaModel(cfg, device="meta"), config=config)[0]
+    engine.initialize_parameters(seed)
+    ids = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, size=(B, S))).cuda()
+    rows = []
+    core = llama_mod.attention_core
+
+    def spy(q, *a, **k):
+        rows.append(q.shape[0])
+        return core(q, *a, **k)
+
+    counters = _train_launches()
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    llama_mod.attention_core = spy
+    losses, times = [], []
+    try:
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss = engine(ids, ids)
+            engine.backward(loss)
+            engine.step()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            losses.append(loss.item())
+    finally:
+        llama_mod.attention_core = core
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        report = measure_tp_overlap(split_microstreams(engine.module, 2),
+                                    ids, labels=ids)
+    plain = train["losses"][:steps]
+    # relative to the losses' scale: they fall from 11 to 0.003 here,
+    # where bf16 differences of the order of the steps become large
+    # relative ones (stage 34 (d)'s rule)
+    scale = max(abs(x) for x in plain)
+    rel = [abs(a - b) / scale for a, b in zip(losses, plain)]
+    step_ms = float(np.mean(times[1:])) * 1e3
+    log(f"[tp-compose] (a) stage 8's step with domino (2 µ-streams of "
+        f"{B // 2} rows): losses " + ", ".join(f"{x:.6f}" for x in losses)
+        + " against stage 8's " + ", ".join(f"{x:.6f}" for x in plain)
+        + f" (largest difference {max(rel):.2e} of their scale, tol 2^-7) "
+        f"| step ms "
+        + ", ".join(f"{t * 1e3:.1f}" for t in times) + f" | mean of the "
+        f"last {steps - 1} {step_ms:.1f} ms against stage 8's "
+        f"{train['step_ms_mean']:.1f} ms | peak {peak / 2**30:.2f} GiB | "
+        f"launches in {steps} steps {launches}; B1's batch dim "
+        f"{sorted(set(rows))} | overlap report at tp 1 {report} (no tp "
+        f"collective exists at tp 1: the µ-streams run one after the "
+        f"other) | {smi}")
+    want = {"flash_attention": 2 * L * steps,
+            "flash_attention_bwd_dq": 2 * L * steps,
+            "flash_attention_bwd_dkv": 2 * L * steps,
+            "fused_adam_step": steps}
+    if launches != want or set(rows) != {B // 2}:
+        raise AssertionError(f"domino launches {launches} (want {want}), "
+                             f"B1 batch dims {set(rows)}")
+    if max(rel) > 2.0**-7 or not all(np.isfinite(losses)):
+        raise AssertionError(f"domino losses {losses} vs {plain}")
+    if report["collectives"] or report["async_pairs"]:
+        raise AssertionError(f"tp-1 overlap report {report}")
+    del engine
+    _free(torch)
+    return dict(losses=losses, plain_losses=plain, max_rel=max(rel),
+                step_ms=[t * 1e3 for t in times], step_ms_mean=step_ms,
+                plain_step_ms_mean=train["step_ms_mean"], peak_bytes=peak,
+                launches=launches, overlap=report)
+
+
+def _named_master(engine):
+    layout, _ = engine.global_layout()
+    flat = engine.fp32_params()
+    return {n: flat[o:o + k].view(s).clone() for n, o, k, s in layout}
+
+
+def _gpt2_tp1(torch, np, seed, gpt2):
+    """(b) GPT-2 350M: stage 11's engine with its model cut at tp 1, then
+    the padded-vocabulary route from the same weights."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import (GPT2Model, gpt2_350m,
+                                                 pad_vocab, tp_rules)
+    from deepspeed_tpu_torch.module_inject import shard_params_for_tp
+    B, S, steps = 8, 1024, 3
+    cfg = gpt2_350m(dtype="float16")
+    model = shard_params_for_tp(GPT2Model(cfg, device="meta"),
+                                tp_rules(cfg), group=_local_tp_group())
+    if getattr(model.h[0].q_proj, "tp_group", None) is None or \
+            getattr(model.wte, "tp_group", None) is None:
+        raise AssertionError("the tp-1 GPT-2 model was not cut")
+    engine = deepspeed_tpu_torch.initialize(model=model,
+                                            config=dict(GPT2_CONFIG))[0]
+    engine.initialize_parameters(seed)
+    named = _named_master(engine)
+    ids = torch.from_numpy(np.random.default_rng(seed + 11).integers(
+        0, cfg.vocab_size, size=(B, S))).cuda()
+    counters = _gpt2_launches()
+    out = {}
+    for name in ("tp1", "padded"):
+        if name == "padded":
+            del engine
+            _free(torch)
+            model = GPT2Model(cfg, device="meta")
+            start = pad_vocab(model, PAD_ROWS, named)
+            engine = deepspeed_tpu_torch.initialize(
+                model=model, model_parameters=start,
+                config=dict(GPT2_CONFIG))[0]
+            del start
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        losses, _, skips, times = _run_steps(torch, engine, ids, steps,
+                                             timed=True)
+        out[name] = dict(losses=losses, skipped=skips,
+                         step_ms=[t * 1e3 for t in times],
+                         launches={k: fn.launches for k, fn in
+                                   counters.items() if fn.launches})
+    del engine, named
+    _free(torch)
+    equal = out["tp1"]["losses"] == gpt2["losses"][:steps]
+    rel = max(abs(a - b) / abs(b) for a, b in
+              zip(out["padded"]["losses"], out["tp1"]["losses"]))
+    out.update(bit_equal=equal, padded_max_rel=rel)
+    log(f"[tp-compose] (b) GPT-2 350M through the tp code at tp 1 "
+        f"(fp16, fusedlamb): losses " + ", ".join(
+            f"{x:.6f}" for x in out["tp1"]["losses"]) +
+        f" | bit-equal to stage 11's first {steps} {equal}; padded "
+        f"vocabulary ({cfg.vocab_size} + {PAD_ROWS} rows, the "
+        f"vocabulary-parallel loss): " + ", ".join(
+            f"{x:.6f}" for x in out["padded"]["losses"]) +
+        f" (largest relative {rel:.2e}, tol 2^-7), skipped "
+        f"{out['padded']['skipped']} vs {out['tp1']['skipped']} | launches "
+        f"{out['tp1']['launches']} | padded {out['padded']['launches']}")
+    want_b1 = 2 * cfg.num_hidden_layers * steps      # remat: twice a layer
+    for name in ("tp1", "padded"):
+        r = out[name]
+        stepped = steps - sum(r["skipped"])
+        want = dict(flash_attention=want_b1,
+                    flash_attention_bwd_dq=want_b1 // 2,
+                    flash_attention_bwd_dkv=want_b1 // 2)
+        if stepped:
+            want.update(fused_lamb_phase1=stepped,
+                        fused_lamb_phase2=stepped)
+        if r["launches"] != want:
+            raise AssertionError(f"GPT-2 {name} launches {r['launches']}, "
+                                 f"want {want}")
+    if not equal:
+        raise AssertionError(f"GPT-2 tp-1 losses {out['tp1']['losses']} != "
+                             f"stage 11's {gpt2['losses'][:steps]}")
+    if rel > PAD_LOSS_RTOL or out["padded"]["skipped"] != \
+            out["tp1"]["skipped"]:
+        raise AssertionError(f"padded GPT-2 {out['padded']} vs "
+                             f"{out['tp1']}")
+    return out
+
+
+def _bert_tp1(torch, np, seed):
+    """(b) BERT-base: stage 22's config and batch, the plain model against
+    the model cut at tp 1 on the rules derived from its dataflow."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.bert import BertModel, bert_base
+    from deepspeed_tpu_torch.module_inject import (
+        derive_tp_rules_from_dataflow, shard_params_for_tp)
+    B, S, steps = 64, 128, 3
+    cfg = bert_base()
+    rng = np.random.default_rng(seed + 22)
+    ids = rng.integers(0, cfg.vocab_size, size=(B, S))
+    labels = np.where(rng.random((B, S)) < 0.15, ids, -100)
+    batch = (torch.from_numpy(ids).cuda(), torch.from_numpy(labels).cuda())
+    rules = derive_tp_rules_from_dataflow(
+        BertModel(cfg, device="meta"),
+        torch.zeros((1, 8), dtype=torch.long, device="meta"))
+    counters = _train_launches()
+    out = {}
+    for name in ("plain", "tp1", "plain_again"):
+        model = BertModel(cfg, device="meta")
+        if name == "tp1":
+            model = shard_params_for_tp(model, rules,
+                                        group=_local_tp_group())
+        engine = deepspeed_tpu_torch.initialize(
+            model=model, config=dict(BERT_CONFIG))[0]
+        engine.initialize_parameters(seed)
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        losses = []
+        for _ in range(steps):
+            loss = engine(*batch)
+            engine.backward(loss)
+            engine.step()
+            losses.append(loss.item())
+        out[name] = dict(losses=losses, launches={
+            k: fn.launches for k, fn in counters.items() if fn.launches})
+        master = _named_master(engine)
+        if name == "plain":
+            plain_master = master
+        else:
+            out[name]["leaves_equal"] = sum(
+                torch.equal(t, plain_master[n]) for n, t in master.items())
+            out[name]["leaves"] = len(master)
+        del engine, model, master
+        _free(torch)
+    del plain_master
+    # the gate is stage 33 (a)'s: the losses; the masters' equal leaves
+    # are reported beside those of the plain model run twice (a card's
+    # backward need not sum alike twice)
+    equal = out["tp1"]["losses"] == out["plain"]["losses"]
+    out["bit_equal"] = equal
+    log(f"[tp-compose] (b) BERT-base through the tp code at tp 1 ({len(rules)} "
+        f"rules derived from the dataflow): losses " + ", ".join(
+            f"{x:.6f}" for x in out["tp1"]["losses"]) + " against the "
+        f"plain model's " + ", ".join(f"{x:.6f}" for x in
+                                      out["plain"]["losses"]) +
+        f" | losses bit-equal {equal}; master leaves bit-equal after the "
+        f"steps {out['tp1']['leaves_equal']} of {out['tp1']['leaves']} "
+        f"(the plain model run again: "
+        f"{out['plain_again']['leaves_equal']}, losses bit-equal "
+        f"{out['plain_again']['losses'] == out['plain']['losses']}) | "
+        f"launches "
+        f"{out['tp1']['launches']}")
+    if not equal or out["tp1"]["launches"] != {"fused_adam_step": steps}:
+        raise AssertionError(f"BERT tp-1 {out}")
+    return out
+
+
+def _clip_modules(torch):
+    """A CLIP text encoder (transformers' layout and class names:
+    ``CLIPAttention`` with q/k/v/out_proj, ``num_heads``, ``scale``) and
+    a diffusers ``Attention`` (to_q/k/v, to_out), each with its library's
+    eager attention; the card has neither library."""
+    from torch import nn
+
+    class CLIPAttention(nn.Module):
+        def __init__(self, D, H):
+            super().__init__()
+            self.num_heads, self.head_dim = H, D // H
+            self.scale, self.dropout = self.head_dim ** -0.5, 0.0
+            self.q_proj, self.k_proj = nn.Linear(D, D), nn.Linear(D, D)
+            self.v_proj, self.out_proj = nn.Linear(D, D), nn.Linear(D, D)
+
+        def forward(self, hidden_states, attention_mask=None,
+                    causal_attention_mask=None, output_attentions=False):
+            B, S, D = hidden_states.shape
+            q, k, v = (p(hidden_states).view(B, S, self.num_heads, -1)
+                       .transpose(1, 2) for p in (self.q_proj, self.k_proj,
+                                                  self.v_proj))
+            w = (q @ k.transpose(-1, -2)) * self.scale
+            for m in (causal_attention_mask, attention_mask):
+                if m is not None:
+                    w = w + m
+            w = torch.softmax(w, dim=-1, dtype=torch.float32).to(q.dtype)
+            out = (w @ v).transpose(1, 2).reshape(B, S, D)
+            return self.out_proj(out), (w if output_attentions else None)
+
+    class CLIPEncoderLayer(nn.Module):
+        def __init__(self, D, H, I):
+            super().__init__()
+            self.self_attn = CLIPAttention(D, H)
+            self.layer_norm1, self.layer_norm2 = (nn.LayerNorm(D),
+                                                  nn.LayerNorm(D))
+            self.fc1, self.fc2 = nn.Linear(D, I), nn.Linear(I, D)
+
+        def forward(self, x, causal):
+            x = x + self.self_attn(self.layer_norm1(x),
+                                   causal_attention_mask=causal)[0]
+            h = self.fc1(self.layer_norm2(x))
+            return x + self.fc2(h * torch.sigmoid(1.702 * h))  # quick_gelu
+
+    class CLIPTextTransformer(nn.Module):
+        def __init__(self, vocab, D, L, H, I, S):
+            super().__init__()
+            self.token_embedding = nn.Embedding(vocab, D)
+            self.position_embedding = nn.Embedding(S, D)
+            self.layers = nn.ModuleList(CLIPEncoderLayer(D, H, I)
+                                        for _ in range(L))
+            self.final_layer_norm = nn.LayerNorm(D)
+
+        def forward(self, ids):
+            B, S = ids.shape
+            x = self.token_embedding(ids) + self.position_embedding(
+                torch.arange(S, device=ids.device))[None]
+            low = torch.finfo(x.dtype).min
+            causal = torch.full((S, S), low, dtype=x.dtype,
+                                device=x.device).triu(1)[None, None]
+            causal = causal.expand(B, 1, S, S)
+            for layer in self.layers:
+                x = layer(x, causal)
+            return self.final_layer_norm(x)
+
+    class Attention(nn.Module):
+        def __init__(self, dim, heads, dim_head, cross_dim=None):
+            super().__init__()
+            inner = heads * dim_head
+            self.heads, self.scale = heads, dim_head ** -0.5
+            self.group_norm = self.spatial_norm = None
+            self.residual_connection, self.rescale_output_factor = (False,
+                                                                    1.0)
+            self.to_q = nn.Linear(dim, inner, bias=False)
+            self.to_k = nn.Linear(cross_dim or dim, inner, bias=False)
+            self.to_v = nn.Linear(cross_dim or dim, inner, bias=False)
+            self.to_out = nn.ModuleList([nn.Linear(inner, dim),
+                                         nn.Dropout(0.0)])
+
+        def forward(self, hidden_states, encoder_hidden_states=None,
+                    attention_mask=None, **cross_attention_kwargs):
+            B, S, _ = hidden_states.shape
+            ctx = hidden_states if encoder_hidden_states is None \
+                else encoder_hidden_states
+            q = self.to_q(hidden_states).view(B, S, self.heads, -1)
+            k = self.to_k(ctx).view(B, ctx.shape[1], self.heads, -1)
+            v = self.to_v(ctx).view(B, ctx.shape[1], self.heads, -1)
+            q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+            w = torch.softmax((q @ k.transpose(-1, -2)) * self.scale,
+                              dim=-1, dtype=torch.float32).to(q.dtype)
+            out = (w @ v).transpose(1, 2).reshape(B, S, -1)
+            for m in self.to_out:
+                out = m(out)
+            return out
+
+    return CLIPTextTransformer, Attention
+
+
+def _call_stats(torch, fn, iters=3):
+    """(output, ms a call, peak bytes above what was allocated before)."""
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with torch.no_grad():
+        out = fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        ms = cuda_ms(fn, iters, warmup=1)
+    return out, ms, peak
+
+
+def _injection_case(torch, gen, smi):
+    """(c): ``generic_injection`` over the CLIP text encoder and the UNet's
+    top-level attention."""
+    import functools
+    from deepspeed_tpu_torch import module_inject
+    from deepspeed_tpu_torch.module_inject import diffusers_injection as di
+    from deepspeed_tpu_torch.ops.attention import attention_core
+    CLIP, Attention = _clip_modules(torch)
+    c = CLIP_L14
+    enc = CLIP(c["vocab"], c["D"], c["L"], c["H"], c["I"], c["S"]).to(
+        "cuda", torch.float16).eval()
+    with torch.no_grad():
+        for p in enc.parameters():
+            p.copy_(0.02 * torch.randn(p.shape, device="cuda",
+                                       generator=gen))
+    ids = torch.randint(0, c["vocab"], (c["B"], c["S"]), device="cuda",
+                        generator=gen)
+    fa = _flash_counters()
+    plain_core = functools.partial(attention_core, use_kernel=False)
+    res = {}
+
+    def run(tag, module, call, plain=False):
+        count = {}
+        if plain:
+            di.attention_core = plain_core
+        try:
+            with module_inject.fused_attention(counter=count, module=module):
+                _zeroed(fa)
+                out, ms, peak = _call_stats(torch, call)
+                launches = _counts(fa)
+        finally:
+            di.attention_core = attention_core
+        res[tag] = dict(ms=ms, peak_bytes=peak, launches=launches,
+                        counts=count)
+        return out
+
+    clip_ref, ms, peak = _call_stats(torch, lambda: enc(ids))
+    res["clip_unfused"] = dict(ms=ms, peak_bytes=peak)
+    clip_fused = run("clip_fused", enc, lambda: enc(ids))
+    clip_plain = run("clip_plain", enc, lambda: enc(ids), plain=True)
+    u = UNET_TOP
+    tokens = u["side"] * u["side"]
+    attn1 = Attention(u["C"], u["H"], u["C"] // u["H"]).to(
+        "cuda", torch.float16).eval()
+    attn2 = Attention(u["C"], u["H"], u["C"] // u["H"],
+                      cross_dim=u["ctx_dim"]).to("cuda", torch.float16).eval()
+    with torch.no_grad():
+        for p in list(attn1.parameters()) + list(attn2.parameters()):
+            p.copy_(0.05 * torch.randn(p.shape, device="cuda",
+                                       generator=gen))
+    x = torch.randn(u["B"], tokens, u["C"], device="cuda", generator=gen,
+                    dtype=torch.float16)
+    ctx = torch.randn(u["B"], u["ctx"], u["ctx_dim"], device="cuda",
+                      generator=gen, dtype=torch.float16)
+    unet_ref, ms, peak = _call_stats(torch, lambda: attn1(x))
+    res["unet_unfused"] = dict(ms=ms, peak_bytes=peak)
+    unet_fused = run("unet_fused", attn1, lambda: attn1(x))
+    unet_plain = run("unet_plain", attn1, lambda: attn1(x), plain=True)
+    cross_ref, ms, peak = _call_stats(torch, lambda: attn2(x, ctx))
+    res["cross_unfused"] = dict(ms=ms, peak_bytes=peak)
+    cross = run("cross", attn2, lambda: attn2(x, ctx))
+    errs = _hold(torch, "injection", {
+        "clip_vs_module": (clip_fused, clip_ref),
+        "clip_vs_plain": (clip_fused, clip_plain),
+        "unet_vs_module": (unet_fused, unet_ref),
+        "unet_vs_plain": (unet_fused, unet_plain)})
+    cross_equal = torch.equal(cross, cross_ref)
+    calls = 5     # _call_stats: one call, then 1 warm-up and 3 timed
+    log(f"[tp-compose] (c) injection, fp16: CLIP ViT-L/14 text encoder "
+        f"({c['L']} layers, {c['H']} heads of {c['D'] // c['H']}, "
+        f"{c['S']} tokens, causal, B {c['B']}) fused "
+        f"{res['clip_fused']['ms']:.3f} ms (peak "
+        f"{res['clip_fused']['peak_bytes'] / 2**20:.1f} MiB) against the "
+        f"module's own {res['clip_unfused']['ms']:.3f} ms "
+        f"({res['clip_unfused']['peak_bytes'] / 2**20:.1f} MiB), counts "
+        f"{res['clip_fused']['counts']}, B1 launches "
+        f"{res['clip_fused']['launches']} | SD 2.1 UNet top self-attention "
+        f"({u['C']} channels, {u['H']} heads of {u['C'] // u['H']}, "
+        f"{tokens} tokens, B {u['B']}) fused {res['unet_fused']['ms']:.3f} "
+        f"ms (peak {res['unet_fused']['peak_bytes'] / 2**20:.1f} MiB) "
+        f"against {res['unet_unfused']['ms']:.3f} ms "
+        f"({res['unet_unfused']['peak_bytes'] / 2**20:.1f} MiB), counts "
+        f"{res['unet_fused']['counts']}, B1 launches "
+        f"{res['unet_fused']['launches']} | cross-attention to "
+        f"{u['ctx']} × {u['ctx_dim']}: counts {res['cross']['counts']}, "
+        f"bit-equal to the module {cross_equal} | {_fmt_errs(errs)} "
+        f"(tol 2^-7 of the norm, 2^-5 of the largest) | {smi}")
+    want = {"clip_fused": {"fused": c["L"] * calls},
+            "unet_fused": {"fused": calls}, "cross": {"fallback": calls}}
+    for tag, counts in want.items():
+        if res[tag]["counts"] != counts:
+            raise AssertionError(f"{tag}: counts {res[tag]['counts']}, "
+                                 f"want {counts}")
+    if res["clip_fused"]["launches"]["fwd"] != c["L"] * calls or \
+            res["unet_fused"]["launches"]["fwd"] != calls or \
+            res["cross"]["launches"]["fwd"] or \
+            res["unet_plain"]["launches"]["fwd"] or not cross_equal:
+        raise AssertionError(f"injection launches {res}")
+    # a kernel that fails raises: no fallback around the fused path
+    def broken(*a, **k):
+        raise RuntimeError("forced kernel failure")
+
+    di.attention_core = broken
+    try:
+        with module_inject.fused_attention(module=attn1):
+            attn1(x[:, :256])
+        raised = False
+    except RuntimeError:
+        raised = True
+    finally:
+        di.attention_core = attention_core
+    if not raised:
+        raise AssertionError("a failing fused attention did not raise")
+    res["errs"] = errs
+    res["forced_failure_raised"] = raised
+    del enc, attn1, attn2, x, ctx
+    _free(torch)
+    return res
+
+
+def _gpt2_head_case(torch, gen):
+    """(d): the vocabulary-parallel chunked loss at tp 1 on GPT-2 350M's
+    tied head, padded by :data:`PAD_ROWS` rows, in fp32 (GPT-2's chunked
+    loss runs in fp32, JAX ``gpt2.py:118-122``)."""
+    from deepspeed_tpu_torch.sequence.cross_entropy import (
+        fused_linear_cross_entropy, softmax_cross_entropy_with_logits)
+    N, D, V, ch = (GPT2_HEAD[k] for k in ("N", "D", "V", "chunk"))
+    x = torch.randn(N, D, device="cuda", generator=gen).requires_grad_()
+    w = torch.cat([0.02 * torch.randn(V, D, device="cuda", generator=gen),
+                   torch.zeros(PAD_ROWS, D, device="cuda")]).requires_grad_()
+    labels = torch.randint(0, V, (N, ), device="cuda", generator=gen)
+    from deepspeed_tpu_torch.accelerator import full_fp32_matmul
+
+    def full():
+        with full_fp32_matmul():
+            return softmax_cross_entropy_with_logits(
+                x @ w[:V].t(), labels).mean()
+
+    paths = {"padded_chunked": lambda: fused_linear_cross_entropy(
+        x, w.t(), labels, ch, torch.float32, tp=(None, 0, V)).mean(),
+             "full": full}
+    res = {}
+    for name, fn in paths.items():
+        _free(torch)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        loss = fn()
+        dx, dw = torch.autograd.grad(loss, (x, w))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        ms = cuda_ms(lambda: torch.autograd.grad(fn(), (x, w)), 3)
+        res[name] = dict(loss=loss.item(), dx=dx, dw=dw, peak_bytes=peak,
+                         ms=ms)
+    f, p = res["padded_chunked"], res["full"]
+    rel = {k: ((f[k] - p[k]).norm() / p[k].norm()).item()
+           for k in ("dx", "dw")}
+    rel["loss"] = abs(f["loss"] - p["loss"]) / abs(p["loss"])
+    pad_grad = f["dw"][V:].abs().max().item()
+    log(f"[tp-compose] (d) vocabulary-parallel chunked loss at tp 1, GPT-2 "
+        f"350M's head (N {N}, D {D}, V {V} + {PAD_ROWS} pad rows, chunks of "
+        f"{ch}, fp32): loss {f['loss']:.6f} against the full logits' "
+        f"{p['loss']:.6f} | relative to the norm: " + ", ".join(
+            f"{k} {v:.2e}" for k, v in rel.items()) + f" (tol 1e-4) | pad "
+        f"rows' gradient max {pad_grad} | fwd+bwd {f['ms']:.3f} ms against "
+        f"{p['ms']:.3f} | peak above the inputs "
+        f"{f['peak_bytes'] / 2**30:.3f} GiB against "
+        f"{p['peak_bytes'] / 2**30:.3f}")
+    if max(rel.values()) > HEAD_FP32_RTOL or pad_grad != 0.0:
+        raise AssertionError(f"padded chunked loss {rel}, pad grad "
+                             f"{pad_grad}")
+    for r in res.values():
+        del r["dx"], r["dw"]
+    del x, w
+    _free(torch)
+    return dict(rel=rel, **res)
+
+
+def stage_tp_compose(seed, smi, train, gpt2):
+    import numpy as np
+    import torch
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 35)
+    out = dict(domino=_domino_case(torch, np, seed, train, smi))
+    out["gpt2_tp1"] = _gpt2_tp1(torch, np, seed, gpt2)
+    out["bert_tp1"] = _bert_tp1(torch, np, seed)
+    out["injection"] = _injection_case(torch, gen, smi)
+    out["gpt2_head"] = _gpt2_head_case(torch, gen)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[tp-compose] stage 35 took {out['seconds']:.1f} s | {smi}")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7016,6 +7600,7 @@ def main():
     pipe_zero = stage_pipeline_zero(args.seed, smi)
     tp = stage_tp(args.seed, smi, train, serve)
     long_ctx = stage_long_context(args.seed, smi, train)
+    tp_compose = stage_tp_compose(args.seed, smi, train, gpt2)
 
     entries = []
     for wrapper, case in (("paged_attention", "serve_decode"),
@@ -7428,6 +8013,33 @@ def main():
         elif e["name"] == "fused_adam_step":
             e["launches_long_context_train"] = sum(c["fused_adam_step"]
                                                    for c in lt)
+    # stage 35: B1 and B2 in the domino steps (a), B2 in BERT's tp-1 run
+    # and B1, B3 in GPT-2's tp-1 and padded runs (b), B1 under the
+    # injection (c: the CLIP encoder's and the UNet's fused calls), each
+    # counted from 0 around its run
+    dom = tp_compose["domino"]["launches"]
+    g2 = [tp_compose["gpt2_tp1"][k]["launches"] for k in ("tp1", "padded")]
+    inj = tp_compose["injection"]
+    for e in entries:
+        if e["name"] == "flash_attention":
+            e.update(launches_domino=dom["flash_attention"],
+                     launches_gpt2_tp1=sum(c["flash_attention"]
+                                           for c in g2),
+                     launches_injection=(inj["clip_fused"]["launches"]["fwd"]
+                                         + inj["unet_fused"]["launches"][
+                                             "fwd"]))
+        elif e["name"] == "flash_attention_bwd":
+            e.update(launches_domino=(dom["flash_attention_bwd_dq"] +
+                                      dom["flash_attention_bwd_dkv"]),
+                     launches_gpt2_tp1=sum(
+                         c["flash_attention_bwd_dq"] +
+                         c["flash_attention_bwd_dkv"] for c in g2))
+        elif e["name"] == "fused_adam_step":
+            e.update(launches_domino=dom["fused_adam_step"],
+                     launches_bert_tp1=tp_compose["bert_tp1"]["tp1"][
+                         "launches"]["fused_adam_step"])
+        elif e["name"] in ("fused_lamb_phase1", "fused_lamb_phase2"):
+            e["launches_gpt2_tp1"] = sum(c.get(e["name"], 0) for c in g2)
     llama_zero3.pop("batches")
     if args.json:
         with open(args.json, "w") as f:
@@ -7449,6 +8061,7 @@ def main():
                            universal_onebit=uni_onebit,
                            moe_train=moe_train, pipeline_zero=pipe_zero,
                            tp=tp, long_context=long_ctx,
+                           tp_compose=tp_compose,
                            seconds=time.perf_counter() - t_start),
                       f, indent=1, default=str)
     from deepspeed_tpu_torch import comm

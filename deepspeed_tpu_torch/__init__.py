@@ -91,9 +91,13 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
         # __init__.py:65-94)
         from .runtime.infinity_engine import InfinityEngine as cls
     if streaming and ds_config.mesh_tp > 1:
-        from .utils.not_ported import not_ported
-        raise not_ported("parameter streaming (offload_param) with tensor "
-                         "parallelism", "9b")
+        # JAX's InfinityEngine places every fetched block replicated over
+        # the whole mesh (infinity_engine.py:_rep_sharding, P()): tp there
+        # shards nothing and saves nothing
+        raise ValueError("parameter streaming (offload_param) with tensor "
+                         "parallelism: the reference replicates the streamed "
+                         "blocks over tp (a block lives whole on every "
+                         "rank); stream at tp 1, over dp or sp")
     kw = {} if tp_rules is None else dict(tp_rules=tp_rules)
     engine = cls(args=args, model=model, optimizer=optimizer,
                  model_parameters=model_parameters,

@@ -223,7 +223,8 @@ def _tp_sources(model_sd, shapes, paths, tp, mmap):
     for name, shape in shapes.items():
         shape = list(shape)
         if name in splits:
-            shape[splits[name]] //= tp
+            # a padded leaf's slices are ceil(dim / tp) long
+            shape[splits[name]] = -(-shape[splits[name]] // tp)
         local[name] = tuple(shape)
     per_rank = [_read_optim(os.path.dirname(paths[0]) if paths else "",
                             [p for p in paths if _rank_of(p)[1] == t],
@@ -239,7 +240,8 @@ def _tp_sources(model_sd, shapes, paths, tp, mmap):
             parts = [_assemble_leaf(name, local[name], srcs, field)
                      for srcs, _ in per_rank]
             if all(p is not None for p in parts):
-                flats[field] = torch.cat(parts, dim=dim).reshape(-1)
+                flats[field] = torch.cat(parts, dim=dim).narrow(
+                    dim, 0, shapes[name][dim]).reshape(-1)
         numel = 1
         for d in shapes[name]:
             numel *= d

@@ -28,6 +28,11 @@ inside ``shard_map``, where autodiff transposes them.  Here a group is a
   JAX package gets these from the sharding propagation; here every rank of
   the tp group runs the same program on the same replicated activations,
   so each replicated cotangent is the same on every rank.
+  :func:`reduce_from_tp_region_async` starts the same psum async, and
+  :func:`wait_tp_region` waits for it where its sum is used (Domino's
+  µ-streams); each marks its start and its wait with a profiler range
+  (:data:`ASYNC_START`, :data:`ASYNC_WAIT`), which
+  ``runtime/domino/overlap.py`` reads.
 
 Every op takes a ``ProcessGroup`` and runs on its flat form (never through
 the collectives engine's quantized wires); a group of one rank, or None,
@@ -38,6 +43,9 @@ import torch
 import torch.distributed as tdist
 
 from . import comm
+
+ASYNC_START = "ds_tp::async_reduce_start"
+ASYNC_WAIT = "ds_tp::async_reduce_wait"
 
 
 class _AllToAll(torch.autograd.Function):
@@ -243,6 +251,21 @@ class _GatherFromRegion(torch.autograd.Function):
         return grad[..., r * k:(r + 1) * k].contiguous(), None
 
 
+class _AsyncReduceFromRegion(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, group, box):
+        y = x.contiguous().clone()
+        with torch.profiler.record_function(ASYNC_START):
+            box.append(comm.all_reduce(y, group=group.as_flat(),
+                                       async_op=True))
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
 def copy_to_tp_region(x, group):
     """Identity forward; the cotangent summed over the tp group backward
     (the input of a column-parallel product: each rank's product sees only
@@ -254,6 +277,27 @@ def reduce_from_tp_region(x, group):
     """Sum over the tp group forward (a row-parallel product's partial
     sums); the cotangent as it is backward."""
     return x if _one(group) else _ReduceFromRegion.apply(x, group)
+
+
+def reduce_from_tp_region_async(x, group):
+    """:func:`reduce_from_tp_region` started async (Domino's µ-streams,
+    ``runtime/domino/``): ``(y, handle)``, where ``y`` holds the sum only
+    after :func:`wait_tp_region`; the current stream may run other work
+    meanwhile.  A group of one rank: ``(x, None)``."""
+    if _one(group):
+        return x, None
+    box = []
+    y = _AsyncReduceFromRegion.apply(x, group, box)
+    return y, box[0]
+
+
+def wait_tp_region(y, handle):
+    """``y`` of :func:`reduce_from_tp_region_async`, once its reduce has
+    landed (the current stream waits for it)."""
+    if handle is not None:
+        with torch.profiler.record_function(ASYNC_WAIT):
+            handle.wait()
+    return y
 
 
 def gather_from_tp_region(x, group):

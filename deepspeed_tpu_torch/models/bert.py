@@ -25,8 +25,11 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..accelerator import full_fp32_matmul
-from ..sequence.cross_entropy import softmax_cross_entropy_with_logits
-from .gpt2 import Dense, Embed, LayerNorm, _param
+from ..comm.functional import copy_to_tp_region, gather_from_tp_region
+from ..module_inject.layers import embed_rows, tp_group_of, vocab_slice
+from ..sequence.cross_entropy import (softmax_cross_entropy_with_logits,
+                                      vocab_parallel_cross_entropy)
+from .gpt2 import Dense, Embed, LayerNorm, _param, flax_path
 from .llama import torch_dtype
 
 
@@ -96,8 +99,14 @@ class BertLayer(nn.Module):
         self.output_ln = LayerNorm(D, eps, device)
 
     def forward(self, x, mask=None):
+        """Under tensor parallelism (the rules AutoTP derives from the
+        dataflow) query, key, value and intermediate are this rank's
+        columns (heads) and attention_output and output its rows: x enters
+        the tp region before each column-parallel product and the
+        row-parallel ones reduce their partial sums."""
         dt = torch_dtype(self.config.dtype)
-        q, k, v = self.query(x, dt), self.key(x, dt), self.value(x, dt)
+        h = copy_to_tp_region(x, tp_group_of(self.query))
+        q, k, v = self.query(h, dt), self.key(h, dt), self.value(h, dt)
         logits = torch.einsum("bshd,bthd->bhst", q, k) * \
             self.config.head_dim**-0.5
         logits = logits.float()
@@ -106,9 +115,11 @@ class BertLayer(nn.Module):
                                         torch.finfo(torch.float32).min)
         probs = torch.softmax(logits, dim=-1).to(dt)
         ctx = torch.einsum("bhst,bthd->bshd", probs, v)
-        x = self.attention_ln(x + self.attention_output(ctx, dt), dt)
-        h = F.gelu(self.intermediate(x, dt))      # BERT's exact erf GELU
-        return self.output_ln(x + self.output(h, dt), dt)
+        x = self.attention_ln(x + self.attention_output.row_parallel(ctx,
+                                                                    dt), dt)
+        h = copy_to_tp_region(x, tp_group_of(self.intermediate))
+        h = F.gelu(self.intermediate(h, dt))      # BERT's exact erf GELU
+        return self.output_ln(x + self.output.row_parallel(h, dt), dt)
 
 
 class BertModel(nn.Module):
@@ -142,13 +153,22 @@ class BertModel(nn.Module):
         dt = torch_dtype(cfg.dtype)
         with (full_fp32_matmul() if dt == torch.float32
               else contextlib.nullcontext()):
-            logits = self._logits(input_ids, attention_mask, token_type_ids,
-                                  dt)
+            logits, (group, start) = self._logits(
+                input_ids, attention_mask, token_type_ids, dt)
+        sharded = group is not None or logits.shape[-1] != cfg.vocab_size
         if labels is None:
+            if sharded:
+                logits = gather_from_tp_region(logits, group)[
+                    ..., :cfg.vocab_size]
             return logits
         labels = labels.to(logits.device).long()
-        per_tok = softmax_cross_entropy_with_logits(
-            logits, torch.clamp(labels, min=0))
+        if sharded:
+            per_tok = vocab_parallel_cross_entropy(
+                logits, torch.clamp(labels, min=0), start, cfg.vocab_size,
+                group)
+        else:
+            per_tok = softmax_cross_entropy_with_logits(
+                logits, torch.clamp(labels, min=0))
         m = (labels >= 0).float()
         total, count = (per_tok * m).sum(), m.sum()
         if loss_reduction == "sum_count":
@@ -165,11 +185,13 @@ class BertModel(nn.Module):
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(ids)
         we = self.word_embeddings.embedding.to(dt)
-        x = (F.embedding(ids, we) +
-             F.embedding(torch.arange(S, device=ids.device)[None],
-                         self.position_embeddings.embedding.to(dt)) +
-             F.embedding(token_type_ids.long(),
-                         self.token_type_embeddings.embedding.to(dt)))
+        x = (embed_rows(self.word_embeddings, we, ids) +
+             embed_rows(self.position_embeddings,
+                        self.position_embeddings.embedding.to(dt),
+                        torch.arange(S, device=ids.device)[None]) +
+             embed_rows(self.token_type_embeddings,
+                        self.token_type_embeddings.embedding.to(dt),
+                        token_type_ids))
         x = self.embeddings_ln(x, dt)
         remat = cfg.remat and torch.is_grad_enabled()
         for layer in self.layer:
@@ -180,11 +202,16 @@ class BertModel(nn.Module):
         if cfg.mlm_transform:
             x = F.gelu(self.mlm_dense(x, dt))
             x = self.mlm_ln(x, dt)
-        # flax Embed.attend: both sides promoted to the model dtype
-        logits = F.linear(x.float().to(dt), we)
+        # flax Embed.attend: both sides promoted to the model dtype; a
+        # vocabulary-sharded table gives this rank's columns
+        group, start, rows = vocab_slice(self.word_embeddings, we)
+        logits = F.linear(copy_to_tp_region(x.float().to(dt), group), we)
         if cfg.mlm_transform:
-            logits = logits + self.mlm_bias
-        return logits
+            bias = self.mlm_bias
+            if group is not None:
+                bias = copy_to_tp_region(bias, group)[start:start + rows]
+            logits = logits + bias
+        return logits, (group, start)
 
     @torch.no_grad()
     def init_weights(self, generator, std=0.02):
@@ -198,6 +225,13 @@ class BertModel(nn.Module):
             else:
                 p.normal_(0.0, std, generator=generator)
         return self
+
+
+def tp_leaf_info(name, shape, cfg):
+    """``(flax path, flax shape, torch dim of each flax dim)``
+    (``module_inject/auto_tp.py``): the leaves are flax's, in flax's
+    layout (``layer.{i}`` is ``layer_{i}``)."""
+    return flax_path(name, "layer"), tuple(shape), tuple(range(len(shape)))
 
 
 def params_from_flax(tree, cfg: BertConfig, dtype="float32", device="cpu"):

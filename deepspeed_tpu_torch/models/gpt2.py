@@ -37,9 +37,18 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..comm.functional import (copy_to_tp_region, gather_from_tp_region,
+                               reduce_from_tp_region)
+from ..module_inject.auto_tp import Spec
+from ..module_inject.layers import embed_rows, tp_group_of, vocab_slice
 from ..ops.attention import attention_core
 from ..utils.not_ported import not_ported
-from .llama import lm_loss, lm_loss_chunked, sequence_chunk, torch_dtype
+from .llama import (lm_loss, lm_loss_chunked, lm_loss_vocab_parallel,
+                    sequence_chunk, torch_dtype)
+
+# AutoTP pads this leaf to a multiple of tp instead of replicating it
+# (module_inject/auto_tp.py:tp_splits): 50257 rows divide by no tp > 1
+TP_PAD_LEAVES = ("wte.embedding", )
 
 
 @dataclass(frozen=True)
@@ -116,10 +125,20 @@ class Dense(nn.Module):
         self.bias = _param(*out_shape, device=device)
 
     def forward(self, x, dtype):
+        return self._apply(x, dtype, None)
+
+    def row_parallel(self, x, dtype):
+        """:meth:`forward` of a kernel sharded on its input dims: the
+        product's partial sums reduced over the tp group, then the (whole)
+        bias added once.  Without a group, :meth:`forward` bit for bit."""
+        return self._apply(x, dtype, tp_group_of(self))
+
+    def _apply(self, x, dtype, group):
         k = self.kernel.to(dtype)
         lead = x.shape[:x.dim() - self.n_in]
         n_in = x.shape[x.dim() - self.n_in:].numel()
         y = x.to(dtype).reshape(-1, n_in) @ k.reshape(n_in, -1)
+        y = reduce_from_tp_region(y, group)
         y = y + self.bias.to(dtype).reshape(-1)
         return y.view(*lead, *self.bias.shape)
 
@@ -168,8 +187,12 @@ class GPT2Block(nn.Module):
         self.mlp_proj = Dense((4 * D, ), (D, ), device)
 
     def forward(self, x, use_kernel=True):
+        """Under tensor parallelism (``tp_rules``) q, k, v and c_fc are this
+        rank's columns (heads) and c_proj and mlp_proj its rows: h enters
+        the tp region before each column-parallel product and the
+        row-parallel ones reduce their partial sums."""
         dt = torch_dtype(self.config.dtype)
-        h = self.ln_1(x, dt)
+        h = copy_to_tp_region(self.ln_1(x, dt), tp_group_of(self.q_proj))
         q, k, v = self.q_proj(h, dt), self.k_proj(h, dt), self.v_proj(h, dt)
         if self.config.use_ulysses:
             from ..sequence.layer import DistributedAttention
@@ -178,9 +201,10 @@ class GPT2Block(nn.Module):
         else:
             attn = attention_core(q, k, v, causal=True,
                                   use_kernel=use_kernel)
-        x = x + self.c_proj(attn, dt)
-        h = F.gelu(self.c_fc(self.ln_2(x, dt), dt), approximate="tanh")
-        return x + self.mlp_proj(h, dt)
+        x = x + self.c_proj.row_parallel(attn, dt)
+        h = copy_to_tp_region(self.ln_2(x, dt), tp_group_of(self.c_fc))
+        h = F.gelu(self.c_fc(h, dt), approximate="tanh")
+        return x + self.mlp_proj.row_parallel(h, dt)
 
 
 def _init_module(module, generator, std=0.02):
@@ -209,11 +233,19 @@ class GPT2Embedding(nn.Module):
         _, offset = sequence_chunk(self.config, input_ids.shape[1])
         ids = input_ids.long()
         pos = offset + torch.arange(ids.shape[1], device=ids.device)[None]
-        return (F.embedding(ids, self.wte.embedding.to(dt)) +
-                F.embedding(pos, self.wpe.embedding.to(dt)))
+        return (embed_rows(self.wte, self.wte.embedding.to(dt), ids) +
+                embed_rows(self.wpe, self.wpe.embedding.to(dt), pos))
 
     def head(self, x):
-        return F.linear(x, self.wte.embedding.to(x.dtype))
+        """The tied head's logits; a vocabulary-sharded ``wte`` (tp)
+        gives each rank its columns, gathered into the whole vocabulary."""
+        w = self.wte.embedding.to(x.dtype)
+        group, _, rows = vocab_slice(self.wte, w)
+        if group is None and rows == self.config.vocab_size:
+            return F.linear(x, w)
+        logits = F.linear(copy_to_tp_region(x, group), w)
+        return gather_from_tp_region(logits, group)[
+            ..., :self.config.vocab_size]
 
     init_weights = torch.no_grad()(_init_module)
 
@@ -242,11 +274,22 @@ def token_cross_entropy(logits, labels):
         logits, labels.to(logits.device)).mean()
 
 
+def pipeline_tp_rules(config: GPT2Config):
+    """:func:`tp_rules` for :func:`pipeline_module`'s stages
+    (``runtime/pipe/module.py:tp_leaf_info``): a block's rule takes the
+    block stack's leading (pipeline slot) dim; the tied ``wte`` keeps
+    its own."""
+    return {(k if k.startswith("wte/") else f"blocks/{k}"):
+            (v if k.startswith("wte/") else Spec(None, *v))
+            for k, v in tp_rules(config).items()}
+
+
 def pipeline_module(cfg, **kw):
     """GPT-2 (or GPT-3, :func:`gpt3_13b`) as a ``PipelineModule``: the
     embedding, tied to the head, then the blocks, ``ln_f`` and the head;
     the loss is :func:`token_cross_entropy`.  ``kw`` goes to
-    ``PipelineModule`` (e.g. ``activation_checkpoint_interval=1``)."""
+    ``PipelineModule`` (e.g. ``activation_checkpoint_interval=1``).  At
+    tp > 1 pass :func:`pipeline_tp_rules` to ``initialize``."""
     from ..runtime.pipe.module import (LayerSpec, PipelineModule,
                                        TiedLayerSpec)
     layers = ([TiedLayerSpec("wte", GPT2Embedding, cfg)] +
@@ -291,8 +334,8 @@ class GPT2Model(nn.Module):
             positions = offset + torch.arange(ids.shape[1],
                                               device=ids.device)[None]
         wte = self.wte.embedding.to(dt)
-        x = (F.embedding(ids, wte) +
-             F.embedding(positions.long(), self.wpe.embedding.to(dt)))
+        x = (embed_rows(self.wte, wte, ids) +
+             embed_rows(self.wpe, self.wpe.embedding.to(dt), positions))
         remat = cfg.remat and torch.is_grad_enabled()
         for block in self.h:
             if remat:
@@ -300,15 +343,29 @@ class GPT2Model(nn.Module):
             else:
                 x = block(x, use_kernel)
         x = self.ln_f(x, dt)
+        group, start, rows = vocab_slice(self.wte, wte)
+        sharded = group is not None or rows != cfg.vocab_size
+        if sharded:
+            # the tied head over this rank's (padded) vocabulary rows
+            x = copy_to_tp_region(x, group)
+        tp = (group, start, cfg.vocab_size) if sharded else None
         if cfg.loss_chunk_vocab and labels is not None:
             # JAX gpt2.py:118-122: x and the tied kernel in fp32
             return lm_loss_chunked(x.float(), self.wte.embedding.float().t(),
                                    labels, attention_mask,
                                    cfg.loss_chunk_vocab, torch.float32,
-                                   loss_reduction, sp_group)
+                                   loss_reduction, sp_group, tp)
         logits = F.linear(x, wte)                 # tied head, in dtype
         if labels is None:
+            if sharded:
+                logits = gather_from_tp_region(logits, group)[
+                    ..., :cfg.vocab_size]
             return logits
+        if sharded:
+            return lm_loss_vocab_parallel(logits, labels, start,
+                                          cfg.vocab_size, group,
+                                          attention_mask, loss_reduction,
+                                          sp_group)
         return lm_loss(logits, labels.to(logits.device), attention_mask,
                        loss_reduction, sp_group)
 
@@ -337,6 +394,64 @@ def init_leaf(name, t, generator, std=0.02):
         t.normal_(0.0, std, generator=generator)
 
 
+def tp_rules(config: GPT2Config):
+    """Tensor-parallel rules (JAX ``gpt2.py:189``): q/k/v column-parallel
+    on the head axis, c_proj and mlp_proj row-parallel, c_fc
+    column-parallel, ``wte`` on its vocabulary (padded to a multiple of
+    tp, :data:`TP_PAD_LEAVES`).  The column-parallel biases follow their
+    kernels (``auto_tp.shard_params_for_tp``)."""
+    tp = "tp"
+    return {
+        "q_proj/kernel": Spec(None, tp, None),
+        "k_proj/kernel": Spec(None, tp, None),
+        "v_proj/kernel": Spec(None, tp, None),
+        "c_proj/kernel": Spec(tp, None, None),
+        "c_fc/kernel": Spec(None, tp),
+        "mlp_proj/kernel": Spec(tp, None),
+        "wte/embedding": Spec(tp, None),
+    }
+
+
+def flax_path(name, block="h"):
+    """A leaf name's flax path: ``{block}.{i}`` is ``{block}_{i}``."""
+    parts, path = name.split("."), []
+    while parts:
+        part = parts.pop(0)
+        if part == block and parts and parts[0].isdigit():
+            part = f"{block}_{parts.pop(0)}"
+        path.append(part)
+    return tuple(path)
+
+
+def tp_leaf_info(name, shape, cfg):
+    """``(flax path, flax shape, torch dim of each flax dim)``
+    (``module_inject/auto_tp.py``): the leaves are flax's, in flax's
+    layout."""
+    return flax_path(name), tuple(shape), tuple(range(len(shape)))
+
+
+def pad_vocab(model, rows, named=None):
+    """Append ``rows`` rows to ``model``'s ``wte.embedding`` (zeros; a meta
+    model stays meta) and, given ``{name: tensor}`` weights, return them
+    with the same zero rows: the model then runs the padded-vocabulary
+    route that tensor parallelism runs when tp does not divide the
+    vocabulary (its pad columns take -inf), at any tp."""
+    w = model.wte.embedding
+    model.wte.embedding = _param(w.shape[0] + rows, w.shape[1],
+                                 device=w.device)
+    if w.device.type != "meta":
+        with torch.no_grad():
+            model.wte.embedding[:w.shape[0]].copy_(w)
+    if named is None:
+        return None
+    out = dict(named)
+    t = out["wte.embedding"]
+    out["wte.embedding"] = torch.cat(
+        [t, torch.zeros((rows, t.shape[1]), dtype=t.dtype,
+                        device=t.device)])
+    return out
+
+
 def gpt2_streaming_parts(model):
     """The :class:`~..runtime.zero.infinity.StreamingSpec` of a
     :class:`GPT2Model` (blocks take no mask, as in the monolithic
@@ -352,7 +467,8 @@ def gpt2_streaming_parts(model):
 
     def embed_apply(res, input_ids, labels=None, attention_mask=None):
         ids = input_ids.long()
-        pos = torch.arange(ids.shape[1], device=ids.device)[None]
+        _, offset = sequence_chunk(cfg, ids.shape[1])
+        pos = offset + torch.arange(ids.shape[1], device=ids.device)[None]
         return (F.embedding(ids, res["wte.embedding"].to(dt)) +
                 F.embedding(pos, res["wpe.embedding"].to(dt)))
 
@@ -367,7 +483,7 @@ def gpt2_streaming_parts(model):
         if labels is None:
             return logits
         return lm_loss(logits, labels.to(logits.device), attention_mask,
-                       loss_reduction)
+                       loss_reduction, sequence_chunk(cfg, x.shape[1])[0])
 
     L = cfg.num_hidden_layers
     return StreamingSpec(

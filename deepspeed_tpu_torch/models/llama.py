@@ -46,8 +46,8 @@ from ..ops.attention import attention_core
 from ..runtime.activation_checkpointing.checkpointing import (policy_ops,
                                                               remat)
 from ..sequence.cross_entropy import (fused_linear_cross_entropy,
-                                      softmax_cross_entropy_with_logits)
-from ..utils.not_ported import not_ported
+                                      softmax_cross_entropy_with_logits,
+                                      vocab_parallel_cross_entropy)
 
 
 @dataclass(frozen=True)
@@ -219,21 +219,38 @@ def lm_loss(logits, labels, attention_mask=None, loss_reduction="mean",
 
 
 def lm_loss_chunked(x, w, labels, attention_mask, chunk, logit_dtype,
-                    loss_reduction="mean", sp_group=None):
+                    loss_reduction="mean", sp_group=None, tp=None):
     """:func:`lm_loss` through the fused chunked head + loss (``llama.py:189
     _lm_loss_chunked``): x [B, S, D] final hidden states, w [D, V] head
     kernel; no [B, S, V] logits.  Under sp the targets and weights are
-    :func:`lm_loss`'s (the global shift), not a local ``[:, :-1]``."""
+    :func:`lm_loss`'s (the global shift), not a local ``[:, :-1]``.
+    ``tp=(group, start, vocab)``: ``w`` is this rank's columns of a
+    vocabulary-sharded head (``sequence/cross_entropy.py``); x must have
+    entered the tp region."""
 
     def token_loss(rows, tgt):
         xs = x[:, rows]
         B, n, D = xs.shape
         return fused_linear_cross_entropy(
             xs.reshape(B * n, D), w, tgt.reshape(B * n), chunk,
-            logit_dtype).view(B, n)
+            logit_dtype, tp).view(B, n)
 
     return _shifted_loss(token_loss, labels.to(x.device), attention_mask,
                          loss_reduction, sp_group)
+
+
+def lm_loss_vocab_parallel(logits, labels, start, vocab, group,
+                           attention_mask=None, loss_reduction="mean",
+                           sp_group=None):
+    """:func:`lm_loss` of a vocabulary-sharded head's logits: columns
+    ``[start, start + n)`` of a ``vocab``-wide vocabulary on each rank of
+    ``group`` (pad columns past ``vocab``), the loss over the whole
+    vocabulary (``sequence/cross_entropy.py:vocab_parallel_cross_entropy``)
+    without gathering the logits."""
+    return _shifted_loss(
+        lambda rows, tgt: vocab_parallel_cross_entropy(
+            logits[:, rows], tgt, start, vocab, group),
+        labels.to(logits.device), attention_mask, loss_reduction, sp_group)
 
 
 def _shifted_loss(token_loss, labels, attention_mask, loss_reduction,
@@ -375,14 +392,20 @@ class LlamaAttention(nn.Module):
         self.o_proj = _linear(H * Dh, D, False, dtype, device)
 
     def forward(self, x, cos, sin, use_kernel=True):
-        """x: [B, S, D] → [B, S, D]; causal (and windowed) self-attention.
+        return reduce_from_tp_region(self.partial(x, cos, sin, use_kernel),
+                                     tp_group_of(self.o_proj))
+
+    def partial(self, x, cos, sin, use_kernel=True):
+        """x: [B, S, D] → [B, S, D]; causal (and windowed) self-attention,
+        before o_proj's reduce over the tp group (:meth:`forward` adds it;
+        ``runtime/domino`` starts it async).
         GQA repeats the kv heads up to H first (``llama.py:279-282``);
         under Ulysses kv goes to ``DistributedAttention`` at its own width,
         under the ring to ``RingAttention`` (cos/sin then start at the
         chunk's first position).  Under tensor
         parallelism (``module_inject``) the heads are this rank's, read
         from the weights (``attention_heads``), x enters the tp region once
-        for q, k and v, and o_proj's partial sums are reduced."""
+        for q, k and v, and o_proj's product is this rank's partial sum."""
         cfg = self.config
         dt = torch_dtype(cfg.dtype)
         B, S, _ = x.shape
@@ -413,9 +436,7 @@ class LlamaAttention(nn.Module):
             out = attention_core(q, k, v, causal=True,
                                  window=cfg.sliding_window,
                                  use_kernel=use_kernel)
-        return reduce_from_tp_region(
-            _dense(out.reshape(B, S, H * Dh), self.o_proj, dt),
-            tp_group_of(self.o_proj))
+        return _dense(out.reshape(B, S, H * Dh), self.o_proj, dt)
 
 
 class LlamaMLP(nn.Module):
@@ -429,12 +450,15 @@ class LlamaMLP(nn.Module):
         self.down_proj = _linear(I, D, False, dtype, device)
 
     def forward(self, x):
+        return reduce_from_tp_region(self.partial(x),
+                                     tp_group_of(self.down_proj))
+
+    def partial(self, x):
+        """The MLP before down_proj's reduce over the tp group."""
         dt = self.dtype
         x = copy_to_tp_region(x, tp_group_of(self.gate_proj))
-        return reduce_from_tp_region(
-            _dense(F.silu(_dense(x, self.gate_proj, dt)) *
-                   _dense(x, self.up_proj, dt), self.down_proj, dt),
-            tp_group_of(self.down_proj))
+        return _dense(F.silu(_dense(x, self.gate_proj, dt)) *
+                      _dense(x, self.up_proj, dt), self.down_proj, dt)
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -497,22 +521,74 @@ class LlamaModel(nn.Module):
         ``use_kernel=False`` runs attention's plain version on any device.
         ``use_ulysses``: the inputs are the rank's sequence chunk (module
         docstring)."""
+        x, cos, sin, sp_group = self._embed(input_ids)
+        remat_on = self._remat_on()
+        for layer in self.model.layers:
+            if remat_on:
+                x = remat(layer, self.config.remat_policy)(x, cos, sin,
+                                                           use_kernel)
+            else:
+                x = layer(x, cos, sin, use_kernel)
+        return self._head_loss(x, labels, attention_mask, loss_reduction,
+                               sp_group)
+
+    def forward_microstreams(self, n_streams, input_ids, labels=None,
+                             attention_mask=None, use_kernel=True,
+                             loss_reduction="mean"):
+        """:meth:`forward`'s loss with the batch split into ``n_streams``
+        µ-streams that run interleaved block by block
+        (``runtime/domino/transformer.py:domino_layer``: each stream's tp
+        reduces fly under the next stream's products); the parts' losses
+        combine as ``split_microstreams`` combines them."""
+        from ..runtime.domino.transformer import (check_split,
+                                                  combine_losses,
+                                                  domino_layer, split_batch)
+        if labels is None:
+            raise ValueError("forward_microstreams computes the loss: pass "
+                             "labels")
+        B = input_ids.shape[0]
+        check_split(B, n_streams)
+        xs, cos, sin, sp_group = [], None, None, None
+        for ids in split_batch(input_ids, n_streams, B):
+            x, cos, sin, sp_group = self._embed(ids)
+            xs.append(x)
+        remat_on = self._remat_on()
+        for layer in self.model.layers:
+            if remat_on:
+                xs = remat(domino_layer, self.config.remat_policy)(
+                    layer, xs, cos, sin, use_kernel)
+            else:
+                xs = domino_layer(layer, xs, cos, sin, use_kernel)
+        parts = zip(xs, split_batch(labels, n_streams, B),
+                    split_batch(attention_mask, n_streams, B))
+        return combine_losses([
+            self._head_loss(x, lab, mask, loss_reduction, sp_group)
+            for x, lab, mask in parts])
+
+    def _remat_on(self):
+        on = self.config.remat and torch.is_grad_enabled()
+        if on:
+            policy_ops(self.config.remat_policy)   # an unknown name raises
+        return on
+
+    def _embed(self, input_ids):
+        """(hidden states, cos, sin, sp group) of the input ids: the
+        embedding in the model dtype and the rotary tables from the
+        chunk's first position."""
         cfg = self.config
         dt = torch_dtype(cfg.dtype)
         sp_group, offset = sequence_chunk(cfg, input_ids.shape[1])
-        remat_on = cfg.remat and torch.is_grad_enabled()
-        if remat_on:
-            policy_ops(cfg.remat_policy)      # an unknown name raises
-        body = self.model
-        x = tp_embedding(body.embed_tokens, input_ids, dt)
+        x = tp_embedding(self.model.embed_tokens, input_ids, dt)
         cos, sin = rope_tables(cfg.head_dim, cfg.max_position_embeddings,
                                cfg.rope_theta, cfg.rope_scaling, x.device)
-        cos, sin = cos[offset:], sin[offset:]
-        for layer in body.layers:
-            if remat_on:
-                x = remat(layer, cfg.remat_policy)(x, cos, sin, use_kernel)
-            else:
-                x = layer(x, cos, sin, use_kernel)
+        return x, cos[offset:], sin[offset:], sp_group
+
+    def _head_loss(self, x, labels, attention_mask, loss_reduction,
+                   sp_group):
+        """The final norm, the head and, with ``labels``, the loss."""
+        cfg = self.config
+        dt = torch_dtype(cfg.dtype)
+        body = self.model
         x = body.norm(x, dt)
         hd = torch_dtype(cfg.head_dtype)
         head = body.embed_tokens if cfg.tie_word_embeddings else self.lm_head
@@ -539,12 +615,16 @@ class LlamaModel(nn.Module):
         ``llama.py:343-358``): the head's weight (the embedding when tied)
         as the [D, V] kernel, products in the head dtype."""
         group = tp_group_of(head)
-        if group is not None and group.size() > 1:
-            raise not_ported("loss_chunk_vocab with a vocabulary-sharded "
-                             "head (tensor parallelism)", "9b")
+        tp = None
+        if group is not None:
+            # the rank's vocabulary columns, chunk by chunk; the rows'
+            # max and sum-exp combined over tp once (JAX's GSPMD scan)
+            x = copy_to_tp_region(x, group)
+            tp = (group, head.tp_rank * head.weight.shape[0],
+                  self.config.vocab_size)
         return lm_loss_chunked(x, head.weight.t(), labels, attention_mask,
                                self.config.loss_chunk_vocab, hd,
-                               loss_reduction, sp_group)
+                               loss_reduction, sp_group, tp)
 
     def streaming_parts(self):
         """ZeRO-Infinity's view of the model (``runtime/zero/infinity.py``;
@@ -701,9 +781,13 @@ def llama_streaming_parts(model):
                            res["model.embed_tokens.weight"].to(dt))
 
     def block_apply(w, x, use_kernel=True):
+        # under sp the rotary tables start at the chunk's first position
+        # and attention is DistributedAttention over the sp group
+        _, offset = sequence_chunk(cfg, x.shape[1])
         cos, sin = rope_tables(cfg.head_dim, cfg.max_position_embeddings,
                                cfg.rope_theta, cfg.rope_scaling, x.device)
-        return functional_call(block, w, (x, cos, sin, use_kernel))
+        return functional_call(block, w, (x, cos[offset:], sin[offset:],
+                                          use_kernel))
 
     def head_apply(res, x, input_ids, labels=None, attention_mask=None,
                    loss_reduction="mean"):
@@ -716,7 +800,7 @@ def llama_streaming_parts(model):
         if labels is None:
             return logits
         return lm_loss(logits, labels.to(logits.device), attention_mask,
-                       loss_reduction)
+                       loss_reduction, sequence_chunk(cfg, x.shape[1])[0])
 
     L = cfg.num_hidden_layers
     return StreamingSpec(

@@ -208,6 +208,8 @@ class MixtralModel(LlamaModel):
     per-expert copy of the model beside the stacks."""
 
     LAYER = MixtralDecoderLayer
+    # the aux loss rides on the forward: Domino splits it stream by stream
+    forward_microstreams = None
 
     def __init__(self, config: MixtralConfig, device=None):
         if config.shared_expert_intermediate_size:

@@ -181,8 +181,9 @@ def leaf_info(model):
                         "tp_leaf_info (the map from its leaves to the flax "
                         "paths tp rules name)")
     out = []
+    cfg = getattr(model, "config", None)
     for name, p in model.named_parameters():
-        got = info(name, tuple(p.shape), model.config)
+        got = info(name, tuple(p.shape), cfg)
         if got is not None:
             out.append((name, ) + tuple(got))
     return out
@@ -220,8 +221,12 @@ def model_tp_rules(model):
 def tp_splits(model, rules, tp, tp_axis=TP_AXIS):
     """{name: torch dim} of the leaves ``rules`` shard at tp size ``tp``;
     a leaf whose sharded dim ``tp`` does not divide, or whose split is no
-    slab of its torch layout, stays whole (with JAX's warning)."""
+    slab of its torch layout, stays whole (with JAX's warning), unless the
+    model's module lists it in ``TP_PAD_LEAVES``: then each rank holds
+    ``ceil(dim / tp)`` rows, the last ones padded with zeros (GPT-2's
+    50257-row vocabulary, which GSPMD pads too)."""
     out = {}
+    pads = getattr(_model_module(model), "TP_PAD_LEAVES", ())
     for name, path, shape, dims in leaf_info(model):
         spec = match_tp_rule(rules, path_str(path))
         if spec is None:
@@ -230,7 +235,7 @@ def tp_splits(model, rules, tp, tp_axis=TP_AXIS):
         sharded = [d for d, ax in enumerate(spec) if ax is not None]
         if not sharded:
             continue
-        if not _divisible(shape, spec, {tp_axis: tp}):
+        if not _divisible(shape, spec, {tp_axis: tp}) and name not in pads:
             logger.warning(
                 "AutoTP: %s shape %s not divisible by %s — replicating",
                 path_str(path), shape, spec)
@@ -290,6 +295,17 @@ def shard_params_for_tp(model, rules=None, group=None, tp_axis=TP_AXIS):
                                                      size),
                                               requires_grad=p.requires_grad))
             owner.tp_group, owner.tp_rank, owner.tp_size = group, rank, size
+            bias = ".".join(path + ["bias"])
+            n_in = getattr(owner, "n_in", None)
+            if leaf == "kernel" and n_in is not None and dim >= n_in and \
+                    bias in shapes and bias not in splits:
+                # a DenseGeneral sharded on an output dim: its bias (of the
+                # output shape) follows, as GSPMD propagates it
+                b = owner.bias
+                owner.bias = nn.Parameter(
+                    _slice(b.detach(), dim - n_in, rank, size),
+                    requires_grad=b.requires_grad)
+                splits[bias] = dim - n_in
             continue
         setattr(parent, attr, new)
         done[id(owner)] = new
@@ -311,5 +327,13 @@ def tp_local(model, name, t):
     whole = model.tp_global_shapes[name]
     if tuple(t.shape) != tuple(whole):
         return t
-    n = t.shape[dim] // size
-    return t.narrow(dim, rank * n, n).contiguous()
+    from .layers import _slice
+    return _slice(t, dim, rank, size)
+
+
+def tp_trim(t, dim, whole):
+    """The slices of a padded leaf joined along ``dim`` (``tp · ceil(whole
+    / tp)`` long) cut back to its ``whole`` length; else ``t``."""
+    if t.shape[dim] == whole:
+        return t
+    return t.narrow(dim, 0, whole)

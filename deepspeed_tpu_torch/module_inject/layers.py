@@ -30,6 +30,7 @@ The models call the products themselves (``models/llama.py``: one
 below read a layer's group: :func:`tp_group_of`.
 """
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
@@ -50,9 +51,19 @@ def _param(t):
 
 def _slice(t, dim, rank, size):
     """Slice ``rank`` of ``size`` of ``t`` along ``dim``, contiguous (a
-    meta tensor stays meta)."""
-    n = t.shape[dim] // size
-    return t.narrow(dim, rank * n, n).contiguous()
+    meta tensor stays meta).  Where ``size`` does not divide the dim, each
+    slice is ``ceil(dim / size)`` long and the last ones are padded with
+    zeros (a padded vocabulary, ``auto_tp.tp_splits``)."""
+    whole = t.shape[dim]
+    n = -(-whole // size)
+    lo = min(rank * n, whole)
+    part = t.narrow(dim, lo, min(n, whole - lo))
+    if part.shape[dim] == n:
+        return part.contiguous()
+    pad = list(t.shape)
+    pad[dim] = n - part.shape[dim]
+    return torch.cat([part, torch.zeros(pad, dtype=t.dtype,
+                                        device=t.device)], dim=dim)
 
 
 class _Parallel(nn.Module):
@@ -152,6 +163,24 @@ def tp_embedding(module, ids, dtype=None):
         return vocab_parallel_lookup(w, ids, module.vocab_start,
                                      tp_group_of(module))
     return F.embedding(ids.long(), w)
+
+
+def vocab_slice(owner, table):
+    """``(group, first row, rows)`` of a table ``owner`` holds (a flax-style
+    ``Embed`` whose ``embedding`` ``shard_params_for_tp`` cut): its tp group
+    (None when whole) and the global rows its slice covers."""
+    group = tp_group_of(owner)
+    rows = table.shape[0]
+    return group, (owner.tp_rank * rows if group is not None else 0), rows
+
+
+def embed_rows(owner, table, ids):
+    """Rows of ``table`` (``owner``'s, cast as the caller wants) for
+    ``ids``: a vocabulary-parallel lookup when the table is sharded."""
+    group, start, _ = vocab_slice(owner, table)
+    if group is None:
+        return F.embedding(ids.long(), table)
+    return vocab_parallel_lookup(table, ids, start, group)
 
 
 def gather_logits(logits, head):

@@ -12,8 +12,9 @@ dynamic loss scaling), ``optimizer``, ``scheduler``,
 ``use_node_local_storage``), ``comms_logger``, ``comm_optimizations``
 (the collectives engine, its wire ladder, ``zero_mode`` and the
 ``overlap``/``prefetch`` schedulers, with JAX's validation),
-``wall_clock_breakdown``, ``mesh`` (``pp``, ``dp``, ``sp``),
-``sequence_parallel_size``, ``pipeline`` (JAX's ``PipelineConfig``),
+``wall_clock_breakdown``, ``mesh`` (``pp``, ``dp``, ``sp``, ``ep``,
+``tp``), ``sequence_parallel_size``, ``domino`` (``enabled``,
+``n_streams``), ``pipeline`` (JAX's ``PipelineConfig``),
 ``sequence_length`` and ``seed``.
 
 A key that turns on a feature this port does not have yet raises
@@ -212,6 +213,14 @@ class CommOptimizationsConfig(DeepSpeedConfigModel):
     overlap: OverlapConfig = field(default_factory=OverlapConfig)
 
 
+class DominoConfig(DeepSpeedConfigModel):
+    """Domino µ-streams (JAX ``config.py:293``; ``runtime/domino/``): each
+    micro-batch runs as ``n_streams`` independent parts whose tp reduces
+    are started async under the other parts' compute."""
+    enabled: bool = False
+    n_streams: int = 2
+
+
 class MoeConfig(DeepSpeedConfigModel):
     """``moe`` (``config.py:183``): the expert-parallel dispatch
     (``moe/engine.py``).  ``quantized_dispatch`` moves the exchange over
@@ -330,20 +339,10 @@ def _tp_with(pd, *axes):
         "pp" in axes and stages not in ("auto", 1))
 
 
-def _zp(pd):
-    z = pd.get("zero_optimization") or {}
-    return any(int(z.get(k) or 1) > 1 for k in ("zero_hpz_partition_size",
-                                                  "mics_shard_size"))
-
-
 # (what, queue-A item, predicate on the raw config dict)
 _UNPORTED = (
-    ("tensor parallelism (mesh.tp) with pp or sp > 1", "9b",
-     lambda pd: _tp_with(pd, "pp", "sp")),
     ("tensor parallelism (mesh.tp) with expert parallelism (mesh.ep)", "8b",
      lambda pd: _tp_with(pd, "ep")),
-    ("tensor parallelism (mesh.tp) with hpZ / MiCS shard groups", "9b",
-     lambda pd: _mesh_dims(pd).get("tp") not in (None, 1) and _zp(pd)),
     ("expert parallelism (mesh.ep) with pp or sp > 1", "8b",
      lambda pd: _mesh_dims(pd).get("ep") not in (None, 1) and (
          _mesh_dims(pd).get("sp") not in (None, 1) or
@@ -357,7 +356,6 @@ _UNPORTED = (
      int((pd.get("moe") or {}).get("intra_node_size") or 0) > 0),
     ("moe.gating_seed (noisy-gate rngs threaded by the engine)", "8b",
      lambda pd: (pd.get("moe") or {}).get("gating_seed") is not None),
-    ("domino", "9b", lambda pd: _on(pd.get("domino"), "enabled")),
     ("resilience.watchdog", 12,
      lambda pd: _on((pd.get("resilience") or {}).get("watchdog"),
                     "enabled")),
@@ -453,6 +451,7 @@ class DeepSpeedConfig:
         self.mesh_ep = int(mesh.get("ep") or 1)
         self.mesh_tp = int(_mesh_dims(pd).get("tp") or 1)
         self.moe_config = MoeConfig(**pd.get("moe", {}) or {})
+        self.domino_config = DominoConfig(**pd.get("domino", {}) or {})
         _check_moe(self.moe_config)
         sps = {int(v) for v in (mesh.get("sp"),
                                 pd.get("sequence_parallel_size"))

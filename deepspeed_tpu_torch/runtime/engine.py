@@ -99,7 +99,7 @@ import torch
 from .. import comm as dist
 from ..accelerator import accelerator_for, resolve_device
 from ..comm import ReduceOp
-from ..module_inject.auto_tp import tp_local
+from ..module_inject.auto_tp import tp_local, tp_trim
 from ..ops.adam import FlatTransform, fused_adam
 from ..ops.lamb import FusedLambTransform, fused_lamb
 from ..ops.lion import fused_lion, sgd
@@ -285,7 +285,14 @@ class DeepSpeedEngine(OffloadMixin):
         if self._onebit:
             from .fp16.onebit.common import check_compatible
             check_compatible(self, config.optimizer_name)
-        self._loss_fn = make_scaled_loss_fn(model,
+        # the loss-returning call of a micro-step: the model, or its
+        # µ-streams under Domino (JAX engine.py:1230-1240)
+        self._apply = model
+        dc = config.domino_config
+        if dc.enabled:
+            from .domino.transformer import split_microstreams
+            self._apply = split_microstreams(model, dc.n_streams)
+        self._loss_fn = make_scaled_loss_fn(self._apply,
                                             self.gradient_accumulation_steps())
         # the loss over the global batch (module docstring); a 1-bit
         # optimizer takes each rank's mean, as JAX's 1-bit micro-step does
@@ -457,24 +464,34 @@ class DeepSpeedEngine(OffloadMixin):
         to this rank's slices over the tp group
         (``module_inject/auto_tp.py:shard_params_for_tp``).  ``_tp_splits``:
         {leaf name: (dim, tp rank, tp size)} of the sharded leaves; empty
-        at tp 1.  The Llama family trains at tp; GPT-2 and BERT (item 9b)
-        and Mixtral (item 8b) are refused, as are the 1-bit optimizers
-        and parameter streaming (9b)."""
+        at tp 1.  The Llama family, GPT-2 and BERT train at tp (their
+        forwards make the tp collectives); Mixtral is refused (item 8b);
+        the 1-bit optimizers and parameter streaming refuse tp as the
+        reference does (``fp16/onebit/common.py:check_compatible``,
+        ``__init__.py``)."""
         self._tp_splits = {}
         if self.tp_world_size == 1:
             return
+        from ..models.bert import BertModel
+        from ..models.gpt2 import GPT2Model
         from ..models.llama import LlamaModel
         from ..models.mixtral import MixtralModel
         from ..module_inject.auto_tp import shard_params_for_tp
         if isinstance(model, MixtralModel):
             raise not_ported("Mixtral training with tensor parallelism "
                              "(tp > 1)", "8b")
-        if not isinstance(model, LlamaModel):
-            raise not_ported(f"{type(model).__name__} training with tensor "
-                             "parallelism (tp > 1)", "9b")
-        if self._config.optimizer_name in ONEBIT_OPTIMIZERS:
-            raise not_ported("the 1-bit optimizers with tensor parallelism",
-                             "9b")
+        from .pipe.module import PipeStage
+        if isinstance(model, PipeStage) and tp_rules is None:
+            raise ValueError("a pipeline at tp > 1 takes its tp_rules from "
+                             "the caller (initialize(tp_rules=...)): its "
+                             "stage layers name their own leaves")
+        if not isinstance(model, (LlamaModel, GPT2Model, BertModel,
+                                  PipeStage)):
+            # a model whose forward makes no tp collectives would train on
+            # slices as if they were whole
+            raise ValueError(f"{type(model).__name__} has no tensor-"
+                             "parallel forward: the Llama family, GPT-2 "
+                             "and BERT train at tp > 1")
         if tp_rules is None:
             tp_rules = getattr(model, "tp_sharding_rules", None)
         if tp_rules is None:
@@ -568,8 +585,10 @@ class DeepSpeedEngine(OffloadMixin):
         split dim (collectives), else ``t``."""
         tp = self._tp_splits.get(name)
         if tp is not None:
-            return dist.all_gather(t.contiguous(), group=self._tp_group,
-                                   axis=tp[0])
+            # a padded leaf (auto_tp.tp_splits) loses its pad rows
+            return tp_trim(dist.all_gather(t.contiguous(),
+                                           group=self._tp_group, axis=tp[0]),
+                           tp[0], self._tp_whole_shape(name)[tp[0]])
         if name not in self._experts:
             return t
         n = self._ep_group.size()
@@ -1215,7 +1234,7 @@ class DeepSpeedEngine(OffloadMixin):
         the all-reduced count.  Its gradients, summed over the ranks, are
         the global mean's, and every row's share of them is the share it
         has in JAX's program, so fp16 overflows where JAX's does."""
-        out = self.module(*inputs, loss_reduction="sum_count", **kwargs)
+        out = self._apply(*inputs, loss_reduction="sum_count", **kwargs)
         if not isinstance(out, tuple):
             raise TypeError("loss_reduction='sum_count' must return (sum, "
                             "count)")

@@ -45,12 +45,13 @@ class OnebitState:
 
 
 def check_compatible(engine, name):
-    """JAX ``common.py:47``: ZeRO stage 0 on a pure data-parallel mesh."""
+    """JAX ``common.py:47``: ZeRO stage 0 on a pure data-parallel mesh (no
+    tp, sp or pp)."""
     if engine.zero_stage > 0:
         raise ValueError(f"{name} is incompatible with ZeRO stages > 0 "
                          "(reference 1-bit optimizers have the same scope)")
-    # tp > 1 is refused when the config is read (queue A item 9b)
-    if engine.seq_parallel_world_size > 1 or engine.pp_world_size > 1:
+    if engine.tp_world_size > 1 or engine.seq_parallel_world_size > 1 or \
+            engine.pp_world_size > 1:
         raise ValueError(f"{name} requires a pure data-parallel mesh")
 
 

@@ -41,9 +41,16 @@ counters).  Either loads at any world size, and
 ``checkpoint.convert_to_universal`` converts either; a universal directory
 loads into a streaming engine with ``checkpoint.load_universal``.
 
+Under sequence parallelism (JAX's single-process meshes of any shape,
+``:25-28``) each rank streams its chunk of the sequence: the model's
+``use_ulysses`` blocks run ``DistributedAttention`` over the sp group in
+the forward and in the backward's recompute, the rotary tables and
+positions start at the chunk's first position, the loss is the global
+next-token loss, and the data group the store is sharded over and the
+gradients are reduce-scattered over is dp × sp.
+
 Refused loudly, with JAX's messages: fp16, ZeRO++, a model without
-``streaming_parts``, an optimizer with no host kernel (LAMB); sequence
-parallelism is queue A item 9b.
+``streaming_parts``, an optimizer with no host kernel (LAMB).
 """
 
 import json
@@ -60,7 +67,6 @@ import torch
 
 from .. import comm as dist
 from ..utils.logging import log_dist
-from ..utils.not_ported import not_ported
 from ..utils.timer import (BACKWARD_GLOBAL_TIMER, FORWARD_GLOBAL_TIMER,
                            STEP_GLOBAL_TIMER)
 from .engine import DeepSpeedEngine
@@ -152,9 +158,6 @@ class InfinityEngine(DeepSpeedEngine):
         self._store = None
         self._pending_install = None
         super().__init__(*args, **kwargs)
-        if self.seq_parallel_world_size > 1:
-            raise not_ported("ZeRO-Infinity parameter streaming with "
-                             "sequence parallelism", "9b")
         sharded = self._data_world > 1
         oo = zc.offload_optimizer
         state_dev = zc.offload_optimizer_device

@@ -56,6 +56,14 @@ uniform per-row mean; under sequence parallelism it sees the rank's
 chunk of the sequence and the chunks' means are averaged with equal
 weights.
 
+Tensor parallelism (``mesh.tp``, JAX ``:57-96``): each stage's layers
+are cut over the stage's tp group by the ``tp_rules`` the caller passes
+(``module.tp_leaf_info`` maps a stage's leaf to JAX's pipeline path, its
+block stack's leading dim a pipeline slot), and the layers make the tp
+collectives themselves (``module_inject/layers.py``).  A tied module's
+spans are reduced over the stages of one tp coordinate, each tp rank its
+slice; the norm sums the tp-sharded leaves' slices over tp once.
+
 Refused, as in JAX (``__init__.py:68-74``, ``pipe/engine.py:75-93``):
 ``offload_param``, ZeRO++'s quantized collectives and progressive layer
 drop (the config refuses it).
@@ -88,7 +96,7 @@ class PipelineEngine(DeepSpeedEngine):
                  model_parameters=None, training_data=None,
                  lr_scheduler=None, collate_fn=None, config=None, mpu=None,
                  device=None, mesh_param=None, dist_init_required=None,
-                 distributed_port=29500):
+                 distributed_port=29500, tp_rules=None):
         from ..config import DeepSpeedConfig
         if not isinstance(model, PipelineModule):
             raise TypeError("PipelineEngine trains a PipelineModule")
@@ -116,7 +124,8 @@ class PipelineEngine(DeepSpeedEngine):
                          config=config, mpu=mpu, device=device,
                          mesh_param=mesh_param,
                          dist_init_required=dist_init_required,
-                         distributed_port=distributed_port)
+                         distributed_port=distributed_port,
+                         tp_rules=tp_rules)
         self.micro_batches = self.gradient_accumulation_steps()
 
     # ------------------------------------------------------------------ setup
@@ -286,12 +295,24 @@ class PipelineEngine(DeepSpeedEngine):
             at = max(at, b)
         if at < grads.numel():
             kept.append((at, grads.numel()))
-        sq = torch.zeros(1, dtype=torch.float32, device=self.device)
-        for a, b in kept:
-            sq += torch.linalg.vector_norm(grads[a:b],
-                                           dtype=torch.float32).square()
+        # [tp-sharded leaves, the others]: a sharded leaf's slices are
+        # summed over the tp group, a replicated one counted once
+        kinds = (self._tp_ranges(grads.numel()) if self._tp_splits
+                 else ([], [(0, grads.numel())]))
+        sq = torch.zeros(2, dtype=torch.float32, device=self.device)
+        for kind, ranges in enumerate(kinds):
+            for lo, hi in ranges:
+                for a, b in kept:
+                    a, b = max(a, lo), min(b, hi)
+                    if a < b:
+                        sq[kind] += torch.linalg.vector_norm(
+                            grads[a:b], dtype=torch.float32).square()
         if self.zero_plan.sharded and self.zero_plan.world_size > 1:
             sq = dist.all_reduce(sq, group=self._shard_group)
+        if self._tp_splits:
+            sq[0] = dist.all_reduce(sq[:1].contiguous(),
+                                    group=self._tp_group)[0]
+        sq = sq.sum().reshape(1)
         return dist.all_reduce(sq, group=self._pp_group.as_flat())[0].sqrt()
 
     def _agree_flags(self, flags):

@@ -392,6 +392,23 @@ class PipeStage(nn.Module):
         return self
 
 
+def tp_leaf_info(name, shape, cfg=None):
+    """``(flax path, flax shape, torch dim of each flax dim)`` of a stage's
+    leaf (``module_inject/auto_tp.py``; the stage's layers keep flax's
+    names and layouts): ``blocks.{i}.…`` is JAX's stacked ``blocks/…``
+    leaf, whose leading (pipeline slot) dim is no torch dim; ``pre.{k}``
+    and ``post.{k}`` are ``layer_{k}``, ``tied.{key}`` the tied module."""
+    parts = name.split(".")
+    dims = tuple(range(len(shape)))
+    if parts[0] == "blocks":
+        return ("blocks", ) + tuple(parts[2:]), (1, ) + tuple(shape), \
+            (None, ) + dims
+    if parts[0] in ("pre", "post"):
+        return (parts[0], f"layer_{parts[1]}") + tuple(parts[2:]), \
+            tuple(shape), dims
+    return tuple(parts), tuple(shape), dims
+
+
 # ------------------------------------------------------------ weights across
 def _slot_to_layer(n_blocks, num_stages):
     """The JAX engine's padded block slots (``pipe/engine.py:104-116``):

@@ -7,11 +7,11 @@ order, most-major first: rank r's coordinates are those of the r-th
 device of JAX's mesh (``rank = (((pp·DP + dp)·EP + ep)·SP + sp)·TP +
 tp``).  A group is a torch process group with the axis names it spans:
 the ranks that differ from this one only along those axes.  pp, dp, ep
-sp and tp are ported; tp > 1 with pp, sp, hpZ/MiCS raises ROADMAP queue A
-item 9b, with ep item 8b, and ep > 1 with pp or sp > 1 item 8b.  tp is the
-innermost axis, so a tp group is ``tp`` consecutive ranks (one node's
-NVLink); at tp > 1 the data group is the ranks that share this rank's tp
-coordinate.  ``devices`` (a list of world ranks, whole tp groups) builds
+sp and tp are ported; tp > 1 with ep raises ROADMAP queue A item 8b, and
+ep > 1 with pp or sp > 1 item 8b.  tp is the innermost axis, so a tp
+group is ``tp`` consecutive ranks (one node's NVLink) and an sp or pp
+group strides over them; at tp > 1 the data group is the ranks that share
+this rank's tp (and pp) coordinate.  ``devices`` (a list of world ranks, whole tp groups) builds
 the mesh over a subset of the world: position p of the list takes the
 coordinates of JAX's p-th device, and a rank outside the list holds local
 groups only (``MeshState.member``).  ``ep`` factors the data-parallel degree dp into (dp/ep, ep), as
@@ -30,7 +30,10 @@ one of every rank is the world.
 groups, JAX ``groups.py:171-182``) factors each pipeline stage's data
 group (dp × sp) into ``zp_outer × zp``: the ``zp`` groups of consecutive
 ranks and the ``zp_outer`` groups of the ranks ``zp`` apart, the torch
-counterparts of the JAX hpZ mesh's axes (which carries pp too).
+counterparts of the JAX hpZ mesh's axes (which carries pp and tp too).
+At tp > 1, or over a device subset, the data group's ranks are taken in
+their data order ("consecutive" there), so each tp coordinate has its
+own zp groups.
 The collectives engine's hierarchies are the same kind of pair
 (:func:`factor_groups`).
 """
@@ -106,14 +109,17 @@ def _world_size():
     return comm.get_world_size()
 
 
-def factor_groups(s, state=None, block=None):
+def factor_groups(s, state=None, block=None, lists=None):
     """The (inner, outer) pair of a split of each block of ``block``
     consecutive ranks (default: the world) into groups of ``s``
     consecutive ranks and groups of the ranks ``s`` apart, made once (a
     collective: every rank calls it with the same arguments).  ``s`` equal
     to the block: inner is the block, outer this rank alone; 1: the
     reverse.  A block is a pipeline stage's data group (pp is the mesh's
-    most-major axis), so hpZ's and MiCS's groups stay inside a stage."""
+    most-major axis), so hpZ's and MiCS's groups stay inside a stage.
+    ``lists``: the blocks as lists of world ranks instead (the data groups
+    of a mesh with tp > 1 or over a device subset: "consecutive" then means
+    consecutive in a list); a rank in none of them holds local groups."""
     import torch.distributed as tdist
     from ..comm import comm
     from ..comm.backend import ProcessGroup
@@ -122,27 +128,30 @@ def factor_groups(s, state=None, block=None):
     block = world if block is None else block
     if (s, block) in st.factors:
         return st.factors[(s, block)]
-    if s < 1 or world % block or block % s:
+    if lists is None:
+        if world % block:
+            raise ValueError(f"a block of {block} ranks must divide the "
+                             f"world of {world}")
+        lists = [list(range(b, b + block)) for b in range(0, world, block)]
+    if s < 1 or block % s:
         raise ValueError(f"a split of {s} ranks a group must divide the "
                          f"{block} ranks of a block of the world of {world}")
     inner_axes, outer_axes = (DP_AXIS + "_in", ), (DP_AXIS + "_out", )
     rank = comm.get_rank() if world > 1 else 0
 
-    def split(lists, axes):
+    def split(groups, axes):
         mine = None
-        for ranks in lists:
+        for ranks in groups:
             # one rank: local; every rank: the world
             pg = (tdist.new_group(ranks) if 1 < len(ranks) < world
                   else None)
             if rank in ranks:
                 mine = ProcessGroup(axes, pg=pg, local=len(ranks) == 1)
-        return mine
+        return mine or ProcessGroup(axes, local=True)
 
-    bases = range(0, world, block)
-    inner = split([list(range(b + o * s, b + (o + 1) * s)) for b in bases
+    inner = split([b[o * s:(o + 1) * s] for b in lists
                    for o in range(block // s)], inner_axes)
-    outer = split([list(range(b + i, b + block, s)) for b in bases
-                   for i in range(s)], outer_axes)
+    outer = split([b[i::s] for b in lists for i in range(s)], outer_axes)
     st.factors[(s, block)] = pair = (inner, outer)
     return pair
 
@@ -191,10 +200,13 @@ def axis_rank_lists(axes):
     """Every group over ``axes``, as rank lists in one order on every rank
     (one list for each coordinate of the other axes)."""
     st = get_mesh_state()
-    shape = st.mesh.shape
+    return _rank_lists(st.mesh.shape, axes, st.ranks)
+
+
+def _rank_lists(shape, axes, ranks=None):
     others = [a for a in AXES if a not in axes]
     return [_axis_ranks(shape, dict(zip(others, vals), **{a: 0 for a in axes}),
-                        axes, st.ranks)
+                        axes, ranks)
             for vals in product(*(range(shape[a]) for a in others))]
 
 
@@ -300,9 +312,6 @@ def initialize_mesh(dp=None, pp=1, sp=1, tp=1, ep=1, devices=None,
     if tp > 1 and ep > 1:
         raise not_ported(f"tensor parallelism (tp={tp}) with expert "
                          f"parallelism (ep={ep})", "8b")
-    if tp > 1 and pp * sp > 1:
-        raise not_ported(f"tensor parallelism (tp={tp}) with pp={pp} or "
-                         f"sp={sp}", "9b")
     zp = zero_partition_size if zero_partition_size and \
         zero_partition_size > 1 else None
     if zp is not None and dp % zp != 0:
@@ -310,10 +319,6 @@ def initialize_mesh(dp=None, pp=1, sp=1, tp=1, ep=1, devices=None,
             f"zero_partition_size={zp} must divide dp={dp}")
     if zp is not None and ep > 1:
         raise not_ported("hpZ / MiCS shard groups with ep > 1", "8b")
-    if zp is not None and tp > 1:
-        raise not_ported(f"hpZ / MiCS shard groups with tp={tp}", "9b")
-    if ranks is not None and zp is not None:
-        raise not_ported("hpZ / MiCS shard groups on a device subset", "9b")
     if ranks is not None and tuple(ranks) == tuple(range(world)):
         ranks = None
     mesh = Mesh(pp=pp, dp=dp // ep, ep=ep, sp=sp, tp=tp)
@@ -335,7 +340,10 @@ def initialize_mesh(dp=None, pp=1, sp=1, tp=1, ep=1, devices=None,
         kinds += _TP_GROUP_AXES
     state.groups = _make_groups(mesh.shape, rank, kinds, ranks, world)
     if zp is not None:
-        factor_groups(zp, state, block=dp * sp)
+        # each data group (the dp × sp ranks of one pp and tp coordinate,
+        # strided by tp) factored into zp × zp_outer
+        factor_groups(zp, state, block=dp * sp, lists=_rank_lists(
+            mesh.shape, dp_axes() + (SP_AXIS, ), ranks))
     _mesh_state = state
     return _mesh_state
 

@@ -16,7 +16,11 @@ against the JAX package on the CPU, fp32 unless stated, from numpy seeds.
   engine (two gloo processes) against JAX's engine on an sp-2 mesh: the
   shifted targets cross the ranks' chunks (the global shift, not a local
   ``[:, :-1]``); losses at 1e-5, the final master at 1e-5 relative plus
-  lr/20.
+  lr/20; in the same spawn, ZeRO 3 × tp 2 with the head sharded on its
+  vocabulary (JAX's ``test_chunked_loss_composes_with_zero3_tp``) against
+  JAX's engine on a tp-2 mesh by the same rule;
+* one rank's slice of a padded vocabulary (``tp=(None, start, vocab)``):
+  pad columns -inf, the unpadded loss and gradients.
 """
 
 import gc
@@ -266,15 +270,44 @@ def _sp_leg():
                 batches=batches)
 
 
-def _jax_sp_train(leg):
+TP_CFG = dict(dtype="float32", remat=False, loss_chunk_vocab=32)
+
+
+def _tp_leg():
+    """JAX's ``test_chunked_loss_composes_with_zero3_tp`` at two ranks:
+    ``llama_tiny`` with ``loss_chunk_vocab`` 32 under ZeRO 3 × tp 2 (the
+    head sharded on its vocabulary: 128 columns, four chunks a rank), in
+    fp32 so that it can be held to JAX's engine."""
+    rng = np.random.default_rng(14)
+    batches = [(ids, ids) for ids in (
+        rng.integers(0, 256, size=(2, 32)).astype(np.int32)
+        for _ in range(3))]
+    return dict(kind="train", model="llama", cfg=TP_CFG,
+                tree=llama_tree(jax_llama.llama_tiny(**TP_CFG), seed=15),
+                config={"train_micro_batch_size_per_gpu": 2,
+                        "optimizer": {"type": "fusedadam",
+                                      "params": {"lr": LR}},
+                        "zero_optimization": {
+                            "stage": 3,
+                            "stage3_param_persistence_threshold": 0},
+                        "mesh": {"tp": 2}},
+                tp_rules=port_llama.tp_rules(port_llama.llama_tiny(
+                    **TP_CFG)),
+                batches=batches)
+
+
+def _jax_sp_train(leg, tp=1):
     groups.reset_mesh()
-    groups.initialize_mesh(dp=1, sp=2, devices=jax.devices()[:2])
+    groups.initialize_mesh(dp=1, sp=2 // tp, tp=tp,
+                           devices=jax.devices()[:2])
     try:
+        jcfg = jax_llama.llama_tiny(**leg["cfg"])
+        kw = {} if tp == 1 else dict(tp_rules=jax_llama.tp_rules(jcfg))
         eng = deepspeed_tpu.initialize(
-            model=jax_llama.LlamaModel(jax_llama.llama_tiny(**leg["cfg"])),
+            model=jax_llama.LlamaModel(jcfg),
             model_parameters=jax.tree_util.tree_map(jnp.asarray,
                                                     leg["tree"]),
-            config=dict(leg["config"]))[0]
+            config=dict(leg["config"]), **kw)[0]
         losses = []
         for batch in leg["batches"]:
             loss = eng(*eng.shard_batch(*batch))
@@ -289,19 +322,73 @@ def _jax_sp_train(leg):
         gc.collect()
 
 
-def test_llama_chunked_loss_sp2_matches_jax_engine():
-    leg = _sp_leg()
-    want = _jax_sp_train(leg)
-    got = spawn(2, [dict(leg, name="sp2")], timeout=200)["sp2"]
+@pytest.fixture(scope="module")
+def w2():
+    """The world-2 legs, one spawn: (leg, JAX's run, the port's ranks) by
+    name."""
+    legs = {"sp2": (_sp_leg(), 1), "z3_tp2": (_tp_leg(), 2)}
+    want = {n: _jax_sp_train(leg, tp) for n, (leg, tp) in legs.items()}
+    got = spawn(2, [dict(leg, name=n) for n, (leg, _) in legs.items()],
+                timeout=300)
+    return {n: (legs[n][0], want[n], got[n]) for n in legs}
+
+
+def _check_w2(leg, want, got):
     for r in got:
         np.testing.assert_allclose(r["losses"], want["losses"], rtol=1e-5)
     rank0 = got[0]
     port = {n: rank0["master"][o:o + k].reshape(s)
             for n, o, k, s in rank0["names"]}
     ref = {n: t.numpy() for n, t in port_llama.params_from_flax(
-        want["master"], port_llama.llama_tiny(**SP_CFG),
+        want["master"], port_llama.llama_tiny(**leg["cfg"]),
         dtype="float32").items()}
     assert set(port) == set(ref)
     for n in ref:
         np.testing.assert_allclose(port[n], ref[n], rtol=1e-5,
                                    atol=LR / 20, err_msg=n)
+
+
+def test_llama_chunked_loss_sp2_matches_jax_engine(w2):
+    _check_w2(*w2["sp2"])
+
+
+def test_chunked_loss_composes_with_zero3_tp(w2):
+    """The chunked head + loss on a vocabulary-sharded head: each rank's
+    columns chunk by chunk, the rows' max and sum-exp combined over tp
+    once; losses and master as JAX's engine at tp 2, and the loss falls."""
+    leg, want, got = w2["z3_tp2"]
+    _check_w2(leg, want, got)
+    assert got[0]["losses"][-1] < got[0]["losses"][0]
+
+
+@pytest.mark.parametrize("chunk", (16, 40))
+def test_fused_ce_on_a_padded_vocabulary_slice(chunk):
+    """One rank's view (``tp=(None, start, vocab)``): the columns past the
+    vocabulary are pad (-inf), labels outside the slice are another
+    rank's.  At start 0 with 3 pad columns: the unpadded loss and
+    gradients at 1e-6, the pad columns' gradient 0."""
+    rng = np.random.default_rng(21)
+    N, D, V = 12, 16, 61
+    x = torch.from_numpy(rng.standard_normal((N, D)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((D, V)).astype(np.float32))
+    lab = torch.from_numpy(rng.integers(0, V, N))
+    wp = torch.cat([w, torch.zeros(D, 3)], dim=1)
+    x1, w1 = x.clone().requires_grad_(), w.clone().requires_grad_()
+    x2, w2_ = x.clone().requires_grad_(), wp.clone().requires_grad_()
+    want = fused_linear_cross_entropy(x1, w1, lab, chunk)
+    got = fused_linear_cross_entropy(x2, w2_, lab, chunk, tp=(None, 0, V))
+    np.testing.assert_allclose(got.detach().numpy(), want.detach().numpy(),
+                               rtol=1e-6)
+    want.sum().backward()
+    got.sum().backward()
+    np.testing.assert_allclose(x2.grad.numpy(), x1.grad.numpy(), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(w2_.grad[:, :V].numpy(), w1.grad.numpy(),
+                               rtol=1e-5, atol=1e-6)
+    assert not w2_.grad[:, V:].any()
+    from deepspeed_tpu_torch.sequence.cross_entropy import \
+        vocab_parallel_cross_entropy
+    logits = x @ wp
+    np.testing.assert_allclose(
+        vocab_parallel_cross_entropy(logits, lab, 0, V, None).numpy(),
+        softmax_cross_entropy_with_logits(x @ w, lab).numpy(), rtol=1e-6)

@@ -29,7 +29,9 @@ weights and batches, the JAX engine on a one-device mesh.
   rtol 1e-5), the port's world-2 tag through the port's converter into
   JAX's dp-2 streaming engine (the next losses rtol 1e-5, the master by
   the one-rank rule), and a world-1 tag through universal into ZeRO 3 and
-  back into streaming, bit for bit.
+  back into streaming, bit for bit; streaming under Ulysses at sp 2
+  against JAX's streaming engine on an sp-2 mesh (losses at 1e-5, the
+  master by the dp-2 rule).
 """
 
 import os
@@ -349,6 +351,10 @@ def w2(tmp_path_factory):
     legs.append(dict(kind="stream", name="from_jax_universal",
                      model="llama", cfg=CFG, tree=tree, config=_config(),
                      universal=str(tmp / "jax_uni"), batches=[]))
+    legs.append(dict(kind="stream", name="sp2", model="llama",
+                     cfg=dict(CFG, use_ulysses=True), tree=tree,
+                     config=_config(clip=1.0, sequence_parallel_size=2),
+                     batches=[(b[0][:2], b[1][:2]) for b in data[:3]]))
     got = spawn(2, legs, timeout=300)
     return dict(got=got, legs={leg["name"]: leg for leg in legs}, tmp=tmp,
                 tree=tree, data=data, w1_master=w1_master,
@@ -374,6 +380,31 @@ def test_streaming_at_world_two_matches_jax(w2, gas, clip):
     sizes = got[0]["store_numel"]
     assert sizes == got[1]["store_numel"] and all(
         n % 16 == 0 for n in sizes.values())
+
+
+def test_streaming_at_sp2_matches_jax(w2):
+    """Streaming under Ulysses at sp 2 (two gloo ranks, each its half of
+    the sequence; each streamed block's forward and recompute run
+    DistributedAttention; the store sharded over the dp × sp group)
+    against JAX's streaming engine on an sp-2 mesh: losses at rtol 1e-5,
+    the master by the noisy rule of the dp-2 test."""
+    leg = w2["legs"]["sp2"]
+    got = w2["got"]["sp2"]
+    jcfg, pcfg = _llama(use_ulysses=True)
+    groups.initialize_mesh(dp=1, sp=2, devices=jax.devices()[:2])
+    try:
+        eng = _jax(jcfg, leg["tree"], dict(leg["config"]))
+        want = _train(eng, [b[0] for b in leg["batches"]], len(
+            leg["batches"]))
+        master = _jax_master(eng, pcfg)
+    finally:
+        groups.reset_mesh()
+        jax_dist.destroy_process_group()
+    assert got[0]["losses"] == got[1]["losses"]
+    np.testing.assert_allclose(got[0]["losses"], want, rtol=1e-5)
+    for r in range(2):
+        _check_master({n: torch.from_numpy(a) for n, a in
+                       got[r]["master"].items()}, master, noisy=True)
 
 
 def test_world_two_tag_resumes_exactly_and_loads_at_world_one(w2):

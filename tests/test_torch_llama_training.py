@@ -382,11 +382,11 @@ def test_batch_trinity_matches_jax(i):
 
 REFUSED = [
     ({"optimizer": {"type": "muon"}}, 11),
-    ({"mesh": {"tp": 2, "sp": 2}}, "9b"),
+    ({"mesh": {"tp": 2, "ep": 2}}, "8b"),
     ({"mesh": {"ep": 2, "sp": 2}}, "8b"),
     ({"moe": {"enabled": True, "quantized_dispatch": True,
               "intra_node_size": 2}}, "8b"),
-    ({"domino": {"enabled": True}}, "9b"),
+    ({"mesh": {"ep": 2, "pp": 2}}, "8b"),
     ({"moe": {"gating_seed": 7}}, "8b"),
     ({"optimizer": {"type": "adagrad"}}, 11),
     ({"resilience": {"watchdog": {"enabled": True}}}, 12),

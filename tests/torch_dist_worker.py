@@ -67,7 +67,8 @@ Leg kinds:
 * ``groups``: for each of the leg's meshes (``initialize_mesh`` keyword
   arguments, ``devices`` a list of world ranks), this rank's coordinates,
   whether it is in the mesh, and the world ranks of its tp and data
-  groups (their sizes and ranks, and a sum over each as a check);
+  groups (with ``more``: its sp, pp and hpZ groups too; their sizes and
+  ranks, and a sum over each as a check);
 * ``functional``: ``comm/functional.py``'s differentiable collectives and
   ``module_inject``'s parallel layers over the world: outputs and input
   gradients;
@@ -86,6 +87,10 @@ Leg kinds:
 * ``ac_partition``: ``partition_activations`` over a tp group of the
   world: a two-block model's loss and gradients with the flag on and off,
   and one saved activation's packed slice and unpacked whole;
+* ``domino_overlap``: an engine built from the leg's config (its
+  ``mesh.tp``), then ``runtime/domino``'s ``domino_ab`` on its model's
+  loss of the leg's ids, without gradients: the plain and
+  µ-stream overlap reports and the winner;
 * ``stream``: ZeRO-Infinity parameter streaming (``InfinityEngine``) from
   the leg's flax tree, or from the tag at ``load`` (the universal
   directory at ``universal``): each batch's loss, then the whole fp32
@@ -652,7 +657,7 @@ def pipe_twins():
     """The JAX pipeline tests' flax layers as torch modules that take
     ``device=``, with the flax parameter names and shapes (a Dense kernel
     is [in, out...], products in the promoted dtype, as flax computes
-    them): ``Block``, ``Embed``, ``Head``, ``TiedEmbed``
+    them): ``Block``, ``TPBlock``, ``Embed``, ``Head``, ``TiedEmbed``
     (``tests/unit/runtime/pipe/test_pipe_engine.py``) and ``UEmbed``,
     ``UlyssesBlock``, ``UHead`` (``test_pipe_sp.py``); and their losses."""
     import torch
@@ -686,6 +691,27 @@ def pipe_twins():
 
         def forward(self, x):
             return x + torch.tanh(self.fc(x))
+
+    class TPBlock(nn.Module):
+        """``test_pipe_engine.py:test_pp_tp_dp_composition``'s block (x +
+        down(tanh(up(x)))), its products tensor-parallel: ``up``
+        column-parallel, ``down`` row-parallel, once ``tp_rules`` cut
+        them."""
+
+        def __init__(self, d, device=None):
+            super().__init__()
+            self.up = Dense(d, (4 * d, ), device)
+            self.down = Dense(4 * d, (d, ), device)
+
+        def forward(self, x):
+            from deepspeed_tpu_torch.comm.functional import (
+                copy_to_tp_region, reduce_from_tp_region)
+            from deepspeed_tpu_torch.module_inject.layers import tp_group_of
+            h = torch.tanh(self.up(copy_to_tp_region(
+                x, tp_group_of(self.up))))
+            y = reduce_from_tp_region(h @ self.down.kernel,
+                                      tp_group_of(self.down))
+            return x + y + self.down.bias
 
     class Embed(nn.Module):
         def __init__(self, vocab, d, device=None):
@@ -753,7 +779,8 @@ def pipe_twins():
         lp = torch.log_softmax(logits.float(), dim=-1)
         return -torch.gather(lp, -1, labels.long()[..., None]).mean()
 
-    return dict(Block=Block, Embed=Embed, Head=Head, TiedEmbed=TiedEmbed,
+    return dict(Block=Block, TPBlock=TPBlock, Embed=Embed, Head=Head,
+                TiedEmbed=TiedEmbed,
                 UEmbed=UEmbed, UlyssesBlock=UlyssesBlock, UHead=UHead,
                 mse=mse, xent=xent)
 
@@ -776,10 +803,11 @@ def pipe_module(spec):
 
 
 def _stage_master(engine):
-    """This stage's fp32 master by leaf name (a collective when sharded)."""
+    """This stage's fp32 master by leaf name, each leaf whole (a collective
+    when sharded, or at tp > 1)."""
     flat = engine.fp32_params()
     return {n: flat[o:o + k].view(s).numpy().copy()
-            for n, o, k, s in engine._layout}
+            for n, o, k, s in engine.global_layout()[0]}
 
 
 def run_pipe(leg, rank, world):
@@ -791,7 +819,7 @@ def run_pipe(leg, rank, world):
              params_from_flax(leg["tree"], pm, stages))
     engine = deepspeed_tpu_torch.initialize(
         model=pm, model_parameters=start, config=dict(leg["config"]),
-        device="cpu")[0]
+        device="cpu", tp_rules=leg.get("tp_rules"))[0]
     out = {}
     if leg.get("load"):
         engine.load_checkpoint(leg["load"])
@@ -1037,6 +1065,19 @@ def run_stream(leg, rank, world):
                 resumed=train(fresh, batches[k + 1:]))
 
 
+def run_domino_overlap(leg, rank, world):
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.runtime.domino import domino_ab
+    model, start = _model(leg["model"], leg["cfg"], leg["tree"])
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=model, model_parameters=start, config=dict(leg["config"]),
+        device="cpu", tp_rules=leg.get("tp_rules"))
+    ids = torch.from_numpy(leg["ids"]).long()
+    with torch.no_grad():
+        return domino_ab(engine.module, ids, labels=ids, n_streams=2)
+
+
 def run_groups(leg, rank, world):
     import torch
     from deepspeed_tpu_torch import comm as dist
@@ -1053,8 +1094,15 @@ def run_groups(leg, rank, world):
             continue
         st = groups.initialize_mesh(**kw)
         got = dict(member=st.member, coord=dict(st.coord))
-        for key, g in (("tp", groups._get_tensor_parallel_group()),
-                       ("data", groups._get_data_parallel_group())):
+        named = [("tp", groups._get_tensor_parallel_group()),
+                 ("data", groups._get_data_parallel_group())]
+        if leg.get("more"):
+            named += [("sp", groups._get_sequence_parallel_group()),
+                      ("pp", groups._get_pipe_parallel_group())]
+            zp = groups._get_zero_param_partition_group()
+            if zp is not None:
+                named.append(("zp", zp))
+        for key, g in named:
             g = g.as_flat()
             ranks = torch.zeros(world)
             ranks[rank] = 1.0
@@ -1170,7 +1218,8 @@ def main():
               "serve": run_serve, "functional": run_functional,
               "moe_shards": run_moe_shards, "ring_attn": run_ring_attn,
               "fpdt_attn": run_fpdt_attn,
-              "ac_partition": run_ac_partition}[leg["kind"]]
+              "ac_partition": run_ac_partition,
+              "domino_overlap": run_domino_overlap}[leg["kind"]]
         out = fn(leg, rank, world)
         with open(os.path.join(out_dir, f"{leg['name']}.r{rank}.pkl"),
                   "wb") as f:

@@ -17,6 +17,8 @@
                               [--device cpu]
     python3 zero_multicard.py --ring [--world 4] [--steps N] [--json PATH]
                               [--device cpu]
+    python3 zero_multicard.py --domino|--tp-compose [--world 4] [--steps N]
+                              [--json PATH] [--device cpu]
 
 BASELINE config 2 (``--model gpt2``: GPT-2 350M, fp16 from a scale of
 2^16, remat, ``fusedadam``, 8 rows of 1024 tokens a rank) or config 3
@@ -204,6 +206,32 @@ step ms, tokens/s, MFU (6N + 12·L·S·D a token at the run's S, over 989
 TFLOP/s a card), B1's and B2's launches a rank a step and each rank's
 peak.  ``--device cpu`` rehearses it at ``llama_tiny`` on gloo ranks
 (64 and 256 tokens).
+
+``--domino`` trains Llama-2-7B width (32 layers, bf16, remat,
+``fusedadam``, 4 rows of 2048) at tp = the world, ZeRO 1, plain and with
+``domino`` (two µ-streams: each block's row-parallel reduces started
+async under the other stream's products), 1 warm-up and ``--steps`` timed
+steps each from the same weights and batch: losses (within 2^-7 of the
+plain run's scale), step ms, tokens/s, MFU, each rank's peak, B1's and
+B2's launches a rank a step, and ``runtime/domino``'s overlap report of
+one forward of each form (collectives, async pairs, pairs with compute
+called inside their window, NCCL kernels running beside another kernel).
+
+``--tp-compose`` trains Llama-2-7B width (32 layers, ZeRO 3, remat,
+Ulysses) on one row of 8192 tokens at tp 2 × sp 2, tp 4 and sp 4 from
+the same weights: each run's losses within 2^-7 of the others' scale,
+step ms, MFU, peak and launches; then GPT-2 350M (fp16 from 2^16,
+``fusedlamb``, ``gpt2.tp_rules``, its 50257-row vocabulary padded to a
+multiple of tp) at tp = the world against tp 1 × dp = the world on one
+batch of 8 rows of 1024: losses within 2^-7, the same skipped steps, step
+ms and peak; the tp tag's ``wte`` at 50257 rows, loaded at tp 1 with the
+master digest equal; then GPT-3 13B width (8 layers, bf16, ZeRO 1,
+remat) through the ``PipelineEngine`` at pp 2 × tp 2 against pp 1 × tp 2
+× dp 2 (``gpt2.pipeline_tp_rules``, 4 microbatches of 2 × 2048), and
+Llama-2-13B width (8 layers) streamed on 4 rows of 8192 tokens at sp =
+the world against sp 1 × dp = the world, each pair's losses within 2^-7
+of their scale, step ms (the streamed runs' host sweep share) and peak.
+Both rehearse on gloo ranks with ``--device cpu``.
 """
 
 import argparse
@@ -2047,28 +2075,48 @@ def _tp_train_config(stage, tp, rows, cpu):
 
 
 def _tp_train_run(torch, np, args, cpu, dev, sync, tp, stage, layers, rows,
-                  steps, global_rows=None):
+                  steps, global_rows=None, sp=1, seq=None, domino=False):
     """One training run: the engine from the seed, ``steps`` steps (the
-    first a warm-up) on one global batch; losses, step ms, peak."""
+    first a warm-up) on one global batch; losses, step ms, peak.  ``sp``
+    > 1: Ulysses over ``sp`` ranks, each its chunk of the ``seq`` tokens;
+    ``domino``: two µ-streams, and the overlap report of one forward of
+    each form (``runtime/domino``)."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.comm import comm
     from deepspeed_tpu_torch.models import llama
-    cfg = (llama.llama_tiny(dtype="bfloat16", max_position_embeddings=2048,
-                            num_hidden_layers=layers, num_key_value_heads=4)
+    S = seq or (64 if cpu else 2048)
+    cfg = (llama.llama_tiny(dtype="bfloat16", max_position_embeddings=S,
+                            num_hidden_layers=layers, num_key_value_heads=4,
+                            use_ulysses=sp > 1)
            if cpu else llama.llama_7b(num_hidden_layers=layers,
-                                      head_dtype="bfloat16", remat=True))
-    S = 64 if cpu else 2048
+                                      head_dtype="bfloat16", remat=True,
+                                      max_position_embeddings=max(S, 4096),
+                                      use_ulysses=sp > 1))
     if not cpu:
         torch.cuda.reset_peak_memory_stats()
+    config = _tp_train_config(stage, tp, rows, cpu)
+    if sp > 1:
+        config["mesh"]["sp"] = sp
+    if domino:
+        config["domino"] = {"enabled": True, "n_streams": 2}
     engine = deepspeed_tpu_torch.initialize(
-        model=llama.LlamaModel(cfg, device="meta"),
-        config=_tp_train_config(stage, tp, rows, cpu),
+        model=llama.LlamaModel(cfg, device="meta"), config=config,
         device=dev if cpu else None, tp_rules=llama.tp_rules(cfg))[0]
     engine.initialize_parameters(args.seed)
     total = global_rows or rows * engine.dp_world_size
     rng = np.random.default_rng(args.seed + 5)
     ids = engine.shard_batch(rng.integers(0, cfg.vocab_size,
                                           size=(total, S)))[0]
+    overlap = None
+    if tp > 1 and getattr(args, "domino", False):
+        from deepspeed_tpu_torch.runtime.domino import (measure_tp_overlap,
+                                                        split_microstreams)
+        fn = split_microstreams(engine.module, 2) if domino else \
+            engine.module
+        with torch.no_grad():
+            # a first call builds and warms up, the second is traced
+            fn(ids, labels=ids)
+            overlap = measure_tp_overlap(fn, ids, labels=ids)
     counters = _tp_train_counters()
     for fn in counters:
         fn.launches = 0
@@ -2090,8 +2138,9 @@ def _tp_train_run(torch, np, args, cpu, dev, sync, tp, stage, layers, rows,
     stats = _tp_gathered(torch, comm, dev, losses + launches + [
         0 if cpu else torch.cuda.max_memory_allocated()])
     n = len(losses)
-    row = dict(tp=tp, dp=engine.dp_world_size, stage=stage, layers=layers,
-               rows_global=total, losses=losses,
+    row = dict(tp=tp, dp=engine.dp_world_size, sp=sp, seq=S,
+               stage=stage, layers=layers, domino=bool(domino),
+               overlap=overlap, rows_global=total, losses=losses,
                step_ms=[t * 1e3 for t in times[1:]],
                step_ms_mean=step_s * 1e3, tokens_per_s=tok_s,
                mfu=tok_s * flops / world / PEAK_FLOPS,
@@ -2344,6 +2393,401 @@ def _tp_main(args, world, smi, out):
         print("zero_multicard: a tp check failed", file=sys.stderr)
         return 1
     print(json.dumps({"ok": True, "world": world, "tp": True}))
+    return 0
+
+
+def run_domino_rank(args):
+    """``--domino`` (module docstring)."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch import comm
+    cpu = args.device == "cpu"
+    dev = "cpu" if cpu else "cuda"
+    sync = (lambda: None) if cpu else torch.cuda.synchronize
+    comm.init_distributed(dist_backend="gloo" if cpu else "nccl",
+                          verbose=False)
+    if not cpu:
+        _tp_prebuild(comm)
+    world = comm.get_world_size()
+    layers, rows = (2, 2) if cpu else (32, 4)
+    res = {name: _tp_train_run(torch, np, args, cpu, dev, sync, world, 1,
+                               layers, rows, 1 + args.steps, domino=dom)
+           for name, dom in (("plain", False), ("domino", True))}
+    if comm.get_rank() == 0:
+        with open(args.out_rank0, "w") as f:
+            json.dump(res, f)
+    comm.destroy_process_group()
+
+
+def _busy(report):
+    """The device's busy share of a traced call and its kernel time by
+    kind, as text."""
+    if report.get("span_ms") is None:
+        return "not measured"
+    return (f"{report['device_busy_ms'] / report['span_ms']:.3f} "
+            f"({report['device_busy_ms']:.1f} of {report['span_ms']:.1f} "
+            f"ms; kernels: NCCL {report['nccl_kernel_ms']:.1f} ms, the "
+            f"rest {report['other_kernel_ms']:.1f} ms)")
+
+
+def _domino_main(args, world, smi, out):
+    rcs = _spawn(world, sys.argv[1:] + ["--out-rank0", out])
+    if any(rcs) or not os.path.exists(out):
+        print(f"zero_multicard: ranks exited {rcs}", file=sys.stderr)
+        return 1
+    with open(out) as f:
+        res = json.load(f)
+    os.remove(out)
+    plain, dom = res["plain"], res["domino"]
+    # relative to the losses' scale (they fall from 11 to 0.04, where
+    # bf16 differences of the order of the steps become large relative
+    # ones; the --ring rule)
+    scale = max(abs(x) for x in plain["losses"])
+    diff = max(abs(a - b) for a, b in zip(dom["losses"],
+                                          plain["losses"])) / scale
+    ok = plain["ranks_agree"] and dom["ranks_agree"] and diff <= 2.0**-7
+    for name, r in res.items():
+        o = r["overlap"]
+        print(f"[domino] {name}: Llama-2-7B width, {r['layers']} layers, "
+              f"tp {r['tp']}, {r['rows_global']} rows of {r['seq']}: losses "
+              + ", ".join(f"{x:.5f}" for x in r["losses"])
+              + f" | step ms mean {r['step_ms_mean']:.1f}, "
+              f"{r['tokens_per_s']:.1f} tokens/s, MFU {r['mfu']:.4f} | peak "
+              f"GiB by rank " + ", ".join(
+                  f"{b / 2**30:.2f}" for b in r["peak_bytes_by_rank"])
+              + f" | launches a rank a step {r['launches_a_step']} | one "
+              f"forward's overlap report (rank 0): {o} | {smi}", flush=True)
+    ok &= (dom["overlap"]["async_pairs"] == 4 * dom["layers"] and
+           plain["overlap"]["async_pairs"] == 0)
+    print(f"[domino] domino / plain step ms "
+          f"{dom['step_ms_mean'] / plain['step_ms_mean']:.3f}; largest "
+          f"loss difference {diff:.3e} of the losses' scale (gate 2^-7); "
+          f"of the "
+          f"{2 * plain['layers']} row-parallel reduces of a plain forward "
+          f"none is async; the µ-stream forward starts "
+          f"{dom['overlap']['async_pairs']} async, "
+          f"{dom['overlap']['overlapped_pairs']} with compute called "
+          f"inside their window, NCCL kernels running beside another "
+          f"kernel {dom['overlap']['device_overlapped']} (plain "
+          f"{plain['overlap']['device_overlapped']}); the device busy "
+          f"{_busy(dom['overlap'])} of the µ-stream forward, "
+          f"{_busy(plain['overlap'])} of the plain one | {smi}", flush=True)
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(dict(card=smi, **res), f, indent=1)
+    if not ok:
+        print("zero_multicard: a domino check failed", file=sys.stderr)
+        return 1
+    print(json.dumps({"ok": True, "world": world, "domino": True}))
+    return 0
+
+
+def _gpt2_tp_leg(torch, np, args, cpu, dev, sync):
+    """GPT-2 350M (fp16 from 2^16, ``fusedlamb``, the 50257-row vocabulary
+    padded to a multiple of tp) at tp = world against tp 1 × dp = world on
+    one global batch of 8 rows of 1024; the tp-world tag loaded at tp 1."""
+    import shutil
+    import tempfile
+    import torch.distributed as tdist
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.models import gpt2
+    world = comm.get_world_size()
+    cfg = (gpt2.gpt2_tiny(dtype="float16", vocab_size=257) if cpu
+           else gpt2.gpt2_350m(dtype="float16"))
+    S, total = (32, 8) if cpu else (1024, 8)
+    batch = np.random.default_rng(args.seed + 11).integers(
+        0, cfg.vocab_size, size=(total, S))
+    box = [tempfile.mkdtemp(prefix="zero_multicard_gpt2_tp_")
+           if comm.get_rank() == 0 else None]
+    tdist.broadcast_object_list(box, src=0)
+    root = box[0]
+
+    def make(tp):
+        config = {"train_micro_batch_size_per_gpu": total // (world // tp),
+                  "optimizer": {"type": "fusedlamb", "params": {"lr": 1e-3}},
+                  "fp16": {"enabled": True, "initial_scale_power": 16},
+                  "zero_optimization": {"stage": 0}, "mesh": {"tp": tp}}
+        return deepspeed_tpu_torch.initialize(
+            model=gpt2.GPT2Model(cfg, device="meta"), config=config,
+            device=dev if cpu else None, tp_rules=gpt2.tp_rules(cfg))[0]
+
+    runs = {}
+    try:
+        for tp in (world, 1):
+            if not cpu:
+                torch.cuda.reset_peak_memory_stats()
+            eng = make(tp)
+            eng.initialize_parameters(args.seed)
+            ids = eng.shard_batch(batch)[0]
+            losses, skips, times = [], [], []
+            for _ in range(1 + args.steps):
+                sync()
+                t = time.perf_counter()
+                loss = eng(ids, ids)
+                eng.backward(loss)
+                eng.step()
+                losses.append(loss.item())
+                sync()
+                times.append(time.perf_counter() - t)
+                skips.append(bool(eng._last_skipped))
+            row = dict(tp=tp, losses=losses, skipped=skips,
+                       step_ms_mean=sum(times[1:]) / len(times[1:]) * 1e3,
+                       peak_bytes=0 if cpu else
+                       torch.cuda.max_memory_allocated(),
+                       vocab=cfg.vocab_size)
+            if tp == world:
+                eng.save_checkpoint(root, tag="t")
+                row["digest"] = _tp_digest(eng)
+                row["wte_global"] = [list(sh) for n, _, _, sh in
+                                     eng.global_layout()[0]
+                                     if n == "wte.embedding"][0]
+            runs[f"tp{tp}"] = row
+            del eng
+            gc.collect()
+            if not cpu:
+                torch.cuda.empty_cache()
+        eng = make(1)
+        eng.load_checkpoint(root)
+        runs["loaded_at_tp1"] = dict(digest_equal=_tp_digest(eng) ==
+                                     runs[f"tp{world}"]["digest"])
+        del eng
+        gc.collect()
+    finally:
+        comm.barrier()
+        if comm.get_rank() == 0:
+            shutil.rmtree(root, ignore_errors=True)
+    return runs
+
+
+def _pipe_tp_leg(torch, np, args, cpu, dev, sync):
+    """GPT-3 13B width (``gpt2.gpt3_13b``, 8 layers, bf16, ``fusedadam``,
+    ZeRO 1, remat) through the ``PipelineEngine`` on
+    ``gpt2.pipeline_tp_rules``: pp 2 × tp 2 against pp 1 × tp 2 × dp 2,
+    4 microbatches of 2 × 2048 from the same weights."""
+    import dataclasses
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.models import gpt2
+    world = comm.get_world_size()
+    full = (gpt2.gpt2_tiny(max_position_embeddings=64) if cpu
+            else gpt2.gpt3_13b())
+    cfg = dataclasses.replace(full, num_hidden_layers=4 if cpu else 8)
+    S, M, R = full.max_position_embeddings, 4, 2
+    rng = np.random.default_rng(args.seed + 13)
+    batches = []
+    for _ in range(M):
+        ids = rng.integers(0, cfg.vocab_size, size=(R, S))
+        batches.append((ids, np.roll(ids, -1, axis=1)))
+    rows = []
+    for pp in (2, 1):
+        dp = world // (pp * 2)
+        config = {"train_micro_batch_size_per_gpu": R // dp,
+                  "gradient_accumulation_steps": M,
+                  "optimizer": {"type": "fusedadam", "params": {"lr": 1e-4}},
+                  "bf16": {"enabled": True},
+                  "zero_optimization": {"stage": 1},
+                  "mesh": {"pp": pp, "tp": 2}}
+        if not cpu:
+            torch.cuda.reset_peak_memory_stats()
+        engine = deepspeed_tpu_torch.initialize(
+            model=gpt2.pipeline_module(cfg, activation_checkpoint_interval=1),
+            config=config, device=dev if cpu else None,
+            tp_rules=gpt2.pipeline_tp_rules(cfg))[0]
+        engine.initialize_parameters(args.seed)
+        losses, times = [], []
+        for _ in range(1 + args.steps):
+            sync()
+            t = time.perf_counter()
+            losses.append(engine.train_batch(iter(batches)).item())
+            sync()
+            times.append(time.perf_counter() - t)
+        peak = 0 if cpu else torch.cuda.max_memory_allocated()
+        every = comm.all_gather(torch.tensor([float(peak)] + losses,
+                                             device=dev), tiled=False).cpu()
+        rows.append(dict(pp=pp, tp=2, dp=dp, layers=cfg.num_hidden_layers,
+                         losses=losses,
+                         step_ms_mean=sum(times[1:]) / len(times[1:]) * 1e3,
+                         peak_bytes_by_rank=[int(x) for x in every[:, 0]],
+                         ranks_agree=bool((every[:, 1:] ==
+                                           every[0, 1:]).all())))
+        del engine
+        gc.collect()
+        if not cpu:
+            torch.cuda.empty_cache()
+    return rows
+
+
+def _stream_sp_leg(torch, np, args, cpu, dev, sync):
+    """Llama-2-13B width (8 layers) streamed (ZeRO-Infinity: the host
+    store sharded over the data group, the host Adam), 4 rows of 8192
+    tokens: sp = world (each rank its chunk of every row) against sp 1 ×
+    dp = world (each rank a row), the same weights and tokens."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.models import llama
+    world = comm.get_world_size()
+    S, rows_global = (64, 4) if cpu else (8192, 4)
+    tiny = dict(vocab_size=256, hidden_size=64, intermediate_size=128,
+                num_attention_heads=4, num_key_value_heads=4) if cpu else {}
+    ids = np.random.default_rng(args.seed + 17).integers(
+        0, tiny.get("vocab_size", 32000), size=(rows_global, S))
+    rows = []
+    for sp in (world, 1):
+        cfg = llama.llama_13b(**{**dict(
+            num_hidden_layers=2 if cpu else 8, head_dtype="bfloat16",
+            remat=True, remat_policy="nothing_saveable",
+            max_position_embeddings=S, use_ulysses=sp > 1), **tiny})
+        config = dict(_config("llama7b", 3), optimizer=ADAM,
+                      zero_optimization=STREAMED,
+                      train_micro_batch_size_per_gpu=rows_global * sp //
+                      world, mesh={"sp": sp})
+        if not cpu:
+            torch.cuda.reset_peak_memory_stats()
+        engine = deepspeed_tpu_torch.initialize(
+            model=llama.LlamaModel(cfg, device="meta"), config=config,
+            device=dev if cpu else None)[0]
+        engine.initialize_parameters(args.seed)
+        x = engine.shard_batch(ids)[0]
+        losses, times = [], []
+        for _ in range(1 + args.steps):
+            sync()
+            t = time.perf_counter()
+            loss = engine(x, x)
+            engine.backward(loss)
+            engine.step()
+            losses.append(loss.item())
+            sync()
+            times.append(time.perf_counter() - t)
+        sweep = engine.sweep_seconds[1:]
+        peak = 0 if cpu else torch.cuda.max_memory_allocated()
+        every = comm.all_gather(torch.tensor([float(peak)] + losses,
+                                             device=dev), tiled=False).cpu()
+        rows.append(dict(sp=sp, dp=world // sp, layers=cfg.num_hidden_layers,
+                         seq=S, losses=losses,
+                         step_ms_mean=sum(times[1:]) / len(times[1:]) * 1e3,
+                         sweep_share=sum(sweep) / max(1e-9, sum(times[1:])),
+                         peak_bytes_by_rank=[int(x) for x in every[:, 0]],
+                         ranks_agree=bool((every[:, 1:] ==
+                                           every[0, 1:]).all())))
+        del engine
+        gc.collect()
+        if not cpu:
+            torch.cuda.empty_cache()
+    return rows
+
+
+def run_tp_compose_rank(args):
+    """``--tp-compose`` (module docstring)."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch import comm
+    cpu = args.device == "cpu"
+    dev = "cpu" if cpu else "cuda"
+    sync = (lambda: None) if cpu else torch.cuda.synchronize
+    comm.init_distributed(dist_backend="gloo" if cpu else "nccl",
+                          verbose=False)
+    if not cpu:
+        _tp_prebuild(comm)
+    world = comm.get_world_size()
+    out = {}
+
+    def record(key, value):
+        out[key] = value
+        if comm.get_rank() == 0:
+            with open(args.out_rank0, "w") as f:
+                json.dump(out, f)
+
+    layers, seq = (2, 64) if cpu else (32, 8192)
+    record("tp_sp", [
+        _tp_train_run(torch, np, args, cpu, dev, sync, tp, 3, layers, 1,
+                      1 + args.steps, global_rows=1, sp=sp, seq=seq)
+        for tp, sp in ((2, world // 2), (world, 1), (1, world))])
+    record("gpt2_tp", _gpt2_tp_leg(torch, np, args, cpu, dev, sync))
+    record("pipe_tp", _pipe_tp_leg(torch, np, args, cpu, dev, sync))
+    record("stream_sp", _stream_sp_leg(torch, np, args, cpu, dev, sync))
+    comm.destroy_process_group()
+
+
+def _tp_compose_main(args, world, smi, out):
+    rcs = _spawn(world, sys.argv[1:] + ["--out-rank0", out])
+    ok = not any(rcs)
+    if not ok:
+        print(f"zero_multicard: ranks exited {rcs}", file=sys.stderr)
+    if not os.path.exists(out):
+        return 1
+    with open(out) as f:
+        res = json.load(f)
+    os.remove(out)
+    runs = res.get("tp_sp", [])
+    for r in runs:
+        ok &= r["ranks_agree"] and all(map(math.isfinite, r["losses"]))
+        rel = [max(abs(a - b) for a, b in zip(r["losses"], o["losses"])) /
+               max(abs(x) for x in o["losses"]) for o in runs[1:]]
+        ok &= max(rel) <= 2.0**-7
+        print(f"[tp-compose] Llama-2-7B width, {r['layers']} layers, 1 row "
+              f"of {r['seq']}, ZeRO 3, tp {r['tp']} × sp {r['sp']}: losses "
+              + ", ".join(f"{x:.5f}" for x in r["losses"])
+              + f" | largest difference from tp {world} × sp 1 and from "
+              f"tp 1 × sp {world}, of their losses' scale: " + ", ".join(
+                  f"{x:.3e}" for x in rel) + f" (gate 2^-7) | step ms mean "
+              f"{r['step_ms_mean']:.1f}, {r['tokens_per_s']:.1f} tokens/s, "
+              f"MFU {r['mfu']:.4f} | peak GiB by rank " + ", ".join(
+                  f"{b / 2**30:.2f}" for b in r["peak_bytes_by_rank"])
+              + f" | launches a rank a step {r['launches_a_step']} | {smi}",
+              flush=True)
+    g = res.get("gpt2_tp")
+    if g:
+        a, b = g[f"tp{world}"], g["tp1"]
+        rel = max(abs(x - y) / abs(y) for x, y in zip(a["losses"],
+                                                       b["losses"]))
+        ok &= (rel <= 2.0**-7 and a["skipped"] == b["skipped"] and
+               g["loaded_at_tp1"]["digest_equal"] and
+               a["wte_global"][0] == a["vocab"])
+        print(f"[tp-compose] GPT-2 350M, fp16, fusedlamb, 8 rows of 1024, "
+              f"the vocabulary padded to a multiple of tp: tp {world} losses "
+              + ", ".join(f"{x:.5f}" for x in a["losses"]) + " against tp 1 "
+              "× dp " + str(world) + " " + ", ".join(
+                  f"{x:.5f}" for x in b["losses"]) + f" (largest relative "
+              f"{rel:.3e}, gate 2^-7), skipped {a['skipped']} / "
+              f"{b['skipped']} | step ms {a['step_ms_mean']:.1f} against "
+              f"{b['step_ms_mean']:.1f} | peak {a['peak_bytes'] / 2**30:.2f}"
+              f" / {b['peak_bytes'] / 2**30:.2f} GiB | wte in the tag "
+              f"{a['wte_global']}; the tp-{world} tag loaded at tp 1: "
+              f"master digest equal {g['loaded_at_tp1']['digest_equal']} | "
+              f"{smi}", flush=True)
+    for key, what in (("pipe_tp", "GPT-3 13B width through the "
+                       "PipelineEngine, 4 microbatches of 2 × 2048, ZeRO 1"),
+                      ("stream_sp", "Llama-2-13B width streamed, 4 rows")):
+        runs = res.get(key, [])
+        if len(runs) < 2:
+            continue
+        a, b = runs
+        rel = max(abs(x - y) for x, y in zip(a["losses"], b["losses"])) / \
+            max(abs(y) for y in b["losses"])
+        ok &= a["ranks_agree"] and b["ranks_agree"] and rel <= 2.0**-7
+        for r in runs:
+            line = (f"[tp-compose] {what}, {r['layers']} layers, "
+                    + (f"pp {r['pp']} × tp {r['tp']} × dp {r['dp']}"
+                       if key == "pipe_tp" else
+                       f"{r['seq']} tokens, sp {r['sp']} × dp {r['dp']}")
+                    + ": losses " + ", ".join(f"{x:.5f}" for x in
+                                              r["losses"])
+                    + f" | step ms mean {r['step_ms_mean']:.1f}")
+            if key == "stream_sp":
+                line += f", host sweep share {r['sweep_share']:.3f}"
+            print(line + " | peak GiB by rank " + ", ".join(
+                f"{x / 2**30:.2f}" for x in r["peak_bytes_by_rank"])
+                + f" | {smi}", flush=True)
+        print(f"[tp-compose] {what}: largest loss difference {rel:.3e} of "
+              f"the losses' scale (gate 2^-7) | {smi}", flush=True)
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(dict(card=smi, **res), f, indent=1)
+    if not ok:
+        print("zero_multicard: a tp-compose check failed", file=sys.stderr)
+        return 1
+    print(json.dumps({"ok": True, "world": world, "tp_compose": True}))
     return 0
 
 
@@ -2612,6 +3056,14 @@ def main():
                          "with ring attention against Ulysses at 32K "
                          "tokens, then the ring at 128K (8 layers, fused "
                          "chunked loss)")
+    ap.add_argument("--domino", action="store_true",
+                    help="Domino µ-streams: Llama-2-7B width at tp = world "
+                         "against the plain step, with the overlap report")
+    ap.add_argument("--tp-compose", action="store_true",
+                    help="tp with sp (Llama-2-7B width at 8192 tokens: tp 2 "
+                         "× sp 2 against tp 4 and sp 4), GPT-2 350M at tp = "
+                         "world on its padded vocabulary, pp 2 × tp 2, and "
+                         "streaming at sp = world")
     ap.add_argument("--offload-layers", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--stream-layers", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--rank", type=int, help=argparse.SUPPRESS)
@@ -2626,7 +3078,9 @@ def main():
          if args.checkpoint else run_zeropp_rank if args.zeropp
          else run_pipe_rank if args.pipe else run_onebit_rank
          if args.onebit else run_moe_rank if args.moe else run_tp_rank
-         if args.tp else run_ring_rank if args.ring else run_rank)(args)
+         if args.tp else run_ring_rank if args.ring else run_domino_rank
+         if args.domino else run_tp_compose_rank if args.tp_compose
+         else run_rank)(args)
         return 0
     import torch
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -2656,6 +3110,10 @@ def main():
         return _tp_main(args, world, smi, out)
     if args.ring:
         return _ring_main(args, world, smi, out)
+    if args.domino:
+        return _domino_main(args, world, smi, out)
+    if args.tp_compose:
+        return _tp_compose_main(args, world, smi, out)
     rcs = _spawn(world, sys.argv[1:] + ["--out-rank0", out])
     if any(rcs):
         print(f"zero_multicard: ranks exited {rcs}", file=sys.stderr)
