@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--json PATH] [--profile DIR]
 
-Stages, run in the order 1-35; any failure exits non-zero:
+Stages, run in the order 1-36; any failure exits non-zero:
 
 1. environment: torch/CUDA/nvcc versions, the card's name and power limit;
 2. build: every ``deepspeed_tpu_torch/csrc/*.cu`` with nvcc for sm_90a
@@ -398,10 +398,10 @@ Stages, run in the order 1-35; any failure exits non-zero:
     the padded-vocabulary route (3 zero rows appended to ``wte``, the
     vocabulary-parallel loss) from the same weights, losses within 2^-7;
     BERT-base (stage 22's config and batch) cut at tp 1 on the rules
-    derived from its dataflow: 3 steps' losses bit-equal to the plain
-    model's (the masters' equal leaves beside those of the plain model
-    run twice); B1, B2, B3 launches counted; (c) ``fused_attention``
-    over a CLIP ViT-L/14 text encoder (12 layers, 12 heads of 64, 77
+    derived from its dataflow, under PyTorch's deterministic algorithms:
+    3 steps' losses and the master bit-equal to the plain model's (the
+    plain model run twice beside them); B1, B2, B3 launches counted; (c)
+    ``fused_attention`` over a CLIP ViT-L/14 text encoder (12 layers, 12 heads of 64, 77
     tokens, causal, fp16) and Stable Diffusion 2.1's top UNet attention
     (320 channels, 5 heads of 64, a 96 × 96 latent: 9216 tokens), port
     modules with transformers' and diffusers' class names and layouts:
@@ -414,6 +414,25 @@ Stages, run in the order 1-35; any failure exits non-zero:
     350M's tied head padded by 3 rows (N 8192, V 50257, fp32) against the
     full logits: loss, dx, dw within 1e-4 of the norm, the pad rows'
     gradient 0, ms and peak.
+36. Item 8b (MoE's remainder) at one rank: (a) B7's forward, dx and dw at
+    the shapes Mixtral-8x7B's training gives them at tp 2 and tp 4 (the
+    stacks cut on I: [8, 4096, 7168], [8, 7168, 4096], [8, 4096, 3584],
+    [8, 3584, 4096]) and at ep 4 (a rank's two experts, [2, 4096, 14336],
+    [2, 14336, 4096]), T 16,384, one expert empty, and at ep 4 as the
+    exchange hands them over (65,536 gathered copies of four ranks' 8192
+    tokens, about a quarter routed to the rank's two experts, the rest
+    past the sizes: zero out of the forward and dx, unread by dw), each
+    against its plain version with its ms, bound and
+    ``torch._grouped_mm``'s ms; then the expert FFN forward and backward
+    on those gathered copies against their live rows alone (ms and peak:
+    what the rows past the sizes cost a layer a step); (b) stage
+    31 (b)'s Mixtral through the tp code at tp 1 (``tp_rules`` over a
+    one-rank group) and the ep code at ep 1 (each block localized over a
+    one-rank ep group, its gathers and reduce-scatter the identity):
+    losses and B7's launches by route bit-equal to stage 31 (b)'s; (c) the
+    MoE layer under qgZ with the 2-hop int8 dispatch asked for, on the
+    NCCL world of one rank: the qgZ micro's per-rank path and the 2-hop
+    split each decline once (counted), the loss the flat run's.
 
 ``--profile DIR`` adds ``torch.profiler`` windows over serving (stages 4,
 14 and 15), over two training steps of stage 8, of stage 11, of stage 22
@@ -1349,6 +1368,9 @@ def _ptxas_usage(out, key_fn=_flash_mma_key):
     return usage
 
 
+_SASS_LINES = {}
+
+
 def _flash_sass(builder=None, key_fn=_flash_mma_key,
                 ops=(" HMMA.", " FFMA")):
     """{key: [count of each of ``ops``]} of the kernels ``key_fn`` names in
@@ -1361,10 +1383,13 @@ def _flash_sass(builder=None, key_fn=_flash_mma_key,
     if not os.path.exists(tool):
         raise FileNotFoundError(f"no cuobjdump beside nvcc ({tool})")
     lib = (builder or FlashAttentionBuilder()).lib_path()
-    out = subprocess.run([tool, "-sass", lib], capture_output=True,
-                         text=True, timeout=300).stdout
+    if lib not in _SASS_LINES:
+        # a library's path names its sources' hash: one disassembly a run
+        _SASS_LINES[lib] = subprocess.run(
+            [tool, "-sass", lib], capture_output=True, text=True,
+            timeout=300).stdout.splitlines()
     counts, key = {}, None
-    for line in out.splitlines():
+    for line in _SASS_LINES[lib]:
         m = re.search(r"Function : (\S+)", line)
         if m:
             key = key_fn(m.group(1))
@@ -2315,17 +2340,21 @@ def stage_overflow_and_guard(seed):
 
 
 # --------------------------------------------------------------- stage 13
-def _gmm_case(torch, gen, name, sizes, K, N, dtype, route, x_offset=0):
+def _gmm_case(torch, gen, name, sizes, K, N, dtype, route, x_offset=0,
+              rows=None):
     """The grouped matmul on the shapes of one Mixtral expert product:
     kernel against its plain version on the same inputs, with the times of
     both, of a library call and the bound; the launch must take ``route``
     (its kernel's registers, spills and SASS counts: HGMMA and UTMALDG on
     a wgmma/TMA route, HMMA on mma.sync, none of either failing).  x
-    starts ``x_offset`` elements into its buffer."""
+    starts ``x_offset`` elements into its buffer.  ``rows``: x's rows where
+    more than the sizes' sum (the ep exchange's gathered copies: the rows
+    past the sum hold other ranks' tokens and must come out zero)."""
     from deepspeed_tpu_torch.ops.kernels import grouped_matmul as gm
     from deepspeed_tpu_torch.ops.op_builder import GroupedMatmulBuilder
     dt = getattr(torch, dtype)
-    T, E = sum(sizes), len(sizes)
+    live, E = sum(sizes), len(sizes)
+    T = rows or live
     x = torch.randn(T * K + x_offset, device="cuda", generator=gen).to(dt)
     x = x[x_offset:].view(T, K)
     w = (torch.randn(E, K, N, device="cuda", generator=gen)
@@ -2340,6 +2369,7 @@ def _gmm_case(torch, gen, name, sizes, K, N, dtype, route, x_offset=0):
                              f"one on {route}")
     ref = gm.gmm_plain(x, w, gs)
     err, worst = _compare(torch, got, ref, dt != torch.float32)
+    dead_zero = bool((got[live:] == 0).all())
     ms = cuda_ms(lambda: gm.gmm(x, w, gs), 10)
     plain_ms = cuda_ms(lambda: gm.gmm_plain(x, w, gs), 3, warmup=1)
     lib_kind = None
@@ -2369,32 +2399,37 @@ def _gmm_case(torch, gen, name, sizes, K, N, dtype, route, x_offset=0):
 
         lib_out, lib_kind = lib(), "per-expert torch.matmul loop"
     lib_ms = cuda_ms(lib, 10)
-    lib_err = (lib_out.float() - ref.float()).abs().max().item()
+    lib_err = (lib_out[:live].float() - ref[:live].float()).abs().max().item()
     active = sum(1 for n in sizes if n > 0)
     esz = x.element_size()
-    nbytes = (active * K * N + T * K + T * N) * esz
-    flops = 2 * T * K * N
+    # the live rows read, every output row written
+    nbytes = (active * K * N + live * K + T * N) * esz
+    flops = 2 * live * K * N
     bound = _roofline(nbytes, flops,
                       BF16_FLOPS if dt != torch.float32 else FP32_FLOPS)
     tol_text = ("2^-7·|ref| + 1e-4" if dt != torch.float32
                 else f"{FP32_ATOL:g} + {FP32_RTOL:g}·|ref|")
     row = dict(case=name, err=err, err_over_tol=worst, ms=ms,
                plain_ms=plain_ms, library_ms=lib_ms, library=lib_kind,
-               bound_ms=bound[0], bound_by=bound[1], rows=T, K=K, N=N,
+               bound_ms=bound[0], bound_by=bound[1], rows=T, live_rows=live,
+               dead_rows_zero=dead_zero, K=K, N=N,
                route=route, tflops=flops / ms / 1e9,
                share_of_bound=bound[0] / ms,
                library_tflops=flops / lib_ms / 1e9)
     log(f"[moe-kernel] gmm {name}: x [{T},{K}] w [{E},{K},{N}] {dtype} "
-        f"groups {sizes if len(set(sizes)) > 1 else f'{E}×{sizes[0]}'}, "
+        f"groups {sizes if len(set(sizes)) > 1 else f'{E}×{sizes[0]}'}"
+        + (f" ({T - live} rows past them, zero {dead_zero})"
+           if T > live else "") + ", "
         f"route {route}: max_abs_err {err:.3e}, worst |err| / ({tol_text}) "
         f"{worst:.3f} | kernel {ms:.4f} ms ({row['tflops']:.1f} TFLOP/s, "
         f"{row['share_of_bound']:.3f} of the bound), plain {plain_ms:.4f} "
         f"ms, {lib_kind} {lib_ms:.4f} ms ({row['library_tflops']:.1f} "
         f"TFLOP/s, err {lib_err:.2e}) | bound {bound[0]:.4f} ms by "
         f"{bound[1]}")
-    if not worst <= 1.0:
+    if not (worst <= 1.0 and dead_zero):
         raise AssertionError(f"gmm {name}: kernel differs from its plain "
-                             f"version by {worst} × ({tol_text})")
+                             f"version by {worst} × ({tol_text}), rows past "
+                             f"the sizes zero {dead_zero}")
     tag = "bf16" if dt == torch.bfloat16 else "fp16"
     if route.startswith("wgmma_tma"):
         kernel, key_fn, ops = "gmm_tma_kernel", _gmm_tma_key, (" HGMMA.",
@@ -6035,27 +6070,32 @@ def _grouped_mm_ms(torch, kind, a, b, gs, name):
     return cuda_ms(fn, 5), "torch._grouped_mm"
 
 
-def _gmm_bwd_case(torch, gen, kind, proj, sizes, K, N, route=None):
+def _gmm_bwd_case(torch, gen, kind, proj, sizes, K, N, route=None,
+                  rows=None):
     """One backward kernel of B7 at Mixtral's width, on ``route`` (default
     :func:`gmm_bwd_route`'s): against its plain version (one bf16 ulp of
     |ref| + 2^-10 of its rms), two launches bit-equal, its time beside the
     plain version's, ``torch._grouped_mm``'s and the bound, and its SASS
-    counts."""
+    counts.  ``rows``: the inputs' rows where more than the sizes' sum
+    (random past it: dx must be zero there, dw must not read them)."""
     from deepspeed_tpu_torch.ops.kernels import grouped_matmul as gm
     from deepspeed_tpu_torch.ops.op_builder import GroupedMatmulBuilder
     dt = torch.bfloat16
-    T, E = sum(sizes), len(sizes)
+    live, E = sum(sizes), len(sizes)
+    T = rows or live
     gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
     dy = torch.randn(T, N, device="cuda", generator=gen).to(dt)
+    # the live rows read, every output element written
     if kind == "dx":
         w = (torch.randn(E, K, N, device="cuda", generator=gen)
              / K**0.5).to(dt)
         a, b, fn, plain = dy, w, gm.gmm_dx, gm.gmm_dx_plain
-        nbytes = (T * N + sum(1 for n in sizes if n) * K * N + T * K) * 2
+        nbytes = (live * N + sum(1 for n in sizes if n) * K * N
+                  + T * K) * 2
     else:
         x = torch.randn(T, K, device="cuda", generator=gen).to(dt)
         a, b, fn, plain = x, dy, gm.gmm_dw, gm.gmm_dw_plain
-        nbytes = (T * K + T * N + E * K * N) * 2
+        nbytes = (live * K + live * N + E * K * N) * 2
     route = route or gm.gmm_bwd_route(kind, T, K, N, dt, a.data_ptr(),
                                       b.data_ptr())
     before = dict(fn.route_launches)
@@ -6067,6 +6107,7 @@ def _gmm_bwd_case(torch, gen, kind, proj, sizes, K, N, route=None):
         raise AssertionError(f"gmm_{kind} {proj}: launches by route "
                              f"{taken}, want 2 on {route}")
     bit_equal = torch.equal(got, again)
+    dead_zero = kind != "dx" or bool((got[live:] == 0).all())
     ref = plain(a, b, gs).float()
     # both sum thousands of fp32 products, in other orders, then round
     # once to bf16: one bf16 ulp of |ref| plus the fp32 order's spread,
@@ -6084,7 +6125,7 @@ def _gmm_bwd_case(torch, gen, kind, proj, sizes, K, N, route=None):
     # zero): the fill alone, on the same shape
     fill_ms = (cuda_ms(lambda: torch.zeros(T, K, dtype=dt, device="cuda"), 5)
                if kind == "dx" else None)
-    flops = 2 * T * K * N
+    flops = 2 * live * K * N
     bound = _roofline(nbytes, flops, BF16_FLOPS)
     ops = (" HGMMA.", " UTMALDG")
     if kind == "dx":
@@ -6099,14 +6140,19 @@ def _gmm_bwd_case(torch, gen, kind, proj, sizes, K, N, route=None):
                a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0)
     report, counts = _kernel_report(GroupedMatmulBuilder(), key_fn, key, ops)
     case = f"{kind}_{proj}" + (f"_{route}" if route == "mma_sync" else "")
-    row = dict(case=case, kind=kind, route=route, rows=T, K=K,
+    row = dict(case=case, kind=kind, route=route, rows=T, live_rows=live,
+               dead_rows_zero=dead_zero, K=K,
                N=N, sizes=sizes, err=err, err_over_tol=worst, atol=atol,
                bit_equal=bit_equal, ms=ms, plain_ms=plain_ms,
                zero_fill_ms=fill_ms, library_ms=lib_ms, library=lib,
                bound_ms=bound[0], bound_by=bound[1], tflops=flops / ms / 1e9,
                share_of_bound=bound[0] / ms, kernel=report)
-    log(f"[moe-train] gmm_{kind} {proj}: T {T} (groups {sizes}), K {K}, N "
-        f"{N}, route {route}: max_abs_err {err:.3e}, worst |err| / "
+    past = ""
+    if T > live:
+        past = f", {T - live} rows past them" + (
+            f", dx zero there {dead_zero}" if kind == "dx" else "")
+    log(f"[moe-train] gmm_{kind} {proj}: T {T} (groups {sizes}{past}), K "
+        f"{K}, N {N}, route {route}: max_abs_err {err:.3e}, worst |err| / "
         f"(2^-7·|ref| + {atol:.3g}, 2^-10 of the rms) {worst:.3f}, reruns "
         f"bit-equal "
         f"{bit_equal} | kernel {ms:.4f} ms ({row['tflops']:.1f} TFLOP/s, "
@@ -6117,9 +6163,10 @@ def _gmm_bwd_case(torch, gen, kind, proj, sizes, K, N, route=None):
         f"{report['registers']} registers, {report['spill_stores']} B "
         f"spills, SASS " + " / ".join(f"{n} {op.strip(' .')}"
                                       for op, n in zip(ops, counts)))
-    if not (worst <= 1.0 and bit_equal and all(counts)):
+    if not (worst <= 1.0 and bit_equal and all(counts) and dead_zero):
         raise AssertionError(f"gmm_{kind} {proj}: worst {worst}, bit-equal "
-                             f"{bit_equal}, SASS {counts}")
+                             f"{bit_equal}, SASS {counts}, rows past the "
+                             f"sizes zero {dead_zero}")
     return row
 
 
@@ -6655,6 +6702,10 @@ def _ring_case(torch, gen, Hkv):
     _free(torch)
     want = {"fwd": 10, "dq": 10, "dkv": 10}
     fwd_tf = _attention_flops(B, H, S, D, 2) / ms["ring_fwd"] / 1e9
+    # the forward's bound: q, k, v read and o written once, against the
+    # two products over the live (causal) pairs
+    bound = _roofline((2 * H + 2 * Hkv) * B * S * D * 2,
+                      _attention_flops(B, H, S, D, 2), BF16_FLOPS)
     log(f"[long] (a) ring of {sp} on one card, [{B}, {S}, {H}, {D}] bf16, "
         f"Hkv {Hkv}, causal, blocks of {S // sp}: B1 launches {launches} "
         f"(want {want}) | vs B1 over the whole sequence (norm/max "
@@ -6664,12 +6715,13 @@ def _ring_case(torch, gen, Hkv):
         f"{ms['ring_fwd_bwd']:.3f}; B1 whole fwd {ms['whole_fwd']:.3f}, "
         f"fwd+bwd {ms['whole_fwd_bwd']:.3f}; SDPA fwd {ms['sdpa_fwd']:.3f} "
         f"| peak above the inputs: ring {peak / 2**30:.3f} GiB, B1 whole "
-        f"{whole_peak / 2**30:.3f} GiB")
+        f"{whole_peak / 2**30:.3f} GiB | forward bound {bound[0]:.4f} ms "
+        f"by {bound[1]}")
     if launches != want:
         raise AssertionError(f"ring launches {launches}, want {want}")
     return dict(Hkv=Hkv, launches=launches, errs=errs, plain_errs=plain_errs,
                 ms=ms, peak_bytes=peak, whole_peak_bytes=whole_peak,
-                fwd_tflops=fwd_tf)
+                fwd_tflops=fwd_tf, bound_ms=bound[0], bound_by=bound[1])
 
 
 def _fpdt_stream(torch, q, k, v, double_buffer):
@@ -7158,7 +7210,11 @@ def _gpt2_tp1(torch, np, seed, gpt2):
 
 def _bert_tp1(torch, np, seed):
     """(b) BERT-base: stage 22's config and batch, the plain model against
-    the model cut at tp 1 on the rules derived from its dataflow."""
+    the model cut at tp 1 on the rules derived from its dataflow: losses
+    and masters bit-equal.  The three runs take PyTorch's deterministic
+    algorithms: the default backward of the token-type lookup (8192 ids,
+    all 0, into a table of 2 rows) sums in another order each run, which
+    once moved the third step's loss by one ulp."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models.bert import BertModel, bert_base
     from deepspeed_tpu_torch.module_inject import (
@@ -7174,40 +7230,45 @@ def _bert_tp1(torch, np, seed):
         torch.zeros((1, 8), dtype=torch.long, device="meta"))
     counters = _train_launches()
     out = {}
-    for name in ("plain", "tp1", "plain_again"):
-        model = BertModel(cfg, device="meta")
-        if name == "tp1":
-            model = shard_params_for_tp(model, rules,
-                                        group=_local_tp_group())
-        engine = deepspeed_tpu_torch.initialize(
-            model=model, config=dict(BERT_CONFIG))[0]
-        engine.initialize_parameters(seed)
-        torch.cuda.synchronize()
-        for fn in counters.values():
-            fn.launches = 0
-        losses = []
-        for _ in range(steps):
-            loss = engine(*batch)
-            engine.backward(loss)
-            engine.step()
-            losses.append(loss.item())
-        out[name] = dict(losses=losses, launches={
-            k: fn.launches for k, fn in counters.items() if fn.launches})
-        master = _named_master(engine)
-        if name == "plain":
-            plain_master = master
-        else:
-            out[name]["leaves_equal"] = sum(
-                torch.equal(t, plain_master[n]) for n, t in master.items())
-            out[name]["leaves"] = len(master)
-        del engine, model, master
-        _free(torch)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for name in ("plain", "tp1", "plain_again"):
+            model = BertModel(cfg, device="meta")
+            if name == "tp1":
+                model = shard_params_for_tp(model, rules,
+                                            group=_local_tp_group())
+            engine = deepspeed_tpu_torch.initialize(
+                model=model, config=dict(BERT_CONFIG))[0]
+            engine.initialize_parameters(seed)
+            torch.cuda.synchronize()
+            for fn in counters.values():
+                fn.launches = 0
+            losses = []
+            for _ in range(steps):
+                loss = engine(*batch)
+                engine.backward(loss)
+                engine.step()
+                losses.append(loss.item())
+            out[name] = dict(losses=losses, launches={
+                k: fn.launches for k, fn in counters.items() if fn.launches})
+            master = _named_master(engine)
+            if name == "plain":
+                plain_master = master
+            else:
+                out[name]["leaves_equal"] = sum(
+                    torch.equal(t, plain_master[n])
+                    for n, t in master.items())
+                out[name]["leaves"] = len(master)
+            del engine, model, master
+            _free(torch)
+    finally:
+        torch.use_deterministic_algorithms(False)
     del plain_master
-    # the gate is stage 33 (a)'s: the losses; the masters' equal leaves
-    # are reported beside those of the plain model run twice (a card's
-    # backward need not sum alike twice)
+    # the gate: the losses and, the runs being deterministic, every leaf
+    # of the master (beside those of the plain model run twice)
     equal = out["tp1"]["losses"] == out["plain"]["losses"]
     out["bit_equal"] = equal
+    masters = out["tp1"]["leaves_equal"] == out["tp1"]["leaves"]
     log(f"[tp-compose] (b) BERT-base through the tp code at tp 1 ({len(rules)} "
         f"rules derived from the dataflow): losses " + ", ".join(
             f"{x:.6f}" for x in out["tp1"]["losses"]) + " against the "
@@ -7220,7 +7281,8 @@ def _bert_tp1(torch, np, seed):
         f"{out['plain_again']['losses'] == out['plain']['losses']}) | "
         f"launches "
         f"{out['tp1']['launches']}")
-    if not equal or out["tp1"]["launches"] != {"fused_adam_step": steps}:
+    if not (equal and masters) or \
+            out["tp1"]["launches"] != {"fused_adam_step": steps}:
         raise AssertionError(f"BERT tp-1 {out}")
     return out
 
@@ -7527,6 +7589,246 @@ def stage_tp_compose(seed, smi, train, gpt2):
     return out
 
 
+# ---------------------------------------------------------------- stage 36
+def _ep_local_sizes(torch, gen, tokens, E, k, ep):
+    """The group sizes on ep rank 0 of Mixtral's exchange: ep × ``tokens``
+    gathered tokens routed top-k by a random router over E experts, the
+    copies that reach rank 0's E/ep experts (``moe_apply``'s ``mine``)."""
+    logits = torch.randn(ep * tokens, E, device="cuda", generator=gen)
+    topi = torch.topk(logits, k, dim=-1).indices.reshape(-1)
+    return torch.bincount(topi, minlength=E)[:E // ep].tolist()
+
+
+def _ffn_dead_rows(torch, gen, sizes, rows, D, I):
+    """(a), the rows past the sizes: one layer's expert FFN
+    (``moe_expert_ffn``: B7 on w1 and w3, SwiGLU, B7 on w2, and their
+    backward) on ep rank 0's gathered copies at ep 4 ([rows, D], the live
+    ones first) against the same live rows alone.  Forward ms, forward +
+    backward ms and the peak bytes above the inputs of each; the live
+    rows' outputs and gradients of the two within one bf16 ulp, the dead
+    rows' outputs and input gradients zero.  Under remat a layer runs its
+    forward twice, so the dead rows cost Δforward + Δ(forward + backward)
+    a layer a step."""
+    from deepspeed_tpu_torch.models.mixtral import moe_expert_ffn
+    dt = torch.bfloat16
+    live, E = sum(sizes), len(sizes)
+    gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    ws = [(torch.randn(E, a, b, device="cuda", generator=gen) / a**0.5)
+          .to(dt).requires_grad_() for a, b in ((D, I), (I, D), (D, I))]
+    x_all = torch.randn(rows, D, device="cuda", generator=gen).to(dt)
+    # the main path's output gradient: zero past the sizes (their
+    # routing weights are zero)
+    dy_all = torch.randn(rows, D, device="cuda", generator=gen).to(dt)
+    dy_all[live:] = 0
+    res, grads = {}, {}
+    for tag, n in (("gathered", rows), ("live", live)):
+        x = x_all[:n].clone().requires_grad_()
+        dy = dy_all[:n].contiguous()
+
+        def fwd():
+            with torch.no_grad():
+                return moe_expert_ffn(x, gs, *ws)
+
+        def step():
+            y = moe_expert_ffn(x, gs, *ws)
+            return (y, ) + torch.autograd.grad(y, [x] + ws, dy)
+
+        fwd_ms = cuda_ms(fwd, 5)
+        step_ms = cuda_ms(step, 3)
+        _free(torch)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        grads[tag] = step()
+        torch.cuda.synchronize()
+        res[tag] = dict(rows=n, fwd_ms=fwd_ms, fwd_bwd_ms=step_ms,
+                        peak_bytes=torch.cuda.max_memory_allocated() - base)
+        del x, dy
+    (yg, dxg, *dwg), (yl, dxl, *dwl) = grads["gathered"], grads["live"]
+    worst = max(_compare(torch, a[:live], b, True)[1]
+                for a, b in ((yg, yl), (dxg, dxl)))
+    worst = max([worst] + [_compare(torch, a, b, True)[1]
+                           for a, b in zip(dwg, dwl)])
+    dead_zero = bool((yg[live:] == 0).all() and (dxg[live:] == 0).all())
+    del grads, yg, dxg, dwg, yl, dxl, dwl, ws, x_all, dy_all
+    _free(torch)
+    g, lv = res["gathered"], res["live"]
+    out = dict(sizes=sizes, rows=rows, live_rows=live, gathered=g, live=lv,
+               worst_over_tol=worst, dead_rows_zero=dead_zero,
+               extra_ms_a_layer_step=(g["fwd_ms"] - lv["fwd_ms"])
+               + (g["fwd_bwd_ms"] - lv["fwd_bwd_ms"]),
+               extra_peak_bytes=g["peak_bytes"] - lv["peak_bytes"])
+    log(f"[moe-parallel] expert FFN at ep 4, rank 0's gathered copies "
+        f"[{rows}, {D}] (groups {sizes}, {rows - live} rows past them) "
+        f"against the {live} live rows alone: forward {g['fwd_ms']:.4f} "
+        f"against {lv['fwd_ms']:.4f} ms, forward + backward "
+        f"{g['fwd_bwd_ms']:.4f} against {lv['fwd_bwd_ms']:.4f} ms, peak "
+        f"above the inputs {g['peak_bytes'] / 2**30:.3f} against "
+        f"{lv['peak_bytes'] / 2**30:.3f} GiB | the dead rows cost "
+        f"{out['extra_ms_a_layer_step']:.4f} ms a layer a step under remat "
+        f"(Δforward + Δ(forward + backward)) and "
+        f"{out['extra_peak_bytes'] / 2**30:.3f} GiB | live rows within "
+        f"{worst:.3f} of one bf16 ulp, dead rows zero {dead_zero}")
+    if not (worst <= 1.0 and dead_zero):
+        raise AssertionError(f"the expert FFN on rows past the sizes: worst "
+                             f"{worst}, dead rows zero {dead_zero}")
+    return out
+
+
+def stage_moe_parallel_kernels(seed):
+    """Stage 36 (a): B7's forward, dx and dw at the shapes Mixtral-8x7B's
+    training gives them at tp 2 and tp 4 ([8, 4096, 14336 / tp] and
+    [8, 14336 / tp, 4096], T = 16,384 token copies over 8 experts, one
+    empty), at ep 4 on compact rows (a rank's 2 experts, [2, 4096, 14336]
+    and [2, 14336, 4096], T = 16,384, one of the two empty) and at ep 4 as
+    the exchange hands them over (``ep4main``: the 65,536 gathered copies
+    of 4 ranks' 8192 tokens, about a quarter of them routed to this
+    rank's experts by a random router, the rest past the sizes), each
+    against its plain version (``_gmm_case``, ``_gmm_bwd_case``); then the
+    whole expert FFN on those gathered rows against the live ones alone
+    (:func:`_ffn_dead_rows`)."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed + 36)
+    D, I, E, k, tokens, ep = 4096, 14336, 8, 2, 8192, 4
+    sizes8 = _routed_sizes(torch, gen, tokens, E, k, empty=2)
+    main = _ep_local_sizes(torch, gen, tokens, E, k, ep)
+    shapes = [("tp2", sizes8, I // 2, None), ("tp4", sizes8, I // 4, None),
+              ("ep4", [tokens * k, 0], I, None),
+              ("ep4main", main, I, ep * tokens * k)]
+    rows = []
+    for tag, sizes, inner, n in shapes:
+        for proj, K, N in (("w1", D, inner), ("w2", inner, D)):
+            rows.append(dict(_gmm_case(torch, gen, f"{tag}_{proj}", sizes,
+                                       K, N, "bfloat16", "wgmma_tma",
+                                       rows=n), kind="fwd"))
+            _free(torch)
+            for kind in ("dx", "dw"):
+                row = _gmm_bwd_case(torch, gen, kind, proj, sizes, K, N,
+                                    rows=n)
+                row["case"] = f"{tag}_{row['case']}"
+                rows.append(row)
+                _free(torch)
+    ffn = _ffn_dead_rows(torch, gen, main, ep * tokens * k, D, I)
+    return rows, ffn
+
+
+def _mixtral_split_codes(torch, np, seed, moe_train):
+    """(b): stage 31 (b)'s Mixtral (full width, one layer, B=4, S=2048,
+    the same seed and ids) with each MoE block cut by ``tp_rules`` over a
+    one-rank tp group and localized to all its experts over a one-rank ep
+    group, so that the exchange's code runs (its gathers and its
+    reduce-scatter the identity, the copies routed elsewhere none): the
+    losses and the B7 launches by route must be stage 31 (b)'s."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.comm.backend import ProcessGroup
+    from deepspeed_tpu_torch.models.mixtral import (MixtralConfig,
+                                                    MixtralModel, tp_rules)
+    from deepspeed_tpu_torch.module_inject import shard_params_for_tp
+    from deepspeed_tpu_torch.ops.kernels import grouped_matmul as gm
+    B, S = 4, 2048
+    cfg = MixtralConfig(**dict(MIXTRAL_TRAIN, num_hidden_layers=1))
+    model = shard_params_for_tp(MixtralModel(cfg, device="meta"),
+                                tp_rules(cfg), group=_local_tp_group())
+    ep_group = ProcessGroup(("ep", ), local=True)
+    for layer in model.model.layers:
+        layer.block_sparse_moe.localize(0, cfg.num_local_experts, ep_group)
+    engine = deepspeed_tpu_torch.initialize(model=model,
+                                            config=dict(TRAIN_CONFIG))[0]
+    engine.initialize_parameters(seed)
+    ids = torch.from_numpy(np.random.default_rng(seed + 31).integers(
+        0, cfg.vocab_size, size=(B, S))).cuda()
+    for fn in ("gmm", "gmm_dx", "gmm_dw"):
+        getattr(gm, fn).route_launches = dict.fromkeys(
+            getattr(gm, fn).route_launches, 0)
+    steps = len(moe_train["losses"])
+    losses, times, launches, peak = _timed_steps(torch, engine, [(ids, ids)],
+                                                 1, steps - 1)
+    routes = {fn: {r: n for r, n in getattr(gm, fn).route_launches.items()
+                   if n} for fn in ("gmm", "gmm_dx", "gmm_dw")}
+    rows = [int(n) for n in
+            engine.module.model.layers[0].block_sparse_moe.routed_rows]
+    del engine, model
+    _free(torch)
+    same = losses == moe_train["losses"]
+    log(f"[moe-parallel] Mixtral-8x7B width, one layer, through the tp code "
+        f"at tp 1 and the ep code at ep 1: losses {losses} (stage 31 (b): "
+        f"{moe_train['losses']}, bit-equal {same}) | step ms "
+        + ", ".join(f"{t * 1e3:.1f}" for t in times)
+        + f" | routed rows a local expert at the last step {rows} | launches "
+        f"{launches}, by route {routes}")
+    if not same or launches != moe_train["launches"] or \
+            routes != moe_train["route_launches"]:
+        raise AssertionError(
+            f"the ep and tp code at 1 rank changed stage 31 (b)'s run: "
+            f"losses {losses}, launches {launches} by route {routes}")
+    return dict(losses=losses, step_ms=[t * 1e3 for t in times],
+                launches=launches, route_launches=routes, peak_bytes=peak,
+                routed_rows=rows)
+
+
+def _moe_declines(torch, np, seed):
+    """(c): the MoE layer under qgZ with the 2-hop int8 dispatch asked for,
+    on the NCCL world of one rank: the per-rank path (a token group of one
+    rank) and the 2-hop split (no ep group to split) both decline, each
+    counted once, and the run is the flat one's."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.moe import engine as moe_engine
+    from zero_multicard import moe_layer_model
+    D, T = 1024, 2048
+    rng = np.random.default_rng(seed + 36)
+    x = torch.from_numpy(rng.standard_normal((T, D)).astype(
+        np.float32)).cuda()
+    y = torch.tanh(x * 0.5)
+    runs = {}
+    for name, extra in (
+            ("flat", {}),
+            ("asked", dict(moe={"enabled": True, "quantized_dispatch": True,
+                                "wire_dtype": "int8", "intra_node_size": 2},
+                           zero_optimization={
+                               "stage": 2,
+                               "zero_quantized_gradients": True}))):
+        before = dict(moe_engine.declines)
+        model, start = moe_layer_model(torch, D, seed + 36)
+        eng = deepspeed_tpu_torch.initialize(
+            model=model, model_parameters=start, config=dict(
+                TRAIN_CONFIG, train_micro_batch_size_per_gpu=T,
+                **extra))[0]
+        loss = eng(x, y)
+        eng.backward(loss)
+        eng.step()
+        runs[name] = dict(loss=loss.item(), declines={
+            k: moe_engine.declines[k] - before[k] for k in before})
+        del eng, model, start
+        _free(torch)
+    moe_engine.reset()
+    log(f"[moe-parallel] MoE layer (hidden {D}, {T} tokens) under qgZ with "
+        f"the 2-hop int8 dispatch asked for, NCCL world 1: declines "
+        f"{runs['asked']['declines']}, loss {runs['asked']['loss']} against "
+        f"the flat run's {runs['flat']['loss']}")
+    if runs["asked"]["declines"] != {"per_rank": 1, "two_hop": 1} or \
+            runs["asked"]["loss"] != runs["flat"]["loss"]:
+        raise AssertionError(f"the per-rank and 2-hop paths at world 1: "
+                             f"{runs}")
+    return runs
+
+
+def stage_moe_parallel(seed, smi, moe_train):
+    """Stage 36: item 8b on one card.  (a) B7 at the tp-local and ep-local
+    shapes; (b) stage 31 (b)'s Mixtral through the tp and ep code at one
+    rank, bit-equal; (c) the qgZ micro's per-rank path and the 2-hop
+    dispatch declining at world 1."""
+    import numpy as np
+    import torch
+    t0 = time.perf_counter()
+    kernels, ffn = stage_moe_parallel_kernels(seed)
+    out = dict(kernels=kernels, dead_rows=ffn,
+               split_codes=_mixtral_split_codes(torch, np, seed, moe_train),
+               declines=_moe_declines(torch, np, seed))
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[moe-parallel] stage 36 took {out['seconds']:.1f} s | {smi}")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7601,6 +7903,7 @@ def main():
     tp = stage_tp(args.seed, smi, train, serve)
     long_ctx = stage_long_context(args.seed, smi, train)
     tp_compose = stage_tp_compose(args.seed, smi, train, gpt2)
+    moe_parallel = stage_moe_parallel(args.seed, smi, moe_train)
 
     entries = []
     for wrapper, case in (("paged_attention", "serve_decode"),
@@ -7957,6 +8260,10 @@ def main():
             e.update(launches_zeropp=zp.get("quantize_fp_packed", 0),
                      ms_zeropp_block=r["ms_q"],
                      bound_ms_zeropp_block=r["bound_q"])
+            r = block.get(("fp12", 2048))
+            if r is not None:
+                e.update(ms_zeropp_block_fp12=r["ms_q"],
+                         bound_ms_zeropp_block_fp12=r["bound_q"])
     # stage 33: the tp-1 paths' launches, and the kernels' cases at the
     # tp-local shapes under *_<case> (route, error, ms, plain, library,
     # bound)
@@ -7998,7 +8305,9 @@ def main():
                          c["flash_attention"] for c in lt),
                      ms_ring_32k=ring_ms["ring_fwd"],
                      ms_whole_32k=ring_ms["whole_fwd"],
-                     library_ms_32k=ring_ms["sdpa_fwd"])
+                     library_ms_32k=ring_ms["sdpa_fwd"],
+                     bound_ms_32k=long_ctx["ring"][0]["bound_ms"],
+                     bound_by_32k=long_ctx["ring"][0]["bound_by"])
         elif e["name"] == "flash_attention_bwd":
             e.update(launches_ring=sum(c["dq"] + c["dkv"] for c in ring_n),
                      launches_fpdt=fpdt_n["dq"] + fpdt_n["dkv"],
@@ -8040,6 +8349,18 @@ def main():
                          "launches"]["fused_adam_step"])
         elif e["name"] in ("fused_lamb_phase1", "fused_lamb_phase2"):
             e["launches_gpt2_tp1"] = sum(c.get(e["name"], 0) for c in g2)
+    # stage 36: B7 in the tp/ep code's run at one rank (b), counted from 0
+    # around it, and its cases at the tp-local and ep-local shapes under
+    # *_<case>
+    split = moe_parallel["split_codes"]["launches"]
+    for e in entries:
+        kind = {"gmm": "fwd", "gmm_dx": "dx", "gmm_dw": "dw"}.get(e["name"])
+        if kind is None:
+            continue
+        e["launches_split_codes"] = split.get(e["name"], 0)
+        for r in moe_parallel["kernels"]:
+            if r["kind"] == kind:
+                e.update({f"{k}_{r['case']}": r[k] for k in keys})
     llama_zero3.pop("batches")
     if args.json:
         with open(args.json, "w") as f:
@@ -8062,6 +8383,7 @@ def main():
                            moe_train=moe_train, pipeline_zero=pipe_zero,
                            tp=tp, long_context=long_ctx,
                            tp_compose=tp_compose,
+                           moe_parallel=moe_parallel,
                            seconds=time.perf_counter() - t_start),
                       f, indent=1, default=str)
     from deepspeed_tpu_torch import comm

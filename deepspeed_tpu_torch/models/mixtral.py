@@ -20,6 +20,11 @@ B7's dx and dw kernels).  As in the JAX model, the loss with labels is the
 LM loss alone: each layer's router logits are kept
 (:meth:`MixtralModel.intermediates`, JAX's ``sow``) and
 :func:`aux_loss_from_vars` is a helper a caller may add.
+
+Training runs at ep > 1 (the engine keeps each rank's E/ep experts of each
+stack, :meth:`MixtralSparseMoeBlock.localize`, and :func:`moe_apply`
+exchanges the tokens over the ep group), at tp > 1 (``tp_rules``: the
+stacks cut on I, the router whole) and at tp × ep.
 """
 
 import re
@@ -31,12 +36,16 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..accelerator import full_fp32_matmul
+from ..comm.functional import (all_gather, copy_to_tp_region,
+                               reduce_from_tp_region, reduce_scatter)
+from ..module_inject.auto_tp import Spec
+from ..module_inject.layers import tp_group_of
 from ..ops.kernels.grouped_matmul import gmm, gmm_plain
 from ..utils.not_ported import not_ported
-from ..module_inject.auto_tp import Spec
-from .llama import (LlamaAttention, LlamaConfig, LlamaModel, RMSNorm,
+# init_leaf: the engine draws an expert- or tp-split model leaf by leaf
+from .llama import (LlamaAttention, LlamaConfig, LlamaModel, RMSNorm,  # noqa: F401
                     _flax_attention_and_norms, _flax_converter, _flax_leaf,
-                    torch_dtype)
+                    init_leaf, torch_dtype)
 from .llama import tp_leaf_info as llama_tp_leaf_info
 from .llama import tp_rules as llama_tp_rules
 
@@ -73,7 +82,7 @@ def moe_expert_ffn(x_sorted, group_sizes, w1, w2, w3, use_kernel=True):
 
 
 def moe_apply(x, router_logits, w1, w2, w3, k, norm_topk=True,
-              use_kernel=True):
+              use_kernel=True, ep_group=None, first=0, stats=None):
     """Exact (no-drop) top-k MoE (``mixtral.py:78``): fp32 softmax, top-k
     (renormalised), a stable sort of the token copies by expert, the grouped
     SwiGLU, then the routing weights — cast to the activation dtype first —
@@ -81,25 +90,57 @@ def moe_apply(x, router_logits, w1, w2, w3, k, norm_topk=True,
     x: [T, D] → [T, D].  The group sizes never leave the device.  The
     copies are gathered through the permutation ``order`` of x repeated k
     times, so x's gradient is a permutation's (every index once: the same
-    bits in every rerun) followed by a sum over the k copies."""
+    bits in every rerun) followed by a sum over the k copies.
+
+    Expert parallelism (an ``ep_group`` of n ranks, the stacks holding the
+    experts ``[first, first + E/n)``; at n = 1 the same code, its gathers
+    and reduce the identity): each rank routes its own T tokens,
+    all-gathers (tokens, top-k weights and ids) over the group, sorts the
+    copies routed to its experts first (the others after them, past the
+    group sizes, where the grouped matmul writes zeros and the weights are
+    zero), scatter-adds the weighted outputs into [n·T, D] and
+    reduce-scatters that over the group: its own T rows, summed over the
+    ranks' experts.  Every shape is fixed for a given T; the backward is
+    the exact one (a gather's is a reduce-scatter, and the reverse), the
+    router's gradient flowing through the gathered weights.  ``stats``: a
+    dict that receives this rank's rows per local expert (a device
+    tensor)."""
     T, D = x.shape
     E = w1.shape[0]
     probs = torch.softmax(router_logits.float(), dim=-1)
     topw, topi = torch.topk(probs, k, dim=-1)              # [T, k]
     if norm_topk:
         topw = topw / topw.sum(dim=-1, keepdim=True)
+    split = ep_group is not None
+    if split:
+        x = all_gather(x, ep_group, 0)                      # [n·T, D]
+        # weights and ids in one gather (ids < 2^24 are exact in fp32)
+        meta = all_gather(torch.cat([topw, topi.float()], dim=1), ep_group,
+                          0)
+        topw, topi = meta[:, :k], meta[:, k:].long()
+        T = x.shape[0]
     flat_expert = topi.reshape(-1)                          # [T·k]
+    flat_w = topw.reshape(-1)
+    if split:
+        mine = (flat_expert >= first) & (flat_expert < first + E)
+        flat_expert = torch.where(mine, flat_expert - first, E)
+        flat_w = flat_w * mine
     order = torch.argsort(flat_expert, stable=True)
     token_of = order // k                                   # source token
-    group_sizes = torch.zeros(E, dtype=torch.int32, device=x.device)
-    group_sizes.index_add_(0, flat_expert,
-                           torch.ones_like(flat_expert, dtype=torch.int32))
+    counts = torch.zeros(E + split, dtype=torch.int32, device=x.device)
+    counts.index_add_(0, flat_expert,
+                      torch.ones_like(flat_expert, dtype=torch.int32))
+    group_sizes = counts[:E]
+    if stats is not None:
+        stats["rows"] = group_sizes
     x_sorted = x.unsqueeze(1).expand(T, k, D).reshape(T * k, D)[order]
     y_sorted = moe_expert_ffn(x_sorted, group_sizes, w1, w2, w3,
                               use_kernel)
-    w_sorted = topw.reshape(-1)[order].to(y_sorted.dtype)
+    w_sorted = flat_w[order].to(y_sorted.dtype)
     out = torch.zeros(T, D, dtype=y_sorted.dtype, device=x.device)
     out.index_add_(0, token_of, y_sorted * w_sorted[:, None])
+    if split:
+        out = reduce_scatter(out, ep_group, 0)
     return out.to(x.dtype)
 
 
@@ -130,22 +171,26 @@ def aux_loss_from_vars(variables, k, coef):
     return coef * total / max(n, 1)
 
 
-def _check_expert_parallel():
-    from ..utils import groups
-    if groups.mesh_is_initialized() and groups.get_mesh_state().ep > 1:
-        raise not_ported("MixtralModel at ep > 1 (expert stacks sharded "
-                         "over the ep axis)", "8b")
-
-
 class MixtralSparseMoeBlock(nn.Module):
     """Router gate ``[D, E]`` (fp32) and stacked experts in the model
     dtype (HF ``block_sparse_moe``).  Its forward (training) keeps the
-    router logits of its last call in ``router_logits``."""
+    router logits of its last call in ``router_logits`` and this rank's
+    rows per local expert in ``routed_rows``.
+
+    The engine's expert-parallel split (:meth:`localize`) keeps this
+    rank's E/ep experts of each stack and the ep group to exchange over;
+    tensor parallelism (``module_inject``) cuts the stacks on I (w1, w3
+    column, w2 row) and gives the block its ``tp_group``."""
+
+    EXPERT_LEAVES = ("w1", "w2", "w3")
 
     def __init__(self, cfg, dtype, device):
         super().__init__()
         self.config = cfg
         self.router_logits = None
+        self.routed_rows = None
+        self.num_experts = cfg.num_local_experts
+        self.first, self.ep_group = 0, None
         E, D, I = (cfg.num_local_experts, cfg.hidden_size,
                    cfg.intermediate_size)
 
@@ -158,21 +203,43 @@ class MixtralSparseMoeBlock(nn.Module):
         self.w3 = param(E, D, I)
         self.w2 = param(E, I, D)
 
+    def localize(self, e0, e1, ep_group=None):
+        """Keep the experts ``[e0, e1)`` of each stack and exchange over
+        ``ep_group`` (a no-op when already done)."""
+        if self.first != e0 or self.w1.shape[0] != e1 - e0:
+            for name in self.EXPERT_LEAVES:
+                p = getattr(self, name)
+                setattr(self, name, nn.Parameter(
+                    p.data[e0:e1].clone(), requires_grad=p.requires_grad))
+        self.first, self.ep_group = e0, ep_group
+
     def forward(self, x, use_kernel=True):
         """x: [B, S, D] → [B, S, D] (``mixtral.py:119``): the fp32 router
         (the gate promoted to fp32, full fp32 on the card), then
-        :func:`moe_apply` over the stacks in the model dtype."""
+        :func:`moe_apply` over the stacks in the model dtype.  At tp > 1
+        the tokens and the router enter the tp region (Megatron's
+        copy-to-tp: the router's gradient, whose top-k weights see only
+        this rank's I/tp slice of each expert, is summed over tp), and the
+        block's [T, D] output is reduced from it after the weighted
+        scatter-add; every tp rank routes alike, from the same input
+        bits."""
         cfg = self.config
         dt = torch_dtype(cfg.dtype)
         B, S, D = x.shape
-        tokens = x.reshape(-1, D)
+        group = tp_group_of(self)
+        tokens = copy_to_tp_region(x.reshape(-1, D), group)
+        gate = copy_to_tp_region(self.gate, group)
         with full_fp32_matmul():
-            logits = tokens.float() @ self.gate.float()      # [T, E]
+            logits = tokens.float() @ gate.float()           # [T, E]
+        stats = {}
         out = moe_apply(tokens, logits, self.w1.to(dt), self.w2.to(dt),
                         self.w3.to(dt), cfg.num_experts_per_tok,
-                        norm_topk=cfg.norm_topk_prob, use_kernel=use_kernel)
+                        norm_topk=cfg.norm_topk_prob, use_kernel=use_kernel,
+                        ep_group=self.ep_group, first=self.first,
+                        stats=stats)
         self.router_logits = logits
-        return out.reshape(B, S, D)
+        self.routed_rows = stats["rows"]
+        return reduce_from_tp_region(out, group).reshape(B, S, D)
 
 
 class MixtralDecoderLayer(nn.Module):
@@ -225,7 +292,6 @@ class MixtralModel(LlamaModel):
         comment says the engine adds the aux loss; its engine does not).
         Each layer's router logits stay reachable through
         :meth:`intermediates`."""
-        _check_expert_parallel()
         for layer in self.model.layers:
             layer.block_sparse_moe.router_logits = None
         return super().forward(input_ids, labels, attention_mask,

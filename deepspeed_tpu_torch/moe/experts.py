@@ -105,6 +105,11 @@ class Experts(nn.Module):
                 setattr(m, name, nn.Parameter(p.data[e0:e1].clone()))
         self.first = e0
 
+    @property
+    def whole(self):
+        """Whether the stack holds all ``num_experts`` (not localized)."""
+        return next(self.experts.parameters()).shape[0] == self.num_experts
+
     def forward(self, x, experts=None):
         if experts is not None:
             experts = (experts[0] - self.first, experts[1] - self.first)

@@ -6,10 +6,12 @@ the gate; ``forward(x)`` returns ``(output, l_aux, exp_counts)`` as the
 reference's.  The gate runs in fp32 (JAX ``layer.py:49-54``).  Noise:
 with ``noisy_gate_policy="Jitter"`` the gate's input is multiplied by
 uniform noise in [1 - 1e-2, 1 + 1e-2], with ``"RSample"`` top-1 selection
-adds Gumbel noise; both only in training and only from the
-``torch.Generator`` the caller passes (JAX's ``gating`` rng), so a run
-without one is deterministic.  The engine threads no such generator (JAX's
-does, seeded by ``moe.gating_seed``: item 8b).  ``use_residual`` is
+adds Gumbel noise; both only in training and only from a
+``torch.Generator`` (JAX's ``gating`` rng): the one the caller passes, else
+``gating_generator``, which an engine with the ``moe`` block on sets
+(seeded from ``moe.gating_seed``, else the config's ``seed``, and reseeded
+at each micro-step), so a run without one is deterministic.
+``use_residual`` is
 PR-MoE: a dense expert beside the MoE, mixed by a learned 2-way softmax
 coefficient.
 
@@ -65,6 +67,7 @@ class MoE(nn.Module):
         if use_residual:
             self.residual_mlp = expert_module(**kwargs, device=device)
             self.coefficient = Dense(D, 2, device=device)
+        self.gating_generator = None
 
     def forward(self, x, used_token=None, generator=None):
         """x: [B, S, D] or [T, D] → (out of x's shape, l_aux, exp_counts
@@ -73,6 +76,8 @@ class MoE(nn.Module):
         shape = x.shape
         tokens = x.reshape(-1, D)
         gate_in = tokens.float()
+        if generator is None:
+            generator = self.gating_generator
         noisy = self.training and generator is not None
         if noisy and self.noisy_gate_policy == "Jitter":
             u = torch.rand(gate_in.shape, generator=generator,

@@ -180,9 +180,10 @@ def _forward(x, w, group_sizes):
 
 def gmm(x, w, group_sizes):
     """Grouped matmul: ``y[i] = x[i] @ w[g(i)]``.  x: [T, K] with rows
-    sorted by group; w: [E, K, N]; group_sizes: [E] int32 summing to T (on
-    x's device).  Returns [T, N] in x's dtype.  Differentiable in x and w
-    (:class:`GroupedMatmul`)."""
+    sorted by group; w: [E, K, N]; group_sizes: [E] int32 summing to at
+    most T (on x's device; the rows past the sum come out zero and their
+    gradients are zero, as ``lax.ragged_dot``'s).  Returns [T, N] in x's
+    dtype.  Differentiable in x and w (:class:`GroupedMatmul`)."""
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return GroupedMatmul.apply(x, w, group_sizes)
     return _forward(x, w, group_sizes)
@@ -294,7 +295,7 @@ def gmm_dx(dy, w, group_sizes, route=None):
 def gmm_dw(x, dy, group_sizes, route=None):
     """``dw[e] = x_eᵀ @ dy_e`` over expert e's rows: x [T, K], dy [T, N]
     → [E, K, N] in x's dtype (E = ``group_sizes``' length; zeros for an
-    expert with no rows).  On the card: one launch on ``route`` (default
+    expert with no rows; rows past the sizes unread).  On the card: one launch on ``route`` (default
     :func:`gmm_bwd_route`'s), which writes every expert; T = 0 launches
     nothing and gives zeros."""
     if x.dim() != 2 or dy.dim() != 2 or x.shape[0] != dy.shape[0]:

@@ -224,14 +224,17 @@ class DominoConfig(DeepSpeedConfigModel):
 class MoeConfig(DeepSpeedConfigModel):
     """``moe`` (``config.py:183``): the expert-parallel dispatch
     (``moe/engine.py``).  ``quantized_dispatch`` moves the exchange over
-    ep on a quantized wire; ``hierarchical_dispatch`` with an
-    ``intra_node_size`` (the 2-hop exchange) is item 8b."""
+    ep on a quantized wire; with ``hierarchical_dispatch`` and an
+    ``intra_node_size`` that splits the ep group it runs in two hops.
+    ``gating_seed`` seeds the noisy gates' generator the engine threads
+    (default: the config's ``seed``)."""
     enabled: bool = False
     quantized_dispatch: bool = False
     wire_dtype: str = "int8"
     quantization_group_size: int = 2048
     hierarchical_dispatch: bool = True
     intra_node_size: int = 0
+    gating_seed: int = None
 
 
 def _check_moe(mc):
@@ -328,34 +331,8 @@ def _mesh_dims(pd):
     return mesh
 
 
-def _tp_with(pd, *axes):
-    """Whether the config asks for tp > 1 together with any of ``axes``
-    (a pipeline's ``stages`` count as pp)."""
-    m = _mesh_dims(pd)
-    if m.get("tp") in (None, 1):
-        return False
-    stages = (pd.get("pipeline") or {}).get("stages", "auto")
-    return any(m.get(a) not in (None, 1) for a in axes) or (
-        "pp" in axes and stages not in ("auto", 1))
-
-
 # (what, queue-A item, predicate on the raw config dict)
 _UNPORTED = (
-    ("tensor parallelism (mesh.tp) with expert parallelism (mesh.ep)", "8b",
-     lambda pd: _tp_with(pd, "ep")),
-    ("expert parallelism (mesh.ep) with pp or sp > 1", "8b",
-     lambda pd: _mesh_dims(pd).get("ep") not in (None, 1) and (
-         _mesh_dims(pd).get("sp") not in (None, 1) or
-         _mesh_dims(pd).get("pp") not in (None, 1) or
-         (pd.get("pipeline") or {}).get("stages", "auto") not in ("auto",
-                                                                  1))),
-    ("moe.intra_node_size (the 2-hop hierarchical expert dispatch)", "8b",
-     lambda pd: _on(pd.get("moe"), "enabled") and
-     _on(pd.get("moe"), "quantized_dispatch") and
-     (pd.get("moe") or {}).get("hierarchical_dispatch", True) and
-     int((pd.get("moe") or {}).get("intra_node_size") or 0) > 0),
-    ("moe.gating_seed (noisy-gate rngs threaded by the engine)", "8b",
-     lambda pd: (pd.get("moe") or {}).get("gating_seed") is not None),
     ("resilience.watchdog", 12,
      lambda pd: _on((pd.get("resilience") or {}).get("watchdog"),
                     "enabled")),

@@ -261,6 +261,10 @@ class DeepSpeedEngine(OffloadMixin):
         self.module = model = self._build_module(model)
         self._shard_for_tp(model, tp_rules)
         config.resolve_batch_sizes(self.dp_world_size)
+        # a 1-bit optimizer reduces the gradients itself, from each rank's
+        # own (runtime/fp16/onebit/common.py)
+        self._onebit = optimizer is None and \
+            config.optimizer_name in ONEBIT_OPTIMIZERS
         self._configure_moe(model)
 
         self.compute_dtype = (torch.bfloat16 if config.bfloat16_enabled
@@ -278,10 +282,6 @@ class DeepSpeedEngine(OffloadMixin):
             config.gradient_accumulation_dtype]
         self.zero_stage = config.zero_optimization_stage
         self.zero_plan = None
-        # a 1-bit optimizer reduces the gradients itself, from each rank's
-        # own (runtime/fp16/onebit/common.py)
-        self._onebit = optimizer is None and \
-            config.optimizer_name in ONEBIT_OPTIMIZERS
         if self._onebit:
             from .fp16.onebit.common import check_compatible
             check_compatible(self, config.optimizer_name)
@@ -464,22 +464,18 @@ class DeepSpeedEngine(OffloadMixin):
         to this rank's slices over the tp group
         (``module_inject/auto_tp.py:shard_params_for_tp``).  ``_tp_splits``:
         {leaf name: (dim, tp rank, tp size)} of the sharded leaves; empty
-        at tp 1.  The Llama family, GPT-2 and BERT train at tp (their
-        forwards make the tp collectives); Mixtral is refused (item 8b);
-        the 1-bit optimizers and parameter streaming refuse tp as the
-        reference does (``fp16/onebit/common.py:check_compatible``,
-        ``__init__.py``)."""
+        at tp 1.  The Llama family (Mixtral with ``mixtral.tp_rules``:
+        the expert stacks cut on I), GPT-2 and BERT train at tp (their
+        forwards make the tp collectives); the 1-bit optimizers and
+        parameter streaming refuse tp as the reference does
+        (``fp16/onebit/common.py:check_compatible``, ``__init__.py``)."""
         self._tp_splits = {}
         if self.tp_world_size == 1:
             return
         from ..models.bert import BertModel
         from ..models.gpt2 import GPT2Model
         from ..models.llama import LlamaModel
-        from ..models.mixtral import MixtralModel
         from ..module_inject.auto_tp import shard_params_for_tp
-        if isinstance(model, MixtralModel):
-            raise not_ported("Mixtral training with tensor parallelism "
-                             "(tp > 1)", "8b")
         from .pipe.module import PipeStage
         if isinstance(model, PipeStage) and tp_rules is None:
             raise ValueError("a pipeline at tp > 1 takes its tp_rules from "
@@ -508,43 +504,64 @@ class DeepSpeedEngine(OffloadMixin):
 
     def _configure_moe(self, model):
         """The ``moe`` block's dispatch options (JAX ``engine.py:287-307``;
-        disabled: the flat exchange).  The MoE layer gates over the global
-        batch; JAX's qgZ micro gates per rank, which the port's one qgZ
-        path does not reproduce: refused."""
+        disabled: the flat exchange), the 2-hop dispatch's subgroups, and
+        the noisy gates' generator (JAX's per-step gating key: seeded from
+        ``moe.gating_seed``, else the config's ``seed``, and reseeded at
+        each micro-step).  The MoE layer gates over the global batch, or
+        per rank where JAX's micro-step is a manual region: the qgZ micro
+        (``zero/gspmd.py:manual_micro_reasons``: the ``moe`` block on, or a
+        ZeRO group over both dp and ep) and the 1-bit optimizers' micro
+        (``fp16/onebit/common.py:build_local_grad_micro``)."""
         from ..moe import engine as moe_engine
         from ..moe.layer import MoE
         moe_cfg = self._config.moe_config
         moe_engine.configure(moe_cfg if moe_cfg.enabled else None,
                              comm_opts=self._config.comm_optimizations_config)
-        if self._zcomm.qgz and self._data_world > 1 and any(
-                isinstance(m, MoE) for m in model.modules()):
-            raise not_ported("the MoE layer under quantized gradients (qgZ "
-                             "gates per rank)", "8b")
+        moe_engine.prepare_hierarchy()
+        layers = [m for m in model.modules() if isinstance(m, MoE)]
+        st = groups.get_mesh_state() if self._data_world > 1 else None
+        moe_engine.set_per_rank_gating(
+            bool(layers) and (self._onebit or self._zcomm.qgz and (
+                moe_cfg.enabled or (st is not None and st.ep > 1 and
+                                    st.dp > st.ep))), self._data_world)
+        self._gating = None
+        if moe_cfg.enabled and layers:
+            seed = moe_cfg.gating_seed if moe_cfg.gating_seed is not None \
+                else self._config.seed
+            self._gating = (int(seed), torch.Generator(device=self.device))
+            for m in layers:
+                m.gating_generator = self._gating[1]
+
+    def _reseed_gating(self):
+        """The gating generator at this micro-step's seed (the config's
+        gating seed and the micro-step count, as JAX folds the step into
+        its key)."""
+        if self._gating is not None:
+            seed, gen = self._gating
+            gen.manual_seed(seed * 1_000_003 + self.micro_steps)
 
     def _split_experts(self, model):
         """The expert-parallel split (JAX ``leaf_zero_axes``, ``partition.py
-        :345-376``): at ep > 1 each ``Experts`` stack keeps this rank's
-        ``E / ep`` experts, and the plan shards their leaves over the
-        expert-data group.  ``_experts``: {leaf name: (first expert, the
-        rank's count, E)}; empty without the split."""
+        :345-376``): at ep > 1 each ``Experts`` stack, and each Mixtral
+        block's ``w1``/``w2``/``w3``, keeps this rank's ``E / ep`` experts,
+        and the plan shards their leaves over the expert-data group (× sp:
+        the ranks that hold the same experts).  ``_experts``: {leaf name:
+        (first expert, the rank's count, E)}; empty without the split."""
+        from ..models.mixtral import MixtralSparseMoeBlock
         from ..moe.experts import Experts
         self._experts, self._global = {}, None
         self._ep_group = None
         ep = (groups._get_expert_parallel_world_size()
               if self._data_world > 1 else 1)
         stacks = [(p, m) for p, m in model.named_modules()
-                  if isinstance(m, Experts)]
-        if ep <= 1 or not stacks:
+                  if isinstance(m, (Experts, MixtralSparseMoeBlock))]
+        if ep <= 1 or not stacks or self._onebit:
+            # the 1-bit optimizers count ep as a data axis (JAX's 1-bit
+            # micro-step holds every leaf whole on each of the dp × ep
+            # workers, ``fp16/onebit/common.py:build_local_grad_micro``)
             return
-        zc = self._config.zero_config
-        for what, on in (
-                ("offload_optimizer", zc.offload_optimizer_device != "none"),
-                ("offload_param", zc.offload_param_device != "none"),
-                ("a 1-bit optimizer", self._onebit)):
-            if on:
-                raise not_ported(f"{what} with expert parallelism (ep > 1)",
-                                 "8b")
         j = groups._get_expert_parallel_rank()
+        self._ep_group = groups._get_expert_parallel_group().as_flat()
         for prefix, m in stacks:
             if m.num_experts % ep:
                 raise ValueError(
@@ -552,23 +569,28 @@ class DeepSpeedEngine(OffloadMixin):
                     f"ep={ep} (expert stacks split their leading dim over "
                     "the ep axis)")
             n = m.num_experts // ep
-            m.localize(j * n, (j + 1) * n)
+            mixtral = isinstance(m, MixtralSparseMoeBlock)
+            if mixtral:
+                m.localize(j * n, (j + 1) * n, self._ep_group)
+            else:
+                m.localize(j * n, (j + 1) * n)
             for name, _ in m.named_parameters():
+                if mixtral and name not in m.EXPERT_LEAVES:
+                    continue
                 full = f"{prefix}.{name}" if prefix else name
                 self._experts[full] = (j * n, n, m.num_experts)
-        self._ep_group = groups._get_expert_parallel_group().as_flat()
         self._zcomm.expert_group = \
-            groups._get_expert_data_parallel_group().as_flat()
+            groups._get_expert_data_sequence_group().as_flat()
 
     def _local_value(self, name, t):
         """``t``, a value of leaf ``name``, as this rank holds it: an
         expert stack given whole is cut to this rank's experts, a leaf
         sharded over tp to this rank's slice (contiguous)."""
+        if name in self._tp_splits:
+            t = tp_local(self.module, name, t)
         split = self._experts.get(name)
         if split is not None and t.shape[0] == split[2]:
             return t[split[0]:split[0] + split[1]]
-        if name in self._tp_splits:
-            return tp_local(self.module, name, t)
         return t
 
     def _tp_whole_shape(self, name):
@@ -586,9 +608,9 @@ class DeepSpeedEngine(OffloadMixin):
         tp = self._tp_splits.get(name)
         if tp is not None:
             # a padded leaf (auto_tp.tp_splits) loses its pad rows
-            return tp_trim(dist.all_gather(t.contiguous(),
-                                           group=self._tp_group, axis=tp[0]),
-                           tp[0], self._tp_whole_shape(name)[tp[0]])
+            t = tp_trim(dist.all_gather(t.contiguous(), group=self._tp_group,
+                                        axis=tp[0]),
+                        tp[0], self._tp_whole_shape(name)[tp[0]])
         if name not in self._experts:
             return t
         n = self._ep_group.size()
@@ -858,8 +880,12 @@ class DeepSpeedEngine(OffloadMixin):
                 continue
             lo, hi = plan.param_slice(u.index)
             a, b = plan.shard_slice(u.index)
-            self._zcomm.refresh_secondary(self.params[lo:hi],
-                                          self._pshard[a:b])
+            if plan.secondary(u.index):
+                self._zcomm.refresh_secondary(self.params[lo:hi],
+                                              self._pshard[a:b])
+            else:
+                # an expert unit's parameters are its primary slices
+                self.params[lo:hi].copy_(self._pshard[a:b])
 
     def _fill_persistent(self, value):
         """Stage 3: the persistent unit's buffer from ``value(name, flat
@@ -936,7 +962,7 @@ class DeepSpeedEngine(OffloadMixin):
         layout, numel = self.global_layout()
         init_leaf = getattr(sys.modules[type(self.module).__module__],
                             "init_leaf", None)
-        if self._tp_splits and init_leaf is not None:
+        if init_leaf is not None:
             # leaf by leaf in the module's order, as ``init_weights`` draws
             # them: no rank holds the whole model at once
             where = {name: (off, n, gshape) for (name, off, n, _),
@@ -990,20 +1016,17 @@ class DeepSpeedEngine(OffloadMixin):
             self._init_opt_state()
 
     def _init_opt_state(self):
-        if self._experts and isinstance(self._transform, FusedLambTransform):
-            # its trust ratio is over each whole stack, which no rank holds
-            raise not_ported("LAMB with expert parallelism (ep > 1)", "8b")
         pieces = [(o, n) for o, n, _ in
                   self.zero_plan.leaf_pieces(self._layout)]
         if self._onebit:
-            self.opt_state = self._transform.init(self._target(), pieces,
-                                                  world=self._data_world)
+            self.opt_state = self._transform.init(
+                self._target(), pieces, world=self._data_world)
             return
         self.opt_state = self._transform.init(
             self._target(), pieces, device=self.device, pin=self._pin_state)
         if isinstance(self._transform, FusedLambTransform) and (
                 (self.zero_plan.sharded and self.zero_plan.world_size > 1)
-                or self._tp_splits):
+                or self._tp_splits or self._experts):
             self._sum_lamb_leaves_over_ranks()
         if self._pending_client_lr is not None:
             self._set_client_lr(self._pending_client_lr)
@@ -1020,17 +1043,44 @@ class DeepSpeedEngine(OffloadMixin):
 
     def _leaf_sums(self, piece_sums):
         """[pieces, 2] sums of this rank's leaf pieces → the whole leaves'
-        sums (all-reduced, SUM), one row a piece."""
+        sums (all-reduced, SUM), one row a piece.  An expert leaf's sums
+        are over the whole stack, as JAX's logically whole array gives its
+        trust ratio: sharded, the data group's pieces are every expert's;
+        unsharded, summed over ep."""
         leaves = torch.zeros(len(self._layout), 2, dtype=torch.float32,
                              device=self.device)
         leaves[self._piece_leaf] = piece_sums.to(self.device)
-        dist.all_reduce(leaves, group=self._shard_group)
+        plan = self.zero_plan
+        if plan.sharded and plan.world_size > 1 and self._experts and \
+                plan.mics:
+            # MiCS: a shard group holds every dense piece, an expert
+            # leaf's pieces lie over its expert-data group and ep
+            rows = self._expert_leaf_rows()
+            e = dist.all_reduce(leaves[rows].contiguous(),
+                                group=self._zcomm.expert_group)
+            dist.all_reduce(leaves, group=self._shard_group)
+            leaves[rows] = dist.all_reduce(e, group=self._ep_group)
+        elif plan.sharded and plan.world_size > 1:
+            dist.all_reduce(leaves, group=self._shard_group)
+        elif self._experts:
+            rows = self._expert_leaf_rows()
+            leaves[rows] = dist.all_reduce(leaves[rows].contiguous(),
+                                           group=self._ep_group)
         if self._tp_splits:
             # a tp-sharded leaf's sums are over every tp rank's slice
             split = self._tp_leaf_rows()
             leaves[split] = dist.all_reduce(leaves[split].contiguous(),
                                             group=self._tp_group)
         return leaves[self._piece_leaf]
+
+    def _expert_leaf_rows(self):
+        """Indices in the layout of the expert leaves."""
+        if getattr(self, "_expert_rows", None) is None:
+            self._expert_rows = torch.tensor(
+                [i for i, (name, *_) in enumerate(self._layout)
+                 if name in self._experts], dtype=torch.long,
+                device=self.device)
+        return self._expert_rows
 
     def _tp_leaf_rows(self):
         """Indices in the layout of the tp-sharded leaves."""
@@ -1218,6 +1268,7 @@ class DeepSpeedEngine(OffloadMixin):
                 self._coord.release_outer()
             return out
         self.timers(FORWARD_GLOBAL_TIMER).start()
+        self._reseed_gating()
         if self._global_loss:
             scaled, loss = self._global_batch_loss(*inputs, **kwargs)
         else:
@@ -1487,45 +1538,60 @@ class DeepSpeedEngine(OffloadMixin):
         """The L2 norm of the summed gradient (before unscaling).  Sharded,
         the ranks' slices are each counted once over the world (an expert
         unit's slices over the expert-data group, its other experts on the
-        other ep coordinates); unsharded with the expert split, the
-        experts' part is summed over ep."""
-        if self._tp_splits:
-            return self._tp_norm(grads)
+        other ep coordinates); with tp or an unsharded expert split, by
+        leaf kind (:meth:`_kind_squares`)."""
         plan = self.zero_plan
-        if plan.sharded and plan.world_size > 1:
+        sharded = plan.sharded and plan.world_size > 1
+        if self._tp_splits or (plan.experts_split and (
+                not sharded or plan.mics)):
+            return self._kind_squares(grads).sum().sqrt()
+        if sharded:
             return self._sharded_norm(grads)
-        if plan.experts_split:
-            sq = torch.zeros(2, dtype=torch.float32, device=grads.device)
-            for u in range(plan.n_units):
-                lo, hi = plan.unit_range(u)
-                sq[int(plan.unit_expert[u])] += torch.linalg.vector_norm(
-                    grads[lo:hi], dtype=torch.float32).square()
-            dist.all_reduce(sq[1:], group=self._ep_group)
-            return sq.sum().sqrt()
         # every rank holds the whole summed gradient
         return global_grad_norm([grads])
 
-    def _tp_norm(self, grads):
-        """The norm at tp > 1: the squares of the tp-sharded leaves' slices
-        summed over the tp group, the replicated leaves' (the same on every
-        tp rank) counted once, each over the data group when sharded."""
-        zero = torch.zeros((), dtype=torch.float32, device=grads.device)
-        sq = torch.stack([
-            sum((torch.linalg.vector_norm(grads[a:b], dtype=torch.float32)
-                 .square() for a, b in ranges), zero)
-            for ranges in self._tp_ranges(grads.numel())])
+    def _kind_squares(self, grads, kept=None):
+        """[4] sums of squares of ``grads`` (the shard, or the whole layout;
+        within the ``kept`` [a, b) ranges only, if given) by leaf kind:
+        (replicated, expert) × (dense, tp-sharded), each counted once over
+        the world: summed over the data group when sharded, else the
+        expert kinds over ep (the other experts), then the tp-sharded kinds
+        over tp (the other slices; a replicated leaf is the same on every
+        tp rank)."""
+        sq = torch.zeros(4, dtype=torch.float32, device=grads.device)
+        for kind, ranges in enumerate(self._kind_ranges(grads.numel())):
+            for lo, hi in ranges:
+                for a, b in (((lo, hi), ) if kept is None else kept):
+                    a, b = max(a, lo), min(b, hi)
+                    if a < b:
+                        sq[kind] += torch.linalg.vector_norm(
+                            grads[a:b], dtype=torch.float32).square()
         plan = self.zero_plan
-        if plan.sharded and plan.world_size > 1:
-            dist.all_reduce(sq, group=self._shard_group)
-        sq[0] = dist.all_reduce(sq[:1].contiguous(), group=self._tp_group)[0]
-        return sq.sum().sqrt()
+        if plan.experts_split and plan.mics and plan.sharded:
+            # MiCS: the dense slices over the shard group (each replica
+            # holds them all); the expert slices over their expert-data
+            # group, then the other experts over ep
+            sq[0::2] = dist.all_reduce(sq[0::2].contiguous(),
+                                       group=self._shard_group)
+            e = dist.all_reduce(sq[1::2].contiguous(),
+                                group=self._zcomm.expert_group)
+            sq[1::2] = dist.all_reduce(e, group=self._ep_group)
+        elif plan.sharded and plan.world_size > 1:
+            sq = dist.all_reduce(sq, group=self._shard_group)
+        elif plan.experts_split:
+            sq[1::2] = dist.all_reduce(sq[1::2].contiguous(),
+                                       group=self._ep_group)
+        if self._tp_splits:
+            sq[2:] = dist.all_reduce(sq[2:].contiguous(),
+                                     group=self._tp_group)
+        return sq
 
-    def _tp_ranges(self, numel):
-        """``(sharded, replicated)``: the [a, b) ranges of a gradient buffer
-        of ``numel`` elements (the shard, or the whole layout) that hold
-        the tp-sharded leaves' elements and the others', neighbours of one
-        kind merged (cached by size)."""
-        cache = self.__dict__.setdefault("_tp_range_cache", {})
+    def _kind_ranges(self, numel):
+        """The [a, b) ranges of a gradient buffer of ``numel`` elements (the
+        shard, or the whole layout) that hold each kind of leaf, in the
+        order of :meth:`_kind_squares`, neighbours of one kind merged
+        (cached by size)."""
+        cache = self.__dict__.setdefault("_kind_range_cache", {})
         if numel not in cache:
             plan = self.zero_plan
             if numel == plan.shard_numel and plan.sharded:
@@ -1534,9 +1600,9 @@ class DeepSpeedEngine(OffloadMixin):
             else:
                 spans = [(off, off + n, name)
                          for name, off, n, _ in self._layout]
-            out, last = ([], []), None
+            out, last = ([], [], [], []), None
             for a, b, name in sorted(spans):
-                kind = name not in self._tp_splits
+                kind = 2 * (name in self._tp_splits) + (name in self._experts)
                 if kind == last:    # across zero padding only
                     out[kind][-1] = (out[kind][-1][0], b)
                 else:

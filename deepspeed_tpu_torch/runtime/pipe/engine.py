@@ -295,23 +295,7 @@ class PipelineEngine(DeepSpeedEngine):
             at = max(at, b)
         if at < grads.numel():
             kept.append((at, grads.numel()))
-        # [tp-sharded leaves, the others]: a sharded leaf's slices are
-        # summed over the tp group, a replicated one counted once
-        kinds = (self._tp_ranges(grads.numel()) if self._tp_splits
-                 else ([], [(0, grads.numel())]))
-        sq = torch.zeros(2, dtype=torch.float32, device=self.device)
-        for kind, ranges in enumerate(kinds):
-            for lo, hi in ranges:
-                for a, b in kept:
-                    a, b = max(a, lo), min(b, hi)
-                    if a < b:
-                        sq[kind] += torch.linalg.vector_norm(
-                            grads[a:b], dtype=torch.float32).square()
-        if self.zero_plan.sharded and self.zero_plan.world_size > 1:
-            sq = dist.all_reduce(sq, group=self._shard_group)
-        if self._tp_splits:
-            sq[0] = dist.all_reduce(sq[:1].contiguous(),
-                                    group=self._tp_group)[0]
+        sq = self._kind_squares(grads, kept)
         sq = sq.sum().reshape(1)
         return dist.all_reduce(sq, group=self._pp_group.as_flat())[0].sqrt()
 

@@ -50,6 +50,9 @@ instead of the world; their gradients sum over that group.  Every other
 unit keeps the world.  ``leaf_base`` ({leaf name: offset of this rank's
 elements in the whole leaf}) places an expert leaf's pieces in the global
 stack for the checkpoint files (:meth:`fragment_map`, :meth:`fill_shard`).
+Under hpZ and MiCS an expert unit keeps its expert-data group: hpZ's
+secondary partition and MiCS's shard groups factor the dense units' data
+group only (:meth:`secondary`).
 """
 
 import torch
@@ -120,7 +123,7 @@ class ZeroPartitionPlan:
                              f"the world of {world_size}")
         self.param_world = pw
         self.param_slice_numel = [
-            n // (self.unit_world(u) if not self.hpz else pw)
+            n // (pw if self.secondary(u) else self.unit_world(u))
             if self.sharded else n for u, n in enumerate(self.unit_numel)]
         self.param_offset, off = [], 0
         for n in self.param_slice_numel:
@@ -146,6 +149,13 @@ class ZeroPartitionPlan:
         """Whether the parameters are sharded over fewer ranks than the
         master (hpZ's secondary partition)."""
         return self.param_world != self.world_size
+
+    def secondary(self, u):
+        """Whether unit ``u``'s parameters take hpZ's secondary partition:
+        an expert unit keeps its expert-data group's slices (its ``ep``
+        claim, JAX ``partition.py:346-351``: hpZ factors only the data
+        axes the dense units shard over)."""
+        return self.hpz and not self.unit_expert[u]
 
     @property
     def hpz_outer(self):
@@ -360,9 +370,10 @@ class ZeroPartitionPlan:
         if self.stage == 3:
             blocks = len(self.units_of(BLOCK))
             gathers = len(self.units_of(OUTER)) + 2 * blocks
-            # hpZ: each sharded unit's updated slices to the secondary
-            secondary = (len(self.units_of(OUTER)) + blocks if self.hpz
-                         else 0)
+            # hpZ: each sharded dense unit's updated slices to the
+            # secondary
+            secondary = sum(1 for u in self.units_of(OUTER) +
+                            self.units_of(BLOCK) if self.secondary(u))
             return {"allgather_fn": gas * gathers + secondary +
                     len(self.units_of(PERSISTENT)),
                     "reduce_scatter_fn": gas * self.n_units}

@@ -178,11 +178,13 @@ class ZeroComm:
             fmt = self.plan.wire_for_size(
                 self.grad_fmt, full.numel() * full.element_size())
             engine = self.grad_engine
+        expert = self._group(u, None) is not None
         handle = dist.reduce_scatter_fn(
             out, full, group=self._group(u, self.shard_group),
-            async_op=async_op,
-            engine=engine, wire_format=fmt, hierarchy=self.hierarchy)
-        if self.replica_group is None:
+            async_op=async_op, engine=engine, wire_format=fmt,
+            hierarchy=None if expert else self.hierarchy)
+        if self.replica_group is None or expert:
+            # an expert unit's group already holds every copy of its slices
             return handle
         if async_op:
             handle.on_wait(lambda: dist.all_reduce(
@@ -202,7 +204,7 @@ class ZeroComm:
             fmt = plan.wire_for_size(self.param_fmt,
                                      buf.numel() * buf.element_size())
             engine = self.param_engine
-        if not (plan.hpz and plan.hpz_outer > 1):
+        if not (plan.secondary(u) and plan.hpz_outer > 1):
             return dist.allgather_fn(buf, piece,
                                      group=self._group(u, self.param_group),
                                      async_op=async_op, engine=engine,

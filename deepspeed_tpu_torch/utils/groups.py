@@ -6,9 +6,9 @@ same axes are sizes over the ``torch.distributed`` world, in the same
 order, most-major first: rank r's coordinates are those of the r-th
 device of JAX's mesh (``rank = (((pp·DP + dp)·EP + ep)·SP + sp)·TP +
 tp``).  A group is a torch process group with the axis names it spans:
-the ranks that differ from this one only along those axes.  pp, dp, ep
-sp and tp are ported; tp > 1 with ep raises ROADMAP queue A item 8b, and
-ep > 1 with pp or sp > 1 item 8b.  tp is the innermost axis, so a tp
+the ranks that differ from this one only along those axes.  Every
+combination of pp, dp, ep, sp and tp is ported; an ep group is the ranks
+of one (pp, dp, sp, tp) coordinate.  tp is the innermost axis, so a tp
 group is ``tp`` consecutive ranks (one node's NVLink) and an sp or pp
 group strides over them; at tp > 1 the data group is the ranks that share
 this rank's tp (and pp) coordinate.  ``devices`` (a list of world ranks, whole tp groups) builds
@@ -18,7 +18,10 @@ groups only (``MeshState.member``).  ``ep`` factors the data-parallel degree dp 
 JAX's mesh does (``groups.py:148-158``): the data-parallel rank is
 ``dp_coord · ep + ep_coord``; the ``ep`` group holds the ranks whose
 experts differ, the ``dp`` group (the expert-data group) the ranks that
-hold the same experts.
+hold the same experts, and the ``(dp, sp)`` group those ranks with their
+sp peers, whose tokens reach the same experts.  hpZ's and MiCS's zp groups
+factor the data group with its ep coordinates; the expert units keep their
+expert-data group (``runtime/zero/partition.py``).
 
 ``torch.distributed.new_group`` is collective: every rank makes every
 subgroup once, in the same order, here, at mesh init (the pipeline's, the
@@ -41,7 +44,6 @@ The collectives engine's hierarchies are the same kind of pair
 from dataclasses import dataclass, field
 from itertools import product
 
-from .not_ported import not_ported
 
 PP_AXIS = "pp"
 DP_AXIS = "dp"
@@ -91,6 +93,8 @@ class MeshState:
     node_size: int = None
     # split s → (inner, outer) ProcessGroups holding this rank
     factors: dict = field(default_factory=dict)
+    # the same of the ep groups (the 2-hop expert dispatch)
+    ep_factors: dict = field(default_factory=dict)
     # built by a caller of initialize_mesh (not by init_distributed or on
     # first use): an engine must not rebuild it
     user_built: bool = True
@@ -210,12 +214,12 @@ def _rank_lists(shape, axes, ranks=None):
             for vals in product(*(range(shape[a]) for a in others))]
 
 
-# the groups every mesh holds (``_get_*_group`` below); the ep and
-# expert-data groups at ep > 1; the tp group and the model group (tp × the
+# the groups every mesh holds (``_get_*_group`` below); the ep, expert-data
+# and expert-data × sp groups at ep > 1; the tp group and the model group (tp × the
 # axes that split the model: the ranks whose states together make it)
 _GROUP_AXES = ((PP_AXIS, ), (DP_AXIS, EP_AXIS), (SP_AXIS, ),
                (DP_AXIS, EP_AXIS, SP_AXIS))
-_EP_GROUP_AXES = ((EP_AXIS, ), (DP_AXIS, ))
+_EP_GROUP_AXES = ((EP_AXIS, ), (DP_AXIS, ), (DP_AXIS, SP_AXIS))
 _TP_GROUP_AXES = ((TP_AXIS, ), )
 
 
@@ -306,19 +310,11 @@ def initialize_mesh(dp=None, pp=1, sp=1, tp=1, ep=1, devices=None,
             f"data-parallel world size dp={dp} — the mesh factors dp into "
             f"(dp/ep, ep) = ({dp}/{ep}, {ep}); pick ep from the divisors "
             "of dp")
-    if ep > 1 and pp * sp > 1:
-        raise not_ported(f"expert parallelism (ep={ep}) with pp or sp > 1",
-                         "8b")
-    if tp > 1 and ep > 1:
-        raise not_ported(f"tensor parallelism (tp={tp}) with expert "
-                         f"parallelism (ep={ep})", "8b")
     zp = zero_partition_size if zero_partition_size and \
         zero_partition_size > 1 else None
     if zp is not None and dp % zp != 0:
         raise ValueError(
             f"zero_partition_size={zp} must divide dp={dp}")
-    if zp is not None and ep > 1:
-        raise not_ported("hpZ / MiCS shard groups with ep > 1", "8b")
     if ranks is not None and tuple(ranks) == tuple(range(world)):
         ranks = None
     mesh = Mesh(pp=pp, dp=dp // ep, ep=ep, sp=sp, tp=tp)
@@ -434,6 +430,14 @@ def _get_expert_data_parallel_group():
     """The ranks that hold this rank's experts (the mesh's ``dp`` axis,
     dp/ep ranks): expert leaves' gradients sum over it."""
     return _pg((DP_AXIS, ))
+
+
+def _get_expert_data_sequence_group():
+    """The ranks that hold this rank's experts over dp × sp (the
+    ``(dp, sp)`` axes; the expert-data group at sp 1): under sequence
+    parallelism the other sp ranks' tokens reach the same experts, so the
+    expert leaves' gradients sum over this group."""
+    return _pg((DP_AXIS, SP_AXIS))
 
 
 def _get_expert_parallel_world_size():

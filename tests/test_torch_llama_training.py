@@ -382,12 +382,6 @@ def test_batch_trinity_matches_jax(i):
 
 REFUSED = [
     ({"optimizer": {"type": "muon"}}, 11),
-    ({"mesh": {"tp": 2, "ep": 2}}, "8b"),
-    ({"mesh": {"ep": 2, "sp": 2}}, "8b"),
-    ({"moe": {"enabled": True, "quantized_dispatch": True,
-              "intra_node_size": 2}}, "8b"),
-    ({"mesh": {"ep": 2, "pp": 2}}, "8b"),
-    ({"moe": {"gating_seed": 7}}, "8b"),
     ({"optimizer": {"type": "adagrad"}}, 11),
     ({"resilience": {"watchdog": {"enabled": True}}}, 12),
     ({"telemetry": {"enabled": True}}, 12),
@@ -409,6 +403,30 @@ def test_unported_keys_raise_not_ported(i):
     with pytest.raises(NotImplementedError,
                        match=rf"queue A, item {item}\)"):
         PortConfig(config)
+
+
+# the configs the list above refused until queue A item 8b came
+ITEM_8B_BUILDS = [
+    {"mesh": {"tp": 2, "ep": 2}},
+    {"mesh": {"ep": 2, "sp": 2}},
+    {"moe": {"enabled": True, "quantized_dispatch": True,
+             "intra_node_size": 2}},
+    {"mesh": {"ep": 2, "pp": 2}},
+    {"moe": {"gating_seed": 7}},
+]
+
+
+@pytest.mark.parametrize("i", range(len(ITEM_8B_BUILDS)))
+def test_item_8b_keys_parse(i):
+    """tp or pp or sp with ep, the 2-hop dispatch and the gating seed parse
+    as the JAX package's config parses them."""
+    raw = {"train_micro_batch_size_per_gpu": 1, **ITEM_8B_BUILDS[i]}
+    got, want = PortConfig(dict(raw)), JaxConfig(dict(raw))
+    mesh = want.mesh_config
+    assert (got.mesh_tp, got.mesh_ep, got.mesh_sp, got.mesh_pp) == \
+        (mesh.tp, mesh.ep, mesh.sp, mesh.pp)
+    for key in ("intra_node_size", "gating_seed", "quantized_dispatch"):
+        assert getattr(got.moe_config, key) == getattr(want.moe_config, key)
 
 
 # the ZeRO++ configs the list above refused until queue A item 7a came

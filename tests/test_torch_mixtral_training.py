@@ -17,8 +17,9 @@ to the port through ``params_from_flax``) and the same numpy batches.
   ``deepspeed_tpu.initialize`` on a one-device mesh: losses 1e-5 relative,
   the fp32 master rtol 2e-5 plus lr/20 (the rule of
   ``test_torch_llama_training.py``);
-* the ZeRO 3 units are the decoder layers, and what is left of item 8
-  raises item 8b.
+* the ZeRO 3 units are the decoder layers; Mixtral under an ep mesh it
+  was not split for computes as at ep 1, and what stays refused (the
+  parameter stream, as JAX's; telemetry, item 12) raises.
 """
 
 import jax
@@ -88,18 +89,22 @@ def _np(t):
 
 
 # ------------------------------------------------- B7's gradient (plain)
-@pytest.mark.parametrize("sizes", [[40, 0, 24, 77], [5, 3, 0, 0]],
-                         ids=["empty_mid", "empty_tail"])
+@pytest.mark.parametrize("sizes,past", [([40, 0, 24, 77], 2),
+                                        ([5, 3, 0, 0], 2), ([21, 11], 96)],
+                         ids=["empty_mid", "empty_tail", "ep_gathered"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_gmm_grad_matches_ragged_dot(sizes, dtype):
+def test_gmm_grad_matches_ragged_dot(sizes, past, dtype):
     """dx and dw of the port's ``gmm`` (autograd through
     :class:`GroupedMatmul`, whose backward on CPU tensors is the plain
     ``gmm_dx``/``gmm_dw``) against ``jax.vjp`` of ``lax.ragged_dot`` on the
-    same cotangent; an empty group's dw is exactly zero."""
+    same cotangent, with ``past`` rows past the sizes (``ep_gathered``:
+    three quarters of them, as Mixtral's exchange at ep 4 hands a rank
+    its gathered copies): their outputs and dx exactly zero; an empty
+    group's dw is exactly zero."""
     jdt = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[dtype]
     tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
     r = np.random.default_rng(3)
-    T, K, N, E = sum(sizes) + 2, 48, 40, len(sizes)
+    T, K, N, E = sum(sizes) + past, 48, 40, len(sizes)
 
     def pair(a):
         j = jnp.asarray(a, jdt)
@@ -126,6 +131,7 @@ def test_gmm_grad_matches_ragged_dot(sizes, dtype):
     for e, n in enumerate(sizes):
         if n == 0:
             assert not got_dw[e].any()
+    assert not y[sum(sizes):].any() and not got_dx[sum(sizes):].any()
     # the backward launches only what needs a gradient
     x2 = xt.detach()
     y2 = gm.gmm(x2, wt, torch.tensor(sizes, dtype=torch.int32))
@@ -386,27 +392,45 @@ def test_engine_trajectory_matches_jax(case, one_device_mesh):
 
 
 def test_what_is_left_of_item_8_raises_8b():
-    """Mixtral at ep > 1 raises item 8b (the stacks sharded over ep); the
-    offload_param stream refuses it, as JAX's, which has no streaming
-    view of Mixtral."""
+    """Refused until item 8b; now a Mixtral model under an ep > 1 mesh it
+    was not split for computes as at ep 1 (the engine localizes the
+    stacks and hands each block its ep group:
+    ``tests/test_torch_mixtral_parallel.py``).  What stays refused: the
+    offload_param stream, as JAX's, which has no streaming view of
+    Mixtral, and the routing statistics' telemetry sink (item 12)."""
     from deepspeed_tpu_torch.utils import groups as port_groups
     _, pcfg = _configs(dtype="float32", remat=False)
     model = port_mixtral.MixtralModel(pcfg, device="cpu").init_weights(
         torch.Generator().manual_seed(0))
     ids = torch.zeros(1, 4, dtype=torch.long)
+    want = model(ids, ids)
     port_groups.reset_mesh()
     try:
         port_groups._mesh_state = port_groups.MeshState(
             mesh=port_groups.Mesh(pp=1, dp=1, ep=2, sp=1, tp=1), pp=1, dp=2,
             sp=1, tp=1, ep=2)
-        with pytest.raises(NotImplementedError, match="item 8b"):
-            model(ids, ids)
+        assert torch.equal(model(ids, ids), want)
     finally:
         port_groups.reset_mesh()
-    assert model(ids, ids).isfinite()
+    assert want.isfinite()
+    stream = {"train_batch_size": 1, "zero_optimization": {
+        "stage": 3, "offload_param": {"device": "cpu"}}}
     with pytest.raises(TypeError, match="streaming_parts"):
         deepspeed_tpu_torch.initialize(
             model=port_mixtral.MixtralModel(pcfg, device="meta"),
-            config={"train_batch_size": 1, "zero_optimization": {
-                "stage": 3, "offload_param": {"device": "cpu"}}},
-            device="cpu")
+            config=dict(stream), device="cpu")
+    jcfg, _ = _configs(dtype="float32", remat=False)
+    groups.initialize_mesh(dp=1, devices=jax.devices()[:1])
+    try:
+        # the JAX engine refuses it for the same reason
+        with pytest.raises(TypeError, match="streaming_parts"):
+            deepspeed_tpu.initialize(model=jax_mixtral.MixtralModel(jcfg),
+                                     config=dict(stream))
+    finally:
+        groups.reset_mesh()
+        jax_dist.destroy_process_group()
+    with pytest.raises(NotImplementedError, match="item 12"):
+        deepspeed_tpu_torch.initialize(
+            model=port_mixtral.MixtralModel(pcfg, device="meta"),
+            config={"train_batch_size": 1, "moe": {"enabled": True},
+                    "telemetry": {"enabled": True}}, device="cpu")

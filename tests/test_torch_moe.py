@@ -23,7 +23,21 @@ the same numpy inputs and weights.
   ``tests/unit/moe/test_moe_engine.py``), bit-equal to it at ep 1; tags
   saved at ep 2 (world 2 at ZeRO 2, world 4 at ZeRO 0) loaded at ep 1 and
   ep 2 train on as the saving run does, and the universal conversion of
-  one holds the global stacks; and the refusals left to item 8b.
+  one holds the global stacks;
+* item 8b's legs (world 2 and 4 in the same spawns): the qgZ micro's
+  per-rank gating at ZeRO 2 and 3 (the first loss JAX's qgZ run's, rtol
+  1e-5, the last within JAX's 2e-2 of the flat run's); the 2-hop int8
+  dispatch at ep 4 with ``intra_node_size`` 2 (taken, and every loss and
+  the master within ``tools/moe_smoke.py:run_hier_smoke``'s 1e-2 of
+  JAX's 2-hop run on the same mesh); ep 2 ×
+  sp 2 and the MoE layer in a 2-stage ``PipeStage`` at ep 2 (each the
+  run of the same global batch without the axis, rtol 1e-5); hpZ and
+  MiCS at dp 2 × ep 2 against JAX's dp 2 × ep 2 run; LAMB at ep 2
+  against JAX's, pinned optimizer offload bit-equal to none, OnebitAdam
+  at ep 2 and dp 2 against JAX's 1-bit run over the same two workers
+  (``test_torch_onebit.py``'s rtol 1e-5 in its warmup, 5e-3 once
+  compressed, over 8 steps); ``moe.gating_seed``'s three behaviours
+  (``test_rsample_rng_threaded_and_deterministic``'s).
 """
 
 import os
@@ -264,30 +278,34 @@ def test_expert_files_cross_both_ways(tmp_path):
 
 
 def test_config_accepts_ep_and_moe_and_refuses_8b():
-    """``mesh.ep`` and the ``moe`` block parse as JAX's; what is left of
-    item 8 names 8b; a mistyped wire fails at config load, as in JAX."""
+    """``mesh.ep`` and the ``moe`` block parse as JAX's (``gating_seed``
+    and ``intra_node_size`` too, and ep with pp or sp); a mistyped wire
+    fails at config load, as in JAX; what is left beside item 8 (the
+    telemetry sink of the routing statistics) names item 12."""
     from deepspeed_tpu.runtime.config import DeepSpeedConfig as JaxConfig
     from deepspeed_tpu_torch.runtime.config import (DeepSpeedConfig,
                                                     DeepSpeedConfigError)
     base = {"train_micro_batch_size_per_gpu": 1}
-    cfg = DeepSpeedConfig(dict(base, mesh={"ep": 2}, moe={
-        "enabled": True, "quantized_dispatch": True, "wire_dtype": "fp6"}))
-    jcfg = JaxConfig(dict(base, mesh={"ep": 2}, moe={
-        "enabled": True, "quantized_dispatch": True, "wire_dtype": "fp6"}))
+    moe = {"enabled": True, "quantized_dispatch": True, "wire_dtype": "fp6",
+           "intra_node_size": 2, "gating_seed": 7}
+    cfg = DeepSpeedConfig(dict(base, mesh={"ep": 2}, moe=dict(moe)))
+    jcfg = JaxConfig(dict(base, mesh={"ep": 2}, moe=dict(moe)))
     assert cfg.mesh_ep == 2
     for key in ("enabled", "quantized_dispatch", "wire_dtype",
                 "quantization_group_size", "hierarchical_dispatch",
-                "intra_node_size"):
+                "intra_node_size", "gating_seed"):
         assert getattr(cfg.moe_config, key) == getattr(jcfg.moe_config, key)
     with pytest.raises(DeepSpeedConfigError, match="moe.wire_dtype"):
         DeepSpeedConfig(dict(base, moe={"enabled": True,
                                         "wire_dtype": "int3"}))
-    for extra in ({"moe": {"enabled": True, "gating_seed": 7}},
-                  {"mesh": {"ep": 2, "pp": 2}},
-                  {"moe": {"enabled": True, "quantized_dispatch": True,
-                           "intra_node_size": 2}}):
-        with pytest.raises(NotImplementedError, match="item 8b"):
-            DeepSpeedConfig(dict(base, **extra))
+    for mesh in ({"ep": 2, "pp": 2}, {"ep": 2, "sp": 2},
+                 {"ep": 2, "tp": 2}):
+        got = DeepSpeedConfig(dict(base, mesh=mesh))
+        assert (got.mesh_ep, got.mesh_pp * got.mesh_sp * got.mesh_tp) == \
+            (2, 2)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        DeepSpeedConfig(dict(base, moe={"enabled": True},
+                             telemetry={"enabled": True}))
 
 
 def test_dispatch_options_and_wire_bytes():
@@ -296,8 +314,8 @@ def test_dispatch_options_and_wire_bytes():
     port_engine.configure(opts)
     try:
         assert port_engine.dispatch_wire(512) == "int8"
-        wire, gs, nbytes = port_engine.exchange_plan(4, 8, 256)
-        assert (wire, gs) == ("int8", 2048)
+        wire, gs, split, nbytes = port_engine.exchange_plan(4, 8, 256)
+        assert (wire, gs, split) == ("int8", 2048, None)
         from deepspeed_tpu.moe import engine as jax_engine
         assert nbytes == jax_engine.expert_dispatch_wire_bytes(
             4 * 8 * 256, "int8", 2048)
@@ -308,14 +326,59 @@ def test_dispatch_options_and_wire_bytes():
         port_engine.configure(port_engine.MoeOptions(enabled=True,
                                                      wire_dtype="int3"))
     assert port_engine.active_options() is None
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        port_engine.configure(port_engine.MoeOptions(
-            enabled=True, quantized_dispatch=True, intra_node_size=2))
+    # the 2-hop split of an ep group of 4 (JAX ep_hierarchy's pick) and its
+    # outer-link bytes
+    opts = port_engine.MoeOptions(enabled=True, quantized_dispatch=True,
+                                  intra_node_size=2)
+    assert port_engine.hier_split(4, opts) == (2, 2)
+    assert port_engine.hier_split(2, opts) is None
+    # a payload that outer × inner does not divide takes one hop (JAX
+    # resolve_exchange's fallback)
+    assert port_engine.hier_split(4, opts, 4 * 8 * 256) == (2, 2)
+    assert port_engine.hier_split(4, opts, 6) is None
+    assert port_engine.hier_split(4, port_engine.MoeOptions(
+        enabled=True, quantized_dispatch=True, intra_node_size=2,
+        hierarchical_dispatch=False)) is None
+    _, _, split, nbytes = port_engine.exchange_plan(4, 8, 256, opts, ep=4)
+    assert split == (2, 2)
+    assert nbytes == jax_engine.expert_dispatch_wire_bytes(
+        4 * 8 * 256, "int8", 2048, 2)
     l_aux, combine, dispatch, counts = port_gate.top1gating(
         torch.from_numpy(_logits(24, 4)), 1.0)
     stats = port_engine.record_routing(1, combine, dispatch, counts, l_aux)
     assert 0.0 <= float(stats["drop_fraction"]) <= 1.0
     assert float(stats["load_imbalance"]) >= 1.0
+
+
+def test_per_rank_and_two_hop_paths_decline_at_one_rank():
+    """Asked for on one rank (qgZ with the ``moe`` block, the 2-hop int8
+    dispatch), the qgZ micro's per-rank gating and the 2-hop split each
+    decline, counted once, and the step is the flat one's."""
+    from deepspeed_tpu_torch import initialize
+    tree = _twin_tree(seed=4)
+    x = np.random.default_rng(2).standard_normal((16, HIDDEN)).astype(
+        np.float32)
+    batch = (torch.from_numpy(x), torch.from_numpy(np.tanh(x)))
+    losses, declined = [], []
+    for extra in ({}, dict(moe={"enabled": True, "quantized_dispatch": True,
+                                "intra_node_size": 2},
+                           zero_optimization={
+                               "stage": 2,
+                               "zero_quantized_gradients": True})):
+        before = dict(port_engine.declines)
+        model, start = moe_twin(tree)
+        eng = initialize(model=model, model_parameters=start, config=dict(
+            {"train_micro_batch_size_per_gpu": 16,
+             "optimizer": {"type": "sgd", "params": {"lr": 0.1}}}, **extra),
+            device="cpu")[0]
+        losses.append(eng(*batch).item())
+        declined.append({k: port_engine.declines[k] - before[k]
+                         for k in before})
+        assert not port_engine.per_rank_gating()
+    port_engine.reset()
+    assert declined == [{"per_rank": 0, "two_hop": 0},
+                        {"per_rank": 1, "two_hop": 1}]
+    assert losses[0] == losses[1]
 
 
 # ------------------------------------------------- gloo: the ep axis
@@ -350,9 +413,10 @@ def _wide_batch(rows=64):
     return x, np.tanh(x * 0.5).astype(np.float32)
 
 
-def _jax_run(world, ep, tree, batches):
+def _jax_run(world, ep, tree, batches, config=None):
     """The JAX engine on ``world`` devices of the 8-device mesh at
-    ``ep``: per-step losses and the final master by port name."""
+    ``ep`` (``config``, default ``_config(ep)``): per-step losses and the
+    final master by port name."""
     groups.reset_mesh()
     jax_dist.destroy_process_group()
     groups.initialize_mesh(ep=ep, devices=jax.devices()[:world])
@@ -360,7 +424,7 @@ def _jax_run(world, ep, tree, batches):
         eng, *_ = deepspeed_tpu.initialize(
             model=JaxMoEModel(),
             model_parameters=jax.tree_util.tree_map(jnp.asarray, tree),
-            config=_config(ep))
+            config=config or _config(ep))
         losses = []
         for x, y in batches:
             loss = eng(x, y)
@@ -386,6 +450,111 @@ def _train_leg(name, world, ep, tree, batches, **moe):
                 config=_config(ep, **moe), batches=batches)
 
 
+QGZ = {"enabled": True, "quantized_gradients": True,
+       "hierarchical_allreduce": True, "wire_dtype": "int8",
+       "quantization_group_size": 128}
+_LAMB = {"type": "fusedlamb", "params": {"lr": 1e-2}}
+_ADAM = {"type": "fusedadam", "params": {"lr": 1e-3}}
+
+
+def _with(config, **kw):
+    return dict(config, **kw)
+
+
+_HIER4 = _config(4, **_INT8, intra_node_size=2)
+
+
+def _onebit_config(ep):
+    return _with(_config(ep, stage=0), optimizer={
+        "type": "onebitadam", "params": {"lr": 1e-4, "freeze_step": 4}})
+
+
+def _onebit_batches():
+    """8 steps of world-2 batches (freeze_step 4: 3 compressed)."""
+    return _batches(2, seed=3) + _batches(2, seed=4)
+
+
+def _seq_batches(rows, seq, seed):
+    """Batches [rows, seq, HIDDEN] (a sequence dim for sp to cut)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(STEPS):
+        x = rng.standard_normal((rows, seq, HIDDEN)).astype(np.float32)
+        out.append((x, np.tanh(x * 0.5).astype(np.float32)))
+    return out
+
+
+def _pipe_moe_leg(name, pp, batches):
+    """The MoE layer in a ``PipelineModule`` (Block, MoEBlock, Block,
+    Block; MSE) at ``pp`` stages × ep 2, weights from one seed."""
+    return dict(name=name, kind="pipe", init_seed=5, steps=2,
+                batches=batches,
+                model=([("Block", (HIDDEN, ), None),
+                        ("MoEBlock", (HIDDEN, ), None),
+                        ("Block", (HIDDEN, ), None),
+                        ("Block", (HIDDEN, ), None)], "mse"),
+                config={"train_micro_batch_size_per_gpu": 2,
+                        "gradient_accumulation_steps": 2,
+                        "optimizer": {"type": "sgd", "params": {"lr": 0.1}},
+                        "zero_optimization": {"stage": 1},
+                        "mesh": {"pp": pp, "ep": 2},
+                        "moe": {"enabled": True}})
+
+
+def _item_8b_legs(tree, b2, b4):
+    """(world-2 legs, world-4 legs) of item 8b's MoE-layer paths."""
+    seq = _seq_batches(2, 8, seed=6)
+    pipe_b = _batches(1, seed=7)      # 4 micro-batches of 4 rows
+    two = [dict(_train_leg(f"qgz_z{z}", 2, 2, tree, b2),
+                config=_with(_config(2, stage=z),
+                             comm_optimizations=QGZ))
+           for z in (2, 3)]
+    two.append(dict(_train_leg("ep2_z3", 2, 2, tree, b2),
+                    config=_config(2, stage=3)))
+    for name, moe, seed in (("gate_a", {}, None), ("gate_b", {}, None),
+                            ("gate_seeded", {}, 7), ("gate_off", None,
+                                                     None)):
+        cfg = _config(2) if moe is not None else dict(
+            _config(2), moe={"enabled": False})
+        if seed is not None:
+            cfg["moe"] = dict(cfg["moe"], gating_seed=seed)
+        two.append(dict(_train_leg(name, 2, 2, tree, b2), config=cfg,
+                        cfg={"noisy": "RSample"}))
+    two += [dict(_train_leg("lamb_ep2", 2, 2, tree, b2),
+                 config=_with(_config(2), optimizer=_LAMB)),
+            dict(_train_leg("adam_ep2", 2, 2, tree, b2),
+                 config=_with(_config(2), optimizer=_ADAM)),
+            dict(_train_leg("offload_ep2", 2, 2, tree, b2),
+                 config=_with(_config(2), optimizer=_ADAM,
+                              zero_optimization={
+                                  "stage": 2, "offload_optimizer": {
+                                      "device": "cpu"}}))]
+    for name, ep in (("onebit_ep2", 2), ("onebit_dp2", 1)):
+        two.append(dict(_train_leg(name, 2, ep, tree, _onebit_batches()),
+                        config=_onebit_config(ep)))
+    one_row = {"train_micro_batch_size_per_gpu": 1}
+    two.append(dict(_train_leg("seq_ep2", 2, 2, tree, seq),
+                    config=_with(_config(2), **one_row)))
+    two.append(_pipe_moe_leg("pipe_pp1", 1, pipe_b))
+    four = [_train_leg("ep4_flat", 4, 4, tree, b4),
+            dict(_train_leg("ep4_hier", 4, 4, tree, b4), config=_HIER4),
+            dict(_train_leg("seq_ep2sp2", 4, 2, tree, seq),
+                 config=_with(_config(2), mesh={"ep": 2, "sp": 2},
+                              **one_row)),
+            dict(_train_leg("seq_ep2sp2_int8", 4, 2, tree, seq),
+                 config=_with(_config(2, **_INT8), mesh={"ep": 2, "sp": 2},
+                              **one_row)),
+            _pipe_moe_leg("pipe_pp2", 2, pipe_b)]
+    for name, zp in (("hpz_dp2ep2", {"zero_hpz_partition_size": 2}),
+                     ("mics_dp2ep2", {"mics_shard_size": 2})):
+        # every leaf sharded (the tiny leaves sit below the persistence
+        # threshold); zp 2 splits each data group {ep 0, ep 1}
+        four.append(dict(_train_leg(name, 4, 2, tree, b4), config=_with(
+            _config(2), zero_optimization=dict(
+                stage=3, stage3_param_persistence_threshold=0, **zp))))
+    return two, four
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """The JAX runs and both spawns (world 2 and 4), once for the module."""
@@ -402,9 +571,7 @@ def runs(tmp_path_factory):
            dict(name="ckpt", kind="ckpt", model="moe", cfg={}, tree=tree,
                 config=_config(2), batches=b2, k=2, dir=ckpt,
                 resume={"ep1": _config(1), "ep2": _config(2)}),
-           dict(name="qgz", kind="refuse", model="moe", cfg={}, tree=tree,
-                config=dict(_config(2), zero_optimization={
-                    "stage": 2, "zero_quantized_gradients": True}))]
+           ]
     four = [_train_leg("dp2ep2", 4, 2, tree, b4),
             _train_leg("dp4", 4, 1, tree, b4)]
     four += [dict(_train_leg(f"dp2ep2_z{z}", 4, 2, tree, b4),
@@ -417,11 +584,22 @@ def runs(tmp_path_factory):
                      k=2, dir=ckpt4,
                      resume={"ep1_z3": _config(1, stage=3),
                              "ep2_z1": _config(2, stage=1)}))
-    out = spawn(2, two)
-    out.update(spawn(4, four))
+    more_two, more_four = _item_8b_legs(tree, b2, b4)
+    out = spawn(2, two + more_two)
+    out.update(spawn(4, four + more_four))
     out["ckpt_dir"] = ckpt
     out["jax_ep2"] = _jax_run(2, 2, tree, b2)
     out["jax_dp2ep2"] = _jax_run(4, 2, tree, b4)
+    for z in (2, 3):
+        out[f"jax_qgz_z{z}"] = _jax_run(2, 2, tree, b2, _with(
+            _config(2, stage=z), comm_optimizations=QGZ))
+    out["jax_lamb_ep2"] = _jax_run(2, 2, tree, b2,
+                                   _with(_config(2), optimizer=_LAMB))
+    # JAX's 1-bit micro counts ep as a data axis (dp_axes): its workers at
+    # ep 2 are those of dp 2 on the same two devices
+    out["jax_onebit"] = _jax_run(2, 1, tree, _onebit_batches(),
+                                 _onebit_config(1))
+    out["jax_ep4_hier"] = _jax_run(4, 4, tree, b4, _HIER4)
     return out
 
 
@@ -556,6 +734,135 @@ def test_ep2_tag_converts_to_universal_with_global_stacks(runs, tmp_path):
 
 
 def test_moe_under_qgz_at_world_2_raises_8b(runs):
-    for r in runs["qgz"]:
-        assert r["error"] == "NotImplementedError"
-        assert "item 8b" in r["message"]
+    """Refused until item 8b; now the qgZ micro's per-rank path (JAX
+    ``_manual_dispatch_combine``): each rank gates its own tokens and the
+    dispatch concatenates the ep ranks' blocks.  At ZeRO 2 and 3 the first
+    loss is JAX's qgZ run's (rtol 1e-5), the last within JAX's 2e-2 of the
+    flat run's (``test_qgz_manual_micro_with_moe_parity``), falling."""
+    for z, flat in ((2, "ep2"), (3, "ep2_z3")):
+        want = runs[f"jax_qgz_z{z}"][0]
+        for r in runs[f"qgz_z{z}"]:
+            assert r["per_rank_gating"]
+            np.testing.assert_allclose(r["losses"][0], want[0], rtol=1e-5)
+            assert abs(r["losses"][-1] - runs[flat][0]["losses"][-1]) <= \
+                2e-2
+            assert r["losses"][-1] < r["losses"][0]
+        assert not runs[flat][0]["per_rank_gating"]
+
+
+def test_hierarchical_dispatch_at_ep4(runs):
+    """ep 4 with ``intra_node_size`` 2 on the int8 wire takes the 2-hop
+    exchange and follows JAX's 2-hop run on the same mesh: every step's
+    loss and the final master within ``run_hier_smoke``'s 1e-2 (the two
+    packages round int8 groups of different fp32 sums; the port's 1-hop
+    int8 run differs from JAX's by as much).  It also stays within 1e-2 of
+    the flat run, falling."""
+    jl, jmaster = runs["jax_ep4_hier"]
+    flat = runs["ep4_flat"][0]["losses"]
+    for r in runs["ep4_hier"]:
+        assert r["two_hop"]
+        np.testing.assert_allclose(r["losses"], jl, rtol=0, atol=1e-2)
+        assert abs(r["losses"][-1] - flat[-1]) <= 1e-2
+        assert r["losses"][-1] < r["losses"][0]
+    got = _leaves(runs["ep4_hier"][0])
+    assert set(got) == set(jmaster)
+    for n, w in jmaster.items():
+        np.testing.assert_allclose(got[n], w, rtol=0, atol=1e-2, err_msg=n)
+    assert not runs["ep4_flat"][0]["two_hop"]
+
+
+@pytest.mark.parametrize("leg,ref", [("seq_ep2sp2", "seq_ep2"),
+                                     ("pipe_pp2", "pipe_pp1")])
+def test_moe_layer_with_sp_or_pp(runs, leg, ref):
+    """The MoE layer at ep 2 × sp 2 (its token group dp × ep × sp; the
+    expert gradients summed over the expert-data × sp group) and in the
+    second layer of a 2-stage ``PipeStage`` at ep 2 (its exchange inside
+    the stage) trains as the same global batch does without the axis."""
+    want = runs[ref][0]["losses"]
+    for r in runs[leg]:
+        np.testing.assert_allclose(r["losses"], want, rtol=1e-5)
+    if leg == "seq_ep2sp2":
+        # the quantized dispatch is ignored on an sp mesh (JAX's warning):
+        # the flat run, bit for bit
+        assert runs["seq_ep2sp2_int8"][0]["losses"] == runs[leg][0]["losses"]
+
+
+@pytest.mark.parametrize("leg", ["hpz_dp2ep2", "mics_dp2ep2"])
+def test_hpz_and_mics_with_ep(runs, leg):
+    """hpZ's secondary partition and MiCS's shard groups at dp 2 × ep 2
+    (zp 2, ZeRO 3): the dense units factored over zp, the expert units
+    kept on their expert-data group; the losses, the gradient norms and
+    the final master are JAX's at dp 2 × ep 2 (and the norms dp 4's)."""
+    jl, jmaster = runs["jax_dp2ep2"]
+    for r in runs[leg]:
+        np.testing.assert_allclose(r["losses"], jl, rtol=1e-5)
+        np.testing.assert_allclose(r["gnorms"], runs["dp4"][0]["gnorms"],
+                                   rtol=1e-5)
+    got = _leaves(runs[leg][0])
+    for n, w in jmaster.items():
+        np.testing.assert_allclose(got[n], w, rtol=1e-5, atol=1e-6,
+                                   err_msg=n)
+
+
+def _assert_onebit_is_jax(runs, leg):
+    """OnebitAdam with the MoE layer follows JAX's 1-bit micro-step: each
+    worker gates its own tokens (the manual region's per-rank gating) and
+    every leaf, the expert stacks whole, is compressed over the dp × ep
+    workers (``build_local_grad_micro``'s ``dp_axes``).  So at ep 2 as at
+    dp 2 the port is JAX's dp-2 run on the same two workers: the losses
+    at rtol 1e-5 through the exact warmup and 5e-3 once compressed
+    (``test_torch_onebit.py``'s), over 8 steps, and the final master at
+    5e-3."""
+    k = 5           # the warmup's steps: freeze_step 4, then one exact
+    jl, jmaster = runs["jax_onebit"]
+    for r in runs[leg]:
+        assert len(r["losses"]) == 8
+        np.testing.assert_allclose(r["losses"][:k], jl[:k], rtol=1e-5)
+        np.testing.assert_allclose(r["losses"][k:], jl[k:], rtol=5e-3)
+    got = _leaves(runs[leg][0])
+    assert set(got) == set(jmaster)
+    for n, w in jmaster.items():
+        np.testing.assert_allclose(got[n], w, rtol=5e-3, atol=1e-6,
+                                   err_msg=n)
+
+
+def test_lamb_offload_and_onebit_at_ep2(runs):
+    """LAMB at ep 2 (each expert stack's trust ratio over the whole stack)
+    is JAX's on the same mesh; pinned optimizer offload is bit-equal to
+    none; OnebitAdam at ep 2 is JAX's 1-bit run over the same workers
+    (:func:`_assert_onebit_is_jax`).  JAX's engine at ep 2 itself fails
+    that run at its first forward (its manual dispatch is handed the 1-bit
+    micro's whole stacks), so its dp-2 run is the reference."""
+    jl, jmaster = runs["jax_lamb_ep2"]
+    for r in runs["lamb_ep2"]:
+        np.testing.assert_allclose(r["losses"], jl, rtol=1e-5)
+    got = _leaves(runs["lamb_ep2"][0])
+    for n, w in jmaster.items():
+        np.testing.assert_allclose(got[n], w, rtol=1e-5, atol=1e-6,
+                                   err_msg=n)
+    for a, b in zip(runs["offload_ep2"], runs["adam_ep2"]):
+        assert a["losses"] == b["losses"]
+        np.testing.assert_array_equal(a["master"], b["master"])
+    assert runs["offload_ep2"][0]["placement"] != \
+        runs["adam_ep2"][0]["placement"]
+    _assert_onebit_is_jax(runs, "onebit_ep2")
+    with pytest.raises(ValueError, match="Inconsistent batch axis"):
+        _jax_run(2, 2, _twin_tree(seed=11), _onebit_batches()[:1],
+                 _onebit_config(2))
+
+
+def test_onebit_with_the_moe_layer_at_dp2(runs):
+    """At dp 2 too the MoE layer gates per worker under OnebitAdam, and the
+    run is JAX's (:func:`_assert_onebit_is_jax`)."""
+    _assert_onebit_is_jax(runs, "onebit_dp2")
+
+
+def test_gating_seed_threads_the_noisy_gate(runs):
+    """JAX's ``test_rsample_rng_threaded_and_deterministic``: with the
+    ``moe`` block on the engine threads a per-step generator into the
+    RSample gate, so the same seed reproduces exactly, ``gating_seed``
+    steers the noise, and the run without the thread differs."""
+    a, b = runs["gate_a"][0]["losses"], runs["gate_b"][0]["losses"]
+    assert a == b
+    assert a != runs["gate_seeded"][0]["losses"]
+    assert a != runs["gate_off"][0]["losses"]

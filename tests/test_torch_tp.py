@@ -789,30 +789,24 @@ def test_gpt2_padded_vocabulary_route_at_tp1(chunk):
 @pytest.mark.parametrize("model,item", (("gpt2", "9b"), ("bert", "9b"),
                                         ("mixtral", "8b")))
 def test_training_other_models_at_tp_refused(runs, model, item):
-    """Mixtral at tp stays refused (item 8b); GPT-2 and BERT, refused
-    until item 9b's last part, now build at tp 2."""
+    """Refused until items 9b (GPT-2, BERT) and 8b (Mixtral, with
+    ``mixtral.tp_rules``): each now builds at tp 2
+    (``tests/test_torch_mixtral_parallel.py`` trains Mixtral there against
+    JAX)."""
     for r in runs[1][f"refuse_{model}"]:
-        if item == "9b":
-            assert r["error"] is None, r
-            continue
-        assert r["error"] == "NotImplementedError"
-        assert f"item {item})" in r["message"]
+        assert r["error"] is None, r
 
 
 @pytest.mark.parametrize("mesh,item", (({"tp": 2, "pp": 2}, "9b"),
                                        ({"tp": 2, "sp": 2}, "9b"),
                                        ({"tp": 2, "ep": 2}, "8b")))
 def test_tp_with_other_axes_refused(mesh, item):
-    """tp with ep stays refused (item 8b); tp with pp or sp, refused until
-    item 9b's last part, now parse (``tests/test_torch_tp_compose.py``
-    trains them)."""
+    """Refused until items 9b (tp with pp or sp) and 8b (tp with ep): each
+    now parses (``tests/test_torch_tp_compose.py`` and
+    ``tests/test_torch_mixtral_parallel.py`` train them)."""
     config = {"train_micro_batch_size_per_gpu": 1, "mesh": mesh}
-    if item == "9b":
-        got = DeepSpeedConfig(config)
-        assert got.mesh_tp == 2 and 2 in (got.mesh_pp, got.mesh_sp)
-        return
-    with pytest.raises(NotImplementedError, match=rf"item {item}\)"):
-        DeepSpeedConfig(config)
+    got = DeepSpeedConfig(config)
+    assert got.mesh_tp == 2 and 2 in (got.mesh_pp, got.mesh_sp, got.mesh_ep)
 
 
 def test_diffusers_injection_refused():

@@ -91,6 +91,9 @@ Leg kinds:
   ``mesh.tp``), then ``runtime/domino``'s ``domino_ab`` on its model's
   loss of the leg's ids, without gradients: the plain and
   µ-stream overlap reports and the winner;
+* ``mixtral_grads``: one micro-step of Mixtral at ZeRO 0 on the leg's
+  mesh: every leaf's gradient whole, the local leaf shapes, the weight
+  shapes B7's plain version saw, each layer's top-k ids;
 * ``stream``: ZeRO-Infinity parameter streaming (``InfinityEngine``) from
   the leg's flax tree, or from the tag at ``load`` (the universal
   directory at ``universal``): each batch's loss, then the whole fp32
@@ -415,7 +418,7 @@ def _model(kind, cfg_kw, tree, mean_only=False):
     if kind in ("mlp", "smoke"):
         return _mlp(tree, kind)
     if kind == "moe":
-        return moe_twin(tree)
+        return moe_twin(tree, **cfg_kw)
     from deepspeed_tpu_torch.models import bert, gpt2, llama, mixtral
     mod = {"llama": llama, "gpt2": gpt2, "bert": bert,
            "mixtral": mixtral}[kind]
@@ -437,12 +440,13 @@ def _model(kind, cfg_kw, tree, mean_only=False):
     return model, mod.params_from_flax(tree, cfg, dtype="float32")
 
 
-def moe_twin(tree):
+def moe_twin(tree, noisy=None):
     """The port's twin of the JAX MoE tests' model
     (``tests/unit/moe/test_moe_engine.py:MoEModel``): in_proj, a residual
-    ``MoE`` (4 experts, top-1, capacity factor 2), out_proj; MSE plus 0.01 ×
-    the aux loss.  Its parameters carry flax's paths joined by dots.
-    Returns (model, {name: fp32 tensor}) from the flax tree."""
+    ``MoE`` (4 experts, top-1, capacity factor 2, ``noisy`` its
+    ``noisy_gate_policy``), out_proj; MSE plus 0.01 × the aux loss.  Its
+    parameters carry flax's paths joined by dots.  Returns (model, {name:
+    fp32 tensor}) from the flax tree."""
     import numpy as np
     import torch
     from deepspeed_tpu_torch.moe import MoE
@@ -456,7 +460,7 @@ def moe_twin(tree):
             super().__init__()
             self.in_proj = Dense(hidden, hidden)
             self.moe = MoE(hidden, num_experts=experts, k=1,
-                           capacity_factor=2.0)
+                           capacity_factor=2.0, noisy_gate_policy=noisy)
             self.out_proj = Dense(hidden, hidden)
 
         def forward(self, x, y):
@@ -530,8 +534,11 @@ def run_train(leg, rank, world):
                     bucket_elems=[b.elems for b in coord.buckets],
                     unit_numel=list(plan.unit_numel),
                     unit_kinds=list(plan.unit_kinds))
+    from deepspeed_tpu_torch.moe import engine as moe_engine
     return dict(losses=losses, scales=scales, skips=skips, gnorms=gnorms,
                 master=master.numpy(), variant=engine._micro_variant(),
+                two_hop=moe_engine.ep_hierarchy() is not None,
+                per_rank_gating=moe_engine.per_rank_gating(),
                 dispatch=engine.zeropp_dispatch_counts(),
                 param_numel=int(engine.params.numel()),
                 params=engine.gathered_params().float().numpy(),
@@ -653,6 +660,44 @@ def run_moe_shards(leg, rank, world):
                 for n, o, k, s in layout})
 
 
+def run_mixtral_grads(leg, rank, world):
+    """``mixtral_grads``: Mixtral from the leg's flax tree at the leg's
+    config (ZeRO 0), one micro-step on the leg's global batch: every
+    leaf's gradient whole (the expert stacks gathered over ep, the tp
+    slices over tp: a collective), the rank's local leaf shapes, the
+    weight shapes B7's plain version was called with, and each layer's
+    top-k expert ids."""
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.ops.kernels import grouped_matmul as gm
+    model, start = _model("mixtral", leg["cfg"], leg["tree"])
+    engine = deepspeed_tpu_torch.initialize(
+        model=model, model_parameters=start, config=dict(leg["config"]),
+        device="cpu", tp_rules=leg.get("tp_rules"))[0]
+    seen, plain = set(), gm.gmm_plain
+
+    def spy(x, w, group_sizes):
+        seen.add(tuple(w.shape))
+        return plain(x, w, group_sizes)
+
+    gm.gmm_plain = spy
+    try:
+        engine.backward(engine(*engine.shard_batch(*leg["batch"])))
+    finally:
+        gm.gmm_plain = plain
+    layout, _ = engine.global_layout()
+    whole = engine._globalize(engine.grad_acc.float())
+    k = model.config.num_experts_per_tok
+    return dict(
+        grads={n: whole[o:o + m].reshape(s).numpy().copy()
+               for n, o, m, s in layout},
+        local_shapes={n: tuple(s) for n, _, _, s in engine._layout},
+        gmm_w_shapes=sorted(seen),
+        topi=[torch.topk(layer.block_sparse_moe.router_logits, k,
+                         dim=-1).indices.numpy()
+              for layer in model.model.layers])
+
+
 def pipe_twins():
     """The JAX pipeline tests' flax layers as torch modules that take
     ``device=``, with the flax parameter names and shapes (a Dense kernel
@@ -772,6 +817,19 @@ def pipe_twins():
         def forward(self, x):
             return self.Dense_0(x)
 
+    class MoEBlock(nn.Module):
+        """x + a ``MoE`` layer's output (4 experts, top-1, capacity factor
+        2; the aux loss dropped: a pipeline layer hands on one tensor)."""
+
+        def __init__(self, d, device=None):
+            super().__init__()
+            from deepspeed_tpu_torch.moe import MoE
+            self.moe = MoE(d, num_experts=4, k=1, capacity_factor=2.0,
+                           device=device)
+
+        def forward(self, x):
+            return x + self.moe(x)[0]
+
     def mse(out, labels):
         return torch.mean((out - labels) ** 2)
 
@@ -779,7 +837,8 @@ def pipe_twins():
         lp = torch.log_softmax(logits.float(), dim=-1)
         return -torch.gather(lp, -1, labels.long()[..., None]).mean()
 
-    return dict(Block=Block, TPBlock=TPBlock, Embed=Embed, Head=Head,
+    return dict(Block=Block, TPBlock=TPBlock, MoEBlock=MoEBlock,
+                Embed=Embed, Head=Head,
                 TiedEmbed=TiedEmbed,
                 UEmbed=UEmbed, UlyssesBlock=UlyssesBlock, UHead=UHead,
                 mse=mse, xent=xent)
@@ -1219,7 +1278,8 @@ def main():
               "moe_shards": run_moe_shards, "ring_attn": run_ring_attn,
               "fpdt_attn": run_fpdt_attn,
               "ac_partition": run_ac_partition,
-              "domino_overlap": run_domino_overlap}[leg["kind"]]
+              "domino_overlap": run_domino_overlap,
+              "mixtral_grads": run_mixtral_grads}[leg["kind"]]
         out = fn(leg, rank, world)
         with open(os.path.join(out_dir, f"{leg['name']}.r{rank}.pkl"),
                   "wb") as f:

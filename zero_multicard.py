@@ -153,13 +153,22 @@ ep 4 with the int8 ``quantized_dispatch``; rank 0 prints each run's
 losses and their largest relative difference from dp 4 × ep 1 (gate 2^-7;
 1e-2 for the int8 run, ``tools/moe_smoke.py``'s), step ms, the exchange's
 bytes on the wire a forward and its ms timed alone, and each rank's peak.
-(ii) Mixtral-8x7B width (hidden 4096, FFN 14336, 32/8 heads, 8 experts,
-top-2, vocab 32000) at 6 of 32 layers (8 would not fit a card: PERF.md
-§4's estimate), ZeRO 3 with ``overlap_comm``, bf16, remat, ``fusedadam``,
-4 rows of 2048 a rank: step ms, tokens/s, MFU on the active parameters
-(6·N_active + 12·L·S·D a token, N_active = N − L·(E − k)·3·D·I), each
-rank's peak.  It fails when a loss is not finite, the ranks disagree, or
-a run leaves its gate.
+The 2-hop int8 run (ep 4, ``intra_node_size`` 2) is also held within
+1e-2 of the 1-hop int8 run.  (ii) Mixtral-8x7B width (hidden 4096, FFN
+14336, 32/8 heads, 8 experts, top-2, vocab 32000), ZeRO 3 with
+``overlap_comm``, bf16, remat, the fused chunked head + loss,
+``fusedadam``, one global batch of 16 rows of 2048: dp 4 and ep 4 at 6 of
+32 layers (plain ZeRO 3 at dp 4 fits no more), then ep 4, tp 4 and
+tp 2 × ep 2 at 8, and ep 4 at 8 again with the batch's rows rotated over
+the data ranks (the same function, its sums in another order: ep 4's own
+bf16 spread, the witness beside the split legs' gaps).  Each: step ms,
+tokens/s, MFU on the active parameters (6·N_active + 12·L·S·D a token,
+N_active = N − L·(E − k)·3·D·I), each rank's peak, the exchange's bytes
+and ms a layer's forward, the rows routed to each rank at step 1, whether
+each tp group routed alike, and B7's launches by route.  Legs of equal
+depth must agree within 2^-7 of the losses' scale.  It fails when a loss
+is not finite, the ranks disagree, a tp group routes apart, or a run
+leaves its gate.
 
 ``--tp`` (four ranks) runs tensor parallelism, which exists only across
 cards: NCCL takes no two ranks on one GPU.  Random bf16 weights from
@@ -1552,9 +1561,27 @@ def _onebit_main(args, world, smi, out):
 MOE_HIDDEN, MOE_EXPERTS, MOE_K, MOE_CF = 4096, 8, 2, 1.25
 MOE_TOKENS = 8192          # a rank's rows a step
 MOE_RUNS = (("dp4", 1, None), ("ep4", 4, None), ("dp2ep2", 2, None),
-            ("ep4_int8", 4, "int8"))
-MIXTRAL_LAYERS = 6         # of 32: the estimate in PERF.md §4 (8 would not
+            ("ep4_int8", 4, "int8"), ("ep4_int8_2hop", 4, "int8"))
+MIXTRAL_LAYERS = 6         # of 32: plain ZeRO 3 at dp 4 (8 would not
                            # leave room for a gathered layer's gradients)
+MIXTRAL_SPLIT_LAYERS = 8   # ep 4, tp 4, tp 2 × ep 2: a rank holds 1/4 of
+                           # each layer's experts (PERF.md §6's estimate)
+MIXTRAL_LOSS_CHUNK = 4000  # the fused chunked head + loss: at tp 4 a rank's
+                           # 32768 tokens' whole-vocabulary fp32 logits
+                           # (3.9 GiB) did not fit beside 8 layers
+
+
+def _mixtral_legs(args, cpu):
+    """(name, layers, mesh) of (ii): ZeRO 3 at dp 4 and ep 4 at the plain
+    depth, then ep 4, tp 4 and tp 2 × ep 2 at the split depth, and ep 4
+    there again on the batch's rows rotated over the data ranks
+    (``_rot``)."""
+    base = 2 if cpu else MIXTRAL_LAYERS
+    deep = 3 if cpu else MIXTRAL_SPLIT_LAYERS
+    return (("dp4", base, {}), ("ep4", base, {"ep": 4}),
+            ("ep4_deep", deep, {"ep": 4}), ("tp4_deep", deep, {"tp": 4}),
+            ("tp2ep2_deep", deep, {"tp": 2, "ep": 2}),
+            ("ep4_deep_rot", deep, {"ep": 4}))
 
 
 def moe_layer_model(torch, D, seed, device="cuda", dtype="bfloat16"):
@@ -1600,7 +1627,7 @@ def _exchange_bytes(E, C, D, dtype_bytes, ep):
     element on the flat rung)."""
     from deepspeed_tpu_torch.comm.collectives import quantized as Q
     from deepspeed_tpu_torch.moe import engine as moe_engine
-    wire, gs, jax_formula = moe_engine.exchange_plan(E, C, D)
+    wire, gs, _, jax_formula = moe_engine.exchange_plan(E, C, D)
     if ep <= 1:
         return 0, jax_formula
     n = E * C * D
@@ -1616,12 +1643,13 @@ def _exchange_ms(torch, E, C, D, dtype, reps=5):
     ep_group = moe_engine._ep_group()
     if ep_group is None:
         return 0.0
-    wire, gs, _ = moe_engine.exchange_plan(E, C, D)
+    wire, gs, split, _ = moe_engine.exchange_plan(E, C, D)
     buf = torch.randn(E, C, D, device="cuda").to(dtype)
+    hier = moe_engine.ep_hierarchy(split=split) if split else None
 
     def once():
-        local = moe_engine._Exchange.apply(buf, ep_group, wire, gs)
-        moe_engine._Collect.apply(local, ep_group, wire, gs)
+        local = moe_engine._Exchange.apply(buf, ep_group, wire, gs, hier)
+        moe_engine._Collect.apply(local, ep_group, wire, gs, hier)
 
     once()
     torch.cuda.synchronize()
@@ -1657,6 +1685,8 @@ def run_moe_rank(args):
         moe = {"enabled": True}
         if wire:
             moe.update(quantized_dispatch=True, wire_dtype=wire)
+        if name.endswith("2hop"):
+            moe["intra_node_size"] = 2
         config = {"train_micro_batch_size_per_gpu": T,
                   "optimizer": ADAM, "zero_optimization": {"stage": 2},
                   "mesh": {"dp": -1, "ep": ep}, "moe": moe}
@@ -1689,12 +1719,15 @@ def run_moe_rank(args):
             MOE_EXPERTS, C, D, 4 if cpu else 2, ep_now)
         ex_ms = 0.0 if cpu else _exchange_ms(torch, MOE_EXPERTS, C, D,
                                              torch.bfloat16)
+        from deepspeed_tpu_torch.moe import engine as moe_engine
+        two_hop = moe_engine.ep_hierarchy() is not None
         peak = 0 if cpu else torch.cuda.max_memory_allocated()
         mine = torch.tensor(losses + [peak], dtype=torch.float64,
                             device=dev)
         every = comm.all_gather(mine, tiled=False).cpu()
         out["layer"].append(dict(
             name=name, ep=ep_now, world=world, wire=wire or "flat",
+            two_hop=two_hop,
             losses=losses, step_ms=[t * 1e3 for t in times[1:]],
             exchange_wire_bytes=wire_bytes,
             exchange_bytes_jax_formula=jax_bytes, exchange_ms=ex_ms,
@@ -1708,78 +1741,168 @@ def run_moe_rank(args):
         gc.collect()
         if not cpu:
             torch.cuda.empty_cache()
-    out["mixtral"] = _moe_mixtral(args, torch, np, cpu, dev, sync)
+    out["mixtral"] = []
+    for name, layers, mesh in _mixtral_legs(args, cpu):
+        if comm.get_rank() == 0:
+            print(f"[moe] Mixtral leg {name} ({layers} layers, mesh {mesh})"
+                  " starts", flush=True)
+        out["mixtral"].append(_moe_mixtral(args, torch, np, cpu, dev, sync,
+                                           name, layers, mesh))
+        if comm.get_rank() == 0:
+            # kept in the output should a later leg fail
+            print("[moe] leg " + json.dumps(out["mixtral"][-1]), flush=True)
     if comm.get_rank() == 0:
         with open(args.out_rank0, "w") as f:
             json.dump(out, f)
     comm.destroy_process_group()
 
 
-def _moe_mixtral(args, torch, np, cpu, dev, sync):
-    """(ii): Mixtral-8x7B width at ``MIXTRAL_LAYERS`` layers, ZeRO 3 with
-    ``overlap_comm``, bf16, remat, ``fusedadam``, 4 rows of 2048 a rank."""
+def _mixtral_exchange_ms(torch, engine, T, D, k, reps=5):
+    """One layer's forward exchange alone (the gather of the tokens and of
+    the routing, the reduce-scatter of the outputs), timed with CUDA
+    events; 0 where the model has no ep group."""
+    from deepspeed_tpu_torch.comm.functional import all_gather, \
+        reduce_scatter
+    block = engine.module.model.layers[0].block_sparse_moe
+    group = block.ep_group
+    if group is None or group.size() == 1:
+        return 0.0
+    x = torch.randn(T, D, device="cuda").to(torch.bfloat16)
+    meta = torch.randn(T, 2 * k, device="cuda")
+    out = torch.randn(group.size() * T, D, device="cuda").to(torch.bfloat16)
+
+    def once():
+        all_gather(x, group, 0)
+        all_gather(meta, group, 0)
+        reduce_scatter(out, group, 0)
+
+    once()
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(reps):
+        once()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def _moe_mixtral(args, torch, np, cpu, dev, sync, name, layers, mesh,
+                 zero=None):
+    """(ii): one leg at Mixtral-8x7B width (``mesh``: the config's
+    ``mesh``; ``tp`` legs take ``mixtral.tp_rules``), ``layers`` of 32,
+    ZeRO 3 with ``overlap_comm`` (``zero``: another block), bf16, remat,
+    the fused chunked head + loss (``MIXTRAL_LOSS_CHUNK`` columns),
+    ``fusedadam``, one global batch of 16 rows of 2048 (4 a rank at dp or
+    ep 4, 16 at tp 4, 8 at tp 2 × ep 2; a ``_rot`` leg gives data rank r
+    the rows of rank r + 1: the same loss, summed in another order).  Also
+    the exchange's bytes
+    and ms a layer's forward, each rank's routed rows at step 1, whether
+    every tp rank routed alike at step 1, and B7's launches by route."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch import comm
-    from deepspeed_tpu_torch.models.mixtral import (MixtralConfig,
-                                                    MixtralModel,
-                                                    mixtral_tiny,
-                                                    param_count)
+    from deepspeed_tpu_torch.models import mixtral
+    from deepspeed_tpu_torch.ops.kernels import grouped_matmul as gm
+    from deepspeed_tpu_torch.utils import groups
     if cpu:
-        cfg, B, S = mixtral_tiny(dtype="float32"), 2, 32
+        cfg = mixtral.mixtral_tiny(dtype="float32", num_hidden_layers=layers,
+                                   loss_chunk_vocab=32)
+        rows, S = 8, 32
     else:
-        cfg = MixtralConfig(
+        cfg = mixtral.MixtralConfig(
             vocab_size=32000, hidden_size=4096, intermediate_size=14336,
-            num_hidden_layers=MIXTRAL_LAYERS, num_attention_heads=32,
+            num_hidden_layers=layers, num_attention_heads=32,
             num_key_value_heads=8, max_position_embeddings=4096,
             rope_theta=1e6, num_local_experts=8, num_experts_per_tok=2,
-            dtype="bfloat16", head_dtype="bfloat16", remat=True)
-        B, S = 4, 2048
-    config = {"train_micro_batch_size_per_gpu": B, "optimizer": ADAM,
-              "zero_optimization": dict(ZERO3)}
+            dtype="bfloat16", head_dtype="bfloat16", remat=True,
+            loss_chunk_vocab=MIXTRAL_LOSS_CHUNK)
+        rows, S = 16, 2048
+    config = {"train_batch_size": rows, "optimizer": ADAM,
+              "zero_optimization": dict(zero or ZERO3),
+              "mesh": dict(mesh)}
     if not cpu:
         config["bf16"] = {"enabled": True}
+    tp = mesh.get("tp", 1)
     engine = deepspeed_tpu_torch.initialize(
-        model=MixtralModel(cfg, device="meta"), config=config,
-        device=dev if cpu else None)[0]
+        model=mixtral.MixtralModel(cfg, device="meta"), config=config,
+        device=dev if cpu else None,
+        tp_rules=mixtral.tp_rules(cfg) if tp > 1 else None)[0]
     engine.initialize_parameters(args.seed)
-    world = engine.dp_world_size
+    data = engine.dp_world_size
+    world = comm.get_world_size()
+    B = rows // data
     rng = np.random.default_rng(args.seed + 2)
-    ids = engine.shard_batch(rng.integers(0, cfg.vocab_size,
-                                          size=(B * world, S)))[0]
+    ids = rng.integers(0, cfg.vocab_size, size=(rows, S))
+    if name.endswith("_rot"):
+        ids = np.roll(ids, -B, axis=0)
+    ids = engine.shard_batch(ids)[0]
     if not cpu:
         torch.cuda.reset_peak_memory_stats()
+    for fn in (gm.gmm, gm.gmm_dx, gm.gmm_dw):
+        fn.route_launches = dict.fromkeys(fn.route_launches, 0)
     losses, times = [], []
-    for _ in range(1 + args.steps):
+    rows = routed_alike = None
+    for i in range(1 + args.steps):
         sync()
         t = time.perf_counter()
         loss = engine(ids, ids)
+        if i == 0:
+            blocks = [m.block_sparse_moe for m in engine.module.model.layers]
+            rows = [int(b.routed_rows.sum()) for b in blocks]
+            k = cfg.num_experts_per_tok
+            topi = torch.stack([torch.topk(b.router_logits, k, dim=-1)
+                                .indices for b in blocks])
+            tpg = groups._get_tensor_parallel_group().as_flat()
+            every = comm.all_gather(topi, group=tpg, tiled=False) \
+                if tp > 1 else topi[None]
+            routed_alike = bool((every == every[0]).all())
         engine.backward(loss)
         engine.step()
         losses.append(loss.item())
         sync()
         times.append(time.perf_counter() - t)
+    routes = {fn.__name__: {r: n for r, n in fn.route_launches.items()
+                            if n} for fn in (gm.gmm, gm.gmm_dx, gm.gmm_dw)}
     L, D, I, E = (cfg.num_hidden_layers, cfg.hidden_size,
                   cfg.intermediate_size, cfg.num_local_experts)
     k = cfg.num_experts_per_tok
-    n_total = param_count(cfg)
+    n_total = mixtral.param_count(cfg)
     n_active = n_total - L * (E - k) * 3 * D * I
     step_s = sum(times[1:]) / len(times[1:])
-    tok_s = B * S * world / step_s
+    tok_s = B * S * data / step_s
     flops_tok = 6 * n_active + 12 * L * S * D
+    ep = groups._get_expert_parallel_world_size() if world > 1 else 1
+    T = B * S
+    esz = 4 if cpu else 2
+    # a layer's forward: the gathered tokens and routing in, the reduce-
+    # scattered outputs out, (ep - 1) · T rows each way a rank
+    ex_in = (ep - 1) * T * (D * esz + 2 * k * 4)
+    ex_out = (ep - 1) * T * D * esz
+    ex_ms = 0.0 if cpu else _mixtral_exchange_ms(torch, engine, T, D, k)
     peak = 0 if cpu else torch.cuda.max_memory_allocated()
-    every = comm.all_gather(torch.tensor(losses + [peak],
-                                         dtype=torch.float64, device=dev),
-                            tiled=False).cpu()
-    row = dict(layers=L, world=world, n_params=n_total, n_active=n_active,
-               losses=losses, step_ms=[t * 1e3 for t in times[1:]],
+    mine = torch.tensor(losses + [peak] + rows + [float(routed_alike)],
+                        dtype=torch.float64, device=dev)
+    every = comm.all_gather(mine, tiled=False).cpu()
+    n = len(losses)
+    row = dict(name=name, mesh=mesh, layers=L, world=world, data=data,
+               rows=B, seq=S,
+               n_params=n_total, n_active=n_active, losses=losses,
+               step_ms=[t * 1e3 for t in times[1:]],
                step_ms_mean=step_s * 1e3, tokens_per_s=tok_s,
                mfu_active=tok_s * flops_tok / world / PEAK_FLOPS,
                flops_per_token=flops_tok,
-               peak_bytes_by_rank=[int(v) for v in every[:, -1].tolist()],
-               rank_losses_equal=bool((every[:, :-1] ==
-                                       every[0, :-1]).all()))
+               peak_bytes_by_rank=[int(v) for v in every[:, n].tolist()],
+               routed_rows_by_rank=[[int(v) for v in r[n + 1:n + 1 + L]]
+                                    for r in every.tolist()],
+               tp_routed_alike=bool(every[:, -1].all()),
+               exchange_bytes_in=ex_in, exchange_bytes_out=ex_out,
+               exchange_ms=ex_ms, route_launches=routes,
+               rank_losses_equal=bool((every[:, :n] ==
+                                       every[0, :n]).all()))
     del engine
     gc.collect()
+    if not cpu:
+        torch.cuda.empty_cache()
     return row
 
 
@@ -1800,6 +1923,15 @@ def _moe_main(args, world, smi, out):
         gate = 1e-2 if r["wire"] != "flat" else 2.0**-7
         ok &= (r["rank_losses_equal"] and diff <= gate and
                all(map(math.isfinite, r["losses"])))
+        if r["name"].endswith("2hop"):
+            # the 2-hop exchange against the 1-hop one on the same wire
+            one = runs["ep4_int8"]["losses"]
+            r["max_rel_loss_diff_vs_1hop"] = hop = max(
+                abs(a - b) / abs(b) for a, b in zip(r["losses"], one))
+            ok &= r["two_hop"] and hop <= 1e-2
+            print(f"[moe] {r['name']}: 2-hop taken {r['two_hop']}, largest "
+                  f"relative loss difference from 1-hop int8 {hop:.3e} "
+                  "(gate 1e-2)", flush=True)
         ms = r["step_ms"]
         print(f"[moe] MoE layer (hidden {MOE_HIDDEN}, {MOE_EXPERTS} experts "
               f"of 4×{MOE_HIDDEN}, top-{MOE_K}, cf {MOE_CF}, bf16, "
@@ -1818,19 +1950,50 @@ def _moe_main(args, world, smi, out):
               f"GiB by rank "
               + ", ".join(f"{b / 2**30:.2f}" for b in r["peak_bytes_by_rank"])
               + f" | {smi}", flush=True)
-    m = res["mixtral"]
-    ok &= m["rank_losses_equal"] and all(map(math.isfinite, m["losses"]))
-    print(f"[moe] Mixtral-8x7B width, {m['layers']} of 32 layers "
-          f"({m['n_params'] / 1e9:.2f} G elements, {m['n_active'] / 1e9:.2f}"
-          f" G active a token), ZeRO 3 overlap_comm, bf16, remat, "
-          f"fusedadam, world {m['world']}, 4 × 2048 tokens a rank: losses "
-          + ", ".join(f"{x:.4f}" for x in m["losses"])
-          + f" | step ms mean {m['step_ms_mean']:.1f}, "
-          f"{m['tokens_per_s']:.1f} tokens/s over the world, MFU "
-          f"{m['mfu_active']:.4f} on the active parameters (6·N_active + "
-          f"12·L·S·D a token, 989 TFLOP/s a card) | peak GiB by rank "
-          + ", ".join(f"{b / 2**30:.2f}" for b in m["peak_bytes_by_rank"])
-          + f" | {smi}", flush=True)
+    legs = {m["name"]: m for m in res["mixtral"]}
+    # equal depth: ep 4 against dp 4, and the split legs against one
+    # another, within 2^-7 of the losses' scale (bf16 sums in other
+    # orders; ep4_deep_rot is ep 4's own spread under another order)
+    for names in (("dp4", "ep4"), ("ep4_deep", "tp4_deep", "tp2ep2_deep",
+                                   "ep4_deep_rot")):
+        ref = legs[names[0]]["losses"]
+        scale = max(abs(x) for x in ref)
+        for name in names[1:]:
+            m = legs[name]
+            m["loss_diff_by_step_vs_" + names[0]] = gaps = [
+                abs(a - b) for a, b in zip(m["losses"], ref)]
+            m["max_loss_diff_vs_" + names[0]] = diff = max(gaps)
+            m["loss_gate"] = 2.0**-7 * scale
+            ok &= diff <= m["loss_gate"]
+    for m in res["mixtral"]:
+        ok &= (m["rank_losses_equal"] and m["tp_routed_alike"] and
+               all(map(math.isfinite, m["losses"])))
+        gap = next((f" | loss differences from {k[len('max_loss_diff_vs_'):]} "
+                    f"by step " + ", ".join(
+                        f"{d:.3e}" for d in
+                        m["loss_diff_by_step_vs_"
+                          + k[len("max_loss_diff_vs_"):]])
+                    + f", largest {v:.3e} (gate {m['loss_gate']:.3e})"
+                    for k, v in m.items() if k.startswith("max_loss_diff")),
+                   "")
+        print(f"[moe] Mixtral-8x7B width {m['name']} (mesh {m['mesh']}), "
+              f"{m['layers']} of 32 layers ({m['n_params'] / 1e9:.2f} G "
+              f"elements, {m['n_active'] / 1e9:.2f} G active a token), "
+              f"ZeRO 3 overlap_comm, bf16, remat, fusedadam, world "
+              f"{m['world']} ({m['data']} data ranks), {m['rows']} × "
+              f"{m['seq']} tokens a data rank: losses "
+              + ", ".join(f"{x:.4f}" for x in m["losses"]) + gap
+              + f" | step ms mean {m['step_ms_mean']:.1f}, "
+              f"{m['tokens_per_s']:.1f} tokens/s over the world, MFU "
+              f"{m['mfu_active']:.4f} on the active parameters (6·N_active "
+              f"+ 12·L·S·D a token, 989 TFLOP/s a card) | peak GiB by rank "
+              + ", ".join(f"{b / 2**30:.2f}" for b in m["peak_bytes_by_rank"])
+              + f" | exchange a layer's forward {m['exchange_bytes_in'] / 2**20:.1f}"
+              f" MiB in, {m['exchange_bytes_out'] / 2**20:.1f} MiB out, "
+              f"{m['exchange_ms']:.3f} ms timed alone | routed rows at step "
+              f"1 by rank (a layer each) {m['routed_rows_by_rank']} | tp "
+              f"ranks routed alike {m['tp_routed_alike']} | B7 launches by "
+              f"route {m['route_launches']} | {smi}", flush=True)
     if args.json:
         with open(args.json, "w") as f:
             json.dump(dict(card=smi, **res), f, indent=1)
